@@ -15,12 +15,15 @@ import torch
 
 from .phy.slot_programs import CellConfig
 from .phy.upper.dmrs import DmrsConfig
+from .phy.upper.pdcch import CoresetConfig, PdcchConfig
 from .phy.upper.pdsch import PdschConfig, PdschPtrs
 from .phy.upper.pusch import PuschConfig
+from .phy.upper.ssb import SsbConfig
 
 # Port classes by name; a JAX config maps to the port class of its name.
 CONFIG_CLASSES = {cls.__name__: cls for cls in
-                  (CellConfig, DmrsConfig, PdschConfig, PdschPtrs, PuschConfig)}
+                  (CellConfig, CoresetConfig, DmrsConfig, PdcchConfig,
+                   PdschConfig, PdschPtrs, PuschConfig, SsbConfig)}
 
 
 def config(jax_cfg):
@@ -28,9 +31,9 @@ def config(jax_cfg):
 
     Field names are read through ``dataclasses.asdict`` and must match the
     port class exactly.  Nested configs of the JAX package's own modules
-    (PdschPtrs) convert recursively; nested types that both packages share
-    (``srsran_tpu.ran``: UciOnPuschConfig, PrecodingConfig, CyclicPrefix)
-    are kept as they are.
+    (PdschPtrs, PdcchConfig.coreset) convert recursively; nested types that
+    both packages share (``srsran_tpu.ran``: UciOnPuschConfig,
+    PrecodingConfig, CyclicPrefix) are kept as they are.
     """
     cls = CONFIG_CLASSES[type(jax_cfg).__name__]
     names = set(dataclasses.asdict(jax_cfg))
@@ -68,15 +71,22 @@ def _ctx_value(value, device):
         # c_init seeds key the host-built pilot cache: they stay on the host
         # (as int64, torch has no uint32 ops) so no slot reads them back.
         return torch.as_tensor(arr.astype(np.int64))
-    return torch.as_tensor(arr).to(device)
+    return torch.as_tensor(np.array(arr)).to(device)
+
+
+def _ctx_entry(entry, device):
+    if entry is None:
+        return None
+    if isinstance(entry, tuple):
+        # ctx["ssb"][i] is a pair (static_bits [32], scramble_mask [32]):
+        # it stays a pair of int8 tensors.
+        return tuple(_ctx_value(e, device) for e in entry)
+    return _ctx_value(entry, device)
 
 
 def slot_context(ctx: dict, device: torch.device | str) -> dict:
     """The conductor's slot context ({"pusch": (values, ...), ...}, numpy
-    leaves: pilot values complex64, moved to ``device``, or c_inits uint32,
-    kept on the host)."""
-    out = {}
-    for key, entries in ctx.items():
-        out[key] = tuple(None if e is None else _ctx_value(e, device)
-                         for e in entries)
-    return out
+    leaves: pilot values complex64 and SSB bit pairs int8, moved to
+    ``device``; c_inits uint32, kept on the host)."""
+    return {key: tuple(_ctx_entry(e, device) for e in entries)
+            for key, entries in ctx.items()}

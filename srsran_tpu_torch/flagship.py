@@ -1,11 +1,20 @@
-"""The flagship UL slot scenario on one device: configs, inputs, kernel cases.
+"""The flagship slot scenarios on one device: configs, inputs, kernel cases.
 
-The JAX bench's flagship cell and PUSCH (bench.py:254-271): a 100 MHz cell
-with 4 ports, 273 RB, a 4096-point FFT and 30 kHz SCS; 2-layer QAM64 on
-269 RB at rate 0.7, TBS 311400 (BG1, Z=384, 37 codeblocks).  The UE side
-transmits the same codeword with the port's PDSCH chain (bench.py:339-350)
-through a seeded flat 4x2 channel with AWGN.  ``chip_smoke.py`` and
-``python3 -m srsran_tpu_torch.profile_slot`` both drive this scenario.
+The JAX bench's flagship cell (bench.py:254-271): a 100 MHz cell with 4
+ports, 273 RB, a 4096-point FFT and 30 kHz SCS.
+
+* UL: 2-layer QAM64 PUSCH on 269 RB at rate 0.7, TBS 311400 (BG1, Z=384,
+  37 codeblocks).  The UE side transmits the same codeword with the port's
+  PDSCH chain (bench.py:339-350) through a seeded flat 4x2 channel with
+  AWGN.
+* DL (bench.py:256-265, 386-420): an SSB every 40th slot (pci 1, symbols
+  2-5, subcarriers 48-287), an AL8 PDCCH in a 48-RB CORESET with a 60-bit
+  DCI, and a 4-layer 256QAM PDSCH on all 273 RB, TBS 835584 (BG1, Z=384,
+  100 codeblocks), with the slot context of the JAX conductor's
+  ``normalize_dl_plan`` built by the port's own host builders.
+
+``chip_smoke.py`` and ``python3 -m srsran_tpu_torch.profile_slot`` drive
+these scenarios.
 """
 
 from __future__ import annotations
@@ -15,9 +24,13 @@ import dataclasses
 import numpy as np
 import torch
 
-from .ops import ldpc_decode, ldpc_rate_match, ofdm, ul_demap
-from .phy.slot_programs import CellConfig, dl_slot_fn, ul_slot_fn
-from .phy.upper import dmrs, pdsch, pusch
+from .ops import (dl_map, ldpc_decode, ldpc_encode, ldpc_rate_match, ofdm,
+                  ul_demap)
+from .ops.modulation import demodulate
+from .ops.scrambling import descramble_llrs
+from .phy.slot_programs import (CellConfig, dl_slot_fn, dl_slot_fn_samples,
+                                ul_slot_fn)
+from .phy.upper import dmrs, pdcch, pdsch, pusch, sch_decoder, ssb
 
 SNR_DB = 30.0
 
@@ -130,4 +143,149 @@ def kernel_cases(rx: torch.Tensor, ctx: dict, gen: torch.Generator) -> dict:
                          ldpc_rate_match.rate_dematch_combine_ref, k2),
         "ldpc_decode": (ldpc_decode.decode_early_stop,
                         ldpc_decode.decode_early_stop_ref, k1),
+    }
+
+
+# ----------------------------------------------------------------- DL slot
+
+DL_CELL = CELL
+SSB = ssb.SsbConfig(phys_cell_id=1, ssb_idx=0, l_max=8, sfn=0,
+                    first_symbol=2, first_subcarrier=48)
+CORESET = pdcch.CoresetConfig(rb_start=0, nof_rb=48, start_symbol=0,
+                              duration=1)
+PDCCH = pdcch.PdcchConfig(coreset=CORESET, rnti=0x4601, aggregation_level=8,
+                          cce_index=0, payload_bits=60, n_id=1, n_id_data=1)
+PDSCH = pdsch.PdschConfig(rnti=0x4601, rb_start=0, rb_count=273,
+                          first_symbol=1, nof_symbols=12, modulation="qam256",
+                          target_code_rate=0.8, tbs=835584, nof_layers=4,
+                          n_id=1, dmrs_symbols=(2, 11))
+DL_SEG = pdsch.segmentation(PDSCH)
+SSB_PERIOD_SLOTS = 40          # 20 ms at 30 kHz SCS, every 2nd slot index
+MIB_BITS = 24
+# The normalized plans (normalize_dl_plan: sfn=0, hrf=False for the SSB,
+# slot_in_frame=0 for the PDCCH and the PDSCH).
+DL_PLAN_SSB = ((SSB,), (PDCCH,), (PDSCH,), (), ())
+DL_PLAN = ((), (PDCCH,), (PDSCH,), (), ())
+
+
+def dl_program(with_ssb: bool):
+    """The flagship DL slot program (samples only), as the bench calls it."""
+    return dl_slot_fn_samples(DL_CELL, DL_PLAN_SSB if with_ssb else DL_PLAN)
+
+
+def dl_grid_program(with_ssb: bool):
+    """The same plan's program that also returns the grid."""
+    return dl_slot_fn(DL_CELL, DL_PLAN_SSB if with_ssb else DL_PLAN)
+
+
+def _up(arr, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(arr)).to(device)
+
+
+def dl_slot_context(index: int, device) -> dict:
+    """The slot context of DL slot ``index`` (slot point (1, 2*index), as
+    the bench numbers its slots), every leaf on ``device``."""
+    sfn, sif = divmod(2 * index, 20)
+    with_ssb = index % SSB_PERIOD_SLOTS == 0
+    ssb_ctx = ((tuple(_up(a, device) for a in ssb.slot_ctx_for(
+        dataclasses.replace(SSB, sfn=sfn))),) if with_ssb else ())
+    return {
+        "ssb": ssb_ctx,
+        "pdcch": (_up(pdcch.dmrs_values_for(
+            dataclasses.replace(PDCCH, slot_in_frame=sif)), device),),
+        "pdsch": (_up(dmrs.pilot_values_for(pdsch.dmrs_config(
+            dataclasses.replace(PDSCH, slot_in_frame=sif))), device),),
+        "ptrs": (None,), "pm": (None,), "csi": (), "prs": (),
+    }
+
+
+def make_dl_slots(n: int, rng: np.random.Generator, device) -> list:
+    """``n`` DL slots, each a dict: ``with_ssb``, ``args`` (ssb_mib,
+    pdcch_payloads, pdsch_payloads, ctx) for the slot program, and ``tb``
+    (the PDSCH payload).  Slot i is slot point (1, 2*i); every 40th carries
+    the SSB.  Payloads and context are uploaded here, before any timing."""
+    slots = []
+    for i in range(n):
+        with_ssb = i % SSB_PERIOD_SLOTS == 0
+        tb = _up(rng.integers(0, 2, PDSCH.tbs).astype(np.int8), device)
+        dci = _up(rng.integers(0, 2, PDCCH.payload_bits).astype(np.int8),
+                  device)
+        mib = (_up(rng.integers(0, 2, MIB_BITS).astype(np.int8), device),)
+        slots.append(dict(with_ssb=with_ssb, tb=tb, args=(
+            mib if with_ssb else (), (dci,), (tb,), dl_slot_context(i, device))))
+    return slots
+
+
+def dl_loopback(samples: torch.Tensor):
+    """Receive a non-SSB DL slot's PDSCH back from its samples: OFDM
+    demodulate (K4), take the data REs of ports 0-3 (identity precoding:
+    port p carries 0.5 x layer p), demap 256QAM and descramble (plain), then
+    rate dematch (K2) and LDPC decode with CRC early stop (K1).  Returns the
+    shared-channel decoder's result."""
+    cell = DL_CELL
+    grid = ofdm.demodulate_slot(samples, cell.nof_sc, cell.dft_size,
+                                cell.numerology, cell.cp, 0,
+                                cell.center_freq_hz)
+    key = pdsch.plan_key(PDSCH)
+    dev = samples.device
+    sym = torch.as_tensor(pdsch.data_re_plan_column(*key, 0)).to(dev)
+    sc = torch.as_tensor(pdsch.data_re_plan_column(*key, 1)).to(dev)
+    x = (grid[:, sym, sc] / 0.5).T.reshape(-1)       # codeword symbol order
+    nv = torch.full((1, x.numel()), 1e-2, device=dev)
+    llr = demodulate(x[None], nv, PDSCH.modulation)[0]
+    llr = descramble_llrs(llr, (PDSCH.rnti << 15) + PDSCH.n_id)
+    return sch_decoder.decode(llr, DL_SEG,
+                              list(pdsch.rate_match_sizes(PDSCH)), PDSCH.rv,
+                              8, PDSCH.tbs)
+
+
+def _map_on_copy(fn):
+    """K6 adds into its grid: compare and time it on a fresh copy."""
+    def run(grid, *args):
+        return fn(grid.clone(), *args)
+    return run
+
+
+# A small allocation at a low code rate, rv 2: every codeblock bit repeats.
+REPETITION = dataclasses.replace(PDSCH, rb_start=100, rb_count=6,
+                                 modulation="qpsk", target_code_rate=0.1,
+                                 tbs=296, rv=2)
+
+
+def dl_kernel_cases(slot: dict) -> dict:
+    """name -> (wrapper, plain twin, args) for K5-K7 at the flagship DL
+    shapes, from one SSB slot: K5 encodes its TB; K6 maps the encoded
+    codeblocks onto the grid that holds its SSB and PDCCH; K7 modulates the
+    twins' full grid.  Plus "pdsch_map_repetition": K6 on
+    :data:`REPETITION` (compared only)."""
+    mib, dci, tbs, ctx = slot["args"]
+    tb = tbs[0]
+    dev = tb.device
+    cell = DL_CELL
+    base = torch.zeros((cell.nof_ports, 14, cell.nof_sc), dtype=torch.complex64,
+                       device=dev)
+    if mib:
+        ssb.map_ssb_to_grid(base, SSB, mib[0], ctx["ssb"][0])
+    pdcch.process(base, dci[0], PDCCH, dmrs_cinits=ctx["pdcch"][0])
+    cbs = ldpc_encode.dlsch_encode_ref(tb, DL_SEG.base_graph).contiguous()
+    k6 = pdsch.map_args(base, PDSCH, cbs,
+                        pdsch.identity(cell.nof_ports, PDSCH.nof_layers, dev))
+    full = dl_map.pdsch_map_ref(base.clone(), *k6[1:])
+    dmrs.map_to_grid(full, pdsch.dmrs_config(PDSCH), k6[-1], ctx["pdsch"][0])
+    k7 = (full, cell.dft_size, cell.numerology, cell.cp, 0,
+          cell.center_freq_hz, cell.tx_scale)
+    rep_seg = pdsch.segmentation(REPETITION)
+    rep_tb = _up(np.random.default_rng(REPETITION.rv).integers(
+        0, 2, REPETITION.tbs).astype(np.int8), dev)
+    rep = pdsch.map_args(base, REPETITION, ldpc_encode.dlsch_encode_ref(
+        rep_tb, rep_seg.base_graph).contiguous(), k6[-1])
+    return {
+        "dlsch_encode": (ldpc_encode.dlsch_encode,
+                         ldpc_encode.dlsch_encode_ref,
+                         (tb, DL_SEG.base_graph)),
+        "pdsch_map": (_map_on_copy(dl_map.pdsch_map),
+                      _map_on_copy(dl_map.pdsch_map_ref), k6),
+        "ofdm_modulate": (ofdm.modulate_slot, ofdm.modulate_slot_ref, k7),
+        "pdsch_map_repetition": (_map_on_copy(dl_map.pdsch_map),
+                                 _map_on_copy(dl_map.pdsch_map_ref), rep),
     }

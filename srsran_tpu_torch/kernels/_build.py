@@ -44,6 +44,12 @@ SIGNATURES = {
                            _P, _P, _I, _P, _P, _P, _P],
     "srsran_ofdm_window": [_P, _P, _P, _I, _I, _I, _I, _P],
     "srsran_ofdm_bins_to_grid": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "srsran_dlsch_encode": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _P, _P, _P, _P, _I, _P, _P],
+    "srsran_pdsch_map": [_P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P,
+                         _I, _I, _P, _I, _P, _I, _I, _P],
+    "srsran_ofdm_grid_to_bins": [_P, _P, _I, _I, _I, _I, _P],
+    "srsran_ofdm_cp_insert": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 

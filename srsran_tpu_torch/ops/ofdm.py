@@ -10,9 +10,11 @@ gather before the FFT and the ramp/compensation/swap pass after it are the
 hand kernels of csrc/ofdm_demod.cu, with cuFFT (torch.fft) between them; on
 CPU tensors it runs :func:`demodulate_slot_ref`, the plain twin.  It
 replaces the passes around the FFT of srsran_tpu/ops/ofdm.py::
-demodulate_slot; on the card both passes are memory-bound gathers (about
-2 MB each at the flagship), and the kernel design is in the .cu file.
-:func:`modulate_slot` (the test transmitter) is plain PyTorch.
+demodulate_slot.  :func:`modulate_slot` is the K7 wrapper in the same way:
+csrc/ofdm_mod.cu's grid-to-bins pass, cuFFT's IFFT, then its compensation
+and CP-insertion pass; twin :func:`modulate_slot_ref`.  On the card all
+these passes are memory-bound gathers (about 2 MB each at the flagship),
+and the kernel designs are in the .cu files.
 """
 
 from __future__ import annotations
@@ -32,6 +34,10 @@ KERNEL = kernels.register(kernels.Kernel(
     name="ofdm_demodulate", route="cuda",
     source="srsran_tpu_torch/csrc/ofdm_demod.cu",
     replaces="srsran_tpu/ops/ofdm.py:135"))
+KERNEL_TX = kernels.register(kernels.Kernel(
+    name="ofdm_modulate", route="cuda",
+    source="srsran_tpu_torch/csrc/ofdm_mod.cu",
+    replaces="srsran_tpu/ops/ofdm.py:72"))
 
 
 @functools.lru_cache(maxsize=None)
@@ -95,15 +101,19 @@ def _window_plan_rx(cp: CyclicPrefix, numerology: int, dft_size: int,
                      for s in starts], axis=0)
 
 
-def modulate_slot(grid: torch.Tensor, dft_size: int, numerology: int,
-                  cp: CyclicPrefix = CyclicPrefix.NORMAL,
-                  slot_in_subframe: int = 0, center_freq_hz: float = 0.0,
-                  scale: float = 1.0) -> torch.Tensor:
-    """OFDM-modulate one slot.  grid complex64 [..., S, K] -> samples [..., T]."""
-    _, _, total = _symbol_layout(cp, numerology, dft_size, slot_in_subframe)
+def _check_tx(grid, cp) -> int:
     nsym = symbols_per_slot(cp)
     if grid.shape[-2] != nsym:
         raise ValueError(f"grid {tuple(grid.shape)} has no {nsym} symbols")
+    return nsym
+
+
+def modulate_slot_ref(grid: torch.Tensor, dft_size: int, numerology: int,
+                      cp: CyclicPrefix = CyclicPrefix.NORMAL,
+                      slot_in_subframe: int = 0, center_freq_hz: float = 0.0,
+                      scale: float = 1.0) -> torch.Tensor:
+    """Plain twin of :func:`modulate_slot` (any leading dims)."""
+    nsym = _check_tx(grid, cp)
     bins = _grid_to_bins(grid.to(torch.complex64), dft_size)
     x = torch.fft.ifft(bins, dim=-1, norm="ortho")
     comp = const(phase_compensation, cp, numerology, dft_size,
@@ -113,6 +123,54 @@ def modulate_slot(grid: torch.Tensor, dft_size: int, numerology: int,
                  device=grid.device, dtype=torch.long)
     out = x.reshape(x.shape[:-2] + (nsym * dft_size,))[..., plan]
     return out.to(torch.complex64)
+
+
+def _tx_table(i: int, cp, numerology, dft_size, slot_in_subframe,
+              center_freq_hz, scale) -> np.ndarray:
+    """Host tables of the TX passes: 0, the CP plan (int32 [T]); 1, the
+    per-symbol compensation times the scale (complex64 [S])."""
+    if i == 0:
+        return _cp_insert_plan(cp, numerology, dft_size, slot_in_subframe)
+    comp = phase_compensation(cp, numerology, dft_size, slot_in_subframe,
+                              center_freq_hz)
+    return (np.complex64(scale) * comp).astype(np.complex64)
+
+
+def modulate_slot(grid: torch.Tensor, dft_size: int, numerology: int,
+                  cp: CyclicPrefix = CyclicPrefix.NORMAL,
+                  slot_in_subframe: int = 0, center_freq_hz: float = 0.0,
+                  scale: float = 1.0) -> torch.Tensor:
+    """OFDM-modulate one slot.  grid complex64 [P, S, K] -> samples [P, T]
+    (the twin also takes other leading dims)."""
+    if not is_cuda(grid):
+        return modulate_slot_ref(grid, dft_size, numerology, cp,
+                                 slot_in_subframe, center_freq_hz, scale)
+    nsym = _check_tx(grid, cp)
+    if grid.dtype != torch.complex64 or grid.ndim != 3:
+        raise ValueError(f"grid must be complex64 [P, S, K], got "
+                         f"{grid.dtype} {tuple(grid.shape)}")
+    p, _, k = grid.shape
+    if k > dft_size:
+        raise ValueError(f"{k} subcarriers do not fit a {dft_size}-point DFT")
+    dev = grid.device
+    lib = _build.load()
+    key = (cp, numerology, dft_size, slot_in_subframe, float(center_freq_hz),
+           float(scale))
+    plan = const(_tx_table, 0, *key, device=dev)
+    comp = const(_tx_table, 1, *key, device=dev)
+    total = plan.shape[0]
+    stream = _build.stream_of(grid)
+    bins = torch.empty((p, nsym, dft_size), dtype=torch.complex64, device=dev)
+    _build.check(lib.srsran_ofdm_grid_to_bins(
+        _build.ptr(torch.view_as_real(grid.contiguous())), _build.ptr(bins),
+        p, nsym, k, dft_size, stream), "ofdm_grid_to_bins")
+    x = torch.fft.ifft(bins, dim=-1, norm="ortho")
+    out = torch.empty((p, total), dtype=torch.complex64, device=dev)
+    _build.check(lib.srsran_ofdm_cp_insert(
+        _build.ptr(x), _build.ptr(out), _build.ptr(plan), _build.ptr(comp),
+        p, nsym, dft_size, total, stream), "ofdm_cp_insert")
+    KERNEL_TX.count()
+    return out
 
 
 @functools.lru_cache(maxsize=None)

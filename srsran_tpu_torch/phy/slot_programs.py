@@ -3,13 +3,15 @@
 Port of srsran_tpu/phy/slot_programs.py.  A slot plan (the tuple of PDU
 configs) selects a program; the program is a Python closure over the plan,
 cached per (cell, plan, slot_in_subframe), that runs eagerly on the device
-of its input tensors.  This slice covers a PDSCH-only DL plan (the UE-side
-test transmitter) and a PUSCH-only UL plan; every other plan entry raises
-NotImplementedError naming the ROADMAP item that ports it.
+of its input tensors.  The DL program covers SSB, PDCCH and PDSCH plans
+(the flagship DL slot, and the UE-side test transmitter); the UL program a
+PUSCH-only plan.  Every other plan entry raises NotImplementedError naming
+the ROADMAP item that ports it.
 
-On CUDA the UL program runs without a host sync: its constants are cached
-on the device after the first call, the LDPC early stop and its iteration
-count stay on the device, and the result dict holds device tensors.
+On CUDA both programs run without a host sync: their constants are cached
+on the device after the first call, the slot context and payloads arrive
+as device tensors, the LDPC early stop and its iteration count stay on the
+device, and the results are device tensors.
 """
 
 from __future__ import annotations
@@ -22,8 +24,10 @@ import torch
 from srsran_tpu.ran.cyclic_prefix import CyclicPrefix, slot_num_samples
 
 from ..ops import ofdm
+from .upper import pdcch as pdcch_mod
 from .upper import pdsch as pdsch_mod
 from .upper import pusch as pusch_mod
+from .upper import ssb as ssb_mod
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,32 +66,55 @@ def _unsupported(kind: str, item: str) -> NotImplementedError:
 
 # ----------------------------------------------------------------- DL slot
 
+def _payload_device(*groups) -> torch.device:
+    """The one device of a DL slot's payload tensors; raises when they lie
+    on different devices or when there are none (the program never picks
+    a device of its own)."""
+    devices = {t.device for group in groups for t in group}
+    if len(devices) > 1:
+        raise ValueError(f"DL payloads on different devices: "
+                         f"{sorted(str(d) for d in devices)}")
+    if not devices:
+        raise ValueError("a DL slot without payloads has no device")
+    return devices.pop()
+
+
 def dl_slot_core(cell: CellConfig, plan, slot_in_subframe: int = 0):
-    """The DL slot program of a PDSCH-only plan.
+    """The DL slot program: SSB, then PDCCH, then PDSCH, then OFDM.
 
     plan = (ssb_cfgs, pdcch_cfgs, pdsch_cfgs, csi_rs_cfgs[, prs_cfgs]).
     Returned fn(ssb_mib, pdcch_payloads, pdsch_payloads, ctx=None) ->
-    (samples [P, T], grid [P, S, K]); ctx["pdsch"][i] carries DM-RS c_inits
-    or pilot values.
+    (samples [P, T], grid [P, S, K]) on the device of the payloads.  ctx
+    (the conductor's slot context, convert.slot_context): ctx["ssb"][i] a
+    pair (static_bits, scramble_mask), ctx["pdcch"][i] and ctx["pdsch"][i]
+    DM-RS pilot values or host c_inits; its "ptrs"/"pm" entries must be
+    None (PT-RS and per-PRG precoding are not ported).
     """
     _check_cell(cell)
     if len(plan) == 4:
         plan = plan + ((),)
     ssb_cfgs, pdcch_cfgs, pdsch_cfgs, csi_cfgs, prs_cfgs = plan
-    if ssb_cfgs:
-        raise _unsupported("SSB", "item 9")
-    if pdcch_cfgs:
-        raise _unsupported("PDCCH", "item 9")
-    if csi_cfgs or prs_cfgs:
-        raise _unsupported("CSI-RS / PRS", "item 13")
+    if csi_cfgs:
+        raise _unsupported("CSI-RS", "item 13")
+    if prs_cfgs:
+        raise _unsupported("PRS", "item 13")
     for cfg in pdsch_cfgs:
         pdsch_mod.check_supported(cfg)
+    nsym = 14 if cell.cp is CyclicPrefix.NORMAL else 12
 
     def run(ssb_mib, pdcch_payloads, pdsch_payloads, ctx=None):
-        device = pdsch_payloads[0].device if pdsch_payloads else "cpu"
-        nsym = 14 if cell.cp is CyclicPrefix.NORMAL else 12
+        device = _payload_device(ssb_mib, pdcch_payloads, pdsch_payloads)
+        for key, item in (("ptrs", "item 13"), ("pm", "item 8")):
+            if ctx and any(v is not None for v in ctx.get(key, ())):
+                raise _unsupported(f"slot context {key!r}", item)
         grid = torch.zeros((cell.nof_ports, nsym, cell.nof_sc),
                            dtype=torch.complex64, device=device)
+        for i, (cfg, mib) in enumerate(zip(ssb_cfgs, ssb_mib)):
+            sctx = ctx["ssb"][i] if ctx else None
+            grid = ssb_mod.map_ssb_to_grid(grid, cfg, mib, sctx)
+        for i, (cfg, bits) in enumerate(zip(pdcch_cfgs, pdcch_payloads)):
+            ci = ctx["pdcch"][i] if ctx else None
+            grid = pdcch_mod.process(grid, bits, cfg, dmrs_cinits=ci)
         for i, (cfg, bits) in enumerate(zip(pdsch_cfgs, pdsch_payloads)):
             ci = ctx["pdsch"][i] if ctx else None
             grid = pdsch_mod.process(grid, bits, cfg, dmrs_cinits=ci)
@@ -103,6 +130,18 @@ def dl_slot_core(cell: CellConfig, plan, slot_in_subframe: int = 0):
 def dl_slot_fn(cell: CellConfig, plan, slot_in_subframe: int = 0):
     """Cached DL slot program (see :func:`dl_slot_core`)."""
     return dl_slot_core(cell, plan, slot_in_subframe)
+
+
+@functools.lru_cache(maxsize=64)
+def dl_slot_fn_samples(cell: CellConfig, plan, slot_in_subframe: int = 0):
+    """Cached DL slot program returning the samples only (the radio path
+    needs no grid)."""
+    core = dl_slot_core(cell, plan, slot_in_subframe)
+
+    def run(ssb_mib, pdcch_payloads, pdsch_payloads, ctx=None):
+        return core(ssb_mib, pdcch_payloads, pdsch_payloads, ctx)[0]
+
+    return run
 
 
 # ----------------------------------------------------------------- UL slot

@@ -150,13 +150,16 @@ def pilots_for_port(cfg: DmrsConfig, port: int, c_inits=None,
 
 
 def map_to_grid(grid: torch.Tensor, cfg: DmrsConfig,
-                precoding: np.ndarray | None = None,
+                precoding: np.ndarray | torch.Tensor | None = None,
                 c_inits=None) -> torch.Tensor:
     """Add DM-RS for all ports into a [P, nsym, nsc] grid, in place.
 
-    With ``precoding`` [P, L] the per-layer pilots are precoded like data.
+    With ``precoding`` [P, L] (a host array, or a tensor on the grid's
+    device) the per-layer pilots are precoded like data.
     """
     dev = grid.device
+    if precoding is not None and not isinstance(precoding, torch.Tensor):
+        precoding = torch.as_tensor(np.asarray(precoding)).to(dev)
     for li, dmrs_port in enumerate(cfg.ports):
         delta = TYPE1_PORT_CONFIG[dmrs_port][0]
         sc = const(_sc_long, cfg.rb_start, cfg.rb_count, delta, device=dev)
@@ -165,8 +168,7 @@ def map_to_grid(grid: torch.Tensor, cfg: DmrsConfig,
             for si, l in enumerate(cfg.symbols):
                 grid[li, l, sc] += pilots[si]
         else:
-            w = torch.as_tensor(np.asarray(precoding[:, li]),
-                                dtype=grid.dtype).to(dev)
+            w = precoding[:, li].to(grid.dtype)
             for si, l in enumerate(cfg.symbols):
                 grid[:, l, sc] += w[:, None] * pilots[si][None, :]
     return grid

@@ -1,10 +1,13 @@
-"""PDSCH transmit chain (TS38.212 §7.2, TS38.211 §7.3.1), plain PyTorch.
+"""PDSCH transmit chain (TS38.212 §7.2, TS38.211 §7.3.1).
 
 Port of srsran_tpu/phy/upper/pdsch.py for contiguous allocations with the
 identity port mapping: TB CRC -> segmentation with CB CRC24B -> LDPC encode
--> rate match -> scramble -> modulate -> layer map -> precode -> grid, plus
-type-1 DM-RS.  In this slice it is the UE-side test transmitter of the
-PUSCH receive path (the same chain blocks, as the JAX bench does).
+(K5, ops/ldpc_encode.py::dlsch_encode) -> rate match -> scramble ->
+modulate -> layer map -> precode -> grid add (K6, ops/dl_map.py::
+pdsch_map), then type-1 DM-RS (plain).  On CPU tensors the kernels' plain
+twins run.  It is the flagship DL slot's PDSCH and also the UE-side test
+transmitter of the PUSCH receive path (the same chain blocks, as the JAX
+bench does).
 """
 
 from __future__ import annotations
@@ -19,11 +22,9 @@ from srsran_tpu.ran.ldpc_params import segment_tb, select_base_graph
 from srsran_tpu.ran.precoding_codebooks import PrecodingConfig
 
 from ...device import const
-from ...ops import ldpc_encode, ldpc_rate_match
-from ...ops.crc import crc
-from ...ops.modulation import BITS_PER_SYMBOL, modulate
-from ...ops.precoding import identity_precoder, layer_map, precode
-from ...ops.scrambling import scramble_bits
+from ...ops import dl_map, ldpc_encode, ldpc_rate_match
+from ...ops.modulation import BITS_PER_SYMBOL
+from ...ops.precoding import identity_precoder
 from .dmrs import DmrsConfig, map_to_grid as map_dmrs
 
 
@@ -130,29 +131,29 @@ def _cb_rate_match_sizes(g_total: int, c: int, qm: int, nl: int) -> list:
     return [base if j < c - gamma else base + unit for j in range(c)]
 
 
-def encode_transport_block(payload_bits: torch.Tensor, cfg: PdschConfig):
-    """TB bits [tbs] -> rate-matched codeword bits int8 [G], SegmentParams."""
+def segmentation(cfg: PdschConfig):
+    """The TB's segmentation (TS38.212 §5.2.2) for the PDU's TBS and rate."""
+    return segment_tb(cfg.tbs, select_base_graph(cfg.tbs,
+                                                 cfg.target_code_rate))
+
+
+@functools.lru_cache(maxsize=4096)
+def rate_match_sizes(cfg: PdschConfig) -> tuple:
+    """The codeblocks' rate-matched lengths E_r for the PDU's allocation."""
     qm = BITS_PER_SYMBOL[cfg.modulation]
     g_total = nof_data_re(cfg) * qm * cfg.nof_layers
-    bg = select_base_graph(cfg.tbs, cfg.target_code_rate)
-    seg = segment_tb(cfg.tbs, bg)
-    payload = payload_bits.to(torch.int8)
-    tb_crc = crc(payload[None], "crc24A" if seg.tb_crc_bits == 24 else "crc16")
-    b = torch.cat([payload, tb_crc[0]])
-    c, z = seg.nof_codeblocks, seg.lifting_size
-    k_prime, k = seg.cb_info_bits, seg.full_block_bits
-    payload_per_cb = k_prime - seg.cb_crc_bits
-    pad = payload_per_cb * c - b.shape[0]
-    if pad:
-        b = torch.cat([b, b.new_zeros(pad)])
-    cbs = b.reshape(c, payload_per_cb)
-    if seg.cb_crc_bits:
-        cbs = torch.cat([cbs, crc(cbs, "crc24B")], dim=-1)       # [C, K']
-    cbs_full = torch.cat([cbs, cbs.new_zeros((c, k - k_prime))], dim=-1)
-    code = ldpc_encode.encode(cbs_full, bg, z)                    # [C, NV*Z]
-    e_sizes = _cb_rate_match_sizes(g_total, c, qm, cfg.nof_layers)
+    return tuple(_cb_rate_match_sizes(g_total, segmentation(cfg).nof_codeblocks,
+                                      qm, cfg.nof_layers))
+
+
+def encode_transport_block(payload_bits: torch.Tensor, cfg: PdschConfig):
+    """TB bits [tbs] -> rate-matched codeword bits int8 [G], SegmentParams."""
+    seg = segmentation(cfg)
+    z = seg.lifting_size
+    cbs = ldpc_encode.dlsch_encode(payload_bits, seg.base_graph)  # [C, N]
     codeword = ldpc_rate_match.rate_match_batch(
-        code[:, 2 * z:], e_sizes, cfg.rv, qm, bg, z, k_prime, k)  # [G]
+        cbs, rate_match_sizes(cfg), cfg.rv, BITS_PER_SYMBOL[cfg.modulation],
+        seg.base_graph, z, seg.cb_info_bits, seg.full_block_bits)  # [G]
     return codeword, seg
 
 
@@ -170,21 +171,38 @@ def process(grid: torch.Tensor, payload_bits: torch.Tensor, cfg: PdschConfig,
     """Run the PDSCH chain into a [P, nsym, nsc] resource grid (in place).
 
     dmrs_cinits: optional per-DM-RS-symbol c_init seeds or pilot values
-    (slot context).  precoding: [P, L] matrix; default the identity mapping.
+    (slot context).  precoding: [P, L] matrix; default the identity mapping,
+    uploaded once per device.
     """
     check_supported(cfg)
-    dev = grid.device
     if precoding is None:
-        precoding = identity_precoder(grid.shape[0], cfg.nof_layers)
-    codeword, _ = encode_transport_block(payload_bits, cfg)
-    c_init = (cfg.rnti << 15) + cfg.n_id
-    scrambled = scramble_bits(codeword[None], c_init)
-    symbols = modulate(scrambled, cfg.modulation)                 # [1, S]
-    layers = layer_map(symbols[0], cfg.nof_layers)                # [L, S/L]
+        w = identity(grid.shape[0], cfg.nof_layers, grid.device)
+    else:
+        w = torch.as_tensor(np.asarray(precoding)).to(grid.device)
+    cbs = ldpc_encode.dlsch_encode(payload_bits,                   # K5
+                                   segmentation(cfg).base_graph)
+    dl_map.pdsch_map(*map_args(grid, cfg, cbs, w))                 # K6
+    return map_dmrs(grid, dmrs_config(cfg), w, dmrs_cinits)
+
+
+def identity(nof_ports: int, nof_layers: int, device) -> torch.Tensor:
+    """The default port mapping as a complex64 [P, L] tensor on ``device``
+    (uploaded once)."""
+    return const(identity_precoder, nof_ports, nof_layers, device=device,
+                 dtype=torch.complex64)
+
+
+def map_args(grid: torch.Tensor, cfg: PdschConfig, cbs: torch.Tensor,
+             precoder: torch.Tensor) -> tuple:
+    """The arguments of ops/dl_map.py::pdsch_map for this PDSCH's encoded
+    codeblocks ``cbs`` [C, N] on ``grid`` (its data-RE plan as int32
+    device constants)."""
+    seg = segmentation(cfg)
+    dev = grid.device
     key = plan_key(cfg)
-    sym_idx = const(data_re_plan_column, *key, 0, device=dev)
-    sc_idx = const(data_re_plan_column, *key, 1, device=dev)
-    w = torch.as_tensor(np.asarray(precoding)).to(dev)
-    ports = precode(layers, w)                                    # [P, S/L]
-    grid[:, sym_idx, sc_idx] += ports
-    return map_dmrs(grid, dmrs_config(cfg), precoding, dmrs_cinits)
+    return (grid, cbs, rate_match_sizes(cfg), cfg.rv, cfg.modulation,
+            seg.base_graph, seg.lifting_size, seg.cb_info_bits,
+            seg.full_block_bits, (cfg.rnti << 15) + cfg.n_id, cfg.nof_layers,
+            const(data_re_plan_column, *key, 0, device=dev, dtype=torch.int32),
+            const(data_re_plan_column, *key, 1, device=dev, dtype=torch.int32),
+            precoder)

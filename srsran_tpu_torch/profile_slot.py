@@ -1,9 +1,11 @@
-"""Where the flagship UL slot's time goes on one CUDA GPU.
+"""Where a flagship slot's time goes on one CUDA GPU.
 
-    python3 -m srsran_tpu_torch.profile_slot [--slots 8] [--calls 10]
+    python3 -m srsran_tpu_torch.profile_slot [--direction ul|dl] [--slots 8]
+                                            [--calls 10]
                                             [--out chiprun_out/profile]
 
-Drives the flagship scenario (:mod:`srsran_tpu_torch.flagship`) and reports:
+Drives the flagship UL slot (PUSCH) or DL slot (SSB in the first slot,
+PDCCH, 4-layer PDSCH, OFDM) of :mod:`srsran_tpu_torch.flagship` and reports:
 
 * the slot's wall time three ways: CUDA events around each call (as
   ``chip_smoke.py`` times it), the host clock over back-to-back calls with
@@ -15,14 +17,17 @@ Drives the flagship scenario (:mod:`srsran_tpu_torch.flagship`) and reports:
   the span from the first start to the last end and the idle share of that
   span, and the busy time by category (hand kernels, FFT, GEMM, copies by
   direction, elementwise and reductions);
+* the device activities with the most device time, by name;
 * for the same trace, the sum of ``self_device_time_total`` over the rows
   of ``key_averages()``: a second reading that counts some device time more
   than once, kept to show how far it lies from the trace;
-* each hand kernel's device time and device activities per call against
-  its plain twin's, over ``--calls`` calls each.
+* each hand kernel of the direction's path: its device time and device
+  activities per call against its plain twin's, over ``--calls`` calls
+  each.
 
-The slot's trace and a JSON summary go to ``--out``; the summary is also
-printed as the last line.
+The slot's trace and a JSON summary go to ``--out`` (``slot_trace.json``
+and ``summary.json`` for the UL, ``dl_`` before both names for the DL);
+the summary is also printed as the last line.
 """
 
 from __future__ import annotations
@@ -43,7 +48,9 @@ from .kernels import _build
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HAND_KERNELS = ("ldpc_sweep_kernel", "ldpc_check_kernel", "rate_dematch_kernel",
-                "pusch_demap_kernel", "ofdm_window_kernel", "ofdm_bins_kernel")
+                "pusch_demap_kernel", "ofdm_window_kernel", "ofdm_bins_kernel",
+                "dlsch_crc_kernel", "dlsch_encode_kernel", "pdsch_map_kernel",
+                "ofdm_grid_to_bins_kernel", "ofdm_cp_insert_kernel")
 
 
 def category(name: str, cat: str) -> str:
@@ -110,15 +117,20 @@ def profiled(fn, n: int, path: Path, keep: bool = False):
     return device_events(prof, path, keep), prof
 
 
-def slot_profile(ul, slots, softs, out: Path) -> dict:
-    n = len(slots)
-    it = iter(slots * 2)
+def top_activities(events: list, n: int, k: int = 12) -> dict:
+    """The ``k`` device activities (by name, cut to 70 characters) with the
+    most device time, in us per call."""
+    total = collections.Counter()
+    for name, _, _, dur in events:
+        total[name[:70]] += dur / n
+    return dict(total.most_common(k))
 
-    def one():
-        _, rx, ctx = next(it)
-        return ul(rx, None, softs, ctx)
 
-    events, prof = profiled(one, n, out / "slot_trace.json", keep=True)
+def slot_profile(calls: list, path: Path) -> dict:
+    """Trace one run of each of ``calls`` (one slot each)."""
+    n = len(calls)
+    it = iter(calls)
+    events, prof = profiled(lambda: next(it)(), n, path, keep=True)
     starts = [ts for _, _, ts, _ in events]
     ends = [ts + dur for _, _, ts, dur in events]
     span = max(ends) - min(starts)
@@ -132,6 +144,7 @@ def slot_profile(ul, slots, softs, out: Path) -> dict:
                                     key=lambda kv: -busy_us(kv[1]))}
     return {
         "slots": n,
+        "top_activities_us_per_slot": top_activities(events, n),
         "device_activities_per_slot": len(events) / n,
         "device_sum_us_per_slot": sum(e[3] for e in events) / n,
         "device_busy_us_per_slot": busy / n,
@@ -142,10 +155,9 @@ def slot_profile(ul, slots, softs, out: Path) -> dict:
     }
 
 
-def kernel_profiles(slots, gen, calls: int, out: Path) -> dict:
-    _, rx, ctx = slots[0]
+def kernel_profiles(cases: dict, calls: int, out: Path) -> dict:
     res = {}
-    for name, (fn, ref_fn, args) in flagship.kernel_cases(rx, ctx, gen).items():
+    for name, (fn, ref_fn, args) in cases.items():
         row = {}
         for which, f in (("kernel", fn), ("twin", ref_fn)):
             f(*args)
@@ -153,31 +165,32 @@ def kernel_profiles(slots, gen, calls: int, out: Path) -> dict:
                                  out / f"{name}_{which}_trace.json")
             row[f"{which}_device_us_per_call"] = sum(e[3] for e in events) / calls
             row[f"{which}_activities_per_call"] = len(events) / calls
+            row[f"{which}_top_activities_us"] = top_activities(events, calls, 6)
         res[name] = row
     return res
 
 
-def wall_times(ul, slots, softs) -> dict:
-    n = len(slots)
+def wall_times(calls: list) -> dict:
+    n = len(calls)
     ev = []
-    for _, rx, ctx in slots:
+    for call in calls:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        ul(rx, None, softs, ctx)
+        call()
         end.record()
         end.synchronize()
         ev.append(1e3 * start.elapsed_time(end))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _, rx, ctx in slots:
-        ul(rx, None, softs, ctx)
+    for call in calls:
+        call()
     torch.cuda.synchronize()
     back_to_back = 1e6 * (time.perf_counter() - t0) / n
     synced = []
-    for _, rx, ctx in slots:
+    for call in calls:
         t0 = time.perf_counter()
-        ul(rx, None, softs, ctx)
+        call()
         torch.cuda.synchronize()
         synced.append(1e6 * (time.perf_counter() - t0))
     return {"cuda_events_median_us": statistics.median(ev),
@@ -185,8 +198,31 @@ def wall_times(ul, slots, softs) -> dict:
             "host_synced_median_us": statistics.median(synced)}
 
 
+def ul_scenario(n: int, seed: int, dev, gen) -> tuple:
+    """(one zero-argument call per UL slot, the UL kernels' cases)."""
+    slots = flagship.make_slots(n, np.random.default_rng(seed), gen, dev)
+    softs = flagship.zero_soft_buffers(dev)
+    ul = flagship.ul_program()
+    calls = [lambda rx=rx, ctx=ctx: ul(rx, None, softs, ctx)
+             for _, rx, ctx in slots]
+    _, rx, ctx = slots[0]
+    return calls, flagship.kernel_cases(rx, ctx, gen)
+
+
+def dl_scenario(n: int, seed: int, dev) -> tuple:
+    """(one zero-argument call per DL slot, the DL kernels' cases); the
+    first slot carries the SSB."""
+    slots = flagship.make_dl_slots(n, np.random.default_rng(seed), dev)
+    calls = [lambda s=s: flagship.dl_program(s["with_ssb"])(*s["args"])
+             for s in slots]
+    cases = flagship.dl_kernel_cases(slots[0])
+    cases.pop("pdsch_map_repetition")
+    return calls, cases
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--direction", choices=("ul", "dl"), default="ul")
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--calls", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
@@ -199,18 +235,20 @@ def main(argv=None) -> dict:
     _build.load()
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
-    slots = flagship.make_slots(args.slots, np.random.default_rng(args.seed),
-                                gen, dev)
-    softs = flagship.zero_soft_buffers(dev)
-    ul = flagship.ul_program()
-    for _, rx, ctx in slots[:2]:                 # warm-up: device constants
-        ul(rx, None, softs, ctx)
+    if args.direction == "ul":
+        calls, cases = ul_scenario(args.slots, args.seed, dev, gen)
+        prefix = ""
+    else:
+        calls, cases = dl_scenario(args.slots, args.seed, dev)
+        prefix = "dl_"
+    for call in calls[:2]:                      # warm-up: device constants
+        call()
     torch.cuda.synchronize()
-    summary = {"card": card_line(),
-               "wall": wall_times(ul, slots, softs),
-               "slot": slot_profile(ul, slots, softs, out),
-               "kernels": kernel_profiles(slots, gen, args.calls, out)}
-    (out / "summary.json").write_text(json.dumps(summary, indent=1))
+    summary = {"card": card_line(), "direction": args.direction,
+               "wall": wall_times(calls),
+               "slot": slot_profile(calls, out / f"{prefix}slot_trace.json"),
+               "kernels": kernel_profiles(cases, args.calls, out)}
+    (out / f"{prefix}summary.json").write_text(json.dumps(summary, indent=1))
     print(json.dumps(summary))
     return summary
 

@@ -1,10 +1,11 @@
-"""The flagship scenario's host side, the slot context's seed handling, and
+"""The flagship scenarios' host side, the slot context's seed handling, and
 the profiler's trace arithmetic, on the CPU.
 
-The flagship slot itself runs on the card (``chip_smoke.py``,
-``python3 -m srsran_tpu_torch.profile_slot``); here its configuration is
-held against the JAX package's segmentation, and ``chip_smoke.py`` is held
-to importing nothing of this repo but the port.
+The flagship slots themselves run on the card (``chip_smoke.py``,
+``python3 -m srsran_tpu_torch.profile_slot``); here their configuration is
+held against the JAX package's segmentation and the JAX bench's DL plan
+and slot context, and ``chip_smoke.py`` is held to importing nothing of
+this repo but the port.
 """
 
 import ast
@@ -15,13 +16,20 @@ import numpy as np
 import pytest
 import torch
 
+from srsran_tpu.fapi.conductor import normalize_dl_plan
+from srsran_tpu.fapi.messages import DlTtiRequest
 from srsran_tpu.phy.upper import dmrs as j_dmrs
+from srsran_tpu.phy.upper import pdcch as j_pdcch
+from srsran_tpu.phy.upper import pdsch as j_pdsch
 from srsran_tpu.phy.upper import pusch as j_pusch
+from srsran_tpu.phy.upper import ssb as j_ssb
 from srsran_tpu.ran.ldpc_params import segment_tb, select_base_graph
 from srsran_tpu.ran.mcs_tbs import tbs as tbs_calc
+from srsran_tpu.ran.slot_point import SlotPoint
 
 from srsran_tpu_torch import convert, flagship, profile_slot
 from srsran_tpu_torch.phy.upper import dmrs as t_dmrs
+from srsran_tpu_torch.phy.upper import pdsch as t_pdsch
 from srsran_tpu_torch.phy.upper import pusch as t_pusch
 
 torch.set_num_threads(2)
@@ -66,6 +74,67 @@ def test_flagship_is_the_bench_slot():
     assert flagship.CELL.nof_sc == 273 * 12
     assert flagship.UE.tbs == flagship.PUSCH.tbs
     assert flagship.UL_PLAN[0] == (flagship.PUSCH,)
+
+
+def test_flagship_dl_is_the_bench_slot():
+    """TBS 835584 -> BG1, Z=384, 100 CBs, K'=8381; G = 32,760 REs x 4 layers
+    x 8 bits; E = 10464 for the first 40 CBs and 10496 for the last 60."""
+    seg = flagship.DL_SEG
+    assert (seg.base_graph, seg.lifting_size, seg.nof_codeblocks,
+            seg.cb_info_bits, seg.full_block_bits,
+            seg.codeword_bits) == (1, 384, 100, 8381, 8448, 25344)
+    assert t_pdsch.nof_data_re(flagship.PDSCH) == 32760
+    e = t_pdsch.rate_match_sizes(flagship.PDSCH)
+    assert e == (10464,) * 40 + (10496,) * 60 and sum(e) == 1_048_320
+    assert flagship.DL_CELL == flagship.CELL
+
+
+# The JAX bench's DL configs (bench.py:256-265).
+J_SSB = j_ssb.SsbConfig(phys_cell_id=1, ssb_idx=0, l_max=8, sfn=0,
+                        first_symbol=2, first_subcarrier=48)
+J_PDCCH = j_pdcch.PdcchConfig(
+    coreset=j_pdcch.CoresetConfig(rb_start=0, nof_rb=48, start_symbol=0,
+                                  duration=1),
+    rnti=0x4601, aggregation_level=8, cce_index=0, payload_bits=60, n_id=1,
+    n_id_data=1)
+J_PDSCH = j_pdsch.PdschConfig(rnti=0x4601, rb_start=0, rb_count=273,
+                              first_symbol=1, nof_symbols=12,
+                              modulation="qam256", target_code_rate=0.8,
+                              tbs=835584, nof_layers=4, n_id=1,
+                              dmrs_symbols=(2, 11))
+
+
+def _bench_dl_request(i):
+    """bench.py's dl_request(i)."""
+    slot = SlotPoint(1, 2 * i)
+    with_ssb = i % 40 == 0
+    return DlTtiRequest(
+        slot=slot,
+        ssb=(dataclasses.replace(J_SSB, sfn=slot.sfn),) if with_ssb else (),
+        pdcch=(dataclasses.replace(J_PDCCH, slot_in_frame=slot.slot_index),),
+        pdsch=(dataclasses.replace(J_PDSCH, slot_in_frame=slot.slot_index),))
+
+
+@pytest.mark.parametrize("i", [0, 1, 7, 40, 53])
+def test_flagship_dl_plan_and_context_match_the_conductor(i):
+    """The port's DL plans and slot context equal what the JAX conductor's
+    normalize_dl_plan makes of the bench's requests."""
+    plan, ctx = normalize_dl_plan(_bench_dl_request(i))
+    with_ssb = i % 40 == 0
+    assert convert.plan(plan) == (flagship.DL_PLAN_SSB if with_ssb
+                                  else flagship.DL_PLAN)
+    want = convert.slot_context(ctx, "cpu")
+    got = flagship.dl_slot_context(i, "cpu")
+    assert set(got) == set(want)
+    for key in want:
+        assert len(got[key]) == len(want[key])
+        for a, b in zip(got[key], want[key]):
+            if b is None:
+                assert a is None
+            elif isinstance(b, tuple):
+                assert all(torch.equal(x, y) for x, y in zip(a, b))
+            else:
+                assert torch.equal(a, b)
 
 
 def test_slot_context_keeps_seeds_on_host():
@@ -117,6 +186,11 @@ def test_busy_is_union_of_intervals(intervals, busy):
      "other elementwise / index kernels"),
     ("Memcpy DtoD (Device -> Device)", "gpu_memcpy",
      "Memcpy DtoD (Device -> Device)"),
+    ("dlsch_encode_kernel(signed char const*, ...)", "kernel",
+     "dlsch_encode_kernel"),
+    ("void pdsch_map_kernel<8>(...)", "kernel", "pdsch_map_kernel"),
+    ("ofdm_cp_insert_kernel(float2 const*, ...)", "kernel",
+     "ofdm_cp_insert_kernel"),
 ])
 def test_profile_categories(name, cat, bucket):
     assert profile_slot.category(name, cat) == bucket

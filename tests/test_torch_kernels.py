@@ -1,7 +1,7 @@
 """The hand kernels against their plain twins, on a CUDA GPU.
 
 Each case builds the kernel library, runs a kernel wrapper on CUDA tensors
-and its twin on the same inputs, at the small PUSCH's shapes.  On a machine
+and its twin on the same inputs, at the small PUSCH's and PDSCH's shapes.  On a machine
 without a GPU every case skips (the twins are covered by the parity tests
 against the JAX package).  ``python3 chip_smoke.py`` runs the same checks at
 the flagship shapes.
@@ -14,7 +14,7 @@ import torch
 from srsran_tpu.ran.ldpc_params import segment_tb, select_base_graph
 from srsran_tpu.ran.mcs_tbs import tbs as tbs_calc
 
-from srsran_tpu_torch.ops import (crc, ldpc_decode, ldpc_encode,
+from srsran_tpu_torch.ops import (crc, dl_map, ldpc_decode, ldpc_encode,
                                   ldpc_rate_match, ofdm, ul_demap)
 from srsran_tpu_torch.phy.upper import pdsch, pusch
 
@@ -105,3 +105,62 @@ def test_ldpc_decode_kernel(cuda, snr_db):
     bits_ref, _, it_ref = ldpc_decode.decode_early_stop_ref(*args)
     assert torch.equal(bits, bits_ref)
     assert int(it) == int(it_ref)
+
+
+# DL kernels: a 4-layer 256QAM PDSCH on 24 RB (DM-RS on 2 and 11), a
+# repetition case at rv 2, and other rv at another Qm.
+def _pdsch(**kw):
+    base = dict(rnti=0x4601, rb_start=0, rb_count=24, first_symbol=1,
+                nof_symbols=12, modulation="qam256", target_code_rate=0.8,
+                tbs=tbs_calc(24, 12, 24, "qam256", 0.8, 4), nof_layers=4,
+                n_id=1, dmrs_symbols=(2, 11))
+    base.update(kw)
+    return pdsch.PdschConfig(**base)
+
+
+DL_CASES = {
+    "4l_qam256": _pdsch(),
+    "repetition_rv2": _pdsch(rb_start=10, rb_count=6, modulation="qpsk",
+                             target_code_rate=0.1, tbs=296, rv=2),
+    "2l_qam64_rv1": _pdsch(modulation="qam64", nof_layers=2, rv=1,
+                           tbs=tbs_calc(24, 12, 24, "qam64", 0.5, 2)),
+    "3l_qam16_rv3": _pdsch(modulation="qam16", nof_layers=3, rv=3,
+                           tbs=tbs_calc(24, 12, 24, "qam16", 0.4, 3)),
+}
+
+
+@pytest.mark.parametrize("tbs,rate", [(311400, 0.7), (26632, 0.7),
+                                      (3816, 0.3), (296, 0.1)])
+def test_dlsch_encode_kernel(cuda, tbs, rate):
+    bg = select_base_graph(tbs, rate)
+    tb = torch.as_tensor(np.random.default_rng(tbs).integers(
+        0, 2, tbs).astype(np.int8)).to(cuda)
+    assert torch.equal(ldpc_encode.dlsch_encode(tb, bg),
+                       ldpc_encode.dlsch_encode_ref(tb, bg))
+
+
+@pytest.mark.parametrize("case", sorted(DL_CASES))
+def test_pdsch_map_kernel(cuda, case):
+    cfg = DL_CASES[case]
+    seg = pdsch.segmentation(cfg)
+    rng = np.random.default_rng(len(case))
+    tb = torch.as_tensor(rng.integers(0, 2, cfg.tbs).astype(np.int8)).to(cuda)
+    cbs = ldpc_encode.dlsch_encode_ref(tb, seg.base_graph)
+    grid = _cgauss(rng, (4, 14, 288)).to(cuda)
+    w = _cgauss(rng, (4, cfg.nof_layers)).to(cuda)
+    args = pdsch.map_args(grid, cfg, cbs, w)[1:]
+    out = dl_map.pdsch_map(grid.clone(), *args)
+    ref = dl_map.pdsch_map_ref(grid.clone(), *args)
+    _close(out, ref, 1e-6)
+
+
+@pytest.mark.parametrize("cp,mu,n,sis,scale", [
+    (ofdm.CyclicPrefix.NORMAL, 1, 512, 0, 1.0),
+    (ofdm.CyclicPrefix.NORMAL, 0, 512, 1, 0.5),
+    (ofdm.CyclicPrefix.EXTENDED, 2, 1024, 0, 1.0)])
+def test_ofdm_modulate_kernel(cuda, cp, mu, n, sis, scale):
+    nsym = 14 if cp is ofdm.CyclicPrefix.NORMAL else 12
+    grid = _cgauss(np.random.default_rng(n), (4, nsym, 288)).to(cuda)
+    args = (n, mu, cp, sis, 3.5e9, scale)
+    _close(ofdm.modulate_slot(grid, *args), ofdm.modulate_slot_ref(grid, *args),
+           1e-4)

@@ -17,11 +17,14 @@ import torch
 
 from srsran_tpu.phy import slot_programs as j_slots
 from srsran_tpu.phy.upper import dmrs as j_dmrs
+from srsran_tpu.phy.upper import pdcch as j_pdcch
 from srsran_tpu.phy.upper import pdsch as j_pdsch
 from srsran_tpu.phy.upper import pusch as j_pusch
+from srsran_tpu.phy.upper import ssb as j_ssb
 from srsran_tpu.phy.upper.pdsch import PdschPtrs
 from srsran_tpu.ran.ldpc_params import segment_tb, select_base_graph
 from srsran_tpu.ran.mcs_tbs import tbs as tbs_calc
+from srsran_tpu.ran.precoding_codebooks import PrecodingConfig
 from srsran_tpu.ran.uci_on_pusch import UciOnPuschConfig
 
 from srsran_tpu_torch import convert, flagship
@@ -165,12 +168,91 @@ def test_ul_plan_entries_not_ported_raise(plan):
 
 
 @pytest.mark.parametrize("plan", [
-    ((object(),), (), (J_UE,), ()), ((), (object(),), (J_UE,), ()),
+    ((), (), (J_UE,), (), (object(),)),
+    ((), (), (dataclasses.replace(J_UE, precoding=PrecodingConfig(
+        prg_size=4, pm_indices=(0,) * 6)),), ()),
     ((), (), (J_UE,), (object(),)),
     ((), (), (dataclasses.replace(J_UE, ptrs=PdschPtrs()),), ())])
 def test_dl_plan_entries_not_ported_raise(plan):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_slots.dl_slot_fn(convert.config(J_CELL), convert.plan(plan))
+
+
+J_SSB = j_ssb.SsbConfig(phys_cell_id=1, ssb_idx=0, l_max=8, sfn=0,
+                        first_symbol=2, first_subcarrier=24)
+J_PDCCH = j_pdcch.PdcchConfig(
+    coreset=j_pdcch.CoresetConfig(rb_start=0, nof_rb=24, start_symbol=0,
+                                  duration=1),
+    rnti=0x4601, aggregation_level=4, cce_index=0, payload_bits=60, n_id=1,
+    n_id_data=1)
+CONTROL_PLAN = ((J_SSB,), (J_PDCCH,), (), ())
+
+
+def _control_payloads():
+    rng = np.random.default_rng(5)
+    return (rng.integers(0, 2, 24).astype(np.int8),
+            rng.integers(0, 2, 60).astype(np.int8))
+
+
+def test_dl_control_only_plan_runs_on_payload_device():
+    """An SSB + PDCCH plan (no PDSCH) builds its grid on the device of its
+    payloads and matches the JAX program."""
+    mib, dci = _control_payloads()
+    j_samples, j_grid = j_slots.dl_slot_fn(J_CELL, CONTROL_PLAN)(
+        (jnp.asarray(mib),), (jnp.asarray(dci),), ())
+    t_samples, t_grid = t_slots.dl_slot_fn(
+        convert.config(J_CELL), convert.plan(CONTROL_PLAN))(
+        (torch.as_tensor(mib),), (torch.as_tensor(dci),), ())
+    assert t_grid.device.type == "cpu" and t_samples.device.type == "cpu"
+    np.testing.assert_allclose(t_grid.numpy(), np.asarray(j_grid), rtol=0,
+                               atol=1e-6)
+    close(t_samples, j_samples)
+
+
+@pytest.mark.parametrize("where", ["ssb", "pdcch"])
+def test_dl_payloads_on_mixed_devices_raise(where):
+    mib, dci = _control_payloads()
+    mib_t, dci_t = torch.as_tensor(mib), torch.as_tensor(dci)
+    if where == "ssb":
+        mib_t = mib_t.to("meta")
+    else:
+        dci_t = dci_t.to("meta")
+    fn = t_slots.dl_slot_fn(convert.config(J_CELL), convert.plan(CONTROL_PLAN))
+    with pytest.raises(ValueError, match="different devices"):
+        fn((mib_t,), (dci_t,), ())
+
+
+def test_dl_slot_without_payloads_raises():
+    """The program never picks a device of its own."""
+    fn = t_slots.dl_slot_fn(convert.config(J_CELL), ((), (), (), ()))
+    with pytest.raises(ValueError, match="no device"):
+        fn((), (), ())
+
+
+def test_convert_dl_configs():
+    """The DL configs map field for field; the CORESET nested in a PDCCH
+    config converts too."""
+    for cfg in (J_SSB, J_PDCCH, J_PDCCH.coreset):
+        port = convert.config(cfg)
+        assert type(port).__module__.startswith("srsran_tpu_torch.")
+        assert dataclasses.asdict(port) == dataclasses.asdict(cfg)
+    assert type(convert.config(J_PDCCH).coreset).__module__.startswith(
+        "srsran_tpu_torch.")
+
+
+def test_convert_ssb_context_pair():
+    """ctx["ssb"][i] stays a pair (static_bits, scramble_mask) of int8
+    tensors on the device; PDCCH pilot values go to the device too."""
+    pair = j_ssb.slot_ctx_for(J_SSB, sfn=7, hrf=True)
+    ctx = convert.slot_context(
+        {"ssb": (pair,), "pdcch": (j_pdcch.dmrs_values_for(J_PDCCH),),
+         "ptrs": (None,)}, "meta")
+    (static, mask), = ctx["ssb"]
+    assert static.dtype == mask.dtype == torch.int8
+    assert static.shape == mask.shape == (32,)
+    assert static.device.type == mask.device.type == "meta"
+    assert ctx["pdcch"][0].dtype == torch.complex64
+    assert ctx["ptrs"] == (None,)
 
 
 @pytest.mark.slow
