@@ -8,9 +8,10 @@ are hand-written CUDA kernels (``csrc/``) built at first use by
 twin runs for CPU tensors, the kernel for CUDA tensors, and nothing falls
 back from one to the other.
 
-Importing the package imports neither JAX nor the JAX package's device
-modules; only the pure-Python ``srsran_tpu.ran`` and ``srsran_tpu.ops.
-ldpc_graph`` helpers are shared.
+The package imports neither JAX nor anything of the JAX package: it keeps
+its own copies of the host-side parameter modules it needs (``ran/``,
+``ops/gf2.py``, ``ops/ldpc_graph.py``, ``ops/low_papr.py``) and of their
+tables (``data/``), pinned to the originals by the tests.
 """
 
 __version__ = "0.1.0"

@@ -2,13 +2,16 @@
 
 A PHY has no learned weights; what crosses over is configuration and slot
 state: config dataclasses, HARQ soft buffers and the conductor's
-slot-context values (DM-RS pilot values or c_init seeds).  Inputs are
-numpy arrays and plain dataclass fields, so this module imports no JAX.
+slot-context values (DM-RS pilot values or c_init seeds, SSB bit pairs,
+PUCCH F1 weight tuples).  Inputs are numpy arrays, plain dataclass fields
+and enums, matched to the port's classes by name, so this module imports
+neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import enum
 
 import numpy as np
 import torch
@@ -17,23 +20,46 @@ from .phy.slot_programs import CellConfig
 from .phy.upper.dmrs import DmrsConfig
 from .phy.upper.pdcch import CoresetConfig, PdcchConfig
 from .phy.upper.pdsch import PdschConfig, PdschPtrs
+from .phy.upper.prach import PrachConfig
+from .phy.upper.pucch import PucchF1Config
 from .phy.upper.pusch import PuschConfig
+from .phy.upper.srs import SrsConfig
 from .phy.upper.ssb import SsbConfig
+from .ran.cyclic_prefix import CyclicPrefix
+from .ran.precoding_codebooks import PrecodingConfig
+from .ran.uci_on_pusch import UciOnPuschConfig
 
 # Port classes by name; a JAX config maps to the port class of its name.
 CONFIG_CLASSES = {cls.__name__: cls for cls in
                   (CellConfig, CoresetConfig, DmrsConfig, PdcchConfig,
-                   PdschConfig, PdschPtrs, PuschConfig, SsbConfig)}
+                   PdschConfig, PdschPtrs, PrachConfig, PrecodingConfig,
+                   PucchF1Config, PuschConfig, SrsConfig, SsbConfig,
+                   UciOnPuschConfig)}
+# Port enums by name; a JAX enum member maps to the member of its name.
+ENUM_CLASSES = {cls.__name__: cls for cls in (CyclicPrefix,)}
+
+
+def value(value):
+    """A config field value (or an enum member) with the port's classes
+    for the JAX package's."""
+    name = type(value).__name__
+    if isinstance(value, enum.Enum) and name in ENUM_CLASSES:
+        port = ENUM_CLASSES[name][value.name]
+        if port.value != value.value:
+            raise ValueError(f"{name}.{value.name}: values differ")
+        return port
+    if dataclasses.is_dataclass(value) and name in CONFIG_CLASSES:
+        return config(value)
+    return value
 
 
 def config(jax_cfg):
     """The port config with the same field values as a JAX config.
 
     Field names are read through ``dataclasses.asdict`` and must match the
-    port class exactly.  Nested configs of the JAX package's own modules
-    (PdschPtrs, PdcchConfig.coreset) convert recursively; nested types that
-    both packages share (``srsran_tpu.ran``: UciOnPuschConfig,
-    PrecodingConfig, CyclicPrefix) are kept as they are.
+    port class exactly.  Nested configs (PdschPtrs, PdcchConfig.coreset,
+    UciOnPuschConfig, PrecodingConfig) convert recursively and enums
+    (CyclicPrefix) by member name, to the port's own classes.
     """
     cls = CONFIG_CLASSES[type(jax_cfg).__name__]
     names = set(dataclasses.asdict(jax_cfg))
@@ -41,14 +67,7 @@ def config(jax_cfg):
     if names != port_names:
         raise ValueError(f"{cls.__name__}: fields differ: "
                          f"{sorted(names ^ port_names)}")
-    kwargs = {}
-    for name in names:
-        value = getattr(jax_cfg, name)
-        if (dataclasses.is_dataclass(value)
-                and type(value).__name__ in CONFIG_CLASSES):
-            value = config(value)
-        kwargs[name] = value
-    return cls(**kwargs)
+    return cls(**{name: value(getattr(jax_cfg, name)) for name in names})
 
 
 def plan(jax_plan: tuple) -> tuple:
@@ -77,16 +96,17 @@ def _ctx_value(value, device):
 def _ctx_entry(entry, device):
     if entry is None:
         return None
-    if isinstance(entry, tuple):
-        # ctx["ssb"][i] is a pair (static_bits [32], scramble_mask [32]):
-        # it stays a pair of int8 tensors.
-        return tuple(_ctx_value(e, device) for e in entry)
+    if isinstance(entry, (tuple, list)):
+        # ctx["ssb"][i] is a pair (static_bits [32], scramble_mask [32]) and
+        # ctx["f1"][i] a tuple of hops, each a triple (a_dm, ph, w_da):
+        # tuples stay tuples, of tensors.
+        return tuple(_ctx_entry(e, device) for e in entry)
     return _ctx_value(entry, device)
 
 
 def slot_context(ctx: dict, device: torch.device | str) -> dict:
     """The conductor's slot context ({"pusch": (values, ...), ...}, numpy
-    leaves: pilot values complex64 and SSB bit pairs int8, moved to
-    ``device``; c_inits uint32, kept on the host)."""
+    leaves: pilot values, SSB bit pairs and F1 weights moved to ``device``;
+    c_inits uint32, kept on the host)."""
     return {key: tuple(_ctx_entry(e, device) for e in entries)
             for key, entries in ctx.items()}

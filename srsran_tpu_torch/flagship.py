@@ -3,10 +3,15 @@
 The JAX bench's flagship cell (bench.py:254-271): a 100 MHz cell with 4
 ports, 273 RB, a 4096-point FFT and 30 kHz SCS.
 
-* UL: 2-layer QAM64 PUSCH on 269 RB at rate 0.7, TBS 311400 (BG1, Z=384,
-  37 codeblocks).  The UE side transmits the same codeword with the port's
-  PDSCH chain (bench.py:339-350) through a seeded flat 4x2 channel with
-  AWGN.
+* UL (bench.py:266-285, 317-383): the full mix of every UL slot -- a
+  2-layer QAM64 PUSCH on 269 RB at rate 0.7, TBS 311400 (BG1, Z=384, 37
+  codeblocks), one PUCCH F1 (PRB 0, 14 symbols), one 64-preamble B4 PRACH
+  occasion (root 39, zcz 10, 30 kHz) and one SRS (RB 269-272, symbol 13,
+  comb 2, 1 port).  The UE side transmits the PUSCH codeword with the
+  port's PDSCH chain and its SRS (bench.py:339-362) through a seeded flat
+  4x2 channel with AWGN; the PRACH capture is the bench's (preamble 21,
+  2 us delay, port gains 0.9 to 0.6, noise 0.05, bench.py:364-383), built
+  in numpy from a seed.
 * DL (bench.py:256-265, 386-420): an SSB every 40th slot (pci 1, symbols
   2-5, subcarriers 48-287), an AL8 PDCCH in a 48-RB CORESET with a 60-bit
   DCI, and a 4-layer 256QAM PDSCH on all 273 RB, TBS 835584 (BG1, Z=384,
@@ -20,17 +25,21 @@ these scenarios.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
+from .ops import channel_estimate as chest
 from .ops import (dl_map, ldpc_decode, ldpc_encode, ldpc_rate_match, ofdm,
                   ul_demap)
 from .ops.modulation import demodulate
 from .ops.scrambling import descramble_llrs
 from .phy.slot_programs import (CellConfig, dl_slot_fn, dl_slot_fn_samples,
                                 ul_slot_fn)
-from .phy.upper import dmrs, pdcch, pdsch, pusch, sch_decoder, ssb
+from .phy.upper import (dmrs, pdcch, pdsch, prach, pucch, pusch, sch_decoder,
+                        srs, ssb)
+from .ran.prach_params import zc_sequence
 
 SNR_DB = 30.0
 
@@ -44,7 +53,17 @@ UE = pdsch.PdschConfig(rnti=PUSCH.rnti, rb_start=0, rb_count=269,
                        target_code_rate=0.7, tbs=PUSCH.tbs, nof_layers=2,
                        n_id=1, dmrs_symbols=(2, 7, 11))
 SEG = pusch.segmentation(PUSCH)
-UL_PLAN = ((PUSCH,), (), (), (), ())
+PUCCH = pucch.PucchF1Config(prb=0, start_symbol=0, nof_symbols=14,
+                            initial_cyclic_shift=0, time_domain_occ=0, n_id=1)
+PRACH = prach.PrachConfig(format="B4", root_sequence_index=39,
+                          zero_correlation_zone=10, ra_scs_hz=30_000)
+SRS = srs.SrsConfig(rb_start=269, rb_count=4, start_symbol=13, nof_symbols=1,
+                    comb=2, comb_offset=0, cyclic_shift=0, nof_ports=1,
+                    sequence_id=1, numerology=1, rnti=0x17)
+PRACH_PREAMBLE = 21
+# The normalized plan, as normalize_ul_plan makes it (slot_in_frame=0 for
+# the PUSCH, slot=0 for the PUCCH, an empty F3/F4 group last).
+UL_PLAN = ((PUSCH,), (), (PUCCH,), (), (PRACH,), (SRS,), ())
 
 
 def ul_program():
@@ -53,14 +72,61 @@ def ul_program():
 
 
 def ue_samples(slot_in_frame: int, payload: torch.Tensor) -> torch.Tensor:
-    """The UE's 4-port slot samples (layers on ports 0-1) for one slot."""
+    """The UE's 4-port slot samples for one slot: the PUSCH layers on ports
+    0-1 and the SRS on port 0 (bench.py:347-362)."""
     dev = payload.device
     plan = ((), (), (dataclasses.replace(UE, slot_in_frame=0),), ())
     pilots = torch.as_tensor(dmrs.pilot_values_for(pdsch.dmrs_config(
         dataclasses.replace(UE, slot_in_frame=slot_in_frame)))).to(dev)
-    samples, _ = dl_slot_fn(CELL, plan)((), (), (payload,),
-                                       {"pdsch": (pilots,)})
-    return samples
+    _, grid = dl_slot_fn(CELL, plan)((), (), (payload,), {"pdsch": (pilots,)})
+    return ofdm.modulate_slot(srs.map_to_grid(grid, SRS), CELL.dft_size,
+                              CELL.numerology,
+                              center_freq_hz=CELL.center_freq_hz)
+
+
+def prach_capture(rng: np.random.Generator, nof_ports: int = 4) -> np.ndarray:
+    """The bench's PRACH occasion (bench.py:364-383): preamble 21 through a
+    2 us delay onto every rx port at gains 0.9 to 0.6, 12 repeated symbols,
+    complex noise of 0.05 per part from ``rng``; complex64 [P, 12, 139]."""
+    roots, pmap, _ = prach._root_set(PRACH)
+    ri, cs = pmap[PRACH_PREAMBLE]
+    td = zc_sequence(roots[ri], PRACH.l_ra, cs)
+    tx = (np.fft.fft(td) / np.sqrt(PRACH.l_ra)).astype(np.complex64)
+    k = np.arange(PRACH.l_ra)
+    ramp = np.exp(-2j * np.pi * k * PRACH.scs_hz * 2e-6)
+    gains = np.linspace(0.9, 0.6, nof_ports)
+    fd = np.stack([g * tx * ramp for g in gains])[:, None, :]
+    fd = np.tile(fd, (1, 12, 1))
+    fd = fd + 0.05 * (rng.standard_normal(fd.shape)
+                      + 1j * rng.standard_normal(fd.shape))
+    return fd.astype(np.complex64)
+
+
+def prach_fd(device, seed: int = 0) -> tuple:
+    """The UL slot's PRACH input: the capture from a fresh seeded rng."""
+    return (torch.as_tensor(prach_capture(np.random.default_rng(seed)))
+            .to(device),)
+
+
+F1_USERS = ((PUCCH.initial_cyclic_shift, PUCCH.time_domain_occ,
+             PUCCH.nof_harq_bits),)
+
+
+def ul_slot_context(index: int, device) -> dict:
+    """The slot context of UL slot ``index`` (slot point (1, 2*index), as
+    the bench numbers its slots), as the JAX conductor's normalize_ul_plan
+    builds it: the PUSCH DM-RS pilot values and the F1 group's per-hop
+    weights, every leaf on ``device``."""
+    sif = (2 * index) % 20
+    weights = pucch.f1_batch_weights(
+        dataclasses.replace(PUCCH, slot=sif), F1_USERS)
+    return {
+        "pusch": (_up(dmrs.pilot_values_for(pusch.dmrs_config(
+            dataclasses.replace(PUSCH, slot_in_frame=sif))), device),),
+        "f0": (),
+        "f1": (tuple(tuple(_up(w, device) for w in hop) for hop in weights),),
+        "f2": (), "f3": (),
+    }
 
 
 def channel(samples: torch.Tensor, gen: torch.Generator,
@@ -78,17 +144,14 @@ def channel(samples: torch.Tensor, gen: torch.Generator,
 def make_slots(n: int, rng: np.random.Generator, gen: torch.Generator,
                device) -> list:
     """``n`` slots of (payload int8 [TBS], rx samples, ctx), each with its own
-    payload and slot_in_frame (0, 2, 4, ...), all on ``device``; the DM-RS
-    pilot values go through ctx as the conductor feeds them."""
+    payload and slot point (1, 2i), all on ``device``; the DM-RS pilot
+    values and F1 weights go through ctx as the conductor feeds them."""
     slots = []
     for i in range(n):
-        sif = 2 * i
         payload = torch.as_tensor(
             rng.integers(0, 2, PUSCH.tbs).astype(np.int8)).to(device)
-        rx = channel(ue_samples(sif, payload), gen)
-        pilots = torch.as_tensor(dmrs.pilot_values_for(pusch.dmrs_config(
-            dataclasses.replace(PUSCH, slot_in_frame=sif)))).to(device)
-        slots.append((payload, rx, {"pusch": (pilots,)}))
+        rx = channel(ue_samples((2 * i) % 20, payload), gen)
+        slots.append((payload, rx, ul_slot_context(i, device)))
     return slots
 
 
@@ -98,19 +161,25 @@ def zero_soft_buffers(device) -> tuple:
                         dtype=torch.float32, device=device),)
 
 
-def kernel_cases(rx: torch.Tensor, ctx: dict, gen: torch.Generator) -> dict:
-    """name -> (wrapper, plain twin, args) for each hand kernel at the
+def kernel_cases(rx: torch.Tensor, ctx: dict, gen: torch.Generator,
+                 prach_in: tuple) -> dict:
+    """name -> (wrapper, plain twin, args) for each UL hand kernel at the
     flagship shapes.  Each kernel's input is what the plain twins upstream
-    of it make from the slot's samples, except two: K2 combines with a
-    random nonzero soft buffer, and K1 decodes noisy LLRs at 5 dB Es/N0
-    (BPSK) so that the early stop runs several sweeps."""
+    of it make from the slot's samples (and, for K9, the PRACH capture),
+    except two: K2 combines with a random nonzero soft buffer, and K1
+    decodes noisy LLRs at 5 dB Es/N0 (BPSK) so that the early stop runs
+    several sweeps."""
     dev = rx.device
     cell = CELL
     k4 = (rx, cell.nof_sc, cell.dft_size, cell.numerology, cell.cp, 0,
           cell.center_freq_hz)
     grid = ofdm.demodulate_slot_ref(*k4)
+    k8, k8_kw = pusch.estimate_args(grid, PUSCH, ctx["pusch"][0], (0, 1), 0)
+    srs_args, srs_kw = srs.estimate_args(grid, SRS)
+    srs_est = chest.estimate_from_grid_ref(*srs_args, **srs_kw)
+    k11 = (grid, SRS, srs_est.time_alignment_s, srs_est.rsrp)
 
-    est = pusch.estimate_channel(grid, PUSCH, ctx["pusch"][0])
+    est = chest.estimate_from_grid_ref(*k8, **k8_kw)
     sym_idx, sc_idx = pusch._plan(PUSCH, dev)
     c_init = (PUSCH.rnti << 15) + PUSCH.n_id
     k3 = (grid, est.coeffs, sym_idx, sc_idx, 0, est.noise_var.mean(), c_init,
@@ -143,6 +212,14 @@ def kernel_cases(rx: torch.Tensor, ctx: dict, gen: torch.Generator) -> dict:
                          ldpc_rate_match.rate_dematch_combine_ref, k2),
         "ldpc_decode": (ldpc_decode.decode_early_stop,
                         ldpc_decode.decode_early_stop_ref, k1),
+        "channel_estimate": (
+            functools.partial(chest.estimate_from_grid, **k8_kw),
+            functools.partial(chest.estimate_from_grid_ref, **k8_kw), k8),
+        "prach_detect": (prach.detect, prach.detect_ref,
+                         (prach_in[0], PRACH)),
+        "pucch_f1_detect": (pucch.f1_detect, pucch.f1_detect_ref,
+                            (grid, PUCCH, ctx["f1"][0], 1.5)),
+        "srs_estimate": (srs.srs_noise, srs.srs_noise_ref, k11),
     }
 
 

@@ -50,6 +50,17 @@ SIGNATURES = {
                          _I, _I, _P, _I, _P, _I, _I, _P],
     "srsran_ofdm_grid_to_bins": [_P, _P, _I, _I, _I, _I, _P],
     "srsran_ofdm_cp_insert": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "srsran_chest_estimate": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+                              _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "srsran_chest_ta": [_P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P, _P],
+    "srsran_prach_corr": [_P, _P, _I, _I, _I, _I, _P, _P],
+    "srsran_prach_detect": [_P, _I, _I, _I, _F, _P, _P, _I, _I, _I, _I, _F,
+                            _F, _P, _I, _P, _P, _P, _P, _P],
+    "srsran_pucch_f1": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                        _I, _I, _I, _I, _P, _P, _P, _F, _P, _P, _P, _P, _P],
+    "srsran_srs_noise": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _F, _P, _P,
+                         _I, _P, _P],
 }
 
 

@@ -1,11 +1,18 @@
 """DM-RS port channel estimation (LS + despread + CFO + smoothing +
 interpolation + noise + TA).
 
-Port of srsran_tpu/ops/channel_estimate.py::estimate and _time_alignment,
-plain PyTorch in this slice (the next hand kernel, ROADMAP §2).  The
-smoothing-and-interpolation operator is the host matrix of
-:func:`_smooth_interp_matrix`, cast to complex64 once and cached per device;
-the estimate applies it as one matmul.
+Port of srsran_tpu/ops/channel_estimate.py::estimate and _time_alignment.
+:func:`estimate` is the plain PyTorch version on gathered pilots; it applies
+the smoothing-and-interpolation operator as the host matrix of
+:func:`_smooth_interp_matrix`, cast to complex64 once and cached per device.
+
+:func:`estimate_from_grid` is the K8 wrapper: on CUDA tensors it reads the
+pilots straight from the resource grid in the hand kernels of
+csrc/channel_estimate.cu, which apply the same operator in band form
+(:func:`_band`: first column + [nsc, W] weights, W = 8 at the flagship)
+and compute RSRP, EPRE, noise, CFO and TA on the device; on CPU tensors it
+runs :func:`estimate_from_grid_ref`, the twin (gather, then
+:func:`estimate`).
 """
 
 from __future__ import annotations
@@ -16,7 +23,14 @@ import functools
 import numpy as np
 import torch
 
-from ..device import const, f32, i64
+from .. import kernels
+from ..device import const, f32, i64, is_cuda
+from ..kernels import _build
+
+KERNEL = kernels.register(kernels.Kernel(
+    name="channel_estimate", route="cuda",
+    source="srsran_tpu_torch/csrc/channel_estimate.cu",
+    replaces="srsran_tpu/ops/channel_estimate.py:180"))
 
 
 @dataclasses.dataclass
@@ -238,3 +252,173 @@ def _time_alignment(ls_avg: torch.Tensor, pilot_scs: np.ndarray, nof_sc: int,
     # into a multiply by its reciprocal, which may round differently
     span = const(f32, (float(nfft * scs_hz),), device=ls_avg.device)[0]
     return delay.to(torch.float32) / span
+
+
+# ------------------------------------------------------------------ K8
+
+@functools.lru_cache(maxsize=None)
+def _band(pilot_scs_key: tuple, nof_sc: int, strategy: str,
+          stride: int) -> tuple:
+    """The operator of :func:`_smooth_interp_matrix` in band form:
+    (first int32 [nof_sc], weights float32 [nof_sc, W]), row n holding the
+    matrix entries of columns first[n] .. first[n] + W - 1 (W the widest
+    span of nonzeros over the rows; the band never leaves the matrix)."""
+    m = _smooth_interp_matrix(pilot_scs_key, nof_sc, strategy, stride)
+    k = m.shape[1]
+    nz = m != 0
+    has = nz.any(axis=1)
+    lo = np.where(has, nz.argmax(axis=1), 0)
+    hi = np.where(has, k - 1 - nz[:, ::-1].argmax(axis=1), 0)
+    width = max(int((hi - lo).max()) + 1, 1)
+    first = np.minimum(lo, k - width).astype(np.int32)
+    weights = np.take_along_axis(m, first[:, None] + np.arange(width), axis=1)
+    return first, np.ascontiguousarray(weights, dtype=np.float32)
+
+
+def _band_table(i: int, first: int, stride: int, count: int, nof_sc: int,
+                strategy: str) -> np.ndarray:
+    """One half of :func:`_band` for the regular comb first + stride * k,
+    k < count (0: first columns, 1: weights)."""
+    comb = tuple(range(first, first + stride * count, stride))
+    return _band(comb, nof_sc, strategy, stride)[i]
+
+
+def _i32(values: tuple) -> np.ndarray:
+    return np.asarray(values, dtype=np.int32)
+
+
+def _comb_i32(first: int, stride: int, count: int) -> np.ndarray:
+    return np.arange(first, first + stride * count, stride, dtype=np.int32)
+
+
+def _td_i0_i32(dmrs_idx: tuple, nof_symbols: int) -> np.ndarray:
+    return _td_weights(dmrs_idx, nof_symbols)[0]
+
+
+def estimate_from_grid_ref(grid: torch.Tensor, symbols: tuple, first_sc: int,
+                           expected: torch.Tensor, pilot_scs: np.ndarray,
+                           nof_sc: int, nof_symbols: int, scs_hz: float,
+                           **kw) -> ChannelEstimate:
+    """Plain twin of :func:`estimate_from_grid`: gather the pilots, then
+    :func:`estimate`."""
+    dev = grid.device
+    syms = const(i64, tuple(int(s) for s in symbols), device=dev)
+    cols = const(i64, tuple(int(first_sc) + int(s) for s in pilot_scs),
+                 device=dev)
+    rx_pilots = grid[:, syms, :][:, :, cols]
+    return estimate(rx_pilots, expected, pilot_scs, nof_sc, nof_symbols,
+                    scs_hz, **kw)
+
+
+def estimate_from_grid(grid: torch.Tensor, symbols: tuple, first_sc: int,
+                       expected: torch.Tensor, pilot_scs: np.ndarray,
+                       nof_sc: int, nof_symbols: int, scs_hz: float,
+                       stride: int = 2, smoothing: str = "filter",
+                       beta_scaling: float = 1.0, estimate_cfo: bool = True,
+                       dmrs_symbol_times_s: np.ndarray | None = None,
+                       td_strategy: str = "average",
+                       dmrs_symbol_idx: np.ndarray | None = None,
+                       cdm_pairs: bool = False) -> ChannelEstimate:
+    """:func:`estimate` on the pilots of ``grid`` (complex64 [P, nsym,
+    nsc_grid]): pilot k of DM-RS symbol i sits at grid[:, symbols[i],
+    first_sc + pilot_scs[k]].  The other arguments are :func:`estimate`'s."""
+    kw = dict(stride=stride, smoothing=smoothing, beta_scaling=beta_scaling,
+              estimate_cfo=estimate_cfo,
+              dmrs_symbol_times_s=dmrs_symbol_times_s,
+              td_strategy=td_strategy, dmrs_symbol_idx=dmrs_symbol_idx,
+              cdm_pairs=cdm_pairs)
+    if not is_cuda(grid, expected):
+        return estimate_from_grid_ref(grid, symbols, first_sc, expected,
+                                      pilot_scs, nof_sc, nof_symbols, scs_hz,
+                                      **kw)
+    if grid.dtype != torch.complex64 or grid.ndim != 3:
+        raise ValueError(f"grid must be complex64 [P, S, K], got "
+                         f"{grid.dtype} {tuple(grid.shape)}")
+    scs_np = np.asarray(pilot_scs)
+    n_l, n_s, n_k = expected.shape
+    if expected.dtype != torch.complex64 or (n_s, n_k) != (len(symbols),
+                                                            len(scs_np)):
+        raise ValueError(f"expected must be complex64 [L, {len(symbols)}, "
+                         f"{len(scs_np)}], got {expected.dtype} "
+                         f"{tuple(expected.shape)}")
+    if cdm_pairs:
+        if n_k % 2:
+            raise ValueError("fd-OCC despread needs an even pilot count")
+        scs_sm = (scs_np[0::2] + scs_np[1::2]) // 2
+        stride_sm = stride * 2
+    else:
+        scs_sm, stride_sm = scs_np, stride
+    k_sm = len(scs_sm)
+    step = int(scs_np[1] - scs_np[0]) if n_k > 1 else 0
+    if not (k_sm > 1 and bool(np.all(np.diff(scs_sm) == stride_sm))
+            and bool(np.all(np.diff(scs_np) == step))):
+        raise NotImplementedError(
+            "TA over an irregular pilot comb arrives with RA type 0 "
+            "(ROADMAP §1 item 13)")
+    use_cfo = (estimate_cfo and n_s >= 2
+               and dmrs_symbol_times_s is not None)
+    interp = (td_strategy == "interpolate" and dmrs_symbol_idx is not None
+              and n_s >= 2)
+    nsym_out = nof_symbols if interp else 1
+    nfft = 1
+    while nfft < nof_sc * 2:
+        nfft *= 2
+    dev = grid.device
+    n_p = grid.shape[0]
+    # Host tables keyed by the comb (first, step, count), not by its pilots.
+    key = (int(scs_sm[0]), stride_sm, k_sm, nof_sc, smoothing)
+    first = const(_band_table, 0, *key, device=dev)
+    weights = const(_band_table, 1, *key, device=dev)
+    syms = const(_i32, tuple(int(s) for s in symbols), device=dev)
+    p0 = int(scs_np[0])
+    cols = const(_comb_i32, int(first_sc) + p0, step, n_k, device=dev)
+    pilot_idx = const(_comb_i32, p0, step, n_k, device=dev)
+    times = td_i0 = td_w = None
+    two_pi_dt = 1.0
+    if use_cfo:
+        t = tuple(float(v) for v in dmrs_symbol_times_s)
+        times = const(f32, t, device=dev)
+        two_pi_dt = 2 * np.pi * (t[1] - t[0])
+    if interp:
+        dkey = (tuple(int(v) for v in dmrs_symbol_idx), nof_symbols)
+        td_i0 = const(_td_i0_i32, *dkey, device=dev)
+        td_w = const(_td_w, *dkey, device=dev)
+    c64 = dict(dtype=torch.complex64, device=dev)
+    ls = torch.empty((n_p, n_l, n_s, k_sm), **c64)
+    ls_avg = torch.empty((n_p, n_l, k_sm), **c64)
+    partials = torch.empty((max(1, -(-ls.numel() // 256)),), **c64)
+    filtered = torch.empty((n_p, n_l, n_k), **c64)
+    coeffs = torch.empty((n_p, n_l, nsym_out, nof_sc), **c64)
+    tabuf = torch.empty((n_p, n_l, nfft), **c64)
+    stats = torch.empty((4 * n_p + 2,), dtype=torch.float32, device=dev)
+    # [P, NB, 3] partial sums of the stats pass (NB as csrc's stats_blocks)
+    stats_part = torch.empty((n_p, min(max(-(-n_s * n_k // 256), 1), 32), 3),
+                             dtype=torch.float32, device=dev)
+    grid = grid.contiguous()
+    expected = expected.contiguous()
+    lib = _build.load()
+    stream = _build.stream_of(grid)
+
+    def opt(x):
+        return _build.ptr(x) if x is not None else None
+
+    _build.check(lib.srsran_chest_estimate(
+        _build.ptr(grid), grid.shape[1], grid.shape[2], _build.ptr(syms),
+        _build.ptr(cols), _build.ptr(expected), opt(times), _build.ptr(first),
+        _build.ptr(weights), _build.ptr(pilot_idx), opt(td_i0), opt(td_w),
+        n_p, n_l, n_s, n_k, int(cdm_pairs), nof_sc, weights.shape[1],
+        int(use_cfo), nsym_out, int(interp), float(beta_scaling), two_pi_dt,
+        nfft, stride_sm, _build.ptr(ls), _build.ptr(ls_avg),
+        _build.ptr(partials), _build.ptr(filtered), _build.ptr(coeffs),
+        _build.ptr(stats_part), _build.ptr(stats), _build.ptr(tabuf), stream),
+        "chest_estimate")
+    h_t = torch.fft.ifft(tabuf, dim=-1)
+    _build.check(lib.srsran_chest_ta(
+        _build.ptr(h_t), n_p, n_l, n_s, n_k, nfft, nfft // (2 * stride_sm),
+        float(nfft * scs_hz), float(beta_scaling), _build.ptr(stats_part),
+        _build.ptr(stats), stream), "chest_ta")
+    KERNEL.count()
+    return ChannelEstimate(
+        coeffs=coeffs, noise_var=stats[:n_p], rsrp=stats[n_p:2 * n_p],
+        epre=stats[2 * n_p:3 * n_p], snr=stats[3 * n_p:4 * n_p],
+        time_alignment_s=stats[4 * n_p + 1], cfo_hz=stats[4 * n_p])

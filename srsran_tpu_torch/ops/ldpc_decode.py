@@ -23,8 +23,7 @@ import functools
 import numpy as np
 import torch
 
-from srsran_tpu.ops.ldpc_graph import get_graph
-
+from .ldpc_graph import get_graph
 from .. import kernels
 from ..device import const, is_cuda
 from ..kernels import _build

@@ -24,9 +24,8 @@ import functools
 import numpy as np
 import torch
 
-from srsran_tpu.ops.ldpc_graph import get_graph
-from srsran_tpu.ran.ldpc_params import segment_tb
-
+from .ldpc_graph import get_graph
+from ..ran.ldpc_params import segment_tb
 from .. import kernels
 from ..device import const, is_cuda
 from ..kernels import _build

@@ -21,8 +21,7 @@ import functools
 import numpy as np
 import torch
 
-from srsran_tpu.ran.ldpc_params import rate_match_k0
-
+from ..ran.ldpc_params import rate_match_k0
 from .. import kernels
 from ..device import const, is_cuda
 from ..kernels import _build

@@ -24,8 +24,7 @@ import functools
 import numpy as np
 import torch
 
-from srsran_tpu.ran.cyclic_prefix import CyclicPrefix, cp_lengths, symbols_per_slot
-
+from ..ran.cyclic_prefix import CyclicPrefix, cp_lengths, symbols_per_slot
 from .. import kernels
 from ..device import const, is_cuda
 from ..kernels import _build

@@ -14,8 +14,8 @@ import functools
 
 import numpy as np
 
-from srsran_tpu.ran.polar_params import (PolarCode, input_interleave_map,
-                                         subblock_interleave_map)
+from ..ran.polar_params import (PolarCode, input_interleave_map,
+                                subblock_interleave_map)
 
 _ENCODE_MATRIX_CACHE: dict = {}
 

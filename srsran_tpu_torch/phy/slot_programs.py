@@ -4,14 +4,16 @@ Port of srsran_tpu/phy/slot_programs.py.  A slot plan (the tuple of PDU
 configs) selects a program; the program is a Python closure over the plan,
 cached per (cell, plan, slot_in_subframe), that runs eagerly on the device
 of its input tensors.  The DL program covers SSB, PDCCH and PDSCH plans
-(the flagship DL slot, and the UE-side test transmitter); the UL program a
-PUSCH-only plan.  Every other plan entry raises NotImplementedError naming
-the ROADMAP item that ports it.
+(the flagship DL slot, and the UE-side test transmitter); the UL program
+PUSCH, PUCCH format 1, PRACH and SRS plans (the JAX bench's full UL mix).
+Every other plan entry raises NotImplementedError naming the ROADMAP item
+that ports it.
 
 On CUDA both programs run without a host sync: their constants are cached
 on the device after the first call, the slot context and payloads arrive
-as device tensors, the LDPC early stop and its iteration count stay on the
-device, and the results are device tensors.
+as device tensors, the LDPC early stop and its iteration count, the PRACH
+and PUCCH decisions and every TA stay on the device, and the results are
+device tensors.
 """
 
 from __future__ import annotations
@@ -21,12 +23,14 @@ import functools
 
 import torch
 
-from srsran_tpu.ran.cyclic_prefix import CyclicPrefix, slot_num_samples
-
+from ..ran.cyclic_prefix import CyclicPrefix, slot_num_samples
 from ..ops import ofdm
 from .upper import pdcch as pdcch_mod
 from .upper import pdsch as pdsch_mod
+from .upper import prach as prach_mod
+from .upper import pucch as pucch_mod
 from .upper import pusch as pusch_mod
+from .upper import srs as srs_mod
 from .upper import ssb as ssb_mod
 
 
@@ -146,28 +150,41 @@ def dl_slot_fn_samples(cell: CellConfig, plan, slot_in_subframe: int = 0):
 
 # ----------------------------------------------------------------- UL slot
 
+def _f1_groups(f1_cfgs) -> list:
+    """Indices of the PUCCH F1 users of each occasion group, in plan order:
+    users multiplexed on the same PRB/occasion are detected as one batch
+    (as the JAX program and the conductor group them)."""
+    groups: dict = {}
+    for i, cfg in enumerate(f1_cfgs):
+        key = (cfg.prb, cfg.start_symbol, cfg.nof_symbols, cfg.n_id,
+               cfg.slot, cfg.second_hop_prb)
+        groups.setdefault(key, []).append(i)
+    return list(groups.values())
+
+
 def ul_slot_core(cell: CellConfig, plan, slot_in_subframe: int = 0):
-    """The UL slot program of a PUSCH-only plan.
+    """The UL slot program: PUSCH, PUCCH F1, SRS and PRACH.
 
     plan = (pusch_cfgs, f0_cfgs, f1_cfgs, f2_cfgs, prach_cfgs[, srs_cfgs
     [, f3_cfgs]]).  Returned fn(samples [P, T], prach_fd, soft_buffers,
-    ctx=None) -> {"pusch": [dict per PUSCH], ...} with the same keys as the
-    JAX program; ctx["pusch"][i] carries DM-RS pilot values (or c_inits).
+    ctx=None) -> {"pusch": [dict per PUSCH], "pucch_f1": [dict per user],
+    "prach": [...], "srs": [...], ...} with the same keys as the JAX
+    program.  prach_fd[i]: complex64 [P, S, L] frequency-domain capture of
+    PRACH occasion i.  ctx["pusch"][i] carries DM-RS pilot values (or
+    c_inits); ctx["f1"][first user of a group] the group's per-hop weight
+    tuple (f1_batch_weights); without ctx the weights are built on the host
+    and cached per device.
     """
     _check_cell(cell)
     plan = plan + ((),) * (7 - len(plan))
     pusch_cfgs, f0_cfgs, f1_cfgs, f2_cfgs, prach_cfgs, srs_cfgs, f3_cfgs = plan
-    if f0_cfgs or f1_cfgs or f2_cfgs or f3_cfgs:
-        raise _unsupported("PUCCH", "item 10 (F1), item 13 (F0/F2/F3/F4)")
-    if prach_cfgs:
-        raise _unsupported("PRACH", "item 10")
-    if srs_cfgs:
-        raise _unsupported("SRS", "item 10")
+    if f0_cfgs or f2_cfgs or f3_cfgs:
+        raise _unsupported("PUCCH F0/F2/F3/F4", "item 13")
     for cfg in pusch_cfgs:
         pusch_mod.check_supported(cfg)
+    f1_groups = _f1_groups(f1_cfgs)
 
     def run(samples, prach_fd, soft_buffers, ctx=None):
-        del prach_fd
         grid = ofdm.demodulate_slot(
             samples, cell.nof_sc, cell.dft_size, cell.numerology, cell.cp,
             slot_in_subframe, cell.center_freq_hz)
@@ -185,6 +202,29 @@ def ul_slot_core(cell: CellConfig, plan, slot_in_subframe: int = 0):
                 "cfo_hz": res.csi.cfo_hz,
                 "evm": res.evm,
                 "nof_iterations": res.nof_iterations})
+        f1_results = [None] * len(f1_cfgs)
+        for idxs in f1_groups:
+            common = f1_cfgs[idxs[0]]
+            users = tuple((f1_cfgs[i].initial_cyclic_shift,
+                           f1_cfgs[i].time_domain_occ,
+                           f1_cfgs[i].nof_harq_bits) for i in idxs)
+            weights = ctx["f1"][idxs[0]] if ctx else None
+            rs = pucch_mod.detect_format1_batch(grid, common, users,
+                                                ncs=weights)
+            for i, r in zip(idxs, rs):
+                f1_results[i] = r
+        out["pucch_f1"].extend(f1_results)
+        for cfg in srs_cfgs:
+            est = srs_mod.estimate(grid, cfg)
+            # wideband channel: average the estimate over symbols/subcarriers
+            out["srs"].append({
+                "wideband_h": torch.mean(est.coeffs, dim=(2, 3)),
+                "ta_s": est.time_alignment_s, "snr": est.snr})
+        for i, cfg in enumerate(prach_cfgs):
+            det = prach_mod.detect(prach_fd[i], cfg)
+            out["prach"].append({
+                "metrics": det.metrics, "ta_s": det.time_advance_s,
+                "detected": det.detected, "rssi": det.rssi})
         return out
 
     return run

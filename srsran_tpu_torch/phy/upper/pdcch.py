@@ -19,9 +19,8 @@ import functools
 import numpy as np
 import torch
 
-from srsran_tpu.ops.gf2 import gf2_matmul
-from srsran_tpu.ran import polar_params
-
+from ...ops.gf2 import gf2_matmul
+from ...ran import polar_params
 from ...device import const
 from ...ops import polar as polar_ops
 from ...ops.crc import _remainder_matrix

@@ -18,9 +18,8 @@ import functools
 import numpy as np
 import torch
 
-from srsran_tpu.ran.ldpc_params import segment_tb, select_base_graph
-from srsran_tpu.ran.precoding_codebooks import PrecodingConfig
-
+from ...ran.ldpc_params import segment_tb, select_base_graph
+from ...ran.precoding_codebooks import PrecodingConfig
 from ...device import const
 from ...ops import dl_map, ldpc_encode, ldpc_rate_match
 from ...ops.modulation import BITS_PER_SYMBOL

@@ -3,9 +3,9 @@
 Port of srsran_tpu/phy/upper/pusch.py without UCI, frequency hopping or
 transform precoding:
 
-  DM-RS channel estimate -> [fused per-RE ZF equalize -> max-log demap ->
-  descramble: the K3 kernel] -> EVM -> rate dematch + HARQ combine (K2) ->
-  LDPC decode with CRC early stop (K1) -> CB/TB CRC.
+  DM-RS channel estimate (K8) -> [fused per-RE ZF equalize -> max-log
+  demap -> descramble: the K3 kernel] -> EVM -> rate dematch + HARQ
+  combine (K2) -> LDPC decode with CRC early stop (K1) -> CB/TB CRC.
 
 All data REs of the allocation are gathered through one host plan; the
 codeblock axis batches the decode.
@@ -18,18 +18,16 @@ import dataclasses
 import numpy as np
 import torch
 
-from srsran_tpu.ran.cyclic_prefix import CyclicPrefix, cp_lengths
-from srsran_tpu.ran.ldpc_params import (SegmentParams, segment_tb,
-                                        select_base_graph)
-from srsran_tpu.ran.uci_on_pusch import UciOnPuschConfig
-
-from ...device import const, i64
+from ...ran.cyclic_prefix import CyclicPrefix, cp_lengths
+from ...ran.ldpc_params import SegmentParams, segment_tb, select_base_graph
+from ...ran.uci_on_pusch import UciOnPuschConfig
+from ...device import const
 from ...ops import channel_estimate as chest
 from ...ops import evm as evm_ops
 from ...ops import ul_demap
 from ...ops.modulation import BITS_PER_SYMBOL
 from . import sch_decoder
-from .dmrs import DmrsConfig, _sc_long, _type1_sc_indices, pilots_for_port
+from .dmrs import DmrsConfig, _type1_sc_indices, pilots_for_port
 from .pdsch import _cb_rate_match_sizes, data_re_plan_column, plan_key
 
 
@@ -115,15 +113,13 @@ def _symbol_times(numerology: int) -> np.ndarray:
     return (starts / fs).astype(np.float64)
 
 
-def _estimate_group(grid: torch.Tensor, cfg: PuschConfig, dmrs_cinits,
-                    ports: tuple, delta: int) -> chest.ChannelEstimate:
-    """Single-CDM-group estimate for the given DM-RS ports."""
+def estimate_args(grid: torch.Tensor, cfg: PuschConfig, dmrs_cinits,
+                  ports: tuple, delta: int) -> tuple:
+    """(args, kwargs) of ``chest.estimate_from_grid`` for the DM-RS ports
+    of one CDM group."""
     dev = grid.device
     dmrs_cfg = dmrs_config(cfg)
     sc_abs = _type1_sc_indices(cfg.rb_start, cfg.rb_count, delta)
-    syms = const(i64, tuple(cfg.dmrs_symbols), device=dev)
-    sc = const(_sc_long, cfg.rb_start, cfg.rb_count, delta, device=dev)
-    rx_pilots = grid[:, syms, :][:, :, sc]
     expected = torch.stack([pilots_for_port(dmrs_cfg, p, dmrs_cinits, dev)
                             for p in ports])                      # [L, S, K]
     # Symbol times at the config's numerology, as the JAX package computes
@@ -131,13 +127,22 @@ def _estimate_group(grid: torch.Tensor, cfg: PuschConfig, dmrs_cinits,
     scs = 15_000 << cfg.numerology
     times = _symbol_times(cfg.numerology)
     pilot_rel = sc_abs - cfg.rb_start * 12
-    return chest.estimate(
-        rx_pilots, expected, pilot_rel, cfg.rb_count * 12, 14,
-        float(scs), stride=2, smoothing="filter",
-        dmrs_symbol_times_s=times[np.asarray(cfg.dmrs_symbols)],
-        td_strategy=cfg.td_interpolation,
-        dmrs_symbol_idx=np.asarray(cfg.dmrs_symbols),
-        cdm_pairs=len(ports) > 1)
+    args = (grid, tuple(cfg.dmrs_symbols), cfg.rb_start * 12, expected,
+            pilot_rel, cfg.rb_count * 12, 14, float(scs))
+    kwargs = dict(stride=2, smoothing="filter",
+                  dmrs_symbol_times_s=times[np.asarray(cfg.dmrs_symbols)],
+                  td_strategy=cfg.td_interpolation,
+                  dmrs_symbol_idx=np.asarray(cfg.dmrs_symbols),
+                  cdm_pairs=len(ports) > 1)
+    return args, kwargs
+
+
+def _estimate_group(grid: torch.Tensor, cfg: PuschConfig, dmrs_cinits,
+                    ports: tuple, delta: int) -> chest.ChannelEstimate:
+    """Single-CDM-group estimate for the given DM-RS ports (K8 reads the
+    pilots straight from the grid)."""
+    args, kwargs = estimate_args(grid, cfg, dmrs_cinits, ports, delta)
+    return chest.estimate_from_grid(*args, **kwargs)
 
 
 def _plan(cfg: PuschConfig, device):

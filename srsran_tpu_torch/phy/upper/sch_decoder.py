@@ -11,8 +11,7 @@ import dataclasses
 
 import torch
 
-from srsran_tpu.ran.ldpc_params import SegmentParams
-
+from ...ran.ldpc_params import SegmentParams
 from ...ops import ldpc_decode, ldpc_rate_match
 from ...ops.crc import crc_check
 

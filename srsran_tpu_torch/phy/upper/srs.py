@@ -1,0 +1,191 @@
+"""SRS channel estimator (TS38.211 §6.4.1.4).
+
+Port of srsran_tpu/phy/upper/srs.py: correlate the received comb REs with
+the cyclic-shifted low-PAPR base sequence of every SRS port, average over
+symbols, IDFT-peak TA, then the SRS-specific noise of one TA-compensated
+wideband coefficient per (rx port, SRS port).  :func:`estimate` runs the
+generic estimator K8 (``channel_estimate.estimate_from_grid``, CFO off,
+pilot stride = comb) and then :func:`srs_noise`, the K11 wrapper: on CUDA
+tensors the hand kernel of csrc/srs_estimate.cu, which takes K8's TA and
+RSRP on the device; on CPU tensors its twin :func:`srs_noise_ref`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from ... import kernels
+from ...device import const, i64, is_cuda
+from ...kernels import _build
+from ...ops import channel_estimate as chest
+from ...ops.low_papr import base_sequence
+
+KERNEL = kernels.register(kernels.Kernel(
+    name="srs_estimate", route="cuda",
+    source="srsran_tpu_torch/csrc/srs_estimate.cu",
+    replaces="srsran_tpu/phy/upper/srs.py:98"))
+
+
+@dataclasses.dataclass(frozen=True)
+class SrsConfig:
+    """Static SRS occasion description (same fields and defaults as the JAX
+    package's SrsConfig)."""
+
+    rb_start: int
+    rb_count: int              # resolved m_SRS (from C_SRS/B_SRS tables)
+    start_symbol: int
+    nof_symbols: int           # 1, 2 or 4
+    comb: int                  # K_TC: 2 or 4
+    comb_offset: int
+    cyclic_shift: int          # n_SRS_cs
+    nof_ports: int             # N_ap: 1, 2 or 4
+    sequence_id: int           # n_SRS_ID
+    numerology: int = 0
+    rnti: int = 0              # fapi ul_srs_pdu rnti (indication routing)
+
+    @property
+    def seq_len(self) -> int:
+        return self.rb_count * 12 // self.comb
+
+    @property
+    def n_cs_max(self) -> int:
+        return 8 if self.comb == 2 else 12
+
+
+@functools.lru_cache(maxsize=None)
+def port_sequence(cfg: SrsConfig, port: int) -> np.ndarray:
+    """r^(alpha_p) for SRS port p (TS38.211 §6.4.1.4.2)."""
+    u = cfg.sequence_id % 30
+    m = cfg.seq_len
+    base = base_sequence(u, 0, m)
+    n_cs = (cfg.cyclic_shift + cfg.n_cs_max * port // cfg.nof_ports) % cfg.n_cs_max
+    alpha = 2 * np.pi * n_cs / cfg.n_cs_max
+    n = np.arange(m)
+    return (np.exp(1j * alpha * n) * base).astype(np.complex64)
+
+
+def sc_indices(cfg: SrsConfig) -> np.ndarray:
+    return (cfg.rb_start * 12 + cfg.comb_offset
+            + cfg.comb * np.arange(cfg.seq_len)).astype(np.int32)
+
+
+def _symbols(cfg: SrsConfig) -> tuple:
+    return tuple(range(cfg.start_symbol, cfg.start_symbol + cfg.nof_symbols))
+
+
+@functools.lru_cache(maxsize=None)
+def _expected(cfg: SrsConfig) -> np.ndarray:
+    """complex64 [L, S, K]: every port's sequence on every SRS symbol."""
+    return np.stack([np.repeat(port_sequence(cfg, p)[None], cfg.nof_symbols,
+                               axis=0) for p in range(cfg.nof_ports)])
+
+
+def _expected_tensor(cfg: SrsConfig, device) -> torch.Tensor:
+    return const(_expected, cfg, device=device)
+
+
+def map_to_grid(grid: torch.Tensor, cfg: SrsConfig) -> torch.Tensor:
+    """UE-side: a copy of ``grid`` with the SRS of every port added (port p
+    transmits on grid port p; tests and the UE emulation)."""
+    dev = grid.device
+    out = grid.clone()
+    sc = const(i64, tuple(int(s) for s in sc_indices(cfg)), device=dev)
+    for p in range(cfg.nof_ports):
+        seq = torch.as_tensor(port_sequence(cfg, p)).to(dev)
+        for s in _symbols(cfg):
+            out[p, s, sc] += seq
+    return out
+
+
+def _ramp_scale(cfg: SrsConfig) -> float:
+    """2 pi scs comb: the per-comb-sample phase of a delay of one second."""
+    return 2.0 * np.pi * float(15_000 << cfg.numerology) * cfg.comb
+
+
+def _arange_f32(n: int) -> np.ndarray:
+    return np.arange(n, dtype=np.float32)
+
+
+def srs_noise_ref(grid: torch.Tensor, cfg: SrsConfig, ta: torch.Tensor,
+                  rsrp: torch.Tensor) -> tuple:
+    """Plain twin of :func:`srs_noise`."""
+    dev = grid.device
+    syms = const(i64, _symbols(cfg), device=dev)
+    sc = const(i64, tuple(int(s) for s in sc_indices(cfg)), device=dev)
+    rx = grid[:, syms, :][:, :, sc]                              # [P, S, K]
+    expected = _expected_tensor(cfg, dev)                        # [L, S, K]
+    seq0 = expected[:, 0, :]                                     # [L, K]
+    ls_mean = torch.mean(rx[:, None] * expected.conj()[None], dim=2)
+    k = const(_arange_f32, cfg.seq_len, device=dev)
+    # per-comb-sample phase of a pure delay: 2*pi * ta * scs * comb
+    phase = (_ramp_scale(cfg) * ta.to(torch.float32)) * k
+    ramp = torch.exp(1j * phase).to(torch.complex64)
+    wideband = torch.mean(ls_mean * ramp[None, None, :], dim=-1)  # [P, L]
+    recon = torch.einsum("pl,lk->pk", wideband,
+                         seq0 * ramp.conj()[None, :])            # [P, K]
+    acc = torch.sum(rx, dim=1)                                   # [P, K]
+    resid = acc - cfg.nof_symbols * recon
+    # each accumulated sample carries S*sigma^2 of noise; L wideband
+    # coefficients were fit on the K samples -> K-L residual DOF
+    dof = max(cfg.seq_len - cfg.nof_ports, 1)
+    noise_var = torch.sum(resid.abs() ** 2, dim=-1) / (
+        float(cfg.nof_symbols) * dof)                            # [P]
+    noise_var = torch.maximum(noise_var, rsrp * 10 ** (-60 / 10))
+    snr = rsrp / torch.clamp_min(noise_var, 1e-12)
+    return noise_var, snr
+
+
+def srs_noise(grid: torch.Tensor, cfg: SrsConfig, ta: torch.Tensor,
+              rsrp: torch.Tensor) -> tuple:
+    """SRS noise variance and SNR per rx port, (f32 [P], f32 [P]), from the
+    received grid, the TA (f32 scalar) and RSRP (f32 [P]) of the generic
+    estimate (srs.py:98-118 of the JAX package)."""
+    if not is_cuda(grid, ta, rsrp):
+        return srs_noise_ref(grid, cfg, ta, rsrp)
+    if grid.dtype != torch.complex64 or grid.ndim != 3:
+        raise ValueError(f"grid must be complex64 [P, S, K], got "
+                         f"{grid.dtype} {tuple(grid.shape)}")
+    dev = grid.device
+    n_p = grid.shape[0]
+    if rsrp.shape != (n_p,) or ta.numel() != 1:
+        raise ValueError(f"rsrp {tuple(rsrp.shape)} / ta {tuple(ta.shape)} "
+                         f"do not fit {n_p} rx ports")
+    syms = const(chest._i32, _symbols(cfg), device=dev)
+    cols = const(chest._i32, tuple(int(s) for s in sc_indices(cfg)),
+                 device=dev)
+    expected = _expected_tensor(cfg, dev)
+    grid = grid.contiguous()
+    out = torch.empty((2 * n_p,), dtype=torch.float32, device=dev)
+    lib = _build.load()
+    _build.check(lib.srsran_srs_noise(
+        _build.ptr(grid), n_p, grid.shape[1], grid.shape[2], _build.ptr(syms),
+        _build.ptr(cols), _build.ptr(expected), cfg.nof_ports,
+        cfg.nof_symbols, cfg.seq_len, _ramp_scale(cfg),
+        _build.ptr(ta.to(torch.float32).contiguous()),
+        _build.ptr(rsrp.contiguous()), max(cfg.seq_len - cfg.nof_ports, 1),
+        _build.ptr(out), _build.stream_of(grid)), "srs_noise")
+    KERNEL.count()
+    return out[:n_p], out[n_p:]
+
+
+def estimate_args(grid: torch.Tensor, cfg: SrsConfig) -> tuple:
+    """(args, kwargs) of the generic estimate (``chest.estimate_from_grid``)
+    on the SRS comb: CFO off, pilot stride = comb."""
+    sc = sc_indices(cfg)
+    args = (grid, _symbols(cfg), cfg.rb_start * 12 + cfg.comb_offset,
+            _expected_tensor(cfg, grid.device),
+            sc - cfg.rb_start * 12 - cfg.comb_offset, cfg.seq_len * cfg.comb,
+            cfg.nof_symbols, float(15_000 << cfg.numerology))
+    return args, dict(stride=cfg.comb, smoothing="filter", estimate_cfo=False)
+
+
+def estimate(grid: torch.Tensor, cfg: SrsConfig) -> chest.ChannelEstimate:
+    """Estimate the [rx_port, srs_port] channel from a received grid."""
+    args, kwargs = estimate_args(grid, cfg)
+    est = chest.estimate_from_grid(*args, **kwargs)
+    noise_var, snr = srs_noise(grid, cfg, est.time_alignment_s, est.rsrp)
+    return dataclasses.replace(est, noise_var=noise_var, snr=snr)

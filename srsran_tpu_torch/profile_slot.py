@@ -4,8 +4,9 @@
                                             [--calls 10]
                                             [--out chiprun_out/profile]
 
-Drives the flagship UL slot (PUSCH) or DL slot (SSB in the first slot,
-PDCCH, 4-layer PDSCH, OFDM) of :mod:`srsran_tpu_torch.flagship` and reports:
+Drives the flagship UL slot (the full mix: PUSCH, PUCCH F1, PRACH, SRS)
+or DL slot (SSB in the first slot, PDCCH, 4-layer PDSCH, OFDM) of
+:mod:`srsran_tpu_torch.flagship` and reports:
 
 * the slot's wall time three ways: CUDA events around each call (as
   ``chip_smoke.py`` times it), the host clock over back-to-back calls with
@@ -50,7 +51,11 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HAND_KERNELS = ("ldpc_sweep_kernel", "ldpc_check_kernel", "rate_dematch_kernel",
                 "pusch_demap_kernel", "ofdm_window_kernel", "ofdm_bins_kernel",
                 "dlsch_crc_kernel", "dlsch_encode_kernel", "pdsch_map_kernel",
-                "ofdm_grid_to_bins_kernel", "ofdm_cp_insert_kernel")
+                "ofdm_grid_to_bins_kernel", "ofdm_cp_insert_kernel",
+                "chest_ls_kernel", "chest_avg_kernel", "chest_interp_kernel",
+                "chest_stats_kernel", "chest_ta_kernel", "prach_corr_kernel",
+                "prach_power_kernel", "prach_detect_kernel", "pucch_f1_kernel",
+                "srs_noise_kernel")
 
 
 def category(name: str, cat: str) -> str:
@@ -199,14 +204,16 @@ def wall_times(calls: list) -> dict:
 
 
 def ul_scenario(n: int, seed: int, dev, gen) -> tuple:
-    """(one zero-argument call per UL slot, the UL kernels' cases)."""
+    """(one zero-argument call per UL slot, the UL kernels' cases): the
+    full mix, PUSCH + PUCCH F1 + PRACH + SRS."""
     slots = flagship.make_slots(n, np.random.default_rng(seed), gen, dev)
     softs = flagship.zero_soft_buffers(dev)
+    prach_in = flagship.prach_fd(dev, seed)
     ul = flagship.ul_program()
-    calls = [lambda rx=rx, ctx=ctx: ul(rx, None, softs, ctx)
+    calls = [lambda rx=rx, ctx=ctx: ul(rx, prach_in, softs, ctx)
              for _, rx, ctx in slots]
     _, rx, ctx = slots[0]
-    return calls, flagship.kernel_cases(rx, ctx, gen)
+    return calls, flagship.kernel_cases(rx, ctx, gen, prach_in)
 
 
 def dl_scenario(n: int, seed: int, dev) -> tuple:

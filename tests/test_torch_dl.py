@@ -249,8 +249,8 @@ def test_modulate_slot_ref(cp, mu, n, sis, fc, scale, lead):
     nsym = 14 if cp is CyclicPrefix.NORMAL else 12
     grid = _cgauss(np.random.default_rng(n), lead + (nsym, 144))
     ref = j_ofdm.modulate_slot(jnp.asarray(grid), n, mu, cp, sis, fc, scale)
-    out = t_ofdm.modulate_slot_ref(torch.as_tensor(grid), n, mu, cp, sis, fc,
-                                   scale)
+    out = t_ofdm.modulate_slot_ref(torch.as_tensor(grid), n, mu,
+                                   convert.value(cp), sis, fc, scale)
     _close(out, ref, rtol=1e-4)
 
 

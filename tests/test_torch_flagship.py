@@ -16,12 +16,15 @@ import numpy as np
 import pytest
 import torch
 
-from srsran_tpu.fapi.conductor import normalize_dl_plan
-from srsran_tpu.fapi.messages import DlTtiRequest
+from srsran_tpu.fapi.conductor import normalize_dl_plan, normalize_ul_plan
+from srsran_tpu.fapi.messages import DlTtiRequest, UlTtiRequest
 from srsran_tpu.phy.upper import dmrs as j_dmrs
 from srsran_tpu.phy.upper import pdcch as j_pdcch
 from srsran_tpu.phy.upper import pdsch as j_pdsch
+from srsran_tpu.phy.upper import prach as j_prach
+from srsran_tpu.phy.upper import pucch as j_pucch
 from srsran_tpu.phy.upper import pusch as j_pusch
+from srsran_tpu.phy.upper import srs as j_srs
 from srsran_tpu.phy.upper import ssb as j_ssb
 from srsran_tpu.ran.ldpc_params import segment_tb, select_base_graph
 from srsran_tpu.ran.mcs_tbs import tbs as tbs_calc
@@ -63,8 +66,8 @@ def test_drivers_import_only_the_port(path):
                                       (3816, 0.3), (200, 0.5)])
 def test_segmentation_matches_jax(tbs, rate):
     cfg = dataclasses.replace(flagship.PUSCH, tbs=tbs, target_code_rate=rate)
-    assert t_pusch.segmentation(cfg) == segment_tb(
-        tbs, select_base_graph(tbs, rate))
+    assert dataclasses.asdict(t_pusch.segmentation(cfg)) == dataclasses.asdict(
+        segment_tb(tbs, select_base_graph(tbs, rate)))
 
 
 def test_flagship_is_the_bench_slot():
@@ -73,7 +76,8 @@ def test_flagship_is_the_bench_slot():
             seg.codeword_bits) == (1, 384, 37, 25344)
     assert flagship.CELL.nof_sc == 273 * 12
     assert flagship.UE.tbs == flagship.PUSCH.tbs
-    assert flagship.UL_PLAN[0] == (flagship.PUSCH,)
+    assert flagship.UL_PLAN == ((flagship.PUSCH,), (), (flagship.PUCCH,),
+                                (), (flagship.PRACH,), (flagship.SRS,), ())
 
 
 def test_flagship_dl_is_the_bench_slot():
@@ -137,6 +141,56 @@ def test_flagship_dl_plan_and_context_match_the_conductor(i):
                 assert torch.equal(a, b)
 
 
+# The JAX bench's UL configs (bench.py:268-285).
+J_PUSCH = j_pusch.PuschConfig(rnti=0x17, rb_start=0, rb_count=269,
+                              first_symbol=0, nof_symbols=14,
+                              modulation="qam64", target_code_rate=0.7,
+                              tbs=311400, nof_layers=2, n_id=1,
+                              dmrs_symbols=(2, 7, 11))
+J_PUCCH = j_pucch.PucchF1Config(prb=0, start_symbol=0, nof_symbols=14,
+                                initial_cyclic_shift=0, time_domain_occ=0,
+                                n_id=1)
+J_PRACH = j_prach.PrachConfig(format="B4", root_sequence_index=39,
+                              zero_correlation_zone=10, ra_scs_hz=30_000)
+J_SRS = j_srs.SrsConfig(rb_start=269, rb_count=4, start_symbol=13,
+                        nof_symbols=1, comb=2, comb_offset=0, cyclic_shift=0,
+                        nof_ports=1, sequence_id=1, numerology=1, rnti=0x17)
+
+
+def _bench_ul_request(i):
+    """bench.py's ul_request(i)."""
+    slot = SlotPoint(1, 2 * i)
+    return UlTtiRequest(
+        slot=slot,
+        pusch=(dataclasses.replace(J_PUSCH, slot_in_frame=slot.slot_index),),
+        pucch_f1=(dataclasses.replace(J_PUCCH, slot=slot.slot_index),),
+        prach=(J_PRACH,), srs=(J_SRS,))
+
+
+def _same_leaves(a, b):
+    if b is None:
+        assert a is None
+    elif isinstance(b, tuple):
+        assert isinstance(a, tuple) and len(a) == len(b)
+        for x, y in zip(a, b):
+            _same_leaves(x, y)
+    else:
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("i", [0, 1, 7, 12])
+def test_flagship_ul_plan_and_context_match_the_conductor(i):
+    """The port's UL plan (the full mix) and slot context equal what the
+    JAX conductor's normalize_ul_plan makes of the bench's requests."""
+    plan, ctx = normalize_ul_plan(_bench_ul_request(i))
+    assert convert.plan(plan) == flagship.UL_PLAN
+    want = convert.slot_context(ctx, "cpu")
+    got = flagship.ul_slot_context(i, "cpu")
+    assert set(got) == set(want)
+    for key in want:
+        _same_leaves(got[key], want[key])
+
+
 def test_slot_context_keeps_seeds_on_host():
     """Pilot values go to the device; c_init seeds stay on the host."""
     cfg = j_pusch.dmrs_config(j_pusch.PuschConfig(
@@ -191,6 +245,11 @@ def test_busy_is_union_of_intervals(intervals, busy):
     ("void pdsch_map_kernel<8>(...)", "kernel", "pdsch_map_kernel"),
     ("ofdm_cp_insert_kernel(float2 const*, ...)", "kernel",
      "ofdm_cp_insert_kernel"),
+    ("chest_interp_kernel(int, int, ...)", "kernel", "chest_interp_kernel"),
+    ("prach_detect_kernel(float const*, ...)", "kernel",
+     "prach_detect_kernel"),
+    ("pucch_f1_kernel(float2 const*, ...)", "kernel", "pucch_f1_kernel"),
+    ("srs_noise_kernel(float2 const*, ...)", "kernel", "srs_noise_kernel"),
 ])
 def test_profile_categories(name, cat, bucket):
     assert profile_slot.category(name, cat) == bucket

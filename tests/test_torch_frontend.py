@@ -70,13 +70,14 @@ def test_ofdm_modulate_demodulate(mu, n, sis, fc, offset, cp):
     nsym = 14 if cp is CyclicPrefix.NORMAL else 12
     grid = _cgauss(rng, (2, nsym, NSC))
     a = j_ofdm.modulate_slot(jnp.asarray(grid), n, mu, cp, sis, fc, 0.7)
-    b = t_ofdm.modulate_slot(_t(grid), n, mu, cp, sis, fc, 0.7)
+    b = t_ofdm.modulate_slot(_t(grid), n, mu, convert.value(cp), sis, fc,
+                             0.7)
     close(b, a)
     samples = np.asarray(a) + _cgauss(rng, a.shape, 0.01)
     ga = j_ofdm.demodulate_slot(jnp.asarray(samples), NSC, n, mu, cp, sis, fc,
                                 1.3, offset)
-    gb = t_ofdm.demodulate_slot(_t(samples), NSC, n, mu, cp, sis, fc, 1.3,
-                                offset)
+    gb = t_ofdm.demodulate_slot(_t(samples), NSC, n, mu, convert.value(cp),
+                                sis, fc, 1.3, offset)
     close(gb, ga)
 
 

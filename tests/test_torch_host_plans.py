@@ -1,11 +1,14 @@
-"""The port's copies of the JAX package's host plans, pinned to their
-originals, and the port's import isolation from JAX.
+"""The port's copies of the JAX package's host plans and tables, pinned to
+their originals, and the port's import isolation from JAX and from the JAX
+package.
 
-The card's machine has no JAX, so the port carries its own copies of the
-numpy plan builders that live inside JAX modules; every copy must stay
-array-equal to its original for several configurations.
+The card's machine has no JAX, and the port imports nothing of the JAX
+package, so it carries its own copies of the numpy plan builders, of the
+``srsran_tpu.ran`` parameter modules it uses and of their data tables;
+every copy must stay equal to its original for several configurations.
 """
 
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -16,10 +19,13 @@ import torch
 
 from srsran_tpu.ops import channel_estimate as j_chest
 from srsran_tpu.ops import crc as j_crc
+from srsran_tpu.ops import gf2 as j_gf2
 from srsran_tpu.ops import gold as j_gold
 from srsran_tpu.ops import ldpc_decode as j_dec
 from srsran_tpu.ops import ldpc_encode as j_enc
+from srsran_tpu.ops import ldpc_graph as j_graph
 from srsran_tpu.ops import ldpc_rate_match as j_rm
+from srsran_tpu.ops import low_papr as j_papr
 from srsran_tpu.ops import modulation as j_mod
 from srsran_tpu.ops import ofdm as j_ofdm
 from srsran_tpu.ops import polar as j_polar
@@ -27,15 +33,22 @@ from srsran_tpu.phy.upper import dmrs as j_dmrs
 from srsran_tpu.phy.upper import pdcch as j_pdcch
 from srsran_tpu.phy.upper import pdsch as j_pdsch
 from srsran_tpu.phy.upper import ssb as j_ssb
+from srsran_tpu.ran import cyclic_prefix as j_cp
+from srsran_tpu.ran import ldpc_params as j_ldpc
 from srsran_tpu.ran import polar_params
+from srsran_tpu.ran import prach_params as j_prachp
+from srsran_tpu.ran import uci_on_pusch as j_uci
 from srsran_tpu.ran.cyclic_prefix import CyclicPrefix
 
 from srsran_tpu_torch.ops import channel_estimate as t_chest
 from srsran_tpu_torch.ops import crc as t_crc
+from srsran_tpu_torch.ops import gf2 as t_gf2
 from srsran_tpu_torch.ops import gold as t_gold
 from srsran_tpu_torch.ops import ldpc_decode as t_dec
 from srsran_tpu_torch.ops import ldpc_encode as t_enc
+from srsran_tpu_torch.ops import ldpc_graph as t_graph
 from srsran_tpu_torch.ops import ldpc_rate_match as t_rm
+from srsran_tpu_torch.ops import low_papr as t_papr
 from srsran_tpu_torch.ops import modulation as t_mod
 from srsran_tpu_torch import convert
 from srsran_tpu_torch.ops import ofdm as t_ofdm
@@ -44,6 +57,11 @@ from srsran_tpu_torch.phy.upper import dmrs as t_dmrs
 from srsran_tpu_torch.phy.upper import pdcch as t_pdcch
 from srsran_tpu_torch.phy.upper import pdsch as t_pdsch
 from srsran_tpu_torch.phy.upper import ssb as t_ssb
+from srsran_tpu_torch.ran import cyclic_prefix as t_cp
+from srsran_tpu_torch.ran import ldpc_params as t_ldpc
+from srsran_tpu_torch.ran import polar_params as t_polar_params
+from srsran_tpu_torch.ran import prach_params as t_prachp
+from srsran_tpu_torch.ran import uci_on_pusch as t_uci
 
 torch.set_num_threads(2)
 
@@ -192,7 +210,7 @@ OFDM_CASES = [(CyclicPrefix.NORMAL, 1, 512, 0), (CyclicPrefix.NORMAL, 1, 512, 1)
 @pytest.mark.parametrize("cp,mu,n,sis", OFDM_CASES)
 def test_cp_insert_plan(cp, mu, n, sis):
     np.testing.assert_array_equal(j_ofdm._cp_insert_plan(cp, mu, n, sis),
-                                  t_ofdm._cp_insert_plan(cp, mu, n, sis))
+                                  t_ofdm._cp_insert_plan(convert.value(cp), mu, n, sis))
 
 
 @pytest.mark.parametrize("cp,mu,n,sis", OFDM_CASES)
@@ -200,7 +218,7 @@ def test_cp_insert_plan(cp, mu, n, sis):
 def test_window_plan_rx(cp, mu, n, sis, offset):
     np.testing.assert_array_equal(
         j_ofdm._window_plan_rx(cp, mu, n, sis, offset),
-        t_ofdm._window_plan_rx(cp, mu, n, sis, offset))
+        t_ofdm._window_plan_rx(convert.value(cp), mu, n, sis, offset))
 
 
 @pytest.mark.parametrize("cp,mu,n,sis", OFDM_CASES)
@@ -208,7 +226,7 @@ def test_window_plan_rx(cp, mu, n, sis, offset):
 def test_phase_compensation(cp, mu, n, sis, fc):
     np.testing.assert_array_equal(
         j_ofdm.phase_compensation(cp, mu, n, sis, fc),
-        t_ofdm.phase_compensation(cp, mu, n, sis, fc))
+        t_ofdm.phase_compensation(convert.value(cp), mu, n, sis, fc))
 
 
 # ------------------------------------------------------------ polar, PDCCH
@@ -346,24 +364,159 @@ def test_pss_sss_sequences(n_id2):
                                       t_ssb.sss_sequence(n_id1, n_id2))
 
 
+# ------------------------------------------- the port's copies of ran/ops
+
+@pytest.mark.parametrize("rate", [0.1, 0.3, 0.67, 0.7, 0.95])
+@pytest.mark.parametrize("tbs", [24, 200, 296, 3816, 8424, 26632, 311400,
+                                 835584, 1277992])
+def test_segment_tb_copy(tbs, rate):
+    bg = j_ldpc.select_base_graph(tbs, rate)
+    assert t_ldpc.select_base_graph(tbs, rate) == bg
+    assert dataclasses.asdict(t_ldpc.segment_tb(tbs, bg)) == \
+        dataclasses.asdict(j_ldpc.segment_tb(tbs, bg))
+    z = j_ldpc.segment_tb(tbs, bg).lifting_size
+    for rv in range(4):
+        assert t_ldpc.rate_match_k0(bg, rv, 66 * z, z) == \
+            j_ldpc.rate_match_k0(bg, rv, 66 * z, z)
+
+
+@pytest.mark.parametrize("k,e,nmax,ibil", [
+    (84, 864, 9, False), (56, 864, 9, False), (12, 60, 10, True),
+    (19, 120, 10, True), (40, 300, 10, True), (164, 432, 9, False)])
+def test_polar_code_copy(k, e, nmax, ibil):
+    a = polar_params.polar_code(k, e, nmax=nmax, ibil=ibil)
+    b = t_polar_params.polar_code(k, e, nmax=nmax, ibil=ibil)
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+            np.testing.assert_array_equal(x, y)
+        else:
+            assert x == y, f.name
+
+
+@pytest.mark.parametrize("cp", ["NORMAL", "EXTENDED"])
+@pytest.mark.parametrize("mu,n,sis", [(0, 2048, 0), (1, 4096, 0),
+                                      (1, 512, 1), (2, 1024, 3), (3, 256, 5)])
+def test_cp_lengths_copy(cp, mu, n, sis):
+    a, b = j_cp.CyclicPrefix[cp], t_cp.CyclicPrefix[cp]
+    assert a.value == b.value
+    np.testing.assert_array_equal(j_cp.cp_lengths(a, mu, n, sis),
+                                  t_cp.cp_lengths(b, mu, n, sis))
+    assert j_cp.slot_num_samples(a, mu, n, sis) == \
+        t_cp.slot_num_samples(b, mu, n, sis)
+    assert j_cp.symbols_per_slot(a) == t_cp.symbols_per_slot(b)
+
+
+@pytest.mark.parametrize("bg,z", [(1, 384), (1, 320), (1, 2), (2, 64),
+                                  (2, 15), (2, 384)])
+def test_ldpc_graph_copy(bg, z):
+    a, b = j_graph.get_graph(bg, z), t_graph.get_graph(bg, z)
+    assert (a.base_graph, a.z, a.nof_rows, a.nof_cols, a.nof_info_cols) == \
+        (b.base_graph, b.z, b.nof_rows, b.nof_cols, b.nof_info_cols)
+    assert a.rows == b.rows
+    bits = np.random.default_rng(z).integers(0, 2, a.nof_cols * z,
+                                             dtype=np.uint8)
+    np.testing.assert_array_equal(j_graph.parity_check_np(a, bits),
+                                  t_graph.parity_check_np(b, bits))
+
+
+def test_gf2_copy():
+    rng = np.random.default_rng(4)
+    a = rng.integers(0, 2, (9, 13)).astype(np.uint8)
+    b = rng.integers(0, 2, (13, 7)).astype(np.uint8)
+    np.testing.assert_array_equal(j_gf2.gf2_matmul(a, b), t_gf2.gf2_matmul(a, b))
+    sq = rng.integers(0, 2, (11, 11)).astype(np.uint8)
+    np.testing.assert_array_equal(j_gf2.gf2_matpow(sq, 37),
+                                  t_gf2.gf2_matpow(sq, 37))
+
+
+@pytest.mark.parametrize("m_sc", [6, 12, 18, 24, 36, 48, 1614])
+def test_base_sequence_copy(m_sc):
+    for u in (0, 1, 7, 29):
+        for v in ((0, 1) if m_sc >= 72 else (0,)):
+            np.testing.assert_array_equal(j_papr.base_sequence(u, v, m_sc),
+                                          t_papr.base_sequence(u, v, m_sc))
+    assert j_papr._largest_prime_below(m_sc) == \
+        t_papr._largest_prime_below(m_sc)
+
+
+@pytest.mark.parametrize("restricted", ["unrestricted", "type_a", "type_b"])
+@pytest.mark.parametrize("scs", [1250, 5000])
+def test_prach_params_copy(scs, restricted):
+    for zcz in range(16):
+        try:
+            ncs = j_prachp.n_cs(zcz, scs, restricted)
+        except AssertionError:              # a reserved entry
+            with pytest.raises(AssertionError):
+                t_prachp.n_cs(zcz, scs, restricted)
+            continue
+        assert t_prachp.n_cs(zcz, scs, restricted) == ncs
+        for u in (1, 25, 129, 400, 838):
+            try:
+                want = j_prachp.restricted_cyclic_shifts(u, ncs, 839,
+                                                         restricted)
+            except NotImplementedError:
+                with pytest.raises(NotImplementedError):
+                    t_prachp.restricted_cyclic_shifts(u, ncs, 839, restricted)
+                continue
+            assert t_prachp.restricted_cyclic_shifts(
+                u, ncs, 839, restricted) == want
+
+
+def test_prach_roots_and_sequences_copy():
+    for i in (0, 1, 39, 137, 500, 837, 900):
+        for long_format in (True, False):
+            assert t_prachp.root_sequence_number(i, long_format) == \
+                j_prachp.root_sequence_number(i, long_format)
+    for zcz in range(16):
+        assert t_prachp.n_cs(zcz, 30_000) == j_prachp.n_cs(zcz, 30_000)
+    for u, l_ra, cs in ((1, 839, 0), (129, 839, 76), (25, 139, 19),
+                        (138, 139, 0)):
+        np.testing.assert_array_equal(t_prachp.zc_sequence(u, l_ra, cs),
+                                      j_prachp.zc_sequence(u, l_ra, cs))
+    assert t_prachp.PRACH_CP_KAPPA == j_prachp.PRACH_CP_KAPPA
+    assert t_prachp.LONG_FORMATS == j_prachp.LONG_FORMATS
+
+
+def test_uci_on_pusch_config_copy():
+    assert dataclasses.asdict(t_uci.UciOnPuschConfig()) == \
+        dataclasses.asdict(j_uci.UciOnPuschConfig())
+    assert [f.name for f in dataclasses.fields(t_uci.UciOnPuschConfig)] == \
+        [f.name for f in dataclasses.fields(j_uci.UciOnPuschConfig)]
+
+
+def test_data_tables_are_copies():
+    """The port's data/ tables are byte-equal to the JAX package's."""
+    port = REPO / "srsran_tpu_torch" / "data"
+    names = sorted(f.name for f in port.iterdir())
+    assert names == ["ldpc_bg_tables.npz", "low_papr_tables.npz",
+                     "polar_tables.npz", "prach_tables.npz",
+                     "prach_thresholds.json"]
+    for name in names:
+        assert (port / name).read_bytes() == \
+            (REPO / "srsran_tpu" / "data" / name).read_bytes(), name
+
+
 _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None            # any `import jax` now raises
+sys.modules["srsran_tpu"] = None     # and so does any import of the JAX package
 import srsran_tpu_torch
 names = ["srsran_tpu_torch"] + [m.name for m in pkgutil.walk_packages(
     srsran_tpu_torch.__path__, "srsran_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
-                or m.startswith("jaxlib"))
+loaded = sorted(m for m in sys.modules if m in ("jax", "srsran_tpu")
+                or m.startswith(("jax.", "jaxlib", "srsran_tpu.")))
 assert not [m for m in loaded if sys.modules[m] is not None], loaded
 print(" ".join(names))
 """
 
 
 def test_port_imports_without_jax():
-    """Every port module and chip_smoke import with JAX blocked."""
+    """Every port module and chip_smoke import with JAX and the JAX package
+    blocked."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
@@ -371,14 +524,28 @@ def test_port_imports_without_jax():
     assert len(names) >= 25
     assert {"srsran_tpu_torch.ops.polar", "srsran_tpu_torch.ops.dl_map",
             "srsran_tpu_torch.phy.upper.pdcch",
-            "srsran_tpu_torch.phy.upper.ssb"} <= names
+            "srsran_tpu_torch.phy.upper.ssb",
+            "srsran_tpu_torch.phy.upper.prach",
+            "srsran_tpu_torch.phy.upper.pucch",
+            "srsran_tpu_torch.phy.upper.srs",
+            "srsran_tpu_torch.ran.prach_params",
+            "srsran_tpu_torch.ops.low_papr"} <= names
+
+
+def _import_lines(path: Path):
+    for line in path.read_text().splitlines():
+        s = line.strip().split("#")[0]
+        if s.startswith(("import ", "from ")):
+            yield s
 
 
 def test_port_sources_never_import_jax():
-    """No port source (or chip_smoke.py) names jax in an import."""
+    """No port source (or chip_smoke.py) names jax, or the JAX package
+    (``srsran_tpu``; ``srsran_tpu_torch`` is the port), in an import."""
     files = list((REPO / "srsran_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     for f in files:
-        for line in f.read_text().splitlines():
-            s = line.strip()
-            if s.startswith(("import ", "from ")):
-                assert "jax" not in s.split("#")[0], f"{f}: {s}"
+        for s in _import_lines(f):
+            assert "jax" not in s, f"{f}: {s}"
+            words = s.replace(",", " ").split()
+            assert not any(w == "srsran_tpu" or w.startswith("srsran_tpu.")
+                           for w in words), f"{f}: {s}"

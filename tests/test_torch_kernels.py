@@ -1,11 +1,14 @@
 """The hand kernels against their plain twins, on a CUDA GPU.
 
 Each case builds the kernel library, runs a kernel wrapper on CUDA tensors
-and its twin on the same inputs, at the small PUSCH's and PDSCH's shapes.  On a machine
-without a GPU every case skips (the twins are covered by the parity tests
-against the JAX package).  ``python3 chip_smoke.py`` runs the same checks at
+and its twin on the same inputs, at the small PUSCH's and PDSCH's shapes
+(the UL-mix kernels K8-K11 at the flagship's and at an edge case each).
+On a machine without a GPU every case skips (the twins are covered by the
+parity tests against the JAX package).  ``python3 chip_smoke.py`` runs the same checks at
 the flagship shapes.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -14,9 +17,11 @@ import torch
 from srsran_tpu.ran.ldpc_params import segment_tb, select_base_graph
 from srsran_tpu.ran.mcs_tbs import tbs as tbs_calc
 
+from srsran_tpu_torch import flagship
+from srsran_tpu_torch.ops import channel_estimate as chest
 from srsran_tpu_torch.ops import (crc, dl_map, ldpc_decode, ldpc_encode,
                                   ldpc_rate_match, ofdm, ul_demap)
-from srsran_tpu_torch.phy.upper import pdsch, pusch
+from srsran_tpu_torch.phy.upper import pdsch, prach, pucch, pusch, srs
 
 torch.set_num_threads(2)
 
@@ -164,3 +169,130 @@ def test_ofdm_modulate_kernel(cuda, cp, mu, n, sis, scale):
     args = (n, mu, cp, sis, 3.5e9, scale)
     _close(ofdm.modulate_slot(grid, *args), ofdm.modulate_slot_ref(grid, *args),
            1e-4)
+
+
+# UL mix kernels: K8 channel estimator, K9 PRACH, K10 PUCCH F1, K11 SRS, at
+# the flagship shapes and at one edge case each.
+
+def _chest_inputs(rng, nrb, layers, symbols, stride, cdm, rb_start=0,
+                  nsc_grid=3276):
+    """A channel through `layers` pilot streams on a 4-port grid."""
+    k_p = nrb * 12 // stride
+    scs = stride * np.arange(k_p)
+    expected = np.exp(1j * np.pi / 2 * rng.integers(
+        0, 4, (layers, len(symbols), k_p))).astype(np.complex64)
+    if cdm:
+        expected[1] = expected[0] * np.where(np.arange(k_p) % 2 == 0, 1, -1)
+    h = _cgauss(rng, (4, layers)).numpy()
+    ramp = np.exp(-2j * np.pi * scs * 30e3 * 0.4e-6)
+    rx = np.einsum("pl,lsk,k->psk", h, expected, ramp)
+    grid = _cgauss(rng, (4, 14, nsc_grid)).numpy() * 0.05
+    for i, s in enumerate(symbols):
+        grid[:, s, rb_start * 12 + scs] += rx[:, i]
+    return torch.as_tensor(grid), torch.as_tensor(expected), scs
+
+
+CHEST_KERNEL_CASES = {
+    # the flagship PUSCH: 2 layers with fd-OCC pairs, CFO on, average
+    "pusch_flagship": (269, 2, (2, 7, 11), 2, True, "average", 0),
+    # per-symbol interpolation
+    "pusch_interpolate": (269, 2, (2, 7, 11), 2, True, "interpolate", 0),
+    # 1 RB at the top of the carrier: the band touches both edges
+    "one_rb_edges": (1, 1, (2, 11), 2, False, "average", 272),
+    # the flagship SRS: 1 port, comb 2, 4 RB, one symbol, CFO off
+    "srs_flagship": (4, 1, (13,), 2, False, "average", 269),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CHEST_KERNEL_CASES))
+def test_channel_estimate_kernel(cuda, case):
+    nrb, layers, symbols, stride, cdm, td, rb0 = CHEST_KERNEL_CASES[case]
+    rng = np.random.default_rng(len(case))
+    grid, expected, scs = _chest_inputs(rng, nrb, layers, symbols, stride,
+                                        cdm, rb0)
+    cfo = len(symbols) > 1
+    times = np.array([0.1428, 0.5, 0.7857])[:len(symbols)] * 1e-3
+    args = (grid.to(cuda), symbols, rb0 * 12, expected.to(cuda), scs,
+            nrb * 12, 14, 15e3)
+    kw = dict(stride=stride, estimate_cfo=cfo,
+              dmrs_symbol_times_s=times if cfo else None, td_strategy=td,
+              dmrs_symbol_idx=np.asarray(symbols), cdm_pairs=cdm)
+    out = chest.estimate_from_grid(*args, **kw)
+    ref = chest.estimate_from_grid_ref(*args, **kw)
+    assert torch.equal(out.time_alignment_s.cpu(), ref.time_alignment_s.cpu())
+    assert abs(float(out.cfo_hz) - float(ref.cfo_hz)) < 1e-2
+    for key in ("coeffs", "noise_var", "rsrp", "epre", "snr"):
+        _close(getattr(out, key), getattr(ref, key), 1e-4)
+
+
+def _prach_capture(cfg, preamble, ports, symbols, rng):
+    tx = prach.generate_np(cfg, preamble)
+    ramp = np.exp(-2j * np.pi * np.arange(cfg.l_ra) * cfg.scs_hz * 2e-6)
+    fd = np.tile((tx * ramp)[None, None], (ports, symbols, 1))
+    return torch.as_tensor((fd + 0.05 * (rng.standard_normal(fd.shape)
+                                         + 1j * rng.standard_normal(fd.shape))
+                            ).astype(np.complex64))
+
+
+@pytest.mark.parametrize("fmt", ["B4", "0"])
+def test_prach_detect_kernel(cuda, fmt):
+    if fmt == "B4":
+        cfg = flagship.PRACH
+        fd = torch.as_tensor(flagship.prach_capture(np.random.default_rng(0)))
+        want = flagship.PRACH_PREAMBLE
+    else:                                  # format 0: L 839, 1.25 kHz
+        cfg = prach.PrachConfig(format="0", root_sequence_index=22,
+                                zero_correlation_zone=10)
+        want = 37
+        fd = _prach_capture(cfg, want, 4, 1, np.random.default_rng(3))
+    out = prach.detect(fd.to(cuda), cfg)
+    ref = prach.detect_ref(fd.to(cuda), cfg)
+    assert torch.equal(out.detected, ref.detected)
+    assert torch.nonzero(out.detected).flatten().tolist() == [want]
+    assert torch.equal(out.time_advance_s, ref.time_advance_s)
+    _close(out.metrics, ref.metrics, 1e-4)
+    _close(out.rssi, ref.rssi, 1e-4)
+
+
+@pytest.mark.parametrize("n_users,hop", [(1, None), (3, 9)])
+def test_pucch_f1_kernel(cuda, n_users, hop):
+    common = pucch.PucchF1Config(prb=0, start_symbol=0, nof_symbols=14,
+                                 initial_cyclic_shift=0, time_domain_occ=0,
+                                 n_id=1, slot=4, second_hop_prb=hop)
+    users = tuple((4 * u, u % 2, 1 + u % 2) for u in range(n_users))
+    grid = torch.zeros((4, 14, 3276), dtype=torch.complex64)
+    rng = np.random.default_rng(n_users)
+    for m0, occ, nbits in users:
+        cfg = dataclasses.replace(common, initial_cyclic_shift=m0,
+                                  time_domain_occ=occ, nof_harq_bits=nbits)
+        one = pucch.transmit_format1(torch.zeros_like(grid), cfg,
+                                     rng.integers(0, 2, nbits))[0]
+        grid += _cgauss(rng, (4,))[:, None, None] * one
+    grid = (grid + 0.05 * _cgauss(rng, grid.shape)).to(cuda)
+    weights = tuple(tuple(torch.as_tensor(w).to(cuda) for w in h)
+                    for h in pucch.f1_batch_weights(common, users))
+    out = pucch.f1_detect(grid, common, weights, 1.5)
+    ref = pucch.f1_detect_ref(grid, common, weights, 1.5)
+    assert torch.equal(out[0], ref[0]) and torch.equal(out[2], ref[2])
+    _close(out[1], ref[1], 1e-4)
+    _close(out[3], ref[3], 1e-4)
+
+
+@pytest.mark.parametrize("ports,comb", [(1, 2), (4, 4)])
+def test_srs_estimate_kernel(cuda, ports, comb):
+    cfg = srs.SrsConfig(rb_start=269 if ports == 1 else 200,
+                        rb_count=4 if ports == 1 else 48, start_symbol=13,
+                        nof_symbols=1, comb=comb, comb_offset=0,
+                        cyclic_shift=0, nof_ports=ports, sequence_id=1,
+                        numerology=1)
+    rng = np.random.default_rng(ports)
+    tx = srs.map_to_grid(torch.zeros((4, 14, 3276), dtype=torch.complex64),
+                         cfg)
+    grid = (torch.einsum("rp,psk->rsk", _cgauss(rng, (4, 4)), tx)
+            + 0.05 * _cgauss(rng, tx.shape)).to(cuda)
+    args, kw = srs.estimate_args(grid, cfg)
+    est = chest.estimate_from_grid_ref(*args, **kw)
+    out = srs.srs_noise(grid, cfg, est.time_alignment_s, est.rsrp)
+    ref = srs.srs_noise_ref(grid, cfg, est.time_alignment_s, est.rsrp)
+    for a, b in zip(out, ref):
+        _close(a, b, 1e-4)

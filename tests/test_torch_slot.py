@@ -9,6 +9,7 @@ must match exactly, CFO within 1 Hz, the other floats within tolerance.
 """
 
 import dataclasses
+import enum
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +23,7 @@ from srsran_tpu.phy.upper import pdsch as j_pdsch
 from srsran_tpu.phy.upper import pusch as j_pusch
 from srsran_tpu.phy.upper import ssb as j_ssb
 from srsran_tpu.phy.upper.pdsch import PdschPtrs
+from srsran_tpu.ran.cyclic_prefix import CyclicPrefix
 from srsran_tpu.ran.ldpc_params import segment_tb, select_base_graph
 from srsran_tpu.ran.mcs_tbs import tbs as tbs_calc
 from srsran_tpu.ran.precoding_codebooks import PrecodingConfig
@@ -120,15 +122,28 @@ def test_ul_slot_soft_buffer(slot_case):
     close(slot_case["t"]["new_soft"], slot_case["j"]["new_soft"], rtol=1e-3)
 
 
+def _fields(cfg) -> dict:
+    """A config's fields, enum members by (class, member) name."""
+    return {k: (type(v).__name__, v.name) if isinstance(v, enum.Enum) else v
+            for k, v in dataclasses.asdict(cfg).items()}
+
+
 def test_convert_configs():
+    """Configs map field for field onto the port's own classes, nested
+    configs and the CyclicPrefix enum included."""
     pusch = dataclasses.replace(J_PUSCH, uci=UciOnPuschConfig(o_ack=2))
-    pdsch = dataclasses.replace(J_UE, ptrs=PdschPtrs(time_density=2))
-    for cfg in (J_CELL, pusch, pdsch, j_pusch.dmrs_config(J_PUSCH)):
+    pdsch = dataclasses.replace(J_UE, ptrs=PdschPtrs(time_density=2),
+                                precoding=PrecodingConfig(prg_size=4,
+                                                          pm_indices=(1, 2)))
+    cell = dataclasses.replace(J_CELL, cp=CyclicPrefix.EXTENDED)
+    for cfg in (J_CELL, cell, pusch, pdsch, j_pusch.dmrs_config(J_PUSCH)):
         port = convert.config(cfg)
         assert type(port).__module__.startswith("srsran_tpu_torch.")
-        assert dataclasses.asdict(port) == dataclasses.asdict(cfg)
-    assert type(convert.config(pdsch).ptrs).__module__.startswith(
-        "srsran_tpu_torch.")
+        assert _fields(port) == _fields(cfg)
+    for nested in (convert.config(pdsch).ptrs, convert.config(pdsch).precoding,
+                   convert.config(pusch).uci, convert.config(cell).cp):
+        assert type(nested).__module__.startswith("srsran_tpu_torch.")
+    assert convert.config(cell).cp.name == "EXTENDED"
 
 
 def test_convert_state():
@@ -158,11 +173,15 @@ def test_ul_slot_with_c_inits_matches_values():
 
 @pytest.mark.parametrize("plan", [
     ((J_PUSCH,), (object(),), (), (), ()),
-    ((J_PUSCH,), (), (object(),), (), ()),
-    ((J_PUSCH,), (), (), (), (object(),)),
-    ((J_PUSCH,), (), (), (), (), (object(),)),
+    ((dataclasses.replace(J_PUSCH, uci=UciOnPuschConfig(o_ack=2)),),
+     (), (), (), ()),
+    ((dataclasses.replace(J_PUSCH, transform_precoding=True),),
+     (), (), (), ()),
+    ((dataclasses.replace(J_PUSCH, nof_layers=3),), (), (), (), ()),
     ((J_PUSCH,), (), (), (), (), (), (object(),))])
 def test_ul_plan_entries_not_ported_raise(plan):
+    """PUCCH F0 and F3/F4, UCI on PUSCH, transform precoding and 3-layer
+    PUSCH raise (PUCCH F1, PRACH and SRS are ported)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_slots.ul_slot_fn(convert.config(J_CELL), convert.plan(plan))
 
