@@ -14,7 +14,12 @@ the JAX package.  It builds the hand kernels from ``srsran_tpu_torch/csrc``
    descramble, K4 OFDM demodulation passes, K8 channel estimator, K9 PRACH
    detector, K10 PUCCH F1 detector, K11 SRS noise; the DL kernels K5 DL-SCH
    encode, K6 PDSCH map (also on a small allocation with repetition at rv
-   2), K7 OFDM modulation passes.  Beside each it computes the kernel's
+   2), K7 OFDM modulation passes; the UCI kernels (phase 4's first step)
+   K12 PUCCH F0 detect (decisions on the 30 dB slot; the metric too with
+   noise added to 10 dB), K13 PUCCH F2 demap (2 RB, and 1 RB), K14
+   short-block ML (K = 6, E = 32, and K = 11, E = 512), K15 polar decode
+   (K' = 33, E = 64, and N = 1024), plus K8 at the F2's comb-3 shape.
+   Beside each it computes the kernel's
    bound: the larger of its bytes (inputs read once, outputs written once)
    over 3.35 TB/s and its operations over 67 TFLOP/s (H100 SXM, float32
    outside the tensor cores);
@@ -35,7 +40,22 @@ the JAX package.  It builds the hand kernels from ``srsran_tpu_torch/csrc``
    one steady-state call runs under ``set_sync_debug_mode("error")``, an
    SSB slot and a plain slot match the same call on the plain twins on the
    CPU, and a plain slot is received back (K4, plain 256QAM demap, K2, K1)
-   with its TB CRC passing and the exact payload.
+   with its TB CRC passing and the exact payload;
+4. drives the same slots through the FAPI slot conductor
+   (``fapi.conductor.SlotConductor`` on the card) as bench.py:467-510 does:
+   10 slot phases, payloads staged 8 slots per transfer, a warm-up, then 16
+   slots through ``stage_payloads`` + ``process_slot``, each resolved 2
+   slots behind the launch front.  The UL requests add a PUCCH F0 (SR + 2
+   HARQ bits) and two PUCCH F2 (6 and 22 CSI bits) that the UE emulation
+   sends.  Every slot must pass its PUSCH CRC with the exact payload,
+   detect PRACH preamble 21 and return the F0 bits and both F2 payloads
+   as sent; every kernel K1-K15 must launch; a HARQ retransmission (rv 0
+   fails at 11 dB, rv 2 combined with its soft buffer decodes) runs
+   through the conductor's HARQ pool; one steady-state
+   ``process_slot`` runs under ``set_sync_debug_mode("error")``; one
+   slot's ``SlotResults`` must equal the same requests through the port's
+   conductor on the CPU.  It prints the conductor's us per slot by CUDA
+   events and on the host clock (staging and resolve included).
 
 It prints the card's name and power limit, one JSON line of per-kernel
 results, and as its last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -54,8 +74,9 @@ import time
 import numpy as np
 import torch
 
-from srsran_tpu_torch import flagship, kernels
+from srsran_tpu_torch import convert, flagship, kernels
 from srsran_tpu_torch.device import card_line, require_cuda
+from srsran_tpu_torch.fapi.conductor import SlotConductor
 from srsran_tpu_torch.kernels import _build
 from srsran_tpu_torch.ops.crc import crc_check
 from srsran_tpu_torch.ops.ldpc_graph import get_graph
@@ -68,6 +89,23 @@ UL_KERNELS = ("ldpc_decode", "rate_dematch", "pusch_demap", "ofdm_demodulate",
               "channel_estimate", "prach_detect", "pucch_f1_detect",
               "srs_estimate")
 DL_KERNELS = ("dlsch_encode", "pdsch_map", "ofdm_modulate")
+UCI_KERNELS = ("pucch_f0_detect", "pucch_f2_demap", "short_block_detect",
+               "polar_decode")
+# Extra cases of a kernel at another shape: compared and timed, printed,
+# not in the JSON line (which holds the main path's shape).
+CASE_KERNEL = {"pdsch_map_repetition": "pdsch_map",
+               "pucch_f0_detect_10db": "pucch_f0_detect",
+               "channel_estimate_f2": "channel_estimate",
+               "pucch_f2_demap_1rb": "pucch_f2_demap",
+               "short_block_detect_k11": "short_block_detect",
+               "polar_decode_n1024": "polar_decode"}
+CONDUCTOR_SLOTS = 16
+RESOLVE_LAG = 2
+# A HARQ retransmission through the conductor: at 11 dB the first
+# transmission (rv 0) of the flagship PUSCH fails and rv 0 + rv 2 combined
+# decode (a sweep of 8-18 dB on the H100 with this channel seed).
+HARQ_SNR_DB = 11.0
+HARQ_ID = 3
 # H100 SXM peaks (NVIDIA's data sheet): device memory, float32 outside the
 # tensor cores.  A card set below 700 W runs below them.
 MEM_BYTES_PER_S = 3.35e12
@@ -101,6 +139,26 @@ def close(kernel: torch.Tensor, ref: torch.Tensor, name: str,
 def compare(name: str, out, ref) -> float:
     """Hold one kernel's result against its twin's; returns max |error|
     (for K1, the number of hard bits that differ)."""
+    case, name = name, CASE_KERNEL.get(name, name)
+    if name == "pucch_f0_detect":                  # K12: decisions equal
+        if not all(torch.equal(out[i], ref[i]) for i in (0, 2, 3, 4)):
+            raise AssertionError("K12 decisions differ from its twin's")
+        if case == "pucch_f0_detect":
+            # the metric's noise term is energy - max corr, a difference of
+            # sums equal to ~3 digits at 30 dB: decisions only; the 10 dB
+            # case holds the metric
+            return float((out[1] - ref[1]).abs().max())
+        return close(out[1], ref[1], "K12 metric at 10 dB")
+    if name == "pucch_f2_demap":                   # K13
+        return close(out, ref, "K13 llr")
+    if name == "short_block_detect":               # K14: bits equal
+        if not torch.equal(out[0], ref[0]):
+            raise AssertionError("K14 bits differ from its twin's")
+        return close(out[1], ref[1], "K14 metric", rtol=1e-5)
+    if name == "polar_decode":                     # K15: bit-exact
+        if not (torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])):
+            raise AssertionError("K15 bits or CRC flags differ from its twin's")
+        return 0.0
     if name in ("dlsch_encode", "pdsch_map", "pdsch_map_repetition"):
         # K5 and K6 are bit-exact (K6: the grid within 1e-6 of max|ref|,
         # for the precoder's sum order).
@@ -190,6 +248,25 @@ def work(name: str, args: tuple, out) -> tuple:
     read once (for the estimators, the REs they read out of the grid),
     each output written once; operations counted per element as noted."""
     c64 = 8
+    name = CASE_KERNEL.get(name, name)
+    if name == "pucch_f0_detect":                  # K12: 8 per complex MAC
+        grid, cfg, refs = args[:3]
+        res = grid.shape[0] * cfg.nof_symbols * 12
+        return (res * c64 + nbytes(refs) + nbytes(out),
+                8.0 * refs.shape[0] * res + 4.0 * res)
+    if name == "pucch_f2_demap":                   # K13: ~11 per port, RE
+        grid, coeffs, noise, cfg = args
+        n_re = 8 * cfg.nof_rb * cfg.nof_symbols
+        p = grid.shape[0]
+        return (n_re * p * c64 + nbytes((coeffs, noise)) + 2 * n_re
+                + nbytes(out), n_re * (11.0 * p + 20))
+    if name == "short_block_detect":               # K14: 2 * 2^K * E
+        llr, k = args[0], args[1]
+        return nbytes(llr) + nbytes(out), 2.0 * (1 << k) * llr.numel()
+    if name == "polar_decode":                     # K15: ~3 N log2 N
+        llr, code = args[0], args[1]
+        return (nbytes(llr) + nbytes(out) + 4 * code.big_n,
+                3.0 * code.big_n * code.n * llr.shape[0])
     if name == "ofdm_demodulate":                  # K4: FFT + 6 per bin
         samples, nsc, n = args[0], args[1], args[2]
         p, s = samples.shape[0], 14
@@ -513,6 +590,143 @@ def dl_phases(dev, rng, card) -> tuple:
     return results, launches
 
 
+def _launch_group(cond, reqs: tuple, start: int, phases: list, prach_in,
+                  stride: int) -> list:
+    """Stage STAGE_DEPTH slots' payloads (slots start .. start + depth - 1,
+    phase j % N_PHASES) in one transfer, then launch each slot; returns
+    [(slot index, phase, pending results)]."""
+    dlr, ulr, txd = reqs
+    grp = [(start + d) % flagship.N_PHASES
+           for d in range(flagship.STAGE_DEPTH)]
+    st = cond.stage_payloads([(dlr[g], txd[g]) for g in grp], stride=stride)
+    out = []
+    for kk, g in enumerate(grp):
+        _, pend = cond.process_slot(dlr[g], ulr[g], st, kk, phases[g]["rx"],
+                                    prach_fd=prach_in)
+        out.append((start + kk, g, pend))
+    return out
+
+
+def harq_retransmission(cond, reqs: tuple, prach_in, stride: int,
+                        dev) -> None:
+    """Slot phase 5 at HARQ_SNR_DB, twice: rv 0 as new data, which must
+    fail and leave its soft buffer in the conductor's pool, then rv 2 with
+    new_data=False, which K2 combines with it and which must decode."""
+    dlr, ulr, txd = reqs
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+    i = 5
+    tb = torch.as_tensor(np.random.default_rng(SEED + 1).integers(
+        0, 2, flagship.PUSCH.tbs).astype(np.int8)).to(dev)
+    st = cond.stage_payloads([(dlr[i], txd[i])] * 2, stride=stride)
+    sweeps = []
+    for k, (rv, new) in enumerate(((0, True), (2, False))):
+        ul = dataclasses.replace(
+            ulr[i], pusch=(dataclasses.replace(ulr[i].pusch[0], rv=rv),),
+            pusch_harq=((HARQ_ID, new),))
+        rx = flagship.channel(flagship.ue_samples(2 * i, tb, rv=rv), gen,
+                              snr_db=HARQ_SNR_DB)
+        _, pend = cond.process_slot(dlr[i], ul, st, k, rx, prach_fd=prach_in)
+        crc = pend.resolve().crc[0]
+        sweeps.append(int(crc.nof_ldpc_iterations))
+        if rv == 0 and (crc.tb_crc_ok or (flagship.PUSCH.rnti, HARQ_ID)
+                        not in cond.harq_pool._bufs):
+            raise AssertionError("HARQ: rv 0 decoded alone; no combining")
+    if not crc.tb_crc_ok:
+        raise AssertionError("HARQ: rv 0 + rv 2 combined did not decode")
+    print(f"conductor HARQ retransmission at {HARQ_SNR_DB} dB: rv 0 fails "
+          f"({sweeps[0]} sweeps), rv 2 combined with its soft buffer "
+          f"decodes ({sweeps[1]} sweeps)", flush=True)
+
+
+def conductor_phases(dev, gen, rng, card) -> tuple:
+    """K12-K15 against their twins, then the flagship slot through the FAPI
+    conductor as bench.py:467-510 drives it: 10 slot phases, payloads
+    staged 8 slots per transfer with stride = the largest layout, a warm-up
+    over every phase, then CONDUCTOR_SLOTS slots each resolved RESOLVE_LAG
+    slots behind the launch front."""
+    t0 = time.perf_counter()
+    phases = flagship.conductor_phases(rng, gen, dev)
+    prach_in = flagship.prach_fd(dev, SEED)
+    pay = flagship.dl_payloads(rng)
+    reqs = ([flagship.dl_request(i) for i in range(flagship.N_PHASES)],
+            [flagship.ul_request(i) for i in range(flagship.N_PHASES)],
+            [flagship.tx_request(i, pay) for i in range(flagship.N_PHASES)])
+    torch.cuda.synchronize()
+    print(f"conductor inputs: {flagship.N_PHASES} slot phases in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    results = kernel_phases(flagship.conductor_kernel_cases(
+        phases[0]["rx"], 0, gen))
+
+    cond = SlotConductor(flagship.CELL)
+    if cond.device.type != "cuda":
+        raise AssertionError(f"SlotConductor() chose {cond.device}")
+    stride = max(cond.payload_layout(d)[1] for d in reqs[0])
+    # warm-up: every phase's slot program and context, then checked
+    warm = []
+    for start in range(0, flagship.N_PHASES, flagship.STAGE_DEPTH):
+        warm += _launch_group(cond, reqs, start, phases, prach_in, stride)
+    for j, g, pend in warm:
+        flagship.check_results(pend.resolve(), phases[g], f"warm-up slot {j}")
+    torch.cuda.synchronize()
+
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    begin = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    begin.record()
+    pending, done = [], []
+    for start in range(0, CONDUCTOR_SLOTS, flagship.STAGE_DEPTH):
+        for item in _launch_group(cond, reqs, start, phases, prach_in,
+                                  stride):
+            pending.append(item)
+            if len(pending) > RESOLVE_LAG:
+                j, g, pend = pending.pop(0)
+                done.append((j, g, pend.resolve()))
+    end.record()
+    for j, g, pend in pending:
+        done.append((j, g, pend.resolve()))
+    torch.cuda.synchronize()
+    host_us = 1e6 * (time.perf_counter() - t0) / CONDUCTOR_SLOTS
+    launches = launched(UL_KERNELS + DL_KERNELS + UCI_KERNELS)
+    for j, g, res in done:
+        flagship.check_results(res, phases[g], f"conductor slot {j}")
+    span_us = 1e3 * begin.elapsed_time(end) / CONDUCTOR_SLOTS
+    print(f"conductor slot (DL + UL with PUSCH, F0, F1, 2 x F2, PRACH, SRS): "
+          f"{len(done)} slots ok, {span_us:.1f} us per slot by CUDA events "
+          f"(the device span of the slots' launches over their count), "
+          f"{host_us:.1f} us per slot on the host clock with staging and "
+          f"resolve, card {card}", flush=True)
+
+    harq_retransmission(cond, reqs, prach_in, stride, dev)
+
+    # one steady-state process_slot with every synchronizing op an error
+    dlr, ulr, txd = reqs
+    st = cond.stage_payloads([(dlr[1], txd[1])], stride=stride)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, pend = cond.process_slot(dlr[1], ulr[1], st, 0, phases[1]["rx"],
+                                    prach_fd=prach_in)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    gpu = pend.resolve()
+    flagship.check_results(gpu, phases[1], "sync-free slot")
+    print("conductor sync-free steady-state process_slot: ok", flush=True)
+
+    # the same requests through the port's conductor on the CPU twins
+    cpu = SlotConductor(flagship.CELL, device="cpu")
+    st = cpu.stage_payloads([(dlr[1], txd[1])], stride=stride)
+    _, pend = cpu.process_slot(dlr[1], ulr[1], st, 0, phases[1]["rx"].cpu(),
+                               prach_fd=_to_cpu(prach_in))
+    # 1e-3: the EVM from K3's LLRs, as compare_ul; the F0 metric's noise
+    # term (energy - max corr) loses digits at 30 dB
+    convert.slot_results(pend.resolve(), gpu, rtol=1e-3)
+    print("conductor SlotResults vs the same requests on the CPU twins: ok",
+          flush=True)
+    return results, launches
+
+
 def main() -> int:
     dev = require_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -534,8 +748,11 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     ul_results, ul_launches = ul_phases(dev, gen, rng, card)
     dl_results, dl_launches = dl_phases(dev, rng, card)
-    results = {**ul_results, **dl_results}
-    launches = {**ul_launches, **dl_launches}
+    uci_results, cond_launches = conductor_phases(dev, gen, rng, card)
+    results = {**ul_results, **dl_results, **uci_results}
+    # K1-K11 as their own paths launched them (phases 2, 3), K12-K15 as the
+    # conductor's slots did (phase 4, which launched every kernel)
+    launches = {**cond_launches, **ul_launches, **dl_launches}
     for name, r in results.items():
         print(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}), "

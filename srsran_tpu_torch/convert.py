@@ -1,9 +1,10 @@
 """Carry JAX-side state into the port.
 
 A PHY has no learned weights; what crosses over is configuration and slot
-state: config dataclasses, HARQ soft buffers and the conductor's
-slot-context values (DM-RS pilot values or c_init seeds, SSB bit pairs,
-PUCCH F1 weight tuples).  Inputs are numpy arrays, plain dataclass fields
+state: config dataclasses, FAPI requests, HARQ soft buffers and the
+conductor's slot-context values (DM-RS pilot values or c_init seeds, SSB
+bit pairs, PUCCH F1 weight tuples); :func:`slot_results` holds the
+indications of either package's conductor to the other's.  Inputs are numpy arrays, plain dataclass fields
 and enums, matched to the port's classes by name, so this module imports
 neither JAX nor the JAX package.
 """
@@ -21,20 +22,21 @@ from .phy.upper.dmrs import DmrsConfig
 from .phy.upper.pdcch import CoresetConfig, PdcchConfig
 from .phy.upper.pdsch import PdschConfig, PdschPtrs
 from .phy.upper.prach import PrachConfig
-from .phy.upper.pucch import PucchF1Config
+from .phy.upper.pucch import PucchF0Config, PucchF1Config, PucchF2Config
 from .phy.upper.pusch import PuschConfig
 from .phy.upper.srs import SrsConfig
 from .phy.upper.ssb import SsbConfig
 from .ran.cyclic_prefix import CyclicPrefix
 from .ran.precoding_codebooks import PrecodingConfig
+from .ran.slot_point import SlotPoint
 from .ran.uci_on_pusch import UciOnPuschConfig
 
 # Port classes by name; a JAX config maps to the port class of its name.
 CONFIG_CLASSES = {cls.__name__: cls for cls in
                   (CellConfig, CoresetConfig, DmrsConfig, PdcchConfig,
                    PdschConfig, PdschPtrs, PrachConfig, PrecodingConfig,
-                   PucchF1Config, PuschConfig, SrsConfig, SsbConfig,
-                   UciOnPuschConfig)}
+                   PucchF0Config, PucchF1Config, PucchF2Config, PuschConfig,
+                   SlotPoint, SrsConfig, SsbConfig, UciOnPuschConfig)}
 # Port enums by name; a JAX enum member maps to the member of its name.
 ENUM_CLASSES = {cls.__name__: cls for cls in (CyclicPrefix,)}
 
@@ -110,3 +112,84 @@ def slot_context(ctx: dict, device: torch.device | str) -> dict:
     c_inits uint32, kept on the host)."""
     return {key: tuple(_ctx_entry(e, device) for e in entries)
             for key, entries in ctx.items()}
+
+
+def _message_value(v):
+    if dataclasses.is_dataclass(v) and type(v).__name__ in CONFIG_CLASSES:
+        return config(v)
+    if isinstance(v, tuple):
+        return tuple(_message_value(x) for x in v)
+    return v
+
+
+def requests(jax_msg):
+    """A JAX FAPI request (DlTtiRequest, UlTtiRequest, TxDataRequest,
+    UlDciRequest) as the port's message of the same name: PDU configs and
+    the slot point as the port's classes, payloads and HARQ tuples as
+    given."""
+    from .fapi import messages
+    name = type(jax_msg).__name__
+    if name not in ("DlTtiRequest", "UlTtiRequest", "TxDataRequest",
+                    "UlDciRequest"):
+        raise TypeError(f"not a FAPI request: {name}")
+    return getattr(messages, name)(**{f.name: _message_value(getattr(jax_msg, f.name))
+                  for f in dataclasses.fields(jax_msg)})
+
+
+def _same(ref, got, path: str, rtol: float) -> None:
+    if ref is None or got is None:
+        if ref is not got:
+            raise AssertionError(f"{path}: {got!r} vs {ref!r}")
+        return
+    if isinstance(ref, (bool, int, str, np.bool_, np.integer)):
+        if got != ref:
+            raise AssertionError(f"{path}: {got!r} vs {ref!r}")
+        return
+    if isinstance(ref, (float, np.floating)):
+        name = path.rsplit(".", 1)[-1]
+        if name == "cfo_hz":                      # a phase slope: 1 Hz
+            tol = 1.0
+        elif name == "timing_advance_s":          # equal but for 1 ulp
+            tol = 1e-6 * abs(ref)
+        else:
+            tol = rtol * max(abs(ref), 1e-2)
+        if not abs(float(got) - float(ref)) <= tol:
+            raise AssertionError(f"{path}: {got!r} vs {ref!r}")
+        return
+    if isinstance(ref, np.ndarray):
+        got = np.asarray(got)
+        if got.shape != ref.shape:
+            raise AssertionError(f"{path}: shape {got.shape} vs {ref.shape}")
+        if np.issubdtype(ref.dtype, np.inexact):
+            atol = rtol * float(np.max(np.abs(ref))) if ref.size else 0.0
+            np.testing.assert_allclose(got, ref, rtol=rtol, atol=atol,
+                                       err_msg=path)
+        elif not np.array_equal(got, ref):
+            raise AssertionError(f"{path}: {got} vs {ref}")
+        return
+    if isinstance(ref, list):
+        if len(got) != len(ref):
+            raise AssertionError(f"{path}: {len(got)} vs {len(ref)} entries")
+        for i, (r, g) in enumerate(zip(ref, got)):
+            _same(r, g, f"{path}[{i}]", rtol)
+        return
+    if dataclasses.is_dataclass(ref):
+        if type(got).__name__ != type(ref).__name__:
+            raise AssertionError(f"{path}: {type(got).__name__} vs "
+                                 f"{type(ref).__name__}")
+        for f in dataclasses.fields(ref):
+            _same(getattr(ref, f.name), getattr(got, f.name),
+                  f"{path}.{f.name}", rtol)
+        return
+    raise TypeError(f"{path}: cannot compare {type(ref).__name__}")
+
+
+def slot_results(ref, got, rtol: float = 1e-4) -> None:
+    """Hold ``got`` (a SlotResults) to ``ref`` (one of either package)
+    field by field; raises AssertionError naming the first difference.
+
+    Decisions, bits, indices and RNTIs equal; the CFO within 1 Hz; TAs
+    within 1e-6 relative (PRACH TAs may differ by one ulp); every other
+    float within ``rtol`` (relative, floored at 1e-2 in magnitude), float
+    arrays within ``rtol`` and an absolute ``rtol * max|ref|``."""
+    _same(ref, got, "SlotResults", rtol)

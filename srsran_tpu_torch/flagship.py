@@ -18,6 +18,12 @@ ports, 273 RB, a 4096-point FFT and 30 kHz SCS.
   100 codeblocks), with the slot context of the JAX conductor's
   ``normalize_dl_plan`` built by the port's own host builders.
 
+* Conductor (bench.py:306-334, 463-510): the same DL slots and UL mix as
+  FAPI requests through ``fapi.conductor.SlotConductor.process_slot`` (10
+  slot phases, payloads staged 8 slots per transfer), the UL requests
+  carrying also a PUCCH F0 (SR + 2 HARQ bits) and two PUCCH F2 (6 and 22
+  CSI bits) in PRBs 269-272, symbols 11-12, sent by the UE emulation.
+
 ``chip_smoke.py`` and ``python3 -m srsran_tpu_torch.profile_slot`` drive
 these scenarios.
 """
@@ -30,16 +36,19 @@ import functools
 import numpy as np
 import torch
 
+from .fapi import messages
 from .ops import channel_estimate as chest
 from .ops import (dl_map, ldpc_decode, ldpc_encode, ldpc_rate_match, ofdm,
-                  ul_demap)
+                  polar, short_block, ul_demap)
 from .ops.modulation import demodulate
 from .ops.scrambling import descramble_llrs
 from .phy.slot_programs import (CellConfig, dl_slot_fn, dl_slot_fn_samples,
                                 ul_slot_fn)
 from .phy.upper import (dmrs, pdcch, pdsch, prach, pucch, pusch, sch_decoder,
                         srs, ssb)
+from .ran import polar_params
 from .ran.prach_params import zc_sequence
+from .ran.slot_point import SlotPoint
 
 SNR_DB = 30.0
 
@@ -71,16 +80,26 @@ def ul_program():
     return ul_slot_fn(CELL, UL_PLAN)
 
 
-def ue_samples(slot_in_frame: int, payload: torch.Tensor) -> torch.Tensor:
-    """The UE's 4-port slot samples for one slot: the PUSCH layers on ports
-    0-1 and the SRS on port 0 (bench.py:347-362)."""
+def ue_samples(slot_in_frame: int, payload: torch.Tensor,
+               uci: dict | None = None, rv: int = 0) -> torch.Tensor:
+    """The UE's 4-port slot samples for one slot: the PUSCH layers (at
+    redundancy version ``rv``) on ports 0-1 and the SRS on port 0
+    (bench.py:347-362); with ``uci`` (:func:`ue_uci`) also the PUCCH UEs'
+    F0 and both F2 on port 0."""
     dev = payload.device
-    plan = ((), (), (dataclasses.replace(UE, slot_in_frame=0),), ())
+    plan = ((), (), (dataclasses.replace(UE, slot_in_frame=0, rv=rv),), ())
     pilots = torch.as_tensor(dmrs.pilot_values_for(pdsch.dmrs_config(
         dataclasses.replace(UE, slot_in_frame=slot_in_frame)))).to(dev)
     _, grid = dl_slot_fn(CELL, plan)((), (), (payload,), {"pdsch": (pilots,)})
-    return ofdm.modulate_slot(srs.map_to_grid(grid, SRS), CELL.dft_size,
-                              CELL.numerology,
+    grid = srs.map_to_grid(grid, SRS)
+    if uci is not None:
+        grid = pucch.transmit_format0(
+            grid, dataclasses.replace(F0, slot=slot_in_frame),
+            uci["f0_harq"], uci["f0_sr"])
+        for key, cfg in (("f2_sb", F2_SB), ("f2_polar", F2_POLAR)):
+            grid = pucch.transmit_format2(
+                grid, dataclasses.replace(cfg, slot=slot_in_frame), uci[key])
+    return ofdm.modulate_slot(grid, CELL.dft_size, CELL.numerology,
                               center_freq_hz=CELL.center_freq_hz)
 
 
@@ -366,3 +385,190 @@ def dl_kernel_cases(slot: dict) -> dict:
         "pdsch_map_repetition": (_map_on_copy(dl_map.pdsch_map),
                                  _map_on_copy(dl_map.pdsch_map_ref), rep),
     }
+
+
+# ------------------------------------------------------------ conductor
+
+# The bench's conductor protocol (bench.py:463-510): 10 slot phases (slot
+# points (1, 2i): subframe slot 0, one plan per phase), payloads staged 8
+# slots per transfer.  The UL requests carry the bench's full mix plus the
+# PUCCH UEs' UCI in the four PRBs above the PUSCH (269-272, free in symbols
+# 0-12): an F0 with SR and 2 HARQ bits, an F2 with 6 CSI bits (E = 32:
+# short block) and an F2 with 22 CSI bits (E = 64: polar, CRC11, N = 64).
+N_PHASES = 10
+STAGE_DEPTH = 8
+N_PAYLOAD_VARIANTS = 4
+F0 = pucch.PucchF0Config(prb=269, start_symbol=11, nof_symbols=2,
+                         initial_cyclic_shift=0, n_id=1, nof_harq_bits=2,
+                         sr_opportunity=True)
+F2_SB = pucch.PucchF2Config(rb_start=270, nof_rb=1, start_symbol=11,
+                            nof_symbols=2, rnti=0x18, n_id=1, n_id0=1,
+                            nof_uci_bits=6)
+F2_POLAR = pucch.PucchF2Config(rb_start=271, nof_rb=2, start_symbol=11,
+                               nof_symbols=2, rnti=0x19, n_id=1, n_id0=1,
+                               nof_uci_bits=22)
+
+
+def dl_request(i: int) -> messages.DlTtiRequest:
+    """bench.py's dl_request(i): slot point (1, 2i), the SSB every 40th."""
+    slot = SlotPoint(1, 2 * i)
+    return messages.DlTtiRequest(
+        slot=slot,
+        ssb=((dataclasses.replace(SSB, sfn=slot.sfn),)
+             if i % SSB_PERIOD_SLOTS == 0 else ()),
+        pdcch=(dataclasses.replace(PDCCH, slot_in_frame=slot.slot_index),),
+        pdsch=(dataclasses.replace(PDSCH, slot_in_frame=slot.slot_index),))
+
+
+def ul_request(i: int) -> messages.UlTtiRequest:
+    """bench.py's ul_request(i) (PUSCH, PUCCH F1, PRACH, SRS) with the F0
+    and both F2 PDUs."""
+    slot = SlotPoint(1, 2 * i)
+    sl = slot.slot_index
+    return messages.UlTtiRequest(
+        slot=slot,
+        pusch=(dataclasses.replace(PUSCH, slot_in_frame=sl),),
+        pucch_f0=(dataclasses.replace(F0, slot=sl),),
+        pucch_f1=(dataclasses.replace(PUCCH, slot=sl),),
+        pucch_f2=(dataclasses.replace(F2_SB, slot=sl),
+                  dataclasses.replace(F2_POLAR, slot=sl)),
+        prach=(PRACH,), srs=(SRS,))
+
+
+def dl_payloads(rng: np.random.Generator) -> dict:
+    """The bench's packed DL payloads (bench.py:289-298): 4 TB and DCI
+    variants and one MIB, as FAPI wire bytes."""
+    sch = [np.packbits(rng.integers(0, 2, PDSCH.tbs).astype(np.uint8))
+           for _ in range(N_PAYLOAD_VARIANTS)]
+    dci = [np.packbits(rng.integers(0, 2, PDCCH.payload_bits).astype(np.uint8))
+           for _ in range(N_PAYLOAD_VARIANTS)]
+    mib = np.packbits(rng.integers(0, 2, MIB_BITS).astype(np.uint8))
+    return dict(sch=sch, dci=dci, mib=mib)
+
+
+def tx_request(i: int, payloads: dict) -> messages.TxDataRequest:
+    """bench.py's tx_request(i)."""
+    dl = dl_request(i)
+    v = i % N_PAYLOAD_VARIANTS
+    return messages.TxDataRequest(
+        slot=dl.slot, pdsch_payloads=(payloads["sch"][v],),
+        pdcch_payloads=(payloads["dci"][v],),
+        ssb_mib=(payloads["mib"],) if dl.ssb else ())
+
+
+def ue_uci(rng: np.random.Generator) -> dict:
+    """One slot's UCI of the PUCCH UEs: F0 HARQ bits and SR, both F2s' CSI."""
+    return dict(f0_harq=rng.integers(0, 2, F0.nof_harq_bits).astype(np.int8),
+                f0_sr=int(rng.integers(0, 2)),
+                f2_sb=rng.integers(0, 2, F2_SB.nof_uci_bits).astype(np.int8),
+                f2_polar=rng.integers(0, 2, F2_POLAR.nof_uci_bits
+                                      ).astype(np.int8))
+
+
+def conductor_phases(rng: np.random.Generator, gen: torch.Generator,
+                     device) -> list:
+    """For each of the N_PHASES slot phases: the PUSCH payload, the UCI sent
+    and the rx samples (the UE's PUSCH, SRS, F0 and both F2 on the layer
+    ports through the flat 4x2 channel with AWGN), all on ``device``."""
+    phases = []
+    for i in range(N_PHASES):
+        sif = (2 * i) % 20
+        tb = torch.as_tensor(rng.integers(0, 2, PUSCH.tbs).astype(np.int8)
+                             ).to(device)
+        uci = ue_uci(rng)
+        rx = channel(ue_samples(sif, tb, uci), gen)
+        phases.append(dict(tb=tb, uci=uci, rx=rx))
+    return phases
+
+
+def check_results(res: messages.SlotResults, phase: dict, where: str) -> None:
+    """A conductor slot's indications: the PUSCH CRC with the exact
+    payload, PRACH preamble 21, the F0 HARQ/SR bits and both F2 CSI
+    payloads as sent, with finite channel reports."""
+    crc = res.crc[0]
+    if not crc.tb_crc_ok:
+        raise AssertionError(f"{where}: TB CRC failed")
+    if not np.array_equal(res.rx_data[0].payload,
+                          phase["tb"].cpu().numpy().astype(np.uint8)):
+        raise AssertionError(f"{where}: decoded TB differs from payload")
+    if [r.preamble_index for r in res.rach] != [PRACH_PREAMBLE]:
+        raise AssertionError(f"{where}: PRACH detections "
+                             f"{[r.preamble_index for r in res.rach]}")
+    uci = phase["uci"]
+    f0, _, f2_sb, f2_polar = res.uci
+    if not (f0.detected and f0.sr_bit == uci["f0_sr"]
+            and np.array_equal(f0.harq_bits, uci["f0_harq"])):
+        raise AssertionError(f"{where}: F0 {f0} vs sent {uci}")
+    for got, want in ((f2_sb, uci["f2_sb"]), (f2_polar, uci["f2_polar"])):
+        if not (got.detected and np.array_equal(got.csi_bits, want)):
+            raise AssertionError(f"{where}: F2 {got} vs sent {want}")
+    floats = [crc.snr_db, crc.rsrp, crc.evm, crc.cfo_hz, res.srs[0].snr_db,
+              *np.abs(res.srs[0].wideband_h).ravel()]
+    if not np.all(np.isfinite(floats)):
+        raise AssertionError(f"{where}: channel reports not finite")
+
+
+def conductor_kernel_cases(rx: torch.Tensor, sif: int,
+                           gen: torch.Generator) -> dict:
+    """name -> (wrapper, plain twin, args) for K12-K15 at the conductor
+    scenario's shapes, from one slot's samples through the plain twins
+    upstream: K12 on the F0 (8 candidates), K13 on the 2-RB F2, K14 on the
+    1-RB F2's LLRs (K = 6, E = 32), K15 on the 2-RB F2's (K' = 33, E = 64).
+    Extra cases (compared and timed, not on the main path's list): K12 on
+    the F0 occasion at 10 dB, K8 at the F2's comb-3 shape, K13 at 1 RB, K14
+    at K = 11, E = 512 and K15 at N = 1024, on noisy LLRs of seeded
+    codewords."""
+    dev = rx.device
+    cell = CELL
+    grid = ofdm.demodulate_slot_ref(rx, cell.nof_sc, cell.dft_size,
+                                    cell.numerology, cell.cp, 0,
+                                    cell.center_freq_hz)
+    f0 = dataclasses.replace(F0, slot=sif)
+    refs = _up(pucch.f0_refs_for(f0), dev)
+    cases = {"pucch_f0_detect": (pucch.f0_detect, pucch.f0_detect_ref,
+                                 (grid, f0, refs, 4.0))}
+    # The F0 occasion again at 10 dB, where the metric's noise term (energy
+    # minus the largest correlation) keeps its digits.
+    occ = grid[:, f0.start_symbol:f0.start_symbol + f0.nof_symbols,
+               12 * f0.prb:12 * f0.prb + 12]
+    sigma2 = occ.abs().pow(2).mean() / 10.0
+    noisy = grid + sigma2.sqrt() * torch.randn(
+        grid.shape, dtype=torch.complex64, device=dev, generator=gen)
+    cases["pucch_f0_detect_10db"] = (pucch.f0_detect, pucch.f0_detect_ref,
+                                     (noisy, f0, refs, 4.0))
+    llrs = {}
+    for name, cfg in (("", F2_POLAR), ("_1rb", F2_SB)):
+        cfg = dataclasses.replace(cfg, slot=sif)
+        args, kw = pucch.f2_estimate_args(
+            grid, cfg, _up(pucch.f2_pilot_values_for(cfg), dev))
+        est = chest.estimate_from_grid_ref(*args, **kw)
+        k13 = (grid, est.coeffs, est.noise_var, cfg)
+        cases["pucch_f2_demap" + name] = (pucch.f2_demap, pucch.f2_demap_ref,
+                                          k13)
+        llrs[name] = pucch.f2_demap_ref(*k13)
+        if not name:
+            cases["channel_estimate_f2"] = (
+                functools.partial(chest.estimate_from_grid, **kw),
+                functools.partial(chest.estimate_from_grid_ref, **kw), args)
+    code, crc_len = pucch._f2_polar_cfg(F2_POLAR.nof_uci_bits, 64)
+    cases["short_block_detect"] = (short_block.detect, short_block.detect_ref,
+                                   (llrs["_1rb"][None], F2_SB.nof_uci_bits, 2))
+    cases["polar_decode"] = (polar.decode, polar.decode_ref,
+                             (llrs[""][None], code, f"crc{crc_len}"))
+    big = polar_params.polar_code(111, 1000, nmax=10, ibil=True)
+    for name, bits in (("short_block_detect_k11", short_block.encode(
+            torch.randint(0, 2, (1, 11), device=dev, generator=gen,
+                          dtype=torch.int8), 512, 2)),
+                       ("polar_decode_n1024", polar.rate_match(polar.encode(
+                           polar.allocate(torch.randint(
+                               0, 2, (1, big.k), device=dev, generator=gen,
+                               dtype=torch.int8), big), big.n), big))):
+        llr = (1.0 - 2.0 * bits.to(torch.float32)) + 0.8 * torch.randn(
+            bits.shape, device=dev, generator=gen)
+        fn, ref = ((short_block.detect, short_block.detect_ref)
+                   if name.startswith("short") else
+                   (polar.decode, polar.decode_ref))
+        args = (llr, 11, 2) if name.startswith("short") else (llr, big,
+                                                               "crc11")
+        cases[name] = (fn, ref, args)
+    return cases

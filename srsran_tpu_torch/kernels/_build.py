@@ -1,9 +1,11 @@
 """Build ``srsran_tpu_torch/csrc/*.cu`` into one shared library at first use.
 
 The kernels have a plain C interface, so ``nvcc`` compiles them without
-PyTorch's headers (seconds, not minutes) into ``build/kernels/`` at the
-repository root, named by a hash of the sources and flags; the library is
-loaded with ``ctypes``.  Pointers and the stream go over as
+PyTorch's headers (seconds, not minutes): one ``nvcc -c`` per source, all
+started together, then one link, into ``build/kernels/`` at the repository
+root, named by a hash of the sources and flags; the library is loaded with
+``ctypes``.  A fresh checkout (as ``chip_smoke.py`` runs from) pays the cold
+build on every run, so the sources compile side by side.  Pointers and the stream go over as
 ``ctypes.c_void_p``; every C entry point returns ``cudaGetLastError()``
 after its launches, and :func:`check` raises on anything but 0.
 
@@ -26,8 +28,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler",
-              "-fPIC")
+              "-O3", "--fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -61,6 +62,13 @@ SIGNATURES = {
                         _I, _I, _I, _I, _P, _P, _P, _F, _P, _P, _P, _P, _P],
     "srsran_srs_noise": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _F, _P, _P,
                          _I, _P, _P],
+    "srsran_pucch_f0": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _I, _F,
+                        _P, _P, _P, _P, _P],
+    "srsran_pucch_f2_demap": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _F,
+                              _P, _P, _P],
+    "srsran_short_block_detect": [_P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "srsran_polar_decode": [_P, _I, _I, _I, _P, _P, _I, _P, _I, _I, _I, _P,
+                            _P, _P],
 }
 
 
@@ -94,16 +102,28 @@ def load() -> ctypes.CDLL:
     t0 = time.perf_counter()
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tag = f"{out.stem}.{os.getpid()}"
+        nvcc = _nvcc()
+        objs, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        outputs = [proc.communicate()[0] for _, proc in procs]  # wait for all
+        logs = [_finish(cmd, proc, o) for (cmd, proc), o in zip(procs, outputs)]
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}")
+        link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                "-o", str(tmp), *[str(o) for o in objs]]
+        proc = subprocess.run(link, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        logs.append(_finish(link, proc, proc.stdout))
+        for obj in objs:
+            obj.unlink()
         os.replace(tmp, out)
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        out.with_suffix(".log").write_text("".join(logs))
     lib = ctypes.CDLL(str(out))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
@@ -111,6 +131,14 @@ def load() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     load.build_seconds = time.perf_counter() - t0
     return lib
+
+
+def _finish(cmd: list, proc, output: str) -> str:
+    """One finished nvcc's output; raises with it when nvcc failed."""
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{output}")
+    return output
 
 
 def build_log() -> str:

@@ -37,8 +37,9 @@ def gold_sequence_np(c_init: int, length: int, advance: int = 0) -> np.ndarray:
     return c
 
 
-def gold_sequence(c_init: int, length: int, advance: int = 0,
-                  device: torch.device | str = "cpu") -> torch.Tensor:
-    """Gold bits as a uint8 [length] tensor on ``device`` (cached)."""
+def gold_sequence(c_init: int, length: int, advance: int = 0, *,
+                  device: torch.device | str) -> torch.Tensor:
+    """Gold bits as a uint8 [length] tensor on ``device`` (cached); the
+    device is always the caller's, never a default."""
     return const(gold_sequence_np, int(c_init), int(length), int(advance),
                  device=device)

@@ -15,12 +15,12 @@ from .gold import gold_sequence
 def scramble_bits(bits: torch.Tensor, c_init: int,
                   advance: int = 0) -> torch.Tensor:
     """bits int8 [..., N] ^ c(c_init)."""
-    seq = gold_sequence(c_init, bits.shape[-1], advance, bits.device)
+    seq = gold_sequence(c_init, bits.shape[-1], advance, device=bits.device)
     return (bits.to(torch.int8) ^ seq.to(torch.int8))
 
 
 def descramble_llrs(llrs: torch.Tensor, c_init: int,
                     advance: int = 0) -> torch.Tensor:
     """Flip LLR signs where the scrambling bit is 1."""
-    seq = gold_sequence(c_init, llrs.shape[-1], advance, llrs.device)
+    seq = gold_sequence(c_init, llrs.shape[-1], advance, device=llrs.device)
     return torch.where(seq.bool(), -llrs, llrs)

@@ -93,7 +93,7 @@ def equalize_demap_descramble(grid: torch.Tensor, coeffs: torch.Tensor,
     sym = sym_idx.to(torch.int32).contiguous()
     sc = sc_idx.to(torch.int32).contiguous()
     levels = const(pam_levels_scaled, modulation, device=dev)
-    seq = gold_sequence(c_init, nre * nof_layers * qm, 0, dev)
+    seq = gold_sequence(c_init, nre * nof_layers * qm, 0, device=dev)
     g = torch.view_as_real(grid.contiguous())
     h = torch.view_as_real(coeffs.contiguous())
     nv = noise_var.reshape(1).contiguous()

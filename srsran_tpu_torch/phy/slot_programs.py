@@ -5,15 +5,16 @@ configs) selects a program; the program is a Python closure over the plan,
 cached per (cell, plan, slot_in_subframe), that runs eagerly on the device
 of its input tensors.  The DL program covers SSB, PDCCH and PDSCH plans
 (the flagship DL slot, and the UE-side test transmitter); the UL program
-PUSCH, PUCCH format 1, PRACH and SRS plans (the JAX bench's full UL mix).
+PUSCH, PUCCH formats 0, 1 and 2, PRACH and SRS plans (the JAX bench's full
+UL mix, and the conductor's UCI PDUs).
 Every other plan entry raises NotImplementedError naming the ROADMAP item
 that ports it.
 
 On CUDA both programs run without a host sync: their constants are cached
 on the device after the first call, the slot context and payloads arrive
 as device tensors, the LDPC early stop and its iteration count, the PRACH
-and PUCCH decisions and every TA stay on the device, and the results are
-device tensors.
+and PUCCH decisions, the UCI decodes and every TA stay on the device, and
+the results are device tensors.
 """
 
 from __future__ import annotations
@@ -163,23 +164,26 @@ def _f1_groups(f1_cfgs) -> list:
 
 
 def ul_slot_core(cell: CellConfig, plan, slot_in_subframe: int = 0):
-    """The UL slot program: PUSCH, PUCCH F1, SRS and PRACH.
+    """The UL slot program: PUSCH, PUCCH F0, F1 and F2, SRS and PRACH (the
+    JAX program's order).
 
     plan = (pusch_cfgs, f0_cfgs, f1_cfgs, f2_cfgs, prach_cfgs[, srs_cfgs
     [, f3_cfgs]]).  Returned fn(samples [P, T], prach_fd, soft_buffers,
-    ctx=None) -> {"pusch": [dict per PUSCH], "pucch_f1": [dict per user],
-    "prach": [...], "srs": [...], ...} with the same keys as the JAX
-    program.  prach_fd[i]: complex64 [P, S, L] frequency-domain capture of
-    PRACH occasion i.  ctx["pusch"][i] carries DM-RS pilot values (or
-    c_inits); ctx["f1"][first user of a group] the group's per-hop weight
-    tuple (f1_batch_weights); without ctx the weights are built on the host
-    and cached per device.
+    ctx=None) -> {"pusch": [dict per PUSCH], "pucch_f0": [dict per PDU],
+    "pucch_f1": [dict per user], "pucch_f2": [dict per PDU], "prach": [...],
+    "srs": [...], ...} with the same keys as the JAX program.  prach_fd[i]:
+    complex64 [P, S, L] frequency-domain capture of PRACH occasion i.
+    ctx["pusch"][i] carries DM-RS pilot values (or c_inits); ctx["f0"][i]
+    the candidates' references (f0_refs_for); ctx["f1"][first user of a
+    group] the group's per-hop weight tuple (f1_batch_weights);
+    ctx["f2"][i] the DM-RS pilot values (f2_pilot_values_for); without ctx
+    they are built on the host and cached per device.
     """
     _check_cell(cell)
     plan = plan + ((),) * (7 - len(plan))
     pusch_cfgs, f0_cfgs, f1_cfgs, f2_cfgs, prach_cfgs, srs_cfgs, f3_cfgs = plan
-    if f0_cfgs or f2_cfgs or f3_cfgs:
-        raise _unsupported("PUCCH F0/F2/F3/F4", "item 13")
+    if f3_cfgs:
+        raise _unsupported("PUCCH F3/F4", "item 13")
     for cfg in pusch_cfgs:
         pusch_mod.check_supported(cfg)
     f1_groups = _f1_groups(f1_cfgs)
@@ -202,6 +206,10 @@ def ul_slot_core(cell: CellConfig, plan, slot_in_subframe: int = 0):
                 "cfo_hz": res.csi.cfo_hz,
                 "evm": res.evm,
                 "nof_iterations": res.nof_iterations})
+        for i, cfg in enumerate(f0_cfgs):
+            ncs = ctx["f0"][i] if ctx else None
+            out["pucch_f0"].append(pucch_mod.detect_format0(grid, cfg,
+                                                            ncs=ncs))
         f1_results = [None] * len(f1_cfgs)
         for idxs in f1_groups:
             common = f1_cfgs[idxs[0]]
@@ -214,6 +222,9 @@ def ul_slot_core(cell: CellConfig, plan, slot_in_subframe: int = 0):
             for i, r in zip(idxs, rs):
                 f1_results[i] = r
         out["pucch_f1"].extend(f1_results)
+        for i, cfg in enumerate(f2_cfgs):
+            ci = ctx["f2"][i] if ctx else None
+            out["pucch_f2"].append(pucch_mod.process_format2(grid, cfg, ci))
         for cfg in srs_cfgs:
             est = srs_mod.estimate(grid, cfg)
             # wideband channel: average the estimate over symbols/subcarriers

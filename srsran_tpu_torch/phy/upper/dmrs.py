@@ -119,8 +119,8 @@ def _is_values(c_inits) -> bool:
             and c_inits.is_complex())
 
 
-def pilots_for_port(cfg: DmrsConfig, port: int, c_inits=None,
-                    device: torch.device | str = "cpu") -> torch.Tensor:
+def pilots_for_port(cfg: DmrsConfig, port: int, c_inits=None, *,
+                    device: torch.device | str) -> torch.Tensor:
     """Dense pilot values [nsym, 6*rb_count] for one DM-RS port (w_f, w_t
     applied).
 
@@ -128,7 +128,8 @@ def pilots_for_port(cfg: DmrsConfig, port: int, c_inits=None,
     [nof_dmrs_symbols] (numpy or a CPU tensor: they key the host-built
     pilot cache, so a seed read back from the card would sync every slot),
     or a complex tensor of pilot VALUES [nsym, npilot] (the slot context;
-    its device wins over ``device``).
+    its device wins over ``device``).  ``device`` has no default: the
+    pilots go where the caller says.
     """
     _check_supported(cfg)
     if _is_values(c_inits):

@@ -120,7 +120,7 @@ def estimate_args(grid: torch.Tensor, cfg: PuschConfig, dmrs_cinits,
     dev = grid.device
     dmrs_cfg = dmrs_config(cfg)
     sc_abs = _type1_sc_indices(cfg.rb_start, cfg.rb_count, delta)
-    expected = torch.stack([pilots_for_port(dmrs_cfg, p, dmrs_cinits, dev)
+    expected = torch.stack([pilots_for_port(dmrs_cfg, p, dmrs_cinits, device=dev)
                             for p in ports])                      # [L, S, K]
     # Symbol times at the config's numerology, as the JAX package computes
     # them (PuschConfig.numerology defaults to 0; ROADMAP §3).

@@ -1,12 +1,15 @@
 """Where a flagship slot's time goes on one CUDA GPU.
 
-    python3 -m srsran_tpu_torch.profile_slot [--direction ul|dl] [--slots 8]
-                                            [--calls 10]
+    python3 -m srsran_tpu_torch.profile_slot [--direction ul|dl|conductor]
+                                            [--slots 8] [--calls 10]
                                             [--out chiprun_out/profile]
 
-Drives the flagship UL slot (the full mix: PUSCH, PUCCH F1, PRACH, SRS)
-or DL slot (SSB in the first slot, PDCCH, 4-layer PDSCH, OFDM) of
-:mod:`srsran_tpu_torch.flagship` and reports:
+Drives the flagship UL slot (the full mix: PUSCH, PUCCH F1, PRACH, SRS),
+DL slot (SSB in the first slot, PDCCH, 4-layer PDSCH, OFDM) or conductor
+slot (DL + UL with the PUCCH F0/F2 UCI PDUs through
+``SlotConductor.process_slot``, payloads staged beforehand, results
+resolved after the measurement) of :mod:`srsran_tpu_torch.flagship` and
+reports:
 
 * the slot's wall time three ways: CUDA events around each call (as
   ``chip_smoke.py`` times it), the host clock over back-to-back calls with
@@ -27,7 +30,8 @@ or DL slot (SSB in the first slot, PDCCH, 4-layer PDSCH, OFDM) of
   each.
 
 The slot's trace and a JSON summary go to ``--out`` (``slot_trace.json``
-and ``summary.json`` for the UL, ``dl_`` before both names for the DL);
+and ``summary.json`` for the UL, ``dl_`` or ``conductor_`` before both
+names for the others);
 the summary is also printed as the last line.
 """
 
@@ -45,6 +49,7 @@ import torch
 
 from . import flagship
 from .device import card_line, require_cuda
+from .fapi.conductor import SlotConductor
 from .kernels import _build
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -55,7 +60,8 @@ HAND_KERNELS = ("ldpc_sweep_kernel", "ldpc_check_kernel", "rate_dematch_kernel",
                 "chest_ls_kernel", "chest_avg_kernel", "chest_interp_kernel",
                 "chest_stats_kernel", "chest_ta_kernel", "prach_corr_kernel",
                 "prach_power_kernel", "prach_detect_kernel", "pucch_f1_kernel",
-                "srs_noise_kernel")
+                "srs_noise_kernel", "pucch_f0_kernel", "pucch_f2_kernel",
+                "short_block_kernel", "polar_sc_kernel")
 
 
 def category(name: str, cat: str) -> str:
@@ -227,9 +233,46 @@ def dl_scenario(n: int, seed: int, dev) -> tuple:
     return calls, cases
 
 
+def conductor_scenario(n: int, seed: int, dev, gen) -> tuple:
+    """(one zero-argument call per conductor slot, the UCI kernels' cases,
+    a function that resolves and checks every slot launched and returns
+    their count): ``n`` (<= the staging depth) slots of the conductor
+    scenario staged in one transfer beforehand; each call launches one slot
+    through ``process_slot`` and keeps its pending results."""
+    rng = np.random.default_rng(seed)
+    phases = flagship.conductor_phases(rng, gen, dev)
+    prach_in = flagship.prach_fd(dev, seed)
+    pay = flagship.dl_payloads(rng)
+    n = min(n, flagship.STAGE_DEPTH)
+    dlr = [flagship.dl_request(i) for i in range(n)]
+    ulr = [flagship.ul_request(i) for i in range(n)]
+    cond = SlotConductor(flagship.CELL)
+    staged = cond.stage_payloads([(d, flagship.tx_request(i, pay))
+                                  for i, d in enumerate(dlr)])
+    pending = []
+
+    def call(i):
+        _, pend = cond.process_slot(dlr[i], ulr[i], staged, i,
+                                    phases[i]["rx"], prach_fd=prach_in)
+        pending.append((pend, phases[i], i))
+
+    cases = flagship.conductor_kernel_cases(phases[0]["rx"], 0, gen)
+    for extra in ("pucch_f0_detect_10db", "pucch_f2_demap_1rb",
+                  "short_block_detect_k11", "polar_decode_n1024"):
+        cases.pop(extra)
+    def resolve() -> int:
+        for pend, phase, i in pending:
+            flagship.check_results(pend.resolve(), phase,
+                                   f"conductor slot {i}")
+        return len(pending)
+
+    return [lambda i=i: call(i) for i in range(n)], cases, resolve
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--direction", choices=("ul", "dl"), default="ul")
+    ap.add_argument("--direction", choices=("ul", "dl", "conductor"),
+                    default="ul")
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--calls", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
@@ -245,9 +288,13 @@ def main(argv=None) -> dict:
     if args.direction == "ul":
         calls, cases = ul_scenario(args.slots, args.seed, dev, gen)
         prefix = ""
-    else:
+    elif args.direction == "dl":
         calls, cases = dl_scenario(args.slots, args.seed, dev)
         prefix = "dl_"
+    else:
+        calls, cases, resolve = conductor_scenario(args.slots, args.seed, dev,
+                                                   gen)
+        prefix = "conductor_"
     for call in calls[:2]:                      # warm-up: device constants
         call()
     torch.cuda.synchronize()
@@ -255,6 +302,8 @@ def main(argv=None) -> dict:
                "wall": wall_times(calls),
                "slot": slot_profile(calls, out / f"{prefix}slot_trace.json"),
                "kernels": kernel_profiles(cases, args.calls, out)}
+    if args.direction == "conductor":
+        summary["slots_resolved_and_checked"] = resolve()
     (out / f"{prefix}summary.json").write_text(json.dumps(summary, indent=1))
     print(json.dumps(summary))
     return summary

@@ -209,10 +209,10 @@ def test_pilots_refuse_device_seeds():
     cfg = t_dmrs.DmrsConfig(rb_start=0, rb_count=4, symbols=(2,), ports=(0,),
                             scrambling_id=1)
     seeds = torch.as_tensor(t_dmrs.c_inits_for(cfg).astype(np.int64))
-    host = t_dmrs.pilots_for_port(cfg, 0, seeds)
+    host = t_dmrs.pilots_for_port(cfg, 0, seeds, device="cpu")
     assert host.shape == (1, 24)
     with pytest.raises(ValueError, match="host"):
-        t_dmrs.pilots_for_port(cfg, 0, seeds.to("meta"))
+        t_dmrs.pilots_for_port(cfg, 0, seeds.to("meta"), device="cpu")
 
 
 @pytest.mark.parametrize("intervals,busy", [
@@ -253,3 +253,55 @@ def test_busy_is_union_of_intervals(intervals, busy):
 ])
 def test_profile_categories(name, cat, bucket):
     assert profile_slot.category(name, cat) == bucket
+
+
+# The conductor scenario: the bench's requests (bench.py:306-334) with the
+# PUCCH UEs' F0 and F2 PDUs.
+J_F0 = j_pucch.PucchF0Config(prb=269, start_symbol=11, nof_symbols=2,
+                             initial_cyclic_shift=0, n_id=1, nof_harq_bits=2,
+                             sr_opportunity=True)
+J_F2 = (j_pucch.PucchF2Config(rb_start=270, nof_rb=1, start_symbol=11,
+                              nof_symbols=2, rnti=0x18, n_id=1, n_id0=1,
+                              nof_uci_bits=6),
+        j_pucch.PucchF2Config(rb_start=271, nof_rb=2, start_symbol=11,
+                              nof_symbols=2, rnti=0x19, n_id=1, n_id0=1,
+                              nof_uci_bits=22))
+
+
+def _conductor_ul_request(i):
+    req = _bench_ul_request(i)
+    sl = req.slot.slot_index
+    return dataclasses.replace(
+        req, pucch_f0=(dataclasses.replace(J_F0, slot=sl),),
+        pucch_f2=tuple(dataclasses.replace(c, slot=sl) for c in J_F2))
+
+
+@pytest.mark.parametrize("i", [0, 1, 7, 9])
+def test_conductor_requests_are_the_bench_requests(i):
+    assert convert.requests(_bench_dl_request(i)) == flagship.dl_request(i)
+    assert convert.requests(_conductor_ul_request(i)) == flagship.ul_request(i)
+    assert 269 * 12 + 12 * 4 == flagship.CELL.nof_sc   # PRBs 269-272 fit
+
+
+@pytest.mark.parametrize("i", [0, 3, 9])
+def test_conductor_contexts_match_the_jax_conductor(i):
+    """The port conductor's normalized plans and slot context (F0
+    references, F1 weights, F2 pilots, DM-RS, SSB) equal the JAX
+    conductor's for the scenario's requests."""
+    from srsran_tpu_torch.fapi import conductor as t_cond
+    plan, ctx = normalize_ul_plan(_conductor_ul_request(i))
+    t_plan, t_ctx = t_cond.normalize_ul_plan(flagship.ul_request(i),
+                                             device="cpu")
+    assert convert.plan(plan) == t_plan
+    want = convert.slot_context(ctx, "cpu")
+    assert set(t_ctx) == set(want)
+    for key in want:
+        _same_leaves(t_ctx[key], want[key])
+    plan, ctx = normalize_dl_plan(_bench_dl_request(i), (), 4)
+    t_plan, t_ctx = t_cond.normalize_dl_plan(flagship.dl_request(i), (), 4,
+                                             device="cpu")
+    assert convert.plan(plan) == t_plan
+    want = convert.slot_context(ctx, "cpu")
+    assert set(t_ctx) == set(want)
+    for key in want:
+        _same_leaves(t_ctx[key], want[key])

@@ -142,7 +142,8 @@ def test_pilots_for_port(source, port):
           "values": j_dmrs.pilot_values_for(jc)}[source]
     a = j_dmrs.pilots_for_port(jc, port, None if ci is None else jnp.asarray(ci))
     b = t_dmrs.pilots_for_port(tc, port, None if ci is None else
-                               (_t(ci) if source == "values" else ci))
+                               (_t(ci) if source == "values" else ci),
+                               device="cpu")
     close(b, a)
 
 

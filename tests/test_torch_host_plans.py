@@ -29,14 +29,18 @@ from srsran_tpu.ops import low_papr as j_papr
 from srsran_tpu.ops import modulation as j_mod
 from srsran_tpu.ops import ofdm as j_ofdm
 from srsran_tpu.ops import polar as j_polar
+from srsran_tpu.ops import short_block as j_sb
 from srsran_tpu.phy.upper import dmrs as j_dmrs
 from srsran_tpu.phy.upper import pdcch as j_pdcch
 from srsran_tpu.phy.upper import pdsch as j_pdsch
+from srsran_tpu.phy.upper import pucch as j_pucch
+from srsran_tpu.phy.upper import uci as j_uci_codec
 from srsran_tpu.phy.upper import ssb as j_ssb
 from srsran_tpu.ran import cyclic_prefix as j_cp
 from srsran_tpu.ran import ldpc_params as j_ldpc
 from srsran_tpu.ran import polar_params
 from srsran_tpu.ran import prach_params as j_prachp
+from srsran_tpu.ran import slot_point as j_sp
 from srsran_tpu.ran import uci_on_pusch as j_uci
 from srsran_tpu.ran.cyclic_prefix import CyclicPrefix
 
@@ -53,14 +57,18 @@ from srsran_tpu_torch.ops import modulation as t_mod
 from srsran_tpu_torch import convert
 from srsran_tpu_torch.ops import ofdm as t_ofdm
 from srsran_tpu_torch.ops import polar as t_polar
+from srsran_tpu_torch.ops import short_block as t_sb
 from srsran_tpu_torch.phy.upper import dmrs as t_dmrs
 from srsran_tpu_torch.phy.upper import pdcch as t_pdcch
 from srsran_tpu_torch.phy.upper import pdsch as t_pdsch
+from srsran_tpu_torch.phy.upper import pucch as t_pucch
+from srsran_tpu_torch.phy.upper import uci as t_uci_codec
 from srsran_tpu_torch.phy.upper import ssb as t_ssb
 from srsran_tpu_torch.ran import cyclic_prefix as t_cp
 from srsran_tpu_torch.ran import ldpc_params as t_ldpc
 from srsran_tpu_torch.ran import polar_params as t_polar_params
 from srsran_tpu_torch.ran import prach_params as t_prachp
+from srsran_tpu_torch.ran import slot_point as t_sp
 from srsran_tpu_torch.ran import uci_on_pusch as t_uci
 
 torch.set_num_threads(2)
@@ -485,13 +493,146 @@ def test_uci_on_pusch_config_copy():
         [f.name for f in dataclasses.fields(j_uci.UciOnPuschConfig)]
 
 
+@pytest.mark.parametrize("mu,count", [(0, 0), (1, 6), (1, 20479), (2, 999),
+                                      (4, 163839), (1, -3), (3, 81920)])
+def test_slot_point_copy(mu, count):
+    a, b = j_sp.SlotPoint(mu, count), t_sp.SlotPoint(mu, count)
+    for name in ("count", "sfn", "slot_index", "subframe_index",
+                 "subframe_slot_index", "scs_hz"):
+        assert getattr(a, name) == getattr(b, name), name
+    assert a.slot_duration_s() == b.slot_duration_s()
+    for n in (1, 7, 20480, 10 ** 6):
+        assert (a + n).count == (b + n).count
+        assert (a - n).count == (b - n).count
+        assert (a + n) - a == (b + n) - b
+        assert (a < a + n) == (b < b + n)
+    assert j_sp.SlotPoint.from_sfn_slot(mu, 513, 3).count == \
+        t_sp.SlotPoint.from_sfn_slot(mu, 513, 3).count
+
+
+@pytest.mark.parametrize("k,e,qm", [(1, 12, 1), (1, 32, 2), (2, 18, 1),
+                                    (2, 32, 2), (3, 32, 2), (7, 40, 1),
+                                    (11, 64, 2)])
+def test_short_block_tables_copy(k, e, qm):
+    np.testing.assert_array_equal(t_sb.rm_basis(), j_sb.rm_basis())
+    np.testing.assert_array_equal(t_sb._candidates(k, e, qm),
+                                  j_sb._candidates(k, e, qm))
+
+
+def test_f0_tables_copy():
+    assert t_pucch._F0_TABLES == j_pucch._F0_TABLES
+
+
+@pytest.mark.parametrize("key", sorted(j_pucch._F0_TABLES))
+@pytest.mark.parametrize("slot", [0, 7, 19])
+def test_f0_refs_for_copy(key, slot):
+    kw = dict(prb=269, start_symbol=11, nof_symbols=2, initial_cyclic_shift=4,
+              n_id=55, nof_harq_bits=key[0], sr_opportunity=key[1])
+    np.testing.assert_array_equal(
+        t_pucch.f0_refs_for(t_pucch.PucchF0Config(**kw), slot),
+        j_pucch.f0_refs_for(j_pucch.PucchF0Config(**kw), slot))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(rb_start=270, nof_rb=1, start_symbol=11, nof_symbols=2),
+    dict(rb_start=3, nof_rb=16, start_symbol=0, nof_symbols=1),
+    dict(rb_start=100, nof_rb=4, start_symbol=12, nof_symbols=2)])
+@pytest.mark.parametrize("slot", [0, 13])
+def test_f2_pilot_values_for_copy(kw, slot):
+    kw = dict(kw, rnti=0x19, n_id=3, n_id0=7, nof_uci_bits=22)
+    a, b = j_pucch.PucchF2Config(**kw), t_pucch.PucchF2Config(**kw)
+    np.testing.assert_array_equal(t_pucch.f2_dmrs_cinits(b, slot),
+                                  j_pucch.f2_dmrs_cinits(a, slot))
+    np.testing.assert_array_equal(t_pucch.f2_pilot_values_for(b, slot),
+                                  j_pucch.f2_pilot_values_for(a, slot))
+
+
+def _same_code(a, b):
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+            np.testing.assert_array_equal(x, y)
+        else:
+            assert x == y, f.name
+
+
+@pytest.mark.parametrize("k,e", [(12, 32), (14, 64), (19, 80), (20, 64),
+                                 (22, 64), (40, 512), (100, 1000)])
+def test_uci_polar_cfg_copy(k, e):
+    """The F2 and the UCI codec's polar parameters (their PC-bit rules
+    differ) equal the JAX package's."""
+    for t_fn, j_fn in ((t_pucch._f2_polar_cfg, j_pucch._f2_polar_cfg),
+                       (t_uci_codec._polar_cfg, j_uci_codec._polar_cfg)):
+        (tc, tl), (jc, jl) = t_fn(k, e), j_fn(k, e)
+        assert tl == jl
+        _same_code(jc, tc)
+
+
+def test_validators_copy():
+    """tx_data and ul_dci validation raise where the JAX package's do."""
+    from srsran_tpu.fapi import messages as jm
+    from srsran_tpu.fapi import validators as jv
+    from srsran_tpu.phy.slot_programs import CellConfig
+    from srsran_tpu_torch.fapi import messages as tm
+    from srsran_tpu_torch.fapi import validators as tv
+    cell = CellConfig(nof_ports=2, nof_rb=24, dft_size=512, numerology=1)
+    pdcch = j_pdcch.PdcchConfig(
+        coreset=j_pdcch.CoresetConfig(rb_start=0, nof_rb=24, start_symbol=0,
+                                      duration=1),
+        rnti=1, aggregation_level=2, cce_index=0, payload_bits=40, n_id=1,
+        n_id_data=1)
+    pdsch = j_pdsch.PdschConfig(rnti=1, rb_start=0, rb_count=8,
+                                first_symbol=1, nof_symbols=12,
+                                modulation="qpsk", target_code_rate=0.5,
+                                tbs=1000, dmrs_symbols=(2,))
+    slot = j_sp.SlotPoint(1, 4)
+    dl = jm.DlTtiRequest(slot=slot, pdcch=(pdcch,), pdsch=(pdsch,))
+    cases = [
+        (jv.validate_tx_data, jm.TxDataRequest(
+            slot=slot, pdsch_payloads=(np.zeros(1000),),
+            pdcch_payloads=(np.zeros(40),)), dl),
+        (jv.validate_tx_data, jm.TxDataRequest(
+            slot=slot, pdsch_payloads=(np.zeros(999),),
+            pdcch_payloads=(np.zeros(40),)), dl),
+        (jv.validate_tx_data, jm.TxDataRequest(
+            slot=slot, pdsch_payloads=(np.zeros(1000),)), dl),
+        (jv.validate_ul_dci, jm.UlDciRequest(
+            slot=slot, pdcch=(pdcch,), payloads=(np.zeros(40),)), cell),
+        (jv.validate_ul_dci, jm.UlDciRequest(
+            slot=slot, pdcch=(pdcch,), payloads=()), cell),
+        (jv.validate_ul_dci, jm.UlDciRequest(
+            slot=slot, pdcch=(dataclasses.replace(pdcch, cce_index=5),),
+            payloads=(np.zeros(40),)), cell),
+    ]
+    outcomes = []
+    for fn, msg, other in cases:
+        t_fn = getattr(tv, fn.__name__)
+        t_other = convert.requests(other) if isinstance(
+            other, jm.DlTtiRequest) else convert.config(other)
+        try:
+            fn(msg, other)
+            want = None
+        except jv.ValidationError:
+            want = "raised"
+        try:
+            t_fn(convert.requests(msg), t_other)
+            got = None
+        except tv.ValidationError:
+            got = "raised"
+        assert got == want, fn.__name__
+        outcomes.append(want)
+    assert outcomes.count("raised") == 4
+    assert issubclass(tv.ValidationError, ValueError)
+    assert tm.SlotResults.__name__ == jm.SlotResults.__name__
+
+
 def test_data_tables_are_copies():
     """The port's data/ tables are byte-equal to the JAX package's."""
     port = REPO / "srsran_tpu_torch" / "data"
     names = sorted(f.name for f in port.iterdir())
     assert names == ["ldpc_bg_tables.npz", "low_papr_tables.npz",
                      "polar_tables.npz", "prach_tables.npz",
-                     "prach_thresholds.json"]
+                     "prach_thresholds.json", "short_block_tables.npz"]
     for name in names:
         assert (port / name).read_bytes() == \
             (REPO / "srsran_tpu" / "data" / name).read_bytes(), name
@@ -523,6 +664,12 @@ def test_port_imports_without_jax():
     names = set(proc.stdout.split())
     assert len(names) >= 25
     assert {"srsran_tpu_torch.ops.polar", "srsran_tpu_torch.ops.dl_map",
+            "srsran_tpu_torch.ops.short_block",
+            "srsran_tpu_torch.fapi.conductor",
+            "srsran_tpu_torch.fapi.messages",
+            "srsran_tpu_torch.fapi.validators",
+            "srsran_tpu_torch.phy.upper.uci",
+            "srsran_tpu_torch.ran.slot_point",
             "srsran_tpu_torch.phy.upper.pdcch",
             "srsran_tpu_torch.phy.upper.ssb",
             "srsran_tpu_torch.phy.upper.prach",

@@ -2,7 +2,8 @@
 
 Each case builds the kernel library, runs a kernel wrapper on CUDA tensors
 and its twin on the same inputs, at the small PUSCH's and PDSCH's shapes
-(the UL-mix kernels K8-K11 at the flagship's and at an edge case each).
+(the UL-mix kernels K8-K11 at the flagship's and at an edge case each,
+the UCI kernels K12-K15 at the conductor scenario's shapes and beyond).
 On a machine without a GPU every case skips (the twins are covered by the
 parity tests against the JAX package).  ``python3 chip_smoke.py`` runs the same checks at
 the flagship shapes.
@@ -20,8 +21,10 @@ from srsran_tpu.ran.mcs_tbs import tbs as tbs_calc
 from srsran_tpu_torch import flagship
 from srsran_tpu_torch.ops import channel_estimate as chest
 from srsran_tpu_torch.ops import (crc, dl_map, ldpc_decode, ldpc_encode,
-                                  ldpc_rate_match, ofdm, ul_demap)
+                                  ldpc_rate_match, ofdm, polar, short_block,
+                                  ul_demap)
 from srsran_tpu_torch.phy.upper import pdsch, prach, pucch, pusch, srs
+from srsran_tpu_torch.ran import polar_params
 
 torch.set_num_threads(2)
 
@@ -296,3 +299,119 @@ def test_srs_estimate_kernel(cuda, ports, comb):
     ref = srs.srs_noise_ref(grid, cfg, est.time_alignment_s, est.rsrp)
     for a, b in zip(out, ref):
         _close(a, b, 1e-4)
+
+
+# UCI kernels: K12 PUCCH F0 detect, K13 PUCCH F2 demap, K14 short-block ML,
+# K15 polar decode, and K8 at the F2 comb-3 shape.
+
+def _f0_grid(cfg, rng, harq, sr):
+    sent = pucch.transmit_format0(torch.zeros((1, 14, 3276),
+                                              dtype=torch.complex64),
+                                  cfg, harq, sr)[0]
+    return (_cgauss(rng, (4,))[:, None, None] * sent
+            + 0.3 * _cgauss(rng, (4, 14, 3276)))
+
+
+@pytest.mark.parametrize("key", sorted(pucch._F0_TABLES))
+@pytest.mark.parametrize("hop", [None, 272])
+def test_pucch_f0_kernel(cuda, key, hop):
+    nbits, sr_opp = key
+    cfg = pucch.PucchF0Config(prb=269, start_symbol=11, nof_symbols=2,
+                              initial_cyclic_shift=3, n_id=1, slot=6,
+                              nof_harq_bits=nbits, sr_opportunity=sr_opp,
+                              second_hop_prb=hop)
+    rng = np.random.default_rng(nbits + 7 * sr_opp)
+    refs = torch.as_tensor(pucch.f0_refs_for(cfg)).to(cuda)
+    for _, sr, harq in pucch._F0_TABLES[key]:
+        grid = _f0_grid(cfg, rng, harq, sr or 0).to(cuda)
+        out = pucch.f0_detect(grid, cfg, refs, 4.0)
+        ref = pucch.f0_detect_ref(grid, cfg, refs, 4.0)
+        for i in (0, 2, 3, 4):
+            assert torch.equal(out[i], ref[i]), i
+        _close(out[1], ref[1], 1e-4)
+        assert bool(out[0]) and out[2].tolist() == list(harq)
+
+
+def _f2_cfg(nof_rb, nsym):
+    """An F2 PDU ending at PRB 271 with 22 CSI bits (polar) where it has room
+    for them (E >= 64), else 6 (short block)."""
+    k = 22 if 16 * nof_rb * nsym >= 64 else 6
+    return pucch.PucchF2Config(rb_start=271 - nof_rb + 1, nof_rb=nof_rb,
+                               start_symbol=11, nof_symbols=nsym, rnti=0x19,
+                               n_id=1, n_id0=1, nof_uci_bits=k, slot=2)
+
+
+def _f2_grid(cfg, rng):
+    sent = pucch.transmit_format2(
+        torch.zeros((1, 14, 3276), dtype=torch.complex64), cfg,
+        rng.integers(0, 2, cfg.nof_uci_bits))[0]
+    return (_cgauss(rng, (4,))[:, None, None] * sent
+            + 0.05 * _cgauss(rng, (4, 14, 3276)))
+
+
+@pytest.mark.parametrize("nof_rb,nsym", [(1, 2), (2, 2), (2, 1), (16, 2)])
+def test_channel_estimate_kernel_f2_comb3(cuda, nof_rb, nsym):
+    """K8 at its first stride-3 comb: 4 * nof_rb pilots over 1-2 symbols."""
+    cfg = _f2_cfg(nof_rb, nsym)
+    rng = np.random.default_rng(nof_rb)
+    grid = _f2_grid(cfg, rng).to(cuda)
+    pil = torch.as_tensor(pucch.f2_pilot_values_for(cfg)).to(cuda)
+    args, kw = pucch.f2_estimate_args(grid, cfg, pil)
+    out = chest.estimate_from_grid(*args, **kw)
+    ref = chest.estimate_from_grid_ref(*args, **kw)
+    assert torch.equal(out.time_alignment_s.cpu(), ref.time_alignment_s.cpu())
+    for key in ("coeffs", "noise_var", "rsrp", "epre", "snr"):
+        _close(getattr(out, key), getattr(ref, key), 1e-4)
+
+
+@pytest.mark.parametrize("nof_rb,nsym", [(1, 2), (2, 2), (4, 1), (16, 2)])
+def test_pucch_f2_demap_kernel(cuda, nof_rb, nsym):
+    cfg = _f2_cfg(nof_rb, nsym)
+    rng = np.random.default_rng(10 + nof_rb)
+    grid = _f2_grid(cfg, rng).to(cuda)
+    pil = torch.as_tensor(pucch.f2_pilot_values_for(cfg)).to(cuda)
+    args, kw = pucch.f2_estimate_args(grid, cfg, pil)
+    est = chest.estimate_from_grid_ref(*args, **kw)
+    _close(pucch.f2_demap(grid, est.coeffs, est.noise_var, cfg),
+           pucch.f2_demap_ref(grid, est.coeffs, est.noise_var, cfg), 1e-4)
+
+
+@pytest.mark.parametrize("k,qm,e", [(1, 2, 32), (2, 2, 32), (2, 1, 20),
+                                    (3, 2, 32), (6, 2, 32), (11, 2, 512),
+                                    (11, 1, 100)])
+def test_short_block_kernel(cuda, k, qm, e):
+    rng = np.random.default_rng(k * e)
+    msg = torch.as_tensor(rng.integers(0, 2, (5, k)).astype(np.int8))
+    cw = short_block.encode(msg, e, qm).numpy()
+    llr = torch.as_tensor(((1.0 - 2.0 * cw) + rng.standard_normal(cw.shape)
+                           ).astype(np.float32))
+    llr[4] = 0.0                                   # all ties: candidate 0
+    llr = llr.to(cuda)
+    bits, metric = short_block.detect(llr, k, qm)
+    bits_ref, metric_ref = short_block.detect_ref(llr, k, qm)
+    assert torch.equal(bits, bits_ref)
+    _close(metric, metric_ref, 1e-5)
+
+
+@pytest.mark.parametrize("k,e,n_pc,crc_name", [
+    (33, 64, 0, "crc11"), (18, 32, 3, "crc6"), (18, 100, 3, "crc6"),
+    (40, 50, 0, "crc11"), (25, 300, 0, "crc11"), (111, 1000, 0, "crc11"),
+    (200, 1024, 0, "crc11")])
+def test_polar_decode_kernel(cuda, k, e, n_pc, crc_name):
+    """K'-bit codewords (message + CRC) at E bits, N from 32 to 1024, with
+    exact-zero LLRs: bits and CRC flags equal the twin's."""
+    code = polar_params.polar_code(k, e, nmax=10, ibil=True, n_pc=n_pc)
+    rng = np.random.default_rng(k + e)
+    msg = rng.integers(0, 2, (6, k)).astype(np.int8)
+    x = polar.rate_match(polar.encode(polar.allocate(torch.as_tensor(msg),
+                                                     code), code.n),
+                         code).numpy()
+    llr = ((1.0 - 2.0 * x) + 0.8 * rng.standard_normal(x.shape)
+           ).astype(np.float32)
+    llr[1, ::3] = 0.0
+    llr[5] = 0.0
+    llr = torch.as_tensor(llr).to(cuda)
+    bits, ok = polar.decode(llr, code, crc_name)
+    bits_ref, ok_ref = polar.decode_ref(llr, code, crc_name)
+    assert torch.equal(bits, bits_ref)
+    assert torch.equal(ok, ok_ref)

@@ -172,7 +172,7 @@ def test_ul_slot_with_c_inits_matches_values():
 
 
 @pytest.mark.parametrize("plan", [
-    ((J_PUSCH,), (object(),), (), (), ()),
+    ((dataclasses.replace(J_PUSCH, second_hop_prb=5),), (), (), (), ()),
     ((dataclasses.replace(J_PUSCH, uci=UciOnPuschConfig(o_ack=2)),),
      (), (), (), ()),
     ((dataclasses.replace(J_PUSCH, transform_precoding=True),),
@@ -180,8 +180,9 @@ def test_ul_slot_with_c_inits_matches_values():
     ((dataclasses.replace(J_PUSCH, nof_layers=3),), (), (), (), ()),
     ((J_PUSCH,), (), (), (), (), (), (object(),))])
 def test_ul_plan_entries_not_ported_raise(plan):
-    """PUCCH F0 and F3/F4, UCI on PUSCH, transform precoding and 3-layer
-    PUSCH raise (PUCCH F1, PRACH and SRS are ported)."""
+    """PUSCH frequency hopping, PUCCH F3/F4, UCI on PUSCH, transform
+    precoding and 3-layer PUSCH raise (PUCCH F0, F1 and F2, PRACH and SRS
+    are ported)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_slots.ul_slot_fn(convert.config(J_CELL), convert.plan(plan))
 
@@ -282,6 +283,7 @@ def test_flagship_loopback_on_cpu_twins():
         np.random.default_rng(0).integers(0, 2, 311400).astype(np.int8))
     samples = flagship.ue_samples(0, payload)
     rx = torch.cat([samples[:2], samples[:2]]) * 0.5
-    out = flagship.ul_program()(rx, None, flagship.zero_soft_buffers("cpu"))
+    out = flagship.ul_program()(rx, flagship.prach_fd("cpu"),
+                                flagship.zero_soft_buffers("cpu"))
     assert bool(out["pusch"][0]["tb_crc_ok"])
     assert torch.equal(out["pusch"][0]["tb_bits"], payload)
