@@ -55,7 +55,23 @@ the JAX package.  It builds the hand kernels from ``srsran_tpu_torch/csrc``
    ``process_slot`` runs under ``set_sync_debug_mode("error")``; one
    slot's ``SlotResults`` must equal the same requests through the port's
    conductor on the CPU.  It prints the conductor's us per slot by CUDA
-   events and on the host clock (staging and resolve included).
+   events and on the host clock (staging and resolve included);
+5. holds K16 (L x N ZF/MMSE equalize-demap) against its twin at UE A's
+   shape (4 layers, MMSE) and at 3 layers ZF, 2 layers MMSE and UE B's 1
+   layer MMSE, K17 (UL-SCH / UCI demultiplex) bit-exact at UE B's codeword
+   and with a punctured 1-bit HARQ-ACK on QAM16, and K8 on CDM group 1;
+   then drives the two-UE UL slot of ``flagship.MU`` (UE A: 4-layer QAM64
+   MMSE PUSCH on 205 RB, TBS 393272; UE B: 1-layer QAM16 MMSE PUSCH on 64
+   RB, TBS 16896, with 4 HARQ-ACK bits, 8 CSI part-1 bits and 12 or 24
+   part-2 bits by the RI in part 1; PUCCH F1, PRACH and SRS as above)
+   through ``ul_slot_fn`` for 8 slots with fresh payloads and UCI: both
+   TBs exact, UE B's ACK, CSI1 and CSI2 as sent and valid, PRACH 21, K16
+   and K17 launched; one call under ``set_sync_debug_mode("error")``; slot
+   0's result dict against the CPU twins; the same slots' UL requests
+   beside the flagship DL through ``SlotConductor.process_slot`` (each
+   slot's CRCs, payloads and UCI.indication from the PUSCH as sent); and
+   ``pusch.process_with_part2_feedback`` on UE B once per RI, the part-2
+   size unknown to the receiver.
 
 It prints the card's name and power limit, one JSON line of per-kernel
 results, and as its last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -78,9 +94,11 @@ from srsran_tpu_torch import convert, flagship, kernels
 from srsran_tpu_torch.device import card_line, require_cuda
 from srsran_tpu_torch.fapi.conductor import SlotConductor
 from srsran_tpu_torch.kernels import _build
+from srsran_tpu_torch.ops import ofdm
 from srsran_tpu_torch.ops.crc import crc_check
 from srsran_tpu_torch.ops.ldpc_graph import get_graph
-from srsran_tpu_torch.phy.upper import prach, pucch
+from srsran_tpu_torch.ops.modulation import BITS_PER_SYMBOL
+from srsran_tpu_torch.phy.upper import prach, pucch, pusch
 
 SEED = 0
 NOF_SLOTS = 8
@@ -91,6 +109,12 @@ UL_KERNELS = ("ldpc_decode", "rate_dematch", "pusch_demap", "ofdm_demodulate",
 DL_KERNELS = ("dlsch_encode", "pdsch_map", "ofdm_modulate")
 UCI_KERNELS = ("pucch_f0_detect", "pucch_f2_demap", "short_block_detect",
                "polar_decode")
+MU_KERNELS = ("pusch_demap_lxn", "ulsch_demux")
+# The kernels the two-UE UL slot (phase 5) launches: no K3 (both UEs use
+# MMSE), K14 and K15 for UE B's UCI on PUSCH.
+MU_PATH = ("ldpc_decode", "rate_dematch", "ofdm_demodulate",
+           "channel_estimate", "prach_detect", "pucch_f1_detect",
+           "srs_estimate", "short_block_detect", "polar_decode") + MU_KERNELS
 # Extra cases of a kernel at another shape: compared and timed, printed,
 # not in the JSON line (which holds the main path's shape).
 CASE_KERNEL = {"pdsch_map_repetition": "pdsch_map",
@@ -98,7 +122,12 @@ CASE_KERNEL = {"pdsch_map_repetition": "pdsch_map",
                "channel_estimate_f2": "channel_estimate",
                "pucch_f2_demap_1rb": "pucch_f2_demap",
                "short_block_detect_k11": "short_block_detect",
-               "polar_decode_n1024": "polar_decode"}
+               "polar_decode_n1024": "polar_decode",
+               "pusch_demap_lxn_3l_zf": "pusch_demap_lxn",
+               "pusch_demap_lxn_2l_mmse": "pusch_demap_lxn",
+               "pusch_demap_lxn_1l_mmse": "pusch_demap_lxn",
+               "ulsch_demux_punctured": "ulsch_demux",
+               "channel_estimate_delta1": "channel_estimate"}
 CONDUCTOR_SLOTS = 16
 RESOLVE_LAG = 2
 # A HARQ retransmission through the conductor: at 11 dB the first
@@ -200,6 +229,20 @@ def compare(name: str, out, ref) -> float:
     if name == "pusch_demap":                      # K3: (llr, x)
         return max(close(out[1], ref[1], "K3 x"),
                    close(out[0], ref[0], "K3 llr"))
+    if name == "pusch_demap_lxn":                  # K16: (llr, x)
+        # an LDL^H solve against the twin's LU inverse: x within 1e-4 and
+        # the LLRs within 1e-3 of their largest magnitude, and the same hard
+        # decisions wherever |LLR| is above that tolerance
+        llr, llr_ref = out[0], ref[0]
+        big = llr_ref.abs() > 1e-3 * float(llr_ref.abs().max())
+        if not torch.equal(llr[big] > 0, llr_ref[big] > 0):
+            raise AssertionError(f"{case}: hard decisions differ")
+        return max(close(out[1], ref[1], f"{case} x"),
+                   close(llr, llr_ref, f"{case} llr", rtol=1e-3))
+    if name == "ulsch_demux":                      # K17: bit-exact fields
+        if not all(torch.equal(a, b) for a, b in zip(out, ref)):
+            raise AssertionError(f"{case} differs from its twin")
+        return 0.0
     if name == "rate_dematch":                     # K2: no repetition here
         if not all(torch.equal(a, b) for a, b in zip(out, ref)):
             raise AssertionError("K2 differs from its twin")
@@ -277,6 +320,20 @@ def work(name: str, args: tuple, out) -> tuple:
         n_re = sym.numel()
         return (n_re * grid.shape[0] * c64 + nbytes((coeffs, sym, sc))
                 + nbytes(out), 230.0 * n_re)
+    if name == "pusch_demap_lxn":                  # K16
+        # per RE: 8 per complex MAC of G and z over the ports, ~30 L^3 for
+        # the LDL^H solve, A^-1 and (MMSE) A^-1 G A^-1, and per layer and
+        # axis 3 per PAM level of the demap
+        grid, coeffs, sym, sc = args[:4]
+        n_re, p, n_l = sym.numel(), grid.shape[0], coeffs.shape[1]
+        levels = 2 ** (BITS_PER_SYMBOL[args[7]] // 2)
+        return (n_re * p * c64 + nbytes((coeffs, sym, sc)) + nbytes(out),
+                n_re * (8.0 * p * (n_l * (n_l + 1) // 2 + n_l)
+                        + 30.0 * n_l ** 3 + 2 * n_l * 3.0 * levels))
+    if name == "ulsch_demux":                      # K17: a sign per bit
+        llr = args[0]
+        n = sum(o.numel() for o in out)
+        return (nbytes(llr) + llr.numel() + 5 * n + nbytes(out), float(n))
     if name == "rate_dematch":                     # K2: an add per soft bit
         return nbytes((args[0], args[-1])) + nbytes(out), float(
             args[-1].numel())
@@ -407,7 +464,8 @@ def check_slot(out: dict, payload: torch.Tensor, slot: int) -> None:
 
 # UL result keys held equal to the CPU twins'; the others within a tolerance.
 UL_EXACT = {"tb_bits", "tb_crc_ok", "nof_iterations", "ta_s", "detected",
-            "harq_bits"}
+            "harq_bits", "harq_ack_bits", "harq_ack_valid", "csi1_bits",
+            "csi1_valid", "csi2_bits", "csi2_valid"}
 
 
 def compare_ul(out: dict, ref: dict) -> None:
@@ -727,6 +785,144 @@ def conductor_phases(dev, gen, rng, card) -> tuple:
     return results, launches
 
 
+def mu_conductor(slots: list, prach_in, rng, card) -> None:
+    """The two-UE slots' UL requests beside the flagship DL through the FAPI
+    conductor: every slot staged in one transfer, a warm-up pass, then a
+    pass resolved RESOLVE_LAG slots behind the launch front; each slot must
+    return both CRCs with the exact payloads and UE B's UCI from its PUSCH
+    as sent.  Both UL kernels of the slice must launch in that pass."""
+    cond = SlotConductor(flagship.CELL)
+    pay = flagship.dl_payloads(rng)
+    n = len(slots)
+    dlr = [flagship.dl_request(i) for i in range(n)]
+    ulr = [flagship.mu_ul_request(i, s["uci"]["ri"])
+           for i, s in enumerate(slots)]
+    stride = max(cond.payload_layout(d)[1] for d in dlr)
+
+    def run_pass(lag: int) -> float:
+        st = cond.stage_payloads([(d, flagship.tx_request(i, pay))
+                                  for i, d in enumerate(dlr)], stride=stride)
+        t0 = time.perf_counter()
+        pending = []
+        for i in range(n):
+            _, pend = cond.process_slot(dlr[i], ulr[i], st, i, slots[i]["rx"],
+                                        prach_fd=prach_in)
+            pending.append((i, pend))
+            if len(pending) > lag:
+                j, p = pending.pop(0)
+                flagship.check_mu_results(p.resolve(), slots[j],
+                                          f"conductor two-UE slot {j}")
+        for j, p in pending:
+            flagship.check_mu_results(p.resolve(), slots[j],
+                                      f"conductor two-UE slot {j}")
+        return 1e6 * (time.perf_counter() - t0) / n
+
+    run_pass(0)                                    # warm-up, checked
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    host_us = run_pass(RESOLVE_LAG)
+    launched(MU_KERNELS)
+    print(f"conductor two-UE slot (flagship DL + UL with 2 PUSCH, UCI on "
+          f"PUSCH, F1, PRACH, SRS): {n} slots ok, both TBs and UE B's "
+          f"HARQ-ACK/CSI1/CSI2 as sent, {host_us:.1f} us per slot on the "
+          f"host clock with staging and resolve, card {card}", flush=True)
+
+
+def part2_feedback(slots: list) -> None:
+    """UE B through ``pusch.process_with_part2_feedback`` once per RI: the
+    receiver's PDU carries o_csi2 = 0, the part-2 size comes from the
+    decoded part 1, and the CSI2 payload must come back exact."""
+    cell = flagship.MU.cell
+    sizes = []
+    for ri in (0, 1):
+        i, s = next((i, s) for i, s in enumerate(slots)
+                    if s["uci"]["ri"] == ri)
+        grid = ofdm.demodulate_slot(s["rx"], cell.nof_sc, cell.dft_size,
+                                    cell.numerology, cell.cp, 0,
+                                    cell.center_freq_hz)
+        cfg = dataclasses.replace(flagship.MU.pusch_b,
+                                  slot_in_frame=(2 * i) % 20)
+        res = pusch.process_with_part2_feedback(
+            grid, cfg, flagship.PART2, dmrs_cinits=s["ctx"]["pusch"][1])
+        uci = s["uci"]
+        if not (bool(res.tb_crc_ok) and torch.equal(res.tb_bits, s["tb_b"])):
+            raise AssertionError(f"part-2 feedback, RI {ri}: TB not decoded")
+        for key, sent in (("harq_ack", uci["ack"]), ("csi1", uci["csi1"]),
+                          ("csi2", uci["csi2"])):
+            got = getattr(res, f"{key}_bits")
+            if not (bool(getattr(res, f"{key}_valid"))
+                    and np.array_equal(got.cpu().numpy(), sent)):
+                raise AssertionError(f"part-2 feedback, RI {ri}: {key} "
+                                     f"{got.cpu().numpy()} vs {sent}")
+        sizes.append(res.csi2_bits.numel())
+    print(f"part-2 feedback (o_csi2 unknown to the receiver): CSI2 of "
+          f"{sizes[0]} and {sizes[1]} bits from RI 0 and 1, exact",
+          flush=True)
+
+
+def mu_phases(dev, gen, rng, card) -> tuple:
+    """K16, K17 and K8 at delta 1 against their twins, then the two-UE UL
+    slot (4-layer MMSE PUSCH + 1-layer PUSCH with HARQ-ACK and CSI parts 1
+    and 2, PUCCH F1, PRACH, SRS) through ``ul_slot_fn``, the conductor and
+    the part-2 feedback path."""
+    t0 = time.perf_counter()
+    slots = flagship.make_mu_slots(NOF_SLOTS + 2, rng, gen, dev)
+    softs = flagship.mu_soft_buffers(dev)
+    prach_in = flagship.prach_fd(dev, SEED)
+    torch.cuda.synchronize()
+    print(f"two-UE transmitters: {len(slots)} slots in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    results = kernel_phases(flagship.mu_kernel_cases(slots[0], gen))
+
+    def run(s):
+        return flagship.mu_program(s["uci"]["ri"])(s["rx"], prach_in, softs,
+                                                   s["ctx"])
+
+    # Warm up both plans (one per part-2 size), then count launches over
+    # NOF_SLOTS slots with fresh payloads and UCI.
+    measured = slots[2:]
+    for ri in (0, 1):
+        s = next(s for s in slots if s["uci"]["ri"] == ri)
+        flagship.check_mu_slot(run(s), s, f"warm-up RI {ri}")
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    slot_ms, outs = [], []
+    for s in measured:
+        out, ms = timed(lambda: run(s))
+        slot_ms.append(ms)
+        outs.append(out)
+    launches = launched(MU_PATH)
+    for i, (s, out) in enumerate(zip(measured, outs)):
+        flagship.check_mu_slot(out, s, f"two-UE slot {i}")
+    ris = [s["uci"]["ri"] for s in measured]
+    if set(ris) != {0, 1}:
+        raise AssertionError(f"the slots' RIs {ris} miss a part-2 size")
+    iters = [[int(r["nof_iterations"]) for r in o["pusch"]] for o in outs]
+    mu = {k: launches[k] for k in MU_KERNELS}
+    print(f"two-UE UL slot (4-layer MMSE PUSCH + 1-layer PUSCH with UCI + "
+          f"F1 + PRACH + SRS): {len(outs)} slots ok (RIs {ris}), median "
+          f"{1e3 * statistics.median(slot_ms):.1f} us per slot (CUDA "
+          f"events), LDPC sweeps {iters}, launches {mu}, card {card}",
+          flush=True)
+
+    s = measured[0]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = run(s)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    flagship.check_mu_slot(out, s, "two-UE sync-free call")
+    print("two-UE sync-free steady-state call: ok", flush=True)
+    cpu = flagship.mu_program(s["uci"]["ri"])(
+        s["rx"].cpu(), _to_cpu(prach_in), _to_cpu(softs), _to_cpu(s["ctx"]))
+    compare_ul(out, cpu)
+    print("two-UE slot (full result dict) vs plain twins on the CPU: ok",
+          flush=True)
+    mu_conductor(slots, prach_in, rng, card)
+    part2_feedback(slots)
+    return results, launches
+
+
 def main() -> int:
     dev = require_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -739,9 +935,13 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.load()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
+    kernel = "?"
     for line in _build.build_log().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}", flush=True)
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1]
+        elif "registers" in line or "spill" in line:
+            print(f"  ptxas {kernel}: {line.split(':', 1)[-1].strip()}",
+                  flush=True)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -749,10 +949,16 @@ def main() -> int:
     ul_results, ul_launches = ul_phases(dev, gen, rng, card)
     dl_results, dl_launches = dl_phases(dev, rng, card)
     uci_results, cond_launches = conductor_phases(dev, gen, rng, card)
-    results = {**ul_results, **dl_results, **uci_results}
+    # phase 5 draws from its own seed: its 8 measured slots carry both
+    # RI values (RIs 0,0,0,1,1,0,1,0), so both part-2 sizes occur
+    mu_results, mu_launches = mu_phases(
+        dev, gen, np.random.default_rng(SEED + 5), card)
+    results = {**ul_results, **dl_results, **uci_results, **mu_results}
     # K1-K11 as their own paths launched them (phases 2, 3), K12-K15 as the
-    # conductor's slots did (phase 4, which launched every kernel)
-    launches = {**cond_launches, **ul_launches, **dl_launches}
+    # conductor's slots did (phase 4, which launched every kernel), K16-K17
+    # as the two-UE slot did (phase 5)
+    launches = {**cond_launches, **ul_launches, **dl_launches,
+                **{k: mu_launches[k] for k in MU_KERNELS}}
     for name, r in results.items():
         print(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}), "

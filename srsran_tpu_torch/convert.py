@@ -29,42 +29,47 @@ from .phy.upper.ssb import SsbConfig
 from .ran.cyclic_prefix import CyclicPrefix
 from .ran.precoding_codebooks import PrecodingConfig
 from .ran.slot_point import SlotPoint
-from .ran.uci_on_pusch import UciOnPuschConfig
+from .ran.uci_on_pusch import (Part2Entry, Part2Parameter,
+                               Part2SizeDescription, UciOnPuschConfig)
 
 # Port classes by name; a JAX config maps to the port class of its name.
 CONFIG_CLASSES = {cls.__name__: cls for cls in
                   (CellConfig, CoresetConfig, DmrsConfig, PdcchConfig,
                    PdschConfig, PdschPtrs, PrachConfig, PrecodingConfig,
+                   Part2Entry, Part2Parameter, Part2SizeDescription,
                    PucchF0Config, PucchF1Config, PucchF2Config, PuschConfig,
                    SlotPoint, SrsConfig, SsbConfig, UciOnPuschConfig)}
 # Port enums by name; a JAX enum member maps to the member of its name.
 ENUM_CLASSES = {cls.__name__: cls for cls in (CyclicPrefix,)}
 
 
-def value(value):
-    """A config field value (or an enum member) with the port's classes
-    for the JAX package's."""
-    name = type(value).__name__
-    if isinstance(value, enum.Enum) and name in ENUM_CLASSES:
-        port = ENUM_CLASSES[name][value.name]
-        if port.value != value.value:
-            raise ValueError(f"{name}.{value.name}: values differ")
+def value(v):
+    """A config field value (or an enum member, or a tuple of either) with
+    the port's classes for the JAX package's."""
+    if isinstance(v, tuple):
+        return tuple(value(x) for x in v)
+    name = type(v).__name__
+    if isinstance(v, enum.Enum) and name in ENUM_CLASSES:
+        port = ENUM_CLASSES[name][v.name]
+        if port.value != v.value:
+            raise ValueError(f"{name}.{v.name}: values differ")
         return port
-    if dataclasses.is_dataclass(value) and name in CONFIG_CLASSES:
-        return config(value)
-    return value
+    if dataclasses.is_dataclass(v) and name in CONFIG_CLASSES:
+        return config(v)
+    return v
 
 
 def config(jax_cfg):
     """The port config with the same field values as a JAX config.
 
-    Field names are read through ``dataclasses.asdict`` and must match the
-    port class exactly.  Nested configs (PdschPtrs, PdcchConfig.coreset,
-    UciOnPuschConfig, PrecodingConfig) convert recursively and enums
-    (CyclicPrefix) by member name, to the port's own classes.
+    Field names must match the port class exactly.  Nested configs
+    (PdschPtrs, PdcchConfig.coreset, UciOnPuschConfig, PrecodingConfig,
+    the Part2Entry and Part2Parameter tuples of a Part2SizeDescription)
+    convert recursively and enums (CyclicPrefix) by member name, to the
+    port's own classes.
     """
     cls = CONFIG_CLASSES[type(jax_cfg).__name__]
-    names = set(dataclasses.asdict(jax_cfg))
+    names = {f.name for f in dataclasses.fields(jax_cfg)}
     port_names = {f.name for f in dataclasses.fields(cls)}
     if names != port_names:
         raise ValueError(f"{cls.__name__}: fields differ: "

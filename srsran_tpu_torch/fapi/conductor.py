@@ -207,9 +207,10 @@ class PendingSlotResults:
         return self.conductor._decode(self)
 
 
-def pack_ul_results(out: dict) -> tuple:
+def pack_ul_results(out: dict, device) -> tuple:
     """Flatten every per-PDU result into one f32 vector + one int8 vector
-    (on the device of the results).
+    on ``device`` (the conductor's: the results' own, and the device of
+    the empty vectors of a slot without results).
 
     Layout per PDU type (static given the slot plan):
       pusch: [crc_ok, ta_s, cfo_hz, evm, iters, snr[P], rsrp[P], epre[P]]
@@ -245,14 +246,10 @@ def pack_ul_results(out: dict) -> tuple:
         h = r["wideband_h"]
         scal(r["ta_s"], torch.mean(r["snr"]), h.real, h.imag)
     pay = [r["tb_bits"].to(torch.int8) for r in out["pusch"]]
-    if parts:
-        scalars = torch.cat(parts)
-        dev = scalars.device
-    else:
-        dev = pay[0].device if pay else torch.device("cpu")
-        scalars = torch.zeros(0, dtype=torch.float32, device=dev)
+    scalars = (torch.cat(parts) if parts
+               else torch.zeros(0, dtype=torch.float32, device=device))
     payload = (torch.cat(pay) if pay
-               else torch.zeros(0, dtype=torch.int8, device=dev))
+               else torch.zeros(0, dtype=torch.int8, device=device))
     return scalars, payload
 
 
@@ -349,21 +346,21 @@ def _dl_fn(cell: CellConfig, plan, slot_in_subframe: int, return_grid: bool):
     return run
 
 
-def _ul_fn(cell: CellConfig, plan, slot_in_subframe: int):
+def _ul_fn(cell: CellConfig, plan, slot_in_subframe: int, device):
     """The UL slot program returning (packed scalars, packed payload,
-    per-PUSCH soft buffers)."""
+    per-PUSCH soft buffers) on ``device``."""
     core = ul_slot_core(cell, plan, slot_in_subframe)
 
     def run(samples, prach_fd, soft_buffers, ctx=None):
         out = core(samples, prach_fd, soft_buffers, ctx)
-        scalars, payload = pack_ul_results(out)
+        scalars, payload = pack_ul_results(out, device)
         return scalars, payload, tuple(r["new_soft"] for r in out["pusch"])
 
     return run
 
 
 def _slot_fn(cell: CellConfig, dl_plan, ul_plan, slot_in_subframe: int,
-             stride: int):
+             stride: int, device):
     """The full DL+UL slot step taking its payload blob from a staged
     multi-slot device buffer."""
     if len(dl_plan) == 4:
@@ -375,7 +372,7 @@ def _slot_fn(cell: CellConfig, dl_plan, ul_plan, slot_in_subframe: int,
         raise ValidationError(f"payload layout {total} B exceeds stride "
                               f"{stride}")
     dl_core = dl_slot_core(cell, dl_plan, slot_in_subframe)
-    ul = _ul_fn(cell, ul_plan, slot_in_subframe)
+    ul = _ul_fn(cell, ul_plan, slot_in_subframe, device)
     unpack = _unpacker(segs, n_ssb, n_pdcch, n_pdsch)
 
     def run(staged_buf, k, rx_samples, prach_fd, soft_buffers, dl_ctx,
@@ -617,7 +614,7 @@ class SlotConductor:
             ul_phase = self._resolve_ul_phase(ul_tti, slot_in_sf)
             return _SlotPhase(
                 fn=_slot_fn(self.cell, dl_phase.plan, ul_phase.plan,
-                            slot_in_sf, staged.stride),
+                            slot_in_sf, staged.stride, self.device),
                 dl_ctx=dl_phase.ctx, ul_ctx=ul_phase.ctx,
                 soft_shapes=ul_phase.soft_shapes)
 
@@ -650,7 +647,8 @@ class SlotConductor:
         if self.validate:
             validate_ul_tti(ul_tti, self.cell)
         plan, ctx = normalize_ul_plan(ul_tti, device=self.device)
-        return _UlPhase(fn=_ul_fn(self.cell, plan, slot_in_sf), ctx=ctx,
+        return _UlPhase(fn=_ul_fn(self.cell, plan, slot_in_sf, self.device),
+                        ctx=ctx,
                         soft_shapes=tuple(self._pusch_soft_shape(c)
                                           for c in ul_tti.pusch), plan=plan)
 

@@ -5,7 +5,9 @@ checked against the cell geometry and 3GPP ranges, raising ValidationError
 with the offending field; the conductor calls these before it resolves a
 slot phase.  PDU kinds and options the port does not run raise
 NotImplementedError with their ROADMAP item instead (CSI-RS, PRS, PUCCH
-F3/F4; PT-RS, per-PRG precoding and RA type 0 / interleaved PDSCH).
+F3/F4; PT-RS, per-PRG precoding and RA type 0 / interleaved PDSCH; PUSCH
+frequency hopping and transform precoding).  PUSCHs of 1-4 layers with ZF
+or MMSE and UCI on PUSCH pass.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 from ..ops.modulation import BITS_PER_SYMBOL
 from ..phy.slot_programs import CellConfig
 from ..phy.upper import pdsch as pdsch_mod
+from ..phy.upper import pusch as pusch_mod
 from .messages import DlTtiRequest, TxDataRequest, UlTtiRequest
 
 
@@ -109,6 +112,7 @@ def validate_ul_tti(ul: UlTtiRequest, cell: CellConfig):
                "pusch_processor_phy_capabilities.cpp:29)")
         _check(not (p.transform_precoding and p.nof_layers > 1),
                "pusch: transform precoding is single-layer")
+        pusch_mod.check_supported(p)
     _check(not ul.pusch_harq or len(ul.pusch_harq) == len(ul.pusch),
            "ul_tti: pusch_harq length mismatch")
     for f in ul.pucch_f0:

@@ -39,16 +39,18 @@ import torch
 from .fapi import messages
 from .ops import channel_estimate as chest
 from .ops import (dl_map, ldpc_decode, ldpc_encode, ldpc_rate_match, ofdm,
-                  polar, short_block, ul_demap)
+                  polar, short_block, uci_demux, ul_demap)
 from .ops.modulation import demodulate
 from .ops.scrambling import descramble_llrs
 from .phy.slot_programs import (CellConfig, dl_slot_fn, dl_slot_fn_samples,
                                 ul_slot_fn)
 from .phy.upper import (dmrs, pdcch, pdsch, prach, pucch, pusch, sch_decoder,
-                        srs, ssb)
+                        srs, ssb, ue_tx)
 from .ran import polar_params
 from .ran.prach_params import zc_sequence
 from .ran.slot_point import SlotPoint
+from .ran.uci_on_pusch import (Part2Entry, Part2Parameter,
+                               Part2SizeDescription, UciOnPuschConfig)
 
 SNR_DB = 30.0
 
@@ -571,4 +573,283 @@ def conductor_kernel_cases(rx: torch.Tensor, sif: int,
         args = (llr, 11, 2) if name.startswith("short") else (llr, big,
                                                                "crc11")
         cases[name] = (fn, ref, args)
+    return cases
+
+
+# ------------------------------------------------------- the two-UE UL slot
+
+# A loaded 100 MHz cell gives the PUSCH REs of a slot to more than one UE:
+# the flagship UL mix (PUCCH F1, PRACH, SRS as above) with its PUSCH split
+# between a 4-layer QAM64 UE on RBs 0-204 (two DM-RS CDM groups, MMSE) and a
+# 1-layer QAM16 UE on RBs 205-268 that multiplexes its HARQ-ACK (4 bits) and
+# CSI report (part 1: 8 bits, RI in bit 0; part 2: 12 or 24 bits by RI) on
+# its PUSCH, as the JAX MAC places UCI (single-layer UEs only).  Both TBS
+# follow TS38.214 with 36 DM-RS REs per PRB.
+CSI2_SIZES = (12, 24)
+PART2 = Part2SizeDescription((Part2Entry((Part2Parameter(0, 1),),
+                                         CSI2_SIZES),))
+
+
+@dataclasses.dataclass(frozen=True)
+class MuScenario:
+    """The two-UE UL slot on one cell.  ``pusch_b`` is UE B's PDU as the
+    receiver knows it before CSI part 1 (o_csi2 = 0)."""
+
+    cell: CellConfig
+    pusch_a: pusch.PuschConfig
+    pusch_b: pusch.PuschConfig
+    pucch: pucch.PucchF1Config
+    prach: prach.PrachConfig
+    srs: srs.SrsConfig
+
+    def ue_b(self, ri: int) -> pusch.PuschConfig:
+        """UE B's PDU with the part-2 size of rank indicator ``ri``."""
+        return dataclasses.replace(self.pusch_b, uci=dataclasses.replace(
+            self.pusch_b.uci, o_csi2=CSI2_SIZES[ri]))
+
+    def ue_a_tx(self) -> pdsch.PdschConfig:
+        """UE A's transmitter: the DL chain's PDSCH on the same REs."""
+        a = self.pusch_a
+        return pdsch.PdschConfig(
+            rnti=a.rnti, rb_start=a.rb_start, rb_count=a.rb_count,
+            first_symbol=a.first_symbol, nof_symbols=a.nof_symbols,
+            modulation=a.modulation, target_code_rate=a.target_code_rate,
+            tbs=a.tbs, nof_layers=a.nof_layers, n_id=a.n_id,
+            dmrs_symbols=a.dmrs_symbols)
+
+    def plan(self, ri: int) -> tuple:
+        """The normalized UL plan of a slot whose RI is ``ri``."""
+        return ((self.pusch_a, self.ue_b(ri)), (), (self.pucch,), (),
+                (self.prach,), (self.srs,), ())
+
+
+MU = MuScenario(
+    cell=CELL,
+    pusch_a=pusch.PuschConfig(
+        rnti=0x17, rb_start=0, rb_count=205, first_symbol=0, nof_symbols=14,
+        modulation="qam64", target_code_rate=0.6, tbs=393272, nof_layers=4,
+        n_id=1, dmrs_symbols=(2, 7, 11), equalizer="mmse"),
+    pusch_b=pusch.PuschConfig(
+        rnti=0x18, rb_start=205, rb_count=64, first_symbol=0, nof_symbols=14,
+        modulation="qam16", target_code_rate=0.5, tbs=16896, nof_layers=1,
+        n_id=1, dmrs_symbols=(2, 7, 11), equalizer="mmse",
+        uci=UciOnPuschConfig(o_ack=4, o_csi1=8)),
+    pucch=PUCCH, prach=PRACH, srs=SRS)
+
+
+def mu_program(ri: int, sc: MuScenario = MU):
+    """The two-UE UL slot program of a slot whose RI is ``ri``."""
+    return ul_slot_fn(sc.cell, sc.plan(ri))
+
+
+def mu_uci(rng: np.random.Generator, sc: MuScenario = MU) -> dict:
+    """One slot's UCI of UE B: HARQ-ACK, CSI part 1 (bit 0 the RI) and the
+    part 2 that the RI sizes."""
+    u = sc.pusch_b.uci
+    csi1 = rng.integers(0, 2, u.o_csi1).astype(np.int8)
+    ri = int(csi1[0])
+    return dict(ri=ri, ack=rng.integers(0, 2, u.o_ack).astype(np.int8),
+                csi1=csi1,
+                csi2=rng.integers(0, 2, CSI2_SIZES[ri]).astype(np.int8))
+
+
+def mu_context(index: int, device, sc: MuScenario = MU) -> dict:
+    """The slot context of two-UE slot ``index`` (slot point (1, 2*index)):
+    both PUSCHs' DM-RS pilot values and the F1 group's weights."""
+    sif = (2 * index) % 20
+    weights = pucch.f1_batch_weights(
+        dataclasses.replace(sc.pucch, slot=sif),
+        ((sc.pucch.initial_cyclic_shift, sc.pucch.time_domain_occ,
+          sc.pucch.nof_harq_bits),))
+    return {
+        "pusch": tuple(_up(dmrs.pilot_values_for(pusch.dmrs_config(
+            dataclasses.replace(c, slot_in_frame=sif))), device)
+            for c in (sc.pusch_a, sc.pusch_b)),
+        "f0": (),
+        "f1": (tuple(tuple(_up(w, device) for w in hop) for hop in weights),),
+        "f2": (), "f3": (),
+    }
+
+
+def mu_rx(sif: int, tb_a: torch.Tensor, tb_b: torch.Tensor, uci: dict,
+          gen: torch.Generator, sc: MuScenario = MU,
+          snr_db: float = SNR_DB) -> torch.Tensor:
+    """The gNB's 4-port samples of one two-UE slot: UE A's 4 layers (the
+    port's DL chain, identity precoding, plus the SRS on its port 0) through
+    a flat, well-conditioned 4x4 channel I + 0.25 (N + jN), UE B's PUSCH
+    with its UCI (``ue_tx.pusch_transmit``) through a flat 4x1 channel,
+    summed, then AWGN at ``snr_db`` of the sum's power."""
+    dev = tb_a.device
+    cell = sc.cell
+    ue_a = sc.ue_a_tx()
+    pilots = _up(dmrs.pilot_values_for(pdsch.dmrs_config(
+        dataclasses.replace(ue_a, slot_in_frame=sif))), dev)
+    _, grid_a = dl_slot_fn(cell, ((), (), (ue_a,), ()))(
+        (), (), (tb_a,), {"pdsch": (pilots,)})
+    grid_a = srs.map_to_grid(grid_a, sc.srs)
+    grid_b = ue_tx.pusch_transmit(
+        dataclasses.replace(sc.ue_b(uci["ri"]), slot_in_frame=sif),
+        tb_b.cpu().numpy(), uci["ack"], uci["csi1"], uci["csi2"],
+        nof_sc=cell.nof_sc, device=dev)
+
+    def samples(grid):
+        return ofdm.modulate_slot(grid, cell.dft_size, cell.numerology,
+                                  center_freq_hz=cell.center_freq_hz)
+
+    def cn(shape):
+        return torch.complex(torch.randn(shape, device=dev, generator=gen),
+                             torch.randn(shape, device=dev, generator=gen))
+
+    h_a = torch.eye(4, dtype=torch.complex64, device=dev) + 0.25 * cn((4, 4))
+    h_b = cn((4, 1)) / np.sqrt(2)
+    rx = h_a @ samples(grid_a) + h_b @ samples(grid_b)
+    sigma2 = rx.abs().pow(2).mean() / 10 ** (snr_db / 10)
+    return rx + torch.randn(rx.shape, dtype=torch.complex64, device=dev,
+                            generator=gen) * sigma2.sqrt()
+
+
+def make_mu_slots(n: int, rng: np.random.Generator, gen: torch.Generator,
+                  device, sc: MuScenario = MU) -> list:
+    """``n`` two-UE slots, each a dict: ``tb_a``, ``tb_b`` (int8 payloads),
+    ``uci`` (:func:`mu_uci`), ``rx`` (samples) and ``ctx``, all on
+    ``device``; slot i is slot point (1, 2i), with fresh payloads and UCI."""
+    slots = []
+    for i in range(n):
+        tb_a = _up(rng.integers(0, 2, sc.pusch_a.tbs).astype(np.int8), device)
+        tb_b = _up(rng.integers(0, 2, sc.pusch_b.tbs).astype(np.int8), device)
+        uci = mu_uci(rng, sc)
+        slots.append(dict(tb_a=tb_a, tb_b=tb_b, uci=uci,
+                          rx=mu_rx((2 * i) % 20, tb_a, tb_b, uci, gen, sc),
+                          ctx=mu_context(i, device, sc)))
+    return slots
+
+
+def mu_soft_buffers(device, sc: MuScenario = MU) -> tuple:
+    """Zero HARQ soft buffers of both UEs (first transmissions)."""
+    return tuple(torch.zeros((s.nof_codeblocks, s.codeword_bits),
+                             dtype=torch.float32, device=device)
+                 for s in (pusch.segmentation(sc.pusch_a),
+                           pusch.segmentation(sc.pusch_b)))
+
+
+def check_mu_slot(out: dict, slot: dict, where: str) -> None:
+    """Both TBs exact, UE B's HARQ-ACK, CSI1 and CSI2 as sent and valid,
+    PRACH preamble 21 detected, finite channel reports."""
+    for r, tb, name in zip(out["pusch"], (slot["tb_a"], slot["tb_b"]), "AB"):
+        if not bool(r["tb_crc_ok"]):
+            raise AssertionError(f"{where}: UE {name} TB CRC failed")
+        if not torch.equal(r["tb_bits"], tb):
+            raise AssertionError(f"{where}: UE {name} TB differs from payload")
+        for k in ("snr", "rsrp", "epre", "evm", "cfo_hz", "ta_s"):
+            if not bool(torch.isfinite(r[k]).all()):
+                raise AssertionError(f"{where}: UE {name} {k} not finite")
+    b, uci = out["pusch"][1], slot["uci"]
+    for key, sent in (("harq_ack", uci["ack"]), ("csi1", uci["csi1"]),
+                      ("csi2", uci["csi2"])):
+        if not bool(b[f"{key}_valid"]):
+            raise AssertionError(f"{where}: UE B {key} not valid")
+        if not np.array_equal(b[f"{key}_bits"].cpu().numpy(), sent):
+            raise AssertionError(f"{where}: UE B {key} "
+                                 f"{b[f'{key}_bits'].cpu().numpy()} vs {sent}")
+    det = out["prach"][0]["detected"]
+    if not bool(det[PRACH_PREAMBLE]) or int(det.sum()) != 1:
+        raise AssertionError(f"{where}: PRACH detections "
+                             f"{torch.nonzero(det).flatten().tolist()}")
+
+
+def mu_ul_request(i: int, ri: int, sc: MuScenario = MU) -> messages.UlTtiRequest:
+    """The two-UE slot's UL_TTI.request at slot point (1, 2i), UE B's part-2
+    size set from its RI (as a MAC that knows the rank it asked for)."""
+    slot = SlotPoint(1, 2 * i)
+    sl = slot.slot_index
+    return messages.UlTtiRequest(
+        slot=slot,
+        pusch=(dataclasses.replace(sc.pusch_a, slot_in_frame=sl),
+               dataclasses.replace(sc.ue_b(ri), slot_in_frame=sl)),
+        pucch_f1=(dataclasses.replace(sc.pucch, slot=sl),),
+        prach=(sc.prach,), srs=(sc.srs,))
+
+
+def check_mu_results(res: messages.SlotResults, slot: dict,
+                     where: str) -> None:
+    """A conductor two-UE slot's indications: a passing CRC and the exact
+    payload per UE, UE B's UCI from its PUSCH as sent, PRACH 21."""
+    tbs = (slot["tb_a"], slot["tb_b"])
+    if [c.tb_crc_ok for c in res.crc] != [True, True]:
+        raise AssertionError(f"{where}: CRCs {[c.tb_crc_ok for c in res.crc]}")
+    for got, tb in zip(res.rx_data, tbs):
+        if not np.array_equal(got.payload, tb.cpu().numpy().astype(np.uint8)):
+            raise AssertionError(f"{where}: RNTI {got.rnti:#x} payload differs")
+    (u,) = [u for u in res.uci if u.source == "pusch"]
+    uci = slot["uci"]
+    if not (u.rnti == MU.pusch_b.rnti and u.detected
+            and np.array_equal(u.harq_bits, uci["ack"])
+            and np.array_equal(u.csi_bits, uci["csi1"])
+            and np.array_equal(u.csi2_bits, uci["csi2"])):
+        raise AssertionError(f"{where}: UCI on PUSCH {u} vs sent {uci}")
+    if [r.preamble_index for r in res.rach] != [PRACH_PREAMBLE]:
+        raise AssertionError(f"{where}: PRACH detections "
+                             f"{[r.preamble_index for r in res.rach]}")
+
+
+def mu_kernel_cases(slot: dict, gen: torch.Generator,
+                    sc: MuScenario = MU) -> dict:
+    """name -> (wrapper, plain twin, args) for K16, K17 and K8 at the two-UE
+    slot's shapes, from one slot's samples through the plain twins upstream:
+    K16 at UE A (4 layers, MMSE) and K17 at UE B's codeword; extra cases
+    (compared and timed, not in the main path's list): K16 at 3 layers ZF
+    and 2 layers MMSE on UE A's first layers, and at UE B (1 layer, MMSE);
+    K17 with a punctured 1-bit HARQ-ACK on UE B's QAM16 (the 'x'/'y'
+    placeholder path); K8 on UE A's CDM group 1 (delta 1)."""
+    rx, ctx = slot["rx"], slot["ctx"]
+    cell = sc.cell
+    dev = rx.device
+    grid = ofdm.demodulate_slot_ref(rx, cell.nof_sc, cell.dft_size,
+                                    cell.numerology, cell.cp, 0,
+                                    cell.center_freq_hz)
+    cases = {}
+    llr_b = None
+    for name, cfg, ci in (("a", sc.pusch_a, ctx["pusch"][0]),
+                          ("b", sc.ue_b(slot["uci"]["ri"]), ctx["pusch"][1])):
+        groups = ([((0, 1), 0), ((2, 3), 1)] if cfg.nof_layers > 2
+                  else [((0,), 0)])
+        ests = []
+        for ports, delta in groups:
+            args, kw = pusch.estimate_args(grid, cfg, ci, ports, delta)
+            ests.append(chest.estimate_from_grid_ref(*args, **kw))
+            if delta == 1:
+                cases["channel_estimate_delta1"] = (
+                    functools.partial(chest.estimate_from_grid, **kw),
+                    functools.partial(chest.estimate_from_grid_ref, **kw),
+                    args)
+        coeffs = torch.cat([e.coeffs for e in ests], dim=1)
+        nv = torch.stack([e.noise_var for e in ests]).mean(dim=0).mean()
+        sym, sc_idx = pusch._plan(cfg, dev)
+        c_init = (cfg.rnti << 15) + cfg.n_id
+        k16 = (grid, coeffs, sym, sc_idx, cfg.rb_start * 12, nv, c_init,
+               cfg.modulation, cfg.nof_layers, cfg.equalizer)
+        if name == "a":
+            cases["pusch_demap_lxn"] = (ul_demap.equalize_demap_descramble_lxn,
+                                        ul_demap.equalize_demap_descramble_ref,
+                                        k16)
+            for layers, method in ((3, "zf"), (2, "mmse")):
+                cases[f"pusch_demap_lxn_{layers}l_{method}"] = (
+                    ul_demap.equalize_demap_descramble_lxn,
+                    ul_demap.equalize_demap_descramble_ref,
+                    (grid, coeffs[:, :layers].contiguous(), sym, sc_idx,
+                     cfg.rb_start * 12, nv, c_init, cfg.modulation, layers,
+                     method))
+        else:
+            cases["pusch_demap_lxn_1l_mmse"] = (
+                ul_demap.equalize_demap_descramble_lxn,
+                ul_demap.equalize_demap_descramble_ref, k16)
+            llr_b, _ = ul_demap.equalize_demap_descramble_ref(*k16)
+            dcfg = pusch.demux_plan(cfg)
+            u = cfg.uci
+            cases["ulsch_demux"] = (uci_demux.demux, uci_demux.demux_ref,
+                                    (llr_b, dcfg, u.o_ack, u.o_csi1, c_init))
+            punct = dataclasses.replace(cfg, uci=UciOnPuschConfig(o_ack=1))
+            cases["ulsch_demux_punctured"] = (
+                uci_demux.demux, uci_demux.demux_ref,
+                (llr_b, pusch.demux_plan(punct), 1, 0, c_init))
     return cases

@@ -43,6 +43,9 @@ SIGNATURES = {
                             _I, _I, _F, _P],
     "srsran_pusch_demap": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                            _P, _P, _I, _P, _P, _P, _P],
+    "srsran_pusch_demap_lxn": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                               _P, _P, _I, _I, _P, _P, _P, _P],
+    "srsran_ulsch_demux": [_P, _P, _P, _P, _I, _P, _P],
     "srsran_ofdm_window": [_P, _P, _P, _I, _I, _I, _I, _P],
     "srsran_ofdm_bins_to_grid": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "srsran_dlsch_encode": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,

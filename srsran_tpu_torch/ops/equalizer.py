@@ -1,8 +1,9 @@
-"""Channel equalizer: ZF for 1-2 layers x N rx ports.
+"""Channel equalizer: ZF / MMSE for 1-4 layers x N rx ports.
 
-Port of srsran_tpu/ops/equalizer.py (closed-form per-RE solves,
-vectorized over all REs).  On the PUSCH receive path the 2xN solve runs
-inside the fused ops/ul_demap.py kernel; these are its plain forms.
+Port of srsran_tpu/ops/equalizer.py (closed-form per-RE solves and a
+batched L x L Gram solve, vectorized over all REs).  On the PUSCH receive
+path the solves run inside the fused ops/ul_demap.py kernels (K3: ZF with
+1-2 layers; K16: the rest); these are their plain forms.
 """
 
 from __future__ import annotations
@@ -26,6 +27,21 @@ def equalize_zf_1xn(y: torch.Tensor, h: torch.Tensor, noise_var: torch.Tensor,
     inv = 1.0 / torch.clamp_min(energy, 1e-12)
     x = corr * inv / tx_scaling
     out_nv = nv * inv / (tx_scaling ** 2)
+    out_nv = torch.where(energy < 1e-12, 1e12, out_nv)
+    return x.to(torch.complex64), out_nv.to(torch.float32)
+
+
+def equalize_mmse_1xn(y: torch.Tensor, h: torch.Tensor,
+                      noise_var: torch.Tensor, tx_scaling: float = 1.0):
+    """MMSE, 1 layer, N ports.  y [..., P], h [..., P], noise_var [...] or
+    [..., P].  Returns (x_hat [...], eq_noise_var [...])."""
+    nv = _mean_nv(noise_var, y)
+    energy = torch.sum(h.abs() ** 2, dim=-1)
+    corr = torch.sum(h.conj() * y, dim=-1)
+    denom = energy + nv / (tx_scaling ** 2)
+    x = corr / torch.clamp_min(denom, 1e-12) / tx_scaling
+    out_nv = (nv * energy / torch.clamp_min(denom, 1e-12) ** 2
+              / (tx_scaling ** 2))
     out_nv = torch.where(energy < 1e-12, 1e12, out_nv)
     return x.to(torch.complex64), out_nv.to(torch.float32)
 
@@ -54,21 +70,50 @@ def equalize_zf_2xn(y: torch.Tensor, h: torch.Tensor, noise_var: torch.Tensor,
     return x, out_nv
 
 
+def equalize_lxn(y: torch.Tensor, h: torch.Tensor, noise_var: torch.Tensor,
+                 method: str = "zf", tx_scaling: float = 1.0):
+    """L layers x N ports, ZF or MMSE, through batched Gram solves: every RE
+    solves (H^H H + c I) x = H^H y with c = 1e-9 (ZF) or nv / beta^2
+    (MMSE).  The output noise is nv [A^-1]_ll (ZF) or nv [A^-1 G A^-1]_ll
+    (MMSE), 1e12 where that diagonal is not positive.
+
+    y [..., P]; h [..., P, L]; noise_var [...] or [..., P].
+    Returns (x [..., L], eq_noise_var [..., L]).
+    """
+    nv = _mean_nv(noise_var, y)
+    nof_layers = h.shape[-1]
+    gram = torch.einsum("...pl,...pm->...lm", h.conj(), h)
+    z = torch.einsum("...pl,...p->...l", h.conj(), y)
+    eye = torch.eye(nof_layers, dtype=gram.dtype, device=gram.device)
+    if method == "mmse":
+        ridge = (nv[..., None, None] / (tx_scaling ** 2)) * eye
+    else:
+        ridge = 1e-9 * eye
+    a_inv = torch.linalg.inv(gram + ridge)
+    x = torch.einsum("...lm,...m->...l", a_inv, z) / tx_scaling
+    if method == "mmse":
+        gi = torch.einsum("...lm,...mn,...nk->...lk", a_inv, gram, a_inv)
+        diag_eff = torch.diagonal(gi, dim1=-2, dim2=-1).real
+    else:
+        diag_eff = torch.diagonal(a_inv, dim1=-2, dim2=-1).real
+    out_nv = nv[..., None] * diag_eff / (tx_scaling ** 2)
+    out_nv = torch.where(diag_eff <= 0, 1e12, out_nv)
+    return x.to(torch.complex64), out_nv.to(torch.float32)
+
+
 def equalize(y: torch.Tensor, h: torch.Tensor, noise_var: torch.Tensor,
              nof_layers: int, method: str = "zf", tx_scaling: float = 1.0):
-    """Dispatch as the JAX package does for 1-2 layers with ZF.
+    """Dispatch as the JAX package does: 1 layer ZF or MMSE 1xN; 2 layers
+    ZF the closed form; 2 layers MMSE and 3-4 layers the L x N solve.
 
     y [..., P]; h [..., P, L]; returns (x [..., L], nv [..., L]).
     """
-    if method != "zf":
-        raise NotImplementedError(
-            f"{method} equalization is not ported yet (ROADMAP §1, "
-            "slice 5: MMSE and 3-4 layers)")
     if nof_layers == 1:
-        x, nv = equalize_zf_1xn(y, h[..., 0], noise_var, tx_scaling)
+        fn = equalize_mmse_1xn if method == "mmse" else equalize_zf_1xn
+        x, nv = fn(y, h[..., 0], noise_var, tx_scaling)
         return x[..., None], nv[..., None]
-    if nof_layers == 2:
+    if nof_layers == 2 and method == "zf":
         return equalize_zf_2xn(y, h, noise_var, tx_scaling)
-    raise NotImplementedError(
-        f"{nof_layers}-layer equalization is not ported yet (ROADMAP §1, "
-        "slice 5: MMSE and 3-4 layers)")
+    if 2 <= nof_layers <= 4:
+        return equalize_lxn(y, h, noise_var, method, tx_scaling)
+    raise NotImplementedError(f"{nof_layers}-layer equalization")

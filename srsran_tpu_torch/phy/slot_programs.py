@@ -5,8 +5,9 @@ configs) selects a program; the program is a Python closure over the plan,
 cached per (cell, plan, slot_in_subframe), that runs eagerly on the device
 of its input tensors.  The DL program covers SSB, PDCCH and PDSCH plans
 (the flagship DL slot, and the UE-side test transmitter); the UL program
-PUSCH, PUCCH formats 0, 1 and 2, PRACH and SRS plans (the JAX bench's full
-UL mix, and the conductor's UCI PDUs).
+PUSCH (1-4 layers, ZF or MMSE, UCI on PUSCH), PUCCH formats 0, 1 and 2,
+PRACH and SRS plans (the JAX bench's full UL mix, the conductor's UCI
+PDUs and the two-UE slot).
 Every other plan entry raises NotImplementedError naming the ROADMAP item
 that ports it.
 
@@ -198,14 +199,20 @@ def ul_slot_core(cell: CellConfig, plan, slot_in_subframe: int = 0):
             sb = soft_buffers[i] if soft_buffers is not None else None
             ci = ctx["pusch"][i] if ctx else None
             res = pusch_mod.process(grid, cfg, soft_buffer=sb, dmrs_cinits=ci)
-            out["pusch"].append({
+            entry = {
                 "tb_bits": res.tb_bits, "tb_crc_ok": res.tb_crc_ok,
                 "new_soft": res.new_soft,
                 "snr": res.csi.snr, "ta_s": res.csi.time_alignment_s,
                 "rsrp": res.csi.rsrp, "epre": res.csi.epre,
                 "cfo_hz": res.csi.cfo_hz,
                 "evm": res.evm,
-                "nof_iterations": res.nof_iterations})
+                "nof_iterations": res.nof_iterations}
+            for k in ("harq_ack", "csi1", "csi2"):
+                bits = getattr(res, f"{k}_bits")
+                if bits is not None:
+                    entry[f"{k}_bits"] = bits
+                    entry[f"{k}_valid"] = getattr(res, f"{k}_valid")
+            out["pusch"].append(entry)
         for i, cfg in enumerate(f0_cfgs):
             ncs = ctx["f0"][i] if ctx else None
             out["pucch_f0"].append(pucch_mod.detect_format0(grid, cfg,

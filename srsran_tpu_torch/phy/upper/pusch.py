@@ -1,11 +1,14 @@
 """PUSCH receive processor (TS38.211 §6.3.1, TS38.212 §6.2).
 
-Port of srsran_tpu/phy/upper/pusch.py without UCI, frequency hopping or
+Port of srsran_tpu/phy/upper/pusch.py without frequency hopping or
 transform precoding:
 
-  DM-RS channel estimate (K8) -> [fused per-RE ZF equalize -> max-log
-  demap -> descramble: the K3 kernel] -> EVM -> rate dematch + HARQ
-  combine (K2) -> LDPC decode with CRC early stop (K1) -> CB/TB CRC.
+  DM-RS channel estimate (K8; layers 3-4 on a second CDM group) -> [fused
+  per-RE ZF / MMSE equalize -> max-log demap -> descramble: K3 for ZF
+  with 1-2 layers, K16 otherwise] -> EVM -> [UL-SCH / UCI demultiplex:
+  K17] -> HARQ-ACK, CSI part 1 and part 2 decode (K14 short block, K15
+  polar) -> rate dematch + HARQ combine (K2) -> LDPC decode with CRC early
+  stop (K1) -> CB/TB CRC.
 
 All data REs of the allocation are gathered through one host plan; the
 codeblock axis batches the decode.
@@ -20,13 +23,15 @@ import torch
 
 from ...ran.cyclic_prefix import CyclicPrefix, cp_lengths
 from ...ran.ldpc_params import SegmentParams, segment_tb, select_base_graph
-from ...ran.uci_on_pusch import UciOnPuschConfig
+from ...ran.uci_on_pusch import (UciOnPuschConfig, uci_part2_get_size,
+                                  uci_symbol_budget)
 from ...device import const
 from ...ops import channel_estimate as chest
 from ...ops import evm as evm_ops
-from ...ops import ul_demap
+from ...ops import uci_demux, ul_demap, ulsch_demux
 from ...ops.modulation import BITS_PER_SYMBOL
 from . import sch_decoder
+from . import uci as uci_codec
 from .dmrs import DmrsConfig, _type1_sc_indices, pilots_for_port
 from .pdsch import _cb_rate_match_sizes, data_re_plan_column, plan_key
 
@@ -69,23 +74,52 @@ class PuschResult:
     csi: chest.ChannelEstimate
     evm: torch.Tensor
     nof_iterations: torch.Tensor
+    harq_ack_bits: torch.Tensor | None = None
+    harq_ack_valid: torch.Tensor | None = None
+    csi1_bits: torch.Tensor | None = None
+    csi1_valid: torch.Tensor | None = None
+    csi2_bits: torch.Tensor | None = None
+    csi2_valid: torch.Tensor | None = None
 
 
 def check_supported(cfg: PuschConfig) -> None:
-    """Raise for PDU options this slice does not port."""
-    u = cfg.uci
-    if u.o_ack or u.o_csi1 or u.o_csi2:
-        raise NotImplementedError(
-            "UCI on PUSCH is not ported yet (ROADMAP §1 item 13)")
+    """Raise for PDU options the port does not run yet."""
     if cfg.second_hop_prb is not None:
         raise NotImplementedError(
-            "PUSCH frequency hopping is not ported yet (ROADMAP §1 item 13)")
+            "PUSCH frequency hopping is not ported yet (ROADMAP §1, slice 6)")
     if cfg.transform_precoding:
         raise NotImplementedError(
-            "transform precoding is not ported yet (ROADMAP §1 item 13)")
-    if cfg.equalizer != "zf" or cfg.nof_layers > 2:
-        raise NotImplementedError(
-            "MMSE and 3-4 layer PUSCH are not ported yet (ROADMAP §1, slice 5)")
+            "transform precoding is not ported yet (ROADMAP §1, slice 6)")
+
+
+def demux_plan(cfg: PuschConfig) -> ulsch_demux.DemuxConfig | None:
+    """The §6.2.7 placement plan of this PUSCH (None without UCI)."""
+    u = cfg.uci
+    if u.o_ack == 0 and u.o_csi1 == 0 and u.o_csi2 == 0:
+        return None
+    qm = BITS_PER_SYMBOL[cfg.modulation]
+    syms = range(cfg.first_symbol, cfg.first_symbol + cfg.nof_symbols)
+    re_per_symbol = tuple(
+        0 if l in cfg.dmrs_symbols else cfg.rb_count * 12 for l in syms)
+    m_total = sum(re_per_symbol)
+    # anchor l1: first symbol after the first DM-RS symbol
+    first_dmrs = min(cfg.dmrs_symbols)
+    m_from_l1 = sum(r for l, r in zip(syms, re_per_symbol) if l > first_dmrs)
+    seg = segmentation(cfg)
+    sum_kr = cfg.tbs + seg.tb_crc_bits + seg.nof_codeblocks * seg.cb_crc_bits
+    q_ack = uci_symbol_budget(u.o_ack, u.beta_ack, u.alpha, m_total,
+                              m_from_l1, sum_kr, qm, cfg.nof_layers)
+    q_csi1 = uci_symbol_budget(u.o_csi1, u.beta_csi1, u.alpha, m_total,
+                               m_total, sum_kr, qm, cfg.nof_layers,
+                               already_used=q_ack)
+    q_csi2 = uci_symbol_budget(u.o_csi2, u.beta_csi2, u.alpha, m_total,
+                               m_total, sum_kr, qm, cfg.nof_layers,
+                               already_used=q_ack + q_csi1)
+    return ulsch_demux.DemuxConfig(
+        nof_symbols=cfg.nof_symbols, first_symbol=cfg.first_symbol,
+        re_per_symbol=re_per_symbol, dmrs_symbols=cfg.dmrs_symbols,
+        qm=qm, nof_layers=cfg.nof_layers, q_ack=q_ack, q_csi1=q_csi1,
+        q_csi2=q_csi2, ack_reserved=u.o_ack <= 2)
 
 
 def dmrs_config(cfg: PuschConfig) -> DmrsConfig:
@@ -98,9 +132,24 @@ def dmrs_config(cfg: PuschConfig) -> DmrsConfig:
 
 def estimate_channel(grid: torch.Tensor, cfg: PuschConfig,
                      dmrs_cinits=None) -> chest.ChannelEstimate:
-    """Estimate the [P, L, S, nsc_alloc] channel from DM-RS (1-2 layers on
-    type-1 CDM group 0)."""
+    """Estimate the [P, L, S, nsc_alloc] channel from DM-RS.
+
+    Layers 1-2 ride DM-RS type-1 CDM group 0 (delta 0); layers 3-4 add CDM
+    group 1 (delta 1), estimated apart (K8 twice) and concatenated on the
+    layer axis, the reports averaged over the two groups."""
     check_supported(cfg)
+    if cfg.nof_layers > 2:
+        e0 = _estimate_group(grid, cfg, dmrs_cinits, (0, 1), 0)
+        e1 = _estimate_group(grid, cfg, dmrs_cinits,
+                             tuple(range(2, cfg.nof_layers)), 1)
+        nv = (e0.noise_var + e1.noise_var) / 2
+        rsrp = (e0.rsrp + e1.rsrp) / 2
+        return chest.ChannelEstimate(
+            coeffs=torch.cat([e0.coeffs, e1.coeffs], dim=1),
+            noise_var=nv, rsrp=rsrp, epre=(e0.epre + e1.epre) / 2,
+            snr=rsrp / torch.clamp_min(nv, 1e-12),
+            time_alignment_s=(e0.time_alignment_s + e1.time_alignment_s) / 2,
+            cfo_hz=(e0.cfo_hz + e1.cfo_hz) / 2)
     return _estimate_group(grid, cfg, dmrs_cinits,
                            tuple(range(cfg.nof_layers)), 0)
 
@@ -174,20 +223,46 @@ def codeword_llrs(grid: torch.Tensor, cfg: PuschConfig, dmrs_cinits=None):
     """Front end through descrambling: (codeword LLRs, estimate, EVM)."""
     est = estimate_channel(grid, cfg, dmrs_cinits)
     sym_idx, sc_idx = _plan(cfg, grid.device)
-    c_init = (cfg.rnti << 15) + cfg.n_id
+    c_init = _c_init(cfg)
     llr, x = ul_demap.equalize_demap_descramble(
         grid, est.coeffs, sym_idx, sc_idx, cfg.rb_start * 12,
-        torch.mean(est.noise_var), c_init, cfg.modulation, cfg.nof_layers)
+        torch.mean(est.noise_var), c_init, cfg.modulation, cfg.nof_layers,
+        cfg.equalizer)
     evm_val = evm_ops.evm(x.reshape(-1), llr, cfg.modulation)
     return llr, est, evm_val
+
+
+def _c_init(cfg: PuschConfig) -> int:
+    return (cfg.rnti << 15) + cfg.n_id
+
+
+def decode_uci_fields(llr: torch.Tensor, cfg: PuschConfig) -> tuple:
+    """UL-SCH / UCI demultiplex (K17) and the UCI decodes: (data LLRs, dict
+    of the PuschResult UCI fields).  Without UCI the LLRs pass through."""
+    dcfg = demux_plan(cfg)
+    if dcfg is None:
+        return llr, {}
+    u = cfg.uci
+    qm = BITS_PER_SYMBOL[cfg.modulation]
+    fields = uci_demux.demux(llr, dcfg, u.o_ack, u.o_csi1, _c_init(cfg))
+    out = {}
+    for name, o_bits, field in (("harq_ack", u.o_ack, fields[0]),
+                                ("csi1", u.o_csi1, fields[1]),
+                                ("csi2", u.o_csi2, fields[2])):
+        if o_bits:
+            bits, ok, _ = uci_codec.decode_uci(field, o_bits, qm)
+            out.update({f"{name}_bits": bits, f"{name}_valid": ok})
+    return fields[3], out
 
 
 def decode_from_llrs(llr: torch.Tensor, est, cfg: PuschConfig,
                      soft_buffer: torch.Tensor | None = None,
                      nof_iterations: int = 6,
                      evm_val: torch.Tensor | None = None) -> PuschResult:
-    """Rate dematch + LDPC decode from descrambled codeword LLRs."""
+    """UL-SCH demux + UCI decode + rate dematch + LDPC decode from
+    descrambled codeword LLRs."""
     check_supported(cfg)
+    llr, uci_out = decode_uci_fields(llr, cfg)
     qm = BITS_PER_SYMBOL[cfg.modulation]
     seg = segmentation(cfg)
     e_sizes = _cb_rate_match_sizes(llr.shape[0], seg.nof_codeblocks, qm,
@@ -200,7 +275,7 @@ def decode_from_llrs(llr: torch.Tensor, est, cfg: PuschConfig,
                        csi=est,
                        evm=(torch.mean(llr.abs()) if evm_val is None
                             else evm_val),
-                       nof_iterations=res.nof_iterations)
+                       nof_iterations=res.nof_iterations, **uci_out)
 
 
 def process(grid: torch.Tensor, cfg: PuschConfig,
@@ -211,3 +286,32 @@ def process(grid: torch.Tensor, cfg: PuschConfig,
     return decode_from_llrs(llr, est, cfg, soft_buffer, nof_iterations,
                             evm_val=evm_val)
 
+
+def process_with_part2_feedback(grid: torch.Tensor, cfg: PuschConfig,
+                                part2_descr,
+                                soft_buffer: torch.Tensor | None = None,
+                                nof_iterations: int = 6,
+                                dmrs_cinits=None) -> PuschResult:
+    """PUSCH receive where the CSI part-2 size comes from the decoded part-1
+    payload (the JAX package's process_with_part2_feedback).
+
+    The front end runs once; CSI part 1 is decoded under the plan without
+    part 2 (its placement does not depend on part 2) and its bits are read
+    back to the host -- the one host sync -- to size part 2
+    (``uci_part2_get_size`` over ``part2_descr``); then the full demux and
+    decode run with that size.
+    """
+    u = cfg.uci
+    if u.o_csi1 <= 0:
+        raise ValueError("part-2 feedback needs CSI part 1 on the PUSCH")
+    llr, est, evm_val = codeword_llrs(grid, cfg, dmrs_cinits)
+    cfg1 = dataclasses.replace(cfg, uci=dataclasses.replace(u, o_csi2=0))
+    _, c1, _, _ = uci_demux.demux(llr, demux_plan(cfg1), u.o_ack, u.o_csi1,
+                                  _c_init(cfg))
+    csi1_bits, csi1_ok, _ = uci_codec.decode_uci(
+        c1, u.o_csi1, BITS_PER_SYMBOL[cfg.modulation])
+    o_csi2 = uci_part2_get_size(csi1_bits.cpu().numpy(), part2_descr)
+    cfg2 = dataclasses.replace(cfg, uci=dataclasses.replace(u, o_csi2=o_csi2))
+    res = decode_from_llrs(llr, est, cfg2, soft_buffer, nof_iterations,
+                           evm_val=evm_val)
+    return dataclasses.replace(res, csi1_bits=csi1_bits, csi1_valid=csi1_ok)

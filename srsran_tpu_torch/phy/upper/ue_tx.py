@@ -1,0 +1,96 @@
+"""UE-side PUSCH transmit with UCI multiplexing (TS38.212 §6.2.7).
+
+Port of srsran_tpu/phy/upper/ue_tx.py::pusch_transmit, the UE emulation
+that closes the loop with the receive chain (phy/upper/pusch.py): the data
+LDPC-coded and rate-matched around the UCI fields, HARQ-ACK and CSI encoded
+into their §6.2.7 positions (the ops/ulsch_demux.py plan), scrambling that
+honours the UCI placeholders, and type-1 DM-RS on port 0.  Single layer,
+as in the JAX package.  Plain PyTorch and numpy on the caller's device
+(the encoder runs K5 on a CUDA device, as the DL chain does).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ...ops import ldpc_encode, ldpc_rate_match, ulsch_demux
+from ...ops.gold import gold_sequence_np
+from ...ops.modulation import BITS_PER_SYMBOL, modulate
+from . import pusch as pusch_mod
+from . import uci as uci_codec
+from .dmrs import DmrsConfig, map_to_grid
+from .pdsch import (PdschConfig, _cb_rate_match_sizes, _data_re_plan,
+                    encode_transport_block)
+
+
+def _np(bits: torch.Tensor) -> np.ndarray:
+    return bits.cpu().numpy().astype(np.int8)
+
+
+def pusch_transmit(cfg: "pusch_mod.PuschConfig", payload, ack=None,
+                   csi1=None, csi2=None, nof_sc: int | None = None, *,
+                   device) -> torch.Tensor:
+    """The UE's transmitted grid complex64 [1, 14, nof_sc] on ``device`` for
+    one PUSCH PDU.
+
+    payload: the TB bits; ack / csi1 / csi2: raw UCI bit arrays matching
+    cfg.uci's o_* sizes (None when the PDU carries none).  The data codeword
+    is rate-matched to the data field only, exactly inverse to the gNB
+    demultiplexer.
+    """
+    qm = BITS_PER_SYMBOL[cfg.modulation]
+    nof_sc = nof_sc or (cfg.rb_start + cfg.rb_count) * 12
+    dcfg = pusch_mod.demux_plan(cfg)
+    tb = torch.as_tensor(np.asarray(payload).astype(np.int8)).to(device)
+
+    if dcfg is None:
+        tx_cfg = PdschConfig(
+            rnti=cfg.rnti, rb_start=cfg.rb_start, rb_count=cfg.rb_count,
+            first_symbol=cfg.first_symbol, nof_symbols=cfg.nof_symbols,
+            modulation=cfg.modulation,
+            target_code_rate=cfg.target_code_rate, tbs=cfg.tbs,
+            nof_layers=cfg.nof_layers, rv=cfg.rv, n_id=cfg.n_id,
+            dmrs_symbols=cfg.dmrs_symbols, slot_in_frame=cfg.slot_in_frame)
+        cw = _np(encode_transport_block(tb, tx_cfg)[0])
+    else:
+        f = ulsch_demux.field_positions(dcfg)
+        bpre = qm * cfg.nof_layers
+        seg = pusch_mod.segmentation(cfg)
+        cbs = ldpc_encode.dlsch_encode(tb, seg.base_graph)
+        e_sizes = _cb_rate_match_sizes(len(f["data"]) * bpre,
+                                       seg.nof_codeblocks, qm, cfg.nof_layers)
+        data_coded = _np(ldpc_rate_match.rate_match_batch(
+            cbs, e_sizes, cfg.rv, qm, seg.base_graph, seg.lifting_size,
+            seg.cb_info_bits, seg.full_block_bits))
+
+        def coded(bits, n_re):
+            if bits is None:
+                return None
+            t = torch.as_tensor(np.asarray(bits).astype(np.int8)).to(device)
+            return _np(uci_codec.encode_uci(t, n_re * bpre, qm))
+
+        ack_pos = f["ack_punct"] if len(f["ack_punct"]) else f["ack"]
+        cw = ulsch_demux.mux_codeword(
+            dcfg, data_coded, coded(ack, len(ack_pos)),
+            coded(csi1, len(f["csi1"])), coded(csi2, len(f["csi2"])))
+
+    seq = gold_sequence_np((cfg.rnti << 15) + cfg.n_id, len(cw))
+    if dcfg is not None:
+        cls = ulsch_demux.placeholder_bit_classes(
+            dcfg, cfg.uci.o_ack, cfg.uci.o_csi1)
+        scr = ulsch_demux.scramble_with_placeholders(cw, seq, cls)
+    else:
+        scr = (cw.astype(np.int8) ^ seq).astype(np.int8)
+    syms = modulate(torch.as_tensor(scr[None]).to(device), cfg.modulation)[0]
+    grid = torch.zeros((1, 14, nof_sc), dtype=torch.complex64, device=device)
+    plan = _data_re_plan(cfg.rb_start, cfg.rb_count, cfg.first_symbol,
+                         cfg.nof_symbols, cfg.dmrs_symbols, 2)
+    grid[0, torch.as_tensor(plan[:, 0].astype(np.int64)).to(device),
+         torch.as_tensor(plan[:, 1].astype(np.int64)).to(device)] = syms
+    dmrs_cfg = DmrsConfig(rb_start=cfg.rb_start, rb_count=cfg.rb_count,
+                          symbols=cfg.dmrs_symbols, ports=(0,),
+                          scrambling_id=cfg.dmrs_scrambling_id,
+                          n_scid=cfg.n_scid,
+                          slot_in_frame=cfg.slot_in_frame)
+    return map_to_grid(grid, dmrs_cfg, np.eye(1, dtype=np.complex64))

@@ -1,15 +1,17 @@
 """Where a flagship slot's time goes on one CUDA GPU.
 
-    python3 -m srsran_tpu_torch.profile_slot [--direction ul|dl|conductor]
-                                            [--slots 8] [--calls 10]
+    python3 -m srsran_tpu_torch.profile_slot
+        [--direction ul|dl|conductor|ul_mu] [--slots 8] [--calls 10]
                                             [--out chiprun_out/profile]
 
 Drives the flagship UL slot (the full mix: PUSCH, PUCCH F1, PRACH, SRS),
-DL slot (SSB in the first slot, PDCCH, 4-layer PDSCH, OFDM) or conductor
+DL slot (SSB in the first slot, PDCCH, 4-layer PDSCH, OFDM), conductor
 slot (DL + UL with the PUCCH F0/F2 UCI PDUs through
 ``SlotConductor.process_slot``, payloads staged beforehand, results
-resolved after the measurement) of :mod:`srsran_tpu_torch.flagship` and
-reports:
+resolved after the measurement) or two-UE UL slot (``ul_mu``: a 4-layer
+MMSE PUSCH and a 1-layer PUSCH with HARQ-ACK and CSI parts 1-2 beside the
+PUCCH F1, PRACH and SRS, through ``ul_slot_fn``; every slot checked after
+the measurement) of :mod:`srsran_tpu_torch.flagship` and reports:
 
 * the slot's wall time three ways: CUDA events around each call (as
   ``chip_smoke.py`` times it), the host clock over back-to-back calls with
@@ -30,8 +32,8 @@ reports:
   each.
 
 The slot's trace and a JSON summary go to ``--out`` (``slot_trace.json``
-and ``summary.json`` for the UL, ``dl_`` or ``conductor_`` before both
-names for the others);
+and ``summary.json`` for the UL, ``dl_``, ``conductor_`` or ``ul_mu_``
+before both names for the others);
 the summary is also printed as the last line.
 """
 
@@ -61,7 +63,8 @@ HAND_KERNELS = ("ldpc_sweep_kernel", "ldpc_check_kernel", "rate_dematch_kernel",
                 "chest_stats_kernel", "chest_ta_kernel", "prach_corr_kernel",
                 "prach_power_kernel", "prach_detect_kernel", "pucch_f1_kernel",
                 "srs_noise_kernel", "pucch_f0_kernel", "pucch_f2_kernel",
-                "short_block_kernel", "polar_sc_kernel")
+                "short_block_kernel", "polar_sc_kernel",
+                "pusch_demap_lxn_kernel", "ulsch_demux_kernel")
 
 
 def category(name: str, cat: str) -> str:
@@ -269,9 +272,36 @@ def conductor_scenario(n: int, seed: int, dev, gen) -> tuple:
     return [lambda i=i: call(i) for i in range(n)], cases, resolve
 
 
+def ul_mu_scenario(n: int, seed: int, dev, gen) -> tuple:
+    """(one zero-argument call per two-UE UL slot, the cases of the kernels
+    new on its path (K16 at both UEs, K17, K8 on CDM group 1), a function
+    that checks every slot's last result and returns their count)."""
+    slots = flagship.make_mu_slots(n, np.random.default_rng(seed), gen, dev)
+    softs = flagship.mu_soft_buffers(dev)
+    prach_in = flagship.prach_fd(dev, seed)
+    outs = {}
+
+    def call(i):
+        s = slots[i]
+        outs[i] = flagship.mu_program(s["uci"]["ri"])(s["rx"], prach_in,
+                                                      softs, s["ctx"])
+
+    cases = flagship.mu_kernel_cases(slots[0], gen)
+    for extra in ("pusch_demap_lxn_3l_zf", "pusch_demap_lxn_2l_mmse",
+                  "ulsch_demux_punctured"):
+        cases.pop(extra)
+
+    def check() -> int:
+        for i, out in outs.items():
+            flagship.check_mu_slot(out, slots[i], f"two-UE slot {i}")
+        return len(outs)
+
+    return [lambda i=i: call(i) for i in range(n)], cases, check
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--direction", choices=("ul", "dl", "conductor"),
+    ap.add_argument("--direction", choices=("ul", "dl", "conductor", "ul_mu"),
                     default="ul")
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--calls", type=int, default=10)
@@ -291,6 +321,10 @@ def main(argv=None) -> dict:
     elif args.direction == "dl":
         calls, cases = dl_scenario(args.slots, args.seed, dev)
         prefix = "dl_"
+    elif args.direction == "ul_mu":
+        calls, cases, resolve = ul_mu_scenario(args.slots, args.seed, dev,
+                                               gen)
+        prefix = "ul_mu_"
     else:
         calls, cases, resolve = conductor_scenario(args.slots, args.seed, dev,
                                                    gen)
@@ -302,7 +336,7 @@ def main(argv=None) -> dict:
                "wall": wall_times(calls),
                "slot": slot_profile(calls, out / f"{prefix}slot_trace.json"),
                "kernels": kernel_profiles(cases, args.calls, out)}
-    if args.direction == "conductor":
+    if args.direction in ("conductor", "ul_mu"):
         summary["slots_resolved_and_checked"] = resolve()
     (out / f"{prefix}summary.json").write_text(json.dumps(summary, indent=1))
     print(json.dumps(summary))

@@ -225,6 +225,27 @@ def test_conductor_without_device_needs_cuda():
             t_cond.SlotConductor(T_CELL)
 
 
+UL_KINDS = ("pusch", "pucch_f0", "pucch_f1", "pucch_f2", "pucch_f3",
+            "prach", "srs")
+
+
+def test_empty_ul_results_lie_on_the_callers_device():
+    """pack_ul_results makes a slot without results on the device it is
+    given (here the meta device, which nothing falls back to) and never on
+    the CPU by default; an empty UL request through a CPU conductor gives
+    empty results on the CPU."""
+    scalars, payload = t_cond.pack_ul_results({k: [] for k in UL_KINDS},
+                                              torch.device("meta"))
+    assert scalars.device.type == payload.device.type == "meta"
+    assert scalars.numel() == payload.numel() == 0
+    c = t_cond.SlotConductor(T_CELL, device="cpu")
+    rx = torch.zeros((2, CELL.slot_samples(0)), dtype=torch.complex64)
+    pend = c.process_ul(t_msgs.UlTtiRequest(slot=t_msgs.SlotPoint(1, 4)), rx)
+    assert pend.scalars.device.type == pend.payload.device.type == "cpu"
+    res = pend.resolve()
+    assert not (res.crc or res.rx_data or res.uci or res.rach)
+
+
 def test_unported_modes_raise():
     with pytest.raises(NotImplementedError, match="item 16"):
         t_cond.SlotConductor(T_CELL, device="cpu", pcap=object())

@@ -122,12 +122,17 @@ def test_equalize_zf(nof_layers, ports):
 
 
 def test_equalize_unported_raises():
-    y, h, nv = torch.zeros(4, 4), torch.zeros(4, 4, 3), torch.zeros(4)
-    with pytest.raises(NotImplementedError):
-        t_eq.equalize(y.to(torch.complex64), h.to(torch.complex64), nv, 3)
-    with pytest.raises(NotImplementedError):
-        t_eq.equalize(y.to(torch.complex64), h[..., :1].to(torch.complex64),
-                      nv, 1, "mmse")
+    """Five layers or more raise, as in the JAX package (1-4 layers with ZF
+    and MMSE are ported)."""
+    y, h, nv = torch.zeros(4, 4), torch.zeros(4, 4, 5), torch.zeros(4)
+    for method in ("zf", "mmse"):
+        with pytest.raises(NotImplementedError):
+            t_eq.equalize(y.to(torch.complex64), h.to(torch.complex64), nv,
+                          5, method)
+        with pytest.raises(NotImplementedError):
+            j_eq.equalize(jnp.zeros((4, 4), jnp.complex64),
+                          jnp.zeros((4, 4, 5), jnp.complex64),
+                          jnp.zeros(4), 5, method)
 
 
 DMRS_KW = dict(rb_start=2, rb_count=20, symbols=(2, 7, 11), ports=(0, 1),
@@ -240,9 +245,12 @@ def test_pusch_process():
 
 @pytest.mark.parametrize("change", [
     dict(second_hop_prb=4), dict(transform_precoding=True),
-    dict(equalizer="mmse"), dict(nof_layers=3)])
+    dict(equalizer="mmse", second_hop_prb=4),
+    dict(nof_layers=3, transform_precoding=True)])
 def test_pusch_unported_options_raise(change):
+    """Frequency hopping and transform precoding raise, with MMSE and 3-4
+    layers (ported) or without."""
     import dataclasses
     cfg = dataclasses.replace(convert.config(J_PUSCH), **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*slice 6"):
         t_pusch.check_supported(cfg)

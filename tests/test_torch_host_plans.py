@@ -30,10 +30,13 @@ from srsran_tpu.ops import modulation as j_mod
 from srsran_tpu.ops import ofdm as j_ofdm
 from srsran_tpu.ops import polar as j_polar
 from srsran_tpu.ops import short_block as j_sb
+from srsran_tpu.ops import ulsch_demux as j_dmx
 from srsran_tpu.phy.upper import dmrs as j_dmrs
 from srsran_tpu.phy.upper import pdcch as j_pdcch
 from srsran_tpu.phy.upper import pdsch as j_pdsch
 from srsran_tpu.phy.upper import pucch as j_pucch
+from srsran_tpu.phy.upper import pusch as j_pusch
+from srsran_tpu.phy.upper import ue_tx as j_ue_tx
 from srsran_tpu.phy.upper import uci as j_uci_codec
 from srsran_tpu.phy.upper import ssb as j_ssb
 from srsran_tpu.ran import cyclic_prefix as j_cp
@@ -58,10 +61,13 @@ from srsran_tpu_torch import convert
 from srsran_tpu_torch.ops import ofdm as t_ofdm
 from srsran_tpu_torch.ops import polar as t_polar
 from srsran_tpu_torch.ops import short_block as t_sb
+from srsran_tpu_torch.ops import ulsch_demux as t_dmx
 from srsran_tpu_torch.phy.upper import dmrs as t_dmrs
 from srsran_tpu_torch.phy.upper import pdcch as t_pdcch
 from srsran_tpu_torch.phy.upper import pdsch as t_pdsch
 from srsran_tpu_torch.phy.upper import pucch as t_pucch
+from srsran_tpu_torch.phy.upper import pusch as t_pusch
+from srsran_tpu_torch.phy.upper import ue_tx as t_ue_tx
 from srsran_tpu_torch.phy.upper import uci as t_uci_codec
 from srsran_tpu_torch.phy.upper import ssb as t_ssb
 from srsran_tpu_torch.ran import cyclic_prefix as t_cp
@@ -638,6 +644,82 @@ def test_data_tables_are_copies():
             (REPO / "srsran_tpu" / "data" / name).read_bytes(), name
 
 
+# ------------------------------------------- UL-SCH / UCI demux plans
+
+DEMUX_GRID = [(layers, o_ack, csi, dmrs)
+              for layers in (1, 2, 3, 4) for o_ack in (0, 1, 2, 4, 11)
+              for csi in ((0, 0), (6, 0), (6, 20))
+              for dmrs in ((2,), (2, 11), (2, 7, 11))]
+
+
+def _uci_pusch_pair(mod, layers, o_ack, o_csi1, o_csi2, dmrs, rb_count=4):
+    jc = j_pusch.PuschConfig(
+        rnti=0x31, rb_start=0, rb_count=rb_count, first_symbol=0,
+        nof_symbols=14, modulation=mod, target_code_rate=0.5, tbs=1000,
+        nof_layers=layers, n_id=3, dmrs_symbols=dmrs,
+        uci=j_uci.UciOnPuschConfig(o_ack=o_ack, o_csi1=o_csi1,
+                                   o_csi2=o_csi2))
+    return jc, convert.config(jc)
+
+
+@pytest.mark.parametrize("mod", ["qpsk", "qam16", "qam64", "qam256"])
+def test_ulsch_demux_copy(mod):
+    """ops/ulsch_demux.py and pusch.demux_plan against the originals over
+    layers 1-4, O_ack 0/1/2/4/11, CSI1 and CSI2 on and off and 1-3 DM-RS
+    symbols: the plan, the class map, the field positions, the placeholder
+    classes, the UE's multiplexer and its placeholder scrambling."""
+    rng = np.random.default_rng(len(mod))
+    for layers, o_ack, (o_csi1, o_csi2), dmrs in DEMUX_GRID:
+        jc, tc = _uci_pusch_pair(mod, layers, o_ack, o_csi1, o_csi2, dmrs)
+        jd, td = j_pusch.demux_plan(jc), t_pusch.demux_plan(tc)
+        if jd is None:
+            assert td is None and not (o_ack or o_csi1)
+            continue
+        assert type(td) is t_dmx.DemuxConfig
+        assert dataclasses.asdict(td) == dataclasses.asdict(jd)
+        np.testing.assert_array_equal(t_dmx.build_class_map(td),
+                                      j_dmx.build_class_map(jd))
+        jf, tf = j_dmx.field_positions(jd), t_dmx.field_positions(td)
+        assert sorted(jf) == sorted(tf)
+        for name in jf:
+            np.testing.assert_array_equal(tf[name], jf[name], err_msg=name)
+        cls = j_dmx.placeholder_bit_classes(jd, o_ack, o_csi1)
+        np.testing.assert_array_equal(
+            t_dmx.placeholder_bit_classes(td, o_ack, o_csi1), cls)
+        bpre = jd.qm * layers
+        ack_pos = jf["ack_punct"] if len(jf["ack_punct"]) else jf["ack"]
+        coded = [rng.integers(0, 2, len(p) * bpre).astype(np.int8)
+                 for p in (jf["data"], ack_pos, jf["csi1"], jf["csi2"])]
+        cw = j_dmx.mux_codeword(jd, *coded)
+        np.testing.assert_array_equal(t_dmx.mux_codeword(td, *coded), cw)
+        seq = rng.integers(0, 2, cw.shape[0]).astype(np.int8)
+        np.testing.assert_array_equal(
+            t_dmx.scramble_with_placeholders(cw, seq, cls),
+            j_dmx.scramble_with_placeholders(cw, seq, cls))
+
+
+@pytest.mark.parametrize("mod,o_ack,o_csi1,o_csi2", [
+    ("qam16", 0, 0, 0), ("qam16", 4, 7, 0), ("qpsk", 1, 0, 0),
+    ("qam64", 2, 2, 0), ("qam16", 4, 8, 12), ("qam16", 0, 4, 7)])
+def test_pusch_transmit_copy(mod, o_ack, o_csi1, o_csi2):
+    """ue_tx.pusch_transmit's grid equals the JAX UE's: the data rate-matched
+    around the UCI fields, the UCI codes, the placeholder scrambling and the
+    DM-RS (without UCI, the DL chain's codeword)."""
+    jc, tc = _uci_pusch_pair(mod, 1, o_ack, o_csi1, o_csi2, (2, 7, 11),
+                             rb_count=12)
+    jc = dataclasses.replace(jc, rb_start=2, slot_in_frame=5, tbs=2152)
+    tc = convert.config(jc)
+    rng = np.random.default_rng(o_ack + 3 * o_csi1 + o_csi2)
+    payload = rng.integers(0, 2, jc.tbs).astype(np.int8)
+    bits = [rng.integers(0, 2, n).astype(np.int8) if n else None
+            for n in (o_ack, o_csi1, o_csi2)]
+    want = j_ue_tx.pusch_transmit(jc, payload, *bits, nof_sc=200)
+    got = t_ue_tx.pusch_transmit(tc, payload, *bits, nof_sc=200,
+                                 device="cpu")
+    assert got.dtype == torch.complex64 and got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None            # any `import jax` now raises
@@ -676,7 +758,11 @@ def test_port_imports_without_jax():
             "srsran_tpu_torch.phy.upper.pucch",
             "srsran_tpu_torch.phy.upper.srs",
             "srsran_tpu_torch.ran.prach_params",
-            "srsran_tpu_torch.ops.low_papr"} <= names
+            "srsran_tpu_torch.ops.low_papr",
+            "srsran_tpu_torch.ops.ulsch_demux",
+            "srsran_tpu_torch.ops.uci_demux",
+            "srsran_tpu_torch.ops.ul_demap",
+            "srsran_tpu_torch.phy.upper.ue_tx"} <= names
 
 
 def _import_lines(path: Path):

@@ -3,7 +3,10 @@
 Each case builds the kernel library, runs a kernel wrapper on CUDA tensors
 and its twin on the same inputs, at the small PUSCH's and PDSCH's shapes
 (the UL-mix kernels K8-K11 at the flagship's and at an edge case each,
-the UCI kernels K12-K15 at the conductor scenario's shapes and beyond).
+the UCI kernels K12-K15 at the conductor scenario's shapes and beyond,
+K16 at 1-4 layers with ZF and MMSE, K17 over the UCI-on-PUSCH
+configurations, K8 on CDM group 1, and the conductor's empty results on
+the card).
 On a machine without a GPU every case skips (the twins are covered by the
 parity tests against the JAX package).  ``python3 chip_smoke.py`` runs the same checks at
 the flagship shapes.
@@ -415,3 +418,135 @@ def test_polar_decode_kernel(cuda, k, e, n_pc, crc_name):
     bits_ref, ok_ref = polar.decode_ref(llr, code, crc_name)
     assert torch.equal(bits, bits_ref)
     assert torch.equal(ok, ok_ref)
+
+
+# The two-UE UL slot's kernels: K16 L x N equalize-demap, K17 UL-SCH / UCI
+# demultiplex, K8 on DM-RS CDM group 1.
+
+def _lxn_hold(out, ref):
+    """K16 against its twin (an LDL^H solve against the twin's LU inverse):
+    x within 1e-4 of max|x|, the LLRs within 1e-3 of max|LLR|, and equal
+    hard decisions wherever |LLR| is above that."""
+    (llr, x), (llr_ref, x_ref) = out, ref
+    big = llr_ref.abs() > 1e-3 * float(llr_ref.abs().max())
+    assert torch.equal(llr[big] > 0, llr_ref[big] > 0)
+    _close(x, x_ref, 1e-4)
+    _close(llr, llr_ref, 1e-3)
+
+
+@pytest.mark.parametrize("modulation", ["qpsk", "qam256"])
+@pytest.mark.parametrize("method", ["zf", "mmse"])
+@pytest.mark.parametrize("layers", [1, 2, 3, 4])
+def test_pusch_demap_lxn_kernel(cuda, layers, method, modulation):
+    """K16 on a well-conditioned channel (I + 0.25 (N + jN) per subcarrier)
+    at 24 RB, 4 ports: every layer count, both methods, the smallest and
+    the largest constellation; each call adds one to K16's launch count."""
+    rng = np.random.default_rng(layers * 10 + len(method) + len(modulation))
+    h = np.eye(4, layers)[:, :, None, None] + 0.25 * _cgauss(
+        rng, (4, layers, 1, 288)).numpy()
+    coeffs = torch.as_tensor(h.astype(np.complex64)).to(cuda)
+    grid = _cgauss(rng, (4, 14, 288)).to(cuda)
+    sym, sc = pusch._plan(PUSCH, cuda)
+    nv = torch.tensor(0.05, device=cuda)
+    args = (grid, coeffs, sym, sc, 0, nv, 12345, modulation, layers, method)
+    before = ul_demap.KERNEL_LXN.launches
+    out = ul_demap.equalize_demap_descramble_lxn(*args)
+    assert ul_demap.KERNEL_LXN.launches == before + 1
+    _lxn_hold(out, ul_demap.equalize_demap_descramble_ref(*args))
+
+
+@pytest.mark.parametrize("layers,method,kernel", [
+    (1, "zf", "KERNEL"), (2, "zf", "KERNEL"), (1, "mmse", "KERNEL_LXN"),
+    (2, "mmse", "KERNEL_LXN"), (3, "zf", "KERNEL_LXN"),
+    (4, "mmse", "KERNEL_LXN")])
+def test_pusch_demap_routes(cuda, layers, method, kernel):
+    """equalize_demap_descramble launches K3 for ZF with 1-2 layers and K16
+    for the rest, as the JAX equalize dispatches."""
+    rng = np.random.default_rng(layers)
+    grid = _cgauss(rng, (4, 14, 288)).to(cuda)
+    coeffs = (torch.as_tensor(np.eye(4, layers)[:, :, None, None]
+                              .astype(np.complex64))
+              + 0.25 * _cgauss(rng, (4, layers, 1, 288))).to(cuda)
+    sym, sc = pusch._plan(PUSCH, cuda)
+    nv = torch.tensor(0.05, device=cuda)
+    args = (grid, coeffs, sym, sc, 0, nv, 7, "qam64", layers, method)
+    counter = getattr(ul_demap, kernel)
+    before = counter.launches
+    out = ul_demap.equalize_demap_descramble(*args)
+    assert counter.launches == before + 1
+    _lxn_hold(out, ul_demap.equalize_demap_descramble_ref(*args))
+
+
+def _uci_pusch(modulation, rate, tbs, o_ack, o_csi1, o_csi2=0):
+    from srsran_tpu_torch.ran.uci_on_pusch import UciOnPuschConfig
+    return pusch.PuschConfig(
+        rnti=0x31, rb_start=0, rb_count=12, first_symbol=0, nof_symbols=14,
+        modulation=modulation, target_code_rate=rate, tbs=tbs, nof_layers=1,
+        n_id=3, dmrs_symbols=(2, 7, 11),
+        uci=UciOnPuschConfig(o_ack=o_ack, o_csi1=o_csi1, o_csi2=o_csi2))
+
+
+# tests/test_uci_on_pusch.py's UCI configurations, and UE B of the two-UE
+# slot at its full width (64 RB, ACK 4, CSI1 8, CSI2 24).
+DEMUX_CASES = {
+    "rm_ack4": _uci_pusch("qam16", 0.4, 2152, 4, 0),
+    "rm_ack4_csi7": _uci_pusch("qam16", 0.4, 2152, 4, 7),
+    "rm_ack11_csi4": _uci_pusch("qam16", 0.4, 2152, 11, 4),
+    "punct_ack1_qpsk": _uci_pusch("qpsk", 0.3, 1096, 1, 0),
+    "placeholder_ack1_qam16": _uci_pusch("qam16", 0.4, 2152, 1, 0),
+    "placeholder_ack2_csi2_qam64": _uci_pusch("qam64", 0.4, 3240, 2, 2),
+    "part2": _uci_pusch("qam16", 0.4, 2152, 0, 4, 7),
+    "ue_b": flagship.MU.ue_b(1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DEMUX_CASES))
+def test_ulsch_demux_kernel(cuda, case):
+    """K17: the four fields bit-exact against the twin's gathers."""
+    from srsran_tpu_torch.ops import uci_demux
+    cfg = DEMUX_CASES[case]
+    dcfg = pusch.demux_plan(cfg)
+    g = sum(dcfg.re_per_symbol) * dcfg.qm * dcfg.nof_layers
+    llr = torch.as_tensor(np.random.default_rng(len(case)).standard_normal(
+        g).astype(np.float32)).to(cuda)
+    args = (llr, dcfg, cfg.uci.o_ack, cfg.uci.o_csi1,
+            (cfg.rnti << 15) + cfg.n_id)
+    before = uci_demux.KERNEL.launches
+    out = uci_demux.demux(*args)
+    assert uci_demux.KERNEL.launches == before + 1
+    ref = uci_demux.demux_ref(*args)
+    assert [o.numel() for o in out] == [r.numel() for r in ref]
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+
+
+def test_channel_estimate_kernel_cdm_group1(cuda):
+    """K8 on the second CDM group (delta 1, ports 2-3 with fd-OCC) of a
+    4-layer PUSCH at 24 RB, read from the grid as pusch.estimate_channel
+    does."""
+    rng = np.random.default_rng(41)
+    cfg = dataclasses.replace(PUSCH, nof_layers=4, slot_in_frame=3)
+    grid = _cgauss(rng, (4, 14, 288)).to(cuda)
+    args, kw = pusch.estimate_args(grid, cfg, None, (2, 3), 1)
+    out = chest.estimate_from_grid(*args, **kw)
+    ref = chest.estimate_from_grid_ref(*args, **kw)
+    assert torch.equal(out.time_alignment_s.cpu(), ref.time_alignment_s.cpu())
+    assert abs(float(out.cfo_hz) - float(ref.cfo_hz)) < 1e-2
+    for key in ("coeffs", "noise_var", "rsrp", "epre", "snr"):
+        _close(getattr(out, key), getattr(ref, key), 1e-4)
+
+
+def test_empty_ul_results_lie_on_the_card(cuda):
+    """An empty UL request through the conductor on the card: the empty
+    packed results lie on cuda (pack_ul_results takes the conductor's
+    device)."""
+    from srsran_tpu_torch.fapi import conductor, messages
+    from srsran_tpu_torch.phy.slot_programs import CellConfig
+    cell = CellConfig(nof_ports=2, nof_rb=24, dft_size=512, numerology=1)
+    c = conductor.SlotConductor(cell)
+    rx = torch.zeros((2, cell.slot_samples(0)), dtype=torch.complex64,
+                     device=cuda)
+    pend = c.process_ul(messages.UlTtiRequest(
+        slot=messages.SlotPoint(1, 4)), rx)
+    assert pend.scalars.device.type == pend.payload.device.type == "cuda"
+    assert not pend.resolve().crc

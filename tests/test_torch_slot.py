@@ -173,16 +173,17 @@ def test_ul_slot_with_c_inits_matches_values():
 
 @pytest.mark.parametrize("plan", [
     ((dataclasses.replace(J_PUSCH, second_hop_prb=5),), (), (), (), ()),
-    ((dataclasses.replace(J_PUSCH, uci=UciOnPuschConfig(o_ack=2)),),
-     (), (), (), ()),
+    ((dataclasses.replace(J_PUSCH, uci=UciOnPuschConfig(o_ack=2),
+                          second_hop_prb=5),), (), (), (), ()),
     ((dataclasses.replace(J_PUSCH, transform_precoding=True),),
      (), (), (), ()),
-    ((dataclasses.replace(J_PUSCH, nof_layers=3),), (), (), (), ()),
+    ((dataclasses.replace(J_PUSCH, nof_layers=3, transform_precoding=True),),
+     (), (), (), ()),
     ((J_PUSCH,), (), (), (), (), (), (object(),))])
 def test_ul_plan_entries_not_ported_raise(plan):
-    """PUSCH frequency hopping, PUCCH F3/F4, UCI on PUSCH, transform
-    precoding and 3-layer PUSCH raise (PUCCH F0, F1 and F2, PRACH and SRS
-    are ported)."""
+    """PUSCH frequency hopping (with UCI on PUSCH too), transform
+    precoding (with 3 layers too) and PUCCH F3/F4 raise (UCI on PUSCH,
+    3-4 layers, PUCCH F0, F1 and F2, PRACH and SRS are ported)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_slots.ul_slot_fn(convert.config(J_CELL), convert.plan(plan))
 
