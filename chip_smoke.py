@@ -71,7 +71,28 @@ the JAX package.  It builds the hand kernels from ``srsran_tpu_torch/csrc``
    beside the flagship DL through ``SlotConductor.process_slot`` (each
    slot's CRCs, payloads and UCI.indication from the PUSCH as sent); and
    ``pusch.process_with_part2_feedback`` on UE B once per RI, the part-2
-   size unknown to the receiver.
+   size unknown to the receiver;
+6. graph: the conductor slot of phase 4 for each of its 10 slot phases
+   through ``process_slot``, which runs the phase as one captured CUDA
+   graph, held against the phase's eager slot program on the same inputs
+   (tx samples within 1e-4, ``SlotResults`` equal: bits and CRC flags
+   exact, floats within 1e-3), the memory each capture reserved, one
+   phase's graph replayed on 3 slots of differing payloads and samples
+   (each against the eager program and its payload), one replay with the
+   DL branch on its own stream against DL after UL in one branch, and us
+   per slot on the host clock and by CUDA events, graphed and eager, in
+   the same run;
+7. batch: the slot-batch mode, ``process_slot_batch`` at B = 4 on phases
+   1-4 (SSB-free, bench.py:523-549) with each slot's own payload, samples
+   and PRACH capture (slot 2's noise alone): 4/4 TBs with exact payloads,
+   every indication as sent, each slot's packed results equal to
+   ``process_slot``'s for the same slot (bits exact, scalars within 2e-4),
+   PRACH detected per slot, K1-K8 launched once per batch; us per slot;
+   then the batched K1-K8 against their twins at B = 4 (timed, with their
+   bounds) and at B = 1 against the unbatched kernels;
+8. multi_cell: 4 cells of the flagship DL and UL plans through
+   ``parallel.mesh.multi_cell_dl_fn`` / ``multi_cell_ul_fn``, each cell's
+   samples and UL results equal to its single-cell program's.
 
 It prints the card's name and power limit, one JSON line of per-kernel
 results, and as its last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -92,12 +113,17 @@ import torch
 
 from srsran_tpu_torch import convert, flagship, kernels
 from srsran_tpu_torch.device import card_line, require_cuda
+from srsran_tpu_torch.fapi import messages
 from srsran_tpu_torch.fapi.conductor import SlotConductor
+from srsran_tpu_torch.graphs import SlotGraph
 from srsran_tpu_torch.kernels import _build
+from srsran_tpu_torch.ops import channel_estimate as chest
 from srsran_tpu_torch.ops import ofdm
 from srsran_tpu_torch.ops.crc import crc_check
 from srsran_tpu_torch.ops.ldpc_graph import get_graph
 from srsran_tpu_torch.ops.modulation import BITS_PER_SYMBOL
+from srsran_tpu_torch.parallel.mesh import multi_cell_dl_fn, multi_cell_ul_fn
+from srsran_tpu_torch.phy.slot_programs import ul_slot_fn
 from srsran_tpu_torch.phy.upper import prach, pucch, pusch
 
 SEED = 0
@@ -139,6 +165,16 @@ HARQ_ID = 3
 # tensor cores.  A card set below 700 W runs below them.
 MEM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# The kernels with a slot axis (K1-K8); each has a "<name>_batch" row.
+BATCHED = ("ofdm_demodulate", "pusch_demap", "rate_dematch", "ldpc_decode",
+           "channel_estimate", "dlsch_encode", "pdsch_map", "ofdm_modulate")
+BATCH_KERNELS = tuple(f"{n}_batch" for n in BATCHED)
+# The kernels a batch of the conductor scenario launches once per slot.
+PER_SLOT_IN_BATCH = ("prach_detect", "pucch_f1_detect", "srs_estimate",
+                     "pucch_f0_detect", "pucch_f2_demap", "short_block_detect",
+                     "polar_decode")
+BATCH_TIMING_RUNS = 5
+GRAPH_PASSES = 2
 
 
 def median_ms(fn, runs: int = TIMING_RUNS) -> float:
@@ -567,7 +603,7 @@ def ul_phases(dev, gen, rng, card) -> tuple:
     print("UL slot (full result dict) vs plain twins on the CPU: ok",
           flush=True)
     f1_loopback(dev)
-    return results, launches
+    return results, launches, slots
 
 
 def _to_cpu(obj):
@@ -645,7 +681,7 @@ def dl_phases(dev, rng, card) -> tuple:
         raise AssertionError("DL loopback: decoded TB differs from payload")
     print(f"DL loopback: TB CRC ok, {plain['tb'].numel()} bits exact, "
           f"LDPC sweeps {int(res.nof_iterations)}", flush=True)
-    return results, launches
+    return results, launches, slots
 
 
 def _launch_group(cond, reqs: tuple, start: int, phases: list, prach_in,
@@ -782,7 +818,9 @@ def conductor_phases(dev, gen, rng, card) -> tuple:
     convert.slot_results(pend.resolve(), gpu, rtol=1e-3)
     print("conductor SlotResults vs the same requests on the CPU twins: ok",
           flush=True)
-    return results, launches
+    scenario = dict(phases=phases, reqs=reqs, prach_in=prach_in,
+                    stride=stride, pay=pay)
+    return results, launches, scenario
 
 
 def mu_conductor(slots: list, prach_in, rng, card) -> None:
@@ -923,6 +961,333 @@ def mu_phases(dev, gen, rng, card) -> tuple:
     return results, launches
 
 
+# ---------------------------------------------------------------- phase 6
+
+def _eager_slot(cond, dl, ul, staged, k, rx, prach_in):
+    """process_slot's work through the phase's eager slot program (no
+    graph): (tx_samples, PendingSlotResults)."""
+    phase = cond.slot_phase(dl, ul, staged.stride)
+    harq_meta, softs = cond._soft_buffers(ul, phase.soft_shapes)
+    torch.cuda.current_stream().wait_event(staged.ready)
+    blob = staged.buf[k * staged.stride:k * staged.stride + phase.total]
+    tx, scalars, payload, new_softs = phase.run(blob, rx, tuple(prach_in),
+                                                softs)
+    return tx, cond._pending(ul, harq_meta, scalars, payload, new_softs)
+
+
+def _graph_vs_eager(cond, dl, ul, staged, k, rx, prach_in, phase, where):
+    """One slot through its graph and through the eager program on the
+    same inputs: tx samples within 1e-4, SlotResults equal (bits exact,
+    floats within 1e-3), and every indication as sent."""
+    tx_g, pend_g = cond.process_slot(dl, ul, staged, k, rx, prach_fd=prach_in)
+    tx_e, pend_e = _eager_slot(cond, dl, ul, staged, k, rx, prach_in)
+    close(tx_g, tx_e, f"{where}: graph vs eager tx samples")
+    res_g = pend_g.resolve()
+    convert.slot_results(pend_e.resolve(), res_g, rtol=1e-3)
+    flagship.check_results(res_g, phase, where)
+
+
+def _replay_us(graph, n: int = 30) -> float:
+    """Median device time of one replay of a captured graph (its static
+    inputs as they are), by CUDA events."""
+    times = []
+    for _ in range(n):
+        begin = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        begin.record()
+        graph.graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(1e3 * begin.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _timed_slots(launch, n: int, items: list) -> tuple:
+    """Launch ``n`` slots (cycling ``items``), each resolved RESOLVE_LAG
+    behind the launch front: (host us per slot, CUDA-event span us per
+    slot, the results)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    begin = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    begin.record()
+    pending, done = [], []
+    for j in range(n):
+        item = items[j % len(items)]
+        pending.append((item, launch(*item)))
+        if len(pending) > RESOLVE_LAG:
+            it, pend = pending.pop(0)
+            done.append((it, pend.resolve()))
+    end.record()
+    for it, pend in pending:
+        done.append((it, pend.resolve()))
+    torch.cuda.synchronize()
+    host_us = 1e6 * (time.perf_counter() - t0) / n
+    return host_us, 1e3 * begin.elapsed_time(end) / n, done
+
+
+def graph_phase(scen: dict, gen, card) -> None:
+    """Phase 6: each conductor slot phase as one CUDA graph against its
+    eager slot program, a graph replayed on 3 differing slots, and graphed
+    against eager us per slot."""
+    phases, (dlr, ulr, txd) = scen["phases"], scen["reqs"]
+    prach_in, stride = scen["prach_in"], scen["stride"]
+    n = flagship.N_PHASES
+    cond = SlotConductor(flagship.CELL)
+    st = cond.stage_payloads([(dlr[g], txd[g]) for g in range(n)],
+                             stride=stride)
+    mem = []
+    for g in range(n):
+        _graph_vs_eager(cond, dlr[g], ulr[g], st, g, phases[g]["rx"],
+                        prach_in, phases[g], f"graph phase {g}")
+        mem.append(cond.graph_of(dlr[g], ulr[g], stride).nbytes)
+    print(f"graph: {n} slot phases, each graph equal to its eager slot "
+          f"program; memory reserved per capture {[m >> 20 for m in mem]} "
+          f"MiB (first: the shared pool's growth), card {card}", flush=True)
+
+    # one phase's graph on 3 slots of differing payloads and samples
+    g = 1
+    pay = scen["pay"]
+    rng = np.random.default_rng(SEED + 6)
+    st3 = cond.stage_payloads([(dlr[g], messages.TxDataRequest(
+        slot=dlr[g].slot, pdsch_payloads=(pay["sch"][v],),
+        pdcch_payloads=(pay["dci"][v],))) for v in range(3)], stride=stride)
+    for j in range(3):
+        tb = torch.as_tensor(rng.integers(0, 2, flagship.PUSCH.tbs).astype(
+            np.int8)).to(phases[g]["rx"].device)
+        uci = flagship.ue_uci(rng)
+        rx = flagship.channel(flagship.ue_samples(2 * g, tb, uci), gen)
+        _graph_vs_eager(cond, dlr[g], ulr[g], st3, j, rx, prach_in,
+                        dict(tb=tb, uci=uci, rx=rx), f"graph replay {j}")
+    graph = cond.graph_of(dlr[g], ulr[g], stride)
+    print(f"graph replays on 3 differing slots: each equal to the eager "
+          f"program and decoded as sent ({graph.replays} replays of phase "
+          f"{g}'s graph)", flush=True)
+
+    # The DL branch on its own stream against DL after UL in one branch:
+    # the same phase captured both ways, replays timed by CUDA events.
+    phase = cond.slot_phase(dlr[g], ulr[g], stride)
+    _, softs = cond._soft_buffers(ulr[g], phase.soft_shapes)
+    ul_in = (phases[g]["rx"], tuple(prach_in), softs)
+    dl_in = (st.buf[g * stride:g * stride + phase.total],)
+    serial = SlotGraph((lambda u, d: (phase.ul(*u), phase.dl(*d)),),
+                       ((ul_in, dl_in),))
+    print(f"graph: one replay {_replay_us(graph):.1f} us with the DL branch "
+          f"on its own stream, {_replay_us(serial):.1f} us with DL after UL "
+          f"in one branch (CUDA events, median of 30 replays)", flush=True)
+
+    items = [(g, g) for g in range(n)]
+    graphed = _timed_slots(lambda g, k: cond.process_slot(
+        dlr[g], ulr[g], st, k, phases[g]["rx"], prach_fd=prach_in)[1],
+        GRAPH_PASSES * n, items)
+    eager = _timed_slots(lambda g, k: _eager_slot(
+        cond, dlr[g], ulr[g], st, k, phases[g]["rx"], prach_in)[1],
+        GRAPH_PASSES * n, items)
+    for (g, _), res in graphed[2] + eager[2]:
+        flagship.check_results(res, phases[g], f"timed slot, phase {g}")
+    print(f"graph: conductor slot {graphed[0]:.1f} us (host clock) / "
+          f"{graphed[1]:.1f} us (CUDA events) per slot graphed, "
+          f"{eager[0]:.1f} / {eager[1]:.1f} eager, {GRAPH_PASSES * n} slots "
+          f"each, resolved {RESOLVE_LAG} behind, card {card}", flush=True)
+
+
+# ---------------------------------------------------------------- phase 7
+
+def batch_phase(scen: dict, card) -> dict:
+    """Phase 7: the slot-batch mode on the flagship conductor scenario;
+    returns the batched kernels' launches in one batch."""
+    phases, (dlr, ulr, txd) = scen["phases"], scen["reqs"]
+    stride = scen["stride"]
+    grp = flagship.BATCH_PHASES
+    dev = phases[0]["rx"].device
+    cond = SlotConductor(flagship.CELL)
+    prach_b = flagship.batch_prach_fd(dev, SEED)
+    rx_b = torch.stack([phases[g]["rx"] for g in grp])
+    slots = [(dlr[g], ulr[g]) for g in grp]
+
+    def stage():
+        return cond.stage_payloads([(dlr[g], txd[g]) for g in grp],
+                                   stride=stride)
+
+    def check(res, where):
+        for b, (g, r) in enumerate(zip(grp, res)):
+            flagship.check_results(r, phases[g], f"{where}, slot {b}",
+                                   flagship.batch_preambles(b))
+
+    st = stage()
+    tx_b, pend_b = cond.process_slot_batch(slots, st, rx_b, prach_fd=prach_b)
+    res_b = pend_b.resolve()
+    check(res_b, "batch")
+    # each slot of the batch against process_slot on the same slot
+    for b, g in enumerate(grp):
+        tx, pend = cond.process_slot(dlr[g], ulr[g], st, b, rx_b[b],
+                                     prach_fd=(prach_b[0][b],))
+        close(tx_b[b], tx, f"batch slot {b}: tx samples")
+        torch.testing.assert_close(pend_b.scalars[b], pend.scalars,
+                                   rtol=2e-4, atol=2e-4)
+        if not torch.equal(pend_b.payload[b], pend.payload):
+            raise AssertionError(f"batch slot {b}: payload differs")
+        convert.slot_results(pend.resolve(), res_b[b], rtol=2e-4)
+    rach = [[r.preamble_index for r in res.rach] for res in res_b]
+    print(f"batch of {flagship.BATCH} (phases {list(grp)}): "
+          f"{sum(r.crc[0].tb_crc_ok for r in res_b)}/{flagship.BATCH} TBs "
+          f"exact, every indication as sent and equal to process_slot's "
+          f"slot by slot, PRACH per slot {rach}", flush=True)
+
+    # one batch on the main path, its launches counted
+    st = stage()
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    _, pend = cond.process_slot_batch(slots, st, rx_b, prach_fd=prach_b)
+    check(pend.resolve(), "counted batch")
+    counts = {k.name: k.launches for k in kernels.REGISTRY.values()}
+    launches = launched(BATCH_KERNELS + PER_SLOT_IN_BATCH)
+    # K8 also runs once per slot inside the SRS and PUCCH F2 receivers
+    unbatched = {n: counts[n] for n in BATCHED
+                 if counts[n] and n != "channel_estimate"}
+    if unbatched or any(counts[n] != 1 for n in BATCH_KERNELS):
+        raise AssertionError(f"batch launches: {launches}, per-slot K1-K8 "
+                             f"{unbatched}")
+    print(f"batch launches per batch of {flagship.BATCH}: {launches}; "
+          f"unbatched K8 (SRS and F2 estimates) "
+          f"{counts['channel_estimate']}; K1 runs one device launch per "
+          f"sweep of all {flagship.BATCH} slots", flush=True)
+
+    # Staged beforehand (one transfer per batch), launched back to back
+    # and resolved RESOLVE_LAG behind: each batch's device span by CUDA
+    # events around its launch (median over the batches, robust to a
+    # stall of the host), and the loop's host clock.
+    n_batches = 8
+    staged = [stage() for _ in range(n_batches)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    events, pending, done = [], [], []
+    for st in staged:
+        begin = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        begin.record()
+        pending.append(cond.process_slot_batch(slots, st, rx_b,
+                                               prach_fd=prach_b)[1])
+        end.record()
+        events.append((begin, end))
+        if len(pending) > RESOLVE_LAG:
+            done.append(pending.pop(0).resolve())
+    done += [p.resolve() for p in pending]
+    torch.cuda.synchronize()
+    host_us = 1e6 * (time.perf_counter() - t0) / (n_batches * flagship.BATCH)
+    spans = [1e3 * b.elapsed_time(e) / flagship.BATCH for b, e in events]
+    for res in done:
+        check(res, "timed batch")
+    print(f"batch: {statistics.median(spans):.1f} us per slot by CUDA events "
+          f"(median over {n_batches} batches of {flagship.BATCH}; "
+          f"{min(spans):.1f}-{max(spans):.1f}), {host_us:.1f} us per slot on "
+          f"the host clock with resolve, staged beforehand, card {card}",
+          flush=True)
+    return launches
+
+
+def _stack_case(cases: list) -> tuple:
+    """(fn, twin, args) over slots -> one case with the slot axis: the
+    tensors that differ stack on a new axis (the mask says which), shared
+    ones and the other arguments stay."""
+    fn, ref_fn, _ = cases[0]
+    args, mask = [], []
+    for vals in zip(*(c[2] for c in cases)):
+        stack = (isinstance(vals[0], torch.Tensor)
+                 and not all(v is vals[0] for v in vals))
+        args.append(torch.stack(vals) if stack else vals[0])
+        mask.append(stack)
+    return fn, ref_fn, tuple(args), tuple(mask)
+
+
+def _slot_of(obj, b: int):
+    """Slot ``b`` of a batched kernel's output."""
+    if isinstance(obj, torch.Tensor):
+        return obj[b]
+    if isinstance(obj, (tuple, list)):
+        return tuple(_slot_of(o, b) for o in obj)
+    if isinstance(obj, chest.ChannelEstimate):
+        return chest.ChannelEstimate(**{f.name: getattr(obj, f.name)[b]
+                                        for f in dataclasses.fields(obj)})
+    return obj
+
+
+def batched_kernel_phase(ul_slots, dl_slots, gen, scen) -> dict:
+    """The batched K1-K8 at B = 4 against their twins (timed, with their
+    bounds, the work summed over the slots), and at B = 1 against the
+    unbatched kernels."""
+    nb = flagship.BATCH
+    per_slot = [flagship.kernel_cases(rx, ctx, gen, scen["prach_in"])
+                for _, rx, ctx in ul_slots[:nb]]
+    per_slot = [{**u, **flagship.dl_kernel_cases(d)}
+                for u, d in zip(per_slot, dl_slots[:nb])]
+    results = {}
+    for name in BATCHED:
+        fn, ref_fn, args, mask = _stack_case([c[name] for c in per_slot])
+        out = fn(*args)
+        ref = ref_fn(*args)
+        err = max(compare(name, _slot_of(out, b), _slot_of(ref, b))
+                  for b in range(nb))
+        b_bytes = b_ops = 0.0
+        for b in range(nb):
+            sl = tuple(a[b] if m else a for a, m in zip(args, mask))
+            w = work(name, sl, _slot_of(out, b))
+            b_bytes += w[0]
+            b_ops += w[1]
+        t_bytes, t_ops = b_bytes / MEM_BYTES_PER_S, b_ops / F32_OPS_PER_S
+        # B = 1: the batched kernel's slot 0 against today's kernel
+        one = fn(*(a[:1] if m else a for a, m in zip(args, mask)))
+        single = fn(*per_slot[0][name][2])
+        compare(name, _slot_of(one, 0), single)
+        results[f"{name}_batch"] = dict(
+            max_abs_err=err, ms=median_ms(lambda: fn(*args)),
+            plain_ms=median_ms(lambda: ref_fn(*args), BATCH_TIMING_RUNS),
+            bound_ms=1e3 * max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=None)
+    print(f"batched K1-K8 at B = {nb} against their twins and at B = 1 "
+          f"against the unbatched kernels: ok", flush=True)
+    return results
+
+
+# ---------------------------------------------------------------- phase 8
+
+def multi_cell_phase(dev, gen, rng, card) -> None:
+    """Phase 8: 4 cells of the flagship DL and UL plans in one program
+    each, every cell against its single-cell program."""
+    n = flagship.NOF_CELLS
+    inp = flagship.multi_cell_inputs(rng, gen, dev)
+    dl = multi_cell_dl_fn(flagship.DL_CELL, flagship.DL_PLAN, n)
+    ul = multi_cell_ul_fn(flagship.CELL, flagship.UL_PLAN, n)
+    kernels.reset_counts()
+    (samples, _), ms_dl = timed(lambda: dl((), (inp["dci"],), (inp["sch"],)))
+    out, ms_ul = timed(lambda: ul(inp["rx"], inp["prach"], inp["softs"]))
+    launches = launched(BATCH_KERNELS)
+    one_ul = ul_slot_fn(flagship.CELL, flagship.UL_PLAN)
+    for c in range(n):
+        s1 = flagship.dl_program(False)((), (inp["dci"][c],),
+                                        (inp["sch"][c],))
+        close(samples[c], s1, f"multi-cell DL, cell {c}")
+        ref = one_ul(inp["rx"][c], (inp["prach"][0][c],),
+                     (inp["softs"][0][c],))
+        compare_ul(_slot_of_dict(out, c), _slot_of_dict(ref, None))
+        r = out["pusch"][0]
+        if not (bool(r["tb_crc_ok"][c])
+                and torch.equal(r["tb_bits"][c], inp["tb"][c])):
+            raise AssertionError(f"multi-cell UL, cell {c}: TB not decoded")
+    print(f"multi-cell: {n} cells, DL {1e3 * ms_dl:.1f} us and UL "
+          f"{1e3 * ms_ul:.1f} us for all cells (CUDA events), each cell "
+          f"equal to its single-cell program, {n}/{n} TBs exact, batched "
+          f"launches {launches}, card {card}", flush=True)
+
+
+def _slot_of_dict(out: dict, c) -> dict:
+    """Cell ``c`` of a multi-cell UL result dict (None: the whole of a
+    single cell's), on the CPU."""
+    return {kind: [{k: (v if c is None else v[c]).cpu() for k, v in e.items()}
+                   for e in entries] for kind, entries in out.items()}
+
+
 def main() -> int:
     dev = require_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -946,19 +1311,25 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     rng = np.random.default_rng(SEED)
-    ul_results, ul_launches = ul_phases(dev, gen, rng, card)
-    dl_results, dl_launches = dl_phases(dev, rng, card)
-    uci_results, cond_launches = conductor_phases(dev, gen, rng, card)
+    ul_results, ul_launches, ul_slots = ul_phases(dev, gen, rng, card)
+    dl_results, dl_launches, dl_slots = dl_phases(dev, rng, card)
+    uci_results, cond_launches, scen = conductor_phases(dev, gen, rng, card)
     # phase 5 draws from its own seed: its 8 measured slots carry both
     # RI values (RIs 0,0,0,1,1,0,1,0), so both part-2 sizes occur
     mu_results, mu_launches = mu_phases(
         dev, gen, np.random.default_rng(SEED + 5), card)
-    results = {**ul_results, **dl_results, **uci_results, **mu_results}
+    graph_phase(scen, gen, card)
+    batch_launches = batch_phase(scen, card)
+    batch_results = batched_kernel_phase(ul_slots, dl_slots, gen, scen)
+    multi_cell_phase(dev, gen, np.random.default_rng(SEED + 8), card)
+    results = {**ul_results, **dl_results, **uci_results, **mu_results,
+               **batch_results}
     # K1-K11 as their own paths launched them (phases 2, 3), K12-K15 as the
     # conductor's slots did (phase 4, which launched every kernel), K16-K17
-    # as the two-UE slot did (phase 5)
+    # as the two-UE slot did (phase 5), the batched K1-K8 as one batch of
+    # phase 7 did
     launches = {**cond_launches, **ul_launches, **dl_launches,
-                **{k: mu_launches[k] for k in MU_KERNELS}}
+                **{k: mu_launches[k] for k in MU_KERNELS}, **batch_launches}
     for name, r in results.items():
         print(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}), "

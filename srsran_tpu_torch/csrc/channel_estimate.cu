@@ -33,8 +33,14 @@
 //      FIRST maximum (ties to the lower index, as argmax does); one thread
 //      per port sums its stats partials in a fixed order and writes EPRE,
 //      RSRP, the noise with its floor and the SNR.
+// A slot axis (the slot-batch mode): every pass takes the slot from its
+// last grid dimension and reads and writes that slot's grid, pilots (or
+// the shared ones: exp_stride 0), LS values, partials, coefficients,
+// statistics and TA buffer at fixed strides; the band and the tables are
+// shared.  One launch of each pass serves every slot.
+//
 // Bounds on this card: bytes (the pilots, the band and the coefficients,
-// about 0.5 MB at the flagship PUSCH); the passes are launch-bound.
+// about 0.5 MB per slot at the flagship PUSCH); the passes are launch-bound.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -112,6 +118,14 @@ struct Pilots {
   const float2* expected;  // [L, S, K]
   int S, K;
   float beta2;
+  size_t grid_stride, exp_stride;  // per slot (exp_stride 0: shared pilots)
+
+  __device__ Pilots slot(size_t b) const {
+    Pilots q = *this;
+    q.grid += b * grid_stride;
+    q.expected += b * exp_stride;
+    return q;
+  }
 
   __device__ float2 rx(int p, int s, int k) const {
     return grid[((size_t)p * nsym_grid + syms[s]) * nsc_grid + cols[k]];
@@ -134,6 +148,10 @@ __global__ void chest_ls_kernel(Pilots pil, int P, int L, int Ksm, int cdm,
                                 float2* __restrict__ partials) {
   __shared__ float2 sh[NT];
   const long long total = (long long)P * L * pil.S * Ksm;
+  const size_t b = blockIdx.y;                        // slot
+  pil = pil.slot(b);
+  ls += b * total;
+  partials += b * gridDim.x;
   const long long gid = (long long)blockIdx.x * NT + threadIdx.x;
   float2 part = make_float2(0.f, 0.f);
   if (gid < total) {
@@ -163,6 +181,12 @@ __global__ void chest_avg_kernel(int P, int L, int S, int Ksm, int use_cfo,
                                  int stride_sm, float* __restrict__ stats,
                                  int cfo_slot) {
   __shared__ float2 sh[NT];
+  const size_t b = blockIdx.y;                        // slot
+  partials += b * nparts;
+  ls += b * P * L * S * Ksm;
+  ls_avg += b * P * L * Ksm;
+  tabuf += b * P * L * nfft;
+  stats += b * (4 * P + 2);
   const float cfo =
       use_cfo ? cfo_from_partials(partials, nparts, two_pi_dt, sh) : 0.f;
   const long long gid = (long long)blockIdx.x * NT + threadIdx.x;
@@ -211,6 +235,11 @@ __global__ void chest_interp_kernel(int P, int L, int S, int Ksm, int K,
                                     float2* __restrict__ filtered) {
   const long long gid = (long long)blockIdx.x * NT + threadIdx.x;
   const long long total_c = (long long)P * L * nsym_out * nsc;
+  const size_t b = blockIdx.y;                        // slot
+  ls += b * P * L * S * Ksm;
+  ls_avg += b * P * L * Ksm;
+  coeffs += b * total_c;
+  filtered += b * P * L * K;
   if (gid < total_c) {
     const int n = (int)(gid % nsc);
     const long long r = gid / nsc;
@@ -237,7 +266,7 @@ __global__ void chest_interp_kernel(int P, int L, int S, int Ksm, int K,
 }
 
 // Per-port partial sums of |rx|^2, |filtered|^2 and |residual|^2 over a
-// block's stripe of the pilots; grid (NB, P).
+// block's stripe of the pilots; grid (NB, P, slots).
 __global__ void chest_stats_kernel(Pilots pil, int L, int use_cfo,
                                    const float* __restrict__ times,
                                    const float2* __restrict__ partials,
@@ -247,7 +276,12 @@ __global__ void chest_stats_kernel(Pilots pil, int L, int use_cfo,
   __shared__ float2 sh2[NT];
   __shared__ float sh[NT];
   const int b = blockIdx.x, nb = gridDim.x, p = blockIdx.y;
+  const size_t slot = blockIdx.z;
   const int S = pil.S, K = pil.K;
+  pil = pil.slot(slot);
+  partials += slot * nparts;
+  filtered += slot * gridDim.y * L * K;
+  stats_part += slot * gridDim.y * nb * 3;
   const float cfo =
       use_cfo ? cfo_from_partials(partials, nparts, two_pi_dt, sh2) : 0.f;
   float e = 0.f, r = 0.f, nz = 0.f;
@@ -283,7 +317,7 @@ __global__ void chest_stats_kernel(Pilots pil, int L, int use_cfo,
 
 // The TA from the IDFT of the TA buffer, and (one thread per port) the
 // fixed-order sums of the stats partials: EPRE, RSRP, noise with its
-// MAX_SINR floor, SNR.
+// MAX_SINR floor, SNR.  One block per slot.
 __global__ void chest_ta_kernel(const float2* __restrict__ h, int P, int L,
                                 int S, int K, int nfft, int maxd, float span,
                                 float beta, const float* __restrict__ stats_part,
@@ -292,6 +326,10 @@ __global__ void chest_ta_kernel(const float2* __restrict__ h, int P, int L,
   __shared__ int si[NT_TA];
   const int t = threadIdx.x;
   const int PL = P * L;
+  const size_t slot = blockIdx.x;
+  h += slot * PL * nfft;
+  stats_part += slot * P * nb * 3;
+  stats += slot * (4 * P + 2);
   if (t < P) {
     float e = 0.f, r = 0.f, nz = 0.f;
     for (int b = 0; b < nb; ++b) {
@@ -353,9 +391,11 @@ inline int stats_blocks(int S, int K) {
   return nb < 1 ? 1 : (nb > 32 ? 32 : nb);
 }
 
-// Passes 1-4.  stats: float [4P + 2] = noise_var, rsrp, epre, snr (each
-// [P]), cfo, ta; pass 2 writes the cfo, srsran_chest_ta the rest.  tabuf
-// [P*L, nfft] is zeroed here and filled by pass 2.
+// Passes 1-4, for `slots` slots (grid, LS, coefficient and stats buffers
+// slot-major; the pilots per slot unless shared_pilots).  stats: float
+// [slots, 4P + 2] = noise_var, rsrp, epre, snr (each [P]), cfo, ta; pass 2
+// writes the cfo, srsran_chest_ta the rest.  tabuf [slots, P*L, nfft] is
+// zeroed here and filled by pass 2.
 extern "C" int srsran_chest_estimate(
     void* grid, int nsym_grid, int nsc_grid, void* syms, void* cols,
     void* expected, void* times, void* band_first, void* band_w,
@@ -363,37 +403,45 @@ extern "C" int srsran_chest_estimate(
     int cdm, int nsc, int W, int use_cfo, int nsym_out, int interp,
     float beta, float two_pi_dt, int nfft, int stride_sm, void* ls,
     void* ls_avg, void* partials, void* filtered, void* coeffs,
-    void* stats_part, void* stats, void* tabuf, void* stream) {
+    void* stats_part, void* stats, void* tabuf, int slots,
+    int shared_pilots, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int Ksm = cdm ? K / 2 : K;
   Pilots pil{(const float2*)grid, nsym_grid, nsc_grid, (const int*)syms,
-             (const int*)cols, (const float2*)expected, S, K, beta * beta};
-  cudaMemsetAsync(tabuf, 0, sizeof(float2) * (size_t)P * L * nfft, st);
+             (const int*)cols, (const float2*)expected, S, K, beta * beta,
+             (size_t)P * nsym_grid * nsc_grid,
+             shared_pilots ? 0 : (size_t)L * S * K};
+  cudaError_t err = cudaMemsetAsync(
+      tabuf, 0, sizeof(float2) * (size_t)slots * P * L * nfft, st);
+  if (err != cudaSuccess) return (int)err;
   const int n1 = blocks_for((long long)P * L * S * Ksm, NT);
-  chest_ls_kernel<<<n1, NT, 0, st>>>(pil, P, L, Ksm, cdm, use_cfo,
-                                     (float2*)ls, (float2*)partials);
-  chest_avg_kernel<<<blocks_for((long long)P * L * Ksm, NT), NT, 0, st>>>(
+  chest_ls_kernel<<<dim3(n1, slots), NT, 0, st>>>(
+      pil, P, L, Ksm, cdm, use_cfo, (float2*)ls, (float2*)partials);
+  chest_avg_kernel<<<dim3(blocks_for((long long)P * L * Ksm, NT), slots), NT,
+                     0, st>>>(
       P, L, S, Ksm, use_cfo, interp, (const float*)times,
       (const float2*)partials, n1, two_pi_dt, (float2*)ls, (float2*)ls_avg,
       (float2*)tabuf, nfft, stride_sm, (float*)stats, 4 * P);
   const long long n3 =
       (long long)P * L * nsym_out * nsc + (long long)P * L * K;
-  chest_interp_kernel<<<blocks_for(n3, NT), NT, 0, st>>>(
+  chest_interp_kernel<<<dim3(blocks_for(n3, NT), slots), NT, 0, st>>>(
       P, L, S, Ksm, K, nsc, W, nsym_out, interp, (const int*)band_first,
       (const float*)band_w, (const int*)pilot_idx, (const int*)td_i0,
       (const float*)td_w, (const float2*)ls, (const float2*)ls_avg,
       (float2*)coeffs, (float2*)filtered);
-  chest_stats_kernel<<<dim3(stats_blocks(S, K), P), NT, 0, st>>>(
+  chest_stats_kernel<<<dim3(stats_blocks(S, K), P, slots), NT, 0, st>>>(
       pil, L, use_cfo, (const float*)times, (const float2*)partials, n1,
       two_pi_dt, beta, (const float2*)filtered, (float*)stats_part);
   return (int)cudaGetLastError();
 }
 
-// Pass 5, after the IDFT h of tabuf: the TA and the per-port stats.
+// Pass 5, after the IDFT h of tabuf: the TA and the per-port stats, one
+// block per slot.
 extern "C" int srsran_chest_ta(void* h, int P, int L, int S, int K, int nfft,
                                int maxd, float span, float beta,
-                               void* stats_part, void* stats, void* stream) {
-  chest_ta_kernel<<<1, NT_TA, 0, (cudaStream_t)stream>>>(
+                               void* stats_part, void* stats, int slots,
+                               void* stream) {
+  chest_ta_kernel<<<slots, NT_TA, 0, (cudaStream_t)stream>>>(
       (const float2*)h, P, L, S, K, nfft, maxd, span, beta,
       (const float*)stats_part, stats_blocks(S, K), (float*)stats);
   return (int)cudaGetLastError();

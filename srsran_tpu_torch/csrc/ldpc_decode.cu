@@ -18,10 +18,14 @@
 // Early stop without a host sync: one launch per sweep; the CTA ends the
 // sweep with the CRC of its first k' hard bits (XOR of the host remainder
 // matrix rows, packed 24 bits per word, then a warp XOR-reduce) into
-// cb_ok[cb].  ldpc_check_kernel (one warp) then counts the sweep and sets
-// state[0] ("done") when every CB passed -- the JAX package's all-CBs rule.
-// Later sweeps read state[0] first and return at once, so the iteration
-// count (state[1]) stays on the device.
+// cb_ok[cb].  ldpc_check_kernel (one warp per slot) then counts the sweep
+// and sets the slot's state[0] ("done") when every CB of that slot passed --
+// the JAX package's all-CBs rule, kept per slot as jax.vmap keeps each
+// slot's while-loop state.  A launch may hold several slots (cbs_per_slot
+// CBs each, state [slots, 2]); a CTA reads its own slot's flag first and
+// returns at once when it is set, so a finished slot's LLRs and iteration
+// count (state[1]) stay as a run of that slot alone leaves them, and they
+// stay on the device.
 //
 // Bounds on this card: each sweep reads and writes the codeblock LLRs once
 // from global memory and the compressed c2v once per row; the row loop is
@@ -42,8 +46,9 @@ __global__ void ldpc_sweep_kernel(
     const int* __restrict__ row_ptr, const int* __restrict__ edge_col,
     const int* __restrict__ edge_shift, int nrows, int ncols, int z,
     float scaling, const uint32_t* __restrict__ crc_rows, int k_prime,
-    int* __restrict__ cb_ok, const int* __restrict__ state) {
-  if (state[0]) return;  // an earlier sweep already passed every CRC
+    int* __restrict__ cb_ok, const int* __restrict__ state, int cbs_per_slot) {
+  // an earlier sweep already passed every CRC of this CB's slot
+  if (state[2 * (blockIdx.x / cbs_per_slot)]) return;
   const float kInf = __int_as_float(0x7f800000);
   extern __shared__ float sh[];
   __shared__ uint32_t warp_acc[32];
@@ -124,11 +129,14 @@ __global__ void ldpc_sweep_kernel(
   }
 }
 
-__global__ void ldpc_check_kernel(const int* __restrict__ cb_ok, int nb,
-                                  int* __restrict__ state) {
+// One warp per slot (blockIdx.x): the slot's cbs_per_slot CRC flags.
+__global__ void ldpc_check_kernel(const int* __restrict__ cb_ok,
+                                  int cbs_per_slot, int* __restrict__ state) {
+  state += 2 * blockIdx.x;
+  cb_ok += (size_t)blockIdx.x * cbs_per_slot;
   if (state[0]) return;
   int ok = 1;
-  for (int i = threadIdx.x; i < nb; i += 32) ok &= cb_ok[i];
+  for (int i = threadIdx.x; i < cbs_per_slot; i += 32) ok &= cb_ok[i];
   ok = __all_sync(0xffffffffu, ok);
   if (threadIdx.x == 0) {
     state[1] += 1;
@@ -142,24 +150,31 @@ extern "C" int srsran_ldpc_sweep(
     void* llr, void* bits, void* c2v_min1, void* c2v_min2, void* c2v_meta,
     void* row_ptr, void* edge_col, void* edge_shift, int nrows, int ncols,
     int z, float scaling, void* crc_rows, int k_prime, void* cb_ok,
-    void* state, int nb, void* stream) {
+    void* state, int nb, int cbs_per_slot, void* stream) {
   const size_t smem = (size_t)ncols * z * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      ldpc_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  // Raised once per size, outside any stream capture after the first call:
+  // a CUDA graph captures the launches of a warmed-up program only.
+  static size_t smem_set = 0;
+  if (smem > smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        ldpc_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = smem;
+  }
   const int threads = (z + 31) / 32 * 32;
   ldpc_sweep_kernel<<<nb, threads, smem, (cudaStream_t)stream>>>(
       (float*)llr, (int8_t*)bits, (float*)c2v_min1, (float*)c2v_min2,
       (uint32_t*)c2v_meta, (const int*)row_ptr, (const int*)edge_col,
       (const int*)edge_shift, nrows, ncols, z, scaling,
-      (const uint32_t*)crc_rows, k_prime, (int*)cb_ok, (const int*)state);
+      (const uint32_t*)crc_rows, k_prime, (int*)cb_ok, (const int*)state,
+      cbs_per_slot);
   return (int)cudaGetLastError();
 }
 
-extern "C" int srsran_ldpc_check(void* cb_ok, int nb, void* state,
-                                 void* stream) {
-  ldpc_check_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(
-      (const int*)cb_ok, nb, (int*)state);
+extern "C" int srsran_ldpc_check(void* cb_ok, int nslots, int cbs_per_slot,
+                                 void* state, void* stream) {
+  ldpc_check_kernel<<<nslots, 32, 0, (cudaStream_t)stream>>>(
+      (const int*)cb_ok, cbs_per_slot, (int*)state);
   return (int)cudaGetLastError();
 }

@@ -25,6 +25,10 @@
 //    edges over info and core columns.  The circulant shifts are index
 //    arithmetic ((j + s) mod Z) over the graph's edge tables.
 //
+// A slot axis (the slot-batch mode): the last grid dimension of both
+// passes is the slot, each with its own TB, TB CRC word and [C, N] output;
+// one launch of each pass encodes every slot's TB.
+//
 // Bounds on this card: memory and latency.  The CRC pass reads the TB
 // (835,584 B at the flagship) and the words of its set bits (~1.7 MB); the
 // encode pass reads the TB once more and writes C x N bytes (2.5 MB), with
@@ -50,6 +54,8 @@ __global__ void dlsch_crc_kernel(const int8_t* __restrict__ tb, int tbs,
                                  const uint32_t* __restrict__ words,
                                  uint32_t* __restrict__ crc_out) {
   __shared__ uint32_t warp_acc[32];
+  tb += (size_t)blockIdx.y * tbs;
+  crc_out += blockIdx.y;
   uint32_t acc = 0;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < tbs;
        i += gridDim.x * blockDim.x)
@@ -76,7 +82,9 @@ __global__ void dlsch_encode_kernel(
   const int cb = blockIdx.x;
   const int tid = threadIdx.x, nth = blockDim.x;
   const int kinfo = kb * z;
-  const uint32_t tcrc = *tb_crc;
+  tb += (size_t)blockIdx.y * tbs;                       // the slot's TB
+  out += (size_t)blockIdx.y * gridDim.x * (ncols - 2) * z;
+  const uint32_t tcrc = tb_crc[blockIdx.y];
 
   // Payload bits, TB CRC, zero tail; CB CRC as the XOR of remainder words.
   uint32_t acc = 0;
@@ -163,20 +171,21 @@ extern "C" int srsran_dlsch_encode(
     void* tb, int tbs, void* tb_words, int tb_crc_len, void* tb_crc,
     void* cb_words, int cb_crc_len, int ppc, int kb, int z, int ncols,
     int nrows, void* row_ptr, void* edge_col, void* edge_shift, void* core,
-    int ncb, void* out, void* stream) {
+    int ncb, void* out, int nslots, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = cudaMemsetAsync(tb_crc, 0, sizeof(uint32_t), st);
+  cudaError_t err =
+      cudaMemsetAsync(tb_crc, 0, sizeof(uint32_t) * (size_t)nslots, st);
   if (err != cudaSuccess) return (int)err;
   const int threads = 256;
   int blocks = (tbs + threads - 1) / threads;
   if (blocks > 528) blocks = 528;
   if (blocks < 1) blocks = 1;
-  dlsch_crc_kernel<<<blocks, threads, 0, st>>>(
+  dlsch_crc_kernel<<<dim3(blocks, nslots), threads, 0, st>>>(
       (const int8_t*)tb, tbs, (const uint32_t*)tb_words, (uint32_t*)tb_crc);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t smem = (size_t)(ncols + 4) * z;
-  dlsch_encode_kernel<<<ncb, 512, smem, st>>>(
+  dlsch_encode_kernel<<<dim3(ncb, nslots), 512, smem, st>>>(
       (const int8_t*)tb, tbs, (const uint32_t*)tb_crc, tb_crc_len,
       (const uint32_t*)cb_words, cb_crc_len, ppc, kb, z, ncols, nrows,
       (const int*)row_ptr, (const int*)edge_col, (const int*)edge_shift,

@@ -24,6 +24,11 @@
 // hold the SSB there (the JAX program sums both); each (p, l, k) has one
 // writer, so there are no atomics.
 //
+// A slot axis (the slot-batch mode): blockIdx.y picks the slot, whose
+// encoded codeblocks and grid lie at fixed strides; the E offsets, the Gold
+// words (the c_init does not depend on the slot), the level table, the RE
+// plan and the precoder are shared.
+//
 // Bounds on this card: latency of the bit gathers (L*Qm scattered byte
 // reads per RE from the 2.5 MB codeblock buffer, which stays in L2) and the
 // grid read-modify-write (P complex64 per RE).  32,760 REs at the flagship.
@@ -50,6 +55,8 @@ __global__ void pdsch_map_kernel(
     int K) {
   const int re = blockIdx.x * blockDim.x + threadIdx.x;
   if (re >= nre) return;
+  cw += (size_t)blockIdx.y * ncb * n;                   // the slot's CBs
+  grid += (size_t)blockIdx.y * P * S * K;               // and grid
   const long long g0 = (long long)re * L * QM;
   int lo = 0, hi = ncb - 1;                 // last cb with cb_off[cb] <= g0
   while (lo < hi) {
@@ -96,11 +103,11 @@ extern "C" int srsran_pdsch_map(void* cw, int n, void* cb_off, int ncb,
                                 int fs, int fe, int n_nf, int k0p, void* gold,
                                 void* levels, int qm, void* sym, void* sc,
                                 int nre, int L, void* w, int P, void* grid,
-                                int S, int K, void* stream) {
-  if (L < 1 || L > kMaxLayers) return (int)cudaErrorInvalidValue;
+                                int S, int K, int nslots, void* stream) {
+  if (L < 1 || L > kMaxLayers || nslots < 1) return (int)cudaErrorInvalidValue;
   if (nre == 0) return 0;
   const int threads = 128;
-  const int blocks = (nre + threads - 1) / threads;
+  const dim3 blocks((nre + threads - 1) / threads, nslots);
   cudaStream_t st = (cudaStream_t)stream;
 #define SRSRAN_MAP_LAUNCH(Q)                                                  \
   pdsch_map_kernel<Q><<<blocks, threads, 0, st>>>(                           \

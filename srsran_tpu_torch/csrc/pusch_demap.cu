@@ -17,9 +17,14 @@
 // Gold sign, and writes the LLRs in codeword order (RE-major, layer-minor,
 // then b0(I) b1(Q) b2(I) ...) and the equalized symbols x (for the EVM).
 //
+// A slot axis (the slot-batch mode): blockIdx.y picks the slot, whose grid,
+// coefficients, noise variance, LLRs and symbols lie at fixed strides; the
+// RE plan, the level table and the Gold bits are shared (the scrambling
+// c_init does not depend on the slot).
+//
 // Bounds on this card: memory -- per RE it reads P complex samples and
 // P*L complex coefficients and writes L*Qm f32 LLRs; at the flagship
-// (35,508 REs, 4 ports, 2 layers, QAM64) about 3.5 MB in all.
+// (35,508 REs, 4 ports, 2 layers, QAM64) about 3.5 MB in all per slot.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,6 +45,12 @@ __global__ void pusch_demap_kernel(
     float2* __restrict__ x) {
   const int re = blockIdx.x * blockDim.x + threadIdx.x;
   if (re >= nre) return;
+  const size_t b = blockIdx.y;                       // slot
+  grid += b * P * S * K;
+  coeffs += b * P * L * T * Ka;
+  nv_ptr += b;
+  llr += b * nre * L * 2 * HALF;
+  x += b * nre * L;
   const int s = sym[re];
   const int k = sc[re];
   const int ka = k - sc_off;
@@ -99,10 +110,10 @@ extern "C" int srsran_pusch_demap(void* grid, void* coeffs, void* sym,
                                   int L, int T, int Ka, int sc_off,
                                   void* nv_ptr, void* levels, int half,
                                   void* seq, void* llr, void* x,
-                                  void* stream) {
-  if (L < 1 || L > 2) return (int)cudaErrorInvalidValue;
+                                  int nslots, void* stream) {
+  if (L < 1 || L > 2 || nslots < 1) return (int)cudaErrorInvalidValue;
   const int threads = 128;
-  const int blocks = (nre + threads - 1) / threads;
+  const dim3 blocks((nre + threads - 1) / threads, nslots);
   cudaStream_t st = (cudaStream_t)stream;
 #define SRSRAN_DEMAP_LAUNCH(H)                                              \
   pusch_demap_kernel<H><<<blocks, threads, 0, st>>>(                       \

@@ -17,10 +17,16 @@ copy per slot, of that slot's results only.  ``stage_payloads`` packs
 several slots' DL payloads into one pinned host buffer and copies it to the
 device on a side stream; the slot programs wait on its event.
 
+One program per slot phase: on CUDA, ``process_slot`` runs each phase's
+DL+UL slot program as one captured CUDA graph (:mod:`..graphs`; the DL
+branch on a side stream inside it), and ``process_slot_batch`` -- the
+slot-batch throughput mode, B same-phase slots in one program (the JAX
+conductor's ``jax.jit(jax.vmap(...))``) -- runs its batch program as one
+graph too.  On the CPU both stay eager.
+
 Runs on the CUDA device unless the caller names another (the tests pass
-``device="cpu"``, where the kernels' plain twins run).  The slot-batch
-mode (``process_slot_batch``, ROADMAP §1 item 15) and pcap capture
-(ROADMAP §1 item 16) are not ported.
+``device="cpu"``, where the kernels' plain twins run).  pcap capture
+(ROADMAP §1 item 16) is not ported.
 """
 
 from __future__ import annotations
@@ -32,7 +38,9 @@ import numpy as np
 import torch
 
 from ..device import const, require_cuda
-from ..phy.slot_programs import CellConfig, dl_slot_core, ul_slot_core
+from ..graphs import SlotGraph
+from ..phy.slot_programs import (CellConfig, dl_slot_core, stack_ctx,
+                                 ul_slot_core)
 from ..phy.upper import dmrs as dmrs_mod
 from ..phy.upper import pdcch as pdcch_mod
 from ..phy.upper import pdsch as pdsch_mod
@@ -50,6 +58,9 @@ from .validators import (ValidationError, validate_dl_tti, validate_ul_dci,
 # Resolved slot phases kept per conductor (least recently used go first);
 # slot-varying fields cycle (slot in frame mod 20, SSB sfn mod 1024).
 MAX_PHASES = 256
+# Captured slot graphs kept per conductor (their static inputs and outputs
+# stay on the device; their temporaries share one memory pool).
+MAX_GRAPHS = 64
 
 
 def _norm(cfg, **zero_fields):
@@ -207,10 +218,33 @@ class PendingSlotResults:
         return self.conductor._decode(self)
 
 
-def pack_ul_results(out: dict, device) -> tuple:
+@dataclasses.dataclass
+class PendingSlotBatch:
+    """Device-side results of a slot batch (``process_slot_batch``):
+    resolve() copies the whole batch to the host in one transfer and
+    decodes each slot's indications."""
+
+    slots: list                     # [(ul_tti, harq_meta)] in batch order
+    scalars: torch.Tensor           # f32 [B, S]
+    payload: torch.Tensor           # int8 [B, G]
+    new_softs: tuple                # each [B, C, N]
+    conductor: "SlotConductor"
+    ready: torch.cuda.Event | None = None
+
+    def resolve(self) -> list:
+        s, pay = self.conductor._to_host(self.scalars, self.payload,
+                                         self.ready)
+        return [self.conductor._indications(
+            ul_tti, harq_meta, s[b], pay[b],
+            tuple(ns[b] for ns in self.new_softs))
+            for b, (ul_tti, harq_meta) in enumerate(self.slots)]
+
+
+def pack_ul_results(out: dict, device, batch: int | None = None) -> tuple:
     """Flatten every per-PDU result into one f32 vector + one int8 vector
     on ``device`` (the conductor's: the results' own, and the device of
-    the empty vectors of a slot without results).
+    the empty vectors of a slot without results).  With ``batch``, every
+    result has a leading slot axis of that size and so do the vectors.
 
     Layout per PDU type (static given the slot plan):
       pusch: [crc_ok, ta_s, cfo_hz, evm, iters, snr[P], rsrp[P], epre[P]]
@@ -223,9 +257,10 @@ def pack_ul_results(out: dict, device) -> tuple:
       srs:   [ta_s, mean snr, re(h)..., im(h)...]
     """
     parts = []
+    lead = () if batch is None else (batch,)
 
     def scal(*xs):
-        parts.extend(x.reshape(-1).to(torch.float32) for x in xs)
+        parts.extend(x.reshape(lead + (-1,)).to(torch.float32) for x in xs)
 
     for r in out["pusch"]:
         scal(r["tb_crc_ok"], r["ta_s"], r["cfo_hz"], r["evm"],
@@ -244,12 +279,14 @@ def pack_ul_results(out: dict, device) -> tuple:
         scal(r["detected"], r["metrics"], r["ta_s"], r["rssi"])
     for r in out["srs"]:
         h = r["wideband_h"]
-        scal(r["ta_s"], torch.mean(r["snr"]), h.real, h.imag)
+        scal(r["ta_s"], torch.mean(r["snr"].reshape(lead + (-1,)), dim=-1),
+             h.real, h.imag)
     pay = [r["tb_bits"].to(torch.int8) for r in out["pusch"]]
-    scalars = (torch.cat(parts) if parts
-               else torch.zeros(0, dtype=torch.float32, device=device))
-    payload = (torch.cat(pay) if pay
-               else torch.zeros(0, dtype=torch.int8, device=device))
+    scalars = (torch.cat(parts, dim=-1) if parts
+               else torch.zeros(lead + (0,), dtype=torch.float32,
+                                device=device))
+    payload = (torch.cat(pay, dim=-1) if pay
+               else torch.zeros(lead + (0,), dtype=torch.int8, device=device))
     return scalars, payload
 
 
@@ -315,15 +352,16 @@ def _unpack_plan(segs: tuple, which: int) -> np.ndarray:
 
 def _unpacker(segs: tuple, n_ssb: int, n_pdcch: int, n_pdsch: int):
     """fn(blob uint8 on the device) -> (mib, dci, sch) tuples of int8 bit
-    tensors: one gather, shift and mask over the blob, then views."""
+    tensors: one gather, shift and mask over the blob, then views.  A blob
+    with a leading slot axis ([B, bytes]) gives [B, bits] payloads."""
     sizes = [n_bits for _, _, n_bits in segs]
 
     def unpack(blob: torch.Tensor):
         dev = blob.device
         idx = const(_unpack_plan, segs, 0, device=dev)
         sh = const(_unpack_plan, segs, 1, device=dev)
-        bits = ((blob[idx] >> sh) & 1).view(torch.int8)
-        parts = torch.split(bits, sizes) if sizes else ()
+        bits = ((blob[..., idx] >> sh) & 1).view(torch.int8)
+        parts = torch.split(bits, sizes, dim=-1) if sizes else ()
         return (tuple(parts[:n_ssb]), tuple(parts[n_ssb:n_ssb + n_pdcch]),
                 tuple(parts[n_ssb + n_pdcch:n_ssb + n_pdcch + n_pdsch]))
 
@@ -346,23 +384,45 @@ def _dl_fn(cell: CellConfig, plan, slot_in_subframe: int, return_grid: bool):
     return run
 
 
-def _ul_fn(cell: CellConfig, plan, slot_in_subframe: int, device):
+def _ul_fn(cell: CellConfig, plan, slot_in_subframe: int, device,
+           batch: int | None = None):
     """The UL slot program returning (packed scalars, packed payload,
-    per-PUSCH soft buffers) on ``device``."""
+    per-PUSCH soft buffers) on ``device`` (with ``batch``, for that many
+    slots at once: a stacked context and its axes, [B, ...] results)."""
     core = ul_slot_core(cell, plan, slot_in_subframe)
 
-    def run(samples, prach_fd, soft_buffers, ctx=None):
-        out = core(samples, prach_fd, soft_buffers, ctx)
-        scalars, payload = pack_ul_results(out, device)
+    def run(samples, prach_fd, soft_buffers, ctx=None, axes=None):
+        out = core(samples, prach_fd, soft_buffers, ctx, axes)
+        scalars, payload = pack_ul_results(out, device, batch)
         return scalars, payload, tuple(r["new_soft"] for r in out["pusch"])
 
     return run
 
 
-def _slot_fn(cell: CellConfig, dl_plan, ul_plan, slot_in_subframe: int,
-             stride: int, device):
-    """The full DL+UL slot step taking its payload blob from a staged
-    multi-slot device buffer."""
+@dataclasses.dataclass
+class _SlotPhase:
+    """A resolved slot phase (or batch of same-phase slots): its DL
+    branch dl(blob) -> tx samples and UL branch ul(rx, prach_fd, softs) ->
+    (scalars, payload, new_softs), with the phase's slot context bound in;
+    ``run`` is the two in order, the eager slot program."""
+
+    dl: object
+    ul: object
+    total: int              # payload blob bytes
+    soft_shapes: tuple      # per PUSCH (per slot of a batch: [slot][pdu])
+
+    def run(self, blob, rx_samples, prach_fd, soft_buffers) -> tuple:
+        """(tx_samples, scalars, payload, new_softs), eagerly."""
+        tx_samples = self.dl(blob)
+        return (tx_samples, *self.ul(rx_samples, prach_fd, soft_buffers))
+
+
+def _slot_phase(cell: CellConfig, dl_plan, ul_plan, slot_in_subframe: int,
+                stride: int, device, dl_ctx, ul_ctx, soft_shapes,
+                batch: int | None = None, ul_axes=None) -> _SlotPhase:
+    """The full DL+UL slot step of one phase, taking its payload blob
+    (with ``batch``: a [B, bytes] blob, stacked contexts and the UL
+    context's axes)."""
     if len(dl_plan) == 4:
         dl_plan = dl_plan + ((),)
     n_ssb, n_pdcch, n_pdsch = (len(dl_plan[0]), len(dl_plan[1]),
@@ -371,19 +431,17 @@ def _slot_fn(cell: CellConfig, dl_plan, ul_plan, slot_in_subframe: int,
     if total > stride:
         raise ValidationError(f"payload layout {total} B exceeds stride "
                               f"{stride}")
-    dl_core = dl_slot_core(cell, dl_plan, slot_in_subframe)
-    ul = _ul_fn(cell, ul_plan, slot_in_subframe, device)
     unpack = _unpacker(segs, n_ssb, n_pdcch, n_pdsch)
+    dl_core = dl_slot_core(cell, dl_plan, slot_in_subframe)
+    ul = _ul_fn(cell, ul_plan, slot_in_subframe, device, batch)
 
-    def run(staged_buf, k, rx_samples, prach_fd, soft_buffers, dl_ctx,
-            ul_ctx):
-        blob = staged_buf[k * stride:k * stride + total]
-        tx_samples, _ = dl_core(*unpack(blob), dl_ctx)
-        scalars, payload, new_softs = ul(rx_samples, prach_fd, soft_buffers,
-                                         ul_ctx)
-        return tx_samples, scalars, payload, new_softs
+    def dl(blob):
+        return dl_core(*unpack(blob), dl_ctx)[0]
 
-    return run
+    def ul_run(rx_samples, prach_fd, soft_buffers):
+        return ul(rx_samples, prach_fd, soft_buffers, ul_ctx, ul_axes)
+
+    return _SlotPhase(dl=dl, ul=ul_run, total=total, soft_shapes=soft_shapes)
 
 
 @dataclasses.dataclass
@@ -417,14 +475,6 @@ class _UlPhase:
     ctx: dict
     soft_shapes: tuple
     plan: tuple
-
-
-@dataclasses.dataclass
-class _SlotPhase:
-    fn: object
-    dl_ctx: dict
-    ul_ctx: dict
-    soft_shapes: tuple
 
 
 class _PhaseCache:
@@ -473,8 +523,11 @@ class SlotConductor:
         self._dl_phases = _PhaseCache(MAX_PHASES)
         self._ul_phases = _PhaseCache(MAX_PHASES)
         self._slot_phases = _PhaseCache(MAX_PHASES)
-        self._copy_stream = (torch.cuda.Stream(self.device)
-                             if self.device.type == "cuda" else None)
+        self._batch_phases = _PhaseCache(MAX_PHASES)
+        self._graphs = _PhaseCache(MAX_GRAPHS)
+        cuda = self.device.type == "cuda"
+        self._copy_stream = torch.cuda.Stream(self.device) if cuda else None
+        self._pool = torch.cuda.graph_pool_handle() if cuda else None
 
     # ---------------------------------------------------------------- DL
 
@@ -597,44 +650,137 @@ class SlotConductor:
                                   new_softs=new_softs, conductor=self,
                                   ready=ready)
 
-    def process_slot(self, dl_tti: DlTtiRequest, ul_tti: UlTtiRequest,
-                     staged: StagedPayloads, k: int, rx_samples,
-                     ul_dci: UlDciRequest | None = None, prach_fd=()):
-        """A full DL+UL slot with its payloads pre-staged at index ``k`` of
-        ``staged``.  Returns (tx_samples, PendingSlotResults); nothing is
-        copied from the device and nothing waits on it."""
+    @staticmethod
+    def _slot_key(dl_tti, ul_tti, ul_dci, stride: int) -> tuple:
+        return (dl_tti.plan_key(),
+                ul_dci.pdcch if ul_dci is not None else (),
+                ul_tti.plan_key(), dl_tti.slot.subframe_slot_index, stride)
+
+    def slot_phase(self, dl_tti: DlTtiRequest, ul_tti: UlTtiRequest,
+                   stride: int, ul_dci: UlDciRequest | None = None
+                   ) -> _SlotPhase:
+        """The resolved phase of a DL+UL slot (cached): its ``run`` is the
+        eager slot program that ``process_slot`` captures on CUDA."""
         slot_in_sf = dl_tti.slot.subframe_slot_index
-        key = (dl_tti.plan_key(),
-               ul_dci.pdcch if ul_dci is not None else (),
-               ul_tti.plan_key(), slot_in_sf, staged.stride)
 
         def resolve():
             dl_phase = self._resolve_dl_phase(dl_tti, ul_dci, slot_in_sf,
                                               False)
             ul_phase = self._resolve_ul_phase(ul_tti, slot_in_sf)
-            return _SlotPhase(
-                fn=_slot_fn(self.cell, dl_phase.plan, ul_phase.plan,
-                            slot_in_sf, staged.stride, self.device),
-                dl_ctx=dl_phase.ctx, ul_ctx=ul_phase.ctx,
-                soft_shapes=ul_phase.soft_shapes)
+            return _slot_phase(self.cell, dl_phase.plan, ul_phase.plan,
+                               slot_in_sf, stride, self.device, dl_phase.ctx,
+                               ul_phase.ctx, ul_phase.soft_shapes)
 
-        phase = self._slot_phases.get(key, resolve)
+        return self._slot_phases.get(
+            self._slot_key(dl_tti, ul_tti, ul_dci, stride), resolve)
+
+    def _launch(self, key, phase: _SlotPhase, staged: StagedPayloads, blob,
+                rx_samples, prach_fd: tuple, softs: tuple) -> tuple:
+        """Run a phase's program: eagerly off the card; on the card through
+        its CUDA graph (captured at the phase's first call).  Returns
+        (tx_samples, scalars, payload, new_softs)."""
+        if self.device.type != "cuda":
+            return phase.run(blob, rx_samples, prach_fd, softs)
+        if staged.ready is not None:
+            torch.cuda.current_stream(self.device).wait_event(staged.ready)
+        ul_in, dl_in = (rx_samples, prach_fd, softs), (blob,)
+        graph = self._graphs.get(key, lambda: SlotGraph(
+            (phase.ul, phase.dl), (ul_in, dl_in), pool=self._pool))
+        (scalars, payload, new_softs), tx_samples = graph(ul_in, dl_in)
+        return tx_samples, scalars, payload, new_softs
+
+    def graph_of(self, dl_tti: DlTtiRequest, ul_tti: UlTtiRequest,
+                 stride: int, ul_dci: UlDciRequest | None = None):
+        """The captured CUDA graph of a slot phase (None before its first
+        ``process_slot`` on CUDA)."""
+        return self._graphs._d.get(self._slot_key(dl_tti, ul_tti, ul_dci,
+                                                  stride))
+
+    def process_slot(self, dl_tti: DlTtiRequest, ul_tti: UlTtiRequest,
+                     staged: StagedPayloads, k: int, rx_samples,
+                     ul_dci: UlDciRequest | None = None, prach_fd=()):
+        """A full DL+UL slot with its payloads pre-staged at index ``k`` of
+        ``staged``.  Returns (tx_samples, PendingSlotResults); nothing is
+        copied from the device and nothing waits on it.  On CUDA the slot
+        runs as its phase's CUDA graph."""
+        phase = self.slot_phase(dl_tti, ul_tti, staged.stride, ul_dci)
         if not 0 <= k < staged.depth:
             raise ValidationError(f"staged slot {k} of {staged.depth}")
         harq_meta, softs = self._soft_buffers(ul_tti, phase.soft_shapes)
-        if staged.ready is not None:
-            torch.cuda.current_stream(self.device).wait_event(staged.ready)
-        tx_samples, scalars, payload, new_softs = phase.fn(
-            staged.buf, k, rx_samples, tuple(prach_fd), softs, phase.dl_ctx,
-            phase.ul_ctx)
+        blob = staged.buf[k * staged.stride:k * staged.stride + phase.total]
+        tx_samples, scalars, payload, new_softs = self._launch(
+            self._slot_key(dl_tti, ul_tti, ul_dci, staged.stride), phase,
+            staged, blob, rx_samples, tuple(prach_fd), softs)
         return tx_samples, self._pending(ul_tti, harq_meta, scalars, payload,
                                          new_softs)
 
+    # ------------------------------------------------------- slot batches
+
+    def _resolve_batch(self, slots, sif: int, stride: int) -> _SlotPhase:
+        """Validation, normalization, slot-context stacking and the batch
+        program, once per distinct batch of slot phases."""
+        dls, uls = [], []
+        for s in slots:
+            if s[0].slot.subframe_slot_index != sif:
+                raise ValidationError("a slot batch must share the subframe "
+                                      "slot index (the CP layout)")
+            dls.append(self._resolve_dl_phase(
+                s[0], s[2] if len(s) > 2 else None, sif, False))
+            uls.append(self._resolve_ul_phase(s[1], sif))
+            if (dls[-1].plan, uls[-1].plan) != (dls[0].plan, uls[0].plan):
+                raise ValidationError("a slot batch must share the "
+                                      "normalized DL/UL plans")
+        dl_ctx, _ = stack_ctx([d.ctx for d in dls])
+        ul_ctx, ul_axes = stack_ctx([u.ctx for u in uls])
+        return _slot_phase(self.cell, dls[0].plan, uls[0].plan, sif, stride,
+                           self.device, dl_ctx, ul_ctx,
+                           tuple(u.soft_shapes for u in uls),
+                           batch=len(slots), ul_axes=ul_axes)
+
     def process_slot_batch(self, slots, staged: StagedPayloads, rx_batch,
                            prach_fd=()):
-        raise NotImplementedError(
-            "the slot-batch throughput mode is not ported yet (ROADMAP §1 "
-            "item 15)")
+        """The slot-batch throughput mode: B same-phase slots in one
+        program (one CUDA graph on the card), K1-K8 launched once for all B.
+
+        slots: (dl_tti, ul_tti[, ul_dci]) tuples sharing the normalized DL
+        and UL plans and the subframe slot index; slot i's payloads staged
+        at index i of ``staged``.  rx_batch: complex64 [B, P, T].
+        prach_fd[i]: complex64 [B, P, S, L], each slot's own capture of
+        PRACH occasion i (the JAX conductor broadcasts one capture to every
+        slot of the batch, which repeats its detections; ROADMAP §3).
+        Returns (tx_samples [B, P, T], PendingSlotBatch).
+        """
+        if not slots or staged.depth < len(slots):
+            raise ValidationError(f"{len(slots)} slots in a batch staged "
+                                  f"{staged.depth} deep")
+        nb = len(slots)
+        sif = slots[0][0].slot.subframe_slot_index
+        key = (tuple((s[0].plan_key(), s[2].pdcch if len(s) > 2 else (),
+                      s[1].plan_key()) for s in slots), sif, staged.stride)
+        phase = self._batch_phases.get(
+            key, lambda: self._resolve_batch(slots, sif, staged.stride))
+        metas, rows = [], []
+        for s, shapes in zip(slots, phase.soft_shapes):
+            harq_meta, softs = self._soft_buffers(s[1], shapes)
+            metas.append((s[1], harq_meta))
+            rows.append(softs)
+        softs_b = tuple(torch.stack(col) for col in zip(*rows))
+        prach_b = tuple(prach_fd)
+        if rx_batch.shape[0] != nb or any(p.shape[0] != nb for p in prach_b):
+            raise ValidationError(f"rx and PRACH inputs need a slot axis of "
+                                  f"{nb}")
+        blobs = staged.buf[:nb * staged.stride].view(
+            nb, staged.stride)[:, :phase.total]
+        tx, scalars, payload, new_softs = self._launch(
+            ("batch",) + key, phase, staged, blobs, rx_batch, prach_b,
+            softs_b)
+        ready = None
+        if self.device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self.device))
+        return tx, PendingSlotBatch(slots=metas, scalars=scalars,
+                                    payload=payload, new_softs=new_softs,
+                                    conductor=self, ready=ready)
 
     # ---------------------------------------------------------------- UL
 
@@ -671,27 +817,34 @@ class SlotConductor:
 
     # ------------------------------------------------------- indications
 
-    def _to_host(self, pend: PendingSlotResults) -> tuple:
-        """The slot's packed results on the host: one copy, of this slot's
-        results only (on the copy stream, after the slot's own event)."""
+    def _to_host(self, scalars, payload, ready) -> tuple:
+        """A slot's (or a batch's: [B, ...]) packed results on the host:
+        one copy, of these results only (on the copy stream, after their
+        own event)."""
         def packed():
-            return torch.cat([pend.scalars.view(torch.uint8),
-                              pend.payload.view(torch.uint8)]).cpu()
+            return torch.cat([scalars.view(torch.uint8),
+                              payload.view(torch.uint8)], dim=-1).cpu()
 
-        if pend.ready is None:
+        if ready is None:
             host = packed()
         else:
             with torch.cuda.stream(self._copy_stream):
-                self._copy_stream.wait_event(pend.ready)
+                self._copy_stream.wait_event(ready)
                 host = packed()
         raw = host.numpy()
-        n = 4 * pend.scalars.numel()
-        return raw[:n].view(np.float32), raw[n:].view(np.int8)
+        n = 4 * scalars.shape[-1]
+        return raw[..., :n].view(np.float32), raw[..., n:].view(np.int8)
 
     def _decode(self, pend: PendingSlotResults) -> SlotResults:
         """Host-side indication decoding (the single device-to-host point)."""
-        ul_tti = pend.ul_tti
-        s, payload = self._to_host(pend)
+        s, payload = self._to_host(pend.scalars, pend.payload, pend.ready)
+        return self._indications(pend.ul_tti, pend.harq_meta, s, payload,
+                                 pend.new_softs)
+
+    def _indications(self, ul_tti, harq_meta, s, payload,
+                     new_softs) -> SlotResults:
+        """One slot's indications from its packed host results; HARQ soft
+        buffers are released (CRC ok) or stored (failed) here."""
         res = SlotResults(slot=ul_tti.slot)
         i = 0          # cursor into s
         p0 = 0         # cursor into payload
@@ -703,7 +856,7 @@ class SlotConductor:
             return v
 
         nports = self.cell.nof_ports
-        for cfg, (hid, _) in zip(ul_tti.pusch, pend.harq_meta):
+        for cfg, (hid, _) in zip(ul_tti.pusch, harq_meta):
             crc_ok, ta, cfo, evm, iters = take(5)
             snr_p, rsrp_p, epre_p = take(nports), take(nports), take(nports)
             ok = bool(crc_ok > 0.5)
@@ -737,8 +890,8 @@ class SlotConductor:
                     rnti=cfg.rnti, payload=(bits > 0).astype(np.uint8)))
                 self.harq_pool.release(cfg.rnti, hid)
         # HARQ soft-buffer store for failed TBs (device tensors, no copy)
-        for cfg, (hid, _), soft, pdu in zip(ul_tti.pusch, pend.harq_meta,
-                                            pend.new_softs, res.crc):
+        for cfg, (hid, _), soft, pdu in zip(ul_tti.pusch, harq_meta,
+                                            new_softs, res.crc):
             if not pdu.tb_crc_ok:
                 self.harq_pool.put(cfg.rnti, hid, soft)
         for cfg in ul_tti.pucch_f0:

@@ -24,6 +24,14 @@ ports, 273 RB, a 4096-point FFT and 30 kHz SCS.
   carrying also a PUCCH F0 (SR + 2 HARQ bits) and two PUCCH F2 (6 and 22
   CSI bits) in PRBs 269-272, symbols 11-12, sent by the UE emulation.
 
+* Slot batch (bench.py:523-549): conductor phases 1-4 (SSB-free) as one
+  batch of B = 4 through ``SlotConductor.process_slot_batch``; unlike the
+  bench, each slot has its own payload, UCI and samples, and its own PRACH
+  capture (one of them noise alone), so that a slot mix-up shows.
+* Multi-cell: 4 cells of the flagship DL and UL plans through
+  ``parallel.mesh.multi_cell_dl_fn`` / ``multi_cell_ul_fn``, each cell with
+  its own payloads and samples.
+
 ``chip_smoke.py`` and ``python3 -m srsran_tpu_torch.profile_slot`` drive
 these scenarios.
 """
@@ -483,17 +491,18 @@ def conductor_phases(rng: np.random.Generator, gen: torch.Generator,
     return phases
 
 
-def check_results(res: messages.SlotResults, phase: dict, where: str) -> None:
+def check_results(res: messages.SlotResults, phase: dict, where: str,
+                  prach_preambles: tuple = (PRACH_PREAMBLE,)) -> None:
     """A conductor slot's indications: the PUSCH CRC with the exact
-    payload, PRACH preamble 21, the F0 HARQ/SR bits and both F2 CSI
-    payloads as sent, with finite channel reports."""
+    payload, the PRACH detections (preamble 21), the F0 HARQ/SR bits and
+    both F2 CSI payloads as sent, with finite channel reports."""
     crc = res.crc[0]
     if not crc.tb_crc_ok:
         raise AssertionError(f"{where}: TB CRC failed")
     if not np.array_equal(res.rx_data[0].payload,
                           phase["tb"].cpu().numpy().astype(np.uint8)):
         raise AssertionError(f"{where}: decoded TB differs from payload")
-    if [r.preamble_index for r in res.rach] != [PRACH_PREAMBLE]:
+    if [r.preamble_index for r in res.rach] != list(prach_preambles):
         raise AssertionError(f"{where}: PRACH detections "
                              f"{[r.preamble_index for r in res.rach]}")
     uci = phase["uci"]
@@ -853,3 +862,57 @@ def mu_kernel_cases(slot: dict, gen: torch.Generator,
                 uci_demux.demux, uci_demux.demux_ref,
                 (llr_b, pusch.demux_plan(punct), 1, 0, c_init))
     return cases
+
+
+# ------------------------------------------------------------- slot batch
+
+# bench.py:523-549: B = 4 same-phase slots of the conductor scenario, phases
+# 1-4 (no SSB), in one program.  Each slot keeps its own payload, UCI and
+# samples (the conductor phases'), and its own PRACH capture: the one of
+# slot BATCH_NOISE_SLOT holds noise alone, so its slot reports no preamble.
+BATCH = 4
+BATCH_PHASES = tuple(range(1, 1 + BATCH))
+BATCH_NOISE_SLOT = 2
+
+
+def batch_prach_fd(device, seed: int = 0) -> tuple:
+    """One PRACH capture per slot of the batch, complex64 [B, 4, 12, 139]:
+    the bench's capture (fresh noise per slot), noise alone for slot
+    BATCH_NOISE_SLOT."""
+    rng = np.random.default_rng(seed)
+    caps = [prach_capture(rng) for _ in range(BATCH)]
+    noise = caps[BATCH_NOISE_SLOT]
+    caps[BATCH_NOISE_SLOT] = (0.05 * (rng.standard_normal(noise.shape)
+                                      + 1j * rng.standard_normal(noise.shape))
+                              ).astype(np.complex64)
+    return (torch.as_tensor(np.stack(caps)).to(device),)
+
+
+def batch_preambles(b: int) -> tuple:
+    """The PRACH preambles slot ``b`` of the batch must report."""
+    return () if b == BATCH_NOISE_SLOT else (PRACH_PREAMBLE,)
+
+
+# ------------------------------------------------------------ multi-cell
+
+NOF_CELLS = 4
+
+
+def multi_cell_inputs(rng: np.random.Generator, gen: torch.Generator,
+                      device) -> dict:
+    """Four cells' inputs of one slot (slot point (1, 0), the normalized
+    plans' slot): per cell a PDSCH TB, a DCI, a PUSCH TB and its rx samples
+    (the UE's PUSCH and SRS through the flat 4x2 channel), stacked on a
+    leading cell axis; the bench's PRACH capture per cell; zero soft
+    buffers."""
+    n = NOF_CELLS
+    sch = _up(rng.integers(0, 2, (n, PDSCH.tbs)).astype(np.int8), device)
+    dci = _up(rng.integers(0, 2, (n, PDCCH.payload_bits)).astype(np.int8),
+              device)
+    tb = _up(rng.integers(0, 2, (n, PUSCH.tbs)).astype(np.int8), device)
+    rx = torch.stack([channel(ue_samples(0, tb[c]), gen) for c in range(n)])
+    prach_b = torch.as_tensor(np.stack([prach_capture(rng) for _ in range(n)]))
+    softs = torch.zeros((n, SEG.nof_codeblocks, SEG.codeword_bits),
+                        dtype=torch.float32, device=device)
+    return dict(sch=sch, dci=dci, tb=tb, rx=rx, prach=(prach_b.to(device),),
+                softs=(softs,))

@@ -33,6 +33,14 @@ def register(kernel: Kernel) -> Kernel:
     return kernel
 
 
+def batched(kernel: Kernel) -> Kernel:
+    """Register the slot-batch form of ``kernel``: the same source with a
+    slot axis, counted apart (``<name>_batch``) so that a run shows one
+    launch per batch of slots, not one per slot."""
+    return register(dataclasses.replace(kernel, name=f"{kernel.name}_batch",
+                                        launches=0))
+
+
 def reset_counts() -> None:
     for k in REGISTRY.values():
         k.launches = 0

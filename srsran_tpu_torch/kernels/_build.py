@@ -37,27 +37,28 @@ _F = ctypes.c_float
 # C entry points and their argument types (see the matching .cu file).
 SIGNATURES = {
     "srsran_ldpc_sweep": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
-                          _P, _I, _P, _P, _I, _P],
-    "srsran_ldpc_check": [_P, _I, _P, _P],
+                          _P, _I, _P, _P, _I, _I, _P],
+    "srsran_ldpc_check": [_P, _I, _I, _P, _P],
     "srsran_rate_dematch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _I, _F, _P],
     "srsran_pusch_demap": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                           _P, _P, _I, _P, _P, _P, _P],
+                           _P, _P, _I, _P, _P, _P, _I, _P],
     "srsran_pusch_demap_lxn": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                _P, _P, _I, _I, _P, _P, _P, _P],
     "srsran_ulsch_demux": [_P, _P, _P, _P, _I, _P, _P],
     "srsran_ofdm_window": [_P, _P, _P, _I, _I, _I, _I, _P],
     "srsran_ofdm_bins_to_grid": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "srsran_dlsch_encode": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _P, _P, _P, _P, _I, _P, _P],
+                            _P, _P, _P, _P, _I, _P, _I, _P],
     "srsran_pdsch_map": [_P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P,
-                         _I, _I, _P, _I, _P, _I, _I, _P],
+                         _I, _I, _P, _I, _P, _I, _I, _I, _P],
     "srsran_ofdm_grid_to_bins": [_P, _P, _I, _I, _I, _I, _P],
     "srsran_ofdm_cp_insert": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "srsran_chest_estimate": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
-                              _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    "srsran_chest_ta": [_P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P, _P],
+                              _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                              _I, _P],
+    "srsran_chest_ta": [_P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P, _I, _P],
     "srsran_prach_corr": [_P, _P, _I, _I, _I, _I, _P, _P],
     "srsran_prach_detect": [_P, _I, _I, _I, _F, _P, _P, _I, _I, _I, _I, _F,
                             _F, _P, _I, _P, _P, _P, _P, _P],

@@ -12,7 +12,9 @@ csrc/channel_estimate.cu, which apply the same operator in band form
 (:func:`_band`: first column + [nsc, W] weights, W = 8 at the flagship)
 and compute RSRP, EPRE, noise, CFO and TA on the device; on CPU tensors it
 runs :func:`estimate_from_grid_ref`, the twin (gather, then
-:func:`estimate`).
+:func:`estimate`).  A leading slot axis on the grid (and on the pilots,
+which are slot context) runs every pass once for all slots; the band and
+the tables are shared, and each result gains the slot axis in front.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ KERNEL = kernels.register(kernels.Kernel(
     name="channel_estimate", route="cuda",
     source="srsran_tpu_torch/csrc/channel_estimate.cu",
     replaces="srsran_tpu/ops/channel_estimate.py:180"))
+KERNEL_BATCH = kernels.batched(KERNEL)
 
 
 @dataclasses.dataclass
@@ -300,7 +303,15 @@ def estimate_from_grid_ref(grid: torch.Tensor, symbols: tuple, first_sc: int,
                            nof_sc: int, nof_symbols: int, scs_hz: float,
                            **kw) -> ChannelEstimate:
     """Plain twin of :func:`estimate_from_grid`: gather the pilots, then
-    :func:`estimate`."""
+    :func:`estimate` (a slot axis runs slot by slot)."""
+    if grid.ndim == 4:
+        ests = [estimate_from_grid_ref(
+            grid[b], symbols, first_sc, expected[b] if expected.ndim == 4
+            else expected, pilot_scs, nof_sc, nof_symbols, scs_hz, **kw)
+            for b in range(grid.shape[0])]
+        return ChannelEstimate(**{
+            f.name: torch.stack([getattr(e, f.name) for e in ests])
+            for f in dataclasses.fields(ChannelEstimate)})
     dev = grid.device
     syms = const(i64, tuple(int(s) for s in symbols), device=dev)
     cols = const(i64, tuple(int(first_sc) + int(s) for s in pilot_scs),
@@ -321,7 +332,9 @@ def estimate_from_grid(grid: torch.Tensor, symbols: tuple, first_sc: int,
                        cdm_pairs: bool = False) -> ChannelEstimate:
     """:func:`estimate` on the pilots of ``grid`` (complex64 [P, nsym,
     nsc_grid]): pilot k of DM-RS symbol i sits at grid[:, symbols[i],
-    first_sc + pilot_scs[k]].  The other arguments are :func:`estimate`'s."""
+    first_sc + pilot_scs[k]].  The other arguments are :func:`estimate`'s.
+    With a slot axis -- grid [B, P, nsym, nsc_grid], expected [B, L, S_dmrs,
+    K_p] or shared [L, S_dmrs, K_p] -- every field of the result gains it."""
     kw = dict(stride=stride, smoothing=smoothing, beta_scaling=beta_scaling,
               estimate_cfo=estimate_cfo,
               dmrs_symbol_times_s=dmrs_symbol_times_s,
@@ -331,13 +344,17 @@ def estimate_from_grid(grid: torch.Tensor, symbols: tuple, first_sc: int,
         return estimate_from_grid_ref(grid, symbols, first_sc, expected,
                                       pilot_scs, nof_sc, nof_symbols, scs_hz,
                                       **kw)
-    if grid.dtype != torch.complex64 or grid.ndim != 3:
-        raise ValueError(f"grid must be complex64 [P, S, K], got "
+    if grid.dtype != torch.complex64 or grid.ndim not in (3, 4):
+        raise ValueError(f"grid must be complex64 [(B,) P, S, K], got "
                          f"{grid.dtype} {tuple(grid.shape)}")
+    lead = tuple(grid.shape[:-3])
+    slots = lead[0] if lead else 1
     scs_np = np.asarray(pilot_scs)
-    n_l, n_s, n_k = expected.shape
-    if expected.dtype != torch.complex64 or (n_s, n_k) != (len(symbols),
-                                                            len(scs_np)):
+    n_l, n_s, n_k = expected.shape[-3:]
+    shared = expected.ndim == 3
+    if (expected.dtype != torch.complex64
+            or (n_s, n_k) != (len(symbols), len(scs_np))
+            or expected.shape[:-3] not in ((), lead)):
         raise ValueError(f"expected must be complex64 [L, {len(symbols)}, "
                          f"{len(scs_np)}], got {expected.dtype} "
                          f"{tuple(expected.shape)}")
@@ -364,7 +381,7 @@ def estimate_from_grid(grid: torch.Tensor, symbols: tuple, first_sc: int,
     while nfft < nof_sc * 2:
         nfft *= 2
     dev = grid.device
-    n_p = grid.shape[0]
+    n_p = grid.shape[-3]
     # Host tables keyed by the comb (first, step, count), not by its pilots.
     key = (int(scs_sm[0]), stride_sm, k_sm, nof_sc, smoothing)
     first = const(_band_table, 0, *key, device=dev)
@@ -384,16 +401,19 @@ def estimate_from_grid(grid: torch.Tensor, symbols: tuple, first_sc: int,
         td_i0 = const(_td_i0_i32, *dkey, device=dev)
         td_w = const(_td_w, *dkey, device=dev)
     c64 = dict(dtype=torch.complex64, device=dev)
-    ls = torch.empty((n_p, n_l, n_s, k_sm), **c64)
-    ls_avg = torch.empty((n_p, n_l, k_sm), **c64)
-    partials = torch.empty((max(1, -(-ls.numel() // 256)),), **c64)
-    filtered = torch.empty((n_p, n_l, n_k), **c64)
-    coeffs = torch.empty((n_p, n_l, nsym_out, nof_sc), **c64)
-    tabuf = torch.empty((n_p, n_l, nfft), **c64)
-    stats = torch.empty((4 * n_p + 2,), dtype=torch.float32, device=dev)
-    # [P, NB, 3] partial sums of the stats pass (NB as csrc's stats_blocks)
-    stats_part = torch.empty((n_p, min(max(-(-n_s * n_k // 256), 1), 32), 3),
-                             dtype=torch.float32, device=dev)
+    ls = torch.empty(lead + (n_p, n_l, n_s, k_sm), **c64)
+    ls_avg = torch.empty(lead + (n_p, n_l, k_sm), **c64)
+    partials = torch.empty(lead + (max(1, -(-(n_p * n_l * n_s * k_sm)
+                                             // 256)),), **c64)
+    filtered = torch.empty(lead + (n_p, n_l, n_k), **c64)
+    coeffs = torch.empty(lead + (n_p, n_l, nsym_out, nof_sc), **c64)
+    tabuf = torch.empty(lead + (n_p, n_l, nfft), **c64)
+    stats = torch.empty(lead + (4 * n_p + 2,), dtype=torch.float32, device=dev)
+    # [(B,) P, NB, 3] partial sums of the stats pass (NB as csrc's
+    # stats_blocks)
+    stats_part = torch.empty(
+        lead + (n_p, min(max(-(-n_s * n_k // 256), 1), 32), 3),
+        dtype=torch.float32, device=dev)
     grid = grid.contiguous()
     expected = expected.contiguous()
     lib = _build.load()
@@ -403,22 +423,23 @@ def estimate_from_grid(grid: torch.Tensor, symbols: tuple, first_sc: int,
         return _build.ptr(x) if x is not None else None
 
     _build.check(lib.srsran_chest_estimate(
-        _build.ptr(grid), grid.shape[1], grid.shape[2], _build.ptr(syms),
+        _build.ptr(grid), grid.shape[-2], grid.shape[-1], _build.ptr(syms),
         _build.ptr(cols), _build.ptr(expected), opt(times), _build.ptr(first),
         _build.ptr(weights), _build.ptr(pilot_idx), opt(td_i0), opt(td_w),
         n_p, n_l, n_s, n_k, int(cdm_pairs), nof_sc, weights.shape[1],
         int(use_cfo), nsym_out, int(interp), float(beta_scaling), two_pi_dt,
         nfft, stride_sm, _build.ptr(ls), _build.ptr(ls_avg),
         _build.ptr(partials), _build.ptr(filtered), _build.ptr(coeffs),
-        _build.ptr(stats_part), _build.ptr(stats), _build.ptr(tabuf), stream),
-        "chest_estimate")
+        _build.ptr(stats_part), _build.ptr(stats), _build.ptr(tabuf), slots,
+        int(shared), stream), "chest_estimate")
     h_t = torch.fft.ifft(tabuf, dim=-1)
     _build.check(lib.srsran_chest_ta(
         _build.ptr(h_t), n_p, n_l, n_s, n_k, nfft, nfft // (2 * stride_sm),
         float(nfft * scs_hz), float(beta_scaling), _build.ptr(stats_part),
-        _build.ptr(stats), stream), "chest_ta")
-    KERNEL.count()
+        _build.ptr(stats), slots, stream), "chest_ta")
+    (KERNEL_BATCH if lead else KERNEL).count()
     return ChannelEstimate(
-        coeffs=coeffs, noise_var=stats[:n_p], rsrp=stats[n_p:2 * n_p],
-        epre=stats[2 * n_p:3 * n_p], snr=stats[3 * n_p:4 * n_p],
-        time_alignment_s=stats[4 * n_p + 1], cfo_hz=stats[4 * n_p])
+        coeffs=coeffs, noise_var=stats[..., :n_p],
+        rsrp=stats[..., n_p:2 * n_p], epre=stats[..., 2 * n_p:3 * n_p],
+        snr=stats[..., 3 * n_p:4 * n_p], time_alignment_s=stats[..., 4 * n_p + 1],
+        cfo_hz=stats[..., 4 * n_p])

@@ -31,13 +31,20 @@ KERNEL = kernels.register(kernels.Kernel(
     name="pdsch_map", route="cuda",
     source="srsran_tpu_torch/csrc/pdsch_map.cu",
     replaces="srsran_tpu/ops/ldpc_rate_match.py:132"))
+KERNEL_BATCH = kernels.batched(KERNEL)
 
 _MAX_LAYERS = 4
 
 
 def pdsch_map_ref(grid, cbs, e_sizes, rv, modulation, base_graph, z, k_prime,
                   k, c_init, nof_layers, sym_idx, sc_idx, precoder):
-    """Plain twin of :func:`pdsch_map`."""
+    """Plain twin of :func:`pdsch_map` (a slot axis runs slot by slot)."""
+    if grid.ndim == 4:
+        for b in range(grid.shape[0]):
+            pdsch_map_ref(grid[b], cbs[b], e_sizes, rv, modulation,
+                          base_graph, z, k_prime, k, c_init, nof_layers,
+                          sym_idx, sc_idx, precoder)
+        return grid
     qm = BITS_PER_SYMBOL[modulation]
     codeword = rate_match_batch(cbs, e_sizes, rv, qm, base_graph, z, k_prime,
                                 k)                                 # [G]
@@ -70,7 +77,9 @@ def pdsch_map(grid: torch.Tensor, cbs: torch.Tensor, e_sizes, rv: int,
     grid complex64 [P, S, K]; cbs int8 [C, N] encoded codeblocks (2Z
     punctured bits dropped); e_sizes the C rate-matched lengths (multiples
     of nof_layers * Qm); sym_idx / sc_idx int [RE] data-RE plan; precoder
-    complex64 [P, L] on the grid's device.  Returns the grid.
+    complex64 [P, L] on the grid's device.  Returns the grid.  With a slot
+    axis -- grid [B, P, S, K], cbs [B, C, N] -- one launch maps every slot
+    (the RE plan and the precoder shared).
     """
     if not is_cuda(grid, cbs, sym_idx, sc_idx, precoder):
         return pdsch_map_ref(grid, cbs, e_sizes, rv, modulation, base_graph,
@@ -80,7 +89,8 @@ def pdsch_map(grid: torch.Tensor, cbs: torch.Tensor, e_sizes, rv: int,
     if modulation not in ("qpsk", "qam16", "qam64", "qam256"):
         raise NotImplementedError(f"{modulation} PDSCH map on the card")
     e_sizes = tuple(int(e) for e in e_sizes)
-    c, n = cbs.shape
+    c, n = cbs.shape[-2:]
+    lead = tuple(grid.shape[:-3])
     nre = sym_idx.shape[0]
     if not 1 <= nof_layers <= _MAX_LAYERS:
         raise ValueError(f"{nof_layers} layers (the kernel takes 1..4)")
@@ -90,7 +100,8 @@ def pdsch_map(grid: torch.Tensor, cbs: torch.Tensor, e_sizes, rv: int,
                          f"{nof_layers} layers, Qm={qm}")
     if cbs.dtype != torch.int8 or grid.dtype != torch.complex64:
         raise ValueError("cbs must be int8 and the grid complex64")
-    if grid.ndim != 3 or precoder.shape != (grid.shape[0], nof_layers):
+    if (grid.ndim not in (3, 4) or tuple(cbs.shape[:-2]) != lead
+            or precoder.shape != (grid.shape[-3], nof_layers)):
         raise ValueError(f"grid {tuple(grid.shape)} / precoder "
                          f"{tuple(precoder.shape)} vs {nof_layers} layers")
     if (sym_idx.dtype != torch.int32 or sc_idx.dtype != torch.int32
@@ -105,12 +116,12 @@ def pdsch_map(grid: torch.Tensor, cbs: torch.Tensor, e_sizes, rv: int,
     levels = const(pam_levels_scaled, modulation, device=dev)
     cbs = cbs.contiguous()
     w = torch.view_as_real(precoder.to(torch.complex64).contiguous())
-    p, s, kk = grid.shape
+    p, s, kk = grid.shape[-3:]
     _build.check(lib.srsran_pdsch_map(
         _build.ptr(cbs), n, _build.ptr(bounds), c, fs, fe, n_nf, k0p,
         _build.ptr(gold), _build.ptr(levels), qm, _build.ptr(sym_idx),
         _build.ptr(sc_idx), nre, nof_layers, _build.ptr(w), p,
-        _build.ptr(torch.view_as_real(grid)), s, kk,
+        _build.ptr(torch.view_as_real(grid)), s, kk, lead[0] if lead else 1,
         _build.stream_of(grid)), "pdsch_map")
-    KERNEL.count()
+    (KERNEL_BATCH if lead else KERNEL).count()
     return grid

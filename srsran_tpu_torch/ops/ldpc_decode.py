@@ -3,7 +3,10 @@
 Port of srsran_tpu/ops/ldpc_decode.py: one lifted check row at a time,
 normalized min-sum with scaling 0.8 and at most 6 sweeps; after each sweep
 the first k' hard bits of every codeblock are CRC-checked and the decoder
-stops once every codeblock passes (the JAX package's all-CBs rule).  LLR > 0
+stops once every codeblock passes (the JAX package's all-CBs rule).  Given
+a slot axis ([S, C, NV*Z] LLRs, the slot-batch mode), the rule holds per
+slot, as ``jax.vmap`` of the JAX decoder keeps it: a slot whose codeblocks
+all pass stops sweeping while the others go on.  LLR > 0
 means bit 0; input LLRs cover the full NV*Z codeword with the 2Z punctured
 positions at 0 and filler positions strongly positive.
 
@@ -33,6 +36,7 @@ KERNEL = kernels.register(kernels.Kernel(
     name="ldpc_decode", route="cuda",
     source="srsran_tpu_torch/csrc/ldpc_decode.cu",
     replaces="srsran_tpu/ops/ldpc_decode.py:112"))
+KERNEL_BATCH = kernels.batched(KERNEL)
 
 DEFAULT_SCALING = 0.8
 DEFAULT_MAX_ITER = 6
@@ -92,7 +96,12 @@ def _prepare(llrs, base_graph, z, nof_layers):
 def decode_early_stop_ref(llrs, base_graph, z, nof_layers, max_iter, scaling,
                           crc_poly, k_prime):
     """Plain twin of :func:`decode_early_stop`.  Its stop test reads the CRC
-    flags on the host after each sweep."""
+    flags on the host after each sweep; a slot axis runs slot by slot."""
+    if llrs.ndim == 3:
+        outs = [decode_early_stop_ref(x, base_graph, z, nof_layers, max_iter,
+                                      scaling, crc_poly, k_prime)
+                for x in llrs]
+        return tuple(torch.stack(o) for o in zip(*outs))
     g, nrows, batch = _prepare(llrs, base_graph, z, nof_layers)
     llr = llrs.reshape(batch, -1).to(torch.float32).clone()
     max_d = max(len(r) for r in g.rows[:nrows])
@@ -137,6 +146,9 @@ def _crc_words_i32(poly: str, k_prime: int) -> np.ndarray:
 
 def _decode_cuda(llrs, base_graph, z, nof_layers, max_iter, scaling,
                  crc_poly, k_prime):
+    slots = llrs.shape[0] if llrs.ndim == 3 else 1
+    shape = llrs.shape
+    llrs = llrs.reshape(-1, shape[-1])
     g, nrows, batch = _prepare(llrs, base_graph, z, nof_layers)
     if llrs.dtype != torch.float32:
         raise ValueError(f"llrs must be float32, got {llrs.dtype}")
@@ -149,7 +161,7 @@ def _decode_cuda(llrs, base_graph, z, nof_layers, max_iter, scaling,
     m1 = torch.zeros((batch, nrows, z), dtype=torch.float32, device=dev)
     m2 = torch.zeros_like(m1)
     meta = torch.zeros((batch, nrows, z), dtype=torch.int32, device=dev)
-    state = torch.zeros(2, dtype=torch.int32, device=dev)     # done, iters
+    state = torch.zeros((slots, 2), dtype=torch.int32, device=dev)  # done, iters
     cb_ok = torch.zeros(batch, dtype=torch.int32, device=dev)
     edges = const(_edge_tables, base_graph, z, nrows, device=dev)
     n_edges = (edges.shape[0] - nrows - 1) // 2
@@ -165,14 +177,17 @@ def _decode_cuda(llrs, base_graph, z, nof_layers, max_iter, scaling,
             _build.ptr(meta), _build.ptr(row_ptr), _build.ptr(edge_col),
             _build.ptr(edge_shift), nrows, g.nof_cols, z, float(scaling),
             _build.ptr(crc_rows) if crc_rows is not None else None,
-            k_prime, _build.ptr(cb_ok), _build.ptr(state), batch, stream),
-            "ldpc_sweep")
+            k_prime, _build.ptr(cb_ok), _build.ptr(state), batch,
+            batch // slots, stream), "ldpc_sweep")
         if crc_rows is not None:
             _build.check(lib.srsran_ldpc_check(
-                _build.ptr(cb_ok), batch, _build.ptr(state), stream),
-                "ldpc_check")
+                _build.ptr(cb_ok), slots, batch // slots, _build.ptr(state),
+                stream), "ldpc_check")
+    if len(shape) == 3:
+        KERNEL_BATCH.count()
+        return bits.reshape(shape), llr.reshape(shape), state[:, 1]
     KERNEL.count()
-    return bits, llr, state[1]
+    return bits, llr, state[0, 1]
 
 
 def decode_early_stop(llrs: torch.Tensor, base_graph: int, z: int,
@@ -181,8 +196,10 @@ def decode_early_stop(llrs: torch.Tensor, base_graph: int, z: int,
     """Layered min-sum with per-sweep CRC early stop.
 
     llrs f32 [B, NV*Z].  Returns (bits int8 [B, NV*Z], soft f32 [B, NV*Z],
-    nof_iterations int32 scalar).  On CUDA no host sync happens: the count
-    stays a device tensor.
+    nof_iterations int32 scalar).  With a slot axis, llrs f32 [S, B, NV*Z]
+    stop per slot (one launch per sweep for all S slots) and the count is
+    int32 [S].  On CUDA no host sync happens: the count stays a device
+    tensor.
     """
     if not is_cuda(llrs):
         return decode_early_stop_ref(llrs, base_graph, z, nof_layers,

@@ -36,6 +36,7 @@ KERNEL = kernels.register(kernels.Kernel(
     name="dlsch_encode", route="cuda",
     source="srsran_tpu_torch/csrc/ldpc_encode.cu",
     replaces="srsran_tpu/ops/ldpc_encode.py:56"))
+KERNEL_BATCH = kernels.batched(KERNEL)
 
 
 @functools.lru_cache(maxsize=None)
@@ -136,7 +137,10 @@ def _tb_crc_poly(seg) -> str:
 
 
 def dlsch_encode_ref(tb: torch.Tensor, base_graph: int) -> torch.Tensor:
-    """Plain twin of :func:`dlsch_encode`."""
+    """Plain twin of :func:`dlsch_encode` (a slot axis runs slot by
+    slot)."""
+    if tb.ndim == 2:
+        return torch.stack([dlsch_encode_ref(t, base_graph) for t in tb])
     seg = segment_tb(tb.shape[0], base_graph)
     payload = tb.to(torch.int8)
     b = torch.cat([payload, crc(payload[None], _tb_crc_poly(seg))[0]])
@@ -161,12 +165,17 @@ def dlsch_encode(tb: torch.Tensor, base_graph: int) -> torch.Tensor:
     """Encode one transport block: TB bits int8 [TBS] -> the encoded
     codeblocks int8 [C, N] (TB CRC and CB CRC24B attached, fillers 0, the
     2Z punctured systematic bits dropped), bit for bit
-    ``encode(...)[:, 2Z:]`` of the segmented block."""
+    ``encode(...)[:, 2Z:]`` of the segmented block.  With a slot axis, B
+    TBs int8 [B, TBS] -> [B, C, N] in one launch of each pass, each TB
+    with its own TB CRC."""
     if not is_cuda(tb):
         return dlsch_encode_ref(tb, base_graph)
-    if tb.ndim != 1:
-        raise ValueError(f"tb must be 1-D, got {tuple(tb.shape)}")
-    tbs = tb.shape[0]
+    if tb.ndim not in (1, 2):
+        raise ValueError(f"tb must be [TBS] or [B, TBS], got "
+                         f"{tuple(tb.shape)}")
+    lead = tuple(tb.shape[:-1])
+    slots = lead[0] if lead else 1
+    tbs = tb.shape[-1]
     seg = segment_tb(tbs, base_graph)
     c, z = seg.nof_codeblocks, seg.lifting_size
     g = get_graph(base_graph, z)
@@ -183,13 +192,14 @@ def dlsch_encode(tb: torch.Tensor, base_graph: int) -> torch.Tensor:
     edge_col = edges[g.nof_rows + 1:g.nof_rows + 1 + n_edges]
     edge_shift = edges[g.nof_rows + 1 + n_edges:]
     core = const(_core_schedule, base_graph, z, device=dev)
-    scratch = torch.empty(1, dtype=torch.int32, device=dev)
-    out = torch.empty((c, seg.codeword_bits), dtype=torch.int8, device=dev)
+    scratch = torch.empty(slots, dtype=torch.int32, device=dev)
+    out = torch.empty(lead + (c, seg.codeword_bits), dtype=torch.int8,
+                      device=dev)
     _build.check(lib.srsran_dlsch_encode(
         _build.ptr(tb8), tbs, _build.ptr(tb_words), seg.tb_crc_bits,
         _build.ptr(scratch), _build.ptr(cb_words), seg.cb_crc_bits, ppc,
         g.nof_info_cols, z, g.nof_cols, g.nof_rows, _build.ptr(row_ptr),
         _build.ptr(edge_col), _build.ptr(edge_shift), _build.ptr(core), c,
-        _build.ptr(out), _build.stream_of(tb8)), "dlsch_encode")
-    KERNEL.count()
+        _build.ptr(out), slots, _build.stream_of(tb8)), "dlsch_encode")
+    (KERNEL_BATCH if lead else KERNEL).count()
     return out

@@ -30,6 +30,7 @@ KERNEL = kernels.register(kernels.Kernel(
     name="rate_dematch", route="cuda",
     source="srsran_tpu_torch/csrc/rate_dematch.cu",
     replaces="srsran_tpu/ops/ldpc_rate_match.py:159"))
+KERNEL_BATCH = kernels.batched(KERNEL)
 
 FILLER_LLR = 1e4
 
@@ -114,7 +115,14 @@ def rate_dematch_batch(llrs: torch.Tensor, nof_codeblocks: int, e_sizes,
 def rate_dematch_combine_ref(llrs, nof_codeblocks, e_sizes, rv, qm,
                              base_graph, z, k_prime, k, n,
                              soft_buffer=None):
-    """Plain twin of :func:`rate_dematch_combine`."""
+    """Plain twin of :func:`rate_dematch_combine` (a slot axis runs slot
+    by slot)."""
+    if llrs.ndim == 2:
+        outs = [rate_dematch_combine_ref(
+            llrs[b], nof_codeblocks, e_sizes, rv, qm, base_graph, z, k_prime,
+            k, n, None if soft_buffer is None else soft_buffer[b])
+            for b in range(llrs.shape[0])]
+        return tuple(torch.stack(o) for o in zip(*outs))
     buf = rate_dematch_batch(llrs, nof_codeblocks, e_sizes, rv, qm,
                              base_graph, z, k_prime, k, n)
     if soft_buffer is not None:
@@ -123,12 +131,17 @@ def rate_dematch_combine_ref(llrs, nof_codeblocks, e_sizes, rv, qm,
     return buf, full
 
 
-def _cb_offsets(e_sizes: tuple) -> np.ndarray:
-    return np.concatenate([[0], np.cumsum(e_sizes)[:-1]]).astype(np.int32)
+def _cb_offsets(e_sizes: tuple, slots: int = 1) -> np.ndarray:
+    """int32 [slots * C]: each codeblock's first LLR in the [slots, G]
+    codeword LLRs."""
+    off = np.concatenate([[0], np.cumsum(e_sizes)[:-1]])
+    g = int(np.sum(e_sizes))
+    return (np.arange(slots)[:, None] * g + off[None, :]).reshape(-1).astype(
+        np.int32)
 
 
-def _cb_sizes(e_sizes: tuple) -> np.ndarray:
-    return np.asarray(e_sizes, dtype=np.int32)
+def _cb_sizes(e_sizes: tuple, slots: int = 1) -> np.ndarray:
+    return np.tile(np.asarray(e_sizes, dtype=np.int32), slots)
 
 
 def rate_dematch_combine(llrs: torch.Tensor, nof_codeblocks: int, e_sizes,
@@ -139,7 +152,9 @@ def rate_dematch_combine(llrs: torch.Tensor, nof_codeblocks: int, e_sizes,
 
     Returns (new_soft f32 [C, N], decoder input f32 [C, 2Z + N]): new_soft
     is the combined circular buffer (the next HARQ state); the decoder input
-    prepends the 2Z punctured systematic positions as zero LLRs.
+    prepends the 2Z punctured systematic positions as zero LLRs.  With a
+    slot axis -- llrs [S, G], soft buffer [S, C, N] -- the outputs are
+    [S, C, N] and [S, C, 2Z + N], from one launch over S * C codeblocks.
     """
     tensors = (llrs,) if soft_buffer is None else (llrs, soft_buffer)
     if not is_cuda(*tensors):
@@ -147,28 +162,34 @@ def rate_dematch_combine(llrs: torch.Tensor, nof_codeblocks: int, e_sizes,
                                         base_graph, z, k_prime, k, n,
                                         soft_buffer)
     e_sizes = tuple(int(e) for e in e_sizes)
+    lead = tuple(llrs.shape[:-1])
     if len(e_sizes) != nof_codeblocks or any(e % qm for e in e_sizes):
         raise ValueError(f"E sizes {e_sizes} vs C={nof_codeblocks}, Qm={qm}")
-    if llrs.dtype != torch.float32 or llrs.shape != (sum(e_sizes),):
-        raise ValueError(f"llrs must be f32 [{sum(e_sizes)}], got "
-                         f"{llrs.dtype} {tuple(llrs.shape)}")
-    if soft_buffer is not None and (soft_buffer.dtype != torch.float32
-                                    or soft_buffer.shape != (nof_codeblocks, n)):
-        raise ValueError(f"soft buffer must be f32 [{nof_codeblocks}, {n}]")
+    if (llrs.dtype != torch.float32 or len(lead) > 1
+            or llrs.shape[-1] != sum(e_sizes)):
+        raise ValueError(f"llrs must be f32 [S, {sum(e_sizes)}] or "
+                         f"[{sum(e_sizes)}], got {llrs.dtype} "
+                         f"{tuple(llrs.shape)}")
+    if soft_buffer is not None and (
+            soft_buffer.dtype != torch.float32
+            or soft_buffer.shape != lead + (nof_codeblocks, n)):
+        raise ValueError(f"soft buffer must be f32 {lead + (nof_codeblocks, n)}")
+    slots = lead[0] if lead else 1
     fs, fe, n_nf, k0p = _window_plan(rv, base_graph, z, k_prime, k, n)
     dev = llrs.device
     lib = _build.load()
-    off = const(_cb_offsets, e_sizes, device=dev)
-    es = const(_cb_sizes, e_sizes, device=dev)
+    off = const(_cb_offsets, e_sizes, slots, device=dev)
+    es = const(_cb_sizes, e_sizes, slots, device=dev)
     llrs = llrs.contiguous()
     soft = soft_buffer.contiguous() if soft_buffer is not None else None
-    new_soft = torch.empty((nof_codeblocks, n), dtype=torch.float32, device=dev)
-    full = torch.empty((nof_codeblocks, 2 * z + n), dtype=torch.float32,
+    new_soft = torch.empty(lead + (nof_codeblocks, n), dtype=torch.float32,
+                           device=dev)
+    full = torch.empty(lead + (nof_codeblocks, 2 * z + n), dtype=torch.float32,
                        device=dev)
     _build.check(lib.srsran_rate_dematch(
         _build.ptr(llrs), _build.ptr(soft) if soft is not None else None,
         _build.ptr(new_soft), _build.ptr(full), _build.ptr(off),
-        _build.ptr(es), nof_codeblocks, n, 2 * z, qm, fs, fe, n_nf, k0p,
-        FILLER_LLR, _build.stream_of(llrs)), "rate_dematch")
-    KERNEL.count()
+        _build.ptr(es), slots * nof_codeblocks, n, 2 * z, qm, fs, fe, n_nf,
+        k0p, FILLER_LLR, _build.stream_of(llrs)), "rate_dematch")
+    (KERNEL_BATCH if lead else KERNEL).count()
     return new_soft, full

@@ -14,12 +14,15 @@ demodulate_slot.  :func:`modulate_slot` is the K7 wrapper in the same way:
 csrc/ofdm_mod.cu's grid-to-bins pass, cuFFT's IFFT, then its compensation
 and CP-insertion pass; twin :func:`modulate_slot_ref`.  On the card all
 these passes are memory-bound gathers (about 2 MB each at the flagship),
-and the kernel designs are in the .cu files.
+and the kernel designs are in the .cu files.  A leading slot axis ([B, P,
+...], the slot-batch mode) goes through the same passes as B x P rows, with
+one cuFFT plan per batch shape.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -37,6 +40,8 @@ KERNEL_TX = kernels.register(kernels.Kernel(
     name="ofdm_modulate", route="cuda",
     source="srsran_tpu_torch/csrc/ofdm_mod.cu",
     replaces="srsran_tpu/ops/ofdm.py:72"))
+KERNEL_BATCH = kernels.batched(KERNEL)
+KERNEL_TX_BATCH = kernels.batched(KERNEL_TX)
 
 
 @functools.lru_cache(maxsize=None)
@@ -139,16 +144,18 @@ def modulate_slot(grid: torch.Tensor, dft_size: int, numerology: int,
                   cp: CyclicPrefix = CyclicPrefix.NORMAL,
                   slot_in_subframe: int = 0, center_freq_hz: float = 0.0,
                   scale: float = 1.0) -> torch.Tensor:
-    """OFDM-modulate one slot.  grid complex64 [P, S, K] -> samples [P, T]
-    (the twin also takes other leading dims)."""
+    """OFDM-modulate one slot.  grid complex64 [P, S, K] -> samples [P, T];
+    with a slot axis, [B, P, S, K] -> [B, P, T] (the twin also takes other
+    leading dims)."""
     if not is_cuda(grid):
         return modulate_slot_ref(grid, dft_size, numerology, cp,
                                  slot_in_subframe, center_freq_hz, scale)
     nsym = _check_tx(grid, cp)
-    if grid.dtype != torch.complex64 or grid.ndim != 3:
-        raise ValueError(f"grid must be complex64 [P, S, K], got "
+    if grid.dtype != torch.complex64 or grid.ndim not in (3, 4):
+        raise ValueError(f"grid must be complex64 [(B,) P, S, K], got "
                          f"{grid.dtype} {tuple(grid.shape)}")
-    p, _, k = grid.shape
+    lead = tuple(grid.shape[:-2])
+    p, k = math.prod(lead), grid.shape[-1]
     if k > dft_size:
         raise ValueError(f"{k} subcarriers do not fit a {dft_size}-point DFT")
     dev = grid.device
@@ -168,8 +175,8 @@ def modulate_slot(grid: torch.Tensor, dft_size: int, numerology: int,
     _build.check(lib.srsran_ofdm_cp_insert(
         _build.ptr(x), _build.ptr(out), _build.ptr(plan), _build.ptr(comp),
         p, nsym, dft_size, total, stream), "ofdm_cp_insert")
-    KERNEL_TX.count()
-    return out
+    (KERNEL_TX_BATCH if len(lead) > 1 else KERNEL_TX).count()
+    return out.reshape(lead + (total,))
 
 
 @functools.lru_cache(maxsize=None)
@@ -228,14 +235,15 @@ def demodulate_slot(samples: torch.Tensor, nof_sc: int, dft_size: int,
                     numerology: int, cp: CyclicPrefix = CyclicPrefix.NORMAL,
                     slot_in_subframe: int = 0, center_freq_hz: float = 0.0,
                     scale: float = 1.0, window_offset: int = 0) -> torch.Tensor:
-    """OFDM-demodulate one slot.  samples complex64 [P, T] -> grid [P, S, K]."""
+    """OFDM-demodulate one slot.  samples complex64 [P, T] -> grid [P, S, K];
+    with a slot axis, [B, P, T] -> [B, P, S, K]."""
     if not is_cuda(samples):
         return demodulate_slot_ref(samples, nof_sc, dft_size, numerology, cp,
                                    slot_in_subframe, center_freq_hz, scale,
                                    window_offset)
     _check_rx(samples, cp, numerology, dft_size, slot_in_subframe, window_offset)
-    if samples.dtype != torch.complex64 or samples.ndim != 2:
-        raise ValueError(f"samples must be complex64 [P, T], got "
+    if samples.dtype != torch.complex64 or samples.ndim not in (2, 3):
+        raise ValueError(f"samples must be complex64 [(B,) P, T], got "
                          f"{samples.dtype} {tuple(samples.shape)}")
     dev = samples.device
     lib = _build.load()
@@ -244,7 +252,8 @@ def demodulate_slot(samples: torch.Tensor, nof_sc: int, dft_size: int,
     starts = const(_rx_table, 0, *key, device=dev)
     comp = const(_rx_table, 1, *key, device=dev)
     rot = const(_rx_table, 2, *key, device=dev) if window_offset else None
-    p, t = samples.shape
+    lead = tuple(samples.shape[:-1])
+    p, t = math.prod(lead), samples.shape[-1]
     s = starts.shape[0]
     src = torch.view_as_real(samples.contiguous())
     win = torch.empty((p, s, dft_size), dtype=torch.complex64, device=dev)
@@ -258,5 +267,5 @@ def demodulate_slot(samples: torch.Tensor, nof_sc: int, dft_size: int,
         _build.ptr(bins), _build.ptr(grid), _build.ptr(comp),
         _build.ptr(rot) if rot is not None else None, p, s, dft_size, nof_sc,
         stream), "ofdm_bins_to_grid")
-    KERNEL.count()
-    return grid
+    (KERNEL_BATCH if len(lead) > 1 else KERNEL).count()
+    return grid.reshape(lead + (s, nof_sc))

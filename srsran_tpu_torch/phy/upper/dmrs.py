@@ -115,7 +115,7 @@ def _cover(port: int, nsym: int, npil: int) -> np.ndarray:
 
 
 def _is_values(c_inits) -> bool:
-    return (isinstance(c_inits, torch.Tensor) and c_inits.ndim == 2
+    return (isinstance(c_inits, torch.Tensor) and c_inits.ndim in (2, 3)
             and c_inits.is_complex())
 
 
@@ -128,8 +128,8 @@ def pilots_for_port(cfg: DmrsConfig, port: int, c_inits=None, *,
     [nof_dmrs_symbols] (numpy or a CPU tensor: they key the host-built
     pilot cache, so a seed read back from the card would sync every slot),
     or a complex tensor of pilot VALUES [nsym, npilot] (the slot context;
-    its device wins over ``device``).  ``device`` has no default: the
-    pilots go where the caller says.
+    its device wins over ``device``), or [B, nsym, npilot] for B slots at
+    once.  ``device`` has no default: the pilots go where the caller says.
     """
     _check_supported(cfg)
     if _is_values(c_inits):
@@ -146,7 +146,8 @@ def pilots_for_port(cfg: DmrsConfig, port: int, c_inits=None, *,
             c_inits = c_inits.numpy()
         seeds = tuple(int(c) for c in np.asarray(c_inits).reshape(-1))
         vals = const(_values_from_cinits, cfg, seeds, device=device)
-    cover = const(_cover, port, vals.shape[0], vals.shape[1], device=vals.device)
+    cover = const(_cover, port, vals.shape[-2], vals.shape[-1],
+                  device=vals.device)
     return vals * cover
 
 

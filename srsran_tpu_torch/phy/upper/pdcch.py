@@ -243,21 +243,28 @@ def _dmrs_values(cfg: PdcchConfig, cinits, device) -> torch.Tensor:
 def process(grid: torch.Tensor, payload: torch.Tensor, cfg: PdcchConfig,
             amplitude: float = 1.0, dmrs_cinits=None) -> torch.Tensor:
     """Encode + modulate + map one DCI, added into port 0 of the grid
-    [P, nsym, nsc] (in place).  payload: int [A] on the grid's device."""
+    [P, nsym, nsc] (in place).  payload: int [A] on the grid's device.
+
+    With a leading slot axis -- grid [B, P, nsym, nsc], payload [B, A],
+    pilot values [B, n] or shared -- the GF(2) product and the map run
+    once for the B slots."""
     dev = grid.device
+    lead = tuple(payload.shape[:-1])
     e = BITS_PER_CCE * cfg.aggregation_level
     key = (cfg.payload_bits, e, cfg.rnti, cfg.n_rnti, cfg.n_id_data)
     m = const(_dci_map, 0, *key, device=dev, dtype=torch.float32)
     offset = const(_dci_map, 1, *key, device=dev)
     acc = torch.matmul(payload.to(torch.float32), m)
     b = ((acc.to(torch.int32) + offset) & 1).to(torch.int8)
-    syms = modulate(b[None], "qpsk")[0] * amplitude
+    syms = modulate(b, "qpsk") * amplitude
     pilots = _dmrs_values(cfg, dmrs_cinits, dev) * amplitude
     _, l0, sc0, dur, width = _patch_plan(cfg.coreset, cfg.cce_index,
                                          cfg.aggregation_level)
     inv = const(_patch_index, cfg.coreset, cfg.cce_index,
                 cfg.aggregation_level, device=dev)
-    values = torch.cat([syms.new_zeros(1), syms.to(torch.complex64),
-                        pilots.to(torch.complex64)])
-    grid[0, l0:l0 + dur, sc0:sc0 + width] += values[inv].reshape(dur, width)
+    values = torch.cat([syms.new_zeros(lead + (1,)), syms.to(torch.complex64),
+                        pilots.to(torch.complex64).expand(
+                            lead + pilots.shape[-1:])], dim=-1)
+    grid[..., 0, l0:l0 + dur, sc0:sc0 + width] += values[..., inv].reshape(
+        lead + (dur, width))
     return grid

@@ -171,17 +171,25 @@ def process(grid: torch.Tensor, payload_bits: torch.Tensor, cfg: PdschConfig,
 
     dmrs_cinits: optional per-DM-RS-symbol c_init seeds or pilot values
     (slot context).  precoding: [P, L] matrix; default the identity mapping,
-    uploaded once per device.
+    uploaded once per device.  With a slot axis -- grid [B, P, nsym, nsc],
+    payload_bits [B, TBS], pilot values [B, nsym, npilot] or shared -- K5
+    and K6 run once for all slots and the DM-RS map once per slot.
     """
     check_supported(cfg)
     if precoding is None:
-        w = identity(grid.shape[0], cfg.nof_layers, grid.device)
+        w = identity(grid.shape[-3], cfg.nof_layers, grid.device)
     else:
         w = torch.as_tensor(np.asarray(precoding)).to(grid.device)
     cbs = ldpc_encode.dlsch_encode(payload_bits,                   # K5
                                    segmentation(cfg).base_graph)
     dl_map.pdsch_map(*map_args(grid, cfg, cbs, w))                 # K6
-    return map_dmrs(grid, dmrs_config(cfg), w, dmrs_cinits)
+    if grid.ndim == 3:
+        return map_dmrs(grid, dmrs_config(cfg), w, dmrs_cinits)
+    per_slot = isinstance(dmrs_cinits, torch.Tensor) and dmrs_cinits.ndim == 3
+    for b in range(grid.shape[0]):
+        map_dmrs(grid[b], dmrs_config(cfg), w,
+                 dmrs_cinits[b] if per_slot else dmrs_cinits)
+    return grid
 
 
 def identity(nof_ports: int, nof_layers: int, device) -> torch.Tensor:

@@ -262,7 +262,7 @@ def detect_format1_batch(grid: torch.Tensor, common: PucchF1Config,
     else:
         raise NotImplementedError(
             "PUCCH F1 from an n_cs table in the slot context is not ported; "
-            "pass the weights of f1_batch_weights (ROADMAP §1 item 11)")
+            "pass the weights of f1_batch_weights (ROADMAP §1 item 13)")
     detected, metric, bits, d_hat = f1_detect(grid, common, weights,
                                               threshold)
     return [{"detected": detected[ui], "metric": metric[ui],

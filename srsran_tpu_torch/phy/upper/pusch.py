@@ -11,7 +11,11 @@ transform precoding:
   stop (K1) -> CB/TB CRC.
 
 All data REs of the allocation are gathered through one host plan; the
-codeblock axis batches the decode.
+codeblock axis batches the decode.  A leading slot axis on the grid (the
+slot-batch mode: grid [B, P, S, K], soft buffers [B, C, N], DM-RS pilot
+values [B, nsym, npilot] or shared) runs K8, K3, K2 and K1 once for all
+slots, with the LDPC early stop kept per slot; K16 and K17 run once per
+slot.  Every result then has the slot axis in front.
 """
 
 from __future__ import annotations
@@ -145,7 +149,7 @@ def estimate_channel(grid: torch.Tensor, cfg: PuschConfig,
         nv = (e0.noise_var + e1.noise_var) / 2
         rsrp = (e0.rsrp + e1.rsrp) / 2
         return chest.ChannelEstimate(
-            coeffs=torch.cat([e0.coeffs, e1.coeffs], dim=1),
+            coeffs=torch.cat([e0.coeffs, e1.coeffs], dim=-3),
             noise_var=nv, rsrp=rsrp, epre=(e0.epre + e1.epre) / 2,
             snr=rsrp / torch.clamp_min(nv, 1e-12),
             time_alignment_s=(e0.time_alignment_s + e1.time_alignment_s) / 2,
@@ -170,7 +174,7 @@ def estimate_args(grid: torch.Tensor, cfg: PuschConfig, dmrs_cinits,
     dmrs_cfg = dmrs_config(cfg)
     sc_abs = _type1_sc_indices(cfg.rb_start, cfg.rb_count, delta)
     expected = torch.stack([pilots_for_port(dmrs_cfg, p, dmrs_cinits, device=dev)
-                            for p in ports])                      # [L, S, K]
+                            for p in ports], dim=-3)        # [(B,) L, S, K]
     # Symbol times at the config's numerology, as the JAX package computes
     # them (PuschConfig.numerology defaults to 0; ROADMAP §3).
     scs = 15_000 << cfg.numerology
@@ -195,10 +199,13 @@ def _estimate_group(grid: torch.Tensor, cfg: PuschConfig, dmrs_cinits,
 
 
 def _plan(cfg: PuschConfig, device):
-    """Data-RE plan (symbol, subcarrier) columns as device int64 tensors."""
+    """Data-RE plan (symbol, subcarrier) columns as int32 tensors on
+    ``device``, uploaded once (the layout K3 and K16 read)."""
     key = plan_key(cfg)
-    return (const(data_re_plan_column, *key, 0, device=device),
-            const(data_re_plan_column, *key, 1, device=device))
+    return (const(data_re_plan_column, *key, 0, device=device,
+                  dtype=torch.int32),
+            const(data_re_plan_column, *key, 1, device=device,
+                  dtype=torch.int32))
 
 
 def segmentation(cfg: PuschConfig) -> SegmentParams:
@@ -215,7 +222,7 @@ def _frontend_hop(grid: torch.Tensor, cfg: PuschConfig, dmrs_cinits=None):
     sym_idx, sc_idx = _plan(cfg, grid.device)
     x, out_nv = ul_demap.gather_equalize(
         grid, est.coeffs, sym_idx, sc_idx, cfg.rb_start * 12,
-        torch.mean(est.noise_var), cfg.nof_layers, cfg.equalizer)
+        est.noise_var.mean(dim=-1), cfg.nof_layers, cfg.equalizer)
     return x, out_nv, est
 
 
@@ -226,9 +233,9 @@ def codeword_llrs(grid: torch.Tensor, cfg: PuschConfig, dmrs_cinits=None):
     c_init = _c_init(cfg)
     llr, x = ul_demap.equalize_demap_descramble(
         grid, est.coeffs, sym_idx, sc_idx, cfg.rb_start * 12,
-        torch.mean(est.noise_var), c_init, cfg.modulation, cfg.nof_layers,
+        est.noise_var.mean(dim=-1), c_init, cfg.modulation, cfg.nof_layers,
         cfg.equalizer)
-    evm_val = evm_ops.evm(x.reshape(-1), llr, cfg.modulation)
+    evm_val = evm_ops.evm(x.flatten(-2), llr, cfg.modulation)
     return llr, est, evm_val
 
 
@@ -242,6 +249,10 @@ def decode_uci_fields(llr: torch.Tensor, cfg: PuschConfig) -> tuple:
     dcfg = demux_plan(cfg)
     if dcfg is None:
         return llr, {}
+    if llr.ndim == 2:                   # a slot axis: K17 runs per slot
+        outs = [decode_uci_fields(x, cfg) for x in llr]
+        return (torch.stack([o[0] for o in outs]),
+                {k: torch.stack([o[1][k] for o in outs]) for k in outs[0][1]})
     u = cfg.uci
     qm = BITS_PER_SYMBOL[cfg.modulation]
     fields = uci_demux.demux(llr, dcfg, u.o_ack, u.o_csi1, _c_init(cfg))
@@ -265,7 +276,7 @@ def decode_from_llrs(llr: torch.Tensor, est, cfg: PuschConfig,
     llr, uci_out = decode_uci_fields(llr, cfg)
     qm = BITS_PER_SYMBOL[cfg.modulation]
     seg = segmentation(cfg)
-    e_sizes = _cb_rate_match_sizes(llr.shape[0], seg.nof_codeblocks, qm,
+    e_sizes = _cb_rate_match_sizes(llr.shape[-1], seg.nof_codeblocks, qm,
                                    cfg.nof_layers)
     res = sch_decoder.decode(llr, seg, e_sizes, cfg.rv, qm, cfg.tbs,
                              soft_buffer=soft_buffer,
@@ -273,7 +284,7 @@ def decode_from_llrs(llr: torch.Tensor, est, cfg: PuschConfig,
     return PuschResult(tb_bits=res.tb_bits, tb_crc_ok=res.tb_crc_ok,
                        cb_crc_ok=res.cb_crc_ok, new_soft=res.new_soft,
                        csi=est,
-                       evm=(torch.mean(llr.abs()) if evm_val is None
+                       evm=(llr.abs().mean(dim=-1) if evm_val is None
                             else evm_val),
                        nof_iterations=res.nof_iterations, **uci_out)
 
@@ -281,7 +292,8 @@ def decode_from_llrs(llr: torch.Tensor, est, cfg: PuschConfig,
 def process(grid: torch.Tensor, cfg: PuschConfig,
             soft_buffer: torch.Tensor | None = None,
             nof_iterations: int = 6, dmrs_cinits=None) -> PuschResult:
-    """Full PUSCH receive.  grid: complex64 [P, nsym, nsc] rx resource grid."""
+    """Full PUSCH receive.  grid: complex64 [P, nsym, nsc] rx resource grid,
+    or [B, P, nsym, nsc] with soft_buffer [B, C, N] for B slots at once."""
     llr, est, evm_val = codeword_llrs(grid, cfg, dmrs_cinits)
     return decode_from_llrs(llr, est, cfg, soft_buffer, nof_iterations,
                             evm_val=evm_val)

@@ -253,9 +253,12 @@ def ssb_block(cfg: SsbConfig, mib24: torch.Tensor,
 
     mib24: int [24].  slot_ctx: optional (static_bits [32], scramble_mask
     [32]) int tensors on the same device (:func:`slot_ctx_for`); without it
-    the config's own SFN and half-frame are used.
+    the config's own SFN and half-frame are used.  With a leading slot axis
+    (mib24 [B, 24], the context [B, 32] or shared) the patches are
+    [B, 4, 240], from one GF(2) product.
     """
     dev = mib24.device
+    lead = tuple(mib24.shape[:-1])
     if slot_ctx is None:
         m = const(_pbch_operand, cfg, "mib", device=dev, dtype=torch.float32)
         offset = const(_pbch_operand, cfg, "static", device=dev)
@@ -263,25 +266,30 @@ def ssb_block(cfg: SsbConfig, mib24: torch.Tensor,
     else:
         static_t, mask_t = slot_ctx
         s = static_t.to(torch.int8) ^ mask_t.to(torch.int8)
-        v = torch.cat([mib24.to(torch.int8), s]).to(torch.float32)    # [56]
+        v = torch.cat([mib24.to(torch.int8), s.expand(lead + s.shape[-1:])],
+                      dim=-1).to(torch.float32)                  # [..., 56]
         m = const(_pbch_operand, cfg, "full", device=dev, dtype=torch.float32)
         offset = const(_pbch_operand, cfg, "g", device=dev)
         acc = torch.matmul(v, m)
     bits = (acc.to(torch.int32) + offset) & 1
-    re = 1.0 - 2.0 * bits[0::2].to(torch.float32)
-    im = 1.0 - 2.0 * bits[1::2].to(torch.float32)
+    re = 1.0 - 2.0 * bits[..., 0::2].to(torch.float32)
+    im = 1.0 - 2.0 * bits[..., 1::2].to(torch.float32)
     data = torch.complex(re, im) * float(np.float32(1.0 / np.sqrt(2.0)))
-    patch = const(_base, cfg, device=dev).clone()
+    base = const(_base, cfg, device=dev)
+    patch = base.expand(lead + base.shape).clone()
     idx = const(_data_index, cfg.phys_cell_id % 4, device=dev)
-    patch.view(-1)[idx] = data
+    patch.view(lead + (-1,))[..., idx] = data
     return patch
 
 
 def map_ssb_to_grid(grid: torch.Tensor, cfg: SsbConfig, mib24: torch.Tensor,
                     slot_ctx=None) -> torch.Tensor:
     """Add the SSB patch to every port of a [..., nsymb, nsc] slot grid
-    (in place)."""
+    (in place); with a slot axis on mib24 ([B, 24]), patch b goes to every
+    port of grid [B, P, nsymb, nsc]'s slot b."""
     patch = ssb_block(cfg, mib24, slot_ctx)
+    if patch.ndim > 2:
+        patch = patch.unsqueeze(-3)
     l0, k0 = cfg.first_symbol, cfg.first_subcarrier
     grid[..., l0:l0 + SSB_NSYMB, k0:k0 + SSB_NSC] += patch
     return grid

@@ -1,8 +1,8 @@
 """Where a flagship slot's time goes on one CUDA GPU.
 
     python3 -m srsran_tpu_torch.profile_slot
-        [--direction ul|dl|conductor|ul_mu] [--slots 8] [--calls 10]
-                                            [--out chiprun_out/profile]
+        [--direction ul|dl|conductor|ul_mu|batch] [--slots 8] [--calls 10]
+        [--out DIR]
 
 Drives the flagship UL slot (the full mix: PUSCH, PUCCH F1, PRACH, SRS),
 DL slot (SSB in the first slot, PDCCH, 4-layer PDSCH, OFDM), conductor
@@ -11,7 +11,10 @@ slot (DL + UL with the PUCCH F0/F2 UCI PDUs through
 resolved after the measurement) or two-UE UL slot (``ul_mu``: a 4-layer
 MMSE PUSCH and a 1-layer PUSCH with HARQ-ACK and CSI parts 1-2 beside the
 PUCCH F1, PRACH and SRS, through ``ul_slot_fn``; every slot checked after
-the measurement) of :mod:`srsran_tpu_torch.flagship` and reports:
+the measurement) or slot batch (``batch``: conductor phases 1-4 as one
+``process_slot_batch`` of B = 4 per call, ``--slots`` batches, each slot
+checked after the measurement; "per slot" below then reads "per batch") of
+:mod:`srsran_tpu_torch.flagship` and reports:
 
 * the slot's wall time three ways: CUDA events around each call (as
   ``chip_smoke.py`` times it), the host clock over back-to-back calls with
@@ -29,11 +32,16 @@ the measurement) of :mod:`srsran_tpu_torch.flagship` and reports:
   than once, kept to show how far it lies from the trace;
 * each hand kernel of the direction's path: its device time and device
   activities per call against its plain twin's, over ``--calls`` calls
-  each.
+  each (none for ``batch``: ``chip_smoke.py`` times the batched kernels);
+* the hand kernels' launch counts over one call (for the conductor and the
+  batch, through their CUDA graphs).
+
+The conductor and batch directions run every call once before measuring,
+so every slot phase's CUDA graph is captured beforehand.
 
 The slot's trace and a JSON summary go to ``--out`` (``slot_trace.json``
-and ``summary.json`` for the UL, ``dl_``, ``conductor_`` or ``ul_mu_``
-before both names for the others);
+and ``summary.json`` for the UL, ``dl_``, ``conductor_``, ``ul_mu_`` or
+``batch_`` before both names for the others);
 the summary is also printed as the last line.
 """
 
@@ -49,7 +57,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import flagship
+from . import flagship, kernels
 from .device import card_line, require_cuda
 from .fapi.conductor import SlotConductor
 from .kernels import _build
@@ -299,9 +307,53 @@ def ul_mu_scenario(n: int, seed: int, dev, gen) -> tuple:
     return [lambda i=i: call(i) for i in range(n)], cases, check
 
 
+def batch_scenario(n: int, seed: int, dev, gen) -> tuple:
+    """(one zero-argument call per batch, no kernel cases, a function that
+    resolves and checks every slot launched and returns their count): ``n``
+    batches of conductor phases 1-4 (B = 4), each staged beforehand, with
+    each slot's own samples and PRACH capture."""
+    rng = np.random.default_rng(seed)
+    phases = flagship.conductor_phases(rng, gen, dev)
+    pay = flagship.dl_payloads(rng)
+    grp = flagship.BATCH_PHASES
+    slots = [(flagship.dl_request(g), flagship.ul_request(g)) for g in grp]
+    cond = SlotConductor(flagship.CELL)
+    staged = [cond.stage_payloads([(d, flagship.tx_request(g, pay))
+                                   for g, (d, _) in zip(grp, slots)])
+              for _ in range(n)]
+    rx_b = torch.stack([phases[g]["rx"] for g in grp])
+    prach_b = flagship.batch_prach_fd(dev, seed)
+    pending = []
+
+    def call(i):
+        _, pend = cond.process_slot_batch(slots, staged[i], rx_b,
+                                          prach_fd=prach_b)
+        pending.append(pend)
+
+    def resolve() -> int:
+        for pend in pending:
+            for b, (g, res) in enumerate(zip(grp, pend.resolve())):
+                flagship.check_results(res, phases[g], f"batch slot {b}",
+                                       flagship.batch_preambles(b))
+        return len(pending) * len(grp)
+
+    return [lambda i=i: call(i) for i in range(n)], {}, resolve
+
+
+def launch_counts(call) -> dict:
+    """The hand kernels' launches in one call."""
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    call()
+    torch.cuda.synchronize()
+    return {k.name: k.launches for k in kernels.REGISTRY.values()
+            if k.launches}
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--direction", choices=("ul", "dl", "conductor", "ul_mu"),
+    ap.add_argument("--direction",
+                    choices=("ul", "dl", "conductor", "ul_mu", "batch"),
                     default="ul")
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--calls", type=int, default=10)
@@ -325,18 +377,27 @@ def main(argv=None) -> dict:
         calls, cases, resolve = ul_mu_scenario(args.slots, args.seed, dev,
                                                gen)
         prefix = "ul_mu_"
+    elif args.direction == "batch":
+        calls, cases, resolve = batch_scenario(args.slots, args.seed, dev, gen)
+        prefix = "batch_"
     else:
         calls, cases, resolve = conductor_scenario(args.slots, args.seed, dev,
                                                    gen)
         prefix = "conductor_"
-    for call in calls[:2]:                      # warm-up: device constants
+    # warm-up: device constants; for the conductor and the batch, every
+    # slot phase's CUDA graph
+    graphed = args.direction in ("conductor", "batch")
+    for call in calls if graphed else calls[:2]:
         call()
     torch.cuda.synchronize()
     summary = {"card": card_line(), "direction": args.direction,
+               "slots_per_call": (flagship.BATCH if args.direction == "batch"
+                                  else 1),
+               "launches_per_call": launch_counts(calls[0]),
                "wall": wall_times(calls),
                "slot": slot_profile(calls, out / f"{prefix}slot_trace.json"),
                "kernels": kernel_profiles(cases, args.calls, out)}
-    if args.direction in ("conductor", "ul_mu"):
+    if args.direction in ("conductor", "ul_mu", "batch"):
         summary["slots_resolved_and_checked"] = resolve()
     (out / f"{prefix}summary.json").write_text(json.dumps(summary, indent=1))
     print(json.dumps(summary))

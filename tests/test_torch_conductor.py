@@ -39,6 +39,7 @@ from srsran_tpu_torch import convert
 from srsran_tpu_torch.fapi import conductor as t_cond
 from srsran_tpu_torch.fapi import messages as t_msgs
 from srsran_tpu_torch.fapi.validators import ValidationError
+from srsran_tpu_torch.phy import slot_programs as t_slots
 
 torch.set_num_threads(2)
 
@@ -249,9 +250,9 @@ def test_empty_ul_results_lie_on_the_callers_device():
 def test_unported_modes_raise():
     with pytest.raises(NotImplementedError, match="item 16"):
         t_cond.SlotConductor(T_CELL, device="cpu", pcap=object())
-    c = t_cond.SlotConductor(T_CELL, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        c.process_slot_batch([], None, None)
+    f3 = ((), (), (), (), (), (), (object(),))
+    with pytest.raises(NotImplementedError, match="F3/F4.*item 13"):
+        t_slots.ul_slot_core(T_CELL, f3)
 
 
 # -------------------------------------------------------------- HARQ

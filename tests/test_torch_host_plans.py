@@ -762,7 +762,9 @@ def test_port_imports_without_jax():
             "srsran_tpu_torch.ops.ulsch_demux",
             "srsran_tpu_torch.ops.uci_demux",
             "srsran_tpu_torch.ops.ul_demap",
-            "srsran_tpu_torch.phy.upper.ue_tx"} <= names
+            "srsran_tpu_torch.phy.upper.ue_tx",
+            "srsran_tpu_torch.graphs",
+            "srsran_tpu_torch.parallel.mesh"} <= names
 
 
 def _import_lines(path: Path):
