@@ -92,7 +92,21 @@ the JAX package.  It builds the hand kernels from ``srsran_tpu_torch/csrc``
    bounds) and at B = 1 against the unbatched kernels;
 8. multi_cell: 4 cells of the flagship DL and UL plans through
    ``parallel.mesh.multi_cell_dl_fn`` / ``multi_cell_ul_fn``, each cell's
-   samples and UL results equal to its single-cell program's.
+   samples and UL results equal to its single-cell program's;
+9. cell-edge: K18 (the DFT-s-OFDM PUSCH's equalize, IDFT, demap and
+   descramble) and K19 (PUCCH F3/F4) against their twins at the
+   ``flagship.EDGE`` shapes (K18 also at M = 3240, K19 also at the F4, K8
+   at the F3's stride 1), with ``torch.fft.ifft`` on the same number of
+   blocks as the IDFT stage's library time; then 8 cell-edge UL slots (UE
+   A: 2-layer QAM64 on 240 RB; UE C: DFT-s-OFDM QPSK with intra-slot
+   hopping and 2 HARQ-ACK bits; PUCCH F3 with 22 bits, F4 with 8; F1,
+   PRACH, SRS) through ``ul_slot_fn``: both TBs exact, UE C's ACK, the F3
+   and F4 UCI as sent, PRACH 21, K18 and K19 launched; one call under
+   ``set_sync_debug_mode("error")``; slot 0 against the CPU twins; the same
+   slots through ``SlotConductor.process_slot`` (each through its CUDA
+   graph and equal to its eager program), and two of them as one
+   ``process_slot_batch`` (K18 and K19 once per slot), equal to
+   ``process_slot``.
 
 It prints the card's name and power limit, one JSON line of per-kernel
 results, and as its last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -136,6 +150,13 @@ DL_KERNELS = ("dlsch_encode", "pdsch_map", "ofdm_modulate")
 UCI_KERNELS = ("pucch_f0_detect", "pucch_f2_demap", "short_block_detect",
                "polar_decode")
 MU_KERNELS = ("pusch_demap_lxn", "ulsch_demux")
+EDGE_KERNELS = ("pusch_tp_demap", "pucch_f3_demap")
+# The kernels the cell-edge slot (phase 9) launches: K3 for UE A, K18 for
+# UE C, K17 and K14 for its HARQ-ACK, K19 with K15 (F3) and K14 (F4).
+EDGE_PATH = ("ldpc_decode", "rate_dematch", "pusch_demap", "ofdm_demodulate",
+             "channel_estimate", "prach_detect", "pucch_f1_detect",
+             "srs_estimate", "ulsch_demux", "short_block_detect",
+             "polar_decode") + EDGE_KERNELS
 # The kernels the two-UE UL slot (phase 5) launches: no K3 (both UEs use
 # MMSE), K14 and K15 for UE B's UCI on PUSCH.
 MU_PATH = ("ldpc_decode", "rate_dematch", "ofdm_demodulate",
@@ -153,7 +174,10 @@ CASE_KERNEL = {"pdsch_map_repetition": "pdsch_map",
                "pusch_demap_lxn_2l_mmse": "pusch_demap_lxn",
                "pusch_demap_lxn_1l_mmse": "pusch_demap_lxn",
                "ulsch_demux_punctured": "ulsch_demux",
-               "channel_estimate_delta1": "channel_estimate"}
+               "channel_estimate_delta1": "channel_estimate",
+               "pusch_tp_demap_widest": "pusch_tp_demap",
+               "pucch_f3_demap_f4": "pucch_f3_demap",
+               "channel_estimate_f3": "channel_estimate"}
 CONDUCTOR_SLOTS = 16
 RESOLVE_LAG = 2
 # A HARQ retransmission through the conductor: at 11 dB the first
@@ -275,6 +299,13 @@ def compare(name: str, out, ref) -> float:
             raise AssertionError(f"{case}: hard decisions differ")
         return max(close(out[1], ref[1], f"{case} x"),
                    close(llr, llr_ref, f"{case} llr", rtol=1e-3))
+    if name == "pusch_tp_demap":                   # K18: (llr, x)
+        # x after the IDFT within 1e-4, the LLRs within 1e-3, of their
+        # largest magnitudes
+        return max(close(out[1], ref[1], f"{case} x"),
+                   close(out[0], ref[0], f"{case} llr", rtol=1e-3))
+    if name == "pucch_f3_demap":                   # K19
+        return close(out, ref, f"{case} llr", rtol=1e-3)
     if name == "ulsch_demux":                      # K17: bit-exact fields
         if not all(torch.equal(a, b) for a, b in zip(out, ref)):
             raise AssertionError(f"{case} differs from its twin")
@@ -366,6 +397,25 @@ def work(name: str, args: tuple, out) -> tuple:
         return (n_re * p * c64 + nbytes((coeffs, sym, sc)) + nbytes(out),
                 n_re * (8.0 * p * (n_l * (n_l + 1) // 2 + n_l)
                         + 30.0 * n_l ** 3 + 2 * n_l * 3.0 * levels))
+    if name == "pusch_tp_demap":                   # K18
+        # per RE: 8 per complex MAC of the 1 x N combining over the ports
+        # and ~10 for the solve; per block the M-point IDFT at an FFT's
+        # count (the kernel's direct sum does 8 M^2, the function needs no
+        # more than this); 3 per PAM level per axis of the demap
+        grid, coeffs, plan, noise, hops, m = args[:6]
+        n_re, p = plan.shape[-1], grid.shape[0]
+        qm = BITS_PER_SYMBOL[args[7]]
+        levels = 2 ** max(qm // 2, 1)
+        return (n_re * p * c64 + nbytes((coeffs, plan, noise, hops))
+                + m * c64 + n_re * qm + nbytes(out),
+                n_re * (8.0 * p + 10 + 6.0 * levels) + fft_ops(m, n_re // m))
+    if name == "pucch_f3_demap":                   # K19: as K18
+        grid, coeffs, noise, cfg = args
+        m, p = 12 * cfg.nof_rb, grid.shape[0]
+        n_data = len(pucch._f3_symbol_split(cfg)[1])
+        return (n_data * m * p * c64 + nbytes((coeffs, noise)) + m * c64
+                + out.numel() + nbytes(out),
+                n_data * m * (8.0 * p + 10 + 12) + fft_ops(m, n_data))
     if name == "ulsch_demux":                      # K17: a sign per bit
         llr = args[0]
         n = sum(o.numel() for o in out)
@@ -438,10 +488,12 @@ def bound(name: str, args: tuple, out) -> dict:
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_phases(cases: dict) -> dict:
+def kernel_phases(cases: dict, library: dict | None = None) -> dict:
     """Each kernel against its twin; all but the repetition case timed.
-    No single PyTorch call computes any of these functions, so
-    ``library_ms`` is null for every kernel."""
+    ``library`` names a PyTorch call for a part of a kernel's work (the
+    DFT-s-OFDM kernels' IDFT stage: ``torch.fft.ifft`` on the same number
+    of blocks), timed as ``library_ms``; no single PyTorch call computes
+    any of the other functions, so theirs is null."""
     results = {}
     for name, (fn, ref_fn, args) in cases.items():
         out = fn(*args)
@@ -449,10 +501,12 @@ def kernel_phases(cases: dict) -> dict:
         if name == "pdsch_map_repetition":
             print(f"K6 repetition, rv 2: max_abs_err {err:.3g}", flush=True)
             continue
+        lib = (library or {}).get(name)
         results[name] = dict(max_abs_err=err,
                              ms=median_ms(lambda: fn(*args)),
                              plain_ms=median_ms(lambda: ref_fn(*args)),
-                             **bound(name, args, out), library_ms=None)
+                             **bound(name, args, out),
+                             library_ms=median_ms(lib) if lib else None)
     return results
 
 
@@ -501,7 +555,7 @@ def check_slot(out: dict, payload: torch.Tensor, slot: int) -> None:
 # UL result keys held equal to the CPU twins'; the others within a tolerance.
 UL_EXACT = {"tb_bits", "tb_crc_ok", "nof_iterations", "ta_s", "detected",
             "harq_bits", "harq_ack_bits", "harq_ack_valid", "csi1_bits",
-            "csi1_valid", "csi2_bits", "csi2_valid"}
+            "csi1_valid", "csi2_bits", "csi2_valid", "uci_bits", "valid"}
 
 
 def compare_ul(out: dict, ref: dict) -> None:
@@ -1281,6 +1335,147 @@ def multi_cell_phase(dev, gen, rng, card) -> None:
           f"launches {launches}, card {card}", flush=True)
 
 
+# ---------------------------------------------------------------- phase 9
+
+def _ifft_blocks(blocks: int, m: int, dev):
+    """torch.fft.ifft over ``blocks`` blocks of ``m`` points (norm="ortho",
+    the IDFT stage of K18 and K19), as a callable to time."""
+    x = torch.ones((blocks, m), dtype=torch.complex64, device=dev)
+    return lambda: torch.fft.ifft(x, dim=-1, norm="ortho")
+
+
+def edge_library(cases: dict) -> dict:
+    """The IDFT stage's library call for each K18 and K19 case."""
+    out = {}
+    for name, (_, _, args) in cases.items():
+        kind = CASE_KERNEL.get(name, name)
+        if kind == "pusch_tp_demap":
+            plan, m = args[2], args[5]
+            out[name] = _ifft_blocks(plan.shape[-1] // m, m, plan.device)
+        elif kind == "pucch_f3_demap":
+            cfg = args[3]
+            out[name] = _ifft_blocks(len(pucch._f3_symbol_split(cfg)[1]),
+                                     12 * cfg.nof_rb, args[0].device)
+    return out
+
+
+def edge_conductor(slots: list, prach_in, rng, card) -> None:
+    """The cell-edge slots' UL requests beside the flagship DL through the
+    FAPI conductor: every slot through its phase's CUDA graph against the
+    phase's eager program, a counted pass resolved RESOLVE_LAG behind
+    (both TBs, UE C's ACK, the F3 and F4 payloads as sent, K18 and K19
+    launched), then two slots as one process_slot_batch against
+    process_slot."""
+    cond = SlotConductor(flagship.CELL)
+    pay = flagship.dl_payloads(rng)
+    n = len(slots)
+    dlr = [flagship.dl_request(i) for i in range(n)]
+    ulr = [flagship.edge_ul_request(i) for i in range(n)]
+    txd = [flagship.tx_request(i, pay) for i in range(n)]
+    stride = max(cond.payload_layout(d)[1] for d in dlr)
+    st = cond.stage_payloads(list(zip(dlr, txd)), stride=stride)
+    for i, s in enumerate(slots):
+        tx_g, pend_g = cond.process_slot(dlr[i], ulr[i], st, i, s["rx"],
+                                         prach_fd=prach_in)
+        tx_e, pend_e = _eager_slot(cond, dlr[i], ulr[i], st, i, s["rx"],
+                                   prach_in)
+        close(tx_g, tx_e, f"cell-edge slot {i}: graph vs eager tx samples")
+        res = pend_g.resolve()
+        convert.slot_results(pend_e.resolve(), res, rtol=1e-3)
+        flagship.check_edge_results(res, s, f"cell-edge graph slot {i}")
+    kernels.reset_counts()
+    host_us, span_us, done = _timed_slots(lambda i, k: cond.process_slot(
+        dlr[i], ulr[i], st, k, slots[i]["rx"], prach_fd=prach_in)[1], n,
+        [(i, i) for i in range(n)])
+    counts = launched(EDGE_KERNELS)
+    for (i, _), res in done:
+        flagship.check_edge_results(res, slots[i], f"conductor cell-edge {i}")
+    print(f"conductor cell-edge slot (flagship DL + UL with 2 PUSCH, "
+          f"DFT-s-OFDM + hopping, F1, F3, F4, PRACH, SRS): {n} slots ok, "
+          f"each graph equal to its eager program; {span_us:.1f} us per slot "
+          f"by CUDA events, {host_us:.1f} us on the host clock, launches "
+          f"{counts}, card {card}", flush=True)
+
+    b_idx = (1, 2)
+    st_b = cond.stage_payloads([(dlr[i], txd[i]) for i in b_idx],
+                               stride=stride)
+    rx_b = torch.stack([slots[i]["rx"] for i in b_idx])
+    prach_b = (torch.stack([prach_in[0]] * len(b_idx)),)
+    batch = [(dlr[i], ulr[i]) for i in b_idx]
+    cond.process_slot_batch(batch, st_b, rx_b, prach_fd=prach_b)[1].resolve()
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    _, pend_b = cond.process_slot_batch(batch, st_b, rx_b, prach_fd=prach_b)
+    per_batch = {k: kernels.REGISTRY[k].launches for k in EDGE_KERNELS}
+    if per_batch != {"pusch_tp_demap": 2, "pucch_f3_demap": 4}:
+        raise AssertionError(f"cell-edge batch launches {per_batch}")
+    res_b = pend_b.resolve()
+    for b, i in enumerate(b_idx):
+        _, pend = cond.process_slot(dlr[i], ulr[i], st_b, b, rx_b[b],
+                                    prach_fd=(prach_b[0][b],))
+        torch.testing.assert_close(pend_b.scalars[b], pend.scalars,
+                                   rtol=2e-4, atol=2e-4)
+        if not torch.equal(pend_b.payload[b], pend.payload):
+            raise AssertionError(f"cell-edge batch slot {b}: payload differs")
+        convert.slot_results(pend.resolve(), res_b[b], rtol=2e-4)
+        flagship.check_edge_results(res_b[b], slots[i],
+                                    f"cell-edge batch slot {b}")
+    print(f"cell-edge batch of {len(b_idx)}: equal to process_slot slot by "
+          f"slot, launches per batch {per_batch}", flush=True)
+
+
+def edge_phases(dev, gen, rng, card) -> tuple:
+    """Phase 9: K18 and K19 (and K8 at stride 1) against their twins, then
+    the cell-edge UL slot through ``ul_slot_fn`` and the conductor."""
+    t0 = time.perf_counter()
+    slots = flagship.make_edge_slots(NOF_SLOTS + 2, rng, gen, dev)
+    softs = flagship.edge_soft_buffers(dev)
+    prach_in = flagship.prach_fd(dev, SEED)
+    torch.cuda.synchronize()
+    print(f"cell-edge transmitters: {len(slots)} slots in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    cases = flagship.edge_kernel_cases(slots[0], gen)
+    results = kernel_phases(cases, edge_library(cases))
+    prog = flagship.edge_program()
+
+    def run(s):
+        return prog(s["rx"], prach_in, softs, s["ctx"])
+
+    measured = slots[2:]
+    for s in slots[:2]:
+        flagship.check_edge_slot(run(s), s, "cell-edge warm-up")
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    slot_ms, outs = [], []
+    for s in measured:
+        out, ms = timed(lambda: run(s))
+        slot_ms.append(ms)
+        outs.append(out)
+    launches = launched(EDGE_PATH)
+    for i, (s, out) in enumerate(zip(measured, outs)):
+        flagship.check_edge_slot(out, s, f"cell-edge slot {i}")
+    edge = {k: launches[k] for k in EDGE_KERNELS}
+    print(f"cell-edge UL slot (2-layer PUSCH + DFT-s-OFDM hopping PUSCH with "
+          f"HARQ-ACK + F1 + F3 + F4 + PRACH + SRS): {len(outs)} slots ok, "
+          f"median {1e3 * statistics.median(slot_ms):.1f} us per slot (CUDA "
+          f"events), launches {edge}, card {card}", flush=True)
+    s = measured[0]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = run(s)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    flagship.check_edge_slot(out, s, "cell-edge sync-free call")
+    print("cell-edge sync-free steady-state call: ok", flush=True)
+    cpu = prog(s["rx"].cpu(), _to_cpu(prach_in), _to_cpu(softs),
+               _to_cpu(s["ctx"]))
+    compare_ul(out, cpu)
+    print("cell-edge slot (full result dict) vs plain twins on the CPU: ok",
+          flush=True)
+    edge_conductor(slots[:NOF_SLOTS], prach_in, rng, card)
+    return results, launches
+
+
 def _slot_of_dict(out: dict, c) -> dict:
     """Cell ``c`` of a multi-cell UL result dict (None: the whole of a
     single cell's), on the CPU."""
@@ -1322,17 +1517,25 @@ def main() -> int:
     batch_launches = batch_phase(scen, card)
     batch_results = batched_kernel_phase(ul_slots, dl_slots, gen, scen)
     multi_cell_phase(dev, gen, np.random.default_rng(SEED + 8), card)
+    t9 = time.perf_counter()
+    edge_results, edge_launches = edge_phases(
+        dev, gen, np.random.default_rng(SEED + 9), card)
+    print(f"phase 9 (cell-edge): {time.perf_counter() - t9:.1f} s",
+          flush=True)
     results = {**ul_results, **dl_results, **uci_results, **mu_results,
-               **batch_results}
+               **batch_results, **edge_results}
     # K1-K11 as their own paths launched them (phases 2, 3), K12-K15 as the
     # conductor's slots did (phase 4, which launched every kernel), K16-K17
     # as the two-UE slot did (phase 5), the batched K1-K8 as one batch of
-    # phase 7 did
+    # phase 7 did, K18-K19 as the cell-edge slot did (phase 9)
     launches = {**cond_launches, **ul_launches, **dl_launches,
-                **{k: mu_launches[k] for k in MU_KERNELS}, **batch_launches}
+                **{k: mu_launches[k] for k in MU_KERNELS}, **batch_launches,
+                **{k: edge_launches[k] for k in EDGE_KERNELS}}
     for name, r in results.items():
+        lib = ("" if r["library_ms"] is None
+               else f", library {r['library_ms']:.4f} ms")
         print(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}), "
+              f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}){lib}, "
               f"max_abs_err {r['max_abs_err']:.3g}", flush=True)
 
     line = {"kernels": [dict(name=k.name, route=k.route, source=k.source,

@@ -3,8 +3,9 @@
 A PHY has no learned weights; what crosses over is configuration and slot
 state: config dataclasses, FAPI requests, HARQ soft buffers and the
 conductor's slot-context values (DM-RS pilot values or c_init seeds, SSB
-bit pairs, PUCCH F1 weight tuples); :func:`slot_results` holds the
-indications of either package's conductor to the other's.  Inputs are numpy arrays, plain dataclass fields
+bit pairs, PUCCH F1 weight tuples, F3/F4 DM-RS values);
+:func:`slot_results` holds the indications of either package's
+conductor to the other's.  Inputs are numpy arrays, plain dataclass fields
 and enums, matched to the port's classes by name, so this module imports
 neither JAX nor the JAX package.
 """
@@ -22,7 +23,8 @@ from .phy.upper.dmrs import DmrsConfig
 from .phy.upper.pdcch import CoresetConfig, PdcchConfig
 from .phy.upper.pdsch import PdschConfig, PdschPtrs
 from .phy.upper.prach import PrachConfig
-from .phy.upper.pucch import PucchF0Config, PucchF1Config, PucchF2Config
+from .phy.upper.pucch import (PucchF0Config, PucchF1Config, PucchF2Config,
+                              PucchF3Config)
 from .phy.upper.pusch import PuschConfig
 from .phy.upper.srs import SrsConfig
 from .phy.upper.ssb import SsbConfig
@@ -37,7 +39,8 @@ CONFIG_CLASSES = {cls.__name__: cls for cls in
                   (CellConfig, CoresetConfig, DmrsConfig, PdcchConfig,
                    PdschConfig, PdschPtrs, PrachConfig, PrecodingConfig,
                    Part2Entry, Part2Parameter, Part2SizeDescription,
-                   PucchF0Config, PucchF1Config, PucchF2Config, PuschConfig,
+                   PucchF0Config, PucchF1Config, PucchF2Config, PucchF3Config,
+                   PuschConfig,
                    SlotPoint, SrsConfig, SsbConfig, UciOnPuschConfig)}
 # Port enums by name; a JAX enum member maps to the member of its name.
 ENUM_CLASSES = {cls.__name__: cls for cls in (CyclicPrefix,)}

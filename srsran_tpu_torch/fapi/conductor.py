@@ -78,10 +78,6 @@ def _pdsch_pilots(cfg) -> np.ndarray:
     return dmrs_mod.pilot_values_for(pdsch_mod.dmrs_config(cfg))
 
 
-def _pusch_pilots(cfg) -> np.ndarray:
-    return dmrs_mod.pilot_values_for(pusch_mod.dmrs_config(cfg))
-
-
 def _ctx(kind: str, cfg, device):
     """Slot-context tensors computed on the host and uploaded once per
     (kind, cfg, device) through the bounded ``device.const`` cache:
@@ -94,7 +90,7 @@ def _ctx(kind: str, cfg, device):
     if kind == "pdsch":
         return const(_pdsch_pilots, cfg, device=device)
     if kind == "pusch":
-        return const(_pusch_pilots, cfg, device=device)
+        return const(pusch_mod.dmrs_pilot_values, cfg, device=device)
     if kind == "f0":
         return const(pucch_mod.f0_refs_for, cfg, device=device)
     if kind == "f1":        # cfg = (common, users)
@@ -104,6 +100,8 @@ def _ctx(kind: str, cfg, device):
                      for h in range(len(pucch_mod._f1_hops(common))))
     if kind == "f2":
         return const(pucch_mod.f2_pilot_values_for, cfg, device=device)
+    if kind == "f3":
+        return const(pucch_mod.f3_dmrs_values_for, cfg, device=device)
     raise KeyError(kind)
 
 
@@ -163,7 +161,7 @@ def normalize_ul_plan(ul: UlTtiRequest, *, device):
         "f0": tuple(_ctx("f0", c, device) for c in ul.pucch_f0),
         "f1": tuple(f1_ctx),
         "f2": tuple(_ctx("f2", c, device) for c in ul.pucch_f2),
-        "f3": tuple(None for _ in f34),
+        "f3": tuple(_ctx("f3", c, device) for c in f34),
     }
     return (pusch_n, f0_n, f1_n, f2_n, ul.prach, ul.srs, f34_n), ctx
 

@@ -73,8 +73,8 @@ class UlTtiRequest:
     pucch_f0: tuple = ()   # tuple[PucchF0Config]
     pucch_f1: tuple = ()   # tuple[PucchF1Config]
     pucch_f2: tuple = ()   # tuple[PucchF2Config]
-    pucch_f3: tuple = ()   # F3 PDUs (not ported, ROADMAP §1 item 13)
-    pucch_f4: tuple = ()   # F4 PDUs (not ported, ROADMAP §1 item 13)
+    pucch_f3: tuple = ()   # tuple[PucchF3Config], occ_length 1
+    pucch_f4: tuple = ()   # tuple[PucchF3Config], occ_length 2 or 4
     prach: tuple = ()      # tuple[PrachConfig]
     srs: tuple = ()        # tuple[SrsConfig]
 

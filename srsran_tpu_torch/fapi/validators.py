@@ -4,10 +4,11 @@ The port's own copy of srsran_tpu/fapi/validators.py: each PDU config is
 checked against the cell geometry and 3GPP ranges, raising ValidationError
 with the offending field; the conductor calls these before it resolves a
 slot phase.  PDU kinds and options the port does not run raise
-NotImplementedError with their ROADMAP item instead (CSI-RS, PRS, PUCCH
-F3/F4; PT-RS, per-PRG precoding and RA type 0 / interleaved PDSCH; PUSCH
-frequency hopping and transform precoding).  PUSCHs of 1-4 layers with ZF
-or MMSE and UCI on PUSCH pass.
+NotImplementedError with their ROADMAP item instead (CSI-RS, PRS; PT-RS,
+per-PRG precoding and RA type 0 / interleaved PDSCH).  Every UL PDU kind
+of the JAX package passes: PUSCHs of 1-4 layers with ZF or MMSE, UCI on
+PUSCH, frequency hopping and transform precoding, PUCCH F0 to F4, PRACH
+and SRS.
 """
 
 from __future__ import annotations
@@ -15,7 +16,6 @@ from __future__ import annotations
 from ..ops.modulation import BITS_PER_SYMBOL
 from ..phy.slot_programs import CellConfig
 from ..phy.upper import pdsch as pdsch_mod
-from ..phy.upper import pusch as pusch_mod
 from .messages import DlTtiRequest, TxDataRequest, UlTtiRequest
 
 
@@ -112,7 +112,6 @@ def validate_ul_tti(ul: UlTtiRequest, cell: CellConfig):
                "pusch_processor_phy_capabilities.cpp:29)")
         _check(not (p.transform_precoding and p.nof_layers > 1),
                "pusch: transform precoding is single-layer")
-        pusch_mod.check_supported(p)
     _check(not ul.pusch_harq or len(ul.pusch_harq) == len(ul.pusch),
            "ul_tti: pusch_harq length mismatch")
     for f in ul.pucch_f0:
@@ -129,8 +128,20 @@ def validate_ul_tti(ul: UlTtiRequest, cell: CellConfig):
         _check(f.rb_start + f.nof_rb <= cell.nof_rb, "pucch_f2: PRB range")
         _check(f.nof_symbols in (1, 2), "pucch_f2: 1-2 symbols")
         _check(f.nof_uci_bits >= 1, "pucch_f2: empty UCI")
-    if ul.pucch_f3 or ul.pucch_f4:
-        raise _not_ported("PUCCH F3/F4")
+    for f in ul.pucch_f3:
+        _check(f.rb_start + f.nof_rb <= cell.nof_rb, "pucch_f3: PRB range")
+        _check(f.nof_rb in (1, 2, 3, 4, 5, 6, 8, 9, 10, 12, 15, 16),
+               "pucch_f3: PRB count must be 2^a 3^b 5^c (DFT sizes)")
+        _check(4 <= f.nof_symbols <= 14, "pucch_f3: 4-14 symbols")
+        _check(f.occ_length == 1, "pucch_f3: occ_length must be 1 (F4 PDUs "
+               "carry 2 or 4)")
+        _check(f.nof_uci_bits >= 1, "pucch_f3: empty UCI")
+    for f in ul.pucch_f4:
+        _check(f.nof_rb == 1, "pucch_f4: exactly 1 PRB")
+        _check(4 <= f.nof_symbols <= 14, "pucch_f4: 4-14 symbols")
+        _check(f.occ_length in (2, 4), "pucch_f4: occ_length 2 or 4")
+        _check(0 <= f.occ_index < f.occ_length, "pucch_f4: occ index")
+        _check(f.nof_uci_bits >= 1, "pucch_f4: empty UCI")
     for s in ul.srs:
         _check(s.rb_start + s.rb_count <= cell.nof_rb, "srs: PRB range")
         _check(s.nof_symbols in (1, 2, 4), "srs: 1/2/4 symbols")

@@ -31,6 +31,12 @@ ports, 273 RB, a 4096-point FFT and 30 kHz SCS.
 * Multi-cell: 4 cells of the flagship DL and UL plans through
   ``parallel.mesh.multi_cell_dl_fn`` / ``multi_cell_ul_fn``, each cell with
   its own payloads and samples.
+* Cell edge (:data:`EDGE`): a UL slot of the same cell whose PUSCH REs go
+  to a 2-layer QAM64 UE on RBs 0-239 and a power-limited cell-edge UE that
+  sends DFT-s-OFDM (transform precoding) with intra-slot frequency hopping
+  and 2 HARQ-ACK bits on its PUSCH, beside a PUCCH F3 (pi/2-BPSK, 22 UCI
+  bits: polar) and a PUCCH F4 (OCC 2, 8 bits: short block), with the
+  flagship's F1, PRACH and SRS.
 
 ``chip_smoke.py`` and ``python3 -m srsran_tpu_torch.profile_slot`` drive
 these scenarios.
@@ -916,3 +922,320 @@ def multi_cell_inputs(rng: np.random.Generator, gen: torch.Generator,
                         dtype=torch.float32, device=device)
     return dict(sch=sch, dci=dci, tb=tb, rx=rx, prach=(prach_b.to(device),),
                 softs=(softs,))
+
+
+# ------------------------------------------------------- the cell-edge slot
+
+# The UEs a gNB serves worst: a power-limited UE sends DFT-s-OFDM for its
+# lower PAPR (TS38.211 §6.3.1.4), hops in frequency for diversity (TS38.214
+# §6.3) and carries its HARQ-ACK on the PUSCH; two more UEs send UCI on
+# PUCCH F3 and F4.  Every PDU sets numerology 1 (ROADMAP §3).  The TBS
+# follow TS38.214 §5.1.3.2 (UE A with 36 DM-RS REs per PRB, UE C with 24:
+# two DM-RS symbols, whole symbols under transform precoding).
+EDGE_SNR_DB = 10.0
+
+
+@dataclasses.dataclass(frozen=True)
+class EdgeScenario:
+    """The cell-edge UL slot on one cell: UE A's PUSCH, UE C's
+    transform-precoded hopping PUSCH with HARQ-ACK, a PUCCH F3 and a PUCCH
+    F4, and the flagship's F1, PRACH and SRS."""
+
+    cell: CellConfig
+    pusch_a: pusch.PuschConfig
+    pusch_c: pusch.PuschConfig
+    f3: pucch.PucchF3Config
+    f4: pucch.PucchF3Config
+    pucch: pucch.PucchF1Config
+    prach: prach.PrachConfig
+    srs: srs.SrsConfig
+
+    def plan(self) -> tuple:
+        """The normalized UL plan (F3 before F4, as the conductor orders
+        them)."""
+        return ((self.pusch_a, self.pusch_c), (), (self.pucch,), (),
+                (self.prach,), (self.srs,), (self.f3, self.f4))
+
+    def ue_a_tx(self) -> pdsch.PdschConfig:
+        """UE A's transmitter: the DL chain's PDSCH on the same REs."""
+        a = self.pusch_a
+        return pdsch.PdschConfig(
+            rnti=a.rnti, rb_start=a.rb_start, rb_count=a.rb_count,
+            first_symbol=a.first_symbol, nof_symbols=a.nof_symbols,
+            modulation=a.modulation, target_code_rate=a.target_code_rate,
+            tbs=a.tbs, nof_layers=a.nof_layers, n_id=a.n_id,
+            dmrs_symbols=a.dmrs_symbols)
+
+
+EDGE = EdgeScenario(
+    cell=CELL,
+    pusch_a=pusch.PuschConfig(
+        rnti=0x17, rb_start=0, rb_count=240, first_symbol=0, nof_symbols=14,
+        modulation="qam64", target_code_rate=0.7, tbs=262376, nof_layers=2,
+        n_id=1, dmrs_symbols=(2, 7, 11), numerology=1),
+    pusch_c=pusch.PuschConfig(
+        rnti=0x19, rb_start=240, rb_count=6, first_symbol=0, nof_symbols=14,
+        modulation="qpsk", target_code_rate=0.3, tbs=528, nof_layers=1,
+        n_id=1, dmrs_symbols=(2, 9), numerology=1, equalizer="mmse",
+        uci=UciOnPuschConfig(o_ack=2), transform_precoding=True,
+        second_hop_prb=256),
+    f3=pucch.PucchF3Config(rb_start=246, nof_rb=2, start_symbol=0,
+                           nof_symbols=14, rnti=0x1a, n_id=1, n_id_hopping=1,
+                           nof_uci_bits=22, pi2_bpsk=True),
+    f4=pucch.PucchF3Config(rb_start=248, nof_rb=1, start_symbol=2,
+                           nof_symbols=12, rnti=0x1b, n_id=1, n_id_hopping=1,
+                           nof_uci_bits=8, occ_length=2, occ_index=1),
+    pucch=PUCCH, prach=PRACH, srs=SRS)
+
+
+def edge_program(sc: EdgeScenario = EDGE):
+    """The cell-edge UL slot program, as a user calls it."""
+    return ul_slot_fn(sc.cell, sc.plan())
+
+
+def edge_uci(rng: np.random.Generator, sc: EdgeScenario = EDGE) -> dict:
+    """One slot's UCI: UE C's HARQ-ACK, the F3 and the F4 payloads."""
+    return dict(ack=rng.integers(0, 2, sc.pusch_c.uci.o_ack).astype(np.int8),
+                f3=rng.integers(0, 2, sc.f3.nof_uci_bits).astype(np.int8),
+                f4=rng.integers(0, 2, sc.f4.nof_uci_bits).astype(np.int8))
+
+
+def edge_context(index: int, device, sc: EdgeScenario = EDGE) -> dict:
+    """The slot context of cell-edge slot ``index`` (slot point (1,
+    2*index)), as the port's conductor builds it: both PUSCHs' DM-RS pilot
+    values (UE C's hop by hop), the F1 group's weights and the F3/F4 DM-RS
+    values."""
+    sif = (2 * index) % 20
+    weights = pucch.f1_batch_weights(
+        dataclasses.replace(sc.pucch, slot=sif),
+        ((sc.pucch.initial_cyclic_shift, sc.pucch.time_domain_occ,
+          sc.pucch.nof_harq_bits),))
+    return {
+        "pusch": tuple(_up(pusch.dmrs_pilot_values(dataclasses.replace(
+            c, slot_in_frame=sif)), device)
+            for c in (sc.pusch_a, sc.pusch_c)),
+        "f0": (),
+        "f1": (tuple(tuple(_up(w, device) for w in hop) for hop in weights),),
+        "f2": (),
+        "f3": tuple(_up(pucch.f3_dmrs_values_for(c, sif), device)
+                    for c in (sc.f3, sc.f4)),
+    }
+
+
+def edge_rx(sif: int, tb_a: torch.Tensor, tb_c: torch.Tensor, uci: dict,
+            gen: torch.Generator, sc: EdgeScenario = EDGE,
+            snr_db: float = SNR_DB,
+            edge_snr_db: float = EDGE_SNR_DB) -> torch.Tensor:
+    """The gNB's samples of one cell-edge slot.  UE A's 2 layers (the
+    port's DL chain, plus the SRS on its port 0) through a flat 4x2
+    channel; UE C (``ue_tx.pusch_transmit``: DFT-s-OFDM, hopping, HARQ-ACK)
+    through a flat channel of unit gain and random phase per rx port, a
+    new one for each hop, scaled to ``edge_snr_db`` per RE and rx port;
+    the F3 and F4 UEs (``pucch.transmit_format3``) through a flat 4x1
+    channel; then AWGN at ``snr_db`` of UE A's received power."""
+    dev = tb_a.device
+    cell = sc.cell
+    ue_a = sc.ue_a_tx()
+    pilots = _up(dmrs.pilot_values_for(pdsch.dmrs_config(
+        dataclasses.replace(ue_a, slot_in_frame=sif))), dev)
+    _, grid_a = dl_slot_fn(cell, ((), (), (ue_a,), ()))(
+        (), (), (tb_a,), {"pdsch": (pilots,)})
+    grid_a = srs.map_to_grid(grid_a, sc.srs)
+    grid_c = ue_tx.pusch_transmit(
+        dataclasses.replace(sc.pusch_c, slot_in_frame=sif),
+        tb_c.cpu().numpy(), uci["ack"], nof_sc=cell.nof_sc, device=dev)[0]
+    grid_p = torch.zeros((1, 14, cell.nof_sc), dtype=torch.complex64,
+                         device=dev)
+    for cfg, bits in ((sc.f3, uci["f3"]), (sc.f4, uci["f4"])):
+        grid_p = pucch.transmit_format3(
+            grid_p, dataclasses.replace(cfg, slot=sif), bits)
+
+    def samples(grid):
+        return ofdm.modulate_slot(grid, cell.dft_size, cell.numerology,
+                                  center_freq_hz=cell.center_freq_hz)
+
+    def cn(shape):
+        return torch.complex(torch.randn(shape, device=dev, generator=gen),
+                             torch.randn(shape, device=dev, generator=gen))
+
+    p = cell.nof_ports
+    rx = cn((p, 2)) @ samples(grid_a)[:2]
+    sigma2 = rx.abs().pow(2).mean() / 10 ** (snr_db / 10)
+    phase = torch.rand((2, p), device=dev, generator=gen) * (2 * np.pi)
+    hops = torch.polar(torch.ones_like(phase), phase)            # [hop, P]
+    n1 = sc.pusch_c.nof_symbols // 2
+    first = (torch.arange(14, device=dev) < sc.pusch_c.first_symbol + n1)
+    h_c = torch.where(first[None, :], hops[0][:, None], hops[1][:, None])
+    # unit-power REs; the unitary FFTs keep the noise at sigma2 per RE
+    gain = torch.sqrt(10 ** (edge_snr_db / 10) * sigma2)
+    rx = (rx + gain * samples(h_c[:, :, None] * grid_c[None])
+          + (cn((p, 1)) / np.sqrt(2)) @ samples(grid_p))
+    return rx + torch.randn(rx.shape, dtype=torch.complex64, device=dev,
+                            generator=gen) * sigma2.sqrt()
+
+
+def make_edge_slots(n: int, rng: np.random.Generator, gen: torch.Generator,
+                    device, sc: EdgeScenario = EDGE) -> list:
+    """``n`` cell-edge slots, each a dict: ``tb_a``, ``tb_c`` (int8
+    payloads), ``uci`` (:func:`edge_uci`), ``rx`` (samples) and ``ctx``,
+    all on ``device``; slot i is slot point (1, 2i)."""
+    slots = []
+    for i in range(n):
+        tb_a = _up(rng.integers(0, 2, sc.pusch_a.tbs).astype(np.int8), device)
+        tb_c = _up(rng.integers(0, 2, sc.pusch_c.tbs).astype(np.int8), device)
+        uci = edge_uci(rng, sc)
+        slots.append(dict(tb_a=tb_a, tb_c=tb_c, uci=uci,
+                          rx=edge_rx((2 * i) % 20, tb_a, tb_c, uci, gen, sc),
+                          ctx=edge_context(i, device, sc)))
+    return slots
+
+
+def edge_soft_buffers(device, sc: EdgeScenario = EDGE) -> tuple:
+    """Zero HARQ soft buffers of both PUSCHs (first transmissions)."""
+    return tuple(torch.zeros((s.nof_codeblocks, s.codeword_bits),
+                             dtype=torch.float32, device=device)
+                 for s in (pusch.segmentation(sc.pusch_a),
+                           pusch.segmentation(sc.pusch_c)))
+
+
+def check_edge_slot(out: dict, slot: dict, where: str) -> None:
+    """Both TBs exact, UE C's HARQ-ACK, the F3 and F4 UCI as sent and
+    valid, PRACH preamble 21 alone, finite channel reports."""
+    for r, tb, name in zip(out["pusch"], (slot["tb_a"], slot["tb_c"]), "AC"):
+        if not bool(r["tb_crc_ok"]):
+            raise AssertionError(f"{where}: UE {name} TB CRC failed")
+        if not torch.equal(r["tb_bits"], tb):
+            raise AssertionError(f"{where}: UE {name} TB differs from payload")
+        for k in ("snr", "rsrp", "epre", "evm", "cfo_hz", "ta_s"):
+            if not bool(torch.isfinite(r[k]).all()):
+                raise AssertionError(f"{where}: UE {name} {k} not finite")
+    c, uci = out["pusch"][1], slot["uci"]
+    if not (bool(c["harq_ack_valid"]) and np.array_equal(
+            c["harq_ack_bits"].cpu().numpy(), uci["ack"])):
+        raise AssertionError(f"{where}: UE C HARQ-ACK "
+                             f"{c['harq_ack_bits'].cpu().numpy()} vs "
+                             f"{uci['ack']}")
+    for r, key in zip(out["pucch_f3"], ("f3", "f4")):
+        if not (bool(r["valid"]) and np.array_equal(
+                r["uci_bits"].cpu().numpy(), uci[key])):
+            raise AssertionError(f"{where}: PUCCH {key.upper()} "
+                                 f"{r['uci_bits'].cpu().numpy()} vs "
+                                 f"{uci[key]}")
+    det = out["prach"][0]["detected"]
+    if not bool(det[PRACH_PREAMBLE]) or int(det.sum()) != 1:
+        raise AssertionError(f"{where}: PRACH detections "
+                             f"{torch.nonzero(det).flatten().tolist()}")
+
+
+def edge_ul_request(i: int, sc: EdgeScenario = EDGE) -> messages.UlTtiRequest:
+    """The cell-edge slot's UL_TTI.request at slot point (1, 2i)."""
+    slot = SlotPoint(1, 2 * i)
+    sl = slot.slot_index
+    return messages.UlTtiRequest(
+        slot=slot,
+        pusch=tuple(dataclasses.replace(c, slot_in_frame=sl)
+                    for c in (sc.pusch_a, sc.pusch_c)),
+        pucch_f1=(dataclasses.replace(sc.pucch, slot=sl),),
+        pucch_f3=(dataclasses.replace(sc.f3, slot=sl),),
+        pucch_f4=(dataclasses.replace(sc.f4, slot=sl),),
+        prach=(sc.prach,), srs=(sc.srs,))
+
+
+def check_edge_results(res: messages.SlotResults, slot: dict,
+                       where: str, sc: EdgeScenario = EDGE) -> None:
+    """A conductor cell-edge slot's indications: both CRCs with the exact
+    payloads, UE C's HARQ-ACK from its PUSCH, the F3 and F4 payloads as
+    sent, PRACH 21."""
+    if [c.tb_crc_ok for c in res.crc] != [True, True]:
+        raise AssertionError(f"{where}: CRCs {[c.tb_crc_ok for c in res.crc]}")
+    for got, tb in zip(res.rx_data, (slot["tb_a"], slot["tb_c"])):
+        if not np.array_equal(got.payload, tb.cpu().numpy().astype(np.uint8)):
+            raise AssertionError(f"{where}: RNTI {got.rnti:#x} payload differs")
+    uci = slot["uci"]
+    (u,) = [u for u in res.uci if u.source == "pusch"]
+    if not (u.rnti == sc.pusch_c.rnti and u.detected
+            and np.array_equal(u.harq_bits, uci["ack"])):
+        raise AssertionError(f"{where}: UCI on PUSCH {u} vs sent {uci['ack']}")
+    for cfg, key in ((sc.f3, "f3"), (sc.f4, "f4")):
+        (u,) = [u for u in res.uci if u.rnti == cfg.rnti]
+        if not (u.detected and np.array_equal(u.csi_bits, uci[key])):
+            raise AssertionError(f"{where}: PUCCH {key.upper()} {u} vs sent "
+                                 f"{uci[key]}")
+    if [r.preamble_index for r in res.rach] != [PRACH_PREAMBLE]:
+        raise AssertionError(f"{where}: PRACH detections "
+                             f"{[r.preamble_index for r in res.rach]}")
+
+
+def widest_tp(sc: EdgeScenario = EDGE) -> pusch.PuschConfig:
+    """UE C's PDU on the widest DFT-s-OFDM allocation of the cell: the most
+    RBs of the form 2^a 3^b 5^c (270 on the flagship cell, M = 3240)."""
+    def smooth(n):
+        for f in (2, 3, 5):
+            while n % f == 0:
+                n //= f
+        return n == 1
+    n = max(k for k in range(1, sc.cell.nof_rb + 1) if smooth(k))
+    return dataclasses.replace(sc.pusch_c, rb_start=0, rb_count=n, tbs=0,
+                               uci=UciOnPuschConfig(), second_hop_prb=None)
+
+
+def edge_kernel_cases(slot: dict, gen: torch.Generator,
+                      sc: EdgeScenario = EDGE) -> dict:
+    """name -> (wrapper, plain twin, args) for K18 and K19 at the cell-edge
+    slot's shapes, from one slot's samples through the plain twins
+    upstream: K18 at UE C (M = 72, both hops in one launch, MMSE) and K19
+    at the F3 (2 RB, pi/2-BPSK).  Extra cases (compared and timed, not on
+    the main path's list): K18 at the widest allocation (M = 3240 on the
+    flagship, :func:`widest_tp`, on the slot's grid with a seeded random
+    channel), K19 at the F4 (OCC 2, QPSK) and K8 at the F3's stride-1
+    shape."""
+    rx, ctx = slot["rx"], slot["ctx"]
+    cell = sc.cell
+    dev = rx.device
+    grid = ofdm.demodulate_slot_ref(rx, cell.nof_sc, cell.dft_size,
+                                    cell.numerology, cell.cp, 0,
+                                    cell.center_freq_hz)
+    cfg = sc.pusch_c
+    ests, first = [], 0
+    for h in pusch.hop_configs(cfg):
+        rows = ctx["pusch"][1][first:first + len(h.dmrs_symbols)]
+        first += len(h.dmrs_symbols)
+        args, kw = pusch.estimate_args(grid, h, rows, (0,), 0)
+        ests.append(chest.estimate_from_grid_ref(*args, **kw))
+    key = pusch._tp_key(cfg)
+    c_init = (cfg.rnti << 15) + cfg.n_id
+    k18 = (grid, torch.cat([e.coeffs for e in ests], dim=-1),
+           _up(pusch.tp_plan(key, 0), dev),
+           torch.stack([e.noise_var for e in ests]),
+           _up(pusch.tp_plan(key, 1), dev), 12 * cfg.rb_count, c_init,
+           cfg.modulation, cfg.equalizer)
+    wide = widest_tp(sc)
+    m = 12 * wide.rb_count
+    h = torch.complex(torch.randn((cell.nof_ports, 1, 1, m), device=dev,
+                                  generator=gen),
+                      torch.randn((cell.nof_ports, 1, 1, m), device=dev,
+                                  generator=gen))
+    wkey = pusch._tp_key(wide)
+    k18_wide = (grid, h, _up(pusch.tp_plan(wkey, 0), dev),
+                torch.full((1, cell.nof_ports), 0.1, device=dev),
+                _up(pusch.tp_plan(wkey, 1), dev), m, c_init, wide.modulation,
+                wide.equalizer)
+    cases = {
+        "pusch_tp_demap": (ul_demap.tp_equalize_demap_descramble,
+                           ul_demap.tp_equalize_demap_descramble_ref, k18),
+        "pusch_tp_demap_widest": (ul_demap.tp_equalize_demap_descramble,
+                                 ul_demap.tp_equalize_demap_descramble_ref,
+                                 k18_wide)}
+    for name, f3, values in (("", sc.f3, ctx["f3"][0]),
+                             ("_f4", sc.f4, ctx["f3"][1])):
+        args, kw = pucch.f3_estimate_args(grid, f3, values)
+        est = chest.estimate_from_grid_ref(*args, **kw)
+        cases["pucch_f3_demap" + name] = (
+            pucch.f3_demap, pucch.f3_demap_ref,
+            (grid, est.coeffs, est.noise_var, f3))
+        if not name:
+            cases["channel_estimate_f3"] = (
+                functools.partial(chest.estimate_from_grid, **kw),
+                functools.partial(chest.estimate_from_grid_ref, **kw), args)
+    return cases
+

@@ -73,6 +73,10 @@ SIGNATURES = {
     "srsran_short_block_detect": [_P, _I, _I, _I, _I, _P, _P, _P, _P],
     "srsran_polar_decode": [_P, _I, _I, _I, _P, _P, _I, _P, _I, _I, _I, _P,
                             _P, _P],
+    "srsran_pusch_tp_demap": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I,
+                              _P, _I, _I, _I, _P, _F, _P, _P, _P, _P],
+    "srsran_pucch_f3_demap": [_P, _I, _I, _I, _P, _P, _I, _I, _P, _I, _I, _P,
+                              _P, _I, _P, _F, _P, _P, _P],
 }
 
 

@@ -1,14 +1,15 @@
 """EVM from hard decisions, closed form per I/Q axis.
 
-Port of srsran_tpu/ops/evm.py::evm for square QAM: the nearest Gray-QAM
-point separates per axis, so the error is computed from each coordinate.
+Port of srsran_tpu/ops/evm.py::evm: for square QAM the nearest Gray-QAM
+point separates per axis, so the error is computed from each coordinate;
+the BPSK forms remodulate the hard decisions of the LLRs.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .modulation import BITS_PER_SYMBOL, _SCALE
+from .modulation import BITS_PER_SYMBOL, _SCALE, modulate
 
 
 def _axis_error(coord: torch.Tensor, nof_levels: int, scale: float):
@@ -23,13 +24,11 @@ def _axis_error(coord: torch.Tensor, nof_levels: int, scale: float):
 
 
 def evm(symbols: torch.Tensor, llrs: torch.Tensor, scheme: str) -> torch.Tensor:
-    """RMS EVM.  symbols [..., S] equalized; llrs kept for interface parity
-    with the JAX function (its BPSK forms use them)."""
-    del llrs
+    """RMS EVM.  symbols [..., S] equalized; llrs [..., S*Qm] the demapped
+    (not descrambled) LLRs, read by the BPSK forms only."""
     if scheme in ("bpsk", "pi2bpsk"):
-        raise NotImplementedError(
-            f"{scheme} EVM arrives with transform precoding "
-            "(ROADMAP §1 item 13)")
+        ref = modulate((llrs < 0).to(torch.int8), scheme)
+        return torch.sqrt(torch.mean((symbols - ref).abs() ** 2, dim=-1))
     qm = BITS_PER_SYMBOL[scheme]
     nof_levels = 1 << (qm // 2 - 1)
     scale = _SCALE[scheme]

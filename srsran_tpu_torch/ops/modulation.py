@@ -116,12 +116,16 @@ def _axis_llrs(y: torch.Tensor, order: int, scheme: str,
 def demodulate(symbols: torch.Tensor, noise_var: torch.Tensor,
                scheme: str) -> torch.Tensor:
     """Soft demap.  symbols complex [..., S], noise_var [..., S] ->
-    llrs [..., S*Qm] (QPSK through 256QAM; BPSK forms are off the path)."""
+    llrs [..., S*Qm].  pi/2-BPSK derotates symbol n by -j for odd n, n
+    counted along the last axis (the JAX package's convention)."""
     qm = BITS_PER_SYMBOL[scheme]
     if scheme in ("bpsk", "pi2bpsk"):
-        raise NotImplementedError(
-            f"{scheme} demapping arrives with transform precoding "
-            "(ROADMAP §1 item 13)")
+        sym = symbols
+        if scheme == "pi2bpsk":
+            odd = torch.arange(sym.shape[-1], device=sym.device) % 2 == 1
+            sym = torch.where(odd, sym * -1j, sym)
+        proj = (sym.real + sym.imag) * np.float32(2.0 * _SCALE[scheme])
+        return 2.0 * proj / torch.clamp_min(noise_var, 1e-12)
     half = qm // 2
     li = _axis_llrs(symbols.real, half, scheme, noise_var)        # [..., S, half]
     lq = _axis_llrs(symbols.imag, half, scheme, noise_var)

@@ -1,5 +1,5 @@
-"""Fused PUSCH equalize -> max-log demap -> descramble (the K3 and K16
-wrappers).
+"""Fused PUSCH equalize -> max-log demap -> descramble (the K3, K16 and
+K18 wrappers).
 
 The JAX package runs these as three device functions over the gathered
 data REs (srsran_tpu/phy/upper/pusch.py::_frontend_hop with
@@ -14,6 +14,15 @@ On the card both kernels are memory-bound (per RE they read P samples and
 P*L coefficients and write L*Qm LLRs, 3.5-4.6 MB at the flagship shapes);
 their designs are in the .cu files.
 
+A transform-precoded (DFT-s-OFDM) PUSCH adds an IDFT per data symbol
+between the equalizer and the demap, and its noise averaged over each
+symbol's block (srsran_tpu/phy/upper/pusch.py:277-285):
+:func:`tp_equalize_demap_descramble` is the K18 wrapper
+(csrc/dft_s_ofdm.cu), :func:`tp_equalize_demap_descramble_ref` its twin.
+Both hops of a hopping PUSCH go through one K18 launch: the hops'
+estimates sit side by side on the subcarrier axis and a per-RE column plan
+picks each RE's.
+
 A leading slot axis on the grid, the coefficients and the noise variance
 (the slot-batch mode) runs K3 once for every slot; K16 runs once per slot
 (its batched form is still to come, ROADMAP §2 item 12), and the twin runs
@@ -22,6 +31,7 @@ slot by slot.  The RE plan and the Gold bits are shared.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import kernels
@@ -29,8 +39,10 @@ from ..device import const, is_cuda
 from ..kernels import _build
 from .equalizer import equalize
 from .gold import gold_sequence
-from .modulation import BITS_PER_SYMBOL, demodulate, pam_levels_scaled
+from .modulation import (BITS_PER_SYMBOL, _SCALE, demodulate,
+                         pam_levels_scaled)
 from .scrambling import descramble_llrs
+from .transform_precode import deprecode, twiddles
 
 KERNEL = kernels.register(kernels.Kernel(
     name="pusch_demap", route="cuda",
@@ -41,6 +53,10 @@ KERNEL_LXN = kernels.register(kernels.Kernel(
     source="srsran_tpu_torch/csrc/pusch_demap_lxn.cu",
     replaces="srsran_tpu/ops/equalizer.py:83"))
 KERNEL_BATCH = kernels.batched(KERNEL)
+KERNEL_TP = kernels.register(kernels.Kernel(
+    name="pusch_tp_demap", route="cuda",
+    source="srsran_tpu_torch/csrc/dft_s_ofdm.cu",
+    replaces="srsran_tpu/ops/transform_precode.py:30"))
 
 
 def gather_re(grid: torch.Tensor, coeffs: torch.Tensor, sym_idx: torch.Tensor,
@@ -73,18 +89,18 @@ def _per_slot(fn, grid, coeffs, sym_idx, sc_idx, sc_off, noise_var, *rest):
 
 def equalize_demap_descramble_ref(grid, coeffs, sym_idx, sc_idx, sc_off,
                                   noise_var, c_init, modulation, nof_layers,
-                                  method: str = "zf"):
+                                  method: str = "zf", advance: int = 0):
     """Plain twin of :func:`equalize_demap_descramble` and
     :func:`equalize_demap_descramble_lxn`."""
     if grid.ndim == 4:
         return _per_slot(equalize_demap_descramble_ref, grid, coeffs, sym_idx,
                          sc_idx, sc_off, noise_var, c_init, modulation,
-                         nof_layers, method)
+                         nof_layers, method, advance)
     x, out_nv = gather_equalize(grid, coeffs, sym_idx, sc_idx, sc_off,
                                 noise_var, nof_layers, method)
     llr = demodulate(x.reshape(-1)[None], out_nv.reshape(-1)[None],
                      modulation)[0]
-    return descramble_llrs(llr, c_init), x
+    return descramble_llrs(llr, c_init, advance), x
 
 
 def _check_args(grid, coeffs, noise_var, modulation, nof_layers):
@@ -103,11 +119,14 @@ def _check_args(grid, coeffs, noise_var, modulation, nof_layers):
 
 
 def _launch(entry, extra: tuple, grid, coeffs, sym_idx, sc_idx, sc_off,
-            noise_var, c_init, modulation, nof_layers, slots: tuple = ()):
+            noise_var, c_init, modulation, nof_layers, advance: int = 0,
+            slots: tuple = ()):
     """Launch K3 or K16 (same inputs and outputs; K16 takes the method
     flag in ``extra``, K3 the slot count in ``slots``).  Returns (llr, x),
     with the grid's slot axis (K3 only) in front.  The RE plan is int32, as
-    the PUSCH uploads it."""
+    the PUSCH uploads it; the Gold bits start ``advance`` bits into the
+    codeword's sequence (the second hop of a hopping PUSCH descrambles
+    from where the first ended)."""
     qm = BITS_PER_SYMBOL[modulation]
     dev = grid.device
     p, s, k = grid.shape[-3:]
@@ -117,7 +136,7 @@ def _launch(entry, extra: tuple, grid, coeffs, sym_idx, sc_idx, sc_off,
         raise ValueError("the RE plan must be int32")
     lead = tuple(grid.shape[:-3])
     levels = const(pam_levels_scaled, modulation, device=dev)
-    seq = gold_sequence(c_init, nre * nof_layers * qm, 0, device=dev)
+    seq = gold_sequence(c_init, nre * nof_layers * qm, advance, device=dev)
     g = torch.view_as_real(grid.contiguous())
     h = torch.view_as_real(coeffs.contiguous())
     nv = noise_var.reshape(-1).contiguous()
@@ -138,14 +157,15 @@ def equalize_demap_descramble(grid: torch.Tensor, coeffs: torch.Tensor,
                               sym_idx: torch.Tensor, sc_idx: torch.Tensor,
                               sc_off: int, noise_var: torch.Tensor,
                               c_init: int, modulation: str, nof_layers: int,
-                              method: str = "zf"):
+                              method: str = "zf", advance: int = 0):
     """Codeword LLRs of a PUSCH's data REs.
 
     grid complex64 [P, S, K]; coeffs complex64 [P, L, T, Ka] (Ka subcarriers
     from ``sc_off``); sym_idx / sc_idx int32 [RE] data-RE plan (int on the
     CPU); noise_var f32 scalar tensor (the mean estimator noise); method
-    "zf" or "mmse".  Returns (descrambled LLRs f32 [RE*L*Qm] in codeword
-    order, equalized symbols complex64 [RE, L]).  With a slot axis -- grid
+    "zf" or "mmse"; advance: the Gold offset in bits of the first LLR.
+    Returns (descrambled LLRs f32 [RE*L*Qm] in codeword order, equalized
+    symbols complex64 [RE, L]).  With a slot axis -- grid
     [B, P, S, K], coeffs [B, P, L, T, Ka], noise_var [B] -- the outputs
     are [B, RE*L*Qm] and [B, RE, L].  On the card: K3 for ZF with 1-2
     layers (one launch for all slots), K16 otherwise.
@@ -153,36 +173,144 @@ def equalize_demap_descramble(grid: torch.Tensor, coeffs: torch.Tensor,
     args = (grid, coeffs, sym_idx, sc_idx, sc_off, noise_var, c_init,
             modulation, nof_layers)
     if not is_cuda(grid, coeffs, noise_var):
-        return equalize_demap_descramble_ref(*args, method)
+        return equalize_demap_descramble_ref(*args, method, advance)
     if method == "zf" and nof_layers <= 2:
         _check_args(grid, coeffs, noise_var, modulation, nof_layers)
         slots = grid.shape[0] if grid.ndim == 4 else 1
-        out = _launch(_build.load().srsran_pusch_demap, (), *args,
+        out = _launch(_build.load().srsran_pusch_demap, (), *args, advance,
                       slots=(slots,))
         (KERNEL_BATCH if grid.ndim == 4 else KERNEL).count()
         return out
     if grid.ndim == 4:
-        return _per_slot(equalize_demap_descramble_lxn, *args, method)
-    return equalize_demap_descramble_lxn(*args, method)
+        return _per_slot(equalize_demap_descramble_lxn, *args, method,
+                         advance)
+    return equalize_demap_descramble_lxn(*args, method, advance)
 
 
 def equalize_demap_descramble_lxn(grid: torch.Tensor, coeffs: torch.Tensor,
                                   sym_idx: torch.Tensor, sc_idx: torch.Tensor,
                                   sc_off: int, noise_var: torch.Tensor,
                                   c_init: int, modulation: str,
-                                  nof_layers: int, method: str = "mmse"):
+                                  nof_layers: int, method: str = "mmse",
+                                  advance: int = 0):
     """:func:`equalize_demap_descramble` through K16 for 1-4 layers, ZF or
     MMSE (the L x N solve of the JAX package's ``equalize``)."""
     args = (grid, coeffs, sym_idx, sc_idx, sc_off, noise_var, c_init,
             modulation, nof_layers)
     if not is_cuda(grid, coeffs, noise_var):
-        return equalize_demap_descramble_ref(*args, method)
+        return equalize_demap_descramble_ref(*args, method, advance)
     if method not in ("zf", "mmse"):
         raise ValueError(f"equalizer {method!r}")
     _check_args(grid, coeffs, noise_var, modulation, nof_layers)
     if grid.ndim != 3:
         raise ValueError("K16 takes one slot's grid [P, S, K]")
     out = _launch(_build.load().srsran_pusch_demap_lxn,
-                  (int(method == "mmse"),), *args)
+                  (int(method == "mmse"),), *args, advance)
     KERNEL_LXN.count()
     return out
+
+
+# ------------------------------------------------- K18: DFT-s-OFDM PUSCH
+
+def tp_equalize_demap_descramble_ref(grid, coeffs, plan, noise_var,
+                                     block_hop, m_sc: int, c_init: int,
+                                     modulation: str, method: str = "zf"):
+    """Plain twin of :func:`tp_equalize_demap_descramble`: the JAX
+    package's per-hop 1 x N equalizer, then per block of ``m_sc`` REs the
+    unitary IDFT and the mean post-equalizer noise, then the demap over the
+    whole codeword and the descramble."""
+    if grid.ndim == 4:
+        outs = [tp_equalize_demap_descramble_ref(
+            grid[b], coeffs[b], plan, noise_var[b], block_hop, m_sc, c_init,
+            modulation, method) for b in range(grid.shape[0])]
+        return tuple(torch.stack(o) for o in zip(*outs))
+    sym, sc, col = plan[0], plan[1], plan[2]
+    y = grid[:, sym, sc].T                                   # [RE, P]
+    h = coeffs[:, 0, 0, col] if coeffs.shape[2] == 1 else coeffs[:, 0, sym, col]
+    nv = noise_var.mean(dim=-1)[block_hop].repeat_interleave(m_sc)
+    x, out_nv = equalize(y, h.T[..., None], nv, 1, method)
+    x = deprecode(x[:, 0].reshape(-1, m_sc)).reshape(-1, 1)
+    out_nv = out_nv.reshape(-1, m_sc).mean(dim=-1, keepdim=True).expand(
+        -1, m_sc).reshape(-1)
+    llr = demodulate(x.reshape(-1)[None], out_nv[None], modulation)[0]
+    return descramble_llrs(llr, c_init), x
+
+
+# The demap forms of K18 and K19 (csrc/dft_s_ofdm.cuh).
+DEMAP_KIND = {"bpsk": 0, "pi2bpsk": 1, "qpsk": 2, "qam16": 2, "qam64": 2,
+              "qam256": 2}
+
+
+def demap_tables(modulation: str, device) -> tuple:
+    """(kind, PAM half-order, level table, 2 * scale) of a K18/K19 demap."""
+    qm = BITS_PER_SYMBOL[modulation]
+    kind = DEMAP_KIND[modulation]
+    half = max(qm // 2, 1)
+    levels = const(pam_levels_scaled, "qpsk" if kind < 2 else modulation,
+                   device=device)
+    two_scale = float(np.float32(2.0 * _SCALE[modulation]))
+    return kind, half, levels, two_scale
+
+
+def tp_equalize_demap_descramble(grid: torch.Tensor, coeffs: torch.Tensor,
+                                 plan: torch.Tensor, noise_var: torch.Tensor,
+                                 block_hop: torch.Tensor, m_sc: int,
+                                 c_init: int, modulation: str,
+                                 method: str = "zf"):
+    """Codeword LLRs of a transform-precoded single-layer PUSCH.
+
+    grid complex64 [P, S, K]; coeffs complex64 [P, 1, T, Ka]: the hops'
+    estimates concatenated on the subcarrier axis (T == 1: time-constant);
+    plan int32 [3, RE]: each data RE's symbol, grid subcarrier and column
+    of ``coeffs``, in codeword order, RE = blocks * m_sc (one block per
+    data symbol); noise_var f32 [H, P]: each hop's estimator noise;
+    block_hop int32 [blocks]: the hop of each block; method "zf" or "mmse".
+    Returns (descrambled LLRs f32 [RE * Qm], the IDFT's symbols complex64
+    [RE, 1]).  A slot axis on grid, coeffs and noise_var (the slot-batch
+    mode) runs K18 once per slot.  On the card: K18.
+    """
+    args = (grid, coeffs, plan, noise_var, block_hop, m_sc, c_init,
+            modulation, method)
+    if not is_cuda(grid, coeffs, plan, noise_var, block_hop):
+        return tp_equalize_demap_descramble_ref(*args)
+    if grid.ndim == 4:
+        outs = [tp_equalize_demap_descramble(
+            grid[b], coeffs[b], plan, noise_var[b], block_hop, m_sc, c_init,
+            modulation, method) for b in range(grid.shape[0])]
+        return tuple(torch.stack(o) for o in zip(*outs))
+    if method not in ("zf", "mmse"):
+        raise ValueError(f"equalizer {method!r}")
+    if grid.dtype != torch.complex64 or coeffs.dtype != torch.complex64:
+        raise ValueError("grid and coeffs must be complex64")
+    p, s, k = grid.shape
+    if grid.ndim != 3 or coeffs.ndim != 4 or coeffs.shape[:2] != (p, 1):
+        raise ValueError(f"grid [P, S, K] and coeffs [P, 1, T, Ka], got "
+                         f"{tuple(grid.shape)} and {tuple(coeffs.shape)}")
+    nre = plan.shape[-1]
+    if (plan.dtype != torch.int32 or plan.shape != (3, nre)
+            or nre % m_sc or block_hop.dtype != torch.int32
+            or block_hop.shape != (nre // m_sc,)):
+        raise ValueError(f"plan must be int32 [3, RE] with RE a multiple of "
+                         f"{m_sc}, block_hop int32 [RE / {m_sc}]")
+    if noise_var.dtype != torch.float32 or noise_var.ndim != 2 \
+            or noise_var.shape[1] != p:
+        raise ValueError(f"noise_var must be float32 [H, {p}]")
+    dev = grid.device
+    qm = BITS_PER_SYMBOL[modulation]
+    kind, half, levels, two_scale = demap_tables(modulation, dev)
+    seq = gold_sequence(c_init, nre * qm, 0, device=dev)
+    tw = const(twiddles, m_sc, device=dev)
+    # the kernel's inputs held in locals until it is enqueued
+    grid, coeffs = grid.contiguous(), coeffs.contiguous()
+    plan, noise_var = plan.contiguous(), noise_var.contiguous()
+    llr = torch.empty((nre * qm,), dtype=torch.float32, device=dev)
+    x = torch.empty((nre, 1), dtype=torch.complex64, device=dev)
+    _build.check(_build.load().srsran_pusch_tp_demap(
+        _build.ptr(grid), _build.ptr(coeffs),
+        _build.ptr(plan), nre, p, s, k, coeffs.shape[2],
+        coeffs.shape[3], _build.ptr(noise_var), _build.ptr(block_hop),
+        m_sc, _build.ptr(tw), int(method == "mmse"), kind, half,
+        _build.ptr(levels), two_scale, _build.ptr(seq), _build.ptr(llr),
+        _build.ptr(x), _build.stream_of(grid)), "pusch_tp_demap")
+    KERNEL_TP.count()
+    return llr, x

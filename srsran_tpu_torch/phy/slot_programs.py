@@ -5,9 +5,10 @@ configs) selects a program; the program is a Python closure over the plan,
 cached per (cell, plan, slot_in_subframe), that runs eagerly on the device
 of its input tensors.  The DL program covers SSB, PDCCH and PDSCH plans
 (the flagship DL slot, and the UE-side test transmitter); the UL program
-PUSCH (1-4 layers, ZF or MMSE, UCI on PUSCH), PUCCH formats 0, 1 and 2,
-PRACH and SRS plans (the JAX bench's full UL mix, the conductor's UCI
-PDUs and the two-UE slot).
+PUSCH (1-4 layers, ZF or MMSE, UCI on PUSCH, frequency hopping, transform
+precoding), PUCCH formats 0 to 4, PRACH and SRS plans (the JAX bench's
+full UL mix, the conductor's UCI PDUs, the two-UE and the cell-edge
+slots).
 Every other plan entry raises NotImplementedError naming the ROADMAP item
 that ports it.
 
@@ -243,12 +244,7 @@ def _f1_groups(f1_cfgs) -> list:
 def _ul_plan(cell: CellConfig, plan) -> tuple:
     """The UL plan with all seven entries, after the unsupported checks."""
     _check_cell(cell)
-    plan = plan + ((),) * (7 - len(plan))
-    if plan[6]:
-        raise _unsupported("PUCCH F3/F4", "item 13")
-    for cfg in plan[0]:
-        pusch_mod.check_supported(cfg)
-    return plan
+    return plan + ((),) * (7 - len(plan))
 
 
 def _pusch_entries(grid, pusch_cfgs, soft_buffers, ctx) -> list:
@@ -277,9 +273,9 @@ def _pusch_entries(grid, pusch_cfgs, soft_buffers, ctx) -> list:
 
 
 def _control_entries(grid, plan, f1_groups, prach_fd, ctx) -> dict:
-    """PUCCH F0, F1 and F2, SRS and PRACH of one slot's grid (the JAX
+    """PUCCH F0 to F4, SRS and PRACH of one slot's grid (the JAX
     program's order)."""
-    _, f0_cfgs, f1_cfgs, f2_cfgs, prach_cfgs, srs_cfgs, _ = plan
+    _, f0_cfgs, f1_cfgs, f2_cfgs, prach_cfgs, srs_cfgs, f3_cfgs = plan
     out = {"pucch_f0": [], "pucch_f1": [], "pucch_f2": [], "pucch_f3": [],
            "prach": [], "srs": []}
     for i, cfg in enumerate(f0_cfgs):
@@ -299,6 +295,9 @@ def _control_entries(grid, plan, f1_groups, prach_fd, ctx) -> dict:
     for i, cfg in enumerate(f2_cfgs):
         out["pucch_f2"].append(pucch_mod.process_format2(
             grid, cfg, _ctx_leaf(ctx, "f2", i)))
+    for i, cfg in enumerate(f3_cfgs):
+        out["pucch_f3"].append(pucch_mod.process_format3(
+            grid, cfg, _ctx_leaf(ctx, "f3", i)))
     for cfg in srs_cfgs:
         est = srs_mod.estimate(grid, cfg)
         # wideband channel: average the estimate over symbols/subcarriers
@@ -314,8 +313,8 @@ def _control_entries(grid, plan, f1_groups, prach_fd, ctx) -> dict:
 
 
 def ul_slot_core(cell: CellConfig, plan, slot_in_subframe: int = 0):
-    """The UL slot program: PUSCH, PUCCH F0, F1 and F2, SRS and PRACH (the
-    JAX program's order).
+    """The UL slot program: PUSCH, PUCCH F0, F1, F2 and F3/F4, SRS and
+    PRACH (the JAX program's order).
 
     plan = (pusch_cfgs, f0_cfgs, f1_cfgs, f2_cfgs, prach_cfgs[, srs_cfgs
     [, f3_cfgs]]).  Returned fn(samples [P, T], prach_fd, soft_buffers,
@@ -326,15 +325,18 @@ def ul_slot_core(cell: CellConfig, plan, slot_in_subframe: int = 0):
     ctx["pusch"][i] carries DM-RS pilot values (or c_inits); ctx["f0"][i]
     the candidates' references (f0_refs_for); ctx["f1"][first user of a
     group] the group's per-hop weight tuple (f1_batch_weights);
-    ctx["f2"][i] the DM-RS pilot values (f2_pilot_values_for); without ctx
-    they are built on the host and cached per device.
+    ctx["f2"][i] the DM-RS pilot values (f2_pilot_values_for); ctx["f3"][i]
+    the F3/F4 DM-RS values (f3_dmrs_values_for); without ctx they are built
+    on the host and cached per device.  A hopping PUSCH's ctx["pusch"][i]
+    holds hop 1's DM-RS rows, then hop 2's.
 
     B slots at once: samples [B, P, T], prach_fd[i] [B, P, S, L] (each
     slot's own capture), soft_buffers[i] [B, C, N] and a stacked slot
     context with its axes (:func:`stack_ctx`) give the same dict with a
     leading slot axis on every value.  K4 and the PUSCH chain (K8, K3, K2,
-    K1) run once for the B slots, the LDPC early stop per slot; the PUCCH
-    formats, SRS and PRACH once per slot on that slot's grid.
+    K1) run once for the B slots, the LDPC early stop per slot (K16 and
+    K18 once per slot); the PUCCH formats, SRS and PRACH once per slot on
+    that slot's grid.
     """
     plan = _ul_plan(cell, plan)
     f1_groups = _f1_groups(plan[2])

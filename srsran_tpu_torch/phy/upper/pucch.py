@@ -1,6 +1,6 @@
-"""PUCCH formats 0, 1 and 2: receive and transmit (TS38.211 §6.3.2).
+"""PUCCH formats 0 to 4: receive and transmit (TS38.211 §6.3.2).
 
-Port of the F0, F1 and F2 parts of srsran_tpu/phy/upper/pucch.py:
+Port of srsran_tpu/phy/upper/pucch.py:
 
 - F0 (:func:`detect_format0`): sequence detection against the candidate
   cyclic shifts of the HARQ/SR dictionary (TS38.213 §9.2.3-9.2.5), with
@@ -20,11 +20,15 @@ Port of the F0, F1 and F2 parts of srsran_tpu/phy/upper/pucch.py:
   the K13 wrapper :func:`f2_demap` (csrc/pucch_f2.cu, twin
   :func:`f2_demap_ref`), then the UCI decode: short block (K14) or polar
   (K15).
+- F3/F4 (:func:`process_format3`, DFT-s-OFDM): the low-PAPR DM-RS
+  estimate through K8 at stride 1 (the full-rate RC filter), then per data
+  symbol the port combining, IDFT, F4 OCC despread, QPSK or pi/2-BPSK
+  demap and descrambling of the K19 wrapper :func:`f3_demap`
+  (csrc/dft_s_ofdm.cu, twin :func:`f3_demap_ref`), then the UCI decode.
 
 :func:`detect_format1` (one user, host sequences), :func:`transmit_format0`,
-:func:`transmit_format1` and :func:`transmit_format2` (UE side) are plain,
-for tests and the UE emulation.  Formats 3 and 4 are not ported (ROADMAP
-§1 item 13).
+:func:`transmit_format1`, :func:`transmit_format2` and :func:`f3_encode`
+(UE side) are plain, for tests and the UE emulation.
 """
 
 from __future__ import annotations
@@ -47,7 +51,10 @@ from ...ops.low_papr import base_sequence
 from ...ops.modulation import (demodulate, modulate, pam_levels_scaled,
                                qpsk_np)
 from ...ops.scrambling import descramble_llrs, scramble_bits
+from ...ops.transform_precode import deprecode, precode, twiddles
+from ...ops.ul_demap import demap_tables
 from ...ran import polar_params
+from . import uci as uci_codec
 
 KERNEL = kernels.register(kernels.Kernel(
     name="pucch_f1_detect", route="cuda",
@@ -61,6 +68,10 @@ KERNEL_F2 = kernels.register(kernels.Kernel(
     name="pucch_f2_demap", route="cuda",
     source="srsran_tpu_torch/csrc/pucch_f2.cu",
     replaces="srsran_tpu/phy/upper/pucch.py:764"))
+KERNEL_F3 = kernels.register(kernels.Kernel(
+    name="pucch_f3_demap", route="cuda",
+    source="srsran_tpu_torch/csrc/dft_s_ofdm.cu",
+    replaces="srsran_tpu/phy/upper/pucch.py:656"))
 
 
 @functools.lru_cache(maxsize=None)
@@ -730,3 +741,235 @@ def transmit_format2(grid: torch.Tensor, cfg: PucchF2Config,
         out[0, l, data_sc] += syms[s * n_data:(s + 1) * n_data]
         out[0, l, dmrs_sc] += pilots[s]
     return out
+
+
+# ------------------------------------------------------------- Format 3 / 4
+
+# TS38.211 Table 6.4.1.3.3.2-1: DM-RS symbol positions within the PUCCH
+# (no frequency hopping, no additional DM-RS).
+_F34_DMRS_POS = {4: (1,), 5: (0, 3), 6: (1, 4), 7: (1, 4), 8: (1, 5),
+                 9: (1, 6), 10: (2, 7), 11: (2, 7), 12: (2, 8), 13: (2, 9),
+                 14: (3, 10)}
+
+
+@dataclasses.dataclass(frozen=True)
+class PucchF3Config:
+    """Format 3 (and 4 via occ_length > 1): DFT-s-OFDM UCI carrier (same
+    fields and defaults as the JAX package's PucchF3Config)."""
+
+    rb_start: int
+    nof_rb: int                # F4: must be 1
+    start_symbol: int
+    nof_symbols: int           # 4..14
+    rnti: int
+    n_id: int                  # data scrambling
+    n_id_hopping: int          # group hopping id for DM-RS sequences
+    nof_uci_bits: int
+    slot: int = 0
+    pi2_bpsk: bool = False
+    occ_length: int = 1        # 1 (F3) | 2 | 4 (F4)
+    occ_index: int = 0
+
+
+def _f3_dmrs_seq(cfg: PucchF3Config, l: int,
+                 slot: int | None = None) -> np.ndarray:
+    """Low-PAPR DM-RS across the allocation for symbol ``l`` of ``slot``
+    (default ``cfg.slot``; host)."""
+    m = cfg.nof_rb * 12
+    ncs = _ncs_table(cfg.n_id_hopping, cfg.slot if slot is None else slot)[l]
+    alpha = 2 * np.pi / 12 * (ncs % 12)
+    return (np.exp(1j * alpha * np.arange(m))
+            * base_sequence(cfg.n_id_hopping % 30, 0, m)).astype(np.complex64)
+
+
+def _f3_symbol_split(cfg: PucchF3Config):
+    dmrs_rel = _F34_DMRS_POS[cfg.nof_symbols]
+    data_rel = tuple(s for s in range(cfg.nof_symbols) if s not in dmrs_rel)
+    return dmrs_rel, data_rel
+
+
+def _f3_qm(cfg: PucchF3Config) -> int:
+    return 1 if cfg.pi2_bpsk else 2
+
+
+def _f3_scheme(cfg: PucchF3Config) -> str:
+    return "pi2bpsk" if cfg.pi2_bpsk else "qpsk"
+
+
+def _f3_c_init(cfg: PucchF3Config) -> int:
+    return (cfg.rnti << 15) + cfg.n_id
+
+
+def _f3_occ(occ_length: int, occ_index: int) -> np.ndarray:
+    """The F4 pre-DFT block-spreading cover (TS38.211 §6.3.2.6.3)."""
+    return np.exp(2j * np.pi * occ_index * np.arange(occ_length)
+                  / occ_length).astype(np.complex64)
+
+
+def _f3_occ_conj(occ_length: int, occ_index: int) -> np.ndarray:
+    return np.conj(_f3_occ(occ_length, occ_index))
+
+
+def _f3_data_symbols(cfg: PucchF3Config) -> np.ndarray:
+    """Absolute symbols of the data (int32 [n_data])."""
+    return np.array([cfg.start_symbol + s for s in _f3_symbol_split(cfg)[1]],
+                    np.int32)
+
+
+def f3_encode(uci_bits, cfg: PucchF3Config) -> torch.Tensor:
+    """UE-side F3/F4 TX -> [nof_symbols, M] RE values (tests / UE
+    emulation), on the device of ``uci_bits`` (a tensor) or the CPU."""
+    bits = torch.as_tensor(uci_bits).to(torch.int8)
+    dev = bits.device
+    m = cfg.nof_rb * 12
+    dmrs_rel, data_rel = _f3_symbol_split(cfg)
+    qm = _f3_qm(cfg)
+    m_data = m // cfg.occ_length
+    e = len(data_rel) * m_data * qm
+    coded = uci_codec.encode_uci(bits, e, qm)
+    scr = scramble_bits(coded[None], _f3_c_init(cfg))
+    syms = modulate(scr, _f3_scheme(cfg))[0]
+    out = torch.zeros((cfg.nof_symbols, m), dtype=torch.complex64, device=dev)
+    occ = _f3_occ(cfg.occ_length, cfg.occ_index)
+    for i, s in enumerate(data_rel):
+        blk = syms[i * m_data:(i + 1) * m_data]
+        if cfg.occ_length > 1:
+            blk = torch.cat([blk * complex(occ[j])
+                             for j in range(cfg.occ_length)])
+        out[s] = precode(blk)
+    for s in dmrs_rel:
+        out[s] = torch.as_tensor(_f3_dmrs_seq(cfg, cfg.start_symbol + s),
+                                 device=dev)
+    return out
+
+
+def transmit_format3(grid: torch.Tensor, cfg: PucchF3Config,
+                     bits) -> torch.Tensor:
+    """UE-side PUCCH F3/F4 (:func:`f3_encode`) into port 0 of a [P, nsym,
+    nsc] grid (a copy)."""
+    tx = f3_encode(torch.as_tensor(np.atleast_1d(np.asarray(bits))).to(
+        grid.device), cfg)
+    out = grid.clone()
+    sc0 = cfg.rb_start * 12
+    out[0, cfg.start_symbol:cfg.start_symbol + cfg.nof_symbols,
+        sc0:sc0 + tx.shape[1]] += tx
+    return out
+
+
+def f3_dmrs_values_for(cfg: PucchF3Config,
+                       slot: int | None = None) -> np.ndarray:
+    """Host-side F3/F4 DM-RS sequences [n_dmrs_symbols, M] complex64 in
+    _f3_symbol_split order (the conductor's slot context for F3/F4)."""
+    dmrs_rel, _ = _f3_symbol_split(cfg)
+    return np.stack([_f3_dmrs_seq(cfg, cfg.start_symbol + s, slot)
+                     for s in dmrs_rel], axis=0)
+
+
+def _f3_pilots(cfg: PucchF3Config, ncs, device) -> torch.Tensor:
+    """The DM-RS values [Sd, M]: from the slot context (a complex tensor)
+    or built on the host for ``cfg.slot`` and cached per device."""
+    if ncs is None:
+        return const(f3_dmrs_values_for, cfg, device=device)
+    if isinstance(ncs, torch.Tensor) and ncs.is_complex():
+        return ncs
+    raise NotImplementedError(
+        "PUCCH F3/F4 from an n_cs table in the slot context is not ported; "
+        "pass the values of f3_dmrs_values_for")
+
+
+def f3_estimate_args(grid: torch.Tensor, cfg: PucchF3Config,
+                     pilots: torch.Tensor) -> tuple:
+    """(args, kwargs) of ``chest.estimate_from_grid`` for the DM-RS of one
+    F3/F4 PDU: every subcarrier a pilot (stride 1, the full-rate RC
+    filter), no CFO, 30 kHz, as the JAX package runs it."""
+    dmrs_rel, _ = _f3_symbol_split(cfg)
+    m = 12 * cfg.nof_rb
+    args = (grid, tuple(cfg.start_symbol + s for s in dmrs_rel),
+            cfg.rb_start * 12, pilots[None], np.arange(m), m,
+            cfg.nof_symbols, 30e3)
+    return args, dict(stride=1, smoothing="filter", estimate_cfo=False)
+
+
+def f3_demap_ref(grid: torch.Tensor, coeffs: torch.Tensor,
+                 noise_var: torch.Tensor, cfg: PucchF3Config) -> torch.Tensor:
+    """Plain twin of :func:`f3_demap` (the JAX package's steps)."""
+    m = cfg.nof_rb * 12
+    sc0 = cfg.rb_start * 12
+    _, data_rel = _f3_symbol_split(cfg)
+    h_use = coeffs[:, 0, 0]                                  # [P, M]
+    noise = torch.mean(noise_var)
+    m_data = m // cfg.occ_length
+    occ_conj = const(_f3_occ_conj, cfg.occ_length, cfg.occ_index,
+                     device=grid.device)
+    parts = []
+    for s in data_rel:
+        rx = grid[:, cfg.start_symbol + s, sc0:sc0 + m]
+        corr = torch.sum(h_use.conj() * rx, dim=0)
+        energy = torch.sum(h_use.abs() ** 2, dim=0)
+        eq = corr / (energy + noise)
+        nv = noise / torch.clamp_min(torch.mean(energy), 1e-12)
+        x = deprecode(eq)
+        if cfg.occ_length > 1:
+            blocks = x.reshape(cfg.occ_length, m_data)
+            x = torch.sum(blocks * occ_conj[:, None], dim=0) / cfg.occ_length
+        parts.append(demodulate(x[None], nv.expand(x.shape)[None],
+                                _f3_scheme(cfg))[0])
+    llr = torch.cat(parts)
+    return descramble_llrs(llr[None], _f3_c_init(cfg))[0]
+
+
+def f3_demap(grid: torch.Tensor, coeffs: torch.Tensor,
+             noise_var: torch.Tensor, cfg: PucchF3Config) -> torch.Tensor:
+    """Descrambled LLRs f32 [n_data * M / occ_length * Qm] of one F3/F4
+    PDU: per data symbol, the combining corr / (energy + noise) over the rx
+    ports with the channel estimate (``coeffs`` complex64 [P, 1, 1, M],
+    K8's) and the mean estimator noise of ``noise_var`` [P], the unitary
+    IDFT, the F4 OCC despread, max-log QPSK or pi/2-BPSK at noise / mean
+    energy, and the Gold descramble."""
+    if not is_cuda(grid, coeffs, noise_var):
+        return f3_demap_ref(grid, coeffs, noise_var, cfg)
+    p, m = grid.shape[0], 12 * cfg.nof_rb
+    if grid.dtype != torch.complex64 or grid.ndim != 3:
+        raise ValueError(f"grid must be complex64 [P, S, K], got "
+                         f"{grid.dtype} {tuple(grid.shape)}")
+    if coeffs.dtype != torch.complex64 or coeffs.shape != (p, 1, 1, m):
+        raise ValueError(f"coeffs must be complex64 [{p}, 1, 1, {m}], got "
+                         f"{coeffs.dtype} {tuple(coeffs.shape)}")
+    if noise_var.dtype != torch.float32 or noise_var.shape != (p,):
+        raise ValueError(f"noise_var must be float32 [{p}]")
+    if m % cfg.occ_length:
+        raise ValueError(f"occ_length {cfg.occ_length} does not divide {m}")
+    dev = grid.device
+    scheme = _f3_scheme(cfg)
+    kind, _, levels, two_scale = demap_tables(scheme, dev)
+    syms = const(_f3_data_symbols, cfg, device=dev)
+    n = syms.numel() * m // cfg.occ_length * _f3_qm(cfg)
+    occ = const(_f3_occ_conj, cfg.occ_length, cfg.occ_index, device=dev)
+    tw = const(twiddles, m, device=dev)
+    gold = gold_sequence(_f3_c_init(cfg), n, device=dev)
+    grid, coeffs = grid.contiguous(), coeffs.contiguous()
+    noise_var = noise_var.contiguous()
+    llr = torch.empty((n,), dtype=torch.float32, device=dev)
+    _build.check(_build.load().srsran_pucch_f3_demap(
+        _build.ptr(grid), p, grid.shape[1], grid.shape[2], _build.ptr(coeffs),
+        _build.ptr(noise_var), cfg.rb_start * 12, m, _build.ptr(syms),
+        syms.numel(), cfg.occ_length, _build.ptr(occ), _build.ptr(tw), kind,
+        _build.ptr(levels), two_scale, _build.ptr(gold), _build.ptr(llr),
+        _build.stream_of(grid)), "pucch_f3_demap")
+    KERNEL_F3.count()
+    return llr
+
+
+def process_format3(grid: torch.Tensor, cfg: PucchF3Config, ncs=None) -> dict:
+    """F3/F4 receive: the DM-RS estimate through the port channel
+    estimator (K8 at stride 1), combine + IDFT + despread + demap +
+    descramble (K19), UCI decode (K14 up to 11 bits, else K15).  ncs: None
+    or the DM-RS values [Sd, M] of :func:`f3_dmrs_values_for` (the slot
+    context).  Returns the JAX package's dict: uci_bits, valid, metric."""
+    pilots = _f3_pilots(cfg, ncs, grid.device)
+    args, kw = f3_estimate_args(grid, cfg, pilots)
+    est = chest.estimate_from_grid(*args, **kw)
+    llr = f3_demap(grid, est.coeffs, est.noise_var, cfg)
+    bits, ok, metric = uci_codec.decode_uci(llr, cfg.nof_uci_bits,
+                                            _f3_qm(cfg))
+    return {"uci_bits": bits, "valid": ok, "metric": metric}

@@ -1,21 +1,29 @@
 """PUSCH receive processor (TS38.211 §6.3.1, TS38.212 §6.2).
 
-Port of srsran_tpu/phy/upper/pusch.py without frequency hopping or
-transform precoding:
+Port of srsran_tpu/phy/upper/pusch.py:
 
-  DM-RS channel estimate (K8; layers 3-4 on a second CDM group) -> [fused
-  per-RE ZF / MMSE equalize -> max-log demap -> descramble: K3 for ZF
-  with 1-2 layers, K16 otherwise] -> EVM -> [UL-SCH / UCI demultiplex:
+  DM-RS channel estimate (K8; layers 3-4 on a second CDM group; the
+  low-PAPR sequence with transform precoding) -> [fused per-RE ZF / MMSE
+  equalize -> max-log demap -> descramble: K3 for ZF with 1-2 layers, K16
+  otherwise; with transform precoding K18, which adds the IDFT per data
+  symbol and its block's mean noise] -> EVM -> [UL-SCH / UCI demultiplex:
   K17] -> HARQ-ACK, CSI part 1 and part 2 decode (K14 short block, K15
   polar) -> rate dematch + HARQ combine (K2) -> LDPC decode with CRC early
   stop (K1) -> CB/TB CRC.
 
 All data REs of the allocation are gathered through one host plan; the
-codeblock axis batches the decode.  A leading slot axis on the grid (the
-slot-batch mode: grid [B, P, S, K], soft buffers [B, C, N], DM-RS pilot
-values [B, nsym, npilot] or shared) runs K8, K3, K2 and K1 once for all
-slots, with the LDPC early stop kept per slot; K16 and K17 run once per
-slot.  Every result then has the slot axis in front.
+codeblock axis batches the decode.  Intra-slot frequency hopping
+(:func:`hop_configs`) estimates each hop on its own (K8 per hop, the DM-RS
+pilot rows of the slot context split per hop); without transform
+precoding K3/K16 then run once per hop, hop 2 descrambling from the Gold
+bit where hop 1 ended, and with it one K18 launch takes both hops.  Only
+hop 1's channel report is returned, as the JAX package does.
+
+A leading slot axis on the grid (the slot-batch mode: grid [B, P, S, K],
+soft buffers [B, C, N], DM-RS pilot values [B, nsym, npilot] or shared)
+runs K8, K3, K2 and K1 once for all slots, with the LDPC early stop kept
+per slot; K16, K17 and K18 run once per slot.  Every result then has the
+slot axis in front.
 """
 
 from __future__ import annotations
@@ -33,11 +41,15 @@ from ...device import const
 from ...ops import channel_estimate as chest
 from ...ops import evm as evm_ops
 from ...ops import uci_demux, ul_demap, ulsch_demux
+from ...ops.low_papr import base_sequence
 from ...ops.modulation import BITS_PER_SYMBOL
+from ...ops.scrambling import descramble_llrs
 from . import sch_decoder
 from . import uci as uci_codec
-from .dmrs import DmrsConfig, _type1_sc_indices, pilots_for_port
-from .pdsch import _cb_rate_match_sizes, data_re_plan_column, plan_key
+from .dmrs import (DmrsConfig, _type1_sc_indices, pilot_values_for,
+                   pilots_for_port)
+from .pdsch import (_cb_rate_match_sizes, _data_re_plan,
+                    data_re_plan_column, plan_key)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,14 +98,45 @@ class PuschResult:
     csi2_valid: torch.Tensor | None = None
 
 
-def check_supported(cfg: PuschConfig) -> None:
-    """Raise for PDU options the port does not run yet."""
-    if cfg.second_hop_prb is not None:
-        raise NotImplementedError(
-            "PUSCH frequency hopping is not ported yet (ROADMAP §1, slice 6)")
-    if cfg.transform_precoding:
-        raise NotImplementedError(
-            "transform precoding is not ported yet (ROADMAP §1, slice 6)")
+def hop_configs(cfg: PuschConfig) -> tuple:
+    """Split a hopping PUSCH into per-hop single-allocation configs (hop 1:
+    the first floor(N/2) symbols; the JAX package's hop_configs)."""
+    if cfg.second_hop_prb is None:
+        return (cfg,)
+    n1 = cfg.nof_symbols // 2
+    hop1_syms = tuple(s for s in cfg.dmrs_symbols
+                      if s < cfg.first_symbol + n1)
+    hop2_syms = tuple(s for s in cfg.dmrs_symbols
+                      if s >= cfg.first_symbol + n1)
+    if not (hop1_syms and hop2_syms):
+        raise ValueError("frequency hopping needs DM-RS in both hops")
+    h1 = dataclasses.replace(cfg, nof_symbols=n1, dmrs_symbols=hop1_syms,
+                             second_hop_prb=None)
+    h2 = dataclasses.replace(cfg, rb_start=cfg.second_hop_prb,
+                             first_symbol=cfg.first_symbol + n1,
+                             nof_symbols=cfg.nof_symbols - n1,
+                             dmrs_symbols=hop2_syms, second_hop_prb=None)
+    return (h1, h2)
+
+
+def dmrs_pilot_values(cfg: PuschConfig) -> np.ndarray:
+    """The PUSCH's DM-RS pilot values [nsym, npilot] (the slot context):
+    with frequency hopping hop 1's rows from hop 1's config, then hop 2's
+    from hop 2's, each hop's Gold sequence advanced to its own first PRB.
+    (The JAX conductor builds every row from hop 1's config, so its hop 2
+    is estimated against the pilots of hop 1's PRBs; ROADMAP §3.)"""
+    return np.concatenate([pilot_values_for(dmrs_config(h))
+                           for h in hop_configs(cfg)], axis=0)
+
+
+def _hop_rows(dmrs_cinits, first: int, count: int):
+    """One hop's rows of a PUSCH's DM-RS slot context: pilot values [(B,)
+    nsym, npilot] (rows on the next-to-last axis) or c_init seeds."""
+    if dmrs_cinits is None:
+        return None
+    if isinstance(dmrs_cinits, torch.Tensor) and dmrs_cinits.is_complex():
+        return dmrs_cinits[..., first:first + count, :]
+    return dmrs_cinits[first:first + count]
 
 
 def demux_plan(cfg: PuschConfig) -> ulsch_demux.DemuxConfig | None:
@@ -140,8 +183,11 @@ def estimate_channel(grid: torch.Tensor, cfg: PuschConfig,
 
     Layers 1-2 ride DM-RS type-1 CDM group 0 (delta 0); layers 3-4 add CDM
     group 1 (delta 1), estimated apart (K8 twice) and concatenated on the
-    layer axis, the reports averaged over the two groups."""
-    check_supported(cfg)
+    layer axis, the reports averaged over the two groups.  With transform
+    precoding (one layer only) the pilots are the low-PAPR sequence."""
+    if cfg.transform_precoding and cfg.nof_layers != 1:
+        raise ValueError("transform precoding is single-layer, got "
+                         f"{cfg.nof_layers} layers")
     if cfg.nof_layers > 2:
         e0 = _estimate_group(grid, cfg, dmrs_cinits, (0, 1), 0)
         e1 = _estimate_group(grid, cfg, dmrs_cinits,
@@ -171,10 +217,16 @@ def estimate_args(grid: torch.Tensor, cfg: PuschConfig, dmrs_cinits,
     """(args, kwargs) of ``chest.estimate_from_grid`` for the DM-RS ports
     of one CDM group."""
     dev = grid.device
-    dmrs_cfg = dmrs_config(cfg)
     sc_abs = _type1_sc_indices(cfg.rb_start, cfg.rb_count, delta)
-    expected = torch.stack([pilots_for_port(dmrs_cfg, p, dmrs_cinits, device=dev)
-                            for p in ports], dim=-3)        # [(B,) L, S, K]
+    if cfg.transform_precoding:
+        # DFT-s-OFDM DM-RS: the low-PAPR sequence (TS38.211 §6.4.1.1.1.2)
+        expected = const(_low_papr_pilots, cfg.dmrs_scrambling_id % 30,
+                         cfg.rb_count, len(cfg.dmrs_symbols), device=dev)
+    else:
+        dmrs_cfg = dmrs_config(cfg)
+        expected = torch.stack([pilots_for_port(dmrs_cfg, p, dmrs_cinits,
+                                                device=dev)
+                                for p in ports], dim=-3)    # [(B,) L, S, K]
     # Symbol times at the config's numerology, as the JAX package computes
     # them (PuschConfig.numerology defaults to 0; ROADMAP §3).
     scs = 15_000 << cfg.numerology
@@ -188,6 +240,14 @@ def estimate_args(grid: torch.Tensor, cfg: PuschConfig, dmrs_cinits,
                   dmrs_symbol_idx=np.asarray(cfg.dmrs_symbols),
                   cdm_pairs=len(ports) > 1)
     return args, kwargs
+
+
+def _low_papr_pilots(u: int, rb_count: int, nsym: int) -> np.ndarray:
+    """complex64 [1, nsym, 6 * rb_count]: the DFT-s-OFDM DM-RS on every
+    DM-RS symbol."""
+    seq = base_sequence(u, 0, 6 * rb_count)
+    return np.ascontiguousarray(np.broadcast_to(
+        seq, (1, nsym, 6 * rb_count))).astype(np.complex64)
 
 
 def _estimate_group(grid: torch.Tensor, cfg: PuschConfig, dmrs_cinits,
@@ -226,17 +286,72 @@ def _frontend_hop(grid: torch.Tensor, cfg: PuschConfig, dmrs_cinits=None):
     return x, out_nv, est
 
 
+def _tp_key(cfg: PuschConfig) -> tuple:
+    """The key of :func:`tp_plan`: each hop's ``plan_key``."""
+    return tuple(plan_key(h) for h in hop_configs(cfg))
+
+
+def tp_plan(hop_keys: tuple, which: int) -> np.ndarray:
+    """K18's host plan of a transform-precoded PUSCH (``_tp_key``): 0 the
+    int32 [3, RE] rows (symbol, subcarrier, coefficient column) of every
+    data RE in codeword order, hop after hop, the column counting from hop
+    h's first subcarrier plus h * M in the hops' side-by-side estimates;
+    1 the int32 hop of each block of M REs (one block per data symbol)."""
+    m = 12 * hop_keys[0][1]
+    rows, hops = [], []
+    for h, key in enumerate(hop_keys):
+        plan = _data_re_plan(*key)
+        if len(plan) % m:
+            raise ValueError("transform precoding needs whole data symbols "
+                             f"of {m} REs")
+        rows.append(np.stack([plan[:, 0], plan[:, 1],
+                              plan[:, 1] - 12 * key[0] + h * m]))
+        hops += [h] * (len(plan) // m)
+    out = np.concatenate(rows, axis=1) if which == 0 else np.asarray(hops)
+    return np.ascontiguousarray(out, dtype=np.int32)
+
+
 def codeword_llrs(grid: torch.Tensor, cfg: PuschConfig, dmrs_cinits=None):
-    """Front end through descrambling: (codeword LLRs, estimate, EVM)."""
-    est = estimate_channel(grid, cfg, dmrs_cinits)
-    sym_idx, sc_idx = _plan(cfg, grid.device)
+    """Front end through descrambling: (codeword LLRs, estimate, EVM).
+
+    Each hop is estimated with its own rows of the DM-RS context (the JAX
+    package's slicing); the estimate returned is hop 1's."""
+    dev = grid.device
+    hops = hop_configs(cfg)
+    ests, first = [], 0
+    for h in hops:
+        rows = (dmrs_cinits if len(hops) == 1 else
+                _hop_rows(dmrs_cinits, first, len(h.dmrs_symbols)))
+        ests.append(estimate_channel(grid, h, rows))
+        first += len(h.dmrs_symbols)
     c_init = _c_init(cfg)
-    llr, x = ul_demap.equalize_demap_descramble(
-        grid, est.coeffs, sym_idx, sc_idx, cfg.rb_start * 12,
-        est.noise_var.mean(dim=-1), c_init, cfg.modulation, cfg.nof_layers,
-        cfg.equalizer)
-    evm_val = evm_ops.evm(x.flatten(-2), llr, cfg.modulation)
-    return llr, est, evm_val
+    if cfg.transform_precoding:
+        key = _tp_key(cfg)
+        coeffs = (ests[0].coeffs if len(ests) == 1
+                  else torch.cat([e.coeffs for e in ests], dim=-1))
+        llr, x = ul_demap.tp_equalize_demap_descramble(
+            grid, coeffs, const(tp_plan, key, 0, device=dev),
+            torch.stack([e.noise_var for e in ests], dim=-2),
+            const(tp_plan, key, 1, device=dev), 12 * cfg.rb_count, c_init,
+            cfg.modulation, cfg.equalizer)
+    else:
+        llrs, xs, advance = [], [], 0
+        for h, est in zip(hops, ests):
+            sym_idx, sc_idx = _plan(h, dev)
+            llr_h, x_h = ul_demap.equalize_demap_descramble(
+                grid, est.coeffs, sym_idx, sc_idx, h.rb_start * 12,
+                est.noise_var.mean(dim=-1), c_init, cfg.modulation,
+                cfg.nof_layers, cfg.equalizer, advance)
+            advance += llr_h.shape[-1]
+            llrs.append(llr_h)
+            xs.append(x_h)
+        llr, x = ((llrs[0], xs[0]) if len(hops) == 1 else
+                  (torch.cat(llrs, dim=-1), torch.cat(xs, dim=-2)))
+    # the BPSK EVMs remodulate the hard decisions of the demapped LLRs
+    demapped = (descramble_llrs(llr, c_init)
+                if BITS_PER_SYMBOL[cfg.modulation] == 1 else llr)
+    evm_val = evm_ops.evm(x.flatten(-2), demapped, cfg.modulation)
+    return llr, ests[0], evm_val
 
 
 def _c_init(cfg: PuschConfig) -> int:
@@ -272,7 +387,6 @@ def decode_from_llrs(llr: torch.Tensor, est, cfg: PuschConfig,
                      evm_val: torch.Tensor | None = None) -> PuschResult:
     """UL-SCH demux + UCI decode + rate dematch + LDPC decode from
     descrambled codeword LLRs."""
-    check_supported(cfg)
     llr, uci_out = decode_uci_fields(llr, cfg)
     qm = BITS_PER_SYMBOL[cfg.modulation]
     seg = segmentation(cfg)

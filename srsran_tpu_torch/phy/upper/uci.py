@@ -2,8 +2,8 @@
 
 Port of srsran_tpu/phy/upper/uci.py: <=11 bits -> short-block (RM/simplex/
 repetition) with ML detection (K14); 12..19 -> polar with CRC6 + 3 PC bits;
->=20 -> polar with CRC11 (K15).  Shared by PUCCH F2/F3/F4 and UCI on PUSCH
-(F3/F4 and UCI on PUSCH are not ported yet, ROADMAP §1 item 13).
+>=20 -> polar with CRC11 (K15).  Shared by PUCCH F3/F4 and UCI on PUSCH
+(PUCCH F2 keeps its own polar parameters, pucch._f2_polar_cfg).
 """
 
 from __future__ import annotations

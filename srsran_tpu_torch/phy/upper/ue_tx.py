@@ -7,6 +7,14 @@ into their §6.2.7 positions (the ops/ulsch_demux.py plan), scrambling that
 honours the UCI placeholders, and type-1 DM-RS on port 0.  Single layer,
 as in the JAX package.  Plain PyTorch and numpy on the caller's device
 (the encoder runs K5 on a CUDA device, as the DL chain does).
+
+Beyond the JAX function (whose package has no UE transmitter for them, its
+tests build such grids by hand), the same codeword goes out with intra-slot
+frequency hopping (each hop's data and DM-RS on its own PRBs, the DM-RS
+Gold sequence of each hop advanced to its first PRB) and with transform
+precoding (the unitary DFT of each data symbol's block, and the low-PAPR
+DM-RS on comb 0), as tests/test_freq_hopping.py and
+tests/test_ptrs_evm_tp.py build them.
 """
 
 from __future__ import annotations
@@ -16,10 +24,12 @@ import torch
 
 from ...ops import ldpc_encode, ldpc_rate_match, ulsch_demux
 from ...ops.gold import gold_sequence_np
+from ...ops.low_papr import base_sequence
 from ...ops.modulation import BITS_PER_SYMBOL, modulate
+from ...ops.transform_precode import precode
 from . import pusch as pusch_mod
 from . import uci as uci_codec
-from .dmrs import DmrsConfig, map_to_grid
+from .dmrs import DmrsConfig, _type1_sc_indices, map_to_grid
 from .pdsch import (PdschConfig, _cb_rate_match_sizes, _data_re_plan,
                     encode_transport_block)
 
@@ -40,7 +50,8 @@ def pusch_transmit(cfg: "pusch_mod.PuschConfig", payload, ack=None,
     demultiplexer.
     """
     qm = BITS_PER_SYMBOL[cfg.modulation]
-    nof_sc = nof_sc or (cfg.rb_start + cfg.rb_count) * 12
+    hops = pusch_mod.hop_configs(cfg)
+    nof_sc = nof_sc or (max(h.rb_start for h in hops) + cfg.rb_count) * 12
     dcfg = pusch_mod.demux_plan(cfg)
     tb = torch.as_tensor(np.asarray(payload).astype(np.int8)).to(device)
 
@@ -83,14 +94,30 @@ def pusch_transmit(cfg: "pusch_mod.PuschConfig", payload, ack=None,
     else:
         scr = (cw.astype(np.int8) ^ seq).astype(np.int8)
     syms = modulate(torch.as_tensor(scr[None]).to(device), cfg.modulation)[0]
+    m = 12 * cfg.rb_count
+    if cfg.transform_precoding:
+        syms = precode(syms.reshape(-1, m)).reshape(-1)
     grid = torch.zeros((1, 14, nof_sc), dtype=torch.complex64, device=device)
-    plan = _data_re_plan(cfg.rb_start, cfg.rb_count, cfg.first_symbol,
-                         cfg.nof_symbols, cfg.dmrs_symbols, 2)
-    grid[0, torch.as_tensor(plan[:, 0].astype(np.int64)).to(device),
-         torch.as_tensor(plan[:, 1].astype(np.int64)).to(device)] = syms
-    dmrs_cfg = DmrsConfig(rb_start=cfg.rb_start, rb_count=cfg.rb_count,
-                          symbols=cfg.dmrs_symbols, ports=(0,),
-                          scrambling_id=cfg.dmrs_scrambling_id,
-                          n_scid=cfg.n_scid,
-                          slot_in_frame=cfg.slot_in_frame)
-    return map_to_grid(grid, dmrs_cfg, np.eye(1, dtype=np.complex64))
+    first = 0
+    for h in hops:
+        plan = _data_re_plan(h.rb_start, h.rb_count, h.first_symbol,
+                             h.nof_symbols, h.dmrs_symbols, 2)
+        grid[0, torch.as_tensor(plan[:, 0].astype(np.int64)).to(device),
+             torch.as_tensor(plan[:, 1].astype(np.int64)).to(device)] = \
+            syms[first:first + len(plan)]
+        first += len(plan)
+        if cfg.transform_precoding:
+            seq = torch.as_tensor(base_sequence(cfg.dmrs_scrambling_id % 30,
+                                                0, m // 2), device=device)
+            sc = torch.as_tensor(_type1_sc_indices(h.rb_start, h.rb_count, 0)
+                                 .astype(np.int64), device=device)
+            for l in h.dmrs_symbols:
+                grid[0, l, sc] = seq
+            continue
+        dmrs_cfg = DmrsConfig(rb_start=h.rb_start, rb_count=h.rb_count,
+                              symbols=h.dmrs_symbols, ports=(0,),
+                              scrambling_id=cfg.dmrs_scrambling_id,
+                              n_scid=cfg.n_scid,
+                              slot_in_frame=cfg.slot_in_frame)
+        map_to_grid(grid, dmrs_cfg, np.eye(1, dtype=np.complex64))
+    return grid

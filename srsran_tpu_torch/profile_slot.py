@@ -1,7 +1,8 @@
 """Where a flagship slot's time goes on one CUDA GPU.
 
     python3 -m srsran_tpu_torch.profile_slot
-        [--direction ul|dl|conductor|ul_mu|batch] [--slots 8] [--calls 10]
+        [--direction ul|dl|conductor|ul_mu|batch|edge] [--slots 8]
+        [--calls 10]
         [--out DIR]
 
 Drives the flagship UL slot (the full mix: PUSCH, PUCCH F1, PRACH, SRS),
@@ -13,7 +14,10 @@ MMSE PUSCH and a 1-layer PUSCH with HARQ-ACK and CSI parts 1-2 beside the
 PUCCH F1, PRACH and SRS, through ``ul_slot_fn``; every slot checked after
 the measurement) or slot batch (``batch``: conductor phases 1-4 as one
 ``process_slot_batch`` of B = 4 per call, ``--slots`` batches, each slot
-checked after the measurement; "per slot" below then reads "per batch") of
+checked after the measurement; "per slot" below then reads "per batch") or
+cell-edge UL slot (``edge``: a 2-layer PUSCH, a DFT-s-OFDM PUSCH with
+intra-slot hopping and HARQ-ACK, PUCCH F1, F3 and F4, PRACH and SRS,
+through ``ul_slot_fn``; every slot checked after the measurement) of
 :mod:`srsran_tpu_torch.flagship` and reports:
 
 * the slot's wall time three ways: CUDA events around each call (as
@@ -40,8 +44,8 @@ The conductor and batch directions run every call once before measuring,
 so every slot phase's CUDA graph is captured beforehand.
 
 The slot's trace and a JSON summary go to ``--out`` (``slot_trace.json``
-and ``summary.json`` for the UL, ``dl_``, ``conductor_``, ``ul_mu_`` or
-``batch_`` before both names for the others);
+and ``summary.json`` for the UL, ``dl_``, ``conductor_``, ``ul_mu_``,
+``batch_`` or ``edge_`` before both names for the others);
 the summary is also printed as the last line.
 """
 
@@ -72,7 +76,8 @@ HAND_KERNELS = ("ldpc_sweep_kernel", "ldpc_check_kernel", "rate_dematch_kernel",
                 "prach_power_kernel", "prach_detect_kernel", "pucch_f1_kernel",
                 "srs_noise_kernel", "pucch_f0_kernel", "pucch_f2_kernel",
                 "short_block_kernel", "polar_sc_kernel",
-                "pusch_demap_lxn_kernel", "ulsch_demux_kernel")
+                "pusch_demap_lxn_kernel", "ulsch_demux_kernel",
+                "pusch_tp_demap_kernel", "pucch_f3_demap_kernel")
 
 
 def category(name: str, cat: str) -> str:
@@ -307,6 +312,31 @@ def ul_mu_scenario(n: int, seed: int, dev, gen) -> tuple:
     return [lambda i=i: call(i) for i in range(n)], cases, check
 
 
+def edge_scenario(n: int, seed: int, dev, gen) -> tuple:
+    """(one zero-argument call per cell-edge UL slot, the cases of the
+    kernels new on its path (K18 at UE C, K19 at the F3 and the F4, K8 at
+    stride 1), a function that checks every slot's last result and returns
+    their count)."""
+    slots = flagship.make_edge_slots(n, np.random.default_rng(seed), gen, dev)
+    softs = flagship.edge_soft_buffers(dev)
+    prach_in = flagship.prach_fd(dev, seed)
+    prog = flagship.edge_program()
+    outs = {}
+
+    def call(i):
+        s = slots[i]
+        outs[i] = prog(s["rx"], prach_in, softs, s["ctx"])
+
+    cases = flagship.edge_kernel_cases(slots[0], gen)
+
+    def check() -> int:
+        for i, out in outs.items():
+            flagship.check_edge_slot(out, slots[i], f"cell-edge slot {i}")
+        return len(outs)
+
+    return [lambda i=i: call(i) for i in range(n)], cases, check
+
+
 def batch_scenario(n: int, seed: int, dev, gen) -> tuple:
     """(one zero-argument call per batch, no kernel cases, a function that
     resolves and checks every slot launched and returns their count): ``n``
@@ -353,7 +383,8 @@ def launch_counts(call) -> dict:
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--direction",
-                    choices=("ul", "dl", "conductor", "ul_mu", "batch"),
+                    choices=("ul", "dl", "conductor", "ul_mu", "batch",
+                             "edge"),
                     default="ul")
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--calls", type=int, default=10)
@@ -377,6 +408,9 @@ def main(argv=None) -> dict:
         calls, cases, resolve = ul_mu_scenario(args.slots, args.seed, dev,
                                                gen)
         prefix = "ul_mu_"
+    elif args.direction == "edge":
+        calls, cases, resolve = edge_scenario(args.slots, args.seed, dev, gen)
+        prefix = "edge_"
     elif args.direction == "batch":
         calls, cases, resolve = batch_scenario(args.slots, args.seed, dev, gen)
         prefix = "batch_"
@@ -397,7 +431,7 @@ def main(argv=None) -> dict:
                "wall": wall_times(calls),
                "slot": slot_profile(calls, out / f"{prefix}slot_trace.json"),
                "kernels": kernel_profiles(cases, args.calls, out)}
-    if args.direction in ("conductor", "ul_mu", "batch"):
+    if args.direction in ("conductor", "ul_mu", "batch", "edge"):
         summary["slots_resolved_and_checked"] = resolve()
     (out / f"{prefix}summary.json").write_text(json.dumps(summary, indent=1))
     print(json.dumps(summary))

@@ -248,11 +248,29 @@ def test_empty_ul_results_lie_on_the_callers_device():
 
 
 def test_unported_modes_raise():
+    """pcap capture still raises (ROADMAP §1 item 16); a PUCCH F3 plan
+    entry, once refused, now runs as the JAX program runs it (on noise: the
+    same decision, bits and metric)."""
     with pytest.raises(NotImplementedError, match="item 16"):
         t_cond.SlotConductor(T_CELL, device="cpu", pcap=object())
-    f3 = ((), (), (), (), (), (), (object(),))
-    with pytest.raises(NotImplementedError, match="F3/F4.*item 13"):
-        t_slots.ul_slot_core(T_CELL, f3)
+    f3 = j_pucch.PucchF3Config(rb_start=20, nof_rb=1, start_symbol=0,
+                               nof_symbols=14, rnti=0x1a, n_id=1,
+                               n_id_hopping=1, nof_uci_bits=6)
+    plan = ((), (), (), (), (), (), (f3,))
+    rng = np.random.default_rng(8)
+    t = CELL.slot_samples(0)
+    rx = (0.1 * (rng.standard_normal((2, t))
+                 + 1j * rng.standard_normal((2, t)))).astype(np.complex64)
+    from srsran_tpu.phy import slot_programs as j_slots
+    (ref,) = j_slots.ul_slot_core(CELL, plan)(jnp.asarray(rx), (), None)[
+        "pucch_f3"]
+    (got,) = t_slots.ul_slot_core(T_CELL, convert.plan(plan))(
+        torch.as_tensor(rx), (), None)["pucch_f3"]
+    np.testing.assert_array_equal(got["uci_bits"].numpy(),
+                                  np.asarray(ref["uci_bits"]))
+    assert bool(got["valid"]) == bool(ref["valid"])
+    np.testing.assert_allclose(float(got["metric"]), float(ref["metric"]),
+                               rtol=1e-4)
 
 
 # -------------------------------------------------------------- HARQ

@@ -243,14 +243,30 @@ def test_pusch_process():
     assert int(a.nof_iterations) == int(b.nof_iterations)
 
 
+HOP = dict(rb_count=12, tbs=tbs_calc(12, 14, 36, "qam64", 0.7, 2),
+           second_hop_prb=12)
+
+
 @pytest.mark.parametrize("change", [
-    dict(second_hop_prb=4), dict(transform_precoding=True),
-    dict(equalizer="mmse", second_hop_prb=4),
+    HOP, dict(transform_precoding=True), dict(HOP, equalizer="mmse"),
     dict(nof_layers=3, transform_precoding=True)])
-def test_pusch_unported_options_raise(change):
-    """Frequency hopping and transform precoding raise, with MMSE and 3-4
-    layers (ported) or without."""
+def test_pusch_unported_options_raise(rx_case, change):
+    """The options the port once refused, held to the JAX package on the
+    same grid and DM-RS context: frequency hopping (ZF, and MMSE through the
+    L x N solve) gives the same codeword LLRs (1e-3) and EVM (1e-4);
+    transform precoding on these 2- and 3-layer PDUs raises where the JAX
+    receiver asserts (pusch.py:179).  The hops split the grid's 24 RB."""
     import dataclasses
-    cfg = dataclasses.replace(convert.config(J_PUSCH), **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*slice 6"):
-        t_pusch.check_supported(cfg)
+    jcfg = dataclasses.replace(J_PUSCH, **change)
+    rx, _ = rx_case
+    pil = _ctx(jcfg)
+    if jcfg.transform_precoding:
+        with pytest.raises(AssertionError):
+            j_pusch.codeword_llrs(jnp.asarray(rx), jcfg, jnp.asarray(pil))
+        with pytest.raises(ValueError, match="single-layer"):
+            t_pusch.codeword_llrs(_t(rx), convert.config(jcfg), _t(pil))
+        return
+    la, _, ea = j_pusch.codeword_llrs(jnp.asarray(rx), jcfg, jnp.asarray(pil))
+    lb, _, eb = t_pusch.codeword_llrs(_t(rx), convert.config(jcfg), _t(pil))
+    close(lb, la, rtol=1e-3)
+    close(eb, ea)

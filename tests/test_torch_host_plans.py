@@ -720,6 +720,148 @@ def test_pusch_transmit_copy(mod, o_ack, o_csi1, o_csi2):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+# ------------------------------------------------------- the cell edge
+
+@pytest.mark.parametrize("n", [12, 24, 72, 180, 3240])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_dft_mat_copy(n, inverse):
+    from srsran_tpu.ops import transform_precode as j_tp
+    from srsran_tpu_torch.ops import transform_precode as t_tp
+    np.testing.assert_array_equal(t_tp._dft_mat(n, inverse),
+                                  j_tp._dft_mat(n, inverse))
+
+
+def test_f3_symbol_split_copy():
+    """_F34_DMRS_POS and the DM-RS / data split of every F3/F4 length."""
+    assert t_pucch._F34_DMRS_POS == j_pucch._F34_DMRS_POS
+    for nsym in range(4, 15):
+        j_cfg = j_pucch.PucchF3Config(rb_start=0, nof_rb=1, start_symbol=0,
+                                      nof_symbols=nsym, rnti=1, n_id=1,
+                                      n_id_hopping=1, nof_uci_bits=4)
+        assert t_pucch._f3_symbol_split(convert.config(j_cfg)) == \
+            j_pucch._f3_symbol_split(j_cfg)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(rb_start=4, nof_rb=3, start_symbol=0, nof_symbols=10,
+         n_id_hopping=21),
+    dict(rb_start=246, nof_rb=2, start_symbol=0, nof_symbols=14,
+         n_id_hopping=1),
+    dict(rb_start=248, nof_rb=1, start_symbol=2, nof_symbols=12,
+         n_id_hopping=1, occ_length=2, occ_index=1),
+    dict(rb_start=0, nof_rb=16, start_symbol=3, nof_symbols=4,
+         n_id_hopping=1000)])
+@pytest.mark.parametrize("slot", [0, 7, 19])
+def test_f3_dmrs_values_for_copy(kw, slot):
+    j_cfg = j_pucch.PucchF3Config(rnti=0x1a, n_id=1, nof_uci_bits=8, **kw)
+    np.testing.assert_array_equal(
+        t_pucch.f3_dmrs_values_for(convert.config(j_cfg), slot),
+        j_pucch.f3_dmrs_values_for(j_cfg, slot))
+
+
+HOP_CASES = [dict(dmrs_symbols=(2, 9), second_hop_prb=24),
+             dict(dmrs_symbols=(2, 7, 11), second_hop_prb=3),
+             dict(first_symbol=2, nof_symbols=11, dmrs_symbols=(2, 8),
+                  second_hop_prb=40),
+             dict(dmrs_symbols=(2, 9), second_hop_prb=None)]
+
+
+def _hop_pusch(**kw):
+    return j_pusch.PuschConfig(**{
+        **dict(rnti=0x21, rb_start=0, rb_count=12, first_symbol=0,
+               nof_symbols=14, modulation="qpsk", target_code_rate=0.3,
+               tbs=1544, n_id=3), **kw})
+
+
+@pytest.mark.parametrize("kw", HOP_CASES)
+def test_hop_configs_copy(kw):
+    j_cfg = _hop_pusch(**kw)
+    got = t_pusch.hop_configs(convert.config(j_cfg))
+    want = j_pusch.hop_configs(j_cfg)
+    assert [dataclasses.asdict(g) for g in got] == \
+        [dataclasses.asdict(convert.config(w)) for w in want]
+
+
+@pytest.mark.parametrize("kw", HOP_CASES)
+def test_tp_plan(kw):
+    """K18's per-RE plan: each hop's data REs as the JAX receiver gathers
+    them (its _data_re_plan per hop config), the coefficient column of
+    each RE in the hops' side-by-side estimates, the hop of each block."""
+    j_cfg = _hop_pusch(transform_precoding=True, **kw)
+    key = t_pusch._tp_key(convert.config(j_cfg))
+    plan, hops = t_pusch.tp_plan(key, 0), t_pusch.tp_plan(key, 1)
+    assert plan.dtype == hops.dtype == np.int32
+    m = 12 * j_cfg.rb_count
+    rows, cols, blocks = [], [], []
+    for h, hc in enumerate(j_pusch.hop_configs(j_cfg)):
+        p = j_pdsch._data_re_plan(hc.rb_start, hc.rb_count, hc.first_symbol,
+                                  hc.nof_symbols, hc.dmrs_symbols,
+                                  hc.reserved_cdm_groups)
+        rows.append(p)
+        cols.append(p[:, 1] - 12 * hc.rb_start + h * m)
+        blocks += [h] * (len(p) // m)
+    np.testing.assert_array_equal(plan[:2].T, np.concatenate(rows))
+    np.testing.assert_array_equal(plan[2], np.concatenate(cols))
+    np.testing.assert_array_equal(hops, blocks)
+
+
+def test_edge_scenario_tbs():
+    """flagship.EDGE's TBS are TS38.214 §5.1.3.2 through the JAX package's
+    ran/mcs_tbs.py."""
+    from srsran_tpu.ran.mcs_tbs import tbs as tbs_calc
+    from srsran_tpu_torch import flagship
+    assert flagship.EDGE.pusch_a.tbs == tbs_calc(240, 14, 36, "qam64", 0.7,
+                                                 2) == 262376
+    assert flagship.EDGE.pusch_c.tbs == tbs_calc(6, 14, 24, "qpsk", 0.3,
+                                                 1) == 528
+
+
+def test_f3_f4_and_tp_validators_copy():
+    """UL_TTI.request validation of F3/F4 and transform precoding raises
+    where the JAX package's does."""
+    from srsran_tpu.fapi import messages as jm
+    from srsran_tpu.fapi import validators as jv
+    from srsran_tpu.phy.slot_programs import CellConfig
+    from srsran_tpu_torch.fapi import validators as tv
+    cell = CellConfig(nof_ports=2, nof_rb=52, dft_size=1024, numerology=1)
+    f3 = j_pucch.PucchF3Config(rb_start=34, nof_rb=2, start_symbol=0,
+                               nof_symbols=14, rnti=0x1a, n_id=1,
+                               n_id_hopping=1, nof_uci_bits=22)
+    f4 = dataclasses.replace(f3, nof_rb=1, occ_length=2, occ_index=1)
+    pusch = j_pusch.PuschConfig(
+        rnti=0x19, rb_start=28, rb_count=6, first_symbol=0, nof_symbols=14,
+        modulation="qpsk", target_code_rate=0.3, tbs=528, n_id=1,
+        dmrs_symbols=(2, 9), transform_precoding=True, second_hop_prb=40)
+    slot = j_sp.SlotPoint(1, 4)
+    cases = [dict(pucch_f3=(f3,)), dict(pucch_f4=(f4,)),
+             dict(pusch=(pusch,)),
+             dict(pucch_f3=(dataclasses.replace(f3, nof_rb=7),)),
+             dict(pucch_f3=(dataclasses.replace(f3, rb_start=51),)),
+             dict(pucch_f3=(dataclasses.replace(f3, occ_length=2),)),
+             dict(pucch_f3=(dataclasses.replace(f3, nof_symbols=3),)),
+             dict(pucch_f3=(dataclasses.replace(f3, nof_uci_bits=0),)),
+             dict(pucch_f4=(dataclasses.replace(f4, nof_rb=2),)),
+             dict(pucch_f4=(dataclasses.replace(f4, occ_length=3),)),
+             dict(pucch_f4=(dataclasses.replace(f4, occ_index=2),)),
+             dict(pusch=(dataclasses.replace(pusch, nof_layers=2),))]
+    outcomes = []
+    for kw in cases:
+        msg = jm.UlTtiRequest(slot=slot, **kw)
+        try:
+            jv.validate_ul_tti(msg, cell)
+            want = None
+        except jv.ValidationError:
+            want = "raised"
+        try:
+            tv.validate_ul_tti(convert.requests(msg), convert.config(cell))
+            got = None
+        except tv.ValidationError:
+            got = "raised"
+        assert got == want, kw
+        outcomes.append(want)
+    assert outcomes == [None] * 3 + ["raised"] * 9
+
+
 _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None            # any `import jax` now raises
@@ -764,7 +906,8 @@ def test_port_imports_without_jax():
             "srsran_tpu_torch.ops.ul_demap",
             "srsran_tpu_torch.phy.upper.ue_tx",
             "srsran_tpu_torch.graphs",
-            "srsran_tpu_torch.parallel.mesh"} <= names
+            "srsran_tpu_torch.parallel.mesh",
+            "srsran_tpu_torch.ops.transform_precode"} <= names
 
 
 def _import_lines(path: Path):

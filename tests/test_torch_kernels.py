@@ -550,3 +550,107 @@ def test_empty_ul_results_lie_on_the_card(cuda):
         slot=messages.SlotPoint(1, 4)), rx)
     assert pend.scalars.device.type == pend.payload.device.type == "cuda"
     assert not pend.resolve().crc
+
+
+# ---------------------------------------------- K18, K19 (DFT-s-OFDM)
+
+def _tp_case(rng, dev, modulation, method, hop, rb_count=6, ports=4,
+             interpolate=False):
+    """K18's inputs for a transform-precoded PUSCH on a random grid: the
+    hops' estimates side by side (random), each hop's noise."""
+    cfg = dataclasses.replace(
+        flagship.EDGE.pusch_c, modulation=modulation, equalizer=method,
+        rb_start=240 if hop else 0, rb_count=rb_count,
+        second_hop_prb=256 if hop else None)
+    nhops = 2 if hop else 1
+    m = 12 * rb_count
+    t = 14 if interpolate else 1
+    grid = _cgauss(rng, (ports, 14, 3276)).to(dev)
+    coeffs = _cgauss(rng, (ports, 1, t, nhops * m)).to(dev)
+    noise = torch.as_tensor(rng.uniform(0.05, 0.2, (nhops, ports)).astype(
+        np.float32)).to(dev)
+    key = pusch._tp_key(cfg)
+    plan = torch.as_tensor(pusch.tp_plan(key, 0)).to(dev)
+    hops = torch.as_tensor(pusch.tp_plan(key, 1)).to(dev)
+    return (grid, coeffs, plan, noise, hops, m, 0x19 << 15 | 1, modulation,
+            method)
+
+
+@pytest.mark.parametrize("modulation,method,hop,interpolate", [
+    ("qpsk", "mmse", True, False), ("pi2bpsk", "zf", False, False),
+    ("bpsk", "mmse", True, True), ("qam16", "zf", True, False),
+    ("qam256", "mmse", False, True)])
+def test_pusch_tp_demap_kernel(cuda, modulation, method, hop, interpolate):
+    """K18 against its twin: x after the IDFT within 1e-4 and the LLRs
+    within 1e-3 of their largest magnitude."""
+    args = _tp_case(np.random.default_rng(len(modulation)), cuda, modulation,
+                    method, hop, interpolate=interpolate)
+    llr, x = ul_demap.tp_equalize_demap_descramble(*args)
+    llr_ref, x_ref = ul_demap.tp_equalize_demap_descramble_ref(*args)
+    _close(x, x_ref, 1e-4)
+    _close(llr, llr_ref, 1e-3)
+
+
+def test_pusch_tp_demap_kernel_widest(cuda):
+    """K18 at M = 3240 (270 RB, the widest DFT-s-OFDM allocation of the
+    flagship cell; above 48 KB of shared memory)."""
+    args = _tp_case(np.random.default_rng(3240), cuda, "qam64", "zf", False,
+                    rb_count=270)
+    llr, x = ul_demap.tp_equalize_demap_descramble(*args)
+    llr_ref, x_ref = ul_demap.tp_equalize_demap_descramble_ref(*args)
+    _close(x, x_ref, 1e-4)
+    _close(llr, llr_ref, 1e-3)
+
+
+@pytest.mark.parametrize("nof_rb,occ,pi2,nsym", [
+    (2, 1, True, 14), (3, 1, False, 10), (16, 1, False, 4), (1, 2, False, 12),
+    (1, 4, True, 8)])
+def test_pucch_f3_demap_kernel(cuda, nof_rb, occ, pi2, nsym):
+    """K19 against its twin (LLRs within 1e-3 of their largest magnitude),
+    F3 at 2, 3 and 16 RB, F4 with OCC 2 and 4."""
+    rng = np.random.default_rng(nof_rb * occ)
+    cfg = pucch.PucchF3Config(rb_start=10, nof_rb=nof_rb, start_symbol=14 - nsym,
+                              nof_symbols=nsym, rnti=0x1a, n_id=1,
+                              n_id_hopping=1, nof_uci_bits=8, pi2_bpsk=pi2,
+                              occ_length=occ, occ_index=occ - 1)
+    m = 12 * nof_rb
+    grid = _cgauss(rng, (4, 14, 480)).to(cuda)
+    coeffs = _cgauss(rng, (4, 1, 1, m)).to(cuda)
+    noise = torch.as_tensor(rng.uniform(0.05, 0.2, 4).astype(np.float32)).to(
+        cuda)
+    _close(pucch.f3_demap(grid, coeffs, noise, cfg),
+           pucch.f3_demap_ref(grid, coeffs, noise, cfg), 1e-3)
+
+
+@pytest.mark.parametrize("nof_rb", [1, 2, 16])
+def test_channel_estimate_kernel_stride1(cuda, nof_rb):
+    """K8 at the F3/F4 shape: every subcarrier a pilot, the full-rate RC
+    filter (band of width up to 31)."""
+    rng = np.random.default_rng(nof_rb)
+    cfg = pucch.PucchF3Config(rb_start=2, nof_rb=nof_rb, start_symbol=0,
+                              nof_symbols=14, rnti=0x1a, n_id=1,
+                              n_id_hopping=1, nof_uci_bits=8)
+    grid = _cgauss(rng, (4, 14, 480)).to(cuda)
+    pilots = torch.as_tensor(pucch.f3_dmrs_values_for(cfg)).to(cuda)
+    args, kw = pucch.f3_estimate_args(grid, cfg, pilots)
+    out = chest.estimate_from_grid(*args, **kw)
+    ref = chest.estimate_from_grid_ref(*args, **kw)
+    _close(out.coeffs, ref.coeffs, 1e-4)
+    _close(out.noise_var, ref.noise_var, 1e-4)
+    assert torch.equal(out.time_alignment_s.cpu(), ref.time_alignment_s.cpu())
+
+
+def test_pusch_demap_gold_offset(cuda):
+    """K3 and K16 descramble from a Gold offset (hop 2 of a hopping
+    PUSCH)."""
+    rng = np.random.default_rng(11)
+    grid = _cgauss(rng, (4, 14, 288)).to(cuda)
+    coeffs = _cgauss(rng, (4, 1, 1, 288)).to(cuda)
+    sym, sc = pusch._plan(PUSCH, cuda)
+    nv = torch.tensor(0.05, device=cuda)
+    for method in ("zf", "mmse"):
+        args = (grid, coeffs, sym, sc, 0, nv, 12345, "qam16", 1, method, 7777)
+        llr, x = ul_demap.equalize_demap_descramble(*args)
+        llr_ref, x_ref = ul_demap.equalize_demap_descramble_ref(*args)
+        _close(x, x_ref, 1e-4)
+        _close(llr, llr_ref, 1e-3)

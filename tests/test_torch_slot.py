@@ -20,6 +20,7 @@ from srsran_tpu.phy import slot_programs as j_slots
 from srsran_tpu.phy.upper import dmrs as j_dmrs
 from srsran_tpu.phy.upper import pdcch as j_pdcch
 from srsran_tpu.phy.upper import pdsch as j_pdsch
+from srsran_tpu.phy.upper import pucch as j_pucch
 from srsran_tpu.phy.upper import pusch as j_pusch
 from srsran_tpu.phy.upper import ssb as j_ssb
 from srsran_tpu.phy.upper.pdsch import PdschPtrs
@@ -89,7 +90,7 @@ def slot_case():
         convert.slot_context(ul_ctx, "cpu"))
     return dict(payload=payload, j_samples=np.asarray(j_samples),
                 t_samples=t_samples, j=j_out["pusch"][0], t=t_out["pusch"][0],
-                t_out=t_out)
+                t_out=t_out, rx=rx, soft=soft)
 
 
 def test_dl_slot_samples(slot_case):
@@ -171,21 +172,68 @@ def test_ul_slot_with_c_inits_matches_values():
     assert torch.equal(a.coeffs, b.coeffs)
 
 
+F3_SB = j_pucch.PucchF3Config(rb_start=20, nof_rb=2, start_symbol=0,
+                              nof_symbols=14, rnti=0x1a, n_id=1,
+                              n_id_hopping=1, nof_uci_bits=8)
+
+
+J_HOP = dataclasses.replace(J_PUSCH, rb_count=12, second_hop_prb=12,
+                            tbs=tbs_calc(12, 14, 36, "qam64", 0.7, 2))
+
+
 @pytest.mark.parametrize("plan", [
-    ((dataclasses.replace(J_PUSCH, second_hop_prb=5),), (), (), (), ()),
-    ((dataclasses.replace(J_PUSCH, uci=UciOnPuschConfig(o_ack=2),
-                          second_hop_prb=5),), (), (), (), ()),
+    ((J_HOP,), (), (), (), ()),
+    ((dataclasses.replace(J_HOP, uci=UciOnPuschConfig(o_ack=2)),),
+     (), (), (), ()),
     ((dataclasses.replace(J_PUSCH, transform_precoding=True),),
      (), (), (), ()),
     ((dataclasses.replace(J_PUSCH, nof_layers=3, transform_precoding=True),),
      (), (), (), ()),
-    ((J_PUSCH,), (), (), (), (), (), (object(),))])
-def test_ul_plan_entries_not_ported_raise(plan):
-    """PUSCH frequency hopping (with UCI on PUSCH too), transform
-    precoding (with 3 layers too) and PUCCH F3/F4 raise (UCI on PUSCH,
-    3-4 layers, PUCCH F0, F1 and F2, PRACH and SRS are ported)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_slots.ul_slot_fn(convert.config(J_CELL), convert.plan(plan))
+    ((J_PUSCH,), (), (), (), (), (), (F3_SB,))])
+def test_ul_plan_entries_not_ported_raise(slot_case, plan):
+    """The UL plan entries the port once refused, against the JAX program
+    on the slot's samples: PUSCH frequency hopping (with UCI on PUSCH too)
+    and a PUCCH F3 give the JAX program's results (CRC flags, LDPC sweeps,
+    HARQ-ACK and F3 bits and valid flags equal, soft buffers within 1e-3,
+    other floats within 1e-4; the hopping PDUs do not decode here, their
+    UE sent no hops); transform precoding on these 2- and 3-layer PDUs
+    raises where the JAX receiver asserts (pusch.py:179)."""
+    rx = slot_case["rx"]
+    seg = segment_tb(plan[0][0].tbs,
+                     select_base_graph(plan[0][0].tbs, 0.7))
+    soft = np.zeros((seg.nof_codeblocks, seg.codeword_bits), np.float32)
+    t_fn = t_slots.ul_slot_fn(convert.config(J_CELL), convert.plan(plan))
+    t_args = (torch.as_tensor(rx), None, convert.soft_buffers((soft,), "cpu"))
+    j_args = (jnp.asarray(rx), None, (jnp.asarray(soft),))
+    if plan[0][0].transform_precoding:
+        with pytest.raises(AssertionError):
+            j_slots.ul_slot_core(J_CELL, plan)(*j_args)
+        with pytest.raises(ValueError, match="single-layer"):
+            t_fn(*t_args)
+        return
+    ref = j_slots.ul_slot_fn(J_CELL, plan)(*j_args)
+    got = t_fn(*t_args)
+    for kind in ("pusch", "pucch_f3"):
+        assert len(got[kind]) == len(ref[kind])
+        for g, r in zip(got[kind], ref[kind]):
+            assert set(g) == set(r)
+            for key in r:
+                a, b = g[key], np.asarray(r[key])
+                if key == "tb_bits":
+                    continue                # an undecoded TB's hard bits
+                if key in ("tb_crc_ok", "nof_iterations", "harq_ack_bits",
+                           "harq_ack_valid", "uci_bits", "valid"):
+                    np.testing.assert_array_equal(a.numpy(), b, err_msg=key)
+                elif key == "ta_s":
+                    # within 1 ulp: XLA's jit multiplies by the reciprocal
+                    # of N * scs (tests/test_torch_ul_mix.py)
+                    np.testing.assert_allclose(a.numpy(), b, rtol=2e-7,
+                                               atol=0)
+                elif key == "cfo_hz":
+                    assert abs(float(a) - float(b)) < 1.0
+                else:
+                    close(a, b, rtol=1e-3 if key in ("new_soft", "evm")
+                          else 1e-4)
 
 
 @pytest.mark.parametrize("plan", [
