@@ -106,7 +106,22 @@ the JAX package.  It builds the hand kernels from ``srsran_tpu_torch/csrc``
    slots through ``SlotConductor.process_slot`` (each through its CUDA
    graph and equal to its eager program), and two of them as one
    ``process_slot_batch`` (K18 and K19 once per slot), equal to
-   ``process_slot``.
+   ``process_slot``;
+10. gnb_sim: K20 (the TDL channel, 4x4 TDLA at 28 dB on shared draws), K21
+   (the PRACH occasion demodulator: B4 at N_u = 4096, 12 repetitions; B4
+   at N_u = 6144, the widest window its table in shared memory takes; and
+   format 0 at N_u = 24,576) and K22 (K6 with a table of per-PRG
+   precoders: a 2-layer 256QAM PDSCH on 273 RB in 69 PRGs of 4 PRBs,
+   bit-exact, and with one PRG and the identity bit-exact to K6) against
+   their twins, with the einsum mix stage of the channel and
+   ``torch.matmul`` of the PRACH bin matrix as library times; then the
+   port's gNB simulator (``srsran_tpu_torch.apps.gnb_sim.run``) at the
+   flagship width: test mode, no channel, 20 slots, every UL TB decoded;
+   scheduler mode over TDLA at 28 dB with PRACH and CSI periods of 10, 40
+   slots: a PRACH detected and turned into a TC-RNTI, a CSI report after
+   which K22 launches, K20 once per emulated UL slot, K21 once per
+   completed PRACH window, at least one UL TB decoded; us per DL and UL
+   slot by CUDA events and on the host clock.
 
 It prints the card's name and power limit, one JSON line of per-kernel
 results, and as its last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -126,19 +141,24 @@ import numpy as np
 import torch
 
 from srsran_tpu_torch import convert, flagship, kernels
+from srsran_tpu_torch.apps import gnb_sim
+from srsran_tpu_torch.emulation import channel as chan
 from srsran_tpu_torch.device import card_line, require_cuda
 from srsran_tpu_torch.fapi import messages
 from srsran_tpu_torch.fapi.conductor import SlotConductor
 from srsran_tpu_torch.graphs import SlotGraph
 from srsran_tpu_torch.kernels import _build
 from srsran_tpu_torch.ops import channel_estimate as chest
+from srsran_tpu_torch.ops import dl_map
 from srsran_tpu_torch.ops import ofdm
 from srsran_tpu_torch.ops.crc import crc_check
 from srsran_tpu_torch.ops.ldpc_graph import get_graph
 from srsran_tpu_torch.ops.modulation import BITS_PER_SYMBOL
 from srsran_tpu_torch.parallel.mesh import multi_cell_dl_fn, multi_cell_ul_fn
+from srsran_tpu_torch.phy.lower import prach_demod
 from srsran_tpu_torch.phy.slot_programs import ul_slot_fn
 from srsran_tpu_torch.phy.upper import prach, pucch, pusch
+from srsran_tpu_torch.utils import config as app_config
 
 SEED = 0
 NOF_SLOTS = 8
@@ -177,7 +197,9 @@ CASE_KERNEL = {"pdsch_map_repetition": "pdsch_map",
                "channel_estimate_delta1": "channel_estimate",
                "pusch_tp_demap_widest": "pusch_tp_demap",
                "pucch_f3_demap_f4": "pucch_f3_demap",
-               "channel_estimate_f3": "channel_estimate"}
+               "channel_estimate_f3": "channel_estimate",
+               "prach_demod_n6144": "prach_demod",
+               "prach_demod_format0": "prach_demod"}
 CONDUCTOR_SLOTS = 16
 RESOLVE_LAG = 2
 # A HARQ retransmission through the conductor: at 11 dB the first
@@ -199,6 +221,14 @@ PER_SLOT_IN_BATCH = ("prach_detect", "pucch_f1_detect", "srs_estimate",
                      "polar_decode")
 BATCH_TIMING_RUNS = 5
 GRAPH_PASSES = 2
+GNB_KERNELS = ("tdl_channel", "prach_demod", "pdsch_map_prg")
+# The flagship width, as ``--set`` overrides of the app's configuration.
+GNB_CELL = ("cell.nof_rb=273", "cell.dft_size=4096", "cell.nof_ports=4")
+GNB_TEST_SLOTS = 20
+GNB_SCHED = ("run.mac=sched", "run.prach_period_slots=10",
+             "run.csi_period_slots=10", "run.channel_profile=TDLA",
+             f"run.channel_sinr_db={flagship.GNB_SINR_DB}")
+GNB_SCHED_SLOTS = 40
 
 
 def median_ms(fn, runs: int = TIMING_RUNS) -> float:
@@ -306,6 +336,16 @@ def compare(name: str, out, ref) -> float:
                    close(out[0], ref[0], f"{case} llr", rtol=1e-3))
     if name == "pucch_f3_demap":                   # K19
         return close(out, ref, f"{case} llr", rtol=1e-3)
+    if name == "tdl_channel":                      # K20: (rx, H)
+        return max(close(out[1], ref[1], "K20 H"),
+                   close(out[0], ref[0], "K20 rx"))
+    if name == "prach_demod":                      # K21
+        return close(out, ref, f"{case} bins")
+    if name == "pdsch_map_prg":                    # K22: bit-exact
+        if not torch.equal(out, ref):
+            raise AssertionError(
+                f"K22 differs from its twin by {(out - ref).abs().max()}")
+        return 0.0
     if name == "ulsch_demux":                      # K17: bit-exact fields
         if not all(torch.equal(a, b) for a, b in zip(out, ref)):
             raise AssertionError(f"{case} differs from its twin")
@@ -435,7 +475,23 @@ def work(name: str, args: tuple, out) -> tuple:
         return (nbytes(tb) + nbytes(out),
                 float(_edges(bg, z, 46 if bg == 1 else 42) * c
                       + 2 * tb.numel()))
-    if name in ("pdsch_map", "pdsch_map_repetition"):  # K6: ~40 per RE/port
+    if name == "tdl_channel":                      # K20
+        # H: 8 per complex MAC over the taps; rx: 8 per MAC over the TX
+        # ports; 3 per RE for |rx|^2, 4 for the noise add
+        tx, cfg, gains, noise = args
+        r, t, d = gains.shape
+        s, k = tx.shape[1], tx.shape[2]
+        return (nbytes((tx, gains, noise)) + d * k * c64 + nbytes(out),
+                8.0 * r * t * k * d + 8.0 * r * t * s * k + 7.0 * r * s * k)
+    if name == "prach_demod":                      # K21
+        # an N_u-point FFT per port and repetition gives the L_ra bins (the
+        # kernel's direct sum does 8 L_ra N_u, the function needs no more)
+        ports, reps, l_ra = out.shape
+        n_u = prach_demod.geometry(args[1], args[2], args[4], args[6])[1]
+        return (ports * reps * n_u * c64 + nbytes(out),
+                fft_ops(n_u, ports * reps))
+    if name in ("pdsch_map", "pdsch_map_repetition",
+                "pdsch_map_prg"):                  # K6, K22: ~40 per RE/port
         grid = args[0]
         return nbytes(args) + nbytes(out), 40.0 * grid.numel()
     if name == "ofdm_modulate":                    # K7: IFFT + 6 per sample
@@ -1476,6 +1532,107 @@ def edge_phases(dev, gen, rng, card) -> tuple:
     return results, launches
 
 
+# --------------------------------------------------------------- phase 10
+
+def gnb_library(cases: dict) -> dict:
+    """One PyTorch call for a part or the whole of K20's and K21's work:
+    the channel's einsum mix stage alone (rx from H and tx; no single call
+    computes the channel), and ``torch.matmul`` of the PRACH bin matrix
+    with the stacked windows (the whole function)."""
+    tx, cfg, gains, noise = cases["tdl_channel"][2]
+    _, h = chan.apply_ref(tx, cfg, gains, noise)
+    out = {"tdl_channel": lambda: torch.einsum("rtk,tsk->rsk", h, tx)}
+    for name in ("prach_demod", "prach_demod_n6144", "prach_demod_format0"):
+        samples, fmt, fs, start, f_off, _, ra = cases[name][2]
+        l_ra, n_u, reps, b0 = prach_demod.geometry(fmt, fs, f_off, ra)
+        m = torch.from_numpy(prach_demod._bin_dft_matrix(
+            n_u, b0, l_ra)).to(samples.device)
+        x = samples[:, start:start + reps * n_u].reshape(-1, n_u).T
+        x = x.contiguous()
+        out[name] = lambda m=m, x=x: torch.matmul(m, x)
+    return out
+
+
+def _app_config(*overrides):
+    return app_config.load(None, list(GNB_CELL + overrides))
+
+
+def _slot_times(res: dict) -> str:
+    """us per DL and UL slot: the device span of each slot program by
+    CUDA events (median), and on the host clock the launch (the app's
+    registry: enqueue only) and the loop's wall time per slot."""
+    parts = []
+    for kind in ("dl", "ul"):
+        us, n = res["slot_device_us"][kind]
+        enq = {r["name"]: r for r in res["report"]}[f"{kind}_slot"]
+        parts.append(f"{kind.upper()} {us:.1f} us by CUDA events (n={n}), "
+                     f"launch {enq['lat_us_avg']:.1f} us on the host clock")
+    slots = res["dl_slots"] + res["ul_slots"]
+    return "; ".join(parts) + (f"; wall {1e6 * res['elapsed_s'] / slots:.1f} "
+                               f"us per slot")
+
+
+def gnb_sim_phase(dev, gen, rng, card) -> tuple:
+    """Phase 10: K20, K21 and K22 against their twins, then the port's
+    gNB simulator at the flagship width in test mode and in scheduler
+    mode over the TDLA channel."""
+    cases = flagship.gnb_kernel_cases(gen, rng, dev)
+    results = kernel_phases(cases, gnb_library(cases))
+    with_table, k6 = flagship.prg_single_table_case(dev)
+    one = dl_map.pdsch_map(with_table[0].clone(), *with_table[1:])
+    ref = dl_map.pdsch_map(k6[0].clone(), *k6[1:])
+    if not torch.equal(one, ref):
+        raise AssertionError("K22 with one PRG and the identity differs "
+                             "from K6")
+    print("K22 with G = 1 (the identity): bit-exact to K6", flush=True)
+
+    cfg = _app_config(f"run.nof_slots={GNB_TEST_SLOTS}")
+    kernels.reset_counts()
+    res = gnb_sim.run(cfg, verbose=False)
+    torch.cuda.synchronize()
+    if not (res["ul_slots"] and res["crc_fail"] == 0
+            and res["crc_ok"] == res["ul_slots"]):
+        raise AssertionError(f"gnb_sim test mode: UL CRC {res['crc_ok']} ok "
+                             f"/ {res['crc_fail']} failed over "
+                             f"{res['ul_slots']} UL slots")
+    print(f"gnb_sim test mode, {cfg.cell.nof_rb} RB, {GNB_TEST_SLOTS} slots: "
+          f"UL CRC: {res['crc_ok']} ok / {res['crc_fail']} failed; "
+          f"{_slot_times(res)}; card {card}", flush=True)
+
+    cfg = _app_config(f"run.nof_slots={GNB_SCHED_SLOTS}", *GNB_SCHED)
+    kernels.reset_counts()
+    res = gnb_sim.run(cfg, verbose=False)
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in kernels.REGISTRY.values()
+              if k.launches}
+    launches = launched(GNB_KERNELS)
+    ctr = res["counters"]
+    checks = {
+        "a PRACH detected and turned into a TC-RNTI":
+            any(tc for _, _, tc, _ in res["prach"]),
+        "a CSI report": ctr.get("csi_reports", 0) >= 1,
+        "K20 once per emulated UL slot":
+            launches["tdl_channel"] == res["ul_slots"],
+        "K21 once per completed PRACH window":
+            launches["prach_demod"] == res["prach_windows"] > 0,
+        "a UL TB decoded": res["crc_ok"] >= 1,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"gnb_sim scheduler mode: not met: {failed}; "
+                             f"{res}")
+    for slot, pre, tc, metric in res["prach"]:
+        print(f"  slot {slot}: PRACH preamble {pre} detected (metric "
+              f"{metric:.1f}) -> TC-RNTI 0x{tc:04x}", flush=True)
+    n = res["crc_ok"] + res["crc_fail"]
+    print(f"gnb_sim scheduler mode, {cfg.cell.nof_rb} RB, TDLA "
+          f"{cfg.channel_sinr_db} dB, {GNB_SCHED_SLOTS} slots: UL CRC: "
+          f"{res['crc_ok']} ok / {res['crc_fail']} failed (CRC-ok share "
+          f"{res['crc_ok'] / n:.3f}); scheduler {ctr}; "
+          f"{_slot_times(res)}; launches {counts}; card {card}", flush=True)
+    return results, launches
+
+
 def _slot_of_dict(out: dict, c) -> dict:
     """Cell ``c`` of a multi-cell UL result dict (None: the whole of a
     single cell's), on the CPU."""
@@ -1522,15 +1679,22 @@ def main() -> int:
         dev, gen, np.random.default_rng(SEED + 9), card)
     print(f"phase 9 (cell-edge): {time.perf_counter() - t9:.1f} s",
           flush=True)
+    t10 = time.perf_counter()
+    gnb_results, gnb_launches = gnb_sim_phase(
+        dev, gen, np.random.default_rng(SEED + 10), card)
+    print(f"phase 10 (gnb_sim): {time.perf_counter() - t10:.1f} s",
+          flush=True)
     results = {**ul_results, **dl_results, **uci_results, **mu_results,
-               **batch_results, **edge_results}
+               **batch_results, **edge_results, **gnb_results}
     # K1-K11 as their own paths launched them (phases 2, 3), K12-K15 as the
     # conductor's slots did (phase 4, which launched every kernel), K16-K17
     # as the two-UE slot did (phase 5), the batched K1-K8 as one batch of
-    # phase 7 did, K18-K19 as the cell-edge slot did (phase 9)
+    # phase 7 did, K18-K19 as the cell-edge slot did (phase 9), K20-K22 as
+    # the scheduler-mode gnb_sim run did (phase 10)
     launches = {**cond_launches, **ul_launches, **dl_launches,
                 **{k: mu_launches[k] for k in MU_KERNELS}, **batch_launches,
-                **{k: edge_launches[k] for k in EDGE_KERNELS}}
+                **{k: edge_launches[k] for k in EDGE_KERNELS},
+                **gnb_launches}
     for name, r in results.items():
         lib = ("" if r["library_ms"] is None
                else f", library {r['library_ms']:.4f} ms")

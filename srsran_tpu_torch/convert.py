@@ -18,6 +18,9 @@ import enum
 import numpy as np
 import torch
 
+from .emulation.channel import ChannelConfig
+from .mac.scheduler import SchedUeConfig
+from .mac.test_mode import TestUe
 from .phy.slot_programs import CellConfig
 from .phy.upper.dmrs import DmrsConfig
 from .phy.upper.pdcch import CoresetConfig, PdcchConfig
@@ -28,29 +31,33 @@ from .phy.upper.pucch import (PucchF0Config, PucchF1Config, PucchF2Config,
 from .phy.upper.pusch import PuschConfig
 from .phy.upper.srs import SrsConfig
 from .phy.upper.ssb import SsbConfig
+from .ran.csi_report import CsiReportConfig
 from .ran.cyclic_prefix import CyclicPrefix
 from .ran.precoding_codebooks import PrecodingConfig
 from .ran.slot_point import SlotPoint
+from .ran.tdd import TddPattern
 from .ran.uci_on_pusch import (Part2Entry, Part2Parameter,
                                Part2SizeDescription, UciOnPuschConfig)
+from .utils.config import AppConfig
 
 # Port classes by name; a JAX config maps to the port class of its name.
 CONFIG_CLASSES = {cls.__name__: cls for cls in
-                  (CellConfig, CoresetConfig, DmrsConfig, PdcchConfig,
+                  (AppConfig, CellConfig, ChannelConfig, CoresetConfig,
+                   CsiReportConfig, DmrsConfig, PdcchConfig,
                    PdschConfig, PdschPtrs, PrachConfig, PrecodingConfig,
                    Part2Entry, Part2Parameter, Part2SizeDescription,
                    PucchF0Config, PucchF1Config, PucchF2Config, PucchF3Config,
-                   PuschConfig,
-                   SlotPoint, SrsConfig, SsbConfig, UciOnPuschConfig)}
+                   PuschConfig, SchedUeConfig, SlotPoint, SrsConfig,
+                   SsbConfig, TddPattern, TestUe, UciOnPuschConfig)}
 # Port enums by name; a JAX enum member maps to the member of its name.
 ENUM_CLASSES = {cls.__name__: cls for cls in (CyclicPrefix,)}
 
 
 def value(v):
-    """A config field value (or an enum member, or a tuple of either) with
-    the port's classes for the JAX package's."""
-    if isinstance(v, tuple):
-        return tuple(value(x) for x in v)
+    """A config field value (or an enum member, or a tuple or list of
+    either) with the port's classes for the JAX package's."""
+    if isinstance(v, (tuple, list)):
+        return type(v)(value(x) for x in v)
     name = type(v).__name__
     if isinstance(v, enum.Enum) and name in ENUM_CLASSES:
         port = ENUM_CLASSES[name][v.name]
@@ -67,9 +74,9 @@ def config(jax_cfg):
 
     Field names must match the port class exactly.  Nested configs
     (PdschPtrs, PdcchConfig.coreset, UciOnPuschConfig, PrecodingConfig,
-    the Part2Entry and Part2Parameter tuples of a Part2SizeDescription)
-    convert recursively and enums (CyclicPrefix) by member name, to the
-    port's own classes.
+    the Part2Entry and Part2Parameter tuples of a Part2SizeDescription,
+    AppConfig's cell, TDD pattern and list of TestUe) convert recursively
+    and enums (CyclicPrefix) by member name, to the port's own classes.
     """
     cls = CONFIG_CLASSES[type(jax_cfg).__name__]
     names = {f.name for f in dataclasses.fields(jax_cfg)}

@@ -24,10 +24,21 @@
 // hold the SSB there (the JAX program sums both); each (p, l, k) has one
 // writer, so there are no atomics.
 //
+// K22, per-PRG precoding (srsran_tpu/ops/precoding.py::precode_prg, :38,
+// and srsran_tpu/phy/upper/pdsch.py:191-195, :239-258): the precoder is a
+// table of G [P, L] matrices, and each RE takes its PRG's, g = k div 12 div
+// prg_size - prg_base with prg_base = rb_start div prg_size (PRG boundaries
+// aligned to CRB 0).  prg_size 0 means one matrix for every RE: with G = 1
+// the arithmetic is K6's, bit for bit.  The table (under 5 KB at 273 RB)
+// is read through the L1; it adds no pass and no bytes worth counting.
+// Twin: srsran_tpu_torch/ops/precoding.py::precode_prg, whose products and
+// sums are rounded one by one in the kernel's order.
+//
 // A slot axis (the slot-batch mode): blockIdx.y picks the slot, whose
-// encoded codeblocks and grid lie at fixed strides; the E offsets, the Gold
-// words (the c_init does not depend on the slot), the level table, the RE
-// plan and the precoder are shared.
+// encoded codeblocks and grid lie at fixed strides, and whose precoder
+// table lies at w_stride (0: shared by every slot); the E offsets, the
+// Gold words (the c_init does not depend on the slot), the level table and
+// the RE plan are shared.
 //
 // Bounds on this card: latency of the bit gathers (L*Qm scattered byte
 // reads per RE from the 2.5 MB codeblock buffer, which stays in L2) and the
@@ -51,8 +62,8 @@ __global__ void pdsch_map_kernel(
     int ncb, int fs, int fe, int n_nf, int k0p,
     const uint32_t* __restrict__ gold, const float* __restrict__ levels,
     const int* __restrict__ sym, const int* __restrict__ sc, int nre, int L,
-    const float2* __restrict__ w, int P, float2* __restrict__ grid, int S,
-    int K) {
+    const float2* __restrict__ w, int P, int prg_size, int prg_base,
+    long long w_stride, float2* __restrict__ grid, int S, int K) {
   const int re = blockIdx.x * blockDim.x + threadIdx.x;
   if (re >= nre) return;
   cw += (size_t)blockIdx.y * ncb * n;                   // the slot's CBs
@@ -85,6 +96,8 @@ __global__ void pdsch_map_kernel(
     x[l] = make_float2(levels[vi], levels[vq]);
   }
   const int s = sym[re], k = sc[re];
+  w += (size_t)blockIdx.y * w_stride;                   // the slot's table
+  if (prg_size > 0) w += (size_t)(k / 12 / prg_size - prg_base) * P * L;
   for (int p = 0; p < P; ++p) {
     float2 acc = cmul(w[p * L], x[0]);
     for (int l = 1; l < L; ++l) {
@@ -102,9 +115,12 @@ __global__ void pdsch_map_kernel(
 extern "C" int srsran_pdsch_map(void* cw, int n, void* cb_off, int ncb,
                                 int fs, int fe, int n_nf, int k0p, void* gold,
                                 void* levels, int qm, void* sym, void* sc,
-                                int nre, int L, void* w, int P, void* grid,
-                                int S, int K, int nslots, void* stream) {
-  if (L < 1 || L > kMaxLayers || nslots < 1) return (int)cudaErrorInvalidValue;
+                                int nre, int L, void* w, int P,
+                                int prg_size, int prg_base, int w_stride,
+                                void* grid, int S, int K, int nslots,
+                                void* stream) {
+  if (L < 1 || L > kMaxLayers || nslots < 1 || prg_size < 0)
+    return (int)cudaErrorInvalidValue;
   if (nre == 0) return 0;
   const int threads = 128;
   const dim3 blocks((nre + threads - 1) / threads, nslots);
@@ -113,7 +129,8 @@ extern "C" int srsran_pdsch_map(void* cw, int n, void* cb_off, int ncb,
   pdsch_map_kernel<Q><<<blocks, threads, 0, st>>>(                           \
       (const int8_t*)cw, n, (const long long*)cb_off, ncb, fs, fe, n_nf, k0p, \
       (const uint32_t*)gold, (const float*)levels, (const int*)sym,          \
-      (const int*)sc, nre, L, (const float2*)w, P, (float2*)grid, S, K)
+      (const int*)sc, nre, L, (const float2*)w, P, prg_size, prg_base,     \
+      (long long)w_stride, (float2*)grid, S, K)
   switch (qm) {
     case 2: SRSRAN_MAP_LAUNCH(2); break;
     case 4: SRSRAN_MAP_LAUNCH(4); break;

@@ -68,6 +68,14 @@ def _norm(cfg, **zero_fields):
     return dataclasses.replace(cfg, **zero_fields)
 
 
+def _pm_free_key(dl_tti: DlTtiRequest) -> tuple:
+    """The DL request's plan key with the PDSCH PM indices zeroed: the
+    phase of ``process_dl`` (its slot context but the "pm" entries) does
+    not depend on them."""
+    key = dl_tti.plan_key()
+    return key[:2] + (tuple(_zero_pm(c) for c in dl_tti.pdsch),) + key[3:]
+
+
 # ----------------------------------------------------------- slot context
 
 def _ssb_ctx(cfg, i: int) -> np.ndarray:
@@ -76,6 +84,31 @@ def _ssb_ctx(cfg, i: int) -> np.ndarray:
 
 def _pdsch_pilots(cfg) -> np.ndarray:
     return dmrs_mod.pilot_values_for(pdsch_mod.dmrs_config(cfg))
+
+
+def _zero_pm(c):
+    """The PDSCH with its per-PRG PM indices zeroed (the PRG structure --
+    prg_size and count -- stays; the matrices are slot context)."""
+    pre = c.precoding
+    if pre is None:
+        return c
+    return dataclasses.replace(c, precoding=dataclasses.replace(
+        pre, pm_indices=(0,) * len(pre.pm_indices)))
+
+
+def _norm_pdsch(c):
+    """PDSCH plan-key normalization: clear the slot index and the PM
+    indices, as the JAX conductor's."""
+    return _norm(_zero_pm(c), slot_in_frame=0)
+
+
+def _pm_ctx(nof_ports, cfg, device):
+    """The "pm" slot context of one PDSCH: its per-PRG matrices resolved
+    through the codebook repository (uploaded once per PrecodingConfig and
+    device), or None without precoding."""
+    if cfg.precoding is None:
+        return None
+    return pdsch_mod.pm_matrices_for(nof_ports, cfg, device)
 
 
 def _ctx(kind: str, cfg, device):
@@ -111,16 +144,22 @@ def normalize_dl_plan(dl: DlTtiRequest, extra_pdcch: tuple = (),
 
     extra_pdcch: PDCCH PDUs of a ul_dci_request for the same slot (the
     reference routes both through the same PDCCH processor,
-    fapi_to_phy_translator.cpp:629).  PT-RS, per-PRG precoding, CSI-RS and
-    PRS are not ported: their context entries are None or empty, and the
-    DL program raises on them.
+    fapi_to_phy_translator.cpp:629).  nof_ports: the cell's TX ports,
+    needed to resolve PDSCH precoding PM indices through the codebook
+    repository (required when any PDU sets precoding); the PM indices are
+    zeroed in the plan and their matrices are the "pm" context.  PT-RS,
+    CSI-RS and PRS are not ported: their context entries are None or
+    empty, and the DL program raises on them.
     """
     pdcch_all = dl.pdcch + tuple(extra_pdcch)
     for c in dl.pdsch:
         pdsch_mod.check_supported(c)
+    if nof_ports is None and any(c.precoding is not None for c in dl.pdsch):
+        raise ValueError(
+            "normalize_dl_plan needs nof_ports to resolve PDSCH precoding")
     ssb_n = tuple(_norm(c, sfn=0, hrf=False) for c in dl.ssb)
     pdcch_n = tuple(_norm(c, slot_in_frame=0) for c in pdcch_all)
-    pdsch_n = tuple(_norm(c, slot_in_frame=0) for c in dl.pdsch)
+    pdsch_n = tuple(_norm_pdsch(c) for c in dl.pdsch)
     csi_n = tuple(_norm(c, slot_in_frame=0) for c in dl.csi_rs)
     prs_n = tuple(_norm(c, slot_in_frame=0) for c in dl.prs)
     ctx = {
@@ -128,7 +167,7 @@ def normalize_dl_plan(dl: DlTtiRequest, extra_pdcch: tuple = (),
         "pdcch": tuple(_ctx("pdcch", c, device) for c in pdcch_all),
         "pdsch": tuple(_ctx("pdsch", c, device) for c in dl.pdsch),
         "ptrs": tuple(None for _ in dl.pdsch),
-        "pm": tuple(None for _ in dl.pdsch),
+        "pm": tuple(_pm_ctx(nof_ports, c, device) for c in dl.pdsch),
         "csi": (), "prs": (),
     }
     return (ssb_n, pdcch_n, pdsch_n, csi_n, prs_n), ctx
@@ -409,9 +448,11 @@ class _SlotPhase:
     total: int              # payload blob bytes
     soft_shapes: tuple      # per PUSCH (per slot of a batch: [slot][pdu])
 
-    def run(self, blob, rx_samples, prach_fd, soft_buffers) -> tuple:
-        """(tx_samples, scalars, payload, new_softs), eagerly."""
-        tx_samples = self.dl(blob)
+    def run(self, blob, rx_samples, prach_fd, soft_buffers,
+            pm=None) -> tuple:
+        """(tx_samples, scalars, payload, new_softs), eagerly (``pm``: this
+        slot's per-PRG matrices, default the phase's own)."""
+        tx_samples = self.dl(blob, pm)
         return (tx_samples, *self.ul(rx_samples, prach_fd, soft_buffers))
 
 
@@ -433,8 +474,9 @@ def _slot_phase(cell: CellConfig, dl_plan, ul_plan, slot_in_subframe: int,
     dl_core = dl_slot_core(cell, dl_plan, slot_in_subframe)
     ul = _ul_fn(cell, ul_plan, slot_in_subframe, device, batch)
 
-    def dl(blob):
-        return dl_core(*unpack(blob), dl_ctx)[0]
+    def dl(blob, pm=None):
+        ctx = dl_ctx if pm is None else dict(dl_ctx, pm=pm)
+        return dl_core(*unpack(blob), ctx)[0]
 
     def ul_run(rx_samples, prach_fd, soft_buffers):
         return ul(rx_samples, prach_fd, soft_buffers, ul_ctx, ul_axes)
@@ -567,11 +609,13 @@ class SlotConductor:
         None).  Payloads (MIB/DCI/TB) may be packed bytes or 0/1 bit
         arrays; a slot's payloads ride one host-to-device transfer."""
         slot_in_sf = dl_tti.slot.subframe_slot_index
-        key = (dl_tti.plan_key(),
+        key = (_pm_free_key(dl_tti),
                ul_dci.pdcch if ul_dci is not None else (),
                slot_in_sf, return_grid)
         phase = self._dl_phases.get(key, lambda: self._resolve_dl_phase(
             dl_tti, ul_dci, slot_in_sf, return_grid))
+        pm = self._pm(dl_tti)
+        ctx = phase.ctx if pm is None else dict(phase.ctx, pm=pm)
         if self.validate:
             n_ssb, n_pdcch, n_pdsch = phase.n_payloads
             if (len(tx_data.ssb_mib) != n_ssb
@@ -586,7 +630,7 @@ class SlotConductor:
                     f"{n_ssb}/{n_pdcch}/{n_pdsch})")
         blob = torch.from_numpy(pack_payload_blob(
             phase.layout, self._payloads(tx_data, ul_dci))).to(self.device)
-        out = phase.fn(blob, phase.ctx)
+        out = phase.fn(blob, ctx)
         return out if return_grid else (out, None)
 
     # ----------------------------------------------------- fused slot path
@@ -650,7 +694,7 @@ class SlotConductor:
 
     @staticmethod
     def _slot_key(dl_tti, ul_tti, ul_dci, stride: int) -> tuple:
-        return (dl_tti.plan_key(),
+        return (_pm_free_key(dl_tti),
                 ul_dci.pdcch if ul_dci is not None else (),
                 ul_tti.plan_key(), dl_tti.slot.subframe_slot_index, stride)
 
@@ -673,15 +717,17 @@ class SlotConductor:
             self._slot_key(dl_tti, ul_tti, ul_dci, stride), resolve)
 
     def _launch(self, key, phase: _SlotPhase, staged: StagedPayloads, blob,
-                rx_samples, prach_fd: tuple, softs: tuple) -> tuple:
+                rx_samples, prach_fd: tuple, softs: tuple, pm=None) -> tuple:
         """Run a phase's program: eagerly off the card; on the card through
-        its CUDA graph (captured at the phase's first call).  Returns
+        its CUDA graph (captured at the phase's first call; the slot's
+        per-PRG matrices ``pm``, if any, are one of its inputs).  Returns
         (tx_samples, scalars, payload, new_softs)."""
         if self.device.type != "cuda":
-            return phase.run(blob, rx_samples, prach_fd, softs)
+            return phase.run(blob, rx_samples, prach_fd, softs, pm)
         if staged.ready is not None:
             torch.cuda.current_stream(self.device).wait_event(staged.ready)
-        ul_in, dl_in = (rx_samples, prach_fd, softs), (blob,)
+        ul_in = (rx_samples, prach_fd, softs)
+        dl_in = (blob,) if pm is None else (blob, pm)
         graph = self._graphs.get(key, lambda: SlotGraph(
             (phase.ul, phase.dl), (ul_in, dl_in), pool=self._pool))
         (scalars, payload, new_softs), tx_samples = graph(ul_in, dl_in)
@@ -708,9 +754,19 @@ class SlotConductor:
         blob = staged.buf[k * staged.stride:k * staged.stride + phase.total]
         tx_samples, scalars, payload, new_softs = self._launch(
             self._slot_key(dl_tti, ul_tti, ul_dci, staged.stride), phase,
-            staged, blob, rx_samples, tuple(prach_fd), softs)
+            staged, blob, rx_samples, tuple(prach_fd), softs,
+            self._pm(dl_tti))
         return tx_samples, self._pending(ul_tti, harq_meta, scalars, payload,
                                          new_softs)
+
+    def _pm(self, dl_tti: DlTtiRequest):
+        """This request's "pm" slot context, None without precoding (a
+        slot phase is keyed without the PM indices, so a PMI change is one
+        cached upload and a copy into the graph's input, never a phase)."""
+        if all(c.precoding is None for c in dl_tti.pdsch):
+            return None
+        return tuple(_pm_ctx(self.cell.nof_ports, c, self.device)
+                     for c in dl_tti.pdsch)
 
     # ------------------------------------------------------- slot batches
 

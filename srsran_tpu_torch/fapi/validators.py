@@ -4,8 +4,9 @@ The port's own copy of srsran_tpu/fapi/validators.py: each PDU config is
 checked against the cell geometry and 3GPP ranges, raising ValidationError
 with the offending field; the conductor calls these before it resolves a
 slot phase.  PDU kinds and options the port does not run raise
-NotImplementedError with their ROADMAP item instead (CSI-RS, PRS; PT-RS,
-per-PRG precoding and RA type 0 / interleaved PDSCH).  Every UL PDU kind
+NotImplementedError with their ROADMAP item instead (CSI-RS, PRS; PT-RS
+and RA type 0 / interleaved PDSCH).  Per-PRG precoding is checked as the
+JAX package checks it.  Every UL PDU kind
 of the JAX package passes: PUSCHs of 1-4 layers with ZF or MMSE, UCI on
 PUSCH, frequency hopping and transform precoding, PUCCH F0 to F4, PRACH
 and SRS.
@@ -16,6 +17,7 @@ from __future__ import annotations
 from ..ops.modulation import BITS_PER_SYMBOL
 from ..phy.slot_programs import CellConfig
 from ..phy.upper import pdsch as pdsch_mod
+from ..ran import precoding_codebooks as pc
 from .messages import DlTtiRequest, TxDataRequest, UlTtiRequest
 
 
@@ -78,6 +80,21 @@ def validate_dl_tti(dl: DlTtiRequest, cell: CellConfig):
              * p.nof_layers)
         _check(p.tbs + 24 <= g,
                f"pdsch: TBS {p.tbs} exceeds capacity {g} bits")
+        if p.precoding is not None:
+            pre = p.precoding
+            _check(pre.prg_size >= 1, "pdsch: precoding prg_size >= 1")
+            want = pc.nof_prgs(p.rb_start, p.rb_count, pre.prg_size)
+            _check(len(pre.pm_indices) == want,
+                   f"pdsch: precoding has {len(pre.pm_indices)} PM indices, "
+                   f"allocation spans {want} PRGs")
+            try:
+                mats = pc.resolve_matrices(cell.nof_ports, pre)
+            except (IndexError, ValueError) as e:
+                _check(False, f"pdsch: precoding {e}")
+            else:
+                _check(mats.shape[2] == p.nof_layers,
+                       f"pdsch: precoding matrices map {mats.shape[2]} "
+                       f"layers, PDU has {p.nof_layers}")
     if dl.csi_rs:
         raise _not_ported("CSI-RS")
     if dl.prs:

@@ -38,6 +38,11 @@ ports, 273 RB, a 4096-point FFT and 30 kHz SCS.
   bits: polar) and a PUCCH F4 (OCC 2, 8 bits: short block), with the
   flagship's F1, PRACH and SRS.
 
+* gnb_sim: the kernels of the gNB simulator (apps/gnb_sim.py) at these
+  shapes -- the 4x4 TDLA channel (K20), the B4 PRACH occasion demodulator
+  (K21) and a 2-layer PDSCH precoded per PRG (K22); the app itself builds
+  its slots from its MAC.
+
 ``chip_smoke.py`` and ``python3 -m srsran_tpu_torch.profile_slot`` drive
 these scenarios.
 """
@@ -50,6 +55,7 @@ import functools
 import numpy as np
 import torch
 
+from .emulation import channel as chan
 from .fapi import messages
 from .ops import channel_estimate as chest
 from .ops import (dl_map, ldpc_decode, ldpc_encode, ldpc_rate_match, ofdm,
@@ -60,7 +66,9 @@ from .phy.slot_programs import (CellConfig, dl_slot_fn, dl_slot_fn_samples,
                                 ul_slot_fn)
 from .phy.upper import (dmrs, pdcch, pdsch, prach, pucch, pusch, sch_decoder,
                         srs, ssb, ue_tx)
-from .ran import polar_params
+from .phy.lower import prach_demod
+from .ran import mcs_tbs, polar_params
+from .ran.precoding_codebooks import PrecodingConfig, nof_prgs
 from .ran.prach_params import zc_sequence
 from .ran.slot_point import SlotPoint
 from .ran.uci_on_pusch import (Part2Entry, Part2Parameter,
@@ -1239,3 +1247,95 @@ def edge_kernel_cases(slot: dict, gen: torch.Generator,
                 functools.partial(chest.estimate_from_grid_ref, **kw), args)
     return cases
 
+
+
+# ------------------------------------------------------------- gnb_sim
+
+# The gNB simulator's kernels at the flagship shapes: K20 the 4x4 TDLA
+# channel at 28 dB on one UE grid; K21 the B4 occasion of the app's PRACH
+# (N_u = 4096 at 122.88 Msps, 12 repetitions, the window at the grid's
+# low edge), plus format 0 at 30.72 Msps (N_u = 24,576: the table in
+# global memory); K22 a 2-layer 256QAM PDSCH on 273 RB precoded per PRG of
+# 4 PRBs (69 PRGs, each its own Type-I 2-layer matrix).
+GNB_SINR_DB = 28.0
+GNB_CHANNEL = chan.ChannelConfig(
+    profile="TDLA", sinr_db=GNB_SINR_DB, nof_tx_ports=CELL.nof_ports,
+    nof_rx_ports=CELL.nof_ports, nof_subc=CELL.nof_sc,
+    scs_hz=15_000 << CELL.numerology)
+GNB_PRACH_OFFSET_HZ = -(CELL.nof_sc // 2) * (15_000 << CELL.numerology)
+PRG_SIZE = 4
+PRG_PDSCH = dataclasses.replace(
+    PDSCH, nof_layers=2,
+    tbs=mcs_tbs.tbs(273, 12, 24, "qam256", 0.8, 2),
+    precoding=PrecodingConfig(
+        prg_size=PRG_SIZE,
+        pm_indices=tuple(34 + g % 32 for g in range(
+            nof_prgs(0, 273, PRG_SIZE)))))
+
+
+def gnb_kernel_cases(gen: torch.Generator, rng: np.random.Generator,
+                     device) -> dict:
+    """name -> (wrapper, plain twin, args) for K20, K21 and K22 on seeded
+    inputs: "tdl_channel" on a random 4-port UE grid with shared draws;
+    "prach_demod" on a random 4-port window of 12 x 4096 samples (and
+    "prach_demod_n6144" at 184.32 Msps, "prach_demod_format0");
+    "pdsch_map_prg" on an empty grid."""
+    tx = torch.complex(
+        torch.randn((CELL.nof_ports, 14, CELL.nof_sc), generator=gen,
+                    device=device),
+        torch.randn((CELL.nof_ports, 14, CELL.nof_sc), generator=gen,
+                    device=device))
+    gains, noise = chan.draw(GNB_CHANNEL, gen)
+    fs = CELL.dft_size * (15_000 << CELL.numerology)
+    ra_scs = 15_000 << CELL.numerology
+    b4 = torch.complex(
+        torch.randn((CELL.nof_ports, 12 * 4096 + 256), generator=gen,
+                    device=device),
+        torch.randn((CELL.nof_ports, 12 * 4096 + 256), generator=gen,
+                    device=device))
+    b4_6144 = torch.complex(
+        torch.randn((CELL.nof_ports, 12 * 6144), generator=gen,
+                    device=device),
+        torch.randn((CELL.nof_ports, 12 * 6144), generator=gen,
+                    device=device))
+    long0 = torch.complex(
+        torch.randn((CELL.nof_ports, 24_576), generator=gen, device=device),
+        torch.randn((CELL.nof_ports, 24_576), generator=gen, device=device))
+    tb = _up(rng.integers(0, 2, PRG_PDSCH.tbs).astype(np.int8), device)
+    cbs = ldpc_encode.dlsch_encode_ref(
+        tb, pdsch.segmentation(PRG_PDSCH).base_graph).contiguous()
+    grid = torch.zeros((CELL.nof_ports, 14, CELL.nof_sc),
+                       dtype=torch.complex64, device=device)
+    table = pdsch.pm_matrices_for(CELL.nof_ports, PRG_PDSCH, device)
+    k22 = pdsch.map_args(grid, PRG_PDSCH, cbs, table) + (PRG_SIZE, 0)
+    return {
+        "tdl_channel": (chan.apply, chan.apply_ref,
+                        (tx, GNB_CHANNEL, gains, noise)),
+        "prach_demod": (prach_demod.demodulate, prach_demod.demodulate_ref,
+                        (b4, "B4", fs, 256, GNB_PRACH_OFFSET_HZ, 1, ra_scs)),
+        "prach_demod_n6144": (
+            prach_demod.demodulate, prach_demod.demodulate_ref,
+            (b4_6144, "B4", 6144 * ra_scs, 0, GNB_PRACH_OFFSET_HZ, 1,
+             ra_scs)),
+        "prach_demod_format0": (
+            prach_demod.demodulate, prach_demod.demodulate_ref,
+            (long0, "0", 30_720_000, 0, GNB_PRACH_OFFSET_HZ, 1, 0)),
+        "pdsch_map_prg": (_map_on_copy(dl_map.pdsch_map),
+                          _map_on_copy(dl_map.pdsch_map_ref), k22),
+    }
+
+
+def prg_single_table_case(device) -> tuple:
+    """K22 with one PRG (G = 1: PRG size 273, the identity for both
+    layers) and K6 on the same codeblocks and grid: (args with the table,
+    args of K6), which must give the same grid bit for bit."""
+    tb = _up(np.random.default_rng(22).integers(
+        0, 2, PRG_PDSCH.tbs).astype(np.int8), device)
+    cfg = dataclasses.replace(PRG_PDSCH, precoding=None)
+    cbs = ldpc_encode.dlsch_encode_ref(
+        tb, pdsch.segmentation(cfg).base_graph).contiguous()
+    grid = torch.zeros((CELL.nof_ports, 14, CELL.nof_sc),
+                       dtype=torch.complex64, device=device)
+    w = pdsch.identity(CELL.nof_ports, cfg.nof_layers, device)
+    k6 = pdsch.map_args(grid, cfg, cbs, w)
+    return k6[:-1] + (w[None], CELL.nof_rb, 0), k6

@@ -33,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 
 # C entry points and their argument types (see the matching .cu file).
 SIGNATURES = {
@@ -51,7 +52,7 @@ SIGNATURES = {
     "srsran_dlsch_encode": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
                             _P, _P, _P, _P, _I, _P, _I, _P],
     "srsran_pdsch_map": [_P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P,
-                         _I, _I, _P, _I, _P, _I, _I, _I, _P],
+                         _I, _I, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P],
     "srsran_ofdm_grid_to_bins": [_P, _P, _I, _I, _I, _I, _P],
     "srsran_ofdm_cp_insert": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "srsran_chest_estimate": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -77,6 +78,9 @@ SIGNATURES = {
                               _P, _I, _I, _I, _P, _F, _P, _P, _P, _P],
     "srsran_pucch_f3_demap": [_P, _I, _I, _I, _P, _P, _I, _I, _P, _I, _I, _P,
                               _P, _I, _P, _F, _P, _P, _P],
+    "srsran_tdl_channel": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                           _D, _P, _P],
+    "srsran_prach_demod": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
 }
 
 

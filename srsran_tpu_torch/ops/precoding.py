@@ -1,8 +1,7 @@
 """Layer mapping and precoding (TS38.211 §7.3.1.3-4).
 
-Port of srsran_tpu/ops/precoding.py for the identity port mapping the test
-transmitter uses; per-PRG precoding waits for the DL symbol chain
-(ROADMAP §1 item 8).
+Port of srsran_tpu/ops/precoding.py.  :func:`precode_prg` is the plain
+twin of K22 (ops/dl_map.py::pdsch_map with a PRG table).
 """
 
 from __future__ import annotations
@@ -31,3 +30,25 @@ def identity_precoder(nof_ports: int, nof_layers: int) -> np.ndarray:
     for l in range(nof_layers):
         m[l % nof_ports, l] = 1.0
     return m / np.sqrt(nof_layers)
+
+
+def precode_prg(layers: torch.Tensor, matrices: torch.Tensor,
+                prg_of_re: torch.Tensor) -> torch.Tensor:
+    """Per-PRG precoding: each RE's PRG matrix times its layer values.
+
+    layers [L, S], matrices [G, P, L], prg_of_re int [S] -> [P, S].  The
+    products and sums are rounded one by one in K22's order (layer 0
+    first, real then imaginary parts as separate ops), so the kernel
+    matches this bit for bit; the JAX package's one gather + einsum
+    (srsran_tpu/ops/precoding.py:38) agrees to float32 rounding.
+    """
+    w = matrices.to(torch.complex64)[prg_of_re.long()]          # [S, P, L]
+    out_r = out_i = None
+    for l in range(layers.shape[-2]):
+        wr, wi = w[:, :, l].real.T, w[:, :, l].imag.T           # [P, S]
+        xr, xi = layers[l].real, layers[l].imag                 # [S]
+        tr = wr * xr - wi * xi
+        ti = wr * xi + wi * xr
+        out_r = tr if out_r is None else out_r + tr
+        out_i = ti if out_i is None else out_i + ti
+    return torch.complex(out_r, out_i)

@@ -159,9 +159,8 @@ def _dl_plan(cell: CellConfig, plan) -> tuple:
 
 
 def _check_dl_ctx(ctx) -> None:
-    for key, item in (("ptrs", "item 13"), ("pm", "item 8")):
-        if ctx and any(v is not None for v in ctx.get(key, ())):
-            raise _unsupported(f"slot context {key!r}", item)
+    if ctx and any(v is not None for v in ctx.get("ptrs", ())):
+        raise _unsupported("slot context 'ptrs'", "item 13")
 
 
 def _dl_symbols(cell: CellConfig) -> int:
@@ -176,8 +175,9 @@ def dl_slot_core(cell: CellConfig, plan, slot_in_subframe: int = 0):
     (samples [P, T], grid [P, S, K]) on the device of the payloads.  ctx
     (the conductor's slot context, convert.slot_context): ctx["ssb"][i] a
     pair (static_bits, scramble_mask), ctx["pdcch"][i] and ctx["pdsch"][i]
-    DM-RS pilot values or host c_inits; its "ptrs"/"pm" entries must be
-    None (PT-RS and per-PRG precoding are not ported).
+    DM-RS pilot values or host c_inits, ctx["pm"][i] the PDSCH's per-PRG
+    matrices [G, P, L] or None; its "ptrs" entries must be None (PT-RS is
+    not ported).
 
     B slots at once: every payload [B, bits] and a stacked slot context
     (:func:`stack_ctx`'s ctx; every DL step takes its leaves with or
@@ -199,8 +199,10 @@ def dl_slot_core(cell: CellConfig, plan, slot_in_subframe: int = 0):
             pdcch_mod.process(grid, bits, cfg,
                               dmrs_cinits=_ctx_leaf(ctx, "pdcch", i))
         for i, (cfg, bits) in enumerate(zip(pdsch_cfgs, pdsch_payloads)):
+            pm = ctx.get("pm", (None,) * len(pdsch_cfgs))[i] if ctx else None
             pdsch_mod.process(grid, bits, cfg,
-                              dmrs_cinits=_ctx_leaf(ctx, "pdsch", i))
+                              dmrs_cinits=_ctx_leaf(ctx, "pdsch", i),
+                              pm_matrices=pm)
         samples = ofdm.modulate_slot(
             grid, cell.dft_size, cell.numerology, cell.cp, slot_in_subframe,
             cell.center_freq_hz, cell.tx_scale)

@@ -153,11 +153,15 @@ def pilots_for_port(cfg: DmrsConfig, port: int, c_inits=None, *,
 
 def map_to_grid(grid: torch.Tensor, cfg: DmrsConfig,
                 precoding: np.ndarray | torch.Tensor | None = None,
-                c_inits=None) -> torch.Tensor:
+                c_inits=None, prg_matrices=None,
+                prg_of_sc=None) -> torch.Tensor:
     """Add DM-RS for all ports into a [P, nsym, nsc] grid, in place.
 
     With ``precoding`` [P, L] (a host array, or a tensor on the grid's
-    device) the per-layer pilots are precoded like data.
+    device) the per-layer pilots are precoded like data.  With
+    ``prg_matrices`` [G, P, L] (on the grid's device) and ``prg_of_sc``
+    (subcarrier indices -> PRG index) each pilot is precoded with its
+    PRG's matrix, as the data is (JAX dmrs.py:222-226).
     """
     dev = grid.device
     if precoding is not None and not isinstance(precoding, torch.Tensor):
@@ -166,7 +170,11 @@ def map_to_grid(grid: torch.Tensor, cfg: DmrsConfig,
         delta = TYPE1_PORT_CONFIG[dmrs_port][0]
         sc = const(_sc_long, cfg.rb_start, cfg.rb_count, delta, device=dev)
         pilots = pilots_for_port(cfg, dmrs_port, c_inits, device=dev)
-        if precoding is None:
+        if prg_matrices is not None:
+            w = prg_matrices.to(grid.dtype)[prg_of_sc(sc)][:, :, li]  # [K, P]
+            for si, l in enumerate(cfg.symbols):
+                grid[:, l, sc] += w.T * pilots[si][None, :]
+        elif precoding is None:
             for si, l in enumerate(cfg.symbols):
                 grid[li, l, sc] += pilots[si]
         else:

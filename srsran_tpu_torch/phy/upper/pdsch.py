@@ -1,10 +1,11 @@
 """PDSCH transmit chain (TS38.212 §7.2, TS38.211 §7.3.1).
 
-Port of srsran_tpu/phy/upper/pdsch.py for contiguous allocations with the
-identity port mapping: TB CRC -> segmentation with CB CRC24B -> LDPC encode
-(K5, ops/ldpc_encode.py::dlsch_encode) -> rate match -> scramble ->
-modulate -> layer map -> precode -> grid add (K6, ops/dl_map.py::
-pdsch_map), then type-1 DM-RS (plain).  On CPU tensors the kernels' plain
+Port of srsran_tpu/phy/upper/pdsch.py for contiguous allocations: TB CRC
+-> segmentation with CB CRC24B -> LDPC encode (K5, ops/ldpc_encode.py::
+dlsch_encode) -> rate match -> scramble -> modulate -> layer map ->
+precode -> grid add (K6, ops/dl_map.py::pdsch_map; K22, its per-PRG form,
+when the PDU carries a PrecodingConfig), then type-1 DM-RS (plain, precoded
+like the data).  On CPU tensors the kernels' plain
 twins run.  It is the flagship DL slot's PDSCH and also the UE-side test
 transmitter of the PUSCH receive path (the same chain blocks, as the JAX
 bench does).
@@ -19,7 +20,8 @@ import numpy as np
 import torch
 
 from ...ran.ldpc_params import segment_tb, select_base_graph
-from ...ran.precoding_codebooks import PrecodingConfig
+from ...ran.precoding_codebooks import (PrecodingConfig, nof_prgs,
+                                        resolve_matrices)
 from ...device import const
 from ...ops import dl_map, ldpc_encode, ldpc_rate_match
 from ...ops.modulation import BITS_PER_SYMBOL
@@ -70,9 +72,6 @@ def check_supported(cfg: PdschConfig) -> None:
     """Raise for PDU options this slice does not port."""
     if cfg.ptrs is not None:
         raise NotImplementedError("PT-RS is not ported yet (ROADMAP §1 item 13)")
-    if cfg.precoding is not None:
-        raise NotImplementedError(
-            "per-PRG precoding is not ported yet (ROADMAP §1 item 8)")
     if cfg.prbs is not None or cfg.vrb_prb_interleaved:
         raise NotImplementedError(
             "RA type 0 / interleaved VRB allocations are not ported yet "
@@ -164,32 +163,66 @@ def dmrs_config(cfg: PdschConfig) -> DmrsConfig:
         slot_in_frame=cfg.slot_in_frame)
 
 
+def pm_matrices_for(nof_ports: int, cfg: PdschConfig, device) -> torch.Tensor:
+    """The PDU's per-PRG matrices [G, P, L] resolved through the codebook
+    repository, uploaded once per (ports, PrecodingConfig, device): the
+    conductor's "pm" slot context."""
+    return const(resolve_matrices, nof_ports, cfg.precoding, device=device,
+                 dtype=torch.complex64)
+
+
 def process(grid: torch.Tensor, payload_bits: torch.Tensor, cfg: PdschConfig,
             precoding: np.ndarray | None = None,
-            dmrs_cinits=None) -> torch.Tensor:
+            dmrs_cinits=None, pm_matrices=None) -> torch.Tensor:
     """Run the PDSCH chain into a [P, nsym, nsc] resource grid (in place).
 
     dmrs_cinits: optional per-DM-RS-symbol c_init seeds or pilot values
     (slot context).  precoding: [P, L] matrix; default the identity mapping,
-    uploaded once per device.  With a slot axis -- grid [B, P, nsym, nsc],
-    payload_bits [B, TBS], pilot values [B, nsym, npilot] or shared -- K5
-    and K6 run once for all slots and the DM-RS map once per slot.
+    uploaded once per device.  pm_matrices: the per-PRG matrices [G, P, L]
+    when cfg.precoding is set (the conductor's "pm" slot context; default
+    resolved here through the codebook repository), so a PMI change is a
+    new context tensor, never a new program.  With a slot axis -- grid
+    [B, P, nsym, nsc], payload_bits [B, TBS], pilot values [B, nsym,
+    npilot] or shared, PRG matrices [B, G, P, L] or shared -- K5 and K6
+    run once for all slots and the DM-RS map once per slot.
     """
     check_supported(cfg)
-    if precoding is None:
-        w = identity(grid.shape[-3], cfg.nof_layers, grid.device)
+    nof_ports = grid.shape[-3]
+    prg_size = 0
+    if cfg.precoding is not None:
+        prg_size = cfg.precoding.prg_size
+        w = (pm_matrices_for(nof_ports, cfg, grid.device)
+             if pm_matrices is None else pm_matrices)
+        g = nof_prgs(cfg.rb_start, cfg.rb_count, prg_size)
+        if w.shape[-3:] != (g, nof_ports, cfg.nof_layers):
+            raise ValueError(f"PRG matrices {tuple(w.shape)} vs {g} PRGs of "
+                             f"{nof_ports} ports x {cfg.nof_layers} layers")
+    elif precoding is None:
+        w = identity(nof_ports, cfg.nof_layers, grid.device)
     else:
         w = torch.as_tensor(np.asarray(precoding)).to(grid.device)
     cbs = ldpc_encode.dlsch_encode(payload_bits,                   # K5
                                    segmentation(cfg).base_graph)
-    dl_map.pdsch_map(*map_args(grid, cfg, cbs, w))                 # K6
+    dl_map.pdsch_map(*map_args(grid, cfg, cbs, w),                 # K6 / K22
+                     prg_size=prg_size, rb_start=cfg.rb_start)
     if grid.ndim == 3:
-        return map_dmrs(grid, dmrs_config(cfg), w, dmrs_cinits)
+        return _map_dmrs(grid, cfg, w, dmrs_cinits)
     per_slot = isinstance(dmrs_cinits, torch.Tensor) and dmrs_cinits.ndim == 3
+    w_per_slot = w.ndim == (4 if prg_size else 3)
     for b in range(grid.shape[0]):
-        map_dmrs(grid[b], dmrs_config(cfg), w,
-                 dmrs_cinits[b] if per_slot else dmrs_cinits)
+        _map_dmrs(grid[b], cfg, w[b] if w_per_slot else w,
+                  dmrs_cinits[b] if per_slot else dmrs_cinits)
     return grid
+
+
+def _map_dmrs(grid, cfg: PdschConfig, w, dmrs_cinits):
+    if cfg.precoding is None:
+        return map_dmrs(grid, dmrs_config(cfg), w, dmrs_cinits)
+    prg_size = cfg.precoding.prg_size
+    return map_dmrs(grid, dmrs_config(cfg), None, dmrs_cinits,
+                    prg_matrices=w,
+                    prg_of_sc=lambda sc: dl_map.prg_index_of_sc(
+                        sc, cfg.rb_start, prg_size))
 
 
 def identity(nof_ports: int, nof_layers: int, device) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """Where a flagship slot's time goes on one CUDA GPU.
 
     python3 -m srsran_tpu_torch.profile_slot
-        [--direction ul|dl|conductor|ul_mu|batch|edge] [--slots 8]
+        [--direction ul|dl|conductor|ul_mu|batch|edge|gnb] [--slots 8]
         [--calls 10]
         [--out DIR]
 
@@ -18,7 +18,11 @@ checked after the measurement; "per slot" below then reads "per batch") or
 cell-edge UL slot (``edge``: a 2-layer PUSCH, a DFT-s-OFDM PUSCH with
 intra-slot hopping and HARQ-ACK, PUCCH F1, F3 and F4, PRACH and SRS,
 through ``ul_slot_fn``; every slot checked after the measurement) of
-:mod:`srsran_tpu_torch.flagship` and reports:
+:mod:`srsran_tpu_torch.flagship`, or the gNB simulator (``gnb``: one call
+is a whole scheduler-mode run of ``apps/gnb_sim`` over ``--slots`` slots
+at the flagship width, TDLA at 28 dB, PRACH and CSI periods of 10; "per
+slot" below then reads "per run", and every run must decode a UL TB) and
+reports:
 
 * the slot's wall time three ways: CUDA events around each call (as
   ``chip_smoke.py`` times it), the host clock over back-to-back calls with
@@ -45,7 +49,7 @@ so every slot phase's CUDA graph is captured beforehand.
 
 The slot's trace and a JSON summary go to ``--out`` (``slot_trace.json``
 and ``summary.json`` for the UL, ``dl_``, ``conductor_``, ``ul_mu_``,
-``batch_`` or ``edge_`` before both names for the others);
+``batch_``, ``edge_`` or ``gnb_`` before both names for the others);
 the summary is also printed as the last line.
 """
 
@@ -62,9 +66,11 @@ import numpy as np
 import torch
 
 from . import flagship, kernels
+from .apps import gnb_sim
 from .device import card_line, require_cuda
 from .fapi.conductor import SlotConductor
 from .kernels import _build
+from .utils import config as app_config
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HAND_KERNELS = ("ldpc_sweep_kernel", "ldpc_check_kernel", "rate_dematch_kernel",
@@ -370,6 +376,33 @@ def batch_scenario(n: int, seed: int, dev, gen) -> tuple:
     return [lambda i=i: call(i) for i in range(n)], {}, resolve
 
 
+def gnb_scenario(n: int) -> tuple:
+    """(one zero-argument call: a scheduler-mode gnb_sim run of ``n``
+    slots; K20-K22's cases; a function that checks every run decoded a UL
+    TB and returns the number of runs)."""
+    cfg = app_config.load(None, [
+        "cell.nof_rb=273", "cell.dft_size=4096", "cell.nof_ports=4",
+        f"run.nof_slots={n}", "run.mac=sched", "run.prach_period_slots=10",
+        "run.csi_period_slots=10", "run.channel_profile=TDLA",
+        f"run.channel_sinr_db={flagship.GNB_SINR_DB}"])
+    runs = []
+
+    def call():
+        runs.append(gnb_sim.run(cfg, verbose=False))
+
+    def check() -> int:
+        bad = [r["crc_ok"] for r in runs if not r["crc_ok"]]
+        if bad:
+            raise AssertionError(f"{len(bad)} gnb_sim runs decoded no TB")
+        return len(runs)
+
+    dev = require_cuda()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10)
+    cases = flagship.gnb_kernel_cases(gen, np.random.default_rng(10), dev)
+    return [call], cases, check
+
+
 def launch_counts(call) -> dict:
     """The hand kernels' launches in one call."""
     torch.cuda.synchronize()
@@ -384,7 +417,7 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--direction",
                     choices=("ul", "dl", "conductor", "ul_mu", "batch",
-                             "edge"),
+                             "edge", "gnb"),
                     default="ul")
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--calls", type=int, default=10)
@@ -414,6 +447,9 @@ def main(argv=None) -> dict:
     elif args.direction == "batch":
         calls, cases, resolve = batch_scenario(args.slots, args.seed, dev, gen)
         prefix = "batch_"
+    elif args.direction == "gnb":
+        calls, cases, resolve = gnb_scenario(args.slots)
+        prefix = "gnb_"
     else:
         calls, cases, resolve = conductor_scenario(args.slots, args.seed, dev,
                                                    gen)
@@ -425,13 +461,13 @@ def main(argv=None) -> dict:
         call()
     torch.cuda.synchronize()
     summary = {"card": card_line(), "direction": args.direction,
-               "slots_per_call": (flagship.BATCH if args.direction == "batch"
-                                  else 1),
+               "slots_per_call": {"batch": flagship.BATCH,
+                                  "gnb": args.slots}.get(args.direction, 1),
                "launches_per_call": launch_counts(calls[0]),
                "wall": wall_times(calls),
                "slot": slot_profile(calls, out / f"{prefix}slot_trace.json"),
                "kernels": kernel_profiles(cases, args.calls, out)}
-    if args.direction in ("conductor", "ul_mu", "batch", "edge"):
+    if args.direction in ("conductor", "ul_mu", "batch", "edge", "gnb"):
         summary["slots_resolved_and_checked"] = resolve()
     (out / f"{prefix}summary.json").write_text(json.dumps(summary, indent=1))
     print(json.dumps(summary))

@@ -39,7 +39,13 @@ from srsran_tpu.phy.upper import pusch as j_pusch
 from srsran_tpu.phy.upper import ue_tx as j_ue_tx
 from srsran_tpu.phy.upper import uci as j_uci_codec
 from srsran_tpu.phy.upper import ssb as j_ssb
+from srsran_tpu.mac import scheduler as j_sched
+from srsran_tpu.mac import test_mode as j_tm
 from srsran_tpu.ran import cyclic_prefix as j_cp
+from srsran_tpu.ran import csi_report as j_csi
+from srsran_tpu.ran import mcs_tbs as j_mcs
+from srsran_tpu.ran import precoding_codebooks as j_pcb
+from srsran_tpu.ran import tdd as j_tdd
 from srsran_tpu.ran import ldpc_params as j_ldpc
 from srsran_tpu.ran import polar_params
 from srsran_tpu.ran import prach_params as j_prachp
@@ -70,7 +76,14 @@ from srsran_tpu_torch.phy.upper import pusch as t_pusch
 from srsran_tpu_torch.phy.upper import ue_tx as t_ue_tx
 from srsran_tpu_torch.phy.upper import uci as t_uci_codec
 from srsran_tpu_torch.phy.upper import ssb as t_ssb
+from srsran_tpu_torch.mac import scheduler as t_sched
+from srsran_tpu_torch.mac import test_mode as t_tm
+from srsran_tpu_torch.ran import csi_report as t_csi
 from srsran_tpu_torch.ran import cyclic_prefix as t_cp
+from srsran_tpu_torch.ran import mcs_tbs as t_mcs
+from srsran_tpu_torch.ran import precoding_codebooks as t_pcb
+from srsran_tpu_torch.ran import tdd as t_tdd
+from srsran_tpu_torch.utils import config as t_config
 from srsran_tpu_torch.ran import ldpc_params as t_ldpc
 from srsran_tpu_torch.ran import polar_params as t_polar_params
 from srsran_tpu_torch.ran import prach_params as t_prachp
@@ -866,6 +879,7 @@ _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None            # any `import jax` now raises
 sys.modules["srsran_tpu"] = None     # and so does any import of the JAX package
+sys.modules["yaml"] = None           # PyYAML is not a dependency of the port
 import srsran_tpu_torch
 names = ["srsran_tpu_torch"] + [m.name for m in pkgutil.walk_packages(
     srsran_tpu_torch.__path__, "srsran_tpu_torch.")]
@@ -880,8 +894,8 @@ print(" ".join(names))
 
 
 def test_port_imports_without_jax():
-    """Every port module and chip_smoke import with JAX and the JAX package
-    blocked."""
+    """Every port module and chip_smoke import with JAX, the JAX package
+    and PyYAML blocked."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
@@ -907,7 +921,21 @@ def test_port_imports_without_jax():
             "srsran_tpu_torch.phy.upper.ue_tx",
             "srsran_tpu_torch.graphs",
             "srsran_tpu_torch.parallel.mesh",
-            "srsran_tpu_torch.ops.transform_precode"} <= names
+            "srsran_tpu_torch.ops.transform_precode",
+            "srsran_tpu_torch.apps.gnb_sim",
+            "srsran_tpu_torch.emulation.channel",
+            "srsran_tpu_torch.phy.lower.baseband",
+            "srsran_tpu_torch.phy.lower.prach_demod",
+            "srsran_tpu_torch.mac.scheduler",
+            "srsran_tpu_torch.mac.test_mode",
+            "srsran_tpu_torch.ran.csi_report",
+            "srsran_tpu_torch.ran.mcs_tbs",
+            "srsran_tpu_torch.ran.tdd",
+            "srsran_tpu_torch.utils.config",
+            "srsran_tpu_torch.utils.metrics",
+            "srsran_tpu_torch.utils.tracing",
+            "srsran_tpu_torch.utils.resource_usage",
+            "srsran_tpu_torch.utils.sanitize"} <= names
 
 
 def _import_lines(path: Path):
@@ -927,3 +955,233 @@ def test_port_sources_never_import_jax():
             words = s.replace(",", " ").split()
             assert not any(w == "srsran_tpu" or w.startswith("srsran_tpu.")
                            for w in words), f"{f}: {s}"
+
+
+# ------------------------------------------------ the gNB simulator's host
+
+@pytest.mark.parametrize("tdd", [j_tdd.TddPattern(),
+                                 j_tdd.TddPattern(10, 7, 2, 6, 4)])
+def test_tdd_copy(tdd):
+    port = convert.config(tdd)
+    assert isinstance(port, t_tdd.TddPattern)
+    for n in range(40):
+        assert (port.slot_type(n), port.is_dl(n), port.is_ul(n)) == \
+            (tdd.slot_type(n), tdd.is_dl(n), tdd.is_ul(n))
+
+
+def test_mcs_tbs_copy():
+    assert t_mcs.TABLES == j_mcs.TABLES and t_mcs.QM == j_mcs.QM
+    assert t_mcs.TBS_TABLE_38214 == j_mcs.TBS_TABLE_38214
+    for table, rows in j_mcs.TABLES.items():
+        for i in range(len(rows)):
+            assert t_mcs.mcs_config(table, i) == j_mcs.mcs_config(table, i)
+            mod, rate = j_mcs.mcs_config(table, i)
+            for nrb, nsym, dmrs, nl in ((1, 12, 24, 1), (24, 14, 36, 2),
+                                        (273, 12, 24, 4), (6, 10, 12, 1)):
+                assert t_mcs.tbs(nrb, nsym, dmrs, mod, rate, nl) == \
+                    j_mcs.tbs(nrb, nsym, dmrs, mod, rate, nl)
+
+
+CSI_CFGS = [("typeI_4ports", 0b1111), ("typeI_4ports", 0b0010),
+            ("two", 0b11), ("one", 0b1)]
+
+
+@pytest.mark.parametrize("codebook,restriction", CSI_CFGS)
+def test_csi_report_copy(codebook, restriction):
+    """Sizes, the part-2 correspondence, and pack / unpack round trips on
+    PUSCH and PUCCH equal to the JAX package's, for every allowed rank."""
+    jc = j_csi.CsiReportConfig(pmi_codebook=codebook,
+                               ri_restriction=restriction)
+    tc = convert.config(jc)
+    assert isinstance(tc, t_csi.CsiReportConfig)
+    assert tc.allowed_ranks() == jc.allowed_ranks()
+    assert t_csi.part1_size(tc) == j_csi.part1_size(jc)
+    assert t_csi.pucch_size(tc) == j_csi.pucch_size(jc)
+    assert convert.config(j_csi.part2_correspondence(jc)) == \
+        t_csi.part2_correspondence(tc)
+    for ri in jc.allowed_ranks():
+        sz = j_csi.pmi_sizes(jc, ri)
+        assert dataclasses.asdict(t_csi.pmi_sizes(tc, ri)) == \
+            dataclasses.asdict(sz)
+        kw = dict(ri=ri, wideband_cqi=11, li=(1 << j_csi.li_size(jc, ri)) - 1,
+                  i_1_1=(1 << sz.i_1_1) - 1, i_1_3=(1 << sz.i_1_3) - 1,
+                  i_2=(1 << sz.i_2) - 1)
+        jb1, jb2 = j_csi.pack(j_csi.CsiReportData(**kw), jc)
+        tb1, tb2 = t_csi.pack(t_csi.CsiReportData(**kw), tc)
+        np.testing.assert_array_equal(tb1, jb1)
+        np.testing.assert_array_equal(tb2, jb2)
+        assert dataclasses.asdict(t_csi.unpack(tb1, tb2, tc)) == \
+            dataclasses.asdict(j_csi.unpack(jb1, jb2, jc))
+        pb = j_csi.pack_pucch(j_csi.CsiReportData(**kw), jc)
+        np.testing.assert_array_equal(
+            t_csi.pack_pucch(t_csi.CsiReportData(**kw), tc), pb)
+        assert dataclasses.asdict(t_csi.unpack_pucch(pb, tc)) == \
+            dataclasses.asdict(j_csi.unpack_pucch(pb, jc))
+    for cqi in range(16):
+        for table in ("qam64", "qam256"):
+            assert t_csi.cqi_to_mcs(cqi, table) == j_csi.cqi_to_mcs(cqi, table)
+
+
+@pytest.mark.parametrize("ports", [1, 2, 4])
+def test_precoding_codebooks_copy(ports):
+    """The repository, every PMI index and resolve_matrices equal."""
+    jr, tr = j_pcb.repository(ports), t_pcb.repository(ports)
+    assert len(tr) == len(jr)
+    for a, b in zip(jr, tr):
+        np.testing.assert_array_equal(b, a)
+        assert b.dtype == a.dtype
+    for ri in range(1, ports + 1):
+        for i11 in range(8 if ports == 4 else 1):
+            for i13 in range(2):
+                for i2 in range(4 if ports > 1 else 1):
+                    try:
+                        want = j_pcb.pmi_to_index(ports, ri, i11, i13, i2)
+                    except ValueError:
+                        with pytest.raises(ValueError):
+                            t_pcb.pmi_to_index(ports, ri, i11, i13, i2)
+                        continue
+                    assert t_pcb.pmi_to_index(ports, ri, i11, i13, i2) == want
+    by_layers = {}
+    for i, m in enumerate(jr):
+        by_layers.setdefault(m.shape[1], []).append(i)
+    for idx in by_layers.values():
+        pre = j_pcb.PrecodingConfig(prg_size=2, pm_indices=tuple(idx))
+        np.testing.assert_array_equal(
+            t_pcb.resolve_matrices(ports, convert.config(pre)),
+            j_pcb.resolve_matrices(ports, pre))
+    with pytest.raises(IndexError):
+        t_pcb.get_matrix(ports, len(jr))
+
+
+def _app_cell(nof_rb=24, ports=4):
+    from srsran_tpu.phy.slot_programs import CellConfig
+    return CellConfig(nof_ports=ports, nof_rb=nof_rb, dft_size=512,
+                      numerology=1)
+
+
+def _same_tx(j_tx, t_tx):
+    for f in ("ssb_mib", "pdcch_payloads", "pdsch_payloads"):
+        a, b = getattr(j_tx, f), getattr(t_tx, f)
+        assert len(a) == len(b), f
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(np.asarray(y), np.asarray(x))
+
+
+@pytest.mark.parametrize("nof_ue", [1, 2])
+def test_test_mode_copy(nof_ue):
+    """20 slots of the test-mode MAC's requests equal the JAX one's."""
+    from srsran_tpu.ran.slot_point import SlotPoint
+    ues = [j_tm.TestUe(rnti=0x4601 + i, nof_layers_dl=1 + i)
+           for i in range(nof_ue)]
+    jm = j_tm.TestModeMac(_app_cell(), 3, ues, j_tdd.TddPattern(), seed=7)
+    tm = t_tm.TestModeMac(convert.config(_app_cell()), 3,
+                          [convert.config(u) for u in ues],
+                          t_tdd.TddPattern(), seed=7)
+    for n in range(20):
+        js, ts = SlotPoint(1, n), convert.value(SlotPoint(1, n))
+        jdl, jtx = jm.dl_requests(js)
+        tdl, ttx = tm.dl_requests(ts)
+        assert tdl == convert.requests(jdl)
+        _same_tx(jtx, ttx)
+        assert tm.ul_requests(ts) == convert.requests(jm.ul_requests(js))
+
+
+def _csi_bits(sched):
+    data = j_csi.CsiReportData(ri=2, wideband_cqi=12, i_1_1=3, i_2=1)
+    return j_csi.pack_pucch(data, sched.csi_cfg)
+
+
+def _feedback(sched, slot_count, ul, crc_fail: bool, ack: int):
+    """The same CRC, UCI and RACH indications for either scheduler."""
+    import types
+    for pu, (hid, _) in zip(ul.pusch, ul.pusch_harq):
+        sched.handle_crc(pu.rnti, hid, not crc_fail, 17.5)
+        if pu.uci.o_csi1:
+            cfg = sched.ues[pu.rnti].pusch_csi_cfg
+            b1, b2 = j_csi.pack(j_csi.CsiReportData(
+                ri=cfg.allowed_ranks()[0], wideband_cqi=9, i_1_1=2,
+                i_2=1), cfg)
+            sched.handle_csi_pusch(pu.rnti, b1, b2 if b2.size else None)
+    pdus = [types.SimpleNamespace(detected=True,
+                                  harq_bits=np.array([ack], np.uint8),
+                                  csi_bits=None) for _ in ul.pucch_f1]
+    pdus += [types.SimpleNamespace(detected=True, harq_bits=None,
+                                   csi_bits=_csi_bits(sched))
+             for _ in ul.pucch_f2]
+    sched.handle_uci_indications(slot_count, pdus)
+    if ul.prach:
+        sched.handle_rach(slot_count % 16)
+
+
+@pytest.mark.parametrize("nof_ue,ports", [(1, 4), (2, 2)])
+def test_scheduler_copy(nof_ue, ports):
+    """slot_indication over 40 slots, with the same CRC (failures too),
+    UCI, CSI and RACH feedback fed to both, gives equal requests: HARQ
+    retransmissions, RARs, CSI on PUSCH and PUCCH F2, per-PRG precoding."""
+    from srsran_tpu.phy.upper.prach import PrachConfig
+    from srsran_tpu.ran.slot_point import SlotPoint
+    cell = _app_cell(ports=ports)
+    prach_cfg = PrachConfig(format="B4", root_sequence_index=1,
+                            zero_correlation_zone=0, ra_scs_hz=30_000)
+    ues = [j_sched.SchedUeConfig(rnti=0x4601 + i, nof_layers_dl=2)
+           for i in range(nof_ue)]
+    kw = dict(tdd=j_tdd.TddPattern(), seed=5, prach_period_slots=10,
+              csi_period_slots=10, paging_drx_frames=4, paging_po_slot=0)
+    js = j_sched.CellScheduler(cell, 1, ues=ues, prach=prach_cfg, **kw)
+    ts = t_sched.CellScheduler(
+        convert.config(cell), 1, ues=[convert.config(u) for u in ues],
+        prach=convert.config(prach_cfg),
+        **dict(kw, tdd=convert.config(kw["tdd"])))
+    ts.page_ue(0x1234)
+    js.page_ue(0x1234)
+    precoded = 0
+    for n in range(40):
+        jdl, jtx, jul = js.slot_indication(SlotPoint(1, n))
+        tdl, ttx, tul = ts.slot_indication(convert.value(SlotPoint(1, n)))
+        assert tdl == convert.requests(jdl), n
+        _same_tx(jtx, ttx)
+        assert tul == convert.requests(jul), n
+        precoded += sum(c.precoding is not None for c in tdl.pdsch)
+        if j_tdd.TddPattern().is_ul(n):
+            for sched, ul in ((js, jul), (ts, tul)):
+                _feedback(sched, n, ul, crc_fail=n % 15 == 4, ack=n % 2)
+    assert ts.counters == js.counters
+    assert js.counters["ul_retx"] and js.counters["rar_tx"]
+    assert js.counters.get("csi_reports") and js.counters.get("paging_tx")
+    assert precoded > 0
+
+
+YAML_VALUES = ["200", "52", "273", "4096", "sched", "TDLA", "none", "28",
+               "28.5", "3.5e9", "3.5e+9", "0x4601", "true", "no", "null", "~",
+               "'x'", '"y"', "-3", "+7", "1_000", "010", "0b101", ".5",
+               "-.inf", "qam64", "1e5", "-1.5e-3", "0", "typeI_4ports", "On",
+               "", " 12 "]
+
+
+@pytest.mark.parametrize("text", YAML_VALUES)
+def test_config_scalar_parser_as_yaml(text):
+    import yaml
+    want, got = yaml.safe_load(text), t_config.parse_scalar(text)
+    assert type(got) is type(want) and got == want
+
+
+def test_config_copy():
+    """The defaults, --set overrides and a YAML file load as the JAX
+    package's do, and the AppConfig converts field for field."""
+    import tempfile
+    import yaml
+    from srsran_tpu.utils import config as j_config
+    assert t_config.DEFAULTS == yaml.safe_load(j_config.DEFAULT_YAML)
+    sets = ["run.nof_slots=40", "cell.nof_rb=52", "cell.dft_size=1024",
+            "run.mac=sched", "run.prach_period_slots=10",
+            "run.channel_profile=TDLA", "run.channel_sinr_db=28",
+            "cell.center_freq_hz=3.5e9", "ues.0.rnti=0x4603"]
+    j = j_config.load(None, sets)
+    assert t_config.load(None, sets) == convert.config(j)
+    with tempfile.NamedTemporaryFile("w", suffix=".yaml") as f:
+        f.write(j_config.dump(j))
+        f.flush()
+        assert t_config.load(f.name) == convert.config(j_config.load(f.name))
+    assert t_config.dump(convert.config(j)) == j_config.dump(j)
+    with pytest.raises(ValueError, match="unsupported"):
+        t_config.parse_scalar("[1, 2]")

@@ -5,8 +5,9 @@ and its twin on the same inputs, at the small PUSCH's and PDSCH's shapes
 (the UL-mix kernels K8-K11 at the flagship's and at an edge case each,
 the UCI kernels K12-K15 at the conductor scenario's shapes and beyond,
 K16 at 1-4 layers with ZF and MMSE, K17 over the UCI-on-PUSCH
-configurations, K8 on CDM group 1, and the conductor's empty results on
-the card).
+configurations, K8 on CDM group 1, the conductor's empty results on
+the card, and the gNB simulator's K20 TDL channel, K21 PRACH occasion
+demodulator and K22 per-PRG PDSCH map).
 On a machine without a GPU every case skips (the twins are covered by the
 parity tests against the JAX package).  ``python3 chip_smoke.py`` runs the same checks at
 the flagship shapes.
@@ -654,3 +655,69 @@ def test_pusch_demap_gold_offset(cuda):
         llr_ref, x_ref = ul_demap.equalize_demap_descramble_ref(*args)
         _close(x, x_ref, 1e-4)
         _close(llr, llr_ref, 1e-3)
+
+
+# ------------------------------------------ K20-K22 (the gNB simulator)
+
+@pytest.mark.parametrize("profile,cfo", [("TDLA", 0.0), ("TDLC", 600.0),
+                                         ("single-tap", 0.0)])
+def test_tdl_channel_kernel(cuda, profile, cfo):
+    from srsran_tpu_torch.emulation import channel as chan
+    cfg = chan.ChannelConfig(profile=profile, sinr_db=20.0, cfo_hz=cfo,
+                             nof_tx_ports=4, nof_rx_ports=2, nof_subc=288)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(7)
+    gains, noise = chan.draw(cfg, gen)
+    tx = _cgauss(np.random.default_rng(2), (4, 14, 288)).to(cuda)
+    rx, h = chan.apply(tx, cfg, gains, noise)
+    rx_ref, h_ref = chan.apply_ref(tx, cfg, gains, noise)
+    _close(h, h_ref, 1e-5)
+    _close(rx, rx_ref, 1e-5)
+    assert torch.equal(chan.apply(tx, cfg, gains, noise)[0], rx)
+
+
+@pytest.mark.parametrize("fmt,fs,start,f_off,ra_scs", [
+    ("B4", 512 * 30_000, 16, -144 * 30_000, 30_000),
+    ("B4", 4096 * 30_000, 0, -1638 * 30_000, 30_000),
+    ("B4", 6144 * 30_000, 5, -2000 * 30_000, 30_000),    # widest shared table
+    ("B4", 8192 * 30_000, 0, -2000 * 30_000, 30_000),    # table read from L2
+    ("0", 30_720_000, 3, -1638 * 30_000, 0)])
+def test_prach_demod_kernel(cuda, fmt, fs, start, f_off, ra_scs):
+    from srsran_tpu_torch.phy.lower import prach_demod
+    _, n_u, reps, _ = prach_demod.geometry(fmt, fs, f_off, ra_scs)
+    x = _cgauss(np.random.default_rng(n_u), (2, start + reps * n_u)).to(cuda)
+    args = (x, fmt, fs, start, f_off, 1, ra_scs)
+    _close(prach_demod.demodulate(*args), prach_demod.demodulate_ref(*args),
+           1e-4)
+
+
+@pytest.mark.parametrize("ports,layers,prg", [(4, 2, 4), (2, 1, 2),
+                                              (4, 4, 2)])
+def test_pdsch_map_prg_kernel(cuda, ports, layers, prg):
+    """K22 bit-exact to its twin; with one PRG and the identity, to K6."""
+    from srsran_tpu_torch.ran.precoding_codebooks import (PrecodingConfig,
+                                                          nof_prgs)
+    base = {(4, 2): 34, (2, 1): 2, (4, 4): 82}[(ports, layers)]
+    n = nof_prgs(3, 20, prg)
+    cfg = pdsch.PdschConfig(
+        rnti=0x4601, rb_start=3, rb_count=20, first_symbol=1, nof_symbols=12,
+        modulation="qam64", target_code_rate=0.6,
+        tbs=tbs_calc(20, 12, 24, "qam64", 0.6, layers), nof_layers=layers,
+        n_id=1, dmrs_symbols=(2, 11),
+        precoding=PrecodingConfig(prg_size=prg, pm_indices=tuple(
+            base + g % 4 for g in range(n))))
+    rng = np.random.default_rng(ports + layers)
+    tb = torch.as_tensor(rng.integers(0, 2, cfg.tbs).astype(np.int8)).to(cuda)
+    cbs = ldpc_encode.dlsch_encode_ref(
+        tb, pdsch.segmentation(cfg).base_graph).contiguous()
+    grid = _cgauss(rng, (ports, 14, 288)).to(cuda)
+    table = pdsch.pm_matrices_for(ports, cfg, cuda)
+    args = pdsch.map_args(grid, cfg, cbs, table) + (prg, cfg.rb_start)
+    out = dl_map.pdsch_map(grid.clone(), *args[1:])
+    ref = dl_map.pdsch_map_ref(grid.clone(), *args[1:])
+    assert torch.equal(out, ref)
+    w = pdsch.identity(ports, layers, cuda)
+    k6 = pdsch.map_args(grid, dataclasses.replace(cfg, precoding=None), cbs,
+                        w)
+    one = dl_map.pdsch_map(grid.clone(), *k6[1:-1], w[None], 288, 0)
+    assert torch.equal(one, dl_map.pdsch_map(grid.clone(), *k6[1:]))

@@ -238,8 +238,7 @@ def test_ul_plan_entries_not_ported_raise(slot_case, plan):
 
 @pytest.mark.parametrize("plan", [
     ((), (), (J_UE,), (), (object(),)),
-    ((), (), (dataclasses.replace(J_UE, precoding=PrecodingConfig(
-        prg_size=4, pm_indices=(0,) * 6)),), ()),
+    ((), (), (dataclasses.replace(J_UE, vrb_prb_interleaved=True),), ()),
     ((), (), (J_UE,), (object(),)),
     ((), (), (dataclasses.replace(J_UE, ptrs=PdschPtrs()),), ())])
 def test_dl_plan_entries_not_ported_raise(plan):
