@@ -36,7 +36,8 @@ the JAX package.  It builds the hand kernels from ``srsran_tpu_torch/csrc``
    grid detects the bits sent;
 3. drives the flagship DL slot (SSB every 40th slot, AL8 PDCCH, 4-layer
    256QAM PDSCH on 273 RB, TBS 835584) through ``dl_slot_fn_samples``: 8
-   slots, the first with the SSB; every DL kernel's launch count must rise,
+   slots, the first with the SSB; every DL kernel's launch count must rise
+   (K5-K7, K26 and K27; phases 4 and 6-8 check K26 and K27 too),
    one steady-state call runs under ``set_sync_debug_mode("error")``, an
    SSB slot and a plain slot match the same call on the plain twins on the
    CPU, and a plain slot is received back (K4, plain 256QAM demap, K2, K1)
@@ -147,6 +148,37 @@ the JAX package.  It builds the hand kernels from ``srsran_tpu_torch/csrc``
    itself to the OTA clock).  The phase has its own time limit: a hang
    raises instead of eating the smoke's budget.
 
+12. du_low: K25 (the DL RS map: slot A's 4-port NZP-CSI-RS and PT-RS,
+   slot B's TRS and PT-RS, slot C's comb-4 PRS), K26 (the DL DM-RS map of
+   the flagship PDSCH's 4 layers: identity, a [4, 4] matrix, 69 PRG
+   matrices) and K27 (PDCCH and SSB: the GF(2) map, QPSK and patch; slot
+   A's SSB with its slot context and AL8 PDCCH, each other aggregation
+   level, the SSB without a context) bit-exact to their twins at the
+   flagship shapes, each also at B = 4 slot by slot against B = 1, timed
+   with their bounds and K27's GF(2) stage as ``torch.matmul`` (its library
+   time).  Then the split-6 DU-low as a deployment runs it:
+   ``python3 -m srsran_tpu_torch.apps.du_low --port 0`` in its own process,
+   driven by the port's ``FapiClient`` over TCP -- param, config and start
+   for the flagship cell; 10 slots of the DU-low scenario
+   (``flagship.du_dl_request``: A SSB + PDCCH + PDSCH with PT-RS + 4-port
+   CSI-RS, B PDCCH + PDSCH + TRS, C PDCCH + PRS, D empty, in turn), each
+   DL with its samples (within 1e-4 of the in-process conductor's on the
+   card), then rx_samples with the PRACH capture and ul_tti of phase 4's
+   UL (every indication as phase 4 requires); slot A's PDSCH received back
+   around its PT-RS (its known SSB cancelled: K4, demap, K2, K1, exact
+   payload); the CSI-RS, TRS, PRS and PT-RS REs within 1e-3 of their
+   values; 8 ul_tti_nb slots and a flush; a late slot answered with
+   error.indication OUT_OF_SYNC; stop -> config (a 52-RB cell) -> start, a
+   slot, and back.  The same slots then run through ``serve_phy`` in a
+   thread of this process, where K25-K27's launches are counted (each in
+   every DL slot that carries its PDUs) and the server's conductor calls
+   timed by CUDA events, and a slot of the SSB and 17 DCIs takes two K27
+   launches; us per message on the host clock and the wire's share are
+   printed.  Last, a CellManager on the card runs slot A through its CUDA
+   graph and reconfigures: the memory reserved after stop -> config ->
+   start must have dropped by at least that graph's capture.  The phase
+   has its own time limit.
+
 It prints the card's name and power limit, one JSON line of per-kernel
 results, and as its last line ``{"ok": true, "device": {...}}``.  Any failed
 phase raises, so the script then exits non-zero without that line.
@@ -155,10 +187,14 @@ phase raises, so the script then exits non-zero without that line.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
+import re
+import select
 import socket
 import statistics
+import subprocess
 import sys
 import threading
 import time
@@ -169,13 +205,15 @@ import torch
 from srsran_tpu_torch import convert, flagship, kernels
 from srsran_tpu_torch.apps import gnb_sim, ru_emulator
 from srsran_tpu_torch.emulation import channel as chan
-from srsran_tpu_torch.device import card_line, require_cuda
+from srsran_tpu_torch.device import card_line, const, require_cuda
+from srsran_tpu_torch.fapi import config_messages as cm
 from srsran_tpu_torch.fapi import messages
 from srsran_tpu_torch.fapi.conductor import SlotConductor
+from srsran_tpu_torch.fapi.transport import FapiClient, serve_phy
 from srsran_tpu_torch.graphs import SlotGraph
 from srsran_tpu_torch.kernels import _build
 from srsran_tpu_torch.ops import channel_estimate as chest
-from srsran_tpu_torch.ops import dl_map
+from srsran_tpu_torch.ops import dl_map, dl_rs
 from srsran_tpu_torch.ops import ofdm
 from srsran_tpu_torch.ops.crc import crc_check
 from srsran_tpu_torch.ops.ldpc_graph import get_graph
@@ -183,7 +221,9 @@ from srsran_tpu_torch.ops.modulation import BITS_PER_SYMBOL
 from srsran_tpu_torch.parallel.mesh import multi_cell_dl_fn, multi_cell_ul_fn
 from srsran_tpu_torch.phy.lower import prach_demod
 from srsran_tpu_torch.phy.slot_programs import ul_slot_fn
-from srsran_tpu_torch.phy.upper import prach, pucch, pusch
+from srsran_tpu_torch.phy.upper import (pdcch, pdsch, prach, ptrs_prs, pucch,
+                                        pusch, ssb)
+from srsran_tpu_torch.ran.slot_point import SlotPoint
 from srsran_tpu_torch.ru.ofh import InMemoryCable, RuOfh, SocketEndpoint
 from srsran_tpu_torch.utils import config as app_config
 
@@ -193,7 +233,8 @@ TIMING_RUNS = 20
 UL_KERNELS = ("ldpc_decode", "rate_dematch", "pusch_demap", "ofdm_demodulate",
               "channel_estimate", "prach_detect", "pucch_f1_detect",
               "srs_estimate")
-DL_KERNELS = ("dlsch_encode", "pdsch_map", "ofdm_modulate")
+DL_KERNELS = ("dlsch_encode", "pdsch_map", "ofdm_modulate", "dmrs_map",
+              "control_map")
 UCI_KERNELS = ("pucch_f0_detect", "pucch_f2_demap", "short_block_detect",
                "polar_decode")
 MU_KERNELS = ("pusch_demap_lxn", "ulsch_demux")
@@ -232,7 +273,16 @@ CASE_KERNEL = {"pdsch_map_repetition": "pdsch_map",
                "bfp_compress_mant": "bfp_compress",
                "bfp_decompress_w8": "bfp_decompress",
                "bfp_decompress_w14": "bfp_decompress",
-               "bfp_decompress_mant": "bfp_decompress"}
+               "bfp_decompress_mant": "bfp_decompress",
+               **{f"{case}{tag}": case.split("_")[0] + "_map"
+                  for case in ("rs_map_trs", "rs_map_prs", "rs_map_many",
+                               "dmrs_map_matrix", "dmrs_map_prg",
+                               "control_map_al1", "control_map_al2",
+                               "control_map_al4", "control_map_al16",
+                               "control_map_ssb_static", "control_map_many")
+                  for tag in ("", "_b4")},
+               **{f"{k}_b4": k for k in ("rs_map", "dmrs_map",
+                                         "control_map")}}
 CONDUCTOR_SLOTS = 16
 RESOLVE_LAG = 2
 # A HARQ retransmission through the conductor: at 11 dB the first
@@ -270,6 +320,13 @@ OFH_BACKOFF = 0.5
 OFH_MIN_SQNR_DB = 40.0
 OFH_PROFILED_SLOTS = 2
 OFH_PHASE_S = 300.0
+DU_KERNELS = ("rs_map", "dmrs_map", "control_map")
+# The DU-low phase: 10 slots (kinds A-D in turn), 8 ul_tti_nb slots, its
+# own time limit, and the RS REs' tolerance after OFDM and back.
+DU_SLOTS = 10
+DU_NB_SLOTS = 8
+DU_PHASE_S = 300.0
+DU_RS_TOL = 1e-3
 
 
 def median_ms(fn, runs: int = TIMING_RUNS) -> float:
@@ -389,6 +446,11 @@ def compare(name: str, out, ref) -> float:
             if (o is None) != (r is None) or (o is not None and not torch.equal(
                     _bits(o), _bits(r))):
                 raise AssertionError(f"{case} differs from its twin")
+        return 0.0
+    if name in DU_KERNELS:                         # K25-K27: bit-exact
+        if not torch.equal(out, ref):
+            raise AssertionError(
+                f"{case} differs from its twin by {(out - ref).abs().max()}")
         return 0.0
     if name == "pdsch_map_prg":                    # K22: bit-exact
         if not torch.equal(out, ref):
@@ -596,6 +658,36 @@ def work(name: str, args: tuple, out) -> tuple:
                 + nbytes(out),
                 p * n_l * k * (8.0 * n_s + 14) + p * k * (14.0 * n_l + 4 * n_s
                                                           + 6))
+    if name == "rs_map":                           # K25: 8 per term
+        # each target read and written once, its plan entries (offset,
+        # term start; per term source, index, weight) and the values once
+        grid, items, values = args
+        plan = dl_rs.rs_plan(items, tuple(grid.shape[-3:]))
+        nb = grid.numel() // math.prod(grid.shape[-3:])
+        t, n = plan["tgt"].size, plan["src"].size
+        return (16 * t * nb + nbytes(values) + 12 * t + 4 + 16 * n,
+                8.0 * n * nb)
+    if name == "dmrs_map":                         # K26: 8 per layer term
+        grid, pilots, w, ports, symbols, _, rb_count, _ = args
+        nb = grid.numel() // math.prod(grid.shape[-3:])
+        res = len(symbols) * 12 * rb_count * grid.shape[-3]
+        return (16 * res * nb + nbytes((pilots, w)),
+                8.0 * res // 2 * len(ports) * nb)
+    if name == "control_map":                      # K27
+        # per PDU: its patch REs on its ports read and written once, the
+        # map (E x W words), constants, patch plan, base, payload and
+        # pilots read once; 2 W + 2 per coded bit, 2 per RE
+        grid, inputs, items_fn = args
+        nb = grid.numel() // math.prod(grid.shape[-3:])
+        b = ops = 0.0
+        for it in items_fn(grid, inputs):
+            e, words = it.rows.shape
+            re = it.h * it.w * (grid.shape[-3] if it.all_ports else 1)
+            b += (16 * re * nb + sum(x.numel() for x in it.bits)
+                  + nbytes((it.rows, it.offset, it.index, it.base,
+                            it.pilots)))
+            ops += nb * (e * (2.0 * words + 2) + 2.0 * re)
+        return b, ops
     raise KeyError(name)
 
 
@@ -1233,9 +1325,15 @@ def graph_phase(scen: dict, gen, card) -> None:
         _graph_vs_eager(cond, dlr[g], ulr[g], st3, j, rx, prach_in,
                         dict(tb=tb, uci=uci, rx=rx), f"graph replay {j}")
     graph = cond.graph_of(dlr[g], ulr[g], stride)
+    missing = [k for k in ("dmrs_map", "control_map")
+               if not graph.launches.get(k)]
+    if missing:
+        raise AssertionError(f"phase {g}'s graph does not launch {missing}")
     print(f"graph replays on 3 differing slots: each equal to the eager "
           f"program and decoded as sent ({graph.replays} replays of phase "
-          f"{g}'s graph)", flush=True)
+          f"{g}'s graph; K26 and K27 in it: "
+          f"{ {k: graph.launches[k] for k in ('dmrs_map', 'control_map')} })",
+          flush=True)
 
     # The DL branch on its own stream against DL after UL in one branch:
     # the same phase captured both ways, replays timed by CUDA events.
@@ -1315,13 +1413,15 @@ def batch_phase(scen: dict, card) -> dict:
     check(pend.resolve(), "counted batch")
     counts = {k.name: k.launches for k in kernels.REGISTRY.values()}
     launches = launched(BATCH_KERNELS + PER_SLOT_IN_BATCH)
+    dl_maps = launched(("dmrs_map", "control_map"))
     # K8 also runs once per slot inside the SRS and PUCCH F2 receivers
     unbatched = {n: counts[n] for n in BATCHED
                  if counts[n] and n != "channel_estimate"}
     if unbatched or any(counts[n] != 1 for n in BATCH_KERNELS):
         raise AssertionError(f"batch launches: {launches}, per-slot K1-K8 "
                              f"{unbatched}")
-    print(f"batch launches per batch of {flagship.BATCH}: {launches}; "
+    print(f"batch launches per batch of {flagship.BATCH}: {launches}, "
+          f"K26/K27 {dl_maps}; "
           f"unbatched K8 (SRS and F2 estimates) "
           f"{counts['channel_estimate']}; K1 runs one device launch per "
           f"sweep of all {flagship.BATCH} slots", flush=True)
@@ -1435,7 +1535,7 @@ def multi_cell_phase(dev, gen, rng, card) -> None:
     kernels.reset_counts()
     (samples, _), ms_dl = timed(lambda: dl((), (inp["dci"],), (inp["sch"],)))
     out, ms_ul = timed(lambda: ul(inp["rx"], inp["prach"], inp["softs"]))
-    launches = launched(BATCH_KERNELS)
+    launches = launched(BATCH_KERNELS + ("dmrs_map", "control_map"))
     one_ul = ul_slot_fn(flagship.CELL, flagship.UL_PLAN)
     for c in range(n):
         s1 = flagship.dl_program(False)((), (inp["dci"][c],),
@@ -1895,6 +1995,385 @@ def fronthaul_phase(dev, rng, card) -> tuple:
     return results, launches
 
 
+# --------------------------------------------------------------- phase 12
+
+def du_library(cases: dict) -> dict:
+    """K27's stage library time: the ``torch.matmul`` of the GF(2) stage
+    the port ran before K27 (the PDCCH's DCI map and the PBCH's map with
+    its slot context, as float32 products over 0/1 values) on the
+    "control_map" case's inputs."""
+    _, _, (_, inputs, _) = cases["control_map"]
+    dev = inputs["dci0"].device
+    cfg = flagship.PDCCH
+    key = (cfg.payload_bits, 108 * cfg.aggregation_level, cfg.rnti,
+           cfg.n_rnti, cfg.n_id_data)
+    m_dci = const(pdcch._dci_map, 0, *key, device=dev, dtype=torch.float32)
+    m_pbch = const(ssb._pbch_operand, flagship.SSB, "full", device=dev,
+                   dtype=torch.float32)
+    dci = inputs["dci0"].to(torch.float32)
+    v = torch.cat([inputs["mib"], inputs["static"] ^ inputs["mask"]]).to(
+        torch.float32)
+    return {"control_map": lambda: (torch.matmul(dci, m_dci),
+                                    torch.matmul(v, m_pbch))}
+
+
+def _ready_port(proc, deadline: float) -> int:
+    """The FAPI port du_low prints when it listens."""
+    seen = []
+    while time.monotonic() < deadline:
+        ready, _, _ = select.select([proc.stdout], [], [], 1.0)
+        if not ready:
+            if proc.poll() is not None:
+                break
+            continue
+        line = proc.stdout.readline()
+        if not line:
+            break
+        seen.append(line.rstrip())
+        m = re.search(r"FAPI listening on 127\.0\.0\.1:(\d+)", line)
+        if m:
+            print("  " + "\n  ".join(seen), flush=True)
+            return int(m.group(1))
+    raise AssertionError(f"du_low printed no ready line: {seen}")
+
+
+def _du_requests(n: int, pay: dict):
+    """DU-low slots 0 .. n-1: (dl, tx, ul, conductor phase) at slot points
+    (1, 2i); UL slot i is the conductor scenario's phase i % N_PHASES."""
+    out = []
+    for i in range(n):
+        g = i % flagship.N_PHASES
+        dl = flagship.du_dl_request(i)
+        ul = dataclasses.replace(flagship.ul_request(g), slot=dl.slot)
+        out.append((dl, flagship.du_tx_request(i, pay), ul, g))
+    return out
+
+
+def _host_rx(phases: list, prach_in) -> list:
+    return ([p["rx"].cpu().numpy() for p in phases],
+            [p.cpu().numpy() for p in prach_in])
+
+
+def _small_cell_slot(cli, count: int):
+    """A slot of the 52-RB 1-port cell: a 1-layer PDSCH looped back as the
+    PUSCH of the same allocation (tests/test_fapi_config_plane.py's case);
+    returns (SlotResults, payload)."""
+    cell = flagship.DU_SMALL_CELL
+    slot = SlotPoint(1, count)
+    common = dict(rnti=0x11, rb_start=0, rb_count=cell.nof_rb,
+                  first_symbol=0, nof_symbols=14, modulation="qam16",
+                  target_code_rate=0.5, tbs=2400, nof_layers=1, n_id=0,
+                  dmrs_symbols=(2, 7, 11), slot_in_frame=slot.slot_index)
+    payload = np.random.default_rng(count).integers(0, 2, 2400).astype(
+        np.int8)
+    samples = cli.dl_tti(
+        messages.DlTtiRequest(slot=slot, pdsch=(pdsch.PdschConfig(**common),)),
+        messages.TxDataRequest(slot=slot, pdsch_payloads=(payload,)),
+        want_samples=True)
+    cli.rx_samples(samples)
+    return cli.ul_tti(messages.UlTtiRequest(
+        slot=slot, pusch=(pusch.PuschConfig(**common),))), payload
+
+
+def _check_small(res, payload, where):
+    if not (res.crc[0].tb_crc_ok and np.array_equal(
+            res.rx_data[0].payload.astype(np.int8), payload)):
+        raise AssertionError(f"{where}: the 52-RB cell's TB did not decode")
+
+
+def _du_rs_check(samples: np.ndarray, dl, dev) -> tuple:
+    """Demodulate a DU-low slot's samples (K4) and hold its RS REs (outside
+    the SSB's rectangle) to their values: (REs checked, max error)."""
+    cell = flagship.CELL
+    grid = ofdm.demodulate_slot(torch.from_numpy(samples).to(dev), cell.nof_sc,
+                                cell.dft_size, cell.numerology, cell.cp, 0,
+                                cell.center_freq_hz).cpu()
+    items, values = flagship.du_rs_items(dl, "cpu")
+    want = dl_rs.rs_map_ref(torch.zeros_like(grid), items, values)
+    mask = want != 0
+    if dl.ssb:
+        l0, k0 = flagship.SSB.first_symbol, flagship.SSB.first_subcarrier
+        mask[:, l0:l0 + 4, k0:k0 + 240] = False
+    err = float((grid[mask] - want[mask]).abs().max())
+    if err > DU_RS_TOL:
+        raise AssertionError(f"RS REs off their values by {err}")
+    return int(mask.sum()), err
+
+
+def _du_slots(cli, reqs, rx, prach, phases, refs, dev, times, where):
+    """Each DU-low slot through a client: DL with samples (held to the
+    in-process conductor's), rx_samples, ul_tti (held to phase 4's
+    checks); returns the samples."""
+    out = []
+    for k, (dl, tx, ul, g) in enumerate(reqs):
+        t0 = time.perf_counter()
+        samples = cli.dl_tti(dl, tx, want_samples=True)
+        t1 = time.perf_counter()
+        cli.rx_samples(rx[g], prach_fd=prach)
+        t2 = time.perf_counter()
+        res = cli.ul_tti(ul)
+        t3 = time.perf_counter()
+        times["dl_tti"].append(t1 - t0)
+        times["rx_samples"].append(t2 - t1)
+        times["ul_tti"].append(t3 - t2)
+        if refs is not None:
+            close(torch.from_numpy(samples), refs[k],
+                  f"{where} slot {k} ({flagship.du_kind(k)}): samples")
+        flagship.check_results(res, phases[g], f"{where} slot {k}")
+        out.append(samples)
+    return out
+
+
+def du_low_phase(dev, gen, rng, card) -> tuple:
+    """Phase 12: K25-K27 against their twins, then the split-6 DU-low as a
+    deployment runs it: ``python3 -m srsran_tpu_torch.apps.du_low`` in a
+    process of its own, driven over TCP by the port's FapiClient; then the
+    same slots through ``serve_phy`` in a thread, for the launch counts."""
+    cases = flagship.du_kernel_cases(rng, dev)
+    results = kernel_phases(cases, du_library(cases))
+    for name in [n for n in cases if n.endswith("_b4")]:
+        kernel, _, args = cases[name]
+        got = kernel(*args)
+        base = name[:-3]
+        for b in range(4):
+            if not torch.equal(got[b], kernel(*flagship.du_slot_of(base,
+                                                                    args, b))):
+                raise AssertionError(f"{name}: slot {b} differs from B = 1")
+    print("K25-K27 bit-exact to their twins at the DU-low shapes and at "
+          "B = 4 slot by slot against B = 1; K25/K26: no single PyTorch "
+          "call computes them (library: null)", flush=True)
+
+    deadline = time.monotonic() + DU_PHASE_S
+    phases = flagship.conductor_phases(rng, gen, dev)
+    prach_in = flagship.prach_fd(dev, SEED)
+    pay = flagship.dl_payloads(rng)
+    reqs = _du_requests(DU_SLOTS + DU_NB_SLOTS, pay)
+    rx, prach = _host_rx(phases, prach_in)
+    ref_cond = SlotConductor(flagship.CELL)
+    refs = [ref_cond.process_dl(dl, tx, return_grid=False)[0].cpu()
+            for dl, tx, _, _ in reqs[:DU_SLOTS]]
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "srsran_tpu_torch.apps.du_low", "--port", "0"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    times = {"dl_tti": [], "rx_samples": [], "ul_tti": [], "ul_tti_nb": []}
+    try:
+        port = _ready_port(proc, deadline)
+        cli = FapiClient("127.0.0.1", port,
+                         timeout=max(1.0, deadline - time.monotonic()))
+        if not isinstance(cli.config_msg(cm.ParamRequest()), cm.ParamResponse):
+            raise AssertionError("param.request: no param.response")
+        resp = cli.config_msg(cm.ConfigRequest(cell=flagship.CELL))
+        if resp.error_code is not cm.ErrorCode.MSG_OK:
+            raise AssertionError(f"config.request refused: {resp}")
+        if cli.config_msg(cm.StartRequest()) is not None:
+            raise AssertionError("start.request refused")
+        samples = _du_slots(cli, reqs[:DU_SLOTS], rx, prach, phases, refs,
+                            dev, times, "du_low")
+        # slot A's PDSCH back around its PT-RS REs (K4, demap, K2, K1)
+        dl_a, tx_a = reqs[0][0], reqs[0][1]
+        mib = torch.from_numpy(np.unpackbits(tx_a.ssb_mib[0])[:24].astype(
+            np.int8)).to(dev)
+        res = flagship.du_loopback(torch.from_numpy(samples[0]).to(dev),
+                                   dl_a.pdsch[0], (dl_a.ssb[0], mib))
+        tb = np.unpackbits(tx_a.pdsch_payloads[0])[:flagship.PDSCH.tbs]
+        if not (bool(res.tb_crc_ok) and np.array_equal(
+                res.tb_bits.cpu().numpy().astype(np.uint8), tb)):
+            raise AssertionError("du_low slot A: PDSCH not received back "
+                                 "around its PT-RS")
+        rs = [_du_rs_check(samples[k], reqs[k][0], dev) for k in range(3)]
+        print(f"du_low: slot A's PDSCH received back (its SSB cancelled) "
+              f"around its "
+              f"{len(ptrs_prs.ptrs_positions(pdsch.ptrs_config(dl_a.pdsch[0])))}"
+              f" PT-RS REs (CRC ok, {flagship.PDSCH.tbs} bits exact, "
+              f"{int(res.nof_iterations)} LDPC sweeps); CSI-RS + PT-RS, TRS "
+              f"+ PT-RS and PRS REs within {DU_RS_TOL} of their values "
+              f"({[n for n, _ in rs]} REs, max errors "
+              f"{[f'{e:.2g}' for _, e in rs]})", flush=True)
+        # non-blocking UL slots, resolved 2 behind and pushed; flush
+        t0 = time.perf_counter()
+        for k, (dl, tx, ul, g) in enumerate(reqs[DU_SLOTS:]):
+            cli.dl_tti(dl, tx)
+            cli.rx_samples(rx[g], prach_fd=prach)
+            t1 = time.perf_counter()
+            cli.ul_tti_nb(ul)
+            times["ul_tti_nb"].append(time.perf_counter() - t1)
+        nb = sorted(cli.flush(), key=lambda r: r.slot.count)
+        nb_s = time.perf_counter() - t0
+        if [r.slot for r in nb] != [r[2].slot for r in reqs[DU_SLOTS:]]:
+            raise AssertionError(f"ul_tti_nb: results of {len(nb)} slots")
+        for r, (_, _, _, g) in zip(nb, reqs[DU_SLOTS:]):
+            flagship.check_results(r, phases[g], "du_low ul_tti_nb")
+        # a slot far behind the front
+        late = reqs[1]
+        err = cli.dl_tti(late[0], late[1], want_samples=True)
+        if not (isinstance(err, cm.ErrorIndication)
+                and err.error_code is cm.ErrorCode.OUT_OF_SYNC):
+            raise AssertionError(f"a late slot gave {type(err).__name__}")
+        # stop -> config (the 52-RB cell) -> start, a slot, and back
+        count = 2 * (DU_SLOTS + DU_NB_SLOTS) + 2
+        cli.reconfigure(flagship.DU_SMALL_CELL)
+        _check_small(*_small_cell_slot(cli, count), "du_low reconfigured")
+        cli.reconfigure(flagship.CELL)
+        back = _du_requests(1, pay)[0]
+        _du_slots(cli, [back], rx, prach, phases, [refs[0]], dev,
+                  {k: [] for k in times}, "du_low back on the flagship")
+        cli.stop()
+        code = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+        tail = proc.stdout.read().strip()
+        if code != 0:
+            raise AssertionError(f"du_low exited {code}: {tail}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    print(f"du_low (its own process): {DU_SLOTS} slots A-D with every UL "
+          f"indication as phase 4 requires (CRC + exact payload, PRACH 21, "
+          f"F0 and F2 bits) and DL samples within 1e-4 of the in-process "
+          f"conductor, {DU_NB_SLOTS} ul_tti_nb slots pushed and flushed in "
+          f"{nb_s:.2f} s, error.indication {err.error_code.name} for a late "
+          f"slot, stop -> config (52 RB) -> start and back: ok; "
+          f"{tail!r}", flush=True)
+    us = {k: 1e6 * statistics.median(v) for k, v in times.items()}
+    nbytes_dl = 8 * refs[0].numel()
+
+    # the same slots through serve_phy in a thread: launch counts, the
+    # server's conductor times by CUDA events, memory over a reconfig
+    stats: dict = {}
+    box = {}
+    ready = threading.Event()
+
+    def serve():
+        try:
+            serve_phy(ready_cb=lambda p: (box.update(port=p), ready.set()),
+                      device=dev, stats=stats)
+        except BaseException as e:          # reported by the main thread
+            box["error"] = e
+            ready.set()
+
+    srv = threading.Thread(target=serve, daemon=True)
+    srv.start()
+    if not ready.wait(30.0) or "error" in box:
+        raise AssertionError(f"serve_phy did not start: {box.get('error')}")
+    cli = FapiClient("127.0.0.1", box["port"],
+                     timeout=max(1.0, deadline - time.monotonic()))
+    cli.configure(flagship.CELL)
+    thread_reqs = reqs[:DU_SLOTS]
+    # warm: every plan once, then counted
+    _du_slots(cli, thread_reqs, rx, prach, phases, None, dev,
+              {k: [] for k in times}, "serve_phy warm-up")
+    counted = [(dataclasses.replace(dl, slot=SlotPoint(1, dl.slot.count + 40)),
+                dataclasses.replace(tx, slot=SlotPoint(1, tx.slot.count + 40)),
+                dataclasses.replace(ul, slot=SlotPoint(1, ul.slot.count + 40)),
+                g) for dl, tx, ul, g in thread_reqs]
+    torch.cuda.synchronize()
+    stats.clear()
+    kernels.reset_counts()
+    _du_slots(cli, counted, rx, prach, phases, None, dev,
+              {k: [] for k in times}, "serve_phy")
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in kernels.REGISTRY.values()}
+    launches = launched(DU_KERNELS + UL_KERNELS + UCI_KERNELS + DL_KERNELS)
+    kinds = [flagship.du_kind(i) for i in range(DU_SLOTS)]
+    want = {"rs_map": sum(k in "ABC" for k in kinds),
+            "control_map": sum(k in "ABC" for k in kinds),
+            "dmrs_map": sum(k in "AB" for k in kinds)}
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"K25-K27 launches {launches} vs the slots' "
+                             f"PDUs {want}")
+    dl_ms = [d for _, d in stats["dl_tti"]]
+    ul_ms = [d for _, d in stats["ul_tti"]]
+    host_dl = [h for h, _ in stats["dl_tti"]]
+    # a MAC with many UEs: the SSB and 17 DCIs, two K27 launches
+    many = flagship.du_many_request(pay, 2 * DU_SLOTS + 42)
+    many_ref = ref_cond.process_dl(*many, return_grid=False)[0].cpu()
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    close(torch.from_numpy(cli.dl_tti(*many, want_samples=True)), many_ref,
+          "serve_phy: the SSB and 17 DCIs")
+    if kernels.REGISTRY["control_map"].launches != 2:
+        raise AssertionError(f"the SSB and 17 DCIs: "
+                             f"{kernels.REGISTRY['control_map'].launches} "
+                             f"K27 launches, not 2")
+    cli.reconfigure(flagship.DU_SMALL_CELL)
+    _check_small(*_small_cell_slot(cli, 2 * DU_SLOTS + 82), "serve_phy")
+    cli.reconfigure(flagship.CELL)
+    cli.stop()
+    srv.join(timeout=max(1.0, deadline - time.monotonic()))
+    if srv.is_alive() or "error" in box:
+        raise AssertionError(f"serve_phy did not end: {box.get('error')}")
+    mem0, mem1, graph_b = _reconfig_memory(dev, reqs[0], phases, prach_in)
+    wire = 1.0 - statistics.median(host_dl) * 1e6 / us["dl_tti"]
+    print(f"du_low launches over {DU_SLOTS} slots ({''.join(kinds)}): "
+          f"{ {k: counts[k] for k in DU_KERNELS} } (K25 and K27 in the "
+          f"{want['rs_map']} slots with RS / control PDUs, K26 in the "
+          f"{want['dmrs_map']} with a PDSCH); the SSB and 17 DCIs in two "
+          f"K27 launches, samples within 1e-4 of the in-process "
+          f"conductor's; a CellManager's graphed slot A, then stop -> "
+          f"config (52 RB) -> start: memory reserved {mem0 >> 20} MiB "
+          f"before and {mem1 >> 20} MiB after (the slot graph's capture "
+          f"{graph_b >> 20} MiB released)", flush=True)
+    print(f"du_low us per message on the host clock (its own process, "
+          f"median): dl_tti with samples {us['dl_tti']:.0f}, rx_samples "
+          f"{us['rx_samples']:.0f}, ul_tti {us['ul_tti']:.0f}, ul_tti_nb "
+          f"{us['ul_tti_nb']:.0f} ({nbytes_dl} B of samples a slot each "
+          f"way); the server's process_dl {1e3 * statistics.median(dl_ms):.0f}"
+          f" us and process_ul + resolve {1e3 * statistics.median(ul_ms):.0f}"
+          f" us by CUDA events (in a thread); the wire and codec's share of "
+          f"a dl_tti: {100 * wire:.0f}%; card {card}", flush=True)
+    return results, {k: launches[k] for k in DU_KERNELS}
+
+
+def _reconfig_memory(dev, req: tuple, phases: list, prach_in) -> tuple:
+    """The old conductor's device memory released on reconfiguration: a
+    CellManager on the card runs DU-low slot ``req`` through its CUDA
+    graph (process_slot), then stop -> config (the 52-RB cell) -> start.
+    Memory reserved is read after a synchronize, a collection and
+    empty_cache on both sides; the reading after the cycle must lie at
+    least the slot graph's capture (its static tensors and its pool's
+    growth) below the one before.  Returns (before, after, graph bytes)."""
+    def reserved() -> int:
+        torch.cuda.synchronize(dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved(dev)
+
+    def handle(*msgs) -> None:
+        for msg in msgs:
+            r = mgr.handle_config_msg(msg)
+            if isinstance(r, cm.ErrorIndication) or getattr(
+                    r, "error_code", cm.ErrorCode.MSG_OK) is not \
+                    cm.ErrorCode.MSG_OK:
+                raise AssertionError(f"CellManager: {type(msg).__name__} "
+                                     f"refused: {r}")
+
+    dl, tx, ul, g = req
+    mgr = cm.CellManager(device=dev)
+    handle(cm.ConfigRequest(cell=flagship.CELL), cm.StartRequest())
+    cond = mgr.conductor
+    st = cond.stage_payloads([(dl, tx)])
+    _, pend = cond.process_slot(dl, ul, st, 0, phases[g]["rx"],
+                                prach_fd=prach_in)
+    flagship.check_results(pend.resolve(), phases[g],
+                           "graphed DU-low slot before a reconfiguration")
+    graph = cond.graph_of(dl, ul, st.stride)
+    if graph is None:
+        raise AssertionError("the DU-low slot ran without its CUDA graph")
+    graph_b = graph.nbytes
+    del cond, st, pend, graph
+    before = reserved()
+    handle(cm.StopRequest(), cm.ConfigRequest(cell=flagship.DU_SMALL_CELL),
+           cm.StartRequest())
+    after = reserved()
+    del mgr
+    if after > before - graph_b:
+        raise AssertionError(
+            f"reconfiguration: memory reserved {before} B before, {after} B "
+            f"after; the old conductor's slot graph ({graph_b} B) not "
+            f"released")
+    return before, after, graph_b
+
+
 def _slot_of_dict(out: dict, c) -> dict:
     """Cell ``c`` of a multi-cell UL result dict (None: the whole of a
     single cell's), on the CPU."""
@@ -1951,18 +2430,25 @@ def main() -> int:
         dev, np.random.default_rng(SEED + 11), card)
     print(f"phase 11 (fronthaul): {time.perf_counter() - t11:.1f} s",
           flush=True)
+    t12 = time.perf_counter()
+    du_results, du_launches = du_low_phase(
+        dev, gen, np.random.default_rng(SEED + 12), card)
+    print(f"phase 12 (du_low): {time.perf_counter() - t12:.1f} s",
+          flush=True)
     results = {**ul_results, **dl_results, **uci_results, **mu_results,
-               **batch_results, **edge_results, **gnb_results, **ofh_results}
+               **batch_results, **edge_results, **gnb_results, **ofh_results,
+               **du_results}
     # K1-K11 as their own paths launched them (phases 2, 3), K12-K15 as the
     # conductor's slots did (phase 4, which launched every kernel), K16-K17
     # as the two-UE slot did (phase 5), the batched K1-K8 as one batch of
     # phase 7 did, K18-K19 as the cell-edge slot did (phase 9), K20-K22 as
     # the scheduler-mode gnb_sim run did (phase 10), K23-K24 as the
-    # fronthaul round trip did (phase 11)
+    # fronthaul round trip did (phase 11), K25-K27 as the DU-low's slots
+    # through serve_phy did (phase 12)
     launches = {**cond_launches, **ul_launches, **dl_launches,
                 **{k: mu_launches[k] for k in MU_KERNELS}, **batch_launches,
                 **{k: edge_launches[k] for k in EDGE_KERNELS},
-                **gnb_launches, **ofh_launches}
+                **gnb_launches, **ofh_launches, **du_launches}
     for name, r in results.items():
         lib = ("" if r["library_ms"] is None
                else f", library {r['library_ms']:.4f} ms")

@@ -27,10 +27,12 @@ from .emulation.channel import ChannelConfig
 from .mac.scheduler import SchedUeConfig
 from .mac.test_mode import TestUe
 from .phy.slot_programs import CellConfig
+from .phy.upper.csi_rs import CsiRsConfig
 from .phy.upper.dmrs import DmrsConfig
 from .phy.upper.pdcch import CoresetConfig, PdcchConfig
 from .phy.upper.pdsch import PdschConfig, PdschPtrs
 from .phy.upper.prach import PrachConfig
+from .phy.upper.ptrs_prs import PrsConfig, PtrsConfig
 from .phy.upper.pucch import (PucchF0Config, PucchF1Config, PucchF2Config,
                               PucchF3Config)
 from .phy.upper.pusch import PuschConfig
@@ -48,8 +50,9 @@ from .utils.config import AppConfig
 # Port classes by name; a JAX config maps to the port class of its name.
 CONFIG_CLASSES = {cls.__name__: cls for cls in
                   (AppConfig, CellConfig, ChannelConfig, CoresetConfig,
-                   CsiReportConfig, DmrsConfig, PdcchConfig,
+                   CsiReportConfig, CsiRsConfig, DmrsConfig, PdcchConfig,
                    PdschConfig, PdschPtrs, PrachConfig, PrecodingConfig,
+                   PrsConfig, PtrsConfig,
                    Part2Entry, Part2Parameter, Part2SizeDescription,
                    PucchF0Config, PucchF1Config, PucchF2Config, PucchF3Config,
                    PuschConfig, SchedUeConfig, SlotPoint, SrsConfig,

@@ -26,6 +26,15 @@ def require_cuda() -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def resolve(device) -> torch.device:
+    """``device`` as a torch.device, a CUDA device with its index (the
+    current one when the caller named none), so that devices compare."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def card_line() -> str:
     """The first GPU's name and power limit, as ``nvidia-smi`` prints them
     (a card may be set below its maximum power and then runs slower)."""

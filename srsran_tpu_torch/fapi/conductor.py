@@ -37,14 +37,16 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..device import const, require_cuda
+from ..device import const, require_cuda, resolve
 from ..graphs import SlotGraph
 from ..phy.slot_programs import (CellConfig, dl_slot_core, stack_ctx,
                                  ul_slot_core)
+from ..phy.upper import csi_rs as csi_rs_mod
 from ..phy.upper import dmrs as dmrs_mod
 from ..phy.upper import pdcch as pdcch_mod
 from ..phy.upper import pdsch as pdsch_mod
 from ..phy.upper import pucch as pucch_mod
+from ..phy.upper import ptrs_prs as ptrs_prs_mod
 from ..phy.upper import pusch as pusch_mod
 from ..phy.upper import ssb as ssb_mod
 from ..ran.ldpc_params import segment_tb, select_base_graph
@@ -86,6 +88,10 @@ def _pdsch_pilots(cfg) -> np.ndarray:
     return dmrs_mod.pilot_values_for(pdsch_mod.dmrs_config(cfg))
 
 
+def _ptrs_values(cfg) -> np.ndarray:
+    return ptrs_prs_mod.ptrs_values_for(pdsch_mod.ptrs_config(cfg))
+
+
 def _zero_pm(c):
     """The PDSCH with its per-PRG PM indices zeroed (the PRG structure --
     prg_size and count -- stays; the matrices are slot context)."""
@@ -122,6 +128,14 @@ def _ctx(kind: str, cfg, device):
         return const(pdcch_mod.dmrs_values_for, cfg, device=device)
     if kind == "pdsch":
         return const(_pdsch_pilots, cfg, device=device)
+    if kind == "ptrs":
+        if cfg.ptrs is None:
+            return None
+        return const(_ptrs_values, cfg, device=device)
+    if kind == "csi":
+        return const(csi_rs_mod.seq_values_for, cfg, device=device)
+    if kind == "prs":
+        return const(ptrs_prs_mod.prs_values_for, cfg, device=device)
     if kind == "pusch":
         return const(pusch_mod.dmrs_pilot_values, cfg, device=device)
     if kind == "f0":
@@ -147,9 +161,9 @@ def normalize_dl_plan(dl: DlTtiRequest, extra_pdcch: tuple = (),
     fapi_to_phy_translator.cpp:629).  nof_ports: the cell's TX ports,
     needed to resolve PDSCH precoding PM indices through the codebook
     repository (required when any PDU sets precoding); the PM indices are
-    zeroed in the plan and their matrices are the "pm" context.  PT-RS,
-    CSI-RS and PRS are not ported: their context entries are None or
-    empty, and the DL program raises on them.
+    zeroed in the plan and their matrices are the "pm" context; the
+    PDSCHs' PT-RS, the CSI-RS and the PRS carry their slot's sequence
+    values ("ptrs", None for a PDSCH without PT-RS; "csi"; "prs").
     """
     pdcch_all = dl.pdcch + tuple(extra_pdcch)
     for c in dl.pdsch:
@@ -166,9 +180,10 @@ def normalize_dl_plan(dl: DlTtiRequest, extra_pdcch: tuple = (),
         "ssb": tuple(_ctx("ssb", c, device) for c in dl.ssb),
         "pdcch": tuple(_ctx("pdcch", c, device) for c in pdcch_all),
         "pdsch": tuple(_ctx("pdsch", c, device) for c in dl.pdsch),
-        "ptrs": tuple(None for _ in dl.pdsch),
+        "ptrs": tuple(_ctx("ptrs", c, device) for c in dl.pdsch),
         "pm": tuple(_pm_ctx(nof_ports, c, device) for c in dl.pdsch),
-        "csi": (), "prs": (),
+        "csi": tuple(_ctx("csi", c, device) for c in dl.csi_rs),
+        "prs": tuple(_ctx("prs", c, device) for c in dl.prs),
     }
     return (ssb_n, pdcch_n, pdsch_n, csi_n, prs_n), ctx
 
@@ -405,8 +420,9 @@ def _unpacker(segs: tuple, n_ssb: int, n_pdcch: int, n_pdsch: int):
     return unpack
 
 
-def _dl_fn(cell: CellConfig, plan, slot_in_subframe: int, return_grid: bool):
-    """The DL slot program taking one packed payload blob."""
+def _dl_fn(cell: CellConfig, plan, slot_in_subframe: int, return_grid: bool,
+           device):
+    """The DL slot program taking one packed payload blob, on ``device``."""
     if len(plan) == 4:
         plan = plan + ((),)
     n_ssb, n_pdcch, n_pdsch = len(plan[0]), len(plan[1]), len(plan[2])
@@ -415,7 +431,7 @@ def _dl_fn(cell: CellConfig, plan, slot_in_subframe: int, return_grid: bool):
     unpack = _unpacker(segs, n_ssb, n_pdcch, n_pdsch)
 
     def run(blob, ctx=None):
-        samples, grid = core(*unpack(blob), ctx)
+        samples, grid = core(*unpack(blob), ctx, device)
         return (samples, grid) if return_grid else samples
 
     return run
@@ -476,7 +492,7 @@ def _slot_phase(cell: CellConfig, dl_plan, ul_plan, slot_in_subframe: int,
 
     def dl(blob, pm=None):
         ctx = dl_ctx if pm is None else dict(dl_ctx, pm=pm)
-        return dl_core(*unpack(blob), ctx)[0]
+        return dl_core(*unpack(blob), ctx, device, batch)[0]
 
     def ul_run(rx_samples, prach_fd, soft_buffers):
         return ul(rx_samples, prach_fd, soft_buffers, ul_ctx, ul_axes)
@@ -557,7 +573,7 @@ class SlotConductor:
             raise NotImplementedError(
                 "FAPI pcap capture is not ported yet (ROADMAP §1 item 16)")
         self.cell = cell
-        self.device = require_cuda() if device is None else torch.device(device)
+        self.device = require_cuda() if device is None else resolve(device)
         self.validate = validate
         self.harq_pool = HarqBufferPool(self.device)
         self._dl_phases = _PhaseCache(MAX_PHASES)
@@ -568,6 +584,16 @@ class SlotConductor:
         cuda = self.device.type == "cuda"
         self._copy_stream = torch.cuda.Stream(self.device) if cuda else None
         self._pool = torch.cuda.graph_pool_handle() if cuda else None
+
+    def close(self) -> None:
+        """Release what the conductor holds on its device: resolved slot
+        phases (their contexts), CUDA graphs (their static tensors; their
+        shared memory pool goes with the last graph) and HARQ buffers."""
+        for cache in (self._dl_phases, self._ul_phases, self._slot_phases,
+                      self._batch_phases, self._graphs):
+            cache._d.clear()
+        self.harq_pool = HarqBufferPool(self.device)
+        self._pool = None
 
     # ---------------------------------------------------------------- DL
 
@@ -591,7 +617,8 @@ class SlotConductor:
                                       device=self.device)
         n = (len(dl_tti.ssb), len(dl_tti.pdcch) + len(extra),
              len(dl_tti.pdsch))
-        return _DlPhase(fn=_dl_fn(self.cell, plan, slot_in_sf, return_grid),
+        return _DlPhase(fn=_dl_fn(self.cell, plan, slot_in_sf, return_grid,
+                                  self.device),
                         ctx=ctx, layout=self.payload_layout(dl_tti, ul_dci),
                         n_payloads=n, plan=plan)
 

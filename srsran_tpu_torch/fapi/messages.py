@@ -28,8 +28,8 @@ class DlTtiRequest:
     ssb: tuple = ()        # tuple[SsbConfig]
     pdcch: tuple = ()      # tuple[PdcchConfig]
     pdsch: tuple = ()      # tuple[PdschConfig]
-    csi_rs: tuple = ()     # CSI-RS PDUs (not ported, ROADMAP §1 item 13)
-    prs: tuple = ()        # PRS PDUs (not ported, ROADMAP §1 item 13)
+    csi_rs: tuple = ()     # tuple[CsiRsConfig]
+    prs: tuple = ()        # tuple[PrsConfig]
 
     def plan_key(self):
         return (self.ssb, self.pdcch, self.pdsch, self.csi_rs, self.prs)

@@ -3,10 +3,10 @@
 The port's own copy of srsran_tpu/fapi/validators.py: each PDU config is
 checked against the cell geometry and 3GPP ranges, raising ValidationError
 with the offending field; the conductor calls these before it resolves a
-slot phase.  PDU kinds and options the port does not run raise
-NotImplementedError with their ROADMAP item instead (CSI-RS, PRS; PT-RS
-and RA type 0 / interleaved PDSCH).  Per-PRG precoding is checked as the
-JAX package checks it.  Every UL PDU kind
+slot phase.  The PDSCH options the port does not run (RA type 0 and
+interleaved VRBs) raise NotImplementedError with their ROADMAP item
+instead.  Per-PRG precoding, PT-RS, CSI-RS and PRS are checked as the JAX
+package checks them, message for message.  Every UL PDU kind
 of the JAX package passes: PUSCHs of 1-4 layers with ZF or MMSE, UCI on
 PUSCH, frequency hopping and transform precoding, PUCCH F0 to F4, PRACH
 and SRS.
@@ -17,6 +17,7 @@ from __future__ import annotations
 from ..ops.modulation import BITS_PER_SYMBOL
 from ..phy.slot_programs import CellConfig
 from ..phy.upper import pdsch as pdsch_mod
+from ..phy.upper.csi_rs import nof_csi_rs_ports
 from ..ran import precoding_codebooks as pc
 from .messages import DlTtiRequest, TxDataRequest, UlTtiRequest
 
@@ -28,11 +29,6 @@ class ValidationError(ValueError):
 def _check(cond, msg):
     if not cond:
         raise ValidationError(msg)
-
-
-def _not_ported(kind: str) -> NotImplementedError:
-    return NotImplementedError(f"{kind} PDUs are not ported yet "
-                               "(ROADMAP §1 item 13)")
 
 
 def _check_alloc(name, cell: CellConfig, rb_start, rb_count, first_symbol,
@@ -95,10 +91,37 @@ def validate_dl_tti(dl: DlTtiRequest, cell: CellConfig):
                 _check(mats.shape[2] == p.nof_layers,
                        f"pdsch: precoding matrices map {mats.shape[2]} "
                        f"layers, PDU has {p.nof_layers}")
-    if dl.csi_rs:
-        raise _not_ported("CSI-RS")
-    if dl.prs:
-        raise _not_ported("PRS")
+    for c in dl.csi_rs:
+        _check(1 <= c.row <= 18, "csi_rs: row must be 1..18 "
+               "(Table 7.4.1.5.3-1; the reference caps at 12)")
+        # The slot program maps CSI-RS ports 1:1 onto physical ports (no
+        # precoding matrix in the FAPI PDU): a row needing more CSI-RS
+        # ports than the cell has is rejected here.
+        _check(nof_csi_rs_ports(c.row) <= cell.nof_ports,
+               f"csi_rs: row {c.row} needs {nof_csi_rs_ports(c.row)} CSI-RS "
+               f"ports but the cell has {cell.nof_ports} (a precoding matrix "
+               "is required and the FAPI path does not carry one)")
+        _check(c.rb_start + c.rb_count <= cell.nof_rb, "csi_rs: PRB range")
+        try:
+            c.resolved_k_ref()
+            c.resolved_density()
+        except ValueError as e:
+            _check(False, f"csi_rs: {e}")
+    for p in dl.prs:
+        _check_alloc("prs", cell, p.rb_start, p.rb_count, p.first_symbol,
+                     p.nof_symbols)
+        _check(p.nof_symbols in (2, 4, 6, 12), "prs: 2/4/6/12 symbols")
+        _check(p.comb_size in (2, 4, 6, 12), "prs: comb size")
+        _check(0 <= p.comb_offset < p.comb_size, "prs: comb offset")
+        _check(0 <= p.n_id_prs < 4096, "prs: n_id_prs")
+        _check(p.rb_count * 12 % p.comb_size == 0,
+               "prs: allocation not a comb multiple")
+    for p in dl.pdsch:
+        if p.ptrs is not None:
+            _check(p.ptrs.time_density in (1, 2, 4), "ptrs: L_PT-RS 1/2/4")
+            _check(p.ptrs.freq_density in (2, 4), "ptrs: K_PT-RS 2/4")
+            _check(0 <= p.ptrs.re_offset < 12, "ptrs: RE offset")
+            _check(p.ptrs.port < p.nof_layers, "ptrs: port not a layer")
 
 
 def validate_ul_dci(ul_dci, cell: CellConfig):

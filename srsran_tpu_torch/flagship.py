@@ -38,6 +38,10 @@ ports, 273 RB, a 4096-point FFT and 30 kHz SCS.
   bits: polar) and a PUCCH F4 (OCC 2, 8 bits: short block), with the
   flagship's F1, PRACH and SRS.
 
+* DU-low (split 6): the DL slots a split-6 MAC sends the port's
+  apps/du_low.py -- the flagship PDSCH with PT-RS beside a 4-port
+  NZP-CSI-RS or a TRS, a DL-PRS slot and an empty DL_TTI -- with the
+  conductor scenario's UL slots, and K25-K27's cases at those shapes.
 * gnb_sim: the kernels of the gNB simulator (apps/gnb_sim.py) at these
   shapes -- the 4x4 TDLA channel (K20), the B4 PRACH occasion demodulator
   (K21) and a 2-layer PDSCH precoded per PRG (K22); the app itself builds
@@ -58,14 +62,15 @@ import torch
 from .emulation import channel as chan
 from .fapi import messages
 from .ops import channel_estimate as chest
-from .ops import (dl_map, ldpc_decode, ldpc_encode, ldpc_rate_match, ofdm,
-                  polar, short_block, uci_demux, ul_demap)
+from .ops import (dl_control, dl_map, dl_rs, ldpc_decode, ldpc_encode,
+                  ldpc_rate_match, ofdm, polar, short_block, uci_demux,
+                  ul_demap)
 from .ops.modulation import demodulate
 from .ops.scrambling import descramble_llrs
 from .phy.slot_programs import (CellConfig, dl_slot_fn, dl_slot_fn_samples,
                                 ul_slot_fn)
-from .phy.upper import (dmrs, pdcch, pdsch, prach, pucch, pusch, sch_decoder,
-                        srs, ssb, ue_tx)
+from .phy.upper import (csi_rs, dmrs, pdcch, pdsch, prach, ptrs_prs, pucch,
+                        pusch, sch_decoder, srs, ssb, ue_tx)
 from .ofh import compression as bfp
 from .phy.lower import prach_demod
 from .ran import mcs_tbs, polar_params
@@ -1400,3 +1405,319 @@ def ofh_kernel_cases(rng: np.random.Generator, device) -> dict:
     cases["bfp_decompress_mant"] = (bfp.bfp_decompress, bfp.bfp_decompress_ref,
                                     (exp, mant))
     return cases
+
+
+# ---------------------------------------------------------------- DU-low
+# The split-6 DU-low's DL slots (apps/du_low.py behind the FAPI transport):
+# the flagship PDSCH with PT-RS (port 0, K = 2, L = 1: 1,370 REs, so G =
+# 31,390 x 32 = 1,004,480 bits, TBS 835,584 + 24 still fits) and the RS
+# PDUs a split-6 MAC sends, none of them on the PDSCH's symbols 1-12:
+#   A: SSB, AL8 PDCCH, PDSCH with PT-RS, 4-port NZP-CSI-RS (row 4, density
+#      1) on 273 RB at symbol 13;
+#   B: PDCCH, the same PDSCH, a TRS (row 1, density 3) at symbol 13;
+#   C: a DL-PRS slot: a PDCCH in symbols 0-1 and a comb-4 PRS on 272 RB
+#      (a multiple of the comb) over symbols 2-13, no PDSCH;
+#   D: an empty DL_TTI.
+# The UL slots are the conductor scenario's (ul_request, conductor_phases).
+DU_PTRS = pdsch.PdschPtrs(time_density=1, freq_density=2, re_offset=0,
+                          port=0)
+DU_PDSCH = dataclasses.replace(PDSCH, ptrs=DU_PTRS)
+DU_CSI = csi_rs.CsiRsConfig(row=4, rb_start=0, rb_count=273, symbol=13, k0=0,
+                            scrambling_id=1)
+DU_TRS = csi_rs.CsiRsConfig(row=1, rb_start=0, rb_count=273, symbol=13, k0=1,
+                            scrambling_id=1)
+DU_PRS_PDCCH = dataclasses.replace(
+    PDCCH, coreset=dataclasses.replace(CORESET, duration=2))
+DU_PRS = ptrs_prs.PrsConfig(rb_start=0, rb_count=272, first_symbol=2,
+                            nof_symbols=12, comb_size=4, comb_offset=0,
+                            n_id_prs=1)
+DU_KINDS = ("A", "B", "C", "D")
+#: The cell of the reconfiguration step (stop -> config -> start).
+DU_SMALL_CELL = CellConfig(nof_ports=1, nof_rb=52, dft_size=1024,
+                           numerology=1)
+
+
+#: A DL slot of a MAC with many UEs: the SSB and 17 AL1 DCIs in a 96-RB,
+#: 2-symbol CORESET beside the SSB's RBs -- 18 PDUs, more than one K27
+#: launch takes (16), so the slot takes two.  Each DCI's patch spans the
+#: CORESET, so the DCIs form one group, which the two launches split; the
+#: last DCI also takes the first one's CCE (a MAC would not), so its data
+#: REs add onto the first one's across the launches, in plan order.
+DU_MANY_CORESET = pdcch.CoresetConfig(rb_start=24, nof_rb=96, start_symbol=0,
+                                      duration=2)
+DU_MANY_PDCCHS = 17
+#: 33 one-port CSI-RS (row 1, density 3) at symbols 4-13 and k0 0-3 --
+#: more RS PDUs than one K25 launch takes (32); PDUs 20 apart share their
+#: REs, PDU 32 with PDU 12 across the two launches.
+DU_MANY_CSI = tuple(
+    csi_rs.CsiRsConfig(row=1, rb_start=0, rb_count=273, symbol=4 + j % 10,
+                       k0=j % 4, scrambling_id=j) for j in range(33))
+
+
+def du_many_pdcchs(slot_in_frame: int = 0) -> tuple:
+    """The DU_MANY_PDCCHS DCIs of the many-UE slot (RNTIs 0x4601 + j)."""
+    return tuple(dataclasses.replace(
+        PDCCH, coreset=DU_MANY_CORESET, aggregation_level=1,
+        cce_index=j % (DU_MANY_PDCCHS - 1), rnti=0x4601 + j,
+        slot_in_frame=slot_in_frame) for j in range(DU_MANY_PDCCHS))
+
+
+def du_many_request(payloads: dict, count: int = 0) -> tuple:
+    """(DlTtiRequest, TxDataRequest) of the many-UE DL slot at slot point
+    (1, count): the SSB and :func:`du_many_pdcchs`."""
+    slot = SlotPoint(1, count)
+    pdcchs = du_many_pdcchs(slot.slot_index)
+    dl = messages.DlTtiRequest(
+        slot=slot, ssb=(dataclasses.replace(SSB, sfn=slot.sfn),),
+        pdcch=pdcchs)
+    tx = messages.TxDataRequest(
+        slot=slot, ssb_mib=(payloads["mib"],),
+        pdcch_payloads=tuple(payloads["dci"][j % N_PAYLOAD_VARIANTS]
+                             for j in range(len(pdcchs))))
+    return dl, tx
+
+
+def du_kind(i: int) -> str:
+    return DU_KINDS[i % len(DU_KINDS)]
+
+
+def du_dl_request(i: int) -> messages.DlTtiRequest:
+    """DU-low DL slot i at slot point (1, 2i), of kind A, B, C, D in turn."""
+    slot = SlotPoint(1, 2 * i)
+    sl = slot.slot_index
+    kind = du_kind(i)
+    at = {"slot_in_frame": sl}
+    if kind == "D":
+        return messages.DlTtiRequest(slot=slot)
+    if kind == "C":
+        return messages.DlTtiRequest(
+            slot=slot, pdcch=(dataclasses.replace(DU_PRS_PDCCH, **at),),
+            prs=(dataclasses.replace(DU_PRS, **at),))
+    rs = DU_CSI if kind == "A" else DU_TRS
+    return messages.DlTtiRequest(
+        slot=slot,
+        ssb=((dataclasses.replace(SSB, sfn=slot.sfn),) if kind == "A" else ()),
+        pdcch=(dataclasses.replace(PDCCH, **at),),
+        pdsch=(dataclasses.replace(DU_PDSCH, **at),),
+        csi_rs=(dataclasses.replace(rs, **at),))
+
+
+def du_tx_request(i: int, payloads: dict) -> messages.TxDataRequest:
+    """The payloads of DU-low DL slot i (dl_payloads' variants)."""
+    dl = du_dl_request(i)
+    v = i % N_PAYLOAD_VARIANTS
+    return messages.TxDataRequest(
+        slot=dl.slot,
+        pdsch_payloads=tuple(payloads["sch"][v] for _ in dl.pdsch),
+        pdcch_payloads=tuple(payloads["dci"][v] for _ in dl.pdcch),
+        ssb_mib=tuple(payloads["mib"] for _ in dl.ssb))
+
+
+def du_rs_items(dl: messages.DlTtiRequest, device) -> tuple:
+    """The K25 items and values of a DU-low DL request's RS PDUs (PT-RS,
+    CSI-RS, PRS), in the slot program's order, with the slot's values."""
+    rs = [ptrs_prs.ptrs_item(pdsch.ptrs_config(c), device=device)
+          for c in dl.pdsch if c.ptrs is not None]
+    rs += [csi_rs.csi_item(c, CELL.nof_ports, device=device)
+           for c in dl.csi_rs]
+    rs += [ptrs_prs.prs_item(c, device=device) for c in dl.prs]
+    return tuple(i for i, _ in rs), tuple(v for _, v in rs)
+
+
+def du_loopback(samples: torch.Tensor, cfg: pdsch.PdschConfig,
+                ssb_pdu=None):
+    """Receive a DU-low slot's PDSCH back from its samples around its
+    PT-RS REs, as :func:`dl_loopback`.  The JAX transmitter sums the SSB
+    onto the data REs it shares (no rate matching around it), which no
+    decoder survives (the REs fall in one or two codeblocks); with
+    ``ssb_pdu`` = (SsbConfig, MIB bits) the receiver cancels the SSB it
+    knows before the demap."""
+    cell = DL_CELL
+    grid = ofdm.demodulate_slot(samples, cell.nof_sc, cell.dft_size,
+                                cell.numerology, cell.cp, 0,
+                                cell.center_freq_hz)
+    if ssb_pdu is not None:
+        own = torch.zeros_like(grid)
+        ssb.map_ssb_to_grid(own, ssb_pdu[0], ssb_pdu[1])
+        grid = grid - own
+    key = pdsch.plan_key(cfg)
+    dev = samples.device
+    sym = torch.as_tensor(pdsch.data_re_plan_column(*key, 0)).to(dev)
+    sc = torch.as_tensor(pdsch.data_re_plan_column(*key, 1)).to(dev)
+    x = (grid[:, sym, sc] / 0.5).T.reshape(-1)       # codeword symbol order
+    nv = torch.full((1, x.numel()), 1e-2, device=dev)
+    llr = demodulate(x[None], nv, cfg.modulation)[0]
+    llr = descramble_llrs(llr, (cfg.rnti << 15) + cfg.n_id)
+    return sch_decoder.decode(llr, pdsch.segmentation(cfg),
+                              list(pdsch.rate_match_sizes(cfg)), cfg.rv, 8,
+                              cfg.tbs)
+
+
+def _du_slot_args(i: int, rng: np.random.Generator, device, batch=None):
+    """(items, values, grid) of DU-low slot i's K25 launch on a seeded
+    grid ([batch, ...] with per-slot values of slots i, i + 4, ...)."""
+    shape = (CELL.nof_ports, 14, CELL.nof_sc)
+    dls = [du_dl_request(i + 4 * b) for b in range(batch or 1)]
+    items, _ = du_rs_items(dls[0], device)
+    values = [du_rs_items(d, device)[1] for d in dls]
+    if batch:
+        values = tuple(torch.stack(v) for v in zip(*values))
+    else:
+        values = values[0]
+    lead = (batch,) if batch else ()
+    g = (rng.normal(size=lead + shape) + 1j * rng.normal(size=lead + shape))
+    return items, values, _up(g.astype(np.complex64), device)
+
+
+def _on_copy(fn):
+    def run(grid, *args):
+        return fn(grid.clone(), *args)
+    return run
+
+
+def du_kernel_cases(rng: np.random.Generator, device) -> dict:
+    """name -> (wrapper, plain twin, args) for K25-K27 at the DU-low
+    shapes, each adding into a seeded grid (on a copy): "rs_map" slot A's
+    CSI-RS and PT-RS, "rs_map_trs" slot B's, "rs_map_prs" slot C's PRS;
+    "dmrs_map" the flagship PDSCH's 4 layers with the identity port map,
+    "dmrs_map_matrix" with a [4, 4] matrix, "dmrs_map_prg" with 69 PRG
+    matrices (PRG size 4); "control_map" slot A's SSB (with its slot
+    context) and AL8 PDCCH in one launch, "control_map_al{1,2,4,16}" one
+    PDCCH at each other aggregation level, "control_map_ssb_static" the SSB
+    from its own config.  "<name>_b4": the same at B = 4 (compared with
+    B = 1 slot by slot by the caller)."""
+    cases = {}
+    for name, i in (("rs_map", 0), ("rs_map_trs", 1), ("rs_map_prs", 2),
+                    ("rs_map_many", None)):
+        for b in (None, 4):
+            items, values, grid = (_du_slot_args(i, rng, device, b)
+                                   if i is not None else
+                                   _many_rs_args(rng, device, b))
+            tag = "_b4" if b else ""
+            cases[name + tag] = (_on_copy(dl_rs.rs_map),
+                                 _on_copy(dl_rs.rs_map_ref),
+                                 (grid, items, values))
+    dcfg = pdsch.dmrs_config(PDSCH)
+    npil = 6 * PDSCH.rb_count
+    w44 = ((rng.normal(size=(4, 4)) + 1j * rng.normal(size=(4, 4))) / 2
+           ).astype(np.complex64)
+    prg = ((rng.normal(size=(69, 4, 4)) + 1j * rng.normal(size=(69, 4, 4)))
+           / 2).astype(np.complex64)
+    for name, w, prg_size in (
+            ("dmrs_map", pdsch.identity(4, 4, device), 0),
+            ("dmrs_map_matrix", _up(w44, device), 0),
+            ("dmrs_map_prg", _up(prg, device), 4)):
+        for b in (None, 4):
+            lead = (b,) if b else ()
+            pil = _up(np.stack([dmrs.pilot_values_for(dataclasses.replace(
+                dcfg, slot_in_frame=2 * k)) for k in range(b or 1)]), device)
+            pil = pil if b else pil[0]
+            g = rng.normal(size=lead + (4, 14, CELL.nof_sc)) * (1 + 1j)
+            cases[name + ("_b4" if b else "")] = (
+                _on_copy(dl_rs.dmrs_map), _on_copy(dl_rs.dmrs_map_ref),
+                (_up(g.astype(np.complex64), device), pil, w,
+                 dcfg.ports, dcfg.symbols, PDSCH.rb_start, npil // 6,
+                 prg_size))
+    for name, al, with_ssb, ctx in (
+            ("control_map", 8, True, True), ("control_map_al1", 1, False, 0),
+            ("control_map_al2", 2, False, 0), ("control_map_al4", 4, False, 0),
+            ("control_map_al16", 16, False, 0),
+            ("control_map_ssb_static", 0, True, False)):
+        for b in (None, 4):
+            cases[name + ("_b4" if b else "")] = _control_case(
+                rng, device, al, with_ssb, ctx, b)
+    for b in (None, 4):
+        cases["control_map_many" + ("_b4" if b else "")] = _control_case(
+            rng, device, 1, True, True, b, many=True)
+    return cases
+
+
+def _many_rs_args(rng: np.random.Generator, device, batch=None):
+    """(items, values, grid) of the DU_MANY_CSI K25 case on a seeded grid
+    ([batch, ...] with per-slot values of slot_in_frame 0, 1, ...)."""
+    shape = (CELL.nof_ports, 14, CELL.nof_sc)
+    rs = [[csi_rs.csi_item(dataclasses.replace(c, slot_in_frame=b),
+                           CELL.nof_ports, device=device)
+           for c in DU_MANY_CSI] for b in range(batch or 1)]
+    items = tuple(i for i, _ in rs[0])
+    values = tuple(v for _, v in rs[0])
+    if batch:
+        values = tuple(torch.stack([r[j][1] for r in rs])
+                       for j in range(len(items)))
+    lead = (batch,) if batch else ()
+    g = (rng.normal(size=lead + shape) + 1j * rng.normal(size=lead + shape))
+    return items, values, _up(g.astype(np.complex64), device)
+
+
+def _control_case(rng, device, al: int, with_ssb: bool, ctx: bool,
+                  batch, many: bool = False) -> tuple:
+    """K27 on a seeded grid: an SSB (slot context or none) and/or one
+    PDCCH at aggregation level ``al`` (in a 96-RB CORESET for AL 16), or
+    with ``many`` the many-UE slot's :func:`du_many_pdcchs`.
+    args = (grid, inputs, items): the payloads, SSB context and PDCCH
+    pilots (each [batch, ...] with a slot axis), and items(grid, inputs)
+    the PDUs as K27 takes them."""
+    lead = (batch,) if batch else ()
+    n = batch or 1
+
+    def bits(k):
+        return _up(rng.integers(0, 2, lead + (k,)).astype(np.int8), device)
+
+    g = _up(((rng.normal(size=lead + (4, 14, CELL.nof_sc))
+              + 1j * rng.normal(size=lead + (4, 14, CELL.nof_sc))) * 0.1
+             ).astype(np.complex64), device)
+    inputs = {}
+    if with_ssb:
+        inputs["mib"] = bits(MIB_BITS)
+        if ctx:
+            pairs = [ssb.slot_ctx_for(dataclasses.replace(SSB, sfn=s))
+                     for s in range(n)]
+            for j, key in enumerate(("static", "mask")):
+                inputs[key] = _up(np.stack([p[j] for p in pairs]) if batch
+                                  else pairs[0][j], device)
+    cfgs = ()
+    if many:
+        cfgs = du_many_pdcchs()
+    elif al:
+        coreset = dataclasses.replace(CORESET, nof_rb=96 if al == 16 else 48)
+        cfgs = (dataclasses.replace(PDCCH, coreset=coreset,
+                                    aggregation_level=al),)
+    for j, cfg in enumerate(cfgs):
+        inputs[f"dci{j}"] = bits(cfg.payload_bits)
+        pil = _up(np.stack([pdcch.dmrs_values_for(dataclasses.replace(
+            cfg, slot_in_frame=s)) for s in range(n)]), device)
+        inputs[f"pilots{j}"] = pil if batch else pil[0]
+
+    def items(grid, inp):
+        out = []
+        if "mib" in inp:
+            sctx = (inp["static"], inp["mask"]) if "static" in inp else None
+            out.append(ssb.control_item(grid, SSB, inp["mib"], sctx))
+        out += [pdcch.control_item(grid, inp[f"dci{j}"], cfg,
+                                   dmrs_cinits=inp[f"pilots{j}"])
+                for j, cfg in enumerate(cfgs)]
+        return out
+
+    def kernel(grid, inp, items):
+        grid = grid.clone()
+        return dl_control.control_map(grid, items(grid, inp))
+
+    def ref(grid, inp, items):
+        grid = grid.clone()
+        for it in items(grid, inp):
+            it.ref(grid)
+        return grid
+
+    return kernel, ref, (g, inputs, items)
+
+
+def du_slot_of(name: str, args: tuple, b: int) -> tuple:
+    """Slot ``b``'s B = 1 arguments of a "<name>_b4" case of
+    :func:`du_kernel_cases`."""
+    if name.startswith("rs_map"):
+        grid, items, values = args
+        return grid[b], items, tuple(v[b] for v in values)
+    if name.startswith("dmrs_map"):
+        return (args[0][b], args[1][b]) + args[2:]
+    grid, inputs, items = args
+    return grid[b], {k: v[b] for k, v in inputs.items()}, items

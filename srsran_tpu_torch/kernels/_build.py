@@ -34,6 +34,35 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _D = ctypes.c_double
+_L = ctypes.c_longlong
+
+RS_MAX_SOURCES = 32        # csrc/dl_rs_map.cu kMaxSources
+CONTROL_MAX_PDUS = 16      # csrc/dl_control_map.cu kMaxPdus
+
+
+class RsSources(ctypes.Structure):
+    """csrc/dl_rs_map.cu's RsSources (K25's value sources), by value."""
+
+    _fields_ = [("ptr", _P * RS_MAX_SOURCES),
+                ("stride", _L * RS_MAX_SOURCES)]
+
+
+class ControlPdu(ctypes.Structure):
+    """csrc/dl_control_map.cu's ControlPdu (one PDCCH or SSB of K27)."""
+
+    _fields_ = [("bits0", _P), ("bits1", _P), ("bits2", _P), ("pilots", _P),
+                ("rows", _P), ("offset", _P), ("index", _P), ("base", _P),
+                ("stride0", _L), ("stride1", _L), ("stride2", _L),
+                ("pilot_stride", _L), ("n0", _I), ("n1", _I), ("words", _I),
+                ("nd", _I), ("l0", _I), ("sc0", _I), ("h", _I), ("w", _I),
+                ("all_ports", _I), ("amplitude", _F)]
+
+
+class ControlArgs(ctypes.Structure):
+    """csrc/dl_control_map.cu's ControlArgs (a DL slot's K27 launch)."""
+
+    _fields_ = [("pdu", ControlPdu * CONTROL_MAX_PDUS),
+                ("group_start", _I * (CONTROL_MAX_PDUS + 1)), ("qpsk", _F)]
 
 # C entry points and their argument types (see the matching .cu file).
 SIGNATURES = {
@@ -85,6 +114,10 @@ SIGNATURES = {
     "srsran_bfp_decompress_sections": [_P, _I, _P, _I, _I, _I, _I, _P,
                                        _P],
     "srsran_bfp_decompress": [_P, _P, _I, _P, _P],
+    "srsran_rs_map": [RsSources, _P, _P, _P, _P, _P, _I, _P, _L, _I, _P],
+    "srsran_dmrs_map": [_P, _L, _I, _P, _I, _I, _I, _P, _L, _I, _I, _I, _P,
+                        _I, _I, _I, _I, _P],
+    "srsran_control_map": [ControlArgs, _I, _P, _I, _I, _I, _L, _I, _P],
 }
 
 

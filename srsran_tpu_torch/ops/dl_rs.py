@@ -1,0 +1,308 @@
+"""DL reference-signal maps: K25 (NZP-CSI-RS, PT-RS, PRS) and K26 (the DL
+DM-RS), both in csrc/dl_rs_map.cu.
+
+K25, :func:`rs_map`.  The JAX package adds each RS PDU with its own
+scatter-adds (srsran_tpu/phy/upper/csi_rs.py::process :219,
+ptrs_prs.py::map_ptrs :94 and map_prs :170).  The port describes every RS
+PDU of a slot as *blocks* -- (port, symbol, subcarriers, value indices,
+weight) in the JAX package's emit order -- and builds from them, once per
+plan key, one list grouped by target RE (:func:`rs_plan`): each target's
+flat grid offset and its terms (value source, value index, complex
+weight).  One launch adds every PDU's values (one for every 32 PDUs);
+the plain twin :func:`rs_map_ref` adds the same terms rank by rank with
+products and sums rounded one by one, as the kernel rounds them.
+
+K26, :func:`dmrs_map`.  srsran_tpu/phy/upper/dmrs.py::map_to_grid (:198)
+adds the type-1 DM-RS of each layer, precoded by the port's matrix or by
+the RE's PRG matrix; the kernel does it for every layer, symbol and port in
+one launch, and :func:`dmrs_map_ref` is its twin.
+
+On CPU tensors both run their twins; on CUDA tensors they launch their
+kernel or raise.  Both take a leading slot axis on the grid (the
+slot-batch mode), with each value source, pilot set and matrix either
+shared or stacked per slot.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from .. import kernels
+from ..device import const, is_cuda
+from ..kernels import _build
+
+KERNEL_RS = kernels.register(kernels.Kernel(
+    name="rs_map", route="cuda", source="srsran_tpu_torch/csrc/dl_rs_map.cu",
+    replaces="srsran_tpu/phy/upper/csi_rs.py:219"))
+KERNEL_DMRS = kernels.register(kernels.Kernel(
+    name="dmrs_map", route="cuda",
+    source="srsran_tpu_torch/csrc/dl_rs_map.cu",
+    replaces="srsran_tpu/phy/upper/dmrs.py:198"))
+
+_MAX_LAYERS = 4
+
+
+# ------------------------------------------------------------------ K25
+
+@functools.lru_cache(maxsize=256)
+def rs_plan(items: tuple, shape: tuple) -> dict:
+    """The target-grouped plan of a slot's RS PDUs on a [P, S, K] grid.
+
+    items: ((blocks_fn, args), ...), one per value source, in the order
+    the JAX slot program adds them; ``blocks_fn(*args)`` returns
+    (value_shape, blocks), each block (port, symbol, subcarriers, value
+    indices, weight) in emit order.  Returns numpy arrays: ``tgt`` int64
+    [T] flat offsets, ``start`` int32 [T + 1], per term ``src`` and ``idx``
+    int32 [N] and ``w`` complex64 [N]; ``shapes`` the value shapes; and
+    ``ranks``, for the twin, (targets, terms) of every term rank.
+    """
+    p_n, s_n, k_n = shape
+    terms: dict = {}
+    shapes = []
+    for s, (fn, args) in enumerate(items):
+        value_shape, blocks = fn(*args)
+        shapes.append(tuple(value_shape))
+        for port, symbol, scs, idxs, weight in blocks:
+            if not (0 <= port < p_n and 0 <= symbol < s_n):
+                raise ValueError(f"RS target port {port} symbol {symbol} "
+                                 f"outside a {shape} grid")
+            scs = np.asarray(scs, np.int64)
+            if scs.size and (scs.min() < 0 or scs.max() >= k_n):
+                raise ValueError(f"RS subcarriers outside {k_n}")
+            base = (port * s_n + symbol) * k_n
+            for k, i in zip(scs.tolist(), np.asarray(idxs).tolist()):
+                terms.setdefault(base + k, []).append((s, i, weight))
+    tgt = np.fromiter(terms, np.int64, len(terms))
+    counts = np.array([len(v) for v in terms.values()], np.int64)
+    start = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    flat = [t for v in terms.values() for t in v]
+    src = np.array([t[0] for t in flat], np.int32)
+    idx = np.array([t[1] for t in flat], np.int32)
+    w = np.array([t[2] for t in flat], np.complex64)
+    ranks = []
+    for r in range(int(counts.max()) if counts.size else 0):
+        sel = np.nonzero(counts > r)[0]
+        ranks.append((sel, start[sel].astype(np.int64) + r))
+    return dict(tgt=tgt, start=start, src=src, idx=idx, w=w,
+                shapes=tuple(shapes), ranks=tuple(ranks))
+
+
+def _plan_array(items: tuple, shape: tuple, name: str) -> np.ndarray:
+    a = rs_plan(items, shape)[name]
+    return a.view(np.float32).reshape(-1, 2) if name == "w" else a
+
+
+def _sources(values, shapes: tuple, lead: tuple) -> list:
+    """Each value source as (tensor, per-slot stride in complex values)."""
+    if len(values) != len(shapes):
+        raise ValueError(f"{len(values)} value sources for {len(shapes)} "
+                         f"RS PDUs")
+    out = []
+    for v, shape in zip(values, shapes):
+        if v.dtype != torch.complex64:
+            raise ValueError(f"RS values must be complex64, got {v.dtype}")
+        if tuple(v.shape) == shape:
+            out.append((v.contiguous(), 0))
+        elif lead and tuple(v.shape) == lead + shape:
+            out.append((v.contiguous(), int(np.prod(shape))))
+        else:
+            raise ValueError(f"RS values {tuple(v.shape)} vs {shape} (slot "
+                             f"axis {lead})")
+    return out
+
+
+def rs_map_ref(grid: torch.Tensor, items: tuple, values) -> torch.Tensor:
+    """Plain twin of :func:`rs_map`: every target's terms added rank by
+    rank, each product and sum rounded on its own (the kernel's order)."""
+    lead = tuple(grid.shape[:-3])
+    plan = rs_plan(items, tuple(grid.shape[-3:]))
+    srcs = _sources(values, plan["shapes"], lead)
+    if not plan["ranks"]:
+        return grid
+    nb = int(np.prod(lead)) if lead else 1
+    dev = grid.device
+    flat = grid.view(nb, -1)
+    vals = torch.cat([(v.reshape(nb, -1) if stride else
+                       v.reshape(1, -1).expand(nb, -1)) for v, stride in srcs],
+                     dim=1)
+    base = np.concatenate([[0], np.cumsum([int(np.prod(s))
+                                           for s in plan["shapes"]])])
+    gidx = torch.as_tensor(base[plan["src"]] + plan["idx"]).to(dev)
+    w = torch.as_tensor(plan["w"]).to(dev)
+    tgt = torch.as_tensor(plan["tgt"]).to(dev)
+    acc = flat[:, tgt]
+    ar, ai = acc.real.contiguous(), acc.imag.contiguous()
+    for sel, js in plan["ranks"]:
+        sel_t = torch.as_tensor(sel).to(dev)
+        js_t = torch.as_tensor(js).to(dev)
+        v = vals[:, gidx[js_t]]
+        wr, wi = w[js_t].real, w[js_t].imag
+        vr, vi = v.real, v.imag
+        ar[:, sel_t] = ar[:, sel_t] + (vr * wr - vi * wi)
+        ai[:, sel_t] = ai[:, sel_t] + (vr * wi + vi * wr)
+    flat[:, tgt] = torch.complex(ar, ai)
+    return grid
+
+
+def rs_map(grid: torch.Tensor, items: tuple, values) -> torch.Tensor:
+    """Add a slot's RS PDUs to the grid (in place); returns the grid.
+
+    grid complex64 [P, S, K], or [B, P, S, K] for B slots; items the RS
+    PDUs' block functions and arguments (:func:`rs_plan`); values one
+    complex64 tensor per item, of the item's value shape or with the
+    slot axis in front.  One launch for every RS_MAX_SOURCES PDUs (the
+    launch's table of value sources; a slot of up to 32 RS PDUs takes
+    one): a target's terms follow the PDUs' order, so launches in that
+    order add them as one launch would.
+    """
+    if not is_cuda(grid, *values):
+        return rs_map_ref(grid, items, values)
+    lead = tuple(grid.shape[:-3])
+    if grid.dtype != torch.complex64 or not grid.is_contiguous() or len(lead) > 1:
+        raise ValueError("the grid must be contiguous complex64 [(B,) P, S, K]")
+    if len(items) != len(values):
+        raise ValueError(f"{len(values)} value sources for {len(items)} "
+                         f"RS PDUs")
+    n = _build.RS_MAX_SOURCES
+    for c in range(0, len(items), n):
+        _rs_launch(grid, tuple(items[c:c + n]), tuple(values[c:c + n]), lead)
+    return grid
+
+
+def _rs_launch(grid: torch.Tensor, items: tuple, values: tuple,
+               lead: tuple) -> None:
+    """One K25 launch for at most RS_MAX_SOURCES PDUs."""
+    shape = tuple(grid.shape[-3:])
+    plan = rs_plan(items, shape)
+    srcs = _sources(values, plan["shapes"], lead)
+    if not plan["tgt"].size:
+        return
+    dev = grid.device
+    arrays = [const(_plan_array, items, shape, name, device=dev)
+              for name in ("tgt", "start", "src", "idx", "w")]
+    s = _build.RsSources()
+    for i, (v, stride) in enumerate(srcs):
+        s.ptr[i] = v.data_ptr()
+        s.stride[i] = stride
+    lib = _build.load()
+    _build.check(lib.srsran_rs_map(
+        s, *[_build.ptr(a) for a in arrays], int(plan["tgt"].size),
+        _build.ptr(torch.view_as_real(grid)),
+        ctypes.c_longlong(int(np.prod(shape))), lead[0] if lead else 1,
+        _build.stream_of(grid)), "rs_map")
+    KERNEL_RS.count()
+
+
+# ------------------------------------------------------------------ K26
+
+def _check_dmrs(ports: tuple, symbols: tuple) -> None:
+    if not 1 <= len(ports) <= _MAX_LAYERS or not set(ports) <= {0, 1, 2, 3}:
+        raise ValueError(f"DM-RS ports {ports} (type 1, ports 0..3)")
+    if not 1 <= len(symbols) <= 4:
+        raise ValueError(f"{len(symbols)} DM-RS symbols (the kernel takes 1..4)")
+
+
+@functools.lru_cache(maxsize=None)
+def _comb(rb_start: int, rb_count: int, delta: int) -> np.ndarray:
+    return (rb_start * 12 + 2 * np.arange(6 * rb_count) + delta).astype(np.int64)
+
+
+@functools.lru_cache(maxsize=None)
+def _cover(port: int, nsym: int, npil: int) -> np.ndarray:
+    """float32 [nsym, npil]: w_f (-1 on odd pilots for ports 1 and 3) times
+    w_t (+1 for ports 0-3)."""
+    wf = np.where((np.arange(npil) % 2 == 1) & (port % 2 == 1), -1.0, 1.0)
+    return np.broadcast_to(wf, (nsym, npil)).astype(np.float32)
+
+
+def dmrs_map_ref(grid: torch.Tensor, pilots: torch.Tensor, w, ports: tuple,
+                 symbols: tuple, rb_start: int, rb_count: int,
+                 prg_size: int = 0) -> torch.Tensor:
+    """Plain twin of :func:`dmrs_map`: layer after layer, as the JAX
+    package adds them, with the precoder's products and sums rounded one by
+    one in the kernel's order."""
+    _check_dmrs(ports, symbols)
+    dev = grid.device
+    nsym, npil = pilots.shape[-2:]
+    for li, port in enumerate(ports):
+        sc = const(_comb, rb_start, rb_count, port >> 1, device=dev)
+        p_l = pilots * const(_cover, port, nsym, npil, device=dev)
+        if w is None:
+            for si, l in enumerate(symbols):
+                grid[..., li, l, sc] += p_l[..., si, :]
+            continue
+        if prg_size:
+            prg = sc // 12 // prg_size - rb_start // prg_size
+            wl = w[..., li][..., prg, :].transpose(-1, -2)  # [(B,) P, K]
+        else:
+            wl = w[..., :, li, None]                        # [(B,) P, 1]
+        wr, wi = wl.real, wl.imag
+        for si, l in enumerate(symbols):
+            x = p_l[..., si, :].unsqueeze(-2)               # [(B,) 1, K]
+            xr, xi = x.real, x.imag
+            t = torch.complex(wr * xr - wi * xi, wr * xi + wi * xr)
+            grid[..., :, l, sc] += t
+    return grid
+
+
+def dmrs_map(grid: torch.Tensor, pilots: torch.Tensor, w, ports: tuple,
+             symbols: tuple, rb_start: int, rb_count: int,
+             prg_size: int = 0) -> torch.Tensor:
+    """Add the DL DM-RS of every layer into the grid (in place).
+
+    grid complex64 [P, S, K] (or [B, P, S, K]); pilots the base QPSK
+    sequences complex64 [nsym, 6 * rb_count] (or [B, ...]); w None (layer
+    l on port l), a [P, L] matrix, or with ``prg_size`` > 0 a [G, P, L]
+    table of the allocation's PRGs from the one holding PRB ``rb_start``
+    (each shared or [B, ...]); ports the layers' DM-RS ports (type 1, 0..3);
+    symbols the DM-RS symbols.  Returns the grid.
+    """
+    tensors = (grid, pilots) + ((w,) if w is not None else ())
+    if not is_cuda(*tensors):
+        return dmrs_map_ref(grid, pilots, w, ports, symbols, rb_start,
+                            rb_count, prg_size)
+    _check_dmrs(ports, symbols)
+    lead = tuple(grid.shape[:-3])
+    p, s, k = grid.shape[-3:]
+    npil = 6 * rb_count
+    n_l = len(ports)
+    if (grid.dtype != torch.complex64 or not grid.is_contiguous()
+            or len(lead) > 1 or pilots.dtype != torch.complex64
+            or pilots.shape[-2:] != (len(symbols), npil)
+            or tuple(pilots.shape[:-2]) not in ((), lead)):
+        raise ValueError(f"DM-RS map: grid {tuple(grid.shape)}, pilots "
+                         f"{tuple(pilots.shape)} vs {len(symbols)} symbols "
+                         f"x {npil}")
+    w_ptr, w_stride = None, 0
+    if w is not None:
+        table = 1 if prg_size else 0
+        w_lead = tuple(w.shape[:w.ndim - 2 - table])
+        if (w.shape[-2:] != (p, n_l) or w_lead not in ((), lead)
+                or w.ndim < 2 + table):
+            raise ValueError(f"DM-RS precoder {tuple(w.shape)} vs {p} ports "
+                             f"x {n_l} layers (PRG size {prg_size})")
+        w = torch.view_as_real(w.to(torch.complex64).contiguous())
+        w_ptr = _build.ptr(w)
+        w_stride = w[0].numel() // 2 if w_lead else 0
+    pilots = pilots.contiguous()
+    sym = const(_symbols_array, tuple(symbols), device=grid.device)
+    lib = _build.load()
+    _build.check(lib.srsran_dmrs_map(
+        _build.ptr(torch.view_as_real(pilots)),
+        ctypes.c_longlong(len(symbols) * npil if pilots.ndim == 3 else 0),
+        npil, _build.ptr(sym), len(symbols),
+        sum(pt << (8 * i) for i, pt in enumerate(ports)), n_l, w_ptr,
+        ctypes.c_longlong(w_stride), prg_size,
+        rb_start // prg_size if prg_size else 0, rb_start,
+        _build.ptr(torch.view_as_real(grid)), p, s, k,
+        lead[0] if lead else 1, _build.stream_of(grid)), "dmrs_map")
+    KERNEL_DMRS.count()
+    return grid
+
+
+def _symbols_array(symbols: tuple) -> np.ndarray:
+    return np.asarray(symbols, np.int32)

@@ -64,7 +64,7 @@ def _check_n_ref(n_ref: int, n: int) -> None:
     if n_ref and n_ref < n:
         raise NotImplementedError(
             "limited-buffer rate matching (n_ref < N) is not ported yet "
-            "(ROADMAP §1 item 13)")
+            "(ROADMAP §1 item 13b)")
 
 
 def rate_match_batch(codewords: torch.Tensor, e_sizes, rv: int, qm: int,

@@ -22,8 +22,9 @@ Given a leading slot axis on every input, both programs run B slots of
 one plan at once (the JAX package's ``jax.vmap`` of the slot programs, for
 the conductor's slot-batch mode and the multi-cell programs), with the
 slot context stacked by :func:`stack_ctx`.  The PDSCH and PUSCH chains and
-the OFDM passes (K1-K8), SSB and PDCCH run once for all B slots; the PUCCH
-formats, SRS and PRACH once per slot on that slot's grid.
+the OFDM passes (K1-K8), SSB and PDCCH (K27), the DL DM-RS (K26) and the
+RS PDUs (K25) run once for all B slots; the PUCCH formats, SRS and PRACH
+once per slot on that slot's grid.
 """
 
 from __future__ import annotations
@@ -33,11 +34,14 @@ import functools
 
 import torch
 
+from ..device import resolve
 from ..ran.cyclic_prefix import CyclicPrefix, slot_num_samples
-from ..ops import ofdm
+from ..ops import dl_control, dl_rs, ofdm
+from .upper import csi_rs as csi_rs_mod
 from .upper import pdcch as pdcch_mod
 from .upper import pdsch as pdsch_mod
 from .upper import prach as prach_mod
+from .upper import ptrs_prs as ptrs_prs_mod
 from .upper import pucch as pucch_mod
 from .upper import pusch as pusch_mod
 from .upper import srs as srs_mod
@@ -73,23 +77,25 @@ def _check_cell(cell: CellConfig) -> None:
             "the cbf16 grid is not ported (ROADMAP §1, do-not-port list)")
 
 
-def _unsupported(kind: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{kind} in a slot plan is not ported yet (ROADMAP §1 {item})")
-
-
 # ----------------------------------------------------------------- DL slot
 
-def _payload_device(*groups) -> torch.device:
-    """The one device of a DL slot's payload tensors; raises when they lie
-    on different devices or when there are none (the program never picks
-    a device of its own)."""
+def _dl_device(device, *groups) -> torch.device:
+    """The DL slot's device: the caller's (the conductor names its own), or
+    else the one device of the payload tensors.  Raises when the payloads
+    lie on different devices, or when there are none and the caller named
+    no device (the program never picks a device of its own)."""
     devices = {t.device for group in groups for t in group}
     if len(devices) > 1:
         raise ValueError(f"DL payloads on different devices: "
                          f"{sorted(str(d) for d in devices)}")
+    if device is not None:
+        device = resolve(device)
+        if devices and devices != {device}:
+            raise ValueError(f"DL payloads on {devices.pop()}, program on "
+                             f"{device}")
+        return device
     if not devices:
-        raise ValueError("a DL slot without payloads has no device")
+        raise ValueError("a DL slot without payloads has no device: name one")
     return devices.pop()
 
 
@@ -148,61 +154,81 @@ def _dl_plan(cell: CellConfig, plan) -> tuple:
     _check_cell(cell)
     if len(plan) == 4:
         plan = plan + ((),)
-    _, _, pdsch_cfgs, csi_cfgs, prs_cfgs = plan
-    if csi_cfgs:
-        raise _unsupported("CSI-RS", "item 13")
-    if prs_cfgs:
-        raise _unsupported("PRS", "item 13")
-    for cfg in pdsch_cfgs:
+    for cfg in plan[2]:
         pdsch_mod.check_supported(cfg)
     return plan
-
-
-def _check_dl_ctx(ctx) -> None:
-    if ctx and any(v is not None for v in ctx.get("ptrs", ())):
-        raise _unsupported("slot context 'ptrs'", "item 13")
 
 
 def _dl_symbols(cell: CellConfig) -> int:
     return 14 if cell.cp is CyclicPrefix.NORMAL else 12
 
 
+def _ctx_entry(ctx, kind: str, n: int) -> tuple:
+    """ctx[kind], or n Nones without a context (or without that entry)."""
+    return tuple(ctx[kind]) if ctx and kind in ctx else (None,) * n
+
+
 def dl_slot_core(cell: CellConfig, plan, slot_in_subframe: int = 0):
-    """The DL slot program: SSB, then PDCCH, then PDSCH, then OFDM.
+    """The DL slot program: SSB and PDCCH, then PDSCH, then the RS PDUs
+    (the PDSCHs' PT-RS, CSI-RS, PRS), then OFDM.
 
     plan = (ssb_cfgs, pdcch_cfgs, pdsch_cfgs, csi_rs_cfgs[, prs_cfgs]).
-    Returned fn(ssb_mib, pdcch_payloads, pdsch_payloads, ctx=None) ->
-    (samples [P, T], grid [P, S, K]) on the device of the payloads.  ctx
-    (the conductor's slot context, convert.slot_context): ctx["ssb"][i] a
-    pair (static_bits, scramble_mask), ctx["pdcch"][i] and ctx["pdsch"][i]
-    DM-RS pilot values or host c_inits, ctx["pm"][i] the PDSCH's per-PRG
-    matrices [G, P, L] or None; its "ptrs" entries must be None (PT-RS is
-    not ported).
+    Returned fn(ssb_mib, pdcch_payloads, pdsch_payloads, ctx=None,
+    device=None, batch=None) -> (samples [P, T], grid [P, S, K]).  ctx (the
+    conductor's slot context, convert.slot_context): ctx["ssb"][i] a pair
+    (static_bits, scramble_mask), ctx["pdcch"][i] and ctx["pdsch"][i] DM-RS
+    pilot values or host c_inits, ctx["pm"][i] the PDSCH's per-PRG matrices
+    [G, P, L] or None, ctx["ptrs"][i] the PDSCH's PT-RS values, ctx["csi"]
+    [i] and ctx["prs"][i] the sequence values of each CSI-RS and PRS (or
+    host c_inits; None builds them from the config).  ``device``: the
+    program's device (the conductor passes its own; default the payloads',
+    and a slot without payloads needs it).  On the card every PDCCH and
+    SSB is one K27 launch and every RS PDU one K25 launch.
 
     B slots at once: every payload [B, bits] and a stacked slot context
     (:func:`stack_ctx`'s ctx; every DL step takes its leaves with or
-    without the slot axis) give samples [B, P, T] and grid [B, P, S, K].
+    without the slot axis) give samples [B, P, T] and grid [B, P, S, K];
+    ``batch`` names B where no payload carries the slot axis.
     """
-    ssb_cfgs, pdcch_cfgs, pdsch_cfgs, _, _ = _dl_plan(cell, plan)
+    ssb_cfgs, pdcch_cfgs, pdsch_cfgs, csi_cfgs, prs_cfgs = _dl_plan(cell, plan)
     nsym = _dl_symbols(cell)
 
-    def run(ssb_mib, pdcch_payloads, pdsch_payloads, ctx=None):
-        device = _payload_device(ssb_mib, pdcch_payloads, pdsch_payloads)
-        _check_dl_ctx(ctx)
-        lead = tuple(next(iter((*ssb_mib, *pdcch_payloads,
-                                *pdsch_payloads))).shape[:-1])
+    def run(ssb_mib, pdcch_payloads, pdsch_payloads, ctx=None, device=None,
+            batch=None):
+        device = _dl_device(device, ssb_mib, pdcch_payloads, pdsch_payloads)
+        payloads = (*ssb_mib, *pdcch_payloads, *pdsch_payloads)
+        lead = (tuple(payloads[0].shape[:-1]) if payloads
+                else () if batch is None else (batch,))
         grid = torch.zeros(lead + (cell.nof_ports, nsym, cell.nof_sc),
                            dtype=torch.complex64, device=device)
-        for i, (cfg, mib) in enumerate(zip(ssb_cfgs, ssb_mib)):
-            ssb_mod.map_ssb_to_grid(grid, cfg, mib, _ctx_leaf(ctx, "ssb", i))
-        for i, (cfg, bits) in enumerate(zip(pdcch_cfgs, pdcch_payloads)):
-            pdcch_mod.process(grid, bits, cfg,
-                              dmrs_cinits=_ctx_leaf(ctx, "pdcch", i))
-        for i, (cfg, bits) in enumerate(zip(pdsch_cfgs, pdsch_payloads)):
-            pm = ctx.get("pm", (None,) * len(pdsch_cfgs))[i] if ctx else None
-            pdsch_mod.process(grid, bits, cfg,
-                              dmrs_cinits=_ctx_leaf(ctx, "pdsch", i),
+        ssb_ctx = _ctx_entry(ctx, "ssb", len(ssb_cfgs))
+        pdcch_ctx = _ctx_entry(ctx, "pdcch", len(pdcch_cfgs))
+        control = [ssb_mod.control_item(grid, cfg, mib, c)
+                   for cfg, mib, c in zip(ssb_cfgs, ssb_mib, ssb_ctx)]
+        control += [pdcch_mod.control_item(grid, bits, cfg, dmrs_cinits=c)
+                    for cfg, bits, c in zip(pdcch_cfgs, pdcch_payloads,
+                                            pdcch_ctx)]
+        dl_control.control_map(grid, control)                       # K27
+        pdsch_ctx = _ctx_entry(ctx, "pdsch", len(pdsch_cfgs))
+        pm_ctx = _ctx_entry(ctx, "pm", len(pdsch_cfgs))
+        ptrs_ctx = _ctx_entry(ctx, "ptrs", len(pdsch_cfgs))
+        rs = []
+        for cfg, bits, ci, pm, pci in zip(pdsch_cfgs, pdsch_payloads,
+                                          pdsch_ctx, pm_ctx, ptrs_ctx):
+            pdsch_mod.process(grid, bits, cfg, dmrs_cinits=ci,
                               pm_matrices=pm)
+            if cfg.ptrs is not None:
+                rs.append(ptrs_prs_mod.ptrs_item(
+                    pdsch_mod.ptrs_config(cfg), pci, device=device))
+        rs += [csi_rs_mod.csi_item(cfg, cell.nof_ports, c, device=device)
+               for cfg, c in zip(csi_cfgs,
+                                 _ctx_entry(ctx, "csi", len(csi_cfgs)))]
+        rs += [ptrs_prs_mod.prs_item(cfg, c, device=device)
+               for cfg, c in zip(prs_cfgs,
+                                 _ctx_entry(ctx, "prs", len(prs_cfgs)))]
+        if rs:
+            dl_rs.rs_map(grid, tuple(i for i, _ in rs),             # K25
+                         tuple(v for _, v in rs))
         samples = ofdm.modulate_slot(
             grid, cell.dft_size, cell.numerology, cell.cp, slot_in_subframe,
             cell.center_freq_hz, cell.tx_scale)
@@ -223,8 +249,8 @@ def dl_slot_fn_samples(cell: CellConfig, plan, slot_in_subframe: int = 0):
     needs no grid)."""
     core = dl_slot_core(cell, plan, slot_in_subframe)
 
-    def run(ssb_mib, pdcch_payloads, pdsch_payloads, ctx=None):
-        return core(ssb_mib, pdcch_payloads, pdsch_payloads, ctx)[0]
+    def run(ssb_mib, pdcch_payloads, pdsch_payloads, ctx=None, device=None):
+        return core(ssb_mib, pdcch_payloads, pdsch_payloads, ctx, device)[0]
 
     return run
 

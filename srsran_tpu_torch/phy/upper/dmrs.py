@@ -4,7 +4,8 @@ Port of srsran_tpu/phy/upper/dmrs.py for contiguous type-1 allocations:
 QPSK Gold pilots on a comb with per-port frequency/time covers.  Pilot
 base sequences are built on the host (:func:`pilot_values_for`) and
 uploaded; the slot programs take either those values (the conductor's
-slot context) or per-symbol c_init seeds.
+slot context) or per-symbol c_init seeds.  The grid map runs as K26
+(ops/dl_rs.py::dmrs_map) on the card.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from ...device import const
+from ...ops import dl_rs
 from ...ops.gold import gold_sequence_np
 from ...ops.modulation import qpsk_np
 
@@ -49,11 +51,11 @@ class DmrsConfig:
 def _check_supported(cfg: DmrsConfig) -> None:
     if cfg.config_type != 1:
         raise NotImplementedError(
-            "DM-RS type 2 is not ported yet (ROADMAP §1 item 13)")
+            "DM-RS type 2 is not ported yet (ROADMAP §1 item 13b)")
     if cfg.prbs is not None:
         raise NotImplementedError(
             "non-contiguous (RA type 0) DM-RS is not ported yet "
-            "(ROADMAP §1 item 13)")
+            "(ROADMAP §1 item 13b)")
 
 
 def _c_init(scrambling_id: int, n_scid: int, slot_in_frame: int,
@@ -101,10 +103,6 @@ def _type1_sc_indices(rb_start: int, rb_count: int, delta: int,
     return (rb_start * 12 + 2 * base + delta).astype(np.int32)
 
 
-def _sc_long(rb_start: int, rb_count: int, delta: int) -> np.ndarray:
-    return _type1_sc_indices(rb_start, rb_count, delta).astype(np.int64)
-
-
 @functools.lru_cache(maxsize=None)
 def _cover(port: int, nsym: int, npil: int) -> np.ndarray:
     """float32 [nsym, npil]: w_f over the comb pair times w_t per symbol."""
@@ -131,54 +129,56 @@ def pilots_for_port(cfg: DmrsConfig, port: int, c_inits=None, *,
     its device wins over ``device``), or [B, nsym, npilot] for B slots at
     once.  ``device`` has no default: the pilots go where the caller says.
     """
-    _check_supported(cfg)
-    if _is_values(c_inits):
-        vals = c_inits
-    elif c_inits is None:
-        vals = const(pilot_values_for, cfg, device=device)
-    else:
-        if isinstance(c_inits, torch.Tensor):
-            if c_inits.device.type != "cpu":
-                raise ValueError(
-                    "DM-RS c_init seeds must stay on the host (got a "
-                    f"{c_inits.device.type} tensor); pass pilot values to "
-                    "run from the device")
-            c_inits = c_inits.numpy()
-        seeds = tuple(int(c) for c in np.asarray(c_inits).reshape(-1))
-        vals = const(_values_from_cinits, cfg, seeds, device=device)
+    vals = base_values(cfg, c_inits, device=device)
     cover = const(_cover, port, vals.shape[-2], vals.shape[-1],
                   device=vals.device)
     return vals * cover
 
 
+def base_values(cfg: DmrsConfig, c_inits=None, *,
+                device: torch.device | str) -> torch.Tensor:
+    """The base QPSK pilot sequences [nsym, 6*rb_count] (no covers), from
+    the same sources as :func:`pilots_for_port`: the config, host c_init
+    seeds, or pilot VALUES ([nsym, npilot] or [B, nsym, npilot], as given)."""
+    _check_supported(cfg)
+    if _is_values(c_inits):
+        return c_inits
+    if c_inits is None:
+        return const(pilot_values_for, cfg, device=device)
+    if isinstance(c_inits, torch.Tensor):
+        if c_inits.device.type != "cpu":
+            raise ValueError(
+                "DM-RS c_init seeds must stay on the host (got a "
+                f"{c_inits.device.type} tensor); pass pilot values to run "
+                "from the device")
+        c_inits = c_inits.numpy()
+    seeds = tuple(int(c) for c in np.asarray(c_inits).reshape(-1))
+    return const(_values_from_cinits, cfg, seeds, device=device)
+
+
 def map_to_grid(grid: torch.Tensor, cfg: DmrsConfig,
                 precoding: np.ndarray | torch.Tensor | None = None,
                 c_inits=None, prg_matrices=None,
-                prg_of_sc=None) -> torch.Tensor:
-    """Add DM-RS for all ports into a [P, nsym, nsc] grid, in place.
+                prg_size: int = 0) -> torch.Tensor:
+    """Add DM-RS for all ports into a [P, nsym, nsc] grid, in place (K26,
+    ops/dl_rs.py::dmrs_map; its twin on CPU tensors).
 
     With ``precoding`` [P, L] (a host array, or a tensor on the grid's
-    device) the per-layer pilots are precoded like data.  With
-    ``prg_matrices`` [G, P, L] (on the grid's device) and ``prg_of_sc``
-    (subcarrier indices -> PRG index) each pilot is precoded with its
-    PRG's matrix, as the data is (JAX dmrs.py:222-226).
+    device) the per-layer pilots are precoded like data; without it layer
+    l goes to port l.  With ``prg_matrices`` [G, P, L] (on the grid's
+    device) and ``prg_size`` each pilot is precoded with its PRG's matrix,
+    PRG boundaries aligned to CRB 0, as the data is (JAX dmrs.py:222-226).
+    A leading slot axis on the grid ([B, P, nsym, nsc]) maps B slots in one
+    launch, with the pilot values and matrices shared or [B, ...].
     """
+    _check_supported(cfg)
     dev = grid.device
     if precoding is not None and not isinstance(precoding, torch.Tensor):
         precoding = torch.as_tensor(np.asarray(precoding)).to(dev)
-    for li, dmrs_port in enumerate(cfg.ports):
-        delta = TYPE1_PORT_CONFIG[dmrs_port][0]
-        sc = const(_sc_long, cfg.rb_start, cfg.rb_count, delta, device=dev)
-        pilots = pilots_for_port(cfg, dmrs_port, c_inits, device=dev)
-        if prg_matrices is not None:
-            w = prg_matrices.to(grid.dtype)[prg_of_sc(sc)][:, :, li]  # [K, P]
-            for si, l in enumerate(cfg.symbols):
-                grid[:, l, sc] += w.T * pilots[si][None, :]
-        elif precoding is None:
-            for si, l in enumerate(cfg.symbols):
-                grid[li, l, sc] += pilots[si]
-        else:
-            w = precoding[:, li].to(grid.dtype)
-            for si, l in enumerate(cfg.symbols):
-                grid[:, l, sc] += w[:, None] * pilots[si][None, :]
-    return grid
+    w = prg_matrices if prg_matrices is not None else precoding
+    if w is not None:
+        w = w.to(torch.complex64)
+    vals = base_values(cfg, c_inits, device=dev)
+    return dl_rs.dmrs_map(grid, vals, w, tuple(cfg.ports), tuple(cfg.symbols),
+                          cfg.rb_start, cfg.rb_count,
+                          prg_size if prg_matrices is not None else 0)

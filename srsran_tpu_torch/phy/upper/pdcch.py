@@ -3,11 +3,12 @@
 Port of srsran_tpu/phy/upper/pdcch.py (transmit side).  The whole §7.3 DCI
 bit chain -- CRC24C with leading ones and RNTI masking, polar allocate /
 encode / rate match, Gold scrambling -- is one host-built GF(2) affine map,
-``encoded = payload @ M ^ const``.  On the device that is a float32 product
-over 0/1 values reduced mod 2 (exact: every sum is at most A <= 140), as
-ops/crc.py computes its CRCs.  QPSK, the DM-RS pilots and the candidate's
-REs are gathered into a dense [duration, CORESET width] patch that is added
-to port 0 of the grid.  The step-by-step encoder and the receive side wait
+``encoded = payload @ M ^ const``.  On the card it runs with QPSK and the
+patch add as K27 (ops/dl_control.py::control_map), the map stored by output
+bit and bit-packed; the plain twin (:func:`process_ref`, the CPU path) is
+a float32 product over 0/1 values reduced mod 2 (exact: every sum is at
+most A <= 140), QPSK, and the dense [duration, CORESET width] patch of
+QPSK symbols and DM-RS pilots added to port 0 of the grid.  The step-by-step encoder and the receive side wait
 for the device polar chain (ROADMAP §1 item 13).
 """
 
@@ -22,6 +23,7 @@ import torch
 from ...ops.gf2 import gf2_matmul
 from ...ran import polar_params
 from ...device import const
+from ...ops import dl_control
 from ...ops import polar as polar_ops
 from ...ops.crc import _remainder_matrix
 from ...ops.gold import gold_sequence_np
@@ -240,14 +242,52 @@ def _dmrs_values(cfg: PdcchConfig, cinits, device) -> torch.Tensor:
     return const(_values_from_cinits, cfg, seeds, device=device)
 
 
+def _dci_rows(*key) -> np.ndarray:
+    """K27's form of the fused map: M by output bit, 32 bits to a word."""
+    return dl_control.pack_rows(_fused_dci_maps(*key)[0])
+
+
+def _patch_index32(coreset: CoresetConfig, cce_index: int,
+                   aggregation_level: int) -> np.ndarray:
+    return _patch_plan(coreset, cce_index, aggregation_level)[0]
+
+
+def control_item(grid: torch.Tensor, payload: torch.Tensor, cfg: PdcchConfig,
+                 amplitude: float = 1.0,
+                 dmrs_cinits=None) -> dl_control.ControlItem:
+    """This DCI as one PDU of K27 (ops/dl_control.py::control_map)."""
+    dev = grid.device
+    e = BITS_PER_CCE * cfg.aggregation_level
+    key = (cfg.payload_bits, e, cfg.rnti, cfg.n_rnti, cfg.n_id_data)
+    _, l0, sc0, dur, width = _patch_plan(cfg.coreset, cfg.cce_index,
+                                         cfg.aggregation_level)
+    return dl_control.ControlItem(
+        rows=const(_dci_rows, *key, device=dev),
+        offset=const(_dci_map, 1, *key, device=dev),
+        index=const(_patch_index32, cfg.coreset, cfg.cce_index,
+                    cfg.aggregation_level, device=dev),
+        base=None, l0=l0, sc0=sc0, h=dur, w=width, all_ports=False,
+        nd=e // 2, amplitude=amplitude, bits=(payload,),
+        pilots=_dmrs_values(cfg, dmrs_cinits, dev),
+        ref=lambda g: process_ref(g, payload, cfg, amplitude, dmrs_cinits))
+
+
 def process(grid: torch.Tensor, payload: torch.Tensor, cfg: PdcchConfig,
             amplitude: float = 1.0, dmrs_cinits=None) -> torch.Tensor:
     """Encode + modulate + map one DCI, added into port 0 of the grid
-    [P, nsym, nsc] (in place).  payload: int [A] on the grid's device.
+    [P, nsym, nsc] (in place; K27 on the card, :func:`process_ref` on the
+    CPU).  payload: int [A] on the grid's device.  With a leading slot
+    axis -- grid [B, P, nsym, nsc], payload [B, A], pilot values [B, n] or
+    shared -- one launch maps the B slots."""
+    return dl_control.control_map(
+        grid, (control_item(grid, payload, cfg, amplitude, dmrs_cinits),))
 
-    With a leading slot axis -- grid [B, P, nsym, nsc], payload [B, A],
-    pilot values [B, n] or shared -- the GF(2) product and the map run
-    once for the B slots."""
+
+def process_ref(grid: torch.Tensor, payload: torch.Tensor, cfg: PdcchConfig,
+                amplitude: float = 1.0, dmrs_cinits=None) -> torch.Tensor:
+    """Plain twin of K27 for one DCI: the GF(2) map as a float32 product
+    over 0/1 values reduced mod 2 (exact: every sum is at most A <= 140),
+    QPSK, and the dense [duration, CORESET width] patch added to port 0."""
     dev = grid.device
     lead = tuple(payload.shape[:-1])
     e = BITS_PER_CCE * cfg.aggregation_level

@@ -4,11 +4,13 @@ Port of srsran_tpu/phy/upper/pdsch.py for contiguous allocations: TB CRC
 -> segmentation with CB CRC24B -> LDPC encode (K5, ops/ldpc_encode.py::
 dlsch_encode) -> rate match -> scramble -> modulate -> layer map ->
 precode -> grid add (K6, ops/dl_map.py::pdsch_map; K22, its per-PRG form,
-when the PDU carries a PrecodingConfig), then type-1 DM-RS (plain, precoded
-like the data).  On CPU tensors the kernels' plain
-twins run.  It is the flagship DL slot's PDSCH and also the UE-side test
-transmitter of the PUSCH receive path (the same chain blocks, as the JAX
-bench does).
+when the PDU carries a PrecodingConfig), then type-1 DM-RS precoded like
+the data (K26, ops/dl_rs.py::dmrs_map).  The data maps around the PT-RS
+REs; the PT-RS itself, unprecoded on its port, is the DL slot program's
+to map, with the slot's other RS PDUs in its one K25 launch
+(phy/slot_programs.py).  On CPU tensors the kernels' plain twins run.  It is the flagship DL slot's PDSCH
+and also the UE-side test transmitter of the PUSCH receive path (the same
+chain blocks, as the JAX bench does).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from ...ops import dl_map, ldpc_encode, ldpc_rate_match
 from ...ops.modulation import BITS_PER_SYMBOL
 from ...ops.precoding import identity_precoder
 from .dmrs import DmrsConfig, map_to_grid as map_dmrs
+from .ptrs_prs import PtrsConfig, ptrs_positions
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,13 +72,24 @@ class PdschConfig:
 
 
 def check_supported(cfg: PdschConfig) -> None:
-    """Raise for PDU options this slice does not port."""
-    if cfg.ptrs is not None:
-        raise NotImplementedError("PT-RS is not ported yet (ROADMAP §1 item 13)")
+    """Raise for PDU options the port does not run."""
     if cfg.prbs is not None or cfg.vrb_prb_interleaved:
         raise NotImplementedError(
             "RA type 0 / interleaved VRB allocations are not ported yet "
-            "(ROADMAP §1 item 13)")
+            "(ROADMAP §1 item 13b)")
+
+
+def ptrs_config(cfg: PdschConfig) -> PtrsConfig | None:
+    """The PDSCH's PT-RS (JAX pdsch.py:261-269), or None without PT-RS."""
+    if cfg.ptrs is None:
+        return None
+    return PtrsConfig(
+        rb_start=cfg.rb_start, rb_count=cfg.rb_count,
+        first_symbol=cfg.first_symbol, nof_symbols=cfg.nof_symbols,
+        dmrs_symbols=cfg.dmrs_symbols, time_density=cfg.ptrs.time_density,
+        freq_density=cfg.ptrs.freq_density, re_offset=cfg.ptrs.re_offset,
+        port=cfg.ptrs.port, scrambling_id=cfg.dmrs_scrambling_id,
+        n_scid=cfg.n_scid, slot_in_frame=cfg.slot_in_frame)
 
 
 @functools.lru_cache(maxsize=None)
@@ -85,9 +99,16 @@ def _data_re_plan(rb_start: int, rb_count: int, first_symbol: int,
                   prbs: tuple | None = None) -> np.ndarray:
     """(symbol, subcarrier) positions of data REs in mapping order:
     frequency-first within a symbol, symbols ascending; on DM-RS symbols the
-    CDM groups without data are excluded."""
+    CDM groups without data are excluded, and PT-RS REs (when configured)
+    on every layer -- data maps around them."""
+    ptrs_re = set()
     if ptrs is not None:
-        raise NotImplementedError("PT-RS is not ported yet (ROADMAP §1 item 13)")
+        pos = ptrs_positions(PtrsConfig(
+            rb_start=rb_start, rb_count=rb_count, first_symbol=first_symbol,
+            nof_symbols=nof_symbols, dmrs_symbols=dmrs_symbols,
+            time_density=ptrs.time_density, freq_density=ptrs.freq_density,
+            re_offset=ptrs.re_offset, port=ptrs.port))
+        ptrs_re = {(int(l), int(k)) for l, k in pos}
     out = []
     if prbs is not None:
         scs = np.concatenate([np.arange(p * 12, (p + 1) * 12)
@@ -99,22 +120,28 @@ def _data_re_plan(rb_start: int, rb_count: int, first_symbol: int,
         if l in dmrs_symbols:
             if reserved_cdm_groups >= 2:
                 continue
-            out.extend((l, int(k)) for k in scs[scs % 2 == 1])
+            keep = scs[scs % 2 == 1]
+            out.extend((l, int(k)) for k in keep
+                       if (l, int(k)) not in ptrs_re)
         else:
-            out.extend((l, int(k)) for k in scs)
+            out.extend((l, int(k)) for k in scs
+                       if (l, int(k)) not in ptrs_re)
     return np.array(out, dtype=np.int32)
 
 
 def data_re_plan_column(rb_start, rb_count, first_symbol, nof_symbols,
-                        dmrs_symbols, reserved_cdm_groups, col: int):
+                        dmrs_symbols, reserved_cdm_groups, ptrs, col: int):
     """One column of :func:`_data_re_plan` as int64 (0: symbol, 1: sc)."""
     return _data_re_plan(rb_start, rb_count, first_symbol, nof_symbols,
-                         dmrs_symbols, reserved_cdm_groups)[:, col].astype(np.int64)
+                         dmrs_symbols, reserved_cdm_groups,
+                         ptrs)[:, col].astype(np.int64)
 
 
 def plan_key(cfg) -> tuple:
+    """The data-RE plan's key (a PUSCH config has no PT-RS)."""
     return (cfg.rb_start, cfg.rb_count, cfg.first_symbol, cfg.nof_symbols,
-            tuple(cfg.dmrs_symbols), cfg.reserved_cdm_groups)
+            tuple(cfg.dmrs_symbols), cfg.reserved_cdm_groups,
+            getattr(cfg, "ptrs", None))
 
 
 def nof_data_re(cfg: PdschConfig) -> int:
@@ -177,14 +204,17 @@ def process(grid: torch.Tensor, payload_bits: torch.Tensor, cfg: PdschConfig,
     """Run the PDSCH chain into a [P, nsym, nsc] resource grid (in place).
 
     dmrs_cinits: optional per-DM-RS-symbol c_init seeds or pilot values
-    (slot context).  precoding: [P, L] matrix; default the identity mapping,
-    uploaded once per device.  pm_matrices: the per-PRG matrices [G, P, L]
-    when cfg.precoding is set (the conductor's "pm" slot context; default
-    resolved here through the codebook repository), so a PMI change is a
-    new context tensor, never a new program.  With a slot axis -- grid
-    [B, P, nsym, nsc], payload_bits [B, TBS], pilot values [B, nsym,
-    npilot] or shared, PRG matrices [B, G, P, L] or shared -- K5 and K6
-    run once for all slots and the DM-RS map once per slot.
+    (slot context).  precoding: [P, L] matrix; default the identity
+    mapping, uploaded once per device.
+    pm_matrices: the per-PRG matrices [G, P, L] when cfg.precoding is set
+    (the conductor's "pm" slot context; default resolved here through the
+    codebook repository), so a PMI change is a new context tensor, never a
+    new program.  The data maps around the PT-RS REs of ``cfg.ptrs``; the
+    PT-RS values are the DL slot program's to map (every RS of a slot in
+    one K25 launch, after the PDSCHs, in the JAX package's order).
+    With a slot axis -- grid [B, P, nsym, nsc], payload_bits [B, TBS], pilot
+    values [B, nsym, npilot] or shared, PRG matrices [B, G, P, L] or shared
+    -- K5, K6 and K26 run once for all slots.
     """
     check_supported(cfg)
     nof_ports = grid.shape[-3]
@@ -205,24 +235,10 @@ def process(grid: torch.Tensor, payload_bits: torch.Tensor, cfg: PdschConfig,
                                    segmentation(cfg).base_graph)
     dl_map.pdsch_map(*map_args(grid, cfg, cbs, w),                 # K6 / K22
                      prg_size=prg_size, rb_start=cfg.rb_start)
-    if grid.ndim == 3:
-        return _map_dmrs(grid, cfg, w, dmrs_cinits)
-    per_slot = isinstance(dmrs_cinits, torch.Tensor) and dmrs_cinits.ndim == 3
-    w_per_slot = w.ndim == (4 if prg_size else 3)
-    for b in range(grid.shape[0]):
-        _map_dmrs(grid[b], cfg, w[b] if w_per_slot else w,
-                  dmrs_cinits[b] if per_slot else dmrs_cinits)
+    map_dmrs(grid, dmrs_config(cfg), None if prg_size else w,     # K26
+             dmrs_cinits, prg_matrices=w if prg_size else None,
+             prg_size=prg_size)
     return grid
-
-
-def _map_dmrs(grid, cfg: PdschConfig, w, dmrs_cinits):
-    if cfg.precoding is None:
-        return map_dmrs(grid, dmrs_config(cfg), w, dmrs_cinits)
-    prg_size = cfg.precoding.prg_size
-    return map_dmrs(grid, dmrs_config(cfg), None, dmrs_cinits,
-                    prg_matrices=w,
-                    prg_of_sc=lambda sc: dl_map.prg_index_of_sc(
-                        sc, cfg.rb_start, prg_size))
 
 
 def identity(nof_ports: int, nof_layers: int, device) -> torch.Tensor:

@@ -4,9 +4,11 @@ Port of srsran_tpu/phy/upper/ssb.py (transmit side).  The SS/PBCH block
 (4 symbols x 240 subcarriers) is a host-constant base patch with PSS, SSS
 and the PBCH DM-RS, plus the 432 PBCH QPSK symbols.  The whole PBCH bit
 chain -- payload interleave, first scrambling, CRC24C, polar encode and
-rate match, second scrambling -- is one host-built GF(2) affine map; on the
-device it is a float32 product over 0/1 values reduced mod 2 (exact: every
-sum is at most 56).  The patch is added to every port of the grid.  The
+rate match, second scrambling -- is one host-built GF(2) affine map.  On
+the card the map, QPSK and the patch add run as K27
+(ops/dl_control.py::control_map); the plain twin (:func:`ssb_block_ref`,
+the CPU path) is a float32 product over 0/1 values reduced mod 2 (exact:
+every sum is at most 56).  The patch is added to every port of the grid.  The
 step-by-step ``pbch_encode`` / ``pbch_decode`` chain waits for the device
 polar encoder and decoder (ROADMAP §1 item 13).
 """
@@ -22,6 +24,7 @@ import torch
 from ...ops.gf2 import gf2_matmul
 from ...ran import polar_params
 from ...device import const
+from ...ops import dl_control
 from ...ops import polar as polar_ops
 from ...ops.crc import _remainder_matrix
 from ...ops.gold import gold_sequence_np
@@ -247,9 +250,58 @@ def _ssb_re_maps(v: int):
 
 # ------------------------------------------------------------- SSB mapping
 
+def _rows(cfg: SsbConfig, which: str) -> np.ndarray:
+    """K27's form of M_mib ("mib") or [M_mib; M_apr] ("full"): by output
+    bit, 32 bits to a word."""
+    return dl_control.pack_rows(_pbch_operand(cfg, which))
+
+
+def _patch_index(v: int) -> np.ndarray:
+    """int32 [4 * 240]: 0 for a base-patch RE, 1 + k for PBCH data RE k."""
+    idx = np.zeros(SSB_NSYMB * SSB_NSC, np.int32)
+    idx[_data_index(v)] = 1 + np.arange(PBCH_NDATA, dtype=np.int32)
+    return idx
+
+
+def control_item(grid: torch.Tensor, cfg: SsbConfig, mib24: torch.Tensor,
+                 slot_ctx=None, at=None) -> dl_control.ControlItem:
+    """This SSB as one PDU of K27 (ops/dl_control.py::control_map), its
+    patch at (first symbol, first subcarrier), or at ``at``."""
+    dev = grid.device
+    if slot_ctx is None:
+        rows = const(_rows, cfg, "mib", device=dev)
+        offset = const(_pbch_operand, cfg, "static", device=dev)
+        bits = (mib24,)
+    else:
+        rows = const(_rows, cfg, "full", device=dev)
+        offset = const(_pbch_operand, cfg, "g", device=dev)
+        bits = (mib24, *slot_ctx)
+    l0, k0 = at if at is not None else (cfg.first_symbol, cfg.first_subcarrier)
+    return dl_control.ControlItem(
+        rows=rows, offset=offset,
+        index=const(_patch_index, cfg.phys_cell_id % 4, device=dev),
+        base=const(_base, cfg, device=dev), l0=l0, sc0=k0, h=SSB_NSYMB,
+        w=SSB_NSC, all_ports=True, nd=PBCH_NDATA, amplitude=1.0, bits=bits,
+        pilots=None,
+        ref=lambda g: _add_patch(g, ssb_block_ref(cfg, mib24, slot_ctx),
+                                 l0, k0))
+
+
 def ssb_block(cfg: SsbConfig, mib24: torch.Tensor,
               slot_ctx=None) -> torch.Tensor:
-    """The dense [4, 240] SSB patch on ``mib24``'s device.
+    """The dense [4, 240] SSB patch on ``mib24``'s device ([B, 4, 240]
+    with a slot axis on mib24); on the card K27 adds it into zeros."""
+    lead = tuple(mib24.shape[:-1])
+    patch = torch.zeros(lead + (1, SSB_NSYMB, SSB_NSC), dtype=torch.complex64,
+                        device=mib24.device)
+    dl_control.control_map(patch, (control_item(patch, cfg, mib24, slot_ctx,
+                                                at=(0, 0)),))
+    return patch[..., 0, :, :]
+
+
+def ssb_block_ref(cfg: SsbConfig, mib24: torch.Tensor,
+                  slot_ctx=None) -> torch.Tensor:
+    """Plain twin of K27 for one SSB: the dense [4, 240] patch.
 
     mib24: int [24].  slot_ctx: optional (static_bits [32], scramble_mask
     [32]) int tensors on the same device (:func:`slot_ctx_for`); without it
@@ -282,14 +334,25 @@ def ssb_block(cfg: SsbConfig, mib24: torch.Tensor,
     return patch
 
 
-def map_ssb_to_grid(grid: torch.Tensor, cfg: SsbConfig, mib24: torch.Tensor,
-                    slot_ctx=None) -> torch.Tensor:
-    """Add the SSB patch to every port of a [..., nsymb, nsc] slot grid
-    (in place); with a slot axis on mib24 ([B, 24]), patch b goes to every
-    port of grid [B, P, nsymb, nsc]'s slot b."""
-    patch = ssb_block(cfg, mib24, slot_ctx)
+def _add_patch(grid: torch.Tensor, patch: torch.Tensor, l0: int,
+               k0: int) -> torch.Tensor:
     if patch.ndim > 2:
         patch = patch.unsqueeze(-3)
-    l0, k0 = cfg.first_symbol, cfg.first_subcarrier
     grid[..., l0:l0 + SSB_NSYMB, k0:k0 + SSB_NSC] += patch
     return grid
+
+
+def map_ssb_to_grid(grid: torch.Tensor, cfg: SsbConfig, mib24: torch.Tensor,
+                    slot_ctx=None) -> torch.Tensor:
+    """Add the SSB patch to every port of a [P, nsymb, nsc] slot grid (in
+    place; K27 on the card); with a slot axis on mib24 ([B, 24]), patch b
+    goes to every port of grid [B, P, nsymb, nsc]'s slot b."""
+    return dl_control.control_map(
+        grid, (control_item(grid, cfg, mib24, slot_ctx),))
+
+
+def map_ssb_to_grid_ref(grid: torch.Tensor, cfg: SsbConfig,
+                        mib24: torch.Tensor, slot_ctx=None) -> torch.Tensor:
+    """Plain twin of :func:`map_ssb_to_grid`."""
+    return _add_patch(grid, ssb_block_ref(cfg, mib24, slot_ctx),
+                      cfg.first_symbol, cfg.first_subcarrier)

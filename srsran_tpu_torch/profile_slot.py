@@ -1,7 +1,8 @@
 """Where a flagship slot's time goes on one CUDA GPU.
 
     python3 -m srsran_tpu_torch.profile_slot
-        [--direction ul|dl|conductor|ul_mu|batch|edge|gnb] [--slots 8]
+        [--direction ul|dl|conductor|ul_mu|batch|edge|gnb|du_low]
+        [--slots 8]
         [--calls 10]
         [--out DIR]
 
@@ -21,8 +22,11 @@ through ``ul_slot_fn``; every slot checked after the measurement) of
 :mod:`srsran_tpu_torch.flagship`, or the gNB simulator (``gnb``: one call
 is a whole scheduler-mode run of ``apps/gnb_sim`` over ``--slots`` slots
 at the flagship width, TDLA at 28 dB, PRACH and CSI periods of 10; "per
-slot" below then reads "per run", and every run must decode a UL TB) and
-reports:
+slot" below then reads "per run", and every run must decode a UL TB), or
+the DU-low's DL slots (``du_low``: kinds A-D of ``flagship.du_dl_request``
+in turn -- CSI-RS, TRS, PT-RS, PRS and an empty DL_TTI -- each through
+``SlotConductor.process_dl`` as ``fapi/transport.py::serve_phy`` runs it,
+eagerly, with its payload upload) and reports:
 
 * the slot's wall time three ways: CUDA events around each call (as
   ``chip_smoke.py`` times it), the host clock over back-to-back calls with
@@ -45,11 +49,13 @@ reports:
   batch, through their CUDA graphs).
 
 The conductor and batch directions run every call once before measuring,
-so every slot phase's CUDA graph is captured beforehand.
+so every slot phase's CUDA graph is captured beforehand; so does
+``du_low``, so every slot kind's constants are on the card.
 
 The slot's trace and a JSON summary go to ``--out`` (``slot_trace.json``
 and ``summary.json`` for the UL, ``dl_``, ``conductor_``, ``ul_mu_``,
-``batch_``, ``edge_`` or ``gnb_`` before both names for the others);
+``batch_``, ``edge_``, ``gnb_`` or ``du_low_`` before both names for the
+others);
 the summary is also printed as the last line.
 """
 
@@ -83,7 +89,8 @@ HAND_KERNELS = ("ldpc_sweep_kernel", "ldpc_check_kernel", "rate_dematch_kernel",
                 "srs_noise_kernel", "pucch_f0_kernel", "pucch_f2_kernel",
                 "short_block_kernel", "polar_sc_kernel",
                 "pusch_demap_lxn_kernel", "ulsch_demux_kernel",
-                "pusch_tp_demap_kernel", "pucch_f3_demap_kernel")
+                "pusch_tp_demap_kernel", "pucch_f3_demap_kernel",
+                "dmrs_map_kernel", "rs_map_kernel", "control_map_kernel")
 
 
 def category(name: str, cat: str) -> str:
@@ -403,6 +410,18 @@ def gnb_scenario(n: int) -> tuple:
     return [call], cases, check
 
 
+def du_low_scenario(n: int, seed: int, dev) -> tuple:
+    """(one zero-argument call per DU-low DL slot, K25-K27's cases at the
+    DU-low shapes)."""
+    pay = flagship.dl_payloads(np.random.default_rng(seed))
+    cond = SlotConductor(flagship.CELL, device=dev)
+    calls = [lambda i=i: cond.process_dl(
+        flagship.du_dl_request(i), flagship.du_tx_request(i, pay),
+        return_grid=False)[0] for i in range(n)]
+    cases = flagship.du_kernel_cases(np.random.default_rng(seed), dev)
+    return calls, {k: cases[k] for k in ("rs_map", "dmrs_map", "control_map")}
+
+
 def launch_counts(call) -> dict:
     """The hand kernels' launches in one call."""
     torch.cuda.synchronize()
@@ -417,7 +436,7 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--direction",
                     choices=("ul", "dl", "conductor", "ul_mu", "batch",
-                             "edge", "gnb"),
+                             "edge", "gnb", "du_low"),
                     default="ul")
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--calls", type=int, default=10)
@@ -450,6 +469,9 @@ def main(argv=None) -> dict:
     elif args.direction == "gnb":
         calls, cases, resolve = gnb_scenario(args.slots)
         prefix = "gnb_"
+    elif args.direction == "du_low":
+        calls, cases = du_low_scenario(args.slots, args.seed, dev)
+        prefix = "du_low_"
     else:
         calls, cases, resolve = conductor_scenario(args.slots, args.seed, dev,
                                                    gen)
@@ -457,7 +479,7 @@ def main(argv=None) -> dict:
     # warm-up: device constants; for the conductor and the batch, every
     # slot phase's CUDA graph
     graphed = args.direction in ("conductor", "batch")
-    for call in calls if graphed else calls[:2]:
+    for call in calls if graphed or args.direction == "du_low" else calls[:2]:
         call()
     torch.cuda.synchronize()
     summary = {"card": card_line(), "direction": args.direction,

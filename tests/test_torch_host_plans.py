@@ -942,7 +942,15 @@ def test_port_imports_without_jax():
             "srsran_tpu_torch.ofh.timing",
             "srsran_tpu_torch.ofh.uplane",
             "srsran_tpu_torch.ru.ofh",
-            "srsran_tpu_torch.apps.ru_emulator"} <= names
+            "srsran_tpu_torch.apps.ru_emulator",
+            "srsran_tpu_torch.fapi.transport",
+            "srsran_tpu_torch.fapi.config_messages",
+            "srsran_tpu_torch.fapi.bufferer",
+            "srsran_tpu_torch.apps.du_low",
+            "srsran_tpu_torch.phy.upper.csi_rs",
+            "srsran_tpu_torch.phy.upper.ptrs_prs",
+            "srsran_tpu_torch.ops.dl_rs",
+            "srsran_tpu_torch.ops.dl_control"} <= names
 
 
 def _import_lines(path: Path):
@@ -1192,3 +1200,105 @@ def test_config_copy():
     assert t_config.dump(convert.config(j)) == j_config.dump(j)
     with pytest.raises(ValueError, match="unsupported"):
         t_config.parse_scalar("[1, 2]")
+
+
+# ------------------------------------------------------- DU-low host copies
+
+from srsran_tpu.fapi import config_messages as j_cm          # noqa: E402
+from srsran_tpu.phy.upper import csi_rs as j_csirs           # noqa: E402
+from srsran_tpu.phy.upper import ptrs_prs as j_pp            # noqa: E402
+
+from srsran_tpu_torch.fapi import config_messages as t_cm    # noqa: E402
+from srsran_tpu_torch.phy.upper import csi_rs as t_csirs     # noqa: E402
+from srsran_tpu_torch.phy.upper import ptrs_prs as t_pp      # noqa: E402
+
+
+def test_csi_rs_tables_copy():
+    assert t_csirs._ROWS == j_csirs._ROWS
+    assert t_csirs._CDM_TABLES == j_csirs._CDM_TABLES
+
+
+@pytest.mark.parametrize("row", range(1, 19))
+def test_csi_rs_host_plan_copy(row):
+    """Groups, used symbols and RBs, sequence advance, c_init and values
+    of every row and density, at two allocations."""
+    nk = j_csirs._ROWS[row][2]
+    for rb_start, rb_count in ((0, 52), (7, 30)):
+        for d in j_csirs._ROWS[row][3]:
+            kw = dict(row=row, rb_start=rb_start, rb_count=rb_count,
+                      symbol=4, symbol2=10, k_ref=tuple(range(0, 2 * nk, 2)),
+                      density=d, scrambling_id=37, slot_in_frame=9,
+                      amplitude=0.7)
+            jc, tc = j_csirs.CsiRsConfig(**kw), t_csirs.CsiRsConfig(**kw)
+            assert t_csirs._cdm_groups(row, tc.resolved_k_ref(), 4, 10) == \
+                j_csirs._cdm_groups(row, jc.resolved_k_ref(), 4, 10)
+            assert t_csirs._used_symbols(tc) == j_csirs._used_symbols(jc)
+            np.testing.assert_array_equal(t_csirs._used_rbs(tc),
+                                          j_csirs._used_rbs(jc))
+            assert t_csirs._nof_advance(tc) == j_csirs._nof_advance(jc)
+            np.testing.assert_array_equal(t_csirs.c_init_for(tc, 3),
+                                          j_csirs.c_init_for(jc, 3))
+            np.testing.assert_array_equal(t_csirs.seq_values_for(tc),
+                                          j_csirs.seq_values_for(jc))
+            assert t_csirs.nof_csi_rs_ports(row) == \
+                j_csirs.nof_csi_rs_ports(row)
+
+
+@pytest.mark.parametrize("time_density,freq_density,offset", [
+    (1, 2, 0), (2, 4, 5), (4, 2, 11)])
+def test_ptrs_prs_host_copy(time_density, freq_density, offset):
+    kw = dict(rb_start=3, rb_count=41, first_symbol=0, nof_symbols=14,
+              dmrs_symbols=(2, 7, 11), time_density=time_density,
+              freq_density=freq_density, re_offset=offset, port=1,
+              scrambling_id=9, n_scid=1, slot_in_frame=13, amplitude=1.2)
+    jc, tc = j_pp.PtrsConfig(**kw), t_pp.PtrsConfig(**kw)
+    np.testing.assert_array_equal(t_pp.ptrs_positions(tc),
+                                  j_pp.ptrs_positions(jc))
+    np.testing.assert_array_equal(t_pp.ptrs_cinits_for(tc, 5),
+                                  j_pp.ptrs_cinits_for(jc, 5))
+    np.testing.assert_array_equal(t_pp.ptrs_values_for(tc),
+                                  j_pp.ptrs_values_for(jc))
+    for comb, nsym in ((2, 2), (4, 4), (6, 6), (12, 12)):
+        pk = dict(rb_start=2, rb_count=48, first_symbol=1, nof_symbols=nsym,
+                  comb_size=comb, comb_offset=comb - 1, n_id_prs=2049,
+                  slot_in_frame=offset, amplitude=0.5)
+        jp, tp = j_pp.PrsConfig(**pk), t_pp.PrsConfig(**pk)
+        np.testing.assert_array_equal(t_pp.prs_cinits_for(tp),
+                                      j_pp.prs_cinits_for(jp))
+        np.testing.assert_array_equal(t_pp.prs_values_for(tp, 7),
+                                      j_pp.prs_values_for(jp, 7))
+    assert t_pp._PRS_SYMBOL_OFFSETS == j_pp._PRS_SYMBOL_OFFSETS
+
+
+@pytest.mark.parametrize("ptrs", [None, (1, 2, 0, 0), (2, 4, 3, 1),
+                                  (4, 2, 11, 0)])
+def test_pdsch_ptrs_re_plan_copy(ptrs):
+    """The PDSCH's data-RE plan around its PT-RS REs (one and two CDM
+    groups reserved)."""
+    j_ptrs = None if ptrs is None else j_pdsch.PdschPtrs(*ptrs)
+    t_ptrs = None if ptrs is None else t_pdsch.PdschPtrs(*ptrs)
+    for rcg in (1, 2):
+        args = (2, 40, 1, 12, (2, 11), rcg)
+        np.testing.assert_array_equal(
+            t_pdsch._data_re_plan(*args, t_ptrs),
+            j_pdsch._data_re_plan(*args, j_ptrs))
+
+
+def test_config_plane_copy():
+    assert [(e.name, e.value) for e in t_cm.ErrorCode] == \
+        [(e.name, e.value) for e in j_cm.ErrorCode]
+    assert [(e.name, e.value) for e in t_cm.PhyState] == \
+        [(e.name, e.value) for e in j_cm.PhyState]
+    assert dataclasses.astuple(t_cm.ParamResponse())[1:] == \
+        dataclasses.astuple(j_cm.ParamResponse())[1:]
+    for kw in (dict(nof_ports=4, nof_rb=273, dft_size=4096, numerology=1),
+               dict(nof_ports=9, nof_rb=300, dft_size=100, numerology=7),
+               dict(nof_ports=1, nof_rb=52, dft_size=512, numerology=0)):
+        jc = j_cm.ConfigRequest(cell=j_cp_cell(**kw))
+        tc = t_cm.ConfigRequest(cell=convert.config(jc.cell))
+        assert t_cm.validate_config(tc) == j_cm.validate_config(jc)
+
+
+def j_cp_cell(**kw):
+    from srsran_tpu.phy.slot_programs import CellConfig
+    return CellConfig(**kw)

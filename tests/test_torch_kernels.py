@@ -795,3 +795,80 @@ def test_ru_ofh_on_the_card(cuda):
     assert torch.equal(grids[0], grids[1])
     counts = {k.name: k.launches for k in kernels.REGISTRY.values()}
     assert counts["bfp_compress"] == 1 and counts["bfp_decompress"] == 1
+
+
+# -------------------------------------------- K25-K27 (the DU-low's DL)
+
+def _du_case(name, cuda):
+    from srsran_tpu_torch import flagship
+    return flagship.du_kernel_cases(np.random.default_rng(25), cuda)[name]
+
+
+@pytest.mark.parametrize("name", [
+    "rs_map", "rs_map_trs", "rs_map_prs", "rs_map_many", "dmrs_map",
+    "dmrs_map_matrix", "dmrs_map_prg", "control_map", "control_map_al1",
+    "control_map_al2", "control_map_al4", "control_map_al16",
+    "control_map_ssb_static", "control_map_many"])
+@pytest.mark.parametrize("batch", ["", "_b4"])
+def test_dl_map_kernels_bit_exact(cuda, name, batch):
+    """K25 (CSI-RS + PT-RS, TRS + PT-RS, PRS, 33 CSI-RS in two launches),
+    K26 (identity, a [4, 4] matrix, 69 PRG matrices) and K27 (SSB + PDCCH,
+    each aggregation level, the SSB without its slot context, the SSB and
+    17 DCIs in two launches) at the flagship shapes, bit-exact to their
+    twins on the card, with and without a slot axis."""
+    kernel, ref, args = _du_case(name + batch, cuda)
+    got, want = kernel(*args), ref(*args)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name", ["rs_map", "dmrs_map_prg", "control_map",
+                                  "rs_map_many", "control_map_many"])
+def test_dl_map_kernels_slot_axis(cuda, name):
+    """B = 4 in one launch equals four B = 1 launches on each slot's
+    inputs (the slot axis reads the per-slot strides)."""
+    from srsran_tpu_torch import flagship
+    kernel, _, args = _du_case(name + "_b4", cuda)
+    got = kernel(*args)
+    for b in range(4):
+        assert torch.equal(got[b], kernel(*flagship.du_slot_of(name, args, b)))
+
+
+def test_du_low_dl_slot_launches(cuda):
+    """A DU-low slot of each kind through the port's conductor on the
+    card: samples equal the CPU conductor's within 1e-4 of max|ref|, and
+    K25-K27 launch in the slots that carry their PDUs."""
+    from srsran_tpu_torch import flagship, kernels
+    from srsran_tpu_torch.fapi.conductor import SlotConductor
+    pay = flagship.dl_payloads(np.random.default_rng(0))
+    gpu = SlotConductor(flagship.CELL, device=cuda)
+    cpu = SlotConductor(flagship.CELL, device="cpu")
+    for i in range(4):
+        dl, tx = flagship.du_dl_request(i), flagship.du_tx_request(i, pay)
+        kernels.reset_counts()
+        got, _ = gpu.process_dl(dl, tx, return_grid=False)
+        torch.cuda.synchronize()
+        n = {k.name: k.launches for k in kernels.REGISTRY.values()}
+        want, _ = cpu.process_dl(dl, tx, return_grid=False)
+        _close(got, want, 1e-4)
+        kind = flagship.du_kind(i)
+        assert n["rs_map"] == (kind != "D")
+        assert n["control_map"] == (kind != "D")
+        assert n["dmrs_map"] == (kind in "AB")
+
+
+def test_du_low_many_dcis(cuda):
+    """A DL_TTI of the SSB and 17 DCIs (more than one K27 launch takes)
+    through the port's conductor on the card: two K27 launches, samples
+    equal the CPU conductor's within 1e-4 of max|ref|."""
+    from srsran_tpu_torch import flagship, kernels
+    from srsran_tpu_torch.fapi.conductor import SlotConductor
+    dl, tx = flagship.du_many_request(
+        flagship.dl_payloads(np.random.default_rng(0)), 2)
+    gpu = SlotConductor(flagship.CELL, device=cuda)
+    kernels.reset_counts()
+    got, _ = gpu.process_dl(dl, tx, return_grid=False)
+    torch.cuda.synchronize()
+    assert kernels.REGISTRY["control_map"].launches == 2
+    want, _ = SlotConductor(flagship.CELL, device="cpu").process_dl(
+        dl, tx, return_grid=False)
+    _close(got, want, 1e-4)

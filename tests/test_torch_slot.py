@@ -236,11 +236,16 @@ def test_ul_plan_entries_not_ported_raise(slot_case, plan):
                           else 1e-4)
 
 
+# PT-RS, CSI-RS and PRS entries run (tests/test_torch_dl_rs.py); RA type 0
+# and interleaved VRBs, with and without PT-RS, still raise.
 @pytest.mark.parametrize("plan", [
-    ((), (), (J_UE,), (), (object(),)),
+    ((), (), (dataclasses.replace(J_UE, prbs=tuple(range(0, 24, 2))),), (),
+     ()),
     ((), (), (dataclasses.replace(J_UE, vrb_prb_interleaved=True),), ()),
-    ((), (), (J_UE,), (object(),)),
-    ((), (), (dataclasses.replace(J_UE, ptrs=PdschPtrs()),), ())])
+    ((), (), (dataclasses.replace(J_UE, prbs=(0, 1, 5), ptrs=PdschPtrs()),),
+     ()),
+    ((), (), (dataclasses.replace(J_UE, vrb_prb_interleaved=True, bwp_size=24,
+                                  ptrs=PdschPtrs()),), ())])
 def test_dl_plan_entries_not_ported_raise(plan):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_slots.dl_slot_fn(convert.config(J_CELL), convert.plan(plan))
