@@ -179,6 +179,26 @@ the JAX package.  It builds the hand kernels from ``srsran_tpu_torch/csrc``
    start must have dropped by at least that graph's capture.  The phase
    has its own time limit.
 
+13. du_low allocations and the UE side: K28 (UE-side control receive
+   demap: slot E's five DCIs and PBCH, and 17 DCIs and the PBCH), K26
+   (type 0 with 61 PRG matrices, interleaved VRBs, type 2 on ports 0, 1,
+   4, 5), K22 and K6 (type 0, interleaved, a limited buffer n_ref = 3N/4),
+   K2 (type 0, n_ref = 3N/4) and K15 (one AL16 DCI with its CRC
+   syndrome, one PBCH codeword) against their twins (bit-exact; K6 within
+   1e-6), timed with their bounds.  Then the port's du_low in its own process, driven over
+   TCP by the port's FapiClient: slot E (the SSB, five DCIs at AL 16, 8,
+   4, 2, 1 on disjoint CCEs of a 96-RB 2-symbol CORESET, a 4-layer 256QAM
+   PDSCH precoded per PRG on RA type 0 RBGs 2-8 and 10-17 around the
+   SSB), slot F (a DCI and a 4-layer PDSCH on interleaved VRBs 0-135),
+   slot G (type 0 with PT-RS: answered error.indication MSG_SLOT_ERR) and
+   phase 12's slot A again, each with phase 4's UL; E and F within 1e-4
+   of the port's conductor on the CPU twins, A of its phase-12 reference.
+   The UE side demodulates E's and F's samples (K4) and decodes every DCI
+   and the PBCH (K28, K15): CRC ok, exact payloads, the MIB sent.  The
+   same slots then run through ``serve_phy`` in a thread, with the UE
+   side, between a reset and a read of the launch counts (K6, K22, K26,
+   K28, K15 and the rest of the path launched; K28 once per UE slot).
+
 It prints the card's name and power limit, one JSON line of per-kernel
 results, and as its last line ``{"ok": true, "device": {...}}``.  Any failed
 phase raises, so the script then exits non-zero without that line.
@@ -213,7 +233,7 @@ from srsran_tpu_torch.fapi.transport import FapiClient, serve_phy
 from srsran_tpu_torch.graphs import SlotGraph
 from srsran_tpu_torch.kernels import _build
 from srsran_tpu_torch.ops import channel_estimate as chest
-from srsran_tpu_torch.ops import dl_map, dl_rs
+from srsran_tpu_torch.ops import dl_control, dl_map, dl_rs
 from srsran_tpu_torch.ops import ofdm
 from srsran_tpu_torch.ops.crc import crc_check
 from srsran_tpu_torch.ops.ldpc_graph import get_graph
@@ -282,7 +302,18 @@ CASE_KERNEL = {"pdsch_map_repetition": "pdsch_map",
                                "control_map_ssb_static", "control_map_many")
                   for tag in ("", "_b4")},
                **{f"{k}_b4": k for k in ("rs_map", "dmrs_map",
-                                         "control_map")}}
+                                         "control_map")},
+               "control_llrs_many": "control_llrs",
+               "dmrs_map_type0": "dmrs_map",
+               "dmrs_map_interleaved": "dmrs_map",
+               "dmrs_map_type2": "dmrs_map",
+               "pdsch_map_prg_type0": "pdsch_map_prg",
+               "pdsch_map_interleaved": "pdsch_map",
+               "pdsch_map_nref": "pdsch_map",
+               "rate_dematch_type0": "rate_dematch",
+               "rate_dematch_nref": "rate_dematch",
+               "polar_decode_al16": "polar_decode",
+               "polar_decode_pbch": "polar_decode"}
 CONDUCTOR_SLOTS = 16
 RESOLVE_LAG = 2
 # A HARQ retransmission through the conductor: at 11 dB the first
@@ -321,6 +352,15 @@ OFH_MIN_SQNR_DB = 40.0
 OFH_PROFILED_SLOTS = 2
 OFH_PHASE_S = 300.0
 DU_KERNELS = ("rs_map", "dmrs_map", "control_map")
+# Phase 13: the DU-low's allocation slots (flagship.du_alloc_request) at
+# these slot points, then phase 12's slot 4 (kind A at (1, 8)) again; the
+# kernels its main path launches, K28 the new one.
+ALLOC_KERNELS = ("control_llrs",)
+ALLOC_SLOTS = (("E", 2), ("F", 4), ("G", 6))
+ALLOC_A = 4
+ALLOC_PATH = ("pdsch_map", "pdsch_map_prg", "dmrs_map", "control_map",
+              "rs_map", "control_llrs", "polar_decode", "ofdm_demodulate",
+              "dlsch_encode", "ofdm_modulate")
 # The DU-low phase: 10 slots (kinds A-D in turn), 8 ul_tti_nb slots, its
 # own time limit, and the RS REs' tolerance after OFDM and back.
 DU_SLOTS = 10
@@ -447,7 +487,7 @@ def compare(name: str, out, ref) -> float:
                     _bits(o), _bits(r))):
                 raise AssertionError(f"{case} differs from its twin")
         return 0.0
-    if name in DU_KERNELS:                         # K25-K27: bit-exact
+    if name in DU_KERNELS + ALLOC_KERNELS:         # K25-K28: bit-exact
         if not torch.equal(out, ref):
             raise AssertionError(
                 f"{case} differs from its twin by {(out - ref).abs().max()}")
@@ -461,9 +501,9 @@ def compare(name: str, out, ref) -> float:
         if not all(torch.equal(a, b) for a, b in zip(out, ref)):
             raise AssertionError(f"{case} differs from its twin")
         return 0.0
-    if name == "rate_dematch":                     # K2: no repetition here
+    if name == "rate_dematch":                     # K2: bit-exact
         if not all(torch.equal(a, b) for a, b in zip(out, ref)):
-            raise AssertionError("K2 differs from its twin")
+            raise AssertionError(f"{case} differs from its twin")
         return float((out[1] - ref[1]).abs().max())
     bits, _, iters = out                           # K1
     bits_ref, _, iters_ref = ref
@@ -579,8 +619,8 @@ def work(name: str, args: tuple, out) -> tuple:
         n = sum(o.numel() for o in out)
         return (nbytes(llr) + llr.numel() + 5 * n + nbytes(out), float(n))
     if name == "rate_dematch":                     # K2: an add per soft bit
-        return nbytes((args[0], args[-1])) + nbytes(out), float(
-            args[-1].numel())
+        return nbytes((args[0], args[10])) + nbytes(out), float(
+            args[10].numel())
     if name == "ldpc_decode":                      # K1: 8 per edge per sweep
         llr, bg, z, rows = args[0], args[1], args[2], args[3]
         sweeps = int(out[2])
@@ -668,11 +708,27 @@ def work(name: str, args: tuple, out) -> tuple:
         return (16 * t * nb + nbytes(values) + 12 * t + 4 + 16 * n,
                 8.0 * n * nb)
     if name == "dmrs_map":                         # K26: 8 per layer term
-        grid, pilots, w, ports, symbols, _, rb_count, _ = args
+        # the DM-RS REs of the layers' CDM groups on every port read and
+        # written once, the pilots, matrices and PRB table once; 8 per
+        # layer at its CDM group's REs on every port
+        grid, pilots, w, ports, symbols, prbs = args[:6]
+        config_type = args[7] if len(args) > 7 else 1
         nb = grid.numel() // math.prod(grid.shape[-3:])
-        res = len(symbols) * 12 * rb_count * grid.shape[-3]
-        return (16 * res * nb + nbytes((pilots, w)),
-                8.0 * res // 2 * len(ports) * nb)
+        p = grid.shape[-3]
+        res = (len(symbols) * len(prbs) * dl_rs.PILOTS_PER_PRB[config_type]
+               * len({q >> 1 for q in ports}) * p)
+        return (16 * res * nb + nbytes((pilots, w)) + 4 * len(prbs),
+                8.0 * len(symbols) * pilots.shape[-1] * p * len(ports) * nb)
+    if name == "control_llrs":                     # K28: ~7 per LLR
+        # per RE: its grid value and offset read, its two LLRs written;
+        # per LLR its Gold bit; per codeword its first RE and noise
+        # variance; 2 subtractions, 2 squares, a difference, a division
+        # and a sign per LLR
+        grid, items = args
+        plan = dl_control.rx_plan(items, grid.numel())
+        nre = plan["re"].size
+        return (12 * nre + nbytes(out) + plan["gold"].nbytes
+                + 8 * len(items) + 4, 7.0 * out.numel())
     if name == "control_map":                      # K27
         # per PDU: its patch REs on its ports read and written once, the
         # map (E x W words), constants, patch plan, base, payload and
@@ -2321,7 +2377,9 @@ def du_low_phase(dev, gen, rng, card) -> tuple:
           f" us and process_ul + resolve {1e3 * statistics.median(ul_ms):.0f}"
           f" us by CUDA events (in a thread); the wire and codec's share of "
           f"a dl_tti: {100 * wire:.0f}%; card {card}", flush=True)
-    return results, {k: launches[k] for k in DU_KERNELS}
+    return results, {k: launches[k] for k in DU_KERNELS}, dict(
+        req=reqs[ALLOC_A], ref=refs[ALLOC_A], phases=phases, rx=rx,
+        prach=prach)
 
 
 def _reconfig_memory(dev, req: tuple, phases: list, prach_in) -> tuple:
@@ -2372,6 +2430,165 @@ def _reconfig_memory(dev, req: tuple, phases: list, prach_in) -> tuple:
             f"after; the old conductor's slot graph ({graph_b} B) not "
             f"released")
     return before, after, graph_b
+
+
+# --------------------------------------------------------------- phase 13
+
+def _alloc_requests(pay: dict, du: dict) -> list:
+    """Phase 13's slots: (kind, dl, tx, ul, conductor phase) for E, F, G at
+    ALLOC_SLOTS and then phase 12's slot ALLOC_A (kind A)."""
+    out = []
+    for kind, count in ALLOC_SLOTS:
+        dl, tx = flagship.du_alloc_request(kind, count, pay)
+        g = (count // 2) % flagship.N_PHASES
+        ul = dataclasses.replace(flagship.ul_request(g), slot=dl.slot)
+        out.append((kind, dl, tx, ul, g))
+    dl, tx, ul, g = du["req"]
+    return out + [("A", dl, tx, ul, g)]
+
+
+def _alloc_slots(cli, reqs, du, refs, where) -> dict:
+    """Each phase-13 slot through a client: dl_tti with samples (E, F, A
+    held to their references; G answered with MSG_SLOT_ERR), rx_samples
+    and ul_tti (held to phase 4's checks); returns the samples by kind."""
+    out = {}
+    for kind, dl, tx, ul, g in reqs:
+        got = cli.dl_tti(dl, tx, want_samples=True)
+        if kind == "G":
+            if not (isinstance(got, cm.ErrorIndication)
+                    and got.error_code is cm.ErrorCode.MSG_SLOT_ERR
+                    and got.message_id == "dl_tti"
+                    and (got.sfn, got.slot) == (dl.slot.sfn,
+                                                dl.slot.slot_index)):
+                raise AssertionError(f"{where}: slot G gave {got!r}")
+            out[kind] = got
+        else:
+            if refs is not None:
+                close(torch.from_numpy(got), refs[kind],
+                      f"{where} slot {kind}: samples")
+            out[kind] = got
+        cli.rx_samples(du["rx"][g], prach_fd=du["prach"])
+        flagship.check_results(cli.ul_tti(ul), du["phases"][g],
+                               f"{where} slot {kind}")
+    return out
+
+
+def _ue_decode(samples: np.ndarray, dl, pay: dict, dev, where) -> str:
+    """The UE side of slot E or F (K4, K28, K15): every DCI with crc_ok and
+    its exact payload, and the PBCH with crc_ok and the MIB sent."""
+    dcis, pbch = flagship.du_control_rx(torch.from_numpy(samples).to(dev), dl)
+    sent = (pay["dci"][:len(dl.pdcch)] if dl.ssb else pay["dci"][-1:])
+    for j, ((bits, ok), want) in enumerate(zip(dcis, sent)):
+        if not (bool(ok) and np.array_equal(bits.cpu().numpy(), want)):
+            raise AssertionError(f"{where}: DCI {j} (AL "
+                                 f"{dl.pdcch[j].aggregation_level}) not "
+                                 f"decoded")
+    for (a, ok), cfg in zip(pbch, dl.ssb):
+        if not (bool(ok) and np.array_equal(ssb.pbch_extract_mib(a, cfg),
+                                            pay["mib"])):
+            raise AssertionError(f"{where}: PBCH / MIB not decoded")
+    return (f"{len(dcis)} DCI(s) at AL "
+            f"{[c.aggregation_level for c in dl.pdcch]}"
+            + (" and the PBCH (24 MIB bits)" if pbch else ""))
+
+
+def du_alloc_phase(dev, rng, card, du: dict) -> tuple:
+    """Phase 13: K28 and the extended K2, K6/K22, K15, K26 against their
+    twins, then the DU-low's allocation slots: the port's du_low in its own
+    process over TCP (slots E, F, G and phase 12's slot A), the UE side of
+    E and F (K4, K28, K15), then the same through ``serve_phy`` in a thread
+    with the launch counts reset before and read after."""
+    cases = flagship.alloc_kernel_cases(rng, dev)
+    results = kernel_phases(cases)
+    print("K28, and K26 (type 0 with 61 PRG matrices, interleaved, type 2 "
+          "on ports 0, 1, 4, 5), K22/K6 (type 0, interleaved, n_ref 3N/4), "
+          "K2 (type 0, n_ref 3N/4) and K15 (an AL16 DCI with its syndrome, "
+          "a PBCH codeword; one per launch, as the UE side) "
+          "held to their twins (bit-exact; K6 within 1e-6 of max|ref|); "
+          "library: null (no single PyTorch call computes them)",
+          flush=True)
+
+    deadline = time.monotonic() + DU_PHASE_S
+    pay = flagship.du_alloc_payloads(rng)
+    reqs = _alloc_requests(pay, du)
+    cpu = SlotConductor(flagship.CELL, device="cpu")
+    refs = {kind: cpu.process_dl(dl, tx, return_grid=False)[0]
+            for kind, dl, tx, _, _ in reqs if kind in "EF"}
+    refs["A"] = du["ref"]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "srsran_tpu_torch.apps.du_low", "--port", "0"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        port = _ready_port(proc, deadline)
+        cli = FapiClient("127.0.0.1", port,
+                         timeout=max(1.0, deadline - time.monotonic()))
+        cli.configure(flagship.CELL)
+        samples = _alloc_slots(cli, reqs, du, refs, "du_low")
+        cli.stop()
+        code = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+        tail = proc.stdout.read().strip()
+        if code != 0:
+            raise AssertionError(f"du_low exited {code}: {tail}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    dl_of = {kind: dl for kind, dl, _, _, _ in reqs}
+    said = [_ue_decode(samples[k], dl_of[k], pay, dev, f"UE slot {k}")
+            for k in "EF"]
+    print(f"du_low (its own process): slot E (SSB, five DCIs, a 4-layer "
+          f"256QAM PDSCH on RA type 0 PRBs {flagship.DU_E_PRBS[0]}-143 and "
+          f"160-{flagship.DU_E_PRBS[-1]} precoded per PRG) and F (a PDSCH on "
+          f"interleaved VRBs 0-135) within 1e-4 of the port's conductor on "
+          f"the CPU twins; G (type 0 with PT-RS) answered "
+          f"{samples['G'].error_code.name} ({samples['G'].detail!r}); then "
+          f"phase 12's slot A within 1e-4 of its reference; every UL "
+          f"indication as phase 4 requires; {tail!r}", flush=True)
+    print(f"UE side (K4, K28, K15): slot E {said[0]}; slot F {said[1]}: "
+          f"CRC ok, exact payloads", flush=True)
+
+    stats: dict = {}
+    box = {}
+    ready = threading.Event()
+
+    def serve():
+        try:
+            serve_phy(ready_cb=lambda p: (box.update(port=p), ready.set()),
+                      device=dev, stats=stats)
+        except BaseException as e:          # reported by the main thread
+            box["error"] = e
+            ready.set()
+
+    srv = threading.Thread(target=serve, daemon=True)
+    srv.start()
+    if not ready.wait(30.0) or "error" in box:
+        raise AssertionError(f"serve_phy did not start: {box.get('error')}")
+    cli = FapiClient("127.0.0.1", box["port"],
+                     timeout=max(1.0, deadline - time.monotonic()))
+    cli.configure(flagship.CELL)
+    _alloc_slots(cli, reqs, du, None, "serve_phy warm-up")
+    counted = [(kind, dataclasses.replace(dl, slot=SlotPoint(
+                    1, dl.slot.count + 40)),
+                dataclasses.replace(tx, slot=SlotPoint(1, tx.slot.count + 40)),
+                dataclasses.replace(ul, slot=SlotPoint(1, ul.slot.count + 40)),
+                g) for kind, dl, tx, ul, g in reqs]
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    got = _alloc_slots(cli, counted, du, None, "serve_phy")
+    said = [_ue_decode(got[k], dl, pay, dev, f"UE slot {k} (serve_phy)")
+            for k, dl, _, _, _ in counted if k in "EF"]
+    torch.cuda.synchronize()
+    launches = launched(ALLOC_PATH)
+    cli.stop()
+    srv.join(timeout=max(1.0, deadline - time.monotonic()))
+    if srv.is_alive() or "error" in box:
+        raise AssertionError(f"serve_phy did not end: {box.get('error')}")
+    if launches["control_llrs"] != 2:
+        raise AssertionError(f"K28 launched {launches['control_llrs']} "
+                             f"times for the two UE-side slots")
+    print(f"phase 13 launches (slots E, F, G, A through serve_phy and the "
+          f"UE side of E and F): {launches}; card {card}", flush=True)
+    return results, {k: launches[k] for k in ALLOC_KERNELS}
 
 
 def _slot_of_dict(out: dict, c) -> dict:
@@ -2431,24 +2648,31 @@ def main() -> int:
     print(f"phase 11 (fronthaul): {time.perf_counter() - t11:.1f} s",
           flush=True)
     t12 = time.perf_counter()
-    du_results, du_launches = du_low_phase(
+    du_results, du_launches, du = du_low_phase(
         dev, gen, np.random.default_rng(SEED + 12), card)
     print(f"phase 12 (du_low): {time.perf_counter() - t12:.1f} s",
           flush=True)
+    t13 = time.perf_counter()
+    alloc_results, alloc_launches = du_alloc_phase(
+        dev, np.random.default_rng(SEED + 13), card, du)
+    print(f"phase 13 (du_low allocations, UE side): "
+          f"{time.perf_counter() - t13:.1f} s", flush=True)
     results = {**ul_results, **dl_results, **uci_results, **mu_results,
                **batch_results, **edge_results, **gnb_results, **ofh_results,
-               **du_results}
+               **du_results, **alloc_results}
     # K1-K11 as their own paths launched them (phases 2, 3), K12-K15 as the
     # conductor's slots did (phase 4, which launched every kernel), K16-K17
     # as the two-UE slot did (phase 5), the batched K1-K8 as one batch of
     # phase 7 did, K18-K19 as the cell-edge slot did (phase 9), K20-K22 as
     # the scheduler-mode gnb_sim run did (phase 10), K23-K24 as the
     # fronthaul round trip did (phase 11), K25-K27 as the DU-low's slots
-    # through serve_phy did (phase 12)
+    # through serve_phy did (phase 12), K28 as the UE side of the DU-low's
+    # allocation slots did (phase 13)
     launches = {**cond_launches, **ul_launches, **dl_launches,
                 **{k: mu_launches[k] for k in MU_KERNELS}, **batch_launches,
                 **{k: edge_launches[k] for k in EDGE_KERNELS},
-                **gnb_launches, **ofh_launches, **du_launches}
+                **gnb_launches, **ofh_launches, **du_launches,
+                **alloc_launches}
     for name, r in results.items():
         lib = ("" if r["library_ms"] is None
                else f", library {r['library_ms']:.4f} ms")

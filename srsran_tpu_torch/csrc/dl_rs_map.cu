@@ -29,21 +29,30 @@
 // launch, not the bytes, sets its time.
 //
 // K26 replaces srsran_tpu/phy/upper/dmrs.py::map_to_grid (:198-234) on the
-// DL: per-layer type-1 pilots (w_f, w_t covers), precoded by the port's
-// matrix or the RE's PRG matrix, added at the comb.  Twin:
+// DL: per-layer pilots of configuration type 1 (comb 2, ports 0-3) or type
+// 2 (pairs {2g, 2g+1, 2g+6, 2g+7} per PRB, ports 0-5), with their w_f and
+// w_t covers, on a contiguous or scattered (RA type 0, interleaved VRB)
+// PRB set, precoded by the port's matrix or the RE's PRG matrix, added at
+// the CDM group's subcarriers.  Twin:
 // srsran_tpu_torch/ops/dl_rs.py::dmrs_map_ref.
 //
-// Design.  One thread per (DM-RS symbol, subcarrier of the allocation,
-// port).  The thread reads the grid value once and, for each layer whose
-// CDM group occupies the subcarrier, in layer order, adds W[g][p, l] x
-// pilot_l (W the one [P, L] matrix, g = 0, or the PRG table's matrix of
-// the subcarrier's PRG); without a matrix, layer l goes to port l alone.
-// Layers of one CDM group share REs, so an RE holds ((g + w0 p0) + w1 p1)
-// as in the JAX package, which adds layer after layer.
+// Design.  One thread per (DM-RS symbol, allocated PRB, subcarrier of the
+// PRB, port).  The PRB comes from a table of the allocation's PRBs
+// (uploaded once per allocation; a contiguous one reads it too), and the
+// pilot index from the PRB's rank in the table: the pilots are the
+// allocated PRBs' columns of the Gold sequence, selected on the host (JAX
+// dmrs.py::_prb_pilot_select).  The thread reads the grid value once and,
+// for each layer whose CDM group (port >> 1 in both types) occupies the
+// subcarrier, in layer order, adds W[g][p, l] x pilot_l (W the one [P, L]
+// matrix, g = 0, or the PRG table's matrix of the subcarrier's PRG,
+// counted from the PRG of the first allocated PRB); without a matrix,
+// layer l goes to port l alone.  Layers of one CDM group share REs, so an
+// RE holds ((g + w0 p0) + w1 p1) as in the JAX package, which adds layer
+// after layer.
 //
 // Bounds on this card: bytes -- the DM-RS REs of every port read and
 // written once (4 ports x 2 symbols x 3,276 subcarriers at the flagship),
-// the base pilots and the matrices read once.
+// the base pilots, the PRB table and the matrices read once.
 //
 // A slot axis (the slot-batch mode): blockIdx.y picks the slot; the grid
 // lies at a fixed per-slot stride, each value source at its own (0: one
@@ -95,23 +104,29 @@ __global__ void rs_map_kernel(RsSources src, const long long* __restrict__ tgt,
   *g = acc;
 }
 
-// ports: the DM-RS port of each layer (0..3), 8 bits each, layer 0 lowest.
+// ports: the DM-RS port of each layer (0..5), 8 bits each, layer 0 lowest.
+// type2: 0 for configuration type 1 (6 pilots a PRB), 1 for type 2 (4).
 __global__ void dmrs_map_kernel(const float2* __restrict__ pilots,
-                                long long pilot_stride, int npil,
+                                long long pilot_stride,
                                 const int* __restrict__ symbols, int nsym,
                                 int ports, int L, const float2* __restrict__ w,
                                 long long w_stride, int prg_size, int prg_base,
-                                int rb_start, float2* __restrict__ grid,
-                                int P, int S, int K) {
-  const int span = 2 * npil;                       // 12 x rb_count
+                                const int* __restrict__ prbs, int nprb,
+                                int type2, float2* __restrict__ grid, int P,
+                                int S, int K) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= nsym * span * P) return;
+  if (i >= nsym * nprb * 12 * P) return;
   const int p = i % P;
-  const int kk = (i / P) % span;
-  const int si = i / (P * span);
+  const int kk = (i / P) % 12;                      // subcarrier in the PRB
+  const int j = (i / (P * 12)) % nprb;              // rank of the PRB
+  const int si = i / (P * 12 * nprb);
   const long long slot = blockIdx.y;
-  const int k = rb_start * 12 + kk;                 // subcarrier
-  const int m = kk >> 1;                            // pilot index on the comb
+  const int k = prbs[j] * 12 + kk;                  // subcarrier
+  const int per_rb = type2 ? 4 : 6;
+  const int group = type2 ? (kk % 6) >> 1 : kk & 1; // CDM group at kk
+  // the pilot index on the group's subcarriers of the allocation
+  const int m = j * per_rb + (type2 ? ((kk >= 6) << 1) + (kk & 1) : kk >> 1);
+  const int npil = per_rb * nprb;
   const float2* pv_row = pilots + slot * pilot_stride + (long long)si * npil;
   const float2* wp = nullptr;
   if (w != nullptr) {
@@ -123,10 +138,10 @@ __global__ void dmrs_map_kernel(const float2* __restrict__ pilots,
   float2 acc = *gp;
   for (int l = 0; l < L; ++l) {
     const int port = (ports >> (8 * l)) & 0xff;
-    if ((port >> 1) != (kk & 1)) continue;          // CDM group's comb
+    if ((port >> 1) != group) continue;             // the CDM group's REs
     if (wp == nullptr && l != p) continue;          // layer l -> port l
     float2 pv = pv_row[m];
-    // w_f = (+1, -1) on odd pilots for ports 1 and 3; w_t = +1 for 0..3
+    // w_f = (+1, -1) on odd pilots for odd ports; w_t = +1 for every port
     if ((port & 1) && (m & 1)) pv = make_float2(-pv.x, -pv.y);
     acc = cadd(acc, wp == nullptr ? pv : cmul(wp[p * L + l], pv));
   }
@@ -150,21 +165,22 @@ extern "C" int srsran_rs_map(RsSources src, void* tgt, void* start,
   return (int)cudaGetLastError();
 }
 
-extern "C" int srsran_dmrs_map(void* pilots, long long pilot_stride, int npil,
+extern "C" int srsran_dmrs_map(void* pilots, long long pilot_stride,
                                void* symbols, int nsym, int ports, int L,
                                void* w, long long w_stride, int prg_size,
-                               int prg_base, int rb_start, void* grid, int P,
-                               int S, int K, int nslots, void* stream) {
+                               int prg_base, void* prbs, int nprb,
+                               int config_type, void* grid, int P, int S,
+                               int K, int nslots, void* stream) {
   if (L < 1 || L > kMaxLayers || nsym < 1 || nsym > kMaxDmrsSymbols
-      || nslots < 1 || prg_size < 0)
+      || nslots < 1 || prg_size < 0 || nprb < 1
+      || (config_type != 1 && config_type != 2))
     return (int)cudaErrorInvalidValue;
-  const long long n = (long long)nsym * 2 * npil * P;
-  if (n == 0) return 0;
+  const long long n = (long long)nsym * nprb * 12 * P;
   const int threads = 128;
   const dim3 blocks((unsigned)((n + threads - 1) / threads), nslots);
   dmrs_map_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float2*)pilots, pilot_stride, npil, (const int*)symbols, nsym,
-      ports, L, (const float2*)w, w_stride, prg_size, prg_base, rb_start,
-      (float2*)grid, P, S, K);
+      (const float2*)pilots, pilot_stride, (const int*)symbols, nsym, ports,
+      L, (const float2*)w, w_stride, prg_size, prg_base, (const int*)prbs,
+      nprb, config_type == 2, (float2*)grid, P, S, K);
   return (int)cudaGetLastError();
 }

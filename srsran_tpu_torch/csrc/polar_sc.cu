@@ -3,14 +3,22 @@
 //
 // Replaces srsran_tpu/ops/polar.py::rate_dematch (:171-189) and sc_decode
 // (:203-241), and the crc.py::crc_check of the decoded message that the UCI
-// decoders run after them (pucch.py:782-785, uci.py:44-47): the inverse
+// decoders run after them (pucch.py:782-785, uci.py:44-47), or the DCI's
+// check (pdcch.py::decode_dci :97-100) and the PBCH's (ssb.py::pbch_decode
+// :363-365) on the UE side: the inverse
 // triangular channel interleaver, the accumulation of the received LLRs
 // over the rate-matching plan (punctured bits 0, shortened bits 1e4,
 // repetitions summed in transmission order), the tree-pruned simplified SC
 // decoder over N <= 1024 (min-sum f = sign a sign b min(|a|, |b|), g = b +
 // (1 - 2 x) a, RATE_0 segments decide zeros, RATE_1 segments hard-decide and
 // re-encode), the read-out of the message bits and the check of their
-// trailing CRC.  Twin: srsran_tpu_torch/ops/polar.py::decode_ref.
+// trailing CRC.  The check compares the CRC register of the K decoded bits
+// with the launch's expected syndrome (0 for a plain trailing CRC): the
+// CRC is linear, so the DCI's check -- CRC24C over 24 leading ones and the
+// decoded bits with the RNTI mask undone on the last 16 -- is the
+// register's equality with the remainder of the ones and the mask, which
+// the host computes once per (K, RNTI).  Twin:
+// srsran_tpu_torch/ops/polar.py::decode_ref.
 //
 // Design.  One CTA per codeword.  The decoder's recursion is walked on the
 // host once per frozen mask into a flat node schedule (F, G, SAVE, COMB,
@@ -45,7 +53,7 @@ __global__ void polar_sc_kernel(const float* __restrict__ llr, int E, int n,
                                 const int* __restrict__ tables,
                                 const int* __restrict__ program, int nops,
                                 const int* __restrict__ readout, int K,
-                                int crc_len, int poly,
+                                int crc_len, int poly, unsigned expect,
                                 int8_t* __restrict__ bits,
                                 bool* __restrict__ ok) {
   __shared__ float L[2 * MAX_N];
@@ -120,7 +128,8 @@ __global__ void polar_sc_kernel(const float* __restrict__ llr, int E, int n,
   }
 
   // Message bits, then the CRC register over all K of them (message with
-  // its CRC: the remainder is 0 when the CRC matches).
+  // its CRC: the remainder is the expected syndrome, 0 for a plain
+  // trailing CRC, when the CRC matches).
   int8_t* out = bits + (size_t)blockIdx.x * K;
   for (int k = t; k < K; k += NT) out[k] = (int8_t)U[readout[k]];
   if (t == 0) {
@@ -131,23 +140,26 @@ __global__ void polar_sc_kernel(const float* __restrict__ llr, int E, int n,
       reg = (reg << 1) & mask;
       if (fb) reg ^= (unsigned)poly & mask;
     }
-    ok[blockIdx.x] = reg == 0;
+    ok[blockIdx.x] = reg == (expect & mask);
   }
 }
 
 }  // namespace
 
 // llr f32 [B, E]; tables int32 [2, N + E] (first/src, shortened);
-// program int32 [nops, 3]; readout int32 [K]; bits int8 [B, K]; ok bool [B].
+// program int32 [nops, 3]; readout int32 [K]; expect the syndrome of
+// every codeword (0 for a plain trailing CRC); bits int8 [B, K]; ok bool
+// [B].
 extern "C" int srsran_polar_decode(void* llr, int B, int E, int n, void* tables,
                                    void* program, int nops, void* readout,
-                                   int K, int crc_len, int poly, void* bits,
-                                   void* ok, void* stream) {
+                                   int K, int crc_len, int poly, int expect,
+                                   void* bits, void* ok, void* stream) {
   if (n < 1 || (1 << n) > MAX_N || B < 1 || E < 1 || K < 1 || crc_len < 1 ||
       crc_len > 24)
     return (int)cudaErrorInvalidValue;
   polar_sc_kernel<<<B, NT, 0, (cudaStream_t)stream>>>(
       (const float*)llr, E, n, (const int*)tables, (const int*)program, nops,
-      (const int*)readout, K, crc_len, poly, (int8_t*)bits, (bool*)ok);
+      (const int*)readout, K, crc_len, poly, (unsigned)expect,
+      (int8_t*)bits, (bool*)ok);
   return (int)cudaGetLastError();
 }

@@ -6,8 +6,10 @@
 // srsran_tpu_torch/ops/ldpc_rate_match.py::rate_dematch_combine_ref.
 //
 // Design.  A gather: one thread per output position (cb, k) of the decoder
-// input [C, 2Z + N].  The 2Z punctured positions get 0.  Position kk = k - 2Z
-// of the circular buffer is a filler bit (LLR 1e4) or, in filler-free
+// input [C, 2Z + N].  The 2Z punctured positions get 0, and so do the
+// positions past a limited circular buffer (kk >= n_cb = N_nf + fe - fs,
+// where n_ref < N cut it; JAX ldpc_rate_match.py:190-202).  Position
+// kk = k - 2Z of the circular buffer is a filler bit (LLR 1e4) or, in filler-free
 // coordinates q, the sum of the received LLRs at window offsets
 // i = q - k0' + r * N_nf (r = 0, 1, ...; 0 <= i < E), read through the Qm
 // de-interleave (i -> row i mod (E/Qm), column i div (E/Qm)).  The sum runs
@@ -39,7 +41,9 @@ __global__ void rate_dematch_kernel(
   }
   const int kk = k - z2;
   float acc;
-  if (kk >= fs && kk < fe) {
+  if (kk >= n_nf + (fe - fs)) {
+    acc = 0.f;                                  // past the limited buffer
+  } else if (kk >= fs && kk < fe) {
     acc = filler;
   } else {
     const int q = kk < fs ? kk : kk - (fe - fs);

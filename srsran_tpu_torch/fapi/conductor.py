@@ -166,8 +166,6 @@ def normalize_dl_plan(dl: DlTtiRequest, extra_pdcch: tuple = (),
     values ("ptrs", None for a PDSCH without PT-RS; "csi"; "prs").
     """
     pdcch_all = dl.pdcch + tuple(extra_pdcch)
-    for c in dl.pdsch:
-        pdsch_mod.check_supported(c)
     if nof_ports is None and any(c.precoding is not None for c in dl.pdsch):
         raise ValueError(
             "normalize_dl_plan needs nof_ports to resolve PDSCH precoding")

@@ -348,12 +348,18 @@ def serve_phy(port: int = 0, host: str = "127.0.0.1", ready_cb=None,
     The PHY owns the cell manager (its conductor on ``device``: the card
     unless the caller names another) and an RU-emulator-style UL sample
     buffer: rx_samples messages stand in for the radio's receive path.
+    A dl_tti, ul_tti or ul_tti_nb that fails validation is answered with
+    an error_indication (MSG_SLOT_ERR, the validator's message) and the
+    server serves the next message; the JAX package's server ends there
+    (its loop catches only ConnectionError).  Nothing else is caught: any
+    other fault, on the card or not, still ends the server.
     ``stats``, when given, collects per message kind ("dl_tti",
     "ul_tti", "ul_tti_nb") (host s, device ms) pairs of the conductor
     calls.
     """
     from .config_messages import (CellManager, ConfigRequest, ErrorCode,
                                   ErrorIndication, PhyState, StartRequest)
+    from .validators import ValidationError
 
     dev = require_cuda() if device is None else resolve(device)
     clock = _Clock(stats, dev)
@@ -373,6 +379,11 @@ def serve_phy(port: int = 0, host: str = "127.0.0.1", ready_cb=None,
         if err is not None:
             send_msg(conn, "error_indication", err)
         return err
+
+    def slot_error(msg_id, slot, e):
+        send_msg(conn, "error_indication", ErrorIndication(
+            slot.sfn, slot.slot_index, msg_id, ErrorCode.MSG_SLOT_ERR,
+            str(e)))
 
     def take_rx():
         nonlocal pending
@@ -411,8 +422,14 @@ def serve_phy(port: int = 0, host: str = "127.0.0.1", ready_cb=None,
             elif t == "dl_tti":
                 if gate(t, body["dl"].slot) is not None:
                     continue
-                samples, _ = clock("dl_tti", lambda: mgr.conductor.process_dl(
-                    body["dl"], body["tx"], return_grid=False))
+                try:
+                    samples, _ = clock("dl_tti",
+                                       lambda: mgr.conductor.process_dl(
+                                           body["dl"], body["tx"],
+                                           return_grid=False))
+                except ValidationError as e:
+                    slot_error(t, body["dl"].slot, e)
+                    continue
                 if body.get("want_samples"):
                     send_msg(conn, "dl_samples", samples.cpu().numpy())
                 elif samples.is_cuda:
@@ -423,16 +440,24 @@ def serve_phy(port: int = 0, host: str = "127.0.0.1", ready_cb=None,
                 if gate(t, body["ul"].slot) is not None:
                     continue
                 rx, prach = take_rx()
-                res = clock("ul_tti", lambda: mgr.conductor.process_ul(
-                    body["ul"], rx, prach).resolve())
+                try:
+                    res = clock("ul_tti", lambda: mgr.conductor.process_ul(
+                        body["ul"], rx, prach).resolve())
+                except ValidationError as e:
+                    slot_error(t, body["ul"].slot, e)
+                    continue
                 send_msg(conn, "slot_results", res)
             elif t == "ul_tti_nb":
                 if gate("ul_tti", body["ul"].slot) is not None:
                     continue
                 rx, prach = take_rx()
-                nb_pending.append(clock("ul_tti_nb",
-                                        lambda: mgr.conductor.process_ul(
-                                            body["ul"], rx, prach)))
+                try:
+                    nb_pending.append(clock("ul_tti_nb",
+                                            lambda: mgr.conductor.process_ul(
+                                                body["ul"], rx, prach)))
+                except ValidationError as e:
+                    slot_error("ul_tti", body["ul"].slot, e)
+                    continue
                 while len(nb_pending) > RESOLVE_LAG:
                     send_msg(conn, "slot_results_nb",
                              nb_pending.popleft().resolve())

@@ -3,10 +3,9 @@
 The port's own copy of srsran_tpu/fapi/validators.py: each PDU config is
 checked against the cell geometry and 3GPP ranges, raising ValidationError
 with the offending field; the conductor calls these before it resolves a
-slot phase.  The PDSCH options the port does not run (RA type 0 and
-interleaved VRBs) raise NotImplementedError with their ROADMAP item
-instead.  Per-PRG precoding, PT-RS, CSI-RS and PRS are checked as the JAX
-package checks them, message for message.  Every UL PDU kind
+slot phase.  RA type 0 and interleaved-VRB PDSCHs, per-PRG precoding (its
+PRG count over the allocation's span), PT-RS, CSI-RS and PRS are checked as
+the JAX package checks them, message for message.  Every UL PDU kind
 of the JAX package passes: PUSCHs of 1-4 layers with ZF or MMSE, UCI on
 PUSCH, frequency hopping and transform precoding, PUCCH F0 to F4, PRACH
 and SRS.
@@ -70,7 +69,24 @@ def validate_dl_tti(dl: DlTtiRequest, cell: CellConfig):
         _check(all(p.first_symbol <= d < p.first_symbol + p.nof_symbols
                    for d in p.dmrs_symbols),
                "pdsch: DM-RS symbol outside the allocation")
-        pdsch_mod.check_supported(p)
+        # allocation resolution first: malformed type-0/interleaved
+        # configs must surface as ValidationError, not IndexError, BEFORE
+        # the capacity check touches the RE plan
+        if p.prbs is not None or p.vrb_prb_interleaved:
+            try:
+                alloc = pdsch_mod.alloc_prbs(p)
+            except (IndexError, ValueError, AssertionError) as e:
+                alloc = None
+                _check(False, f"pdsch: bad type-0/interleaved allocation: "
+                              f"{e}")
+            _check(len(alloc) > 0, "pdsch: empty type-0 allocation")
+            _check(len(alloc) == len(set(alloc)),
+                   "pdsch: duplicate PRBs in type-0 allocation")
+            _check(int(alloc[0]) >= 0 and int(alloc[-1]) < cell.nof_rb,
+                   "pdsch: type-0/interleaved allocation exceeds carrier")
+            _check(p.ptrs is None,
+                   "pdsch: PT-RS with non-contiguous allocation is not "
+                   "supported (PT-RS positions assume contiguous PRBs)")
         # capacity check: the rate-matched TB must fit
         g = (pdsch_mod.nof_data_re(p) * BITS_PER_SYMBOL[p.modulation]
              * p.nof_layers)
@@ -79,7 +95,7 @@ def validate_dl_tti(dl: DlTtiRequest, cell: CellConfig):
         if p.precoding is not None:
             pre = p.precoding
             _check(pre.prg_size >= 1, "pdsch: precoding prg_size >= 1")
-            want = pc.nof_prgs(p.rb_start, p.rb_count, pre.prg_size)
+            want = pc.nof_prgs(*pdsch_mod.prg_span(p), pre.prg_size)
             _check(len(pre.pm_indices) == want,
                    f"pdsch: precoding has {len(pre.pm_indices)} PM indices, "
                    f"allocation spans {want} PRGs")

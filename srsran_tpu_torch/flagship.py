@@ -1598,7 +1598,6 @@ def du_kernel_cases(rng: np.random.Generator, device) -> dict:
                                  _on_copy(dl_rs.rs_map_ref),
                                  (grid, items, values))
     dcfg = pdsch.dmrs_config(PDSCH)
-    npil = 6 * PDSCH.rb_count
     w44 = ((rng.normal(size=(4, 4)) + 1j * rng.normal(size=(4, 4))) / 2
            ).astype(np.complex64)
     prg = ((rng.normal(size=(69, 4, 4)) + 1j * rng.normal(size=(69, 4, 4)))
@@ -1616,8 +1615,8 @@ def du_kernel_cases(rng: np.random.Generator, device) -> dict:
             cases[name + ("_b4" if b else "")] = (
                 _on_copy(dl_rs.dmrs_map), _on_copy(dl_rs.dmrs_map_ref),
                 (_up(g.astype(np.complex64), device), pil, w,
-                 dcfg.ports, dcfg.symbols, PDSCH.rb_start, npil // 6,
-                 prg_size))
+                 dcfg.ports, dcfg.symbols, dcfg.prb_list, prg_size,
+                 dcfg.config_type))
     for name, al, with_ssb, ctx in (
             ("control_map", 8, True, True), ("control_map_al1", 1, False, 0),
             ("control_map_al2", 2, False, 0), ("control_map_al4", 4, False, 0),
@@ -1721,3 +1720,195 @@ def du_slot_of(name: str, args: tuple, b: int) -> tuple:
         return (args[0][b], args[1][b]) + args[2:]
     grid, inputs, items = args
     return grid[b], {k: v[b] for k, v in inputs.items()}, items
+
+
+# ------------------------------------------- DU-low allocations (E, F, G)
+#   E: the SSB, five DCIs on disjoint CCEs of a CORESET of their own, and
+#      a 4-layer 256QAM PDSCH on an RA type 0 allocation around the SSB,
+#      precoded per PRG;
+#   F: one DCI and a 4-layer PDSCH on interleaved VRBs, unprecoded;
+#   G: a type 0 PDSCH with PT-RS, which the validators reject.
+#: Slot E's CORESET: 96 RB x 2 symbols = 32 CCEs, non-interleaved.
+DU_E_CORESET = pdcch.CoresetConfig(rb_start=0, nof_rb=96, start_symbol=0,
+                                   duration=2)
+#: Slot E's DCIs: (aggregation level, first CCE), disjoint.
+DU_E_CANDIDATES = ((16, 0), (8, 16), (4, 24), (2, 28), (1, 30))
+#: RBG size P for a 273-RB BWP (TS 38.214 Table 5.1.2.2.1-1, config 1).
+DU_RBG = 16
+#: Slot E's type 0 bitmap: RBGs 2-8 and 10-17, PRBs 32-143 and 160-272;
+#: RBGs 0-1 hold the SSB's PRBs 4-23, RBG 9 is a gap.
+DU_E_PRBS = tuple(p for r in (*range(2, 9), *range(10, 18))
+                  for p in range(DU_RBG * r, min(DU_RBG * (r + 1),
+                                                 CELL.nof_rb)))
+DU_E_PDSCH = dataclasses.replace(
+    PDSCH, rb_start=DU_E_PRBS[0], rb_count=DU_E_PRBS[-1] - DU_E_PRBS[0] + 1,
+    first_symbol=2, prbs=DU_E_PRBS,
+    tbs=mcs_tbs.tbs(len(DU_E_PRBS), 12, 24, "qam256", 0.8, 4),
+    precoding=PrecodingConfig(prg_size=PRG_SIZE, pm_indices=tuple(
+        82 + g % 16 for g in range(nof_prgs(
+            DU_E_PRBS[0], DU_E_PRBS[-1] - DU_E_PRBS[0] + 1, PRG_SIZE)))))
+#: Slot F's PDSCH: VRBs [0, 136) through the interleaver (bundle size 2)
+#: over the 273-RB BWP.
+DU_F_PDSCH = dataclasses.replace(
+    PDSCH, rb_count=136, vrb_prb_interleaved=True, bwp_size=CELL.nof_rb,
+    tbs=mcs_tbs.tbs(136, 12, 24, "qam256", 0.8, 4))
+DU_G_PDSCH = dataclasses.replace(DU_E_PDSCH, ptrs=DU_PTRS)
+DU_ALLOC_KINDS = ("E", "F", "G")
+DU_ALLOC_DCI_BITS = PDCCH.payload_bits
+
+
+def du_alloc_pdcchs(kind: str, slot_in_frame: int = 0) -> tuple:
+    """The DCIs of slot E (RNTIs 0x4611 + j, UE-specific scrambling) or F."""
+    if kind == "E":
+        return tuple(dataclasses.replace(
+            PDCCH, coreset=DU_E_CORESET, aggregation_level=al, cce_index=cce,
+            rnti=0x4611 + j, n_rnti=0x4611 + j, slot_in_frame=slot_in_frame)
+            for j, (al, cce) in enumerate(DU_E_CANDIDATES))
+    if kind == "F":
+        return (dataclasses.replace(PDCCH, rnti=0x4620, n_rnti=0x4620,
+                                    slot_in_frame=slot_in_frame),)
+    return ()
+
+
+def du_alloc_payloads(rng: np.random.Generator) -> dict:
+    """Each kind's TB bits, one DCI payload per DCI (distinct), the MIB; as
+    unpacked int8 bits (:func:`du_alloc_request` packs them)."""
+    def bits(n):
+        return rng.integers(0, 2, n).astype(np.int8)
+    return {"E": bits(DU_E_PDSCH.tbs), "F": bits(DU_F_PDSCH.tbs),
+            "G": bits(DU_G_PDSCH.tbs),
+            "dci": tuple(bits(DU_ALLOC_DCI_BITS)
+                         for _ in range(len(DU_E_CANDIDATES) + 1)),
+            "mib": bits(MIB_BITS)}
+
+
+def _packed(bits: np.ndarray) -> np.ndarray:
+    return np.packbits(bits.astype(np.uint8))
+
+
+def du_alloc_request(kind: str, count: int, pay: dict) -> tuple:
+    """(DlTtiRequest, TxDataRequest) of DU-low slot ``kind`` at slot point
+    (1, count), the payloads packed as on the wire."""
+    slot = SlotPoint(1, count)
+    sl = slot.slot_index
+    pdcchs = du_alloc_pdcchs(kind, sl)
+    dcis = {"E": pay["dci"][:-1], "F": pay["dci"][-1:], "G": ()}[kind]
+    cfg = {"E": DU_E_PDSCH, "F": DU_F_PDSCH, "G": DU_G_PDSCH}[kind]
+    ssbs = (dataclasses.replace(SSB, sfn=slot.sfn),) if kind == "E" else ()
+    dl = messages.DlTtiRequest(
+        slot=slot, ssb=ssbs, pdcch=pdcchs,
+        pdsch=(dataclasses.replace(cfg, slot_in_frame=sl),))
+    tx = messages.TxDataRequest(
+        slot=slot, ssb_mib=tuple(_packed(pay["mib"]) for _ in ssbs),
+        pdcch_payloads=tuple(_packed(d) for d in dcis),
+        pdsch_payloads=(_packed(pay[kind]),))
+    return dl, tx
+
+
+def du_control_rx(samples: torch.Tensor, dl: messages.DlTtiRequest,
+                  noise_var: float = 0.01) -> tuple:
+    """The UE side of a DU-low DL slot: OFDM demodulation of its samples
+    (K4), every DCI's and the PBCH's LLRs in one K28 launch from port 0,
+    then each DCI and the PBCH decoded (K15).  Returns ([(payload int8
+    [A], crc_ok)] per DCI, [(payload a int8 [32] on the host, crc_ok)]
+    per SSB)."""
+    cell = DL_CELL
+    grid = ofdm.demodulate_slot(samples, cell.nof_sc, cell.dft_size,
+                                cell.numerology, cell.cp, 0,
+                                cell.center_freq_hz).contiguous()
+    shape = tuple(grid.shape)
+    items = tuple([pdcch.rx_item(c, shape, noise_var) for c in dl.pdcch]
+                  + [ssb.rx_item(c, shape, 0, noise_var=noise_var)
+                     for c in dl.ssb])
+    llrs = dl_control.control_llrs(grid, items)
+    parts = torch.split(llrs, dl_control.rx_plan(items, grid.numel())["e"])
+    n = len(dl.pdcch)
+    return ([pdcch.decode_dci(p, c) for p, c in zip(parts[:n], dl.pdcch)],
+            [ssb.pbch_decode_llrs(p, c) for p, c in zip(parts[n:], dl.ssb)])
+
+
+def alloc_kernel_cases(rng: np.random.Generator, device) -> dict:
+    """name -> (wrapper, plain twin, args) for the kernels of the DU-low's
+    allocation slots on seeded inputs: "control_llrs" K28 on slot E's five
+    DCIs and PBCH, "control_llrs_many" on 17 DCIs and the PBCH;
+    "dmrs_map_type0" K26 on slot E's type 0 PRBs with 61 PRG matrices,
+    "dmrs_map_interleaved" on slot F's PRBs, "dmrs_map_type2" type 2 with
+    4 layers on ports 0, 1, 4, 5 and a [4, 4] matrix; "pdsch_map_prg_type0"
+    K22 on slot E's plan, "pdsch_map_interleaved" K6 on slot F's,
+    "pdsch_map_nref" K6 on the flagship PDSCH with a limited buffer
+    (n_ref = 3N/4); "rate_dematch_type0" K2 at slot E's G and
+    "rate_dematch_nref" at the flagship PDSCH's with n_ref = 3N/4;
+    "polar_decode_al16" K15 on one AL16 DCI with its RNTI's syndrome and
+    "polar_decode_pbch" on one PBCH codeword, one codeword per launch as
+    the UE side decodes them."""
+    shape = (CELL.nof_ports, 14, CELL.nof_sc)
+
+    def cgrid(scale=1.0):
+        g = (rng.normal(size=shape) + 1j * rng.normal(size=shape)) * scale
+        return _up(g.astype(np.complex64), device)
+
+    def cmat(*s):
+        return _up(((rng.normal(size=s) + 1j * rng.normal(size=s)) / 2
+                    ).astype(np.complex64), device)
+
+    cases = {}
+    e_dcis = du_alloc_pdcchs("E")
+    for name, dcis in (("control_llrs", e_dcis),
+                       ("control_llrs_many", du_many_pdcchs())):
+        items = tuple([pdcch.rx_item(c, shape, 0.01) for c in dcis]
+                      + [ssb.rx_item(SSB, shape, 0, noise_var=0.02)])
+        cases[name] = (dl_control.control_llrs, dl_control.control_llrs_ref,
+                       (cgrid(), items))
+    type2 = dmrs.DmrsConfig(rb_start=0, rb_count=CELL.nof_rb, symbols=(2, 11),
+                            ports=(0, 1, 4, 5), scrambling_id=1,
+                            config_type=2, slot_in_frame=3)
+    for name, cfg, w, prg_size in (
+            ("dmrs_map_type0", pdsch.dmrs_config(DU_E_PDSCH),
+             cmat(len(DU_E_PDSCH.precoding.pm_indices), 4, 4), PRG_SIZE),
+            ("dmrs_map_interleaved", pdsch.dmrs_config(DU_F_PDSCH),
+             pdsch.identity(4, 4, device), 0),
+            ("dmrs_map_type2", type2, cmat(4, 4), 0)):
+        pil = _up(dmrs.pilot_values_for(cfg), device)
+        cases[name] = (_on_copy(dl_rs.dmrs_map), _on_copy(dl_rs.dmrs_map_ref),
+                       (cgrid(0.1), pil, w, cfg.ports, cfg.symbols,
+                        cfg.prb_list, prg_size, cfg.config_type))
+    n_ref = 3 * (pdsch.segmentation(PDSCH).codeword_bits // 4)
+    for name, cfg, w, nr in (
+            ("pdsch_map_prg_type0", DU_E_PDSCH,
+             pdsch.pm_matrices_for(CELL.nof_ports, DU_E_PDSCH, device), 0),
+            ("pdsch_map_interleaved", DU_F_PDSCH,
+             pdsch.identity(4, 4, device), 0),
+            ("pdsch_map_nref", PDSCH, pdsch.identity(4, 4, device), n_ref)):
+        tb = _up(rng.integers(0, 2, cfg.tbs).astype(np.int8), device)
+        cbs = ldpc_encode.dlsch_encode_ref(
+            tb, pdsch.segmentation(cfg).base_graph).contiguous()
+        prg = cfg.precoding.prg_size if cfg.precoding else 0
+        args = pdsch.map_args(cgrid(0.1), cfg, cbs, w) + (
+            prg, pdsch.prg_span(cfg)[0], nr)
+        cases[name] = (_map_on_copy(dl_map.pdsch_map),
+                       _map_on_copy(dl_map.pdsch_map_ref), args)
+    for name, cfg, nr in (("rate_dematch_type0", DU_E_PDSCH, 0),
+                          ("rate_dematch_nref", PDSCH, n_ref)):
+        seg = pdsch.segmentation(cfg)
+        e_sizes = pdsch.rate_match_sizes(cfg)
+        llr = _up(rng.normal(size=sum(e_sizes)).astype(np.float32), device)
+        soft = _up(rng.normal(size=(seg.nof_codeblocks, seg.codeword_bits)
+                              ).astype(np.float32), device)
+        cases[name] = (ldpc_rate_match.rate_dematch_combine,
+                       ldpc_rate_match.rate_dematch_combine_ref,
+                       (llr, seg.nof_codeblocks, e_sizes, cfg.rv, 8,
+                        seg.base_graph, seg.lifting_size, seg.cb_info_bits,
+                        seg.full_block_bits, seg.codeword_bits, soft, nr))
+    code = pdcch._dci_code(DU_ALLOC_DCI_BITS + 24, 16 * pdcch.BITS_PER_CCE)
+    for name, code, syndrome in (
+            ("polar_decode_al16", code,
+             pdcch.dci_syndrome(DU_ALLOC_DCI_BITS, e_dcis[0].rnti)),
+            ("polar_decode_pbch", ssb._pbch_code(), 0)):
+        msg = _up(rng.integers(0, 2, (1, code.k)).astype(np.int8), device)
+        x = polar.rate_match(polar.encode(polar.allocate(msg, code), code.n),
+                             code).to(torch.float32)
+        llr = (1.0 - 2.0 * x) + _up(0.8 * rng.normal(size=tuple(x.shape)),
+                                    device).to(torch.float32)
+        cases[name] = (polar.decode, polar.decode_ref,
+                       (llr.contiguous(), code, "crc24C", syndrome))
+    return cases

@@ -101,8 +101,8 @@ SIGNATURES = {
     "srsran_pucch_f2_demap": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _F,
                               _P, _P, _P],
     "srsran_short_block_detect": [_P, _I, _I, _I, _I, _P, _P, _P, _P],
-    "srsran_polar_decode": [_P, _I, _I, _I, _P, _P, _I, _P, _I, _I, _I, _P,
-                            _P, _P],
+    "srsran_polar_decode": [_P, _I, _I, _I, _P, _P, _I, _P, _I, _I, _I, _I,
+                            _P, _P, _P],
     "srsran_pusch_tp_demap": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I,
                               _P, _I, _I, _I, _P, _F, _P, _P, _P, _P],
     "srsran_pucch_f3_demap": [_P, _I, _I, _I, _P, _P, _I, _I, _P, _I, _I, _P,
@@ -115,9 +115,10 @@ SIGNATURES = {
                                        _P],
     "srsran_bfp_decompress": [_P, _P, _I, _P, _P],
     "srsran_rs_map": [RsSources, _P, _P, _P, _P, _P, _I, _P, _L, _I, _P],
-    "srsran_dmrs_map": [_P, _L, _I, _P, _I, _I, _I, _P, _L, _I, _I, _I, _P,
-                        _I, _I, _I, _I, _P],
+    "srsran_dmrs_map": [_P, _L, _P, _I, _I, _I, _P, _L, _I, _I, _P, _I, _I,
+                        _P, _I, _I, _I, _I, _P],
     "srsran_control_map": [ControlArgs, _I, _P, _I, _I, _I, _L, _I, _P],
+    "srsran_control_llrs": [_P, _P, _P, _I, _P, _P, _I, _F, _P, _P],
 }
 
 

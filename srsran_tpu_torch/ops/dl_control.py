@@ -1,4 +1,5 @@
-"""DL control map: K27, csrc/dl_control_map.cu.
+"""DL control map (K27, csrc/dl_control_map.cu) and its UE-side receive
+demap (K28, csrc/dl_control_rx.cu).
 
 The JAX package computes the PDCCH's and the PBCH's whole bit chain as one
 GF(2) affine map in each function's body (srsran_tpu/phy/upper/pdcch.py::
@@ -10,23 +11,46 @@ by phy/upper/pdcch.py or ssb.py, whose ``ref`` is the plain version of
 that PDU (the port's GF(2) product as a float product reduced mod 2, QPSK
 and the patch add).  On CPU tensors the items' plain versions run in plan
 order.
+
+K28, :func:`control_llrs`: the receive side of the same PDUs.  The JAX
+package's UE-side receivers (srsran_tpu/phy/upper/pdcch.py::recover
+:311-317, ssb.py::pbch_decode :356-361) gather a codeword's data REs from
+a grid, demap them to max-log QPSK LLRs at a given noise variance
+(ops/modulation.py::demodulate) and descramble them with a Gold sequence
+(ops/scrambling.py::descramble_llrs).  The port describes each codeword as
+an :class:`RxItem` -- its RE offsets in the grid, noise variance, Gold
+c_init and advance -- and one launch computes the LLRs of every codeword
+of a slot (every DCI and the PBCH), in item order, into one flat buffer;
+:func:`control_llrs_ref` is its twin, the JAX chain op for op.  The polar
+decode that follows is K15 (ops/polar.py::decode).
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
+from typing import Callable
 
 import numpy as np
 import torch
 
 from .. import kernels
-from ..device import is_cuda
+from ..device import const, is_cuda
 from ..kernels import _build
+from .gold import gold_sequence_np
+from .modulation import demodulate
+from .scrambling import descramble_llrs
 
 KERNEL = kernels.register(kernels.Kernel(
     name="control_map", route="cuda",
     source="srsran_tpu_torch/csrc/dl_control_map.cu",
     replaces="srsran_tpu/phy/upper/pdcch.py:283"))
+
+KERNEL_RX = kernels.register(kernels.Kernel(
+    name="control_llrs", route="cuda",
+    source="srsran_tpu_torch/csrc/dl_control_rx.cu",
+    replaces="srsran_tpu/phy/upper/pdcch.py:310"))
 
 QPSK = float(np.float32(2 ** -0.5))
 MAX_WORDS = 8                 # csrc/dl_control_map.cu kMaxWords
@@ -186,3 +210,97 @@ def _launch(grid: torch.Tensor, items: tuple, lead: tuple) -> None:
         "control_map")
     del keep
     KERNEL.count()
+
+
+# ------------------------------------------------------------------ K28
+
+@dataclasses.dataclass(frozen=True)
+class RxItem:
+    """One codeword of K28: ``re_fn(*re_args)`` its data REs as int64 flat
+    offsets into the grid, in the codeword's symbol order (E / 2 of them);
+    the noise variance of its max-log LLRs; its Gold scrambling seed and
+    advance (a PDCCH: (n_rnti << 16) + n_id_data, 0; the PBCH: the cell
+    id, v * 864)."""
+
+    re_fn: Callable
+    re_args: tuple
+    noise_var: float
+    c_init: int
+    advance: int = 0
+
+
+@functools.lru_cache(maxsize=256)
+def rx_plan(items: tuple, grid_size: int) -> dict:
+    """The host plan of one K28 launch: ``re`` int32 [R] every codeword's
+    RE offsets in item order, ``re_off`` int32 [B + 1] each codeword's
+    first RE, ``nv`` float32 [B], ``gold`` int32 words of every LLR's Gold
+    bit packed LSB first, ``e`` the codewords' LLR counts."""
+    res = [np.asarray(it.re_fn(*it.re_args), np.int64) for it in items]
+    for r in res:
+        if r.size and (r.min() < 0 or r.max() >= grid_size):
+            raise ValueError(f"K28 REs outside a grid of {grid_size}")
+    re_off = np.concatenate([[0], np.cumsum([r.size for r in res])])
+    bits = np.concatenate([gold_sequence_np(it.c_init, 2 * r.size,
+                                            it.advance)
+                           for it, r in zip(items, res)] + [
+        np.zeros(0, np.uint8)])
+    packed = np.packbits(bits, bitorder="little")
+    packed = np.concatenate([packed, np.zeros(-len(packed) % 4, np.uint8)])
+    return dict(re=np.concatenate(res + [np.zeros(0, np.int64)]).astype(
+                    np.int32),
+                re_off=re_off.astype(np.int32),
+                nv=np.array([it.noise_var for it in items], np.float32),
+                gold=packed.view("<u4").view(np.int32),
+                e=tuple(2 * r.size for r in res))
+
+
+def _rx_array(items: tuple, grid_size: int, name: str) -> np.ndarray:
+    return rx_plan(items, grid_size)[name]
+
+
+def control_llrs_ref(grid: torch.Tensor, items: tuple) -> torch.Tensor:
+    """Plain twin of :func:`control_llrs`: per codeword, the JAX chain --
+    the RE gather, ``demodulate(..., "qpsk")`` at the codeword's noise
+    variance and ``descramble_llrs`` -- op for op."""
+    flat = grid.reshape(-1)
+    outs = []
+    for it in items:
+        re = torch.as_tensor(np.asarray(it.re_fn(*it.re_args), np.int64),
+                             device=grid.device)
+        syms = flat[re]
+        nv = torch.full(syms.shape, it.noise_var, dtype=torch.float32,
+                        device=grid.device)
+        llr = demodulate(syms[None], nv[None], "qpsk")
+        outs.append(descramble_llrs(llr, it.c_init, it.advance)[0])
+    if not outs:
+        return torch.zeros(0, dtype=torch.float32, device=grid.device)
+    return torch.cat(outs)
+
+
+def control_llrs(grid: torch.Tensor, items: tuple) -> torch.Tensor:
+    """LLRs float32 [sum E] of every codeword in ``items`` (:class:`RxItem`,
+    in order), read from ``grid`` (complex64, any shape, contiguous: the
+    items' offsets index it flat).  Split them with ``rx_plan(items,
+    grid.numel())["e"]``.  One launch for all the codewords."""
+    items = tuple(items)
+    if not is_cuda(grid):
+        return control_llrs_ref(grid, items)
+    if grid.dtype != torch.complex64 or not grid.is_contiguous():
+        raise ValueError("the grid must be contiguous complex64")
+    n = grid.numel()
+    plan = rx_plan(items, n)
+    nre = int(plan["re"].size)
+    out = torch.empty(2 * nre, dtype=torch.float32, device=grid.device)
+    if nre == 0:
+        return out
+    re, re_off, nv, gold = (const(_rx_array, items, n, name,
+                                  device=grid.device)
+                            for name in ("re", "re_off", "nv", "gold"))
+    lib = _build.load()
+    _build.check(lib.srsran_control_llrs(
+        _build.ptr(torch.view_as_real(grid)), _build.ptr(re),
+        _build.ptr(re_off), len(items), _build.ptr(nv), _build.ptr(gold),
+        nre, ctypes.c_float(QPSK), _build.ptr(out), _build.stream_of(grid)),
+        "control_llrs")
+    KERNEL_RX.count()
+    return out

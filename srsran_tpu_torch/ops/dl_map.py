@@ -28,7 +28,7 @@ from .. import kernels
 from ..device import const, is_cuda
 from ..kernels import _build
 from .gold import gold_sequence_np
-from .ldpc_rate_match import _check_n_ref, _window_plan, rate_match_batch
+from .ldpc_rate_match import _window_plan, rate_match_batch
 from .modulation import BITS_PER_SYMBOL, modulate, pam_levels_scaled
 from .precoding import layer_map, precode, precode_prg
 from .scrambling import scramble_bits
@@ -48,7 +48,7 @@ _MAX_LAYERS = 4
 
 def pdsch_map_ref(grid, cbs, e_sizes, rv, modulation, base_graph, z, k_prime,
                   k, c_init, nof_layers, sym_idx, sc_idx, precoder,
-                  prg_size: int = 0, rb_start: int = 0):
+                  prg_size: int = 0, rb_start: int = 0, n_ref: int = 0):
     """Plain twin of :func:`pdsch_map` (a slot axis runs slot by slot)."""
     if grid.ndim == 4:
         per_slot = precoder.ndim == (4 if prg_size else 3)
@@ -56,11 +56,11 @@ def pdsch_map_ref(grid, cbs, e_sizes, rv, modulation, base_graph, z, k_prime,
             pdsch_map_ref(grid[b], cbs[b], e_sizes, rv, modulation,
                           base_graph, z, k_prime, k, c_init, nof_layers,
                           sym_idx, sc_idx, precoder[b] if per_slot else precoder,
-                          prg_size, rb_start)
+                          prg_size, rb_start, n_ref)
         return grid
     qm = BITS_PER_SYMBOL[modulation]
     codeword = rate_match_batch(cbs, e_sizes, rv, qm, base_graph, z, k_prime,
-                                k)                                 # [G]
+                                k, n_ref)                          # [G]
     scrambled = scramble_bits(codeword[None], c_init)
     symbols = modulate(scrambled, modulation)                     # [1, S]
     layers = layer_map(symbols[0], nof_layers)                    # [L, S/L]
@@ -95,7 +95,8 @@ def pdsch_map(grid: torch.Tensor, cbs: torch.Tensor, e_sizes, rv: int,
               modulation: str, base_graph: int, z: int, k_prime: int, k: int,
               c_init: int, nof_layers: int, sym_idx: torch.Tensor,
               sc_idx: torch.Tensor, precoder: torch.Tensor,
-              prg_size: int = 0, rb_start: int = 0) -> torch.Tensor:
+              prg_size: int = 0, rb_start: int = 0,
+              n_ref: int = 0) -> torch.Tensor:
     """Add one codeword's PDSCH data REs to the grid (in place).
 
     grid complex64 [P, S, K]; cbs int8 [C, N] encoded codeblocks (2Z
@@ -107,12 +108,14 @@ def pdsch_map(grid: torch.Tensor, cbs: torch.Tensor, e_sizes, rv: int,
 
     Per-PRG precoding (K22): ``prg_size`` > 0 and ``precoder`` a table
     [G, P, L] of the allocation's PRGs, from the one holding PRB
-    ``rb_start``; the caller checks that G covers the allocation.
+    ``rb_start`` (the first allocated PRB); the caller checks that G
+    covers the allocation.  ``n_ref`` > 0 cuts the circular buffer at
+    min(n_ref, N) (limited-buffer rate matching).
     """
     if not is_cuda(grid, cbs, sym_idx, sc_idx, precoder):
         return pdsch_map_ref(grid, cbs, e_sizes, rv, modulation, base_graph,
                              z, k_prime, k, c_init, nof_layers, sym_idx,
-                             sc_idx, precoder, prg_size, rb_start)
+                             sc_idx, precoder, prg_size, rb_start, n_ref)
     qm = BITS_PER_SYMBOL[modulation]
     if modulation not in ("qpsk", "qam16", "qam64", "qam256"):
         raise NotImplementedError(f"{modulation} PDSCH map on the card")
@@ -140,8 +143,7 @@ def pdsch_map(grid: torch.Tensor, cbs: torch.Tensor, e_sizes, rv: int,
     if (sym_idx.dtype != torch.int32 or sc_idx.dtype != torch.int32
             or not grid.is_contiguous()):
         raise ValueError("the RE plan must be int32 and the grid contiguous")
-    _check_n_ref(0, n)
-    fs, fe, n_nf, k0p = _window_plan(rv, base_graph, z, k_prime, k, n)
+    fs, fe, n_nf, k0p = _window_plan(rv, base_graph, z, k_prime, k, n, n_ref)
     dev = grid.device
     lib = _build.load()
     bounds = const(_cb_bounds, e_sizes, device=dev)

@@ -13,9 +13,10 @@ the plain twin :func:`rs_map_ref` adds the same terms rank by rank with
 products and sums rounded one by one, as the kernel rounds them.
 
 K26, :func:`dmrs_map`.  srsran_tpu/phy/upper/dmrs.py::map_to_grid (:198)
-adds the type-1 DM-RS of each layer, precoded by the port's matrix or by
-the RE's PRG matrix; the kernel does it for every layer, symbol and port in
-one launch, and :func:`dmrs_map_ref` is its twin.
+adds the DM-RS of each layer (configuration type 1 or 2, on a contiguous
+or scattered PRB set), precoded by the port's matrix or by the RE's PRG
+matrix; the kernel does it for every layer, symbol and port in one launch,
+and :func:`dmrs_map_ref` is its twin.
 
 On CPU tensors both run their twins; on CUDA tensors they launch their
 kernel or raise.  Both take a leading slot axis on the grid (the
@@ -199,44 +200,64 @@ def _rs_launch(grid: torch.Tensor, items: tuple, values: tuple,
 
 # ------------------------------------------------------------------ K26
 
-def _check_dmrs(ports: tuple, symbols: tuple) -> None:
-    if not 1 <= len(ports) <= _MAX_LAYERS or not set(ports) <= {0, 1, 2, 3}:
-        raise ValueError(f"DM-RS ports {ports} (type 1, ports 0..3)")
+# Per PRB, per configuration type: the pilots one CDM group takes.
+PILOTS_PER_PRB = {1: 6, 2: 4}
+
+
+def _check_dmrs(ports: tuple, symbols: tuple, config_type: int) -> None:
+    allowed = {1: {0, 1, 2, 3}, 2: {0, 1, 2, 3, 4, 5}}.get(config_type)
+    if allowed is None:
+        raise ValueError(f"DM-RS configuration type {config_type} (1 or 2)")
+    if not 1 <= len(ports) <= _MAX_LAYERS or not set(ports) <= allowed:
+        raise ValueError(f"DM-RS ports {ports} (type {config_type}, ports "
+                         f"{min(allowed)}..{max(allowed)}, at most "
+                         f"{_MAX_LAYERS} layers)")
     if not 1 <= len(symbols) <= 4:
         raise ValueError(f"{len(symbols)} DM-RS symbols (the kernel takes 1..4)")
 
 
-@functools.lru_cache(maxsize=None)
-def _comb(rb_start: int, rb_count: int, delta: int) -> np.ndarray:
-    return (rb_start * 12 + 2 * np.arange(6 * rb_count) + delta).astype(np.int64)
+@functools.lru_cache(maxsize=256)
+def _comb(prbs, group: int, config_type: int) -> np.ndarray:
+    """int64 [per_rb * len(prbs)]: the subcarriers of CDM group ``group``
+    over the PRBs, in pilot order (type 1: 12 p + 2 i + group, i < 6; type
+    2: 12 p + 2 group + {0, 1, 6, 7}; JAX dmrs.py:43-49, :164-173)."""
+    offs = (2 * np.arange(6) + group if config_type == 1
+            else 2 * group + np.array([0, 1, 6, 7]))
+    return (12 * np.asarray(prbs, np.int64)[:, None] + offs[None, :]
+            ).reshape(-1)
 
 
 @functools.lru_cache(maxsize=None)
 def _cover(port: int, nsym: int, npil: int) -> np.ndarray:
-    """float32 [nsym, npil]: w_f (-1 on odd pilots for ports 1 and 3) times
-    w_t (+1 for ports 0-3)."""
+    """float32 [nsym, npil]: w_f (-1 on odd pilots for odd ports) times w_t
+    (+1 for every port of either type)."""
     wf = np.where((np.arange(npil) % 2 == 1) & (port % 2 == 1), -1.0, 1.0)
     return np.broadcast_to(wf, (nsym, npil)).astype(np.float32)
 
 
+def _prb_table(prbs) -> np.ndarray:
+    return np.asarray(prbs, np.int32)
+
+
 def dmrs_map_ref(grid: torch.Tensor, pilots: torch.Tensor, w, ports: tuple,
-                 symbols: tuple, rb_start: int, rb_count: int,
-                 prg_size: int = 0) -> torch.Tensor:
+                 symbols: tuple, prbs, prg_size: int = 0,
+                 config_type: int = 1) -> torch.Tensor:
     """Plain twin of :func:`dmrs_map`: layer after layer, as the JAX
     package adds them, with the precoder's products and sums rounded one by
     one in the kernel's order."""
-    _check_dmrs(ports, symbols)
+    _check_dmrs(ports, symbols, config_type)
     dev = grid.device
     nsym, npil = pilots.shape[-2:]
     for li, port in enumerate(ports):
-        sc = const(_comb, rb_start, rb_count, port >> 1, device=dev)
+        # the port's CDM group is port >> 1 in both types
+        sc = const(_comb, prbs, port >> 1, config_type, device=dev)
         p_l = pilots * const(_cover, port, nsym, npil, device=dev)
         if w is None:
             for si, l in enumerate(symbols):
                 grid[..., li, l, sc] += p_l[..., si, :]
             continue
         if prg_size:
-            prg = sc // 12 // prg_size - rb_start // prg_size
+            prg = sc // 12 // prg_size - prbs[0] // prg_size
             wl = w[..., li][..., prg, :].transpose(-1, -2)  # [(B,) P, K]
         else:
             wl = w[..., :, li, None]                        # [(B,) P, 1]
@@ -250,33 +271,38 @@ def dmrs_map_ref(grid: torch.Tensor, pilots: torch.Tensor, w, ports: tuple,
 
 
 def dmrs_map(grid: torch.Tensor, pilots: torch.Tensor, w, ports: tuple,
-             symbols: tuple, rb_start: int, rb_count: int,
-             prg_size: int = 0) -> torch.Tensor:
+             symbols: tuple, prbs, prg_size: int = 0,
+             config_type: int = 1) -> torch.Tensor:
     """Add the DL DM-RS of every layer into the grid (in place).
 
     grid complex64 [P, S, K] (or [B, P, S, K]); pilots the base QPSK
-    sequences complex64 [nsym, 6 * rb_count] (or [B, ...]); w None (layer
-    l on port l), a [P, L] matrix, or with ``prg_size`` > 0 a [G, P, L]
-    table of the allocation's PRGs from the one holding PRB ``rb_start``
-    (each shared or [B, ...]); ports the layers' DM-RS ports (type 1, 0..3);
-    symbols the DM-RS symbols.  Returns the grid.
+    sequences complex64 [nsym, per_rb * len(prbs)] (or [B, ...]), per_rb
+    6 for configuration type 1 and 4 for type 2; w None (layer l on port
+    l), a [P, L] matrix, or with ``prg_size`` > 0 a [G, P, L] table of the
+    allocation's PRGs from the one holding its first PRB (each shared or
+    [B, ...]); ports the layers' DM-RS ports (type 1: 0..3, type 2: 0..5);
+    symbols the DM-RS symbols; prbs the allocation's sorted PRBs (a
+    ``range`` for a contiguous one), uploaded once per allocation as the
+    kernel's PRB table.  Returns the grid.
     """
     tensors = (grid, pilots) + ((w,) if w is not None else ())
     if not is_cuda(*tensors):
-        return dmrs_map_ref(grid, pilots, w, ports, symbols, rb_start,
-                            rb_count, prg_size)
-    _check_dmrs(ports, symbols)
+        return dmrs_map_ref(grid, pilots, w, ports, symbols, prbs, prg_size,
+                            config_type)
+    _check_dmrs(ports, symbols, config_type)
     lead = tuple(grid.shape[:-3])
     p, s, k = grid.shape[-3:]
-    npil = 6 * rb_count
+    nprb = len(prbs)
+    npil = PILOTS_PER_PRB[config_type] * nprb
     n_l = len(ports)
     if (grid.dtype != torch.complex64 or not grid.is_contiguous()
             or len(lead) > 1 or pilots.dtype != torch.complex64
             or pilots.shape[-2:] != (len(symbols), npil)
-            or tuple(pilots.shape[:-2]) not in ((), lead)):
+            or tuple(pilots.shape[:-2]) not in ((), lead)
+            or nprb == 0 or min(prbs) < 0 or 12 * (max(prbs) + 1) > k):
         raise ValueError(f"DM-RS map: grid {tuple(grid.shape)}, pilots "
                          f"{tuple(pilots.shape)} vs {len(symbols)} symbols "
-                         f"x {npil}")
+                         f"x {npil}, {nprb} PRBs")
     w_ptr, w_stride = None, 0
     if w is not None:
         table = 1 if prg_size else 0
@@ -290,15 +316,16 @@ def dmrs_map(grid: torch.Tensor, pilots: torch.Tensor, w, ports: tuple,
         w_stride = w[0].numel() // 2 if w_lead else 0
     pilots = pilots.contiguous()
     sym = const(_symbols_array, tuple(symbols), device=grid.device)
+    prb_t = const(_prb_table, prbs, device=grid.device)
     lib = _build.load()
     _build.check(lib.srsran_dmrs_map(
         _build.ptr(torch.view_as_real(pilots)),
         ctypes.c_longlong(len(symbols) * npil if pilots.ndim == 3 else 0),
-        npil, _build.ptr(sym), len(symbols),
+        _build.ptr(sym), len(symbols),
         sum(pt << (8 * i) for i, pt in enumerate(ports)), n_l, w_ptr,
         ctypes.c_longlong(w_stride), prg_size,
-        rb_start // prg_size if prg_size else 0, rb_start,
-        _build.ptr(torch.view_as_real(grid)), p, s, k,
+        prbs[0] // prg_size if prg_size else 0, _build.ptr(prb_t), nprb,
+        config_type, _build.ptr(torch.view_as_real(grid)), p, s, k,
         lead[0] if lead else 1, _build.stream_of(grid)), "dmrs_map")
     KERNEL_DMRS.count()
     return grid

@@ -3,7 +3,10 @@
 Port of srsran_tpu/ops/ldpc_rate_match.py.  Bit selection is a circular
 contiguous window over the filler-free circular buffer (start k0'), so both
 directions use the one geometry of :func:`_window_plan`; the JAX package's
-second, environment-selected formulation is not carried.
+second, environment-selected formulation is not carried.  Limited-buffer
+rate matching (``n_ref`` < N) cuts the circular buffer at n_cb = n_ref:
+the window and the filler range stay inside it, and the dematched
+columns n_cb .. N-1 hold 0 (JAX ldpc_rate_match.py:147, :190-202).
 
 :func:`rate_dematch_combine` is the K2 wrapper: on CUDA tensors the
 dematch, the HARQ soft-buffer add and the decoder-input layout (2Z zero
@@ -60,21 +63,14 @@ def _group_e_sizes(e_sizes: tuple):
     return groups
 
 
-def _check_n_ref(n_ref: int, n: int) -> None:
-    if n_ref and n_ref < n:
-        raise NotImplementedError(
-            "limited-buffer rate matching (n_ref < N) is not ported yet "
-            "(ROADMAP §1 item 13b)")
-
-
 def rate_match_batch(codewords: torch.Tensor, e_sizes, rv: int, qm: int,
                      base_graph: int, z: int, k_prime: int, k: int,
                      n_ref: int = 0) -> torch.Tensor:
     """Rate-match all codeblocks of a TB: int8 [C, N] -> int8 [G]."""
     _, n = codewords.shape
-    _check_n_ref(n_ref, n)
     fs, fe, n_nf, k0p = _window_plan(rv, base_graph, z, k_prime, k, n, n_ref)
-    nofill = torch.cat([codewords[:, :fs], codewords[:, fe:n]], dim=1)
+    n_cb = n_nf + fe - fs
+    nofill = torch.cat([codewords[:, :fs], codewords[:, fe:n_cb]], dim=1)
     outs = []
     for g0, g1, e in _group_e_sizes(tuple(e_sizes)):
         reps = -(-(k0p + e) // n_nf)
@@ -90,9 +86,10 @@ def rate_dematch_batch(llrs: torch.Tensor, nof_codeblocks: int, e_sizes,
                        k_prime: int, k: int, n: int, n_ref: int = 0,
                        filler_llr: float = FILLER_LLR) -> torch.Tensor:
     """Inverse of rate_match_batch: f32 [G] -> f32 [C, N], summing
-    repetitions in window order and setting filler LLRs."""
-    _check_n_ref(n_ref, n)
+    repetitions in window order and setting filler LLRs; the columns past
+    the limited buffer (n_cb .. N-1) hold 0."""
     fs, fe, n_nf, k0p = _window_plan(rv, base_graph, z, k_prime, k, n, n_ref)
+    n_cb = n_nf + fe - fs
     accs = []
     off = 0
     for g0, g1, e in _group_e_sizes(tuple(e_sizes)):
@@ -103,28 +100,32 @@ def rate_dematch_batch(llrs: torch.Tensor, nof_codeblocks: int, e_sizes,
         reps = -(-(k0p + e) // n_nf)
         buf = llrs.new_zeros((cg, reps * n_nf))
         buf[:, k0p:k0p + e] = sel
-        accs.append(buf.reshape(cg, reps, n_nf).sum(dim=1))      # [cg, n_nf]
+        buf = buf.reshape(cg, reps, n_nf)
+        acc = buf[:, 0]
+        for r in range(1, reps):        # in window order, as K2 sums them
+            acc = acc + buf[:, r]
+        accs.append(acc)                                         # [cg, n_nf]
     acc = torch.cat(accs, dim=0) if len(accs) > 1 else accs[0]
-    out = llrs.new_empty((nof_codeblocks, n))
+    out = llrs.new_zeros((nof_codeblocks, n))
     out[:, :fs] = acc[:, :fs]
-    out[:, fe:] = acc[:, fs:]
+    out[:, fe:n_cb] = acc[:, fs:]
     out[:, fs:fe] = filler_llr
     return out
 
 
 def rate_dematch_combine_ref(llrs, nof_codeblocks, e_sizes, rv, qm,
                              base_graph, z, k_prime, k, n,
-                             soft_buffer=None):
+                             soft_buffer=None, n_ref: int = 0):
     """Plain twin of :func:`rate_dematch_combine` (a slot axis runs slot
     by slot)."""
     if llrs.ndim == 2:
         outs = [rate_dematch_combine_ref(
             llrs[b], nof_codeblocks, e_sizes, rv, qm, base_graph, z, k_prime,
-            k, n, None if soft_buffer is None else soft_buffer[b])
+            k, n, None if soft_buffer is None else soft_buffer[b], n_ref)
             for b in range(llrs.shape[0])]
         return tuple(torch.stack(o) for o in zip(*outs))
     buf = rate_dematch_batch(llrs, nof_codeblocks, e_sizes, rv, qm,
-                             base_graph, z, k_prime, k, n)
+                             base_graph, z, k_prime, k, n, n_ref)
     if soft_buffer is not None:
         buf = buf + soft_buffer
     full = torch.cat([buf.new_zeros((nof_codeblocks, 2 * z)), buf], dim=-1)
@@ -147,8 +148,10 @@ def _cb_sizes(e_sizes: tuple, slots: int = 1) -> np.ndarray:
 def rate_dematch_combine(llrs: torch.Tensor, nof_codeblocks: int, e_sizes,
                          rv: int, qm: int, base_graph: int, z: int,
                          k_prime: int, k: int, n: int,
-                         soft_buffer: torch.Tensor | None = None):
-    """Dematch the codeword LLRs [G] and combine with the HARQ buffer.
+                         soft_buffer: torch.Tensor | None = None,
+                         n_ref: int = 0):
+    """Dematch the codeword LLRs [G] and combine with the HARQ buffer
+    (``n_ref``: the limited buffer's length, 0 for the full N).
 
     Returns (new_soft f32 [C, N], decoder input f32 [C, 2Z + N]): new_soft
     is the combined circular buffer (the next HARQ state); the decoder input
@@ -160,7 +163,7 @@ def rate_dematch_combine(llrs: torch.Tensor, nof_codeblocks: int, e_sizes,
     if not is_cuda(*tensors):
         return rate_dematch_combine_ref(llrs, nof_codeblocks, e_sizes, rv, qm,
                                         base_graph, z, k_prime, k, n,
-                                        soft_buffer)
+                                        soft_buffer, n_ref)
     e_sizes = tuple(int(e) for e in e_sizes)
     lead = tuple(llrs.shape[:-1])
     if len(e_sizes) != nof_codeblocks or any(e % qm for e in e_sizes):
@@ -175,7 +178,7 @@ def rate_dematch_combine(llrs: torch.Tensor, nof_codeblocks: int, e_sizes,
             or soft_buffer.shape != lead + (nof_codeblocks, n)):
         raise ValueError(f"soft buffer must be f32 {lead + (nof_codeblocks, n)}")
     slots = lead[0] if lead else 1
-    fs, fe, n_nf, k0p = _window_plan(rv, base_graph, z, k_prime, k, n)
+    fs, fe, n_nf, k0p = _window_plan(rv, base_graph, z, k_prime, k, n, n_ref)
     dev = llrs.device
     lib = _build.load()
     off = const(_cb_offsets, e_sizes, slots, device=dev)

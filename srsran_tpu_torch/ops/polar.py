@@ -29,7 +29,7 @@ from ..device import const, is_cuda
 from ..kernels import _build
 from ..ran.polar_params import (PolarCode, input_interleave_map,
                                 subblock_interleave_map)
-from .crc import POLYS, crc_check
+from .crc import POLYS, crc
 
 KERNEL = kernels.register(kernels.Kernel(
     name="polar_decode", route="cuda",
@@ -325,18 +325,35 @@ def _dematch_tables(n: int, e: int, mode: str, ibil: bool) -> np.ndarray:
                     ).astype(np.int32)
 
 
-def decode_ref(llrs: torch.Tensor, code: PolarCode, crc_name: str) -> tuple:
+def _bit_weights(length: int) -> np.ndarray:
+    return (1 << np.arange(length - 1, -1, -1)).astype(np.int64)
+
+
+def crc_word(bits: torch.Tensor, crc_name: str) -> torch.Tensor:
+    """int64 [...]: the CRC remainder of each message's K bits (its
+    trailing CRC included) as a word, MSB first; 0 where a plain trailing
+    CRC matches."""
+    c = crc(bits, crc_name).to(torch.int64)                       # [..., L]
+    return (c * const(_bit_weights, POLYS[crc_name][0],
+                      device=bits.device)).sum(dim=-1)
+
+
+def decode_ref(llrs: torch.Tensor, code: PolarCode, crc_name: str,
+               syndrome: int = 0) -> tuple:
     """Plain twin of :func:`decode`."""
     bits = sc_decode(rate_dematch(llrs, code), code)
-    return bits, crc_check(bits, crc_name)
+    return bits, crc_word(bits, crc_name) == int(syndrome)
 
 
-def decode(llrs: torch.Tensor, code: PolarCode, crc_name: str) -> tuple:
+def decode(llrs: torch.Tensor, code: PolarCode, crc_name: str,
+           syndrome: int = 0) -> tuple:
     """Received LLRs f32 [B, E] -> (message bits int8 [B, K], CRC ok bool
-    [B]): rate dematch, SC decode and the check of the message's trailing
-    CRC (``crc_name``, e.g. "crc11")."""
+    [B]): rate dematch, SC decode and the check of the message's CRC
+    (``crc_name``, e.g. "crc11"): its remainder over the K decoded bits
+    must equal ``syndrome`` -- 0 for a plain trailing CRC, a DCI's
+    :func:`pdcch.dci_syndrome` for its RNTI."""
     if not is_cuda(llrs):
-        return decode_ref(llrs, code, crc_name)
+        return decode_ref(llrs, code, crc_name, syndrome)
     if llrs.dtype != torch.float32 or llrs.ndim != 2 or llrs.shape[1] != code.e:
         raise ValueError(f"llrs must be float32 [B, {code.e}], got "
                          f"{llrs.dtype} {tuple(llrs.shape)}")
@@ -355,7 +372,8 @@ def decode(llrs: torch.Tensor, code: PolarCode, crc_name: str) -> tuple:
     _build.check(lib.srsran_polar_decode(
         _build.ptr(llrs), b, code.e, code.n, _build.ptr(tables),
         _build.ptr(program), program.shape[0], _build.ptr(readout), code.k,
-        crc_len, poly, _build.ptr(bits), _build.ptr(ok),
-        _build.stream_of(llrs)), "polar_decode")
+        crc_len, poly, int(syndrome),
+        _build.ptr(bits), _build.ptr(ok), _build.stream_of(llrs)),
+        "polar_decode")
     KERNEL.count()
     return bits, ok

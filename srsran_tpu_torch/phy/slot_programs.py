@@ -3,14 +3,15 @@
 Port of srsran_tpu/phy/slot_programs.py.  A slot plan (the tuple of PDU
 configs) selects a program; the program is a Python closure over the plan,
 cached per (cell, plan, slot_in_subframe), that runs eagerly on the device
-of its input tensors.  The DL program covers SSB, PDCCH and PDSCH plans
-(the flagship DL slot, and the UE-side test transmitter); the UL program
+of its input tensors.  The DL program covers SSB, PDCCH, PDSCH (every
+allocation: contiguous, RA type 0, interleaved VRBs), CSI-RS, PT-RS and
+PRS plans (the flagship DL slot, the DU-low's slots, and the UE-side test
+transmitter); the UL program
 PUSCH (1-4 layers, ZF or MMSE, UCI on PUSCH, frequency hopping, transform
 precoding), PUCCH formats 0 to 4, PRACH and SRS plans (the JAX bench's
 full UL mix, the conductor's UCI PDUs, the two-UE and the cell-edge
 slots).
-Every other plan entry raises NotImplementedError naming the ROADMAP item
-that ports it.
+The cbf16 grid raises NotImplementedError naming its ROADMAP entry.
 
 On CUDA both programs run without a host sync: their constants are cached
 on the device after the first call, the slot context and payloads arrive
@@ -150,12 +151,10 @@ def _ctx_leaf(ctx, kind: str, i: int):
 # ----------------------------------------------------------------- DL slot
 
 def _dl_plan(cell: CellConfig, plan) -> tuple:
-    """The DL plan with its fifth entry, after the unsupported checks."""
+    """The DL plan with its fifth entry, after the cell check."""
     _check_cell(cell)
     if len(plan) == 4:
         plan = plan + ((),)
-    for cfg in plan[2]:
-        pdsch_mod.check_supported(cfg)
     return plan
 
 

@@ -1,7 +1,11 @@
-"""DM-RS for PDSCH/PUSCH, configuration type 1 (TS38.211 §7.4.1.1, §6.4.1.1).
+"""DM-RS for PDSCH/PUSCH (TS38.211 §7.4.1.1, §6.4.1.1).
 
-Port of srsran_tpu/phy/upper/dmrs.py for contiguous type-1 allocations:
-QPSK Gold pilots on a comb with per-port frequency/time covers.  Pilot
+Port of srsran_tpu/phy/upper/dmrs.py: QPSK Gold pilots of configuration
+type 1 (a comb of 6 per PRB, ports 0-3) or type 2 (4 per PRB in CDM pairs,
+ports 0-5) with per-port frequency/time covers, on a contiguous allocation
+or, for type 1, on a scattered PRB set (RA type 0, interleaved VRBs): the
+Gold sequence runs over the covering span at absolute positions and the
+allocated PRBs' columns are selected (:func:`_prb_pilot_select`).  Pilot
 base sequences are built on the host (:func:`pilot_values_for`) and
 uploaded; the slot programs take either those values (the conductor's
 slot context) or per-symbol c_init seeds.  The grid map runs as K26
@@ -30,6 +34,18 @@ TYPE1_PORT_CONFIG = {
     3: (1, (+1, -1), (+1, +1)),
 }
 
+# Type-2 (TS38.211 Table 7.4.1.1.2-2): 3 CDM groups of adjacent RE pairs,
+# group lambda occupies subcarriers {2λ, 2λ+1, 2λ+6, 2λ+7} per PRB (the
+# comb of ops/dl_rs.py::_comb); ports 0..5 -> (group, w_f over the pair).
+TYPE2_PORT_CONFIG = {
+    0: (0, (+1, +1), (+1, +1)),
+    1: (0, (+1, -1), (+1, +1)),
+    2: (1, (+1, +1), (+1, +1)),
+    3: (1, (+1, -1), (+1, +1)),
+    4: (2, (+1, +1), (+1, +1)),
+    5: (2, (+1, -1), (+1, +1)),
+}
+
 
 @dataclasses.dataclass(frozen=True)
 class DmrsConfig:
@@ -38,24 +54,49 @@ class DmrsConfig:
     rb_start: int
     rb_count: int
     symbols: tuple            # DM-RS symbol indices within the slot
-    ports: tuple              # DM-RS port indices (0..3, type 1)
+    ports: tuple              # DM-RS port indices (0..3 type 1, 0..5 type 2)
     scrambling_id: int        # N_ID^{0/1}
     n_scid: int = 0
     config_type: int = 1      # DM-RS configuration type 1 or 2
     numerology: int = 0
     slot_in_frame: int = 0    # n_slot for c_init
     amplitude: float = 1.0    # beta_dmrs
+    # Non-contiguous allocation (RA type 0 / interleaved VRB-PRB): sorted
+    # absolute PRB tuple; overrides rb_start/rb_count for the comb
+    # positions and the pilot selection.
     prbs: tuple | None = None
 
+    @property
+    def prb_list(self) -> tuple | range:
+        """The allocation's sorted PRBs (K26's PRB table): ``prbs``, or
+        the contiguous ``range``."""
+        if self.prbs is not None:
+            return tuple(sorted(self.prbs))
+        return range(self.rb_start, self.rb_start + self.rb_count)
 
-def _check_supported(cfg: DmrsConfig) -> None:
-    if cfg.config_type != 1:
-        raise NotImplementedError(
-            "DM-RS type 2 is not ported yet (ROADMAP §1 item 13b)")
-    if cfg.prbs is not None:
-        raise NotImplementedError(
-            "non-contiguous (RA type 0) DM-RS is not ported yet "
-            "(ROADMAP §1 item 13b)")
+
+@functools.lru_cache(maxsize=8192)
+def _prb_pilot_select_cached(prbs: tuple, per_rb: int):
+    prbs = sorted(prbs)
+    lo, hi = prbs[0], prbs[-1]
+    span = per_rb * (hi - lo + 1)
+    sel = np.concatenate([np.arange((p - lo) * per_rb,
+                                    (p - lo + 1) * per_rb)
+                          for p in prbs])
+    return span, 2 * per_rb * lo, sel
+
+
+def _prb_pilot_select(cfg: DmrsConfig, per_rb: int):
+    """(gold span in pilots, advance, per-PRB column selector) for a
+    possibly non-contiguous allocation: pilots are generated over the
+    covering span [min_prb, max_prb] at the ABSOLUTE Gold positions and
+    the allocated PRBs' columns selected (the sequence indexes by CRB).
+    Type 2 on a PRB list raises AssertionError, as the JAX function does."""
+    if cfg.prbs is None:
+        return per_rb * cfg.rb_count, 2 * per_rb * cfg.rb_start, None
+    assert cfg.config_type == 1, \
+        "non-contiguous DM-RS allocations are implemented for type 1 only"
+    return _prb_pilot_select_cached(tuple(cfg.prbs), per_rb)
 
 
 def _c_init(scrambling_id: int, n_scid: int, slot_in_frame: int,
@@ -72,12 +113,16 @@ def c_inits_for(cfg: DmrsConfig, slot_in_frame: int | None = None) -> np.ndarray
 
 
 def _values_from_cinits(cfg: DmrsConfig, c_inits: tuple) -> np.ndarray:
-    """QPSK base sequences [len(c_inits), 6 * rb_count] (complex64), the
-    Gold sequence advanced to PRB rb_start of a carrier starting at CRB 0."""
-    npilot = 6 * cfg.rb_count
-    rows = [qpsk_np(gold_sequence_np(int(ci), 2 * npilot,
-                                     advance=12 * cfg.rb_start))
-            for ci in c_inits]
+    """QPSK base sequences [len(c_inits), per_rb * nof PRBs] (complex64),
+    the Gold sequence advanced to the allocation's first PRB of a carrier
+    starting at CRB 0; on a PRB list the span's sequence, the allocated
+    PRBs' columns selected."""
+    npilot, adv, sel = _prb_pilot_select(
+        cfg, dl_rs.PILOTS_PER_PRB[cfg.config_type])
+    rows = []
+    for ci in c_inits:
+        row = qpsk_np(gold_sequence_np(int(ci), 2 * npilot, advance=adv))
+        rows.append(row if sel is None else row[sel])
     return (np.stack(rows, axis=0) * cfg.amplitude).astype(np.complex64)
 
 
@@ -86,7 +131,6 @@ def pilot_values_for(cfg: DmrsConfig,
                      slot_in_frame: int | None = None) -> np.ndarray:
     """Host-side QPSK pilot base sequences [nsym, npilot] complex64 (the
     slot-context values the slot programs take in place of c_inits)."""
-    _check_supported(cfg)
     seeds = tuple(int(c) for c in c_inits_for(cfg, slot_in_frame))
     return _values_from_cinits(cfg, seeds)
 
@@ -104,9 +148,10 @@ def _type1_sc_indices(rb_start: int, rb_count: int, delta: int,
 
 
 @functools.lru_cache(maxsize=None)
-def _cover(port: int, nsym: int, npil: int) -> np.ndarray:
-    """float32 [nsym, npil]: w_f over the comb pair times w_t per symbol."""
-    _, wf, wt = TYPE1_PORT_CONFIG[port]
+def _cover(config_type: int, port: int, nsym: int, npil: int) -> np.ndarray:
+    """float32 [nsym, npil]: w_f over the pilot pair times w_t per symbol."""
+    _, wf, wt = (TYPE1_PORT_CONFIG if config_type == 1
+                 else TYPE2_PORT_CONFIG)[port]
     return (np.where(np.arange(npil) % 2 == 0, wf[0], wf[1])[None, :]
             * np.array([wt[i % 2] for i in range(nsym)],
                        np.float32)[:, None]).astype(np.float32)
@@ -119,8 +164,8 @@ def _is_values(c_inits) -> bool:
 
 def pilots_for_port(cfg: DmrsConfig, port: int, c_inits=None, *,
                     device: torch.device | str) -> torch.Tensor:
-    """Dense pilot values [nsym, 6*rb_count] for one DM-RS port (w_f, w_t
-    applied).
+    """Dense pilot values [nsym, per_rb * nof PRBs] for one DM-RS port
+    (w_f, w_t applied).
 
     c_inits: None (derive from the config), host c_init seeds
     [nof_dmrs_symbols] (numpy or a CPU tensor: they key the host-built
@@ -130,17 +175,17 @@ def pilots_for_port(cfg: DmrsConfig, port: int, c_inits=None, *,
     once.  ``device`` has no default: the pilots go where the caller says.
     """
     vals = base_values(cfg, c_inits, device=device)
-    cover = const(_cover, port, vals.shape[-2], vals.shape[-1],
-                  device=vals.device)
+    cover = const(_cover, cfg.config_type, port, vals.shape[-2],
+                  vals.shape[-1], device=vals.device)
     return vals * cover
 
 
 def base_values(cfg: DmrsConfig, c_inits=None, *,
                 device: torch.device | str) -> torch.Tensor:
-    """The base QPSK pilot sequences [nsym, 6*rb_count] (no covers), from
-    the same sources as :func:`pilots_for_port`: the config, host c_init
-    seeds, or pilot VALUES ([nsym, npilot] or [B, nsym, npilot], as given)."""
-    _check_supported(cfg)
+    """The base QPSK pilot sequences [nsym, per_rb * nof PRBs] (no covers),
+    from the same sources as :func:`pilots_for_port`: the config, host
+    c_init seeds, or pilot VALUES ([nsym, npilot] or [B, nsym, npilot], as
+    given)."""
     if _is_values(c_inits):
         return c_inits
     if c_inits is None:
@@ -167,11 +212,14 @@ def map_to_grid(grid: torch.Tensor, cfg: DmrsConfig,
     device) the per-layer pilots are precoded like data; without it layer
     l goes to port l.  With ``prg_matrices`` [G, P, L] (on the grid's
     device) and ``prg_size`` each pilot is precoded with its PRG's matrix,
-    PRG boundaries aligned to CRB 0, as the data is (JAX dmrs.py:222-226).
+    PRG boundaries aligned to CRB 0, the table's first PRG the one holding
+    the allocation's first PRB, as the data's (JAX dmrs.py:222-226,
+    pdsch.py:254-256).  Type 1 or 2, contiguous or on ``cfg.prbs`` (type 1;
+    type 2 on a PRB list raises AssertionError, as in the JAX package).
     A leading slot axis on the grid ([B, P, nsym, nsc]) maps B slots in one
     launch, with the pilot values and matrices shared or [B, ...].
     """
-    _check_supported(cfg)
+    _prb_pilot_select(cfg, dl_rs.PILOTS_PER_PRB[cfg.config_type])  # asserts
     dev = grid.device
     if precoding is not None and not isinstance(precoding, torch.Tensor):
         precoding = torch.as_tensor(np.asarray(precoding)).to(dev)
@@ -180,5 +228,6 @@ def map_to_grid(grid: torch.Tensor, cfg: DmrsConfig,
         w = w.to(torch.complex64)
     vals = base_values(cfg, c_inits, device=dev)
     return dl_rs.dmrs_map(grid, vals, w, tuple(cfg.ports), tuple(cfg.symbols),
-                          cfg.rb_start, cfg.rb_count,
-                          prg_size if prg_matrices is not None else 0)
+                          cfg.prb_list,
+                          prg_size if prg_matrices is not None else 0,
+                          cfg.config_type)

@@ -8,8 +8,15 @@ patch add as K27 (ops/dl_control.py::control_map), the map stored by output
 bit and bit-packed; the plain twin (:func:`process_ref`, the CPU path) is
 a float32 product over 0/1 values reduced mod 2 (exact: every sum is at
 most A <= 140), QPSK, and the dense [duration, CORESET width] patch of
-QPSK symbols and DM-RS pilots added to port 0 of the grid.  The step-by-step encoder and the receive side wait
-for the device polar chain (ROADMAP §1 item 13).
+QPSK symbols and DM-RS pilots added to port 0 of the grid.
+
+The UE-side receiver (:func:`recover`, :func:`decode_dci`; only tests and
+``chip_smoke.py`` call it, as in the JAX package): the candidate's data REs
+demapped and descrambled by K28 (ops/dl_control.py::control_llrs), then
+polar rate dematch, SC decode and the DCI's CRC check by K15
+(ops/polar.py::decode), the check as a syndrome (:func:`dci_syndrome`).
+The step-by-step encoder waits for the device polar encoder (ROADMAP §1
+item 13).
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ from ...ran import polar_params
 from ...device import const
 from ...ops import dl_control
 from ...ops import polar as polar_ops
-from ...ops.crc import _remainder_matrix
+from ...ops.crc import _remainder_matrix, _remainder_words
 from ...ops.gold import gold_sequence_np
 from ...ops.modulation import modulate, qpsk_np
 
@@ -308,3 +315,59 @@ def process_ref(grid: torch.Tensor, payload: torch.Tensor, cfg: PdcchConfig,
     grid[..., 0, l0:l0 + dur, sc0:sc0 + width] += values[..., inv].reshape(
         lead + (dur, width))
     return grid
+
+
+# ------------------------------------------------------ receive (UE side)
+
+@functools.lru_cache(maxsize=None)
+def dci_syndrome(a: int, rnti: int) -> int:
+    """The CRC24C remainder that the A + 24 decoded bits of a DCI for
+    ``rnti`` have when its CRC matches: TS38.212 §7.3.2 checks CRC24C over
+    24 leading ones and the decoded bits with the RNTI mask undone on the
+    last 16 (JAX pdcch.py:97-100); the CRC is linear, so that check is
+    the decoded bits' own remainder equal to the ones' remainder XOR the
+    mask's."""
+    k = a + 24
+    ones = np.bitwise_xor.reduce(_remainder_words("crc24C", 24 + k)[:24])
+    words = _remainder_words("crc24C", k)
+    mask = 0
+    for i in range(16):
+        if (rnti >> (15 - i)) & 1:
+            mask ^= int(words[k - 16 + i])
+    return int(ones) ^ mask
+
+
+def _candidate_re_offsets(coreset: CoresetConfig, cce_index: int,
+                          aggregation_level: int, shape: tuple) -> np.ndarray:
+    """int64 [E / 2]: the candidate's data REs on port 0 of a grid of
+    ``shape`` [P, S, K], as flat offsets in the codeword's symbol order."""
+    data_pos, _, _ = _candidate_re_plan(coreset, cce_index, aggregation_level)
+    return data_pos[:, 0].astype(np.int64) * shape[-1] + data_pos[:, 1]
+
+
+def rx_item(cfg: PdcchConfig, shape: tuple,
+            noise_var: float = 0.01) -> dl_control.RxItem:
+    """This DCI's codeword as K28 takes it, on port 0 of a [P, S, K] grid."""
+    return dl_control.RxItem(
+        _candidate_re_offsets,
+        (cfg.coreset, cfg.cce_index, cfg.aggregation_level, tuple(shape)),
+        float(noise_var), ((cfg.n_rnti << 16) + cfg.n_id_data) % (1 << 31))
+
+
+def decode_dci(llrs: torch.Tensor, cfg: PdcchConfig) -> tuple:
+    """Descrambled LLRs f32 [E] -> (payload int8 [A], crc_ok bool): polar
+    rate dematch, SC decode and the DCI's CRC check, one K15 launch."""
+    a = cfg.payload_bits
+    code = _dci_code(a + 24, BITS_PER_CCE * cfg.aggregation_level)
+    bits, ok = polar_ops.decode(llrs.reshape(1, -1), code, "crc24C",
+                                dci_syndrome(a, cfg.rnti))
+    return bits[0, :a], ok[0]
+
+
+def recover(grid: torch.Tensor, cfg: PdcchConfig, noise_var: float = 0.01):
+    """Loopback receive from a [P, S, K] grid assuming an ideal channel
+    (tests / UE side): K28, then :func:`decode_dci`."""
+    grid = grid.contiguous()
+    llrs = dl_control.control_llrs(grid, (rx_item(cfg, grid.shape,
+                                                  noise_var),))
+    return decode_dci(llrs, cfg)

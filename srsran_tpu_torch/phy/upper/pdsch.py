@@ -1,16 +1,20 @@
 """PDSCH transmit chain (TS38.212 §7.2, TS38.211 §7.3.1).
 
-Port of srsran_tpu/phy/upper/pdsch.py for contiguous allocations: TB CRC
--> segmentation with CB CRC24B -> LDPC encode (K5, ops/ldpc_encode.py::
-dlsch_encode) -> rate match -> scramble -> modulate -> layer map ->
-precode -> grid add (K6, ops/dl_map.py::pdsch_map; K22, its per-PRG form,
-when the PDU carries a PrecodingConfig), then type-1 DM-RS precoded like
-the data (K26, ops/dl_rs.py::dmrs_map).  The data maps around the PT-RS
-REs; the PT-RS itself, unprecoded on its port, is the DL slot program's
-to map, with the slot's other RS PDUs in its one K25 launch
-(phy/slot_programs.py).  On CPU tensors the kernels' plain twins run.  It is the flagship DL slot's PDSCH
-and also the UE-side test transmitter of the PUSCH receive path (the same
-chain blocks, as the JAX bench does).
+Port of srsran_tpu/phy/upper/pdsch.py: TB CRC -> segmentation with CB
+CRC24B -> LDPC encode (K5, ops/ldpc_encode.py::dlsch_encode) -> rate match
+-> scramble -> modulate -> layer map -> precode -> grid add (K6,
+ops/dl_map.py::pdsch_map; K22, its per-PRG form, when the PDU carries a
+PrecodingConfig), then the DM-RS precoded like the data (K26,
+ops/dl_rs.py::dmrs_map).  Every allocation of the JAX package runs:
+contiguous, RA type 0 (``prbs``) and interleaved VRBs
+(``vrb_prb_interleaved`` over ``bwp_size``), each resolved on the host to
+one sorted PRB list (:func:`alloc_prbs`) that keys the data-RE plan, the
+DM-RS comb and the PRG base (the first allocated PRB).  The data maps
+around the PT-RS REs; the PT-RS itself, unprecoded on its port, is the DL
+slot program's to map, with the slot's other RS PDUs in its one K25 launch
+(phy/slot_programs.py).  On CPU tensors the kernels' plain twins run.  It
+is the flagship DL slot's PDSCH and also the UE-side test transmitter of
+the PUSCH receive path (the same chain blocks, as the JAX bench does).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 from ...ran.ldpc_params import segment_tb, select_base_graph
 from ...ran.precoding_codebooks import (PrecodingConfig, nof_prgs,
                                         resolve_matrices)
+from ...ran.rb_allocation import allocated_prbs
 from ...device import const
 from ...ops import dl_map, ldpc_encode, ldpc_rate_match
 from ...ops.modulation import BITS_PER_SYMBOL
@@ -71,12 +76,33 @@ class PdschConfig:
     bwp_size: int | None = None
 
 
-def check_supported(cfg: PdschConfig) -> None:
-    """Raise for PDU options the port does not run."""
-    if cfg.prbs is not None or cfg.vrb_prb_interleaved:
-        raise NotImplementedError(
-            "RA type 0 / interleaved VRB allocations are not ported yet "
-            "(ROADMAP §1 item 13b)")
+@functools.lru_cache(maxsize=4096)
+def alloc_prbs(cfg) -> tuple | range:
+    """The PDU's allocation as sorted absolute PRBs, resolved once per
+    config: a tuple for an RA type 0 bitmap or interleaved VRBs over
+    [0, bwp_size), a ``range`` for a contiguous one (and for a PUSCH
+    config, which has no ``prbs``).  The plan key, the DM-RS PRB list and
+    the PRG span all derive from it."""
+    if (getattr(cfg, "prbs", None) is None
+            and not getattr(cfg, "vrb_prb_interleaved", False)):
+        return range(cfg.rb_start, cfg.rb_start + cfg.rb_count)
+    return tuple(int(p) for p in allocated_prbs(
+        cfg.rb_start, cfg.rb_count, cfg.prbs, cfg.vrb_prb_interleaved, 0,
+        cfg.bwp_size))
+
+
+def _plan_prbs_key(cfg) -> tuple | None:
+    """The PRB tuple of a non-contiguous allocation; None for a contiguous
+    one."""
+    prbs = alloc_prbs(cfg)
+    return None if isinstance(prbs, range) else prbs
+
+
+def prg_span(cfg: PdschConfig) -> tuple:
+    """(first PRB, PRB count) of the span the PDU's PRGs cover: from the
+    first to the last allocated PRB (JAX fapi/validators.py:94-97)."""
+    prbs = alloc_prbs(cfg)
+    return (prbs[0], prbs[-1] - prbs[0] + 1) if prbs else (cfg.rb_start, 0)
 
 
 def ptrs_config(cfg: PdschConfig) -> PtrsConfig | None:
@@ -130,18 +156,20 @@ def _data_re_plan(rb_start: int, rb_count: int, first_symbol: int,
 
 
 def data_re_plan_column(rb_start, rb_count, first_symbol, nof_symbols,
-                        dmrs_symbols, reserved_cdm_groups, ptrs, col: int):
+                        dmrs_symbols, reserved_cdm_groups, ptrs, prbs,
+                        col: int):
     """One column of :func:`_data_re_plan` as int64 (0: symbol, 1: sc)."""
     return _data_re_plan(rb_start, rb_count, first_symbol, nof_symbols,
-                         dmrs_symbols, reserved_cdm_groups,
-                         ptrs)[:, col].astype(np.int64)
+                         dmrs_symbols, reserved_cdm_groups, ptrs,
+                         prbs)[:, col].astype(np.int64)
 
 
 def plan_key(cfg) -> tuple:
-    """The data-RE plan's key (a PUSCH config has no PT-RS)."""
+    """The data-RE plan's key (a PUSCH config has no PT-RS and is
+    contiguous)."""
     return (cfg.rb_start, cfg.rb_count, cfg.first_symbol, cfg.nof_symbols,
             tuple(cfg.dmrs_symbols), cfg.reserved_cdm_groups,
-            getattr(cfg, "ptrs", None))
+            getattr(cfg, "ptrs", None), _plan_prbs_key(cfg))
 
 
 def nof_data_re(cfg: PdschConfig) -> int:
@@ -187,7 +215,7 @@ def dmrs_config(cfg: PdschConfig) -> DmrsConfig:
         rb_start=cfg.rb_start, rb_count=cfg.rb_count, symbols=cfg.dmrs_symbols,
         ports=tuple(range(cfg.nof_layers)), scrambling_id=cfg.dmrs_scrambling_id,
         n_scid=cfg.n_scid, numerology=cfg.numerology,
-        slot_in_frame=cfg.slot_in_frame)
+        slot_in_frame=cfg.slot_in_frame, prbs=_plan_prbs_key(cfg))
 
 
 def pm_matrices_for(nof_ports: int, cfg: PdschConfig, device) -> torch.Tensor:
@@ -209,21 +237,24 @@ def process(grid: torch.Tensor, payload_bits: torch.Tensor, cfg: PdschConfig,
     pm_matrices: the per-PRG matrices [G, P, L] when cfg.precoding is set
     (the conductor's "pm" slot context; default resolved here through the
     codebook repository), so a PMI change is a new context tensor, never a
-    new program.  The data maps around the PT-RS REs of ``cfg.ptrs``; the
-    PT-RS values are the DL slot program's to map (every RS of a slot in
-    one K25 launch, after the PDSCHs, in the JAX package's order).
+    new program; the G PRGs cover the allocation's span from its first
+    PRB, and a subcarrier's PRG counts from that PRB's (JAX
+    pdsch.py:239-258).  The data maps around the PT-RS REs of
+    ``cfg.ptrs``; the PT-RS values are the DL slot program's to map (every
+    RS of a slot in one K25 launch, after the PDSCHs, in the JAX package's
+    order).
     With a slot axis -- grid [B, P, nsym, nsc], payload_bits [B, TBS], pilot
     values [B, nsym, npilot] or shared, PRG matrices [B, G, P, L] or shared
     -- K5, K6 and K26 run once for all slots.
     """
-    check_supported(cfg)
     nof_ports = grid.shape[-3]
     prg_size = 0
+    base_prb = prg_span(cfg)[0]
     if cfg.precoding is not None:
         prg_size = cfg.precoding.prg_size
         w = (pm_matrices_for(nof_ports, cfg, grid.device)
              if pm_matrices is None else pm_matrices)
-        g = nof_prgs(cfg.rb_start, cfg.rb_count, prg_size)
+        g = nof_prgs(*prg_span(cfg), prg_size)
         if w.shape[-3:] != (g, nof_ports, cfg.nof_layers):
             raise ValueError(f"PRG matrices {tuple(w.shape)} vs {g} PRGs of "
                              f"{nof_ports} ports x {cfg.nof_layers} layers")
@@ -234,7 +265,7 @@ def process(grid: torch.Tensor, payload_bits: torch.Tensor, cfg: PdschConfig,
     cbs = ldpc_encode.dlsch_encode(payload_bits,                   # K5
                                    segmentation(cfg).base_graph)
     dl_map.pdsch_map(*map_args(grid, cfg, cbs, w),                 # K6 / K22
-                     prg_size=prg_size, rb_start=cfg.rb_start)
+                     prg_size=prg_size, rb_start=base_prb)
     map_dmrs(grid, dmrs_config(cfg), None if prg_size else w,     # K26
              dmrs_cinits, prg_matrices=w if prg_size else None,
              prg_size=prg_size)

@@ -115,6 +115,13 @@ def generate_np(cfg: PrachConfig, preamble: int) -> np.ndarray:
     return fd.astype(np.complex64)
 
 
+def generate(cfg: PrachConfig, preamble: int, *,
+             device: torch.device | str) -> torch.Tensor:
+    """Frequency-domain preamble complex64 [L] on ``device`` (UE side /
+    tests): computed on the host and uploaded, as the JAX package does."""
+    return torch.from_numpy(generate_np(cfg, preamble)).to(device)
+
+
 def cp_seq_samples(cfg: PrachConfig) -> float:
     """PRACH cyclic-prefix length in sequence-sample units (L_ra-rate).
 

@@ -8,9 +8,15 @@ rate match, second scrambling -- is one host-built GF(2) affine map.  On
 the card the map, QPSK and the patch add run as K27
 (ops/dl_control.py::control_map); the plain twin (:func:`ssb_block_ref`,
 the CPU path) is a float32 product over 0/1 values reduced mod 2 (exact:
-every sum is at most 56).  The patch is added to every port of the grid.  The
-step-by-step ``pbch_encode`` / ``pbch_decode`` chain waits for the device
-polar encoder and decoder (ROADMAP §1 item 13).
+every sum is at most 56).  The patch is added to every port of the grid.
+
+The UE-side PBCH receiver (:func:`pbch_decode`, :func:`pbch_extract_mib`;
+only tests and ``chip_smoke.py`` call it, as in the JAX package): the 432
+data REs demapped and descrambled by K28 (ops/dl_control.py::
+control_llrs), polar rate dematch, SC decode and the CRC24C check by K15
+(ops/polar.py::decode), then the first descrambling and the MIB
+de-interleave on the host, as in the JAX package.  The step-by-step
+``pbch_encode`` waits for the device polar encoder (ROADMAP §1 item 13).
 """
 
 from __future__ import annotations
@@ -356,3 +362,63 @@ def map_ssb_to_grid_ref(grid: torch.Tensor, cfg: SsbConfig,
     """Plain twin of :func:`map_ssb_to_grid`."""
     return _add_patch(grid, ssb_block_ref(cfg, mib24, slot_ctx),
                       cfg.first_symbol, cfg.first_subcarrier)
+
+
+# ----------------------------------------------------- PBCH receive (UE side)
+
+def pbch_scramble_payload(a, cfg: SsbConfig, mask=None):
+    """TS38.212 §7.1.2 first scrambling of the 32 payload bits (timing bits
+    pass through); involutive.  Host numpy, as the JAX receiver runs it."""
+    if mask is None:
+        mask = _scramble_mask(cfg.phys_cell_id, cfg.sfn, cfg.l_max)
+    return np.asarray(a).astype(np.int8) ^ np.asarray(mask).astype(np.int8)
+
+
+def _pbch_re_offsets(v: int, shape: tuple, port: int, l0: int,
+                     k0: int) -> np.ndarray:
+    """int64 [432]: the PBCH data REs of an SSB at (l0, k0) on ``port`` of a
+    grid of ``shape`` [P, S, K], as flat offsets in symbol order."""
+    _, s_n, k_n = shape
+    data_pos = _ssb_re_maps(v)[1]
+    return ((port * s_n + l0 + data_pos[:, 0].astype(np.int64)) * k_n
+            + k0 + data_pos[:, 1])
+
+
+def rx_item(cfg: SsbConfig, shape: tuple, port: int = 0, at=None,
+            noise_var: float = 0.01) -> dl_control.RxItem:
+    """This SSB's PBCH codeword as K28 takes it: on ``port`` of a
+    [P, S, K] grid, its patch at (first symbol, first subcarrier) or at
+    ``at``, descrambled from the Gold sequence of the cell id advanced by
+    v * 864 (JAX ssb.py:358-359)."""
+    l0, k0 = at if at is not None else (cfg.first_symbol,
+                                        cfg.first_subcarrier)
+    v = cfg.ssb_idx & (0b11 if cfg.l_max == 4 else 0b111)
+    return dl_control.RxItem(
+        _pbch_re_offsets, (cfg.phys_cell_id % 4, tuple(shape), port, l0, k0),
+        float(noise_var), cfg.phys_cell_id, v * PBCH_MBIT)
+
+
+def pbch_decode_llrs(llrs: torch.Tensor, cfg: SsbConfig) -> tuple:
+    """Descrambled PBCH LLRs f32 [864] -> (payload a int8 [32] on the host,
+    crc_ok bool): K15, then the first descrambling on the host."""
+    bits, ok = polar_ops.decode(llrs.reshape(1, -1), _pbch_code(), "crc24C")
+    a_prime = bits[0, :PBCH_A].cpu().numpy()
+    return torch.from_numpy(pbch_scramble_payload(a_prime, cfg)), ok[0]
+
+
+def pbch_decode(patch: torch.Tensor, cfg: SsbConfig, noise_var: float = 0.01):
+    """Closed-loop PBCH receiver from a received [4, 240] SSB patch
+    (ideal channel; tests / UE side): K28, then :func:`pbch_decode_llrs`.
+    Returns (payload a int8 [32], crc_ok bool)."""
+    patch = patch.reshape(1, SSB_NSYMB, SSB_NSC).contiguous()
+    llrs = dl_control.control_llrs(patch, (rx_item(
+        cfg, tuple(patch.shape), at=(0, 0), noise_var=noise_var),))
+    return pbch_decode_llrs(llrs, cfg)
+
+
+def pbch_extract_mib(a, cfg: SsbConfig) -> np.ndarray:
+    """Invert the §7.1.1 payload interleaver -> 24 MIB bits (host)."""
+    a = np.asarray(a)
+    dest, _ = _payload_maps(cfg.sfn, cfg.hrf, cfg.ssb_idx, cfg.l_max,
+                            cfg.k_ssb)
+    return a[dest].astype(np.int8)

@@ -1,7 +1,7 @@
 """Where a flagship slot's time goes on one CUDA GPU.
 
     python3 -m srsran_tpu_torch.profile_slot
-        [--direction ul|dl|conductor|ul_mu|batch|edge|gnb|du_low]
+        [--direction ul|dl|conductor|ul_mu|batch|edge|gnb|du_low|du_alloc]
         [--slots 8]
         [--calls 10]
         [--out DIR]
@@ -26,7 +26,12 @@ slot" below then reads "per run", and every run must decode a UL TB), or
 the DU-low's DL slots (``du_low``: kinds A-D of ``flagship.du_dl_request``
 in turn -- CSI-RS, TRS, PT-RS, PRS and an empty DL_TTI -- each through
 ``SlotConductor.process_dl`` as ``fapi/transport.py::serve_phy`` runs it,
-eagerly, with its payload upload) and reports:
+eagerly, with its payload upload), or the DU-low's allocation slots and
+their UE side (``du_alloc``: kinds E and F of ``flagship.du_alloc_request``
+in turn -- a type 0 PDSCH precoded per PRG beside the SSB and five DCIs,
+an interleaved-VRB PDSCH beside a DCI -- each through ``process_dl``, then
+``flagship.du_control_rx`` on its samples: K4, one K28 launch, one K15
+launch per codeword) and reports:
 
 * the slot's wall time three ways: CUDA events around each call (as
   ``chip_smoke.py`` times it), the host clock over back-to-back calls with
@@ -49,13 +54,14 @@ eagerly, with its payload upload) and reports:
   batch, through their CUDA graphs).
 
 The conductor and batch directions run every call once before measuring,
-so every slot phase's CUDA graph is captured beforehand; so does
-``du_low``, so every slot kind's constants are on the card.
+so every slot phase's CUDA graph is captured beforehand; so do
+``du_low`` and ``du_alloc``, so every slot kind's constants are on the
+card.
 
 The slot's trace and a JSON summary go to ``--out`` (``slot_trace.json``
 and ``summary.json`` for the UL, ``dl_``, ``conductor_``, ``ul_mu_``,
-``batch_``, ``edge_``, ``gnb_`` or ``du_low_`` before both names for the
-others);
+``batch_``, ``edge_``, ``gnb_``, ``du_low_`` or ``du_alloc_`` before both
+names for the others);
 the summary is also printed as the last line.
 """
 
@@ -90,7 +96,8 @@ HAND_KERNELS = ("ldpc_sweep_kernel", "ldpc_check_kernel", "rate_dematch_kernel",
                 "short_block_kernel", "polar_sc_kernel",
                 "pusch_demap_lxn_kernel", "ulsch_demux_kernel",
                 "pusch_tp_demap_kernel", "pucch_f3_demap_kernel",
-                "dmrs_map_kernel", "rs_map_kernel", "control_map_kernel")
+                "dmrs_map_kernel", "rs_map_kernel", "control_map_kernel",
+                "control_llrs_kernel")
 
 
 def category(name: str, cat: str) -> str:
@@ -422,6 +429,26 @@ def du_low_scenario(n: int, seed: int, dev) -> tuple:
     return calls, {k: cases[k] for k in ("rs_map", "dmrs_map", "control_map")}
 
 
+def du_alloc_scenario(n: int, seed: int, dev) -> tuple:
+    """(one zero-argument call per DU-low allocation slot, E and F in turn,
+    each DL slot and its UE-side decode; K28's, K26's, K22's and K15's
+    cases at those shapes)."""
+    pay = flagship.du_alloc_payloads(np.random.default_rng(seed))
+    cond = SlotConductor(flagship.CELL, device=dev)
+    reqs = [flagship.du_alloc_request("EF"[i % 2], 2 * i + 2, pay)
+            for i in range(n)]
+
+    def call(dl, tx):
+        samples, _ = cond.process_dl(dl, tx, return_grid=False)
+        return flagship.du_control_rx(samples, dl)
+
+    calls = [lambda r=r: call(*r) for r in reqs]
+    cases = flagship.alloc_kernel_cases(np.random.default_rng(seed), dev)
+    return calls, {k: cases[k] for k in ("control_llrs", "dmrs_map_type0",
+                                         "pdsch_map_prg_type0",
+                                         "polar_decode_al16")}
+
+
 def launch_counts(call) -> dict:
     """The hand kernels' launches in one call."""
     torch.cuda.synchronize()
@@ -436,7 +463,7 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--direction",
                     choices=("ul", "dl", "conductor", "ul_mu", "batch",
-                             "edge", "gnb", "du_low"),
+                             "edge", "gnb", "du_low", "du_alloc"),
                     default="ul")
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--calls", type=int, default=10)
@@ -472,6 +499,9 @@ def main(argv=None) -> dict:
     elif args.direction == "du_low":
         calls, cases = du_low_scenario(args.slots, args.seed, dev)
         prefix = "du_low_"
+    elif args.direction == "du_alloc":
+        calls, cases = du_alloc_scenario(args.slots, args.seed, dev)
+        prefix = "du_alloc_"
     else:
         calls, cases, resolve = conductor_scenario(args.slots, args.seed, dev,
                                                    gen)
@@ -479,7 +509,8 @@ def main(argv=None) -> dict:
     # warm-up: device constants; for the conductor and the batch, every
     # slot phase's CUDA graph
     graphed = args.direction in ("conductor", "batch")
-    for call in calls if graphed or args.direction == "du_low" else calls[:2]:
+    for call in (calls if graphed or args.direction in ("du_low", "du_alloc")
+                 else calls[:2]):
         call()
     torch.cuda.synchronize()
     summary = {"card": card_line(), "direction": args.direction,

@@ -48,6 +48,7 @@ from srsran_tpu.ran import precoding_codebooks as j_pcb
 from srsran_tpu.ran import tdd as j_tdd
 from srsran_tpu.ran import ldpc_params as j_ldpc
 from srsran_tpu.ran import polar_params
+from srsran_tpu.ran import rb_allocation as j_rba
 from srsran_tpu.ran import prach_params as j_prachp
 from srsran_tpu.ran import slot_point as j_sp
 from srsran_tpu.ran import uci_on_pusch as j_uci
@@ -87,6 +88,7 @@ from srsran_tpu_torch.utils import config as t_config
 from srsran_tpu_torch.ran import ldpc_params as t_ldpc
 from srsran_tpu_torch.ran import polar_params as t_polar_params
 from srsran_tpu_torch.ran import prach_params as t_prachp
+from srsran_tpu_torch.ran import rb_allocation as t_rba
 from srsran_tpu_torch.ran import slot_point as t_sp
 from srsran_tpu_torch.ran import uci_on_pusch as t_uci
 
@@ -135,6 +137,65 @@ def test_group_e_sizes(e_sizes):
 def test_data_re_plan(args):
     np.testing.assert_array_equal(j_pdsch._data_re_plan(*args),
                                   t_pdsch._data_re_plan(*args))
+
+
+@pytest.mark.parametrize("args", [
+    (0, 0, (7, 2, 11)), (0, 0, tuple(range(32, 144)) + tuple(range(160, 273))),
+    (3, 4, None), (0, 136, None, True, 0, 273, 2), (0, 24, None, True, 0, 52, 4),
+    (2, 9, None, True, 0, 25, 2), (0, 7, None, True, 0, 27, 4),
+    (4, 8, None, True), (8, 12, None, True, 8, 37, 4)])
+def test_rb_allocation_copy(args):
+    """ran/rb_allocation.py: type 0 bitmaps, contiguous, interleaved at
+    L = 2 and 4 over even and odd BWP sizes, a guessed BWP size and a BWP
+    start other than 0."""
+    np.testing.assert_array_equal(t_rba.allocated_prbs(*args),
+                                  j_rba.allocated_prbs(*args))
+
+
+@pytest.mark.parametrize("bwp_start,bwp_size,bundle", [
+    (0, 273, 2), (0, 273, 4), (0, 51, 2), (4, 25, 4), (2, 3, 2), (0, 1, 2)])
+def test_vrb_to_prb_interleaved_copy(bwp_start, bwp_size, bundle):
+    assert (t_rba.vrb_to_prb_interleaved(bwp_start, bwp_size, bundle)
+            == j_rba.vrb_to_prb_interleaved(bwp_start, bwp_size, bundle))
+
+
+@pytest.mark.parametrize("bwp_start,bundle", [(1, 2), (2, 4), (0, 3)])
+def test_vrb_to_prb_interleaved_rejects_as_jax(bwp_start, bundle):
+    """The copy keeps the original's refusals (unaligned BWP starts,
+    bundle sizes other than 2 and 4)."""
+    with pytest.raises(AssertionError):
+        j_rba.vrb_to_prb_interleaved(bwp_start, 24, bundle)
+    with pytest.raises(AssertionError):
+        t_rba.vrb_to_prb_interleaved(bwp_start, 24, bundle)
+
+
+@pytest.mark.parametrize("args", [
+    (0, 24, 1, 12, (2, 11), 2, None, (1, 4, 5, 9, 13, 20, 21, 22)),
+    (0, 24, 1, 12, (2, 11), 1, None, (0, 2, 3, 8, 9, 15, 16, 23)),
+    (0, 273, 2, 12, (2, 11), 2, None,
+     tuple(range(32, 144)) + tuple(range(160, 273)))])
+def test_data_re_plan_prbs(args):
+    np.testing.assert_array_equal(j_pdsch._data_re_plan(*args),
+                                  t_pdsch._data_re_plan(*args))
+
+
+@pytest.mark.parametrize("prbs", [range(0, 24), range(3, 23),
+                                  (1, 4, 5, 9, 13, 20, 21, 22)])
+@pytest.mark.parametrize("group", [0, 1, 2])
+def test_dmrs_comb(prbs, group):
+    """K26's comb per CDM group (ops/dl_rs.py::_comb) against the JAX
+    package's type 1 (``_type1_sc_indices``, groups 0-1) and type 2
+    (``type2_sc_indices``, contiguous) subcarriers."""
+    from srsran_tpu_torch.ops import dl_rs as t_dl_rs
+    if group < 2:
+        want = j_dmrs._type1_sc_indices(
+            prbs[0], len(prbs), group,
+            None if isinstance(prbs, range) else tuple(prbs))
+        np.testing.assert_array_equal(t_dl_rs._comb(prbs, group, 1), want)
+    if isinstance(prbs, range):
+        np.testing.assert_array_equal(
+            t_dl_rs._comb(prbs, group, 2),
+            j_dmrs.type2_sc_indices(prbs[0], len(prbs), group))
 
 
 @pytest.mark.parametrize("g,c,qm,nl", [(41472, 4, 6, 2), (426096, 37, 6, 2),
@@ -950,7 +1011,8 @@ def test_port_imports_without_jax():
             "srsran_tpu_torch.phy.upper.csi_rs",
             "srsran_tpu_torch.phy.upper.ptrs_prs",
             "srsran_tpu_torch.ops.dl_rs",
-            "srsran_tpu_torch.ops.dl_control"} <= names
+            "srsran_tpu_torch.ops.dl_control",
+            "srsran_tpu_torch.ran.rb_allocation"} <= names
 
 
 def _import_lines(path: Path):

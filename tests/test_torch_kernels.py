@@ -872,3 +872,138 @@ def test_du_low_many_dcis(cuda):
     want, _ = SlotConductor(flagship.CELL, device="cpu").process_dl(
         dl, tx, return_grid=False)
     _close(got, want, 1e-4)
+
+
+# ------------- the DU-low's allocations: K2, K6, K15, K22, K26, K28 (PR 11)
+
+@pytest.fixture(scope="module")
+def alloc_cases():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the hand kernels have no CPU mode)")
+    from srsran_tpu_torch import flagship
+    return flagship.alloc_kernel_cases(np.random.default_rng(28),
+                                       torch.device("cuda"))
+
+
+@pytest.mark.parametrize("name", [
+    "control_llrs", "control_llrs_many", "dmrs_map_type0",
+    "dmrs_map_interleaved", "dmrs_map_type2", "pdsch_map_prg_type0",
+    "pdsch_map_interleaved", "pdsch_map_nref", "rate_dematch_type0",
+    "rate_dematch_nref", "polar_decode_al16", "polar_decode_pbch"])
+def test_alloc_kernels_against_twins(alloc_cases, name):
+    """K28 (slot E's DCIs and PBCH; 17 DCIs and the PBCH), K26 (type 0
+    with 61 PRG matrices, interleaved, type 2 on ports 0, 1, 4, 5), K22 and
+    K6 (slot E's and F's plans, a limited buffer), K2 (slot E's G, a
+    limited buffer) and K15 (an AL16 DCI with its syndrome, the PBCH) at
+    the flagship shapes: bit-exact to their twins (K6 within 1e-6 of
+    max|ref|, the precoder's sum order)."""
+    kernel, ref, args = alloc_cases[name]
+    got, want = kernel(*args), ref(*args)
+    if name in ("pdsch_map_interleaved", "pdsch_map_nref"):
+        _close(got, want, 1e-6)
+    elif isinstance(got, tuple):
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("where", ["before", "inside", "after"])
+def test_limited_buffer_kernels(cuda, where):
+    """K2 and K6 with n_ref cutting the circular buffer before, inside and
+    after the filler range (BG1, Z 64, K' 1280): bit-exact to their twins,
+    K2's columns n_cb .. N-1 at 0 and its filler range at 1e4."""
+    z, kp, c, qm, nl = 64, 64 * 20, 3, 4, 2
+    k, n = 22 * z, 64 * z
+    n_ref = {"before": kp - 2 * z - 50, "inside": kp - 2 * z + 40,
+             "after": 3 * n // 4}[where]
+    e = [qm * nl * 500] * c
+    rng = np.random.default_rng(len(where))
+    llr = torch.as_tensor(rng.standard_normal(sum(e)).astype(np.float32)
+                          ).to(cuda)
+    for rv in (0, 2):
+        args = (llr, c, e, rv, qm, 1, z, kp, k, n, None, n_ref)
+        got = ldpc_rate_match.rate_dematch_combine(*args)
+        want = ldpc_rate_match.rate_dematch_combine_ref(*args)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        fs, fe, n_nf, _ = ldpc_rate_match._window_plan(rv, 1, z, kp, k, n,
+                                                       n_ref)
+        assert not got[0][:, n_nf + fe - fs:].any()
+        assert bool((got[0][:, fs:fe] == ldpc_rate_match.FILLER_LLR).all())
+    cbs = torch.as_tensor(rng.integers(0, 2, (c, n)).astype(np.int8)).to(cuda)
+    nre = sum(e) // (qm * nl)
+    sym = torch.as_tensor(np.repeat(np.arange(14), 300)[:nre].astype(
+        np.int32)).to(cuda)
+    sc = torch.as_tensor(np.tile(np.arange(300), 14)[:nre].astype(
+        np.int32)).to(cuda)
+    grid = _cgauss(rng, (4, 14, 300)).to(cuda)
+    w = _cgauss(rng, (4, nl)).to(cuda)
+    margs = (cbs, e, 2, "qam16", 1, z, kp, k, 0x1234, nl, sym, sc, w, 0, 0,
+             n_ref)
+    _close(dl_map.pdsch_map(grid.clone(), *margs),
+           dl_map.pdsch_map_ref(grid.clone(), *margs), 1e-6)
+
+
+@pytest.mark.parametrize("layers", [1, 2, 4])
+@pytest.mark.parametrize("precoder", ["none", "matrix", "prg"])
+def test_dmrs_type2_and_prb_list_kernel(cuda, layers, precoder):
+    """K26 with type 2 on ports (0, 1, 4, 5)[:L] and with type 1 on a
+    scattered PRB list, bit-exact to its twin."""
+    from srsran_tpu_torch.ops import dl_rs
+    from srsran_tpu_torch.phy.upper import dmrs
+    rng = np.random.default_rng(layers)
+    grid = _cgauss(rng, (4, 14, 24 * 12)).to(cuda)
+    for cfg in (dmrs.DmrsConfig(rb_start=2, rb_count=20, symbols=(2, 11),
+                                ports=(0, 1, 4, 5)[:layers], scrambling_id=3,
+                                config_type=2),
+                dmrs.DmrsConfig(rb_start=1, rb_count=22, symbols=(2, 7),
+                                ports=tuple(range(layers)), scrambling_id=3,
+                                prbs=(1, 4, 5, 9, 13, 20, 21, 22))):
+        prbs = cfg.prb_list
+        pil = torch.as_tensor(dmrs.pilot_values_for(cfg)).to(cuda)
+        w, prg = None, 0
+        if precoder == "matrix":
+            w = _cgauss(rng, (4, layers)).to(cuda)
+        elif precoder == "prg":
+            prg = 4
+            w = _cgauss(rng, (prbs[-1] // 4 - prbs[0] // 4 + 1, 4, layers)
+                        ).to(cuda)
+        args = (pil, w, cfg.ports, cfg.symbols, prbs, prg, cfg.config_type)
+        assert torch.equal(dl_rs.dmrs_map(grid.clone(), *args),
+                           dl_rs.dmrs_map_ref(grid.clone(), *args))
+
+
+def test_du_low_alloc_slots(cuda):
+    """DU-low slots E and F through the port's conductor on the card:
+    samples within 1e-4 of max|ref| of the CPU conductor's, K22, K6, K26
+    launched; the UE side decodes every DCI and the PBCH (K4, K28, K15)
+    with their exact payloads; slot G is rejected by the validator."""
+    from srsran_tpu_torch import flagship, kernels
+    from srsran_tpu_torch.fapi.conductor import SlotConductor
+    from srsran_tpu_torch.fapi.validators import ValidationError
+    from srsran_tpu_torch.phy.upper import ssb
+    pay = flagship.du_alloc_payloads(np.random.default_rng(11))
+    gpu = SlotConductor(flagship.CELL, device=cuda)
+    cpu = SlotConductor(flagship.CELL, device="cpu")
+    for kind, count in (("E", 2), ("F", 4)):
+        dl, tx = flagship.du_alloc_request(kind, count, pay)
+        kernels.reset_counts()
+        got, _ = gpu.process_dl(dl, tx, return_grid=False)
+        dcis, pbch = flagship.du_control_rx(got, dl)
+        torch.cuda.synchronize()
+        n = {k.name: k.launches for k in kernels.REGISTRY.values()}
+        assert n["pdsch_map_prg" if kind == "E" else "pdsch_map"] == 1
+        assert n["dmrs_map"] == 1 and n["control_llrs"] == 1
+        assert n["polar_decode"] == len(dl.pdcch) + len(dl.ssb)
+        want, _ = cpu.process_dl(dl, tx, return_grid=False)
+        _close(got, want, 1e-4)
+        sent = pay["dci"][:len(dl.pdcch)] if kind == "E" else pay["dci"][-1:]
+        for (bits, ok), d in zip(dcis, sent):
+            assert bool(ok) and np.array_equal(bits.cpu().numpy(), d)
+        for (a, ok), cfg in zip(pbch, dl.ssb):
+            assert bool(ok)
+            assert np.array_equal(ssb.pbch_extract_mib(a, cfg), pay["mib"])
+    dl, tx = flagship.du_alloc_request("G", 6, pay)
+    with pytest.raises(ValidationError, match="PT-RS"):
+        gpu.process_dl(dl, tx)

@@ -236,8 +236,13 @@ def test_ul_plan_entries_not_ported_raise(slot_case, plan):
                           else 1e-4)
 
 
-# PT-RS, CSI-RS and PRS entries run (tests/test_torch_dl_rs.py); RA type 0
-# and interleaved VRBs, with and without PT-RS, still raise.
+# RA type 0 and interleaved VRBs, with and without PT-RS (and interleaved
+# without a BWP size, whose size the JAX package guesses): the plans that
+# raised NotImplementedError before the port had these allocations now run,
+# and the DL slot program matches the JAX package's (grid within 1e-6,
+# samples within 1e-4 of max|ref|, as test_dl_control_only_plan_runs_on_
+# payload_device holds them).  The slot programs do not validate: PT-RS on
+# a scattered allocation maps as the JAX program maps it.
 @pytest.mark.parametrize("plan", [
     ((), (), (dataclasses.replace(J_UE, prbs=tuple(range(0, 24, 2))),), (),
      ()),
@@ -247,8 +252,16 @@ def test_ul_plan_entries_not_ported_raise(slot_case, plan):
     ((), (), (dataclasses.replace(J_UE, vrb_prb_interleaved=True, bwp_size=24,
                                   ptrs=PdschPtrs()),), ())])
 def test_dl_plan_entries_not_ported_raise(plan):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_slots.dl_slot_fn(convert.config(J_CELL), convert.plan(plan))
+    payload = np.random.default_rng(len(plan)).integers(0, 2, TBS).astype(
+        np.int8)
+    j_samples, j_grid = j_slots.dl_slot_fn(J_CELL, plan)(
+        (), (), (jnp.asarray(payload),))
+    t_samples, t_grid = t_slots.dl_slot_fn(
+        convert.config(J_CELL), convert.plan(plan))(
+        (), (), (torch.as_tensor(payload),))
+    np.testing.assert_allclose(t_grid.numpy(), np.asarray(j_grid), rtol=0,
+                               atol=1e-6)
+    close(t_samples, j_samples)
 
 
 J_SSB = j_ssb.SsbConfig(phys_cell_id=1, ssb_idx=0, l_max=8, sfn=0,
