@@ -199,6 +199,33 @@ the JAX package.  It builds the hand kernels from ``srsran_tpu_torch/csrc``
    side, between a reset and a read of the launch counts (K6, K22, K26,
    K28, K15 and the rest of the path launched; K28 once per UE slot).
 
+14. split-8 radio and the UE-side list decoder: the port's ``ssb_tx``
+   (``python -m srsran_tpu_torch.apps.ssb_tx``) in its own process at the
+   flagship width (273 RB, 4096-point FFT, 1 port, 2 frames: 40 slots of
+   61,440 samples, SSBs in slots 0, 1, 20 and 21) into a file under
+   ``build/smoke/``, and the port's ``rx_power`` in its own process on it:
+   its average, peak and PAPR within 0.01 dB of the same arithmetic in
+   numpy, its occupied share equal.  Counted main path: the file read
+   back through the port's ``SampleFileReader``, each SSB slot
+   OFDM-demodulated (K4) at the app's SSB (first subcarrier 1518), its
+   PBCH demapped (K28) and decoded by K15 and by K29 (CA-SCL, L = 8,
+   CRC24C, after the port's polar rate dematch): both the MIB the app drew
+   (``default_rng(0)``); a ``CfoProcessor`` with one command and a drift
+   over the 40 blocks (K30 40 times, each block within 1e-6 of the twin);
+   a clip of the file at a ceiling that clips about 1% of its samples
+   (K31 once).  Then K29 (one UE slot's 36 AL16 blind-decode candidates,
+   N = 512, L = 8, no CRC; the 4 PBCHs; the low-SNR batch) and K32 (the
+   flagship PUSCH's codeblocks at rv 0-3 and one codeblock with n_ref =
+   3N/4, ``torch.take`` of the index plan as its library time) bit-exact
+   to their twins, K30 and K31 (slot E's 4 x 61,440 samples and the
+   file's) within their tolerances, all timed with their bounds; the
+   low-SNR PBCH-like experiment of tests/test_polar_scl.py at B = 256
+   (CA-SCL8 fewer than half of K15's block errors); phase 13's DCIs at AL
+   16-1 through K29 at L = 8 and 1 with no CRC (bit-exact to the twin, the
+   payloads sent; at L = 1 K15's messages); RuRing and RuDummy round trips
+   of slot E's samples with their timestamps.  Phase 10 also requires K32
+   (the UE transmitter's rate match) to launch.
+
 It prints the card's name and power limit, one JSON line of per-kernel
 results, and as its last line ``{"ok": true, "device": {...}}``.  Any failed
 phase raises, so the script then exits non-zero without that line.
@@ -223,7 +250,7 @@ import numpy as np
 import torch
 
 from srsran_tpu_torch import convert, flagship, kernels
-from srsran_tpu_torch.apps import gnb_sim, ru_emulator
+from srsran_tpu_torch.apps import gnb_sim, ru_emulator, ssb_tx
 from srsran_tpu_torch.emulation import channel as chan
 from srsran_tpu_torch.device import card_line, const, require_cuda
 from srsran_tpu_torch.fapi import config_messages as cm
@@ -232,18 +259,22 @@ from srsran_tpu_torch.fapi.conductor import SlotConductor
 from srsran_tpu_torch.fapi.transport import FapiClient, serve_phy
 from srsran_tpu_torch.graphs import SlotGraph
 from srsran_tpu_torch.kernels import _build
+from srsran_tpu_torch.io.sampio import SampleFileReader
 from srsran_tpu_torch.ops import channel_estimate as chest
 from srsran_tpu_torch.ops import dl_control, dl_map, dl_rs
-from srsran_tpu_torch.ops import ofdm
-from srsran_tpu_torch.ops.crc import crc_check
+from srsran_tpu_torch.ops import ldpc_rate_match, ofdm, polar
+from srsran_tpu_torch.ops import polar_scl, transform_precode
+from srsran_tpu_torch.ops.crc import crc, crc_check
 from srsran_tpu_torch.ops.ldpc_graph import get_graph
 from srsran_tpu_torch.ops.modulation import BITS_PER_SYMBOL
 from srsran_tpu_torch.parallel.mesh import multi_cell_dl_fn, multi_cell_ul_fn
-from srsran_tpu_torch.phy.lower import prach_demod
+from srsran_tpu_torch.phy.lower import amplitude_control, cfo, prach_demod
 from srsran_tpu_torch.phy.slot_programs import ul_slot_fn
 from srsran_tpu_torch.phy.upper import (pdcch, pdsch, prach, ptrs_prs, pucch,
                                         pusch, ssb)
+from srsran_tpu_torch.ran import polar_params
 from srsran_tpu_torch.ran.slot_point import SlotPoint
+from srsran_tpu_torch.ru import RuDummy, RuRing
 from srsran_tpu_torch.ru.ofh import InMemoryCable, RuOfh, SocketEndpoint
 from srsran_tpu_torch.utils import config as app_config
 
@@ -313,7 +344,14 @@ CASE_KERNEL = {"pdsch_map_repetition": "pdsch_map",
                "rate_dematch_type0": "rate_dematch",
                "rate_dematch_nref": "rate_dematch",
                "polar_decode_al16": "polar_decode",
-               "polar_decode_pbch": "polar_decode"}
+               "polar_decode_pbch": "polar_decode",
+               "polar_scl_decode_pbch": "polar_scl_decode",
+               "polar_scl_decode_lowsnr": "polar_scl_decode",
+               **{f"rate_match_{t}": "rate_match"
+                  for t in ("rv1", "rv2", "rv3", "nref")},
+               "cfo_rotate_file": "cfo_rotate",
+               "amplitude_control_file": "amplitude_control",
+               "amplitude_control_scale": "amplitude_control"}
 CONDUCTOR_SLOTS = 16
 RESOLVE_LAG = 2
 # A HARQ retransmission through the conductor: at 11 dB the first
@@ -335,7 +373,7 @@ PER_SLOT_IN_BATCH = ("prach_detect", "pucch_f1_detect", "srs_estimate",
                      "polar_decode")
 BATCH_TIMING_RUNS = 5
 GRAPH_PASSES = 2
-GNB_KERNELS = ("tdl_channel", "prach_demod", "pdsch_map_prg")
+GNB_KERNELS = ("tdl_channel", "prach_demod", "pdsch_map_prg", "rate_match")
 # The flagship width, as ``--set`` overrides of the app's configuration.
 GNB_CELL = ("cell.nof_rb=273", "cell.dft_size=4096", "cell.nof_ports=4")
 GNB_TEST_SLOTS = 20
@@ -367,6 +405,28 @@ DU_SLOTS = 10
 DU_NB_SLOTS = 8
 DU_PHASE_S = 300.0
 DU_RS_TOL = 1e-3
+# Phase 14, the split-8 radio: ssb_tx at the flagship width (1 port, 2
+# frames: 40 slots, SSBs in slots 0, 1, 20, 21) into a file under build/,
+# and rx_power on it; the kernels its main path launches (K29-K31 new)
+# and the phase's own time limit.
+SPLIT8_KERNELS = ("polar_scl_decode", "cfo_rotate", "amplitude_control")
+SPLIT8_PATH = ("ofdm_demodulate", "control_llrs", "polar_decode") + \
+    SPLIT8_KERNELS
+SPLIT8_FILE = _build.BUILD_DIR.parent / "smoke" / "ssb_tx.sio"
+SSB_TX_CELL = flagship.SPLIT8_CELL
+SSB_TX_FRAMES = 2
+SSB_TX_PCI = 500
+SPLIT8_PHASE_S = 300.0
+RX_POWER_DB_TOL = 0.01
+SCL_LIST = flagship.SCL_LIST
+# The JAX test's low-SNR PBCH-like experiment (tests/test_polar_scl.py:
+# 28-54) at B = 256.
+LOWSNR_BLOCKS = 256
+LOWSNR_SIGMA = 1.4
+# The CFO run over the file's blocks: one command with a drift.
+CFO_HZ = 1500.0
+CFO_DRIFT_HZ_S = 2e4
+AMP_METRICS = ("avg_power_db", "peak_power_db", "papr_db", "clipped_ratio")
 
 
 def median_ms(fn, runs: int = TIMING_RUNS) -> float:
@@ -492,15 +552,30 @@ def compare(name: str, out, ref) -> float:
             raise AssertionError(
                 f"{case} differs from its twin by {(out - ref).abs().max()}")
         return 0.0
-    if name == "pdsch_map_prg":                    # K22: bit-exact
+    if name in ("pdsch_map_prg", "rate_match"):    # K22, K32: bit-exact
         if not torch.equal(out, ref):
             raise AssertionError(
-                f"K22 differs from its twin by {(out - ref).abs().max()}")
+                f"{case} differs from its twin by {(out - ref).abs().max()}")
         return 0.0
-    if name == "ulsch_demux":                      # K17: bit-exact fields
+    if name in ("ulsch_demux", "polar_scl_decode"):  # K17, K29: bit-exact
         if not all(torch.equal(a, b) for a, b in zip(out, ref)):
             raise AssertionError(f"{case} differs from its twin")
         return 0.0
+    if name == "cfo_rotate":                       # K30: sincosf vs sin, cos
+        return close(out, ref, case, rtol=1e-6)
+    if name == "amplitude_control":                # K31
+        # samples within 1e-6 of max|ref|; the clipped share equal, the
+        # peak within 1e-6 dB, mean power and PAPR within 1e-5 dB (the
+        # kernel sums in float64 per CTA, the twin's mean in float32)
+        (y, m), (y_ref, m_ref) = out, ref
+        err = close(y, y_ref, f"{case} samples", rtol=1e-6)
+        got = [float(getattr(m, k)) for k in AMP_METRICS]
+        want = [float(getattr(m_ref, k)) for k in AMP_METRICS]
+        if (got[3] != want[3] or abs(got[1] - want[1]) > 1e-6
+                or abs(got[0] - want[0]) > 1e-5
+                or abs(got[2] - want[2]) > 1e-5):
+            raise AssertionError(f"{case} metrics {got} vs {want}")
+        return err
     if name == "rate_dematch":                     # K2: bit-exact
         if not all(torch.equal(a, b) for a, b in zip(out, ref)):
             raise AssertionError(f"{case} differs from its twin")
@@ -744,6 +819,28 @@ def work(name: str, args: tuple, out) -> tuple:
                             it.pilots)))
             ops += nb * (e * (2.0 * words + 2) + 2.0 * re)
         return b, ops
+    if name == "polar_scl_decode":                 # K29
+        # ~3 L N log2 N per codeword for f, g and the partial sums of the L
+        # paths, and at each information leaf the rank of 2L candidates
+        # (4 L^2 comparisons); the LLRs read once, the messages written
+        llr, code, size = args[:3]
+        info = int((np.asarray(code.frozen_mask) == 0).sum())
+        return (nbytes(llr) + nbytes(out),
+                llr.shape[0] * (3.0 * size * code.big_n * code.n
+                                + 4.0 * size * size * info))
+    if name == "rate_match":                       # K32: ~8 per output bit
+        # the window's distinct positions read once (min(E_c, N_nf) per
+        # codeblock), the E_c bits written once
+        cw, e_sizes = args[:2]
+        if isinstance(e_sizes, int):
+            e_sizes = (e_sizes,) * cw.shape[0]
+        idx = ldpc_rate_match.gather_index(e_sizes, *args[2:8], cw.shape[1],
+                                           *args[8:])
+        return np.unique(idx).size + nbytes(out), 8.0 * out.numel()
+    if name == "cfo_rotate":                       # K30: sincos + product
+        return 2 * nbytes(args[0]), 26.0 * args[0].numel()
+    if name == "amplitude_control":                # K31: ~20 per sample
+        return 2 * nbytes(args[0]) + 16, 20.0 * args[0].numel()
     raise KeyError(name)
 
 
@@ -2590,6 +2687,349 @@ def du_alloc_phase(dev, rng, card, du: dict) -> tuple:
           f"UE side of E and F): {launches}; card {card}", flush=True)
     return results, {k: launches[k] for k in ALLOC_KERNELS}
 
+# --------------------------------------------------------------- phase 14
+
+def _app(module: str, args: list, deadline: float) -> str:
+    """``python -m srsran_tpu_torch.apps.<module> args`` in its own process
+    (on the card); its standard output."""
+    proc = subprocess.run(
+        [sys.executable, "-m", f"srsran_tpu_torch.apps.{module}", *args],
+        capture_output=True, text=True,
+        timeout=max(1.0, deadline - time.monotonic()))
+    if proc.returncode != 0:
+        raise AssertionError(f"{module} exited {proc.returncode}: "
+                             f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+    return proc.stdout
+
+
+def _ssb_slots() -> list:
+    """(slot count, SsbConfig, MIB bits) of ssb_tx's SSB slots, the MIBs
+    drawn as the app draws them (``default_rng(0)``, 24 bits per SSB)."""
+    rng = np.random.default_rng(0)
+    out = []
+    for count in range(SSB_TX_FRAMES * ssb_tx.SLOTS_PER_FRAME):
+        cfg = ssb_tx.ssb_config(SlotPoint(1, count), SSB_TX_CELL, SSB_TX_PCI)
+        if cfg is not None:
+            out.append((count, cfg, rng.integers(0, 2, 24).astype(np.int8)))
+    return out
+
+
+def _pbch_llrs(block: torch.Tensor, count: int, cfg) -> torch.Tensor:
+    """The PBCH's descrambled LLRs [864] of one SSB slot's samples [1, T]:
+    K4 at the slot's place in its subframe, then K28 at the SSB's first
+    subcarrier."""
+    cell = SSB_TX_CELL
+    grid = ofdm.demodulate_slot(block, cell.nof_sc, cell.dft_size,
+                                cell.numerology, cell.cp,
+                                SlotPoint(1, count).subframe_slot_index,
+                                cell.center_freq_hz).contiguous()
+    return dl_control.control_llrs(grid, (ssb.rx_item(
+        cfg, tuple(grid.shape), 0, noise_var=0.01),))
+
+
+def _mib_both(llrs: torch.Tensor, cfg) -> tuple:
+    """The MIB from one PBCH's LLRs by K15 (SC) and by K29 (CA-SCL8 with
+    CRC24C, after the port's polar rate dematch); with the dematched LLRs."""
+    a, ok = ssb.pbch_decode_llrs(llrs, cfg)
+    code = ssb._pbch_code()
+    lm = polar.rate_dematch(llrs.reshape(1, -1), code)
+    bits, ok8 = polar_scl.scl_decode(lm, code, SCL_LIST, "crc24C")
+    a8 = ssb.pbch_scramble_payload(bits[0, :ssb.PBCH_A].cpu().numpy(), cfg)
+    return ((ssb.pbch_extract_mib(a, cfg), bool(ok)),
+            (ssb.pbch_extract_mib(a8, cfg), bool(ok8[0])), lm)
+
+
+def _rx_power_numpy(x: np.ndarray, fft: int = 1024,
+                    block: int = 1 << 16) -> list:
+    """apps/rx_power.py's arithmetic in numpy on the same samples: per
+    channel (avg dB, peak dB, PAPR dB, occupied share in %)."""
+    nch, n = x.shape
+    total, peak = np.zeros(nch), np.zeros(nch)
+    psd, nseg, win = np.zeros((nch, fft)), 0, np.hanning(fft)
+    for b0 in range(0, n, block):
+        blk = x[:, b0:b0 + block]
+        p = np.abs(blk) ** 2
+        total += p.sum(axis=-1)
+        peak = np.maximum(peak, p.max(axis=-1))
+        starts = [s * fft // 2 for s in range(max(blk.shape[-1]
+                                                  // (fft // 2) - 1, 0))]
+        starts = [a for a in starts if a + fft <= blk.shape[-1]]
+        if starts:
+            seg = blk[:, np.asarray(starts)[:, None] + np.arange(fft)]
+            spec = np.fft.fftshift(np.fft.fft(seg * win, axis=-1), axes=-1)
+            psd += (np.abs(spec) ** 2).sum(axis=1)
+            nseg += len(starts)
+    p = psd / nseg
+    occ = (p > p.max(axis=-1, keepdims=True) * 1e-3).mean(axis=-1)
+    out = []
+    for ch in range(nch):
+        avg_db = 10 * math.log10(max(total[ch] / n, 1e-30))
+        peak_db = 10 * math.log10(max(peak[ch], 1e-30))
+        out.append((avg_db, peak_db, peak_db - avg_db, f"{occ[ch] * 100:.0f}"))
+    return out
+
+
+def _check_rx_power(printed: str, want: list) -> str:
+    levels = re.findall(r"ch(\d+): avg\s+(-?[\d.]+) dBFS\s+peak\s+(-?[\d.]+) "
+                        r"dBFS\s+PAPR\s+(-?[\d.]+) dB", printed)
+    shares = re.findall(r"ch(\d+): occupied bandwidth ~(\d+)% of fs", printed)
+    if len(levels) != len(want) or len(shares) != len(want):
+        raise AssertionError(f"rx_power printed {printed!r}")
+    for (ch, avg, pk, papr), (_, share), w in zip(levels, shares, want):
+        got = (float(avg), float(pk), float(papr))
+        if (any(abs(a - b) > RX_POWER_DB_TOL for a, b in zip(got, w[:3]))
+                or share != w[3]):
+            raise AssertionError(f"rx_power ch{ch}: {got}, {share}% vs "
+                                 f"numpy {w}")
+    return printed.strip().replace("\n", " |")
+
+
+def _rate_match_one_ref(cw, e, *args):
+    return ldpc_rate_match.rate_match_batch_ref(
+        cw, (e,) * cw.shape[0], *args).reshape(cw.shape[0], e)
+
+
+def _lowsnr(rng, dev) -> tuple:
+    """The low-SNR PBCH-like experiment: K15 (SC) and K29 (CA-SCL8) block
+    errors on the same LLRs, and K29's arguments."""
+    k_payload = 32
+    code = polar_params.polar_code(k_payload + 24, 240, 9, False)
+    payload = rng.integers(0, 2, (LOWSNR_BLOCKS, k_payload)).astype(np.int8)
+    with_crc = torch.cat([torch.as_tensor(payload),
+                          crc(torch.as_tensor(payload), "crc24C")], dim=1)
+    x = polar.rate_match(polar.encode(polar.allocate(with_crc, code),
+                                      code.n), code).numpy()
+    rx = (1.0 - 2.0 * x) + rng.normal(0, LOWSNR_SIGMA, x.shape)
+    llr = torch.as_tensor((2 * rx / LOWSNR_SIGMA ** 2).astype(
+        np.float32)).to(dev)
+    sc, _ = polar.decode(llr, code, "crc24C")
+    lm = polar.rate_dematch(llr, code)
+    scl, _ = polar_scl.scl_decode(lm, code, SCL_LIST, "crc24C")
+    want = torch.as_tensor(payload).to(dev)
+    errors = [int((b[:, :k_payload] != want).any(dim=1).sum())
+              for b in (sc, scl)]
+    return errors, (lm, code, SCL_LIST, "crc24C")
+
+
+def _dci_lists(dev, samples: torch.Tensor, dl, pay: dict) -> str:
+    """Phase 13's slot E on the card: each DCI (AL 16, 8, 4, 2, 1) through
+    K29 at L = 8 and L = 1 with crc_poly=None, bit-exact to the twin; at L
+    = 1 the messages equal K15's; at L = 8 the payload sent."""
+    cell = flagship.CELL
+    grid = ofdm.demodulate_slot(samples, cell.nof_sc, cell.dft_size,
+                                cell.numerology, cell.cp, 0,
+                                cell.center_freq_hz).contiguous()
+    items = tuple(pdcch.rx_item(c, tuple(grid.shape), 0.01) for c in dl.pdcch)
+    llrs = dl_control.control_llrs(grid, items)
+    parts = torch.split(llrs, dl_control.rx_plan(items, grid.numel())["e"])
+    for p, c, sent in zip(parts, dl.pdcch, pay["dci"]):
+        a = c.payload_bits
+        code = pdcch._dci_code(a + 24, pdcch.BITS_PER_CCE * c.aggregation_level)
+        lm = polar.rate_dematch(p.reshape(1, -1), code)
+        for size in (SCL_LIST, 1):
+            got = polar_scl.scl_decode(lm, code, size)
+            ref = polar_scl.scl_decode_ref(lm, code, size)
+            if not (torch.equal(got[0], ref[0]) and torch.equal(got[1],
+                                                                ref[1])):
+                raise AssertionError(f"K29 L={size} on the AL"
+                                     f"{c.aggregation_level} DCI differs "
+                                     f"from its twin")
+            if size == 1:
+                sc, _ = polar.decode(p.reshape(1, -1), code, "crc24C",
+                                     pdcch.dci_syndrome(a, c.rnti))
+                if not torch.equal(got[0], sc):
+                    raise AssertionError(f"K29 L=1 on the AL"
+                                         f"{c.aggregation_level} DCI differs "
+                                         f"from K15")
+            elif not np.array_equal(got[0][0, :a].cpu().numpy(), sent):
+                raise AssertionError(f"K29 L=8: the AL{c.aggregation_level} "
+                                     f"DCI's payload not decoded")
+    return (f"slot E's DCIs at AL {[c.aggregation_level for c in dl.pdcch]}: "
+            f"K29 (L = 8 and 1, no CRC) bit-exact to its twin, L = 8 the "
+            f"payloads sent, L = 1 equal to K15's messages")
+
+
+def _plain_products(rng, dev) -> str:
+    """ms by events of the UE side's plain DFT products: transform
+    precoding of 12 data symbols at the cell edge's M = 72 and the widest
+    M = 3240, and the cell edge's PUCCH F3 encode (22 bits, 2 RB)."""
+    out = []
+    for m in (12 * flagship.EDGE.pusch_c.rb_count, 3240):
+        x = torch.from_numpy((rng.normal(size=(12, m)) + 1j * rng.normal(
+            size=(12, m))).astype(np.complex64)).to(dev)
+        ms = median_ms(lambda x=x: transform_precode.precode(x))
+        out.append(f"precode M = {m} {ms:.4f} ms")
+    cfg = flagship.EDGE.f3
+    bits = torch.from_numpy(rng.integers(0, 2, cfg.nof_uci_bits).astype(
+        np.int8)).to(dev)
+    ms = median_ms(lambda: pucch.f3_encode(bits, cfg))
+    out.append(f"f3_encode {ms:.4f} ms")
+    return ", ".join(out)
+
+
+def _round_trips(x: np.ndarray) -> str:
+    """A DL slot's samples [P, T] through RuRing (both rings) and RuDummy
+    in two reads each: equal samples and the reads' timestamps."""
+    p, t = x.shape
+    half = t // 2
+    ring = RuRing(p, capacity=2 * t)
+    ring.send_dl(x, 0)
+    out, ts = ring.tx.read(t)
+    if ts != 0 or not np.array_equal(out, x):
+        raise AssertionError("RuRing: DL samples differ")
+    ring.rx.write(x)
+    (a, ta), (b, tb) = ring.receive_ul(half), ring.receive_ul(t - half)
+    dummy = RuDummy(p, capacity=2 * t)
+    dummy.send_dl(x[:, :half], 0)
+    dummy.send_dl(x[:, half:], half)
+    (c, tc), (d, td) = dummy.receive_ul(t - half), dummy.receive_ul(half)
+    if ((ta, tb, tc, td) != (0, half, 0, t - half)
+            or not np.array_equal(np.concatenate([a, b], axis=1), x)
+            or not np.array_equal(np.concatenate([c, d], axis=1), x)
+            or ring.receive_ul(1) is not None
+            or dummy.receive_ul(1) is not None):
+        raise AssertionError("RuRing / RuDummy round trip failed")
+    return f"{p} x {t} samples, timestamps 0 and {half}: RuRing and RuDummy"
+
+
+def split8_phase(dev, rng, card) -> tuple:
+    """Phase 14: the split-8 radio and the UE-side list decoder.  ssb_tx
+    and rx_power in their own processes at the flagship width; the file
+    read back and each SSB's MIB decoded by K15 and by K29; a CFO processor
+    (K30) over the file's blocks and a clip (K31) of them, counted; then
+    K29-K32 against their twins and timed, the DCIs of phase 13's slot E
+    through K29, the low-SNR experiment, and the radio units' round
+    trips."""
+    deadline = time.monotonic() + SPLIT8_PHASE_S
+    path = SPLIT8_FILE
+    path.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    said = _app("ssb_tx", [str(path), "--pci", str(SSB_TX_PCI), "--nof-rb",
+                           str(SSB_TX_CELL.nof_rb), "--dft",
+                           str(SSB_TX_CELL.dft_size), "--frames",
+                           str(SSB_TX_FRAMES)], deadline).strip()
+    t_tx = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    printed = _app("rx_power", [str(path)], deadline)
+    t_rx = time.perf_counter() - t0
+    rd = SampleFileReader(str(path))
+    fs = rd.sample_rate
+    x = rd.read(1 << 26)
+    rd.close()
+    slot_len = SSB_TX_CELL.slot_samples()
+    n_slots = SSB_TX_FRAMES * ssb_tx.SLOTS_PER_FRAME
+    if x.shape != (1, n_slots * slot_len):
+        raise AssertionError(f"ssb_tx wrote {x.shape}, want "
+                             f"{(1, n_slots * slot_len)}")
+    print(f"ssb_tx (its own process, {t_tx:.1f} s): {said!r}; rx_power "
+          f"({t_rx:.1f} s): {_check_rx_power(printed, _rx_power_numpy(x))}"
+          f" -- within {RX_POWER_DB_TOL} dB of numpy, the share equal",
+          flush=True)
+
+    # The main path: the file's blocks on the card, each SSB's MIB by K15
+    # and K29, a CFO processor over every block, a clip of the whole.
+    ssbs = _ssb_slots()
+    whole = torch.from_numpy(x).to(dev)
+    blocks = [whole[:, i * slot_len:(i + 1) * slot_len]
+              for i in range(n_slots)]
+    ceiling = flagship.clip_ceiling_dbfs(whole)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    pbch_lm = []
+    for count, cfg, mib in ssbs:
+        (m15, ok15), (m29, ok29), lm = _mib_both(
+            _pbch_llrs(blocks[count], count, cfg), cfg)
+        if not (ok15 and ok29 and np.array_equal(m15, mib)
+                and np.array_equal(m29, mib)):
+            raise AssertionError(f"slot {count}: MIB not decoded (K15 "
+                                 f"{ok15}, K29 {ok29})")
+        pbch_lm.append(lm)
+    proc = cfo.CfoProcessor(fs)
+    proc.schedule(cfo.CfoCommand(time_s=0.0, cfo_hz=CFO_HZ,
+                                 cfo_drift_hz_s=CFO_DRIFT_HZ_S))
+    cfo_err = 0.0
+    for i, blk in enumerate(blocks):
+        proc.next_command(i * slot_len / fs)
+        ref = cfo.apply_cfo_ref(blk, proc.cfo_norm, proc._sample_offset)
+        cfo_err = max(cfo_err, close(proc.process(blk), ref,
+                                     f"CFO block {i}", rtol=1e-6))
+    clipped, m = amplitude_control.clip(whole, 0.0, ceiling)
+    torch.cuda.synchronize()
+    launches = launched(SPLIT8_PATH)
+    compare("amplitude_control_file", (clipped, m),
+            amplitude_control.clip_ref(whole, 0.0, ceiling))
+    want = {"polar_scl_decode": len(ssbs), "cfo_rotate": n_slots,
+            "amplitude_control": 1}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"phase 14 launches {launches}, want {want}")
+    print(f"phase 14 main path: the MIB of SSB slots "
+          f"{[c for c, _, _ in ssbs]} decoded by K15 and by K29 "
+          f"(CA-SCL{SCL_LIST}, CRC24C) from ssb_tx's file; CFO {CFO_HZ} Hz + "
+          f"{CFO_DRIFT_HZ_S} Hz/s over {n_slots} blocks within {cfo_err:.3g} "
+          f"of the twin; clip at {ceiling:.2f} dBFS: "
+          f"{float(m.clipped_ratio):.4f} clipped, PAPR "
+          f"{float(m.papr_db):.2f} dB; launches {launches}; card {card}",
+          flush=True)
+
+    # K29-K32 against their twins, timed.
+    pay = flagship.du_alloc_payloads(rng)
+    dl, tx = flagship.du_alloc_request("E", 2, pay)
+    cond = SlotConductor(flagship.CELL, device=dev)
+    dl_slot, _ = cond.process_dl(dl, tx, return_grid=False)
+    cases = flagship.split8_kernel_cases(rng, dev, dl_slot, CFO_HZ / fs)
+    (sc_err, scl_err), lowsnr_args = _lowsnr(rng, dev)
+    rm = cases["rate_match"][2]
+    cbs, e_sizes = rm[:2]
+    n_ref = 3 * cbs.shape[1] // 4
+    cases.update({
+        "polar_scl_decode_pbch": (polar_scl.scl_decode,
+                                  polar_scl.scl_decode_ref,
+                                  (torch.cat(pbch_lm), ssb._pbch_code(),
+                                   SCL_LIST, "crc24C")),
+        "polar_scl_decode_lowsnr": (polar_scl.scl_decode,
+                                    polar_scl.scl_decode_ref, lowsnr_args),
+        **{f"rate_match_rv{rv}": (ldpc_rate_match.rate_match_batch,
+                                  ldpc_rate_match.rate_match_batch_ref,
+                                  rm[:2] + (rv,) + rm[3:])
+           for rv in (1, 2, 3)},
+        "rate_match_nref": (ldpc_rate_match.rate_match, _rate_match_one_ref,
+                            (cbs[:1], e_sizes[0]) + rm[2:] + (n_ref,)),
+        "cfo_rotate_file": (cfo.apply_cfo, cfo.apply_cfo_ref,
+                            (whole, CFO_HZ / fs, 0)),
+        "amplitude_control_file": (amplitude_control.clip,
+                                   amplitude_control.clip_ref,
+                                   (whole, 0.0, ceiling)),
+        "amplitude_control_scale": (
+            amplitude_control.scale,
+            lambda s, g: amplitude_control.clip_ref(s, g, math.inf),
+            (dl_slot, -3.0)),
+    })
+    plan = torch.from_numpy(ldpc_rate_match.gather_index(
+        e_sizes, *rm[2:], cbs.shape[1])).to(dev)
+    if not torch.equal(torch.take(cbs, plan),
+                       ldpc_rate_match.rate_match_batch_ref(*rm)):
+        raise AssertionError("K32's library call differs from its twin")
+    results = kernel_phases(cases, {"rate_match": lambda: torch.take(cbs,
+                                                                     plan)})
+    if not (sc_err >= 8 and scl_err < sc_err // 2):
+        raise AssertionError(f"low SNR: CA-SCL{SCL_LIST} {scl_err} block "
+                             f"errors vs SC {sc_err}")
+    print(f"K29 (the UE slot's {flagship.UE_CANDIDATES} AL16 candidates, the "
+          f"{len(ssbs)} PBCHs, the low-SNR batch), K32 (the flagship "
+          f"PUSCH's {cbs.shape[0]} codeblocks at rv 0-3, one codeblock at "
+          f"n_ref = {n_ref}), K30 and K31 (slot E's {tuple(dl_slot.shape)} "
+          f"samples, clip at {cases['amplitude_control'][2][2]:.2f} dBFS, "
+          f"and the file's) held to their twins; low SNR (sigma {LOWSNR_SIGMA}, B = "
+          f"{LOWSNR_BLOCKS}): CA-SCL{SCL_LIST} {scl_err} block errors, K15 "
+          f"(SC) {sc_err}", flush=True)
+    print(_dci_lists(dev, dl_slot, dl, pay), flush=True)
+    print(f"UE-side plain products (torch.matmul, no kernel): "
+          f"{_plain_products(rng, dev)}; card {card}", flush=True)
+    print(f"split-8 round trips: {_round_trips(dl_slot.cpu().numpy())}; "
+          f"phase 14 took {SPLIT8_PHASE_S - (deadline - time.monotonic()):.1f}"
+          f" s of its {SPLIT8_PHASE_S} s", flush=True)
+    return results, {k: launches[k] for k in SPLIT8_KERNELS}
+
 
 def _slot_of_dict(out: dict, c) -> dict:
     """Cell ``c`` of a multi-cell UL result dict (None: the whole of a
@@ -2657,9 +3097,14 @@ def main() -> int:
         dev, np.random.default_rng(SEED + 13), card, du)
     print(f"phase 13 (du_low allocations, UE side): "
           f"{time.perf_counter() - t13:.1f} s", flush=True)
+    t14 = time.perf_counter()
+    split8_results, split8_launches = split8_phase(
+        dev, np.random.default_rng(SEED + 14), card)
+    print(f"phase 14 (split-8 radio, UE-side list decoder): "
+          f"{time.perf_counter() - t14:.1f} s", flush=True)
     results = {**ul_results, **dl_results, **uci_results, **mu_results,
                **batch_results, **edge_results, **gnb_results, **ofh_results,
-               **du_results, **alloc_results}
+               **du_results, **alloc_results, **split8_results}
     # K1-K11 as their own paths launched them (phases 2, 3), K12-K15 as the
     # conductor's slots did (phase 4, which launched every kernel), K16-K17
     # as the two-UE slot did (phase 5), the batched K1-K8 as one batch of
@@ -2667,12 +3112,13 @@ def main() -> int:
     # the scheduler-mode gnb_sim run did (phase 10), K23-K24 as the
     # fronthaul round trip did (phase 11), K25-K27 as the DU-low's slots
     # through serve_phy did (phase 12), K28 as the UE side of the DU-low's
-    # allocation slots did (phase 13)
+    # allocation slots did (phase 13), K29-K31 as phase 14's main path did
+    # (K32: the UE side of phase 10's gnb_sim run)
     launches = {**cond_launches, **ul_launches, **dl_launches,
                 **{k: mu_launches[k] for k in MU_KERNELS}, **batch_launches,
                 **{k: edge_launches[k] for k in EDGE_KERNELS},
                 **gnb_launches, **ofh_launches, **du_launches,
-                **alloc_launches}
+                **alloc_launches, **split8_launches}
     for name, r in results.items():
         lib = ("" if r["library_ms"] is None
                else f", library {r['library_ms']:.4f} ms")

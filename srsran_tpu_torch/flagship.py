@@ -46,6 +46,12 @@ ports, 273 RB, a 4096-point FFT and 30 kHz SCS.
   shapes -- the 4x4 TDLA channel (K20), the B4 PRACH occasion demodulator
   (K21) and a 2-layer PDSCH precoded per PRG (K22); the app itself builds
   its slots from its MAC.
+* Split 8: apps/ssb_tx.py's SSB slots at the flagship width on one port
+  (:data:`SPLIT8_CELL`), one UE slot's 36 AL16 PDCCH blind-decode
+  candidates for the list decoder (K29), and the kernels of the radio
+  boundary at these shapes: CFO (K30) and amplitude control (K31) on a DL
+  slot's samples, the UE transmitter's rate match (K32) on the flagship
+  PUSCH's codeblocks.
 
 ``chip_smoke.py`` and ``python3 -m srsran_tpu_torch.profile_slot`` drive
 these scenarios.
@@ -63,16 +69,16 @@ from .emulation import channel as chan
 from .fapi import messages
 from .ops import channel_estimate as chest
 from .ops import (dl_control, dl_map, dl_rs, ldpc_decode, ldpc_encode,
-                  ldpc_rate_match, ofdm, polar, short_block, uci_demux,
-                  ul_demap)
-from .ops.modulation import demodulate
+                  ldpc_rate_match, ofdm, polar, polar_scl, short_block,
+                  uci_demux, ul_demap)
+from .ops.modulation import BITS_PER_SYMBOL, demodulate
 from .ops.scrambling import descramble_llrs
 from .phy.slot_programs import (CellConfig, dl_slot_fn, dl_slot_fn_samples,
                                 ul_slot_fn)
 from .phy.upper import (csi_rs, dmrs, pdcch, pdsch, prach, ptrs_prs, pucch,
                         pusch, sch_decoder, srs, ssb, ue_tx)
 from .ofh import compression as bfp
-from .phy.lower import prach_demod
+from .phy.lower import amplitude_control, cfo, prach_demod
 from .ran import mcs_tbs, polar_params
 from .ran.precoding_codebooks import PrecodingConfig, nof_prgs
 from .ran.prach_params import zc_sequence
@@ -1912,3 +1918,65 @@ def alloc_kernel_cases(rng: np.random.Generator, device) -> dict:
         cases[name] = (polar.decode, polar.decode_ref,
                        (llr.contiguous(), code, "crc24C", syndrome))
     return cases
+
+
+# ------------------------------------------------------------- split 8
+
+# apps/ssb_tx.py's cell at the flagship width: 1 port, 273 RB, 4096 FFT.
+SPLIT8_CELL = CellConfig(nof_ports=1, nof_rb=273, dft_size=4096, numerology=1)
+# One UE slot's blind decodes: 36 monitored PDCCH candidates at 30 kHz
+# (TS 38.213 Table 10.1-2), here all at AL16 (N = 512, E = 1728), at a
+# noise sigma of 0.8 on BPSK; decoded at list size 8.
+UE_CANDIDATES = 36
+UE_CANDIDATE_SIGMA = 0.8
+SCL_LIST = 8
+CLIP_SHARE = 0.01
+
+
+def ue_candidates(rng: np.random.Generator, device) -> tuple:
+    """UE_CANDIDATES AL16 DCI codewords of random payloads through BPSK and
+    AWGN, rate-dematched: (LLRs f32 [36, 512] on ``device``, code)."""
+    a = DU_ALLOC_DCI_BITS
+    code = pdcch._dci_code(a + 24, pdcch.BITS_PER_CCE * 16)
+    msg = rng.integers(0, 2, (UE_CANDIDATES, a + 24)).astype(np.int8)
+    x = polar.rate_match(polar.encode(polar.allocate(torch.as_tensor(msg),
+                                                     code), code.n),
+                         code).numpy()
+    rx = ((1.0 - 2.0 * x) + UE_CANDIDATE_SIGMA * rng.standard_normal(
+        x.shape)).astype(np.float32)
+    return polar.rate_dematch(_up(rx, device), code), code
+
+
+def clip_ceiling_dbfs(x: torch.Tensor, share: float = CLIP_SHARE) -> float:
+    """A ceiling (dBFS, full scale 1) that clips about ``share`` of the
+    samples of ``x``."""
+    mag = np.sort(np.abs(x.cpu().numpy()).ravel())
+    return 20 * float(np.log10(mag[int(len(mag) * (1 - share))]))
+
+
+def split8_kernel_cases(rng: np.random.Generator, device,
+                        dl_samples: torch.Tensor, cfo_norm: float) -> dict:
+    """name -> (wrapper, plain twin, args) for the split-8 slice's kernels:
+    "polar_scl_decode" K29 on one UE slot's 36 AL16 candidates (L = 8, no
+    CRC: a DCI's CRC is masked by its RNTI), "rate_match" K32 on the
+    flagship PUSCH's codeblocks at rv 0 (the UE transmitter's), and K30
+    ("cfo_rotate") and K31 ("amplitude_control", a clip of about 1% of the
+    samples) on ``dl_samples``."""
+    cand, code = ue_candidates(rng, device)
+    payload = _up(rng.integers(0, 2, UE.tbs).astype(np.int8), device)
+    cbs = ldpc_encode.dlsch_encode(payload, SEG.base_graph)
+    rm = (cbs, pdsch.rate_match_sizes(UE), 0, BITS_PER_SYMBOL[UE.modulation],
+          SEG.base_graph, SEG.lifting_size, SEG.cb_info_bits,
+          SEG.full_block_bits)
+    return {
+        "polar_scl_decode": (polar_scl.scl_decode, polar_scl.scl_decode_ref,
+                             (cand, code, SCL_LIST, None)),
+        "rate_match": (ldpc_rate_match.rate_match_batch,
+                       ldpc_rate_match.rate_match_batch_ref, rm),
+        "cfo_rotate": (cfo.apply_cfo, cfo.apply_cfo_ref,
+                       (dl_samples, cfo_norm, 0)),
+        "amplitude_control": (amplitude_control.clip,
+                              amplitude_control.clip_ref,
+                              (dl_samples, 0.0,
+                               clip_ceiling_dbfs(dl_samples))),
+    }

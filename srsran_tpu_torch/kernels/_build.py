@@ -119,6 +119,12 @@ SIGNATURES = {
                         _P, _I, _I, _I, _I, _P],
     "srsran_control_map": [ControlArgs, _I, _P, _I, _I, _I, _L, _I, _P],
     "srsran_control_llrs": [_P, _P, _P, _I, _P, _P, _I, _F, _P, _P],
+    "srsran_polar_scl": [_P, _I, _I, _I, _P, _I, _P, _P, _I, _I, _I, _P, _P,
+                         _P],
+    "srsran_rate_match": [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+                          _P],
+    "srsran_cfo": [_P, _L, _I, _F, _L, _P, _P],
+    "srsran_amplitude": [_P, _L, _F, _F, _P, _P, _P, _P, _P, _P],
 }
 
 

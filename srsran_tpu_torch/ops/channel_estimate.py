@@ -241,7 +241,7 @@ def _time_alignment(ls_avg: torch.Tensor, pilot_scs: np.ndarray, nof_sc: int,
     if not regular:
         raise NotImplementedError(
             "TA over an irregular pilot comb arrives with RA type 0 "
-            "(ROADMAP §1 item 13)")
+            "(ROADMAP §2)")
     z = torch.zeros_like(ls_avg)
     inter = torch.stack([ls_avg] + [z] * (stride - 1), dim=-1)
     inter = inter.reshape(ls_avg.shape[:-1] + (k_p * stride,))
@@ -371,7 +371,7 @@ def estimate_from_grid(grid: torch.Tensor, symbols: tuple, first_sc: int,
             and bool(np.all(np.diff(scs_np) == step))):
         raise NotImplementedError(
             "TA over an irregular pilot comb arrives with RA type 0 "
-            "(ROADMAP §1 item 13)")
+            "(ROADMAP §2)")
     use_cfo = (estimate_cfo and n_s >= 2
                and dmrs_symbol_times_s is not None)
     interp = (td_strategy == "interpolate" and dmrs_symbol_idx is not None

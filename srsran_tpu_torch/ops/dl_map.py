@@ -28,7 +28,7 @@ from .. import kernels
 from ..device import const, is_cuda
 from ..kernels import _build
 from .gold import gold_sequence_np
-from .ldpc_rate_match import _window_plan, rate_match_batch
+from .ldpc_rate_match import _window_plan, rate_match_batch_ref
 from .modulation import BITS_PER_SYMBOL, modulate, pam_levels_scaled
 from .precoding import layer_map, precode, precode_prg
 from .scrambling import scramble_bits
@@ -59,8 +59,8 @@ def pdsch_map_ref(grid, cbs, e_sizes, rv, modulation, base_graph, z, k_prime,
                           prg_size, rb_start, n_ref)
         return grid
     qm = BITS_PER_SYMBOL[modulation]
-    codeword = rate_match_batch(cbs, e_sizes, rv, qm, base_graph, z, k_prime,
-                                k, n_ref)                          # [G]
+    codeword = rate_match_batch_ref(cbs, e_sizes, rv, qm, base_graph, z,
+                                    k_prime, k, n_ref)                          # [G]
     scrambled = scramble_bits(codeword[None], c_init)
     symbols = modulate(scrambled, modulation)                     # [1, S]
     layers = layer_map(symbols[0], nof_layers)                    # [L, S/L]

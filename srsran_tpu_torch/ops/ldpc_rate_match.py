@@ -15,6 +15,12 @@ prefix) are one pass of csrc/rate_dematch.cu; on CPU tensors it runs
 srsran_tpu/ops/ldpc_rate_match.py::rate_dematch_batch with the soft add
 and prefix of phy/upper/sch_decoder.py::decode; on the card it is a pure
 memory pass (about 10 MB at the flagship).
+
+:func:`rate_match_batch` and the single-codeblock :func:`rate_match` are
+the K32 wrapper: on CUDA tensors csrc/rate_match.cu (a thread per output
+bit: its window index, the filler gap and the Qm-row interleave), on CPU
+tensors :func:`rate_match_batch_ref`, the plain twin.  The single-codeblock
+:func:`rate_dematch` runs K2 with one codeblock per row and no soft buffer.
 """
 
 from __future__ import annotations
@@ -34,6 +40,10 @@ KERNEL = kernels.register(kernels.Kernel(
     source="srsran_tpu_torch/csrc/rate_dematch.cu",
     replaces="srsran_tpu/ops/ldpc_rate_match.py:159"))
 KERNEL_BATCH = kernels.batched(KERNEL)
+KERNEL_RM = kernels.register(kernels.Kernel(
+    name="rate_match", route="cuda",
+    source="srsran_tpu_torch/csrc/rate_match.cu",
+    replaces="srsran_tpu/ops/ldpc_rate_match.py:53"))
 
 FILLER_LLR = 1e4
 
@@ -63,10 +73,10 @@ def _group_e_sizes(e_sizes: tuple):
     return groups
 
 
-def rate_match_batch(codewords: torch.Tensor, e_sizes, rv: int, qm: int,
-                     base_graph: int, z: int, k_prime: int, k: int,
-                     n_ref: int = 0) -> torch.Tensor:
-    """Rate-match all codeblocks of a TB: int8 [C, N] -> int8 [G]."""
+def rate_match_batch_ref(codewords: torch.Tensor, e_sizes, rv: int, qm: int,
+                         base_graph: int, z: int, k_prime: int, k: int,
+                         n_ref: int = 0) -> torch.Tensor:
+    """Plain twin of :func:`rate_match_batch`."""
     _, n = codewords.shape
     fs, fe, n_nf, k0p = _window_plan(rv, base_graph, z, k_prime, k, n, n_ref)
     n_cb = n_nf + fe - fs
@@ -79,6 +89,61 @@ def rate_match_batch(codewords: torch.Tensor, e_sizes, rv: int, qm: int,
         inter = sel.reshape(g1 - g0, qm, e // qm)
         outs.append(inter.transpose(1, 2).reshape(-1))
     return torch.cat(outs) if len(outs) > 1 else outs[0]
+
+
+def gather_index(e_sizes, rv: int, qm: int, base_graph: int, z: int,
+                 k_prime: int, k: int, n: int, n_ref: int = 0) -> np.ndarray:
+    """int64 [G]: each output bit's flat index into the codewords [C, N],
+    csrc/rate_match.cu's index math on the host."""
+    fs, fe, n_nf, k0p = _window_plan(rv, base_graph, z, k_prime, k, n, n_ref)
+    parts = []
+    for c, e in enumerate(e_sizes):
+        i = np.arange(e)
+        q = (k0p + (i % qm) * (e // qm) + i // qm) % n_nf
+        parts.append(np.where(q >= fs, q + fe - fs, q) + c * n)
+    return np.concatenate(parts)
+
+
+def rate_match_batch(codewords: torch.Tensor, e_sizes, rv: int, qm: int,
+                     base_graph: int, z: int, k_prime: int, k: int,
+                     n_ref: int = 0) -> torch.Tensor:
+    """Rate-match all codeblocks of a TB: int8 [C, N] -> int8 [G] (each
+    codeblock's E_c bits in turn)."""
+    if not is_cuda(codewords):
+        return rate_match_batch_ref(codewords, e_sizes, rv, qm, base_graph, z,
+                                    k_prime, k, n_ref)
+    e_sizes = tuple(int(e) for e in e_sizes)
+    c, n = codewords.shape
+    if (codewords.dtype != torch.int8 or len(e_sizes) != c
+            or any(e < 1 or e % qm for e in e_sizes)):
+        raise ValueError(f"codewords must be int8 [C, N] with C = "
+                         f"{len(e_sizes)} E sizes divisible by Qm={qm}, got "
+                         f"{codewords.dtype} {tuple(codewords.shape)} "
+                         f"{e_sizes}")
+    fs, fe, n_nf, k0p = _window_plan(rv, base_graph, z, k_prime, k, n, n_ref)
+    dev = codewords.device
+    cw = codewords.contiguous()
+    out = torch.empty(sum(e_sizes), dtype=torch.int8, device=dev)
+    lib = _build.load()
+    _build.check(lib.srsran_rate_match(
+        _build.ptr(cw), c, n, _build.ptr(const(_cb_offsets, e_sizes, 1,
+                                                device=dev)),
+        _build.ptr(const(_cb_sizes, e_sizes, 1, device=dev)), max(e_sizes),
+        qm, fs, fe, n_nf, k0p, _build.ptr(out), _build.stream_of(cw)),
+        "rate_match")
+    KERNEL_RM.count()
+    return out
+
+
+def rate_match(codeword: torch.Tensor, e: int, rv: int, qm: int,
+               base_graph: int, z: int, k_prime: int, k: int,
+               n_ref: int = 0) -> torch.Tensor:
+    """Select and interleave E bits from each codeword: int8 [B, N] (the 2Z
+    punctured bits already removed) -> int8 [B, E] (JAX
+    ldpc_rate_match.py:53)."""
+    b = codeword.shape[0]
+    return rate_match_batch(codeword, (e,) * b, rv, qm, base_graph, z,
+                            k_prime, k, n_ref).reshape(b, e)
 
 
 def rate_dematch_batch(llrs: torch.Tensor, nof_codeblocks: int, e_sizes,
@@ -196,3 +261,22 @@ def rate_dematch_combine(llrs: torch.Tensor, nof_codeblocks: int, e_sizes,
         k0p, FILLER_LLR, _build.stream_of(llrs)), "rate_dematch")
     (KERNEL_BATCH if lead else KERNEL).count()
     return new_soft, full
+
+
+def rate_dematch(llrs: torch.Tensor, rv: int, qm: int, base_graph: int,
+                 z: int, k_prime: int, k: int, n: int, n_ref: int = 0,
+                 filler_llr: float = FILLER_LLR) -> torch.Tensor:
+    """Inverse of :func:`rate_match`: f32 [B, E] -> f32 [B, N] (JAX
+    ldpc_rate_match.py:206), each row one codeblock through K2 with no soft
+    buffer (its twin on the CPU).  Repetitions are summed in window order,
+    where JAX's scatter adds them in the interleaved stream's order: with
+    three or more copies of a position the float32 sums may differ in
+    their last bits.  Filler positions [k' - 2Z, k - 2Z) get
+    ``filler_llr``."""
+    b, e = llrs.shape
+    soft, _ = rate_dematch_combine(llrs.reshape(-1), b, (e,) * b, rv, qm,
+                                   base_graph, z, k_prime, k, n, n_ref=n_ref)
+    fs, fe = k_prime - 2 * z, k - 2 * z
+    if fe > fs:          # JAX sets the whole range, past n_cb too
+        soft[:, fs:fe] = filler_llr
+    return soft

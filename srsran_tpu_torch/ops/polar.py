@@ -13,8 +13,7 @@ RATE_1 / RATE_R of polar_decoder_impl.h:36-143).
 check of the decoded message, on CUDA tensors in one hand kernel
 (csrc/polar_sc.cu: one CTA per codeword, the LLR tree in shared memory,
 walking a host-built node schedule), on CPU tensors in its twin
-:func:`decode_ref`.  The list decoder (``polar_scl``) is not ported
-(ROADMAP §1 item 13).
+:func:`decode_ref`.  The CA-SCL list decoder is ``polar_scl`` (K29).
 """
 
 from __future__ import annotations

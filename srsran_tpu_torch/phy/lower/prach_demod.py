@@ -73,7 +73,7 @@ def _check(samples: torch.Tensor, start_sample: int, n_u: int, reps: int,
         raise NotImplementedError(
             f"nof_fd_occasions={nof_fd_occasions}: more than one "
             "frequency-domain PRACH occasion per window is not ported yet "
-            "(ROADMAP §1 item 14)")
+            "(ROADMAP §3)")
     if samples.ndim != 2 or samples.dtype != torch.complex64:
         raise ValueError(f"samples {tuple(samples.shape)} {samples.dtype}: "
                          "complex64 [ports, T] expected")

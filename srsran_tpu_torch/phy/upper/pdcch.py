@@ -15,8 +15,8 @@ The UE-side receiver (:func:`recover`, :func:`decode_dci`; only tests and
 demapped and descrambled by K28 (ops/dl_control.py::control_llrs), then
 polar rate dematch, SC decode and the DCI's CRC check by K15
 (ops/polar.py::decode), the check as a syndrome (:func:`dci_syndrome`).
-The step-by-step encoder waits for the device polar encoder (ROADMAP §1
-item 13).
+The step-by-step encoder waits for the device polar encoder (ROADMAP
+§2).
 """
 
 from __future__ import annotations

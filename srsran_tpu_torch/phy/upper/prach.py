@@ -12,7 +12,7 @@ csrc/prach_detect.cu around cuFFT's IDFT, all preambles in one launch; on
 CPU tensors its twin :func:`detect_ref` (the JAX package's per-preamble
 loop, vectorised over the preambles through one host gather plan).  The
 direct non-power-of-two DFT (``dft_nonpow2``) is off this path and not
-ported (ROADMAP §2 item 9).
+ported (ROADMAP §1, the do-not-port list).
 """
 
 from __future__ import annotations

@@ -16,7 +16,7 @@ data REs demapped and descrambled by K28 (ops/dl_control.py::
 control_llrs), polar rate dematch, SC decode and the CRC24C check by K15
 (ops/polar.py::decode), then the first descrambling and the MIB
 de-interleave on the host, as in the JAX package.  The step-by-step
-``pbch_encode`` waits for the device polar encoder (ROADMAP §1 item 13).
+``pbch_encode`` waits for the device polar encoder (ROADMAP §2).
 """
 
 from __future__ import annotations

@@ -5,8 +5,11 @@ that closes the loop with the receive chain (phy/upper/pusch.py): the data
 LDPC-coded and rate-matched around the UCI fields, HARQ-ACK and CSI encoded
 into their §6.2.7 positions (the ops/ulsch_demux.py plan), scrambling that
 honours the UCI placeholders, and type-1 DM-RS on port 0.  Single layer,
-as in the JAX package.  Plain PyTorch and numpy on the caller's device
-(the encoder runs K5 on a CUDA device, as the DL chain does).
+as in the JAX package.  Plain PyTorch and numpy on the caller's device;
+on a CUDA device the encoder runs K5, as the DL chain does, and the rate
+match of every codeblock K32 (``ldpc_rate_match.rate_match_batch``, one
+launch for the TB where JAX rate-matches codeblock by codeblock,
+ue_tx.py:76-78; the same bits).
 
 Beyond the JAX function (whose package has no UE transmitter for them, its
 tests build such grids by hand), the same codeword goes out with intra-slot

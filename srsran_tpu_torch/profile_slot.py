@@ -1,7 +1,8 @@
 """Where a flagship slot's time goes on one CUDA GPU.
 
     python3 -m srsran_tpu_torch.profile_slot
-        [--direction ul|dl|conductor|ul_mu|batch|edge|gnb|du_low|du_alloc]
+        [--direction ul|dl|conductor|ul_mu|batch|edge|gnb|du_low|du_alloc|
+                     split8]
         [--slots 8]
         [--calls 10]
         [--out DIR]
@@ -31,7 +32,12 @@ their UE side (``du_alloc``: kinds E and F of ``flagship.du_alloc_request``
 in turn -- a type 0 PDSCH precoded per PRG beside the SSB and five DCIs,
 an interleaved-VRB PDSCH beside a DCI -- each through ``process_dl``, then
 ``flagship.du_control_rx`` on its samples: K4, one K28 launch, one K15
-launch per codeword) and reports:
+launch per codeword), or the split-8 radio's UE side (``split8``: apps/
+ssb_tx.py's two SSB slots at the flagship width on one port in turn, each
+clipped (K31) and CFO-rotated (K30), OFDM-demodulated (K4), its PBCH
+demapped (K28) and decoded by K15 and by the list decoder K29, beside one
+UE slot's 36 AL16 PDCCH candidates through K29; K32's case is the UE
+transmitter's rate match) and reports:
 
 * the slot's wall time three ways: CUDA events around each call (as
   ``chip_smoke.py`` times it), the host clock over back-to-back calls with
@@ -60,7 +66,8 @@ card.
 
 The slot's trace and a JSON summary go to ``--out`` (``slot_trace.json``
 and ``summary.json`` for the UL, ``dl_``, ``conductor_``, ``ul_mu_``,
-``batch_``, ``edge_``, ``gnb_``, ``du_low_`` or ``du_alloc_`` before both
+``batch_``, ``edge_``, ``gnb_``, ``du_low_``, ``du_alloc_`` or ``split8_``
+before both
 names for the others);
 the summary is also printed as the last line.
 """
@@ -78,10 +85,15 @@ import numpy as np
 import torch
 
 from . import flagship, kernels
-from .apps import gnb_sim
+from .apps import gnb_sim, ssb_tx
 from .device import card_line, require_cuda
 from .fapi.conductor import SlotConductor
+from .fapi.messages import DlTtiRequest, TxDataRequest
 from .kernels import _build
+from .ops import dl_control, ofdm, polar, polar_scl
+from .phy.lower import amplitude_control, cfo
+from .phy.upper import ssb
+from .ran.slot_point import SlotPoint
 from .utils import config as app_config
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -97,7 +109,8 @@ HAND_KERNELS = ("ldpc_sweep_kernel", "ldpc_check_kernel", "rate_dematch_kernel",
                 "pusch_demap_lxn_kernel", "ulsch_demux_kernel",
                 "pusch_tp_demap_kernel", "pucch_f3_demap_kernel",
                 "dmrs_map_kernel", "rs_map_kernel", "control_map_kernel",
-                "control_llrs_kernel")
+                "control_llrs_kernel", "polar_scl_kernel", "rate_match_kernel",
+                "cfo_kernel", "amplitude_kernel", "amplitude_finish")
 
 
 def category(name: str, cat: str) -> str:
@@ -449,6 +462,51 @@ def du_alloc_scenario(n: int, seed: int, dev) -> tuple:
                                          "polar_decode_al16")}
 
 
+SPLIT8_CFO_HZ = 1500.0
+
+
+def split8_scenario(n: int, seed: int, dev) -> tuple:
+    """(one zero-argument call per split-8 UE slot, ssb_tx's SSB slots 0
+    and 1 in turn; K29-K32's cases, K30 and K31 on DU-low slot E's 4-port
+    samples as ``chip_smoke.py`` times them)."""
+    rng = np.random.default_rng(seed)
+    cell = flagship.SPLIT8_CELL
+    cond = SlotConductor(cell, device=dev)
+    slots = []
+    for count in range(2):
+        slot = SlotPoint(1, count)
+        cfg = ssb_tx.ssb_config(slot, cell, 500)
+        mib = rng.integers(0, 2, 24).astype(np.int8)
+        samples, _ = cond.process_dl(DlTtiRequest(slot=slot, ssb=(cfg,)),
+                                     TxDataRequest(slot=slot, ssb_mib=(mib,)),
+                                     return_grid=False)
+        slots.append((count, cfg, samples))
+    cand, code = flagship.ue_candidates(rng, dev)
+    cfo_norm = SPLIT8_CFO_HZ / (cell.dft_size * 30_000)
+    ceiling = flagship.clip_ceiling_dbfs(slots[0][2])
+    pbch = ssb._pbch_code()
+
+    def call(count, cfg, samples):
+        amplitude_control.clip(samples, 0.0, ceiling)
+        cfo.apply_cfo(samples, cfo_norm)
+        grid = ofdm.demodulate_slot(samples, cell.nof_sc, cell.dft_size,
+                                    cell.numerology, cell.cp, count,
+                                    cell.center_freq_hz).contiguous()
+        llrs = dl_control.control_llrs(grid, (ssb.rx_item(
+            cfg, tuple(grid.shape), 0),))
+        ssb.pbch_decode_llrs(llrs, cfg)
+        polar_scl.scl_decode(polar.rate_dematch(llrs.reshape(1, -1), pbch),
+                             pbch, flagship.SCL_LIST, "crc24C")
+        return polar_scl.scl_decode(cand, code, flagship.SCL_LIST)
+
+    calls = [lambda s=slots[i % 2]: call(*s) for i in range(n)]
+    pay = flagship.du_alloc_payloads(rng)
+    dl_slot, _ = SlotConductor(flagship.CELL, device=dev).process_dl(
+        *flagship.du_alloc_request("E", 2, pay), return_grid=False)
+    return calls, flagship.split8_kernel_cases(
+        rng, dev, dl_slot, SPLIT8_CFO_HZ / (flagship.CELL.dft_size * 30_000))
+
+
 def launch_counts(call) -> dict:
     """The hand kernels' launches in one call."""
     torch.cuda.synchronize()
@@ -463,7 +521,7 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--direction",
                     choices=("ul", "dl", "conductor", "ul_mu", "batch",
-                             "edge", "gnb", "du_low", "du_alloc"),
+                             "edge", "gnb", "du_low", "du_alloc", "split8"),
                     default="ul")
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--calls", type=int, default=10)
@@ -502,6 +560,9 @@ def main(argv=None) -> dict:
     elif args.direction == "du_alloc":
         calls, cases = du_alloc_scenario(args.slots, args.seed, dev)
         prefix = "du_alloc_"
+    elif args.direction == "split8":
+        calls, cases = split8_scenario(args.slots, args.seed, dev)
+        prefix = "split8_"
     else:
         calls, cases, resolve = conductor_scenario(args.slots, args.seed, dev,
                                                    gen)

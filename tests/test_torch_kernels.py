@@ -1007,3 +1007,76 @@ def test_du_low_alloc_slots(cuda):
     dl, tx = flagship.du_alloc_request("G", 6, pay)
     with pytest.raises(ValidationError, match="PT-RS"):
         gpu.process_dl(dl, tx)
+
+
+# The split-8 slice's kernels: K29 CA-SCL list decoding, K30 CFO, K31
+# amplitude control, K32 LDPC rate match (bits out).
+
+@pytest.mark.parametrize("k,e,nmax,ibil,n_pc,size,crc_name", [
+    (56, 864, 9, False, 0, 8, "crc24C"), (40, 100, 9, False, 0, 8, None),
+    (18, 60, 10, True, 3, 4, None), (25, 64, 9, False, 0, 1, "crc11"),
+    (100, 1024, 10, False, 0, 8, "crc11"), (39, 108, 9, False, 0, 2, None)])
+def test_polar_scl_kernel(cuda, k, e, nmax, ibil, n_pc, size, crc_name):
+    """K29 bit-exact to its twin (messages and ok), N from 64 to 1024,
+    with exact-zero LLRs and an all-zero row."""
+    from srsran_tpu_torch.ops import polar_scl
+    code = polar_params.polar_code(k, e, nmax=nmax, ibil=ibil, n_pc=n_pc)
+    rng = np.random.default_rng(k + e + size)
+    msg = rng.integers(0, 2, (12, k)).astype(np.int8)
+    x = polar.rate_match(polar.encode(polar.allocate(torch.as_tensor(msg),
+                                                     code), code.n),
+                         code).numpy()
+    llr = ((1.0 - 2.0 * x) + 1.0 * rng.standard_normal(x.shape)
+           ).astype(np.float32)
+    llr[1, ::3] = 0.0
+    llr[5] = 0.0
+    lm = polar.rate_dematch(torch.as_tensor(llr), code).to(cuda)
+    got = polar_scl.scl_decode(lm, code, size, crc_name)
+    ref = polar_scl.scl_decode_ref(lm, code, size, crc_name)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.parametrize("rv", [0, 1, 2, 3])
+@pytest.mark.parametrize("bg,z,k_prime,n_ref,e_sizes,qm", [
+    (1, 384, 8000, 0, (25344, 25344, 25350), 6),
+    (2, 16, 150, 0, (2400,), 4), (1, 24, 520, 1000, (2598, 2604), 6)])
+def test_rate_match_kernel(cuda, rv, bg, z, k_prime, n_ref, e_sizes, qm):
+    """K32 bit-exact to its twin, over whole TBs and one codeblock."""
+    k = (22 if bg == 1 else 10) * z
+    n = (66 if bg == 1 else 50) * z
+    cw = torch.as_tensor(np.random.default_rng(rv).integers(
+        0, 2, (len(e_sizes), n)).astype(np.int8)).to(cuda)
+    args = (e_sizes, rv, qm, bg, z, k_prime, k, n_ref)
+    assert torch.equal(ldpc_rate_match.rate_match_batch(cw, *args),
+                       ldpc_rate_match.rate_match_batch_ref(cw, *args))
+    one = ldpc_rate_match.rate_match(cw[:1], e_sizes[0], *args[1:])
+    assert torch.equal(one[0], ldpc_rate_match.rate_match_batch_ref(
+        cw[:1], e_sizes[:1], *args[1:]))
+
+
+@pytest.mark.parametrize("cfo_hz,offset", [(370.0, 0), (-7e3, 2 ** 24 + 9)])
+def test_cfo_kernel(cuda, cfo_hz, offset):
+    """K30 within 1e-6 of its twin (sincosf against sin and cos)."""
+    from srsran_tpu_torch.phy.lower import cfo
+    x = _cgauss(np.random.default_rng(1), (4, 61440)).to(cuda)
+    c = cfo_hz / 122.88e6
+    _close(cfo.apply_cfo(x, c, offset), cfo.apply_cfo_ref(x, c, offset), 1e-6)
+
+
+@pytest.mark.parametrize("gain_db,ceiling_dbfs", [(0.0, 0.0), (0.0, 9.5),
+                                                  (-3.0, None)])
+def test_amplitude_kernel(cuda, gain_db, ceiling_dbfs):
+    """K31: samples within 1e-6 of the twin's, peak and clipped share
+    equal, average power within 1e-5 dB."""
+    from srsran_tpu_torch.phy.lower import amplitude_control as amp
+    x = _cgauss(np.random.default_rng(2), (4, 61440)).to(cuda)
+    if ceiling_dbfs is None:
+        got, m = amp.scale(x, gain_db)
+        ref, r = amp.clip_ref(x, gain_db, float("inf"))
+    else:
+        got, m = amp.clip(x, gain_db, ceiling_dbfs)
+        ref, r = amp.clip_ref(x, gain_db, ceiling_dbfs)
+    _close(got, ref, 1e-6)
+    assert float(m.clipped_ratio) == float(r.clipped_ratio)
+    assert abs(float(m.peak_power_db) - float(r.peak_power_db)) < 1e-6
+    assert abs(float(m.avg_power_db) - float(r.avg_power_db)) < 1e-5
