@@ -88,12 +88,15 @@ the JAX package.  It builds the hand kernels from ``srsran_tpu_torch/csrc``
    and PRACH capture (slot 2's noise alone): 4/4 TBs with exact payloads,
    every indication as sent, each slot's packed results equal to
    ``process_slot``'s for the same slot (bits exact, scalars within 2e-4),
-   PRACH detected per slot, K1-K8 launched once per batch; us per slot;
-   then the batched K1-K8 against their twins at B = 4 (timed, with their
-   bounds) and at B = 1 against the unbatched kernels;
+   PRACH detected per slot, every receiver of the plan once per batch
+   (K1-K15 each once, K13 once per F2 PDU, K8 for the PUSCH, the SRS and
+   both F2s: 1 + 3) and no kernel once per slot; us per slot; then the
+   batched K1-K15 against their twins at B = 4 (timed, with their bounds)
+   and at B = 1 against the unbatched kernels;
 8. multi_cell: 4 cells of the flagship DL and UL plans through
    ``parallel.mesh.multi_cell_dl_fn`` / ``multi_cell_ul_fn``, each cell's
-   samples and UL results equal to its single-cell program's;
+   samples and UL results equal to its single-cell program's, K1-K11
+   launched once for the 4 cells (K8 twice: PUSCH and SRS);
 9. cell-edge: K18 (the DFT-s-OFDM PUSCH's equalize, IDFT, demap and
    descramble) and K19 (PUCCH F3/F4) against their twins at the
    ``flagship.EDGE`` shapes (K18 also at M = 3240, K19 also at the F4, K8
@@ -260,7 +263,6 @@ from srsran_tpu_torch.fapi.transport import FapiClient, serve_phy
 from srsran_tpu_torch.graphs import SlotGraph
 from srsran_tpu_torch.kernels import _build
 from srsran_tpu_torch.io.sampio import SampleFileReader
-from srsran_tpu_torch.ops import channel_estimate as chest
 from srsran_tpu_torch.ops import dl_control, dl_map, dl_rs
 from srsran_tpu_torch.ops import ldpc_rate_match, ofdm, polar
 from srsran_tpu_torch.ops import polar_scl, transform_precode
@@ -342,6 +344,7 @@ CASE_KERNEL = {"pdsch_map_repetition": "pdsch_map",
                "pdsch_map_interleaved": "pdsch_map",
                "pdsch_map_nref": "pdsch_map",
                "rate_dematch_type0": "rate_dematch",
+               "rate_dematch_single": "rate_dematch",
                "rate_dematch_nref": "rate_dematch",
                "polar_decode_al16": "polar_decode",
                "polar_decode_pbch": "polar_decode",
@@ -363,14 +366,24 @@ HARQ_ID = 3
 # tensor cores.  A card set below 700 W runs below them.
 MEM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# The kernels with a slot axis (K1-K8); each has a "<name>_batch" row.
+# The kernels with a slot axis (K1-K15); each has a "<name>_batch" row.
+# The first 11 are the flagship UL and DL plans' (K1-K11), the rest the
+# conductor scenario's UCI kernels (K12-K15).
 BATCHED = ("ofdm_demodulate", "pusch_demap", "rate_dematch", "ldpc_decode",
-           "channel_estimate", "dlsch_encode", "pdsch_map", "ofdm_modulate")
+           "channel_estimate", "dlsch_encode", "pdsch_map", "ofdm_modulate",
+           "prach_detect", "pucch_f1_detect", "srs_estimate",
+           "pucch_f0_detect", "pucch_f2_demap", "short_block_detect",
+           "polar_decode")
 BATCH_KERNELS = tuple(f"{n}_batch" for n in BATCHED)
-# The kernels a batch of the conductor scenario launches once per slot.
-PER_SLOT_IN_BATCH = ("prach_detect", "pucch_f1_detect", "srs_estimate",
-                     "pucch_f0_detect", "pucch_f2_demap", "short_block_detect",
-                     "polar_decode")
+# Launches of each batch row in one batch of the conductor scenario: one,
+# but K8 once for the PUSCH, the SRS and each F2 (1 + 3) and K13 once per
+# F2 PDU; no kernel launches once per slot.
+BATCH_LAUNCHES = {**{k: 1 for k in BATCH_KERNELS},
+                  "channel_estimate_batch": 4, "pucch_f2_demap_batch": 2}
+# The same for the multi-cell programs (the flagship plans: no F0, no F2;
+# K8 for the PUSCH and the SRS).
+MULTI_CELL_LAUNCHES = {**{f"{n}_batch": 1 for n in BATCHED[:11]},
+                       "channel_estimate_batch": 2}
 BATCH_TIMING_RUNS = 5
 GRAPH_PASSES = 2
 GNB_KERNELS = ("tdl_channel", "prach_demod", "pdsch_map_prg", "rate_match")
@@ -694,6 +707,8 @@ def work(name: str, args: tuple, out) -> tuple:
         n = sum(o.numel() for o in out)
         return (nbytes(llr) + llr.numel() + 5 * n + nbytes(out), float(n))
     if name == "rate_dematch":                     # K2: an add per soft bit
+        if len(args) < 11:        # one codeblock per row, no soft buffer
+            return nbytes(args[0]) + nbytes(out), float(args[0].numel())
         return nbytes((args[0], args[10])) + nbytes(out), float(
             args[10].numel())
     if name == "ldpc_decode":                      # K1: 8 per edge per sweep
@@ -1564,20 +1579,12 @@ def batch_phase(scen: dict, card) -> dict:
     kernels.reset_counts()
     _, pend = cond.process_slot_batch(slots, st, rx_b, prach_fd=prach_b)
     check(pend.resolve(), "counted batch")
-    counts = {k.name: k.launches for k in kernels.REGISTRY.values()}
-    launches = launched(BATCH_KERNELS + PER_SLOT_IN_BATCH)
+    launches = batch_counts(BATCH_LAUNCHES, "batch")
     dl_maps = launched(("dmrs_map", "control_map"))
-    # K8 also runs once per slot inside the SRS and PUCCH F2 receivers
-    unbatched = {n: counts[n] for n in BATCHED
-                 if counts[n] and n != "channel_estimate"}
-    if unbatched or any(counts[n] != 1 for n in BATCH_KERNELS):
-        raise AssertionError(f"batch launches: {launches}, per-slot K1-K8 "
-                             f"{unbatched}")
     print(f"batch launches per batch of {flagship.BATCH}: {launches}, "
-          f"K26/K27 {dl_maps}; "
-          f"unbatched K8 (SRS and F2 estimates) "
-          f"{counts['channel_estimate']}; K1 runs one device launch per "
-          f"sweep of all {flagship.BATCH} slots", flush=True)
+          f"K26/K27 {dl_maps}; no kernel launched once per slot; K1 runs "
+          f"one device launch per sweep of all {flagship.BATCH} slots",
+          flush=True)
 
     # Staged beforehand (one transfer per batch), launched back to back
     # and resolved RESOLVE_LAG behind: each batch's device span by CUDA
@@ -1612,18 +1619,51 @@ def batch_phase(scen: dict, card) -> dict:
     return launches
 
 
+def batch_counts(want: dict, where: str) -> dict:
+    """The batch rows' launch counts since the last reset; raises unless
+    they are ``want`` and no kernel with a slot axis launched per slot."""
+    counts = {k.name: k.launches for k in kernels.REGISTRY.values()}
+    got = {n: counts[n] for n in BATCH_KERNELS if counts[n] or n in want}
+    per_slot = {n: counts[n] for n in BATCHED if counts[n]}
+    if got != want or per_slot:
+        raise AssertionError(f"{where} launches {got} (want {want}), per "
+                             f"slot {per_slot}")
+    return got
+
+
+def _stack_tree(vals: list) -> tuple:
+    """One argument's per-slot values -> (the argument with a slot axis on
+    every tensor that differs across the slots, descending into tuples of
+    tensors; a mask of the same shape, True where stacked)."""
+    v0 = vals[0]
+    if isinstance(v0, torch.Tensor):
+        if all(v is v0 for v in vals):
+            return v0, False
+        return torch.stack(vals), True
+    if isinstance(v0, tuple) and any(isinstance(x, (torch.Tensor, tuple))
+                                     for x in v0):
+        parts = [_stack_tree(list(z)) for z in zip(*vals)]
+        return tuple(a for a, _ in parts), tuple(m for _, m in parts)
+    return v0, False
+
+
+def _slice_tree(arg, mask, index):
+    """``arg[index]`` on every stacked tensor of an argument."""
+    if mask is True:
+        return arg[index]
+    if isinstance(mask, tuple):
+        return tuple(_slice_tree(a, m, index) for a, m in zip(arg, mask))
+    return arg
+
+
 def _stack_case(cases: list) -> tuple:
     """(fn, twin, args) over slots -> one case with the slot axis: the
     tensors that differ stack on a new axis (the mask says which), shared
     ones and the other arguments stay."""
     fn, ref_fn, _ = cases[0]
-    args, mask = [], []
-    for vals in zip(*(c[2] for c in cases)):
-        stack = (isinstance(vals[0], torch.Tensor)
-                 and not all(v is vals[0] for v in vals))
-        args.append(torch.stack(vals) if stack else vals[0])
-        mask.append(stack)
-    return fn, ref_fn, tuple(args), tuple(mask)
+    stacked = [_stack_tree(list(vals)) for vals in zip(*(c[2] for c in cases))]
+    return (fn, ref_fn, tuple(a for a, _ in stacked),
+            tuple(m for _, m in stacked))
 
 
 def _slot_of(obj, b: int):
@@ -1632,21 +1672,27 @@ def _slot_of(obj, b: int):
         return obj[b]
     if isinstance(obj, (tuple, list)):
         return tuple(_slot_of(o, b) for o in obj)
-    if isinstance(obj, chest.ChannelEstimate):
-        return chest.ChannelEstimate(**{f.name: getattr(obj, f.name)[b]
-                                        for f in dataclasses.fields(obj)})
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return type(obj)(**{f.name: _slot_of(getattr(obj, f.name), b)
+                            for f in dataclasses.fields(obj)})
     return obj
 
 
 def batched_kernel_phase(ul_slots, dl_slots, gen, scen) -> dict:
-    """The batched K1-K8 at B = 4 against their twins (timed, with their
+    """The batched K1-K15 at B = 4 against their twins (timed, with their
     bounds, the work summed over the slots), and at B = 1 against the
-    unbatched kernels."""
+    unbatched kernels: K1-K11 on phase 2's and 3's slots (each slot its
+    own context and PRACH capture), K12-K15 on the batch's conductor
+    phases."""
     nb = flagship.BATCH
-    per_slot = [flagship.kernel_cases(rx, ctx, gen, scen["prach_in"])
-                for _, rx, ctx in ul_slots[:nb]]
-    per_slot = [{**u, **flagship.dl_kernel_cases(d)}
-                for u, d in zip(per_slot, dl_slots[:nb])]
+    prach_b = flagship.batch_prach_fd(ul_slots[0][1].device, SEED)
+    phases = scen["phases"]
+    per_slot = [{**flagship.kernel_cases(rx, ctx, gen, (prach_b[0][b],)),
+                 **flagship.dl_kernel_cases(d),
+                 **flagship.conductor_kernel_cases(
+                     phases[g]["rx"], (2 * g) % 20, gen)}
+                for b, ((_, rx, ctx), d, g) in enumerate(zip(
+                    ul_slots[:nb], dl_slots[:nb], flagship.BATCH_PHASES))]
     results = {}
     for name in BATCHED:
         fn, ref_fn, args, mask = _stack_case([c[name] for c in per_slot])
@@ -1656,13 +1702,14 @@ def batched_kernel_phase(ul_slots, dl_slots, gen, scen) -> dict:
                   for b in range(nb))
         b_bytes = b_ops = 0.0
         for b in range(nb):
-            sl = tuple(a[b] if m else a for a, m in zip(args, mask))
+            sl = tuple(_slice_tree(a, m, b) for a, m in zip(args, mask))
             w = work(name, sl, _slot_of(out, b))
             b_bytes += w[0]
             b_ops += w[1]
         t_bytes, t_ops = b_bytes / MEM_BYTES_PER_S, b_ops / F32_OPS_PER_S
         # B = 1: the batched kernel's slot 0 against today's kernel
-        one = fn(*(a[:1] if m else a for a, m in zip(args, mask)))
+        one = fn(*(_slice_tree(a, m, slice(0, 1))
+                   for a, m in zip(args, mask)))
         single = fn(*per_slot[0][name][2])
         compare(name, _slot_of(one, 0), single)
         results[f"{name}_batch"] = dict(
@@ -1671,7 +1718,7 @@ def batched_kernel_phase(ul_slots, dl_slots, gen, scen) -> dict:
             bound_ms=1e3 * max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=None)
-    print(f"batched K1-K8 at B = {nb} against their twins and at B = 1 "
+    print(f"batched K1-K15 at B = {nb} against their twins and at B = 1 "
           f"against the unbatched kernels: ok", flush=True)
     return results
 
@@ -1688,7 +1735,8 @@ def multi_cell_phase(dev, gen, rng, card) -> None:
     kernels.reset_counts()
     (samples, _), ms_dl = timed(lambda: dl((), (inp["dci"],), (inp["sch"],)))
     out, ms_ul = timed(lambda: ul(inp["rx"], inp["prach"], inp["softs"]))
-    launches = launched(BATCH_KERNELS + ("dmrs_map", "control_map"))
+    launches = {**batch_counts(MULTI_CELL_LAUNCHES, "multi-cell"),
+                **launched(("dmrs_map", "control_map"))}
     one_ul = ul_slot_fn(flagship.CELL, flagship.UL_PLAN)
     for c in range(n):
         s1 = flagship.dl_program(False)((), (inp["dci"][c],),
@@ -2789,6 +2837,23 @@ def _rate_match_one_ref(cw, e, *args):
         cw, (e,) * cw.shape[0], *args).reshape(cw.shape[0], e)
 
 
+def _rate_dematch_one_ref(llrs, rv, qm, bg, z, k_prime, k, n):
+    """Plain twin of the single-codeblock ``ldpc_rate_match.rate_dematch``
+    (K2 with one codeblock per row and no soft buffer)."""
+    b, e = llrs.shape
+    soft, _ = ldpc_rate_match.rate_dematch_combine_ref(
+        llrs.reshape(-1), b, (e,) * b, rv, qm, bg, z, k_prime, k, n)
+    soft[:, k_prime - 2 * z:k - 2 * z] = ldpc_rate_match.FILLER_LLR
+    return soft
+
+
+def _noisy_llrs(bits: torch.Tensor, rng) -> torch.Tensor:
+    """BPSK LLRs of ``bits`` with unit Gaussian noise from ``rng``."""
+    noise = torch.from_numpy(rng.normal(size=tuple(bits.shape)).astype(
+        np.float32)).to(bits.device)
+    return 1.0 - 2.0 * bits.to(torch.float32) + noise
+
+
 def _lowsnr(rng, dev) -> tuple:
     """The low-SNR PBCH-like experiment: K15 (SC) and K29 (CA-SCL8) block
     errors on the same LLRs, and K29's arguments."""
@@ -2849,21 +2914,37 @@ def _dci_lists(dev, samples: torch.Tensor, dl, pay: dict) -> str:
             f"payloads sent, L = 1 equal to K15's messages")
 
 
+def _bound_text(nbytes_: float, ops: float) -> str:
+    t_bytes, t_ops = nbytes_ / MEM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return (f"bound {1e3 * max(t_bytes, t_ops):.6f} ms "
+            f"({'bytes' if t_bytes >= t_ops else 'operations'})")
+
+
 def _plain_products(rng, dev) -> str:
-    """ms by events of the UE side's plain DFT products: transform
-    precoding of 12 data symbols at the cell edge's M = 72 and the widest
-    M = 3240, and the cell edge's PUCCH F3 encode (22 bits, 2 RB)."""
+    """ms by events of the UE side's plain DFT products, each beside its
+    bound: transform precoding of 12 data symbols at the cell edge's M = 72
+    and the widest M = 3240 (the blocks read and written once; an FFT's
+    operations), and the cell edge's PUCCH F3 encode (22 bits, 2 RB: the
+    bits read and the RE values written once; an FFT's operations per
+    data symbol and ~4 per coded bit for the polar encode, scrambling and
+    modulation)."""
     out = []
     for m in (12 * flagship.EDGE.pusch_c.rb_count, 3240):
         x = torch.from_numpy((rng.normal(size=(12, m)) + 1j * rng.normal(
             size=(12, m))).astype(np.complex64)).to(dev)
         ms = median_ms(lambda x=x: transform_precode.precode(x))
-        out.append(f"precode M = {m} {ms:.4f} ms")
+        out.append(f"precode M = {m} {ms:.4f} ms, "
+                   f"{_bound_text(2 * nbytes(x), fft_ops(m, 12))}")
     cfg = flagship.EDGE.f3
     bits = torch.from_numpy(rng.integers(0, 2, cfg.nof_uci_bits).astype(
         np.int8)).to(dev)
     ms = median_ms(lambda: pucch.f3_encode(bits, cfg))
-    out.append(f"f3_encode {ms:.4f} ms")
+    m, n_data = 12 * cfg.nof_rb, len(pucch._f3_symbol_split(cfg)[1])
+    coded = n_data * m // cfg.occ_length * pucch._f3_qm(cfg)
+    res = pucch.f3_encode(bits, cfg)
+    bound_f3 = _bound_text(nbytes(bits) + nbytes(res),
+                           fft_ops(m, n_data) + 4.0 * coded)
+    out.append(f"f3_encode {ms:.4f} ms, {bound_f3}")
     return ", ".join(out)
 
 
@@ -2994,6 +3075,11 @@ def split8_phase(dev, rng, card) -> tuple:
            for rv in (1, 2, 3)},
         "rate_match_nref": (ldpc_rate_match.rate_match, _rate_match_one_ref,
                             (cbs[:1], e_sizes[0]) + rm[2:] + (n_ref,)),
+        "rate_dematch_single": (ldpc_rate_match.rate_dematch,
+                                _rate_dematch_one_ref,
+                                (_noisy_llrs(ldpc_rate_match.rate_match(
+                                    cbs, e_sizes[0], *rm[2:]), rng),)
+                                + rm[2:] + (cbs.shape[1],)),
         "cfo_rotate_file": (cfo.apply_cfo, cfo.apply_cfo_ref,
                             (whole, CFO_HZ / fs, 0)),
         "amplitude_control_file": (amplitude_control.clip,
@@ -3107,7 +3193,7 @@ def main() -> int:
                **du_results, **alloc_results, **split8_results}
     # K1-K11 as their own paths launched them (phases 2, 3), K12-K15 as the
     # conductor's slots did (phase 4, which launched every kernel), K16-K17
-    # as the two-UE slot did (phase 5), the batched K1-K8 as one batch of
+    # as the two-UE slot did (phase 5), the batched K1-K15 as one batch of
     # phase 7 did, K18-K19 as the cell-edge slot did (phase 9), K20-K22 as
     # the scheduler-mode gnb_sim run did (phase 10), K23-K24 as the
     # fronthaul round trip did (phase 11), K25-K27 as the DU-low's slots

@@ -17,7 +17,10 @@
 // ports and symbols.  Pass 2b (prach_detect_kernel): one block per
 // preamble; the geometry (root index, window start) is a static host table
 // uploaded once; fixed-order block sums and a first-index argmax keep the
-// result the same from run to run; block 0 also writes the RSSI.  Bounds on
+// result the same from run to run; block 0 also writes the RSSI.  A slot
+// batch runs its B captures through the same three launches: pass 1 treats
+// the slot axis as more (port, symbol) rows, passes 2a and 2b take the slot
+// as blockIdx.y.  Bounds on
 // this card: bytes -- the IDFT buffer of 4 x 12 x 10 x 1024 complex64
 // (3.9 MB at the flagship) is written once and read by cuFFT.
 
@@ -76,6 +79,9 @@ __global__ void prach_power_kernel(const float2* __restrict__ d, int PS, int R,
                                    float* __restrict__ power) {
   const long long gid = (long long)blockIdx.x * NT + threadIdx.x;
   if (gid >= (long long)R * N) return;
+  const size_t b = blockIdx.y;                         // slot
+  d += b * PS * R * N;
+  power += b * R * N;
   float acc = 0.f;
   for (int ps = 0; ps < PS; ++ps) {
     const float2 x = d[(size_t)ps * R * N + gid];
@@ -84,7 +90,8 @@ __global__ void prach_power_kernel(const float2* __restrict__ d, int PS, int R,
   power[gid] = acc;
 }
 
-__global__ void prach_detect_kernel(const float* __restrict__ power, int N,
+__global__ void prach_detect_kernel(const float* __restrict__ power, int R,
+                                    int N,
                                     const int* __restrict__ geom, int win,
                                     int margin, int search, float threshold,
                                     float span, const float2* __restrict__ rx,
@@ -96,6 +103,14 @@ __global__ void prach_detect_kernel(const float* __restrict__ power, int N,
   __shared__ float sv[NT];
   __shared__ int si[NT];
   const int pre = blockIdx.x, t = threadIdx.x;
+  const size_t b = blockIdx.y;                         // slot
+  const int npre = gridDim.x;
+  power += b * R * N;
+  rx += b * nrx;
+  metrics += b * npre;
+  ta += b * npre;
+  detected += b * npre;
+  rssi += b;
   const float* pw = power + (size_t)geom[2 * pre] * N;
   const int start = geom[2 * pre + 1];
   // the region [start - margin, start + win + margin) of the circular power
@@ -145,7 +160,8 @@ inline int blocks_for(long long n) { return (int)((n + NT - 1) / NT); }
 
 }  // namespace
 
-// Pass 1: rx [P*S, L], roots [R, L] -> buf [P*S, R, N].
+// Pass 1: rx [P*S, L], roots [R, L] -> buf [P*S, R, N] (a slot batch
+// passes its slots * P * S rows as PS).
 extern "C" int srsran_prach_corr(void* rx, void* roots, int PS, int R, int L,
                                  int N, void* buf, void* stream) {
   prach_corr_kernel<<<blocks_for((long long)PS * R * N), NT, 0,
@@ -155,20 +171,24 @@ extern "C" int srsran_prach_corr(void* rx, void* roots, int PS, int R, int L,
   return (int)cudaGetLastError();
 }
 
-// Pass 2 on the IDFT output d [P*S, R, N]: power [R, N] (scratch), then per
-// preamble (geom int [npre, 2] = root index, window start) metrics, ta and
-// detected [npre], and the RSSI of rx [nrx].
+// Pass 2 on the IDFT output d [slots, P*S, R, N] of `slots` slots: power
+// [slots, R, N] (scratch), then per preamble (geom int [npre, 2] = root
+// index, window start) metrics, ta and detected [slots, npre], and the RSSI
+// [slots] of rx [slots, nrx].
 extern "C" int srsran_prach_detect(void* d, int PS, int R, int N, float scale,
                                    void* power, void* geom, int npre, int win,
                                    int margin, int search, float threshold,
                                    float span, void* rx, int nrx,
                                    void* metrics, void* ta, void* detected,
-                                   void* rssi, void* stream) {
+                                   void* rssi, int slots, void* stream) {
+  if (slots < 1 || npre < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  prach_power_kernel<<<blocks_for((long long)R * N), NT, 0, st>>>(
-      (const float2*)d, PS, R, N, scale, (float*)power);
-  prach_detect_kernel<<<npre, NT, 0, st>>>(
-      (const float*)power, N, (const int*)geom, win, margin, search, threshold,
+  const dim3 power_grid(blocks_for((long long)R * N), slots);
+  prach_power_kernel<<<power_grid, NT, 0, st>>>((const float2*)d, PS, R, N,
+                                                scale, (float*)power);
+  prach_detect_kernel<<<dim3(npre, slots), NT, 0, st>>>(
+      (const float*)power, R, N, (const int*)geom, win, margin, search,
+      threshold,
       span, (const float2*)rx, nrx, (float*)metrics, (float*)ta,
       (uint8_t*)detected, (float*)rssi);
   return (int)cudaGetLastError();

@@ -9,7 +9,9 @@
 // look-up of the winning candidate.
 // Twin: srsran_tpu_torch/phy/upper/pucch.py::f0_detect_ref.
 //
-// Design.  One block per F0 PDU.  One thread per (candidate, port, symbol)
+// Design.  One block per F0 PDU and slot (a slot batch runs its B slots as
+// B blocks of one launch: blockIdx.x is the slot, the references shared or
+// one set per slot).  One thread per (candidate, port, symbol)
 // correlates 12 subcarriers; one thread per candidate sums its terms in a
 // fixed order; one thread takes the energy, the metric and the first
 // maximum and writes the decision.  Bounds on this card: a few hundred
@@ -32,7 +34,8 @@ __device__ __forceinline__ float abs2(float2 a) { return a.x * a.x + a.y * a.y; 
 __global__ void pucch_f0_kernel(const float2* __restrict__ grid, int P,
                                 int nsym_grid, int nsc_grid, int S, int l0,
                                 int prb0, int prb1,
-                                const float2* __restrict__ refs, int C,
+                                const float2* __restrict__ refs,
+                                long long refs_stride, int C,
                                 const int8_t* __restrict__ maps, int nb,
                                 float threshold, bool* __restrict__ detected,
                                 float* __restrict__ metric_out,
@@ -41,6 +44,13 @@ __global__ void pucch_f0_kernel(const float2* __restrict__ grid, int P,
   __shared__ float tsq[MAX_C * MAX_P * MAX_S];
   __shared__ float corr[MAX_C];
   const int t = threadIdx.x;
+  const size_t b = blockIdx.x;                         // slot
+  grid += b * P * nsym_grid * nsc_grid;
+  refs += b * refs_stride;
+  detected += b;
+  metric_out += b;
+  out += b * (nb + 1);
+  best_out += b;
   if (t < C * P * S) {
     const int c = t / (P * S), r = t % (P * S), p = r / S, s = r % S;
     const int prb = s == 0 ? prb0 : prb1;
@@ -92,20 +102,22 @@ __global__ void pucch_f0_kernel(const float2* __restrict__ grid, int P,
 
 }  // namespace
 
-// grid c64 [P, nsym, nsc]; refs c64 [C, S, 12]; maps int8 [C, 1 + nb] (SR,
-// then HARQ bits); outputs detected bool, metric f32, out int8 [1 + nb],
-// best int64 (all scalars on the device).
+// For `slots` slots: grid c64 [slots, P, nsym, nsc]; refs c64 [C, S, 12],
+// one set per slot when refs_stride = C * S * 12 (0: shared); maps int8
+// [C, 1 + nb] (SR, then HARQ bits); outputs per slot detected bool, metric
+// f32, out int8 [1 + nb], best int64.
 extern "C" int srsran_pucch_f0(void* grid, int P, int nsym_grid, int nsc_grid,
                                int S, int l0, int prb0, int prb1, void* refs,
-                               int C, void* maps, int nb, float threshold,
-                               void* detected, void* metric, void* out,
-                               void* best, void* stream) {
+                               long long refs_stride, int C, void* maps,
+                               int nb, float threshold, void* detected,
+                               void* metric, void* out, void* best,
+                               int slots, void* stream) {
   if (P < 1 || P > MAX_P || S < 1 || S > MAX_S || C < 1 || C > MAX_C ||
-      nb < 0 || nb > 2)
+      nb < 0 || nb > 2 || slots < 1)
     return (int)cudaErrorInvalidValue;
-  pucch_f0_kernel<<<1, NT, 0, (cudaStream_t)stream>>>(
+  pucch_f0_kernel<<<slots, NT, 0, (cudaStream_t)stream>>>(
       (const float2*)grid, P, nsym_grid, nsc_grid, S, l0, prb0, prb1,
-      (const float2*)refs, C, (const int8_t*)maps, nb, threshold,
+      (const float2*)refs, refs_stride, C, (const int8_t*)maps, nb, threshold,
       (bool*)detected, (float*)metric, (int8_t*)out, (long long*)best);
   return (int)cudaGetLastError();
 }

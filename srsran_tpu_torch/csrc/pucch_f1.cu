@@ -10,7 +10,9 @@
 // so the kernel reads the raw [P, S, 12] slice of each hop from the grid.
 // Twin: srsran_tpu_torch/phy/upper/pucch.py::f1_detect_ref.
 //
-// Design.  One block per occasion group: the hop slice sits in shared
+// Design.  One block per occasion group and slot (a slot batch runs its B
+// slots as B blocks of one launch: blockIdx.x is the slot, each weight
+// array shared or one per slot): the hop slice sits in shared
 // memory (at most 8 ports x 14 symbols x 12 subcarriers), the users are a
 // loop, every sum is sequential in a fixed order.  Bounds on this card: the
 // work is a few thousand multiply-adds on ~6 KB (4 x 14 x 12 REs and U = 1
@@ -45,9 +47,20 @@ struct Hop {
   const float2* w_da;                  // [U, nsym]
 };
 
+// Slot b's weights of a hop: bits 0-2 of `stacked` say which of a_dm, ph
+// and w_da carry one array per slot (the others are shared).
+__device__ Hop slot_hop(Hop h, size_t b, int U, int stacked) {
+  const size_t n = (size_t)U * h.nsym;
+  if (stacked & 1) h.a_dm += b * n * 12;
+  if (stacked & 2) h.ph += b * n * 12;
+  if (stacked & 4) h.w_da += b * n;
+  return h;
+}
+
 __global__ void pucch_f1_kernel(const float2* __restrict__ grid,
                                 int nsym_grid, int nsc_grid, int P, int U,
-                                int nhops, Hop h0p, Hop h1p, float threshold,
+                                int nhops, Hop h0p, Hop h1p, int stacked,
+                                float threshold,
                                 uint8_t* __restrict__ detected,
                                 float* __restrict__ metric,
                                 int8_t* __restrict__ bits,
@@ -58,6 +71,14 @@ __global__ void pucch_f1_kernel(const float2* __restrict__ grid,
   __shared__ float2 zc[MAX_U * MAX_SYM];
   __shared__ float he[MAX_U];
   const int t = threadIdx.x;
+  const size_t b = blockIdx.x;                         // slot
+  grid += b * P * nsym_grid * nsc_grid;
+  h0p = slot_hop(h0p, b, U, stacked);
+  h1p = slot_hop(h1p, b, U, stacked >> 3);
+  detected += b * U;
+  metric += b * U;
+  bits += b * 2 * U;
+  d_hat += b * U;
   for (int u = t; u < U; u += NT) he[u] = 0.f;
   int dbase = 0;
   for (int hi = 0; hi < nhops; ++hi) {
@@ -134,25 +155,29 @@ __global__ void pucch_f1_kernel(const float2* __restrict__ grid,
 
 }  // namespace
 
-// hops: int [2, 4] = (prb, l_lo, nsym, s0) per hop; w: the six weight
-// pointers (a_dm, ph, w_da) of hop 0 then hop 1 (hop 1's unused with one
-// hop).  detected uint8 [U], metric f32 [U], bits int8 [U, 2], d_hat c64 [U].
+// For `slots` slots of grid c64 [slots, P, nsym, nsc]: per hop (prb, l_lo,
+// nsym, s0) and its three weight pointers (a_dm, ph, w_da) of hop 0 then
+// hop 1 (hop 1's unused with one hop); bit 3h + j of `stacked` set where
+// weight j of hop h has a leading slot axis.  detected uint8 [slots, U],
+// metric f32 [slots, U], bits int8 [slots, U, 2], d_hat c64 [slots, U].
 extern "C" int srsran_pucch_f1(void* grid, int P, int nsym_grid, int nsc_grid,
                                int U, int nhops, int prb0, int l0, int ns0,
                                int s00, void* adm0, void* ph0, void* wda0,
                                int prb1, int l1, int ns1, int s01, void* adm1,
-                               void* ph1, void* wda1, float threshold,
-                               void* detected, void* metric, void* bits,
-                               void* d_hat, void* stream) {
+                               void* ph1, void* wda1, int stacked,
+                               float threshold, void* detected, void* metric,
+                               void* bits, void* d_hat, int slots,
+                               void* stream) {
   if (P > MAX_P || U > MAX_U || ns0 > MAX_SYM || ns1 > MAX_SYM ||
-      nhops < 1 || nhops > 2)
+      nhops < 1 || nhops > 2 || slots < 1)
     return (int)cudaErrorInvalidValue;
   Hop a{prb0, l0, ns0, s00, (const float2*)adm0, (const float2*)ph0,
         (const float2*)wda0};
   Hop b{prb1, l1, ns1, s01, (const float2*)adm1, (const float2*)ph1,
         (const float2*)wda1};
-  pucch_f1_kernel<<<1, NT, 0, (cudaStream_t)stream>>>(
-      (const float2*)grid, nsym_grid, nsc_grid, P, U, nhops, a, b, threshold,
+  pucch_f1_kernel<<<slots, NT, 0, (cudaStream_t)stream>>>(
+      (const float2*)grid, nsym_grid, nsc_grid, P, U, nhops, a, b, stacked,
+      threshold,
       (uint8_t*)detected, (float*)metric, (int8_t*)bits, (float2*)d_hat);
   return (int)cudaGetLastError();
 }

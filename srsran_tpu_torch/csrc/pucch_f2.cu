@@ -10,7 +10,9 @@
 // device.  Twin: srsran_tpu_torch/phy/upper/pucch.py::f2_demap_ref.
 //
 // Design.  One thread per (symbol, data RE); the port loop is sequential
-// (P <= 8).  Bounds on this card: bytes, (P + 1) x 8 bytes read and 8 bytes
+// (P <= 8).  A slot batch runs its B slots in one launch (blockIdx.y is
+// the slot; grid, coefficients, noise and LLRs per slot, the subcarrier
+// plan and the scrambling sequence shared).  Bounds on this card: bytes, (P + 1) x 8 bytes read and 8 bytes
 // written per RE (16 to 256 REs per PDU at most): launch-bound, worth the
 // ~15 launches of its twin.
 
@@ -37,6 +39,11 @@ __global__ void pucch_f2_kernel(const float2* __restrict__ grid, int P,
                                 float* __restrict__ llr) {
   const int gid = blockIdx.x * NT + threadIdx.x;
   if (gid >= S * nd) return;
+  const size_t b = blockIdx.y;                         // slot
+  grid += b * P * nsym_grid * nsc_grid;
+  coeffs += b * P * nsc_alloc;
+  noise_var += b * P;
+  llr += b * 2 * S * nd;
   const int s = gid / nd, j = gid % nd;
   const int sc = data_sc[j];
   float noise = 0.f;
@@ -65,19 +72,22 @@ __global__ void pucch_f2_kernel(const float2* __restrict__ grid, int P,
 
 }  // namespace
 
-// grid c64 [P, nsym, nsc]; coeffs c64 [P, 12 * nof_rb] (K8's [P, 1, 1, .]);
-// noise_var f32 [P]; data_sc int32 [nd] absolute subcarriers; gold uint8
-// [2 * S * nd]; llr f32 [2 * S * nd].
+// For `slots` slots: grid c64 [slots, P, nsym, nsc]; coeffs c64 [slots, P,
+// 12 * nof_rb] (K8's [P, 1, 1, .] per slot); noise_var f32 [slots, P];
+// data_sc int32 [nd] absolute subcarriers; gold uint8 [2 * S * nd]; llr f32
+// [slots, 2 * S * nd].
 extern "C" int srsran_pucch_f2_demap(void* grid, int P, int nsym_grid,
                                      int nsc_grid, void* coeffs,
                                      void* noise_var, void* data_sc, int nd,
                                      int alloc0, int l0, int S, float level,
-                                     void* gold, void* llr, void* stream) {
-  if (P < 1 || nd < 1 || nd % 8 || S < 1 || S > 2)
+                                     void* gold, void* llr, int slots,
+                                     void* stream) {
+  if (P < 1 || nd < 1 || nd % 8 || S < 1 || S > 2 || slots < 1)
     return (int)cudaErrorInvalidValue;
   const int n = S * nd;
   // 8 data REs of each PRB's 12 subcarriers
-  pucch_f2_kernel<<<(n + NT - 1) / NT, NT, 0, (cudaStream_t)stream>>>(
+  pucch_f2_kernel<<<dim3((n + NT - 1) / NT, slots), NT, 0,
+                    (cudaStream_t)stream>>>(
       (const float2*)grid, P, nsym_grid, nsc_grid, (const float2*)coeffs,
       (const float*)noise_var, (const int*)data_sc, nd, alloc0, 3 * nd / 2,
       l0, S, level, (const uint8_t*)gold, (float*)llr);

@@ -8,7 +8,9 @@
 // freedom, its MAX_SINR floor against K8's RSRP, and the SNR.
 // Twin: srsran_tpu_torch/phy/upper/srs.py::srs_noise_ref.
 //
-// Design.  One block per rx port; the comb (K = 24 at the flagship, at most
+// Design.  One block per rx port and slot (a slot batch runs its B slots in
+// one launch: blockIdx.y is the slot; grid, TA, RSRP and outputs per slot,
+// the sequences shared); the comb (K = 24 at the flagship, at most
 // 1632) is read from the grid straight into registers, every sum is a
 // fixed-order block tree (the same bits on every run).  Bounds on this card:
 // bytes (a few KB): the kernel is launch-bound; its worth is the ~25 plain
@@ -54,7 +56,11 @@ __global__ void srs_noise_kernel(const float2* __restrict__ grid,
   __shared__ float2 sh[NT];
   __shared__ float2 wb[MAX_L];
   const int p = blockIdx.x;
-  const float cta = c * ta[0];
+  const size_t b = blockIdx.y;                         // slot
+  grid += b * P * nsym_grid * nsc_grid;
+  rsrp += b * P;
+  out += b * 2 * P;
+  const float cta = c * ta[b];
   auto rx = [&](int s, int k) {
     return grid[((size_t)p * nsym_grid + syms[s]) * nsc_grid + cols[k]];
   };
@@ -103,13 +109,14 @@ __global__ void srs_noise_kernel(const float2* __restrict__ grid,
 
 }  // namespace
 
-// out: float [2P] = noise_var [P], snr [P].
+// For `slots` slots of grid c64 [slots, P, nsym, nsc], ta f32 [slots] and
+// rsrp f32 [slots, P]: out float [slots, 2P] = noise_var [P], snr [P].
 extern "C" int srsran_srs_noise(void* grid, int P, int nsym_grid, int nsc_grid,
                                 void* syms, void* cols, void* expected, int L,
                                 int S, int K, float c, void* ta, void* rsrp,
-                                int dof, void* out, void* stream) {
-  if (L > MAX_L) return (int)cudaErrorInvalidValue;
-  srs_noise_kernel<<<P, NT, 0, (cudaStream_t)stream>>>(
+                                int dof, void* out, int slots, void* stream) {
+  if (L > MAX_L || slots < 1) return (int)cudaErrorInvalidValue;
+  srs_noise_kernel<<<dim3(P, slots), NT, 0, (cudaStream_t)stream>>>(
       (const float2*)grid, nsym_grid, nsc_grid, (const int*)syms,
       (const int*)cols, (const float2*)expected, L, S, K, c, (const float*)ta,
       (const float*)rsrp, dof, (float*)out, P);

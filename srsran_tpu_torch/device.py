@@ -9,6 +9,7 @@ host-to-device copy of its own.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import subprocess
 from typing import Callable
 
@@ -54,6 +55,27 @@ def is_cuda(*tensors: torch.Tensor) -> bool:
     if kinds == {"cpu"}:
         return False
     raise ValueError(f"tensors on mixed devices: {sorted(kinds)}")
+
+
+def stack_slots(outs: list):
+    """Per-slot results of a plain twin run slot by slot (tensors, or
+    tuples, dicts or dataclasses of them) stacked on a leading slot axis."""
+    first = outs[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(outs)
+    if isinstance(first, dict):
+        return {k: stack_slots([o[k] for o in outs]) for k in first}
+    if dataclasses.is_dataclass(first):
+        return type(first)(**{f.name: stack_slots([getattr(o, f.name)
+                                                   for o in outs])
+                              for f in dataclasses.fields(first)})
+    return tuple(stack_slots(list(z)) for z in zip(*outs))
+
+
+def slot_of(t: torch.Tensor, b: int, ndim: int) -> torch.Tensor:
+    """Slot ``b`` of a slot-context tensor whose own rank is ``ndim``: its
+    row b where it carries a leading slot axis, else the shared tensor."""
+    return t[b] if t.ndim > ndim else t
 
 
 _CONSTS_MAX = 4096

@@ -439,11 +439,11 @@ def _ul_fn(cell: CellConfig, plan, slot_in_subframe: int, device,
            batch: int | None = None):
     """The UL slot program returning (packed scalars, packed payload,
     per-PUSCH soft buffers) on ``device`` (with ``batch``, for that many
-    slots at once: a stacked context and its axes, [B, ...] results)."""
+    slots at once: a stacked context, [B, ...] results)."""
     core = ul_slot_core(cell, plan, slot_in_subframe)
 
-    def run(samples, prach_fd, soft_buffers, ctx=None, axes=None):
-        out = core(samples, prach_fd, soft_buffers, ctx, axes)
+    def run(samples, prach_fd, soft_buffers, ctx=None):
+        out = core(samples, prach_fd, soft_buffers, ctx)
         scalars, payload = pack_ul_results(out, device, batch)
         return scalars, payload, tuple(r["new_soft"] for r in out["pusch"])
 
@@ -472,10 +472,9 @@ class _SlotPhase:
 
 def _slot_phase(cell: CellConfig, dl_plan, ul_plan, slot_in_subframe: int,
                 stride: int, device, dl_ctx, ul_ctx, soft_shapes,
-                batch: int | None = None, ul_axes=None) -> _SlotPhase:
+                batch: int | None = None) -> _SlotPhase:
     """The full DL+UL slot step of one phase, taking its payload blob
-    (with ``batch``: a [B, bytes] blob, stacked contexts and the UL
-    context's axes)."""
+    (with ``batch``: a [B, bytes] blob and stacked contexts)."""
     if len(dl_plan) == 4:
         dl_plan = dl_plan + ((),)
     n_ssb, n_pdcch, n_pdsch = (len(dl_plan[0]), len(dl_plan[1]),
@@ -493,7 +492,7 @@ def _slot_phase(cell: CellConfig, dl_plan, ul_plan, slot_in_subframe: int,
         return dl_core(*unpack(blob), ctx, device, batch)[0]
 
     def ul_run(rx_samples, prach_fd, soft_buffers):
-        return ul(rx_samples, prach_fd, soft_buffers, ul_ctx, ul_axes)
+        return ul(rx_samples, prach_fd, soft_buffers, ul_ctx)
 
     return _SlotPhase(dl=dl, ul=ul_run, total=total, soft_shapes=soft_shapes)
 
@@ -810,16 +809,17 @@ class SlotConductor:
                 raise ValidationError("a slot batch must share the "
                                       "normalized DL/UL plans")
         dl_ctx, _ = stack_ctx([d.ctx for d in dls])
-        ul_ctx, ul_axes = stack_ctx([u.ctx for u in uls])
+        ul_ctx, _ = stack_ctx([u.ctx for u in uls])
         return _slot_phase(self.cell, dls[0].plan, uls[0].plan, sif, stride,
                            self.device, dl_ctx, ul_ctx,
                            tuple(u.soft_shapes for u in uls),
-                           batch=len(slots), ul_axes=ul_axes)
+                           batch=len(slots))
 
     def process_slot_batch(self, slots, staged: StagedPayloads, rx_batch,
                            prach_fd=()):
         """The slot-batch throughput mode: B same-phase slots in one
-        program (one CUDA graph on the card), K1-K8 launched once for all B.
+        program (one CUDA graph on the card), K1-K15 launched once for all
+        B (K16-K19 of the two-UE and cell-edge plans once per slot).
 
         slots: (dl_tti, ul_tti[, ul_dci]) tuples sharing the normalized DL
         and UL plans and the subframe slot index; slot i's payloads staged

@@ -91,15 +91,16 @@ SIGNATURES = {
     "srsran_chest_ta": [_P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P, _I, _P],
     "srsran_prach_corr": [_P, _P, _I, _I, _I, _I, _P, _P],
     "srsran_prach_detect": [_P, _I, _I, _I, _F, _P, _P, _I, _I, _I, _I, _F,
-                            _F, _P, _I, _P, _P, _P, _P, _P],
+                            _F, _P, _I, _P, _P, _P, _P, _I, _P],
     "srsran_pucch_f1": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
-                        _I, _I, _I, _I, _P, _P, _P, _F, _P, _P, _P, _P, _P],
+                        _I, _I, _I, _I, _P, _P, _P, _I, _F, _P, _P, _P, _P,
+                        _I, _P],
     "srsran_srs_noise": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _F, _P, _P,
-                         _I, _P, _P],
-    "srsran_pucch_f0": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _I, _F,
-                        _P, _P, _P, _P, _P],
+                         _I, _P, _I, _P],
+    "srsran_pucch_f0": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _L, _I, _P, _I,
+                        _F, _P, _P, _P, _P, _I, _P],
     "srsran_pucch_f2_demap": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _F,
-                              _P, _P, _P],
+                              _P, _P, _I, _P],
     "srsran_short_block_detect": [_P, _I, _I, _I, _I, _P, _P, _P, _P],
     "srsran_polar_decode": [_P, _I, _I, _I, _P, _P, _I, _P, _I, _I, _I, _I,
                             _P, _P, _P],

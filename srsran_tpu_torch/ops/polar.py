@@ -13,7 +13,8 @@ RATE_1 / RATE_R of polar_decoder_impl.h:36-143).
 check of the decoded message, on CUDA tensors in one hand kernel
 (csrc/polar_sc.cu: one CTA per codeword, the LLR tree in shared memory,
 walking a host-built node schedule), on CPU tensors in its twin
-:func:`decode_ref`.  The CA-SCL list decoder is ``polar_scl`` (K29).
+:func:`decode_ref`; a slot batch's codewords [B, N, E] fold into one
+launch of B * N CTAs.  The CA-SCL list decoder is ``polar_scl`` (K29).
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ KERNEL = kernels.register(kernels.Kernel(
     name="polar_decode", route="cuda",
     source="srsran_tpu_torch/csrc/polar_sc.cu",
     replaces="srsran_tpu/ops/polar.py:171"))
+KERNEL_BATCH = kernels.batched(KERNEL)
 
 _ENCODE_MATRIX_CACHE: dict = {}
 
@@ -339,7 +341,13 @@ def crc_word(bits: torch.Tensor, crc_name: str) -> torch.Tensor:
 
 def decode_ref(llrs: torch.Tensor, code: PolarCode, crc_name: str,
                syndrome: int = 0) -> tuple:
-    """Plain twin of :func:`decode`."""
+    """Plain twin of :func:`decode` (a slot axis folds into the codeword
+    axis)."""
+    if llrs.ndim == 3:
+        bits, ok = decode_ref(llrs.reshape(-1, llrs.shape[-1]), code,
+                              crc_name, syndrome)
+        return (bits.reshape(llrs.shape[:2] + (code.k,)),
+                ok.reshape(llrs.shape[:2]))
     bits = sc_decode(rate_dematch(llrs, code), code)
     return bits, crc_word(bits, crc_name) == int(syndrome)
 
@@ -350,14 +358,17 @@ def decode(llrs: torch.Tensor, code: PolarCode, crc_name: str,
     [B]): rate dematch, SC decode and the check of the message's CRC
     (``crc_name``, e.g. "crc11"): its remainder over the K decoded bits
     must equal ``syndrome`` -- 0 for a plain trailing CRC, a DCI's
-    :func:`pdcch.dci_syndrome` for its RNTI."""
+    :func:`pdcch.dci_syndrome` for its RNTI.  A slot batch's llrs
+    [S, B, E] give [S, B, K] and [S, B] from one launch."""
     if not is_cuda(llrs):
         return decode_ref(llrs, code, crc_name, syndrome)
-    if llrs.dtype != torch.float32 or llrs.ndim != 2 or llrs.shape[1] != code.e:
-        raise ValueError(f"llrs must be float32 [B, {code.e}], got "
+    if (llrs.dtype != torch.float32 or llrs.ndim not in (2, 3)
+            or llrs.shape[-1] != code.e):
+        raise ValueError(f"llrs must be float32 [(S,) B, {code.e}], got "
                          f"{llrs.dtype} {tuple(llrs.shape)}")
     dev = llrs.device
-    b = llrs.shape[0]
+    lead = tuple(llrs.shape[:-1])
+    b = llrs.numel() // code.e
     keys = _code_keys(code)
     program = const(_sc_program, *keys["program"], device=dev)
     tables = const(_dematch_tables, *keys["tables"], device=dev)
@@ -365,8 +376,8 @@ def decode(llrs: torch.Tensor, code: PolarCode, crc_name: str,
                     dtype=torch.int32)
     crc_len, poly = POLYS[crc_name]
     llrs = llrs.contiguous()
-    bits = torch.empty((b, code.k), dtype=torch.int8, device=dev)
-    ok = torch.empty((b,), dtype=torch.bool, device=dev)
+    bits = torch.empty(lead + (code.k,), dtype=torch.int8, device=dev)
+    ok = torch.empty(lead, dtype=torch.bool, device=dev)
     lib = _build.load()
     _build.check(lib.srsran_polar_decode(
         _build.ptr(llrs), b, code.e, code.n, _build.ptr(tables),
@@ -374,5 +385,5 @@ def decode(llrs: torch.Tensor, code: PolarCode, crc_name: str,
         crc_len, poly, int(syndrome),
         _build.ptr(bits), _build.ptr(ok), _build.stream_of(llrs)),
         "polar_decode")
-    KERNEL.count()
+    (KERNEL_BATCH if len(lead) > 1 else KERNEL).count()
     return bits, ok

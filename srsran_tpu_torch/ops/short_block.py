@@ -9,7 +9,8 @@ GF(2) and periodic in the codeword index (period 32 for RM, Qm for K=1,
 csrc/short_block.cu (one block per codeword, threads over the 2^K
 candidates, each built from the generator bits: no [2^K, E] table); on CPU
 tensors its twin :func:`detect_ref`, the JAX package's correlation against
-the host candidate bank.  :func:`encode` (UE side) is plain.
+the host candidate bank.  A slot batch's codewords [B, N, E] fold into one
+launch of B * N blocks.  :func:`encode` (UE side) is plain.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ KERNEL = kernels.register(kernels.Kernel(
     name="short_block_detect", route="cuda",
     source="srsran_tpu_torch/csrc/short_block.cu",
     replaces="srsran_tpu/ops/short_block.py:80"))
+KERNEL_BATCH = kernels.batched(KERNEL)
 
 _DATA = Path(__file__).resolve().parent.parent / "data" / "short_block_tables.npz"
 MAX_K = 11
@@ -125,7 +127,12 @@ def _shifts(k: int) -> np.ndarray:
 
 
 def detect_ref(llrs: torch.Tensor, k: int, qm: int = 1) -> tuple:
-    """Plain twin of :func:`detect`: correlation with the candidate bank."""
+    """Plain twin of :func:`detect`: correlation with the candidate bank
+    (a slot axis folds into the codeword axis)."""
+    if llrs.ndim == 3:
+        bits, metric = detect_ref(llrs.reshape(-1, llrs.shape[-1]), k, qm)
+        return (bits.reshape(llrs.shape[:2] + (k,)),
+                metric.reshape(llrs.shape[:2]))
     dev = llrs.device
     e = llrs.shape[-1]
     cands_t = const(_candidates_t, k, e, qm, device=dev)       # [E, 2^K]
@@ -140,25 +147,28 @@ def detect_ref(llrs: torch.Tensor, k: int, qm: int = 1) -> tuple:
 def detect(llrs: torch.Tensor, k: int, qm: int = 1) -> tuple:
     """ML detection.  llrs f32 [B, E] -> (bits int8 [B, K], metric f32 [B]):
     the first candidate of largest correlation (ties to the lower index)
-    and its correlation over ||llr|| sqrt(E)."""
+    and its correlation over ||llr|| sqrt(E).  A slot batch's llrs
+    [S, B, E] give [S, B, K] and [S, B] from one launch."""
     if not is_cuda(llrs):
         return detect_ref(llrs, k, qm)
-    if llrs.dtype != torch.float32 or llrs.ndim != 2:
-        raise ValueError(f"llrs must be float32 [B, E], got {llrs.dtype} "
-                         f"{tuple(llrs.shape)}")
+    if llrs.dtype != torch.float32 or llrs.ndim not in (2, 3):
+        raise ValueError(f"llrs must be float32 [(S,) B, E], got "
+                         f"{llrs.dtype} {tuple(llrs.shape)}")
     dev = llrs.device
-    b, e = llrs.shape
+    lead = tuple(llrs.shape[:-1])
+    e = llrs.shape[-1]
+    b = llrs.numel() // e
     tables = const(_kernel_tables, k, qm, device=dev)
     period = tables.shape[1]
     if period > MAX_PERIOD:
         raise ValueError(f"short-block period {period} > {MAX_PERIOD}")
     llrs = llrs.contiguous()
-    bits = torch.empty((b, k), dtype=torch.int8, device=dev)
-    metric = torch.empty((b,), dtype=torch.float32, device=dev)
+    bits = torch.empty(lead + (k,), dtype=torch.int8, device=dev)
+    metric = torch.empty(lead, dtype=torch.float32, device=dev)
     lib = _build.load()
     _build.check(lib.srsran_short_block_detect(
         _build.ptr(llrs), b, e, k, period, _build.ptr(tables),
         _build.ptr(bits), _build.ptr(metric), _build.stream_of(llrs)),
         "short_block_detect")
-    KERNEL.count()
+    (KERNEL_BATCH if len(lead) > 1 else KERNEL).count()
     return bits, metric

@@ -7,7 +7,8 @@ The port runs the slot programs with cells as the leading (slot) axis on
 the one device their inputs lie on (one H100); there is no mesh, so
 ``make_mesh``, ``parallel/multihost.py`` and ``parallel/seqpar.py`` are not
 ported (ROADMAP §1, the do-not-port list).  The programs then launch the
-PDSCH and PUSCH chains' kernels (K1-K8) once for all the cells.
+PDSCH and PUSCH chains' kernels (K1-K8) and the UL receivers' (K9-K15)
+once for all the cells.
 """
 
 from __future__ import annotations

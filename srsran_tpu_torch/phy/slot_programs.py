@@ -23,9 +23,10 @@ Given a leading slot axis on every input, both programs run B slots of
 one plan at once (the JAX package's ``jax.vmap`` of the slot programs, for
 the conductor's slot-batch mode and the multi-cell programs), with the
 slot context stacked by :func:`stack_ctx`.  The PDSCH and PUSCH chains and
-the OFDM passes (K1-K8), SSB and PDCCH (K27), the DL DM-RS (K26) and the
-RS PDUs (K25) run once for all B slots; the PUCCH formats, SRS and PRACH
-once per slot on that slot's grid.
+the OFDM passes (K1-K8), SSB and PDCCH (K27), the DL DM-RS (K26), the RS
+PDUs (K25), PRACH (K9), PUCCH F0, F1 and F2 (K12, K10, K8 + K13), SRS
+(K8 + K11) and the UCI decoders (K14, K15) run once for all B slots; only
+PUCCH F3/F4 (K19) loops over the slots, inside its receiver.
 """
 
 from __future__ import annotations
@@ -134,14 +135,6 @@ def stack_ctx(ctxs) -> tuple:
     ctx = _tree_map(lambda a, *xs: xs[0] if a is None else torch.stack(xs),
                     axes, *ctxs)
     return ctx, axes
-
-
-def slot_ctx(ctx, axes, b: int):
-    """Slot ``b``'s context out of a stacked one (views, no copies);
-    ``axes`` None means every leaf is shared."""
-    if ctx is None or axes is None:
-        return ctx
-    return _tree_map(lambda x, a: x if a is None else x[b], ctx, axes)
 
 
 def _ctx_leaf(ctx, kind: str, i: int):
@@ -300,8 +293,10 @@ def _pusch_entries(grid, pusch_cfgs, soft_buffers, ctx) -> list:
 
 
 def _control_entries(grid, plan, f1_groups, prach_fd, ctx) -> dict:
-    """PUCCH F0 to F4, SRS and PRACH of one slot's grid (the JAX
-    program's order)."""
+    """PUCCH F0 to F4, SRS and PRACH (the JAX program's order) of one
+    slot's grid, or of B slots' grid [B, P, S, K] at once: each receiver
+    takes the slot axis on its grid, PRACH capture and context leaves
+    (shared or stacked) and puts it in front of every value."""
     _, f0_cfgs, f1_cfgs, f2_cfgs, prach_cfgs, srs_cfgs, f3_cfgs = plan
     out = {"pucch_f0": [], "pucch_f1": [], "pucch_f2": [], "pucch_f3": [],
            "prach": [], "srs": []}
@@ -329,7 +324,7 @@ def _control_entries(grid, plan, f1_groups, prach_fd, ctx) -> dict:
         est = srs_mod.estimate(grid, cfg)
         # wideband channel: average the estimate over symbols/subcarriers
         out["srs"].append({
-            "wideband_h": torch.mean(est.coeffs, dim=(2, 3)),
+            "wideband_h": torch.mean(est.coeffs, dim=(-2, -1)),
             "ta_s": est.time_alignment_s, "snr": est.snr})
     for i, cfg in enumerate(prach_cfgs):
         det = prach_mod.detect(prach_fd[i], cfg)
@@ -359,38 +354,23 @@ def ul_slot_core(cell: CellConfig, plan, slot_in_subframe: int = 0):
 
     B slots at once: samples [B, P, T], prach_fd[i] [B, P, S, L] (each
     slot's own capture), soft_buffers[i] [B, C, N] and a stacked slot
-    context with its axes (:func:`stack_ctx`) give the same dict with a
-    leading slot axis on every value.  K4 and the PUSCH chain (K8, K3, K2,
-    K1) run once for the B slots, the LDPC early stop per slot (K16 and
-    K18 once per slot); the PUCCH formats, SRS and PRACH once per slot on
-    that slot's grid.
+    context (:func:`stack_ctx`) give the same dict with a leading slot axis
+    on every value.  K4, the PUSCH chain (K8, K3, K2, K1), PUCCH F0, F1 and
+    F2 (K12, K10, K8 + K13), SRS (K8 + K11), PRACH (K9) and the UCI
+    decoders (K14, K15) run once for the B slots, the LDPC early stop per
+    slot; K16, K17, K18 and PUCCH F3/F4's K19 once per slot.
     """
     plan = _ul_plan(cell, plan)
     f1_groups = _f1_groups(plan[2])
 
-    def run(samples, prach_fd, soft_buffers, ctx=None, axes=None):
+    def run(samples, prach_fd, soft_buffers, ctx=None):
         grid = ofdm.demodulate_slot(
             samples, cell.nof_sc, cell.dft_size, cell.numerology, cell.cp,
             slot_in_subframe, cell.center_freq_hz)
-        out = {"pusch": _pusch_entries(grid, plan[0], soft_buffers, ctx)}
-        if grid.ndim == 3:
-            return {**out, **_control_entries(grid, plan, f1_groups,
-                                              prach_fd, ctx)}
-        per_slot = [_control_entries(grid[b], plan, f1_groups,
-                                     tuple(p[b] for p in prach_fd),
-                                     slot_ctx(ctx, axes, b))
-                    for b in range(grid.shape[0])]
-        for kind in per_slot[0]:
-            out[kind] = _stack_entries([s[kind] for s in per_slot])
-        return out
+        return {"pusch": _pusch_entries(grid, plan[0], soft_buffers, ctx),
+                **_control_entries(grid, plan, f1_groups, prach_fd, ctx)}
 
     return run
-
-
-def _stack_entries(per_slot: list) -> list:
-    """[slot][entry][key] results -> [entry][key] stacked on a slot axis."""
-    return [{k: torch.stack([slot[j][k] for slot in per_slot]) for k in e}
-            for j, e in enumerate(per_slot[0])]
 
 
 @functools.lru_cache(maxsize=64)

@@ -10,7 +10,9 @@ reference.
 :func:`detect` is the K9 wrapper: on CUDA tensors the hand kernels of
 csrc/prach_detect.cu around cuFFT's IDFT, all preambles in one launch; on
 CPU tensors its twin :func:`detect_ref` (the JAX package's per-preamble
-loop, vectorised over the preambles through one host gather plan).  The
+loop, vectorised over the preambles through one host gather plan).  A
+capture with a slot axis ([B, P, S, L], the slot-batch mode) runs the
+kernels once for its B slots.  The
 direct non-power-of-two DFT (``dft_nonpow2``) is off this path and not
 ported (ROADMAP §1, the do-not-port list).
 """
@@ -26,7 +28,7 @@ import numpy as np
 import torch
 
 from ... import kernels
-from ...device import const, f32, is_cuda
+from ...device import const, f32, is_cuda, stack_slots
 from ...kernels import _build
 from ...ran.prach_params import (LONG_FORMATS, LONG_SEQ, PRACH_CP_KAPPA,
                                  SHORT_SEQ, n_cs, restricted_cyclic_shifts,
@@ -36,6 +38,7 @@ KERNEL = kernels.register(kernels.Kernel(
     name="prach_detect", route="cuda",
     source="srsran_tpu_torch/csrc/prach_detect.cu",
     replaces="srsran_tpu/phy/upper/prach.py:177"))
+KERNEL_BATCH = kernels.batched(KERNEL)
 
 _THRESHOLDS = (Path(__file__).resolve().parents[2] / "data"
                / "prach_thresholds.json")
@@ -218,9 +221,12 @@ def _pack(prod: torch.Tensor, l_ra: int, idft_size: int) -> torch.Tensor:
 def detect_ref(rx_fd: torch.Tensor, cfg: PrachConfig,
                threshold: float | None = None,
                idft_size: int = 1024) -> PrachDetection:
-    """Plain twin of :func:`detect`."""
+    """Plain twin of :func:`detect` (a slot axis runs slot by slot)."""
     if threshold is None:
-        threshold = calibrated_threshold(cfg, rx_fd.shape[0])
+        threshold = calibrated_threshold(cfg, rx_fd.shape[-3])
+    if rx_fd.ndim == 4:
+        return stack_slots([detect_ref(x, cfg, threshold, idft_size)
+                            for x in rx_fd])
     dev = rx_fd.device
     rssi = torch.mean(rx_fd.abs() ** 2)
     root_fd = const(_root_fd, cfg, device=dev)                # [R, L]
@@ -250,47 +256,54 @@ def detect(rx_fd: torch.Tensor, cfg: PrachConfig,
            idft_size: int = 1024) -> PrachDetection:
     """Detect preambles.
 
-    rx_fd: complex64 [ports, symbols, L] frequency-domain preamble captures.
+    rx_fd: complex64 [ports, symbols, L] frequency-domain preamble captures
+    (or [B, ports, symbols, L]: B slots' captures, every field of the
+    result with a leading slot axis, the kernels launched once).
     threshold: metric threshold; None uses the calibrated table keyed by
     (format, zcz, rx ports).
     """
     if threshold is None:
-        threshold = calibrated_threshold(cfg, rx_fd.shape[0])
+        threshold = calibrated_threshold(cfg, rx_fd.shape[-3])
     if not is_cuda(rx_fd):
         return detect_ref(rx_fd, cfg, threshold, idft_size)
-    if (rx_fd.dtype != torch.complex64 or rx_fd.ndim != 3
+    if (rx_fd.dtype != torch.complex64 or rx_fd.ndim not in (3, 4)
             or rx_fd.shape[-1] != cfg.l_ra):
-        raise ValueError(f"rx_fd must be complex64 [P, S, {cfg.l_ra}], got "
-                         f"{rx_fd.dtype} {tuple(rx_fd.shape)}")
+        raise ValueError(f"rx_fd must be complex64 [(B,) P, S, {cfg.l_ra}], "
+                         f"got {rx_fd.dtype} {tuple(rx_fd.shape)}")
     if idft_size < cfg.l_ra:
         raise ValueError(f"a {idft_size}-point IDFT cannot hold {cfg.l_ra} "
                          "bins")
     dev = rx_fd.device
-    n_p, n_s, l_ra = rx_fd.shape
+    lead = tuple(rx_fd.shape[:-3])
+    slots = lead[0] if lead else 1
+    n_p, n_s, l_ra = rx_fd.shape[-3:]
     roots = const(_root_fd, cfg, device=dev)
     geom = const(_geometry, cfg, idft_size, device=dev)
     n_r = roots.shape[0]
     win, margin, search = _window(cfg, idft_size)
     rx = rx_fd.contiguous()
-    buf = torch.empty((n_p, n_s, n_r, idft_size), dtype=torch.complex64,
-                      device=dev)
+    buf = torch.empty(lead + (n_p, n_s, n_r, idft_size),
+                      dtype=torch.complex64, device=dev)
     lib = _build.load()
     stream = _build.stream_of(rx)
     _build.check(lib.srsran_prach_corr(
-        _build.ptr(rx), _build.ptr(roots), n_p * n_s, n_r, l_ra, idft_size,
-        _build.ptr(buf), stream), "prach_corr")
+        _build.ptr(rx), _build.ptr(roots), slots * n_p * n_s, n_r, l_ra,
+        idft_size, _build.ptr(buf), stream), "prach_corr")
     delay = torch.fft.ifft(buf, dim=-1)
     npre = cfg.nof_preambles
-    power = torch.empty((n_r, idft_size), dtype=torch.float32, device=dev)
-    out = torch.empty((2 * npre + 1,), dtype=torch.float32, device=dev)
-    detected = torch.empty((npre,), dtype=torch.bool, device=dev)
+    power = torch.empty(lead + (n_r, idft_size), dtype=torch.float32,
+                        device=dev)
+    metrics = torch.empty(lead + (npre,), dtype=torch.float32, device=dev)
+    ta = torch.empty(lead + (npre,), dtype=torch.float32, device=dev)
+    detected = torch.empty(lead + (npre,), dtype=torch.bool, device=dev)
+    rssi = torch.empty(lead, dtype=torch.float32, device=dev)
     _build.check(lib.srsran_prach_detect(
         _build.ptr(delay), n_p * n_s, n_r, idft_size,
         float(np.sqrt(idft_size)), _build.ptr(power), _build.ptr(geom), npre,
         win, margin, search, float(threshold),
-        float(idft_size * cfg.scs_hz), _build.ptr(rx), rx.numel(),
-        _build.ptr(out), _build.ptr(out[npre:]), _build.ptr(detected),
-        _build.ptr(out[2 * npre:]), stream), "prach_detect")
-    KERNEL.count()
-    return PrachDetection(metrics=out[:npre], time_advance_s=out[npre:2 * npre],
-                          detected=detected, rssi=out[2 * npre])
+        float(idft_size * cfg.scs_hz), _build.ptr(rx), n_p * n_s * l_ra,
+        _build.ptr(metrics), _build.ptr(ta), _build.ptr(detected),
+        _build.ptr(rssi), slots, stream), "prach_detect")
+    (KERNEL_BATCH if lead else KERNEL).count()
+    return PrachDetection(metrics=metrics, time_advance_s=ta,
+                          detected=detected, rssi=rssi)

@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from ... import kernels
-from ...device import const, f32, is_cuda
+from ...device import const, f32, is_cuda, slot_of, stack_slots
 from ...kernels import _build
 from ...ops import channel_estimate as chest
 from ...ops import polar as polar_ops
@@ -68,6 +68,9 @@ KERNEL_F2 = kernels.register(kernels.Kernel(
     name="pucch_f2_demap", route="cuda",
     source="srsran_tpu_torch/csrc/pucch_f2.cu",
     replaces="srsran_tpu/phy/upper/pucch.py:764"))
+KERNEL_BATCH = kernels.batched(KERNEL)
+KERNEL_F0_BATCH = kernels.batched(KERNEL_F0)
+KERNEL_F2_BATCH = kernels.batched(KERNEL_F2)
 KERNEL_F3 = kernels.register(kernels.Kernel(
     name="pucch_f3_demap", route="cuda",
     source="srsran_tpu_torch/csrc/dft_s_ofdm.cu",
@@ -170,9 +173,20 @@ def _data_local(common: PucchF1Config, hop: int) -> np.ndarray:
     return np.array([s - s0 for s in _split(s0, nsym)[1]], np.int64)
 
 
+def _f1_slot_weights(weights: tuple, b: int) -> tuple:
+    """Slot ``b``'s per-hop weights (each array shared or [B, ...])."""
+    return tuple(tuple(slot_of(w, b, 3 if j < 2 else 2)
+                       for j, w in enumerate(hop)) for hop in weights)
+
+
 def f1_detect_ref(grid: torch.Tensor, common: PucchF1Config, weights: tuple,
                   threshold: float) -> tuple:
-    """Plain twin of :func:`f1_detect`."""
+    """Plain twin of :func:`f1_detect` (a slot axis runs slot by slot)."""
+    if grid.ndim == 4:
+        return stack_slots([f1_detect_ref(grid[b], common,
+                                          _f1_slot_weights(weights, b),
+                                          threshold)
+                            for b in range(grid.shape[0])])
     dev = grid.device
     nports = grid.shape[0]
     u_count = weights[0][0].shape[0]
@@ -211,12 +225,16 @@ def f1_detect(grid: torch.Tensor, common: PucchF1Config, weights: tuple,
     """(detected bool [U], metric f32 [U], bits int8 [U, 2], symbol
     complex64 [U]) of the users of one F1 occasion, from the grid
     (complex64 [P, nsym, nsc]) and the per-hop weights of
-    :func:`f1_batch_weights` as tensors on the grid's device."""
+    :func:`f1_batch_weights` as tensors on the grid's device.
+
+    B slots at once: grid [B, P, nsym, nsc] and each weight array shared or
+    with a leading slot axis give every result a leading slot axis, in one
+    launch."""
     flat = [w for hop in weights for w in hop]
     if not is_cuda(grid, *flat):
         return f1_detect_ref(grid, common, weights, threshold)
-    if grid.dtype != torch.complex64 or grid.ndim != 3:
-        raise ValueError(f"grid must be complex64 [P, S, K], got "
+    if grid.dtype != torch.complex64 or grid.ndim not in (3, 4):
+        raise ValueError(f"grid must be complex64 [(B,) P, S, K], got "
                          f"{grid.dtype} {tuple(grid.shape)}")
     hops = _f1_hops(common)
     if len(weights) != len(hops) or any(
@@ -224,30 +242,35 @@ def f1_detect(grid: torch.Tensor, common: PucchF1Config, weights: tuple,
         raise ValueError("F1 weights must be complex64 (a_dm, ph, w_da) "
                          f"for each of the {len(hops)} hops")
     dev = grid.device
-    u_count = weights[0][0].shape[0]
+    lead = tuple(grid.shape[:-3])
+    u_count = weights[0][0].shape[-3]
     grid = grid.contiguous()
-    args, keep = [], []
+    args, keep, stacked = [], [], 0
     for i in range(2):                  # hop 1 repeats hop 0 without hopping
         prb, s0, nsym = hops[min(i, len(hops) - 1)]
-        a_dm, ph, w_da = (w.contiguous()
-                          for w in weights[min(i, len(hops) - 1)])
-        if a_dm.shape != (u_count, nsym, 12) or w_da.shape != (u_count, nsym):
-            raise ValueError(f"hop {i}: weights {tuple(a_dm.shape)} / "
-                             f"{tuple(w_da.shape)} do not fit {nsym} symbols")
-        keep += [a_dm, ph, w_da]
-        args += [prb, common.start_symbol + s0, nsym, s0, _build.ptr(a_dm),
-                 _build.ptr(ph), _build.ptr(w_da)]
-    detected = torch.empty((u_count,), dtype=torch.bool, device=dev)
-    metric = torch.empty((u_count,), dtype=torch.float32, device=dev)
-    bits = torch.empty((u_count, 2), dtype=torch.int8, device=dev)
-    d_hat = torch.empty((u_count,), dtype=torch.complex64, device=dev)
+        hop = [w.contiguous() for w in weights[min(i, len(hops) - 1)]]
+        keep += hop
+        want = ((u_count, nsym, 12), (u_count, nsym, 12), (u_count, nsym))
+        for j, (w, shape) in enumerate(zip(hop, want)):
+            if (w.shape[w.ndim - len(shape):] != shape
+                    or w.shape[:w.ndim - len(shape)] not in ((), lead)):
+                raise ValueError(f"hop {i}: weight {j} {tuple(w.shape)} does "
+                                 f"not fit {u_count} users, {nsym} symbols")
+            stacked |= int(w.ndim > len(shape)) << (3 * i + j)
+        args += [prb, common.start_symbol + s0, nsym, s0,
+                 *(_build.ptr(w) for w in hop)]
+    detected = torch.empty(lead + (u_count,), dtype=torch.bool, device=dev)
+    metric = torch.empty(lead + (u_count,), dtype=torch.float32, device=dev)
+    bits = torch.empty(lead + (u_count, 2), dtype=torch.int8, device=dev)
+    d_hat = torch.empty(lead + (u_count,), dtype=torch.complex64, device=dev)
     lib = _build.load()
     _build.check(lib.srsran_pucch_f1(
-        _build.ptr(grid), grid.shape[0], grid.shape[1], grid.shape[2],
-        u_count, len(hops), *args, float(threshold), _build.ptr(detected),
-        _build.ptr(metric), _build.ptr(bits), _build.ptr(d_hat),
-        _build.stream_of(grid)), "pucch_f1")
-    KERNEL.count()
+        _build.ptr(grid), grid.shape[-3], grid.shape[-2], grid.shape[-1],
+        u_count, len(hops), *args, stacked, float(threshold),
+        _build.ptr(detected), _build.ptr(metric), _build.ptr(bits),
+        _build.ptr(d_hat), lead[0] if lead else 1, _build.stream_of(grid)),
+        "pucch_f1")
+    (KERNEL_BATCH if lead else KERNEL).count()
     return detected, metric, bits, d_hat
 
 
@@ -258,8 +281,9 @@ def detect_format1_batch(grid: torch.Tensor, common: PucchF1Config,
     users: tuple of (initial_cyclic_shift, time_domain_occ, nof_harq_bits).
     ncs: None (weights built on the host for ``common.slot`` and cached per
     device) or the per-hop weight tuple of :func:`f1_batch_weights` as
-    tensors (the slot context).  Returns a list of per-user result dicts
-    (detected, metric, harq_bits, symbol) in the order given.
+    tensors (the slot context; each shared or [B, ...] with a slot axis on
+    the grid).  Returns a list of per-user result dicts (detected, metric,
+    harq_bits, symbol; each with the grid's slot axis) in the order given.
     """
     if not users:
         return []
@@ -276,8 +300,8 @@ def detect_format1_batch(grid: torch.Tensor, common: PucchF1Config,
             "pass the weights of f1_batch_weights (ROADMAP §3)")
     detected, metric, bits, d_hat = f1_detect(grid, common, weights,
                                               threshold)
-    return [{"detected": detected[ui], "metric": metric[ui],
-             "harq_bits": bits[ui, :nbits], "symbol": d_hat[ui]}
+    return [{"detected": detected[..., ui], "metric": metric[..., ui],
+             "harq_bits": bits[..., ui, :nbits], "symbol": d_hat[..., ui]}
             for ui, (_, _, nbits) in enumerate(users)]
 
 
@@ -437,7 +461,11 @@ def _f0_maps(nof_harq_bits: int, sr_opportunity: bool) -> np.ndarray:
 
 def f0_detect_ref(grid: torch.Tensor, cfg: PucchF0Config,
                   refs: torch.Tensor, threshold: float) -> tuple:
-    """Plain twin of :func:`f0_detect`."""
+    """Plain twin of :func:`f0_detect` (a slot axis runs slot by slot)."""
+    if grid.ndim == 4:
+        return stack_slots([f0_detect_ref(grid[b], cfg, slot_of(refs, b, 3),
+                                          threshold)
+                            for b in range(grid.shape[0])])
     rx = torch.stack([grid[:, l, prb * 12:prb * 12 + 12]
                       for l, prb in _f0_res(cfg)], dim=1)        # [P, S, 12]
     t = torch.einsum("psn,csn->cps", rx, refs.conj())
@@ -457,36 +485,43 @@ def f0_detect(grid: torch.Tensor, cfg: PucchF0Config, refs: torch.Tensor,
     """(detected bool, metric f32, HARQ bits int8 [nof_harq_bits], SR bit
     int8, best candidate int64) of one F0 occasion, from the grid
     (complex64 [P, nsym, nsc]) and the candidates' references (complex64
-    [C, S, 12], :func:`f0_refs_for`) on the grid's device."""
+    [C, S, 12], :func:`f0_refs_for`) on the grid's device.
+
+    B slots at once: grid [B, P, nsym, nsc] and the references shared or
+    [B, C, S, 12] give every result a leading slot axis, in one launch."""
     if not is_cuda(grid, refs):
         return f0_detect_ref(grid, cfg, refs, threshold)
     table = _f0_table(cfg)
     s = cfg.nof_symbols
-    if grid.dtype != torch.complex64 or grid.ndim != 3:
-        raise ValueError(f"grid must be complex64 [P, S, K], got "
+    if grid.dtype != torch.complex64 or grid.ndim not in (3, 4):
+        raise ValueError(f"grid must be complex64 [(B,) P, S, K], got "
                          f"{grid.dtype} {tuple(grid.shape)}")
-    if refs.dtype != torch.complex64 or refs.shape != (len(table), s, 12):
-        raise ValueError(f"refs must be complex64 [{len(table)}, {s}, 12], "
-                         f"got {refs.dtype} {tuple(refs.shape)}")
+    lead = tuple(grid.shape[:-3])
+    c_shape = (len(table), s, 12)
+    if (refs.dtype != torch.complex64 or refs.shape[-3:] != c_shape
+            or refs.shape[:-3] not in ((), lead)):
+        raise ValueError(f"refs must be complex64 [(B,) {len(table)}, {s}, "
+                         f"12], got {refs.dtype} {tuple(refs.shape)}")
     dev = grid.device
     nb = cfg.nof_harq_bits
     maps = const(_f0_maps, nb, cfg.sr_opportunity, device=dev)
     (l0, prb0), (_, prb1) = _f0_res(cfg)[0], _f0_res(cfg)[-1]
     grid = grid.contiguous()
     refs = refs.contiguous()
-    detected = torch.empty((), dtype=torch.bool, device=dev)
-    metric = torch.empty((), dtype=torch.float32, device=dev)
-    out = torch.empty((1 + nb,), dtype=torch.int8, device=dev)
-    best = torch.empty((), dtype=torch.int64, device=dev)
+    detected = torch.empty(lead, dtype=torch.bool, device=dev)
+    metric = torch.empty(lead, dtype=torch.float32, device=dev)
+    out = torch.empty(lead + (1 + nb,), dtype=torch.int8, device=dev)
+    best = torch.empty(lead, dtype=torch.int64, device=dev)
     lib = _build.load()
     _build.check(lib.srsran_pucch_f0(
-        _build.ptr(grid), grid.shape[0], grid.shape[1], grid.shape[2], s, l0,
-        prb0, prb1, _build.ptr(refs), len(table), _build.ptr(maps), nb,
-        float(threshold), _build.ptr(detected), _build.ptr(metric),
-        _build.ptr(out), _build.ptr(best), _build.stream_of(grid)),
-        "pucch_f0")
-    KERNEL_F0.count()
-    return detected, metric, out[1:], out[0], best
+        _build.ptr(grid), grid.shape[-3], grid.shape[-2], grid.shape[-1], s,
+        l0, prb0, prb1, _build.ptr(refs),
+        len(table) * s * 12 if refs.ndim == 4 else 0, len(table),
+        _build.ptr(maps), nb, float(threshold), _build.ptr(detected),
+        _build.ptr(metric), _build.ptr(out), _build.ptr(best),
+        lead[0] if lead else 1, _build.stream_of(grid)), "pucch_f0")
+    (KERNEL_F0_BATCH if lead else KERNEL_F0).count()
+    return detected, metric, out[..., 1:], out[..., 0], best
 
 
 def detect_format0(grid: torch.Tensor, cfg: PucchF0Config,
@@ -495,8 +530,9 @@ def detect_format0(grid: torch.Tensor, cfg: PucchF0Config,
 
     ncs: None (references built on the host for ``cfg.slot`` and cached per
     device) or the candidates' references as a complex tensor (the slot
-    context, :func:`f0_refs_for`).  Returns the JAX package's dict:
-    detected, metric, harq_bits, sr_bit, best_mcs_index.
+    context, :func:`f0_refs_for`; shared or [B, ...] with a slot axis on the
+    grid).  Returns the JAX package's dict: detected, metric, harq_bits,
+    sr_bit, best_mcs_index (each with the grid's slot axis).
     """
     _f0_table(cfg)
     if ncs is None:
@@ -621,18 +657,23 @@ def f2_estimate_args(grid: torch.Tensor, cfg: PucchF2Config,
                      pilots: torch.Tensor) -> tuple:
     """(args, kwargs) of ``chest.estimate_from_grid`` for the comb-3 DM-RS
     of one F2 PDU (the port channel estimator, as the JAX package runs it:
-    stride 3, RC-filter smoothing, no CFO, 30 kHz)."""
+    stride 3, RC-filter smoothing, no CFO, 30 kHz); pilots [S, 4*nof_rb],
+    or [B, S, 4*nof_rb] for a grid with a slot axis."""
     _, dmrs_sc = _f2_sc(cfg.rb_start, cfg.nof_rb)
     args = (grid, tuple(range(cfg.start_symbol,
                               cfg.start_symbol + cfg.nof_symbols)),
-            cfg.rb_start * 12, pilots[None], dmrs_sc - cfg.rb_start * 12,
+            cfg.rb_start * 12, pilots.unsqueeze(-3),
+            dmrs_sc - cfg.rb_start * 12,
             12 * cfg.nof_rb, cfg.nof_symbols, 30e3)
     return args, dict(stride=3, smoothing="filter", estimate_cfo=False)
 
 
 def f2_demap_ref(grid: torch.Tensor, coeffs: torch.Tensor,
                  noise_var: torch.Tensor, cfg: PucchF2Config) -> torch.Tensor:
-    """Plain twin of :func:`f2_demap`."""
+    """Plain twin of :func:`f2_demap` (a slot axis runs slot by slot)."""
+    if grid.ndim == 4:
+        return stack_slots([f2_demap_ref(grid[b], coeffs[b], noise_var[b],
+                                         cfg) for b in range(grid.shape[0])])
     dev = grid.device
     data_sc = const(_f2_data_sc, cfg.rb_start, cfg.nof_rb, 0, device=dev)
     h_data = coeffs[:, 0, 0][:, const(_f2_data_sc, cfg.rb_start, cfg.nof_rb,
@@ -656,18 +697,22 @@ def f2_demap(grid: torch.Tensor, coeffs: torch.Tensor,
     PDU: per data RE, maximum-ratio combining over the rx ports with the
     channel estimate (``coeffs`` complex64 [P, 1, 1, 12 * nof_rb], K8's),
     the post-combining noise (mean of ``noise_var`` [P] over the combined
-    energy), max-log QPSK and the Gold descramble."""
+    energy), max-log QPSK and the Gold descramble.  B slots at once: grid
+    [B, P, nsym, nsc], coeffs [B, P, 1, 1, 12 * nof_rb] and noise_var
+    [B, P] give LLRs [B, ...], in one launch."""
     if not is_cuda(grid, coeffs, noise_var):
         return f2_demap_ref(grid, coeffs, noise_var, cfg)
-    p, nsc = grid.shape[0], 12 * cfg.nof_rb
-    if grid.dtype != torch.complex64 or grid.ndim != 3:
-        raise ValueError(f"grid must be complex64 [P, S, K], got "
+    p, nsc = grid.shape[-3], 12 * cfg.nof_rb
+    if grid.dtype != torch.complex64 or grid.ndim not in (3, 4):
+        raise ValueError(f"grid must be complex64 [(B,) P, S, K], got "
                          f"{grid.dtype} {tuple(grid.shape)}")
-    if coeffs.dtype != torch.complex64 or coeffs.shape != (p, 1, 1, nsc):
-        raise ValueError(f"coeffs must be complex64 [{p}, 1, 1, {nsc}], got "
-                         f"{coeffs.dtype} {tuple(coeffs.shape)}")
-    if noise_var.dtype != torch.float32 or noise_var.shape != (p,):
-        raise ValueError(f"noise_var must be float32 [{p}]")
+    lead = tuple(grid.shape[:-3])
+    if (coeffs.dtype != torch.complex64
+            or coeffs.shape != lead + (p, 1, 1, nsc)):
+        raise ValueError(f"coeffs must be complex64 {lead + (p, 1, 1, nsc)}, "
+                         f"got {coeffs.dtype} {tuple(coeffs.shape)}")
+    if noise_var.dtype != torch.float32 or noise_var.shape != lead + (p,):
+        raise ValueError(f"noise_var must be float32 {lead + (p,)}")
     dev = grid.device
     n = 16 * cfg.nof_rb * cfg.nof_symbols
     data_sc = const(_f2_data_sc, cfg.rb_start, cfg.nof_rb, 0, device=dev,
@@ -676,15 +721,16 @@ def f2_demap(grid: torch.Tensor, coeffs: torch.Tensor,
     grid = grid.contiguous()
     coeffs = coeffs.contiguous()
     noise_var = noise_var.contiguous()
-    llr = torch.empty((n,), dtype=torch.float32, device=dev)
+    llr = torch.empty(lead + (n,), dtype=torch.float32, device=dev)
     lib = _build.load()
     _build.check(lib.srsran_pucch_f2_demap(
-        _build.ptr(grid), p, grid.shape[1], grid.shape[2], _build.ptr(coeffs),
-        _build.ptr(noise_var), _build.ptr(data_sc), 8 * cfg.nof_rb,
-        cfg.rb_start * 12, cfg.start_symbol, cfg.nof_symbols,
+        _build.ptr(grid), p, grid.shape[-2], grid.shape[-1],
+        _build.ptr(coeffs), _build.ptr(noise_var), _build.ptr(data_sc),
+        8 * cfg.nof_rb, cfg.rb_start * 12, cfg.start_symbol, cfg.nof_symbols,
         float(pam_levels_scaled("qpsk")[0]), _build.ptr(gold),
-        _build.ptr(llr), _build.stream_of(grid)), "pucch_f2_demap")
-    KERNEL_F2.count()
+        _build.ptr(llr), lead[0] if lead else 1, _build.stream_of(grid)),
+        "pucch_f2_demap")
+    (KERNEL_F2_BATCH if lead else KERNEL_F2).count()
     return llr
 
 
@@ -694,20 +740,25 @@ def process_format2(grid: torch.Tensor, cfg: PucchF2Config,
     estimator (K8), combine + demap + descramble (K13), UCI decode (K14 up
     to 11 bits, else K15).  dmrs_cinits: None, host c_init seeds, or the
     pilot values [S, 4*nof_rb] (the slot context).  Returns the JAX
-    package's dict: uci_bits, valid, metric."""
+    package's dict: uci_bits, valid, metric.
+
+    B slots at once: grid [B, P, nsym, nsc] and the pilot values shared or
+    [B, S, 4*nof_rb] run K8, K13 and the decoder once for the B slots and
+    give every value a leading slot axis."""
     pilots = _f2_pilots(cfg, dmrs_cinits, grid.device)
     args, kw = f2_estimate_args(grid, cfg, pilots)
     est = chest.estimate_from_grid(*args, **kw)
-    llr = f2_demap(grid, est.coeffs, est.noise_var, cfg)
+    llr = f2_demap(grid, est.coeffs, est.noise_var, cfg)[..., None, :]
     k = cfg.nof_uci_bits
     if k <= 11:
-        bits, metric = short_block.detect(llr[None], k, 2)
-        return {"uci_bits": bits[0], "valid": metric[0] > 0.5,
-                "metric": metric[0]}
-    code, crc_len = _f2_polar_cfg(k, llr.shape[0])
-    dec, ok = polar_ops.decode(llr[None], code, f"crc{crc_len}")
-    return {"uci_bits": dec[0, :k], "valid": ok[0],
-            "metric": const(f32, (1.0,), device=grid.device)[0]}
+        bits, metric = short_block.detect(llr, k, 2)
+        return {"uci_bits": bits[..., 0, :], "valid": metric[..., 0] > 0.5,
+                "metric": metric[..., 0]}
+    code, crc_len = _f2_polar_cfg(k, llr.shape[-1])
+    dec, ok = polar_ops.decode(llr, code, f"crc{crc_len}")
+    return {"uci_bits": dec[..., 0, :k], "valid": ok[..., 0],
+            "metric": const(f32, (1.0,), device=grid.device)[0].expand(
+                ok.shape[:-1])}
 
 
 def transmit_format2(grid: torch.Tensor, cfg: PucchF2Config,
@@ -965,7 +1016,15 @@ def process_format3(grid: torch.Tensor, cfg: PucchF3Config, ncs=None) -> dict:
     estimator (K8 at stride 1), combine + IDFT + despread + demap +
     descramble (K19), UCI decode (K14 up to 11 bits, else K15).  ncs: None
     or the DM-RS values [Sd, M] of :func:`f3_dmrs_values_for` (the slot
-    context).  Returns the JAX package's dict: uci_bits, valid, metric."""
+    context).  Returns the JAX package's dict: uci_bits, valid, metric.
+
+    A grid with a slot axis (and ncs shared or [B, Sd, M]) runs slot by
+    slot and stacks every value: K19 has no slot axis yet (ROADMAP §2,
+    item 12, gives K16-K19 one)."""
+    if grid.ndim == 4:
+        return stack_slots([process_format3(
+            grid[b], cfg, None if ncs is None else slot_of(ncs, b, 2))
+            for b in range(grid.shape[0])])
     pilots = _f3_pilots(cfg, ncs, grid.device)
     args, kw = f3_estimate_args(grid, cfg, pilots)
     est = chest.estimate_from_grid(*args, **kw)

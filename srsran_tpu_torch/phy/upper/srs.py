@@ -7,7 +7,8 @@ wideband coefficient per (rx port, SRS port).  :func:`estimate` runs the
 generic estimator K8 (``channel_estimate.estimate_from_grid``, CFO off,
 pilot stride = comb) and then :func:`srs_noise`, the K11 wrapper: on CUDA
 tensors the hand kernel of csrc/srs_estimate.cu, which takes K8's TA and
-RSRP on the device; on CPU tensors its twin :func:`srs_noise_ref`.
+RSRP on the device; on CPU tensors its twin :func:`srs_noise_ref`.  A grid
+with a slot axis runs both once for all its slots.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import numpy as np
 import torch
 
 from ... import kernels
-from ...device import const, i64, is_cuda
+from ...device import const, i64, is_cuda, stack_slots
 from ...kernels import _build
 from ...ops import channel_estimate as chest
 from ...ops.low_papr import base_sequence
@@ -28,6 +29,7 @@ KERNEL = kernels.register(kernels.Kernel(
     name="srs_estimate", route="cuda",
     source="srsran_tpu_torch/csrc/srs_estimate.cu",
     replaces="srsran_tpu/phy/upper/srs.py:98"))
+KERNEL_BATCH = kernels.batched(KERNEL)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,7 +114,10 @@ def _arange_f32(n: int) -> np.ndarray:
 
 def srs_noise_ref(grid: torch.Tensor, cfg: SrsConfig, ta: torch.Tensor,
                   rsrp: torch.Tensor) -> tuple:
-    """Plain twin of :func:`srs_noise`."""
+    """Plain twin of :func:`srs_noise` (a slot axis runs slot by slot)."""
+    if grid.ndim == 4:
+        return stack_slots([srs_noise_ref(grid[b], cfg, ta[b], rsrp[b])
+                            for b in range(grid.shape[0])])
     dev = grid.device
     syms = const(i64, _symbols(cfg), device=dev)
     sc = const(i64, tuple(int(s) for s in sc_indices(cfg)), device=dev)
@@ -143,33 +148,39 @@ def srs_noise(grid: torch.Tensor, cfg: SrsConfig, ta: torch.Tensor,
               rsrp: torch.Tensor) -> tuple:
     """SRS noise variance and SNR per rx port, (f32 [P], f32 [P]), from the
     received grid, the TA (f32 scalar) and RSRP (f32 [P]) of the generic
-    estimate (srs.py:98-118 of the JAX package)."""
+    estimate (srs.py:98-118 of the JAX package).  B slots at once: grid
+    [B, P, nsym, nsc], ta [B] and rsrp [B, P] give ([B, P], [B, P]), in
+    one launch."""
     if not is_cuda(grid, ta, rsrp):
         return srs_noise_ref(grid, cfg, ta, rsrp)
-    if grid.dtype != torch.complex64 or grid.ndim != 3:
-        raise ValueError(f"grid must be complex64 [P, S, K], got "
+    if grid.dtype != torch.complex64 or grid.ndim not in (3, 4):
+        raise ValueError(f"grid must be complex64 [(B,) P, S, K], got "
                          f"{grid.dtype} {tuple(grid.shape)}")
     dev = grid.device
-    n_p = grid.shape[0]
-    if rsrp.shape != (n_p,) or ta.numel() != 1:
+    lead = tuple(grid.shape[:-3])
+    n_p = grid.shape[-3]
+    slots = lead[0] if lead else 1
+    if rsrp.shape != lead + (n_p,) or ta.numel() != slots:
         raise ValueError(f"rsrp {tuple(rsrp.shape)} / ta {tuple(ta.shape)} "
-                         f"do not fit {n_p} rx ports")
+                         f"do not fit {n_p} rx ports of {slots} slots")
     syms = const(chest._i32, _symbols(cfg), device=dev)
     cols = const(chest._i32, tuple(int(s) for s in sc_indices(cfg)),
                  device=dev)
     expected = _expected_tensor(cfg, dev)
     grid = grid.contiguous()
-    out = torch.empty((2 * n_p,), dtype=torch.float32, device=dev)
+    out = torch.empty(lead + (2 * n_p,), dtype=torch.float32, device=dev)
+    ta = ta.to(torch.float32).reshape(slots).contiguous()
+    rsrp = rsrp.contiguous()
     lib = _build.load()
     _build.check(lib.srsran_srs_noise(
-        _build.ptr(grid), n_p, grid.shape[1], grid.shape[2], _build.ptr(syms),
-        _build.ptr(cols), _build.ptr(expected), cfg.nof_ports,
-        cfg.nof_symbols, cfg.seq_len, _ramp_scale(cfg),
-        _build.ptr(ta.to(torch.float32).contiguous()),
-        _build.ptr(rsrp.contiguous()), max(cfg.seq_len - cfg.nof_ports, 1),
-        _build.ptr(out), _build.stream_of(grid)), "srs_noise")
-    KERNEL.count()
-    return out[:n_p], out[n_p:]
+        _build.ptr(grid), n_p, grid.shape[-2], grid.shape[-1],
+        _build.ptr(syms), _build.ptr(cols), _build.ptr(expected),
+        cfg.nof_ports, cfg.nof_symbols, cfg.seq_len, _ramp_scale(cfg),
+        _build.ptr(ta), _build.ptr(rsrp),
+        max(cfg.seq_len - cfg.nof_ports, 1), _build.ptr(out), slots,
+        _build.stream_of(grid)), "srs_noise")
+    (KERNEL_BATCH if lead else KERNEL).count()
+    return out[..., :n_p], out[..., n_p:]
 
 
 def estimate_args(grid: torch.Tensor, cfg: SrsConfig) -> tuple:
@@ -184,7 +195,9 @@ def estimate_args(grid: torch.Tensor, cfg: SrsConfig) -> tuple:
 
 
 def estimate(grid: torch.Tensor, cfg: SrsConfig) -> chest.ChannelEstimate:
-    """Estimate the [rx_port, srs_port] channel from a received grid."""
+    """Estimate the [rx_port, srs_port] channel from a received grid (with
+    a slot axis, [B, P, nsym, nsc]: K8 and K11 once for the B slots, every
+    field of the estimate with a leading slot axis)."""
     args, kwargs = estimate_args(grid, cfg)
     est = chest.estimate_from_grid(*args, **kwargs)
     noise_var, snr = srs_noise(grid, cfg, est.time_alignment_s, est.rsrp)

@@ -39,10 +39,13 @@ def encode_uci(bits: torch.Tensor, e: int, qm: int) -> torch.Tensor:
 
 def decode_uci(llrs: torch.Tensor, o_bits: int, qm: int):
     """[E] LLRs -> (bits int8 [K], valid bool, metric f32), on the device of
-    the LLRs (K14 for short blocks, K15 for polar codes)."""
+    the LLRs (K14 for short blocks, K15 for polar codes); [B, E] (a slot
+    batch) -> every value with a leading slot axis, from one launch."""
+    llrs = llrs[..., None, :]                   # [(B,) 1, E]: one codeword
     if o_bits <= 11:
-        bits, metric = short_block.detect(llrs[None], o_bits, qm)
-        return bits[0], metric[0] > 0.25, metric[0]
+        bits, metric = short_block.detect(llrs, o_bits, qm)
+        return bits[..., 0, :], metric[..., 0] > 0.25, metric[..., 0]
     code, crc_len = _polar_cfg(o_bits, llrs.shape[-1])
-    dec, ok = polar_ops.decode(llrs[None], code, f"crc{crc_len}")
-    return dec[0, :o_bits], ok[0], const(f32, (1.0,), device=llrs.device)[0]
+    dec, ok = polar_ops.decode(llrs, code, f"crc{crc_len}")
+    return (dec[..., 0, :o_bits], ok[..., 0],
+            const(f32, (1.0,), device=llrs.device)[0].expand(ok.shape[:-1]))

@@ -391,14 +391,15 @@ def test_ldpc_twin_stops_per_slot_as_jax_vmap():
 
 def test_stack_ctx_maps_only_what_differs():
     """stack_ctx: per-slot leaves stack on a new axis, shared leaves (the
-    same tensor) stay once, None passes; slot_ctx slices a slot back."""
+    same tensor) stay once, None passes; row b of a stacked leaf is slot
+    b's (as the receivers read it)."""
     shared = torch.ones(3)
     ctxs = [{"a": (torch.full((2,), float(i)), shared), "b": (None,)}
             for i in range(3)]
     ctx, axes = t_slots.stack_ctx(ctxs)
     assert axes == {"a": (0, None), "b": (None,)}
     assert ctx["a"][0].shape == (3, 2) and ctx["a"][1] is shared
-    one = t_slots.slot_ctx(ctx, axes, 2)
-    assert torch.equal(one["a"][0], ctxs[2]["a"][0]) and one["b"] == (None,)
+    assert torch.equal(ctx["a"][0][2], ctxs[2]["a"][0])
+    assert ctx["b"] == (None,)
     with pytest.raises(ValueError, match="structure"):
         t_slots.stack_ctx([{"a": (shared,)}, {"a": (shared, shared)}])

@@ -1,10 +1,14 @@
-"""The slot-batch forms of K1-K8 and the conductor's CUDA graphs, on a CUDA
-GPU.
+"""The slot-batch forms of K1-K15 and the conductor's CUDA graphs, on a
+CUDA GPU.
 
 Each batched kernel runs on B slots of seeded inputs at the small PUSCH's
-and PDSCH's shapes and is held against its plain twin (which runs slot by
-slot), at B = 1 and B = 4; at B = 1 it must also give the unbatched
-kernel's output.  The conductor's ``process_slot`` (one CUDA graph per slot
+and PDSCH's shapes (K9-K15: at the UL mix's, each slot with its own slot
+context) and is held against its plain twin (which runs slot by slot), at
+B = 1 and B = 4; at B = 1 it must also give the unbatched kernel's output
+(K9-K15: every slot equals its own unbatched launch, and the batch counts
+one launch of the kernel's ``_batch`` row).  Tolerances as the unbatched
+GPU tests (tests/test_torch_kernels.py): decisions, bits and flags
+exact, floats within 1e-4 of their twin's (K14's metric 1e-5).  The conductor's ``process_slot`` (one CUDA graph per slot
 phase) is held against the phase's eager slot program over three slots with
 differing payloads and samples, and ``process_slot_batch`` against
 ``process_slot``.  On a machine without a GPU every case skips (the twins
@@ -18,13 +22,17 @@ import numpy as np
 import pytest
 import torch
 
+from srsran_tpu_torch import flagship, kernels
 from srsran_tpu_torch.fapi import conductor as t_cond
 from srsran_tpu_torch.fapi import messages as msgs
 from srsran_tpu_torch.ops import channel_estimate as chest
 from srsran_tpu_torch.ops import (dl_map, ldpc_decode, ldpc_encode,
-                                  ldpc_rate_match, ofdm, ul_demap)
+                                  ldpc_rate_match, ofdm, polar, short_block,
+                                  ul_demap)
 from srsran_tpu_torch.phy.slot_programs import CellConfig
-from srsran_tpu_torch.phy.upper import dmrs, pdcch, pdsch, pucch, pusch
+from srsran_tpu_torch.phy.upper import (dmrs, pdcch, pdsch, prach, pucch,
+                                        pusch, srs)
+from srsran_tpu_torch.ran import polar_params
 from srsran_tpu_torch.ran.slot_point import SlotPoint
 
 torch.set_num_threads(2)
@@ -185,6 +193,244 @@ def test_dlsch_encode_and_map_batched(cuda, b):
     _close(out, ref, 1e-6)
     one = dl_map.pdsch_map(grid[0].clone(), cbs[0], *args[2:])
     assert torch.equal(out[0], one)
+
+
+# ------------------------------------------------ K9-K15 with a slot axis
+
+def _counted(fn, name):
+    """fn() with the launch counts reset: its result, after checking that
+    it launched the ``name`` kernel's batch row once and its per-slot row
+    never."""
+    kernels.reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got = (kernels.REGISTRY[f"{name}_batch"].launches,
+           kernels.REGISTRY[name].launches)
+    assert got == (1, 0), got
+    return out
+
+
+def _same(a, b):
+    """Two kernel outputs (tensors or tuples of them) bit-equal."""
+    if isinstance(a, torch.Tensor):
+        assert a.shape == b.shape and torch.equal(a, b)
+        return
+    for x, y in zip(a, b):
+        _same(x, y)
+
+
+def _slot(out, s):
+    return out[s] if isinstance(out, torch.Tensor) else tuple(
+        _slot(o, s) for o in out)
+
+
+UL_GRID = (4, 14, 3276)
+
+
+@pytest.mark.parametrize("b", [1, 4])
+def test_prach_detect_batched(cuda, b):
+    """K9's three launches over B captures (preamble 21, noise alone in
+    slot 1)."""
+    rng = np.random.default_rng(60 + b)
+    caps = [flagship.prach_capture(rng) for _ in range(b)]
+    if b > 1:
+        caps[1] = 0.05 * _cgauss(rng, caps[1].shape).numpy()
+    fd = torch.as_tensor(np.stack(caps)).to(cuda)
+    cfg = flagship.PRACH
+    out = _counted(lambda: prach.detect(fd, cfg), "prach_detect")
+    ref = prach.detect_ref(fd, cfg)
+    assert torch.equal(out.detected, ref.detected)
+    assert torch.equal(out.time_advance_s, ref.time_advance_s)
+    _close(out.metrics, ref.metrics, 1e-4)
+    _close(out.rssi, ref.rssi, 1e-4)
+    for s in range(b):
+        one = prach.detect(fd[s], cfg)
+        want = [] if s == 1 else [flagship.PRACH_PREAMBLE]
+        assert torch.nonzero(out.detected[s]).flatten().tolist() == want
+        assert torch.equal(out.detected[s], one.detected)
+        assert torch.equal(out.time_advance_s[s], one.time_advance_s)
+        _close(out.metrics[s], one.metrics, 1e-6)
+        _close(out.rssi[s], one.rssi, 1e-6)
+
+
+def _f1_slot(common, users, rng):
+    grid = torch.zeros(UL_GRID, dtype=torch.complex64)
+    for m0, occ, nbits in users:
+        cfg = dataclasses.replace(common, initial_cyclic_shift=m0,
+                                  time_domain_occ=occ, nof_harq_bits=nbits)
+        one = pucch.transmit_format1(torch.zeros_like(grid), cfg,
+                                     rng.integers(0, 2, nbits))[0]
+        grid += _cgauss(rng, (4,))[:, None, None] * one
+    return grid + 0.05 * _cgauss(rng, grid.shape)
+
+
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("hop", [None, 9])
+def test_pucch_f1_batched(cuda, b, hop):
+    """K10 over B slots of three users, each slot its own slot number (the
+    cyclic shifts and so a_dm and ph per slot; w_da shared)."""
+    users = tuple((4 * u, u % 2, 1 + u % 2) for u in range(3))
+    rng = np.random.default_rng(70 + b)
+    commons = [pucch.PucchF1Config(prb=0, start_symbol=0, nof_symbols=14,
+                                   initial_cyclic_shift=0, time_domain_occ=0,
+                                   n_id=1, slot=2 * s, second_hop_prb=hop)
+               for s in range(b)]
+    grid = torch.stack([_f1_slot(c, users, rng) for c in commons]).to(cuda)
+    per = [pucch.f1_batch_weights(c, users) for c in commons]
+    weights = tuple(
+        tuple(torch.as_tensor(np.stack([p[h][j] for p in per])).to(cuda)
+              if j < 2 else torch.as_tensor(per[0][h][j]).to(cuda)
+              for j in range(3)) for h in range(len(per[0])))
+    out = _counted(lambda: pucch.f1_detect(grid, commons[0], weights, 1.5),
+                   "pucch_f1_detect")
+    ref = pucch.f1_detect_ref(grid, commons[0], weights, 1.5)
+    assert torch.equal(out[0], ref[0]) and torch.equal(out[2], ref[2])
+    _close(out[1], ref[1], 1e-4)
+    _close(out[3], ref[3], 1e-4)
+    for s in range(b):
+        one = pucch.f1_detect(grid[s], commons[s], tuple(
+            tuple(torch.as_tensor(w).to(cuda) for w in h) for h in per[s]),
+            1.5)
+        _same(_slot(out, s), one)
+
+
+@pytest.mark.parametrize("b", [1, 4])
+def test_srs_estimate_batched(cuda, b):
+    """K11 after K8's batch form, on B slots through their own channels."""
+    cfg = srs.SrsConfig(rb_start=200, rb_count=48, start_symbol=13,
+                        nof_symbols=1, comb=4, comb_offset=0, cyclic_shift=0,
+                        nof_ports=4, sequence_id=1, numerology=1)
+    rng = np.random.default_rng(80 + b)
+    tx = srs.map_to_grid(torch.zeros(UL_GRID, dtype=torch.complex64), cfg)
+    grid = torch.stack([
+        torch.einsum("rp,psk->rsk", _cgauss(rng, (4, 4)), tx)
+        + 0.05 * _cgauss(rng, tx.shape) for _ in range(b)]).to(cuda)
+    args, kw = srs.estimate_args(grid, cfg)
+    est = chest.estimate_from_grid(*args, **kw)
+    ta, rsrp = est.time_alignment_s, est.rsrp
+    out = _counted(lambda: srs.srs_noise(grid, cfg, ta, rsrp),
+                   "srs_estimate")
+    for a, r in zip(out, srs.srs_noise_ref(grid, cfg, ta, rsrp)):
+        _close(a, r, 1e-4)
+    for s in range(b):
+        _same(_slot(out, s), srs.srs_noise(grid[s], cfg, ta[s], rsrp[s]))
+
+
+@pytest.mark.parametrize("b", [1, 4])
+def test_pucch_f0_batched(cuda, b):
+    """K12 over B slots, each its own slot number (references per slot)
+    and its own SR/HARQ candidate sent."""
+    rng = np.random.default_rng(90 + b)
+    table = pucch._F0_TABLES[(2, True)]
+    cfgs = [pucch.PucchF0Config(prb=269, start_symbol=11, nof_symbols=2,
+                                initial_cyclic_shift=3, n_id=1, slot=2 * s,
+                                nof_harq_bits=2, sr_opportunity=True)
+            for s in range(b)]
+    sent = [table[(3 * s + 1) % len(table)] for s in range(b)]
+    grid = []
+    for cfg, (_, sr, harq) in zip(cfgs, sent):
+        one = pucch.transmit_format0(torch.zeros((1,) + UL_GRID[1:],
+                                                 dtype=torch.complex64),
+                                     cfg, harq, sr or 0)[0]
+        grid.append(_cgauss(rng, (4,))[:, None, None] * one
+                    + 0.3 * _cgauss(rng, UL_GRID))
+    grid = torch.stack(grid).to(cuda)
+    refs = torch.as_tensor(np.stack([pucch.f0_refs_for(c) for c in cfgs])
+                           ).to(cuda)
+    out = _counted(lambda: pucch.f0_detect(grid, cfgs[0], refs, 4.0),
+                   "pucch_f0_detect")
+    ref = pucch.f0_detect_ref(grid, cfgs[0], refs, 4.0)
+    for i in (0, 2, 3, 4):
+        assert torch.equal(out[i], ref[i]), i
+    _close(out[1], ref[1], 1e-4)
+    for s, (_, sr, harq) in enumerate(sent):
+        one = pucch.f0_detect(grid[s], cfgs[s], refs[s], 4.0)
+        _same(_slot(out, s), one)
+        assert bool(one[0]) and one[2].tolist() == list(harq)
+
+
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("nof_rb,k", [(1, 6), (2, 22)])
+def test_pucch_f2_batched(cuda, b, nof_rb, k):
+    """K8 (comb 3), K13, then K14 or K15 on B slots, each its own pilots:
+    process_format2 with the slot axis launches each once."""
+    rng = np.random.default_rng(100 + b + nof_rb)
+    cfgs = [pucch.PucchF2Config(rb_start=272 - nof_rb, nof_rb=nof_rb,
+                                start_symbol=11, nof_symbols=2, rnti=0x19,
+                                n_id=1, n_id0=1, nof_uci_bits=k, slot=2 * s)
+            for s in range(b)]
+    sent = [rng.integers(0, 2, k) for _ in range(b)]
+    grid = torch.stack([
+        _cgauss(rng, (4,))[:, None, None] * pucch.transmit_format2(
+            torch.zeros((1,) + UL_GRID[1:], dtype=torch.complex64), c, m)[0]
+        + 0.05 * _cgauss(rng, UL_GRID) for c, m in zip(cfgs, sent)]).to(cuda)
+    pil = torch.as_tensor(np.stack([pucch.f2_pilot_values_for(c)
+                                    for c in cfgs])).to(cuda)
+    args, kw = pucch.f2_estimate_args(grid, cfgs[0], pil)
+    est = chest.estimate_from_grid(*args, **kw)
+    k13 = (grid, est.coeffs, est.noise_var, cfgs[0])
+    llr = _counted(lambda: pucch.f2_demap(*k13), "pucch_f2_demap")
+    _close(llr, pucch.f2_demap_ref(*k13), 1e-4)
+    for s in range(b):
+        _same(llr[s], pucch.f2_demap(grid[s], est.coeffs[s],
+                                     est.noise_var[s], cfgs[s]))
+    kernels.reset_counts()
+    res = pucch.process_format2(grid, cfgs[0], pil)
+    decoder = "short_block_detect" if k <= 11 else "polar_decode"
+    counts = {n: kernels.REGISTRY[n].launches
+              for n in ("channel_estimate_batch", "pucch_f2_demap_batch",
+                        f"{decoder}_batch", "channel_estimate",
+                        "pucch_f2_demap", decoder)}
+    assert list(counts.values()) == [1, 1, 1, 0, 0, 0], counts
+    for s in range(b):
+        one = pucch.process_format2(grid[s], cfgs[s], pil[s])
+        assert res["uci_bits"][s].tolist() == list(sent[s])
+        for key in ("uci_bits", "valid"):
+            assert torch.equal(res[key][s], one[key]), key
+        _close(res["metric"][s], one["metric"], 1e-6)
+
+
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("k,qm,e", [(6, 2, 32), (11, 2, 512)])
+def test_short_block_batched(cuda, b, k, qm, e):
+    """K14 over B slots of 3 codewords each: one launch of 3B blocks."""
+    rng = np.random.default_rng(110 + b + k)
+    msg = torch.as_tensor(rng.integers(0, 2, (b * 3, k)).astype(np.int8))
+    cw = short_block.encode(msg, e, qm).numpy()
+    llr = torch.as_tensor(((1.0 - 2.0 * cw) + rng.standard_normal(cw.shape)
+                           ).astype(np.float32)).reshape(b, 3, e).to(cuda)
+    bits, metric = _counted(lambda: short_block.detect(llr, k, qm),
+                            "short_block_detect")
+    bits_ref, metric_ref = short_block.detect_ref(llr, k, qm)
+    assert bits.shape == (b, 3, k) and torch.equal(bits, bits_ref)
+    _close(metric, metric_ref, 1e-5)
+    for s in range(b):
+        _same((bits[s], metric[s]), short_block.detect(llr[s], k, qm))
+
+
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("k,e,n_pc,crc_name", [(33, 64, 0, "crc11"),
+                                               (18, 32, 3, "crc6")])
+def test_polar_decode_batched(cuda, b, k, e, n_pc, crc_name):
+    """K15 over B slots of 2 codewords each (one of them at exact-zero
+    LLRs): one launch of 2B CTAs."""
+    code = polar_params.polar_code(k, e, nmax=10, ibil=True, n_pc=n_pc)
+    rng = np.random.default_rng(120 + b + k)
+    msg = rng.integers(0, 2, (2 * b, k)).astype(np.int8)
+    x = polar.rate_match(polar.encode(polar.allocate(torch.as_tensor(msg),
+                                                     code), code.n),
+                         code).numpy()
+    llr = ((1.0 - 2.0 * x) + 0.8 * rng.standard_normal(x.shape)
+           ).astype(np.float32)
+    llr[-1] = 0.0
+    llr = torch.as_tensor(llr).reshape(b, 2, e).to(cuda)
+    bits, ok = _counted(lambda: polar.decode(llr, code, crc_name),
+                        "polar_decode")
+    bits_ref, ok_ref = polar.decode_ref(llr, code, crc_name)
+    assert bits.shape == (b, 2, k)
+    assert torch.equal(bits, bits_ref) and torch.equal(ok, ok_ref)
+    for s in range(b):
+        _same((bits[s], ok[s]), polar.decode(llr[s], code, crc_name))
 
 
 # ----------------------------------------------------- conductor graphs
