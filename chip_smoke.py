@@ -108,9 +108,14 @@ the JAX package.  It builds the hand kernels from ``srsran_tpu_torch/csrc``
    and F4 UCI as sent, PRACH 21, K18 and K19 launched; one call under
    ``set_sync_debug_mode("error")``; slot 0 against the CPU twins; the same
    slots through ``SlotConductor.process_slot`` (each through its CUDA
-   graph and equal to its eager program), and two of them as one
-   ``process_slot_batch`` (K18 and K19 once per slot), equal to
-   ``process_slot``;
+   graph and equal to its eager program), and four of them (slots 1-4,
+   beside the flagship DL) as one ``process_slot_batch``: equal to
+   ``process_slot`` slot by slot, every TB, UCI field and PRACH as sent,
+   K18 and K17 once per batch, K19 once per F3/F4 PDU, K8 6 times and no
+   kernel once per slot; the memory its capture reserved; us per slot
+   over 8 graphed batches; then the batched K18 and K19 against their
+   twins at B = 4 (timed, with their bounds), every slot bit-equal to its
+   own unbatched launch;
 10. gnb_sim: K20 (the TDL channel, 4x4 TDLA at 28 dB on shared draws), K21
    (the PRACH occasion demodulator: B4 at N_u = 4096, 12 repetitions; B4
    at N_u = 6144, the widest window its table in shared memory takes; and
@@ -228,6 +233,17 @@ the JAX package.  It builds the hand kernels from ``srsran_tpu_torch/csrc``
    payloads sent; at L = 1 K15's messages); RuRing and RuDummy round trips
    of slot E's samples with their timestamps.  Phase 10 also requires K32
    (the UE transmitter's rate match) to launch.
+
+15. two-UE batch: 4 two-UE slots of ``flagship.MU`` at one RI
+   (``flagship.mu_batch``: a batch shares one normalized plan, so UE B's
+   CSI part 2 has one size) beside the flagship DL of phases 1-4, as one
+   ``process_slot_batch``: equal to ``process_slot`` slot by slot, both
+   TBs, UE B's ACK, CSI1 and CSI2 and PRACH 21 as sent in every slot, K16
+   once per PUSCH (2) and K17 once per batch, K8 4 times, K14 twice, K15
+   once, no kernel once per slot; the memory its capture reserved; us per
+   slot over 8 graphed batches; then the batched K16 (UE A) and K17 (UE
+   B) against their twins at B = 4 (timed, with their bounds), every slot
+   bit-equal to its own unbatched launch.
 
 It prints the card's name and power limit, one JSON line of per-kernel
 results, and as its last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -374,16 +390,38 @@ BATCHED = ("ofdm_demodulate", "pusch_demap", "rate_dematch", "ldpc_decode",
            "prach_detect", "pucch_f1_detect", "srs_estimate",
            "pucch_f0_detect", "pucch_f2_demap", "short_block_detect",
            "polar_decode")
-BATCH_KERNELS = tuple(f"{n}_batch" for n in BATCHED)
+# K16-K19's slot-axis forms: the two-UE batch's (phase 15) and the cell
+# edge's (phase 9).
+BATCHED_UL = ("pusch_demap_lxn", "ulsch_demux", "pusch_tp_demap",
+              "pucch_f3_demap")
+BATCH_KERNELS = tuple(f"{n}_batch" for n in BATCHED + BATCHED_UL)
 # Launches of each batch row in one batch of the conductor scenario: one,
 # but K8 once for the PUSCH, the SRS and each F2 (1 + 3) and K13 once per
 # F2 PDU; no kernel launches once per slot.
-BATCH_LAUNCHES = {**{k: 1 for k in BATCH_KERNELS},
+BATCH_LAUNCHES = {**{f"{n}_batch": 1 for n in BATCHED},
                   "channel_estimate_batch": 4, "pucch_f2_demap_batch": 2}
 # The same for the multi-cell programs (the flagship plans: no F0, no F2;
 # K8 for the PUSCH and the SRS).
 MULTI_CELL_LAUNCHES = {**{f"{n}_batch": 1 for n in BATCHED[:11]},
                        "channel_estimate_batch": 2}
+# The same in one two-UE or cell-edge batch of 4 beside the flagship DL:
+# two PUSCHs (K2 and K1 twice) and no F0 or F2; two-UE: K16 once per PUSCH
+# (no K3: both MMSE), K17 once (UE B), K8 for UE A's two CDM groups, UE B
+# and the SRS, K14 for UE B's ACK and CSI1, K15 for its CSI2; cell edge:
+# K3 (UE A), K18 and K17 (UE C), K19 once per F3/F4 PDU, K8 for UE A, UE
+# C's two hops, the SRS, the F3 and the F4, K14 for UE C's ACK and the F4,
+# K15 for the F3.
+_TWO_PUSCH = {**{f"{n}_batch": 1 for n in BATCHED[:11]},
+              "rate_dematch_batch": 2, "ldpc_decode_batch": 2,
+              "polar_decode_batch": 1, "short_block_detect_batch": 2,
+              "ulsch_demux_batch": 1}
+MU_BATCH_LAUNCHES = {**{k: v for k, v in _TWO_PUSCH.items()
+                        if k != "pusch_demap_batch"},
+                     "pusch_demap_lxn_batch": 2, "channel_estimate_batch": 4}
+EDGE_BATCH_LAUNCHES = {**_TWO_PUSCH, "pusch_tp_demap_batch": 1,
+                       "pucch_f3_demap_batch": 2,
+                       "channel_estimate_batch": 6}
+N_TIMED_BATCHES = 8
 BATCH_TIMING_RUNS = 5
 GRAPH_PASSES = 2
 GNB_KERNELS = ("tdl_channel", "prach_demod", "pdsch_map_prg", "rate_match")
@@ -1555,18 +1593,10 @@ def batch_phase(scen: dict, card) -> dict:
 
     st = stage()
     tx_b, pend_b = cond.process_slot_batch(slots, st, rx_b, prach_fd=prach_b)
-    res_b = pend_b.resolve()
-    check(res_b, "batch")
     # each slot of the batch against process_slot on the same slot
-    for b, g in enumerate(grp):
-        tx, pend = cond.process_slot(dlr[g], ulr[g], st, b, rx_b[b],
-                                     prach_fd=(prach_b[0][b],))
-        close(tx_b[b], tx, f"batch slot {b}: tx samples")
-        torch.testing.assert_close(pend_b.scalars[b], pend.scalars,
-                                   rtol=2e-4, atol=2e-4)
-        if not torch.equal(pend_b.payload[b], pend.payload):
-            raise AssertionError(f"batch slot {b}: payload differs")
-        convert.slot_results(pend.resolve(), res_b[b], rtol=2e-4)
+    res_b = _batch_vs_slots(cond, slots, st, rx_b, prach_b, tx_b, pend_b,
+                            "batch")
+    check(res_b, "batch")
     rach = [[r.preamble_index for r in res.rach] for res in res_b]
     print(f"batch of {flagship.BATCH} (phases {list(grp)}): "
           f"{sum(r.crc[0].tb_crc_ok for r in res_b)}/{flagship.BATCH} TBs "
@@ -1586,12 +1616,19 @@ def batch_phase(scen: dict, card) -> dict:
           f"one device launch per sweep of all {flagship.BATCH} slots",
           flush=True)
 
-    # Staged beforehand (one transfer per batch), launched back to back
-    # and resolved RESOLVE_LAG behind: each batch's device span by CUDA
-    # events around its launch (median over the batches, robust to a
-    # stall of the host), and the loop's host clock.
-    n_batches = 8
-    staged = [stage() for _ in range(n_batches)]
+    print(f"batch: {_timed_batches(cond, slots, stage, rx_b, prach_b, check)}"
+          f", card {card}", flush=True)
+    return launches
+
+
+def _timed_batches(cond, slots, stage, rx_b, prach_b, check) -> str:
+    """N_TIMED_BATCHES batches staged beforehand (one transfer each),
+    launched back to back and resolved RESOLVE_LAG behind, each checked:
+    each batch's device span by CUDA events around its launch (median over
+    the batches, robust to a stall of the host) and the loop's host clock,
+    per slot."""
+    nb = len(slots)
+    staged = [stage() for _ in range(N_TIMED_BATCHES)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     events, pending, done = [], [], []
@@ -1607,16 +1644,37 @@ def batch_phase(scen: dict, card) -> dict:
             done.append(pending.pop(0).resolve())
     done += [p.resolve() for p in pending]
     torch.cuda.synchronize()
-    host_us = 1e6 * (time.perf_counter() - t0) / (n_batches * flagship.BATCH)
-    spans = [1e3 * b.elapsed_time(e) / flagship.BATCH for b, e in events]
+    host_us = 1e6 * (time.perf_counter() - t0) / (N_TIMED_BATCHES * nb)
+    spans = [1e3 * b.elapsed_time(e) / nb for b, e in events]
     for res in done:
         check(res, "timed batch")
-    print(f"batch: {statistics.median(spans):.1f} us per slot by CUDA events "
-          f"(median over {n_batches} batches of {flagship.BATCH}; "
-          f"{min(spans):.1f}-{max(spans):.1f}), {host_us:.1f} us per slot on "
-          f"the host clock with resolve, staged beforehand, card {card}",
-          flush=True)
-    return launches
+    return (f"{statistics.median(spans):.1f} us per slot by CUDA events "
+            f"(median over {N_TIMED_BATCHES} batches of {nb}; "
+            f"{min(spans):.1f}-{max(spans):.1f}), {host_us:.1f} us per slot "
+            f"on the host clock with resolve, staged beforehand")
+
+
+def _batch_vs_slots(cond, slots, st, rx_b, prach_b, tx_b, pend_b,
+                    where: str) -> list:
+    """Each slot of a batch against ``process_slot`` on the same slot: tx
+    samples, scalars within 2e-4, payload exact, SlotResults within 2e-4.
+    Returns the batch's SlotResults."""
+    res_b = pend_b.resolve()
+    for b, (dl, ul) in enumerate(slots):
+        tx, pend = cond.process_slot(dl, ul, st, b, rx_b[b],
+                                     prach_fd=tuple(p[b] for p in prach_b))
+        close(tx_b[b], tx, f"{where} slot {b}: tx samples")
+        torch.testing.assert_close(pend_b.scalars[b], pend.scalars,
+                                   rtol=2e-4, atol=2e-4)
+        if not torch.equal(pend_b.payload[b], pend.payload):
+            raise AssertionError(f"{where} slot {b}: payload differs")
+        convert.slot_results(pend.resolve(), res_b[b], rtol=2e-4)
+    return res_b
+
+
+def _last_graph(cond) -> SlotGraph:
+    """The conductor's most recently used CUDA graph."""
+    return next(reversed(cond._graphs._d.values()))
 
 
 def batch_counts(want: dict, where: str) -> dict:
@@ -1624,7 +1682,7 @@ def batch_counts(want: dict, where: str) -> dict:
     they are ``want`` and no kernel with a slot axis launched per slot."""
     counts = {k.name: k.launches for k in kernels.REGISTRY.values()}
     got = {n: counts[n] for n in BATCH_KERNELS if counts[n] or n in want}
-    per_slot = {n: counts[n] for n in BATCHED if counts[n]}
+    per_slot = {n: counts[n] for n in BATCHED + BATCHED_UL if counts[n]}
     if got != want or per_slot:
         raise AssertionError(f"{where} launches {got} (want {want}), per "
                              f"slot {per_slot}")
@@ -1678,23 +1736,16 @@ def _slot_of(obj, b: int):
     return obj
 
 
-def batched_kernel_phase(ul_slots, dl_slots, gen, scen) -> dict:
-    """The batched K1-K15 at B = 4 against their twins (timed, with their
-    bounds, the work summed over the slots), and at B = 1 against the
-    unbatched kernels: K1-K11 on phase 2's and 3's slots (each slot its
-    own context and PRACH capture), K12-K15 on the batch's conductor
-    phases."""
-    nb = flagship.BATCH
-    prach_b = flagship.batch_prach_fd(ul_slots[0][1].device, SEED)
-    phases = scen["phases"]
-    per_slot = [{**flagship.kernel_cases(rx, ctx, gen, (prach_b[0][b],)),
-                 **flagship.dl_kernel_cases(d),
-                 **flagship.conductor_kernel_cases(
-                     phases[g]["rx"], (2 * g) % 20, gen)}
-                for b, ((_, rx, ctx), d, g) in enumerate(zip(
-                    ul_slots[:nb], dl_slots[:nb], flagship.BATCH_PHASES))]
+def batched_kernel_phase(names: tuple, per_slot: list, where: str) -> dict:
+    """The batched form of each kernel of ``names`` at B = len(per_slot)
+    against its twin (timed, with its bound, the work summed over the
+    slots), and its slot 0 at B = 1 against the unbatched kernel; K16-K19
+    (BATCHED_UL) also every slot bit-equal to that slot's unbatched launch.
+    ``per_slot[b]``: slot b's cases (name -> (wrapper, twin, args)), the
+    tensors that differ across the slots stacked on a slot axis."""
+    nb = len(per_slot)
     results = {}
-    for name in BATCHED:
+    for name in names:
         fn, ref_fn, args, mask = _stack_case([c[name] for c in per_slot])
         out = fn(*args)
         ref = ref_fn(*args)
@@ -1706,6 +1757,9 @@ def batched_kernel_phase(ul_slots, dl_slots, gen, scen) -> dict:
             w = work(name, sl, _slot_of(out, b))
             b_bytes += w[0]
             b_ops += w[1]
+            if name in BATCHED_UL:
+                _bit_equal(_slot_of(out, b), fn(*per_slot[b][name][2]),
+                           f"{name} batch slot {b} vs its own launch")
         t_bytes, t_ops = b_bytes / MEM_BYTES_PER_S, b_ops / F32_OPS_PER_S
         # B = 1: the batched kernel's slot 0 against today's kernel
         one = fn(*(_slice_tree(a, m, slice(0, 1))
@@ -1718,9 +1772,34 @@ def batched_kernel_phase(ul_slots, dl_slots, gen, scen) -> dict:
             bound_ms=1e3 * max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=None)
-    print(f"batched K1-K15 at B = {nb} against their twins and at B = 1 "
+    print(f"batched {where} at B = {nb} against their twins and at B = 1 "
           f"against the unbatched kernels: ok", flush=True)
     return results
+
+
+def _bit_equal(got, ref, what: str) -> None:
+    """Two kernel outputs (tensors or tuples of them) equal bit for bit."""
+    if isinstance(ref, torch.Tensor):
+        if got.shape != ref.shape or not torch.equal(_bits(got), _bits(ref)):
+            raise AssertionError(f"{what}: not bit-equal")
+        return
+    for g, r in zip(got, ref):
+        _bit_equal(g, r, what)
+
+
+def conductor_batch_cases(ul_slots, dl_slots, gen, scen) -> list:
+    """Phase 7's per-slot cases of the batched K1-K15: K1-K11 on phase 2's
+    and 3's slots (each slot its own context and PRACH capture), K12-K15 on
+    the batch's conductor phases."""
+    nb = flagship.BATCH
+    prach_b = flagship.batch_prach_fd(ul_slots[0][1].device, SEED)
+    phases = scen["phases"]
+    return [{**flagship.kernel_cases(rx, ctx, gen, (prach_b[0][b],)),
+             **flagship.dl_kernel_cases(d),
+             **flagship.conductor_kernel_cases(
+                 phases[g]["rx"], (2 * g) % 20, gen)}
+            for b, ((_, rx, ctx), d, g) in enumerate(zip(
+                ul_slots[:nb], dl_slots[:nb], flagship.BATCH_PHASES))]
 
 
 # ---------------------------------------------------------------- phase 8
@@ -1779,13 +1858,15 @@ def edge_library(cases: dict) -> dict:
     return out
 
 
-def edge_conductor(slots: list, prach_in, rng, card) -> None:
+def edge_conductor(slots: list, prach_in, rng, card) -> dict:
     """The cell-edge slots' UL requests beside the flagship DL through the
     FAPI conductor: every slot through its phase's CUDA graph against the
     phase's eager program, a counted pass resolved RESOLVE_LAG behind
     (both TBs, UE C's ACK, the F3 and F4 payloads as sent, K18 and K19
-    launched), then two slots as one process_slot_batch against
-    process_slot."""
+    launched), then four slots as one process_slot_batch against
+    process_slot (K18 and K17 once, K19 once per PDU, nothing per slot)
+    and timed over N_TIMED_BATCHES graphed batches.  Returns the batch
+    rows' launches in one batch."""
     cond = SlotConductor(flagship.CELL)
     pay = flagship.dl_payloads(rng)
     n = len(slots)
@@ -1816,32 +1897,42 @@ def edge_conductor(slots: list, prach_in, rng, card) -> None:
           f"by CUDA events, {host_us:.1f} us on the host clock, launches "
           f"{counts}, card {card}", flush=True)
 
-    b_idx = (1, 2)
-    st_b = cond.stage_payloads([(dlr[i], txd[i]) for i in b_idx],
-                               stride=stride)
+    # B = 4 slots at the batch mode's phases (no SSB in their DL), each
+    # slot its own samples and the same PRACH capture
+    b_idx = flagship.BATCH_PHASES
+    batch = [(dlr[i], ulr[i]) for i in b_idx]
     rx_b = torch.stack([slots[i]["rx"] for i in b_idx])
     prach_b = (torch.stack([prach_in[0]] * len(b_idx)),)
-    batch = [(dlr[i], ulr[i]) for i in b_idx]
-    cond.process_slot_batch(batch, st_b, rx_b, prach_fd=prach_b)[1].resolve()
+
+    def stage():
+        return cond.stage_payloads([(dlr[i], txd[i]) for i in b_idx],
+                                   stride=stride)
+
+    def check(res, where):
+        for b, i in enumerate(b_idx):
+            flagship.check_edge_results(res[b], slots[i],
+                                        f"{where}, slot {b}")
+
+    st_b = stage()
+    tx_b, pend_b = cond.process_slot_batch(batch, st_b, rx_b,
+                                           prach_fd=prach_b)
+    mib = _last_graph(cond).nbytes >> 20
+    check(_batch_vs_slots(cond, batch, st_b, rx_b, prach_b, tx_b, pend_b,
+                          "cell-edge batch"), "cell-edge batch")
     torch.cuda.synchronize()
     kernels.reset_counts()
-    _, pend_b = cond.process_slot_batch(batch, st_b, rx_b, prach_fd=prach_b)
-    per_batch = {k: kernels.REGISTRY[k].launches for k in EDGE_KERNELS}
-    if per_batch != {"pusch_tp_demap": 2, "pucch_f3_demap": 4}:
-        raise AssertionError(f"cell-edge batch launches {per_batch}")
-    res_b = pend_b.resolve()
-    for b, i in enumerate(b_idx):
-        _, pend = cond.process_slot(dlr[i], ulr[i], st_b, b, rx_b[b],
-                                    prach_fd=(prach_b[0][b],))
-        torch.testing.assert_close(pend_b.scalars[b], pend.scalars,
-                                   rtol=2e-4, atol=2e-4)
-        if not torch.equal(pend_b.payload[b], pend.payload):
-            raise AssertionError(f"cell-edge batch slot {b}: payload differs")
-        convert.slot_results(pend.resolve(), res_b[b], rtol=2e-4)
-        flagship.check_edge_results(res_b[b], slots[i],
-                                    f"cell-edge batch slot {b}")
-    print(f"cell-edge batch of {len(b_idx)}: equal to process_slot slot by "
-          f"slot, launches per batch {per_batch}", flush=True)
+    _, pend_b = cond.process_slot_batch(batch, stage(), rx_b,
+                                        prach_fd=prach_b)
+    check(pend_b.resolve(), "counted cell-edge batch")
+    launches = batch_counts(EDGE_BATCH_LAUNCHES, "cell-edge batch")
+    print(f"cell-edge batch of {len(b_idx)} (slots {list(b_idx)}): equal to "
+          f"process_slot slot by slot, every TB, UCI and PRACH as sent; "
+          f"launches per batch {launches}, none per slot; memory reserved "
+          f"by its capture {mib} MiB", flush=True)
+    print(f"cell-edge batch: "
+          f"{_timed_batches(cond, batch, stage, rx_b, prach_b, check)}, "
+          f"card {card}", flush=True)
+    return launches
 
 
 def edge_phases(dev, gen, rng, card) -> tuple:
@@ -1892,8 +1983,11 @@ def edge_phases(dev, gen, rng, card) -> tuple:
     compare_ul(out, cpu)
     print("cell-edge slot (full result dict) vs plain twins on the CPU: ok",
           flush=True)
-    edge_conductor(slots[:NOF_SLOTS], prach_in, rng, card)
-    return results, launches
+    batch_launches = edge_conductor(slots[:NOF_SLOTS], prach_in, rng, card)
+    results.update(batched_kernel_phase(
+        EDGE_KERNELS, [flagship.edge_kernel_cases(slots[i], gen)
+                       for i in flagship.BATCH_PHASES], "K18-K19"))
+    return results, {**launches, **batch_launches}
 
 
 # --------------------------------------------------------------- phase 10
@@ -3117,6 +3211,65 @@ def split8_phase(dev, rng, card) -> tuple:
     return results, {k: launches[k] for k in SPLIT8_KERNELS}
 
 
+# --------------------------------------------------------------- phase 15
+
+def mu_batch_phase(dev, gen, rng, card) -> tuple:
+    """Phase 15: the two-UE slot in the slot-batch mode.  B = 4 two-UE
+    slots at one RI (``flagship.mu_batch``) beside the flagship DL of the
+    batch mode's phases through ``process_slot_batch``: each slot equal to
+    ``process_slot``, every TB, UCI field and PRACH detection as sent, K16
+    once per PUSCH and K17 once per batch (nothing per slot), us per slot
+    over N_TIMED_BATCHES graphed batches; then the batched K16 and K17
+    against their twins and their unbatched launches.  Returns (the
+    batched rows' results, their launches in one batch)."""
+    t0 = time.perf_counter()
+    slots = flagship.mu_batch(rng, gen, dev)
+    grp = flagship.BATCH_PHASES
+    cond = SlotConductor(flagship.CELL)
+    pay = flagship.dl_payloads(rng)
+    batch = [(flagship.dl_request(g),
+              flagship.mu_ul_request(g, flagship.MU_BATCH_RI)) for g in grp]
+    rx_b = torch.stack([s["rx"] for s in slots])
+    prach_b = (torch.stack([flagship.prach_fd(dev, SEED)[0]] * len(grp)),)
+
+    def stage():
+        return cond.stage_payloads([(d, flagship.tx_request(g, pay))
+                                    for g, (d, _) in zip(grp, batch)])
+
+    def check(res, where):
+        for b, s in enumerate(slots):
+            flagship.check_mu_results(res[b], s, f"{where}, slot {b}")
+
+    torch.cuda.synchronize()
+    print(f"two-UE batch transmitters: {len(slots)} slots at RI "
+          f"{flagship.MU_BATCH_RI} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    st = stage()
+    tx_b, pend_b = cond.process_slot_batch(batch, st, rx_b, prach_fd=prach_b)
+    mib = _last_graph(cond).nbytes >> 20
+    check(_batch_vs_slots(cond, batch, st, rx_b, prach_b, tx_b, pend_b,
+                          "two-UE batch"), "two-UE batch")
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    _, pend_b = cond.process_slot_batch(batch, stage(), rx_b,
+                                        prach_fd=prach_b)
+    check(pend_b.resolve(), "counted two-UE batch")
+    launches = batch_counts(MU_BATCH_LAUNCHES, "two-UE batch")
+    csi2 = flagship.CSI2_SIZES[flagship.MU_BATCH_RI]
+    print(f"two-UE batch of {len(grp)} (slots {list(grp)}, both PUSCHs MMSE, "
+          f"UE B with ACK, CSI1 and {csi2} CSI2 bits): equal to "
+          f"process_slot slot by slot, every TB, UCI field and PRACH as "
+          f"sent; launches per batch {launches}, none per slot; memory "
+          f"reserved by its capture {mib} MiB", flush=True)
+    print(f"two-UE batch: "
+          f"{_timed_batches(cond, batch, stage, rx_b, prach_b, check)}, "
+          f"card {card}", flush=True)
+    results = batched_kernel_phase(
+        MU_KERNELS, [flagship.mu_kernel_cases(s, gen) for s in slots],
+        "K16-K17")
+    return results, launches
+
+
 def _slot_of_dict(out: dict, c) -> dict:
     """Cell ``c`` of a multi-cell UL result dict (None: the whole of a
     single cell's), on the CPU."""
@@ -3156,7 +3309,9 @@ def main() -> int:
         dev, gen, np.random.default_rng(SEED + 5), card)
     graph_phase(scen, gen, card)
     batch_launches = batch_phase(scen, card)
-    batch_results = batched_kernel_phase(ul_slots, dl_slots, gen, scen)
+    batch_results = batched_kernel_phase(
+        BATCHED, conductor_batch_cases(ul_slots, dl_slots, gen, scen),
+        "K1-K15")
     multi_cell_phase(dev, gen, np.random.default_rng(SEED + 8), card)
     t9 = time.perf_counter()
     edge_results, edge_launches = edge_phases(
@@ -3188,9 +3343,15 @@ def main() -> int:
         dev, np.random.default_rng(SEED + 14), card)
     print(f"phase 14 (split-8 radio, UE-side list decoder): "
           f"{time.perf_counter() - t14:.1f} s", flush=True)
+    t15 = time.perf_counter()
+    mu_batch_results, mu_batch_launches = mu_batch_phase(
+        dev, gen, np.random.default_rng(SEED + 15), card)
+    print(f"phase 15 (two-UE batch): {time.perf_counter() - t15:.1f} s",
+          flush=True)
     results = {**ul_results, **dl_results, **uci_results, **mu_results,
                **batch_results, **edge_results, **gnb_results, **ofh_results,
-               **du_results, **alloc_results, **split8_results}
+               **du_results, **alloc_results, **split8_results,
+               **mu_batch_results}
     # K1-K11 as their own paths launched them (phases 2, 3), K12-K15 as the
     # conductor's slots did (phase 4, which launched every kernel), K16-K17
     # as the two-UE slot did (phase 5), the batched K1-K15 as one batch of
@@ -3199,10 +3360,16 @@ def main() -> int:
     # fronthaul round trip did (phase 11), K25-K27 as the DU-low's slots
     # through serve_phy did (phase 12), K28 as the UE side of the DU-low's
     # allocation slots did (phase 13), K29-K31 as phase 14's main path did
-    # (K32: the UE side of phase 10's gnb_sim run)
+    # (K32: the UE side of phase 10's gnb_sim run), the batched K18-K19 as
+    # one cell-edge batch of phase 9 did, the batched K16-K17 as one
+    # two-UE batch of phase 15 did
     launches = {**cond_launches, **ul_launches, **dl_launches,
                 **{k: mu_launches[k] for k in MU_KERNELS}, **batch_launches,
                 **{k: edge_launches[k] for k in EDGE_KERNELS},
+                **{f"{k}_batch": edge_launches[f"{k}_batch"]
+                   for k in EDGE_KERNELS},
+                **{f"{k}_batch": mu_batch_launches[f"{k}_batch"]
+                   for k in MU_KERNELS},
                 **gnb_launches, **ofh_launches, **du_launches,
                 **alloc_launches, **split8_launches}
     for name, r in results.items():

@@ -27,6 +27,13 @@
 // sum is kept in float64), despreads (F4: its occ_length bins), demaps and
 // applies the Gold sign at the symbol's place in the codeword.
 //
+// A slot axis (the slot-batch mode): blockIdx.z picks the slot (y is the
+// data symbol), whose grid, coefficients, noise, LLRs and symbols lie at
+// fixed strides; the plan (K18: with block_hop), the twiddles, the data
+// symbols and OCC (K19), the level table and the Gold bits are shared (the
+// scrambling c_init does not depend on the slot).  A slot is only an
+// offset: each slot's arithmetic and sum order are its unbatched launch's.
+//
 // Cost: the direct sum does M complex multiply-adds per output symbol, 8 M^2
 // operations per data symbol: at the cell-edge UE's M = 72 about 0.5 MFLOP
 // for 12 symbols (the launch dominates), at the cell's largest DFT-s-OFDM
@@ -49,7 +56,8 @@ template <int HALF>
 __global__ void __launch_bounds__(TILE) pusch_tp_demap_kernel(
     const float2* __restrict__ grid, const float2* __restrict__ coeffs,
     const int* __restrict__ plan, int nre, int P, int S, int K, int T,
-    int Ka, const float* __restrict__ noise, const int* __restrict__ block_hop,
+    int Ka, const float* __restrict__ noise, int H,
+    const int* __restrict__ block_hop,
     int M, const float2* __restrict__ twiddle, int mmse, int kind,
     const float* __restrict__ levels, float two_scale,
     const uint8_t* __restrict__ seq, float* __restrict__ llr,
@@ -59,6 +67,12 @@ __global__ void __launch_bounds__(TILE) pusch_tp_demap_kernel(
   float2* tw = smem + M;             // [M] twiddles
   __shared__ float red[TILE];
   const int blk = blockIdx.y;
+  const size_t b = blockIdx.z;                       // slot
+  grid += b * P * S * K;
+  coeffs += b * P * T * Ka;
+  noise += b * H * P;
+  llr += b * nre * (kind < 2 ? 1 : 2 * HALF);      // Qm bits per symbol
+  x_out += b * nre;
   const int* sym = plan;
   const int* sc = plan + nre;
   const int* col = plan + 2 * nre;
@@ -117,6 +131,12 @@ __global__ void __launch_bounds__(TILE) pucch_f3_demap_kernel(
   float2* tw = smem + M;
   __shared__ float red[TILE];
   const int i_sym = blockIdx.y;
+  const size_t b = blockIdx.z;                       // slot
+  const int m_data = M / occ_len;
+  grid += b * P * S * K;
+  coeffs += b * P * M;
+  noise_var += b * P;
+  llr += b * gridDim.y * m_data * (kind == 1 ? 1 : 2);
   const int l = data_syms[i_sym];
   float noise = 0.f;
   for (int p = 0; p < P; ++p) noise = __fadd_rn(noise, noise_var[p]);
@@ -138,7 +158,6 @@ __global__ void __launch_bounds__(TILE) pucch_f3_demap_kernel(
   }
   const float mean_e = __fdiv_rn(cta_sum(part, red), (float)M);
   const float nv = __fdiv_rn(noise, fmaxf(mean_e, 1e-12f));
-  const int m_data = M / occ_len;
   const int i = blockIdx.x * TILE + threadIdx.x;
   if (i >= m_data) return;
   float2 x;
@@ -174,7 +193,8 @@ template <int HALF>
 cudaError_t launch_tp(const dim3& blocks, size_t bytes, cudaStream_t st,
                       const float2* grid, const float2* coeffs,
                       const int* plan, int nre, int P, int S, int K, int T,
-                      int Ka, const float* noise, const int* block_hop, int M,
+                      int Ka, const float* noise, int H, const int* block_hop,
+                      int M,
                       const float2* twiddle, int mmse, int kind,
                       const float* levels, float two_scale,
                       const uint8_t* seq, float* llr, float2* x) {
@@ -182,8 +202,8 @@ cudaError_t launch_tp(const dim3& blocks, size_t bytes, cudaStream_t st,
   const cudaError_t err = opt_in(pusch_tp_demap_kernel<HALF>, bytes, granted);
   if (err != cudaSuccess) return err;
   pusch_tp_demap_kernel<HALF><<<blocks, TILE, bytes, st>>>(
-      grid, coeffs, plan, nre, P, S, K, T, Ka, noise, block_hop, M, twiddle,
-      mmse, kind, levels, two_scale, seq, llr, x);
+      grid, coeffs, plan, nre, P, S, K, T, Ka, noise, H, block_hop, M,
+      twiddle, mmse, kind, levels, two_scale, seq, llr, x);
   return cudaGetLastError();
 }
 
@@ -191,20 +211,21 @@ cudaError_t launch_tp(const dim3& blocks, size_t bytes, cudaStream_t st,
 
 extern "C" int srsran_pusch_tp_demap(void* grid, void* coeffs, void* plan,
                                      int nre, int P, int S, int K, int T,
-                                     int Ka, void* noise, void* block_hop,
-                                     int M, void* twiddle, int mmse,
-                                     int kind, int half, void* levels,
-                                     float two_scale, void* seq, void* llr,
-                                     void* x, void* stream) {
-  if (M < 1 || nre % M || kind < 0 || kind > 2)
+                                     int Ka, void* noise, int nhops,
+                                     void* block_hop, int M, void* twiddle,
+                                     int mmse, int kind, int half,
+                                     void* levels, float two_scale, void* seq,
+                                     void* llr, void* x, int nslots,
+                                     void* stream) {
+  if (M < 1 || nre % M || kind < 0 || kind > 2 || nhops < 1 || nslots < 1)
     return (int)cudaErrorInvalidValue;
-  const dim3 blocks((M + TILE - 1) / TILE, nre / M);
+  const dim3 blocks((M + TILE - 1) / TILE, nre / M, nslots);
   const size_t bytes = 2 * (size_t)M * sizeof(float2);
   cudaStream_t st = (cudaStream_t)stream;
 #define SRSRAN_TP_LAUNCH(H)                                                   \
   return (int)launch_tp<H>(                                                  \
       blocks, bytes, st, (const float2*)grid, (const float2*)coeffs,         \
-      (const int*)plan, nre, P, S, K, T, Ka, (const float*)noise,            \
+      (const int*)plan, nre, P, S, K, T, Ka, (const float*)noise, nhops,     \
       (const int*)block_hop, M, (const float2*)twiddle, mmse, kind,          \
       (const float*)levels, two_scale, (const uint8_t*)seq, (float*)llr,     \
       (float2*)x)
@@ -224,12 +245,12 @@ extern "C" int srsran_pucch_f3_demap(void* grid, int P, int S, int K,
                                      int occ_len, void* occ_conj,
                                      void* twiddle, int kind, void* levels,
                                      float two_scale, void* seq, void* llr,
-                                     void* stream) {
+                                     int nslots, void* stream) {
   if (M < 1 || occ_len < 1 || M % occ_len || n_data < 1 || kind < 1 ||
-      kind > 2)
+      kind > 2 || nslots < 1)
     return (int)cudaErrorInvalidValue;
   const int m_data = M / occ_len;
-  const dim3 blocks((m_data + TILE - 1) / TILE, n_data);
+  const dim3 blocks((m_data + TILE - 1) / TILE, n_data, nslots);
   const size_t bytes = 2 * (size_t)M * sizeof(float2);
   static size_t granted = 0;
   const cudaError_t err = opt_in(pucch_f3_demap_kernel<1>, bytes, granted);

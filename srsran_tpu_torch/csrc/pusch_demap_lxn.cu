@@ -24,6 +24,11 @@
 // and the Gold sign of K3 (pusch_demap.cuh), LLRs in codeword order
 // (RE-major, layer-minor) and x for the EVM.
 //
+// A slot axis (the slot-batch mode): blockIdx.y picks the slot, whose grid,
+// coefficients, noise variance, LLRs and symbols lie at fixed strides, as
+// in K3; the RE plan, the level table and the Gold bits are shared.  A
+// slot is only an offset: each slot's arithmetic is its unbatched launch's.
+//
 // Bounds on this card: memory -- per RE it reads P complex samples and
 // P*L complex coefficients and writes L*Qm f32 LLRs and L complex symbols;
 // at the 4-layer QAM64 UE of the two-UE slot (27,060 REs, 4 ports) about
@@ -162,11 +167,17 @@ template <int L, bool MMSE, int HALF>
 __global__ void pusch_demap_lxn_kernel(const DemapArgs a) {
   const int re = blockIdx.x * blockDim.x + threadIdx.x;
   if (re >= a.nre) return;
+  constexpr int QM = 2 * HALF;
+  const size_t b = blockIdx.y;                       // slot
+  const float2* grid = a.grid + b * a.P * a.S * a.K;
+  const float2* coeffs = a.coeffs + b * a.P * L * a.T * a.Ka;
+  float* llr = a.llr + b * a.nre * L * QM;
+  float2* x = a.x + b * a.nre * L;
   const int s = a.sym[re];
   const int k = a.sc[re];
   const int ka = k - a.sc_off;
   const int t = (a.T == 1) ? 0 : s;
-  const float nv = *a.nv_ptr;
+  const float nv = a.nv_ptr[b];
   float2 g[L][L];
   float2 z[L];
 #pragma unroll
@@ -176,11 +187,11 @@ __global__ void pusch_demap_lxn_kernel(const DemapArgs a) {
     for (int m = 0; m < L; ++m) g[l][m] = make_float2(0.f, 0.f);
   }
   for (int p = 0; p < a.P; ++p) {
-    const float2 y = a.grid[((size_t)p * a.S + s) * a.K + k];
+    const float2 y = grid[((size_t)p * a.S + s) * a.K + k];
     float2 h[L];
 #pragma unroll
     for (int l = 0; l < L; ++l)
-      h[l] = a.coeffs[(((size_t)p * L + l) * a.T + t) * a.Ka + ka];
+      h[l] = coeffs[(((size_t)p * L + l) * a.T + t) * a.Ka + ka];
 #pragma unroll
     for (int l = 0; l < L; ++l) {
       z[l] = cadd(z[l], cjmul(h[l], y));
@@ -191,20 +202,19 @@ __global__ void pusch_demap_lxn_kernel(const DemapArgs a) {
   float2 xs[L];
   float nvs[L];
   solve<L, MMSE>(g, z, nv, xs, nvs);
-  constexpr int QM = 2 * HALF;
 #pragma unroll
   for (int l = 0; l < L; ++l) {
     const int si = re * L + l;
-    a.x[si] = xs[l];
-    demap_axis<HALF>(xs[l].x, nvs[l], a.levels, a.seq, a.llr, si * QM, 0);
-    demap_axis<HALF>(xs[l].y, nvs[l], a.levels, a.seq, a.llr, si * QM, 1);
+    x[si] = xs[l];
+    demap_axis<HALF>(xs[l].x, nvs[l], a.levels, a.seq, llr, si * QM, 0);
+    demap_axis<HALF>(xs[l].y, nvs[l], a.levels, a.seq, llr, si * QM, 1);
   }
 }
 
 template <int L, bool MMSE>
-int launch(const DemapArgs& a, int half, cudaStream_t st) {
+int launch(const DemapArgs& a, int half, int nslots, cudaStream_t st) {
   const int threads = 128;
-  const int blocks = (a.nre + threads - 1) / threads;
+  const dim3 blocks((a.nre + threads - 1) / threads, nslots);
   switch (half) {
     case 1: pusch_demap_lxn_kernel<L, MMSE, 1><<<blocks, threads, 0, st>>>(a); break;
     case 2: pusch_demap_lxn_kernel<L, MMSE, 2><<<blocks, threads, 0, st>>>(a); break;
@@ -216,8 +226,10 @@ int launch(const DemapArgs& a, int half, cudaStream_t st) {
 }
 
 template <int L>
-int launch_method(const DemapArgs& a, int half, int mmse, cudaStream_t st) {
-  return mmse ? launch<L, true>(a, half, st) : launch<L, false>(a, half, st);
+int launch_method(const DemapArgs& a, int half, int mmse, int nslots,
+                  cudaStream_t st) {
+  return mmse ? launch<L, true>(a, half, nslots, st)
+              : launch<L, false>(a, half, nslots, st);
 }
 
 }  // namespace
@@ -227,7 +239,8 @@ extern "C" int srsran_pusch_demap_lxn(void* grid, void* coeffs, void* sym,
                                       int L, int T, int Ka, int sc_off,
                                       void* nv_ptr, void* levels, int half,
                                       int mmse, void* seq, void* llr, void* x,
-                                      void* stream) {
+                                      int nslots, void* stream) {
+  if (nslots < 1) return (int)cudaErrorInvalidValue;
   if (nre <= 0) return 0;
   const DemapArgs a{(const float2*)grid, (const float2*)coeffs,
                     (const int*)sym, (const int*)sc, nre, P, S, K, T, Ka,
@@ -235,10 +248,10 @@ extern "C" int srsran_pusch_demap_lxn(void* grid, void* coeffs, void* sym,
                     (const uint8_t*)seq, (float*)llr, (float2*)x};
   cudaStream_t st = (cudaStream_t)stream;
   switch (L) {
-    case 1: return launch_method<1>(a, half, mmse, st);
-    case 2: return launch_method<2>(a, half, mmse, st);
-    case 3: return launch_method<3>(a, half, mmse, st);
-    case 4: return launch_method<4>(a, half, mmse, st);
+    case 1: return launch_method<1>(a, half, mmse, nslots, st);
+    case 2: return launch_method<2>(a, half, mmse, nslots, st);
+    case 3: return launch_method<3>(a, half, mmse, nslots, st);
+    case 4: return launch_method<4>(a, half, mmse, nslots, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -14,6 +14,13 @@
 // c[src] ^ c[src - 1] = 1; 3 (a data bit under a punctured HARQ-ACK RE): 0.
 // The output holds ACK | CSI1 | CSI2 | data back to back, so the data part
 // goes to the rate dematcher and the UCI parts to their decoders as views.
+// A slot axis (the slot-batch mode) is more rows: blockIdx.y picks the slot,
+// whose codeword LLRs lie at a stride of E; the plan and the Gold bits are
+// shared (the scrambling c_init does not depend on the slot).  The output
+// is field-major -- each field's B rows back to back, ACK [B, n_ack] |
+// CSI1 [B, n_csi1] | CSI2 [B, n_csi2] | data [B, n_data] -- so every field
+// is a contiguous [B, n] view for its decoder (with one slot this is the
+// unbatched layout).
 // The plan (src int32, cls int8) depends only on the PUSCH geometry and UCI
 // sizes, not on c_init, and is uploaded once per configuration.  A gather and
 // a sign flip: bit-exact against the twin.
@@ -28,13 +35,29 @@
 
 namespace {
 
+struct Fields {
+  int end[3];                        // ends of the ACK, CSI1 and CSI2 bits
+};
+
 __global__ void ulsch_demux_kernel(const float* __restrict__ llr,
                                    const int* __restrict__ src,
                                    const int8_t* __restrict__ cls,
                                    const uint8_t* __restrict__ seq, int n,
+                                   int e, Fields f,
                                    float* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  const int b = blockIdx.y;                          // slot
+  const int nslots = gridDim.y;
+  int base = 0, end = n;                             // output bit i's field
+  for (int j = 0; j < 3; ++j) {
+    if (i < f.end[j]) {
+      end = f.end[j];
+      break;
+    }
+    base = f.end[j];
+  }
+  llr += (size_t)b * e;
   const int s = src[i];
   const int c = cls[i];
   float v = llr[s];
@@ -44,18 +67,24 @@ __global__ void ulsch_demux_kernel(const float* __restrict__ llr,
     v = -v;
   else if (c == 2 && (seq[s] ^ seq[s - 1]))
     v = -v;
-  out[i] = v;
+  out[(size_t)base * nslots + (size_t)b * (end - base) + (i - base)] = v;
 }
 
 }  // namespace
 
 extern "C" int srsran_ulsch_demux(void* llr, void* src, void* cls, void* seq,
-                                  int n, void* out, void* stream) {
+                                  int n, int e, int n_ack, int n_csi1,
+                                  int n_csi2, void* out, int nslots,
+                                  void* stream) {
+  if (nslots < 1 || n_ack < 0 || n_csi1 < 0 || n_csi2 < 0 ||
+      n_ack + n_csi1 + n_csi2 > n)
+    return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
   const int threads = 256;
-  const int blocks = (n + threads - 1) / threads;
+  const dim3 blocks((n + threads - 1) / threads, nslots);
+  const Fields f{{n_ack, n_ack + n_csi1, n_ack + n_csi1 + n_csi2}};
   ulsch_demux_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const float*)llr, (const int*)src, (const int8_t*)cls,
-      (const uint8_t*)seq, n, (float*)out);
+      (const uint8_t*)seq, n, e, f, (float*)out);
   return (int)cudaGetLastError();
 }

@@ -818,8 +818,8 @@ class SlotConductor:
     def process_slot_batch(self, slots, staged: StagedPayloads, rx_batch,
                            prach_fd=()):
         """The slot-batch throughput mode: B same-phase slots in one
-        program (one CUDA graph on the card), K1-K15 launched once for all
-        B (K16-K19 of the two-UE and cell-edge plans once per slot).
+        program (one CUDA graph on the card), every kernel of the plan
+        (K1-K19) launched once for all B.
 
         slots: (dl_tti, ul_tti[, ul_dci]) tuples sharing the normalized DL
         and UL plans and the subframe slot index; slot i's payloads staged

@@ -37,6 +37,9 @@ ports, 273 RB, a 4096-point FFT and 30 kHz SCS.
   and 2 HARQ-ACK bits on its PUSCH, beside a PUCCH F3 (pi/2-BPSK, 22 UCI
   bits: polar) and a PUCCH F4 (OCC 2, 8 bits: short block), with the
   flagship's F1, PRACH and SRS.
+* Two-UE and cell-edge batches: those UL slots (the two-UE one at one RI,
+  :data:`MU_BATCH_RI`) at the slot-batch mode's phases 1-4 beside the
+  flagship DL, B = 4 through ``process_slot_batch``.
 
 * DU-low (split 6): the DL slots a split-6 MAC sends the port's
   apps/du_low.py -- the flagship PDSCH with PT-RS beside a 4-port
@@ -77,6 +80,7 @@ from .phy.slot_programs import (CellConfig, dl_slot_fn, dl_slot_fn_samples,
                                 ul_slot_fn)
 from .phy.upper import (csi_rs, dmrs, pdcch, pdsch, prach, ptrs_prs, pucch,
                         pusch, sch_decoder, srs, ssb, ue_tx)
+from .device import const
 from .ofh import compression as bfp
 from .phy.lower import amplitude_control, cfo, prach_demod
 from .ran import mcs_tbs, polar_params
@@ -677,11 +681,14 @@ def mu_program(ri: int, sc: MuScenario = MU):
     return ul_slot_fn(sc.cell, sc.plan(ri))
 
 
-def mu_uci(rng: np.random.Generator, sc: MuScenario = MU) -> dict:
-    """One slot's UCI of UE B: HARQ-ACK, CSI part 1 (bit 0 the RI) and the
-    part 2 that the RI sizes."""
+def mu_uci(rng: np.random.Generator, sc: MuScenario = MU,
+           ri: int | None = None) -> dict:
+    """One slot's UCI of UE B: HARQ-ACK, CSI part 1 (bit 0 the RI, set to
+    ``ri`` where given) and the part 2 that the RI sizes."""
     u = sc.pusch_b.uci
     csi1 = rng.integers(0, 2, u.o_csi1).astype(np.int8)
+    if ri is not None:
+        csi1[0] = ri
     ri = int(csi1[0])
     return dict(ri=ri, ack=rng.integers(0, 2, u.o_ack).astype(np.int8),
                 csi1=csi1,
@@ -743,20 +750,24 @@ def mu_rx(sif: int, tb_a: torch.Tensor, tb_b: torch.Tensor, uci: dict,
                             generator=gen) * sigma2.sqrt()
 
 
+def mu_slot(i: int, rng: np.random.Generator, gen: torch.Generator,
+            device, sc: MuScenario = MU, ri: int | None = None) -> dict:
+    """Two-UE slot ``i`` (slot point (1, 2i)) as a dict: ``tb_a``, ``tb_b``
+    (int8 payloads), ``uci`` (:func:`mu_uci`, its RI ``ri`` where given),
+    ``rx`` (samples) and ``ctx``, all on ``device``."""
+    tb_a = _up(rng.integers(0, 2, sc.pusch_a.tbs).astype(np.int8), device)
+    tb_b = _up(rng.integers(0, 2, sc.pusch_b.tbs).astype(np.int8), device)
+    uci = mu_uci(rng, sc, ri)
+    return dict(tb_a=tb_a, tb_b=tb_b, uci=uci,
+                rx=mu_rx((2 * i) % 20, tb_a, tb_b, uci, gen, sc),
+                ctx=mu_context(i, device, sc))
+
+
 def make_mu_slots(n: int, rng: np.random.Generator, gen: torch.Generator,
                   device, sc: MuScenario = MU) -> list:
-    """``n`` two-UE slots, each a dict: ``tb_a``, ``tb_b`` (int8 payloads),
-    ``uci`` (:func:`mu_uci`), ``rx`` (samples) and ``ctx``, all on
-    ``device``; slot i is slot point (1, 2i), with fresh payloads and UCI."""
-    slots = []
-    for i in range(n):
-        tb_a = _up(rng.integers(0, 2, sc.pusch_a.tbs).astype(np.int8), device)
-        tb_b = _up(rng.integers(0, 2, sc.pusch_b.tbs).astype(np.int8), device)
-        uci = mu_uci(rng, sc)
-        slots.append(dict(tb_a=tb_a, tb_b=tb_b, uci=uci,
-                          rx=mu_rx((2 * i) % 20, tb_a, tb_b, uci, gen, sc),
-                          ctx=mu_context(i, device, sc)))
-    return slots
+    """``n`` two-UE slots (:func:`mu_slot`): slot i is slot point (1, 2i),
+    with fresh payloads and UCI."""
+    return [mu_slot(i, rng, gen, device, sc) for i in range(n)]
 
 
 def mu_soft_buffers(device, sc: MuScenario = MU) -> tuple:
@@ -917,6 +928,21 @@ def batch_prach_fd(device, seed: int = 0) -> tuple:
 def batch_preambles(b: int) -> tuple:
     """The PRACH preambles slot ``b`` of the batch must report."""
     return () if b == BATCH_NOISE_SLOT else (PRACH_PREAMBLE,)
+
+
+# The two-UE and cell-edge UL slots in the same batch mode: B = 4 slots at
+# BATCH_PHASES' slot points beside the flagship DL of those phases, each
+# slot its own payloads, UCI and samples.  A batch shares one normalized
+# plan, so the two-UE batch's slots share UE B's RI (its part-2 size), as a
+# MAC groups them.
+MU_BATCH_RI = 1
+
+
+def mu_batch(rng: np.random.Generator, gen: torch.Generator, device,
+             sc: MuScenario = MU, ri: int = MU_BATCH_RI) -> list:
+    """The two-UE batch's slots: :func:`mu_slot` at each of BATCH_PHASES,
+    every slot with RI ``ri``."""
+    return [mu_slot(i, rng, gen, device, sc, ri) for i in BATCH_PHASES]
 
 
 # ------------------------------------------------------------ multi-cell
@@ -1094,20 +1120,24 @@ def edge_rx(sif: int, tb_a: torch.Tensor, tb_c: torch.Tensor, uci: dict,
                             generator=gen) * sigma2.sqrt()
 
 
+def edge_slot(i: int, rng: np.random.Generator, gen: torch.Generator,
+              device, sc: EdgeScenario = EDGE) -> dict:
+    """Cell-edge slot ``i`` (slot point (1, 2i)) as a dict: ``tb_a``,
+    ``tb_c`` (int8 payloads), ``uci`` (:func:`edge_uci`), ``rx`` (samples)
+    and ``ctx``, all on ``device``."""
+    tb_a = _up(rng.integers(0, 2, sc.pusch_a.tbs).astype(np.int8), device)
+    tb_c = _up(rng.integers(0, 2, sc.pusch_c.tbs).astype(np.int8), device)
+    uci = edge_uci(rng, sc)
+    return dict(tb_a=tb_a, tb_c=tb_c, uci=uci,
+                rx=edge_rx((2 * i) % 20, tb_a, tb_c, uci, gen, sc),
+                ctx=edge_context(i, device, sc))
+
+
 def make_edge_slots(n: int, rng: np.random.Generator, gen: torch.Generator,
                     device, sc: EdgeScenario = EDGE) -> list:
-    """``n`` cell-edge slots, each a dict: ``tb_a``, ``tb_c`` (int8
-    payloads), ``uci`` (:func:`edge_uci`), ``rx`` (samples) and ``ctx``,
-    all on ``device``; slot i is slot point (1, 2i)."""
-    slots = []
-    for i in range(n):
-        tb_a = _up(rng.integers(0, 2, sc.pusch_a.tbs).astype(np.int8), device)
-        tb_c = _up(rng.integers(0, 2, sc.pusch_c.tbs).astype(np.int8), device)
-        uci = edge_uci(rng, sc)
-        slots.append(dict(tb_a=tb_a, tb_c=tb_c, uci=uci,
-                          rx=edge_rx((2 * i) % 20, tb_a, tb_c, uci, gen, sc),
-                          ctx=edge_context(i, device, sc)))
-    return slots
+    """``n`` cell-edge slots (:func:`edge_slot`): slot i is slot point (1,
+    2i)."""
+    return [edge_slot(i, rng, gen, device, sc) for i in range(n)]
 
 
 def edge_soft_buffers(device, sc: EdgeScenario = EDGE) -> tuple:
@@ -1225,10 +1255,10 @@ def edge_kernel_cases(slot: dict, gen: torch.Generator,
     key = pusch._tp_key(cfg)
     c_init = (cfg.rnti << 15) + cfg.n_id
     k18 = (grid, torch.cat([e.coeffs for e in ests], dim=-1),
-           _up(pusch.tp_plan(key, 0), dev),
+           const(pusch.tp_plan, key, 0, device=dev),
            torch.stack([e.noise_var for e in ests]),
-           _up(pusch.tp_plan(key, 1), dev), 12 * cfg.rb_count, c_init,
-           cfg.modulation, cfg.equalizer)
+           const(pusch.tp_plan, key, 1, device=dev), 12 * cfg.rb_count,
+           c_init, cfg.modulation, cfg.equalizer)
     wide = widest_tp(sc)
     m = 12 * wide.rb_count
     h = torch.complex(torch.randn((cell.nof_ports, 1, 1, m), device=dev,
@@ -1236,10 +1266,10 @@ def edge_kernel_cases(slot: dict, gen: torch.Generator,
                       torch.randn((cell.nof_ports, 1, 1, m), device=dev,
                                   generator=gen))
     wkey = pusch._tp_key(wide)
-    k18_wide = (grid, h, _up(pusch.tp_plan(wkey, 0), dev),
+    k18_wide = (grid, h, const(pusch.tp_plan, wkey, 0, device=dev),
                 torch.full((1, cell.nof_ports), 0.1, device=dev),
-                _up(pusch.tp_plan(wkey, 1), dev), m, c_init, wide.modulation,
-                wide.equalizer)
+                const(pusch.tp_plan, wkey, 1, device=dev), m, c_init,
+                wide.modulation, wide.equalizer)
     cases = {
         "pusch_tp_demap": (ul_demap.tp_equalize_demap_descramble,
                            ul_demap.tp_equalize_demap_descramble_ref, k18),

@@ -74,8 +74,8 @@ SIGNATURES = {
     "srsran_pusch_demap": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                            _P, _P, _I, _P, _P, _P, _I, _P],
     "srsran_pusch_demap_lxn": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                               _P, _P, _I, _I, _P, _P, _P, _P],
-    "srsran_ulsch_demux": [_P, _P, _P, _P, _I, _P, _P],
+                               _P, _P, _I, _I, _P, _P, _P, _I, _P],
+    "srsran_ulsch_demux": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P],
     "srsran_ofdm_window": [_P, _P, _P, _I, _I, _I, _I, _P],
     "srsran_ofdm_bins_to_grid": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "srsran_dlsch_encode": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -104,10 +104,10 @@ SIGNATURES = {
     "srsran_short_block_detect": [_P, _I, _I, _I, _I, _P, _P, _P, _P],
     "srsran_polar_decode": [_P, _I, _I, _I, _P, _P, _I, _P, _I, _I, _I, _I,
                             _P, _P, _P],
-    "srsran_pusch_tp_demap": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I,
-                              _P, _I, _I, _I, _P, _F, _P, _P, _P, _P],
+    "srsran_pusch_tp_demap": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P,
+                              _I, _P, _I, _I, _I, _P, _F, _P, _P, _P, _I, _P],
     "srsran_pucch_f3_demap": [_P, _I, _I, _I, _P, _P, _I, _I, _P, _I, _I, _P,
-                              _P, _I, _P, _F, _P, _P, _P],
+                              _P, _I, _P, _F, _P, _P, _I, _P],
     "srsran_tdl_channel": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                            _D, _P, _P],
     "srsran_prach_demod": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],

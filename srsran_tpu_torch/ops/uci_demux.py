@@ -9,7 +9,9 @@ plain PyTorch.  On CUDA tensors :func:`demux` runs it as one gather,
 csrc/ulsch_demux.cu, over a host plan made once per configuration by
 :func:`_plan` from ops/ulsch_demux.py (the placement walk of TS38.212
 §6.2.7).  Both return the four fields (ACK, CSI1, CSI2, data), each a 1-D
-f32 tensor; the kernel's are views of one buffer.
+f32 tensor; the kernel's are views of one buffer.  A slot axis on the LLRs
+(the slot-batch mode) gives [B, n] fields from one launch (counted on
+K17's ``_batch`` row), each a contiguous view; the twin runs slot by slot.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..device import const, is_cuda
+from ..device import const, is_cuda, stack_slots
 from ..kernels import _build
 from .gold import gold_sequence
 from .ulsch_demux import (DemuxConfig, build_class_map, field_positions,
@@ -30,6 +32,7 @@ KERNEL = kernels.register(kernels.Kernel(
     name="ulsch_demux", route="cuda",
     source="srsran_tpu_torch/csrc/ulsch_demux.cu",
     replaces="srsran_tpu/phy/upper/pusch.py:312"))
+KERNEL_BATCH = kernels.batched(KERNEL)
 
 NORMAL, X, Y, PUNCTURED = 0, 1, 2, 3
 
@@ -112,7 +115,11 @@ def _repair_placeholders(field: torch.Tensor, cfg: DemuxConfig, name: str,
 
 def demux_ref(llr: torch.Tensor, cfg: DemuxConfig, o_ack: int, o_csi1: int,
               c_init: int) -> tuple:
-    """Plain twin of :func:`demux`, written as the JAX package's gathers."""
+    """Plain twin of :func:`demux`, written as the JAX package's gathers
+    (a slot axis runs slot by slot)."""
+    if llr.ndim == 2:
+        return stack_slots([demux_ref(x, cfg, o_ack, o_csi1, c_init)
+                            for x in llr])
     dev = llr.device
     llr_re = llr.reshape(-1, cfg.qm * cfg.nof_layers)
 
@@ -135,22 +142,29 @@ def demux(llr: torch.Tensor, cfg: DemuxConfig, o_ack: int, o_csi1: int,
           c_init: int) -> tuple:
     """Split descrambled codeword LLRs f32 [G] into (ACK, CSI1, CSI2, data)
     LLRs for the PUSCH geometry ``cfg`` (pusch.demux_plan) with ``o_ack``
-    HARQ-ACK and ``o_csi1`` CSI part-1 bits, scrambled with ``c_init``."""
+    HARQ-ACK and ``o_csi1`` CSI part-1 bits, scrambled with ``c_init``.
+    B slots at once: LLRs [B, G] give four [B, n] fields, in one launch."""
     if not is_cuda(llr):
         return demux_ref(llr, cfg, o_ack, o_csi1, c_init)
     g = len(build_class_map(cfg)) * cfg.qm * cfg.nof_layers
-    if llr.dtype != torch.float32 or llr.shape != (g,):
-        raise ValueError(f"llr must be float32 [{g}], got {llr.dtype} "
+    lead = tuple(llr.shape[:-1])
+    if (llr.dtype != torch.float32 or llr.ndim not in (1, 2)
+            or llr.shape[-1] != g):
+        raise ValueError(f"llr must be float32 [(B,) {g}], got {llr.dtype} "
                          f"{tuple(llr.shape)}")
     dev = llr.device
+    nb = lead[0] if lead else 1
     src = const(_plan, cfg, o_ack, o_csi1, 0, device=dev)
     cls = const(_plan, cfg, o_ack, o_csi1, 1, device=dev)
     sizes = field_sizes(cfg)
     seq = gold_sequence(c_init, g, device=dev)
     llr = llr.contiguous()
-    out = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    out = torch.empty(nb * sum(sizes), dtype=torch.float32, device=dev)
     _build.check(_build.load().srsran_ulsch_demux(
         _build.ptr(llr), _build.ptr(src), _build.ptr(cls), _build.ptr(seq),
-        out.shape[0], _build.ptr(out), _build.stream_of(llr)), "ulsch_demux")
-    KERNEL.count()
-    return tuple(torch.split(out, sizes))
+        sum(sizes), g, *sizes[:3], _build.ptr(out), nb,
+        _build.stream_of(llr)), "ulsch_demux")
+    (KERNEL_BATCH if lead else KERNEL).count()
+    # field-major: each field's rows back to back
+    return tuple(f.view(lead + (n,)) for f, n in zip(
+        torch.split(out, [nb * n for n in sizes]), sizes))

@@ -24,9 +24,10 @@ estimates sit side by side on the subcarrier axis and a per-RE column plan
 picks each RE's.
 
 A leading slot axis on the grid, the coefficients and the noise variance
-(the slot-batch mode) runs K3 once for every slot; K16 runs once per slot
-(its batched form is still to come, ROADMAP §2 item 12), and the twin runs
-slot by slot.  The RE plan and the Gold bits are shared.
+(the slot-batch mode) runs K3, K16 and K18 once for all slots (each
+kernel's ``_batch`` row counts it), and the twins run slot by slot.  The
+RE plan (K18: with the block hops), the twiddles and the Gold bits are
+shared.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..device import const, is_cuda
+from ..device import const, is_cuda, stack_slots
 from ..kernels import _build
 from .equalizer import equalize
 from .gold import gold_sequence
@@ -53,10 +54,12 @@ KERNEL_LXN = kernels.register(kernels.Kernel(
     source="srsran_tpu_torch/csrc/pusch_demap_lxn.cu",
     replaces="srsran_tpu/ops/equalizer.py:83"))
 KERNEL_BATCH = kernels.batched(KERNEL)
+KERNEL_LXN_BATCH = kernels.batched(KERNEL_LXN)
 KERNEL_TP = kernels.register(kernels.Kernel(
     name="pusch_tp_demap", route="cuda",
     source="srsran_tpu_torch/csrc/dft_s_ofdm.cu",
     replaces="srsran_tpu/ops/transform_precode.py:30"))
+KERNEL_TP_BATCH = kernels.batched(KERNEL_TP)
 
 
 def gather_re(grid: torch.Tensor, coeffs: torch.Tensor, sym_idx: torch.Tensor,
@@ -80,22 +83,17 @@ def gather_equalize(grid, coeffs, sym_idx, sc_idx, sc_off, noise_var,
     return equalize(y, h, noise_var.expand(y.shape[:1]), nof_layers, method)
 
 
-def _per_slot(fn, grid, coeffs, sym_idx, sc_idx, sc_off, noise_var, *rest):
-    """fn over each slot of a slot axis, its (llr, x) stacked."""
-    outs = [fn(grid[b], coeffs[b], sym_idx, sc_idx, sc_off, noise_var[b],
-               *rest) for b in range(grid.shape[0])]
-    return tuple(torch.stack(o) for o in zip(*outs))
-
-
 def equalize_demap_descramble_ref(grid, coeffs, sym_idx, sc_idx, sc_off,
                                   noise_var, c_init, modulation, nof_layers,
                                   method: str = "zf", advance: int = 0):
     """Plain twin of :func:`equalize_demap_descramble` and
-    :func:`equalize_demap_descramble_lxn`."""
+    :func:`equalize_demap_descramble_lxn` (a slot axis runs slot by
+    slot)."""
     if grid.ndim == 4:
-        return _per_slot(equalize_demap_descramble_ref, grid, coeffs, sym_idx,
-                         sc_idx, sc_off, noise_var, c_init, modulation,
-                         nof_layers, method, advance)
+        return stack_slots([equalize_demap_descramble_ref(
+            grid[b], coeffs[b], sym_idx, sc_idx, sc_off, noise_var[b], c_init,
+            modulation, nof_layers, method, advance)
+            for b in range(grid.shape[0])])
     x, out_nv = gather_equalize(grid, coeffs, sym_idx, sc_idx, sc_off,
                                 noise_var, nof_layers, method)
     llr = demodulate(x.reshape(-1)[None], out_nv.reshape(-1)[None],
@@ -119,12 +117,11 @@ def _check_args(grid, coeffs, noise_var, modulation, nof_layers):
 
 
 def _launch(entry, extra: tuple, grid, coeffs, sym_idx, sc_idx, sc_off,
-            noise_var, c_init, modulation, nof_layers, advance: int = 0,
-            slots: tuple = ()):
+            noise_var, c_init, modulation, nof_layers, advance: int = 0):
     """Launch K3 or K16 (same inputs and outputs; K16 takes the method
-    flag in ``extra``, K3 the slot count in ``slots``).  Returns (llr, x),
-    with the grid's slot axis (K3 only) in front.  The RE plan is int32, as
-    the PUSCH uploads it; the Gold bits start ``advance`` bits into the
+    flag in ``extra``), once for all slots of a slot axis.  Returns (llr,
+    x), with the grid's slot axis in front.  The RE plan is int32, as the
+    PUSCH uploads it; the Gold bits start ``advance`` bits into the
     codeword's sequence (the second hop of a hopping PUSCH descrambles
     from where the first ended)."""
     qm = BITS_PER_SYMBOL[modulation]
@@ -148,8 +145,8 @@ def _launch(entry, extra: tuple, grid, coeffs, sym_idx, sc_idx, sc_off,
         _build.ptr(g), _build.ptr(h), _build.ptr(sym_idx.contiguous()),
         _build.ptr(sc_idx.contiguous()), nre, p, s, k, nof_layers, t, ka,
         sc_off, _build.ptr(nv), _build.ptr(levels), qm // 2, *extra,
-        _build.ptr(seq), _build.ptr(llr), _build.ptr(x), *slots,
-        _build.stream_of(grid)), entry.__name__)
+        _build.ptr(seq), _build.ptr(llr), _build.ptr(x),
+        lead[0] if lead else 1, _build.stream_of(grid)), entry.__name__)
     return llr, x
 
 
@@ -168,7 +165,7 @@ def equalize_demap_descramble(grid: torch.Tensor, coeffs: torch.Tensor,
     symbols complex64 [RE, L]).  With a slot axis -- grid
     [B, P, S, K], coeffs [B, P, L, T, Ka], noise_var [B] -- the outputs
     are [B, RE*L*Qm] and [B, RE, L].  On the card: K3 for ZF with 1-2
-    layers (one launch for all slots), K16 otherwise.
+    layers, K16 otherwise, either one launch for all slots.
     """
     args = (grid, coeffs, sym_idx, sc_idx, sc_off, noise_var, c_init,
             modulation, nof_layers)
@@ -176,14 +173,9 @@ def equalize_demap_descramble(grid: torch.Tensor, coeffs: torch.Tensor,
         return equalize_demap_descramble_ref(*args, method, advance)
     if method == "zf" and nof_layers <= 2:
         _check_args(grid, coeffs, noise_var, modulation, nof_layers)
-        slots = grid.shape[0] if grid.ndim == 4 else 1
-        out = _launch(_build.load().srsran_pusch_demap, (), *args, advance,
-                      slots=(slots,))
+        out = _launch(_build.load().srsran_pusch_demap, (), *args, advance)
         (KERNEL_BATCH if grid.ndim == 4 else KERNEL).count()
         return out
-    if grid.ndim == 4:
-        return _per_slot(equalize_demap_descramble_lxn, *args, method,
-                         advance)
     return equalize_demap_descramble_lxn(*args, method, advance)
 
 
@@ -202,11 +194,9 @@ def equalize_demap_descramble_lxn(grid: torch.Tensor, coeffs: torch.Tensor,
     if method not in ("zf", "mmse"):
         raise ValueError(f"equalizer {method!r}")
     _check_args(grid, coeffs, noise_var, modulation, nof_layers)
-    if grid.ndim != 3:
-        raise ValueError("K16 takes one slot's grid [P, S, K]")
     out = _launch(_build.load().srsran_pusch_demap_lxn,
                   (int(method == "mmse"),), *args, advance)
-    KERNEL_LXN.count()
+    (KERNEL_LXN_BATCH if grid.ndim == 4 else KERNEL_LXN).count()
     return out
 
 
@@ -218,12 +208,11 @@ def tp_equalize_demap_descramble_ref(grid, coeffs, plan, noise_var,
     """Plain twin of :func:`tp_equalize_demap_descramble`: the JAX
     package's per-hop 1 x N equalizer, then per block of ``m_sc`` REs the
     unitary IDFT and the mean post-equalizer noise, then the demap over the
-    whole codeword and the descramble."""
+    whole codeword and the descramble (a slot axis runs slot by slot)."""
     if grid.ndim == 4:
-        outs = [tp_equalize_demap_descramble_ref(
+        return stack_slots([tp_equalize_demap_descramble_ref(
             grid[b], coeffs[b], plan, noise_var[b], block_hop, m_sc, c_init,
-            modulation, method) for b in range(grid.shape[0])]
-        return tuple(torch.stack(o) for o in zip(*outs))
+            modulation, method) for b in range(grid.shape[0])])
     sym, sc, col = plan[0], plan[1], plan[2]
     y = grid[:, sym, sc].T                                   # [RE, P]
     h = coeffs[:, 0, 0, col] if coeffs.shape[2] == 1 else coeffs[:, 0, sym, col]
@@ -266,35 +255,35 @@ def tp_equalize_demap_descramble(grid: torch.Tensor, coeffs: torch.Tensor,
     data symbol); noise_var f32 [H, P]: each hop's estimator noise;
     block_hop int32 [blocks]: the hop of each block; method "zf" or "mmse".
     Returns (descrambled LLRs f32 [RE * Qm], the IDFT's symbols complex64
-    [RE, 1]).  A slot axis on grid, coeffs and noise_var (the slot-batch
-    mode) runs K18 once per slot.  On the card: K18.
+    [RE, 1]).  With a slot axis -- grid [B, P, S, K], coeffs [B, P, 1, T,
+    Ka], noise_var [B, H, P] (the slot-batch mode) -- the outputs are
+    [B, RE * Qm] and [B, RE, 1].  On the card: K18, one launch for all
+    slots.
     """
     args = (grid, coeffs, plan, noise_var, block_hop, m_sc, c_init,
             modulation, method)
     if not is_cuda(grid, coeffs, plan, noise_var, block_hop):
         return tp_equalize_demap_descramble_ref(*args)
-    if grid.ndim == 4:
-        outs = [tp_equalize_demap_descramble(
-            grid[b], coeffs[b], plan, noise_var[b], block_hop, m_sc, c_init,
-            modulation, method) for b in range(grid.shape[0])]
-        return tuple(torch.stack(o) for o in zip(*outs))
     if method not in ("zf", "mmse"):
         raise ValueError(f"equalizer {method!r}")
     if grid.dtype != torch.complex64 or coeffs.dtype != torch.complex64:
         raise ValueError("grid and coeffs must be complex64")
-    p, s, k = grid.shape
-    if grid.ndim != 3 or coeffs.ndim != 4 or coeffs.shape[:2] != (p, 1):
-        raise ValueError(f"grid [P, S, K] and coeffs [P, 1, T, Ka], got "
-                         f"{tuple(grid.shape)} and {tuple(coeffs.shape)}")
+    lead = tuple(grid.shape[:-3])
+    p, s, k = grid.shape[-3:]
+    if (grid.ndim not in (3, 4) or coeffs.ndim != len(lead) + 4
+            or coeffs.shape[:-2] != lead + (p, 1)):
+        raise ValueError(f"grid [(B,) P, S, K] and coeffs [(B,) P, 1, T, "
+                         f"Ka], got {tuple(grid.shape)} and "
+                         f"{tuple(coeffs.shape)}")
     nre = plan.shape[-1]
     if (plan.dtype != torch.int32 or plan.shape != (3, nre)
             or nre % m_sc or block_hop.dtype != torch.int32
             or block_hop.shape != (nre // m_sc,)):
         raise ValueError(f"plan must be int32 [3, RE] with RE a multiple of "
                          f"{m_sc}, block_hop int32 [RE / {m_sc}]")
-    if noise_var.dtype != torch.float32 or noise_var.ndim != 2 \
-            or noise_var.shape[1] != p:
-        raise ValueError(f"noise_var must be float32 [H, {p}]")
+    if (noise_var.dtype != torch.float32 or noise_var.ndim != len(lead) + 2
+            or noise_var.shape[:-2] != lead or noise_var.shape[-1] != p):
+        raise ValueError(f"noise_var must be float32 [(B,) H, {p}]")
     dev = grid.device
     qm = BITS_PER_SYMBOL[modulation]
     kind, half, levels, two_scale = demap_tables(modulation, dev)
@@ -303,14 +292,15 @@ def tp_equalize_demap_descramble(grid: torch.Tensor, coeffs: torch.Tensor,
     # the kernel's inputs held in locals until it is enqueued
     grid, coeffs = grid.contiguous(), coeffs.contiguous()
     plan, noise_var = plan.contiguous(), noise_var.contiguous()
-    llr = torch.empty((nre * qm,), dtype=torch.float32, device=dev)
-    x = torch.empty((nre, 1), dtype=torch.complex64, device=dev)
+    llr = torch.empty(lead + (nre * qm,), dtype=torch.float32, device=dev)
+    x = torch.empty(lead + (nre, 1), dtype=torch.complex64, device=dev)
     _build.check(_build.load().srsran_pusch_tp_demap(
         _build.ptr(grid), _build.ptr(coeffs),
-        _build.ptr(plan), nre, p, s, k, coeffs.shape[2],
-        coeffs.shape[3], _build.ptr(noise_var), _build.ptr(block_hop),
-        m_sc, _build.ptr(tw), int(method == "mmse"), kind, half,
-        _build.ptr(levels), two_scale, _build.ptr(seq), _build.ptr(llr),
-        _build.ptr(x), _build.stream_of(grid)), "pusch_tp_demap")
-    KERNEL_TP.count()
+        _build.ptr(plan), nre, p, s, k, coeffs.shape[-2],
+        coeffs.shape[-1], _build.ptr(noise_var), noise_var.shape[-2],
+        _build.ptr(block_hop), m_sc, _build.ptr(tw), int(method == "mmse"),
+        kind, half, _build.ptr(levels), two_scale, _build.ptr(seq),
+        _build.ptr(llr), _build.ptr(x), lead[0] if lead else 1,
+        _build.stream_of(grid)), "pusch_tp_demap")
+    (KERNEL_TP_BATCH if lead else KERNEL_TP).count()
     return llr, x

@@ -23,10 +23,11 @@ Given a leading slot axis on every input, both programs run B slots of
 one plan at once (the JAX package's ``jax.vmap`` of the slot programs, for
 the conductor's slot-batch mode and the multi-cell programs), with the
 slot context stacked by :func:`stack_ctx`.  The PDSCH and PUSCH chains and
-the OFDM passes (K1-K8), SSB and PDCCH (K27), the DL DM-RS (K26), the RS
-PDUs (K25), PRACH (K9), PUCCH F0, F1 and F2 (K12, K10, K8 + K13), SRS
-(K8 + K11) and the UCI decoders (K14, K15) run once for all B slots; only
-PUCCH F3/F4 (K19) loops over the slots, inside its receiver.
+the OFDM passes (K1-K8, with K16-K18 for the L x N, UCI-on-PUSCH and
+DFT-s-OFDM PUSCHs), SSB and PDCCH (K27), the DL DM-RS (K26), the RS PDUs
+(K25), PRACH (K9), PUCCH F0 to F4 (K12, K10, K8 + K13, K8 + K19), SRS (K8
++ K11) and the UCI decoders (K14, K15) run once for all B slots: no
+kernel loops over the slots.
 """
 
 from __future__ import annotations
@@ -355,10 +356,10 @@ def ul_slot_core(cell: CellConfig, plan, slot_in_subframe: int = 0):
     B slots at once: samples [B, P, T], prach_fd[i] [B, P, S, L] (each
     slot's own capture), soft_buffers[i] [B, C, N] and a stacked slot
     context (:func:`stack_ctx`) give the same dict with a leading slot axis
-    on every value.  K4, the PUSCH chain (K8, K3, K2, K1), PUCCH F0, F1 and
-    F2 (K12, K10, K8 + K13), SRS (K8 + K11), PRACH (K9) and the UCI
-    decoders (K14, K15) run once for the B slots, the LDPC early stop per
-    slot; K16, K17, K18 and PUCCH F3/F4's K19 once per slot.
+    on every value.  K4, the PUSCH chain (K8, K3 or K16 or K18, K17, K2,
+    K1), PUCCH F0 to F4 (K12, K10, K8 + K13, K8 + K19), SRS (K8 + K11),
+    PRACH (K9) and the UCI decoders (K14, K15) run once for the B slots,
+    the LDPC early stop per slot.
     """
     plan = _ul_plan(cell, plan)
     f1_groups = _f1_groups(plan[2])

@@ -24,7 +24,8 @@ Port of srsran_tpu/phy/upper/pucch.py:
   estimate through K8 at stride 1 (the full-rate RC filter), then per data
   symbol the port combining, IDFT, F4 OCC despread, QPSK or pi/2-BPSK
   demap and descrambling of the K19 wrapper :func:`f3_demap`
-  (csrc/dft_s_ofdm.cu, twin :func:`f3_demap_ref`), then the UCI decode.
+  (csrc/dft_s_ofdm.cu, twin :func:`f3_demap_ref`), then the UCI decode;
+  with a slot axis each of them once for all slots.
 
 :func:`detect_format1` (one user, host sequences), :func:`transmit_format0`,
 :func:`transmit_format1`, :func:`transmit_format2` and :func:`f3_encode`
@@ -75,6 +76,7 @@ KERNEL_F3 = kernels.register(kernels.Kernel(
     name="pucch_f3_demap", route="cuda",
     source="srsran_tpu_torch/csrc/dft_s_ofdm.cu",
     replaces="srsran_tpu/phy/upper/pucch.py:656"))
+KERNEL_F3_BATCH = kernels.batched(KERNEL_F3)
 
 
 @functools.lru_cache(maxsize=None)
@@ -932,18 +934,23 @@ def f3_estimate_args(grid: torch.Tensor, cfg: PucchF3Config,
                      pilots: torch.Tensor) -> tuple:
     """(args, kwargs) of ``chest.estimate_from_grid`` for the DM-RS of one
     F3/F4 PDU: every subcarrier a pilot (stride 1, the full-rate RC
-    filter), no CFO, 30 kHz, as the JAX package runs it."""
+    filter), no CFO, 30 kHz, as the JAX package runs it; pilots [Sd, M],
+    or [B, Sd, M] for a grid with a slot axis."""
     dmrs_rel, _ = _f3_symbol_split(cfg)
     m = 12 * cfg.nof_rb
     args = (grid, tuple(cfg.start_symbol + s for s in dmrs_rel),
-            cfg.rb_start * 12, pilots[None], np.arange(m), m,
+            cfg.rb_start * 12, pilots.unsqueeze(-3), np.arange(m), m,
             cfg.nof_symbols, 30e3)
     return args, dict(stride=1, smoothing="filter", estimate_cfo=False)
 
 
 def f3_demap_ref(grid: torch.Tensor, coeffs: torch.Tensor,
                  noise_var: torch.Tensor, cfg: PucchF3Config) -> torch.Tensor:
-    """Plain twin of :func:`f3_demap` (the JAX package's steps)."""
+    """Plain twin of :func:`f3_demap` (the JAX package's steps; a slot axis
+    runs slot by slot)."""
+    if grid.ndim == 4:
+        return stack_slots([f3_demap_ref(grid[b], coeffs[b], noise_var[b],
+                                         cfg) for b in range(grid.shape[0])])
     m = cfg.nof_rb * 12
     sc0 = cfg.rb_start * 12
     _, data_rel = _f3_symbol_split(cfg)
@@ -976,18 +983,22 @@ def f3_demap(grid: torch.Tensor, coeffs: torch.Tensor,
     ports with the channel estimate (``coeffs`` complex64 [P, 1, 1, M],
     K8's) and the mean estimator noise of ``noise_var`` [P], the unitary
     IDFT, the F4 OCC despread, max-log QPSK or pi/2-BPSK at noise / mean
-    energy, and the Gold descramble."""
+    energy, and the Gold descramble.  B slots at once: grid [B, P, nsym,
+    nsc], coeffs [B, P, 1, 1, M] and noise_var [B, P] give LLRs [B, ...],
+    in one launch."""
     if not is_cuda(grid, coeffs, noise_var):
         return f3_demap_ref(grid, coeffs, noise_var, cfg)
-    p, m = grid.shape[0], 12 * cfg.nof_rb
-    if grid.dtype != torch.complex64 or grid.ndim != 3:
-        raise ValueError(f"grid must be complex64 [P, S, K], got "
+    p, m = grid.shape[-3], 12 * cfg.nof_rb
+    if grid.dtype != torch.complex64 or grid.ndim not in (3, 4):
+        raise ValueError(f"grid must be complex64 [(B,) P, S, K], got "
                          f"{grid.dtype} {tuple(grid.shape)}")
-    if coeffs.dtype != torch.complex64 or coeffs.shape != (p, 1, 1, m):
-        raise ValueError(f"coeffs must be complex64 [{p}, 1, 1, {m}], got "
-                         f"{coeffs.dtype} {tuple(coeffs.shape)}")
-    if noise_var.dtype != torch.float32 or noise_var.shape != (p,):
-        raise ValueError(f"noise_var must be float32 [{p}]")
+    lead = tuple(grid.shape[:-3])
+    if (coeffs.dtype != torch.complex64
+            or coeffs.shape != lead + (p, 1, 1, m)):
+        raise ValueError(f"coeffs must be complex64 {lead + (p, 1, 1, m)}, "
+                         f"got {coeffs.dtype} {tuple(coeffs.shape)}")
+    if noise_var.dtype != torch.float32 or noise_var.shape != lead + (p,):
+        raise ValueError(f"noise_var must be float32 {lead + (p,)}")
     if m % cfg.occ_length:
         raise ValueError(f"occ_length {cfg.occ_length} does not divide {m}")
     dev = grid.device
@@ -1000,14 +1011,15 @@ def f3_demap(grid: torch.Tensor, coeffs: torch.Tensor,
     gold = gold_sequence(_f3_c_init(cfg), n, device=dev)
     grid, coeffs = grid.contiguous(), coeffs.contiguous()
     noise_var = noise_var.contiguous()
-    llr = torch.empty((n,), dtype=torch.float32, device=dev)
+    llr = torch.empty(lead + (n,), dtype=torch.float32, device=dev)
     _build.check(_build.load().srsran_pucch_f3_demap(
-        _build.ptr(grid), p, grid.shape[1], grid.shape[2], _build.ptr(coeffs),
-        _build.ptr(noise_var), cfg.rb_start * 12, m, _build.ptr(syms),
-        syms.numel(), cfg.occ_length, _build.ptr(occ), _build.ptr(tw), kind,
-        _build.ptr(levels), two_scale, _build.ptr(gold), _build.ptr(llr),
-        _build.stream_of(grid)), "pucch_f3_demap")
-    KERNEL_F3.count()
+        _build.ptr(grid), p, grid.shape[-2], grid.shape[-1],
+        _build.ptr(coeffs), _build.ptr(noise_var), cfg.rb_start * 12, m,
+        _build.ptr(syms), syms.numel(), cfg.occ_length, _build.ptr(occ),
+        _build.ptr(tw), kind, _build.ptr(levels), two_scale, _build.ptr(gold),
+        _build.ptr(llr), lead[0] if lead else 1, _build.stream_of(grid)),
+        "pucch_f3_demap")
+    (KERNEL_F3_BATCH if lead else KERNEL_F3).count()
     return llr
 
 
@@ -1018,13 +1030,9 @@ def process_format3(grid: torch.Tensor, cfg: PucchF3Config, ncs=None) -> dict:
     or the DM-RS values [Sd, M] of :func:`f3_dmrs_values_for` (the slot
     context).  Returns the JAX package's dict: uci_bits, valid, metric.
 
-    A grid with a slot axis (and ncs shared or [B, Sd, M]) runs slot by
-    slot and stacks every value: K19 has no slot axis yet (ROADMAP §2,
-    item 12, gives K16-K19 one)."""
-    if grid.ndim == 4:
-        return stack_slots([process_format3(
-            grid[b], cfg, None if ncs is None else slot_of(ncs, b, 2))
-            for b in range(grid.shape[0])])
+    B slots at once: grid [B, P, nsym, nsc] and the DM-RS values shared or
+    [B, Sd, M] run K8, K19 and the decoder once for the B slots and give
+    every value a leading slot axis."""
     pilots = _f3_pilots(cfg, ncs, grid.device)
     args, kw = f3_estimate_args(grid, cfg, pilots)
     est = chest.estimate_from_grid(*args, **kw)

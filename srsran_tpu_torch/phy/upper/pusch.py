@@ -21,9 +21,9 @@ hop 1's channel report is returned, as the JAX package does.
 
 A leading slot axis on the grid (the slot-batch mode: grid [B, P, S, K],
 soft buffers [B, C, N], DM-RS pilot values [B, nsym, npilot] or shared)
-runs K8, K3, K2 and K1 once for all slots, with the LDPC early stop kept
-per slot; K16, K17 and K18 run once per slot.  Every result then has the
-slot axis in front.
+runs K8, K3 or K16 (or K18), K17, the UCI decoders (K14, K15), K2 and K1
+once for all slots, with the LDPC early stop kept per slot.  Every result
+then has the slot axis in front.
 """
 
 from __future__ import annotations
@@ -360,14 +360,12 @@ def _c_init(cfg: PuschConfig) -> int:
 
 def decode_uci_fields(llr: torch.Tensor, cfg: PuschConfig) -> tuple:
     """UL-SCH / UCI demultiplex (K17) and the UCI decodes: (data LLRs, dict
-    of the PuschResult UCI fields).  Without UCI the LLRs pass through."""
+    of the PuschResult UCI fields).  Without UCI the LLRs pass through.
+    LLRs [B, G] (a slot axis) run K17 and each decoder once for the B
+    slots."""
     dcfg = demux_plan(cfg)
     if dcfg is None:
         return llr, {}
-    if llr.ndim == 2:                   # a slot axis: K17 runs per slot
-        outs = [decode_uci_fields(x, cfg) for x in llr]
-        return (torch.stack([o[0] for o in outs]),
-                {k: torch.stack([o[1][k] for o in outs]) for k in outs[0][1]})
     u = cfg.uci
     qm = BITS_PER_SYMBOL[cfg.modulation]
     fields = uci_demux.demux(llr, dcfg, u.o_ack, u.o_csi1, _c_init(cfg))

@@ -1,8 +1,8 @@
 """Where a flagship slot's time goes on one CUDA GPU.
 
     python3 -m srsran_tpu_torch.profile_slot
-        [--direction ul|dl|conductor|ul_mu|batch|edge|gnb|du_low|du_alloc|
-                     split8]
+        [--direction ul|dl|conductor|ul_mu|batch|batch_mu|batch_edge|edge|
+                     gnb|du_low|du_alloc|split8]
         [--slots 8]
         [--calls 10]
         [--out DIR]
@@ -16,8 +16,11 @@ MMSE PUSCH and a 1-layer PUSCH with HARQ-ACK and CSI parts 1-2 beside the
 PUCCH F1, PRACH and SRS, through ``ul_slot_fn``; every slot checked after
 the measurement) or slot batch (``batch``: conductor phases 1-4 as one
 ``process_slot_batch`` of B = 4 per call, ``--slots`` batches, each slot
-checked after the measurement; "per slot" below then reads "per batch") or
-cell-edge UL slot (``edge``: a 2-layer PUSCH, a DFT-s-OFDM PUSCH with
+checked after the measurement; "per slot" below then reads "per batch";
+``batch_mu`` and ``batch_edge`` the same with the two-UE slot at one RI
+and with the cell-edge slot, each slot its own payloads, UCI and samples
+beside the flagship DL of phases 1-4, the bench's PRACH capture in every
+slot) or cell-edge UL slot (``edge``: a 2-layer PUSCH, a DFT-s-OFDM PUSCH with
 intra-slot hopping and HARQ-ACK, PUCCH F1, F3 and F4, PRACH and SRS,
 through ``ul_slot_fn``; every slot checked after the measurement) of
 :mod:`srsran_tpu_torch.flagship`, or the gNB simulator (``gnb``: one call
@@ -66,7 +69,8 @@ card.
 
 The slot's trace and a JSON summary go to ``--out`` (``slot_trace.json``
 and ``summary.json`` for the UL, ``dl_``, ``conductor_``, ``ul_mu_``,
-``batch_``, ``edge_``, ``gnb_``, ``du_low_``, ``du_alloc_`` or ``split8_``
+``batch_``, ``batch_mu_``, ``batch_edge_``, ``edge_``, ``gnb_``,
+``du_low_``, ``du_alloc_`` or ``split8_``
 before both
 names for the others);
 the summary is also printed as the last line.
@@ -370,22 +374,19 @@ def edge_scenario(n: int, seed: int, dev, gen) -> tuple:
     return [lambda i=i: call(i) for i in range(n)], cases, check
 
 
-def batch_scenario(n: int, seed: int, dev, gen) -> tuple:
+def _batch_calls(n: int, uls: list, rx_b: torch.Tensor, prach_b: tuple,
+                 pay: dict, check) -> tuple:
     """(one zero-argument call per batch, no kernel cases, a function that
-    resolves and checks every slot launched and returns their count): ``n``
-    batches of conductor phases 1-4 (B = 4), each staged beforehand, with
-    each slot's own samples and PRACH capture."""
-    rng = np.random.default_rng(seed)
-    phases = flagship.conductor_phases(rng, gen, dev)
-    pay = flagship.dl_payloads(rng)
+    resolves and checks every slot launched and returns their count):
+    ``n`` batches of B = 4 slots -- the flagship DL of phases 1-4 beside
+    the UL requests ``uls`` -- each staged beforehand; ``check(b, res)``
+    holds slot b's SlotResults."""
     grp = flagship.BATCH_PHASES
-    slots = [(flagship.dl_request(g), flagship.ul_request(g)) for g in grp]
+    slots = [(flagship.dl_request(g), u) for g, u in zip(grp, uls)]
     cond = SlotConductor(flagship.CELL)
     staged = [cond.stage_payloads([(d, flagship.tx_request(g, pay))
                                    for g, (d, _) in zip(grp, slots)])
               for _ in range(n)]
-    rx_b = torch.stack([phases[g]["rx"] for g in grp])
-    prach_b = flagship.batch_prach_fd(dev, seed)
     pending = []
 
     def call(i):
@@ -395,12 +396,66 @@ def batch_scenario(n: int, seed: int, dev, gen) -> tuple:
 
     def resolve() -> int:
         for pend in pending:
-            for b, (g, res) in enumerate(zip(grp, pend.resolve())):
-                flagship.check_results(res, phases[g], f"batch slot {b}",
-                                       flagship.batch_preambles(b))
+            for b, res in enumerate(pend.resolve()):
+                check(b, res)
         return len(pending) * len(grp)
 
     return [lambda i=i: call(i) for i in range(n)], {}, resolve
+
+
+def batch_scenario(n: int, seed: int, dev, gen) -> tuple:
+    """``n`` batches of conductor phases 1-4 (B = 4), with each slot's own
+    samples and PRACH capture (:func:`_batch_calls`)."""
+    rng = np.random.default_rng(seed)
+    phases = flagship.conductor_phases(rng, gen, dev)
+    pay = flagship.dl_payloads(rng)
+    grp = flagship.BATCH_PHASES
+
+    def check(b, res):
+        flagship.check_results(res, phases[grp[b]], f"batch slot {b}",
+                               flagship.batch_preambles(b))
+
+    return _batch_calls(n, [flagship.ul_request(g) for g in grp],
+                        torch.stack([phases[g]["rx"] for g in grp]),
+                        flagship.batch_prach_fd(dev, seed), pay, check)
+
+
+def _shared_capture(dev, seed: int) -> tuple:
+    """The bench's PRACH capture in every slot of a batch."""
+    return (torch.stack([flagship.prach_fd(dev, seed)[0]] * flagship.BATCH),)
+
+
+def batch_mu_scenario(n: int, seed: int, dev, gen) -> tuple:
+    """``n`` batches of the two-UE slot (B = 4 at one RI, beside the
+    flagship DL; :func:`_batch_calls`)."""
+    rng = np.random.default_rng(seed)
+    slots = flagship.mu_batch(rng, gen, dev)
+    pay = flagship.dl_payloads(rng)
+
+    def check(b, res):
+        flagship.check_mu_results(res, slots[b], f"two-UE batch slot {b}")
+
+    return _batch_calls(n, [flagship.mu_ul_request(g, flagship.MU_BATCH_RI)
+                                 for g in flagship.BATCH_PHASES],
+                        torch.stack([s["rx"] for s in slots]),
+                        _shared_capture(dev, seed), pay, check)
+
+
+def batch_edge_scenario(n: int, seed: int, dev, gen) -> tuple:
+    """``n`` batches of the cell-edge slot (B = 4, beside the flagship DL;
+    :func:`_batch_calls`)."""
+    rng = np.random.default_rng(seed)
+    slots = [flagship.edge_slot(g, rng, gen, dev)
+             for g in flagship.BATCH_PHASES]
+    pay = flagship.dl_payloads(rng)
+
+    def check(b, res):
+        flagship.check_edge_results(res, slots[b], f"cell-edge batch slot {b}")
+
+    return _batch_calls(n, [flagship.edge_ul_request(g)
+                                 for g in flagship.BATCH_PHASES],
+                        torch.stack([s["rx"] for s in slots]),
+                        _shared_capture(dev, seed), pay, check)
 
 
 def gnb_scenario(n: int) -> tuple:
@@ -507,6 +562,10 @@ def split8_scenario(n: int, seed: int, dev) -> tuple:
         rng, dev, dl_slot, SPLIT8_CFO_HZ / (flagship.CELL.dft_size * 30_000))
 
 
+BATCHES = {"batch": batch_scenario, "batch_mu": batch_mu_scenario,
+           "batch_edge": batch_edge_scenario}
+
+
 def launch_counts(call) -> dict:
     """The hand kernels' launches in one call."""
     torch.cuda.synchronize()
@@ -521,7 +580,8 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--direction",
                     choices=("ul", "dl", "conductor", "ul_mu", "batch",
-                             "edge", "gnb", "du_low", "du_alloc", "split8"),
+                             "batch_mu", "batch_edge", "edge", "gnb",
+                             "du_low", "du_alloc", "split8"),
                     default="ul")
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--calls", type=int, default=10)
@@ -548,9 +608,10 @@ def main(argv=None) -> dict:
     elif args.direction == "edge":
         calls, cases, resolve = edge_scenario(args.slots, args.seed, dev, gen)
         prefix = "edge_"
-    elif args.direction == "batch":
-        calls, cases, resolve = batch_scenario(args.slots, args.seed, dev, gen)
-        prefix = "batch_"
+    elif args.direction in BATCHES:
+        calls, cases, resolve = BATCHES[args.direction](args.slots,
+                                                        args.seed, dev, gen)
+        prefix = f"{args.direction}_"
     elif args.direction == "gnb":
         calls, cases, resolve = gnb_scenario(args.slots)
         prefix = "gnb_"
@@ -569,19 +630,20 @@ def main(argv=None) -> dict:
         prefix = "conductor_"
     # warm-up: device constants; for the conductor and the batch, every
     # slot phase's CUDA graph
-    graphed = args.direction in ("conductor", "batch")
+    graphed = args.direction == "conductor" or args.direction in BATCHES
     for call in (calls if graphed or args.direction in ("du_low", "du_alloc")
                  else calls[:2]):
         call()
     torch.cuda.synchronize()
     summary = {"card": card_line(), "direction": args.direction,
-               "slots_per_call": {"batch": flagship.BATCH,
-                                  "gnb": args.slots}.get(args.direction, 1),
+               "slots_per_call": (flagship.BATCH if args.direction in BATCHES
+                                  else args.slots if args.direction == "gnb"
+                                  else 1),
                "launches_per_call": launch_counts(calls[0]),
                "wall": wall_times(calls),
                "slot": slot_profile(calls, out / f"{prefix}slot_trace.json"),
                "kernels": kernel_profiles(cases, args.calls, out)}
-    if args.direction in ("conductor", "ul_mu", "batch", "edge", "gnb"):
+    if args.direction in ("conductor", "ul_mu", "edge", "gnb", *BATCHES):
         summary["slots_resolved_and_checked"] = resolve()
     (out / f"{prefix}summary.json").write_text(json.dumps(summary, indent=1))
     print(json.dumps(summary))

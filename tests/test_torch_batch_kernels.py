@@ -1,14 +1,16 @@
-"""The slot-batch forms of K1-K15 and the conductor's CUDA graphs, on a
+"""The slot-batch forms of K1-K19 and the conductor's CUDA graphs, on a
 CUDA GPU.
 
 Each batched kernel runs on B slots of seeded inputs at the small PUSCH's
 and PDSCH's shapes (K9-K15: at the UL mix's, each slot with its own slot
-context) and is held against its plain twin (which runs slot by slot), at
-B = 1 and B = 4; at B = 1 it must also give the unbatched kernel's output
-(K9-K15: every slot equals its own unbatched launch, and the batch counts
+context; K16-K19: at the two-UE and cell-edge slots' full-width shapes)
+and is held against its plain twin (which runs slot by slot), at B = 1
+and B = 4; at B = 1 it must also give the unbatched kernel's output
+(K9-K19: every slot equals its own unbatched launch, and the batch counts
 one launch of the kernel's ``_batch`` row).  Tolerances as the unbatched
 GPU tests (tests/test_torch_kernels.py): decisions, bits and flags
-exact, floats within 1e-4 of their twin's (K14's metric 1e-5).  The conductor's ``process_slot`` (one CUDA graph per slot
+exact, floats within 1e-4 of their twin's (K14's metric 1e-5; the LLRs of
+K16, K18 and K19 1e-3).  The conductor's ``process_slot`` (one CUDA graph per slot
 phase) is held against the phase's eager slot program over three slots with
 differing payloads and samples, and ``process_slot_batch`` against
 ``process_slot``.  On a machine without a GPU every case skips (the twins
@@ -431,6 +433,157 @@ def test_polar_decode_batched(cuda, b, k, e, n_pc, crc_name):
     assert torch.equal(bits, bits_ref) and torch.equal(ok, ok_ref)
     for s in range(b):
         _same((bits[s], ok[s]), polar.decode(llr[s], code, crc_name))
+
+
+# ---------------------------- K16-K19 with a slot axis (two-UE, cell edge)
+
+FULL_GRID = (4, 14, 3276)
+
+
+def _lxn_hold(out, ref):
+    """K16 against its twin, as tests/test_torch_kernels.py holds it: x
+    within 1e-4 of max|x|, the LLRs within 1e-3 of max|LLR|, equal hard
+    decisions wherever |LLR| is above that."""
+    (llr, x), (llr_ref, x_ref) = out, ref
+    big = llr_ref.abs() > 1e-3 * float(llr_ref.abs().max())
+    assert torch.equal(llr[big] > 0, llr_ref[big] > 0)
+    _close(x, x_ref, 1e-4)
+    _close(llr, llr_ref, 1e-3)
+
+
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("ue", ["a", "b"])
+def test_pusch_demap_lxn_batched(cuda, b, ue):
+    """K16 at the two-UE slot's shapes (UE A: 4 layers MMSE on 205 RB; UE
+    B: 1 layer MMSE on 64 RB), each slot its own grid, channel (I + 0.25
+    (N + jN)) and noise: one launch, and every slot bit-equal to its own
+    unbatched launch."""
+    cfg = flagship.MU.pusch_a if ue == "a" else flagship.MU.ue_b(1)
+    layers, nsc = cfg.nof_layers, 12 * cfg.rb_count
+    rng = np.random.default_rng(130 + b + layers)
+    grid = torch.stack([_cgauss(rng, FULL_GRID) for _ in range(b)]).to(cuda)
+    h = (np.eye(4, layers)[None, :, :, None, None]
+         + 0.25 * _cgauss(rng, (b, 4, layers, 1, nsc)).numpy())
+    coeffs = torch.as_tensor(h.astype(np.complex64)).to(cuda)
+    nv = torch.as_tensor(rng.uniform(0.02, 0.1, b).astype(np.float32)).to(
+        cuda)
+    sym, sc = pusch._plan(cfg, cuda)
+    c_init = (cfg.rnti << 15) + cfg.n_id
+    args = (grid, coeffs, sym, sc, cfg.rb_start * 12, nv, c_init,
+            cfg.modulation, layers, cfg.equalizer)
+    out = _counted(lambda: ul_demap.equalize_demap_descramble(*args),
+                   "pusch_demap_lxn")
+    assert out[0].shape[0] == out[1].shape[0] == b
+    _lxn_hold(out, ul_demap.equalize_demap_descramble_ref(*args))
+    for s in range(b):
+        _same(_slot(out, s), ul_demap.equalize_demap_descramble_lxn(
+            grid[s], coeffs[s], sym, sc, cfg.rb_start * 12, nv[s], c_init,
+            cfg.modulation, layers, cfg.equalizer))
+
+
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("case", ["ue_b", "ue_c", "punct_ack1"])
+def test_ulsch_demux_batched(cuda, b, case):
+    """K17 on B codewords (UE B of the two-UE slot with ACK, CSI1 and CSI2;
+    UE C of the cell edge with 2 ACK bits on QPSK; a punctured 1-bit ACK on
+    QAM16): one launch, the four fields [B, n] contiguous, bit-exact to the
+    twin and to each slot's own launch."""
+    from srsran_tpu_torch.ops import uci_demux
+    from srsran_tpu_torch.ran.uci_on_pusch import UciOnPuschConfig
+    cfg = {"ue_b": flagship.MU.ue_b(1), "ue_c": flagship.EDGE.pusch_c,
+           "punct_ack1": dataclasses.replace(
+               flagship.MU.ue_b(1), uci=UciOnPuschConfig(o_ack=1))}[case]
+    dcfg = pusch.demux_plan(cfg)
+    g = sum(dcfg.re_per_symbol) * dcfg.qm * dcfg.nof_layers
+    rng = np.random.default_rng(140 + b + len(case))
+    llr = torch.as_tensor(rng.standard_normal((b, g)).astype(np.float32)
+                          ).to(cuda)
+    args = (dcfg, cfg.uci.o_ack, cfg.uci.o_csi1, (cfg.rnti << 15) + cfg.n_id)
+    out = _counted(lambda: uci_demux.demux(llr, *args), "ulsch_demux")
+    ref = uci_demux.demux_ref(llr, *args)
+    assert [tuple(o.shape) for o in out] == [
+        (b, n) for n in uci_demux.field_sizes(dcfg)]
+    assert all(o.is_contiguous() for o in out)
+    _same(out, ref)
+    for s in range(b):
+        _same(_slot(out, s), uci_demux.demux(llr[s], *args))
+
+
+def _tp_batch(rng, b, cfg, dev):
+    """K18's inputs on B random slots: grids, the hops' estimates side by
+    side and each hop's noise per slot; the plan shared."""
+    nhops = len(pusch.hop_configs(cfg))
+    m = 12 * cfg.rb_count
+    key = pusch._tp_key(cfg)
+    grid = torch.stack([_cgauss(rng, FULL_GRID) for _ in range(b)]).to(dev)
+    coeffs = _cgauss(rng, (b, 4, 1, 1, nhops * m)).to(dev)
+    noise = torch.as_tensor(rng.uniform(0.05, 0.2, (b, nhops, 4)).astype(
+        np.float32)).to(dev)
+    return (grid, coeffs, torch.as_tensor(pusch.tp_plan(key, 0)).to(dev),
+            noise, torch.as_tensor(pusch.tp_plan(key, 1)).to(dev), m,
+            (cfg.rnti << 15) + cfg.n_id, cfg.modulation, cfg.equalizer)
+
+
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("case", ["ue_c", "widest"])
+def test_pusch_tp_demap_batched(cuda, b, case):
+    """K18 at UE C's shape (M = 72, both hops, MMSE) and at the widest
+    allocation (M = 3240, above 48 KB of shared memory): one launch, within
+    the twin's tolerances, every slot bit-equal to its own launch."""
+    cfg = flagship.EDGE.pusch_c if case == "ue_c" else flagship.widest_tp()
+    args = _tp_batch(np.random.default_rng(150 + b + len(case)), b, cfg,
+                     cuda)
+    out = _counted(lambda: ul_demap.tp_equalize_demap_descramble(*args),
+                   "pusch_tp_demap")
+    llr_ref, x_ref = ul_demap.tp_equalize_demap_descramble_ref(*args)
+    _close(out[1], x_ref, 1e-4)
+    _close(out[0], llr_ref, 1e-3)
+    grid, coeffs, plan, noise, *rest = args
+    for s in range(b):
+        _same(_slot(out, s), ul_demap.tp_equalize_demap_descramble(
+            grid[s], coeffs[s], plan, noise[s], *rest))
+
+
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("fmt", ["f3", "f4"])
+def test_pucch_f3_batched(cuda, b, fmt):
+    """K8 (stride 1), K19, then K15 (F3, 22 bits) or K14 (F4, 8 bits) on B
+    slots of the cell edge's PUCCH, each slot its own DM-RS values (its
+    slot number), payload and channel: ``process_format3`` with the slot
+    axis launches each once, K19 alone equals its twin and every slot its
+    own launch, and every slot decodes its payload."""
+    base = flagship.EDGE.f3 if fmt == "f3" else flagship.EDGE.f4
+    cfgs = [dataclasses.replace(base, slot=2 * s) for s in range(b)]
+    rng = np.random.default_rng(160 + b + len(fmt))
+    sent = [rng.integers(0, 2, base.nof_uci_bits) for _ in range(b)]
+    grid = torch.stack([
+        _cgauss(rng, (4,))[:, None, None] * pucch.transmit_format3(
+            torch.zeros((1,) + FULL_GRID[1:], dtype=torch.complex64), c, m)[0]
+        + 0.05 * _cgauss(rng, FULL_GRID) for c, m in zip(cfgs, sent)]).to(cuda)
+    vals = torch.as_tensor(np.stack([pucch.f3_dmrs_values_for(c)
+                                     for c in cfgs])).to(cuda)
+    args, kw = pucch.f3_estimate_args(grid, base, vals)
+    est = chest.estimate_from_grid(*args, **kw)
+    k19 = (grid, est.coeffs, est.noise_var, base)
+    llr = _counted(lambda: pucch.f3_demap(*k19), "pucch_f3_demap")
+    _close(llr, pucch.f3_demap_ref(*k19), 1e-3)
+    for s in range(b):
+        _same(llr[s], pucch.f3_demap(grid[s], est.coeffs[s],
+                                     est.noise_var[s], base))
+    kernels.reset_counts()
+    res = pucch.process_format3(grid, base, vals)
+    decoder = "polar_decode" if fmt == "f3" else "short_block_detect"
+    counts = {n: kernels.REGISTRY[n].launches
+              for n in ("channel_estimate_batch", "pucch_f3_demap_batch",
+                        f"{decoder}_batch", "channel_estimate",
+                        "pucch_f3_demap", decoder)}
+    assert list(counts.values()) == [1, 1, 1, 0, 0, 0], counts
+    for s in range(b):
+        one = pucch.process_format3(grid[s], cfgs[s], vals[s])
+        assert res["uci_bits"][s].tolist() == list(sent[s])
+        for key in ("uci_bits", "valid"):
+            assert torch.equal(res[key][s], one[key]), key
+        _close(res["metric"][s], one["metric"], 1e-6)
 
 
 # ----------------------------------------------------- conductor graphs

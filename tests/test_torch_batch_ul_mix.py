@@ -15,7 +15,8 @@ both F2s and the SRS through a 1x2 channel at about 20 dB.
   capture per slot (one of them noise alone).
 - Each receiver with a slot axis against the same receiver slot by slot.
 - The ctypes signatures of the kernels' C entry points against the
-  sources (the CUDA kernels do not build here).
+  sources (the CUDA kernels do not build here), and the slot count of the
+  entry points with a slot axis (K3, K16-K19).
 
 Tolerances: TB bits, UCI bits, detections, CRC and valid flags equal;
 packed scalars within 2e-4 (as tests/test_torch_batch.py); indications by
@@ -389,3 +390,26 @@ def test_ctypes_signatures_match_sources():
     """Every C entry point is bound with its own parameter list (a slot
     count or stride added to a kernel must reach its ctypes binding)."""
     assert _c_entry_points() == _build.SIGNATURES
+
+
+def _c_parameter_names(name: str) -> list:
+    """The parameter names of one ``extern "C"`` entry point in csrc."""
+    for src in sorted(_build.CSRC.glob("*.cu")):
+        text = re.sub(r"//[^\n]*", "", src.read_text())
+        found = re.search(rf'extern "C" int {name}\(([^)]*)\)', text)
+        if found:
+            return [p.split()[-1].lstrip("*")
+                    for p in found.group(1).split(",")]
+    raise AssertionError(f"{name} not in csrc")
+
+
+@pytest.mark.parametrize("name", [
+    "srsran_pusch_demap", "srsran_pusch_demap_lxn", "srsran_ulsch_demux",
+    "srsran_pusch_tp_demap", "srsran_pucch_f3_demap"])
+def test_batched_entry_points_take_a_slot_count(name):
+    """The equalizers and the demultiplexer with a slot axis (K3, K16-K19)
+    take the slot count just before the stream, as an int in their ctypes
+    binding."""
+    names = _c_parameter_names(name)
+    assert names[-2:] == ["nslots", "stream"]
+    assert _build.SIGNATURES[name][-2:] == [_build._I, _build._P]

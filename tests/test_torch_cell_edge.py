@@ -468,8 +468,9 @@ def test_edge_slot_through_the_conductors_matches_jax(edge_slots):
 
 
 def test_edge_batch_equals_process_slot(edge_slots):
-    """process_slot_batch at B = 2 with the cell-edge PDUs (K18 and K19 run
-    once per slot inside it) equals process_slot slot by slot."""
+    """process_slot_batch at B = 2 with the cell-edge PDUs (on the card K18
+    runs once for both slots and K19 once per PDU) equals process_slot slot
+    by slot."""
     from srsran_tpu_torch.phy.upper import pdsch as t_pdsch
     cond = t_cond.SlotConductor(convert.config(J_CELL), device="cpu")
     slots = edge_slots["slots"]
