@@ -245,6 +245,30 @@ the JAX package.  It builds the hand kernels from ``srsran_tpu_torch/csrc``
    B) against their twins at B = 4 (timed, with their bounds), every slot
    bit-equal to its own unbatched launch.
 
+16. the last device functions (``flagship.last_path``, counted): the
+   PBCH through ``ssb.pbch_encode`` (K33, the polar encode chain) and
+   ``pbch_modulate``, bit-equal to the PBCH REs of K27's SSB patch; slot
+   E's five DCIs (AL 16-1) mapped by K27 and encoded again by
+   ``pdcch.encode_dci`` (K33): scrambled, its bits equal K27's, and K28 +
+   K15 decode the payloads; phase 4's 22-bit F2 (K33) and 6-bit F2 (K34,
+   the short-block encoder) sent, each within 1e-6 of the CPU twins; 64
+   UCI codewords of the cell edge's F3 code (K33); K34 at K 1-11, Qm 1,
+   2, 4, 6; phase 2's flagship PUSCH LLRs (K4, K8, K3) quantized to int8
+   and back (K35) and decoded (K2, K1) with the exact payload; K1 on
+   every check row and K36 (the LDPC syndrome check) on its 37
+   codeblocks: all pass, and with one bit flipped in each all fail; K8 on
+   slot E's type 0 DM-RS comb (an irregular comb: 4 ports, 2 layers with
+   the fd-OCC despread, filter smoothing, both time strategies) finding
+   the channel's delay.  Then K33-K36 and K8's type 0 case against their
+   twins (bit-exact; K8 at rtol 1e-4, the TA exact), timed with their
+   bounds, K33 and K34 beside ``torch.matmul`` by their GF(2) encode
+   matrix mod 2 and K35's dequantize beside ``torch.div`` by a 0-dim
+   device tensor, bit-equal to it (library times).  Phases 4, 5 and 9
+   also count the UE side's K33/K34 while their transmitters build the
+   slots (the F2s; UE B's UCI on PUSCH; UE C's ACK, the F3 and the F4),
+   and phase 10 K34 in the gnb_sim UE emulator (its CSI-on-PUSCH reports
+   of 4 and 6 bits).
+
 It prints the card's name and power limit, one JSON line of per-kernel
 results, and as its last line ``{"ok": true, "device": {...}}``.  Any failed
 phase raises, so the script then exits non-zero without that line.
@@ -281,10 +305,12 @@ from srsran_tpu_torch.kernels import _build
 from srsran_tpu_torch.io.sampio import SampleFileReader
 from srsran_tpu_torch.ops import dl_control, dl_map, dl_rs
 from srsran_tpu_torch.ops import ldpc_rate_match, ofdm, polar
-from srsran_tpu_torch.ops import polar_scl, transform_precode
+from srsran_tpu_torch.ops import llr as llr_ops
+from srsran_tpu_torch.ops import polar_scl, short_block, transform_precode
 from srsran_tpu_torch.ops.crc import crc, crc_check
 from srsran_tpu_torch.ops.ldpc_graph import get_graph
 from srsran_tpu_torch.ops.modulation import BITS_PER_SYMBOL
+from srsran_tpu_torch.ops.scrambling import scramble_bits
 from srsran_tpu_torch.parallel.mesh import multi_cell_dl_fn, multi_cell_ul_fn
 from srsran_tpu_torch.phy.lower import amplitude_control, cfo, prach_demod
 from srsran_tpu_torch.phy.slot_programs import ul_slot_fn
@@ -370,7 +396,13 @@ CASE_KERNEL = {"pdsch_map_repetition": "pdsch_map",
                   for t in ("rv1", "rv2", "rv3", "nref")},
                "cfo_rotate_file": "cfo_rotate",
                "amplitude_control_file": "amplitude_control",
-               "amplitude_control_scale": "amplitude_control"}
+               "amplitude_control_scale": "amplitude_control",
+               "polar_encode_pbch": "polar_encode",
+               "polar_encode_dci_al16": "polar_encode",
+               "polar_encode_uci64": "polar_encode",
+               "short_block_encode_k11": "short_block_encode",
+               "channel_estimate_type0": "channel_estimate",
+               "channel_estimate_type0_interp": "channel_estimate"}
 CONDUCTOR_SLOTS = 16
 RESOLVE_LAG = 2
 # A HARQ retransmission through the conductor: at 11 dB the first
@@ -478,6 +510,15 @@ LOWSNR_SIGMA = 1.4
 CFO_HZ = 1500.0
 CFO_DRIFT_HZ_S = 2e4
 AMP_METRICS = ("avg_power_db", "peak_power_db", "papr_db", "clipped_ratio")
+# The UE-side encoders (K33, K34) that the transmitters of phases 4, 5 and 9
+# launch while they build their slots, and gnb_sim's UE emulator in phase
+# 10 (K34: its CSI-on-PUSCH reports are 4 and 6 bits); phase 16's kernels,
+# and the rest of its counted path.
+UE_KERNELS = ("polar_encode", "short_block_encode")
+LAST_KERNELS = ("llr_quantize", "llr_dequantize", "ldpc_check_parity")
+LAST_PATH = UE_KERNELS + LAST_KERNELS + (
+    "control_map", "control_llrs", "polar_decode", "ofdm_demodulate",
+    "channel_estimate", "pusch_demap", "rate_dematch", "ldpc_decode")
 
 
 def median_ms(fn, runs: int = TIMING_RUNS) -> float:
@@ -610,6 +651,10 @@ def compare(name: str, out, ref) -> float:
         return 0.0
     if name in ("ulsch_demux", "polar_scl_decode"):  # K17, K29: bit-exact
         if not all(torch.equal(a, b) for a, b in zip(out, ref)):
+            raise AssertionError(f"{case} differs from its twin")
+        return 0.0
+    if name in UE_KERNELS + LAST_KERNELS:          # K33-K36: bit-exact
+        if not torch.equal(_bits(out), _bits(ref)):
             raise AssertionError(f"{case} differs from its twin")
         return 0.0
     if name == "cfo_rotate":                       # K30: sincosf vs sin, cos
@@ -894,6 +939,24 @@ def work(name: str, args: tuple, out) -> tuple:
         return 2 * nbytes(args[0]), 26.0 * args[0].numel()
     if name == "amplitude_control":                # K31: ~20 per sample
         return 2 * nbytes(args[0]) + 16, 20.0 * args[0].numel()
+    if name == "polar_encode":                     # K33
+        # the message bits read and the transmitted bits written once; an
+        # XOR per butterfly (N/2 log2 N), a write per info and PC bit and a
+        # read per transmitted bit
+        msg, code = args
+        return (nbytes(msg) + nbytes(out), msg.shape[0] * (
+            code.big_n / 2 * code.n + code.k + code.e))
+    if name == "short_block_encode":               # K34: K + 2 per bit
+        bits = args[0]
+        return nbytes(bits) + nbytes(out), out.numel() * (bits.shape[1] + 2.0)
+    if name == "llr_quantize":                     # K35: 4 per LLR
+        return nbytes(args[0]) + nbytes(out), 4.0 * out.numel()
+    if name == "llr_dequantize":                   # K35: a division per LLR
+        return nbytes(args[0]) + nbytes(out), float(out.numel())
+    if name == "ldpc_check_parity":                # K36: an XOR per edge lane
+        bits, bg, z = args
+        return (nbytes(bits) + nbytes(out),
+                float(bits.shape[0] * _edges(bg, z, len(get_graph(bg, z).rows))))
     raise KeyError(name)
 
 
@@ -907,10 +970,11 @@ def bound(name: str, args: tuple, out) -> dict:
 
 def kernel_phases(cases: dict, library: dict | None = None) -> dict:
     """Each kernel against its twin; all but the repetition case timed.
-    ``library`` names a PyTorch call for a part of a kernel's work (the
-    DFT-s-OFDM kernels' IDFT stage: ``torch.fft.ifft`` on the same number
-    of blocks), timed as ``library_ms``; no single PyTorch call computes
-    any of the other functions, so theirs is null."""
+    ``library`` names, per case, the PyTorch call timed as ``library_ms``:
+    one that computes the same function (K35's dequantize: ``torch.div``)
+    or a stage of it (the DFT-s-OFDM kernels' IDFT: ``torch.fft.ifft`` on
+    the same number of blocks; a GF(2) stage as ``torch.matmul``); a case
+    it does not name has null."""
     results = {}
     for name, (fn, ref_fn, args) in cases.items():
         out = fn(*args)
@@ -1211,7 +1275,12 @@ def conductor_phases(dev, gen, rng, card) -> tuple:
     over every phase, then CONDUCTOR_SLOTS slots each resolved RESOLVE_LAG
     slots behind the launch front."""
     t0 = time.perf_counter()
+    kernels.reset_counts()
     phases = flagship.conductor_phases(rng, gen, dev)
+    torch.cuda.synchronize()
+    ue_launches = launched(UE_KERNELS)
+    print(f"conductor UE side (the F2s' 6 bits by K34, 22 bits by K33): "
+          f"launches {ue_launches}", flush=True)
     prach_in = flagship.prach_fd(dev, SEED)
     pay = flagship.dl_payloads(rng)
     reqs = ([flagship.dl_request(i) for i in range(flagship.N_PHASES)],
@@ -1291,7 +1360,7 @@ def conductor_phases(dev, gen, rng, card) -> tuple:
           flush=True)
     scenario = dict(phases=phases, reqs=reqs, prach_in=prach_in,
                     stride=stride, pay=pay)
-    return results, launches, scenario
+    return results, {**launches, **ue_launches}, scenario
 
 
 def mu_conductor(slots: list, prach_in, rng, card) -> None:
@@ -1375,12 +1444,15 @@ def mu_phases(dev, gen, rng, card) -> tuple:
     and 2, PUCCH F1, PRACH, SRS) through ``ul_slot_fn``, the conductor and
     the part-2 feedback path."""
     t0 = time.perf_counter()
+    kernels.reset_counts()
     slots = flagship.make_mu_slots(NOF_SLOTS + 2, rng, gen, dev)
+    torch.cuda.synchronize()
+    ue_launches = launched(UE_KERNELS)
     softs = flagship.mu_soft_buffers(dev)
     prach_in = flagship.prach_fd(dev, SEED)
-    torch.cuda.synchronize()
     print(f"two-UE transmitters: {len(slots)} slots in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"{time.perf_counter() - t0:.1f} s (UE B's ACK and CSI1 by K34, "
+          f"CSI2 by K33: launches {ue_launches})", flush=True)
     results = kernel_phases(flagship.mu_kernel_cases(slots[0], gen))
 
     def run(s):
@@ -1939,12 +2011,15 @@ def edge_phases(dev, gen, rng, card) -> tuple:
     """Phase 9: K18 and K19 (and K8 at stride 1) against their twins, then
     the cell-edge UL slot through ``ul_slot_fn`` and the conductor."""
     t0 = time.perf_counter()
+    kernels.reset_counts()
     slots = flagship.make_edge_slots(NOF_SLOTS + 2, rng, gen, dev)
+    torch.cuda.synchronize()
+    ue_launches = launched(UE_KERNELS)
     softs = flagship.edge_soft_buffers(dev)
     prach_in = flagship.prach_fd(dev, SEED)
-    torch.cuda.synchronize()
     print(f"cell-edge transmitters: {len(slots)} slots in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"{time.perf_counter() - t0:.1f} s (UE C's ACK and the F4 by K34, "
+          f"the F3 by K33: launches {ue_launches})", flush=True)
     cases = flagship.edge_kernel_cases(slots[0], gen)
     results = kernel_phases(cases, edge_library(cases))
     prog = flagship.edge_program()
@@ -2064,6 +2139,7 @@ def gnb_sim_phase(dev, gen, rng, card) -> tuple:
     counts = {k.name: k.launches for k in kernels.REGISTRY.values()
               if k.launches}
     launches = launched(GNB_KERNELS)
+    launched(UE_KERNELS[1:])            # the UE emulator's CSI on PUSCH
     ctr = res["counters"]
     checks = {
         "a PRACH detected and turned into a TC-RNTI":
@@ -3270,6 +3346,147 @@ def mu_batch_phase(dev, gen, rng, card) -> tuple:
     return results, launches
 
 
+# --------------------------------------------------------------- phase 16
+
+def _gf2_library(bits: torch.Tensor, matrix: np.ndarray):
+    """The yardstick of K33/K34: ``torch.matmul`` of the message bits by
+    the code's GF(2) encode matrix, mod 2 (float32: every sum is exact)."""
+    m = torch.from_numpy(matrix.astype(np.float32)).to(bits.device)
+    x = bits.to(torch.float32)
+    return lambda: torch.matmul(x, m) % 2
+
+
+def _sb_matrix(k: int, e: int) -> np.ndarray:
+    """RM(32, K)'s basis rows repeated to E (K >= 3: no placeholders)."""
+    return np.tile(short_block.rm_basis()[:k], (1, -(-e // 32)))[:, :e]
+
+
+def _hard_bits(res: torch.Tensor) -> torch.Tensor:
+    """QPSK hard decisions of REs [n] -> bits int8 [2n] (bit 1 below 0)."""
+    return torch.stack([res.real < 0, res.imag < 0], dim=-1).reshape(-1).to(
+        torch.int8)
+
+
+def _dci_check(grid: torch.Tensor, cfg, payload: torch.Tensor,
+               encoded: torch.Tensor, decoded: tuple) -> None:
+    """``encode_dci``'s bits (K33), scrambled, equal the bits K27 mapped for
+    this DCI into ``grid``, and K28 + K15 decode them back."""
+    bits = scramble_bits(encoded[None],
+                         ((cfg.n_rnti << 16) + cfg.n_id_data) % (1 << 31))[0]
+    offs = const(pdcch._candidate_re_offsets, cfg.coreset, cfg.cce_index,
+                 cfg.aggregation_level, tuple(grid.shape), device=grid.device)
+    if not torch.equal(_hard_bits(grid.reshape(-1)[offs]), bits):
+        raise AssertionError(f"AL{cfg.aggregation_level}: encode_dci differs "
+                             f"from K27's PDCCH bits")
+    dec, ok = decoded
+    if not (bool(ok) and torch.equal(dec.to(torch.int8), payload)):
+        raise AssertionError(f"AL{cfg.aggregation_level}: K28 + K15 did not "
+                             f"decode encode_dci's DCI")
+
+
+def last_functions_phase(dev, rng, ul_slot, card) -> tuple:
+    """Phase 16: the last device functions on the flagship cell.  The
+    counted main path is ``flagship.last_path`` (the PBCH and slot E's DCIs
+    through K33 beside K27, the F2s and a UCI batch through K33/K34, K34
+    at every K and Qm, phase 2's PUSCH LLRs through K35 and decoded, K1's
+    codeblocks through K36, K8 on slot E's type 0 comb); then its checks,
+    and each case against its twin, timed, with its bound and (K33, K34)
+    the GF(2) product's time.  Returns (the results, K35's and K36's
+    launches on the main path)."""
+    t0 = time.perf_counter()
+    cell = flagship.CELL
+    inp = flagship.last_inputs(rng, ul_slot, dev)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    out = flagship.last_path(inp)
+    torch.cuda.synchronize()
+    launches = launched(LAST_PATH)
+
+    pbch_res = out["ssb_patch"].reshape(-1)[const(
+        ssb._data_index, flagship.SSB.phys_cell_id % 4, device=dev)]
+    if not torch.equal(_bits(pbch_res), _bits(out["pbch"])):
+        raise AssertionError("pbch_encode -> pbch_modulate differs from K27's "
+                             "PBCH REs")
+    for dci in zip(inp["dcis"], inp["dci_payloads"], out["encoded_dcis"],
+                   out["decoded_dcis"]):
+        _dci_check(out["pdcch_grid"], *dci)
+    for got, cfg, key in zip(out["f2_grids"], (flagship.F2_POLAR,
+                                               flagship.F2_SB),
+                             ("f2_polar", "f2_sb")):
+        ref = pucch.transmit_format2(torch.zeros_like(got, device="cpu"),
+                                     cfg, inp["uci"][key])
+        close(got.cpu(), ref, f"phase 16 F2 of {cfg.nof_uci_bits} bits",
+              rtol=1e-6)
+    res = out["pusch"]
+    checks = {
+        "the PUSCH's quantized LLRs decode (TB CRC)": bool(res.tb_crc_ok),
+        "with the exact payload": torch.equal(res.tb_bits, ul_slot[0]),
+        "K36: all of K1's codeblocks pass": bool(out["parity"].all()),
+        "K36: each flipped codeblock fails":
+            not bool(out["parity_flipped"].any()),
+        "K34 equals its twin at K 1-11, Qm 1, 2, 4, 6": all(
+            torch.equal(got, short_block.encode_ref(
+                inp["sb_bits"][:, :k], e, qm))
+            for (k, qm, e), got in out["short_blocks"].items()),
+        "K33 on the UCI batch equals its twin": torch.equal(
+            out["uci_batch"], polar.encode_chain_ref(inp["uci_msg"],
+                                                     inp["uci_code"])),
+    }
+    for td, est in out["chest"].items():
+        ta = float(est.time_alignment_s) * 2048 * (15_000 << cell.numerology)
+        checks[f"K8 type 0 ({td}): the channel's delay"] = (
+            round(ta) == flagship.TYPE0_DELAY)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 16: not met: {failed}")
+    seg = flagship.SEG
+    rows = len(get_graph(seg.base_graph, seg.lifting_size).rows)
+    print(f"phase 16 main path: the PBCH through pbch_encode (K33) and "
+          f"pbch_modulate equal to K27's patch bit for bit; slot E's DCIs at "
+          f"AL {[d.aggregation_level for d in inp['dcis']]} through "
+          f"encode_dci (K33) equal to K27's bits and decoded back by K28 + "
+          f"K15; the F2s' 22 and 6 bits (K33, K34) and "
+          f"{flagship.LAST_UCI_BATCH} UCI codewords (K = "
+          f"{inp['uci_code'].k}, E = {inp['uci_code'].e}) sent; K34 at K "
+          f"1-11, Qm {flagship.SB_QMS}; the flagship PUSCH's "
+          f"{out['llr'].numel()} LLRs through K35 decoded with the exact "
+          f"payload ({int(res.nof_iterations)} sweeps); K36 on K1's "
+          f"{seg.nof_codeblocks} codeblocks ({int(out['sweeps'])} sweeps, all "
+          f"{rows} rows): all pass, each with one bit flipped fails; K8 on "
+          f"slot E's type 0 comb ({len(inp['chest']['average'][0][4])} "
+          f"pilots, 2 layers, cdm_pairs): the channel's delay of "
+          f"{flagship.TYPE0_DELAY} samples; launches {launches}; card {card}",
+          flush=True)
+
+    cases = flagship.last_kernel_cases(inp, out)
+    library = {}
+    for name in ("polar_encode", "polar_encode_pbch", "polar_encode_dci_al16",
+                 "polar_encode_uci64"):
+        msg, code = cases[name][2]
+        library[name] = _gf2_library(msg, polar.encode_matrix(code))
+    for name in ("short_block_encode", "short_block_encode_k11"):
+        bits, e, _ = cases[name][2]
+        library[name] = _gf2_library(bits, _sb_matrix(bits.shape[1], e))
+    for name, lib in library.items():
+        fn, _, args = cases[name]
+        if not torch.equal(lib().to(torch.int8), fn(*args)):
+            raise AssertionError(f"{name}: the GF(2) product differs")
+    # K35's dequantize is one PyTorch call: int8 / a 0-dim f32 device
+    # tensor promotes to f32 and divides in IEEE division, as the kernel
+    q = out["llr_i8"]
+    scale = torch.tensor(llr_ops.LLR_INT_MAX / llr_ops.LLR_RANGE,
+                         dtype=torch.float32, device=dev)
+    library["llr_dequantize"] = lambda: torch.div(q, scale)
+    got = llr_ops.dequantize(q)
+    if not torch.equal(library["llr_dequantize"]().view(torch.int32),
+                       got.view(torch.int32)):
+        raise AssertionError("llr_dequantize: torch.div differs")
+    results = kernel_phases(cases, library)
+    print(f"phase 16 (the last device functions): "
+          f"{time.perf_counter() - t0:.1f} s; card {card}", flush=True)
+    return results, {k: launches[k] for k in LAST_KERNELS}
+
+
 def _slot_of_dict(out: dict, c) -> dict:
     """Cell ``c`` of a multi-cell UL result dict (None: the whole of a
     single cell's), on the CPU."""
@@ -3348,10 +3565,12 @@ def main() -> int:
         dev, gen, np.random.default_rng(SEED + 15), card)
     print(f"phase 15 (two-UE batch): {time.perf_counter() - t15:.1f} s",
           flush=True)
+    last_results, last_launches = last_functions_phase(
+        dev, np.random.default_rng(SEED + 16), ul_slots[0], card)
     results = {**ul_results, **dl_results, **uci_results, **mu_results,
                **batch_results, **edge_results, **gnb_results, **ofh_results,
                **du_results, **alloc_results, **split8_results,
-               **mu_batch_results}
+               **mu_batch_results, **last_results}
     # K1-K11 as their own paths launched them (phases 2, 3), K12-K15 as the
     # conductor's slots did (phase 4, which launched every kernel), K16-K17
     # as the two-UE slot did (phase 5), the batched K1-K15 as one batch of
@@ -3362,7 +3581,8 @@ def main() -> int:
     # allocation slots did (phase 13), K29-K31 as phase 14's main path did
     # (K32: the UE side of phase 10's gnb_sim run), the batched K18-K19 as
     # one cell-edge batch of phase 9 did, the batched K16-K17 as one
-    # two-UE batch of phase 15 did
+    # two-UE batch of phase 15 did, K33-K34 as phase 4's UE side did (its
+    # F2s), K35-K36 as phase 16's main path did
     launches = {**cond_launches, **ul_launches, **dl_launches,
                 **{k: mu_launches[k] for k in MU_KERNELS}, **batch_launches,
                 **{k: edge_launches[k] for k in EDGE_KERNELS},
@@ -3371,7 +3591,7 @@ def main() -> int:
                 **{f"{k}_batch": mu_batch_launches[f"{k}_batch"]
                    for k in MU_KERNELS},
                 **gnb_launches, **ofh_launches, **du_launches,
-                **alloc_launches, **split8_launches}
+                **alloc_launches, **split8_launches, **last_launches}
     for name, r in results.items():
         lib = ("" if r["library_ms"] is None
                else f", library {r['library_ms']:.4f} ms")

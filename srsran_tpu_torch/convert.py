@@ -12,7 +12,11 @@ neither JAX nor the JAX package.
 The split-7.2 fronthaul (``ofh/``, ``ru/ofh.py``, ``apps/ru_emulator.py``)
 has no parameters and no learned state: nothing of it crosses over here.
 Its messages are bytes, equal in both packages, and its configuration is
-the constructor arguments of ``RuOfh`` and ``OfhTimingConfig``.
+the constructor arguments of ``RuOfh`` and ``OfhTimingConfig``.  Nor
+do the encoders and LLR helpers (``polar.encode_chain``,
+``short_block.encode``, ``ssb.pbch_encode``, ``pdcch.encode_dci``,
+``llr.quantize``, ``ldpc_decode.check_parity``): they take bits and
+configs that already cross over, and hold no state.
 """
 
 from __future__ import annotations

@@ -18,7 +18,10 @@
 //   2. chest_avg_kernel: every block reduces the partials in the same fixed
 //      order (so all blocks hold the same CFO), then one thread per (port,
 //      layer, pilot) rotates each symbol's LS value, averages over symbols
-//      and scatters the average into the zero-filled TA buffer.
+//      and scatters the average into the zero-filled TA buffer: at k *
+//      stride on a regular comb (the JAX regular branch, :302-312, drops the
+//      comb's shift), at the pilot's own subcarrier from a table on an
+//      irregular one (the JAX scatter branch, :313-315).
 //   3. chest_interp_kernel: the smoothing + interpolation operator is a host
 //      band matrix (first column + [nsc, W] weights, W = 8 at the flagship)
 //      instead of the twin's dense [nsc, K] matmul (20.8 MB read per slot at
@@ -178,8 +181,9 @@ __global__ void chest_avg_kernel(int P, int L, int S, int Ksm, int use_cfo,
                                  float2* __restrict__ ls,
                                  float2* __restrict__ ls_avg,
                                  float2* __restrict__ tabuf, int nfft,
-                                 int stride_sm, float* __restrict__ stats,
-                                 int cfo_slot) {
+                                 int stride_sm,
+                                 const int* __restrict__ ta_idx,
+                                 float* __restrict__ stats, int cfo_slot) {
   __shared__ float2 sh[NT];
   const size_t b = blockIdx.y;                        // slot
   partials += b * nparts;
@@ -206,7 +210,8 @@ __global__ void chest_avg_kernel(int P, int L, int S, int Ksm, int use_cfo,
   }
   const float2 avg = make_float2(acc.x / (float)S, acc.y / (float)S);
   ls_avg[gid] = avg;
-  tabuf[(size_t)pl * nfft + (size_t)k * stride_sm] = avg;
+  tabuf[(size_t)pl * nfft +
+        (ta_idx ? (size_t)ta_idx[k] : (size_t)k * stride_sm)] = avg;
 }
 
 __device__ __forceinline__ float2 band_row(const int* __restrict__ first,
@@ -395,7 +400,8 @@ inline int stats_blocks(int S, int K) {
 // slot-major; the pilots per slot unless shared_pilots).  stats: float
 // [slots, 4P + 2] = noise_var, rsrp, epre, snr (each [P]), cfo, ta; pass 2
 // writes the cfo, srsran_chest_ta the rest.  tabuf [slots, P*L, nfft] is
-// zeroed here and filled by pass 2.
+// zeroed here and filled by pass 2, at ta_idx [Ksm] (an irregular comb's
+// despread subcarriers) or, when it is null, at k * stride_sm.
 extern "C" int srsran_chest_estimate(
     void* grid, int nsym_grid, int nsc_grid, void* syms, void* cols,
     void* expected, void* times, void* band_first, void* band_w,
@@ -403,7 +409,7 @@ extern "C" int srsran_chest_estimate(
     int cdm, int nsc, int W, int use_cfo, int nsym_out, int interp,
     float beta, float two_pi_dt, int nfft, int stride_sm, void* ls,
     void* ls_avg, void* partials, void* filtered, void* coeffs,
-    void* stats_part, void* stats, void* tabuf, int slots,
+    void* stats_part, void* stats, void* tabuf, void* ta_idx, int slots,
     int shared_pilots, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int Ksm = cdm ? K / 2 : K;
@@ -421,7 +427,8 @@ extern "C" int srsran_chest_estimate(
                      0, st>>>(
       P, L, S, Ksm, use_cfo, interp, (const float*)times,
       (const float2*)partials, n1, two_pi_dt, (float2*)ls, (float2*)ls_avg,
-      (float2*)tabuf, nfft, stride_sm, (float*)stats, 4 * P);
+      (float2*)tabuf, nfft, stride_sm, (const int*)ta_idx, (float*)stats,
+      4 * P);
   const long long n3 =
       (long long)P * L * nsym_out * nsc + (long long)P * L * K;
   chest_interp_kernel<<<dim3(blocks_for(n3, NT), slots), NT, 0, st>>>(

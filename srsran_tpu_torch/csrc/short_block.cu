@@ -16,6 +16,14 @@
 // (ties to the lower candidate index, as argmax does).  Bounds on this card:
 // operations, 2 * 2^K * E for the plain correlation (4 M at K = 11, E = 512);
 // the fold cuts them by E / P, so the kernel is launch-bound.
+//
+// K34, the encoder beside it: replaces srsran_tpu/ops/short_block.py::encode
+// (:32-66): RM(32, K) for K 3-11, the K = 1 and K = 2 patterns with their
+// Qm placeholders, and the cyclic repetition to E.  Twin: ops/short_block.py
+// ::encode_ref.  The same [2, P] tables: one thread per transmitted bit j
+// packs its codeword's K message bits into a word w (bit K-1-i for message
+// bit i, as the candidate index orders them) and writes parity(w & mask[j %
+// P]) ^ ones[j % P].  Bounds: bytes (K in, E out per codeword); launch-bound.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -90,6 +98,19 @@ __global__ void short_block_kernel(const float* __restrict__ llr, int E, int K,
   }
 }
 
+__global__ void short_block_encode_kernel(const int8_t* __restrict__ bits,
+                                          int B, int K, int E, int P,
+                                          const int* __restrict__ tables,
+                                          int8_t* __restrict__ out) {
+  const long long g = (long long)blockIdx.x * NT + threadIdx.x;
+  if (g >= (long long)B * E) return;
+  const int b = (int)(g / E), j = (int)(g % E), r = j % P;
+  const int8_t* m = bits + (size_t)b * K;
+  int w = 0;
+  for (int i = 0; i < K; ++i) w |= (m[i] & 1) << (K - 1 - i);
+  out[g] = (int8_t)((__popc(w & tables[r]) & 1) ^ tables[P + r]);
+}
+
 }  // namespace
 
 // llr f32 [B, E]; tables int32 [2, P] (masks, ones); bits int8 [B, K];
@@ -102,5 +123,18 @@ extern "C" int srsran_short_block_detect(void* llr, int B, int E, int K, int P,
   short_block_kernel<<<B, NT, 0, (cudaStream_t)stream>>>(
       (const float*)llr, E, K, P, (const int*)tables, (int8_t*)bits,
       (float*)metric);
+  return (int)cudaGetLastError();
+}
+
+// K34: bits int8 [B, K]; tables int32 [2, P] (masks, ones); out int8 [B, E].
+extern "C" int srsran_short_block_encode(void* bits, int B, int K, int E, int P,
+                                         void* tables, void* out,
+                                         void* stream) {
+  if (K < 1 || K > 11 || P < 1 || P > MAX_P || B < 1 || E < 1)
+    return (int)cudaErrorInvalidValue;
+  const long long n = (long long)B * E;
+  short_block_encode_kernel<<<(int)((n + NT - 1) / NT), NT, 0,
+                              (cudaStream_t)stream>>>(
+      (const int8_t*)bits, B, K, E, P, (const int*)tables, (int8_t*)out);
   return (int)cudaGetLastError();
 }

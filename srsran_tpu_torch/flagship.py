@@ -74,12 +74,16 @@ from .ops import channel_estimate as chest
 from .ops import (dl_control, dl_map, dl_rs, ldpc_decode, ldpc_encode,
                   ldpc_rate_match, ofdm, polar, polar_scl, short_block,
                   uci_demux, ul_demap)
+from .ops import llr as llr_ops
+from .ops.crc import crc
+from .ops.ldpc_graph import get_graph
 from .ops.modulation import BITS_PER_SYMBOL, demodulate
 from .ops.scrambling import descramble_llrs
 from .phy.slot_programs import (CellConfig, dl_slot_fn, dl_slot_fn_samples,
                                 ul_slot_fn)
 from .phy.upper import (csi_rs, dmrs, pdcch, pdsch, prach, ptrs_prs, pucch,
                         pusch, sch_decoder, srs, ssb, ue_tx)
+from .phy.upper import uci as uci_codec
 from .device import const
 from .ofh import compression as bfp
 from .phy.lower import amplitude_control, cfo, prach_demod
@@ -2010,3 +2014,191 @@ def split8_kernel_cases(rng: np.random.Generator, device,
                               (dl_samples, 0.0,
                                clip_ceiling_dbfs(dl_samples))),
     }
+
+
+# ------------------------------------------------ the last device functions
+
+#: Phase 16's K8 on an irregular comb: slot E's type 0 DM-RS (type 1, CDM
+#: group 0, ports 0-1) on 4 rx ports, through a channel with a delay of
+#: TYPE0_DELAY samples of a 2048-point symbol and noise of TYPE0_NOISE.
+TYPE0_DELAY = 9
+TYPE0_NOISE = 0.05
+
+
+def type0_chest_case(rng: np.random.Generator, device,
+                     td_strategy: str = "average") -> tuple:
+    """(args, kw) of ``chest.estimate_from_grid`` on slot E's type 0 PRB
+    list (``DU_E_PDSCH``): the pilots of DM-RS ports 0 and 1 (the fd-OCC
+    cover on port 1, so ``cdm_pairs``) at their absolute subcarriers on
+    the DM-RS symbols of a [4, 14, 3276] grid, ``filter`` smoothing, CFO
+    from the symbol times, ``td_strategy`` as given."""
+    cfg = dataclasses.replace(pdsch.dmrs_config(DU_E_PDSCH), ports=(0, 1))
+    pilots = torch.stack([dmrs.pilots_for_port(cfg, p, device="cpu")
+                          for p in cfg.ports]).numpy()             # [2, S, K]
+    scs = dmrs._type1_sc_indices(cfg.rb_start, cfg.rb_count, 0, cfg.prbs)
+    nsc, ports = CELL.nof_sc, CELL.nof_ports
+    h = ((rng.normal(size=(ports, 2, 1)) + 1j * rng.normal(size=(ports, 2, 1)))
+         * np.exp(-2j * np.pi * np.arange(nsc) * TYPE0_DELAY / 2048)[None, None])
+    grid = TYPE0_NOISE * (rng.normal(size=(ports, 14, nsc))
+                          + 1j * rng.normal(size=(ports, 14, nsc)))
+    for i, s in enumerate(cfg.symbols):
+        grid[:, s, scs] += (h[:, :, scs] * pilots[None, :, i]).sum(axis=1)
+    syms = tuple(int(s) for s in cfg.symbols)
+    args = (_up(grid.astype(np.complex64), device), syms, 0,
+            _up(pilots.astype(np.complex64), device), scs, nsc, 14,
+            float(15_000 << CELL.numerology))
+    kw = dict(stride=2, smoothing="filter", cdm_pairs=True,
+              dmrs_symbol_times_s=pusch._symbol_times(CELL.numerology)[
+                  list(syms)],
+              td_strategy=td_strategy, dmrs_symbol_idx=np.array(syms))
+    return args, kw
+
+
+#: Phase 16's batch of UCI codewords (the cell edge's F3 code) and the
+#: short-block sweep: K 1-11 at each Qm, two lengths each.
+LAST_UCI_BATCH = 64
+SB_QMS = (1, 2, 4, 6)
+
+
+def _f3_coded_bits(cfg: pucch.PucchF3Config) -> int:
+    return (len(pucch._f3_symbol_split(cfg)[1]) * 12 * cfg.nof_rb
+            // cfg.occ_length * pucch._f3_qm(cfg))
+
+
+def last_inputs(rng: np.random.Generator, ul_slot: tuple, device) -> dict:
+    """The inputs of :func:`last_path` on the flagship cell: a MIB, slot
+    E's DCIs and payloads, one slot's PUCCH UCI (phase 4's F2s), the F2's
+    and a batch of LAST_UCI_BATCH F3 polar messages (CRC attached), 11-bit
+    short-block messages, K8's type 0 cases at both time strategies, and
+    ``ul_slot`` (payload, rx samples, context) of :func:`make_slots`."""
+    def bits(shape):
+        return _up(rng.integers(0, 2, shape).astype(np.int8), device)
+
+    dcis = du_alloc_pdcchs("E")
+    uci = ue_uci(rng)
+    f2_code, f2_crc = pucch._f2_polar_cfg(
+        F2_POLAR.nof_uci_bits, 16 * F2_POLAR.nof_rb * F2_POLAR.nof_symbols)
+    f2_bits = _up(uci["f2_polar"], device)[None]
+    uci_code, _ = uci_codec._polar_cfg(EDGE.f3.nof_uci_bits,
+                                       _f3_coded_bits(EDGE.f3))
+    return dict(
+        mib=bits(MIB_BITS), dcis=dcis,
+        dci_payloads=[_up(p, device) for p in
+                      du_alloc_payloads(rng)["dci"][:len(dcis)]],
+        uci=uci, f2_code=f2_code,
+        f2_msg=torch.cat([f2_bits, crc(f2_bits, f"crc{f2_crc}")], dim=-1),
+        uci_code=uci_code, uci_msg=bits((LAST_UCI_BATCH, uci_code.k)),
+        sb_bits=bits((LAST_UCI_BATCH, 11)),
+        chest={td: type0_chest_case(rng, device, td)
+               for td in ("average", "interpolate")},
+        ul_slot=ul_slot,
+        flip=_up(rng.integers(0, SEG.codeword_bits, SEG.nof_codeblocks),
+                 device))
+
+
+def last_path(inp: dict) -> dict:
+    """The last device functions on the flagship cell, as phase 16 of
+    ``chip_smoke.py`` drives them: the PBCH by ``pbch_encode`` (K33) and
+    ``pbch_modulate`` beside K27's SSB patch; slot E's DCIs mapped by K27,
+    encoded again by ``encode_dci`` (K33) and received back (K28, K15);
+    the F2s sent (K33, K34);
+    the UCI batch (K33); K34 at every K and Qm; the flagship PUSCH's LLRs
+    (K4, K8, K3) quantized and dequantized (K35) and decoded (K2, K1); K1
+    on every check row and K36 on its codeblocks, clean and with one bit
+    flipped in each; K8 on the type 0 comb.  Returns the outputs."""
+    cell, seg, cfg = CELL, SEG, PUSCH
+    payload, rx, ctx = inp["ul_slot"]
+    dev = rx.device
+    out = {}
+    out["pbch"] = ssb.pbch_modulate(ssb.pbch_encode(SSB, inp["mib"]), SSB)
+    out["ssb_patch"] = ssb.ssb_block(SSB, inp["mib"])
+    empty = torch.zeros((1, 14, cell.nof_sc), dtype=torch.complex64,
+                        device=dev)
+    grid = empty.clone()
+    for c, p in zip(inp["dcis"], inp["dci_payloads"]):
+        pdcch.process(grid, p, c)
+    out["pdcch_grid"] = grid
+    out["encoded_dcis"] = [pdcch.encode_dci(p, c) for c, p in
+                           zip(inp["dcis"], inp["dci_payloads"])]
+    out["decoded_dcis"] = [pdcch.recover(grid, c) for c in inp["dcis"]]
+    out["f2_grids"] = [pucch.transmit_format2(empty, c, inp["uci"][key])
+                       for c, key in ((F2_POLAR, "f2_polar"),
+                                      (F2_SB, "f2_sb"))]
+    out["uci_batch"] = polar.encode_chain(inp["uci_msg"], inp["uci_code"])
+    out["short_blocks"] = {
+        (k, qm, e): short_block.encode(inp["sb_bits"][:, :k], e, qm)
+        for k in range(1, 12) for qm in SB_QMS for e in (3 * qm + 1, 32 * qm)}
+    grid_ul = ofdm.demodulate_slot(rx, cell.nof_sc, cell.dft_size,
+                                   cell.numerology, cell.cp, 0,
+                                   cell.center_freq_hz)
+    llr, est, _ = pusch.codeword_llrs(grid_ul, cfg, ctx["pusch"][0])
+    q = llr_ops.quantize(llr)
+    soft = llr_ops.to_float(q)
+    out.update(llr=llr, llr_i8=q, pusch=pusch.decode_from_llrs(soft, est, cfg))
+    qm = BITS_PER_SYMBOL[cfg.modulation]
+    bg, z, c = seg.base_graph, seg.lifting_size, seg.nof_codeblocks
+    _, full = ldpc_rate_match.rate_dematch_combine(
+        soft, c, pdsch._cb_rate_match_sizes(soft.shape[-1], c, qm,
+                                            cfg.nof_layers),
+        0, qm, bg, z, seg.cb_info_bits, seg.full_block_bits,
+        seg.codeword_bits)
+    cbs, _, out["sweeps"] = ldpc_decode.decode_early_stop(
+        full, bg, z, len(get_graph(bg, z).rows), 6,
+        ldpc_decode.DEFAULT_SCALING, "crc24B", seg.cb_info_bits)
+    flipped = cbs.clone()
+    flipped[torch.arange(c, device=dev), inp["flip"]] ^= 1
+    out.update(codeblocks=cbs,
+               parity=ldpc_decode.check_parity(cbs, bg, z),
+               parity_flipped=ldpc_decode.check_parity(flipped, bg, z))
+    out["chest"] = {td: chest.estimate_from_grid(*a, **kw)
+                    for td, (a, kw) in inp["chest"].items()}
+    return out
+
+
+def last_kernel_cases(inp: dict, out: dict) -> dict:
+    """name -> (wrapper, plain twin, args) for K33-K36 and K8's type 0
+    comb at phase 16's shapes: K33 on phase 4's 22-bit F2 (and the PBCH,
+    one AL16 DCI, the UCI batch), K34 on its 6-bit F2 (and the 11-bit
+    batch), K35 on the flagship PUSCH's LLRs, K36 on K1's codeblocks."""
+    dev = inp["mib"].device
+    al16, pay16 = next((c, p) for c, p in zip(inp["dcis"],
+                                              inp["dci_payloads"])
+                       if c.aggregation_level == 16)
+    ext = torch.cat([torch.ones((1, 24), dtype=torch.int8, device=dev),
+                     pay16[None]], dim=-1)
+    sb_e = 16 * F2_SB.nof_rb * F2_SB.nof_symbols
+    seg = SEG
+    cases = {
+        "polar_encode": (inp["f2_msg"], inp["f2_code"]),
+        "polar_encode_pbch": (ssb.pbch_message(SSB, inp["mib"]),
+                              ssb._pbch_code()),
+        "polar_encode_dci_al16": (torch.cat([pay16[None], crc(
+            ext, "crc24C")], dim=-1), pdcch._dci_code(
+                al16.payload_bits + 24, pdcch.BITS_PER_CCE * 16)),
+        "polar_encode_uci64": (inp["uci_msg"], inp["uci_code"]),
+    }
+    cases = {k: (polar.encode_chain, polar.encode_chain_ref, a)
+             for k, a in cases.items()}
+    cases.update({
+        "short_block_encode": (short_block.encode, short_block.encode_ref,
+                               (_up(inp["uci"]["f2_sb"], dev)[None], sb_e,
+                                2)),
+        "short_block_encode_k11": (short_block.encode,
+                                   short_block.encode_ref,
+                                   (inp["sb_bits"], 512, 2)),
+        "llr_quantize": (llr_ops.quantize, llr_ops.quantize_ref,
+                         (out["llr"],)),
+        "llr_dequantize": (llr_ops.dequantize, llr_ops.dequantize_ref,
+                           (out["llr_i8"],)),
+        "ldpc_check_parity": (ldpc_decode.check_parity,
+                              ldpc_decode.check_parity_ref,
+                              (out["codeblocks"], seg.base_graph,
+                               seg.lifting_size)),
+    })
+    for td, (a, kw) in inp["chest"].items():
+        name = "channel_estimate_type0" + ("" if td == "average"
+                                           else "_interp")
+        cases[name] = (functools.partial(chest.estimate_from_grid, **kw),
+                       functools.partial(chest.estimate_from_grid_ref, **kw),
+                       a)
+    return cases

@@ -86,8 +86,8 @@ SIGNATURES = {
     "srsran_ofdm_cp_insert": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "srsran_chest_estimate": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
-                              _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                              _I, _P],
+                              _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _P],
     "srsran_chest_ta": [_P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P, _I, _P],
     "srsran_prach_corr": [_P, _P, _I, _I, _I, _I, _P, _P],
     "srsran_prach_detect": [_P, _I, _I, _I, _F, _P, _P, _I, _I, _I, _I, _F,
@@ -102,6 +102,11 @@ SIGNATURES = {
     "srsran_pucch_f2_demap": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _F,
                               _P, _P, _I, _P],
     "srsran_short_block_detect": [_P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "srsran_short_block_encode": [_P, _I, _I, _I, _I, _P, _P, _P],
+    "srsran_polar_encode": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P],
+    "srsran_llr_quantize": [_P, _L, _F, _P, _P],
+    "srsran_llr_dequantize": [_P, _L, _F, _P, _P],
+    "srsran_ldpc_parity": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "srsran_polar_decode": [_P, _I, _I, _I, _P, _P, _I, _P, _I, _I, _I, _I,
                             _P, _P, _P],
     "srsran_pusch_tp_demap": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P,

@@ -10,11 +10,15 @@ the smoothing-and-interpolation operator as the host matrix of
 pilots straight from the resource grid in the hand kernels of
 csrc/channel_estimate.cu, which apply the same operator in band form
 (:func:`_band`: first column + [nsc, W] weights, W = 8 at the flagship)
-and compute RSRP, EPRE, noise, CFO and TA on the device; on CPU tensors it
-runs :func:`estimate_from_grid_ref`, the twin (gather, then
-:func:`estimate`).  A leading slot axis on the grid (and on the pilots,
-which are slot context) runs every pass once for all slots; the band and
-the tables are shared, and each result gains the slot axis in front.
+and compute RSRP, EPRE, noise, CFO and TA on the device, over a regular
+comb (tables keyed by first, step, count) or any pilot list, such as a
+type 0 PDSCH's DM-RS (tables keyed by the pilots' bytes, the TA buffer
+filled at each despread pilot's subcarrier as the JAX scatter branch fills
+it); on CPU tensors it runs :func:`estimate_from_grid_ref`, the twin
+(gather, then :func:`estimate`).  A leading slot axis on the grid (and on
+the pilots, which are slot context) runs every pass once for all slots; the
+band and the tables are shared, and each result gains the slot axis in
+front.
 """
 
 from __future__ import annotations
@@ -238,14 +242,20 @@ def _time_alignment(ls_avg: torch.Tensor, pilot_scs: np.ndarray, nof_sc: int,
     pilot_scs = np.asarray(pilot_scs)
     k_p = len(pilot_scs)
     regular = k_p > 1 and bool(np.all(np.diff(pilot_scs) == stride))
-    if not regular:
-        raise NotImplementedError(
-            "TA over an irregular pilot comb arrives with RA type 0 "
-            "(ROADMAP §2)")
-    z = torch.zeros_like(ls_avg)
-    inter = torch.stack([ls_avg] + [z] * (stride - 1), dim=-1)
-    inter = inter.reshape(ls_avg.shape[:-1] + (k_p * stride,))
-    buf = torch.nn.functional.pad(inter, (0, nfft - k_p * stride))
+    if regular:
+        # zero-interleave; |ifft| does not see the comb's global shift
+        # (a time-domain phase ramp), so pilot_scs[0] is dropped, as the
+        # JAX regular branch does
+        z = torch.zeros_like(ls_avg)
+        inter = torch.stack([ls_avg] + [z] * (stride - 1), dim=-1)
+        inter = inter.reshape(ls_avg.shape[:-1] + (k_p * stride,))
+        buf = torch.nn.functional.pad(inter, (0, nfft - k_p * stride))
+    else:
+        # an irregular comb: each pilot at its own subcarrier (the JAX
+        # scatter branch, which keeps the shift)
+        buf = ls_avg.new_zeros(ls_avg.shape[:-1] + (nfft,))
+        buf[..., const(i64, tuple(int(s) for s in pilot_scs),
+                       device=ls_avg.device)] = ls_avg
     h_t = torch.fft.ifft(buf, dim=-1)
     power = torch.sum(h_t.abs() ** 2, dim=tuple(range(h_t.ndim - 1)))  # [nfft]
     max_delay = nfft // (2 * stride)
@@ -284,6 +294,27 @@ def _band_table(i: int, first: int, stride: int, count: int, nof_sc: int,
     k < count (0: first columns, 1: weights)."""
     comb = tuple(range(first, first + stride * count, stride))
     return _band(comb, nof_sc, strategy, stride)[i]
+
+
+@functools.lru_cache(maxsize=64)
+def _comb_tables(pilots: bytes, cdm_pairs: bool, first_sc: int, nof_sc: int,
+                 strategy: str, stride: int) -> tuple:
+    """K8's tables for any pilot list, keyed by its int64 bytes: (int32
+    [nof_sc + 2 K_p + K_sm]: the band's first columns, the grid columns,
+    the pilots, each despread pilot's TA buffer index; float32 [nof_sc, W]
+    the band's weights).  An irregular comb's band stays narrow in
+    pilot-index space."""
+    scs = np.frombuffer(pilots, dtype=np.int64)
+    scs_sm = (scs[0::2] + scs[1::2]) // 2 if cdm_pairs else scs
+    first, weights = _band(tuple(int(s) for s in scs_sm), nof_sc, strategy,
+                           stride)
+    ints = np.concatenate([first, first_sc + scs, scs, scs_sm])
+    return ints.astype(np.int32), weights
+
+
+def _comb_part(i: int, *key) -> np.ndarray:
+    """One of :func:`_comb_tables` (0: the int32 tables, 1: the weights)."""
+    return _comb_tables(*key)[i]
 
 
 def _i32(values: tuple) -> np.ndarray:
@@ -367,11 +398,10 @@ def estimate_from_grid(grid: torch.Tensor, symbols: tuple, first_sc: int,
         scs_sm, stride_sm = scs_np, stride
     k_sm = len(scs_sm)
     step = int(scs_np[1] - scs_np[0]) if n_k > 1 else 0
-    if not (k_sm > 1 and bool(np.all(np.diff(scs_sm) == stride_sm))
-            and bool(np.all(np.diff(scs_np) == step))):
-        raise NotImplementedError(
-            "TA over an irregular pilot comb arrives with RA type 0 "
-            "(ROADMAP §2)")
+    # A regular comb keys its tables by (first, step, count); any other
+    # pilot list by its pilots' bytes, with the TA buffer's scatter table.
+    regular = (k_sm > 1 and bool(np.all(np.diff(scs_sm) == stride_sm))
+               and bool(np.all(np.diff(scs_np) == step)))
     use_cfo = (estimate_cfo and n_s >= 2
                and dmrs_symbol_times_s is not None)
     interp = (td_strategy == "interpolate" and dmrs_symbol_idx is not None
@@ -382,14 +412,22 @@ def estimate_from_grid(grid: torch.Tensor, symbols: tuple, first_sc: int,
         nfft *= 2
     dev = grid.device
     n_p = grid.shape[-3]
-    # Host tables keyed by the comb (first, step, count), not by its pilots.
-    key = (int(scs_sm[0]), stride_sm, k_sm, nof_sc, smoothing)
-    first = const(_band_table, 0, *key, device=dev)
-    weights = const(_band_table, 1, *key, device=dev)
     syms = const(_i32, tuple(int(s) for s in symbols), device=dev)
-    p0 = int(scs_np[0])
-    cols = const(_comb_i32, int(first_sc) + p0, step, n_k, device=dev)
-    pilot_idx = const(_comb_i32, p0, step, n_k, device=dev)
+    ta_idx = None
+    if regular:
+        key = (int(scs_sm[0]), stride_sm, k_sm, nof_sc, smoothing)
+        first = const(_band_table, 0, *key, device=dev)
+        weights = const(_band_table, 1, *key, device=dev)
+        p0 = int(scs_np[0])
+        cols = const(_comb_i32, int(first_sc) + p0, step, n_k, device=dev)
+        pilot_idx = const(_comb_i32, p0, step, n_k, device=dev)
+    else:
+        key = (np.ascontiguousarray(scs_np, dtype=np.int64).tobytes(),
+               bool(cdm_pairs), int(first_sc), nof_sc, smoothing, stride_sm)
+        ints = const(_comb_part, 0, *key, device=dev)
+        weights = const(_comb_part, 1, *key, device=dev)
+        first, cols, pilot_idx, ta_idx = torch.split(
+            ints, (nof_sc, n_k, n_k, k_sm))
     times = td_i0 = td_w = None
     two_pi_dt = 1.0
     if use_cfo:
@@ -430,8 +468,8 @@ def estimate_from_grid(grid: torch.Tensor, symbols: tuple, first_sc: int,
         int(use_cfo), nsym_out, int(interp), float(beta_scaling), two_pi_dt,
         nfft, stride_sm, _build.ptr(ls), _build.ptr(ls_avg),
         _build.ptr(partials), _build.ptr(filtered), _build.ptr(coeffs),
-        _build.ptr(stats_part), _build.ptr(stats), _build.ptr(tabuf), slots,
-        int(shared), stream), "chest_estimate")
+        _build.ptr(stats_part), _build.ptr(stats), _build.ptr(tabuf),
+        opt(ta_idx), slots, int(shared), stream), "chest_estimate")
     h_t = torch.fft.ifft(tabuf, dim=-1)
     _build.check(lib.srsran_chest_ta(
         _build.ptr(h_t), n_p, n_l, n_s, n_k, nfft, nfft // (2 * stride_sm),

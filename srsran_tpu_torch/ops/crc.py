@@ -59,6 +59,11 @@ def _remainder_matrix(poly_name: str, nbits: int) -> np.ndarray:
     return m
 
 
+def crc_matrix(poly_name: str, nbits: int) -> torch.Tensor:
+    """The host remainder matrix [nbits, L] as a tensor (CPU)."""
+    return torch.from_numpy(_remainder_matrix(poly_name, nbits).copy())
+
+
 def crc(bits: torch.Tensor, poly_name: str) -> torch.Tensor:
     """CRC of MSB-first bit array; batched over leading dims.
 

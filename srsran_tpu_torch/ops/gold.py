@@ -43,3 +43,11 @@ def gold_sequence(c_init: int, length: int, advance: int = 0, *,
     device is always the caller's, never a default."""
     return const(gold_sequence_np, int(c_init), int(length), int(advance),
                  device=device)
+
+
+def c_init_state(c_init) -> torch.Tensor:
+    """x2 initial state bits int8 [..., 31]: x2(i) = bit i of c_init (LSB
+    first), on the device of ``c_init`` when it is a tensor."""
+    c = torch.as_tensor(c_init).to(torch.int64)
+    shifts = torch.arange(31, dtype=torch.int64, device=c.device)
+    return ((c[..., None] >> shifts) & 1).to(torch.int8)

@@ -17,6 +17,10 @@ twins :func:`decode_early_stop_ref` / :func:`decode_ref`.  They replace
 srsran_tpu/ops/ldpc_decode.py::decode_early_stop and decode; on the card a
 sweep is latency-bound on shared memory (46 dependent rows per CTA, one CTA
 per codeblock, so 37 of 132 SMs busy at the flagship).
+
+:func:`check_parity` is the K36 wrapper (csrc/ldpc_parity.cu: one CTA per
+codeword over K1's edge tables, a block-wide OR of the rows' syndromes);
+on CPU tensors its twin :func:`check_parity_ref`.
 """
 
 from __future__ import annotations
@@ -37,6 +41,10 @@ KERNEL = kernels.register(kernels.Kernel(
     source="srsran_tpu_torch/csrc/ldpc_decode.cu",
     replaces="srsran_tpu/ops/ldpc_decode.py:112"))
 KERNEL_BATCH = kernels.batched(KERNEL)
+PARITY_KERNEL = kernels.register(kernels.Kernel(
+    name="ldpc_check_parity", route="cuda",
+    source="srsran_tpu_torch/csrc/ldpc_parity.cu",
+    replaces="srsran_tpu/ops/ldpc_decode.py:158"))
 
 DEFAULT_SCALING = 0.8
 DEFAULT_MAX_ITER = 6
@@ -219,3 +227,43 @@ def decode(llrs: torch.Tensor, base_graph: int, z: int, nof_layers: int = 0,
     bits, soft, _ = _decode_cuda(llrs, base_graph, z, nof_layers, max_iter,
                                  scaling, None, 0)
     return bits, soft
+
+
+def check_parity_ref(bits: torch.Tensor, base_graph: int,
+                     z: int) -> torch.Tensor:
+    """Plain twin of :func:`check_parity`: each lifted row's XOR of its
+    rolled columns."""
+    g = get_graph(base_graph, z)
+    b = bits.reshape(bits.shape[0], g.nof_cols, z).to(torch.uint8) & 1
+    ok = torch.ones(bits.shape[0], dtype=torch.bool, device=bits.device)
+    for row in g.rows:
+        acc = torch.zeros((bits.shape[0], z), dtype=torch.uint8,
+                          device=bits.device)
+        for c, s in row:
+            acc = acc ^ (torch.roll(b[:, c], -s, dims=-1) if s else b[:, c])
+        ok = ok & (acc == 0).all(dim=-1)
+    return ok
+
+
+def check_parity(bits: torch.Tensor, base_graph: int, z: int) -> torch.Tensor:
+    """Syndrome-zero check, batched: hard bits int8 [B, NV*Z] -> bool [B]."""
+    if not is_cuda(bits):
+        return check_parity_ref(bits, base_graph, z)
+    g = get_graph(base_graph, z)
+    if bits.ndim != 2 or bits.shape[1] != g.nof_cols * z:
+        raise ValueError(f"bits must be [B, {g.nof_cols * z}], got "
+                         f"{tuple(bits.shape)}")
+    dev = bits.device
+    nrows = len(g.rows)
+    edges = const(_edge_tables, base_graph, z, nrows, device=dev)
+    n_edges = (edges.shape[0] - nrows - 1) // 2
+    x = bits.to(torch.int8).contiguous()
+    ok = torch.empty(x.shape[0], dtype=torch.bool, device=dev)
+    _build.check(_build.load().srsran_ldpc_parity(
+        _build.ptr(x), x.shape[0], nrows, g.nof_cols, z,
+        _build.ptr(edges[:nrows + 1]),
+        _build.ptr(edges[nrows + 1:nrows + 1 + n_edges]),
+        _build.ptr(edges[nrows + 1 + n_edges:]), _build.ptr(ok),
+        _build.stream_of(x)), "ldpc_check_parity")
+    PARITY_KERNEL.count()
+    return ok

@@ -132,6 +132,11 @@ def encode(bits: torch.Tensor, base_graph: int, z: int) -> torch.Tensor:
     return full.reshape(batch, g.nof_cols * z).to(torch.int8)
 
 
+def encode_graph(bits: torch.Tensor, graph) -> torch.Tensor:
+    """:func:`encode` for an ``ops.ldpc_graph.LdpcGraph``."""
+    return encode(bits, graph.base_graph, graph.z)
+
+
 def _tb_crc_poly(seg) -> str:
     return "crc24A" if seg.tb_crc_bits == 24 else "crc16"
 

@@ -4,10 +4,17 @@ Port of srsran_tpu/ops/polar.py.  Host side: the GF(2) matrix M [K, E] of
 the whole encode chain (``rate_match(encode(allocate(msg))) == msg @ M mod
 2`` for codes without PC bits; the PDCCH and PBCH chains fold it into their
 affine maps) and the rate-matching index plans.  Device side: the UE-side
-encoder (:func:`allocate` with PC bits, :func:`encode`, :func:`rate_match`,
-plain), and the receiver's :func:`rate_dematch` and :func:`sc_decode`
-(plain, the JAX package's tree-pruned simplified SC, node classes RATE_0 /
-RATE_1 / RATE_R of polar_decoder_impl.h:36-143).
+encoder steps (:func:`allocate` with PC bits, :func:`encode`,
+:func:`rate_match`, plain, under the JAX names), and the receiver's
+:func:`rate_dematch` and :func:`sc_decode` (plain, the JAX package's
+tree-pruned simplified SC, node classes RATE_0 / RATE_1 / RATE_R of
+polar_decoder_impl.h:36-143).
+
+:func:`encode_chain` is the K33 wrapper, the whole chain the callers use
+(message bits int8 [B, K] -> transmitted bits int8 [B, E]): on CUDA tensors
+one launch of csrc/polar_encode.cu (one CTA per codeword, u in shared
+memory, a host table of the info, PC-source and rate-match positions), on
+CPU tensors its twin :func:`encode_chain_ref` (the three steps).
 
 :func:`decode` is the K15 wrapper: rate dematch, SC decode and the CRC
 check of the decoded message, on CUDA tensors in one hand kernel
@@ -36,8 +43,13 @@ KERNEL = kernels.register(kernels.Kernel(
     source="srsran_tpu_torch/csrc/polar_sc.cu",
     replaces="srsran_tpu/ops/polar.py:171"))
 KERNEL_BATCH = kernels.batched(KERNEL)
+ENCODE_KERNEL = kernels.register(kernels.Kernel(
+    name="polar_encode", route="cuda",
+    source="srsran_tpu_torch/csrc/polar_encode.cu",
+    replaces="srsran_tpu/ops/polar.py:37"))
 
 _ENCODE_MATRIX_CACHE: dict = {}
+MAX_N = 1024            # csrc/polar_encode.cu MAX_N
 
 
 def encode_matrix(code: PolarCode) -> np.ndarray:
@@ -145,7 +157,7 @@ def allocate(msg: torch.Tensor, code: PolarCode) -> torch.Tensor:
     u = torch.zeros((msg.shape[0], code.big_n), dtype=torch.int8, device=dev)
     u[:, torch.as_tensor(code.info_set, dtype=torch.int64,
                          device=dev)] = msg.to(torch.int8)
-    for pos, src in _pc_sources(code.big_n, tuple(code.pc_set.tolist()),
+    for pos, src in _pc_sources(code.big_n, _pc_set(code),
                                 tuple(code.info_set.tolist())):
         if src:
             idx = torch.as_tensor(src, dtype=torch.int64, device=dev)
@@ -163,6 +175,68 @@ def rate_match(x: torch.Tensor, code: PolarCode) -> torch.Tensor:
     out = x[:, torch.as_tensor(_rm_plan(code.big_n, code.e, code.mode), **i64)]
     if code.ibil:
         out = out[:, torch.as_tensor(_triangle_perm(code.e), **i64)]
+    return out
+
+
+def _pc_set(code: PolarCode) -> tuple:
+    return () if code.pc_set is None else tuple(code.pc_set.tolist())
+
+
+def _encode_keys(code: PolarCode) -> tuple:
+    """Hashable key of one code's K33 table (a PolarCode holds numpy
+    arrays, so it cannot key a cache itself)."""
+    return (code.big_n, code.e, code.mode, code.ibil, code.iil,
+            tuple(code.info_set.tolist()), _pc_set(code))
+
+
+@functools.lru_cache(maxsize=None)
+def _encode_table(big_n: int, e: int, mode: str, ibil: bool, iil: bool,
+                  info_set: tuple, pc_set: tuple) -> np.ndarray:
+    """int32 K33 table of one code (csrc/polar_encode.cu): info_pos [K],
+    info_src [K] (u[info_pos[j]] = msg[info_src[j]], i_IL folded in),
+    pc_pos [npc], pc_start [npc + 1], pc_src [ns] (each PC bit the XOR of
+    u at its sources), plan [E] (transmitted bit i = x[plan[i]], i_BIL
+    folded in)."""
+    k = len(info_set)
+    src = input_interleave_map(k) if iil else np.arange(k)
+    pcs = _pc_sources(big_n, pc_set, info_set)
+    starts = np.cumsum([0] + [len(s) for _, s in pcs])
+    plan = _rm_plan(big_n, e, mode)
+    if ibil:
+        plan = plan[_triangle_perm(e)]
+    return np.concatenate([
+        np.asarray(info_set), src, [p for p, _ in pcs], starts,
+        [i for _, s in pcs for i in s], plan]).astype(np.int32)
+
+
+def encode_chain_ref(msg: torch.Tensor, code: PolarCode) -> torch.Tensor:
+    """Plain twin of :func:`encode_chain`: allocate -> encode ->
+    rate_match, on the device of ``msg``."""
+    return rate_match(encode(allocate(msg, code), code.n), code)
+
+
+def encode_chain(msg: torch.Tensor, code: PolarCode) -> torch.Tensor:
+    """The whole TS38.212 polar TX chain: message bits int8 [B, K] (CRC
+    attached) -> transmitted bits int8 [B, E] -- input interleaver (DL),
+    info and PC bits, the butterfly, rate matching and the channel
+    interleaver (UL), as :func:`allocate`, :func:`encode` and
+    :func:`rate_match` compose them."""
+    if not is_cuda(msg):
+        return encode_chain_ref(msg, code)
+    if msg.ndim != 2 or msg.shape[-1] != code.k or code.big_n > MAX_N:
+        raise ValueError(f"msg must be [B, {code.k}] for N <= {MAX_N}, got "
+                         f"{tuple(msg.shape)} at N = {code.big_n}")
+    dev = msg.device
+    table = const(_encode_table, *_encode_keys(code), device=dev)
+    npc = len(_pc_set(code))
+    ns = table.shape[0] - 2 * code.k - 2 * npc - 1 - code.e
+    msg = msg.to(torch.int8).contiguous()
+    out = torch.empty((msg.shape[0], code.e), dtype=torch.int8, device=dev)
+    lib = _build.load()
+    _build.check(lib.srsran_polar_encode(
+        _build.ptr(msg), msg.shape[0], code.k, code.n, _build.ptr(table), npc,
+        ns, code.e, _build.ptr(out), _build.stream_of(msg)), "polar_encode")
+    ENCODE_KERNEL.count()
     return out
 
 

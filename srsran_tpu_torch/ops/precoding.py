@@ -19,6 +19,13 @@ def layer_map(symbols: torch.Tensor, nof_layers: int) -> torch.Tensor:
     return x.transpose(-1, -2)
 
 
+def layer_demap(layers: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`layer_map`: [..., v, M] -> [..., v*M] (a transpose
+    and a reshape, no arithmetic)."""
+    x = layers.transpose(-1, -2)
+    return x.reshape(x.shape[:-2] + (-1,))
+
+
 def precode(layers: torch.Tensor, matrix: torch.Tensor) -> torch.Tensor:
     """Apply precoding.  layers [..., L, S], matrix [P, L] -> [..., P, S]."""
     return torch.einsum("pl,...ls->...ps", matrix.to(layers.dtype), layers)

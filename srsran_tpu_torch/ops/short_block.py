@@ -10,7 +10,12 @@ csrc/short_block.cu (one block per codeword, threads over the 2^K
 candidates, each built from the generator bits: no [2^K, E] table); on CPU
 tensors its twin :func:`detect_ref`, the JAX package's correlation against
 the host candidate bank.  A slot batch's codewords [B, N, E] fold into one
-launch of B * N blocks.  :func:`encode` (UE side) is plain.
+launch of B * N blocks.
+
+:func:`encode` (UE side) is the K34 wrapper: on CUDA tensors the encode
+kernel of the same source (one thread per transmitted bit, from the same
+[2, P] generator tables), on CPU tensors its twin :func:`encode_ref` (the
+tables' affine map in torch ops).  Either stays on the device of its bits.
 """
 
 from __future__ import annotations
@@ -31,6 +36,10 @@ KERNEL = kernels.register(kernels.Kernel(
     source="srsran_tpu_torch/csrc/short_block.cu",
     replaces="srsran_tpu/ops/short_block.py:80"))
 KERNEL_BATCH = kernels.batched(KERNEL)
+ENCODE_KERNEL = kernels.register(kernels.Kernel(
+    name="short_block_encode", route="cuda",
+    source="srsran_tpu_torch/csrc/short_block.cu",
+    replaces="srsran_tpu/ops/short_block.py:32"))
 
 _DATA = Path(__file__).resolve().parent.parent / "data" / "short_block_tables.npz"
 MAX_K = 11
@@ -68,16 +77,49 @@ def _encode_np(bits: np.ndarray, e: int, qm: int) -> np.ndarray:
     return np.tile(base, (1, -(-e // base.shape[-1])))[:, :e]
 
 
+def _period_index(e: int, p: int) -> np.ndarray:
+    return np.arange(e, dtype=np.int64) % p
+
+
+def encode_ref(bits: torch.Tensor, e: int, qm: int = 1) -> torch.Tensor:
+    """Plain twin of :func:`encode`: codeword = ones ^ (m @ G mod 2), one
+    period from the generator tables, tiled to E, on the device of
+    ``bits``."""
+    dev = bits.device
+    k = bits.shape[-1]
+    tables = const(_kernel_tables, k, qm, device=dev)            # [2, P]
+    w = ((bits.to(torch.int32) & 1)
+         << const(_shifts, k, device=dev).to(torch.int32)).sum(dim=-1)
+    x = w[:, None] & tables[0][None]                             # [B, P]
+    for s in (8, 4, 2, 1):                  # parity of the 11-bit words
+        x = x ^ (x >> s)
+    code = ((x & 1) ^ tables[1][None]).to(torch.int8)
+    return code[:, const(_period_index, e, tables.shape[1], device=dev)]
+
+
 def encode(bits: torch.Tensor, e: int, qm: int = 1) -> torch.Tensor:
-    """Encode [B, K] (K<=11) -> int8 [B, E] (UE side: encoded on the host,
-    returned on the device of ``bits``).
+    """Encode [B, K] (K<=11) -> int8 [B, E], on the device of ``bits``.
 
     K=1: c = [b, y(=b), ...] repeated to E with Qm-spaced placeholders.
     K=2: c = [b0, b1, b0^b1] (+ placeholders for Qm>1), cycled to E.
     K>=3: RM(32,K) then repeated to E.
     """
-    return torch.as_tensor(_encode_np(bits.cpu().numpy(), e, qm)).to(
-        bits.device)
+    if not is_cuda(bits):
+        return encode_ref(bits, e, qm)
+    k = bits.shape[-1]
+    if bits.ndim != 2:
+        raise ValueError(f"bits must be [B, K], got {tuple(bits.shape)}")
+    dev = bits.device
+    tables = const(_kernel_tables, k, qm, device=dev)
+    bits = bits.to(torch.int8).contiguous()
+    out = torch.empty((bits.shape[0], e), dtype=torch.int8, device=dev)
+    lib = _build.load()
+    _build.check(lib.srsran_short_block_encode(
+        _build.ptr(bits), bits.shape[0], k, e, tables.shape[1],
+        _build.ptr(tables), _build.ptr(out), _build.stream_of(bits)),
+        "short_block_encode")
+    ENCODE_KERNEL.count()
+    return out
 
 
 def _period(k: int, qm: int) -> int:

@@ -5,8 +5,9 @@ Port of srsran_tpu/parallel/mesh.py::multi_cell_dl_fn and multi_cell_ul_fn
 leading cell axis, jitted with the cell axis sharded over a device mesh.
 The port runs the slot programs with cells as the leading (slot) axis on
 the one device their inputs lie on (one H100); there is no mesh, so
-``make_mesh``, ``parallel/multihost.py`` and ``parallel/seqpar.py`` are not
-ported (ROADMAP §1, the do-not-port list).  The programs then launch the
+``make_mesh``, ``shard_cells``, ``single_cell_ul_time_sharded_fn``,
+``parallel/multihost.py`` and ``parallel/seqpar.py`` are not ported
+(ROADMAP §1, the do-not-port list).  The programs then launch the
 PDSCH and PUSCH chains' kernels (K1-K8) and the UL receivers' (K9-K15)
 once for all the cells.
 """

@@ -135,6 +135,26 @@ def pilot_values_for(cfg: DmrsConfig,
     return _values_from_cinits(cfg, seeds)
 
 
+def sequence(cfg: DmrsConfig, symbol: int, c_init=None, *,
+             device=None) -> torch.Tensor:
+    """Base QPSK pilot sequence complex64 [per_rb * nof PRBs] of one DM-RS
+    symbol (host-built, on ``device``, the CPU by default): the Gold
+    sequence from ``c_init`` (default: the config's for ``symbol``)
+    advanced to the allocation's first PRB, a PRB list's columns selected."""
+    if c_init is None:
+        c_init = _c_init(cfg.scrambling_id, cfg.n_scid, cfg.slot_in_frame,
+                         symbol)
+    return torch.from_numpy(_values_from_cinits(cfg, (int(c_init),))[0]).to(
+        device or "cpu")
+
+
+def type2_sc_indices(rb_start: int, rb_count: int, group: int) -> np.ndarray:
+    """Subcarrier indices int32 of a type-2 CDM group (4 pilots per PRB:
+    2 group, 2 group + 1, 2 group + 6, 2 group + 7)."""
+    k0 = 12 * np.arange(rb_start, rb_start + rb_count)[:, None] + 2 * group
+    return (k0 + np.array([0, 1, 6, 7])).reshape(-1).astype(np.int32)
+
+
 @functools.lru_cache(maxsize=None)
 def _type1_sc_indices(rb_start: int, rb_count: int, delta: int,
                       prbs: tuple | None = None) -> np.ndarray:

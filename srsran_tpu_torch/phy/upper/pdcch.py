@@ -15,8 +15,8 @@ The UE-side receiver (:func:`recover`, :func:`decode_dci`; only tests and
 demapped and descrambled by K28 (ops/dl_control.py::control_llrs), then
 polar rate dematch, SC decode and the DCI's CRC check by K15
 (ops/polar.py::decode), the check as a syndrome (:func:`dci_syndrome`).
-The step-by-step encoder waits for the device polar encoder (ROADMAP
-§2).
+The step-by-step encoder :func:`encode_dci` (CRC24C over 1^24 ++ a, the
+RNTI mask, then the polar chain by K33) equals the fused map bit for bit.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ from ...ran import polar_params
 from ...device import const
 from ...ops import dl_control
 from ...ops import polar as polar_ops
-from ...ops.crc import _remainder_matrix, _remainder_words
+from ...ops.crc import _remainder_matrix, _remainder_words, crc
 from ...ops.gold import gold_sequence_np
 from ...ops.modulation import modulate, qpsk_np
 
@@ -75,6 +75,28 @@ def _dci_code(k: int, e: int) -> polar_params.PolarCode:
     return polar_params.polar_code(k, e, nmax=9, ibil=False)
 
 
+def _rnti_mask(rnti: int) -> np.ndarray:
+    """The 16 bits that mask a DCI's last CRC bits, MSB first."""
+    return np.array([(rnti >> (15 - i)) & 1 for i in range(16)], np.int8)
+
+
+def encode_dci(payload: torch.Tensor, cfg: PdcchConfig) -> torch.Tensor:
+    """TS38.212 §7.3: CRC24C over (1^24 ++ a), its last 16 bits masked by
+    the RNTI, polar (K33) and rate matching: payload int8 [A] -> encoded
+    bits int8 [E], on the device of ``payload``."""
+    dev = payload.device
+    e = BITS_PER_CCE * cfg.aggregation_level
+    a = payload.shape[-1]
+    pay = payload.to(torch.int8)[None]
+    ext = torch.cat([torch.ones((1, 24), dtype=torch.int8, device=dev), pay],
+                    dim=-1)
+    c = crc(ext, "crc24C")                                   # [1, 24]
+    c = torch.cat([c[:, :8], c[:, 8:] ^ const(_rnti_mask, cfg.rnti,
+                                              device=dev)], dim=-1)
+    return polar_ops.encode_chain(torch.cat([pay, c], dim=-1),
+                                  _dci_code(a + 24, e))[0]
+
+
 @functools.lru_cache(maxsize=None)
 def _fused_dci_maps(a: int, e: int, rnti: int, n_rnti: int, n_id_data: int):
     """Host GF(2) affine map of the whole §7.3 DCI TX chain:
@@ -82,8 +104,7 @@ def _fused_dci_maps(a: int, e: int, rnti: int, n_rnti: int, n_id_data: int):
     mc = _remainder_matrix("crc24C", 24 + a).astype(np.uint8)   # [24+A, 24]
     const_c = mc[:24].sum(axis=0) % 2                           # leading ones
     mask = np.zeros(24, dtype=np.uint8)
-    for i in range(16):
-        mask[8 + i] = (rnti >> (15 - i)) & 1
+    mask[8:] = _rnti_mask(rnti)
     m_bits = np.concatenate([np.eye(a, dtype=np.uint8), mc[24:]], axis=1)
     const_bits = np.concatenate([np.zeros(a, dtype=np.uint8),
                                  (const_c ^ mask).astype(np.uint8)])
@@ -330,11 +351,9 @@ def dci_syndrome(a: int, rnti: int) -> int:
     k = a + 24
     ones = np.bitwise_xor.reduce(_remainder_words("crc24C", 24 + k)[:24])
     words = _remainder_words("crc24C", k)
-    mask = 0
-    for i in range(16):
-        if (rnti >> (15 - i)) & 1:
-            mask ^= int(words[k - 16 + i])
-    return int(ones) ^ mask
+    mask = np.bitwise_xor.reduce(words[k - 16:][_rnti_mask(rnti) == 1],
+                                 initial=0)
+    return int(ones) ^ int(mask)
 
 
 def _candidate_re_offsets(coreset: CoresetConfig, cce_index: int,

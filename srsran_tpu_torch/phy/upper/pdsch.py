@@ -210,6 +210,14 @@ def encode_transport_block(payload_bits: torch.Tensor, cfg: PdschConfig):
     return codeword, seg
 
 
+def prg_index_of_sc(sc: np.ndarray, rb_start: int, prg_size: int
+                    ) -> np.ndarray:
+    """Per-subcarrier PRG index (into the PDU's pm_indices), PRG boundaries
+    aligned to CRB 0 (TS38.214 §5.1.2.3); host."""
+    return (np.asarray(sc) // 12 // prg_size
+            - rb_start // prg_size).astype(np.int32)
+
+
 def dmrs_config(cfg: PdschConfig) -> DmrsConfig:
     return DmrsConfig(
         rb_start=cfg.rb_start, rb_count=cfg.rb_count, symbols=cfg.dmrs_symbols,

@@ -29,7 +29,9 @@ Port of srsran_tpu/phy/upper/pucch.py:
 
 :func:`detect_format1` (one user, host sequences), :func:`transmit_format0`,
 :func:`transmit_format1`, :func:`transmit_format2` and :func:`f3_encode`
-(UE side) are plain, for tests and the UE emulation.
+(UE side) are plain, for tests and the UE emulation, but for their UCI
+encode: short blocks through K34, polar codes through K33
+(``short_block.encode``, ``polar.encode_chain``).
 """
 
 from __future__ import annotations
@@ -781,8 +783,7 @@ def transmit_format2(grid: torch.Tensor, cfg: PucchF2Config,
     else:
         code, crc_len = _f2_polar_cfg(k, e_tot)
         with_crc = torch.cat([b[None], crc(b[None], f"crc{crc_len}")], dim=-1)
-        u = polar_ops.allocate(with_crc, code)
-        enc = polar_ops.rate_match(polar_ops.encode(u, code.n), code)[0]
+        enc = polar_ops.encode_chain(with_crc, code)[0]
     syms = modulate(scramble_bits(enc[None], _f2_c_init(cfg)), "qpsk")[0]
     data_sc, dmrs_sc = (torch.as_tensor(a, device=dev)
                         for a in _f2_sc(cfg.rb_start, cfg.nof_rb))

@@ -15,8 +15,14 @@ only tests and ``chip_smoke.py`` call it, as in the JAX package): the 432
 data REs demapped and descrambled by K28 (ops/dl_control.py::
 control_llrs), polar rate dematch, SC decode and the CRC24C check by K15
 (ops/polar.py::decode), then the first descrambling and the MIB
-de-interleave on the host, as in the JAX package.  The step-by-step
-``pbch_encode`` waits for the device polar encoder (ROADMAP §2).
+de-interleave on the host, as in the JAX package.
+
+The step-by-step chain of the JAX package (:func:`pbch_payload`,
+:func:`pbch_encode`, :func:`pbch_modulate`, :func:`pbch_dmrs`), on the
+device of the MIB bits: the payload interleave and first scrambling as
+index and XOR ops, CRC24C, the polar chain by K33 (ops/polar.py::
+encode_chain), the second scrambling and QPSK by the port's
+``scramble_bits`` and ``modulate``.  It equals the fused map bit for bit.
 """
 
 from __future__ import annotations
@@ -29,11 +35,13 @@ import torch
 
 from ...ops.gf2 import gf2_matmul
 from ...ran import polar_params
-from ...device import const
+from ...device import const, i64
 from ...ops import dl_control
 from ...ops import polar as polar_ops
-from ...ops.crc import _remainder_matrix
+from ...ops.crc import _remainder_matrix, crc
 from ...ops.gold import gold_sequence_np
+from ...ops.modulation import modulate
+from ...ops.scrambling import scramble_bits
 
 SSB_NSYMB = 4
 SSB_NSC = 240
@@ -168,6 +176,69 @@ def _pbch_code() -> polar_params.PolarCode:
     return polar_params.polar_code(PBCH_B, PBCH_E, nmax=9, ibil=False)
 
 
+def _bits_on(x, device=None) -> torch.Tensor:
+    """``x`` (bits: a tensor, numpy array or list) as int8, on ``device``
+    or, for a tensor, on its own device."""
+    t = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor)
+                        else x)
+    return t.to(device or t.device).to(torch.int8)
+
+
+def pbch_payload(cfg: SsbConfig, mib24, static_bits=None) -> torch.Tensor:
+    """TS38.212 §7.1.1: the 24 MIB bits and the 8 timing bits interleaved
+    into a[32] (int8, on the device of ``mib24``); ``static_bits`` (the
+    timing bits of :func:`slot_ctx_for`) replace the config's own."""
+    mib = _bits_on(mib24)
+    dest, static = _payload_maps(cfg.sfn, cfg.hrf, cfg.ssb_idx, cfg.l_max,
+                                 cfg.k_ssb)
+    a = _bits_on(static if static_bits is None else static_bits,
+                 mib.device).clone()
+    a[const(i64, tuple(int(d) for d in dest), device=mib.device)] = mib
+    return a
+
+
+def pbch_message(cfg: SsbConfig, mib24, slot_ctx=None) -> torch.Tensor:
+    """The polar message int8 [1, 56] of the §7.1 chain: payload, first
+    scrambling, CRC24C.  ``slot_ctx``: (static_bits, scramble_mask) of
+    :func:`slot_ctx_for`."""
+    static_bits, mask = slot_ctx if slot_ctx is not None else (None, None)
+    a = pbch_payload(cfg, mib24, static_bits)
+    if mask is None:
+        mask = _scramble_mask(cfg.phys_cell_id, cfg.sfn, cfg.l_max)
+    bits = (a ^ _bits_on(mask, a.device))[None]
+    return torch.cat([bits, crc(bits, "crc24C")], dim=-1)
+
+
+def pbch_encode(cfg: SsbConfig, mib24, slot_ctx=None) -> torch.Tensor:
+    """The §7.1 chain -> rate-matched bits int8 [E = 864]: the message of
+    :func:`pbch_message`, then polar (K33)."""
+    return polar_ops.encode_chain(pbch_message(cfg, mib24, slot_ctx),
+                                  _pbch_code())[0]
+
+
+def pbch_modulate(encoded: torch.Tensor, cfg: SsbConfig) -> torch.Tensor:
+    """TS38.211 §7.3.3: second scrambling + QPSK -> complex64 [432]."""
+    v = cfg.ssb_idx & (0b11 if cfg.l_max == 4 else 0b111)
+    b = scramble_bits(encoded[None], cfg.phys_cell_id,
+                      advance=v * PBCH_MBIT)
+    return modulate(b, "qpsk")[0]
+
+
+def _dmrs_bits(cfg: SsbConfig) -> np.ndarray:
+    ibar = _i_ssb_bar(cfg)
+    nid = cfg.phys_cell_id
+    c_init = ((1 << 11) * (ibar + 1) * (nid // 4 + 1)
+              + (1 << 6) * (ibar + 1) + (nid % 4)) % (1 << 31)
+    return gold_sequence_np(c_init, 2 * 144).astype(np.int8)
+
+
+def pbch_dmrs(cfg: SsbConfig, device=None) -> torch.Tensor:
+    """TS38.211 §7.4.1.4: the 144 QPSK pilots (complex64, on ``device``,
+    the CPU by default)."""
+    return modulate(const(_dmrs_bits, cfg, device=device or "cpu")[None],
+                    "qpsk")[0]
+
+
 @functools.lru_cache(maxsize=None)
 def _fused_pbch_maps(cfg: SsbConfig):
     """Host GF(2) maps of the whole §7.1 PBCH chain: e[864] = mib @ M_mib
@@ -217,11 +288,7 @@ def _ssb_base_patch(cfg: SsbConfig):
     patch[2, 56:183] = sss_sequence(cfg.phys_cell_id // 3,
                                     cfg.phys_cell_id % 3)
     dmrs_pos, data_pos = _ssb_re_maps(cfg.phys_cell_id % 4)
-    ibar = _i_ssb_bar(cfg)
-    nid = cfg.phys_cell_id
-    c_init = ((1 << 11) * (ibar + 1) * (nid // 4 + 1)
-              + (1 << 6) * (ibar + 1) + (nid % 4)) % (1 << 31)
-    b = gold_sequence_np(c_init, 2 * 144).astype(np.float32)
+    b = _dmrs_bits(cfg).astype(np.float32)
     dm = ((1 - 2 * b[0::2]) + 1j * (1 - 2 * b[1::2])) / np.sqrt(2)
     patch[dmrs_pos[:, 0], dmrs_pos[:, 1]] = dm.astype(np.complex64)
     return patch, data_pos

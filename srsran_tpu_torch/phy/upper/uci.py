@@ -2,7 +2,8 @@
 
 Port of srsran_tpu/phy/upper/uci.py: <=11 bits -> short-block (RM/simplex/
 repetition) with ML detection (K14); 12..19 -> polar with CRC6 + 3 PC bits;
->=20 -> polar with CRC11 (K15).  Shared by PUCCH F3/F4 and UCI on PUSCH
+>=20 -> polar with CRC11 (K15).  The UE side encodes by K34 (short block)
+and K33 (polar).  Shared by PUCCH F3/F4 and UCI on PUSCH
 (PUCCH F2 keeps its own polar parameters, pucch._f2_polar_cfg).
 """
 
@@ -26,15 +27,15 @@ def _polar_cfg(o_bits: int, e: int):
 
 
 def encode_uci(bits: torch.Tensor, e: int, qm: int) -> torch.Tensor:
-    """[K] -> [E] coded bits (UE side, plain)."""
+    """[K] -> [E] coded bits (UE side), on the device of ``bits``: K34 for
+    short blocks, K33 for polar codes."""
     k = bits.shape[-1]
     if k <= 11:
         return short_block.encode(bits[None], e, qm)[0]
     code, crc_len = _polar_cfg(k, e)
     with_crc = torch.cat([bits[None].to(torch.int8),
                           crc(bits[None], f"crc{crc_len}")], dim=-1)
-    u = polar_ops.allocate(with_crc, code)
-    return polar_ops.rate_match(polar_ops.encode(u, code.n), code)[0]
+    return polar_ops.encode_chain(with_crc, code)[0]
 
 
 def decode_uci(llrs: torch.Tensor, o_bits: int, qm: int):

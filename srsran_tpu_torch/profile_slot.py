@@ -2,7 +2,7 @@
 
     python3 -m srsran_tpu_torch.profile_slot
         [--direction ul|dl|conductor|ul_mu|batch|batch_mu|batch_edge|edge|
-                     gnb|du_low|du_alloc|split8]
+                     gnb|du_low|du_alloc|split8|last]
         [--slots 8]
         [--calls 10]
         [--out DIR]
@@ -40,7 +40,12 @@ ssb_tx.py's two SSB slots at the flagship width on one port in turn, each
 clipped (K31) and CFO-rotated (K30), OFDM-demodulated (K4), its PBCH
 demapped (K28) and decoded by K15 and by the list decoder K29, beside one
 UE slot's 36 AL16 PDCCH candidates through K29; K32's case is the UE
-transmitter's rate match) and reports:
+transmitter's rate match), or the last device functions (``last``:
+``flagship.last_path`` per call -- the PBCH and slot E's DCIs through
+K33 beside K27 and back through K28 and K15, the F2s and a UCI batch
+through K33/K34, K34 at every K and Qm, the flagship PUSCH's LLRs
+through K35 and decoded, K1 on every row and K36, K8 on slot E's type 0
+comb -- with K33-K36's and the type 0 K8's cases) and reports:
 
 * the slot's wall time three ways: CUDA events around each call (as
   ``chip_smoke.py`` times it), the host clock over back-to-back calls with
@@ -70,7 +75,7 @@ card.
 The slot's trace and a JSON summary go to ``--out`` (``slot_trace.json``
 and ``summary.json`` for the UL, ``dl_``, ``conductor_``, ``ul_mu_``,
 ``batch_``, ``batch_mu_``, ``batch_edge_``, ``edge_``, ``gnb_``,
-``du_low_``, ``du_alloc_`` or ``split8_``
+``du_low_``, ``du_alloc_``, ``split8_`` or ``last_``
 before both
 names for the others);
 the summary is also printed as the last line.
@@ -114,7 +119,10 @@ HAND_KERNELS = ("ldpc_sweep_kernel", "ldpc_check_kernel", "rate_dematch_kernel",
                 "pusch_tp_demap_kernel", "pucch_f3_demap_kernel",
                 "dmrs_map_kernel", "rs_map_kernel", "control_map_kernel",
                 "control_llrs_kernel", "polar_scl_kernel", "rate_match_kernel",
-                "cfo_kernel", "amplitude_kernel", "amplitude_finish")
+                "cfo_kernel", "amplitude_kernel", "amplitude_finish",
+                "polar_encode_kernel", "short_block_encode_kernel",
+                "llr_quantize_kernel", "llr_dequantize_kernel",
+                "ldpc_parity_kernel")
 
 
 def category(name: str, cat: str) -> str:
@@ -562,6 +570,18 @@ def split8_scenario(n: int, seed: int, dev) -> tuple:
         rng, dev, dl_slot, SPLIT8_CFO_HZ / (flagship.CELL.dft_size * 30_000))
 
 
+def last_scenario(n: int, seed: int, dev, gen) -> tuple:
+    """(``n`` calls of ``flagship.last_path`` on one flagship UL slot;
+    K33-K36's and the type 0 K8's cases, as ``chip_smoke.py`` times
+    them)."""
+    rng = np.random.default_rng(seed)
+    slot = flagship.make_slots(1, rng, gen, dev)[0]
+    inp = flagship.last_inputs(rng, slot, dev)
+    out = flagship.last_path(inp)
+    cases = flagship.last_kernel_cases(inp, out)
+    return [lambda: flagship.last_path(inp)] * n, cases
+
+
 BATCHES = {"batch": batch_scenario, "batch_mu": batch_mu_scenario,
            "batch_edge": batch_edge_scenario}
 
@@ -581,7 +601,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--direction",
                     choices=("ul", "dl", "conductor", "ul_mu", "batch",
                              "batch_mu", "batch_edge", "edge", "gnb",
-                             "du_low", "du_alloc", "split8"),
+                             "du_low", "du_alloc", "split8", "last"),
                     default="ul")
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--calls", type=int, default=10)
@@ -624,6 +644,9 @@ def main(argv=None) -> dict:
     elif args.direction == "split8":
         calls, cases = split8_scenario(args.slots, args.seed, dev)
         prefix = "split8_"
+    elif args.direction == "last":
+        calls, cases = last_scenario(args.slots, args.seed, dev, gen)
+        prefix = "last_"
     else:
         calls, cases, resolve = conductor_scenario(args.slots, args.seed, dev,
                                                    gen)

@@ -159,6 +159,19 @@ def restricted_cyclic_shifts(u: int, ncs: int, l_ra: int,
     return [d_start * (v // n_shift) + (v % n_shift) * ncs for v in range(w)]
 
 
+@functools.lru_cache(maxsize=None)
+def _config_tables():
+    import json
+    return json.loads((_DATA.parent / "prach_config_tables.json").read_text())
+
+
+def prach_configuration(index: int, duplex: str = "fr1_unpaired"):
+    """TS38.211 Table 6.3.3.2-2/-3: the PRACH occasion schedule of a config
+    index (format, x, y, subframes, starting_symbol, ...), or None for a
+    reserved entry; from the port's copy of the JAX package's table."""
+    return _config_tables()[duplex][index]
+
+
 def zc_sequence(u: int, l_ra: int, cyclic_shift: int = 0) -> np.ndarray:
     """Zadoff-Chu x_{u,v}(n) = exp(-j pi u n(n+1) / L), cyclically shifted."""
     n = (np.arange(l_ra) + cyclic_shift) % l_ra

@@ -551,6 +551,16 @@ def test_prach_params_copy(scs, restricted):
                 u, ncs, 839, restricted) == want
 
 
+def test_prach_config_tables_copy():
+    """prach_configuration reads the same entries from the port's copy of
+    the PRACH configuration tables (test_data_tables_are_copies holds the
+    bytes)."""
+    for duplex in ("fr1_unpaired", "fr1_paired"):
+        for index in (0, 16, 158, 159, 255):
+            assert (t_prachp.prach_configuration(index, duplex)
+                    == j_prachp.prach_configuration(index, duplex))
+
+
 def test_prach_roots_and_sequences_copy():
     for i in (0, 1, 39, 137, 500, 837, 900):
         for long_format in (True, False):
@@ -711,8 +721,9 @@ def test_data_tables_are_copies():
     port = REPO / "srsran_tpu_torch" / "data"
     names = sorted(f.name for f in port.iterdir())
     assert names == ["ldpc_bg_tables.npz", "low_papr_tables.npz",
-                     "polar_tables.npz", "prach_tables.npz",
-                     "prach_thresholds.json", "short_block_tables.npz"]
+                     "polar_tables.npz", "prach_config_tables.json",
+                     "prach_tables.npz", "prach_thresholds.json",
+                     "short_block_tables.npz"]
     for name in names:
         assert (port / name).read_bytes() == \
             (REPO / "srsran_tpu" / "data" / name).read_bytes(), name
@@ -1019,7 +1030,8 @@ def test_port_imports_without_jax():
             "srsran_tpu_torch.phy.lower.amplitude_control",
             "srsran_tpu_torch.ops.polar_scl",
             "srsran_tpu_torch.apps.ssb_tx",
-            "srsran_tpu_torch.apps.rx_power"} <= names
+            "srsran_tpu_torch.apps.rx_power",
+            "srsran_tpu_torch.ops.llr"} <= names
 
 
 def _import_lines(path: Path):
