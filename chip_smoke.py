@@ -269,6 +269,21 @@ the JAX package.  It builds the hand kernels from ``srsran_tpu_torch/csrc``
    and phase 10 K34 in the gnb_sim UE emulator (its CSI-on-PUSCH reports
    of 4 and 6 bits).
 
+17. BPSK PUSCHs without transform precoding at the flagship width
+   (``flagship.BPSK_PUSCH``: pi/2-BPSK, 2 layers, ZF, K3;
+   ``BPSK_PUSCH_MMSE``: BPSK, 1 layer, MMSE, K16; each hopping over the
+   band), each through ``pusch.process`` with the counts reset just before
+   (K8, K3 or K16, K2, K1 launched): the TB decoded with the exact
+   payload, the codeword LLRs within 1e-3 of the CPU twins'; then hop 2's
+   K3 and K16 (their Gold offset and pi/2-BPSK parity from hop 1) against
+   their twins, timed.
+
+K32's and K21's cases (phases 14 and 10) also print, beside their events,
+the host µs per call (``time.perf_counter_ns`` around the enqueue, no
+synchronize, median of 1000 calls) and the device µs per call (a
+``torch.profiler`` trace of 50 calls), for the kernel and for its library
+call (``srsran_tpu_torch/launch_profile.py``'s timers).
+
 It prints the card's name and power limit, one JSON line of per-kernel
 results, and as its last line ``{"ok": true, "device": {...}}``.  Any failed
 phase raises, so the script then exits non-zero without that line.
@@ -288,11 +303,12 @@ import subprocess
 import sys
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from srsran_tpu_torch import convert, flagship, kernels
+from srsran_tpu_torch import convert, flagship, kernels, launch_profile
 from srsran_tpu_torch.apps import gnb_sim, ru_emulator, ssb_tx
 from srsran_tpu_torch.emulation import channel as chan
 from srsran_tpu_torch.device import card_line, const, require_cuda
@@ -307,6 +323,7 @@ from srsran_tpu_torch.ops import dl_control, dl_map, dl_rs
 from srsran_tpu_torch.ops import ldpc_rate_match, ofdm, polar
 from srsran_tpu_torch.ops import llr as llr_ops
 from srsran_tpu_torch.ops import polar_scl, short_block, transform_precode
+from srsran_tpu_torch.ops import ul_demap
 from srsran_tpu_torch.ops.crc import crc, crc_check
 from srsran_tpu_torch.ops.ldpc_graph import get_graph
 from srsran_tpu_torch.ops.modulation import BITS_PER_SYMBOL
@@ -363,6 +380,8 @@ CASE_KERNEL = {"pdsch_map_repetition": "pdsch_map",
                "channel_estimate_f3": "channel_estimate",
                "prach_demod_n6144": "prach_demod",
                "prach_demod_format0": "prach_demod",
+               "pusch_demap_pi2bpsk": "pusch_demap",
+               "pusch_demap_lxn_bpsk": "pusch_demap_lxn",
                "bfp_compress_w8": "bfp_compress",
                "bfp_compress_w14": "bfp_compress",
                "bfp_compress_mant": "bfp_compress",
@@ -453,6 +472,12 @@ MU_BATCH_LAUNCHES = {**{k: v for k, v in _TWO_PUSCH.items()
 EDGE_BATCH_LAUNCHES = {**_TWO_PUSCH, "pusch_tp_demap_batch": 1,
                        "pucch_f3_demap_batch": 2,
                        "channel_estimate_batch": 6}
+# K32's and K21's cases: host µs per call over HOST_CALLS calls and device
+# µs from a profiler trace, for the kernel and its library call.
+HOST_TIMED = ("rate_match", "prach_demod", "prach_demod_n6144",
+              "prach_demod_format0")
+HOST_CALLS = 1000
+TRACE_DIR = Path(__file__).resolve().parent / "build" / "launch_traces"
 N_TIMED_BATCHES = 8
 BATCH_TIMING_RUNS = 5
 GRAPH_PASSES = 2
@@ -988,7 +1013,25 @@ def kernel_phases(cases: dict, library: dict | None = None) -> dict:
                              plain_ms=median_ms(lambda: ref_fn(*args)),
                              **bound(name, args, out),
                              library_ms=median_ms(lib) if lib else None)
+        if name in HOST_TIMED:
+            print(host_path(name, lambda: fn(*args), lib, results[name]),
+                  flush=True)
     return results
+
+
+def host_path(name: str, fn, lib, row: dict) -> str:
+    """A kernel's and its library call's host µs per call (the enqueue
+    alone) and device µs per call (profiler), beside their events."""
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    parts = []
+    for which, f in (("kernel", fn), ("library", lib)):
+        host = launch_profile.host_us(f, HOST_CALLS)
+        dev = launch_profile.device_us(f, TRACE_DIR / f"{name}.json")
+        parts.append(f"{which} host {host['median']:.2f} us per call "
+                     f"(q1 {host['q1']:.2f}, q3 {host['q3']:.2f}), device "
+                     f"{dev:.2f} us")
+    return (f"{name} host path: " + "; ".join(parts) + f"; events "
+            f"{row['ms']:.4f} / library {row['library_ms']:.4f} ms")
 
 
 def launched(names) -> dict:
@@ -2071,19 +2114,13 @@ def gnb_library(cases: dict) -> dict:
     """One PyTorch call for a part or the whole of K20's and K21's work:
     the channel's einsum mix stage alone (rx from H and tx; no single call
     computes the channel), and ``torch.matmul`` of the PRACH bin matrix
-    with the stacked windows (the whole function)."""
+    with the stacked windows (the whole function, checked against the
+    twin)."""
     tx, cfg, gains, noise = cases["tdl_channel"][2]
     _, h = chan.apply_ref(tx, cfg, gains, noise)
-    out = {"tdl_channel": lambda: torch.einsum("rtk,tsk->rsk", h, tx)}
-    for name in ("prach_demod", "prach_demod_n6144", "prach_demod_format0"):
-        samples, fmt, fs, start, f_off, _, ra = cases[name][2]
-        l_ra, n_u, reps, b0 = prach_demod.geometry(fmt, fs, f_off, ra)
-        m = torch.from_numpy(prach_demod._bin_dft_matrix(
-            n_u, b0, l_ra)).to(samples.device)
-        x = samples[:, start:start + reps * n_u].reshape(-1, n_u).T
-        x = x.contiguous()
-        out[name] = lambda m=m, x=x: torch.matmul(m, x)
-    return out
+    return {"tdl_channel": lambda: torch.einsum("rtk,tsk->rsk", h, tx),
+            **{name: launch_profile.matmul_call(cases[name][2])
+               for name in flagship.PRACH_DEMOD_CASES}}
 
 
 def _app_config(*overrides):
@@ -3260,13 +3297,8 @@ def split8_phase(dev, rng, card) -> tuple:
             lambda s, g: amplitude_control.clip_ref(s, g, math.inf),
             (dl_slot, -3.0)),
     })
-    plan = torch.from_numpy(ldpc_rate_match.gather_index(
-        e_sizes, *rm[2:], cbs.shape[1])).to(dev)
-    if not torch.equal(torch.take(cbs, plan),
-                       ldpc_rate_match.rate_match_batch_ref(*rm)):
-        raise AssertionError("K32's library call differs from its twin")
-    results = kernel_phases(cases, {"rate_match": lambda: torch.take(cbs,
-                                                                     plan)})
+    results = kernel_phases(cases,
+                            {"rate_match": launch_profile.take_call(rm)})
     if not (sc_err >= 8 and scl_err < sc_err // 2):
         raise AssertionError(f"low SNR: CA-SCL{SCL_LIST} {scl_err} block "
                              f"errors vs SC {sc_err}")
@@ -3494,6 +3526,54 @@ def _slot_of_dict(out: dict, c) -> dict:
                    for e in entries] for kind, entries in out.items()}
 
 
+# --------------------------------------------------------------- phase 17
+
+BPSK_PATH = ("channel_estimate", "rate_dematch", "ldpc_decode")
+
+
+def bpsk_phase(dev, card) -> dict:
+    """Phase 17: BPSK PUSCHs without transform precoding through
+    ``pusch.process`` on the card, each counted (K3 or K16 on the path),
+    decoded with the exact payload, its codeword LLRs within 1e-3 of the
+    CPU twins'; then hop 2's K3 / K16 (Gold offset and pi/2-BPSK parity
+    from hop 1) against their twins, timed."""
+    cases = {}
+    for name, cfg, kernel in (
+            ("pusch_demap_pi2bpsk", flagship.BPSK_PUSCH, "pusch_demap"),
+            ("pusch_demap_lxn_bpsk", flagship.BPSK_PUSCH_MMSE,
+             "pusch_demap_lxn")):
+        rx, payload = flagship.bpsk_rx(cfg, SEED + 17, flagship.CELL.nof_sc)
+        grid = torch.as_tensor(rx).to(dev)
+        kernels.reset_counts()
+        res = pusch.process(grid, cfg)
+        torch.cuda.synchronize()
+        launches = launched(BPSK_PATH + (kernel,))
+        if not (bool(res.tb_crc_ok) and np.array_equal(
+                res.tb_bits.cpu().numpy(), payload)):
+            raise AssertionError(f"{name}: the TB did not decode")
+        llr, _, _ = pusch.codeword_llrs(grid, cfg)
+        llr_cpu, _, _ = pusch.codeword_llrs(grid.cpu(), cfg)
+        err = close(llr.cpu(), llr_cpu, f"{name} codeword LLRs", rtol=1e-3)
+        print(f"phase 17, {cfg.modulation} PUSCH, {cfg.nof_layers} layers "
+              f"{cfg.equalizer}, {cfg.rb_count} RB hopping to PRB "
+              f"{cfg.second_hop_prb}: TB of {cfg.tbs} bits decoded "
+              f"({int(res.nof_iterations)} sweeps), LLRs within {err:.3g} "
+              f"of the CPU twins'; launches {launches}; card {card}",
+              flush=True)
+        hops = pusch.hop_configs(cfg)
+        sym, sc = pusch._plan(hops[1], dev)
+        est = pusch.estimate_channel(grid, hops[1], None)
+        advance = (len(pusch._plan(hops[0], dev)[0]) * cfg.nof_layers
+                   * BITS_PER_SYMBOL[cfg.modulation])
+        cases[name] = (ul_demap.equalize_demap_descramble,
+                       ul_demap.equalize_demap_descramble_ref,
+                       (grid, est.coeffs, sym, sc, hops[1].rb_start * 12,
+                        est.noise_var.mean(dim=-1), pusch._c_init(cfg),
+                        cfg.modulation, cfg.nof_layers, cfg.equalizer,
+                        advance))
+    return kernel_phases(cases)
+
+
 def main() -> int:
     dev = require_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3567,10 +3647,11 @@ def main() -> int:
           flush=True)
     last_results, last_launches = last_functions_phase(
         dev, np.random.default_rng(SEED + 16), ul_slots[0], card)
+    bpsk_results = bpsk_phase(dev, card)
     results = {**ul_results, **dl_results, **uci_results, **mu_results,
                **batch_results, **edge_results, **gnb_results, **ofh_results,
                **du_results, **alloc_results, **split8_results,
-               **mu_batch_results, **last_results}
+               **mu_batch_results, **last_results, **bpsk_results}
     # K1-K11 as their own paths launched them (phases 2, 3), K12-K15 as the
     # conductor's slots did (phase 4, which launched every kernel), K16-K17
     # as the two-UE slot did (phase 5), the batched K1-K15 as one batch of

@@ -1,8 +1,9 @@
 // Device functions shared by K18 (the DFT-s-OFDM PUSCH) and K19 (PUCCH
 // F3/F4) in dft_s_ofdm.cu: one bin of the M-point unitary IDFT from a
-// block in shared memory, and the max-log demap of one symbol with its Gold
-// sign.  The twins are srsran_tpu_torch/ops/transform_precode.py::deprecode,
-// ops/modulation.py::demodulate and ops/scrambling.py::descramble_llrs.
+// block in shared memory and a CTA sum; the demap of one symbol with its
+// Gold sign (demap_symbol) is pusch_demap.cuh's, shared with K3 and K16.
+// The twin of the IDFT is srsran_tpu_torch/ops/transform_precode.py::
+// deprecode.
 
 #pragma once
 
@@ -36,26 +37,6 @@ __device__ __forceinline__ float2 idft_bin(const float2* __restrict__ v,
     if (idx >= M) idx -= M;
   }
   return make_float2((float)re, (float)im);
-}
-
-// Demap kinds: 0 BPSK, 1 pi/2-BPSK (derotated by -j where rot_odd), 2
-// square QAM through the PAM level table (QPSK .. 256QAM, HALF bits per
-// axis).  Symbol g's bits start at g * Qm in the LLRs and in the Gold bits.
-template <int HALF>
-__device__ __forceinline__ void demap_symbol(float2 x, float nv, int kind,
-                                             int rot_odd, float two_scale,
-                                             const float* __restrict__ levels,
-                                             const uint8_t* __restrict__ seq,
-                                             float* __restrict__ llr, int g) {
-  if (kind < 2) {
-    if (kind == 1 && rot_odd) x = make_float2(x.y, -x.x);
-    const float proj = __fmul_rn(__fadd_rn(x.x, x.y), two_scale);
-    const float l = __fdiv_rn(__fmul_rn(2.f, proj), fmaxf(nv, 1e-12f));
-    llr[g] = seq[g] ? -l : l;
-    return;
-  }
-  demap_axis<HALF>(x.x, nv, levels, seq, llr, g * 2 * HALF, 0);
-  demap_axis<HALF>(x.y, nv, levels, seq, llr, g * 2 * HALF, 1);
 }
 
 // Sum of one float per thread over the CTA (TILE threads); every thread

@@ -11,11 +11,20 @@
 // h[p][l] from the channel estimate through the host RE plan, accumulating
 // the Gram entries and matched-filter outputs over the P ports in registers
 // (no per-RE arrays).  It solves closed-form ZF (1 layer, or 2 layers with
-// the det < 1e-12 clamp), then computes exact max-log LLRs per real axis
-// against the PAM level table (the same table as modulation._pam_levels
-// times the QAM scale), divides by the post-equalizer noise, applies the
-// Gold sign, and writes the LLRs in codeword order (RE-major, layer-minor,
-// then b0(I) b1(Q) b2(I) ...) and the equalized symbols x (for the EVM).
+// the det < 1e-12 clamp), then demaps each layer's symbol with
+// pusch_demap.cuh's demap_symbol: for QPSK .. 256QAM exact max-log LLRs per
+// real axis against the PAM level table (the same table as
+// modulation._pam_levels times the QAM scale), for BPSK and pi/2-BPSK the
+// projection on (1 + j) (pi/2-BPSK derotated by -j at odd codeword symbol
+// indices), divided by the post-equalizer noise; then the Gold sign.  It
+// writes the LLRs in codeword order (RE-major, layer-minor, then b0(I)
+// b1(Q) b2(I) ...) and the equalized symbols x (for the EVM).
+//
+// pi/2-BPSK's parity counts codeword symbols, RE-major and layer-minor,
+// across both hops of a hopping PUSCH (the JAX package demaps the hops'
+// symbols concatenated, srsran_tpu/phy/upper/pusch.py:274, :286-290), so a
+// launch takes the parity of its first symbol, rot0: the wrapper derives it
+// from the Gold offset (hop 2 starts where hop 1's bits ended).
 //
 // A slot axis (the slot-batch mode): blockIdx.y picks the slot, whose grid,
 // coefficients, noise variance, LLRs and symbols lie at fixed strides; the
@@ -41,15 +50,16 @@ __global__ void pusch_demap_kernel(
     const int* __restrict__ sym, const int* __restrict__ sc, int nre, int P,
     int S, int K, int L, int T, int Ka, int sc_off,
     const float* __restrict__ nv_ptr, const float* __restrict__ levels,
-    const uint8_t* __restrict__ seq, float* __restrict__ llr,
-    float2* __restrict__ x) {
+    int kind, int rot0, float two_scale, const uint8_t* __restrict__ seq,
+    float* __restrict__ llr, float2* __restrict__ x) {
   const int re = blockIdx.x * blockDim.x + threadIdx.x;
   if (re >= nre) return;
+  const int qm = kind < 2 ? 1 : 2 * HALF;
   const size_t b = blockIdx.y;                       // slot
   grid += b * P * S * K;
   coeffs += b * P * L * T * Ka;
   nv_ptr += b;
-  llr += b * nre * L * 2 * HALF;
+  llr += b * nre * L * qm;
   x += b * nre * L;
   const int s = sym[re];
   const int k = sc[re];
@@ -94,12 +104,11 @@ __global__ void pusch_demap_kernel(
     nvs[0] = __fdiv_rn(__fmul_rn(nv, d), det);
     nvs[1] = __fdiv_rn(__fmul_rn(nv, a), det);
   }
-  constexpr int QM = 2 * HALF;
   for (int l = 0; l < L; ++l) {
     const int si = re * L + l;
     x[si] = xs[l];
-    demap_axis<HALF>(xs[l].x, nvs[l], levels, seq, llr, si * QM, 0);
-    demap_axis<HALF>(xs[l].y, nvs[l], levels, seq, llr, si * QM, 1);
+    demap_symbol<HALF>(xs[l], nvs[l], kind, (rot0 + si) & 1, two_scale,
+                       levels, seq, llr, si);
   }
 }
 
@@ -109,6 +118,7 @@ extern "C" int srsran_pusch_demap(void* grid, void* coeffs, void* sym,
                                   void* sc, int nre, int P, int S, int K,
                                   int L, int T, int Ka, int sc_off,
                                   void* nv_ptr, void* levels, int half,
+                                  int kind, int rot0, float two_scale,
                                   void* seq, void* llr, void* x,
                                   int nslots, void* stream) {
   if (L < 1 || L > 2 || nslots < 1) return (int)cudaErrorInvalidValue;
@@ -119,7 +129,8 @@ extern "C" int srsran_pusch_demap(void* grid, void* coeffs, void* sym,
   pusch_demap_kernel<H><<<blocks, threads, 0, st>>>(                       \
       (const float2*)grid, (const float2*)coeffs, (const int*)sym,         \
       (const int*)sc, nre, P, S, K, L, T, Ka, sc_off, (const float*)nv_ptr, \
-      (const float*)levels, (const uint8_t*)seq, (float*)llr, (float2*)x)
+      (const float*)levels, kind, rot0, two_scale, (const uint8_t*)seq,   \
+      (float*)llr, (float2*)x)
   switch (half) {
     case 1: SRSRAN_DEMAP_LAUNCH(1); break;
     case 2: SRSRAN_DEMAP_LAUNCH(2); break;

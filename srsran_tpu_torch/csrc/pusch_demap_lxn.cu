@@ -21,8 +21,10 @@
 // (MMSE, from G itself, not A^-1 - c A^-2, which cancels at low SNR), 1e12
 // where it is not positive.  The JAX package inverts A by LU with pivoting,
 // so the two round differently: parity is to a tolerance.  Then the demap
-// and the Gold sign of K3 (pusch_demap.cuh), LLRs in codeword order
-// (RE-major, layer-minor) and x for the EVM.
+// and the Gold sign of K3 (pusch_demap.cuh's demap_symbol, every modulation
+// from BPSK to 256QAM, pi/2-BPSK's parity from the launch's first codeword
+// symbol as in K3), LLRs in codeword order (RE-major, layer-minor) and x
+// for the EVM.
 //
 // A slot axis (the slot-batch mode): blockIdx.y picks the slot, whose grid,
 // coefficients, noise variance, LLRs and symbols lie at fixed strides, as
@@ -51,6 +53,8 @@ struct DemapArgs {
   int nre, P, S, K, T, Ka, sc_off;
   const float* nv_ptr;
   const float* levels;
+  int kind, rot0;
+  float two_scale;
   const uint8_t* seq;
   float* llr;
   float2* x;
@@ -167,11 +171,11 @@ template <int L, bool MMSE, int HALF>
 __global__ void pusch_demap_lxn_kernel(const DemapArgs a) {
   const int re = blockIdx.x * blockDim.x + threadIdx.x;
   if (re >= a.nre) return;
-  constexpr int QM = 2 * HALF;
+  const int qm = a.kind < 2 ? 1 : 2 * HALF;
   const size_t b = blockIdx.y;                       // slot
   const float2* grid = a.grid + b * a.P * a.S * a.K;
   const float2* coeffs = a.coeffs + b * a.P * L * a.T * a.Ka;
-  float* llr = a.llr + b * a.nre * L * QM;
+  float* llr = a.llr + b * a.nre * L * qm;
   float2* x = a.x + b * a.nre * L;
   const int s = a.sym[re];
   const int k = a.sc[re];
@@ -206,8 +210,8 @@ __global__ void pusch_demap_lxn_kernel(const DemapArgs a) {
   for (int l = 0; l < L; ++l) {
     const int si = re * L + l;
     x[si] = xs[l];
-    demap_axis<HALF>(xs[l].x, nvs[l], a.levels, a.seq, llr, si * QM, 0);
-    demap_axis<HALF>(xs[l].y, nvs[l], a.levels, a.seq, llr, si * QM, 1);
+    demap_symbol<HALF>(xs[l], nvs[l], a.kind, (a.rot0 + si) & 1,
+                       a.two_scale, a.levels, a.seq, llr, si);
   }
 }
 
@@ -238,6 +242,7 @@ extern "C" int srsran_pusch_demap_lxn(void* grid, void* coeffs, void* sym,
                                       void* sc, int nre, int P, int S, int K,
                                       int L, int T, int Ka, int sc_off,
                                       void* nv_ptr, void* levels, int half,
+                                      int kind, int rot0, float two_scale,
                                       int mmse, void* seq, void* llr, void* x,
                                       int nslots, void* stream) {
   if (nslots < 1) return (int)cudaErrorInvalidValue;
@@ -245,7 +250,8 @@ extern "C" int srsran_pusch_demap_lxn(void* grid, void* coeffs, void* sym,
   const DemapArgs a{(const float2*)grid, (const float2*)coeffs,
                     (const int*)sym, (const int*)sc, nre, P, S, K, T, Ka,
                     sc_off, (const float*)nv_ptr, (const float*)levels,
-                    (const uint8_t*)seq, (float*)llr, (float2*)x};
+                    kind, rot0, two_scale, (const uint8_t*)seq, (float*)llr,
+                    (float2*)x};
   cudaStream_t st = (cudaStream_t)stream;
   switch (L) {
     case 1: return launch_method<1>(a, half, mmse, nslots, st);

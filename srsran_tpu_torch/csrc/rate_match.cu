@@ -14,46 +14,66 @@
 // rate_match_batch_ref; the same index on the host:
 // ops/ldpc_rate_match.py::gather_index.
 //
-// Design.  One thread per output bit (a grid row per codeblock): an index
-// computation and a byte gather, bit-exact by construction.  Bounds on this
-// card: bytes (each codeblock's window positions, min(E, N_nf), read once,
-// E bytes written once); the kernel is a pure gather.
+// Design.  One launch per TB, one thread per output bit (a grid row per
+// codeblock): an index computation in 32-bit integers and a byte gather,
+// bit-exact by construction.  Everything but the two tensors' pointers
+// comes by value in RateMatchParams, which the wrapper builds once per call
+// signature (kernels/_build.py::Launch): the window plan and each
+// codeblock's E and first output bit, as runs of codeblocks of equal E
+// (TS38.212 §5.4.2.1 gives at most two), so a launch reads no host-made
+// table from device memory and a CUDA graph holds nothing but the
+// parameters.  Bounds on this card: bytes (each codeblock's window
+// positions, min(E, N_nf), read once, E bytes written once); at the
+// flagship's 37 codeblocks the kernel takes the time of a launch, and the
+// wrapper's host path (one ctypes call) is what its callers wait for.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-__global__ void rate_match_kernel(const int8_t* __restrict__ cw, int N,
-                                  const int* __restrict__ off,
-                                  const int* __restrict__ es, int qm, int fs,
-                                  int fe, int n_nf, int k0p,
+constexpr int kMaxRuns = 8;
+
+// Mirrors kernels/_build.py::RateMatchParams.
+struct RateMatchParams {
+  int C, N, e_max, qm, fs, fe, n_nf, k0p, runs;
+  int run_end[kMaxRuns];     // one past the run's last codeblock
+  int run_e[kMaxRuns];       // the run's E
+  int run_off[kMaxRuns];     // the run's first output bit
+};
+
+__global__ void rate_match_kernel(const int8_t* __restrict__ cw,
+                                  const RateMatchParams p,
                                   int8_t* __restrict__ out) {
   const int c = blockIdx.y;
-  const int e = es[c];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= e) return;
-  const int rows = e / qm;
-  const long long j = (long long)(i % qm) * rows + i / qm;   // window index
-  int q = (int)((k0p + j) % n_nf);                          // filler-free
-  if (q >= fs) q += fe - fs;                                 // buffer index
-  out[(size_t)off[c] + i] = cw[(size_t)c * N + q];
+  int r = 0;
+  while (r < p.runs - 1 && c >= p.run_end[r]) ++r;
+  const int first = r ? p.run_end[r - 1] : 0;
+  const int e = p.run_e[r];
+  const unsigned i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (unsigned)e) return;
+  const unsigned qm = p.qm;
+  const unsigned j = (i % qm) * ((unsigned)e / qm) + i / qm;  // window index
+  unsigned q = ((unsigned)p.k0p + j) % (unsigned)p.n_nf;       // filler-free
+  if (q >= (unsigned)p.fs) q += p.fe - p.fs;                   // buffer index
+  out[(size_t)p.run_off[r] + (size_t)(c - first) * e + i] =
+      cw[(size_t)c * p.N + q];
 }
 
 }  // namespace
 
-// cw int8 [C, N]; off, es int32 [C] (each codeblock's first output bit and
-// E); (fs, fe, n_nf, k0p) the window plan; out int8 [sum E].
-extern "C" int srsran_rate_match(void* cw, int C, int N, void* off, void* es,
-                                 int e_max, int qm, int fs, int fe, int n_nf,
-                                 int k0p, void* out, void* stream) {
-  if (C < 1 || N < 1 || e_max < 1 || qm < 1 || n_nf < 1 || fs < 0 ||
-      fe < fs || C > 65535)
+// cw int8 [C, N]; out int8 [sum E]; params the call signature's
+// RateMatchParams.
+extern "C" int srsran_rate_match(const void* cw, void* out, void* stream,
+                                 const void* params) {
+  const RateMatchParams* p = (const RateMatchParams*)params;
+  if (p->C < 1 || p->N < 1 || p->e_max < 1 || p->qm < 1 || p->n_nf < 1 ||
+      p->fs < 0 || p->fe < p->fs || p->C > 65535 || p->runs < 1 ||
+      p->runs > kMaxRuns || p->run_end[p->runs - 1] != p->C)
     return (int)cudaErrorInvalidValue;
   const int nt = 256;
-  dim3 grid((e_max + nt - 1) / nt, C);
+  dim3 grid((p->e_max + nt - 1) / nt, p->C);
   rate_match_kernel<<<grid, nt, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)cw, N, (const int*)off, (const int*)es, qm, fs, fe, n_nf,
-      k0p, (int8_t*)out);
+      (const int8_t*)cw, *p, (int8_t*)out);
   return (int)cudaGetLastError();
 }

@@ -1309,6 +1309,18 @@ GNB_CHANNEL = chan.ChannelConfig(
     nof_rx_ports=CELL.nof_ports, nof_subc=CELL.nof_sc,
     scs_hz=15_000 << CELL.numerology)
 GNB_PRACH_OFFSET_HZ = -(CELL.nof_sc // 2) * (15_000 << CELL.numerology)
+# K21's cases: name -> (format, sample rate, start sample, frequency
+# offset, FD occasions, RA SCS, samples per port), each on 4 ports.
+PRACH_DEMOD_CASES = {
+    "prach_demod": ("B4", CELL.dft_size * (15_000 << CELL.numerology), 256,
+                    GNB_PRACH_OFFSET_HZ, 1, 15_000 << CELL.numerology,
+                    12 * 4096 + 256),
+    "prach_demod_n6144": ("B4", 6144 * (15_000 << CELL.numerology), 0,
+                          GNB_PRACH_OFFSET_HZ, 1, 15_000 << CELL.numerology,
+                          12 * 6144),
+    "prach_demod_format0": ("0", 30_720_000, 0, GNB_PRACH_OFFSET_HZ, 1, 0,
+                            24_576),
+}
 PRG_SIZE = 4
 PRG_PDSCH = dataclasses.replace(
     PDSCH, nof_layers=2,
@@ -1332,21 +1344,14 @@ def gnb_kernel_cases(gen: torch.Generator, rng: np.random.Generator,
         torch.randn((CELL.nof_ports, 14, CELL.nof_sc), generator=gen,
                     device=device))
     gains, noise = chan.draw(GNB_CHANNEL, gen)
-    fs = CELL.dft_size * (15_000 << CELL.numerology)
-    ra_scs = 15_000 << CELL.numerology
-    b4 = torch.complex(
-        torch.randn((CELL.nof_ports, 12 * 4096 + 256), generator=gen,
-                    device=device),
-        torch.randn((CELL.nof_ports, 12 * 4096 + 256), generator=gen,
-                    device=device))
-    b4_6144 = torch.complex(
-        torch.randn((CELL.nof_ports, 12 * 6144), generator=gen,
-                    device=device),
-        torch.randn((CELL.nof_ports, 12 * 6144), generator=gen,
-                    device=device))
-    long0 = torch.complex(
-        torch.randn((CELL.nof_ports, 24_576), generator=gen, device=device),
-        torch.randn((CELL.nof_ports, 24_576), generator=gen, device=device))
+    k21 = {}
+    for name, (*args, length) in PRACH_DEMOD_CASES.items():
+        shape = (CELL.nof_ports, length)
+        samples = torch.complex(
+            torch.randn(shape, generator=gen, device=device),
+            torch.randn(shape, generator=gen, device=device))
+        k21[name] = (prach_demod.demodulate, prach_demod.demodulate_ref,
+                     (samples, *args))
     tb = _up(rng.integers(0, 2, PRG_PDSCH.tbs).astype(np.int8), device)
     cbs = ldpc_encode.dlsch_encode_ref(
         tb, pdsch.segmentation(PRG_PDSCH).base_graph).contiguous()
@@ -1357,15 +1362,7 @@ def gnb_kernel_cases(gen: torch.Generator, rng: np.random.Generator,
     return {
         "tdl_channel": (chan.apply, chan.apply_ref,
                         (tx, GNB_CHANNEL, gains, noise)),
-        "prach_demod": (prach_demod.demodulate, prach_demod.demodulate_ref,
-                        (b4, "B4", fs, 256, GNB_PRACH_OFFSET_HZ, 1, ra_scs)),
-        "prach_demod_n6144": (
-            prach_demod.demodulate, prach_demod.demodulate_ref,
-            (b4_6144, "B4", 6144 * ra_scs, 0, GNB_PRACH_OFFSET_HZ, 1,
-             ra_scs)),
-        "prach_demod_format0": (
-            prach_demod.demodulate, prach_demod.demodulate_ref,
-            (long0, "0", 30_720_000, 0, GNB_PRACH_OFFSET_HZ, 1, 0)),
+        **k21,
         "pdsch_map_prg": (_map_on_copy(dl_map.pdsch_map),
                           _map_on_copy(dl_map.pdsch_map_ref), k22),
     }
@@ -1988,6 +1985,71 @@ def clip_ceiling_dbfs(x: torch.Tensor, share: float = CLIP_SHARE) -> float:
     return 20 * float(np.log10(mag[int(len(mag) * (1 - share))]))
 
 
+# BPSK PUSCHs without transform precoding at the flagship width (TS38.211
+# allows pi/2-BPSK only with transform precoding, but the JAX receiver
+# decodes either): pi/2-BPSK, 2 layers, ZF (K3), and BPSK, 1 layer, MMSE
+# (K16), each on 130 RB hopping from PRB 0 to 136, a DM-RS symbol per hop.
+BPSK_PUSCH = pusch.PuschConfig(
+    rnti=0x23, rb_start=0, rb_count=130, first_symbol=0, nof_symbols=14,
+    modulation="pi2bpsk", target_code_rate=0.4,
+    tbs=mcs_tbs.tbs(130, 14, 12, "qpsk", 0.2, 2), nof_layers=2, n_id=3,
+    dmrs_symbols=(2, 9), second_hop_prb=136, numerology=1)
+BPSK_PUSCH_MMSE = dataclasses.replace(
+    BPSK_PUSCH, modulation="bpsk", nof_layers=1, equalizer="mmse",
+    tbs=mcs_tbs.tbs(130, 14, 12, "qpsk", 0.2, 1))
+
+
+def bpsk_rx(cfg, seed: int, nof_sc: int, sigma: float = 0.04) -> tuple:
+    """A received 2-port grid (numpy complex64 [2, 14, nof_sc]) of a PUSCH
+    without transform precoding at 1 or 2 layers, and its payload: the
+    port's PDSCH transmitter (on the CPU, identity precoding) on the
+    PDU's first PRBs; with hopping its symbols from the second hop on moved
+    to the hop-2 PRBs beside that hop's own DM-RS; a flat 2 x L channel
+    per hop and AWGN, all drawn from ``seed`` with numpy."""
+    rng = np.random.default_rng(seed)
+    payload = rng.integers(0, 2, cfg.tbs).astype(np.int8)
+    layers = cfg.nof_layers
+    ue = pdsch.PdschConfig(
+        rnti=cfg.rnti, rb_start=cfg.rb_start, rb_count=cfg.rb_count,
+        first_symbol=cfg.first_symbol, nof_symbols=cfg.nof_symbols,
+        modulation=cfg.modulation, target_code_rate=cfg.target_code_rate,
+        tbs=cfg.tbs, nof_layers=layers, n_id=cfg.n_id,
+        dmrs_symbols=cfg.dmrs_symbols)
+    eye = np.eye(layers, dtype=np.complex64)
+    tx = pdsch.process(torch.zeros((layers, 14, nof_sc),
+                                   dtype=torch.complex64),
+                       torch.as_tensor(payload), ue, precoding=eye)
+    hops = pusch.hop_configs(cfg)
+    n1 = cfg.nof_symbols if len(hops) == 1 else hops[1].first_symbol
+    if len(hops) > 1:
+        k0, m = 12 * hops[1].rb_start, 12 * cfg.rb_count
+        tx[:, n1:, k0:k0 + m] = tx[:, n1:, :m]
+        tx[:, n1:, :m] = 0
+        for sym in hops[1].dmrs_symbols:
+            tx[:, sym] = 0
+        dmrs.map_to_grid(tx, pusch.dmrs_config(hops[1]), eye)
+    h1 = np.array([[0.9 * np.exp(0.4j), 0.3 * np.exp(1.1j)],
+                   [0.2 * np.exp(-0.7j), 0.6 * np.exp(-0.2j)]])[:, :layers]
+    h2 = np.array([[0.5 * np.exp(1.2j), 0.2 * np.exp(-0.3j)],
+                   [0.3 * np.exp(0.5j), 0.8 * np.exp(0.9j)]])[:, :layers]
+    tx = tx.numpy()
+    rx = np.concatenate([np.einsum("pl,lsk->psk", h1, tx[:, :n1]),
+                         np.einsum("pl,lsk->psk", h2, tx[:, n1:])], axis=1)
+    rx += sigma / np.sqrt(2) * (rng.normal(size=rx.shape)
+                                + 1j * rng.normal(size=rx.shape))
+    return rx.astype(np.complex64), payload
+
+
+def rate_match_args(rng: np.random.Generator, device) -> tuple:
+    """K32's arguments on the flagship PUSCH (the UE transmitter's): a
+    random TB's 37 codeblocks, their E sizes, rv 0 and the segmentation."""
+    payload = _up(rng.integers(0, 2, UE.tbs).astype(np.int8), device)
+    cbs = ldpc_encode.dlsch_encode(payload, SEG.base_graph)
+    return (cbs, pdsch.rate_match_sizes(UE), 0,
+            BITS_PER_SYMBOL[UE.modulation], SEG.base_graph, SEG.lifting_size,
+            SEG.cb_info_bits, SEG.full_block_bits)
+
+
 def split8_kernel_cases(rng: np.random.Generator, device,
                         dl_samples: torch.Tensor, cfo_norm: float) -> dict:
     """name -> (wrapper, plain twin, args) for the split-8 slice's kernels:
@@ -1997,16 +2059,12 @@ def split8_kernel_cases(rng: np.random.Generator, device,
     ("cfo_rotate") and K31 ("amplitude_control", a clip of about 1% of the
     samples) on ``dl_samples``."""
     cand, code = ue_candidates(rng, device)
-    payload = _up(rng.integers(0, 2, UE.tbs).astype(np.int8), device)
-    cbs = ldpc_encode.dlsch_encode(payload, SEG.base_graph)
-    rm = (cbs, pdsch.rate_match_sizes(UE), 0, BITS_PER_SYMBOL[UE.modulation],
-          SEG.base_graph, SEG.lifting_size, SEG.cb_info_bits,
-          SEG.full_block_bits)
     return {
         "polar_scl_decode": (polar_scl.scl_decode, polar_scl.scl_decode_ref,
                              (cand, code, SCL_LIST, None)),
         "rate_match": (ldpc_rate_match.rate_match_batch,
-                       ldpc_rate_match.rate_match_batch_ref, rm),
+                       ldpc_rate_match.rate_match_batch_ref,
+                       rate_match_args(rng, device)),
         "cfo_rotate": (cfo.apply_cfo, cfo.apply_cfo_ref,
                        (dl_samples, cfo_norm, 0)),
         "amplitude_control": (amplitude_control.clip,

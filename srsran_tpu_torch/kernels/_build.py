@@ -8,6 +8,10 @@ root, named by a hash of the sources and flags; the library is loaded with
 build on every run, so the sources compile side by side.  Pointers and the stream go over as
 ``ctypes.c_void_p``; every C entry point returns ``cudaGetLastError()``
 after its launches, and :func:`check` raises on anything but 0.
+:class:`Launch` is the lean form of that path (K32 and K21 take it): a
+wrapper keeps one per call signature with the bound C function, a
+parameter struct passed by address and its device tables, and a call
+passes only the tensors' pointers and the current stream.
 
 ``--fmad=false`` keeps ``a + b * c`` as a rounded multiply then a rounded
 add, the way PyTorch's separate tensor ops compute it: the LDPC decoder's
@@ -64,6 +68,28 @@ class ControlArgs(ctypes.Structure):
     _fields_ = [("pdu", ControlPdu * CONTROL_MAX_PDUS),
                 ("group_start", _I * (CONTROL_MAX_PDUS + 1)), ("qpsk", _F)]
 
+RM_MAX_RUNS = 8            # csrc/rate_match.cu kMaxRuns
+
+
+class RateMatchParams(ctypes.Structure):
+    """csrc/rate_match.cu's RateMatchParams (K32's launch), by address:
+    the window plan and the codeblocks' E and first output bit as runs of
+    codeblocks of equal E."""
+
+    _fields_ = [("C", _I), ("N", _I), ("e_max", _I), ("qm", _I), ("fs", _I),
+                ("fe", _I), ("n_nf", _I), ("k0p", _I), ("runs", _I),
+                ("run_end", _I * RM_MAX_RUNS), ("run_e", _I * RM_MAX_RUNS),
+                ("run_off", _I * RM_MAX_RUNS)]
+
+
+class PrachDemodParams(ctypes.Structure):
+    """csrc/prach_demod.cu's PrachDemodParams (K21's launch), by address."""
+
+    _fields_ = [("ports", _I), ("row_stride", _I), ("start", _I),
+                ("n_u", _I), ("reps", _I), ("l_ra", _I), ("b0", _I),
+                ("rt", _I), ("splits", _I), ("split_blocks", _I),
+                ("scale", _F)]
+
 # C entry points and their argument types (see the matching .cu file).
 SIGNATURES = {
     "srsran_ldpc_sweep": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
@@ -72,9 +98,10 @@ SIGNATURES = {
     "srsran_rate_dematch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _I, _F, _P],
     "srsran_pusch_demap": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                           _P, _P, _I, _P, _P, _P, _I, _P],
+                           _P, _P, _I, _I, _I, _F, _P, _P, _P, _I, _P],
     "srsran_pusch_demap_lxn": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                               _P, _P, _I, _I, _P, _P, _P, _I, _P],
+                               _P, _P, _I, _I, _I, _F, _I, _P, _P, _P, _I,
+                               _P],
     "srsran_ulsch_demux": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P],
     "srsran_ofdm_window": [_P, _P, _P, _I, _I, _I, _I, _P],
     "srsran_ofdm_bins_to_grid": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -115,7 +142,7 @@ SIGNATURES = {
                               _P, _I, _P, _F, _P, _P, _I, _P],
     "srsran_tdl_channel": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                            _D, _P, _P],
-    "srsran_prach_demod": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    "srsran_prach_demod": [_P, _P, _P, _P, _P, _P],
     "srsran_bfp_compress": [_P, _I, _I, _P, _P, _P, _P],
     "srsran_bfp_decompress_sections": [_P, _I, _P, _I, _I, _I, _I, _P,
                                        _P],
@@ -127,8 +154,7 @@ SIGNATURES = {
     "srsran_control_llrs": [_P, _P, _P, _I, _P, _P, _I, _F, _P, _P],
     "srsran_polar_scl": [_P, _I, _I, _I, _P, _I, _P, _P, _I, _I, _I, _P, _P,
                          _P],
-    "srsran_rate_match": [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P,
-                          _P],
+    "srsran_rate_match": [_P, _P, _P, _P],
     "srsran_cfo": [_P, _L, _I, _F, _L, _P, _P],
     "srsran_amplitude": [_P, _L, _F, _F, _P, _P, _P, _P, _P, _P],
 }
@@ -186,13 +212,28 @@ def load() -> ctypes.CDLL:
             obj.unlink()
         os.replace(tmp, out)
         out.with_suffix(".log").write_text("".join(logs))
-    lib = ctypes.CDLL(str(out))
+    lib = _bind(ctypes.CDLL(str(out)))
+    load.build_seconds = time.perf_counter() - t0
+    return lib
+
+
+def _bind(lib):
+    """``lib`` with every entry point of :data:`SIGNATURES` typed."""
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    load.build_seconds = time.perf_counter() - t0
     return lib
+
+
+@functools.lru_cache(maxsize=1)
+def load_locked() -> ctypes.PyDLL:
+    """The kernel library through ``ctypes.PyDLL``, for :class:`Launch`:
+    its calls keep the interpreter lock, where a ``CDLL`` call releases it
+    and must take it back (from another thread, if one is waiting) for a
+    launch that takes a few µs.  Built by :func:`load` if needed."""
+    load()
+    return _bind(ctypes.PyDLL(str(library_path())))
 
 
 def _finish(cmd: list, proc, output: str) -> str:
@@ -222,3 +263,42 @@ def ptr(t) -> ctypes.c_void_p:
 def stream_of(t) -> ctypes.c_void_p:
     import torch
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+class Launch:
+    """One C entry point bound to one call signature of its wrapper.
+
+    A wrapper builds one per signature (its hashable scalars, the inputs'
+    shapes and dtypes, and the CUDA device ``index``) in a
+    ``functools.lru_cache`` and keeps in it what does not change from call
+    to call: the bound C function, a ctypes parameter struct (passed by
+    address; the kernel takes its copy by value at launch, so a captured
+    CUDA graph holds the values) and the device tables the kernel reads,
+    which the plan holds, so nothing it launches with is freed while it
+    lives.  A call passes only what changes: the tensors' data pointers,
+    then the device's current stream (read per call, so graph capture on a
+    side stream sees its own), through one ctypes call that keeps the
+    interpreter lock (:func:`load_locked`), and the C entry's return is
+    checked.  Entry points take ``(pointers..., stream, params,
+    tables...)``.
+    """
+
+    __slots__ = ("fn", "name", "index", "tail", "params", "tables",
+                 "_stream")
+
+    def __init__(self, name: str, index: int, params: ctypes.Structure,
+                 tables: tuple = ()):
+        import torch
+        self.fn = getattr(load_locked(), name)
+        self.name = name
+        self.index = index
+        self.params = params
+        self.tables = tables
+        self.tail = (ctypes.addressof(params),) + tuple(
+            t.data_ptr() for t in tables)
+        self._stream = torch._C._cuda_getCurrentRawStream
+
+    def __call__(self, *ptrs: int) -> None:
+        err = self.fn(*ptrs, self._stream(self.index), *self.tail)
+        if err:
+            raise RuntimeError(f"{self.name}: CUDA error {err} at launch")

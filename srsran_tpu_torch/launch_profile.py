@@ -1,0 +1,234 @@
+"""The host side of a kernel launch on one CUDA GPU: K32's and K21's
+wrappers against one PyTorch call each.
+
+    python3 -m srsran_tpu_torch.launch_profile [--calls 1000] [--out DIR]
+
+Cases: K32 (``ldpc_rate_match.rate_match_batch``) on the flagship PUSCH's
+37 codeblocks at rv 0, beside ``torch.take`` of its index plan; K21
+(``prach_demod.demodulate``) on the gNB simulator's B4 window (N_u 4096),
+at N_u 6144 and on format 0, beside ``torch.matmul`` of the bin matrix by
+the windows.  Per case and call it reports:
+
+* host µs: ``time.perf_counter_ns`` around the call alone, no synchronize
+  (what the host spends to enqueue), median and quartiles of ``--calls``;
+* event ms: CUDA events around one call, median of 20, as
+  ``chip_smoke.py`` times a kernel (the host's enqueue shows in it);
+* device µs: the device activities' time per call in a ``torch.profiler``
+  trace of 50 calls;
+* a ``cProfile`` of ``--calls`` calls: the functions with the most own
+  time, to ``DIR/<case>_cprofile.txt``.
+
+Then the pieces a launch path chooses between, host µs each: reading the
+current stream two ways, allocating an output three ways, a data pointer,
+a ``device.const`` lookup, and a ctypes call through ``CDLL`` and
+``PyDLL`` with pointers as ``c_void_p`` and as ``c_uint64``.  The summary
+is printed as the last line (JSON).
+"""
+
+from __future__ import annotations
+
+import argparse
+import cProfile
+import ctypes
+import io
+import json
+import pstats
+import statistics
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from . import flagship
+from .device import card_line, const, require_cuda
+from .kernels import _build
+from .ops import ldpc_rate_match
+from .phy.lower import prach_demod
+from .profile_slot import profiled
+
+EVENT_RUNS = 20
+PROFILED_CALLS = 50
+
+
+def host_us(fn, calls: int) -> dict:
+    """fn()'s enqueue time on the host clock, µs: (median, quartiles)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter_ns()
+        fn()
+        times.append(time.perf_counter_ns() - t0)
+    torch.cuda.synchronize()
+    q = statistics.quantiles(times, n=4)
+    return {"median": statistics.median(times) / 1e3, "q1": q[0] / 1e3,
+            "q3": q[2] / 1e3}
+
+
+def event_ms(fn, runs: int = EVENT_RUNS) -> float:
+    """Median of CUDA events around one fn() (as chip_smoke.median_ms)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def device_us(fn, path: Path, calls: int = PROFILED_CALLS) -> float:
+    """Device time per call: the sum of the device activities' durations
+    in a torch.profiler trace of ``calls`` calls (its chrome trace goes
+    to ``path`` and is deleted)."""
+    fn()
+    events, _ = profiled(fn, calls, path)
+    return sum(e[3] for e in events) / calls
+
+
+def cprofile_top(fn, calls: int, path: Path, rows: int = 20) -> list:
+    """cProfile of ``calls`` calls; writes the stats by own time to
+    ``path`` and returns the top ``rows`` as (function, own µs per call)."""
+    fn()
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(calls):
+        fn()
+    prof.disable()
+    torch.cuda.synchronize()
+    buf = io.StringIO()
+    stats = pstats.Stats(prof, stream=buf).sort_stats("tottime")
+    stats.print_stats(rows)
+    path.write_text(buf.getvalue())
+    top = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:rows]
+    return [(f"{Path(f).name}:{line}({name})", 1e6 * tt / calls)
+            for (f, line, name), (_, _, tt, _, _) in top]
+
+
+def take_call(rm_args: tuple):
+    """``torch.take`` of K32's index plan (``gather_index``) on K32's
+    arguments: one PyTorch call computing the same function, checked
+    bit-equal to the twin."""
+    cbs, e_sizes = rm_args[:2]
+    plan = torch.from_numpy(ldpc_rate_match.gather_index(
+        e_sizes, *rm_args[2:], cbs.shape[1])).to(cbs.device)
+    if not torch.equal(torch.take(cbs, plan),
+                       ldpc_rate_match.rate_match_batch_ref(*rm_args)):
+        raise AssertionError("K32's library call differs from its twin")
+    return lambda: torch.take(cbs, plan)
+
+
+def matmul_call(args: tuple):
+    """``torch.matmul`` of K21's [L_ra, N_u] bin matrix by the stacked
+    windows [N_u, ports * reps] on K21's arguments: one PyTorch call
+    computing the same function, checked within 1e-4 of max|out| of the
+    twin."""
+    samples, fmt, fs, start, f_off, _, ra = args
+    l_ra, n_u, reps, b0 = prach_demod.geometry(fmt, fs, f_off, ra)
+    m = torch.from_numpy(prach_demod._bin_dft_matrix(
+        n_u, b0, l_ra)).to(samples.device)
+    x = samples[:, start:start + reps * n_u].reshape(-1, n_u).T.contiguous()
+    ref = prach_demod.demodulate_ref(*args)
+    torch.testing.assert_close(torch.matmul(m, x).T.reshape(ref.shape), ref,
+                               rtol=1e-4, atol=1e-4 * float(ref.abs().max()))
+    return lambda: torch.matmul(m, x)
+
+
+def _entry(loader, argtype):
+    """K32's C entry point loaded through ``loader`` (ctypes.CDLL releases
+    the interpreter lock around the call, ctypes.PyDLL keeps it) with four
+    ``argtype`` arguments."""
+    fn = loader(str(_build.library_path())).srsran_rate_match
+    fn.argtypes = [argtype] * 4
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def pieces(rm_args: tuple, calls: int) -> dict:
+    """Host µs of the steps a launch path may take, one at a time; the
+    ctypes calls pass parameters K32's entry point refuses at once (no
+    launch), so they time the call alone."""
+    cbs = rm_args[0]
+    dev = cbs.device
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    e_sizes = tuple(rm_args[1])
+    g = sum(e_sizes)
+    proto = torch.empty(g, dtype=torch.int8, device=dev)
+    refused = _build.RateMatchParams()           # C = 0: refused
+    addr = ctypes.addressof(refused)
+    steps = {
+        "torch.cuda.current_stream(device).cuda_stream":
+            lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "torch._C._cuda_getCurrentRawStream(index)":
+            lambda: torch._C._cuda_getCurrentRawStream(index),
+        "torch.empty(n, int8, device)":
+            lambda: torch.empty(g, dtype=torch.int8, device=dev),
+        "Tensor.new_empty(n)": lambda: cbs.new_empty(g),
+        "torch.empty_like(a tensor of the output's shape)":
+            lambda: torch.empty_like(proto),
+        "Tensor.data_ptr()": cbs.data_ptr,
+        "device.const lookup (K32's E sizes)":
+            lambda: const(ldpc_rate_match._cb_sizes, e_sizes, 1, device=dev),
+    }
+    for loader in (ctypes.CDLL, ctypes.PyDLL):
+        for argtype in (ctypes.c_void_p, ctypes.c_uint64):
+            fn = _entry(loader, argtype)
+            steps[f"ctypes call, {loader.__name__}, 4 x "
+                  f"{argtype.__name__}"] = (lambda fn=fn: fn(0, 0, 0, addr))
+    return {name: host_us(fn, calls)["median"] for name, fn in steps.items()}
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--calls", type=int, default=1000)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default="build/launch_profile")
+    args = ap.parse_args(argv)
+    dev = require_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    _build.load()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    rng = np.random.default_rng(args.seed)
+    rm_args = flagship.rate_match_args(rng, dev)
+    k21 = {k: v for k, v in flagship.gnb_kernel_cases(gen, rng, dev).items()
+           if k.startswith("prach_demod")}
+    library = {"rate_match": take_call(rm_args),
+               **{k: matmul_call(a) for k, (_, _, a) in k21.items()}}
+    calls = {"rate_match": lambda: ldpc_rate_match.rate_match_batch(
+        *rm_args)}
+    for name, (fn, _, a) in k21.items():
+        calls[name] = lambda fn=fn, a=a: fn(*a)
+    summary = {"card": card_line(), "torch": torch.__version__,
+               "calls": args.calls, "cases": {}}
+    for name, fn in calls.items():
+        row = {}
+        for which, f in (("kernel", fn), ("library", library[name])):
+            row[which] = {
+                "host_us": host_us(f, args.calls),
+                "event_ms": event_ms(f),
+                "device_us": device_us(f, out / f"{name}_{which}.json"),
+                "cprofile_top_us": cprofile_top(
+                    f, args.calls, out / f"{name}_{which}_cprofile.txt")[:8],
+            }
+        summary["cases"][name] = row
+        print(f"{name}: " + "; ".join(
+            f"{w} host {r['host_us']['median']:.2f} us, events "
+            f"{r['event_ms']:.4f} ms, device {r['device_us']:.2f} us"
+            for w, r in row.items()), flush=True)
+    summary["pieces_host_us"] = pieces(rm_args, args.calls)
+    (out / "summary.json").write_text(json.dumps(summary, indent=1))
+    print(json.dumps(summary))
+    return summary
+
+
+if __name__ == "__main__":
+    main()

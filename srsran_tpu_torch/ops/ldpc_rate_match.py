@@ -18,8 +18,10 @@ memory pass (about 10 MB at the flagship).
 
 :func:`rate_match_batch` and the single-codeblock :func:`rate_match` are
 the K32 wrapper: on CUDA tensors csrc/rate_match.cu (a thread per output
-bit: its window index, the filler gap and the Qm-row interleave), on CPU
-tensors :func:`rate_match_batch_ref`, the plain twin.  The single-codeblock
+bit: its window index, the filler gap and the Qm-row interleave), launched
+through a plan cached per call signature (``kernels/_build.py::Launch``),
+so a call allocates its output and makes one C call; on CPU tensors
+:func:`rate_match_batch_ref`, the plain twin.  The single-codeblock
 :func:`rate_dematch` runs K2 with one codeblock per row and no soft buffer.
 """
 
@@ -104,33 +106,60 @@ def gather_index(e_sizes, rv: int, qm: int, base_graph: int, z: int,
     return np.concatenate(parts)
 
 
+def _rate_match_params(e_sizes: tuple, rv: int, qm: int, base_graph: int,
+                       z: int, k_prime: int, k: int, n_ref: int,
+                       shape: tuple, dtype: torch.dtype) -> tuple:
+    """K32's parameters for one call signature and its output length G:
+    the window plan and the codeblocks' (first output bit, E) as runs of
+    equal E; raises on what the kernel does not take."""
+    e_sizes = tuple(int(e) for e in e_sizes)
+    runs = _group_e_sizes(e_sizes)
+    if (dtype != torch.int8 or len(shape) != 2 or shape[0] != len(e_sizes)
+            or any(e < 1 or e % qm for e in e_sizes)):
+        raise ValueError(f"codewords must be int8 [C, N] with C = "
+                         f"{len(e_sizes)} E sizes divisible by Qm={qm}, got "
+                         f"{dtype} {tuple(shape)} {e_sizes}")
+    if len(runs) > _build.RM_MAX_RUNS:
+        raise ValueError(f"{len(runs)} runs of equal E, more than "
+                         f"{_build.RM_MAX_RUNS} (TS38.212 gives at most 2)")
+    c, n = shape
+    fs, fe, n_nf, k0p = _window_plan(rv, base_graph, z, k_prime, k, n, n_ref)
+    p = _build.RateMatchParams(c, n, max(e_sizes), qm, fs, fe, n_nf, k0p,
+                               len(runs))
+    off = 0
+    for i, (_, g1, e) in enumerate(runs):
+        p.run_end[i], p.run_e[i], p.run_off[i] = g1, e, off
+        off += (g1 - runs[i][0]) * e
+    return p, off
+
+
+@functools.lru_cache(maxsize=1024)
+def _rate_match_plan(e_sizes: tuple, rv: int, qm: int, base_graph: int,
+                     z: int, k_prime: int, k: int, n_ref: int, shape: tuple,
+                     dtype: torch.dtype, index: int) -> tuple:
+    """K32's launch for one call signature on CUDA device ``index`` and
+    its output length G."""
+    p, g = _rate_match_params(e_sizes, rv, qm, base_graph, z, k_prime, k,
+                              n_ref, shape, dtype)
+    return _build.Launch("srsran_rate_match", index, p), g
+
+
 def rate_match_batch(codewords: torch.Tensor, e_sizes, rv: int, qm: int,
                      base_graph: int, z: int, k_prime: int, k: int,
                      n_ref: int = 0) -> torch.Tensor:
     """Rate-match all codeblocks of a TB: int8 [C, N] -> int8 [G] (each
-    codeblock's E_c bits in turn)."""
-    if not is_cuda(codewords):
+    codeblock's E_c bits in turn).  On the card one K32 launch through the
+    cached plan of the call's signature."""
+    if not codewords.is_cuda:
         return rate_match_batch_ref(codewords, e_sizes, rv, qm, base_graph, z,
                                     k_prime, k, n_ref)
-    e_sizes = tuple(int(e) for e in e_sizes)
-    c, n = codewords.shape
-    if (codewords.dtype != torch.int8 or len(e_sizes) != c
-            or any(e < 1 or e % qm for e in e_sizes)):
-        raise ValueError(f"codewords must be int8 [C, N] with C = "
-                         f"{len(e_sizes)} E sizes divisible by Qm={qm}, got "
-                         f"{codewords.dtype} {tuple(codewords.shape)} "
-                         f"{e_sizes}")
-    fs, fe, n_nf, k0p = _window_plan(rv, base_graph, z, k_prime, k, n, n_ref)
-    dev = codewords.device
-    cw = codewords.contiguous()
-    out = torch.empty(sum(e_sizes), dtype=torch.int8, device=dev)
-    lib = _build.load()
-    _build.check(lib.srsran_rate_match(
-        _build.ptr(cw), c, n, _build.ptr(const(_cb_offsets, e_sizes, 1,
-                                                device=dev)),
-        _build.ptr(const(_cb_sizes, e_sizes, 1, device=dev)), max(e_sizes),
-        qm, fs, fe, n_nf, k0p, _build.ptr(out), _build.stream_of(cw)),
-        "rate_match")
+    launch, g = _rate_match_plan(
+        e_sizes if type(e_sizes) is tuple else tuple(e_sizes), rv, qm,
+        base_graph, z, k_prime, k, n_ref, codewords.shape, codewords.dtype,
+        codewords.get_device())
+    cw = codewords if codewords.is_contiguous() else codewords.contiguous()
+    out = cw.new_empty(g)
+    launch(cw.data_ptr(), out.data_ptr())
     KERNEL_RM.count()
     return out
 

@@ -114,15 +114,17 @@ def _axis_llrs(y: torch.Tensor, order: int, scheme: str,
 
 
 def demodulate(symbols: torch.Tensor, noise_var: torch.Tensor,
-               scheme: str) -> torch.Tensor:
+               scheme: str, first: int = 0) -> torch.Tensor:
     """Soft demap.  symbols complex [..., S], noise_var [..., S] ->
     llrs [..., S*Qm].  pi/2-BPSK derotates symbol n by -j for odd n, n
-    counted along the last axis (the JAX package's convention)."""
+    counted along the last axis from ``first`` (the codeword index of the
+    first symbol; the JAX package's convention counts from 0)."""
     qm = BITS_PER_SYMBOL[scheme]
     if scheme in ("bpsk", "pi2bpsk"):
         sym = symbols
         if scheme == "pi2bpsk":
-            odd = torch.arange(sym.shape[-1], device=sym.device) % 2 == 1
+            odd = (torch.arange(sym.shape[-1], device=sym.device)
+                   + first) % 2 == 1
             sym = torch.where(odd, sym * -1j, sym)
         proj = (sym.real + sym.imag) * np.float32(2.0 * _SCALE[scheme])
         return 2.0 * proj / torch.clamp_min(noise_var, 1e-12)

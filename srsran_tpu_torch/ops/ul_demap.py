@@ -6,7 +6,8 @@ data REs (srsran_tpu/phy/upper/pusch.py::_frontend_hop with
 ops/equalizer.py::equalize, ops/modulation.py::demodulate and
 ops/scrambling.py::descramble_llrs).  On CUDA tensors the port runs them
 as one per-RE kernel: K3 (csrc/pusch_demap.cu) for ZF with 1-2 layers,
-K16 (csrc/pusch_demap_lxn.cu) for MMSE and for 3-4 layers.  On CPU
+K16 (csrc/pusch_demap_lxn.cu) for MMSE and for 3-4 layers, each for every
+modulation the JAX demodulate takes (BPSK and pi/2-BPSK included).  On CPU
 tensors it runs :func:`equalize_demap_descramble_ref`, the plain twin of
 both, composed of the port's plain front end (:func:`gather_equalize`,
 which ``pusch._frontend_hop`` also runs), demodulate and descramble_llrs.
@@ -97,13 +98,30 @@ def equalize_demap_descramble_ref(grid, coeffs, sym_idx, sc_idx, sc_off,
     x, out_nv = gather_equalize(grid, coeffs, sym_idx, sc_idx, sc_off,
                                 noise_var, nof_layers, method)
     llr = demodulate(x.reshape(-1)[None], out_nv.reshape(-1)[None],
-                     modulation)[0]
+                     modulation, advance // BITS_PER_SYMBOL[modulation])[0]
     return descramble_llrs(llr, c_init, advance), x
 
 
+# The demap forms of K3, K16, K18 and K19 (csrc/pusch_demap.cuh).
+DEMAP_KIND = {"bpsk": 0, "pi2bpsk": 1, "qpsk": 2, "qam16": 2, "qam64": 2,
+              "qam256": 2}
+
+
+def demap_tables(modulation: str, device) -> tuple:
+    """(kind, PAM half-order, level table, 2 * scale) of a demap on the
+    card."""
+    qm = BITS_PER_SYMBOL[modulation]
+    kind = DEMAP_KIND[modulation]
+    half = max(qm // 2, 1)
+    levels = const(pam_levels_scaled, "qpsk" if kind < 2 else modulation,
+                   device=device)
+    two_scale = float(np.float32(2.0 * _SCALE[modulation]))
+    return kind, half, levels, two_scale
+
+
 def _check_args(grid, coeffs, noise_var, modulation, nof_layers):
-    if modulation not in ("qpsk", "qam16", "qam64", "qam256"):
-        raise NotImplementedError(f"{modulation} demap on the card")
+    if modulation not in DEMAP_KIND:
+        raise ValueError(f"modulation {modulation!r}")
     if not 1 <= nof_layers <= 4 or coeffs.shape[-3] != nof_layers:
         raise ValueError(f"{nof_layers} layers vs coeffs {tuple(coeffs.shape)}")
     if grid.dtype != torch.complex64 or coeffs.dtype != torch.complex64:
@@ -123,7 +141,10 @@ def _launch(entry, extra: tuple, grid, coeffs, sym_idx, sc_idx, sc_off,
     x), with the grid's slot axis in front.  The RE plan is int32, as the
     PUSCH uploads it; the Gold bits start ``advance`` bits into the
     codeword's sequence (the second hop of a hopping PUSCH descrambles
-    from where the first ended)."""
+    from where the first ended), and the codeword symbols ``advance // Qm``
+    symbols in: pi/2-BPSK derotates the odd ones.  Hop 2's first index is
+    even today, as each hop's data-RE count is (whole PRBs of 12
+    subcarriers, or 6 beside a DM-RS), but it is derived, not assumed."""
     qm = BITS_PER_SYMBOL[modulation]
     dev = grid.device
     p, s, k = grid.shape[-3:]
@@ -132,7 +153,7 @@ def _launch(entry, extra: tuple, grid, coeffs, sym_idx, sc_idx, sc_off,
     if sym_idx.dtype != torch.int32 or sc_idx.dtype != torch.int32:
         raise ValueError("the RE plan must be int32")
     lead = tuple(grid.shape[:-3])
-    levels = const(pam_levels_scaled, modulation, device=dev)
+    kind, half, levels, two_scale = demap_tables(modulation, dev)
     seq = gold_sequence(c_init, nre * nof_layers * qm, advance, device=dev)
     g = torch.view_as_real(grid.contiguous())
     h = torch.view_as_real(coeffs.contiguous())
@@ -144,9 +165,10 @@ def _launch(entry, extra: tuple, grid, coeffs, sym_idx, sc_idx, sc_off,
     _build.check(entry(
         _build.ptr(g), _build.ptr(h), _build.ptr(sym_idx.contiguous()),
         _build.ptr(sc_idx.contiguous()), nre, p, s, k, nof_layers, t, ka,
-        sc_off, _build.ptr(nv), _build.ptr(levels), qm // 2, *extra,
-        _build.ptr(seq), _build.ptr(llr), _build.ptr(x),
-        lead[0] if lead else 1, _build.stream_of(grid)), entry.__name__)
+        sc_off, _build.ptr(nv), _build.ptr(levels), half, kind,
+        (advance // qm) % 2, two_scale, *extra, _build.ptr(seq),
+        _build.ptr(llr), _build.ptr(x), lead[0] if lead else 1,
+        _build.stream_of(grid)), entry.__name__)
     return llr, x
 
 
@@ -223,22 +245,6 @@ def tp_equalize_demap_descramble_ref(grid, coeffs, plan, noise_var,
         -1, m_sc).reshape(-1)
     llr = demodulate(x.reshape(-1)[None], out_nv[None], modulation)[0]
     return descramble_llrs(llr, c_init), x
-
-
-# The demap forms of K18 and K19 (csrc/dft_s_ofdm.cuh).
-DEMAP_KIND = {"bpsk": 0, "pi2bpsk": 1, "qpsk": 2, "qam16": 2, "qam64": 2,
-              "qam256": 2}
-
-
-def demap_tables(modulation: str, device) -> tuple:
-    """(kind, PAM half-order, level table, 2 * scale) of a K18/K19 demap."""
-    qm = BITS_PER_SYMBOL[modulation]
-    kind = DEMAP_KIND[modulation]
-    half = max(qm // 2, 1)
-    levels = const(pam_levels_scaled, "qpsk" if kind < 2 else modulation,
-                   device=device)
-    two_scale = float(np.float32(2.0 * _SCALE[modulation]))
-    return kind, half, levels, two_scale
 
 
 def tp_equalize_demap_descramble(grid: torch.Tensor, coeffs: torch.Tensor,

@@ -122,7 +122,8 @@ HAND_KERNELS = ("ldpc_sweep_kernel", "ldpc_check_kernel", "rate_dematch_kernel",
                 "cfo_kernel", "amplitude_kernel", "amplitude_finish",
                 "polar_encode_kernel", "short_block_encode_kernel",
                 "llr_quantize_kernel", "llr_dequantize_kernel",
-                "ldpc_parity_kernel")
+                "ldpc_parity_kernel", "prach_demod_kernel",
+                "prach_demod_sum")
 
 
 def category(name: str, cat: str) -> str:

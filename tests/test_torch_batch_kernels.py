@@ -115,22 +115,25 @@ def test_channel_estimate_batched(cuda, b):
         assert torch.equal(est.time_alignment_s[i], one.time_alignment_s)
 
 
+@pytest.mark.parametrize("modulation", ["qam64", "pi2bpsk"])
 @pytest.mark.parametrize("b", [1, 4])
-def test_pusch_demap_batched(cuda, b):
-    """K3 with a slot axis on the grid, coefficients and noise."""
+def test_pusch_demap_batched(cuda, b, modulation):
+    """K3 with a slot axis on the grid, coefficients and noise (pi/2-BPSK:
+    one LLR per symbol, so the slots' LLRs lie Qm = 1 apart per symbol)."""
     rng = np.random.default_rng(20 + b)
     grid = _grid(rng, b, cuda)
     coeffs = _cgauss(rng, (b, 4, 2, 1, 288)).to(cuda)
     nv = torch.as_tensor(rng.uniform(0.01, 0.1, b).astype(np.float32)).to(cuda)
     sym, sc = pusch._plan(PUSCH, cuda)
-    args = (grid, coeffs, sym, sc, 0, nv, 12345, "qam64", 2)
+    args = (grid, coeffs, sym, sc, 0, nv, 12345, modulation, 2)
     llr, x = ul_demap.equalize_demap_descramble(*args)
     llr_ref, x_ref = ul_demap.equalize_demap_descramble_ref(*args)
     _close(x, x_ref, 1e-4)
     _close(llr, llr_ref, 1e-4)
-    llr1, _ = ul_demap.equalize_demap_descramble(grid[0], coeffs[0], sym, sc,
-                                                 0, nv[0], 12345, "qam64", 2)
-    assert torch.equal(llr[0], llr1)
+    for s in range(b):
+        llr1, _ = ul_demap.equalize_demap_descramble(
+            grid[s], coeffs[s], sym, sc, 0, nv[s], 12345, modulation, 2)
+        assert torch.equal(llr[s], llr1)
 
 
 @pytest.mark.parametrize("b", [1, 4])

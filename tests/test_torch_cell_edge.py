@@ -236,6 +236,19 @@ def test_hopping_pusch_matches_jax(equalizer, o_ack):
     _hold_pusch(cfg, rx, payload, ack)
 
 
+@pytest.mark.parametrize("hop", [None, 24])
+@pytest.mark.parametrize("layers,tbs", [(1, 640), (2, 1288)])
+@pytest.mark.parametrize("modulation", ["bpsk", "pi2bpsk"])
+def test_bpsk_pusch_matches_jax(modulation, layers, tbs, hop):
+    """BPSK and pi/2-BPSK without transform precoding (K3 on the card):
+    pi/2-BPSK's derotation counts codeword symbols, layer-minor, across
+    both hops; the estimate, LLRs, EVM and the decode equal JAX's."""
+    cfg = dataclasses.replace(J_HOP, modulation=modulation, tbs=tbs,
+                              nof_layers=layers, second_hop_prb=hop)
+    rx, payload = flagship.bpsk_rx(convert.config(cfg), 3, 480)
+    _hold_pusch(cfg, rx, payload)
+
+
 @pytest.mark.parametrize("equalizer", ["zf", "mmse"])
 def test_hopping_transform_precoded_pusch_matches_jax(equalizer):
     """Both together, with 2 HARQ-ACK bits (UE C of flagship.EDGE)."""

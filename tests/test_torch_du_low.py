@@ -456,6 +456,37 @@ def test_port_client_drives_jax_server():
                                   payload)
 
 
+@pytest.mark.parametrize("modulation", ["bpsk", "pi2bpsk"])
+def test_port_server_answers_bpsk_ul_tti(modulation):
+    """A ul_tti whose PUSCH is BPSK or pi/2-BPSK without transform
+    precoding (the JAX package decodes it; on the card the port's K3
+    demaps it): the UE's samples sent by rx_samples, then the ul_tti, to
+    the port's serve_phy through the JAX client.  CRC ok with the exact
+    payload, the SlotResults equal the JAX conductor's, and the server
+    then stops cleanly."""
+    from srsran_tpu_torch.ops import ofdm
+    from srsran_tpu_torch.phy.upper import ue_tx
+    pu = dataclasses.replace(_pusch(), modulation=modulation, tbs=640)
+    payload = np.random.default_rng(9).integers(0, 2, pu.tbs).astype(np.int8)
+    grid = ue_tx.pusch_transmit(convert.config(pu), payload, nof_sc=144,
+                                device="cpu")
+    samples = ofdm.modulate_slot(grid, 256, 1).numpy()
+    ul = UlTtiRequest(slot=SlotPoint(1, 2), pusch=(pu,))
+    srv, port = _port_server()
+    cli = j_tr.FapiClient("127.0.0.1", port)
+    cli.configure(_cell())
+    cli.rx_samples(samples)
+    res = cli.ul_tti(ul)
+    cli.stop()
+    srv.join(30.0)
+    assert not srv.is_alive()
+    assert res.crc[0].tb_crc_ok
+    np.testing.assert_array_equal(res.rx_data[0].payload.astype(np.int8),
+                                  payload)
+    ref = j_cond.SlotConductor(_cell()).process_ul(ul, samples).resolve()
+    convert.slot_results(ref, res, rtol=1e-3)
+
+
 def test_rx_samples_with_prach_captures():
     """This package's rx_samples form: the samples and the PRACH occasions'
     captures, moved to the conductor's device."""

@@ -69,14 +69,15 @@ def test_ofdm_demodulate_kernel(cuda, offset):
            ofdm.demodulate_slot_ref(samples, *args), 1e-4)
 
 
+@pytest.mark.parametrize("modulation", ["qam64", "bpsk", "pi2bpsk"])
 @pytest.mark.parametrize("layers", [1, 2])
-def test_pusch_demap_kernel(cuda, layers):
+def test_pusch_demap_kernel(cuda, layers, modulation):
     rng = np.random.default_rng(layers)
     grid = _cgauss(rng, (4, 14, 288)).to(cuda)
     coeffs = _cgauss(rng, (4, layers, 1, 288)).to(cuda)
     sym, sc = pusch._plan(PUSCH, cuda)
     nv = torch.tensor(0.05, device=cuda)
-    args = (grid, coeffs, sym, sc, 0, nv, 12345, "qam64", layers)
+    args = (grid, coeffs, sym, sc, 0, nv, 12345, modulation, layers)
     llr, x = ul_demap.equalize_demap_descramble(*args)
     llr_ref, x_ref = ul_demap.equalize_demap_descramble_ref(*args)
     _close(x, x_ref, 1e-4)
@@ -436,7 +437,7 @@ def _lxn_hold(out, ref):
     _close(llr, llr_ref, 1e-3)
 
 
-@pytest.mark.parametrize("modulation", ["qpsk", "qam256"])
+@pytest.mark.parametrize("modulation", ["qpsk", "qam256", "pi2bpsk"])
 @pytest.mark.parametrize("method", ["zf", "mmse"])
 @pytest.mark.parametrize("layers", [1, 2, 3, 4])
 def test_pusch_demap_lxn_kernel(cuda, layers, method, modulation):
@@ -642,16 +643,19 @@ def test_channel_estimate_kernel_stride1(cuda, nof_rb):
     assert torch.equal(out.time_alignment_s.cpu(), ref.time_alignment_s.cpu())
 
 
-def test_pusch_demap_gold_offset(cuda):
+@pytest.mark.parametrize("modulation", ["qam16", "bpsk", "pi2bpsk"])
+def test_pusch_demap_gold_offset(cuda, modulation):
     """K3 and K16 descramble from a Gold offset (hop 2 of a hopping
-    PUSCH)."""
+    PUSCH); with BPSK the odd offset is an odd codeword symbol index, so
+    pi/2-BPSK's derotation starts on the other parity."""
     rng = np.random.default_rng(11)
     grid = _cgauss(rng, (4, 14, 288)).to(cuda)
     coeffs = _cgauss(rng, (4, 1, 1, 288)).to(cuda)
     sym, sc = pusch._plan(PUSCH, cuda)
     nv = torch.tensor(0.05, device=cuda)
     for method in ("zf", "mmse"):
-        args = (grid, coeffs, sym, sc, 0, nv, 12345, "qam16", 1, method, 7777)
+        args = (grid, coeffs, sym, sc, 0, nv, 12345, modulation, 1, method,
+                7777)
         llr, x = ul_demap.equalize_demap_descramble(*args)
         llr_ref, x_ref = ul_demap.equalize_demap_descramble_ref(*args)
         _close(x, x_ref, 1e-4)
@@ -677,19 +681,26 @@ def test_tdl_channel_kernel(cuda, profile, cfo):
     assert torch.equal(chan.apply(tx, cfg, gains, noise)[0], rx)
 
 
+@pytest.mark.parametrize("ports", [1, 4])
 @pytest.mark.parametrize("fmt,fs,start,f_off,ra_scs", [
     ("B4", 512 * 30_000, 16, -144 * 30_000, 30_000),
     ("B4", 4096 * 30_000, 0, -1638 * 30_000, 30_000),
+    ("B4", 4096 * 30_000, 7, -30_000, 30_000),           # b0 = N_u - 1
     ("B4", 6144 * 30_000, 5, -2000 * 30_000, 30_000),    # widest shared table
     ("B4", 8192 * 30_000, 0, -2000 * 30_000, 30_000),    # table read from L2
-    ("0", 30_720_000, 3, -1638 * 30_000, 0)])
-def test_prach_demod_kernel(cuda, fmt, fs, start, f_off, ra_scs):
+    ("0", 30_720_000, 3, -1638 * 30_000, 0),             # split-K
+    ("0", 30_720_000, 0, 700 * 1250, 0)])                # b0 + k > N_u
+def test_prach_demod_kernel(cuda, fmt, fs, start, f_off, ra_scs, ports):
+    """K21 within 1e-4 of max|out| of its twin (cuBLAS on the card), and
+    equal to itself run to run (split-K sums in a fixed order)."""
     from srsran_tpu_torch.phy.lower import prach_demod
     _, n_u, reps, _ = prach_demod.geometry(fmt, fs, f_off, ra_scs)
-    x = _cgauss(np.random.default_rng(n_u), (2, start + reps * n_u)).to(cuda)
+    x = _cgauss(np.random.default_rng(n_u), (ports, start + reps * n_u)).to(
+        cuda)
     args = (x, fmt, fs, start, f_off, 1, ra_scs)
-    _close(prach_demod.demodulate(*args), prach_demod.demodulate_ref(*args),
-           1e-4)
+    out = prach_demod.demodulate(*args)
+    _close(out, prach_demod.demodulate_ref(*args), 1e-4)
+    assert torch.equal(prach_demod.demodulate(*args), out)
 
 
 @pytest.mark.parametrize("ports,layers,prg", [(4, 2, 4), (2, 1, 2),
@@ -1039,9 +1050,12 @@ def test_polar_scl_kernel(cuda, k, e, nmax, ibil, n_pc, size, crc_name):
 @pytest.mark.parametrize("rv", [0, 1, 2, 3])
 @pytest.mark.parametrize("bg,z,k_prime,n_ref,e_sizes,qm", [
     (1, 384, 8000, 0, (25344, 25344, 25350), 6),
-    (2, 16, 150, 0, (2400,), 4), (1, 24, 520, 1000, (2598, 2604), 6)])
+    (2, 16, 150, 0, (2400,), 4), (1, 24, 520, 1000, (2598, 2604), 6),
+    (2, 16, 150, 0, (2400, 2404, 2404, 2400), 4),
+    (1, 384, 8000, 3 * 66 * 384 // 4, (25344,), 6)])
 def test_rate_match_kernel(cuda, rv, bg, z, k_prime, n_ref, e_sizes, qm):
-    """K32 bit-exact to its twin, over whole TBs and one codeblock."""
+    """K32 bit-exact to its twin, over whole TBs (E in up to three runs)
+    and one codeblock, with filler bits and a limited buffer."""
     k = (22 if bg == 1 else 10) * z
     n = (66 if bg == 1 else 50) * z
     cw = torch.as_tensor(np.random.default_rng(rv).integers(
@@ -1052,6 +1066,55 @@ def test_rate_match_kernel(cuda, rv, bg, z, k_prime, n_ref, e_sizes, qm):
     one = ldpc_rate_match.rate_match(cw[:1], e_sizes[0], *args[1:])
     assert torch.equal(one[0], ldpc_rate_match.rate_match_batch_ref(
         cw[:1], e_sizes[:1], *args[1:]))
+
+
+def test_launch_plans_under_cuda_graph(cuda):
+    """K32's and K21's cached plans in a captured CUDA graph (on PyTorch's
+    capture stream): replays after the inputs change in place equal the
+    twins, also once every plan has been dropped from its cache (the
+    graph holds the parameters it launched with, the twiddle table lives
+    for the process), and eager calls between replays count launches."""
+    from srsran_tpu_torch.phy.lower import prach_demod
+    rng = np.random.default_rng(5)
+    rm = (3 * (6336,), 0, 2, 1, 24, 400, 528, 0)
+    cw = torch.as_tensor(rng.integers(0, 2, (3, 66 * 24)).astype(
+        np.int8)).to(cuda)
+    pr = ("B4", 4096 * 30_000, 3, -1638 * 30_000, 1, 30_000)
+    x = _cgauss(rng, (4, 3 + 12 * 4096)).to(cuda)
+    fmt0 = ("0", 30_720_000, 0, 700 * 1250, 1, 0)
+    y = _cgauss(rng, (1, 24_576)).to(cuda)
+    calls = (lambda: ldpc_rate_match.rate_match_batch(cw, *rm),
+             lambda: prach_demod.demodulate(x, *pr),
+             lambda: prach_demod.demodulate(y, *fmt0))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for f in calls:
+            f()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [f() for f in calls]
+    ldpc_rate_match._rate_match_plan.cache_clear()
+    prach_demod._demod_plan.cache_clear()
+    for seed in (6, 7):
+        r = np.random.default_rng(seed)
+        cw.copy_(torch.as_tensor(r.integers(0, 2, tuple(cw.shape)).astype(
+            np.int8)))
+        x.copy_(_cgauss(r, tuple(x.shape)))
+        y.copy_(_cgauss(r, tuple(y.shape)))
+        before = prach_demod.KERNEL.launches
+        eager = [f() for f in calls]
+        assert prach_demod.KERNEL.launches == before + 2
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(outs[0], ldpc_rate_match.rate_match_batch_ref(
+            cw, *rm))
+        assert torch.equal(outs[0], eager[0])
+        _close(outs[1], prach_demod.demodulate_ref(x, *pr), 1e-4)
+        _close(outs[2], prach_demod.demodulate_ref(y, *fmt0), 1e-4)
+        assert torch.equal(outs[1], eager[1]) and torch.equal(outs[2],
+                                                              eager[2])
 
 
 @pytest.mark.parametrize("cfo_hz,offset", [(370.0, 0), (-7e3, 2 ** 24 + 9)])

@@ -28,6 +28,8 @@ DEMOD_CASES = [
     ("A1", 256 * 15_000, 5, -3 * 15_000, 15_000),
     ("0", 1_920_000, 11, -20 * 1250, 0),                     # long format
     ("0", 1_920_000, 0, 700 * 1250, 0),                      # b0 + k > N_u
+    ("B4", 512 * 30_000, 3, -30_000, 30_000),                # b0 = N_u - 1
+    ("C2", 1024 * 30_000, 0, -500 * 30_000, 30_000),         # 4 reps
 ]
 
 
@@ -44,6 +46,63 @@ def test_prach_demod_matches_jax(fmt, fs, start, f_off, ra_scs):
                              ra_scs_hz=ra_scs).numpy()
     assert got.shape == ref.shape == (2, reps, l_ra)
     np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=1e-4 * float(np.abs(ref).max()))
+
+
+def _replay_k21(x, p):
+    """csrc/prach_demod.cu's arithmetic in numpy from the parameters its
+    cached plan passes: per split of 32-sample blocks q, sum_l tw[b l]
+    sum_q tw[32 b q] x[32 q + l] (every index exact mod N_u), times
+    sqrt(N_u); the splits summed in order."""
+    n_u, reps = p.n_u, p.reps
+    tw = t_demod._twiddles(n_u)
+    b = (p.b0 + np.arange(p.l_ra))[:, None] % n_u
+    nblocks = -(-n_u // 32)
+    win = np.zeros((p.ports, reps, nblocks * 32), np.complex64)
+    win[..., :n_u] = x[:, p.start:p.start + reps * n_u].reshape(
+        p.ports, reps, n_u)
+    win = win.reshape(p.ports, reps, nblocks, 32)
+    lane = tw[(b * np.arange(32)[None, :]) % n_u]             # [L_ra, 32]
+    out = 0
+    for s in range(p.splits):
+        q = np.arange(s * p.split_blocks,
+                      min(nblocks, (s + 1) * p.split_blocks))
+        inner = np.einsum("kq,prql->prkl", tw[(b * 32 * q[None, :]) % n_u],
+                          win[:, :, q])
+        out = out + np.einsum("kl,prkl->prk", lane, inner) * np.float32(
+            p.scale)
+    return out
+
+
+@pytest.mark.parametrize("ports", [4, 1])
+@pytest.mark.parametrize("name", ["prach_demod", "prach_demod_n6144",
+                                  "prach_demod_format0"])
+def test_prach_demod_plan_of_chip_smoke_cases(name, ports):
+    """The cached plan's parameters for chip_smoke.py's K21 cases (4 ports,
+    and 1) on a 132-SM card: geometry's (L_ra, N_u, reps, b0), the window,
+    the tiling and split-K; the kernel's factorization replayed from them
+    within 1e-4 of max|out| of the twin."""
+    from srsran_tpu_torch import flagship
+    fmt, fs, start, f_off, fd, ra, length = flagship.PRACH_DEMOD_CASES[name]
+    p = t_demod._demod_params(fmt, fs, start, f_off, fd, ra,
+                              (ports, length), torch.complex64, 132)
+    l_ra, n_u, reps, b0 = t_demod.geometry(fmt, fs, f_off, ra)
+    assert (p.l_ra, p.n_u, p.reps, p.b0) == (l_ra, n_u, reps, b0)
+    assert (p.ports, p.row_stride, p.start) == (ports, length, start)
+    assert p.rt == min(4, 1 << (ports * reps).bit_length() - 1)
+    assert abs(p.scale - np.sqrt(n_u)) <= 1e-6 * np.sqrt(n_u)
+    nblocks = -(-n_u // 32)
+    assert p.split_blocks % t_demod.KWARPS == 0
+    assert (p.splits - 1) * p.split_blocks < nblocks <= (
+        p.splits * p.split_blocks)
+    tiles = -(-l_ra // t_demod.KBINS) * -(-ports * reps // p.rt)
+    assert (p.splits > 1) == (tiles < 132)
+    rng = np.random.default_rng(n_u + ports)
+    x = (rng.standard_normal((ports, length))
+         + 1j * rng.standard_normal((ports, length))).astype(np.complex64)
+    ref = t_demod.demodulate_ref(torch.as_tensor(x), fmt, fs, start, f_off,
+                                 fd, ra).numpy()
+    np.testing.assert_allclose(_replay_k21(x, p), ref, rtol=0,
                                atol=1e-4 * float(np.abs(ref).max()))
 
 

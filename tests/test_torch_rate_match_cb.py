@@ -83,24 +83,77 @@ def test_rate_match_batch_matches_jax(case):
 
 
 def _replay_k32(cw, e_sizes, rv, qm, bg, z, k_prime, n_ref):
-    """csrc/rate_match.cu's index per output bit (``gather_index``), in
-    numpy."""
+    """csrc/rate_match.cu in numpy from the parameters its cached plan
+    passes (``_rate_match_params``): each codeblock's run of equal E, its
+    first output bit, and each bit's window index in 32-bit arithmetic."""
     k, n = _geometry(bg, z, k_prime)
-    return cw.reshape(-1)[t_rm.gather_index(e_sizes, rv, qm, bg, z, k_prime,
-                                            k, n, n_ref)]
+    p, g = t_rm._rate_match_params(tuple(e_sizes), rv, qm, bg, z, k_prime, k,
+                                   n_ref, cw.shape, torch.int8)
+    out = np.full(g, -1, np.int8)
+    for c in range(p.C):
+        r = 0
+        while r < p.runs - 1 and c >= p.run_end[r]:
+            r += 1
+        first = p.run_end[r - 1] if r else 0
+        e = p.run_e[r]
+        i = np.arange(e, dtype=np.uint32)
+        j = (i % p.qm) * np.uint32(e // p.qm) + i // p.qm
+        q = (np.uint32(p.k0p) + j) % np.uint32(p.n_nf)
+        q = np.where(q >= p.fs, q + (p.fe - p.fs), q)
+        start = p.run_off[r] + (c - first) * e
+        out[start:start + e] = cw[c, q]
+    return out
 
 
 @pytest.mark.parametrize("rv", [0, 3])
 @pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
 def test_k32_replay_matches_twin(case, rv):
     name, bg, z, k_prime, n_ref, e, qm = case
-    k, _ = _geometry(bg, z, k_prime)
-    cw = _codewords(name, bg, z, b=2)
-    e_sizes = (e, e + qm)
+    k, n = _geometry(bg, z, k_prime)
+    cw = _codewords(name, bg, z, b=5)
+    e_sizes = (e, e + qm, e + qm, e, e)      # three runs of equal E
     got = _replay_k32(cw, e_sizes, rv, qm, bg, z, k_prime, n_ref)
     ref = t_rm.rate_match_batch_ref(torch.as_tensor(cw), e_sizes, rv, qm, bg,
                                     z, k_prime, k, n_ref).numpy()
     np.testing.assert_array_equal(got, ref)
+    plan = t_rm.gather_index(e_sizes, rv, qm, bg, z, k_prime, k, n, n_ref)
+    np.testing.assert_array_equal(got, cw.reshape(-1)[plan])
+
+
+@pytest.mark.parametrize("rv,n_ref", [(0, 0), (1, 0), (2, 0), (3, 0),
+                                      (0, 3 * 66 * 384 // 4)])
+def test_k32_plan_of_chip_smoke_cases(rv, n_ref):
+    """The cached plan's parameters for chip_smoke.py's K32 cases (the
+    flagship PUSCH's 37 codeblocks of two E sizes at rv 0-3, one codeblock
+    at n_ref = 3N/4): the window plan of ``_window_plan``, the E sizes and
+    first output bits as runs, and the kernel's index replayed equal to
+    the twin."""
+    from srsran_tpu_torch import flagship
+    from srsran_tpu_torch.phy.upper import pdsch
+    seg = flagship.SEG
+    e_sizes = pdsch.rate_match_sizes(flagship.UE)
+    if n_ref:
+        e_sizes = e_sizes[:1]
+    bg, z, k_prime = seg.base_graph, seg.lifting_size, seg.cb_info_bits
+    k, n = _geometry(bg, z, k_prime)
+    assert (k, n) == (seg.full_block_bits, seg.codeword_bits)
+    p, g = t_rm._rate_match_params(e_sizes, rv, 6, bg, z, k_prime, k, n_ref,
+                                   (len(e_sizes), n), torch.int8)
+    assert (p.fs, p.fe, p.n_nf, p.k0p) == t_rm._window_plan(
+        rv, bg, z, k_prime, k, n, n_ref)
+    assert (p.C, p.N, p.e_max, p.qm) == (len(e_sizes), n, max(e_sizes), 6)
+    sizes = [p.run_e[r] for r in range(p.runs)
+             for _ in range(p.run_end[r] - (p.run_end[r - 1] if r else 0))]
+    assert tuple(sizes) == tuple(e_sizes) and g == sum(e_sizes)
+    assert p.runs == len(set(e_sizes)) == (1 if n_ref else 2)
+    assert [p.run_off[r] for r in range(p.runs)] == [
+        sum(e_sizes[:(p.run_end[r - 1] if r else 0)]) for r in range(p.runs)]
+    cw = np.random.default_rng(rv).integers(0, 2, (len(e_sizes), n)).astype(
+        np.int8)
+    np.testing.assert_array_equal(
+        _replay_k32(cw, e_sizes, rv, 6, bg, z, k_prime, n_ref),
+        t_rm.rate_match_batch_ref(torch.as_tensor(cw), e_sizes, rv, 6, bg, z,
+                                  k_prime, k, n_ref).numpy())
 
 
 @pytest.mark.parametrize("rv", [0, 1, 2, 3])
