@@ -99,9 +99,11 @@ the JAX package.  It builds the hand kernels from ``srsran_tpu_torch/csrc``
    launched once for the 4 cells (K8 twice: PUSCH and SRS);
 9. cell-edge: K18 (the DFT-s-OFDM PUSCH's equalize, IDFT, demap and
    descramble) and K19 (PUCCH F3/F4) against their twins at the
-   ``flagship.EDGE`` shapes (K18 also at M = 3240, K19 also at the F4, K8
-   at the F3's stride 1), with ``torch.fft.ifft`` on the same number of
-   blocks as the IDFT stage's library time; then 8 cell-edge UL slots (UE
+   ``flagship.EDGE`` shapes (K18 also at M = 300, 2916 and 3240, K19 also
+   at the F4, K8 at the F3's stride 1), with ``torch.fft.ifft`` on the
+   same number of blocks as the IDFT stage's library time, and each K18 and
+   K19 case's host and device µs per call beside ifft's; then 8 cell-edge
+   UL slots (UE
    A: 2-layer QAM64 on 240 RB; UE C: DFT-s-OFDM QPSK with intra-slot
    hopping and 2 HARQ-ACK bits; PUCCH F3 with 22 bits, F4 with 8; F1,
    PRACH, SRS) through ``ul_slot_fn``: both TBs exact, UE C's ACK, the F3
@@ -278,11 +280,11 @@ the JAX package.  It builds the hand kernels from ``srsran_tpu_torch/csrc``
    K3 and K16 (their Gold offset and pi/2-BPSK parity from hop 1) against
    their twins, timed.
 
-K32's and K21's cases (phases 14 and 10) also print, beside their events,
-the host µs per call (``time.perf_counter_ns`` around the enqueue, no
-synchronize, median of 1000 calls) and the device µs per call (a
-``torch.profiler`` trace of 50 calls), for the kernel and for its library
-call (``srsran_tpu_torch/launch_profile.py``'s timers).
+K32's, K21's, K18's and K19's cases (phases 14, 10 and 9) also print,
+beside their events, the host µs per call (``time.perf_counter_ns``
+around the enqueue, no synchronize, median of 1000 calls) and the device
+µs per call (a ``torch.profiler`` trace of 50 calls), for the kernel and
+for its library call (``srsran_tpu_torch/launch_profile.py``'s timers).
 
 It prints the card's name and power limit, one JSON line of per-kernel
 results, and as its last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -376,6 +378,8 @@ CASE_KERNEL = {"pdsch_map_repetition": "pdsch_map",
                "ulsch_demux_punctured": "ulsch_demux",
                "channel_estimate_delta1": "channel_estimate",
                "pusch_tp_demap_widest": "pusch_tp_demap",
+               "pusch_tp_demap_m300": "pusch_tp_demap",
+               "pusch_tp_demap_m2916": "pusch_tp_demap",
                "pucch_f3_demap_f4": "pucch_f3_demap",
                "channel_estimate_f3": "channel_estimate",
                "prach_demod_n6144": "prach_demod",
@@ -472,10 +476,13 @@ MU_BATCH_LAUNCHES = {**{k: v for k, v in _TWO_PUSCH.items()
 EDGE_BATCH_LAUNCHES = {**_TWO_PUSCH, "pusch_tp_demap_batch": 1,
                        "pucch_f3_demap_batch": 2,
                        "channel_estimate_batch": 6}
-# K32's and K21's cases: host µs per call over HOST_CALLS calls and device
-# µs from a profiler trace, for the kernel and its library call.
+# K32's, K21's, K18's and K19's cases: host µs per call over HOST_CALLS
+# calls and device µs from a profiler trace, for the kernel and its library
+# call.
 HOST_TIMED = ("rate_match", "prach_demod", "prach_demod_n6144",
-              "prach_demod_format0")
+              "prach_demod_format0", "pusch_tp_demap",
+              "pusch_tp_demap_m300", "pusch_tp_demap_m2916",
+              "pusch_tp_demap_widest", "pucch_f3_demap", "pucch_f3_demap_f4")
 HOST_CALLS = 1000
 TRACE_DIR = Path(__file__).resolve().parent / "build" / "launch_traces"
 N_TIMED_BATCHES = 8
@@ -794,8 +801,8 @@ def work(name: str, args: tuple, out) -> tuple:
     if name == "pusch_tp_demap":                   # K18
         # per RE: 8 per complex MAC of the 1 x N combining over the ports
         # and ~10 for the solve; per block the M-point IDFT at an FFT's
-        # count (the kernel's direct sum does 8 M^2, the function needs no
-        # more than this); 3 per PAM level per axis of the demap
+        # count, 5 M log2 M (the kernel's mixed-radix Stockham FFT does
+        # about that); 3 per PAM level per axis of the demap
         grid, coeffs, plan, noise, hops, m = args[:6]
         n_re, p = plan.shape[-1], grid.shape[0]
         qm = BITS_PER_SYMBOL[args[7]]
@@ -1851,13 +1858,16 @@ def _slot_of(obj, b: int):
     return obj
 
 
-def batched_kernel_phase(names: tuple, per_slot: list, where: str) -> dict:
+def batched_kernel_phase(names: tuple, per_slot: list, where: str,
+                         library: dict | None = None) -> dict:
     """The batched form of each kernel of ``names`` at B = len(per_slot)
     against its twin (timed, with its bound, the work summed over the
     slots), and its slot 0 at B = 1 against the unbatched kernel; K16-K19
     (BATCHED_UL) also every slot bit-equal to that slot's unbatched launch.
     ``per_slot[b]``: slot b's cases (name -> (wrapper, twin, args)), the
-    tensors that differ across the slots stacked on a slot axis."""
+    tensors that differ across the slots stacked on a slot axis;
+    ``library``: per name, the PyTorch call timed as the batch's
+    ``library_ms`` (K18's and K19's IDFT stage over the B slots' blocks)."""
     nb = len(per_slot)
     results = {}
     for name in names:
@@ -1886,7 +1896,8 @@ def batched_kernel_phase(names: tuple, per_slot: list, where: str) -> dict:
             plain_ms=median_ms(lambda: ref_fn(*args), BATCH_TIMING_RUNS),
             bound_ms=1e3 * max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=None)
+            library_ms=(median_ms(library[name])
+                        if library and name in library else None))
     print(f"batched {where} at B = {nb} against their twins and at B = 1 "
           f"against the unbatched kernels: ok", flush=True)
     return results
@@ -1958,18 +1969,21 @@ def _ifft_blocks(blocks: int, m: int, dev):
     return lambda: torch.fft.ifft(x, dim=-1, norm="ortho")
 
 
-def edge_library(cases: dict) -> dict:
-    """The IDFT stage's library call for each K18 and K19 case."""
+def edge_library(cases: dict, nslots: int = 1) -> dict:
+    """The IDFT stage's library call for each K18 and K19 case, over the
+    blocks of ``nslots`` slots."""
     out = {}
     for name, (_, _, args) in cases.items():
         kind = CASE_KERNEL.get(name, name)
         if kind == "pusch_tp_demap":
             plan, m = args[2], args[5]
-            out[name] = _ifft_blocks(plan.shape[-1] // m, m, plan.device)
+            out[name] = _ifft_blocks(nslots * plan.shape[-1] // m, m,
+                                     plan.device)
         elif kind == "pucch_f3_demap":
             cfg = args[3]
-            out[name] = _ifft_blocks(len(pucch._f3_symbol_split(cfg)[1]),
-                                     12 * cfg.nof_rb, args[0].device)
+            out[name] = _ifft_blocks(
+                nslots * len(pucch._f3_symbol_split(cfg)[1]),
+                12 * cfg.nof_rb, args[0].device)
     return out
 
 
@@ -2102,9 +2116,10 @@ def edge_phases(dev, gen, rng, card) -> tuple:
     print("cell-edge slot (full result dict) vs plain twins on the CPU: ok",
           flush=True)
     batch_launches = edge_conductor(slots[:NOF_SLOTS], prach_in, rng, card)
+    per = [flagship.edge_kernel_cases(slots[i], gen)
+           for i in flagship.BATCH_PHASES]
     results.update(batched_kernel_phase(
-        EDGE_KERNELS, [flagship.edge_kernel_cases(slots[i], gen)
-                       for i in flagship.BATCH_PHASES], "K18-K19"))
+        EDGE_KERNELS, per, "K18-K19", edge_library(per[0], len(per))))
     return results, {**launches, **batch_launches}
 
 

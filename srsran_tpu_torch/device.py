@@ -49,9 +49,9 @@ def is_cuda(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on a CUDA device, False when all lie on
     the CPU; raises on a mix (a kernel never takes half its inputs from
     the host)."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cuda"}:
+    if all(t.is_cuda for t in tensors):
         return True
+    kinds = {t.device.type for t in tensors}
     if kinds == {"cpu"}:
         return False
     raise ValueError(f"tensors on mixed devices: {sorted(kinds)}")

@@ -1233,6 +1233,45 @@ def widest_tp(sc: EdgeScenario = EDGE) -> pusch.PuschConfig:
                                uci=UciOnPuschConfig(), second_hop_prb=None)
 
 
+# K18's extra widths beside UE C's and the widest: 25 RB (M = 300, a
+# radix-5 stage) and 243 RB (M = 2916 = 4 x 3^6, six radix-3 stages).
+TP_EXTRA_RB = {"m300": 25, "m2916": 243}
+
+
+def _tp_random_channel_args(grid: torch.Tensor, rb_count: int,
+                            gen: torch.Generator,
+                            sc: EdgeScenario = EDGE) -> tuple:
+    """K18's arguments for UE C's PDU widened to ``rb_count`` RBs from RB 0
+    (no hopping, no UCI) on ``grid``, with a seeded random channel and an
+    estimator noise of 0.1 per port."""
+    cfg = dataclasses.replace(widest_tp(sc), rb_count=rb_count)
+    m = 12 * rb_count
+    dev = grid.device
+    p = grid.shape[-3]
+    h = torch.complex(torch.randn((p, 1, 1, m), device=dev, generator=gen),
+                      torch.randn((p, 1, 1, m), device=dev, generator=gen))
+    key = pusch._tp_key(cfg)
+    return (grid, h, const(pusch.tp_plan, key, 0, device=dev),
+            torch.full((1, p), 0.1, device=dev),
+            const(pusch.tp_plan, key, 1, device=dev), m,
+            (cfg.rnti << 15) + cfg.n_id, cfg.modulation, cfg.equalizer)
+
+
+def _tp_wide_cases(grid: torch.Tensor, gen: torch.Generator,
+                   sc: EdgeScenario = EDGE) -> dict:
+    """K18 at the widest allocation and at those of :data:`TP_EXTRA_RB`
+    that fit the cell, each on ``grid`` with its own random channel."""
+    tp = (ul_demap.tp_equalize_demap_descramble,
+          ul_demap.tp_equalize_demap_descramble_ref)
+    cases = {"pusch_tp_demap_widest": tp + (_tp_random_channel_args(
+        grid, widest_tp(sc).rb_count, gen, sc),)}
+    for tag, n in TP_EXTRA_RB.items():
+        if n <= sc.cell.nof_rb:
+            cases[f"pusch_tp_demap_{tag}"] = tp + (_tp_random_channel_args(
+                grid, n, gen, sc),)
+    return cases
+
+
 def edge_kernel_cases(slot: dict, gen: torch.Generator,
                       sc: EdgeScenario = EDGE) -> dict:
     """name -> (wrapper, plain twin, args) for K18 and K19 at the cell-edge
@@ -1240,9 +1279,9 @@ def edge_kernel_cases(slot: dict, gen: torch.Generator,
     upstream: K18 at UE C (M = 72, both hops in one launch, MMSE) and K19
     at the F3 (2 RB, pi/2-BPSK).  Extra cases (compared and timed, not on
     the main path's list): K18 at the widest allocation (M = 3240 on the
-    flagship, :func:`widest_tp`, on the slot's grid with a seeded random
-    channel), K19 at the F4 (OCC 2, QPSK) and K8 at the F3's stride-1
-    shape."""
+    flagship, :func:`widest_tp`) and at :data:`TP_EXTRA_RB`, on the slot's
+    grid with seeded random channels, K19 at the F4 (OCC 2, QPSK) and K8
+    at the F3's stride-1 shape."""
     rx, ctx = slot["rx"], slot["ctx"]
     cell = sc.cell
     dev = rx.device
@@ -1263,23 +1302,10 @@ def edge_kernel_cases(slot: dict, gen: torch.Generator,
            torch.stack([e.noise_var for e in ests]),
            const(pusch.tp_plan, key, 1, device=dev), 12 * cfg.rb_count,
            c_init, cfg.modulation, cfg.equalizer)
-    wide = widest_tp(sc)
-    m = 12 * wide.rb_count
-    h = torch.complex(torch.randn((cell.nof_ports, 1, 1, m), device=dev,
-                                  generator=gen),
-                      torch.randn((cell.nof_ports, 1, 1, m), device=dev,
-                                  generator=gen))
-    wkey = pusch._tp_key(wide)
-    k18_wide = (grid, h, const(pusch.tp_plan, wkey, 0, device=dev),
-                torch.full((1, cell.nof_ports), 0.1, device=dev),
-                const(pusch.tp_plan, wkey, 1, device=dev), m, c_init,
-                wide.modulation, wide.equalizer)
     cases = {
         "pusch_tp_demap": (ul_demap.tp_equalize_demap_descramble,
                            ul_demap.tp_equalize_demap_descramble_ref, k18),
-        "pusch_tp_demap_widest": (ul_demap.tp_equalize_demap_descramble,
-                                 ul_demap.tp_equalize_demap_descramble_ref,
-                                 k18_wide)}
+        **_tp_wide_cases(grid, gen, sc)}
     for name, f3, values in (("", sc.f3, ctx["f3"][0]),
                              ("_f4", sc.f4, ctx["f3"][1])):
         args, kw = pucch.f3_estimate_args(grid, f3, values)
@@ -1293,6 +1319,40 @@ def edge_kernel_cases(slot: dict, gen: torch.Generator,
                 functools.partial(chest.estimate_from_grid_ref, **kw), args)
     return cases
 
+
+def edge_profile_cases(gen: torch.Generator, device,
+                       sc: EdgeScenario = EDGE) -> dict:
+    """K18's and K19's cases of :func:`edge_kernel_cases` (but K8's) on a
+    seeded random grid, channels and noise, without the cell-edge
+    transmitters: the same shapes, configurations and launches, for
+    timing the wrappers (``launch_profile``)."""
+    cell = sc.cell
+    p = cell.nof_ports
+
+    def cgauss(*shape):
+        return torch.complex(torch.randn(shape, device=device, generator=gen),
+                             torch.randn(shape, device=device, generator=gen))
+
+    grid = cgauss(p, 14, cell.nof_sc)
+    cfg = sc.pusch_c
+    m = 12 * cfg.rb_count
+    key = pusch._tp_key(cfg)
+    nhops = len(pusch.hop_configs(cfg))
+    k18 = (grid, cgauss(p, 1, 1, nhops * m),
+           const(pusch.tp_plan, key, 0, device=device),
+           torch.full((nhops, p), 0.1, device=device),
+           const(pusch.tp_plan, key, 1, device=device), m,
+           (cfg.rnti << 15) + cfg.n_id, cfg.modulation, cfg.equalizer)
+    cases = {
+        "pusch_tp_demap": (ul_demap.tp_equalize_demap_descramble,
+                           ul_demap.tp_equalize_demap_descramble_ref, k18),
+        **_tp_wide_cases(grid, gen, sc)}
+    for name, f3 in (("", sc.f3), ("_f4", sc.f4)):
+        cases["pucch_f3_demap" + name] = (
+            pucch.f3_demap, pucch.f3_demap_ref,
+            (grid, cgauss(p, 1, 1, 12 * f3.nof_rb),
+             torch.full((p,), 0.1, device=device), f3))
+    return cases
 
 
 # ------------------------------------------------------------- gnb_sim

@@ -8,10 +8,10 @@ root, named by a hash of the sources and flags; the library is loaded with
 build on every run, so the sources compile side by side.  Pointers and the stream go over as
 ``ctypes.c_void_p``; every C entry point returns ``cudaGetLastError()``
 after its launches, and :func:`check` raises on anything but 0.
-:class:`Launch` is the lean form of that path (K32 and K21 take it): a
-wrapper keeps one per call signature with the bound C function, a
-parameter struct passed by address and its device tables, and a call
-passes only the tensors' pointers and the current stream.
+:class:`Launch` is the lean form of that path (K32, K21, K18 and K19
+take it): a wrapper keeps one per call signature with the bound C
+function, a parameter struct passed by address and its device tables, and
+a call passes only the tensors' pointers and the current stream.
 
 ``--fmad=false`` keeps ``a + b * c`` as a rounded multiply then a rounded
 add, the way PyTorch's separate tensor ops compute it: the LDPC decoder's
@@ -90,6 +90,41 @@ class PrachDemodParams(ctypes.Structure):
                 ("rt", _I), ("splits", _I), ("split_blocks", _I),
                 ("scale", _F)]
 
+FFT_MAX_STAGES = 8         # csrc/dft_s_ofdm.cuh kMaxStages
+DEMAP_MAX_LEVELS = 16      # csrc/dft_s_ofdm.cuh kMaxLevels
+DEMAP_MAX_NOISE = 64       # csrc/dft_s_ofdm.cuh kMaxNoise (hops x ports)
+F3_MAX_DATA_SYMBOLS = 14   # csrc/dft_s_ofdm.cu kMaxDataSymbols
+F3_MAX_OCC = 4             # csrc/dft_s_ofdm.cu kMaxOcc
+
+
+class FftPlan(ctypes.Structure):
+    """csrc/dft_s_ofdm.cuh's FftPlan (K18's and K19's IDFT stages)."""
+
+    _fields_ = [("M", _I), ("stages", _I), ("radix", _I * FFT_MAX_STAGES),
+                ("span", _I * FFT_MAX_STAGES), ("step", _I * FFT_MAX_STAGES),
+                ("magic", ctypes.c_uint * FFT_MAX_STAGES), ("scale", _F)]
+
+
+class TpDemapParams(ctypes.Structure):
+    """csrc/dft_s_ofdm.cu's TpDemapParams (K18's launch), by address."""
+
+    _fields_ = [("fft", FftPlan), ("nslots", _I), ("nblocks", _I),
+                ("nre", _I), ("P", _I), ("S", _I), ("K", _I), ("T", _I),
+                ("Ka", _I), ("H", _I), ("mmse", _I), ("kind", _I),
+                ("half", _I), ("threads", _I), ("two_scale", _F),
+                ("levels", _F * DEMAP_MAX_LEVELS)]
+
+
+class F3DemapParams(ctypes.Structure):
+    """csrc/dft_s_ofdm.cu's F3DemapParams (K19's launch), by address."""
+
+    _fields_ = [("fft", FftPlan), ("nslots", _I), ("P", _I), ("S", _I),
+                ("K", _I), ("sc0", _I), ("n_data", _I), ("occ_len", _I),
+                ("kind", _I), ("threads", _I), ("gold_stride", _I),
+                ("two_scale", _F), ("data_syms", _I * F3_MAX_DATA_SYMBOLS),
+                ("occ_conj", _F * (2 * F3_MAX_OCC)),
+                ("levels", _F * DEMAP_MAX_LEVELS)]
+
 # C entry points and their argument types (see the matching .cu file).
 SIGNATURES = {
     "srsran_ldpc_sweep": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
@@ -136,10 +171,8 @@ SIGNATURES = {
     "srsran_ldpc_parity": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "srsran_polar_decode": [_P, _I, _I, _I, _P, _P, _I, _P, _I, _I, _I, _I,
                             _P, _P, _P],
-    "srsran_pusch_tp_demap": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P,
-                              _I, _P, _I, _I, _I, _P, _F, _P, _P, _P, _I, _P],
-    "srsran_pucch_f3_demap": [_P, _I, _I, _I, _P, _P, _I, _I, _P, _I, _I, _P,
-                              _P, _I, _P, _F, _P, _P, _I, _P],
+    "srsran_pusch_tp_demap": [_P] * 11,
+    "srsran_pucch_f3_demap": [_P] * 8,
     "srsran_tdl_channel": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                            _D, _P, _P],
     "srsran_prach_demod": [_P, _P, _P, _P, _P, _P],

@@ -1,5 +1,5 @@
-"""The host side of a kernel launch on one CUDA GPU: K32's and K21's
-wrappers against one PyTorch call each.
+"""The host side of a kernel launch on one CUDA GPU: K32's, K21's, K18's
+and K19's wrappers against one PyTorch call each.
 
     python3 -m srsran_tpu_torch.launch_profile [--calls 1000] [--out DIR]
 
@@ -7,7 +7,12 @@ Cases: K32 (``ldpc_rate_match.rate_match_batch``) on the flagship PUSCH's
 37 codeblocks at rv 0, beside ``torch.take`` of its index plan; K21
 (``prach_demod.demodulate``) on the gNB simulator's B4 window (N_u 4096),
 at N_u 6144 and on format 0, beside ``torch.matmul`` of the bin matrix by
-the windows.  Per case and call it reports:
+the windows; K18 (``ul_demap.tp_equalize_demap_descramble``) at the cell
+edge's UE C (M = 72, both hops), at M = 300, 2916 and 3240, and K19
+(``pucch.f3_demap``) at the cell edge's F3 and F4, each beside
+``torch.fft.ifft`` of its IDFT stage (as many blocks of M points; a stage
+of the function, not the whole), on seeded random inputs of those shapes
+(``flagship.edge_profile_cases``).  Per case and call it reports:
 
 * host µs: ``time.perf_counter_ns`` around the call alone, no synchronize
   (what the host spends to enqueue), median and quartiles of ``--calls``;
@@ -44,7 +49,9 @@ from . import flagship
 from .device import card_line, const, require_cuda
 from .kernels import _build
 from .ops import ldpc_rate_match
+from .ops.transform_precode import deprecode
 from .phy.lower import prach_demod
+from .phy.upper import pucch
 from .profile_slot import profiled
 
 EVENT_RUNS = 20
@@ -140,6 +147,27 @@ def matmul_call(args: tuple):
     return lambda: torch.matmul(m, x)
 
 
+def ifft_call(name: str, args: tuple):
+    """``torch.fft.ifft`` (norm "ortho") of K18's or K19's IDFT stage on as
+    many blocks of M points as the kernel transforms: random blocks,
+    checked within 1e-4 of max|out| of the twin's ``deprecode``."""
+    if name.startswith("pusch_tp_demap"):
+        m = args[5]
+        blocks = args[2].shape[-1] // m
+    else:
+        cfg = args[3]
+        m = 12 * cfg.nof_rb
+        blocks = len(pucch._f3_symbol_split(cfg)[1])
+    gen = torch.Generator(device=args[0].device)
+    gen.manual_seed(m)
+    x = torch.randn((blocks, m), dtype=torch.complex64, device=args[0].device,
+                    generator=gen)
+    ref = deprecode(x)
+    torch.testing.assert_close(torch.fft.ifft(x, dim=-1, norm="ortho"), ref,
+                               rtol=1e-4, atol=1e-4 * float(ref.abs().max()))
+    return lambda: torch.fft.ifft(x, dim=-1, norm="ortho")
+
+
 def _entry(loader, argtype):
     """K32's C entry point loaded through ``loader`` (ctypes.CDLL releases
     the interpreter lock around the call, ctypes.PyDLL keeps it) with four
@@ -201,11 +229,13 @@ def main(argv=None) -> dict:
     rm_args = flagship.rate_match_args(rng, dev)
     k21 = {k: v for k, v in flagship.gnb_kernel_cases(gen, rng, dev).items()
            if k.startswith("prach_demod")}
+    edge = flagship.edge_profile_cases(gen, dev)
     library = {"rate_match": take_call(rm_args),
-               **{k: matmul_call(a) for k, (_, _, a) in k21.items()}}
+               **{k: matmul_call(a) for k, (_, _, a) in k21.items()},
+               **{k: ifft_call(k, a) for k, (_, _, a) in edge.items()}}
     calls = {"rate_match": lambda: ldpc_rate_match.rate_match_batch(
         *rm_args)}
-    for name, (fn, _, a) in k21.items():
+    for name, (fn, _, a) in {**k21, **edge}.items():
         calls[name] = lambda fn=fn, a=a: fn(*a)
     summary = {"card": card_line(), "torch": torch.__version__,
                "calls": args.calls, "cases": {}}

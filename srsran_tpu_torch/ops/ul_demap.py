@@ -22,7 +22,10 @@ symbol's block (srsran_tpu/phy/upper/pusch.py:277-285):
 (csrc/dft_s_ofdm.cu), :func:`tp_equalize_demap_descramble_ref` its twin.
 Both hops of a hopping PUSCH go through one K18 launch: the hops'
 estimates sit side by side on the subcarrier axis and a per-RE column plan
-picks each RE's.
+picks each RE's.  K18 launches through ``kernels/_build.py::Launch``: one
+plan per call signature (:func:`_tp_plan`; its parameters, testable on the
+CPU, from :func:`_tp_params`), so a call checks contiguity, allocates its
+outputs and makes one ctypes call.
 
 A leading slot axis on the grid, the coefficients and the noise variance
 (the slot-batch mode) runs K3, K16 and K18 once for all slots (each
@@ -32,6 +35,8 @@ shared.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -44,7 +49,7 @@ from .gold import gold_sequence
 from .modulation import (BITS_PER_SYMBOL, _SCALE, demodulate,
                          pam_levels_scaled)
 from .scrambling import descramble_llrs
-from .transform_precode import deprecode, twiddles
+from .transform_precode import deprecode, fft_plan, twiddle_table
 
 KERNEL = kernels.register(kernels.Kernel(
     name="pusch_demap", route="cuda",
@@ -107,15 +112,21 @@ DEMAP_KIND = {"bpsk": 0, "pi2bpsk": 1, "qpsk": 2, "qam16": 2, "qam64": 2,
               "qam256": 2}
 
 
-def demap_tables(modulation: str, device) -> tuple:
-    """(kind, PAM half-order, level table, 2 * scale) of a demap on the
-    card."""
+def demap_scalars(modulation: str) -> tuple:
+    """(kind, PAM half-order, host level table, 2 * scale) of a demap."""
     qm = BITS_PER_SYMBOL[modulation]
     kind = DEMAP_KIND[modulation]
-    half = max(qm // 2, 1)
+    levels = pam_levels_scaled("qpsk" if kind < 2 else modulation)
+    return (kind, max(qm // 2, 1), levels,
+            float(np.float32(2.0 * _SCALE[modulation])))
+
+
+def demap_tables(modulation: str, device) -> tuple:
+    """(kind, PAM half-order, level table on ``device``, 2 * scale) of a
+    demap on the card."""
+    kind, half, _, two_scale = demap_scalars(modulation)
     levels = const(pam_levels_scaled, "qpsk" if kind < 2 else modulation,
                    device=device)
-    two_scale = float(np.float32(2.0 * _SCALE[modulation]))
     return kind, half, levels, two_scale
 
 
@@ -247,6 +258,73 @@ def tp_equalize_demap_descramble_ref(grid, coeffs, plan, noise_var,
     return descramble_llrs(llr, c_init), x
 
 
+def demap_threads(m: int) -> int:
+    """K18's and K19's threads per CTA for an M-point block: one per point
+    in whole warps, at most 512 (a CTA per symbol is bound by its SM's
+    instruction rate past that: 1024 threads were no faster at M = 3240
+    on the H100)."""
+    return min(512, -(-m // 32) * 32)
+
+
+def _tp_params(shapes: tuple, dtypes: tuple, m_sc: int, modulation: str,
+               method: str) -> _build.TpDemapParams:
+    """K18's parameters for one call signature: the shapes and dtypes of
+    (grid, coeffs, plan, noise_var, block_hop), the block size, the
+    modulation and the equalizer; raises on what the kernel does not
+    take."""
+    grid_s, coeffs_s, plan_s, noise_s, hop_s = shapes
+    if method not in ("zf", "mmse"):
+        raise ValueError(f"equalizer {method!r}")
+    if modulation not in DEMAP_KIND:
+        raise ValueError(f"modulation {modulation!r}")
+    if dtypes[0] != torch.complex64 or dtypes[1] != torch.complex64:
+        raise ValueError("grid and coeffs must be complex64")
+    lead = tuple(grid_s[:-3])
+    p, s, k = grid_s[-3:]
+    if (len(grid_s) not in (3, 4) or len(coeffs_s) != len(lead) + 4
+            or tuple(coeffs_s[:-2]) != lead + (p, 1)):
+        raise ValueError(f"grid [(B,) P, S, K] and coeffs [(B,) P, 1, T, "
+                         f"Ka], got {tuple(grid_s)} and {tuple(coeffs_s)}")
+    nre = plan_s[-1]
+    if (dtypes[2] != torch.int32 or tuple(plan_s) != (3, nre)
+            or nre % m_sc or nre == 0 or dtypes[4] != torch.int32
+            or tuple(hop_s) != (nre // m_sc,)):
+        raise ValueError(f"plan must be int32 [3, RE] with RE a multiple of "
+                         f"{m_sc}, block_hop int32 [RE / {m_sc}]")
+    if (dtypes[3] != torch.float32 or len(noise_s) != len(lead) + 2
+            or tuple(noise_s[:-2]) != lead or noise_s[-1] != p
+            or not 0 < noise_s[-2] * p <= _build.DEMAP_MAX_NOISE):
+        raise ValueError(f"noise_var must be float32 [(B,) H, {p}], H x P "
+                         f"at most {_build.DEMAP_MAX_NOISE}")
+    if m_sc % 4:
+        raise ValueError(f"{m_sc} subcarriers per block: K18 takes a "
+                         f"multiple of 4 (M = 12 n_RB)")
+    kind, half, levels, two_scale = demap_scalars(modulation)
+    out = _build.TpDemapParams(
+        fft=fft_plan(m_sc), nslots=lead[0] if lead else 1,
+        nblocks=nre // m_sc, nre=nre, P=p, S=s, K=k, T=coeffs_s[-2],
+        Ka=coeffs_s[-1], H=noise_s[-2], mmse=int(method == "mmse"),
+        kind=kind, half=half, threads=demap_threads(m_sc),
+        two_scale=two_scale)
+    out.levels[:len(levels)] = levels.tolist()
+    return out
+
+
+@functools.lru_cache(maxsize=1024)
+def _tp_plan(shapes: tuple, dtypes: tuple, m_sc: int, c_init: int,
+             modulation: str, method: str, index: int) -> tuple:
+    """K18's launch for one call signature on CUDA device ``index`` and
+    its outputs' shapes (LLRs, symbols)."""
+    p = _tp_params(shapes, dtypes, m_sc, modulation, method)
+    qm = BITS_PER_SYMBOL[modulation]
+    seq = gold_sequence(c_init, p.nre * qm, 0,
+                        device=torch.device("cuda", index))
+    launch = _build.Launch("srsran_pusch_tp_demap", index, p,
+                           (twiddle_table(m_sc, index), seq))
+    lead = tuple(shapes[0][:-3])
+    return launch, lead + (p.nre * qm,), lead + (p.nre, 1)
+
+
 def tp_equalize_demap_descramble(grid: torch.Tensor, coeffs: torch.Tensor,
                                  plan: torch.Tensor, noise_var: torch.Tensor,
                                  block_hop: torch.Tensor, m_sc: int,
@@ -264,49 +342,29 @@ def tp_equalize_demap_descramble(grid: torch.Tensor, coeffs: torch.Tensor,
     [RE, 1]).  With a slot axis -- grid [B, P, S, K], coeffs [B, P, 1, T,
     Ka], noise_var [B, H, P] (the slot-batch mode) -- the outputs are
     [B, RE * Qm] and [B, RE, 1].  On the card: K18, one launch for all
-    slots.
+    slots through the cached plan of the call's signature.
     """
-    args = (grid, coeffs, plan, noise_var, block_hop, m_sc, c_init,
+    if not (grid.is_cuda and coeffs.is_cuda and plan.is_cuda
+            and noise_var.is_cuda and block_hop.is_cuda):
+        is_cuda(grid, coeffs, plan, noise_var, block_hop)  # raises on a mix
+        return tp_equalize_demap_descramble_ref(
+            grid, coeffs, plan, noise_var, block_hop, m_sc, c_init,
             modulation, method)
-    if not is_cuda(grid, coeffs, plan, noise_var, block_hop):
-        return tp_equalize_demap_descramble_ref(*args)
-    if method not in ("zf", "mmse"):
-        raise ValueError(f"equalizer {method!r}")
-    if grid.dtype != torch.complex64 or coeffs.dtype != torch.complex64:
-        raise ValueError("grid and coeffs must be complex64")
-    lead = tuple(grid.shape[:-3])
-    p, s, k = grid.shape[-3:]
-    if (grid.ndim not in (3, 4) or coeffs.ndim != len(lead) + 4
-            or coeffs.shape[:-2] != lead + (p, 1)):
-        raise ValueError(f"grid [(B,) P, S, K] and coeffs [(B,) P, 1, T, "
-                         f"Ka], got {tuple(grid.shape)} and "
-                         f"{tuple(coeffs.shape)}")
-    nre = plan.shape[-1]
-    if (plan.dtype != torch.int32 or plan.shape != (3, nre)
-            or nre % m_sc or block_hop.dtype != torch.int32
-            or block_hop.shape != (nre // m_sc,)):
-        raise ValueError(f"plan must be int32 [3, RE] with RE a multiple of "
-                         f"{m_sc}, block_hop int32 [RE / {m_sc}]")
-    if (noise_var.dtype != torch.float32 or noise_var.ndim != len(lead) + 2
-            or noise_var.shape[:-2] != lead or noise_var.shape[-1] != p):
-        raise ValueError(f"noise_var must be float32 [(B,) H, {p}]")
-    dev = grid.device
-    qm = BITS_PER_SYMBOL[modulation]
-    kind, half, levels, two_scale = demap_tables(modulation, dev)
-    seq = gold_sequence(c_init, nre * qm, 0, device=dev)
-    tw = const(twiddles, m_sc, device=dev)
+    launch, llr_shape, x_shape = _tp_plan(
+        (grid.shape, coeffs.shape, plan.shape, noise_var.shape,
+         block_hop.shape),
+        (grid.dtype, coeffs.dtype, plan.dtype, noise_var.dtype,
+         block_hop.dtype), m_sc, c_init, modulation, method,
+        grid.get_device())
     # the kernel's inputs held in locals until it is enqueued
-    grid, coeffs = grid.contiguous(), coeffs.contiguous()
-    plan, noise_var = plan.contiguous(), noise_var.contiguous()
-    llr = torch.empty(lead + (nre * qm,), dtype=torch.float32, device=dev)
-    x = torch.empty(lead + (nre, 1), dtype=torch.complex64, device=dev)
-    _build.check(_build.load().srsran_pusch_tp_demap(
-        _build.ptr(grid), _build.ptr(coeffs),
-        _build.ptr(plan), nre, p, s, k, coeffs.shape[-2],
-        coeffs.shape[-1], _build.ptr(noise_var), noise_var.shape[-2],
-        _build.ptr(block_hop), m_sc, _build.ptr(tw), int(method == "mmse"),
-        kind, half, _build.ptr(levels), two_scale, _build.ptr(seq),
-        _build.ptr(llr), _build.ptr(x), lead[0] if lead else 1,
-        _build.stream_of(grid)), "pusch_tp_demap")
-    (KERNEL_TP_BATCH if lead else KERNEL_TP).count()
+    g = grid if grid.is_contiguous() else grid.contiguous()
+    h = coeffs if coeffs.is_contiguous() else coeffs.contiguous()
+    re = plan if plan.is_contiguous() else plan.contiguous()
+    nv = noise_var if noise_var.is_contiguous() else noise_var.contiguous()
+    hop = block_hop if block_hop.is_contiguous() else block_hop.contiguous()
+    llr = nv.new_empty(llr_shape)
+    x = g.new_empty(x_shape)
+    launch(g.data_ptr(), h.data_ptr(), re.data_ptr(), nv.data_ptr(),
+           hop.data_ptr(), llr.data_ptr(), x.data_ptr())
+    (KERNEL_TP_BATCH if len(llr_shape) == 2 else KERNEL_TP).count()
     return llr, x

@@ -54,8 +54,9 @@ from ...ops.low_papr import base_sequence
 from ...ops.modulation import (demodulate, modulate, pam_levels_scaled,
                                qpsk_np)
 from ...ops.scrambling import descramble_llrs, scramble_bits
-from ...ops.transform_precode import deprecode, precode, twiddles
-from ...ops.ul_demap import demap_tables
+from ...ops.transform_precode import (deprecode, fft_plan, precode,
+                                     twiddle_table)
+from ...ops.ul_demap import demap_scalars, demap_threads
 from ...ran import polar_params
 from . import uci as uci_codec
 
@@ -977,6 +978,68 @@ def f3_demap_ref(grid: torch.Tensor, coeffs: torch.Tensor,
     return descramble_llrs(llr[None], _f3_c_init(cfg))[0]
 
 
+def _f3_params(shapes: tuple, dtypes: tuple,
+               cfg: PucchF3Config) -> _build.F3DemapParams:
+    """K19's parameters for one call signature: the shapes and dtypes of
+    (grid, coeffs, noise_var) and the PDU's configuration; raises on what
+    the kernel does not take."""
+    grid_s, coeffs_s, noise_s = shapes
+    p, m = grid_s[-3], 12 * cfg.nof_rb
+    if dtypes[0] != torch.complex64 or len(grid_s) not in (3, 4):
+        raise ValueError(f"grid must be complex64 [(B,) P, S, K], got "
+                         f"{dtypes[0]} {tuple(grid_s)}")
+    lead = tuple(grid_s[:-3])
+    if dtypes[1] != torch.complex64 or tuple(coeffs_s) != lead + (p, 1, 1, m):
+        raise ValueError(f"coeffs must be complex64 {lead + (p, 1, 1, m)}, "
+                         f"got {dtypes[1]} {tuple(coeffs_s)}")
+    if (dtypes[2] != torch.float32 or tuple(noise_s) != lead + (p,)
+            or not 0 < p <= _build.DEMAP_MAX_NOISE):
+        raise ValueError(f"noise_var must be float32 {lead + (p,)}, at most "
+                         f"{_build.DEMAP_MAX_NOISE} ports")
+    if m % cfg.occ_length or cfg.occ_length > _build.F3_MAX_OCC:
+        raise ValueError(f"occ_length {cfg.occ_length} for {m} subcarriers")
+    syms = _f3_data_symbols(cfg)
+    if not 1 <= len(syms) <= _build.F3_MAX_DATA_SYMBOLS:
+        raise ValueError(f"{len(syms)} data symbols")
+    kind, _, levels, two_scale = demap_scalars(_f3_scheme(cfg))
+    out = _build.F3DemapParams(
+        fft=fft_plan(m), nslots=lead[0] if lead else 1, P=p, S=grid_s[-2],
+        K=grid_s[-1], sc0=cfg.rb_start * 12, n_data=len(syms),
+        occ_len=cfg.occ_length, kind=kind, threads=demap_threads(m),
+        gold_stride=_f3_gold_rows(cfg).shape[1], two_scale=two_scale)
+    out.data_syms[:len(syms)] = syms.tolist()
+    occ = _f3_occ_conj(cfg.occ_length, cfg.occ_index)
+    out.occ_conj[:2 * len(occ)] = np.stack([occ.real, occ.imag], -1).reshape(
+        -1).tolist()
+    out.levels[:len(levels)] = levels.tolist()
+    return out
+
+
+def _f3_gold_rows(cfg: PucchF3Config) -> np.ndarray:
+    """K19's Gold bits, uint8 [n_data, stride]: each data symbol's M /
+    occ_length * Qm bits of the PDU's sequence in a row padded with zeros
+    to a multiple of 4 bytes (the kernel copies its row in 4-byte words)."""
+    n_data = len(_f3_symbol_split(cfg)[1])
+    row = 12 * cfg.nof_rb // cfg.occ_length * _f3_qm(cfg)
+    bits = gold_sequence_np(_f3_c_init(cfg), n_data * row)
+    out = np.zeros((n_data, -(-row // 4) * 4), np.uint8)
+    out[:, :row] = bits.reshape(n_data, row)
+    return out
+
+
+@functools.lru_cache(maxsize=1024)
+def _f3_plan(shapes: tuple, dtypes: tuple, cfg: PucchF3Config,
+             index: int) -> tuple:
+    """K19's launch for one call signature on CUDA device ``index`` and
+    its output's shape."""
+    p = _f3_params(shapes, dtypes, cfg)
+    seq = const(_f3_gold_rows, cfg, device=torch.device("cuda", index))
+    launch = _build.Launch("srsran_pucch_f3_demap", index, p,
+                           (twiddle_table(p.fft.M, index), seq))
+    n = p.n_data * p.fft.M // p.occ_len * _f3_qm(cfg)
+    return launch, tuple(shapes[0][:-3]) + (n,)
+
+
 def f3_demap(grid: torch.Tensor, coeffs: torch.Tensor,
              noise_var: torch.Tensor, cfg: PucchF3Config) -> torch.Tensor:
     """Descrambled LLRs f32 [n_data * M / occ_length * Qm] of one F3/F4
@@ -986,41 +1049,21 @@ def f3_demap(grid: torch.Tensor, coeffs: torch.Tensor,
     IDFT, the F4 OCC despread, max-log QPSK or pi/2-BPSK at noise / mean
     energy, and the Gold descramble.  B slots at once: grid [B, P, nsym,
     nsc], coeffs [B, P, 1, 1, M] and noise_var [B, P] give LLRs [B, ...],
-    in one launch."""
-    if not is_cuda(grid, coeffs, noise_var):
+    in one launch.  On the card: K19 through the cached plan of the call's
+    signature."""
+    if not (grid.is_cuda and coeffs.is_cuda and noise_var.is_cuda):
+        is_cuda(grid, coeffs, noise_var)                     # raises on a mix
         return f3_demap_ref(grid, coeffs, noise_var, cfg)
-    p, m = grid.shape[-3], 12 * cfg.nof_rb
-    if grid.dtype != torch.complex64 or grid.ndim not in (3, 4):
-        raise ValueError(f"grid must be complex64 [(B,) P, S, K], got "
-                         f"{grid.dtype} {tuple(grid.shape)}")
-    lead = tuple(grid.shape[:-3])
-    if (coeffs.dtype != torch.complex64
-            or coeffs.shape != lead + (p, 1, 1, m)):
-        raise ValueError(f"coeffs must be complex64 {lead + (p, 1, 1, m)}, "
-                         f"got {coeffs.dtype} {tuple(coeffs.shape)}")
-    if noise_var.dtype != torch.float32 or noise_var.shape != lead + (p,):
-        raise ValueError(f"noise_var must be float32 {lead + (p,)}")
-    if m % cfg.occ_length:
-        raise ValueError(f"occ_length {cfg.occ_length} does not divide {m}")
-    dev = grid.device
-    scheme = _f3_scheme(cfg)
-    kind, _, levels, two_scale = demap_tables(scheme, dev)
-    syms = const(_f3_data_symbols, cfg, device=dev)
-    n = syms.numel() * m // cfg.occ_length * _f3_qm(cfg)
-    occ = const(_f3_occ_conj, cfg.occ_length, cfg.occ_index, device=dev)
-    tw = const(twiddles, m, device=dev)
-    gold = gold_sequence(_f3_c_init(cfg), n, device=dev)
-    grid, coeffs = grid.contiguous(), coeffs.contiguous()
-    noise_var = noise_var.contiguous()
-    llr = torch.empty(lead + (n,), dtype=torch.float32, device=dev)
-    _build.check(_build.load().srsran_pucch_f3_demap(
-        _build.ptr(grid), p, grid.shape[-2], grid.shape[-1],
-        _build.ptr(coeffs), _build.ptr(noise_var), cfg.rb_start * 12, m,
-        _build.ptr(syms), syms.numel(), cfg.occ_length, _build.ptr(occ),
-        _build.ptr(tw), kind, _build.ptr(levels), two_scale, _build.ptr(gold),
-        _build.ptr(llr), lead[0] if lead else 1, _build.stream_of(grid)),
-        "pucch_f3_demap")
-    (KERNEL_F3_BATCH if lead else KERNEL_F3).count()
+    launch, shape = _f3_plan((grid.shape, coeffs.shape, noise_var.shape),
+                             (grid.dtype, coeffs.dtype, noise_var.dtype),
+                             cfg, grid.get_device())
+    # the kernel's inputs held in locals until it is enqueued
+    g = grid if grid.is_contiguous() else grid.contiguous()
+    h = coeffs if coeffs.is_contiguous() else coeffs.contiguous()
+    nv = noise_var if noise_var.is_contiguous() else noise_var.contiguous()
+    llr = nv.new_empty(shape)
+    launch(g.data_ptr(), h.data_ptr(), nv.data_ptr(), llr.data_ptr())
+    (KERNEL_F3_BATCH if len(shape) == 2 else KERNEL_F3).count()
     return llr
 
 

@@ -528,12 +528,16 @@ def _tp_batch(rng, b, cfg, dev):
 
 
 @pytest.mark.parametrize("b", [1, 4])
-@pytest.mark.parametrize("case", ["ue_c", "widest"])
+@pytest.mark.parametrize("case", ["ue_c", "widest", "m300", "m2916"])
 def test_pusch_tp_demap_batched(cuda, b, case):
-    """K18 at UE C's shape (M = 72, both hops, MMSE) and at the widest
-    allocation (M = 3240, above 48 KB of shared memory): one launch, within
-    the twin's tolerances, every slot bit-equal to its own launch."""
-    cfg = flagship.EDGE.pusch_c if case == "ue_c" else flagship.widest_tp()
+    """K18 at UE C's shape (M = 72, both hops, MMSE), at the widest
+    allocation (M = 3240, above 48 KB of shared memory) and at M = 300 and
+    2916 (radix-5 and six radix-3 stages): one launch, within the twin's
+    tolerances, every slot bit-equal to its own launch."""
+    cfg = (flagship.EDGE.pusch_c if case == "ue_c" else
+           flagship.widest_tp() if case == "widest" else
+           dataclasses.replace(flagship.widest_tp(),
+                               rb_count=flagship.TP_EXTRA_RB[case]))
     args = _tp_batch(np.random.default_rng(150 + b + len(case)), b, cfg,
                      cuda)
     out = _counted(lambda: ul_demap.tp_equalize_demap_descramble(*args),

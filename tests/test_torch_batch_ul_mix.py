@@ -403,13 +403,47 @@ def _c_parameter_names(name: str) -> list:
     raise AssertionError(f"{name} not in csrc")
 
 
+def _slot_count_in_struct(name: str) -> None:
+    """K18's and K19's slot count: an int field ``nslots`` of the
+    parameter struct their entry point takes after the stream, which the
+    wrapper fills from the slot axis (3) or with 1 without one."""
+    from srsran_tpu_torch.ops import ul_demap
+    from srsran_tpu_torch.phy.upper import pusch as t_pusch
+    c64, f32, i32 = torch.complex64, torch.float32, torch.int32
+    assert _c_parameter_names(name)[-4:-1] == ["stream", "params",
+                                               "twiddle"]
+    if name == "srsran_pusch_tp_demap":
+        assert ("nslots", _build._I) in _build.TpDemapParams._fields_
+        cfg = flagship.EDGE.pusch_c
+        key = t_pusch._tp_key(cfg)
+        plan, hops = t_pusch.tp_plan(key, 0), t_pusch.tp_plan(key, 1)
+
+        def build(lead):
+            return ul_demap._tp_params(
+                (lead + (4, 14, 3276), lead + (4, 1, 1, 144), plan.shape,
+                 lead + (2, 4), hops.shape), (c64, c64, i32, f32, i32), 72,
+                cfg.modulation, cfg.equalizer)
+    else:
+        assert ("nslots", _build._I) in _build.F3DemapParams._fields_
+
+        def build(lead):
+            return t_pucch._f3_params(
+                (lead + (4, 14, 3276), lead + (4, 1, 1, 24), lead + (4,)),
+                (c64, c64, f32), flagship.EDGE.f3)
+    assert build((3,)).nslots == 3 and build(()).nslots == 1
+
+
 @pytest.mark.parametrize("name", [
     "srsran_pusch_demap", "srsran_pusch_demap_lxn", "srsran_ulsch_demux",
     "srsran_pusch_tp_demap", "srsran_pucch_f3_demap"])
 def test_batched_entry_points_take_a_slot_count(name):
     """The equalizers and the demultiplexer with a slot axis (K3, K16-K19)
-    take the slot count just before the stream, as an int in their ctypes
-    binding."""
+    take a slot count: K3, K16 and K17 just before the stream, as an int in
+    their ctypes binding; K18 and K19 in the parameter struct of their
+    lean launch path (``nslots``)."""
+    if name in ("srsran_pusch_tp_demap", "srsran_pucch_f3_demap"):
+        _slot_count_in_struct(name)
+        return
     names = _c_parameter_names(name)
     assert names[-2:] == ["nslots", "stream"]
     assert _build.SIGNATURES[name][-2:] == [_build._I, _build._P]

@@ -77,8 +77,9 @@ def test_transform_precode_matches_jax(m):
     close(t_tp.deprecode(_t(x)), j_tp.deprecode(jnp.asarray(x)))
     if m <= 180:
         k, n = np.meshgrid(np.arange(m), np.arange(m), indexing="ij")
-        np.testing.assert_allclose(t_tp.twiddles(m)[(k * n) % m],
-                                   j_tp._dft_mat(m, True), atol=1e-6)
+        np.testing.assert_allclose(t_tp.twiddles(m)[(k * n) % m]
+                                   / np.sqrt(m), j_tp._dft_mat(m, True),
+                                   atol=1e-6)
 
 
 @pytest.mark.parametrize("scheme", ["bpsk", "pi2bpsk"])

@@ -605,6 +605,129 @@ def test_pusch_tp_demap_kernel_widest(cuda):
     _close(llr, llr_ref, 1e-3)
 
 
+def _smooth(n):
+    for f in (2, 3, 5):
+        while n % f == 0:
+            n //= f
+    return n == 1
+
+
+# Every DFT-s-OFDM allocation: n_RB = 2^a 3^b 5^c up to 273 (53 sizes).
+TP_RB = tuple(n for n in range(1, 274) if _smooth(n))
+TP_MODULATIONS = ("qpsk", "pi2bpsk", "qam16", "qam64", "qam256", "bpsk")
+
+
+@pytest.mark.parametrize("i,rb", list(enumerate(TP_RB)))
+def test_pusch_tp_demap_kernel_every_size(cuda, i, rb):
+    """K18 at each of the 53 sizes M = 12 n_RB (the FFT's radix plans), a
+    modulation and an equalizer each: x within 1e-4 and the LLRs within
+    1e-3 of their largest magnitudes."""
+    modulation = TP_MODULATIONS[i % len(TP_MODULATIONS)]
+    method = ("zf", "mmse")[(i // 3) % 2]
+    args = _tp_case(np.random.default_rng(1000 + rb), cuda, modulation,
+                    method, False, rb_count=rb)
+    llr, x = ul_demap.tp_equalize_demap_descramble(*args)
+    llr_ref, x_ref = ul_demap.tp_equalize_demap_descramble_ref(*args)
+    _close(x, x_ref, 1e-4)
+    _close(llr, llr_ref, 1e-3)
+
+
+def test_dft_s_ofdm_kernels_many_ports(cuda):
+    """K18 at 1 RB, two hops of 32 ports (64 noise values, the most a
+    launch reads, over a CTA of 32 threads) and K19 at 1 RB with 40 ports,
+    against their twins."""
+    rng = np.random.default_rng(64)
+    args = _tp_case(rng, cuda, "qpsk", "mmse", True, rb_count=1, ports=32)
+    llr, x = ul_demap.tp_equalize_demap_descramble(*args)
+    llr_ref, x_ref = ul_demap.tp_equalize_demap_descramble_ref(*args)
+    _close(x, x_ref, 1e-4)
+    _close(llr, llr_ref, 1e-3)
+    cfg = flagship.EDGE.f4
+    grid = _cgauss(rng, (40, 14, 3276)).to(cuda)
+    coeffs = _cgauss(rng, (40, 1, 1, 12)).to(cuda)
+    noise = torch.as_tensor(rng.uniform(0.05, 0.2, 40).astype(np.float32)).to(
+        cuda)
+    _close(pucch.f3_demap(grid, coeffs, noise, cfg),
+           pucch.f3_demap_ref(grid, coeffs, noise, cfg), 1e-3)
+
+
+@pytest.mark.parametrize("occ", [1, 2, 4])
+@pytest.mark.parametrize("nof_rb", [n for n in TP_RB if n <= 16])
+def test_pucch_f3_demap_kernel_sizes(cuda, nof_rb, occ):
+    """K19 at 1-16 RB (every DFT-s-OFDM size up to M = 192) with OCC 1, 2
+    and 4, pi/2-BPSK and QPSK in turn (LLRs within 1e-3 of their largest
+    magnitude)."""
+    rng = np.random.default_rng(200 + nof_rb * occ)
+    cfg = pucch.PucchF3Config(rb_start=10, nof_rb=nof_rb, start_symbol=0,
+                              nof_symbols=14 - 2 * (nof_rb % 3),
+                              rnti=0x1a, n_id=1, n_id_hopping=1,
+                              nof_uci_bits=8, pi2_bpsk=bool(nof_rb % 2),
+                              occ_length=occ, occ_index=occ - 1)
+    m = 12 * nof_rb
+    grid = _cgauss(rng, (4, 14, 480)).to(cuda)
+    coeffs = _cgauss(rng, (4, 1, 1, m)).to(cuda)
+    noise = torch.as_tensor(rng.uniform(0.05, 0.2, 4).astype(np.float32)).to(
+        cuda)
+    _close(pucch.f3_demap(grid, coeffs, noise, cfg),
+           pucch.f3_demap_ref(grid, coeffs, noise, cfg), 1e-3)
+
+
+def test_dft_s_ofdm_plans_under_cuda_graph(cuda):
+    """K18 (M = 3240 and UE C's hopping M = 72) and K19 (the F4) launched
+    from their cached plans inside a captured CUDA graph: replays on new
+    inputs (copied in place) equal the twins and the eager calls, also
+    after the plans have left their caches (the graph holds the parameter
+    structs it launched with; the twiddle tables live for the process), and
+    a non-contiguous input is copied, never read as laid out."""
+    rng = np.random.default_rng(18)
+    wide = _tp_case(rng, cuda, "qam64", "zf", False, rb_count=270)
+    ue_c = _tp_case(rng, cuda, "qpsk", "mmse", True)
+    f4 = flagship.EDGE.f4
+    f4_in = (_cgauss(rng, (4, 14, 3276)).to(cuda),
+             _cgauss(rng, (4, 1, 1, 12)).to(cuda),
+             torch.full((4,), 0.1, device=cuda), f4)
+    calls = (lambda: ul_demap.tp_equalize_demap_descramble(*wide),
+             lambda: ul_demap.tp_equalize_demap_descramble(*ue_c),
+             lambda: pucch.f3_demap(*f4_in))
+    refs = (lambda: ul_demap.tp_equalize_demap_descramble_ref(*wide),
+            lambda: ul_demap.tp_equalize_demap_descramble_ref(*ue_c),
+            lambda: pucch.f3_demap_ref(*f4_in))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for f in calls:
+            f()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [f() for f in calls]
+    ul_demap._tp_plan.cache_clear()
+    pucch._f3_plan.cache_clear()
+    for seed in (19, 20):
+        r = np.random.default_rng(seed)
+        for t in (wide[0], wide[1], ue_c[0], ue_c[1], f4_in[0], f4_in[1]):
+            t.copy_(_cgauss(r, tuple(t.shape)))
+        eager = [f() for f in calls]
+        graph.replay()
+        torch.cuda.synchronize()
+        for out, one, ref in zip(outs, eager, refs):
+            want = ref()
+            if isinstance(out, tuple):
+                _close(out[1], want[1], 1e-4)
+                _close(out[0], want[0], 1e-3)
+            else:
+                _close(out, want, 1e-3)
+            for a, b in zip(out if isinstance(out, tuple) else (out,),
+                            one if isinstance(one, tuple) else (one,)):
+                assert torch.equal(a, b)
+    # a transposed view of the grid: copied to a contiguous grid first
+    grid_t = wide[0].transpose(-1, -2).contiguous().transpose(-1, -2)
+    assert not grid_t.is_contiguous()
+    got = ul_demap.tp_equalize_demap_descramble(grid_t, *wide[1:])
+    want = ul_demap.tp_equalize_demap_descramble(*wide)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 @pytest.mark.parametrize("nof_rb,occ,pi2,nsym", [
     (2, 1, True, 14), (3, 1, False, 10), (16, 1, False, 4), (1, 2, False, 12),
     (1, 4, True, 8)])
