@@ -163,10 +163,16 @@ the JAX package.  It builds the hand kernels from ``srsran_tpu_torch/csrc``
    the flagship PDSCH's 4 layers: identity, a [4, 4] matrix, 69 PRG
    matrices) and K27 (PDCCH and SSB: the GF(2) map, QPSK and patch; slot
    A's SSB with its slot context and AL8 PDCCH, each other aggregation
-   level, the SSB without a context) bit-exact to their twins at the
-   flagship shapes, each also at B = 4 slot by slot against B = 1, timed
-   with their bounds and K27's GF(2) stage as ``torch.matmul`` (its library
-   time).  Then the split-6 DU-low as a deployment runs it:
+   level, the SSB without a context, the SSB and 17 DCIs in two launches,
+   an AL4 DCI on the AL8 PDCCH's CCEs; K27 bit for bit, also on a grid of
+   -0.0, which the twins turn to +0.0 under every hole of a patch) bit-exact
+   to their twins at the flagship shapes, each also at B = 4 slot by slot
+   against B = 1, timed with their bounds and K27's GF(2) stage as
+   ``torch.matmul`` (its library time); K27's host path (``launch_profile.
+   control_calls``: slot A, the AL8 PDCCH, the SSB, AL1, AL16 and the
+   many-UE slot on prebuilt PDUs, each beside the matmul of its GF(2)
+   stage, and building slot A's PDUs).  Then the split-6 DU-low as a
+   deployment runs it:
    ``python3 -m srsran_tpu_torch.apps.du_low --port 0`` in its own process,
    driven by the port's ``FapiClient`` over TCP -- param, config and start
    for the flagship cell; 10 slots of the DU-low scenario
@@ -280,11 +286,12 @@ the JAX package.  It builds the hand kernels from ``srsran_tpu_torch/csrc``
    K3 and K16 (their Gold offset and pi/2-BPSK parity from hop 1) against
    their twins, timed.
 
-K32's, K21's, K18's and K19's cases (phases 14, 10 and 9) also print,
-beside their events, the host µs per call (``time.perf_counter_ns``
-around the enqueue, no synchronize, median of 1000 calls) and the device
-µs per call (a ``torch.profiler`` trace of 50 calls), for the kernel and
-for its library call (``srsran_tpu_torch/launch_profile.py``'s timers).
+K32's, K21's, K18's, K19's and K35's cases (phases 14, 10, 9 and 16)
+and K27's (phase 12) also print, beside their events, the host µs per
+call (``time.perf_counter_ns`` around the enqueue, no synchronize, median
+of 1000 calls) and the device µs per call (a ``torch.profiler`` trace of
+50 calls), for the kernel and for its library call or plain twin
+(``srsran_tpu_torch/launch_profile.py``'s timers).
 
 It prints the card's name and power limit, one JSON line of per-kernel
 results, and as its last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -397,8 +404,10 @@ CASE_KERNEL = {"pdsch_map_repetition": "pdsch_map",
                                "dmrs_map_matrix", "dmrs_map_prg",
                                "control_map_al1", "control_map_al2",
                                "control_map_al4", "control_map_al16",
-                               "control_map_ssb_static", "control_map_many")
+                               "control_map_ssb_static", "control_map_many",
+                               "control_map_overlap")
                   for tag in ("", "_b4")},
+               "control_map_negzero": "control_map",
                **{f"{k}_b4": k for k in ("rs_map", "dmrs_map",
                                          "control_map")},
                "control_llrs_many": "control_llrs",
@@ -476,13 +485,15 @@ MU_BATCH_LAUNCHES = {**{k: v for k, v in _TWO_PUSCH.items()
 EDGE_BATCH_LAUNCHES = {**_TWO_PUSCH, "pusch_tp_demap_batch": 1,
                        "pucch_f3_demap_batch": 2,
                        "channel_estimate_batch": 6}
-# K32's, K21's, K18's and K19's cases: host µs per call over HOST_CALLS
-# calls and device µs from a profiler trace, for the kernel and its library
-# call.
+# K32's, K21's, K18's, K19's and K35's cases: host µs per call over
+# HOST_CALLS calls and device µs from a profiler trace, for the kernel and
+# its library call (K35's quantize, which no one call computes: its plain
+# twin).  K27's (phase 12) go through ``launch_profile.control_calls``.
 HOST_TIMED = ("rate_match", "prach_demod", "prach_demod_n6144",
               "prach_demod_format0", "pusch_tp_demap",
               "pusch_tp_demap_m300", "pusch_tp_demap_m2916",
-              "pusch_tp_demap_widest", "pucch_f3_demap", "pucch_f3_demap_f4")
+              "pusch_tp_demap_widest", "pucch_f3_demap", "pucch_f3_demap_f4",
+              "llr_quantize", "llr_dequantize")
 HOST_CALLS = 1000
 TRACE_DIR = Path(__file__).resolve().parent / "build" / "launch_traces"
 N_TIMED_BATCHES = 8
@@ -670,6 +681,11 @@ def compare(name: str, out, ref) -> float:
             if (o is None) != (r is None) or (o is not None and not torch.equal(
                     _bits(o), _bits(r))):
                 raise AssertionError(f"{case} differs from its twin")
+        return 0.0
+    if name == "control_map":                      # K27: bit for bit
+        if not torch.equal(_bits(out), _bits(ref)):   # -0.0 is not +0.0
+            raise AssertionError(
+                f"{case} differs from its twin by {(out - ref).abs().max()}")
         return 0.0
     if name in DU_KERNELS + ALLOC_KERNELS:         # K25-K28: bit-exact
         if not torch.equal(out, ref):
@@ -935,19 +951,23 @@ def work(name: str, args: tuple, out) -> tuple:
         return (12 * nre + nbytes(out) + plan["gold"].nbytes
                 + 8 * len(items) + 4, 7.0 * out.numel())
     if name == "control_map":                      # K27
-        # per PDU: its patch REs on its ports read and written once, the
-        # map (E x W words), constants, patch plan, base, payload and
-        # pilots read once; 2 W + 2 per coded bit, 2 per RE
+        # every grid RE (and port) a PDU's patch rectangle covers read and
+        # written once, however many PDUs add to it (K27's plan lists
+        # each once); per PDU the map (E x W words), constants, patch
+        # plan, base, payload and pilots read once; 2 W + 2 per coded bit,
+        # 2 per RE and port
         grid, inputs, items_fn = args
         nb = grid.numel() // math.prod(grid.shape[-3:])
-        b = ops = 0.0
-        for it in items_fn(grid, inputs):
+        items = items_fn(grid, inputs)
+        ports = control_ports(grid, items)
+        b = 16.0 * nb * sum(ports.values())
+        ops = 2.0 * nb * sum(ports.values())
+        for it in items:
             e, words = it.rows.shape
-            re = it.h * it.w * (grid.shape[-3] if it.all_ports else 1)
-            b += (16 * re * nb + sum(x.numel() for x in it.bits)
+            b += (sum(x.numel() for x in it.bits)
                   + nbytes((it.rows, it.offset, it.index, it.base,
                             it.pilots)))
-            ops += nb * (e * (2.0 * words + 2) + 2.0 * re)
+            ops += nb * e * (2.0 * words + 2)
         return b, ops
     if name == "polar_scl_decode":                 # K29
         # ~3 L N log2 N per codeword for f, g and the partial sums of the L
@@ -992,6 +1012,20 @@ def work(name: str, args: tuple, out) -> tuple:
     raise KeyError(name)
 
 
+def control_ports(grid: torch.Tensor, items) -> dict:
+    """Grid RE (offset l * K + k in the [S, K] plane) -> the ports K27
+    adds to there: the union of the PDUs' patch rectangles, on every port
+    where a PDU spans them all, else on port 0."""
+    P, K = grid.shape[-3], grid.shape[-1]
+    ports = {}
+    for it in items:
+        p = P if it.all_ports else 1
+        for l in range(it.l0, it.l0 + it.h):
+            for k in range(it.sc0, it.sc0 + it.w):
+                ports[l * K + k] = max(ports.get(l * K + k, 0), p)
+    return ports
+
+
 def bound(name: str, args: tuple, out) -> dict:
     """The least time the card could take for the kernel's work."""
     b, ops = work(name, args, out)
@@ -1021,24 +1055,27 @@ def kernel_phases(cases: dict, library: dict | None = None) -> dict:
                              **bound(name, args, out),
                              library_ms=median_ms(lib) if lib else None)
         if name in HOST_TIMED:
-            print(host_path(name, lambda: fn(*args), lib, results[name]),
-                  flush=True)
+            yard = ("library", lib) if lib else (
+                "plain", lambda: ref_fn(*args))
+            print(host_path(name, {"kernel": lambda: fn(*args),
+                                   yard[0]: yard[1]}), flush=True)
     return results
 
 
-def host_path(name: str, fn, lib, row: dict) -> str:
-    """A kernel's and its library call's host µs per call (the enqueue
-    alone) and device µs per call (profiler), beside their events."""
+def host_path(name: str, calls: dict) -> str:
+    """Each call's host µs (the enqueue alone; median and quartiles of
+    HOST_CALLS), events (median of 20) and device µs (profiler) per call:
+    a kernel's wrapper and its library call or plain twin."""
     TRACE_DIR.mkdir(parents=True, exist_ok=True)
     parts = []
-    for which, f in (("kernel", fn), ("library", lib)):
+    for which, f in calls.items():
         host = launch_profile.host_us(f, HOST_CALLS)
         dev = launch_profile.device_us(f, TRACE_DIR / f"{name}.json")
         parts.append(f"{which} host {host['median']:.2f} us per call "
-                     f"(q1 {host['q1']:.2f}, q3 {host['q3']:.2f}), device "
+                     f"(q1 {host['q1']:.2f}, q3 {host['q3']:.2f}), events "
+                     f"{launch_profile.event_ms(f):.4f} ms, device "
                      f"{dev:.2f} us")
-    return (f"{name} host path: " + "; ".join(parts) + f"; events "
-            f"{row['ms']:.4f} / library {row['library_ms']:.4f} ms")
+    return f"{name} host path: " + "; ".join(parts)
 
 
 def launched(names) -> dict:
@@ -2565,6 +2602,13 @@ def du_low_phase(dev, gen, rng, card) -> tuple:
     print("K25-K27 bit-exact to their twins at the DU-low shapes and at "
           "B = 4 slot by slot against B = 1; K25/K26: no single PyTorch "
           "call computes them (library: null)", flush=True)
+    # K27's wrapper on prebuilt PDUs beside the torch.matmul of its GF(2)
+    # stage (one product per PDU), and building the slot's PDUs
+    calls, library = launch_profile.control_calls(
+        np.random.default_rng(SEED + 27), dev)
+    for name, fn in calls.items():
+        print(host_path(name, {"kernel": fn, "library": library[name]}
+                        if library[name] else {"items": fn}), flush=True)
 
     deadline = time.monotonic() + DU_PHASE_S
     phases = flagship.conductor_phases(rng, gen, dev)

@@ -1681,8 +1681,11 @@ def du_kernel_cases(rng: np.random.Generator, device) -> dict:
     matrices (PRG size 4); "control_map" slot A's SSB (with its slot
     context) and AL8 PDCCH in one launch, "control_map_al{1,2,4,16}" one
     PDCCH at each other aggregation level, "control_map_ssb_static" the SSB
-    from its own config.  "<name>_b4": the same at B = 4 (compared with
-    B = 1 slot by slot by the caller)."""
+    from its own config, "control_map_many" the many-UE slot (the SSB and
+    17 DCIs, two launches), "control_map_overlap" slot A's SSB and AL8
+    PDCCH with an AL4 DCI on the same CCEs, "control_map_negzero" slot A
+    on a grid of -0.0 (no slot axis).  "<name>_b4": the same at B = 4
+    (compared with B = 1 slot by slot by the caller)."""
     cases = {}
     for name, i in (("rs_map", 0), ("rs_map_trs", 1), ("rs_map_prs", 2),
                     ("rs_map_many", None)):
@@ -1725,6 +1728,10 @@ def du_kernel_cases(rng: np.random.Generator, device) -> dict:
     for b in (None, 4):
         cases["control_map_many" + ("_b4" if b else "")] = _control_case(
             rng, device, 1, True, True, b, many=True)
+        cases["control_map_overlap" + ("_b4" if b else "")] = _control_case(
+            rng, device, 8, True, True, b, overlap=True)
+    cases["control_map_negzero"] = _control_case(rng, device, 8, True, True,
+                                                  None, negzero=True)
     return cases
 
 
@@ -1745,11 +1752,65 @@ def _many_rs_args(rng: np.random.Generator, device, batch=None):
     return items, values, _up(g.astype(np.complex64), device)
 
 
+def control_pdcchs(al: int, many: bool = False,
+                   overlap: bool = False) -> tuple:
+    """The PDCCHs of a K27 case: none (``al`` 0), the flagship PDCCH at
+    aggregation level ``al`` (in a 96-RB CORESET for AL 16), with
+    ``overlap`` then an AL4 DCI of another RNTI on its first CCEs (REs
+    that both add to), or with ``many`` the many-UE slot's
+    :func:`du_many_pdcchs`."""
+    if many:
+        return du_many_pdcchs()
+    if not al:
+        return ()
+    coreset = dataclasses.replace(CORESET, nof_rb=96 if al == 16 else 48)
+    first = dataclasses.replace(PDCCH, coreset=coreset, aggregation_level=al)
+    if not overlap:
+        return (first,)
+    return first, dataclasses.replace(first, aggregation_level=4,
+                                      rnti=PDCCH.rnti + 1, payload_bits=44)
+
+
+#: K27's host-path cases (``launch_profile``, ``chip_smoke.py`` phase 12):
+#: name -> (aggregation level, with the SSB, many-UE slot).  The SSB always
+#: with its slot context, as the DL slot programs map it.
+CONTROL_PROFILE = {"control_map": (8, True, False),
+                   "control_map_al8": (8, False, False),
+                   "control_map_ssb": (0, True, False),
+                   "control_map_al1": (1, False, False),
+                   "control_map_al16": (16, False, False),
+                   "control_map_many": (1, True, True)}
+
+
+def control_profile_cases(rng: np.random.Generator, device) -> dict:
+    """name -> (grid, inputs, items, pdcchs) of :data:`CONTROL_PROFILE`:
+    K27's inputs on a seeded grid (as :func:`du_kernel_cases`' K27 cases
+    build them), ``items(grid, inputs)`` the PDUs and ``pdcchs`` the
+    case's PDCCH configurations."""
+    out = {}
+    for name, (al, with_ssb, many) in CONTROL_PROFILE.items():
+        _, _, (grid, inputs, items) = _control_case(rng, device, al,
+                                                    with_ssb, True, None,
+                                                    many=many)
+        out[name] = (grid, inputs, items, control_pdcchs(al, many))
+    return out
+
+
+def pusch_llr_count(cfg=PUSCH) -> int:
+    """A PUSCH's codeword length G (no UCI, no PT-RS): every data RE of
+    its allocation times Qm and the layers -- 426,096 LLRs at the
+    flagship, K35's shape."""
+    data_symbols = cfg.nof_symbols - len(cfg.dmrs_symbols)
+    return (12 * cfg.rb_count * data_symbols
+            * BITS_PER_SYMBOL[cfg.modulation] * cfg.nof_layers)
+
+
 def _control_case(rng, device, al: int, with_ssb: bool, ctx: bool,
-                  batch, many: bool = False) -> tuple:
-    """K27 on a seeded grid: an SSB (slot context or none) and/or one
-    PDCCH at aggregation level ``al`` (in a 96-RB CORESET for AL 16), or
-    with ``many`` the many-UE slot's :func:`du_many_pdcchs`.
+                  batch, many: bool = False, overlap: bool = False,
+                  negzero: bool = False) -> tuple:
+    """K27 on a seeded grid (with ``negzero`` a grid of -0.0, which the
+    twins' dense adds turn to +0.0 under every patch): an SSB (slot
+    context or none) and/or :func:`control_pdcchs`.
     args = (grid, inputs, items): the payloads, SSB context and PDCCH
     pilots (each [batch, ...] with a slot axis), and items(grid, inputs)
     the PDUs as K27 takes them."""
@@ -1759,9 +1820,12 @@ def _control_case(rng, device, al: int, with_ssb: bool, ctx: bool,
     def bits(k):
         return _up(rng.integers(0, 2, lead + (k,)).astype(np.int8), device)
 
-    g = _up(((rng.normal(size=lead + (4, 14, CELL.nof_sc))
-              + 1j * rng.normal(size=lead + (4, 14, CELL.nof_sc))) * 0.1
-             ).astype(np.complex64), device)
+    g = ((rng.normal(size=lead + (4, 14, CELL.nof_sc))
+          + 1j * rng.normal(size=lead + (4, 14, CELL.nof_sc))) * 0.1
+         ).astype(np.complex64)
+    if negzero:
+        g = np.full(g.shape, complex(-0.0, -0.0), np.complex64)
+    g = _up(g, device)
     inputs = {}
     if with_ssb:
         inputs["mib"] = bits(MIB_BITS)
@@ -1771,13 +1835,7 @@ def _control_case(rng, device, al: int, with_ssb: bool, ctx: bool,
             for j, key in enumerate(("static", "mask")):
                 inputs[key] = _up(np.stack([p[j] for p in pairs]) if batch
                                   else pairs[0][j], device)
-    cfgs = ()
-    if many:
-        cfgs = du_many_pdcchs()
-    elif al:
-        coreset = dataclasses.replace(CORESET, nof_rb=96 if al == 16 else 48)
-        cfgs = (dataclasses.replace(PDCCH, coreset=coreset,
-                                    aggregation_level=al),)
+    cfgs = control_pdcchs(al, many, overlap)
     for j, cfg in enumerate(cfgs):
         inputs[f"dci{j}"] = bits(cfg.payload_bits)
         pil = _up(np.stack([pdcch.dmrs_values_for(dataclasses.replace(

@@ -8,8 +8,8 @@ root, named by a hash of the sources and flags; the library is loaded with
 build on every run, so the sources compile side by side.  Pointers and the stream go over as
 ``ctypes.c_void_p``; every C entry point returns ``cudaGetLastError()``
 after its launches, and :func:`check` raises on anything but 0.
-:class:`Launch` is the lean form of that path (K32, K21, K18 and K19
-take it): a wrapper keeps one per call signature with the bound C
+:class:`Launch` is the lean form of that path (K32, K21, K18, K19, K27
+and K35 take it): a wrapper keeps one per call signature with the bound C
 function, a parameter struct passed by address and its device tables, and
 a call passes only the tensors' pointers and the current stream.
 
@@ -42,6 +42,7 @@ _L = ctypes.c_longlong
 
 RS_MAX_SOURCES = 32        # csrc/dl_rs_map.cu kMaxSources
 CONTROL_MAX_PDUS = 16      # csrc/dl_control_map.cu kMaxPdus
+CONTROL_PTRS_PER_PDU = 4   # csrc/dl_control_map.cu kPtrsPerPdu
 
 
 class RsSources(ctypes.Structure):
@@ -52,21 +53,36 @@ class RsSources(ctypes.Structure):
 
 
 class ControlPdu(ctypes.Structure):
-    """csrc/dl_control_map.cu's ControlPdu (one PDCCH or SSB of K27)."""
+    """csrc/dl_control_map.cu's ControlPdu (one PDCCH or SSB of K27): its
+    pointers are filled by the C entry from the call's pointer array."""
 
     _fields_ = [("bits0", _P), ("bits1", _P), ("bits2", _P), ("pilots", _P),
-                ("rows", _P), ("offset", _P), ("index", _P), ("base", _P),
                 ("stride0", _L), ("stride1", _L), ("stride2", _L),
                 ("pilot_stride", _L), ("n0", _I), ("n1", _I), ("words", _I),
-                ("nd", _I), ("l0", _I), ("sc0", _I), ("h", _I), ("w", _I),
-                ("all_ports", _I), ("amplitude", _F)]
+                ("amplitude", _F)]
 
 
 class ControlArgs(ctypes.Structure):
-    """csrc/dl_control_map.cu's ControlArgs (a DL slot's K27 launch)."""
+    """csrc/dl_control_map.cu's ControlArgs (the kernel's, by value)."""
 
-    _fields_ = [("pdu", ControlPdu * CONTROL_MAX_PDUS),
-                ("group_start", _I * (CONTROL_MAX_PDUS + 1)), ("qpsk", _F)]
+    _fields_ = [("pdu", ControlPdu * CONTROL_MAX_PDUS), ("npdus", _I),
+                ("nitems", _I), ("ntiles", _I), ("nslots", _I), ("P", _I),
+                ("S", _I), ("K", _I), ("qpsk", _F), ("grid_stride", _L)]
+
+
+class ControlParams(ctypes.Structure):
+    """csrc/dl_control_map.cu's ControlParams (K27's launch), by address:
+    the kernel's arguments and, per PDU, the entries of the call's
+    pointer array that fill bits0, bits1, bits2 and pilots (-1: none)."""
+
+    _fields_ = [("args", ControlArgs),
+                ("ptr", (_I * CONTROL_PTRS_PER_PDU) * CONTROL_MAX_PDUS)]
+
+
+class LlrParams(ctypes.Structure):
+    """csrc/llr.cu's LlrParams (K35's launch), by address."""
+
+    _fields_ = [("n", _L), ("scale", _F), ("blocks", _I)]
 
 RM_MAX_RUNS = 8            # csrc/rate_match.cu kMaxRuns
 
@@ -166,8 +182,8 @@ SIGNATURES = {
     "srsran_short_block_detect": [_P, _I, _I, _I, _I, _P, _P, _P, _P],
     "srsran_short_block_encode": [_P, _I, _I, _I, _I, _P, _P, _P],
     "srsran_polar_encode": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P],
-    "srsran_llr_quantize": [_P, _L, _F, _P, _P],
-    "srsran_llr_dequantize": [_P, _L, _F, _P, _P],
+    "srsran_llr_quantize": [_P] * 4,
+    "srsran_llr_dequantize": [_P] * 4,
     "srsran_ldpc_parity": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "srsran_polar_decode": [_P, _I, _I, _I, _P, _P, _I, _P, _I, _I, _I, _I,
                             _P, _P, _P],
@@ -183,7 +199,7 @@ SIGNATURES = {
     "srsran_rs_map": [RsSources, _P, _P, _P, _P, _P, _I, _P, _L, _I, _P],
     "srsran_dmrs_map": [_P, _L, _P, _I, _I, _I, _P, _L, _I, _I, _P, _I, _I,
                         _P, _I, _I, _I, _I, _P],
-    "srsran_control_map": [ControlArgs, _I, _P, _I, _I, _I, _L, _I, _P],
+    "srsran_control_map": [_P] * 8,
     "srsran_control_llrs": [_P, _P, _P, _I, _P, _P, _I, _F, _P, _P],
     "srsran_polar_scl": [_P, _I, _I, _I, _P, _I, _P, _P, _I, _I, _I, _P, _P,
                          _P],

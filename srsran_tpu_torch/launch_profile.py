@@ -1,7 +1,8 @@
-"""The host side of a kernel launch on one CUDA GPU: K32's, K21's, K18's
-and K19's wrappers against one PyTorch call each.
+"""The host side of a kernel launch on one CUDA GPU: K32's, K21's, K18's,
+K19's, K27's and K35's wrappers against one PyTorch call each.
 
     python3 -m srsran_tpu_torch.launch_profile [--calls 1000] [--out DIR]
+        [--cases PREFIX ...]
 
 Cases: K32 (``ldpc_rate_match.rate_match_batch``) on the flagship PUSCH's
 37 codeblocks at rv 0, beside ``torch.take`` of its index plan; K21
@@ -12,7 +13,18 @@ edge's UE C (M = 72, both hops), at M = 300, 2916 and 3240, and K19
 (``pucch.f3_demap``) at the cell edge's F3 and F4, each beside
 ``torch.fft.ifft`` of its IDFT stage (as many blocks of M points; a stage
 of the function, not the whole), on seeded random inputs of those shapes
-(``flagship.edge_profile_cases``).  Per case and call it reports:
+(``flagship.edge_profile_cases``); K27 (``dl_control.control_map`` on
+its PDUs, built once) on the flagship DL slot's SSB and AL8 PDCCH, the AL8
+PDCCH alone, the SSB alone, AL1, AL16 and the many-UE slot (the SSB and
+17 DCIs, two launches), each beside ``torch.matmul`` of its GF(2) stage
+(one product per PDU: :func:`gf2_stage`), with ``control_map_items`` the
+host µs of building the slot's PDUs (``control_item`` of each); K35
+(``llr.quantize`` / ``dequantize``) on the flagship PUSCH's 426,096 LLRs
+(seeded), the dequantize beside ``torch.div`` by a 0-dim f32 device
+tensor and the quantize beside its plain chain (``quantize_ref``: no one
+PyTorch call computes it).  ``--cases`` keeps the cases whose names start
+with one of the prefixes (and skips the pieces below).  Per case and
+call it reports:
 
 * host µs: ``time.perf_counter_ns`` around the call alone, no synchronize
   (what the host spends to enqueue), median and quartiles of ``--calls``;
@@ -21,12 +33,16 @@ of the function, not the whole), on seeded random inputs of those shapes
 * device µs: the device activities' time per call in a ``torch.profiler``
   trace of 50 calls;
 * a ``cProfile`` of ``--calls`` calls: the functions with the most own
-  time, to ``DIR/<case>_cprofile.txt``.
+  time, to ``DIR/<case>_cprofile.txt``;
+* the card's SM and memory clocks and power draw (``nvidia-smi``) just
+  after the host timing.
 
 Then the pieces a launch path chooses between, host µs each: reading the
 current stream two ways, allocating an output three ways, a data pointer,
-a ``device.const`` lookup, and a ctypes call through ``CDLL`` and
-``PyDLL`` with pointers as ``c_void_p`` and as ``c_uint64``.  The summary
+a ``device.const`` lookup, a ctypes call through ``CDLL`` and ``PyDLL``
+with pointers as ``c_void_p`` and as ``c_uint64``, and K35's dequantize
+split in two: its 1.7 MB output's allocation (from its shape, and like
+its input), and its launch into an output made once.  The summary
 is printed as the last line (JSON).
 """
 
@@ -39,6 +55,7 @@ import io
 import json
 import pstats
 import statistics
+import subprocess
 import time
 from pathlib import Path
 
@@ -48,10 +65,10 @@ import torch
 from . import flagship
 from .device import card_line, const, require_cuda
 from .kernels import _build
-from .ops import ldpc_rate_match
+from .ops import dl_control, ldpc_rate_match, llr
 from .ops.transform_precode import deprecode
 from .phy.lower import prach_demod
-from .phy.upper import pucch
+from .phy.upper import pdcch, pucch, ssb
 from .profile_slot import profiled
 
 EVENT_RUNS = 20
@@ -87,6 +104,15 @@ def event_ms(fn, runs: int = EVENT_RUNS) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def clocks() -> str:
+    """The card's SM and memory clocks and power draw now, as nvidia-smi
+    reads them (after a case's host loop: the card has just run it)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else ""
 
 
 def device_us(fn, path: Path, calls: int = PROFILED_CALLS) -> float:
@@ -168,6 +194,68 @@ def ifft_call(name: str, args: tuple):
     return lambda: torch.fft.ifft(x, dim=-1, norm="ortho")
 
 
+def gf2_stage(inputs: dict, pdcchs: tuple):
+    """``torch.matmul`` of a K27 case's GF(2) stage, one float32 product
+    over 0/1 values per PDU: the PBCH's map by the MIB (and its slot
+    context, XOR-ed), each DCI's map by its payload -- the products the
+    port ran before K27, exact (every sum is at most 140)."""
+    ops = []
+    if "mib" in inputs:
+        dev = inputs["mib"].device
+        if "static" in inputs:
+            v = torch.cat([inputs["mib"], inputs["static"] ^ inputs["mask"]],
+                          dim=-1)
+            which = "full"
+        else:
+            v, which = inputs["mib"], "mib"
+        ops.append((v.to(torch.float32),
+                    const(ssb._pbch_operand, flagship.SSB, which, device=dev,
+                          dtype=torch.float32)))
+    for j, cfg in enumerate(pdcchs):
+        dci = inputs[f"dci{j}"]
+        key = (cfg.payload_bits, pdcch.BITS_PER_CCE * cfg.aggregation_level,
+               cfg.rnti, cfg.n_rnti, cfg.n_id_data)
+        ops.append((dci.to(torch.float32),
+                    const(pdcch._dci_map, 0, *key, device=dci.device,
+                          dtype=torch.float32)))
+    return lambda: [torch.matmul(v, m) for v, m in ops]
+
+
+def control_calls(rng: np.random.Generator, dev) -> tuple:
+    """K27's cases: (calls, library) by name, and ``control_map_items``
+    (building the flagship slot's PDUs; no library call)."""
+    calls, library = {}, {}
+    for name, (grid, inputs, items_fn, pdcchs) in \
+            flagship.control_profile_cases(rng, dev).items():
+        items = tuple(items_fn(grid, inputs))
+        calls[name] = (lambda g=grid, it=items:
+                       dl_control.control_map(g, it))
+        library[name] = gf2_stage(inputs, pdcchs)
+        if name == "control_map":
+            calls["control_map_items"] = (lambda g=grid, i=inputs, f=items_fn:
+                                          f(g, i))
+            library["control_map_items"] = None
+    return calls, library
+
+
+def llr_calls(gen: torch.Generator, dev) -> tuple:
+    """K35's cases on the flagship PUSCH's 426,096 LLRs: (calls, library)
+    by name; the dequantize's library call checked bit-equal to the
+    twin."""
+    x = 8.0 * torch.randn(flagship.pusch_llr_count(), generator=gen,
+                          device=dev)
+    q = llr.quantize_ref(x)
+    scale = torch.tensor(llr.LLR_INT_MAX / llr.LLR_RANGE, dtype=torch.float32,
+                         device=dev)
+    if not torch.equal(torch.div(q, scale).view(torch.int32),
+                       llr.dequantize_ref(q).view(torch.int32)):
+        raise AssertionError("K35's library call differs from its twin")
+    return ({"llr_quantize": lambda: llr.quantize(x),
+             "llr_dequantize": lambda: llr.dequantize(q)},
+            {"llr_quantize": lambda: llr.quantize_ref(x),
+             "llr_dequantize": lambda: torch.div(q, scale)})
+
+
 def _entry(loader, argtype):
     """K32's C entry point loaded through ``loader`` (ctypes.CDLL releases
     the interpreter lock around the call, ctypes.PyDLL keeps it) with four
@@ -209,6 +297,18 @@ def pieces(rm_args: tuple, calls: int) -> dict:
             fn = _entry(loader, argtype)
             steps[f"ctypes call, {loader.__name__}, 4 x "
                   f"{argtype.__name__}"] = (lambda fn=fn: fn(0, 0, 0, addr))
+    n = flagship.pusch_llr_count()
+    q = torch.zeros(n, dtype=torch.int8, device=dev)
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    launch = llr._llr_plan("srsran_llr_dequantize", n, index)
+    steps.update({
+        "Tensor.new_empty(shape, float32), K35's dequantize output":
+            lambda: q.new_empty(q.shape, dtype=torch.float32),
+        "torch.empty_like(q, float32), K35's dequantize output":
+            lambda: torch.empty_like(q, dtype=torch.float32),
+        "K35's dequantize launch alone (the output made once)":
+            lambda: launch(q.data_ptr(), out.data_ptr()),
+    })
     return {name: host_us(fn, calls)["median"] for name, fn in steps.items()}
 
 
@@ -217,6 +317,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--calls", type=int, default=1000)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="build/launch_profile")
+    ap.add_argument("--cases", nargs="*", default=None,
+                    help="keep the cases whose names start with these")
     args = ap.parse_args(argv)
     dev = require_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -237,13 +339,23 @@ def main(argv=None) -> dict:
         *rm_args)}
     for name, (fn, _, a) in {**k21, **edge}.items():
         calls[name] = lambda fn=fn, a=a: fn(*a)
+    for more_calls, more_library in (control_calls(rng, dev),
+                                     llr_calls(gen, dev)):
+        calls.update(more_calls)
+        library.update(more_library)
+    if args.cases is not None:
+        calls = {k: f for k, f in calls.items()
+                 if k.startswith(tuple(args.cases))}
     summary = {"card": card_line(), "torch": torch.__version__,
                "calls": args.calls, "cases": {}}
     for name, fn in calls.items():
         row = {}
         for which, f in (("kernel", fn), ("library", library[name])):
+            if f is None:
+                continue
             row[which] = {
                 "host_us": host_us(f, args.calls),
+                "clocks": clocks(),
                 "event_ms": event_ms(f),
                 "device_us": device_us(f, out / f"{name}_{which}.json"),
                 "cprofile_top_us": cprofile_top(
@@ -252,9 +364,10 @@ def main(argv=None) -> dict:
         summary["cases"][name] = row
         print(f"{name}: " + "; ".join(
             f"{w} host {r['host_us']['median']:.2f} us, events "
-            f"{r['event_ms']:.4f} ms, device {r['device_us']:.2f} us"
-            for w, r in row.items()), flush=True)
-    summary["pieces_host_us"] = pieces(rm_args, args.calls)
+            f"{r['event_ms']:.4f} ms, device {r['device_us']:.2f} us "
+            f"({r['clocks']})" for w, r in row.items()), flush=True)
+    if args.cases is None:
+        summary["pieces_host_us"] = pieces(rm_args, args.calls)
     (out / "summary.json").write_text(json.dumps(summary, indent=1))
     print(json.dumps(summary))
     return summary

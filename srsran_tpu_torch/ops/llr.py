@@ -6,16 +6,21 @@ reference's +-20 <-> +-120 mapping (round half to even, saturation at
 dequantizes on entry (:func:`to_float`).
 
 :func:`quantize` and :func:`dequantize` are the K35 wrappers: on CUDA
-tensors one fused elementwise pass each (csrc/llr.cu), on CPU tensors
-their twins :func:`quantize_ref` / :func:`dequantize_ref`.
+tensors one fused elementwise pass each (csrc/llr.cu, 16 LLRs a thread),
+launched through a plan cached per (entry point, LLR count, device)
+(``kernels/_build.py::Launch``), so a call allocates its output and makes
+one C call; on CPU tensors their twins :func:`quantize_ref` /
+:func:`dequantize_ref`.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .. import kernels
-from ..device import const, f32, is_cuda
+from ..device import const, f32
 from ..kernels import _build
 
 QUANTIZE = kernels.register(kernels.Kernel(
@@ -28,6 +33,9 @@ DEQUANTIZE = kernels.register(kernels.Kernel(
 LLR_RANGE = 20.0
 LLR_INT_MAX = 120  # +-120 used, +-127 reserved for saturation semantics
 _SCALE = LLR_INT_MAX / LLR_RANGE
+THREADS = 256                 # csrc/llr.cu NT
+VEC = 16                      # csrc/llr.cu kVec: LLRs a thread
+CTAS_PER_SM = 4               # the grid's cap: CTAs per SM of the card
 
 
 def quantize_ref(llrs: torch.Tensor) -> torch.Tensor:
@@ -44,34 +52,52 @@ def dequantize_ref(llrs_i8: torch.Tensor) -> torch.Tensor:
     return llrs_i8.to(torch.float32) / scale
 
 
+def _llr_params(n: int, sms: int) -> _build.LlrParams:
+    """K35's launch for n LLRs on a card of ``sms`` SMs: a thread per 16,
+    at most CTAS_PER_SM CTAs an SM (the grid strides over the rest)."""
+    if n < 1 or sms < 1:
+        raise ValueError(f"K35 takes at least one LLR and one SM, got "
+                         f"{n} and {sms}")
+    blocks = min(CTAS_PER_SM * sms, max(1, -(-(n // VEC) // THREADS)))
+    return _build.LlrParams(n, _SCALE, blocks)
+
+
+@functools.lru_cache(maxsize=256)
+def _llr_plan(entry: str, n: int, index: int) -> _build.Launch:
+    """K35's launch of ``entry`` (the quantize's or the dequantize's, which
+    fixes the input's dtype) for n LLRs on CUDA device ``index``."""
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return _build.Launch(entry, index, _llr_params(n, sms))
+
+
 def quantize(llrs: torch.Tensor) -> torch.Tensor:
     """f32 [...] -> int8 [...] with the reference's +-20 range mapping."""
-    if not is_cuda(llrs):
+    if not llrs.is_cuda:
         return quantize_ref(llrs)
     if llrs.dtype != torch.float32:
         raise ValueError(f"llrs must be float32, got {llrs.dtype}")
-    x = llrs.contiguous()
-    out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-    if x.numel():
-        _build.check(_build.load().srsran_llr_quantize(
-            _build.ptr(x), x.numel(), _SCALE, _build.ptr(out),
-            _build.stream_of(x)), "llr_quantize")
+    x = llrs if llrs.is_contiguous() else llrs.contiguous()
+    out = torch.empty_like(x, dtype=torch.int8)     # contiguous, as x
+    n = x.numel()
+    if n:
+        _llr_plan("srsran_llr_quantize", n, x.get_device())(
+            x.data_ptr(), out.data_ptr())
         QUANTIZE.count()
     return out
 
 
 def dequantize(llrs_i8: torch.Tensor) -> torch.Tensor:
     """int8 [...] -> f32 [...]."""
-    if not is_cuda(llrs_i8):
+    if not llrs_i8.is_cuda:
         return dequantize_ref(llrs_i8)
     if llrs_i8.dtype != torch.int8:
         raise ValueError(f"llrs must be int8, got {llrs_i8.dtype}")
-    q = llrs_i8.contiguous()
-    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    if q.numel():
-        _build.check(_build.load().srsran_llr_dequantize(
-            _build.ptr(q), q.numel(), _SCALE, _build.ptr(out),
-            _build.stream_of(q)), "llr_dequantize")
+    q = llrs_i8 if llrs_i8.is_contiguous() else llrs_i8.contiguous()
+    out = torch.empty_like(q, dtype=torch.float32)  # contiguous, as q
+    n = q.numel()
+    if n:
+        _llr_plan("srsran_llr_dequantize", n, q.get_device())(
+            q.data_ptr(), out.data_ptr())
         DEQUANTIZE.count()
     return out
 

@@ -280,22 +280,29 @@ def _patch_index32(coreset: CoresetConfig, cce_index: int,
     return _patch_plan(coreset, cce_index, aggregation_level)[0]
 
 
+@functools.lru_cache(maxsize=1024)
+def _static_item(cfg: PdcchConfig, amplitude: float, device) -> dict:
+    """The fields of this DCI's K27 item that no slot changes, on
+    ``device``: the map and the patch plan, made once."""
+    e = BITS_PER_CCE * cfg.aggregation_level
+    key = (cfg.payload_bits, e, cfg.rnti, cfg.n_rnti, cfg.n_id_data)
+    _, l0, sc0, dur, width = _patch_plan(cfg.coreset, cfg.cce_index,
+                                         cfg.aggregation_level)
+    place = (cfg.coreset, cfg.cce_index, cfg.aggregation_level)
+    return dict(rows=const(_dci_rows, *key, device=device),
+                offset=const(_dci_map, 1, *key, device=device),
+                index=const(_patch_index32, *place, device=device),
+                base=None, l0=l0, sc0=sc0, h=dur, w=width, all_ports=False,
+                nd=e // 2, amplitude=amplitude)
+
+
 def control_item(grid: torch.Tensor, payload: torch.Tensor, cfg: PdcchConfig,
                  amplitude: float = 1.0,
                  dmrs_cinits=None) -> dl_control.ControlItem:
     """This DCI as one PDU of K27 (ops/dl_control.py::control_map)."""
     dev = grid.device
-    e = BITS_PER_CCE * cfg.aggregation_level
-    key = (cfg.payload_bits, e, cfg.rnti, cfg.n_rnti, cfg.n_id_data)
-    _, l0, sc0, dur, width = _patch_plan(cfg.coreset, cfg.cce_index,
-                                         cfg.aggregation_level)
     return dl_control.ControlItem(
-        rows=const(_dci_rows, *key, device=dev),
-        offset=const(_dci_map, 1, *key, device=dev),
-        index=const(_patch_index32, cfg.coreset, cfg.cce_index,
-                    cfg.aggregation_level, device=dev),
-        base=None, l0=l0, sc0=sc0, h=dur, w=width, all_ports=False,
-        nd=e // 2, amplitude=amplitude, bits=(payload,),
+        **_static_item(cfg, float(amplitude), dev), bits=(payload,),
         pilots=_dmrs_values(cfg, dmrs_cinits, dev),
         ref=lambda g: process_ref(g, payload, cfg, amplitude, dmrs_cinits))
 

@@ -336,25 +336,30 @@ def _patch_index(v: int) -> np.ndarray:
     return idx
 
 
+@functools.lru_cache(maxsize=1024)
+def _static_item(cfg: SsbConfig, form: str, at: tuple, device) -> dict:
+    """The fields of this SSB's K27 item that no slot changes, on
+    ``device``: the map of its ``form`` ("mib", or "full" with the slot
+    context) and the patch plan, made once."""
+    offset = "static" if form == "mib" else "g"
+    return dict(rows=const(_rows, cfg, form, device=device),
+                offset=const(_pbch_operand, cfg, offset, device=device),
+                index=const(_patch_index, cfg.phys_cell_id % 4,
+                            device=device),
+                base=const(_base, cfg, device=device), l0=at[0], sc0=at[1],
+                h=SSB_NSYMB, w=SSB_NSC, all_ports=True, nd=PBCH_NDATA,
+                amplitude=1.0)
+
+
 def control_item(grid: torch.Tensor, cfg: SsbConfig, mib24: torch.Tensor,
                  slot_ctx=None, at=None) -> dl_control.ControlItem:
     """This SSB as one PDU of K27 (ops/dl_control.py::control_map), its
     patch at (first symbol, first subcarrier), or at ``at``."""
-    dev = grid.device
-    if slot_ctx is None:
-        rows = const(_rows, cfg, "mib", device=dev)
-        offset = const(_pbch_operand, cfg, "static", device=dev)
-        bits = (mib24,)
-    else:
-        rows = const(_rows, cfg, "full", device=dev)
-        offset = const(_pbch_operand, cfg, "g", device=dev)
-        bits = (mib24, *slot_ctx)
     l0, k0 = at if at is not None else (cfg.first_symbol, cfg.first_subcarrier)
     return dl_control.ControlItem(
-        rows=rows, offset=offset,
-        index=const(_patch_index, cfg.phys_cell_id % 4, device=dev),
-        base=const(_base, cfg, device=dev), l0=l0, sc0=k0, h=SSB_NSYMB,
-        w=SSB_NSC, all_ports=True, nd=PBCH_NDATA, amplitude=1.0, bits=bits,
+        **_static_item(cfg, "mib" if slot_ctx is None else "full", (l0, k0),
+                       grid.device),
+        bits=(mib24,) if slot_ctx is None else (mib24, *slot_ctx),
         pilots=None,
         ref=lambda g: _add_patch(g, ssb_block_ref(cfg, mib24, slot_ctx),
                                  l0, k0))

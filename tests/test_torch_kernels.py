@@ -942,7 +942,7 @@ def _du_case(name, cuda):
     "rs_map", "rs_map_trs", "rs_map_prs", "rs_map_many", "dmrs_map",
     "dmrs_map_matrix", "dmrs_map_prg", "control_map", "control_map_al1",
     "control_map_al2", "control_map_al4", "control_map_al16",
-    "control_map_ssb_static", "control_map_many"])
+    "control_map_ssb_static", "control_map_many", "control_map_overlap"])
 @pytest.mark.parametrize("batch", ["", "_b4"])
 def test_dl_map_kernels_bit_exact(cuda, name, batch):
     """K25 (CSI-RS + PT-RS, TRS + PT-RS, PRS, 33 CSI-RS in two launches),
@@ -956,7 +956,8 @@ def test_dl_map_kernels_bit_exact(cuda, name, batch):
 
 
 @pytest.mark.parametrize("name", ["rs_map", "dmrs_map_prg", "control_map",
-                                  "rs_map_many", "control_map_many"])
+                                  "rs_map_many", "control_map_many",
+                                  "control_map_overlap"])
 def test_dl_map_kernels_slot_axis(cuda, name):
     """B = 4 in one launch equals four B = 1 launches on each slot's
     inputs (the slot axis reads the per-slot strides)."""
@@ -965,6 +966,79 @@ def test_dl_map_kernels_slot_axis(cuda, name):
     got = kernel(*args)
     for b in range(4):
         assert torch.equal(got[b], kernel(*flagship.du_slot_of(name, args, b)))
+
+
+def _int_bits(t):
+    return torch.view_as_real(t).view(torch.int32).cpu()
+
+
+@pytest.mark.parametrize("name", ["control_map", "control_map_many",
+                                  "control_map_overlap",
+                                  "control_map_negzero"])
+def test_control_map_bitwise(cuda, name):
+    """K27 equal to its twins bit for bit, -0.0 apart from +0.0: the
+    many-UE slot, two PDCCHs sharing REs across tiles, and a grid of -0.0,
+    which the twins' dense adds turn to +0.0 under every hole of a patch
+    rectangle (the hole rule)."""
+    kernel, ref, args = _du_case(name, cuda)
+    got, want = kernel(*args), ref(*args)
+    assert torch.equal(_int_bits(got), _int_bits(want))
+    if name == "control_map_negzero":
+        assert not torch.equal(_int_bits(got), _int_bits(args[0]))
+
+
+@pytest.mark.parametrize("name", ["control_map", "control_map_many"])
+def test_control_map_converted_inputs(cuda, name):
+    """K27 on payloads and SSB context that are not int8 (int64, as
+    ``pdcch.process`` takes them) and pilots with a stride of 2: each PDU
+    reads its own converted copy (the copies live until the launches are
+    queued), bit for bit equal to the twins on the int8 inputs, on a plan
+    miss and on a hit; slot A's SSB and AL8 PDCCH, and the SSB with 17
+    DCIs in two launches."""
+    from srsran_tpu_torch.ops import dl_control
+    kernel, ref, (grid, inputs, items) = _du_case(name, cuda)
+    wide = {k: v.to(torch.int64) if v.dtype == torch.int8
+            else torch.stack([v, v], -1)[..., 0] for k, v in inputs.items()}
+    want = _int_bits(ref(grid, inputs, items))
+    with dl_control._LOCK:
+        dl_control._PLANS.clear()
+    for _ in range(2):
+        assert torch.equal(_int_bits(kernel(grid, wide, items)), want)
+
+
+def test_control_map_graph_replay(cuda):
+    """A K27 launch (slot A's SSB and AL8 PDCCH) captured in a CUDA graph
+    and replayed on new payloads, context and pilots copied into the
+    captured inputs equals eager K27 on those inputs, three times."""
+    from srsran_tpu_torch.ops import dl_control
+    _, _, (grid, inputs, items_fn) = _du_case("control_map", cuda)
+    static = {k: v.clone() for k, v in inputs.items()}
+    out = grid.clone()
+    items = items_fn(out, static)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                   # warm: the plan
+        out.copy_(grid)
+        dl_control.control_map(out, items)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out.copy_(grid)
+        dl_control.control_map(out, items)
+    rng = np.random.default_rng(19)
+    for _ in range(3):
+        new = {k: (torch.as_tensor(rng.integers(0, 2, v.shape).astype(
+                       np.int8)).to(cuda) if v.dtype == torch.int8 else
+                   v * torch.as_tensor(np.exp(1j * rng.uniform(0, 6, v.shape))
+                                       .astype(np.complex64)).to(cuda))
+               for k, v in inputs.items()}
+        for k, v in new.items():
+            static[k].copy_(v)
+        graph.replay()
+        want = grid.clone()
+        dl_control.control_map(want, items_fn(want, new))
+        torch.cuda.synchronize()
+        assert torch.equal(_int_bits(out), _int_bits(want))
 
 
 def test_du_low_dl_slot_launches(cuda):

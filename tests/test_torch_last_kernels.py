@@ -103,6 +103,38 @@ def test_llr_kernels(cuda):
         assert torch.equal(llr.to_float(t), d)
 
 
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 4111, 426_096])
+def test_llr_kernels_sizes(cuda, n):
+    """K35 at sizes that are and are not a multiple of 16 (the vector body
+    and the scalar tail), with saturation at +-127 and x.5 ties (round half
+    to even) in the data, bit-exact to the twins both ways."""
+    rng = np.random.default_rng(n)
+    x = rng.normal(0, 15, n).astype(np.float32)
+    ties = ((np.arange(n) % 261) - 130 + 0.5).astype(np.float32) / 6.0
+    x[1::3] = ties[1::3]                      # x * 6 = k + 0.5 exactly
+    x[2::7] = np.float32(1e9) * np.sign(x[2::7] + 0.5)
+    xt = torch.as_tensor(x).to(cuda)
+    q = llr.quantize(xt)
+    assert torch.equal(q, llr.quantize_ref(xt))
+    if n > 2:
+        assert int(q.abs().max()) == 127
+    d = llr.dequantize(q)
+    assert torch.equal(d.view(torch.int32),
+                       llr.dequantize_ref(q).view(torch.int32))
+
+
+def test_llr_kernels_unaligned(cuda):
+    """Inputs whose data do not start on 16 bytes (the scalar path) and a
+    non-contiguous input (copied first) give the twins' results."""
+    rng = np.random.default_rng(35)
+    x = torch.as_tensor(rng.normal(0, 15, 4099).astype(np.float32)).to(cuda)
+    for t in (x[1:], x[3:4098], x[::2]):
+        q = llr.quantize(t)
+        assert torch.equal(q, llr.quantize_ref(t))
+        assert torch.equal(llr.dequantize(q[1:]).view(torch.int32),
+                           llr.dequantize_ref(q[1:]).view(torch.int32))
+
+
 @pytest.mark.parametrize("bg,z", [(1, 384), (2, 64)])
 def test_check_parity_kernel(cuda, bg, z):
     rng = np.random.default_rng(z)
