@@ -485,15 +485,18 @@ MU_BATCH_LAUNCHES = {**{k: v for k, v in _TWO_PUSCH.items()
 EDGE_BATCH_LAUNCHES = {**_TWO_PUSCH, "pusch_tp_demap_batch": 1,
                        "pucch_f3_demap_batch": 2,
                        "channel_estimate_batch": 6}
-# K32's, K21's, K18's, K19's and K35's cases: host µs per call over
-# HOST_CALLS calls and device µs from a profiler trace, for the kernel and
-# its library call (K35's quantize, which no one call computes: its plain
-# twin).  K27's (phase 12) go through ``launch_profile.control_calls``.
+# K32's, K21's, K18's, K19's, K33's, K34's and K35's cases: host µs per
+# call over HOST_CALLS calls and device µs from a profiler trace, for the
+# kernel and its library call (K35's quantize, which no one call computes:
+# its plain twin).  K27's (phase 12) go through
+# ``launch_profile.control_calls``.
 HOST_TIMED = ("rate_match", "prach_demod", "prach_demod_n6144",
               "prach_demod_format0", "pusch_tp_demap",
               "pusch_tp_demap_m300", "pusch_tp_demap_m2916",
               "pusch_tp_demap_widest", "pucch_f3_demap", "pucch_f3_demap_f4",
-              "llr_quantize", "llr_dequantize")
+              "polar_encode", "polar_encode_pbch", "polar_encode_dci_al16",
+              "polar_encode_uci64", "short_block_encode",
+              "short_block_encode_k11", "llr_quantize", "llr_dequantize")
 HOST_CALLS = 1000
 TRACE_DIR = Path(__file__).resolve().parent / "build" / "launch_traces"
 N_TIMED_BATCHES = 8
@@ -3439,19 +3442,6 @@ def mu_batch_phase(dev, gen, rng, card) -> tuple:
 
 # --------------------------------------------------------------- phase 16
 
-def _gf2_library(bits: torch.Tensor, matrix: np.ndarray):
-    """The yardstick of K33/K34: ``torch.matmul`` of the message bits by
-    the code's GF(2) encode matrix, mod 2 (float32: every sum is exact)."""
-    m = torch.from_numpy(matrix.astype(np.float32)).to(bits.device)
-    x = bits.to(torch.float32)
-    return lambda: torch.matmul(x, m) % 2
-
-
-def _sb_matrix(k: int, e: int) -> np.ndarray:
-    """RM(32, K)'s basis rows repeated to E (K >= 3: no placeholders)."""
-    return np.tile(short_block.rm_basis()[:k], (1, -(-e // 32)))[:, :e]
-
-
 def _hard_bits(res: torch.Tensor) -> torch.Tensor:
     """QPSK hard decisions of REs [n] -> bits int8 [2n] (bit 1 below 0)."""
     return torch.stack([res.real < 0, res.imag < 0], dim=-1).reshape(-1).to(
@@ -3550,14 +3540,9 @@ def last_functions_phase(dev, rng, ul_slot, card) -> tuple:
           flush=True)
 
     cases = flagship.last_kernel_cases(inp, out)
-    library = {}
-    for name in ("polar_encode", "polar_encode_pbch", "polar_encode_dci_al16",
-                 "polar_encode_uci64"):
-        msg, code = cases[name][2]
-        library[name] = _gf2_library(msg, polar.encode_matrix(code))
-    for name in ("short_block_encode", "short_block_encode_k11"):
-        bits, e, _ = cases[name][2]
-        library[name] = _gf2_library(bits, _sb_matrix(bits.shape[1], e))
+    library = {name: launch_profile.gf2_library(twin, *cases[name][2])
+               for name, (_, twin, _) in cases.items()
+               if name.startswith(("polar_encode", "short_block_encode"))}
     for name, lib in library.items():
         fn, _, args = cases[name]
         if not torch.equal(lib().to(torch.int8), fn(*args)):

@@ -20,13 +20,29 @@
 // K34, the encoder beside it: replaces srsran_tpu/ops/short_block.py::encode
 // (:32-66): RM(32, K) for K 3-11, the K = 1 and K = 2 patterns with their
 // Qm placeholders, and the cyclic repetition to E.  Twin: ops/short_block.py
-// ::encode_ref.  The same [2, P] tables: one thread per transmitted bit j
-// packs its codeword's K message bits into a word w (bit K-1-i for message
-// bit i, as the candidate index orders them) and writes parity(w & mask[j %
-// P]) ^ ones[j % P].  Bounds: bytes (K in, E out per codeword); launch-bound.
+// ::encode_ref.  Bounds: bytes (K in, E out per codeword), nanoseconds at
+// the UE side's shapes; the kernel is latency-bound.  One warp per codeword
+// (ops/short_block.py::ENCODE_WARPS a CTA): the first K lanes load a message
+// byte each and one __ballot_sync packs the word w (bit i = message bit i);
+// lane r forms the period's bits r and r + 32 as parity(w & mask[r]) ^
+// ones[r] from a [2, P] table in message order (ops/short_block.py::
+// _kernel_tables), two more ballots put the whole period (P <= 64) in every
+// lane's registers, and the warp writes the E bytes 8 a lane as 8-byte
+// stores (csrc/warp_bits.cuh), byte j = period bit j % P.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "warp_bits.cuh"
+
+// K34's launch (by address; the kernel takes its fields by value).
+struct ShortBlockEncodeParams {
+  int B;       // codewords
+  int K;       // message bits, 1..11
+  int E;       // transmitted bits
+  int P;       // the code's period, 1..64
+  int warps;   // codewords (warps) a CTA
+};
 
 namespace {
 
@@ -98,17 +114,36 @@ __global__ void short_block_kernel(const float* __restrict__ llr, int E, int K,
   }
 }
 
-__global__ void short_block_encode_kernel(const int8_t* __restrict__ bits,
-                                          int B, int K, int E, int P,
-                                          const int* __restrict__ tables,
-                                          int8_t* __restrict__ out) {
-  const long long g = (long long)blockIdx.x * NT + threadIdx.x;
-  if (g >= (long long)B * E) return;
-  const int b = (int)(g / E), j = (int)(g % E), r = j % P;
-  const int8_t* m = bits + (size_t)b * K;
-  int w = 0;
-  for (int i = 0; i < K; ++i) w |= (m[i] & 1) << (K - 1 - i);
-  out[g] = (int8_t)((__popc(w & tables[r]) & 1) ^ tables[P + r]);
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxWarps = 8;
+
+__global__ void __launch_bounds__(32 * kMaxWarps)
+short_block_encode_kernel(const int8_t* __restrict__ bits,
+                          int8_t* __restrict__ out,
+                          const ShortBlockEncodeParams p,
+                          const int* __restrict__ table) {
+  const int lane = threadIdx.x & 31;
+  const int cw = blockIdx.x * p.warps + (threadIdx.x >> 5);
+  if (cw >= p.B) return;                     // the whole warp
+  const int8_t* m = bits + (size_t)cw * p.K;
+  const uint32_t w = __ballot_sync(kFull, lane < p.K && (m[lane] & 1));
+  const int r1 = lane + 32;
+  const bool b0 = lane < p.P && ((__popc(w & __ldg(table + lane)) ^
+                                  __ldg(table + p.P + lane)) & 1);
+  const bool b1 = r1 < p.P && ((__popc(w & __ldg(table + r1)) ^
+                                __ldg(table + p.P + r1)) & 1);
+  const uint64_t period = (uint64_t)__ballot_sync(kFull, b0) |
+                          (uint64_t)__ballot_sync(kFull, b1) << 32;
+  int8_t* o = out + (size_t)cw * p.E;
+  for (int c = lane; 8 * c < p.E; c += 32) {
+    uint64_t v = 0;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int j = 8 * c + q;
+      v |= ((period >> (p.P == 32 ? (j & 31) : j % p.P)) & 1u) << (8 * q);
+    }
+    store_chunk(o, p.E, c, v);
+  }
 }
 
 }  // namespace
@@ -126,15 +161,16 @@ extern "C" int srsran_short_block_detect(void* llr, int B, int E, int K, int P,
   return (int)cudaGetLastError();
 }
 
-// K34: bits int8 [B, K]; tables int32 [2, P] (masks, ones); out int8 [B, E].
-extern "C" int srsran_short_block_encode(void* bits, int B, int K, int E, int P,
-                                         void* tables, void* out,
-                                         void* stream) {
-  if (K < 1 || K > 11 || P < 1 || P > MAX_P || B < 1 || E < 1)
+// K34: bits int8 [B, K]; out int8 [B, E]; params by address; table int32
+// [2, P] (masks in message order, ones).
+extern "C" int srsran_short_block_encode(void* bits, void* out, void* stream,
+                                         const void* params, void* table) {
+  const ShortBlockEncodeParams* p = (const ShortBlockEncodeParams*)params;
+  if (p->K < 1 || p->K > 11 || p->P < 1 || p->P > MAX_P || p->B < 1 ||
+      p->E < 1 || p->warps < 1 || p->warps > kMaxWarps)
     return (int)cudaErrorInvalidValue;
-  const long long n = (long long)B * E;
-  short_block_encode_kernel<<<(int)((n + NT - 1) / NT), NT, 0,
-                              (cudaStream_t)stream>>>(
-      (const int8_t*)bits, B, K, E, P, (const int*)tables, (int8_t*)out);
+  short_block_encode_kernel<<<(p->B + p->warps - 1) / p->warps,
+                              32 * p->warps, 0, (cudaStream_t)stream>>>(
+      (const int8_t*)bits, (int8_t*)out, *p, (const int*)table);
   return (int)cudaGetLastError();
 }

@@ -2241,12 +2241,11 @@ def _f3_coded_bits(cfg: pucch.PucchF3Config) -> int:
             // cfg.occ_length * pucch._f3_qm(cfg))
 
 
-def last_inputs(rng: np.random.Generator, ul_slot: tuple, device) -> dict:
-    """The inputs of :func:`last_path` on the flagship cell: a MIB, slot
-    E's DCIs and payloads, one slot's PUCCH UCI (phase 4's F2s), the F2's
-    and a batch of LAST_UCI_BATCH F3 polar messages (CRC attached), 11-bit
-    short-block messages, K8's type 0 cases at both time strategies, and
-    ``ul_slot`` (payload, rx samples, context) of :func:`make_slots`."""
+def ue_encoder_inputs(rng: np.random.Generator, device) -> dict:
+    """The UE-side encoders' inputs on the flagship cell (K33, K34): a MIB,
+    slot E's DCIs and payloads, one slot's PUCCH UCI (phase 4's F2s), the
+    F2's and a batch of LAST_UCI_BATCH F3 polar messages (CRC attached)
+    and 11-bit short-block messages."""
     def bits(shape):
         return _up(rng.integers(0, 2, shape).astype(np.int8), device)
 
@@ -2264,12 +2263,22 @@ def last_inputs(rng: np.random.Generator, ul_slot: tuple, device) -> dict:
         uci=uci, f2_code=f2_code,
         f2_msg=torch.cat([f2_bits, crc(f2_bits, f"crc{f2_crc}")], dim=-1),
         uci_code=uci_code, uci_msg=bits((LAST_UCI_BATCH, uci_code.k)),
-        sb_bits=bits((LAST_UCI_BATCH, 11)),
+        sb_bits=bits((LAST_UCI_BATCH, 11)))
+
+
+def last_inputs(rng: np.random.Generator, ul_slot: tuple, device) -> dict:
+    """The inputs of :func:`last_path` on the flagship cell: the UE-side
+    encoders' (:func:`ue_encoder_inputs`), K8's type 0 cases at both time
+    strategies, and ``ul_slot`` (payload, rx samples, context) of
+    :func:`make_slots`."""
+    inp = ue_encoder_inputs(rng, device)
+    inp.update(
         chest={td: type0_chest_case(rng, device, td)
                for td in ("average", "interpolate")},
         ul_slot=ul_slot,
         flip=_up(rng.integers(0, SEG.codeword_bits, SEG.nof_codeblocks),
                  device))
+    return inp
 
 
 def last_path(inp: dict) -> dict:
@@ -2331,11 +2340,11 @@ def last_path(inp: dict) -> dict:
     return out
 
 
-def last_kernel_cases(inp: dict, out: dict) -> dict:
-    """name -> (wrapper, plain twin, args) for K33-K36 and K8's type 0
-    comb at phase 16's shapes: K33 on phase 4's 22-bit F2 (and the PBCH,
+def ue_encoder_cases(inp: dict) -> dict:
+    """name -> (wrapper, plain twin, args) for K33 and K34 on
+    :func:`ue_encoder_inputs`: K33 on phase 4's 22-bit F2 (and the PBCH,
     one AL16 DCI, the UCI batch), K34 on its 6-bit F2 (and the 11-bit
-    batch), K35 on the flagship PUSCH's LLRs, K36 on K1's codeblocks."""
+    batch)."""
     dev = inp["mib"].device
     al16, pay16 = next((c, p) for c, p in zip(inp["dcis"],
                                               inp["dci_payloads"])
@@ -2343,7 +2352,6 @@ def last_kernel_cases(inp: dict, out: dict) -> dict:
     ext = torch.cat([torch.ones((1, 24), dtype=torch.int8, device=dev),
                      pay16[None]], dim=-1)
     sb_e = 16 * F2_SB.nof_rb * F2_SB.nof_symbols
-    seg = SEG
     cases = {
         "polar_encode": (inp["f2_msg"], inp["f2_code"]),
         "polar_encode_pbch": (ssb.pbch_message(SSB, inp["mib"]),
@@ -2362,6 +2370,17 @@ def last_kernel_cases(inp: dict, out: dict) -> dict:
         "short_block_encode_k11": (short_block.encode,
                                    short_block.encode_ref,
                                    (inp["sb_bits"], 512, 2)),
+    })
+    return cases
+
+
+def last_kernel_cases(inp: dict, out: dict) -> dict:
+    """name -> (wrapper, plain twin, args) for K33-K36 and K8's type 0
+    comb at phase 16's shapes: K33 and K34 as :func:`ue_encoder_cases`,
+    K35 on the flagship PUSCH's LLRs, K36 on K1's codeblocks."""
+    seg = SEG
+    cases = ue_encoder_cases(inp)
+    cases.update({
         "llr_quantize": (llr_ops.quantize, llr_ops.quantize_ref,
                          (out["llr"],)),
         "llr_dequantize": (llr_ops.dequantize, llr_ops.dequantize_ref,

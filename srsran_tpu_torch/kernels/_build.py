@@ -8,10 +8,11 @@ root, named by a hash of the sources and flags; the library is loaded with
 build on every run, so the sources compile side by side.  Pointers and the stream go over as
 ``ctypes.c_void_p``; every C entry point returns ``cudaGetLastError()``
 after its launches, and :func:`check` raises on anything but 0.
-:class:`Launch` is the lean form of that path (K32, K21, K18, K19, K27
-and K35 take it): a wrapper keeps one per call signature with the bound C
-function, a parameter struct passed by address and its device tables, and
-a call passes only the tensors' pointers and the current stream.
+:class:`Launch` is the lean form of that path (K32, K21, K18, K19, K27,
+K33, K34 and K35 take it): a wrapper keeps one per call signature with
+the bound C function, a parameter struct passed by address and its device
+tables, and a call passes only the tensors' pointers and the current
+stream.
 
 ``--fmad=false`` keeps ``a + b * c`` as a rounded multiply then a rounded
 add, the way PyTorch's separate tensor ops compute it: the LDPC decoder's
@@ -83,6 +84,21 @@ class LlrParams(ctypes.Structure):
     """csrc/llr.cu's LlrParams (K35's launch), by address."""
 
     _fields_ = [("n", _L), ("scale", _F), ("blocks", _I)]
+
+
+class PolarEncodeParams(ctypes.Structure):
+    """csrc/polar_encode.cu's PolarEncodeParams (K33's launch), by
+    address."""
+
+    _fields_ = [("B", _I), ("K", _I), ("n", _I), ("E", _I), ("npc", _I),
+                ("warps", _I), ("split", _I)]
+
+
+class ShortBlockEncodeParams(ctypes.Structure):
+    """csrc/short_block.cu's ShortBlockEncodeParams (K34's launch), by
+    address."""
+
+    _fields_ = [("B", _I), ("K", _I), ("E", _I), ("P", _I), ("warps", _I)]
 
 RM_MAX_RUNS = 8            # csrc/rate_match.cu kMaxRuns
 
@@ -180,8 +196,8 @@ SIGNATURES = {
     "srsran_pucch_f2_demap": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _F,
                               _P, _P, _I, _P],
     "srsran_short_block_detect": [_P, _I, _I, _I, _I, _P, _P, _P, _P],
-    "srsran_short_block_encode": [_P, _I, _I, _I, _I, _P, _P, _P],
-    "srsran_polar_encode": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P],
+    "srsran_short_block_encode": [_P] * 5,
+    "srsran_polar_encode": [_P] * 7,
     "srsran_llr_quantize": [_P] * 4,
     "srsran_llr_dequantize": [_P] * 4,
     "srsran_ldpc_parity": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P],

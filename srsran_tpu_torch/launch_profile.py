@@ -1,5 +1,6 @@
 """The host side of a kernel launch on one CUDA GPU: K32's, K21's, K18's,
-K19's, K27's and K35's wrappers against one PyTorch call each.
+K19's, K27's, K33's, K34's and K35's wrappers against one PyTorch call
+each.
 
     python3 -m srsran_tpu_torch.launch_profile [--calls 1000] [--out DIR]
         [--cases PREFIX ...]
@@ -22,7 +23,16 @@ host µs of building the slot's PDUs (``control_item`` of each); K35
 (``llr.quantize`` / ``dequantize``) on the flagship PUSCH's 426,096 LLRs
 (seeded), the dequantize beside ``torch.div`` by a 0-dim f32 device
 tensor and the quantize beside its plain chain (``quantize_ref``: no one
-PyTorch call computes it).  ``--cases`` keeps the cases whose names start
+PyTorch call computes it); K33 (``polar.encode_chain``) on phase 4's
+22-bit F2 (``polar_encode``), the PBCH, an AL16 DCI and 64 F3 UCI
+codewords (``_pbch``, ``_dci_al16``, ``_uci64``) and K34
+(``short_block.encode``) on the 6-bit F2 and 64 11-bit messages
+(``short_block_encode``, ``_k11``), from ``flagship.ue_encoder_cases``,
+and one codeword through ``uci.encode_uci`` at K = 16 (K33, with CRC6
+and PC bits) and K = 6 (K34), E = 120, Qm 2, as the UE emulation calls it
+(``encode_uci_k16``, ``_k6``), each beside ``torch.matmul`` of its
+message by the GF(2) matrix of the whole encoder, mod 2
+(:func:`gf2_library`).  ``--cases`` keeps the cases whose names start
 with one of the prefixes (and skips the pieces below).  Per case and
 call it reports:
 
@@ -39,7 +49,8 @@ call it reports:
 
 Then the pieces a launch path chooses between, host µs each: reading the
 current stream two ways, allocating an output three ways, a data pointer,
-a ``device.const`` lookup, a ctypes call through ``CDLL`` and ``PyDLL``
+a ``device.const`` lookup, K33's PBCH output allocated three ways, a
+ctypes call through ``CDLL`` and ``PyDLL``
 with pointers as ``c_void_p`` and as ``c_uint64``, and K35's dequantize
 split in two: its 1.7 MB output's allocation (from its shape, and like
 its input), and its launch into an output made once.  The summary
@@ -68,11 +79,12 @@ from .kernels import _build
 from .ops import dl_control, ldpc_rate_match, llr
 from .ops.transform_precode import deprecode
 from .phy.lower import prach_demod
-from .phy.upper import pdcch, pucch, ssb
+from .phy.upper import pdcch, pucch, ssb, uci
 from .profile_slot import profiled
 
 EVENT_RUNS = 20
 PROFILED_CALLS = 50
+UCI_E, UCI_QM = 120, 2     # one UCI codeword as the UE emulation sends it
 
 
 def host_us(fn, calls: int) -> dict:
@@ -256,6 +268,48 @@ def llr_calls(gen: torch.Generator, dev) -> tuple:
              "llr_dequantize": lambda: torch.div(q, scale)})
 
 
+def gf2_library(fn, bits: torch.Tensor, *args):
+    """The yardstick of a UE-side encoder (K33, K34): ``torch.matmul`` of
+    the message bits [B, K] by the GF(2) matrix of ``fn(bits, *args)``,
+    mod 2, in float32 (every sum is exact).  The matrix is read off ``fn``
+    on the CPU from the K unit messages; ``fn`` must map the zero message
+    to zero (no placeholder bits)."""
+    k = bits.shape[-1]
+    if fn(torch.zeros((1, k), dtype=torch.int8), *args).any():
+        raise ValueError("the encoder is not linear in its message")
+    m = fn(torch.eye(k, dtype=torch.int8), *args).to(torch.float32).to(
+        bits.device)
+    x = bits.to(torch.float32)
+    return lambda: torch.matmul(x, m) % 2
+
+
+def _encode_uci_rows(bits: torch.Tensor, e: int, qm: int) -> torch.Tensor:
+    """``uci.encode_uci`` of each row of ``bits`` [B, K] (its twins on the
+    CPU)."""
+    return torch.stack([uci.encode_uci(b, e, qm) for b in bits])
+
+
+def ue_encoder_calls(rng: np.random.Generator, dev) -> tuple:
+    """K33's and K34's cases: (calls, library) by name, each library call
+    checked bit-equal to the kernel."""
+    calls, library = {}, {}
+    for name, (fn, twin, a) in flagship.ue_encoder_cases(
+            flagship.ue_encoder_inputs(rng, dev)).items():
+        calls[name] = lambda fn=fn, a=a: fn(*a)
+        library[name] = gf2_library(twin, *a)
+    for k in (16, 6):
+        bits = torch.as_tensor(rng.integers(0, 2, k).astype(np.int8)).to(dev)
+        calls[f"encode_uci_k{k}"] = (lambda b=bits:
+                                     uci.encode_uci(b, UCI_E, UCI_QM))
+        library[f"encode_uci_k{k}"] = gf2_library(
+            _encode_uci_rows, bits[None], UCI_E, UCI_QM)
+    for name, lib in library.items():
+        if not torch.equal(lib().to(torch.int8).reshape(-1),
+                           calls[name]().reshape(-1)):
+            raise AssertionError(f"{name}: the GF(2) product differs")
+    return calls, library
+
+
 def _entry(loader, argtype):
     """K32's C entry point loaded through ``loader`` (ctypes.CDLL releases
     the interpreter lock around the call, ctypes.PyDLL keeps it) with four
@@ -297,6 +351,16 @@ def pieces(rm_args: tuple, calls: int) -> dict:
             fn = _entry(loader, argtype)
             steps[f"ctypes call, {loader.__name__}, 4 x "
                   f"{argtype.__name__}"] = (lambda fn=fn: fn(0, 0, 0, addr))
+    msg = torch.zeros((1, ssb._pbch_code().k), dtype=torch.int8, device=dev)
+    e = ssb._pbch_code().e
+    steps.update({
+        "torch.empty((1, E), int8, device), K33's PBCH output":
+            lambda: torch.empty((1, e), dtype=torch.int8, device=dev),
+        "Tensor.new_empty((1, E)), K33's PBCH output":
+            lambda: msg.new_empty((1, e)),
+        "Tensor.new_empty(1, E), K33's PBCH output":
+            lambda: msg.new_empty(1, e),
+    })
     n = flagship.pusch_llr_count()
     q = torch.zeros(n, dtype=torch.int8, device=dev)
     out = torch.empty(n, dtype=torch.float32, device=dev)
@@ -340,7 +404,8 @@ def main(argv=None) -> dict:
     for name, (fn, _, a) in {**k21, **edge}.items():
         calls[name] = lambda fn=fn, a=a: fn(*a)
     for more_calls, more_library in (control_calls(rng, dev),
-                                     llr_calls(gen, dev)):
+                                     llr_calls(gen, dev),
+                                     ue_encoder_calls(rng, dev)):
         calls.update(more_calls)
         library.update(more_library)
     if args.cases is not None:

@@ -12,9 +12,13 @@ polar_decoder_impl.h:36-143).
 
 :func:`encode_chain` is the K33 wrapper, the whole chain the callers use
 (message bits int8 [B, K] -> transmitted bits int8 [B, E]): on CUDA tensors
-one launch of csrc/polar_encode.cu (one CTA per codeword, u in shared
-memory, a host table of the info, PC-source and rate-match positions), on
-CPU tensors its twin :func:`encode_chain_ref` (the three steps).
+one launch of csrc/polar_encode.cu (a warp per codeword and up to 512
+transmitted bits, u packed 32 bits a lane, host tables of each position's
+message source, the PC bits' source masks and the rate-match gather),
+through a plan cached per (code, message shape, device)
+(``kernels/_build.py::Launch``), so a call allocates its output and makes
+one C call; on CPU tensors its twin :func:`encode_chain_ref` (the three
+steps).
 
 :func:`decode` is the K15 wrapper: rate dematch, SC decode and the CRC
 check of the decoded message, on CUDA tensors in one hand kernel
@@ -26,7 +30,9 @@ launch of B * N CTAs.  The CA-SCL list decoder is ``polar_scl`` (K29).
 
 from __future__ import annotations
 
+import collections
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -49,7 +55,9 @@ ENCODE_KERNEL = kernels.register(kernels.Kernel(
     replaces="srsran_tpu/ops/polar.py:37"))
 
 _ENCODE_MATRIX_CACHE: dict = {}
-MAX_N = 1024            # csrc/polar_encode.cu MAX_N
+MAX_N = 1024            # csrc/polar_encode.cu: n <= 10
+ENCODE_WARPS = 4        # K33's warps a codeword, and a CTA's, at most
+ENCODE_PLANS_MAX = 256
 
 
 def encode_matrix(code: PolarCode) -> np.ndarray:
@@ -182,31 +190,34 @@ def _pc_set(code: PolarCode) -> tuple:
     return () if code.pc_set is None else tuple(code.pc_set.tolist())
 
 
-def _encode_keys(code: PolarCode) -> tuple:
-    """Hashable key of one code's K33 table (a PolarCode holds numpy
-    arrays, so it cannot key a cache itself)."""
-    return (code.big_n, code.e, code.mode, code.ibil, code.iil,
-            tuple(code.info_set.tolist()), _pc_set(code))
-
-
-@functools.lru_cache(maxsize=None)
-def _encode_table(big_n: int, e: int, mode: str, ibil: bool, iil: bool,
-                  info_set: tuple, pc_set: tuple) -> np.ndarray:
-    """int32 K33 table of one code (csrc/polar_encode.cu): info_pos [K],
-    info_src [K] (u[info_pos[j]] = msg[info_src[j]], i_IL folded in),
-    pc_pos [npc], pc_start [npc + 1], pc_src [ns] (each PC bit the XOR of
-    u at its sources), plan [E] (transmitted bit i = x[plan[i]], i_BIL
-    folded in)."""
+@functools.lru_cache(maxsize=256)
+def _encode_tables(big_n: int, e: int, mode: str, ibil: bool, iil: bool,
+                   info_set: tuple, pc_set: tuple) -> tuple:
+    """K33's tables of one code (csrc/polar_encode.cu): src int16 [32 * 32],
+    lane l's row of 32: the message index of encoder position 32t + l
+    (u[info_set[j]] = msg[src], i_IL folded in), or -1 (frozen, PC, past
+    N); pc int32 [npc * 32 + npc] (at least one word), per PC bit the 32
+    words' masks of its sources (each PC bit the XOR of u there), then the
+    PC positions; plan int16 [E] padded with zeros to a multiple of 16
+    (transmitted bit i = x[plan[i]], i_BIL folded in)."""
     k = len(info_set)
-    src = input_interleave_map(k) if iil else np.arange(k)
+    src = np.full(1024, -1, np.int16)
+    src[np.asarray(info_set, np.int64)] = (input_interleave_map(k) if iil
+                                           else np.arange(k))
+    src = np.ascontiguousarray(src.reshape(32, 32).T).reshape(-1)
     pcs = _pc_sources(big_n, pc_set, info_set)
-    starts = np.cumsum([0] + [len(s) for _, s in pcs])
-    plan = _rm_plan(big_n, e, mode)
+    masks = np.zeros((len(pcs), 32), np.uint32)
+    for p, (_, sources) in enumerate(pcs):
+        for i in sources:
+            masks[p, i >> 5] |= np.uint32(1 << (i & 31))
+    pc = np.concatenate([masks.reshape(-1), [pos for pos, _ in pcs]]
+                        ).astype(np.uint32)
+    plan = np.zeros(-(-e // 16) * 16, np.int16)    # 32-byte rounds a lane
+    plan[:e] = _rm_plan(big_n, e, mode)
     if ibil:
-        plan = plan[_triangle_perm(e)]
-    return np.concatenate([
-        np.asarray(info_set), src, [p for p, _ in pcs], starts,
-        [i for _, s in pcs for i in s], plan]).astype(np.int32)
+        plan[:e] = plan[:e][_triangle_perm(e)]
+    return (src, (pc if pc.size else np.zeros(1, np.uint32)).view(np.int32),
+            plan)
 
 
 def encode_chain_ref(msg: torch.Tensor, code: PolarCode) -> torch.Tensor:
@@ -215,27 +226,65 @@ def encode_chain_ref(msg: torch.Tensor, code: PolarCode) -> torch.Tensor:
     return rate_match(encode(allocate(msg, code), code.n), code)
 
 
+def _encode_params(code: PolarCode, shape: tuple) -> _build.PolarEncodeParams:
+    """K33's launch for messages of ``shape`` [B, K] in ``code``: 1, 2 or
+    ENCODE_WARPS warps a codeword, for up to 512 transmitted bits a warp
+    (they take its gather's rounds in turn), up to ENCODE_WARPS warps a
+    CTA; raises on what the kernel does not take."""
+    if (len(shape) != 2 or shape[0] < 1 or shape[1] != code.k
+            or not 32 <= code.big_n <= MAX_N):
+        raise ValueError(f"msg must be [B, {code.k}] for 32 <= N <= {MAX_N}, "
+                         f"got {tuple(shape)} at N = {code.big_n}")
+    b = shape[0]
+    split = min(ENCODE_WARPS, 1 << (-(-code.e // 512) - 1).bit_length())
+    return _build.PolarEncodeParams(b, code.k, code.n, code.e,
+                                    len(_pc_set(code)),
+                                    min(ENCODE_WARPS, b * split), split)
+
+
+_ENCODE_PLANS: collections.OrderedDict = collections.OrderedDict()
+_ENCODE_LOCK = threading.Lock()     # _ENCODE_PLANS (serve_phy's thread)
+
+
+def _encode_plan(code: PolarCode, shape, index: int) -> tuple:
+    """K33's plan for messages of ``shape`` in ``code`` on CUDA device
+    ``index``: (its launch, with the code's tables; B; E; the code), kept
+    in a bounded LRU keyed by the code's identity (a PolarCode holds numpy
+    arrays and cannot key a cache itself; the plan holds the code, so its
+    id is not reused while the plan lives)."""
+    key = (id(code), shape, index)
+    with _ENCODE_LOCK:
+        plan = _ENCODE_PLANS.get(key)
+        if plan is not None:
+            _ENCODE_PLANS.move_to_end(key)
+            return plan
+    params = _encode_params(code, shape)
+    dev = torch.device("cuda", index)
+    tables = tuple(torch.from_numpy(t).to(dev) for t in _encode_tables(
+        code.big_n, code.e, code.mode, code.ibil, code.iil,
+        tuple(code.info_set.tolist()), _pc_set(code)))
+    plan = (_build.Launch("srsran_polar_encode", index, params, tables),
+            shape[0], code.e, code)
+    with _ENCODE_LOCK:
+        _ENCODE_PLANS[key] = plan
+        if len(_ENCODE_PLANS) > ENCODE_PLANS_MAX:
+            _ENCODE_PLANS.popitem(last=False)
+    return plan
+
+
 def encode_chain(msg: torch.Tensor, code: PolarCode) -> torch.Tensor:
     """The whole TS38.212 polar TX chain: message bits int8 [B, K] (CRC
     attached) -> transmitted bits int8 [B, E] -- input interleaver (DL),
     info and PC bits, the butterfly, rate matching and the channel
     interleaver (UL), as :func:`allocate`, :func:`encode` and
     :func:`rate_match` compose them."""
-    if not is_cuda(msg):
+    if not msg.is_cuda:
         return encode_chain_ref(msg, code)
-    if msg.ndim != 2 or msg.shape[-1] != code.k or code.big_n > MAX_N:
-        raise ValueError(f"msg must be [B, {code.k}] for N <= {MAX_N}, got "
-                         f"{tuple(msg.shape)} at N = {code.big_n}")
-    dev = msg.device
-    table = const(_encode_table, *_encode_keys(code), device=dev)
-    npc = len(_pc_set(code))
-    ns = table.shape[0] - 2 * code.k - 2 * npc - 1 - code.e
-    msg = msg.to(torch.int8).contiguous()
-    out = torch.empty((msg.shape[0], code.e), dtype=torch.int8, device=dev)
-    lib = _build.load()
-    _build.check(lib.srsran_polar_encode(
-        _build.ptr(msg), msg.shape[0], code.k, code.n, _build.ptr(table), npc,
-        ns, code.e, _build.ptr(out), _build.stream_of(msg)), "polar_encode")
+    launch, b, e, _ = _encode_plan(code, msg.shape, msg.get_device())
+    if msg.dtype is not torch.int8 or not msg.is_contiguous():
+        msg = msg.to(torch.int8).contiguous()
+    out = msg.new_empty(b, e)      # ints: a shape tuple parses slower
+    launch(msg.data_ptr(), out.data_ptr())
     ENCODE_KERNEL.count()
     return out
 

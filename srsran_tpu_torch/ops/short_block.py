@@ -13,9 +13,13 @@ the host candidate bank.  A slot batch's codewords [B, N, E] fold into one
 launch of B * N blocks.
 
 :func:`encode` (UE side) is the K34 wrapper: on CUDA tensors the encode
-kernel of the same source (one thread per transmitted bit, from the same
-[2, P] generator tables), on CPU tensors its twin :func:`encode_ref` (the
-tables' affine map in torch ops).  Either stays on the device of its bits.
+kernel of the same source (a warp per codeword: the message packed by a
+ballot, one period of the code from a [2, P] table in registers, the
+codeword written as 8-byte stores), launched through a plan cached per
+(K, Qm, E, B, device) (``kernels/_build.py::Launch``), so a call
+allocates its output and makes one C call; on CPU tensors its twin
+:func:`encode_ref` (the generator tables' affine map in torch ops).
+Either stays on the device of its bits.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ ENCODE_KERNEL = kernels.register(kernels.Kernel(
 _DATA = Path(__file__).resolve().parent.parent / "data" / "short_block_tables.npz"
 MAX_K = 11
 MAX_PERIOD = 64
+ENCODE_WARPS = 4            # codewords (warps) a CTA of K34
 
 
 @functools.lru_cache(maxsize=None)
@@ -97,6 +102,27 @@ def encode_ref(bits: torch.Tensor, e: int, qm: int = 1) -> torch.Tensor:
     return code[:, const(_period_index, e, tables.shape[1], device=dev)]
 
 
+def _encode_params(k: int, e: int, p: int,
+                   b: int) -> _build.ShortBlockEncodeParams:
+    """K34's launch for B codewords of K bits, E transmitted bits, a code
+    of period P; raises on what the kernel does not take."""
+    if not (1 <= k <= MAX_K and 1 <= p <= MAX_PERIOD and b >= 1 and e >= 1):
+        raise ValueError(f"K34 takes K 1..{MAX_K}, P 1..{MAX_PERIOD}, B and "
+                         f"E >= 1; got K {k}, P {p}, B {b}, E {e}")
+    return _build.ShortBlockEncodeParams(b, k, e, p, min(b, ENCODE_WARPS))
+
+
+@functools.lru_cache(maxsize=256)
+def _encode_plan(k: int, qm: int, e: int, b: int,
+                 index: int) -> _build.Launch:
+    """K34's launch for B codewords of K bits to E at Qm on CUDA device
+    ``index``, with its period table."""
+    table = torch.from_numpy(_kernel_tables(k, qm, False)).to(
+        torch.device("cuda", index))
+    return _build.Launch("srsran_short_block_encode", index,
+                         _encode_params(k, e, table.shape[1], b), (table,))
+
+
 def encode(bits: torch.Tensor, e: int, qm: int = 1) -> torch.Tensor:
     """Encode [B, K] (K<=11) -> int8 [B, E], on the device of ``bits``.
 
@@ -104,20 +130,16 @@ def encode(bits: torch.Tensor, e: int, qm: int = 1) -> torch.Tensor:
     K=2: c = [b0, b1, b0^b1] (+ placeholders for Qm>1), cycled to E.
     K>=3: RM(32,K) then repeated to E.
     """
-    if not is_cuda(bits):
+    if not bits.is_cuda:
         return encode_ref(bits, e, qm)
-    k = bits.shape[-1]
     if bits.ndim != 2:
         raise ValueError(f"bits must be [B, K], got {tuple(bits.shape)}")
-    dev = bits.device
-    tables = const(_kernel_tables, k, qm, device=dev)
-    bits = bits.to(torch.int8).contiguous()
-    out = torch.empty((bits.shape[0], e), dtype=torch.int8, device=dev)
-    lib = _build.load()
-    _build.check(lib.srsran_short_block_encode(
-        _build.ptr(bits), bits.shape[0], k, e, tables.shape[1],
-        _build.ptr(tables), _build.ptr(out), _build.stream_of(bits)),
-        "short_block_encode")
+    b, k = bits.shape
+    launch = _encode_plan(k, qm, e, b, bits.get_device())
+    if bits.dtype is not torch.int8 or not bits.is_contiguous():
+        bits = bits.to(torch.int8).contiguous()
+    out = bits.new_empty(b, e)
+    launch(bits.data_ptr(), out.data_ptr())
     ENCODE_KERNEL.count()
     return out
 
@@ -142,13 +164,15 @@ def _generator_np(k: int, qm: int) -> tuple:
     return zero.astype(np.uint8), (unit ^ zero[None]).astype(np.uint8)
 
 
-def _kernel_tables(k: int, qm: int) -> np.ndarray:
-    """int32 [2, P]: per codeword position r < P, the candidate-index bit
-    mask of the message bits that flip it (message bit i is bit K-1-i of
-    the candidate index, as the candidate bank orders them), and its
-    placeholder/offset bit."""
+def _kernel_tables(k: int, qm: int, msb_first: bool = True) -> np.ndarray:
+    """int32 [2, P]: per codeword position r < P, the bit mask of the
+    message bits that flip it, and its placeholder/offset bit.  Message
+    bit i is bit K-1-i of the mask with ``msb_first`` (K14's candidate
+    index, as the candidate bank orders them), else bit i (K34's word, as
+    its ballot packs the message)."""
     ones, gen = _generator_np(k, qm)
-    weights = (1 << np.arange(k - 1, -1, -1)).astype(np.int64)
+    weights = (1 << (np.arange(k - 1, -1, -1) if msb_first
+                     else np.arange(k))).astype(np.int64)
     masks = (gen.astype(np.int64) * weights[:, None]).sum(axis=0)
     return np.stack([masks, ones.astype(np.int64)]).astype(np.int32)
 

@@ -111,28 +111,29 @@ def _jax_chain(msg, code):
 
 
 def _replay_k33(msg: np.ndarray, code) -> np.ndarray:
-    """csrc/polar_encode.cu's walk of its host table, in numpy."""
-    tab = t_polar._encode_table(*t_polar._encode_keys(code))
-    k, n, e = code.k, code.big_n, code.e
-    npc = len(t_polar._pc_set(code))
-    ns = len(tab) - 2 * k - 2 * npc - 1 - e
-    info_pos, info_src = tab[:k], tab[k:2 * k]
-    pc_pos = tab[2 * k:2 * k + npc]
-    pc_start = tab[2 * k + npc:2 * k + 2 * npc + 1]
-    pc_src = tab[2 * k + 2 * npc + 1:2 * k + 2 * npc + 1 + ns]
-    plan = tab[len(tab) - e:]
+    """csrc/polar_encode.cu's walk of its host tables, in numpy: each
+    position's message source, each PC bit the parity of u under its
+    source masks, the butterfly, the gather."""
+    src, pc, plan = t_polar._encode_tables(
+        code.big_n, code.e, code.mode, code.ibil, code.iil,
+        tuple(code.info_set.tolist()), t_polar._pc_set(code))
+    n, npc = code.big_n, len(t_polar._pc_set(code))
+    src = src.reshape(32, 32).T.reshape(-1)[:n]     # position 32t + l
+    pc = pc.view(np.uint32)
+    masks = pc[:32 * npc].reshape(npc, 32)
+    lane_bits = (masks[:, :, None] >> np.arange(32, dtype=np.uint32)) & 1
+    sources = lane_bits.reshape(npc, 1024)[:, :n].astype(bool)
     out = []
     for m in msg:
-        u = np.zeros(n, np.uint8)
-        u[info_pos] = m[info_src] & 1
+        u = np.where(src >= 0, m[np.maximum(src, 0)] & 1, 0).astype(np.uint8)
         for p in range(npc):
-            u[pc_pos[p]] = np.bitwise_xor.reduce(
-                u[pc_src[pc_start[p]:pc_start[p + 1]]], initial=0)
+            u[pc[32 * npc + p]] = np.bitwise_xor.reduce(u[sources[p]],
+                                                        initial=0)
         for s in range(code.n):
             q = np.arange(n // 2)
             i0 = (q >> s) * (2 << s) + (q & ((1 << s) - 1))
             u[i0] ^= u[i0 + (1 << s)]
-        out.append(u[plan])
+        out.append(u[plan[:code.e]])
     return np.asarray(out, np.int8)
 
 

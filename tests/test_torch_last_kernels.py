@@ -1,9 +1,12 @@
 """K33-K36 and K8 over an irregular pilot comb against their twins, on a
 CUDA GPU.
 
-K33 (the polar encode chain) on the PBCH, DCIs at AL 1-16 and UCI codes
-with and without PC bits in every rate-match mode, at B = 1 and 64; K34
-(the short-block encoder) for K 1-11 at Qm 1, 2, 4, 6; K35 (int8 LLRs)
+K33 (the polar encode chain) on the PBCH, DCIs at AL 1-16, UCI codes with
+and without PC bits in every rate-match mode, N = 32 and N = 1024 at E =
+8192, at B = 1 and 64, at batches that leave a CTA's warps idle (B = 7,
+65), on inputs that are not contiguous or not int8; K34 (the short-block
+encoder) for K 1-11 at Qm 1, 2, 4, 6; K33 and K34 captured in a CUDA
+graph and replayed on new messages; K35 (int8 LLRs)
 with ties and saturation; K36 (the LDPC syndrome check) on valid and
 corrupted codewords; K8 on a type 0 PRB list's DM-RS comb with and
 without the fd-OCC despread, every smoothing and both time strategies;
@@ -39,6 +42,8 @@ POLAR_CASES = {
     "uci_puncture": (111, 1000, 10, True, 0),
     "uci_shorten": (30, 40, 10, True, 0),
     "uci_repeat": (100, 2000, 10, True, 0),
+    "n32": (8, 24, 9, False, 0),
+    "n1024_e8192": (200, 8192, 10, True, 0),
 }
 
 
@@ -64,6 +69,56 @@ def test_polar_encode_kernel(cuda, case, batch):
     torch.cuda.synchronize()
     assert polar.ENCODE_KERNEL.launches == before + 1
     assert torch.equal(got, polar.encode_chain_ref(msg, code))
+
+
+@pytest.mark.parametrize("batch", [1, 7, 65])
+@pytest.mark.parametrize("case", ["uci_pc_puncture", "dci_al16",
+                                  "n1024_e8192"])
+def test_polar_encode_kernel_partial_ctas(cuda, case, batch):
+    """Batches that do not fill a CTA's warps, with and without PC bits."""
+    k, e, nmax, ibil, npc = POLAR_CASES[case]
+    code = polar_params.polar_code(k, e, nmax=nmax, ibil=ibil, n_pc=npc)
+    msg = _bits(np.random.default_rng(batch + k), (batch, k), cuda)
+    got = polar.encode_chain(msg, code)
+    assert torch.equal(got, polar.encode_chain_ref(msg, code))
+
+
+def test_polar_encode_kernel_strided_input(cuda):
+    """A message that is a strided view, and one not int8, give the twin's
+    bits (the wrapper copies them first)."""
+    code = polar_params.polar_code(25, 200, nmax=10, ibil=True, n_pc=3)
+    wide = _bits(np.random.default_rng(3), (9, 2 * code.k), cuda)
+    for msg in (wide[:, ::2], wide[:, 5:5 + code.k], wide.T[:code.k].T,
+                wide[:, :code.k].to(torch.int32)):
+        assert not msg.is_contiguous() or msg.dtype != torch.int8
+        got = polar.encode_chain(msg, code)
+        assert torch.equal(got, polar.encode_chain_ref(msg.to(torch.int8),
+                                                       code))
+
+
+def test_ue_encoders_in_a_cuda_graph(cuda):
+    """A K33 and a K34 launch captured in a CUDA graph replay on new
+    messages equal to eager launches."""
+    code = polar_params.polar_code(56, 864, nmax=9)
+    rng = np.random.default_rng(20)
+    msg = _bits(rng, (4, code.k), cuda)
+    sb = _bits(rng, (4, 11), cuda)
+    polar.encode_chain(msg, code)
+    short_block.encode(sb, 120, 2)                  # plans built, warm
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out_polar = polar.encode_chain(msg, code)
+        out_sb = short_block.encode(sb, 120, 2)
+    for _ in range(3):
+        msg.copy_(_bits(rng, (4, code.k), cuda))
+        sb.copy_(_bits(rng, (4, 11), cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out_polar, polar.encode_chain(msg, code))
+        assert torch.equal(out_polar, polar.encode_chain_ref(msg, code))
+        assert torch.equal(out_sb, short_block.encode(sb, 120, 2))
+        assert torch.equal(out_sb, short_block.encode_ref(sb, 120, 2))
 
 
 @pytest.mark.parametrize("qm", [1, 2, 4, 6])
