@@ -374,6 +374,12 @@ MU_PATH = ("ldpc_decode", "rate_dematch", "ofdm_demodulate",
 # Extra cases of a kernel at another shape: compared and timed, printed,
 # not in the JSON line (which holds the main path's shape).
 CASE_KERNEL = {"pdsch_map_repetition": "pdsch_map",
+               "ldpc_decode_clean": "ldpc_decode",
+               "ldpc_decode_batch4": "ldpc_decode",
+               "ldpc_decode_harq": "ldpc_decode",
+               "ldpc_decode_bg2": "ldpc_decode",
+               "dlsch_encode_batch4": "dlsch_encode",
+               "dlsch_encode_bg2": "dlsch_encode",
                "pucch_f0_detect_10db": "pucch_f0_detect",
                "channel_estimate_f2": "channel_estimate",
                "pucch_f2_demap_1rb": "pucch_f2_demap",
@@ -496,8 +502,29 @@ HOST_TIMED = ("rate_match", "prach_demod", "prach_demod_n6144",
               "pusch_tp_demap_widest", "pucch_f3_demap", "pucch_f3_demap_f4",
               "polar_encode", "polar_encode_pbch", "polar_encode_dci_al16",
               "polar_encode_uci64", "short_block_encode",
-              "short_block_encode_k11", "llr_quantize", "llr_dequantize")
+              "short_block_encode_k11", "llr_quantize", "llr_dequantize",
+              "ldpc_decode", "ldpc_decode_clean", "ldpc_decode_batch4",
+              "ldpc_decode_harq", "ldpc_decode_bg2", "dlsch_encode",
+              "dlsch_encode_batch4", "dlsch_encode_bg2")
 HOST_CALLS = 1000
+# K1's cases: host µs of the kernel alone (no PyTorch call computes it, and
+# its twin takes 15-460 ms a call).
+HOST_KERNEL_ONLY = ("ldpc_decode", "ldpc_decode_clean", "ldpc_decode_batch4",
+                    "ldpc_decode_harq", "ldpc_decode_bg2")
+# The figures of the K1 and K5 these kernels replaced (a CTA per codeblock
+# reading its edge tables from global memory per edge; a TB-CRC pass and a
+# byte-per-bit encode), for comparison: device µs (profiler), host µs per
+# call (median of 1000), events ms (median of 20), from ``python3 -m
+# srsran_tpu_torch.launch_profile --cases ldpc dlsch`` on the same cases,
+# NVIDIA H100 80GB HBM3 at 700 W.
+PARENT_LDPC = {"ldpc_decode": (536.32, 547.17, 0.6726),
+               "ldpc_decode_clean": (67.62, 321.89, 0.3690),
+               "ldpc_decode_batch4": (296.20, 316.53, 0.4712),
+               "ldpc_decode_harq": (114.31, 240.08, 0.3237),
+               "ldpc_decode_bg2": (190.36, 320.40, 0.3127),
+               "dlsch_encode": (38.60, 47.93, 0.1005),
+               "dlsch_encode_batch4": (99.43, 87.94, 0.1819),
+               "dlsch_encode_bg2": (17.12, 64.58, 0.1174)}
 TRACE_DIR = Path(__file__).resolve().parent / "build" / "launch_traces"
 N_TIMED_BATCHES = 8
 BATCH_TIMING_RUNS = 5
@@ -591,9 +618,10 @@ def close(kernel: torch.Tensor, ref: torch.Tensor, name: str,
     return float((kernel - ref).abs().max())
 
 
-def compare(name: str, out, ref) -> float:
+def compare(name: str, out, ref, case_args: tuple = ()) -> float:
     """Hold one kernel's result against its twin's; returns max |error|
-    (for K1, the number of hard bits that differ)."""
+    (for K1, the number of hard bits that differ; ``case_args``: its
+    arguments)."""
     case, name = name, CASE_KERNEL.get(name, name)
     if name == "pucch_f0_detect":                  # K12: decisions equal
         if not all(torch.equal(out[i], ref[i]) for i in (0, 2, 3, 4)):
@@ -727,21 +755,22 @@ def compare(name: str, out, ref) -> float:
         if not all(torch.equal(a, b) for a, b in zip(out, ref)):
             raise AssertionError(f"{case} differs from its twin")
         return float((out[1] - ref[1]).abs().max())
-    bits, _, iters = out                           # K1
-    bits_ref, _, iters_ref = ref
-    k = flagship.SEG.cb_info_bits
-    ok = crc_check(bits[:, :k], "crc24B")
-    ok_ref = crc_check(bits_ref[:, :k], "crc24B")
+    bits, soft, iters = out                        # K1: per slot
+    bits_ref, soft_ref, iters_ref = ref
+    k = case_args[-1]
+    ok = crc_check(bits[..., :k], "crc24B")
+    ok_ref = crc_check(bits_ref[..., :k], "crc24B")
     if not (torch.equal(bits, bits_ref) and torch.equal(ok, ok_ref)
-            and int(iters) == int(iters_ref)):
+            and torch.equal(iters.cpu(), iters_ref.cpu())):
         raise AssertionError(
-            f"K1 differs from its twin: bits {int((bits != bits_ref).sum())} "
-            f"iters {int(iters)} vs {int(iters_ref)}")
-    if int(iters) < 2:
+            f"{case}: K1 differs from its twin: bits "
+            f"{int((bits != bits_ref).sum())} iters {iters.tolist()} vs "
+            f"{iters_ref.tolist()}")
+    if case == "ldpc_decode" and int(iters) < 2:
         raise AssertionError("K1 phase did not exercise more than one sweep")
-    print(f"K1 noisy input: {int(iters)} sweeps, "
-          f"{int(ok.sum())}/{flagship.SEG.nof_codeblocks} CB CRCs pass",
-          flush=True)
+    print(f"{case}: {case_args[3]} layers, sweeps {iters.tolist()}, "
+          f"{int(ok.sum())}/{ok.numel()} CB CRCs pass, soft LLRs' largest "
+          f"difference {float((soft - soft_ref).abs().max()):.3g}", flush=True)
     return float((bits != bits_ref).sum())
 
 
@@ -846,14 +875,15 @@ def work(name: str, args: tuple, out) -> tuple:
         return nbytes((args[0], args[10])) + nbytes(out), float(
             args[10].numel())
     if name == "ldpc_decode":                      # K1: 8 per edge per sweep
+        # the sweeps this run's data took, per slot of a slot axis
         llr, bg, z, rows = args[0], args[1], args[2], args[3]
-        sweeps = int(out[2])
+        sweeps = sum(int(v) for v in out[2].reshape(-1))
         return (nbytes(llr) + nbytes(out),
-                8.0 * _edges(bg, z, rows) * llr.shape[0] * sweeps)
+                8.0 * _edges(bg, z, rows) * llr.shape[-2] * sweeps)
     if name == "dlsch_encode":                     # K5: an XOR per edge + CRC
         tb, bg = args
-        c = out.shape[0]
-        z = out.shape[1] // (66 if bg == 1 else 50)
+        c = out.shape[-2] * (out.shape[0] if out.ndim == 3 else 1)
+        z = out.shape[-1] // (66 if bg == 1 else 50)
         return (nbytes(tb) + nbytes(out),
                 float(_edges(bg, z, 46 if bg == 1 else 42) * c
                       + 2 * tb.numel()))
@@ -1047,7 +1077,7 @@ def kernel_phases(cases: dict, library: dict | None = None) -> dict:
     results = {}
     for name, (fn, ref_fn, args) in cases.items():
         out = fn(*args)
-        err = compare(name, out, ref_fn(*args))
+        err = compare(name, out, ref_fn(*args), args)
         if name == "pdsch_map_repetition":
             print(f"K6 repetition, rv 2: max_abs_err {err:.3g}", flush=True)
             continue
@@ -1058,10 +1088,18 @@ def kernel_phases(cases: dict, library: dict | None = None) -> dict:
                              **bound(name, args, out),
                              library_ms=median_ms(lib) if lib else None)
         if name in HOST_TIMED:
-            yard = ("library", lib) if lib else (
-                "plain", lambda: ref_fn(*args))
-            print(host_path(name, {"kernel": lambda: fn(*args),
-                                   yard[0]: yard[1]}), flush=True)
+            calls = {"kernel": lambda: fn(*args)}
+            if name not in HOST_KERNEL_ONLY:
+                yard = ("library", lib) if lib else (
+                    "plain", lambda: ref_fn(*args))
+                calls[yard[0]] = yard[1]
+            print(host_path(name, calls), flush=True)
+            if name in PARENT_LDPC:
+                dev_us, host, ev = PARENT_LDPC[name]
+                print(f"{name} parent kernel: device {dev_us:.2f} us, host "
+                      f"{host:.2f} us per call, events {ev:.4f} ms; bound "
+                      f"{results[name]['bound_ms'] * 1e3:.3f} us "
+                      f"({results[name]['bound_by']})", flush=True)
     return results
 
 
@@ -1183,8 +1221,9 @@ def ul_phases(dev, gen, rng, card) -> tuple:
     print(f"transmitter: {len(slots)} slots in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    results = kernel_phases(flagship.kernel_cases(slots[0][1], slots[0][2],
-                                                  gen, prach_in))
+    cases = flagship.kernel_cases(slots[0][1], slots[0][2], gen, prach_in)
+    cases.update(flagship.ldpc_decode_cases(cases, gen))
+    results = kernel_phases(cases)
 
     # The main path.  Warm up (builds the device constants), then count
     # launches over NOF_SLOTS slots.
@@ -1258,7 +1297,13 @@ def dl_phases(dev, rng, card) -> tuple:
     print(f"DL inputs: {len(warm) + len(slots)} slots in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    results = kernel_phases(flagship.dl_kernel_cases(slots[0]))
+    cases = flagship.dl_kernel_cases(slots[0])
+    cases.update(flagship.dlsch_encode_cases(cases["dlsch_encode"][2][0],
+                                             torch.Generator(dev)))
+    results = kernel_phases(cases, {
+        name: launch_profile.dlsch_library(*args)
+        for name, (_, _, args) in cases.items()
+        if name.startswith("dlsch_encode")})
 
     # The main path: both programs warm, then NOF_SLOTS slots counted.
     for s in warm:
@@ -1914,8 +1959,8 @@ def batched_kernel_phase(names: tuple, per_slot: list, where: str,
         fn, ref_fn, args, mask = _stack_case([c[name] for c in per_slot])
         out = fn(*args)
         ref = ref_fn(*args)
-        err = max(compare(name, _slot_of(out, b), _slot_of(ref, b))
-                  for b in range(nb))
+        err = max(compare(name, _slot_of(out, b), _slot_of(ref, b),
+                          per_slot[b][name][2]) for b in range(nb))
         b_bytes = b_ops = 0.0
         for b in range(nb):
             sl = tuple(_slice_tree(a, m, b) for a, m in zip(args, mask))
@@ -1930,7 +1975,7 @@ def batched_kernel_phase(names: tuple, per_slot: list, where: str,
         one = fn(*(_slice_tree(a, m, slice(0, 1))
                    for a, m in zip(args, mask)))
         single = fn(*per_slot[0][name][2])
-        compare(name, _slot_of(one, 0), single)
+        compare(name, _slot_of(one, 0), single, per_slot[0][name][2])
         results[f"{name}_batch"] = dict(
             max_abs_err=err, ms=median_ms(lambda: fn(*args)),
             plain_ms=median_ms(lambda: ref_fn(*args), BATCH_TIMING_RUNS),

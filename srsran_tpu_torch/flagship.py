@@ -88,6 +88,7 @@ from .device import const
 from .ofh import compression as bfp
 from .phy.lower import amplitude_control, cfo, prach_demod
 from .ran import mcs_tbs, polar_params
+from .ran.ldpc_params import segment_tb
 from .ran.precoding_codebooks import PrecodingConfig, nof_prgs
 from .ran.prach_params import zc_sequence
 from .ran.slot_point import SlotPoint
@@ -285,6 +286,78 @@ def kernel_cases(rx: torch.Tensor, ctx: dict, gen: torch.Generator,
         "srs_estimate": (srs.srs_noise, srs.srs_noise_ref, k11),
     }
 
+
+
+# K1's and K5's further cases (the lean launch path's profile): a BG2 TB
+# for K1 (7 codeblocks at Z = 384, 1.5 dB) and one for K5 at a lifting size
+# that is not a multiple of 32 (two codeblocks at Z = 208).
+LDPC_BG2_TBS = 26632
+LDPC_BG2_SNR_DB = 1.5
+ENCODE_BG2_TBS = 3832
+BATCH_SLOTS = 4
+
+
+def ldpc_decode_cases(cases: dict, gen: torch.Generator) -> dict:
+    """name -> (wrapper, plain twin, args) for K1 beyond
+    :func:`kernel_cases`' noisy 46-layer case, from its K2 and K1 inputs:
+    the flagship's clean slot as ``sch_decoder.decode`` calls it (its
+    layers from ``seg_layers``: 10); a batch of 4 slots with a slot axis at
+    those layers, slot 2 the noisy input (it sweeps on after the others
+    stop); a HARQ retransmission (the slot's LLRs combined with its first
+    transmission's soft buffer, 46 layers); and a BG2 TB (7 codeblocks at Z
+    = 384, BPSK at 1.5 dB, 42 layers)."""
+    k2, k1 = cases["rate_dematch"][2], cases["ldpc_decode"][2]
+    seg = SEG
+    soft, clean = ldpc_rate_match.rate_dematch_combine_ref(*k2[:-1])
+    _, combined = ldpc_rate_match.rate_dematch_combine_ref(*k2[:-1], soft)
+    layers = max(4, min(sch_decoder.seg_layers(seg, k2[2]),
+                        sch_decoder.bg_rows(seg.base_graph)))
+    tail = (6, ldpc_decode.DEFAULT_SCALING, "crc24B", seg.cb_info_bits)
+    bg, z = seg.base_graph, seg.lifting_size
+    batch = torch.stack([clean, clean, k1[0], clean][:BATCH_SLOTS])
+    pair = (ldpc_decode.decode_early_stop, ldpc_decode.decode_early_stop_ref)
+    return {
+        "ldpc_decode_clean": pair + ((clean, bg, z, layers) + tail,),
+        "ldpc_decode_batch4": pair + ((batch, bg, z, layers) + tail,),
+        "ldpc_decode_harq": pair + ((combined, bg, z, 46) + tail,),
+        "ldpc_decode_bg2": pair + (_bg2_decode_args(gen, clean.device),),
+    }
+
+
+def _bg2_decode_args(gen: torch.Generator, device) -> tuple:
+    """K1's args for :data:`LDPC_BG2_TBS` at BG2: the twin's codeblocks of
+    a random TB as BPSK LLRs at :data:`LDPC_BG2_SNR_DB`, the 2Z punctured
+    bits 0 and the fillers strongly positive."""
+    seg = segment_tb(LDPC_BG2_TBS, 2)
+    z = seg.lifting_size
+    bits = torch.randint(0, 2, (LDPC_BG2_TBS,), generator=gen, device=device,
+                         dtype=torch.int8)
+    cw = ldpc_encode.dlsch_encode_ref(bits, 2).to(torch.float32)
+    sigma = 10 ** (-LDPC_BG2_SNR_DB / 20)
+    noise = torch.randn(cw.shape, generator=gen, device=device)
+    llr = 2 * ((1 - 2 * cw) + sigma * noise) / sigma ** 2
+    llr[:, seg.cb_info_bits - 2 * z:seg.full_block_bits - 2 * z] = \
+        ldpc_rate_match.FILLER_LLR
+    llr = torch.cat([llr.new_zeros((cw.shape[0], 2 * z)), llr], dim=1)
+    return (llr, 2, z, 42, 6, ldpc_decode.DEFAULT_SCALING, "crc24B",
+            seg.cb_info_bits)
+
+
+def dlsch_encode_cases(tb: torch.Tensor, gen: torch.Generator) -> dict:
+    """name -> (wrapper, plain twin, args) for K5 beyond the flagship TB
+    ``tb``: a batch of 4 TBs with a slot axis (``tb`` first) and a BG2 TB
+    of :data:`ENCODE_BG2_TBS` bits (two codeblocks at Z = 208)."""
+    dev = tb.device
+    more = torch.randint(0, 2, (BATCH_SLOTS - 1, tb.shape[-1]), generator=gen,
+                         device=dev, dtype=torch.int8)
+    bg2 = torch.randint(0, 2, (ENCODE_BG2_TBS,), generator=gen, device=dev,
+                        dtype=torch.int8)
+    pair = (ldpc_encode.dlsch_encode, ldpc_encode.dlsch_encode_ref)
+    return {
+        "dlsch_encode_batch4": pair + ((torch.cat([tb[None], more]),
+                                        DL_SEG.base_graph),),
+        "dlsch_encode_bg2": pair + ((bg2, 2),),
+    }
 
 # ----------------------------------------------------------------- DL slot
 

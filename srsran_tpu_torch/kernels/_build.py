@@ -8,11 +8,11 @@ root, named by a hash of the sources and flags; the library is loaded with
 build on every run, so the sources compile side by side.  Pointers and the stream go over as
 ``ctypes.c_void_p``; every C entry point returns ``cudaGetLastError()``
 after its launches, and :func:`check` raises on anything but 0.
-:class:`Launch` is the lean form of that path (K32, K21, K18, K19, K27,
-K33, K34 and K35 take it): a wrapper keeps one per call signature with
-the bound C function, a parameter struct passed by address and its device
-tables, and a call passes only the tensors' pointers and the current
-stream.
+:class:`Launch` is the lean form of that path (K1, K5, K32, K21, K18,
+K19, K27, K33, K34 and K35 take it): a wrapper keeps one per call
+signature with the bound C function, a parameter struct passed by address
+and its device tables, and a call passes only the tensors' pointers and
+the current stream.
 
 ``--fmad=false`` keeps ``a + b * c`` as a rounded multiply then a rounded
 add, the way PyTorch's separate tensor ops compute it: the LDPC decoder's
@@ -100,6 +100,44 @@ class ShortBlockEncodeParams(ctypes.Structure):
 
     _fields_ = [("B", _I), ("K", _I), ("E", _I), ("P", _I), ("warps", _I)]
 
+LDPC_MAX_ROWS = 46         # csrc/ldpc_decode.cu kLdpcMaxRows
+LDPC_MAX_EDGES = 316       # csrc/ldpc_decode.cu kLdpcMaxEdges
+
+
+class LdpcDecodeParams(ctypes.Structure):
+    """csrc/ldpc_decode.cu's LdpcDecodeParams (K1's launch), by address:
+    the sizes, the barriers, then the edge tables by value (row pointers;
+    per edge an int2: the byte offset of (column, shift) and the first lane
+    that wraps, Z - shift)."""
+
+    _fields_ = [("nb", _I), ("cbs_per_slot", _I), ("nslots", _I),
+                ("nrows", _I), ("ncols", _I), ("live", _I), ("z", _I),
+                ("threads", _I), ("single", _I),
+                ("stride", _I), ("k_prime", _I),
+                ("sweeps", _I), ("scaling", _F), ("sync", ctypes.c_ulonglong),
+                ("row_ptr", ctypes.c_ushort * (LDPC_MAX_ROWS + 1)),
+                ("edge", (_I * 2) * LDPC_MAX_EDGES)]
+
+
+# the kernel reads each edge's int2 as one 8-byte load
+assert LdpcDecodeParams.edge.offset % 8 == 0
+
+ENC_MAX_ROWS = 46          # csrc/ldpc_encode.cu kEncMaxRows
+ENC_MAX_EDGES = 316        # csrc/ldpc_encode.cu kEncMaxEdges
+ENC_CORE_INTS = 28         # csrc/ldpc_encode.cu kEncCoreInts
+
+
+class DlschEncodeParams(ctypes.Structure):
+    """csrc/ldpc_encode.cu's DlschEncodeParams (K5's launch), by address."""
+
+    _fields_ = [("tbs", _I), ("tb_crc_len", _I), ("cb_crc_len", _I),
+                ("ppc", _I), ("kb", _I), ("z", _I), ("nw", _I),
+                ("ncols", _I), ("nrows", _I), ("ncb", _I), ("nslots", _I),
+                ("threads", _I), ("tb_poly", ctypes.c_uint),
+                ("cb_poly", ctypes.c_uint), ("core", _I * ENC_CORE_INTS),
+                ("row_ptr", ctypes.c_ushort * (ENC_MAX_ROWS + 1)),
+                ("edge", ctypes.c_uint * ENC_MAX_EDGES)]
+
 RM_MAX_RUNS = 8            # csrc/rate_match.cu kMaxRuns
 
 
@@ -159,9 +197,7 @@ class F3DemapParams(ctypes.Structure):
 
 # C entry points and their argument types (see the matching .cu file).
 SIGNATURES = {
-    "srsran_ldpc_sweep": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
-                          _P, _I, _P, _P, _I, _I, _P],
-    "srsran_ldpc_check": [_P, _I, _I, _P, _P],
+    "srsran_ldpc_decode": [_P] * 7,
     "srsran_rate_dematch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _I, _F, _P],
     "srsran_pusch_demap": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -172,8 +208,7 @@ SIGNATURES = {
     "srsran_ulsch_demux": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P],
     "srsran_ofdm_window": [_P, _P, _P, _I, _I, _I, _I, _P],
     "srsran_ofdm_bins_to_grid": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "srsran_dlsch_encode": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _P, _P, _P, _P, _I, _P, _I, _P],
+    "srsran_dlsch_encode": [_P] * 7,
     "srsran_pdsch_map": [_P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P,
                          _I, _I, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P],
     "srsran_ofdm_grid_to_bins": [_P, _P, _I, _I, _I, _I, _P],

@@ -1,6 +1,6 @@
-"""The host side of a kernel launch on one CUDA GPU: K32's, K21's, K18's,
-K19's, K27's, K33's, K34's and K35's wrappers against one PyTorch call
-each.
+"""The host side of a kernel launch on one CUDA GPU: K1's, K5's, K32's,
+K21's, K18's, K19's, K27's, K33's, K34's and K35's wrappers against one
+PyTorch call each (K1: none computes it; its device µs alone).
 
     python3 -m srsran_tpu_torch.launch_profile [--calls 1000] [--out DIR]
         [--cases PREFIX ...]
@@ -32,16 +32,26 @@ and one codeword through ``uci.encode_uci`` at K = 16 (K33, with CRC6
 and PC bits) and K = 6 (K34), E = 120, Qm 2, as the UE emulation calls it
 (``encode_uci_k16``, ``_k6``), each beside ``torch.matmul`` of its
 message by the GF(2) matrix of the whole encoder, mod 2
-(:func:`gf2_library`).  ``--cases`` keeps the cases whose names start
-with one of the prefixes (and skips the pieces below).  Per case and
-call it reports:
+(:func:`gf2_library`); K1 (``ldpc_decode.decode_early_stop``) on the
+flagship's noisy 46-layer input (``ldpc_decode``), its clean slot at the
+10 layers ``sch_decoder`` decodes (``_clean``), a batch of 4 with a slot
+axis (``_batch4``), a HARQ retransmission (``_harq``) and a BG2 TB
+(``_bg2``), with each case's sweeps in the summary; K5
+(``ldpc_encode.dlsch_encode``) on the flagship TB (``dlsch_encode``), a
+batch of 4 (``_batch4``) and a BG2 TB at Z = 208 (``_bg2``), each beside
+one ``torch.mm`` of its encode stage's message bits by the code's GF(2)
+generator, mod 2 (:func:`dlsch_library`); ``--cases ldpc dlsch`` ~1 min.
+``--cases`` keeps the cases whose names start with one of the prefixes
+(and skips the pieces below, and building the cases it leaves out).  Per
+case and call it reports:
 
 * host µs: ``time.perf_counter_ns`` around the call alone, no synchronize
   (what the host spends to enqueue), median and quartiles of ``--calls``;
 * event ms: CUDA events around one call, median of 20, as
   ``chip_smoke.py`` times a kernel (the host's enqueue shows in it);
 * device µs: the device activities' time per call in a ``torch.profiler``
-  trace of 50 calls;
+  trace of 50 calls, the activities per call and the four longest by
+  name;
 * a ``cProfile`` of ``--calls`` calls: the functions with the most own
   time, to ``DIR/<case>_cprofile.txt``;
 * the card's SM and memory clocks and power draw (``nvidia-smi``) just
@@ -76,11 +86,13 @@ import torch
 from . import flagship
 from .device import card_line, const, require_cuda
 from .kernels import _build
-from .ops import dl_control, ldpc_rate_match, llr
+from .ops import dl_control, ldpc_encode, ldpc_rate_match, llr
+from .ops.crc import crc
 from .ops.transform_precode import deprecode
 from .phy.lower import prach_demod
 from .phy.upper import pdcch, pucch, ssb, uci
-from .profile_slot import profiled
+from .profile_slot import profiled, top_activities
+from .ran.ldpc_params import segment_tb
 
 EVENT_RUNS = 20
 PROFILED_CALLS = 50
@@ -127,13 +139,21 @@ def clocks() -> str:
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else ""
 
 
-def device_us(fn, path: Path, calls: int = PROFILED_CALLS) -> float:
+def device_profile(fn, path: Path, calls: int = PROFILED_CALLS) -> dict:
     """Device time per call: the sum of the device activities' durations
     in a torch.profiler trace of ``calls`` calls (its chrome trace goes
-    to ``path`` and is deleted)."""
+    to ``path`` and is deleted), the activities per call, and the four
+    with the most time (µs per call, by name)."""
     fn()
     events, _ = profiled(fn, calls, path)
-    return sum(e[3] for e in events) / calls
+    return {"us": sum(e[3] for e in events) / calls,
+            "activities": len(events) / calls,
+            "top": top_activities(events, calls, 4)}
+
+
+def device_us(fn, path: Path, calls: int = PROFILED_CALLS) -> float:
+    """:func:`device_profile`'s device µs per call."""
+    return device_profile(fn, path, calls)["us"]
 
 
 def cprofile_top(fn, calls: int, path: Path, rows: int = 20) -> list:
@@ -310,6 +330,109 @@ def ue_encoder_calls(rng: np.random.Generator, dev) -> tuple:
     return calls, library
 
 
+def _message_bits(tb: torch.Tensor, base_graph: int) -> torch.Tensor:
+    """K5's encode-stage input as the twin builds it: the TB CRC, the
+    segmentation, each codeblock's CRC24B and its fillers, [C, K] (or [B *
+    C, K] for a slot axis)."""
+    if tb.ndim == 2:
+        return torch.cat([_message_bits(t, base_graph) for t in tb])
+    seg = segment_tb(tb.shape[-1], base_graph)
+    poly = "crc24A" if seg.tb_crc_bits == 24 else "crc16"
+    b = torch.cat([tb, crc(tb[None], poly)[0]])
+    ppc = seg.cb_info_bits - seg.cb_crc_bits
+    b = torch.cat([b, b.new_zeros(ppc * seg.nof_codeblocks - b.shape[0])])
+    cbs = b.reshape(seg.nof_codeblocks, ppc)
+    if seg.cb_crc_bits:
+        cbs = torch.cat([cbs, crc(cbs, "crc24B")], dim=-1)
+    return torch.cat([cbs, cbs.new_zeros(
+        (cbs.shape[0], seg.full_block_bits - seg.cb_info_bits))], dim=-1)
+
+
+ENCODE_CHUNK = 256       # unit messages per twin encode of the generator
+
+
+def dlsch_library(tb: torch.Tensor, base_graph: int):
+    """K5's yardstick: one ``torch.mm`` of the encode stage's message bits
+    [C, K] (:func:`_message_bits`) by the code's GF(2) generator [K, N],
+    read off the twin's ``encode`` from the K unit messages, in bf16 with
+    float32 out (``out_dtype``; every sum is an exact integer below 2**24),
+    then mod 2; checked bit-equal to the twin.  Where this PyTorch has no
+    ``out_dtype`` the product runs in float32 (``LIBRARY_KIND`` says
+    which)."""
+    seg = segment_tb(tb.shape[-1], base_graph)
+    z, k = seg.lifting_size, seg.full_block_bits
+    dev = tb.device
+    rows = []
+    for i in range(0, k, ENCODE_CHUNK):
+        unit = torch.zeros((min(ENCODE_CHUNK, k - i), k), dtype=torch.int8,
+                           device=dev)
+        unit[torch.arange(unit.shape[0], device=dev),
+             torch.arange(i, i + unit.shape[0], device=dev)] = 1
+        rows.append(ldpc_encode.encode(unit, base_graph, z)[:, 2 * z:]
+                    .to(torch.bfloat16))
+    gen = torch.cat(rows)
+    x = _message_bits(tb, base_graph).to(torch.bfloat16)
+    try:
+        torch.mm(x[:1], gen[:, :8], out_dtype=torch.float32)
+
+        def call():
+            return torch.mm(x, gen, out_dtype=torch.float32) % 2
+        LIBRARY_KIND["dlsch_encode"] = "torch.mm bf16, out_dtype float32"
+    except (TypeError, RuntimeError):
+        x32, gen32 = x.float(), gen.float()
+
+        def call():
+            return torch.mm(x32, gen32) % 2
+        LIBRARY_KIND["dlsch_encode"] = "torch.mm float32"
+    want = ldpc_encode.dlsch_encode_ref(tb, base_graph)
+    if not torch.equal(call().to(torch.int8).reshape(want.shape), want):
+        raise AssertionError("K5's GF(2) product differs from its twin")
+    return call
+
+
+LIBRARY_KIND: dict = {}
+
+
+def ldpc_cases(gen: torch.Generator, rng: np.random.Generator, dev) -> dict:
+    """K1's and K5's cases: name -> (wrapper, twin, args).  K1: the
+    flagship's noisy 46-layer case (``flagship.kernel_cases``), its clean
+    slot at ``sch_decoder``'s layers, a batch of 4 with a slot axis, a
+    HARQ retransmission and a BG2 TB (``flagship.ldpc_decode_cases``); K5:
+    the flagship TB (835,584 bits), a batch of 4 and a BG2 TB at Z = 208
+    (``flagship.dlsch_encode_cases``)."""
+    _, rx, ctx = flagship.make_slots(1, rng, gen, dev)[0]
+    cases = flagship.kernel_cases(rx, ctx, gen, flagship.prach_fd(dev))
+    tb = torch.randint(0, 2, (flagship.PDSCH.tbs,), generator=gen,
+                       device=dev, dtype=torch.int8)
+    return {"ldpc_decode": cases["ldpc_decode"],
+            **flagship.ldpc_decode_cases(cases, gen),
+            "dlsch_encode": (ldpc_encode.dlsch_encode,
+                             ldpc_encode.dlsch_encode_ref,
+                             (tb, flagship.DL_SEG.base_graph)),
+            **flagship.dlsch_encode_cases(tb, gen)}
+
+
+def ldpc_calls(gen: torch.Generator, rng: np.random.Generator, dev) -> tuple:
+    """K1's and K5's (calls, library, sweeps) by name, each kernel checked
+    against its twin once (K1: hard bits and sweeps; K5: every bit); K1
+    has no library call, K5 :func:`dlsch_library`."""
+    calls, library, sweeps = {}, {}, {}
+    for name, (fn, twin, a) in ldpc_cases(gen, rng, dev).items():
+        out, ref = fn(*a), twin(*a)
+        if name.startswith("ldpc"):
+            if not (torch.equal(out[0], ref[0])
+                    and torch.equal(out[2].cpu(), ref[2].cpu())):
+                raise AssertionError(f"{name}: K1 differs from its twin")
+            sweeps[name] = out[2].tolist()
+            library[name] = None
+        else:
+            if not torch.equal(out, ref):
+                raise AssertionError(f"{name}: K5 differs from its twin")
+            library[name] = dlsch_library(*a)
+        calls[name] = lambda fn=fn, a=a: fn(*a)
+    return calls, library, sweeps
+
+
 def _entry(loader, argtype):
     """K32's C entry point loaded through ``loader`` (ctypes.CDLL releases
     the interpreter lock around the call, ctypes.PyDLL keeps it) with four
@@ -376,6 +499,13 @@ def pieces(rm_args: tuple, calls: int) -> dict:
     return {name: host_us(fn, calls)["median"] for name, fn in steps.items()}
 
 
+def _wanted(cases, prefixes: tuple) -> bool:
+    """Whether a ``--cases`` filter keeps a case named by a prefix in
+    ``prefixes`` (no filter keeps every case)."""
+    return cases is None or any(p.startswith(c) or c.startswith(p)
+                                for c in cases for p in prefixes)
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--calls", type=int, default=1000)
@@ -403,34 +533,48 @@ def main(argv=None) -> dict:
         *rm_args)}
     for name, (fn, _, a) in {**k21, **edge}.items():
         calls[name] = lambda fn=fn, a=a: fn(*a)
-    for more_calls, more_library in (control_calls(rng, dev),
-                                     llr_calls(gen, dev),
-                                     ue_encoder_calls(rng, dev)):
+    builders = ((("control_map",), lambda: control_calls(rng, dev)),
+                (("llr_",), lambda: llr_calls(gen, dev)),
+                (("polar_encode", "short_block_encode", "encode_uci"),
+                 lambda: ue_encoder_calls(rng, dev)))
+    for prefixes, build in builders:
+        if _wanted(args.cases, prefixes):
+            more_calls, more_library = build()
+            calls.update(more_calls)
+            library.update(more_library)
+    sweeps = {}
+    if _wanted(args.cases, ("ldpc_decode", "dlsch_encode")):
+        more_calls, more_library, sweeps = ldpc_calls(gen, rng, dev)
         calls.update(more_calls)
         library.update(more_library)
     if args.cases is not None:
         calls = {k: f for k, f in calls.items()
                  if k.startswith(tuple(args.cases))}
     summary = {"card": card_line(), "torch": torch.__version__,
-               "calls": args.calls, "cases": {}}
+               "calls": args.calls, "sweeps": sweeps,
+               "library_kind": LIBRARY_KIND, "cases": {}}
     for name, fn in calls.items():
         row = {}
         for which, f in (("kernel", fn), ("library", library[name])):
             if f is None:
                 continue
+            dev_prof = device_profile(f, out / f"{name}_{which}.json")
             row[which] = {
                 "host_us": host_us(f, args.calls),
                 "clocks": clocks(),
                 "event_ms": event_ms(f),
-                "device_us": device_us(f, out / f"{name}_{which}.json"),
+                "device_us": dev_prof["us"],
+                "activities": dev_prof["activities"],
+                "top_activities": dev_prof["top"],
                 "cprofile_top_us": cprofile_top(
                     f, args.calls, out / f"{name}_{which}_cprofile.txt")[:8],
             }
         summary["cases"][name] = row
         print(f"{name}: " + "; ".join(
             f"{w} host {r['host_us']['median']:.2f} us, events "
-            f"{r['event_ms']:.4f} ms, device {r['device_us']:.2f} us "
-            f"({r['clocks']})" for w, r in row.items()), flush=True)
+            f"{r['event_ms']:.4f} ms, device {r['device_us']:.2f} us over "
+            f"{r['activities']:g} activities ({r['clocks']})"
+            for w, r in row.items()), flush=True)
     if args.cases is None:
         summary["pieces_host_us"] = pieces(rm_args, args.calls)
     (out / "summary.json").write_text(json.dumps(summary, indent=1))

@@ -11,12 +11,16 @@ means bit 0; input LLRs cover the full NV*Z codeword with the 2Z punctured
 positions at 0 and filler positions strongly positive.
 
 :func:`decode_early_stop` and :func:`decode` are the K1 wrappers: on CUDA
-tensors they run csrc/ldpc_decode.cu (one launch per sweep, the stop flag
-and the iteration count on the device); on CPU tensors they run the plain
-twins :func:`decode_early_stop_ref` / :func:`decode_ref`.  They replace
+tensors they run csrc/ldpc_decode.cu (every sweep in one launch while the
+codeblocks fill at most half the SMs, else a launch per sweep; the edge
+tables by value, the stop flags and the iteration count on the device)
+through ``kernels/_build.py::Launch``, one plan per call signature
+(:func:`_decode_plan`; its struct alone, testable on the CPU, from
+:func:`_decode_params`); on CPU tensors they run the plain twins
+:func:`decode_early_stop_ref` / :func:`decode_ref`.  They replace
 srsran_tpu/ops/ldpc_decode.py::decode_early_stop and decode; on the card a
-sweep is latency-bound on shared memory (46 dependent rows per CTA, one CTA
-per codeblock, so 37 of 132 SMs busy at the flagship).
+sweep is bound by its rows' latency and issue (one CTA per codeblock, so
+37 of 132 SMs busy at the flagship).
 
 :func:`check_parity` is the K36 wrapper (csrc/ldpc_parity.cu: one CTA per
 codeword over K1's edge tables, a block-wide OR of the rows' syndromes);
@@ -48,7 +52,7 @@ PARITY_KERNEL = kernels.register(kernels.Kernel(
 
 DEFAULT_SCALING = 0.8
 DEFAULT_MAX_ITER = 6
-_MAX_DEGREE = 24        # per-edge sign bits the kernel packs in one word
+_MAX_DEGREE = 19        # csrc/ldpc_decode.cu kLdpcMaxDegree (registers)
 
 
 @functools.lru_cache(maxsize=None)
@@ -152,50 +156,124 @@ def _crc_words_i32(poly: str, k_prime: int) -> np.ndarray:
     return _remainder_words(poly, k_prime).view(np.int32)
 
 
+@functools.lru_cache(maxsize=None)
+def _live_columns(base_graph: int, z: int, nrows: int) -> int:
+    """The columns K1 keeps in shared memory: every column the first
+    ``nrows`` rows touch, and at least the info columns (the CRC reads
+    their hard bits); the rest of a codeword goes straight through."""
+    g = get_graph(base_graph, z)
+    touched = max(c for row in g.rows[:nrows] for c, _ in row)
+    return max(g.nof_info_cols, touched + 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _edge_words(base_graph: int, z: int, nrows: int) -> tuple:
+    """K1's edge tables by value (csrc/ldpc_decode.cu): row pointers uint16
+    [nrows + 1] and per edge int32 [2]: the byte offset 4 (c Z + s) of its
+    column c at shift s in shared memory, and Z - s, the first lane whose
+    read wraps (lane j reads LLR c Z + (j + s) mod Z)."""
+    g = get_graph(base_graph, z)
+    rows = g.rows[:nrows]
+    ptr = np.concatenate([[0], np.cumsum([len(r) for r in rows])])
+    edge = np.array([(4 * (c * z + s), z - s) for r in rows for c, s in r],
+                    dtype=np.int32)
+    return ptr.astype(np.uint16), edge
+
+
+@functools.lru_cache(maxsize=None)
+def _sync_mask(base_graph: int, z: int, nrows: int) -> int:
+    """K1's barriers: bit r set when a barrier follows row r -- when row r
+    + 1 shares a column with a row since the last barrier (and after the
+    last row).  Rows between two barriers touch disjoint LLRs, so running
+    them without one gives the sequential schedule's values exactly."""
+    rows = [{c for c, _ in r} for r in get_graph(base_graph, z).rows[:nrows]]
+    mask, touched = 0, set()
+    for r, cols in enumerate(rows):
+        touched |= cols
+        if r + 1 == len(rows) or rows[r + 1] & touched:
+            mask |= 1 << r
+            touched = set()
+    return mask
+
+
+def _decode_params(base_graph: int, z: int, nof_layers: int, shape: tuple,
+                   max_iter: int, scaling: float, k_prime: int,
+                   sms: int = 0) -> _build.LdpcDecodeParams:
+    """K1's launch for LLRs of ``shape`` ([B, NV*Z], or [S, B, NV*Z] with a
+    slot axis) on a card of ``sms`` SMs: ``single`` (every sweep in one
+    launch, each slot's CTAs meeting after each sweep) while the codeblocks
+    fill at most half the SMs, so that every CTA is resident even beside a
+    second such launch; else a launch per sweep.  The state holds
+    ``stride`` ints a slot (4 + one failure count a sweep); ``sync`` marks
+    the rows a barrier follows.
+    Raises on what the kernel does not take."""
+    if len(shape) not in (2, 3) or 0 in shape:
+        raise ValueError(f"llrs must be [B, NV*Z] or [S, B, NV*Z], got "
+                         f"{tuple(shape)}")
+    g = get_graph(base_graph, z)
+    nrows = nof_layers if nof_layers > 0 else g.nof_rows
+    if shape[-1] != g.nof_cols * z:
+        raise ValueError(f"llrs {tuple(shape)} vs NV*Z={g.nof_cols * z}")
+    if max(len(r) for r in g.rows[:nrows]) > _MAX_DEGREE:
+        raise ValueError("check-row degree above the kernel's registers")
+    if max_iter < 1:
+        raise ValueError(f"max_iter must be at least 1, got {max_iter}")
+    ptr, edge = _edge_words(base_graph, z, nrows)
+    slots = shape[0] if len(shape) == 3 else 1
+    batch = slots * shape[-2]
+    p = _build.LdpcDecodeParams(
+        nb=batch, cbs_per_slot=shape[-2], nslots=slots, nrows=nrows,
+        ncols=g.nof_cols, live=_live_columns(base_graph, z, nrows), z=z,
+        threads=-(-z // 32) * 32, single=2 * batch <= sms,
+        stride=4 + max_iter, k_prime=k_prime,
+        sweeps=max_iter, scaling=scaling,
+        sync=_sync_mask(base_graph, z, nrows))
+    p.row_ptr[:len(ptr)] = ptr.tolist()
+    for e, (off, wrap) in enumerate(edge.tolist()):
+        p.edge[e][:] = (off, wrap)
+    return p
+
+
+@functools.lru_cache(maxsize=64)
+def _decode_plan(base_graph: int, z: int, nof_layers: int, shape: tuple,
+                 max_iter: int, scaling: float, crc_poly, k_prime: int,
+                 index: int) -> tuple:
+    """K1's plan on CUDA device ``index``: (its launch, with the CRC's
+    remainder words as its table; the state's ints a slot; the scratch's
+    int32 count: the state [S, 4 + max_iter], then the compressed c2v [3,
+    B, nrows, Z])."""
+    params = _decode_params(
+        base_graph, z, nof_layers, shape, max_iter, scaling,
+        k_prime if crc_poly else 0,
+        torch.cuda.get_device_properties(index).multi_processor_count)
+    dev = torch.device("cuda", index)
+    crc_rows = (torch.tensor(_crc_words_i32(crc_poly, k_prime), device=dev)
+                if crc_poly else torch.zeros(1, dtype=torch.int32, device=dev))
+    launch = _build.Launch("srsran_ldpc_decode", index, params, (crc_rows,))
+    return (launch, params.stride,
+            params.stride * params.nslots + 3 * params.nb * params.nrows * z)
+
+
 def _decode_cuda(llrs, base_graph, z, nof_layers, max_iter, scaling,
                  crc_poly, k_prime):
-    slots = llrs.shape[0] if llrs.ndim == 3 else 1
-    shape = llrs.shape
-    llrs = llrs.reshape(-1, shape[-1])
-    g, nrows, batch = _prepare(llrs, base_graph, z, nof_layers)
-    if llrs.dtype != torch.float32:
+    """K1 on CUDA: one allocation of scratch (state and c2v) beside the
+    outputs, one ctypes call that launches the decode; the caller's LLRs
+    stay as they are (the first sweep reads them and writes the output)."""
+    launch, stride, scratch_n = _decode_plan(
+        base_graph, z, nof_layers, tuple(llrs.shape), max_iter,
+        float(scaling), crc_poly, k_prime, llrs.get_device())
+    if llrs.dtype is not torch.float32:
         raise ValueError(f"llrs must be float32, got {llrs.dtype}")
-    if max(len(r) for r in g.rows[:nrows]) > _MAX_DEGREE:
-        raise ValueError("check-row degree above the kernel's sign word")
-    dev = llrs.device
-    lib = _build.load()
-    llr = llrs.reshape(batch, -1).contiguous().clone()
-    bits = torch.empty(llr.shape, dtype=torch.int8, device=dev)
-    m1 = torch.zeros((batch, nrows, z), dtype=torch.float32, device=dev)
-    m2 = torch.zeros_like(m1)
-    meta = torch.zeros((batch, nrows, z), dtype=torch.int32, device=dev)
-    state = torch.zeros((slots, 2), dtype=torch.int32, device=dev)  # done, iters
-    cb_ok = torch.zeros(batch, dtype=torch.int32, device=dev)
-    edges = const(_edge_tables, base_graph, z, nrows, device=dev)
-    n_edges = (edges.shape[0] - nrows - 1) // 2
-    row_ptr = edges[:nrows + 1]
-    edge_col = edges[nrows + 1:nrows + 1 + n_edges]
-    edge_shift = edges[nrows + 1 + n_edges:]
-    crc_rows = (const(_crc_words_i32, crc_poly, k_prime, device=dev)
-                if crc_poly else None)
-    stream = _build.stream_of(llr)
-    for _ in range(max_iter):
-        _build.check(lib.srsran_ldpc_sweep(
-            _build.ptr(llr), _build.ptr(bits), _build.ptr(m1), _build.ptr(m2),
-            _build.ptr(meta), _build.ptr(row_ptr), _build.ptr(edge_col),
-            _build.ptr(edge_shift), nrows, g.nof_cols, z, float(scaling),
-            _build.ptr(crc_rows) if crc_rows is not None else None,
-            k_prime, _build.ptr(cb_ok), _build.ptr(state), batch,
-            batch // slots, stream), "ldpc_sweep")
-        if crc_rows is not None:
-            _build.check(lib.srsran_ldpc_check(
-                _build.ptr(cb_ok), slots, batch // slots, _build.ptr(state),
-                stream), "ldpc_check")
-    if len(shape) == 3:
+    x = llrs if llrs.is_contiguous() else llrs.contiguous()
+    soft = torch.empty_like(x)
+    bits = torch.empty_like(x, dtype=torch.int8)
+    scratch = x.new_empty(scratch_n, dtype=torch.int32)
+    launch(x.data_ptr(), soft.data_ptr(), bits.data_ptr(), scratch.data_ptr())
+    if llrs.ndim == 3:
         KERNEL_BATCH.count()
-        return bits.reshape(shape), llr.reshape(shape), state[:, 1]
+        return bits, soft, scratch[1:stride * llrs.shape[0]:stride]
     KERNEL.count()
-    return bits, llr, state[0, 1]
+    return bits, soft, scratch[1]
 
 
 def decode_early_stop(llrs: torch.Tensor, base_graph: int, z: int,
@@ -205,9 +283,9 @@ def decode_early_stop(llrs: torch.Tensor, base_graph: int, z: int,
 
     llrs f32 [B, NV*Z].  Returns (bits int8 [B, NV*Z], soft f32 [B, NV*Z],
     nof_iterations int32 scalar).  With a slot axis, llrs f32 [S, B, NV*Z]
-    stop per slot (one launch per sweep for all S slots) and the count is
-    int32 [S].  On CUDA no host sync happens: the count stays a device
-    tensor.
+    stop per slot (all S slots in the same launches) and the count is int32
+    [S].  On CUDA no host sync happens: the count stays a device tensor (a
+    view of the launch's scratch).
     """
     if not is_cuda(llrs):
         return decode_early_stop_ref(llrs, base_graph, z, nof_layers,

@@ -10,11 +10,15 @@ including the 2Z punctured systematic bits.
 :func:`dlsch_encode` is the K5 wrapper: a transport block in, its encoded
 codeblocks out (TB CRC, segmentation with CB CRC24B, LDPC encode; the
 first half of srsran_tpu/phy/upper/pdsch.py::encode_transport_block).  On
-CUDA tensors it runs csrc/ldpc_encode.cu (a TB-CRC pass, then one CTA per
-codeblock that adds its CB CRC and encodes in shared memory); on CPU
-tensors it runs :func:`dlsch_encode_ref`, the plain twin built from
-:func:`encode` and ops/crc.py.  On the card both passes are small memory
-passes (about 5 MB at the flagship); the design is in the .cu file.
+CUDA tensors it runs csrc/ldpc_encode.cu (one launch: a CTA per codeblock
+packs its bits 32 to a word, takes both CRCs as one carry-less product
+per word, and encodes by rotating packed columns) through
+``kernels/_build.py::Launch``, one plan per (TBS, base graph, slots,
+device) (:func:`_encode_plan`; its struct from :func:`_encode_params`,
+its CRC tables from :func:`_crc_word_tables`); on CPU tensors it runs
+:func:`dlsch_encode_ref`, the plain twin built from :func:`encode` and
+ops/crc.py.  On the card it is a small memory pass (the TB once and 2.5
+MB out at the flagship); the design is in the .cu file.
 """
 
 from __future__ import annotations
@@ -29,14 +33,14 @@ from ..ran.ldpc_params import segment_tb
 from .. import kernels
 from ..device import const, is_cuda
 from ..kernels import _build
-from .crc import _remainder_words, crc
-from .ldpc_decode import _edge_tables
+from .crc import POLYS, _remainder_words, crc
 
 KERNEL = kernels.register(kernels.Kernel(
     name="dlsch_encode", route="cuda",
     source="srsran_tpu_torch/csrc/ldpc_encode.cu",
     replaces="srsran_tpu/ops/ldpc_encode.py:56"))
 KERNEL_BATCH = kernels.batched(KERNEL)
+ENCODE_THREADS = 512       # csrc/ldpc_encode.cu kThreads
 
 
 @functools.lru_cache(maxsize=None)
@@ -162,8 +166,95 @@ def dlsch_encode_ref(tb: torch.Tensor, base_graph: int) -> torch.Tensor:
     return encode(cbs_full, base_graph, z)[:, 2 * z:]
 
 
-def _words_i32(poly: str, nbits: int) -> np.ndarray:
-    return _remainder_words(poly, nbits).view(np.int32)
+def _xpow(poly: str, e: int) -> int:
+    """x^e mod G, as an L-bit word."""
+    length, g = POLYS[poly]
+    r = 1
+    for _ in range(e):
+        r = (r << 1) ^ (g if r >> (length - 1) & 1 else 0)
+        r &= (1 << length) - 1
+    return r
+
+
+def _word_shares(poly: str, n: int, starts: np.ndarray) -> np.ndarray:
+    """K5's CRC table words for 32-bit words of an n-bit message, the word
+    at position s holding message bits s..s+31 (bit b is bit s + b): the
+    bits of its reversed value p weigh x^(n - 32 - s + L), so its share of
+    the remainder is p(x) x^e mod G, taken a byte at a time: uint32 [len,
+    4], word k = x^(e + 8k) mod G (byte k of p weighs x^(8k)).  A word that
+    runs past the message has e < L and, below 0, p shifted right by -e
+    instead (its low bits are past the message, zero), kept in bits 24..31
+    of word 0.  A word at or past n gets zeros."""
+    length = POLYS[poly][0]
+    s = np.asarray(starts, dtype=np.int64)
+    out = np.zeros(s.shape + (4,), dtype=np.int64)
+    whole = s + 31 < n
+    rem = _remainder_words(poly, n)       # rem[i] = x^(n - 1 - i + L)
+    for k in range(4):
+        out[whole, k] = rem[s[whole] + 31 - 8 * k]
+    for i in np.flatnonzero(~whole & (s < n)):
+        e = n - 32 - int(s[i]) + length
+        out[i] = [_xpow(poly, max(e, 0) + 8 * k) for k in range(4)]
+        out[i, 0] |= max(0, -e) << 24
+    return out.astype(np.uint32)
+
+
+@functools.lru_cache(maxsize=16)
+def _crc_word_tables(tbs: int, base_graph: int) -> tuple:
+    """K5's CRC tables for one TB size (csrc/ldpc_encode.cu): the CB
+    CRC24B's [kb * nw, 4] over a codeblock's packed columns (word w of
+    column c starts at c * Z + 32 w), and the TB CRC's [C * kb * nw, 4]
+    over every codeblock's, 0 where a word holds no TB bits."""
+    seg = segment_tb(tbs, base_graph)
+    z = seg.lifting_size
+    kb = get_graph(base_graph, z).nof_info_cols
+    nw = -(-z // 32)
+    ppc = seg.cb_info_bits - seg.cb_crc_bits
+    local = (np.arange(kb)[:, None] * z + 32 * np.arange(nw)[None, :]
+             ).reshape(-1)
+    cb_tab = _word_shares("crc24B", ppc, local)
+    glob = (np.arange(seg.nof_codeblocks)[:, None] * ppc + local[None, :])
+    tb_tab = _word_shares(_tb_crc_poly(seg), tbs, glob.reshape(-1))
+    tb_tab[np.broadcast_to(local >= ppc, glob.shape).reshape(-1)] = 0
+    return cb_tab, tb_tab
+
+
+def _encode_params(tbs: int, base_graph: int,
+                   slots: int) -> _build.DlschEncodeParams:
+    """K5's launch for ``slots`` TBs of ``tbs`` bits: the sizes, the CRC
+    polynomials, the core schedule and the edge tables by value (per edge
+    its column times the column's words, nw + 1, in the low half and its
+    shift in the high half)."""
+    seg = segment_tb(tbs, base_graph)
+    z = seg.lifting_size
+    g = get_graph(base_graph, z)
+    nw = -(-z // 32)
+    rows = g.rows
+    ptr = np.concatenate([[0], np.cumsum([len(r) for r in rows])])
+    edge = [c * (nw + 1) | s << 16 for r in rows for c, s in r]
+    tb_len, tb_poly = POLYS[_tb_crc_poly(seg)]
+    p = _build.DlschEncodeParams(
+        tbs=tbs, tb_crc_len=seg.tb_crc_bits, cb_crc_len=seg.cb_crc_bits,
+        ppc=seg.cb_info_bits - seg.cb_crc_bits, kb=g.nof_info_cols, z=z,
+        nw=nw, ncols=g.nof_cols, nrows=g.nof_rows,
+        ncb=seg.nof_codeblocks, nslots=slots, threads=ENCODE_THREADS,
+        tb_poly=tb_poly | 1 << tb_len, cb_poly=POLYS["crc24B"][1] | 1 << 24)
+    p.core[:] = _core_schedule(base_graph, z).tolist()
+    p.row_ptr[:len(ptr)] = ptr.tolist()
+    p.edge[:len(edge)] = edge
+    return p
+
+
+@functools.lru_cache(maxsize=64)
+def _encode_plan(tbs: int, base_graph: int, slots: int, index: int) -> tuple:
+    """K5's plan on CUDA device ``index``: (its launch, with the CRC tables;
+    C; N)."""
+    params = _encode_params(tbs, base_graph, slots)
+    dev = torch.device("cuda", index)
+    tables = tuple(torch.from_numpy(t.view(np.int32)).to(dev)
+                   for t in _crc_word_tables(tbs, base_graph))
+    launch = _build.Launch("srsran_dlsch_encode", index, params, tables)
+    return launch, params.ncb, (params.ncols - 2) * params.z
 
 
 def dlsch_encode(tb: torch.Tensor, base_graph: int) -> torch.Tensor:
@@ -171,40 +262,20 @@ def dlsch_encode(tb: torch.Tensor, base_graph: int) -> torch.Tensor:
     codeblocks int8 [C, N] (TB CRC and CB CRC24B attached, fillers 0, the
     2Z punctured systematic bits dropped), bit for bit
     ``encode(...)[:, 2Z:]`` of the segmented block.  With a slot axis, B
-    TBs int8 [B, TBS] -> [B, C, N] in one launch of each pass, each TB
-    with its own TB CRC."""
+    TBs int8 [B, TBS] -> [B, C, N] in one launch, each TB with its own TB
+    CRC."""
     if not is_cuda(tb):
         return dlsch_encode_ref(tb, base_graph)
-    if tb.ndim not in (1, 2):
+    if tb.ndim not in (1, 2) or 0 in tb.shape:
         raise ValueError(f"tb must be [TBS] or [B, TBS], got "
                          f"{tuple(tb.shape)}")
-    lead = tuple(tb.shape[:-1])
-    slots = lead[0] if lead else 1
-    tbs = tb.shape[-1]
-    seg = segment_tb(tbs, base_graph)
-    c, z = seg.nof_codeblocks, seg.lifting_size
-    g = get_graph(base_graph, z)
-    dev = tb.device
-    lib = _build.load()
-    tb8 = tb.to(torch.int8).contiguous()
-    tb_poly = _tb_crc_poly(seg)
-    tb_words = const(_words_i32, tb_poly, tbs, device=dev)
-    ppc = seg.cb_info_bits - seg.cb_crc_bits
-    cb_words = const(_words_i32, "crc24B", ppc, device=dev)
-    edges = const(_edge_tables, base_graph, z, g.nof_rows, device=dev)
-    n_edges = (edges.shape[0] - g.nof_rows - 1) // 2
-    row_ptr = edges[:g.nof_rows + 1]
-    edge_col = edges[g.nof_rows + 1:g.nof_rows + 1 + n_edges]
-    edge_shift = edges[g.nof_rows + 1 + n_edges:]
-    core = const(_core_schedule, base_graph, z, device=dev)
-    scratch = torch.empty(slots, dtype=torch.int32, device=dev)
-    out = torch.empty(lead + (c, seg.codeword_bits), dtype=torch.int8,
-                      device=dev)
-    _build.check(lib.srsran_dlsch_encode(
-        _build.ptr(tb8), tbs, _build.ptr(tb_words), seg.tb_crc_bits,
-        _build.ptr(scratch), _build.ptr(cb_words), seg.cb_crc_bits, ppc,
-        g.nof_info_cols, z, g.nof_cols, g.nof_rows, _build.ptr(row_ptr),
-        _build.ptr(edge_col), _build.ptr(edge_shift), _build.ptr(core), c,
-        _build.ptr(out), slots, _build.stream_of(tb8)), "dlsch_encode")
-    (KERNEL_BATCH if lead else KERNEL).count()
+    slots = tb.shape[0] if tb.ndim == 2 else 1
+    launch, c, n = _encode_plan(tb.shape[-1], base_graph, slots,
+                                tb.get_device())
+    if tb.dtype is not torch.int8 or not tb.is_contiguous():
+        tb = tb.to(torch.int8).contiguous()
+    out = tb.new_empty(tb.shape[:-1] + (c, n))
+    scratch = tb.new_empty(2 * slots, dtype=torch.int32)
+    launch(tb.data_ptr(), out.data_ptr(), scratch.data_ptr())
+    (KERNEL_BATCH if tb.ndim == 2 else KERNEL).count()
     return out

@@ -106,9 +106,10 @@ from .ran.slot_point import SlotPoint
 from .utils import config as app_config
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-HAND_KERNELS = ("ldpc_sweep_kernel", "ldpc_check_kernel", "rate_dematch_kernel",
-                "pusch_demap_kernel", "ofdm_window_kernel", "ofdm_bins_kernel",
-                "dlsch_crc_kernel", "dlsch_encode_kernel", "pdsch_map_kernel",
+HAND_KERNELS = ("ldpc_sweep_kernel", "ldpc_decode_kernel",
+                "rate_dematch_kernel", "pusch_demap_kernel",
+                "ofdm_window_kernel", "ofdm_bins_kernel",
+                "dlsch_encode_kernel", "pdsch_map_kernel",
                 "ofdm_grid_to_bins_kernel", "ofdm_cp_insert_kernel",
                 "chest_ls_kernel", "chest_avg_kernel", "chest_interp_kernel",
                 "chest_stats_kernel", "chest_ta_kernel", "prach_corr_kernel",

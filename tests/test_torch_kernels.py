@@ -9,6 +9,9 @@ configurations, K8 on CDM group 1, the conductor's empty results on
 the card, and the gNB simulator's K20 TDL channel, K21 PRACH occasion
 demodulator and K22 per-PRG PDSCH map, and the fronthaul's K23 BFP compress
 and pack and K24 unpack and decompress, with RuOfh on the card).
+K1 at 4, 10 and every layer of BG1 and BG2, with a slot axis whose slots
+stop apart, without a CRC, and K1 and K5 captured in a CUDA graph; K5 at
+every lifting-size class, alone and with a slot axis.
 On a machine without a GPU every case skips (the twins are covered by the
 parity tests against the JAX package).  ``python3 chip_smoke.py`` runs the same checks at
 the flagship shapes.
@@ -119,6 +122,171 @@ def test_ldpc_decode_kernel(cuda, snr_db):
     bits_ref, _, it_ref = ldpc_decode.decode_early_stop_ref(*args)
     assert torch.equal(bits, bits_ref)
     assert int(it) == int(it_ref)
+
+
+def _k1_llrs(rng, bg, z, lead, snr_db):
+    """BPSK LLRs of the twin's codewords of random CRC24B'd blocks, the 2Z
+    punctured bits 0 and the fillers (8 a block) strongly positive;
+    ``snr_db`` per leading slot (or one for all).  Returns (llrs on the
+    CPU, k')."""
+    kb = 22 if bg == 1 else 10
+    kp = kb * z - 8
+    info = rng.integers(0, 2, (int(np.prod(lead)), kb * z)).astype(np.int8)
+    info[:, kp:] = 0
+    cbs = torch.as_tensor(info)
+    cbs[:, kp - 24:kp] = crc.crc(cbs[:, :kp - 24], "crc24B")
+    cw = ldpc_encode.encode(cbs, bg, z).numpy().reshape(lead + (-1,))
+    sigma = 10 ** (-np.asarray(snr_db, dtype=np.float64) / 20)
+    sigma = sigma.reshape(sigma.shape + (1,) * (len(lead) + 1 - sigma.ndim))
+    llr = 2 * ((1.0 - 2.0 * cw) + sigma * rng.standard_normal(cw.shape)
+               ) / sigma ** 2
+    llr[..., :2 * z] = 0.0
+    llr[..., kp:kb * z] = 1e4
+    return torch.as_tensor(llr.astype(np.float32)), kp
+
+
+def _k1_equal(got, want):
+    """K1 bit for bit: hard bits, soft values and sweeps."""
+    assert torch.equal(got[0].cpu(), want[0].cpu())
+    assert torch.equal(got[1].cpu().view(torch.int32),
+                       want[1].cpu().view(torch.int32))
+    assert torch.equal(got[2].cpu(), want[2].cpu())
+
+
+@pytest.mark.parametrize("bg,z", [(1, 384), (1, 208), (1, 36), (2, 384),
+                                  (2, 208), (2, 15)])
+@pytest.mark.parametrize("layers", [4, 10, 46])
+def test_ldpc_decode_layers(cuda, bg, z, layers):
+    """K1 at 4, 10 and every layer (46 at BG1, 42 at BG2) on noisy
+    codewords that take several sweeps, against its twin."""
+    rng = np.random.default_rng(bg * 1000 + z + layers)
+    llr, kp = _k1_llrs(rng, bg, z, (5,), 1.5)
+    nrows = min(layers, 46 if bg == 1 else 42)
+    args = (bg, z, nrows, 6, 0.8, "crc24B", kp)
+    got = ldpc_decode.decode_early_stop(llr.to(cuda), *args)
+    torch.cuda.synchronize()
+    _k1_equal(got, ldpc_decode.decode_early_stop_ref(llr, *args))
+    assert got[0].device == llr.to(cuda).device
+
+
+def test_ldpc_decode_input_unchanged(cuda):
+    """The caller's LLRs stay as they were; a strided input decodes as
+    its contiguous copy."""
+    rng = np.random.default_rng(5)
+    llr, kp = _k1_llrs(rng, 1, 384, (4,), 2.0)
+    x = llr.to(cuda)
+    keep = x.clone()
+    args = (1, 384, 46, 6, 0.8, "crc24B", kp)
+    got = ldpc_decode.decode_early_stop(x, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(x, keep)
+    _k1_equal(got, ldpc_decode.decode_early_stop_ref(llr, *args))
+    wide = torch.stack([x, x], dim=1)[:, 0]         # rows apart: strided
+    assert not wide.is_contiguous()
+    _k1_equal(ldpc_decode.decode_early_stop(wide, *args), got)
+
+
+@pytest.mark.parametrize("bg,z", [(1, 384), (2, 208)])
+def test_ldpc_decode_slots_stop_apart(cuda, bg, z):
+    """A slot axis: the clean slot stops after one sweep while the noisy
+    ones sweep on; every slot equals its own run and the twin's."""
+    rng = np.random.default_rng(z)
+    llr, kp = _k1_llrs(rng, bg, z, (3, 4), [9.0, 1.2, 1.8])
+    args = (bg, z, 46 if bg == 1 else 42, 6, 0.8, "crc24B", kp)
+    got = ldpc_decode.decode_early_stop(llr.to(cuda), *args)
+    _k1_equal(got, ldpc_decode.decode_early_stop_ref(llr, *args))
+    assert got[2].shape == (3,) and int(got[2][0]) == 1
+    assert int(got[2].max()) > 1
+    for s in range(3):
+        one = ldpc_decode.decode_early_stop(llr[s].to(cuda), *args)
+        _k1_equal(tuple(o[s] for o in got), one)
+
+
+def test_ldpc_decode_launch_paths(cuda):
+    """K1's two launch forms on the same codeblocks: batches of more
+    codeblocks than half the SMs (a launch per sweep) and of at most half
+    (every sweep in one launch): each equal to the twin and to the others,
+    slot by slot."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    per_slot = sms // 2 + 1              # 2 or 3 slots: a launch a sweep
+    rng = np.random.default_rng(77)
+    llr, kp = _k1_llrs(rng, 2, 36, (3, per_slot), [2.0, 1.4, 8.0])
+    args = (2, 36, 42, 6, 0.8, "crc24B", kp)
+    x = llr.to(cuda)
+    three = ldpc_decode.decode_early_stop(x, *args)
+    _k1_equal(three, ldpc_decode.decode_early_stop_ref(llr, *args))
+    two = ldpc_decode.decode_early_stop(x[:2], *args)
+    _k1_equal(two, tuple(o[:2] for o in three))
+    small = ldpc_decode.decode_early_stop(x[:, :per_slot // 2], *args)
+    _k1_equal(small, ldpc_decode.decode_early_stop_ref(
+        llr[:, :per_slot // 2], *args))
+    for s in range(3):
+        one = ldpc_decode.decode_early_stop(x[s, :per_slot // 2], *args)
+        _k1_equal(one, tuple(o[s] for o in small))
+
+
+@pytest.mark.parametrize("bg,z,layers", [(1, 384, 10), (2, 36, 0)])
+def test_ldpc_decode_fixed_sweeps(cuda, bg, z, layers):
+    """``decode`` (no CRC): every sweep runs, against its twin."""
+    rng = np.random.default_rng(layers + z)
+    llr, _ = _k1_llrs(rng, bg, z, (3,), 1.0)
+    got = ldpc_decode.decode(llr.to(cuda), bg, z, layers, 4)
+    want = ldpc_decode.decode_ref(llr, bg, z, layers, 4)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu().view(torch.int32),
+                       want[1].view(torch.int32))
+
+
+def test_ldpc_decode_and_encode_in_a_cuda_graph(cuda):
+    """A K1 and a K5 launch captured in a CUDA graph replay on new inputs
+    equal to eager launches and to the twins."""
+    rng = np.random.default_rng(21)
+    llr, kp = _k1_llrs(rng, 1, 208, (2, 3), 1.8)
+    x = llr.to(cuda)
+    args = (1, 208, 46, 6, 0.8, "crc24B", kp)
+    tb = torch.as_tensor(rng.integers(0, 2, (2, 8456)).astype(np.int8)
+                         ).to(cuda)
+    ldpc_decode.decode_early_stop(x, *args)
+    ldpc_encode.dlsch_encode(tb, 1)                 # plans built, warm
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        dec = ldpc_decode.decode_early_stop(x, *args)
+        enc = ldpc_encode.dlsch_encode(tb, 1)
+    for snr in (1.5, 3.0, 9.0):
+        new, _ = _k1_llrs(rng, 1, 208, (2, 3), snr)
+        x.copy_(new.to(cuda))
+        tb.copy_(torch.as_tensor(rng.integers(0, 2, (2, 8456)).astype(
+            np.int8)))
+        graph.replay()
+        torch.cuda.synchronize()
+        _k1_equal(dec, ldpc_decode.decode_early_stop(x, *args))
+        _k1_equal(dec, ldpc_decode.decode_early_stop_ref(new, *args))
+        assert torch.equal(enc, ldpc_encode.dlsch_encode(tb, 1))
+        assert torch.equal(enc.cpu(), ldpc_encode.dlsch_encode_ref(
+            tb.cpu(), 1))
+
+
+# (TBS, base graph) of every lifting-size class: Z = 2, 15, 36, 208 (one
+# codeblock), 208 over two BG2 codeblocks, 320 over four, 384 over two
+# and over the flagship's 100
+ENCODE_Z_CASES = [(24, 1), (72, 2), (696, 1), (1912, 2), (3832, 2),
+                  (26632, 1), (15424, 1), (835584, 1)]
+
+
+@pytest.mark.parametrize("tbs,bg", ENCODE_Z_CASES)
+@pytest.mark.parametrize("slots", [0, 3])
+def test_dlsch_encode_lifting_sizes(cuda, tbs, bg, slots):
+    """K5 at every lifting-size class, alone and with a slot axis (each
+    slot its own TB and TB CRC, equal to its own launch)."""
+    rng = np.random.default_rng(tbs + slots)
+    shape = (slots, tbs) if slots else (tbs,)
+    tb = torch.as_tensor(rng.integers(0, 2, shape).astype(np.int8)).to(cuda)
+    got = ldpc_encode.dlsch_encode(tb, bg)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), ldpc_encode.dlsch_encode_ref(tb.cpu(), bg))
+    for s in range(slots):
+        assert torch.equal(got[s], ldpc_encode.dlsch_encode(tb[s], bg))
 
 
 # DL kernels: a 4-layer 256QAM PDSCH on 24 RB (DM-RS on 2 and 11), a
