@@ -2142,6 +2142,120 @@ def alloc_kernel_cases(rng: np.random.Generator, device) -> dict:
     return cases
 
 
+# ------------------------------------------- K8's and K15's profile cases
+
+#: The delay (samples of a 2 x nsc point symbol) and noise of the K8
+#: profile cases' channel: a clear TA peak, as a real slot has.
+PROFILE_DELAY = 6.0
+PROFILE_NOISE = 0.05
+
+
+def _chest_signal(args: tuple, kw: dict, gen: torch.Generator) -> tuple:
+    """K8's arguments ``args`` with their grid replaced by noise plus the
+    pilots through a random flat channel per (port, layer) and a delay of
+    PROFILE_DELAY samples (a slot axis: each slot its own channel)."""
+    grid, symbols, first_sc, expected, scs = args[:5]
+    dev = grid.device
+    lead = tuple(grid.shape[:-3])
+    n_p, n_l = grid.shape[-3], expected.shape[-3]
+    noise = torch.randn(grid.shape, dtype=torch.complex64, device=dev,
+                        generator=gen)
+    h = torch.randn(lead + (n_p, n_l, 1), dtype=torch.complex64, device=dev,
+                    generator=gen)
+    nfft = 1 << int(np.ceil(np.log2(2 * args[5])))
+    ramp = torch.as_tensor(np.exp(-2j * np.pi * np.asarray(scs)
+                                  * PROFILE_DELAY / nfft).astype(np.complex64),
+                           device=dev)
+    out = PROFILE_NOISE * noise
+    cols = torch.as_tensor(first_sc + np.asarray(scs), device=dev)
+    for i, s in enumerate(symbols):
+        rx = (h * expected[..., i, :].unsqueeze(-3) * ramp).sum(dim=-2)
+        out[..., s, cols] += rx
+    return (out,) + tuple(args[1:])
+
+
+def _through_caller(build, fn):
+    """``fn`` (K8 or its twin) on the arguments ``build`` makes from the
+    grid anew on every call, as the receive chains call it."""
+    def call(grid: torch.Tensor):
+        args, kw = build(grid)
+        return fn(*args, **kw)
+    return call
+
+
+def chest_polar_profile_cases(gen: torch.Generator, device) -> dict:
+    """K8's and K15's cases for ``launch_profile``: name -> (wrapper, twin,
+    args), on seeded random channels and messages of the main path's
+    shapes.  K8: the flagship PUSCH (2 layers, fd-OCC, CFO), the flagship
+    SRS, the F2's comb 3, the cell edge's F3 (stride 1), slot E's type 0
+    comb averaged and interpolated, the PUSCH over a batch of 4 slots, and
+    the flagship PUSCH and SRS through their callers (``_caller``: the
+    arguments, numpy pilot lists and times among them, made anew each
+    call by ``pusch.estimate_args`` / ``srs.estimate_args``);
+    K15: the F2's codeword (N = 64), the PBCH (N = 512), an AL16 DCI with
+    its RNTI's syndrome at B = 4, N = 1024 (K = 111, E = 1000), and the
+    F2's codeword over a batch of 4 slots."""
+    rng = np.random.default_rng(7)
+    cases = {}
+    grid = torch.zeros((CELL.nof_ports, 14, CELL.nof_sc),
+                       dtype=torch.complex64, device=device)
+    ctx = ul_slot_context(0, device)
+    f2 = F2_POLAR
+    edge = edge_context(0, device)
+    ests = {
+        "": pusch.estimate_args(grid, PUSCH, ctx["pusch"][0], (0, 1), 0),
+        "_srs": srs.estimate_args(grid, SRS),
+        "_f2": pucch.f2_estimate_args(
+            grid, f2, _up(pucch.f2_pilot_values_for(f2), device)),
+        "_f3": pucch.f3_estimate_args(grid, EDGE.f3, edge["f3"][0]),
+    }
+    vals = torch.stack([ul_slot_context(i, device)["pusch"][0]
+                        for i in range(BATCH)])
+    ests["_batch4"] = pusch.estimate_args(
+        grid.expand((BATCH,) + grid.shape), PUSCH, vals, (0, 1), 0)
+    for name, (args, kw) in ests.items():
+        cases["channel_estimate" + name] = (
+            functools.partial(chest.estimate_from_grid, **kw),
+            functools.partial(chest.estimate_from_grid_ref, **kw),
+            _chest_signal(args, kw, gen))
+    for name, build in (
+            ("", lambda g: pusch.estimate_args(g, PUSCH, ctx["pusch"][0],
+                                               (0, 1), 0)),
+            ("_srs", lambda g: srs.estimate_args(g, SRS))):
+        cases["channel_estimate" + name + "_caller"] = (
+            _through_caller(build, chest.estimate_from_grid),
+            _through_caller(build, chest.estimate_from_grid_ref),
+            cases["channel_estimate" + name][2][:1])
+    for td in ("average", "interpolate"):
+        args, kw = type0_chest_case(rng, device, td)
+        cases["channel_estimate_type0" + ("" if td == "average"
+                                          else "_interp")] = (
+            functools.partial(chest.estimate_from_grid, **kw),
+            functools.partial(chest.estimate_from_grid_ref, **kw), args)
+    f2_code, f2_crc = pucch._f2_polar_cfg(f2.nof_uci_bits, 64)
+    dci_code = pdcch._dci_code(DU_ALLOC_DCI_BITS + 24,
+                               16 * pdcch.BITS_PER_CCE)
+    for name, code, crc_name, syndrome, lead in (
+            ("", f2_code, f"crc{f2_crc}", 0, (1,)),
+            ("_pbch", ssb._pbch_code(), "crc24C", 0, (1,)),
+            ("_al16", dci_code, "crc24C",
+             pdcch.dci_syndrome(DU_ALLOC_DCI_BITS, PDCCH.rnti), (4,)),
+            ("_n1024", polar_params.polar_code(111, 1000, nmax=10,
+                                               ibil=True), "crc11", 0, (1,)),
+            ("_batch4", f2_code, f"crc{f2_crc}", 0, (BATCH, 1))):
+        b = int(np.prod(lead))
+        msg = _up(rng.integers(0, 2, (b, code.k)).astype(np.int8), device)
+        x = polar.rate_match(polar.encode(polar.allocate(msg, code), code.n),
+                             code).to(torch.float32)
+        llr = (1.0 - 2.0 * x) + 0.8 * torch.randn(
+            x.shape, device=device, generator=gen)
+        cases["polar_decode" + name] = (
+            polar.decode, polar.decode_ref,
+            (llr.reshape(lead + (code.e,)).contiguous(), code, crc_name,
+             syndrome))
+    return cases
+
+
 # ------------------------------------------------------------- split 8
 
 # apps/ssb_tx.py's cell at the flagship width: 1 port, 273 RB, 4096 FFT.

@@ -8,8 +8,8 @@ root, named by a hash of the sources and flags; the library is loaded with
 build on every run, so the sources compile side by side.  Pointers and the stream go over as
 ``ctypes.c_void_p``; every C entry point returns ``cudaGetLastError()``
 after its launches, and :func:`check` raises on anything but 0.
-:class:`Launch` is the lean form of that path (K1, K5, K32, K21, K18,
-K19, K27, K33, K34 and K35 take it): a wrapper keeps one per call
+:class:`Launch` is the lean form of that path (K1, K5, K8, K15, K32,
+K21, K18, K19, K27, K33, K34 and K35 take it): a wrapper keeps one per call
 signature with the bound C function, a parameter struct passed by address
 and its device tables, and a call passes only the tensors' pointers and
 the current stream.
@@ -92,6 +92,18 @@ class PolarEncodeParams(ctypes.Structure):
 
     _fields_ = [("B", _I), ("K", _I), ("n", _I), ("E", _I), ("npc", _I),
                 ("warps", _I), ("split", _I)]
+
+
+POLAR_MAX_STEPS = 2048     # csrc/polar_sc.cu kPolarMaxSteps
+
+
+class PolarDecodeParams(ctypes.Structure):
+    """csrc/polar_sc.cu's PolarDecodeParams (K15's launch), by address: the
+    sizes, then the node schedule by value."""
+
+    _fields_ = [("B", _I), ("E", _I), ("n", _I), ("K", _I), ("R", _I),
+                ("nops", _I), ("warps", _I), ("expect", ctypes.c_uint),
+                ("words", ctypes.c_uint * POLAR_MAX_STEPS)]
 
 
 class ShortBlockEncodeParams(ctypes.Structure):
@@ -195,6 +207,22 @@ class F3DemapParams(ctypes.Structure):
                 ("occ_conj", _F * (2 * F3_MAX_OCC)),
                 ("levels", _F * DEMAP_MAX_LEVELS)]
 
+CHEST_MAX_SYMBOLS = 14     # csrc/channel_estimate.cu kChestMaxSymbols
+CHEST_MAX_CTAS = 8         # csrc/channel_estimate.cu kChestMaxCtas
+
+
+class ChestParams(ctypes.Structure):
+    """csrc/channel_estimate.cu's ChestParams (K8's launch), by address."""
+
+    _fields_ = [(name, _I) for name in (
+        "P", "L", "S", "K", "Ksm", "cdm", "nsc", "W", "nsym_grid",
+        "nsc_grid", "nsym_out", "interp", "use_cfo", "nslots",
+        "shared_pilots", "G", "chunk", "M", "maxd", "nfft", "lg_s",
+        "smem")] + [
+        ("beta", _F), ("beta2", _F), ("two_pi_dt", _F), ("span", _F),
+        ("syms", _I * CHEST_MAX_SYMBOLS), ("times", _F * CHEST_MAX_SYMBOLS),
+        ("td_i0", _I * CHEST_MAX_SYMBOLS), ("td_w", _F * CHEST_MAX_SYMBOLS)]
+
 # C entry points and their argument types (see the matching .cu file).
 SIGNATURES = {
     "srsran_ldpc_decode": [_P] * 7,
@@ -213,11 +241,8 @@ SIGNATURES = {
                          _I, _I, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P],
     "srsran_ofdm_grid_to_bins": [_P, _P, _I, _I, _I, _I, _P],
     "srsran_ofdm_cp_insert": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "srsran_chest_estimate": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
-                              _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                              _I, _I, _P],
-    "srsran_chest_ta": [_P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P, _I, _P],
+    "srsran_chest_prepare": [_I],
+    "srsran_chest_estimate": [_P] * 10,
     "srsran_prach_corr": [_P, _P, _I, _I, _I, _I, _P, _P],
     "srsran_prach_detect": [_P, _I, _I, _I, _F, _P, _P, _I, _I, _I, _I, _F,
                             _F, _P, _I, _P, _P, _P, _P, _I, _P],
@@ -236,8 +261,7 @@ SIGNATURES = {
     "srsran_llr_quantize": [_P] * 4,
     "srsran_llr_dequantize": [_P] * 4,
     "srsran_ldpc_parity": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
-    "srsran_polar_decode": [_P, _I, _I, _I, _P, _P, _I, _P, _I, _I, _I, _I,
-                            _P, _P, _P],
+    "srsran_polar_decode": [_P] * 6,
     "srsran_pusch_tp_demap": [_P] * 11,
     "srsran_pucch_f3_demap": [_P] * 8,
     "srsran_tdl_channel": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,

@@ -1,6 +1,7 @@
-"""The host side of a kernel launch on one CUDA GPU: K1's, K5's, K32's,
-K21's, K18's, K19's, K27's, K33's, K34's and K35's wrappers against one
-PyTorch call each (K1: none computes it; its device µs alone).
+"""The host side of a kernel launch on one CUDA GPU: K1's, K5's, K8's,
+K15's, K32's, K21's, K18's, K19's, K27's, K33's, K34's and K35's wrappers
+against one PyTorch call each (K1, K8, K15: none computes it; their device
+µs alone).
 
     python3 -m srsran_tpu_torch.launch_profile [--calls 1000] [--out DIR]
         [--cases PREFIX ...]
@@ -40,7 +41,18 @@ axis (``_batch4``), a HARQ retransmission (``_harq``) and a BG2 TB
 (``ldpc_encode.dlsch_encode``) on the flagship TB (``dlsch_encode``), a
 batch of 4 (``_batch4``) and a BG2 TB at Z = 208 (``_bg2``), each beside
 one ``torch.mm`` of its encode stage's message bits by the code's GF(2)
-generator, mod 2 (:func:`dlsch_library`); ``--cases ldpc dlsch`` ~1 min.
+generator, mod 2 (:func:`dlsch_library`); ``--cases ldpc dlsch`` ~1 min;
+K8 (``channel_estimate.estimate_from_grid``) on the flagship PUSCH
+(``channel_estimate``), the flagship SRS (``_srs``), the F2's comb 3
+(``_f2``), the cell edge's F3 (``_f3``), slot E's type 0 comb averaged and
+interpolated (``_type0``, ``_type0_interp``), the PUSCH over 4 slots
+(``_batch4``) and the flagship PUSCH and SRS through their callers, whose
+arguments are made anew each call (``_caller``, ``_srs_caller``: the host
+µs the receive chains pay), and K15 (``polar.decode``) on the F2's codeword
+(``polar_decode``), the PBCH (``_pbch``), an AL16 DCI at B = 4 with its
+syndrome (``_al16``), N = 1024 (``_n1024``) and the F2's codeword over 4
+slots (``_batch4``), from ``flagship.chest_polar_profile_cases``
+(:func:`chest_polar_calls`); ``--cases channel_estimate polar_decode``.
 ``--cases`` keeps the cases whose names start with one of the prefixes
 (and skips the pieces below, and building the cases it leaves out).  Per
 case and call it reports:
@@ -433,6 +445,32 @@ def ldpc_calls(gen: torch.Generator, rng: np.random.Generator, dev) -> tuple:
     return calls, library, sweeps
 
 
+def chest_polar_calls(gen: torch.Generator, dev) -> tuple:
+    """K8's and K15's (calls, library) by name
+    (``flagship.chest_polar_profile_cases``), each checked against its
+    twin once (K8: the TA equal, the rest within 1e-4 of the largest
+    magnitude; K15: every bit and flag); no one PyTorch call computes
+    either, so no library call."""
+    calls, library = {}, {}
+    for name, (fn, twin, a) in flagship.chest_polar_profile_cases(
+            gen, dev).items():
+        out, ref = fn(*a), twin(*a)
+        if name.startswith("polar"):
+            if not all(torch.equal(o, r) for o, r in zip(out, ref)):
+                raise AssertionError(f"{name}: K15 differs from its twin")
+        else:
+            if not torch.equal(out.time_alignment_s, ref.time_alignment_s):
+                raise AssertionError(f"{name}: K8's TA differs from its twin")
+            for key in ("coeffs", "noise_var", "rsrp", "epre", "snr"):
+                r = getattr(ref, key)
+                torch.testing.assert_close(
+                    getattr(out, key), r, rtol=1e-4,
+                    atol=1e-4 * float(r.abs().max()), msg=f"{name} {key}")
+        calls[name] = lambda fn=fn, a=a: fn(*a)
+        library[name] = None
+    return calls, library
+
+
 def _entry(loader, argtype):
     """K32's C entry point loaded through ``loader`` (ctypes.CDLL releases
     the interpreter lock around the call, ctypes.PyDLL keeps it) with four
@@ -536,7 +574,9 @@ def main(argv=None) -> dict:
     builders = ((("control_map",), lambda: control_calls(rng, dev)),
                 (("llr_",), lambda: llr_calls(gen, dev)),
                 (("polar_encode", "short_block_encode", "encode_uci"),
-                 lambda: ue_encoder_calls(rng, dev)))
+                 lambda: ue_encoder_calls(rng, dev)),
+                (("channel_estimate", "polar_decode"),
+                 lambda: chest_polar_calls(gen, dev)))
     for prefixes, build in builders:
         if _wanted(args.cases, prefixes):
             more_calls, more_library = build()

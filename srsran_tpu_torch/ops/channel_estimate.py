@@ -6,19 +6,24 @@ Port of srsran_tpu/ops/channel_estimate.py::estimate and _time_alignment.
 the smoothing-and-interpolation operator as the host matrix of
 :func:`_smooth_interp_matrix`, cast to complex64 once and cached per device.
 
-:func:`estimate_from_grid` is the K8 wrapper: on CUDA tensors it reads the
-pilots straight from the resource grid in the hand kernels of
-csrc/channel_estimate.cu, which apply the same operator in band form
-(:func:`_band`: first column + [nsc, W] weights, W = 8 at the flagship)
-and compute RSRP, EPRE, noise, CFO and TA on the device, over a regular
-comb (tables keyed by first, step, count) or any pilot list, such as a
-type 0 PDSCH's DM-RS (tables keyed by the pilots' bytes, the TA buffer
-filled at each despread pilot's subcarrier as the JAX scatter branch fills
-it); on CPU tensors it runs :func:`estimate_from_grid_ref`, the twin
-(gather, then :func:`estimate`).  A leading slot axis on the grid (and on
-the pilots, which are slot context) runs every pass once for all slots; the
-band and the tables are shared, and each result gains the slot axis in
-front.
+:func:`estimate_from_grid` is the K8 wrapper: on CUDA tensors one launch
+of csrc/channel_estimate.cu (a thread-block cluster of up to 8 CTAs per
+slot, G = 8 / P a port, each owning a chunk of the port's pilots and
+subcarriers, :func:`_chest_cluster`; the pilots read straight from the
+resource grid; the smoothing and interpolation as the band of
+:func:`_band`, first column + [nsc, W] weights, W = 8 at the flagship;
+RSRP, EPRE, noise, CFO and the TA on the device, the TA as one M = nfft /
+s point IDFT a row in shared memory, :func:`_ta_shift`,
+:func:`_dif_twiddles`, :func:`_dif_bins`), over a regular comb (tables
+keyed by first, step,
+count) or any pilot list, such as a type 0 PDSCH's DM-RS (tables keyed by
+the pilots' bytes), through a plan per call signature on the lean launch
+path (``kernels/_build.py::Launch``: :func:`_chest_plan`,
+:func:`_chest_params`, :func:`_chest_tables`); on CPU tensors it runs
+:func:`estimate_from_grid_ref`, the twin (gather, then :func:`estimate`).
+A leading slot axis on the grid (and on the pilots, which are slot
+context) runs every slot in the same launch; the band and the tables are
+shared, and each result gains the slot axis in front.
 """
 
 from __future__ import annotations
@@ -301,8 +306,9 @@ def _comb_tables(pilots: bytes, cdm_pairs: bool, first_sc: int, nof_sc: int,
                  strategy: str, stride: int) -> tuple:
     """K8's tables for any pilot list, keyed by its int64 bytes: (int32
     [nof_sc + 2 K_p + K_sm]: the band's first columns, the grid columns,
-    the pilots, each despread pilot's TA buffer index; float32 [nof_sc, W]
-    the band's weights).  An irregular comb's band stays narrow in
+    the pilots, each despread pilot's place in the TA's nfft-point IDFT --
+    its subcarrier, as the JAX scatter branch places it; float32 [nof_sc,
+    W] the band's weights).  An irregular comb's band stays narrow in
     pilot-index space."""
     scs = np.frombuffer(pilots, dtype=np.int64)
     scs_sm = (scs[0::2] + scs[1::2]) // 2 if cdm_pairs else scs
@@ -312,21 +318,18 @@ def _comb_tables(pilots: bytes, cdm_pairs: bool, first_sc: int, nof_sc: int,
     return ints.astype(np.int32), weights
 
 
-def _comb_part(i: int, *key) -> np.ndarray:
-    """One of :func:`_comb_tables` (0: the int32 tables, 1: the weights)."""
-    return _comb_tables(*key)[i]
-
-
 def _i32(values: tuple) -> np.ndarray:
     return np.asarray(values, dtype=np.int32)
 
 
-def _comb_i32(first: int, stride: int, count: int) -> np.ndarray:
-    return np.arange(first, first + stride * count, stride, dtype=np.int32)
-
-
-def _td_i0_i32(dmrs_idx: tuple, nof_symbols: int) -> np.ndarray:
-    return _td_weights(dmrs_idx, nof_symbols)[0]
+def _ta_shift(positions: np.ndarray) -> int:
+    """log2 of the largest power of two s dividing every position's offset
+    from the first (0 for a single pilot): the TA's nfft-point IDFT of
+    pilots at these positions is, in magnitude, the (nfft / s)-point IDFT
+    of them packed at (position - first) / s, repeated s times."""
+    d = np.asarray(positions, np.int64) - int(positions[0])
+    g = int(np.gcd.reduce(d)) if len(d) > 1 else 0
+    return (g & -g).bit_length() - 1 if g else 0
 
 
 def estimate_from_grid_ref(grid: torch.Tensor, symbols: tuple, first_sc: int,
@@ -352,6 +355,222 @@ def estimate_from_grid_ref(grid: torch.Tensor, symbols: tuple, first_sc: int,
                     scs_hz, **kw)
 
 
+CHEST_MAX_PORTS = 8       # csrc/channel_estimate.cu kChestMaxPorts
+CHEST_MAX_LAYERS = 4      # kChestMaxLayers
+CHEST_MAX_SYMBOLS = 14    # kChestMaxSymbols
+CHEST_SMEM = 230400       # dynamic shared memory a CTA may take (of 232,448)
+CHEST_PLANS_MAX = 256
+
+
+def _nfft(nof_sc: int) -> int:
+    nfft = 1
+    while nfft < nof_sc * 2:
+        nfft *= 2
+    return nfft
+
+
+def _chest_params(pilots: tuple, shapes: tuple, symbols: tuple,
+                  nof_sc: int, nof_symbols: int, scs_hz: float, stride: int,
+                  beta: float, times: tuple | None, interp_idx: tuple | None,
+                  cdm: bool, band_w: int, ta_shift: int) -> _build.ChestParams:
+    """K8's launch for one call signature: ``pilots`` ("regular", first,
+    step, count) or ("list", int64 bytes); ``shapes`` the grid's and the
+    pilots' shapes; ``times`` the DM-RS symbol times when the CFO is
+    estimated; ``interp_idx`` the DM-RS symbols when the coefficients are
+    interpolated per symbol; ``band_w`` the band's width; ``ta_shift``
+    :func:`_ta_shift` of the TA's positions.  Raises on what the kernel does
+    not take; the shared memory as :func:`_chest_smem` lays it out."""
+    grid_s, exp_s = shapes
+    n_k = pilots[3] if pilots[0] == "regular" else len(pilots[1]) // 8
+    if len(grid_s) not in (3, 4) or len(exp_s) not in (3, len(grid_s)):
+        raise ValueError(f"grid must be [(B,) P, S, K] and expected [(B,) "
+                         f"L, S_dmrs, K_p], got {tuple(grid_s)} and "
+                         f"{tuple(exp_s)}")
+    lead = tuple(grid_s[:-3])
+    n_l, n_s = exp_s[-3], exp_s[-2]
+    if (exp_s[-2:] != (len(symbols), n_k)
+            or (len(exp_s) == 4 and tuple(exp_s[:1]) != lead)):
+        raise ValueError(f"expected must be [(B,) L, {len(symbols)}, {n_k}], "
+                         f"got {tuple(exp_s)}")
+    n_p = grid_s[-3]
+    nsym_out = nof_symbols if interp_idx is not None else 1
+    if (not 1 <= n_p <= CHEST_MAX_PORTS or not 1 <= n_l <= CHEST_MAX_LAYERS
+            or not 1 <= n_s <= CHEST_MAX_SYMBOLS
+            or nsym_out > CHEST_MAX_SYMBOLS):
+        raise ValueError(f"K8 takes up to {CHEST_MAX_PORTS} ports, "
+                         f"{CHEST_MAX_LAYERS} layers and "
+                         f"{CHEST_MAX_SYMBOLS} symbols, got {n_p}, {n_l}, "
+                         f"{n_s} and {nsym_out} out")
+    k_sm = n_k // 2 if cdm else n_k
+    stride_sm = 2 * stride if cdm else stride
+    nfft = _nfft(nof_sc)
+    m = nfft >> min(ta_shift, nfft.bit_length() - 2)
+    w2 = 2 * (nfft // (2 * stride_sm))
+    g, chunk = _chest_cluster(n_p, k_sm)
+    smem = _chest_smem(n_p, g, n_l, n_s, k_sm, chunk, m, w2,
+                       interp_idx is not None)
+    p = _build.ChestParams(
+        P=n_p, L=n_l, S=n_s, K=n_k, Ksm=k_sm, cdm=int(cdm), nsc=nof_sc,
+        W=band_w, nsym_grid=grid_s[-2], nsc_grid=grid_s[-1],
+        nsym_out=nsym_out, interp=int(interp_idx is not None),
+        use_cfo=int(times is not None), nslots=lead[0] if lead else 1,
+        shared_pilots=int(len(exp_s) == 3), M=m, maxd=nfft // (2 * stride_sm),
+        G=g, chunk=chunk, nfft=nfft, lg_s=(nfft // m).bit_length() - 1,
+        smem=smem, beta=beta, beta2=beta * beta,
+        two_pi_dt=2 * np.pi * (times[1] - times[0]) if times else 1.0,
+        span=float(nfft * scs_hz))
+    p.syms[:n_s] = symbols
+    if times is not None:
+        p.times[:n_s] = times
+    if interp_idx is not None:
+        i0, w = _td_weights(interp_idx, nof_symbols)
+        p.td_i0[:nof_symbols] = i0.tolist()
+        p.td_w[:nof_symbols] = w.tolist()
+    return p
+
+
+def _chest_tables(pilots: tuple, first_sc: int, nof_sc: int, stride: int,
+                  smoothing: str, cdm: bool) -> tuple:
+    """K8's tables for ``pilots`` (:func:`_pilots_key`): (int32 [nof_sc + 2
+    K_p + K_sm] the band's first columns, the grid columns, the pilots and
+    each despread pilot's subcarrier, its place in the TA's nfft-point
+    IDFT; float32 [nof_sc, W] the band's weights; K_sm).  A comb of the
+    nominal stride takes the band keyed by (first, step, count)
+    (:func:`_band_table`); any other pilot list the one keyed by its bytes
+    (:func:`_comb_tables`)."""
+    n_k = pilots[3] if pilots[0] == "regular" else len(pilots[1]) // 8
+    if cdm and n_k % 2:
+        raise ValueError("fd-OCC despread needs an even pilot count")
+    k_sm = n_k // 2 if cdm else n_k
+    stride_sm = 2 * stride if cdm else stride
+    if pilots[0] == "regular" and pilots[2] == stride:
+        _, p0, step, n_k = pilots
+        scs = np.arange(p0, p0 + step * n_k, step, dtype=np.int64)
+        scs_sm = (scs[0::2] + scs[1::2]) // 2 if cdm else scs
+        band = (int(scs_sm[0]), stride_sm, len(scs_sm), nof_sc, smoothing)
+        ints = np.concatenate([_band_table(0, *band), first_sc + scs, scs,
+                               scs_sm]).astype(np.int32)
+        weights = _band_table(1, *band)
+    else:
+        if pilots[0] == "regular":
+            _, p0, step, n_k = pilots
+            pilots = ("list", np.arange(p0, p0 + step * n_k, step,
+                                        dtype=np.int64).tobytes())
+        ints, weights = _comb_tables(pilots[1], cdm, first_sc, nof_sc,
+                                     smoothing, stride_sm)
+    return ints, weights, k_sm
+
+
+def _chest_cluster(n_p: int, k_sm: int) -> tuple:
+    """K8's cluster for ``n_p`` rx ports: (G, chunk), the CTAs a port (the
+    cluster P G <= 8 CTAs) and the despread pilots a CTA, at most."""
+    g = max(1, min(_build.CHEST_MAX_CTAS // n_p, k_sm))
+    return g, -(-k_sm // g)
+
+
+def _chest_smem(n_p: int, g: int, n_l: int, n_s: int, k_sm: int, chunk: int,
+                m: int, w2: int, interp: bool) -> int:
+    """K8's dynamic shared memory a CTA (bytes; csrc/channel_estimate.cu's
+    Layout): the TA's twiddles and one TA row [M], the port's averages
+    [L, K_sm] (after its rotated LS values [L, S, K_sm] for per-symbol
+    interpolation), the chunk's LS values [L, S, chunk] and received
+    pilots [S, 2 chunk] (complex), the CTA's TA power [M] and every CTA's
+    over the CTA's slice of the window [P G, ceil(w2 / (P G))] (floats);
+    raises past CHEST_SMEM."""
+    per_port = n_l * ((n_s if interp else 0) + 1) * k_sm
+    n_cta = n_p * g
+    smem = (8 * (2 * m + per_port + n_l * n_s * chunk + 2 * n_s * chunk)
+            + 4 * (m + n_cta * -(-w2 // n_cta)))
+    if smem > CHEST_SMEM:
+        raise ValueError(f"K8's shared memory ({smem} bytes) cannot hold an "
+                         f"{m}-point TA row beside {per_port} averages")
+    return smem
+
+
+@functools.lru_cache(maxsize=None)
+def _dif_twiddles(m: int) -> np.ndarray:
+    """complex64 [M]: the tables of K8's in-place radix-4 decimation in
+    frequency (the M-point IDFT), stage by stage for block size N = M, M /
+    4, ... down to 4: exp(2j pi r t / N) for r = 1, 2, 3, t < N / 4, built
+    in float64 and rounded once (padded with ones)."""
+    parts, n = [], m
+    while n >= 4:
+        t = np.arange(n // 4)
+        parts += [np.exp(2j * np.pi * r * t / n) for r in (1, 2, 3)]
+        n //= 4
+    tw = np.concatenate(parts) if parts else np.zeros(0, complex)
+    return np.concatenate([tw, np.ones(m - len(tw))]).astype(np.complex64)
+
+
+@functools.lru_cache(maxsize=None)
+def _dif_bins(m: int) -> np.ndarray:
+    """int32 [M]: the bin of the M-point IDFT that position p of K8's
+    transformed row holds (radix-4 stages, then radix 2 where log2 M is
+    odd: block r of a stage holds the outputs 4 k + r of its block)."""
+    if m <= 2:
+        return np.arange(m, dtype=np.int32)
+    sub = _dif_bins(m // 4).astype(np.int64)
+    return np.concatenate([4 * sub + r for r in range(4)]).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _chest_prepare(index: int) -> None:
+    """Let K8 take CHEST_SMEM of dynamic shared memory on CUDA device
+    ``index`` (once, before any capture)."""
+    with torch.cuda.device(index):
+        _build.check(_build.load_locked().srsran_chest_prepare(CHEST_SMEM),
+                     "chest_prepare")
+
+
+@functools.lru_cache(maxsize=CHEST_PLANS_MAX)
+def _chest_plan(pilots: tuple, first_sc: int, shapes: tuple, symbols: tuple,
+                nof_sc: int, nof_symbols: int, scs_hz: float, stride: int,
+                smoothing: str, beta: float, times: tuple | None,
+                interp_idx: tuple | None, cdm: bool, index: int) -> tuple:
+    """K8's plan on CUDA device ``index``: (its launch, with
+    :func:`_chest_tables` and the TA's twiddles; the coefficients' shape
+    and strides; the complex values of the call's one allocation, the
+    coefficients then the launch's scratch; the stats' shape and split; the
+    launch count it adds to)."""
+    ints, weights, k_sm = _chest_tables(pilots, first_sc, nof_sc, stride,
+                                        smoothing, cdm)
+    params = _chest_params(pilots, shapes, symbols, nof_sc, nof_symbols,
+                           scs_hz, stride, beta, times, interp_idx, cdm,
+                           weights.shape[1], _ta_shift(ints[-k_sm:]))
+    # the band's rows at the pilots, for the statistics
+    pilot_idx = ints[nof_sc + params.K:nof_sc + 2 * params.K]
+    ints = np.concatenate([ints, ints[pilot_idx], _dif_bins(params.M)])
+    weights = np.concatenate([weights, weights[pilot_idx]])
+    _chest_prepare(index)
+    dev = torch.device("cuda", index)
+    tables = (torch.from_numpy(ints).to(dev),
+              torch.from_numpy(np.ascontiguousarray(weights)).to(dev),
+              torch.from_numpy(_dif_twiddles(params.M)).to(dev))
+    lead = tuple(shapes[0][:-3])
+    n_p = params.P
+    coeffs = lead + (n_p, params.L, params.nsym_out, nof_sc)
+    strides = tuple(int(np.prod(coeffs[i + 1:])) for i in range(len(coeffs)))
+    scratch = params.nslots * n_p * params.L * (
+        (params.S if params.interp else 0) + 1) * params.Ksm
+    return (_build.Launch("srsran_chest_estimate", index, params, tables),
+            coeffs, strides, int(np.prod(coeffs)) + scratch,
+            lead + (4 * n_p + 2,), (n_p, n_p, n_p, n_p, 2),
+            KERNEL_BATCH if lead else KERNEL)
+
+
+def _pilots_key(pilot_scs) -> tuple:
+    """("regular", first, step, count) for a comb of equal steps, else
+    ("list", the pilots as int64 bytes)."""
+    scs = np.asarray(pilot_scs, dtype=np.int64)
+    n = len(scs)
+    if n > 1:
+        steps = scs[1:] - scs[:-1]
+        step = int(steps[0])
+        if step > 0 and (steps == step).all():
+            return ("regular", int(scs[0]), step, n)
+    return ("list", np.ascontiguousarray(scs).tobytes())
+
+
 def estimate_from_grid(grid: torch.Tensor, symbols: tuple, first_sc: int,
                        expected: torch.Tensor, pilot_scs: np.ndarray,
                        nof_sc: int, nof_symbols: int, scs_hz: float,
@@ -365,119 +584,52 @@ def estimate_from_grid(grid: torch.Tensor, symbols: tuple, first_sc: int,
     nsc_grid]): pilot k of DM-RS symbol i sits at grid[:, symbols[i],
     first_sc + pilot_scs[k]].  The other arguments are :func:`estimate`'s.
     With a slot axis -- grid [B, P, nsym, nsc_grid], expected [B, L, S_dmrs,
-    K_p] or shared [L, S_dmrs, K_p] -- every field of the result gains it."""
-    kw = dict(stride=stride, smoothing=smoothing, beta_scaling=beta_scaling,
-              estimate_cfo=estimate_cfo,
-              dmrs_symbol_times_s=dmrs_symbol_times_s,
-              td_strategy=td_strategy, dmrs_symbol_idx=dmrs_symbol_idx,
-              cdm_pairs=cdm_pairs)
-    if not is_cuda(grid, expected):
-        return estimate_from_grid_ref(grid, symbols, first_sc, expected,
-                                      pilot_scs, nof_sc, nof_symbols, scs_hz,
-                                      **kw)
-    if grid.dtype != torch.complex64 or grid.ndim not in (3, 4):
-        raise ValueError(f"grid must be complex64 [(B,) P, S, K], got "
-                         f"{grid.dtype} {tuple(grid.shape)}")
-    lead = tuple(grid.shape[:-3])
-    slots = lead[0] if lead else 1
-    scs_np = np.asarray(pilot_scs)
-    n_l, n_s, n_k = expected.shape[-3:]
-    shared = expected.ndim == 3
-    if (expected.dtype != torch.complex64
-            or (n_s, n_k) != (len(symbols), len(scs_np))
-            or expected.shape[:-3] not in ((), lead)):
-        raise ValueError(f"expected must be complex64 [L, {len(symbols)}, "
-                         f"{len(scs_np)}], got {expected.dtype} "
-                         f"{tuple(expected.shape)}")
-    if cdm_pairs:
-        if n_k % 2:
-            raise ValueError("fd-OCC despread needs an even pilot count")
-        scs_sm = (scs_np[0::2] + scs_np[1::2]) // 2
-        stride_sm = stride * 2
-    else:
-        scs_sm, stride_sm = scs_np, stride
-    k_sm = len(scs_sm)
-    step = int(scs_np[1] - scs_np[0]) if n_k > 1 else 0
-    # A regular comb keys its tables by (first, step, count); any other
-    # pilot list by its pilots' bytes, with the TA buffer's scatter table.
-    regular = (k_sm > 1 and bool(np.all(np.diff(scs_sm) == stride_sm))
-               and bool(np.all(np.diff(scs_np) == step)))
-    use_cfo = (estimate_cfo and n_s >= 2
-               and dmrs_symbol_times_s is not None)
+    K_p] or shared [L, S_dmrs, K_p] -- every field of the result gains it.
+
+    On CUDA one launch of K8 through a plan per call signature, found by
+    the content of the arguments (:func:`_chest_plan`)."""
+    if not (grid.is_cuda and expected.is_cuda) and not is_cuda(grid,
+                                                               expected):
+        return estimate_from_grid_ref(
+            grid, symbols, first_sc, expected, pilot_scs, nof_sc,
+            nof_symbols, scs_hz, stride=stride, smoothing=smoothing,
+            beta_scaling=beta_scaling, estimate_cfo=estimate_cfo,
+            dmrs_symbol_times_s=dmrs_symbol_times_s, td_strategy=td_strategy,
+            dmrs_symbol_idx=dmrs_symbol_idx, cdm_pairs=cdm_pairs)
+    if grid.dtype != torch.complex64 or expected.dtype != torch.complex64:
+        raise ValueError(f"grid and expected must be complex64, got "
+                         f"{grid.dtype} and {expected.dtype}")
+    index = grid.get_device()
+    if index != expected.get_device():
+        raise ValueError("grid and expected lie on different devices")
+    n_s = expected.shape[-2]
+    use_cfo = estimate_cfo and n_s >= 2 and dmrs_symbol_times_s is not None
     interp = (td_strategy == "interpolate" and dmrs_symbol_idx is not None
               and n_s >= 2)
-    nsym_out = nof_symbols if interp else 1
-    nfft = 1
-    while nfft < nof_sc * 2:
-        nfft *= 2
-    dev = grid.device
-    n_p = grid.shape[-3]
-    syms = const(_i32, tuple(int(s) for s in symbols), device=dev)
-    ta_idx = None
-    if regular:
-        key = (int(scs_sm[0]), stride_sm, k_sm, nof_sc, smoothing)
-        first = const(_band_table, 0, *key, device=dev)
-        weights = const(_band_table, 1, *key, device=dev)
-        p0 = int(scs_np[0])
-        cols = const(_comb_i32, int(first_sc) + p0, step, n_k, device=dev)
-        pilot_idx = const(_comb_i32, p0, step, n_k, device=dev)
-    else:
-        key = (np.ascontiguousarray(scs_np, dtype=np.int64).tobytes(),
-               bool(cdm_pairs), int(first_sc), nof_sc, smoothing, stride_sm)
-        ints = const(_comb_part, 0, *key, device=dev)
-        weights = const(_comb_part, 1, *key, device=dev)
-        first, cols, pilot_idx, ta_idx = torch.split(
-            ints, (nof_sc, n_k, n_k, k_sm))
-    times = td_i0 = td_w = None
-    two_pi_dt = 1.0
-    if use_cfo:
-        t = tuple(float(v) for v in dmrs_symbol_times_s)
-        times = const(f32, t, device=dev)
-        two_pi_dt = 2 * np.pi * (t[1] - t[0])
-    if interp:
-        dkey = (tuple(int(v) for v in dmrs_symbol_idx), nof_symbols)
-        td_i0 = const(_td_i0_i32, *dkey, device=dev)
-        td_w = const(_td_w, *dkey, device=dev)
-    c64 = dict(dtype=torch.complex64, device=dev)
-    ls = torch.empty(lead + (n_p, n_l, n_s, k_sm), **c64)
-    ls_avg = torch.empty(lead + (n_p, n_l, k_sm), **c64)
-    partials = torch.empty(lead + (max(1, -(-(n_p * n_l * n_s * k_sm)
-                                             // 256)),), **c64)
-    filtered = torch.empty(lead + (n_p, n_l, n_k), **c64)
-    coeffs = torch.empty(lead + (n_p, n_l, nsym_out, nof_sc), **c64)
-    tabuf = torch.empty(lead + (n_p, n_l, nfft), **c64)
-    stats = torch.empty(lead + (4 * n_p + 2,), dtype=torch.float32, device=dev)
-    # [(B,) P, NB, 3] partial sums of the stats pass (NB as csrc's
-    # stats_blocks)
-    stats_part = torch.empty(
-        lead + (n_p, min(max(-(-n_s * n_k // 256), 1), 32), 3),
-        dtype=torch.float32, device=dev)
-    grid = grid.contiguous()
-    expected = expected.contiguous()
-    lib = _build.load()
-    stream = _build.stream_of(grid)
-
-    def opt(x):
-        return _build.ptr(x) if x is not None else None
-
-    _build.check(lib.srsran_chest_estimate(
-        _build.ptr(grid), grid.shape[-2], grid.shape[-1], _build.ptr(syms),
-        _build.ptr(cols), _build.ptr(expected), opt(times), _build.ptr(first),
-        _build.ptr(weights), _build.ptr(pilot_idx), opt(td_i0), opt(td_w),
-        n_p, n_l, n_s, n_k, int(cdm_pairs), nof_sc, weights.shape[1],
-        int(use_cfo), nsym_out, int(interp), float(beta_scaling), two_pi_dt,
-        nfft, stride_sm, _build.ptr(ls), _build.ptr(ls_avg),
-        _build.ptr(partials), _build.ptr(filtered), _build.ptr(coeffs),
-        _build.ptr(stats_part), _build.ptr(stats), _build.ptr(tabuf),
-        opt(ta_idx), slots, int(shared), stream), "chest_estimate")
-    h_t = torch.fft.ifft(tabuf, dim=-1)
-    _build.check(lib.srsran_chest_ta(
-        _build.ptr(h_t), n_p, n_l, n_s, n_k, nfft, nfft // (2 * stride_sm),
-        float(nfft * scs_hz), float(beta_scaling), _build.ptr(stats_part),
-        _build.ptr(stats), slots, stream), "chest_ta")
-    (KERNEL_BATCH if lead else KERNEL).count()
-    return ChannelEstimate(
-        coeffs=coeffs, noise_var=stats[..., :n_p],
-        rsrp=stats[..., n_p:2 * n_p], epre=stats[..., 2 * n_p:3 * n_p],
-        snr=stats[..., 3 * n_p:4 * n_p], time_alignment_s=stats[..., 4 * n_p + 1],
-        cfo_hz=stats[..., 4 * n_p])
+    launch, coeffs_shape, coeffs_strides, n_total, stats_shape, split, \
+        counter = _chest_plan(
+            _pilots_key(pilot_scs), int(first_sc),
+            (tuple(grid.shape), tuple(expected.shape)),
+            tuple(int(s) for s in symbols), int(nof_sc), int(nof_symbols),
+            float(scs_hz), int(stride), smoothing, float(beta_scaling),
+            tuple(float(t) for t in dmrs_symbol_times_s) if use_cfo
+            else None,
+            tuple(int(i) for i in dmrs_symbol_idx) if interp else None,
+            bool(cdm_pairs), index)
+    if not grid.is_contiguous():
+        grid = grid.contiguous()
+    if not expected.is_contiguous():
+        expected = expected.contiguous()
+    buf = grid.new_empty(n_total)    # the coefficients, then the scratch
+    coeffs = buf.as_strided(coeffs_shape, coeffs_strides)
+    stats = grid.new_empty(stats_shape, dtype=torch.float32)
+    ptr = buf.data_ptr()
+    launch(grid.data_ptr(), expected.data_ptr(), ptr, stats.data_ptr(),
+           ptr + 8 * coeffs.numel())
+    counter.count()
+    noise, rsrp, epre, snr, _ = stats.split_with_sizes(split, -1)
+    n_cfo = split[0] * 4
+    return ChannelEstimate(coeffs=coeffs, noise_var=noise, rsrp=rsrp,
+                           epre=epre, snr=snr,
+                           time_alignment_s=stats.select(-1, n_cfo + 1),
+                           cfo_hz=stats.select(-1, n_cfo))

@@ -21,11 +21,17 @@ one C call; on CPU tensors its twin :func:`encode_chain_ref` (the three
 steps).
 
 :func:`decode` is the K15 wrapper: rate dematch, SC decode and the CRC
-check of the decoded message, on CUDA tensors in one hand kernel
-(csrc/polar_sc.cu: one CTA per codeword, the LLR tree in shared memory,
-walking a host-built node schedule), on CPU tensors in its twin
-:func:`decode_ref`; a slot batch's codewords [B, N, E] fold into one
-launch of B * N CTAs.  The CA-SCL list decoder is ``polar_scl`` (K29).
+check of the decoded message, on CUDA tensors in one launch of
+csrc/polar_sc.cu (a warp per codeword, several a CTA: the node schedule
+as one word a step by value, :func:`_sc_words`, a mixed node of 16 one
+step decided whole in registers; nodes of 16 and 32 LLRs in registers,
+the hard bits packed 32 to a word; the CRC as the XOR of the set bits'
+remainder words), through a plan cached per (code, CRC, syndrome,
+LLR shape, device) on the lean launch path (``kernels/_build.py::Launch``:
+:func:`_decode_plan`, :func:`_decode_params`, :func:`_decode_table`), on
+CPU tensors in its twin :func:`decode_ref`; a slot batch's codewords [S,
+B, E] go in the same launch.  The CA-SCL list decoder is ``polar_scl``
+(K29).
 """
 
 from __future__ import annotations
@@ -38,11 +44,11 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..device import const, is_cuda
+from ..device import const
 from ..kernels import _build
 from ..ran.polar_params import (PolarCode, input_interleave_map,
                                 subblock_interleave_map)
-from .crc import POLYS, crc
+from .crc import POLYS, _remainder_words, crc
 
 KERNEL = kernels.register(kernels.Kernel(
     name="polar_decode", route="cuda",
@@ -394,38 +400,9 @@ def sc_decode(llrs: torch.Tensor, code: PolarCode) -> torch.Tensor:
 
 # ------------------------------------------------------------------ K15
 
-_OP_R0, _OP_R1, _OP_F, _OP_G, _OP_SAVE, _OP_COMB = range(6)
-
-
-@functools.lru_cache(maxsize=None)
-def _sc_program(frozen: bytes) -> np.ndarray:
-    """The node schedule of :func:`sc_decode`'s recursion over this frozen
-    mask, for the kernel: int32 [n_ops, 3] rows (op, log2 m, first u index)
-    with op RATE_0 / RATE_1 leaves, F / G (the LLRs of a length-m node's
-    left / right child), SAVE (keep the left child's bits) and COMB (x of
-    the node from both children)."""
-    fro = np.frombuffer(frozen, dtype=np.uint8).astype(bool)
-    ops = []
-
-    def rec(lo: int, m: int):
-        f = fro[lo:lo + m]
-        lg = int(m).bit_length() - 1
-        if f.all():
-            ops.append((_OP_R0, lg, lo))
-            return
-        if not f.any():
-            ops.append((_OP_R1, lg, lo))
-            return
-        h = m // 2
-        ops.append((_OP_F, lg, lo))
-        rec(lo, h)
-        ops.append((_OP_SAVE, lg, lo))
-        ops.append((_OP_G, lg, lo))
-        rec(lo + h, h)
-        ops.append((_OP_COMB, lg, lo))
-
-    rec(0, len(fro))
-    return np.asarray(ops, dtype=np.int32)
+# K15's step ops (csrc/polar_sc.cu's enum; 4, the twin's SAVE of the left
+# child's bits, is done by the G step after it)
+_OP_R0, _OP_R1, _OP_F, _OP_G, _OP_COMB = 0, 1, 2, 3, 5
 
 
 def _dematch_tables(n: int, e: int, mode: str, ibil: bool) -> np.ndarray:
@@ -475,6 +452,142 @@ def decode_ref(llrs: torch.Tensor, code: PolarCode, crc_name: str,
     return bits, crc_word(bits, crc_name) == int(syndrome)
 
 
+_OP_SHIFT, _LG_SHIFT, _LO_SHIFT = 0, 3, 7
+_OP_SUB = 6              # a mixed node of SUB_M positions, whole
+SUB_M = 16
+_SUB_LO_SHIFT, _SUB_MASK_SHIFT = 7, 13
+DECODE_WARPS = 4         # codewords a CTA, at most
+DECODE_PLANS_MAX = 256
+
+
+@functools.lru_cache(maxsize=None)
+def _sc_words(frozen: bytes) -> np.ndarray:
+    """K15's step words over this frozen mask, uint32 [n_steps]: the node
+    schedule of :func:`sc_decode`'s recursion, a word a step -- op | log2 m
+    << 3 | first u index << 7, op a RATE_0 / RATE_1 leaf, F / G (the LLRs
+    of a length-m node's left / right child; G first keeps the left
+    child's bits) or COMB (x of the node from both children) -- but for a
+    mixed node of SUB_M positions, which is one word: _OP_SUB | log2 SUB_M
+    << 3 | first u index / SUB_M << 7 | its frozen flags << 13 (bit i:
+    position i frozen), the kernel decoding the whole node by the same
+    recursion in each lane's registers."""
+    fro = np.frombuffer(frozen, dtype=np.uint8).astype(bool)
+    words = []
+
+    def rec(lo: int, m: int):
+        f = fro[lo:lo + m]
+        lg = int(m).bit_length() - 1
+        if f.all() or not f.any():
+            words.append((_OP_R0 if f.all() else _OP_R1) << _OP_SHIFT
+                         | lg << _LG_SHIFT | lo << _LO_SHIFT)
+            return
+        if m == SUB_M:
+            mask = int(np.dot(f.astype(np.int64), 1 << np.arange(m)))
+            words.append(_OP_SUB << _OP_SHIFT | lg << _LG_SHIFT
+                         | lo // SUB_M << _SUB_LO_SHIFT
+                         | mask << _SUB_MASK_SHIFT)
+            return
+        h = m // 2
+        words.append(_OP_F << _OP_SHIFT | lg << _LG_SHIFT | lo << _LO_SHIFT)
+        rec(lo, h)
+        words.append(_OP_G << _OP_SHIFT | lg << _LG_SHIFT | lo << _LO_SHIFT)
+        rec(lo + h, h)
+        words.append(_OP_COMB << _OP_SHIFT | lg << _LG_SHIFT
+                     | lo << _LO_SHIFT)
+
+    rec(0, len(fro))
+    return np.asarray(words, dtype=np.uint32)
+
+
+@functools.lru_cache(maxsize=64)
+def _dematch_rounds(big_n: int, e: int, mode: str, ibil: bool) -> np.ndarray:
+    """int32 [R, N]: round j of mother position q -- the received index of
+    the j-th transmitted bit feeding q (the inverse triangular interleaver
+    folded in), -1 past its last, -2 at round 0 of a shortened position --
+    from :func:`_dematch_tables`; R the most bits feeding a position."""
+    dm = _dematch_tables(big_n, e, mode, ibil)
+    first, src, short = dm[0, :big_n], dm[0, big_n:], dm[1, :big_n]
+    rounds = max(1, -(-e // big_n))
+    out = np.full((rounds, big_n), -1, np.int32)
+    for j in range(rounds):
+        i = first + j * big_n
+        live = (first >= 0) & (i < e)
+        out[j, live] = src[i[live]]
+    out[0, short == 1] = -2
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def _decode_table(big_n: int, e: int, mode: str, ibil: bool,
+                  info_set: tuple, iil: bool, crc_name: str) -> np.ndarray:
+    """K15's int32 table of one code (csrc/polar_sc.cu): the rate dematch's
+    rounds (:func:`_dematch_rounds`), the message bits' positions in u
+    (:func:`_readout`) and each message bit's CRC remainder word
+    (``ops/crc.py::_remainder_words``: the CRC register is the XOR of those
+    of the set bits)."""
+    return np.concatenate([
+        _dematch_rounds(big_n, e, mode, ibil).reshape(-1),
+        _readout(info_set, iil).astype(np.int32),
+        _remainder_words(crc_name, len(info_set)).view(np.int32)]).astype(
+            np.int32)
+
+
+def _decode_params(code: PolarCode, crc_name: str, syndrome: int,
+                   shape: tuple) -> _build.PolarDecodeParams:
+    """K15's launch for received LLRs of ``shape`` [(S,) B, E] in
+    ``code``: a warp per codeword, up to DECODE_WARPS a CTA; the rate
+    dematch's rounds; the CRC register a good message leaves (``syndrome``
+    masked to the CRC's length); the node schedule by value
+    (:func:`_sc_words`); raises on what the kernel does not take."""
+    if (len(shape) not in (2, 3) or shape[-1] != code.e or 0 in shape
+            or not 32 <= code.big_n <= MAX_N):
+        raise ValueError(f"llrs must be float32 [(S,) B, {code.e}] for 32 "
+                         f"<= N <= {MAX_N}, got {tuple(shape)} at N = "
+                         f"{code.big_n}")
+    words = _sc_words(np.asarray(code.frozen_mask, np.uint8).tobytes())
+    if len(words) > _build.POLAR_MAX_STEPS:
+        raise ValueError(f"K15 takes up to {_build.POLAR_MAX_STEPS} steps, "
+                         f"this code has {len(words)}")
+    b = int(np.prod(shape[:-1]))
+    crc_len, _ = POLYS[crc_name]
+    p = _build.PolarDecodeParams(
+        B=b, E=code.e, n=code.n, K=code.k, R=max(1, -(-code.e // code.big_n)),
+        nops=len(words), warps=min(DECODE_WARPS, b),
+        expect=int(syndrome) & ((1 << crc_len) - 1))
+    p.words[:len(words)] = words.tolist()
+    return p
+
+
+_DECODE_PLANS: collections.OrderedDict = collections.OrderedDict()
+_DECODE_LOCK = threading.Lock()
+
+
+def _decode_plan(code: PolarCode, crc_name: str, syndrome: int, shape,
+                 index: int) -> tuple:
+    """K15's plan on CUDA device ``index``: (its launch, with the code's
+    table; the outputs' leading shape; K; the code), in a bounded LRU keyed
+    by the code's identity (the plan holds the code, so its id is not
+    reused while the plan lives), the CRC, the syndrome and the shape."""
+    key = (id(code), crc_name, syndrome, shape, index)
+    with _DECODE_LOCK:
+        plan = _DECODE_PLANS.get(key)
+        if plan is not None:
+            _DECODE_PLANS.move_to_end(key)
+            return plan
+    params = _decode_params(code, crc_name, syndrome, shape)
+    keys = _code_keys(code)
+    table = torch.from_numpy(_decode_table(
+        *keys["tables"], *keys["readout"], crc_name)).to(
+            torch.device("cuda", index))
+    plan = (_build.Launch("srsran_polar_decode", index, params, (table,)),
+            tuple(shape[:-1]), code.k, code)
+    with _DECODE_LOCK:
+        _DECODE_PLANS[key] = plan
+        if len(_DECODE_PLANS) > DECODE_PLANS_MAX:
+            _DECODE_PLANS.popitem(last=False)
+    return plan
+
+
 def decode(llrs: torch.Tensor, code: PolarCode, crc_name: str,
            syndrome: int = 0) -> tuple:
     """Received LLRs f32 [B, E] -> (message bits int8 [B, K], CRC ok bool
@@ -483,30 +596,16 @@ def decode(llrs: torch.Tensor, code: PolarCode, crc_name: str,
     must equal ``syndrome`` -- 0 for a plain trailing CRC, a DCI's
     :func:`pdcch.dci_syndrome` for its RNTI.  A slot batch's llrs
     [S, B, E] give [S, B, K] and [S, B] from one launch."""
-    if not is_cuda(llrs):
+    if not llrs.is_cuda:
         return decode_ref(llrs, code, crc_name, syndrome)
-    if (llrs.dtype != torch.float32 or llrs.ndim not in (2, 3)
-            or llrs.shape[-1] != code.e):
-        raise ValueError(f"llrs must be float32 [(S,) B, {code.e}], got "
-                         f"{llrs.dtype} {tuple(llrs.shape)}")
-    dev = llrs.device
-    lead = tuple(llrs.shape[:-1])
-    b = llrs.numel() // code.e
-    keys = _code_keys(code)
-    program = const(_sc_program, *keys["program"], device=dev)
-    tables = const(_dematch_tables, *keys["tables"], device=dev)
-    readout = const(_readout, *keys["readout"], device=dev,
-                    dtype=torch.int32)
-    crc_len, poly = POLYS[crc_name]
-    llrs = llrs.contiguous()
-    bits = torch.empty(lead + (code.k,), dtype=torch.int8, device=dev)
-    ok = torch.empty(lead, dtype=torch.bool, device=dev)
-    lib = _build.load()
-    _build.check(lib.srsran_polar_decode(
-        _build.ptr(llrs), b, code.e, code.n, _build.ptr(tables),
-        _build.ptr(program), program.shape[0], _build.ptr(readout), code.k,
-        crc_len, poly, int(syndrome),
-        _build.ptr(bits), _build.ptr(ok), _build.stream_of(llrs)),
-        "polar_decode")
+    if llrs.dtype is not torch.float32:
+        raise ValueError(f"llrs must be float32, got {llrs.dtype}")
+    launch, lead, k, _ = _decode_plan(code, crc_name, int(syndrome),
+                                      tuple(llrs.shape), llrs.get_device())
+    if not llrs.is_contiguous():
+        llrs = llrs.contiguous()
+    bits = llrs.new_empty(lead + (k,), dtype=torch.int8)
+    ok = llrs.new_empty(lead, dtype=torch.bool)
+    launch(llrs.data_ptr(), bits.data_ptr(), ok.data_ptr())
     (KERNEL_BATCH if len(lead) > 1 else KERNEL).count()
     return bits, ok

@@ -115,6 +115,44 @@ def test_channel_estimate_batched(cuda, b):
         assert torch.equal(est.time_alignment_s[i], one.time_alignment_s)
 
 
+@pytest.mark.parametrize("b", [1, 4])
+def test_channel_estimate_batched_16_streams(cuda, b):
+    """K8 with a slot axis at P L = 16 (a 4-port SRS-like comb 4 on 4 rx
+    ports, shared pilots), one launch for the B slots, then the same
+    launch captured in a CUDA graph and replayed on new slots."""
+    rng = np.random.default_rng(40 + b)
+    scs = 4 * np.arange(72)
+    expected = torch.as_tensor(np.exp(1j * np.pi / 2 * rng.integers(
+        0, 4, (4, 1, 72))).astype(np.complex64)).to(cuda)
+
+    def grid():
+        g = 0.05 * _grid(rng, b, cuda)
+        h = _cgauss(rng, (b, 4, 4)).to(cuda)
+        g[:, :, 13, scs] += torch.einsum("bpl,lk->bpk", h, expected[:, 0])
+        return g
+
+    static = grid()
+    args = (static, (13,), 0, expected, scs, 288, 14, 30e3)
+    kw = dict(stride=4, estimate_cfo=False)
+    est = chest.estimate_from_grid(*args, **kw)
+    ref = chest.estimate_from_grid_ref(*args, **kw)
+    assert est.coeffs.shape == (b, 4, 4, 1, 288)
+    assert torch.equal(est.time_alignment_s.cpu(), ref.time_alignment_s.cpu())
+    for key in ("coeffs", "noise_var", "rsrp", "epre", "snr"):
+        _close(getattr(est, key), getattr(ref, key), 1e-4)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = chest.estimate_from_grid(*args, **kw)
+    static.copy_(grid())
+    graph.replay()
+    torch.cuda.synchronize()
+    ref = chest.estimate_from_grid_ref(*args, **kw)
+    assert torch.equal(out.time_alignment_s.cpu(), ref.time_alignment_s.cpu())
+    for key in ("coeffs", "noise_var", "rsrp", "epre", "snr"):
+        _close(getattr(out, key), getattr(ref, key), 1e-4)
+
+
 @pytest.mark.parametrize("modulation", ["qam64", "pi2bpsk"])
 @pytest.mark.parametrize("b", [1, 4])
 def test_pusch_demap_batched(cuda, b, modulation):
@@ -436,6 +474,34 @@ def test_polar_decode_batched(cuda, b, k, e, n_pc, crc_name):
     assert torch.equal(bits, bits_ref) and torch.equal(ok, ok_ref)
     for s in range(b):
         _same((bits[s], ok[s]), polar.decode(llr[s], code, crc_name))
+
+
+@pytest.mark.parametrize("b", [1, 16])
+def test_polar_decode_batched_in_a_cuda_graph(cuda, b):
+    """K15 over B slots of 8 PBCH-sized codewords (N = 512), one launch
+    captured in a CUDA graph and replayed on new LLRs."""
+    code = polar_params.polar_code(56, 864, nmax=9, ibil=False)
+    rng = np.random.default_rng(140 + b)
+
+    def llrs():
+        msg = rng.integers(0, 2, (8 * b, code.k)).astype(np.int8)
+        x = polar.rate_match(polar.encode(polar.allocate(
+            torch.as_tensor(msg), code), code.n), code).numpy()
+        return torch.as_tensor(((1.0 - 2.0 * x) + 0.8 * rng.standard_normal(
+            x.shape)).astype(np.float32)).reshape(b, 8, code.e).to(cuda)
+
+    static = llrs()
+    polar.decode(static, code, "crc24C")
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        bits, ok = polar.decode(static, code, "crc24C")
+    static.copy_(llrs())
+    graph.replay()
+    torch.cuda.synchronize()
+    bits_ref, ok_ref = polar.decode_ref(static, code, "crc24C")
+    assert bits.shape == (b, 8, code.k)
+    assert torch.equal(bits, bits_ref) and torch.equal(ok, ok_ref)
 
 
 # ---------------------------- K16-K19 with a slot axis (two-UE, cell edge)

@@ -245,7 +245,7 @@ def test_busy_is_union_of_intervals(intervals, busy):
     ("void pdsch_map_kernel<8>(...)", "kernel", "pdsch_map_kernel"),
     ("ofdm_cp_insert_kernel(float2 const*, ...)", "kernel",
      "ofdm_cp_insert_kernel"),
-    ("chest_interp_kernel(int, int, ...)", "kernel", "chest_interp_kernel"),
+    ("chest_kernel(float2 const*, ...)", "kernel", "chest_kernel"),
     ("prach_detect_kernel(float const*, ...)", "kernel",
      "prach_detect_kernel"),
     ("pucch_f1_kernel(float2 const*, ...)", "kernel", "pucch_f1_kernel"),

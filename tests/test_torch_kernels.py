@@ -378,6 +378,13 @@ CHEST_KERNEL_CASES = {
     "one_rb_edges": (1, 1, (2, 11), 2, False, "average", 272),
     # the flagship SRS: 1 port, comb 2, 4 RB, one symbol, CFO off
     "srs_flagship": (4, 1, (13,), 2, False, "average", 269),
+    # 4 rx ports x 4 streams (P L = 16): a 4-port SRS at comb 4 on two
+    # symbols, and 4 layers at stride 2 with CFO
+    "srs_4port_comb4": (64, 4, (12, 13), 4, False, "average", 100),
+    "four_layers": (100, 4, (2, 11), 2, False, "average", 0),
+    # every subcarrier a pilot (the F3/F4's comb), and comb 3 (the F2's)
+    "stride1": (16, 1, (3, 10), 1, False, "average", 200),
+    "comb3": (16, 1, (11, 12), 3, False, "average", 50),
 }
 
 
@@ -395,6 +402,41 @@ def test_channel_estimate_kernel(cuda, case):
               dmrs_symbol_times_s=times if cfo else None, td_strategy=td,
               dmrs_symbol_idx=np.asarray(symbols), cdm_pairs=cdm)
     out = chest.estimate_from_grid(*args, **kw)
+    ref = chest.estimate_from_grid_ref(*args, **kw)
+    assert torch.equal(out.time_alignment_s.cpu(), ref.time_alignment_s.cpu())
+    assert abs(float(out.cfo_hz) - float(ref.cfo_hz)) < 1e-2
+    for key in ("coeffs", "noise_var", "rsrp", "epre", "snr"):
+        _close(getattr(out, key), getattr(ref, key), 1e-4)
+
+
+@pytest.mark.parametrize("case", ["pusch_flagship", "pusch_interpolate",
+                                  "srs_4port_comb4"])
+def test_channel_estimate_kernel_in_a_cuda_graph(cuda, case):
+    """K8's one launch captured in a CUDA graph (its plan made by a call
+    before the capture) and replayed on a new grid: the twin's results on
+    that grid."""
+    nrb, layers, symbols, stride, cdm, td, rb0 = CHEST_KERNEL_CASES[case]
+    rng = np.random.default_rng(3 + len(case))
+    grid, expected, scs = _chest_inputs(rng, nrb, layers, symbols, stride,
+                                        cdm, rb0)
+    cfo = len(symbols) > 1
+    times = np.array([0.1428, 0.5, 0.7857])[:len(symbols)] * 1e-3
+    static = grid.to(cuda)
+    args = (static, symbols, rb0 * 12, expected.to(cuda), scs, nrb * 12, 14,
+            15e3)
+    kw = dict(stride=stride, estimate_cfo=cfo,
+              dmrs_symbol_times_s=times if cfo else None, td_strategy=td,
+              dmrs_symbol_idx=np.asarray(symbols), cdm_pairs=cdm)
+    chest.estimate_from_grid(*args, **kw)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = chest.estimate_from_grid(*args, **kw)
+    fresh, _, _ = _chest_inputs(np.random.default_rng(99), nrb, layers,
+                                symbols, stride, cdm, rb0)
+    static.copy_(fresh.to(cuda))
+    graph.replay()
+    torch.cuda.synchronize()
     ref = chest.estimate_from_grid_ref(*args, **kw)
     assert torch.equal(out.time_alignment_s.cpu(), ref.time_alignment_s.cpu())
     assert abs(float(out.cfo_hz) - float(ref.cfo_hz)) < 1e-2
@@ -589,6 +631,35 @@ def test_polar_decode_kernel(cuda, k, e, n_pc, crc_name):
     bits_ref, ok_ref = polar.decode_ref(llr, code, crc_name)
     assert torch.equal(bits, bits_ref)
     assert torch.equal(ok, ok_ref)
+
+
+@pytest.mark.parametrize("b", [1, 64])
+@pytest.mark.parametrize("k,e,crc_name", [(33, 64, "crc11"),
+                                          (111, 1000, "crc11")])
+def test_polar_decode_kernel_in_a_cuda_graph(cuda, b, k, e, crc_name):
+    """K15's one launch for B codewords captured in a CUDA graph and
+    replayed on new LLRs: the twin's bits and flags."""
+    code = polar_params.polar_code(k, e, nmax=10, ibil=True)
+    rng = np.random.default_rng(b + k)
+
+    def llrs():
+        msg = rng.integers(0, 2, (b, k)).astype(np.int8)
+        x = polar.rate_match(polar.encode(polar.allocate(
+            torch.as_tensor(msg), code), code.n), code).numpy()
+        return torch.as_tensor(((1.0 - 2.0 * x) + 0.8 * rng.standard_normal(
+            x.shape)).astype(np.float32))
+
+    static = llrs().to(cuda)
+    polar.decode(static, code, crc_name)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        bits, ok = polar.decode(static, code, crc_name)
+    static.copy_(llrs().to(cuda))
+    graph.replay()
+    torch.cuda.synchronize()
+    bits_ref, ok_ref = polar.decode_ref(static, code, crc_name)
+    assert torch.equal(bits, bits_ref) and torch.equal(ok, ok_ref)
 
 
 # The two-UE UL slot's kernels: K16 L x N equalize-demap, K17 UL-SCH / UCI

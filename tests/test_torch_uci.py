@@ -179,29 +179,66 @@ def test_polar_decode_all_zero_llrs():
     assert not want.any() and bool(ok[0])   # all-zero message, zero CRC
 
 
+def _unencode(x: np.ndarray) -> np.ndarray:
+    """The decided bits u of a node with hard bits x (the polar butterfly,
+    its own inverse)."""
+    u = x.copy()
+    half = 1
+    while half < len(u):
+        for i in range(len(u) // 2):
+            a = (i // half) * 2 * half + i % half
+            u[a] ^= u[a + half]
+        half *= 2
+    return u
+
+
+def _node(v: np.ndarray, fro: np.ndarray) -> tuple:
+    """A node with LLRs v and frozen flags fro decided by SC min-sum in
+    float32: (its hard bits x, its decided bits u)."""
+    if fro.all():
+        return np.zeros(len(v), np.uint8), np.zeros(len(v), np.uint8)
+    if not fro.any():
+        x = (v < 0).astype(np.uint8)
+        return x, _unencode(x)
+    h = len(v) // 2
+    a, b = v[:h], v[h:]
+    xl, ul = _node(np.sign(a) * np.sign(b) * np.minimum(abs(a), abs(b)),
+                   fro[:h])
+    xr, ur = _node(b + (np.float32(1) - 2 * xl.astype(np.float32)) * a,
+                   fro[h:])
+    return np.concatenate([xl ^ xr, xr]), np.concatenate([ul, ur])
+
+
 def _run_program(llr_n: np.ndarray, code) -> np.ndarray:
-    """K15's node schedule replayed in numpy: level buffers of LLRs and
-    hard bits, the decided bits u; returns u (float32 arithmetic)."""
+    """K15's step words replayed in numpy: level buffers of LLRs and hard
+    bits, the decided bits u; returns u (float32 arithmetic)."""
     n = code.big_n
     lvl = {m: 2 * n - 2 * m for m in [1 << i for i in range(code.n + 1)]}
     L = np.zeros(2 * n, np.float32)
     X = np.zeros(2 * n, np.uint8)
     U = np.zeros(n, np.uint8)
     L[:n] = llr_n
-    prog = t_polar._sc_program(np.asarray(code.frozen_mask, np.uint8).tobytes())
-    for op, lg, lo in prog:
+    words = t_polar._sc_words(np.asarray(code.frozen_mask,
+                                         np.uint8).tobytes())
+    for w in words.astype(np.int64):
+        op, lg = int(w & 7), int(w >> t_polar._LG_SHIFT & 15)
         m = 1 << lg
         h = m // 2
         lm, lh = lvl[m], lvl.get(h, 0)
+        if op == t_polar._OP_SUB:               # a mixed node, whole
+            lo = int(w >> t_polar._SUB_LO_SHIFT & 63) * m
+            fro = (int(w >> t_polar._SUB_MASK_SHIFT) >> np.arange(m)) & 1
+            X[lm:lm + m], U[lo:lo + m] = _node(L[lm:lm + m], fro == 1)
+            continue
+        lo = int(w >> t_polar._LO_SHIFT)
         if op == t_polar._OP_F:
             a, b = L[lm:lm + h], L[lm + h:lm + m]
             L[lh:lh + h] = np.sign(a) * np.sign(b) * np.minimum(abs(a), abs(b))
-        elif op == t_polar._OP_G:
+        elif op == t_polar._OP_G:               # keeps the left bits first
+            X[lm:lm + h] = X[lh:lh + h]
             a, b = L[lm:lm + h], L[lm + h:lm + m]
             L[lh:lh + h] = b + (np.float32(1) - 2 * X[lm:lm + h]
                                 .astype(np.float32)) * a
-        elif op == t_polar._OP_SAVE:
-            X[lm:lm + h] = X[lh:lh + h]
         elif op == t_polar._OP_COMB:
             r = X[lh:lh + h].copy()
             X[lm:lm + h] ^= r
@@ -210,13 +247,7 @@ def _run_program(llr_n: np.ndarray, code) -> np.ndarray:
             X[lm:lm + m] = 0
         else:
             X[lm:lm + m] = L[lm:lm + m] < 0
-            U[lo:lo + m] = X[lm:lm + m]
-            half = 1
-            while half < m:
-                for i in range(h):
-                    a = lo + (i // half) * 2 * half + i % half
-                    U[a] ^= U[a + half]
-                half *= 2
+            U[lo:lo + m] = _unencode(X[lm:lm + m])
     return U
 
 
