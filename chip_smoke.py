@@ -491,12 +491,13 @@ MU_BATCH_LAUNCHES = {**{k: v for k, v in _TWO_PUSCH.items()
 EDGE_BATCH_LAUNCHES = {**_TWO_PUSCH, "pusch_tp_demap_batch": 1,
                        "pucch_f3_demap_batch": 2,
                        "channel_estimate_batch": 6}
-# K32's, K21's, K18's, K19's, K33's, K34's and K35's cases: host µs per
-# call over HOST_CALLS calls and device µs from a profiler trace, for the
-# kernel and its library call (K35's quantize, which no one call computes:
-# its plain twin).  K27's (phase 12) go through
+# K9's, K16's, K32's, K21's, K18's, K19's, K33's, K34's and K35's cases:
+# host µs per call over HOST_CALLS calls and device µs from a profiler
+# trace, for the kernel and its library call (K35's quantize, which no one
+# call computes: its plain twin).  K27's (phase 12) go through
 # ``launch_profile.control_calls``.
-HOST_TIMED = ("rate_match", "prach_demod", "prach_demod_n6144",
+HOST_TIMED = ("prach_detect", "pusch_demap_lxn", "pusch_demap_lxn_1l_mmse",
+              "rate_match", "prach_demod", "prach_demod_n6144",
               "prach_demod_format0", "pusch_tp_demap",
               "pusch_tp_demap_m300", "pusch_tp_demap_m2916",
               "pusch_tp_demap_widest", "pucch_f3_demap", "pucch_f3_demap_f4",
@@ -1223,7 +1224,9 @@ def ul_phases(dev, gen, rng, card) -> tuple:
 
     cases = flagship.kernel_cases(slots[0][1], slots[0][2], gen, prach_in)
     cases.update(flagship.ldpc_decode_cases(cases, gen))
-    results = kernel_phases(cases)
+    results = kernel_phases(cases, {"prach_detect": launch_profile.
+                                    prach_idft_library(
+                                        cases["prach_detect"][2])})
 
     # The main path.  Warm up (builds the device constants), then count
     # launches over NOF_SLOTS slots.
@@ -1588,7 +1591,11 @@ def mu_phases(dev, gen, rng, card) -> tuple:
     print(f"two-UE transmitters: {len(slots)} slots in "
           f"{time.perf_counter() - t0:.1f} s (UE B's ACK and CSI1 by K34, "
           f"CSI2 by K33: launches {ue_launches})", flush=True)
-    results = kernel_phases(flagship.mu_kernel_cases(slots[0], gen))
+    cases = flagship.mu_kernel_cases(slots[0], gen)
+    results = kernel_phases(cases, {
+        name: launch_profile.lxn_solve_library(args)
+        for name, (_, _, args) in cases.items()
+        if name.startswith("pusch_demap_lxn")})
 
     def run(s):
         return flagship.mu_program(s["uci"]["ri"])(s["rx"], prach_in, softs,

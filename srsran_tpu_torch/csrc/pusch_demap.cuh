@@ -1,5 +1,5 @@
-// Per-RE helpers shared by the PUSCH demap kernels K3 (pusch_demap.cu), K16
-// (pusch_demap_lxn.cu), K18 and K19 (dft_s_ofdm.cu): complex arithmetic
+// Per-RE helpers shared by the PUSCH demap kernels K3 (pusch_demap.cu), K18
+// and K19 (dft_s_ofdm.cu; K16 has its own): complex arithmetic
 // with one rounding per operation, the exact max-log demap of one real axis
 // and of one symbol of any modulation, with the Gold sign (the twin is
 // srsran_tpu_torch/ops/modulation.py::demodulate followed by

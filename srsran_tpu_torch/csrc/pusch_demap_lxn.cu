@@ -10,254 +10,419 @@
 // srsran_tpu/phy/upper/pusch.py::_frontend_hop (:209-219).  Twin:
 // srsran_tpu_torch/ops/ul_demap.py::equalize_demap_descramble_ref.
 //
-// Design.  One thread per data RE, everything in registers.  The thread
-// gathers y[p] and h[p][l] through the host RE plan and accumulates the
-// upper triangle of G = H^H H (at most 10 complex entries) and z = H^H y
-// over the P ports.  One layer: the 1 x N closed forms (ZF, or MMSE with
-// x = z / (|h|^2 + nv)).  Two to four layers: A = G + c I (c = nv for MMSE,
-// 1e-9 for ZF), factored A = L D L^H (unit lower L, real D: Hermitian
-// positive definite, no square roots), W = L^-1, A^-1 = W^H D^-1 W, x =
-// A^-1 z; the output noise is nv [A^-1]_ll (ZF) or nv [A^-1 G A^-1]_ll
-// (MMSE, from G itself, not A^-1 - c A^-2, which cancels at low SNR), 1e12
-// where it is not positive.  The JAX package inverts A by LU with pivoting,
-// so the two round differently: parity is to a tolerance.  Then the demap
-// and the Gold sign of K3 (pusch_demap.cuh's demap_symbol, every modulation
-// from BPSK to 256QAM, pi/2-BPSK's parity from the launch's first codeword
-// symbol as in K3), LLRs in codeword order (RE-major, layer-minor) and x
-// for the EVM.
+// What bounds it.  Bytes: per RE it reads P complex samples and P L complex
+// coefficients and writes L Qm float LLRs and L complex symbols; at the
+// 4-layer QAM64 UE of the two-UE slot (27,060 REs, 4 ports) about 4.6 MB,
+// some 1.4 us at 3.35 TB/s, 3.5 MB of it the LLR and symbol writes.  The
+// former design kept four full 4 x 4 complex matrices live a thread (the
+// Gram, the factor, its inverse and A^-1: 128 floats), took an IEEE
+// division inside its triple loop (30 a RE at L = 4) and one per LLR, and
+// stored each RE's 24 LLRs from its own thread, 96 bytes from its
+// neighbour's: every warp store touched 32 sectors, 28 times a RE.
+//
+// Design.  One thread per data RE, 64 REs a CTA, registers capped for 12
+// CTAs an SM (80, no spill): UE A's 423 CTAs run three or four an SM, a
+// batch of four (1,692) nearly in one wave.  The thread gathers y[p] and
+// h[p][l] through the host RE plan (the ports' loads issued together) and
+// accumulates the upper triangle of G = H^H H (10 complex values at L = 4)
+// and z = H^H y.  One layer: the 1 x N closed forms (ZF, or MMSE with x =
+// z / (|h|^2 + nv)), one reciprocal.  Two to four layers: A = G + c I (c =
+// nv for MMSE, 1e-9 for ZF) factored in place as L D L^H (unit lower L,
+// real D; one reciprocal per pivot), x by forward substitution, D^-1 and
+// back substitution -- no inverse is formed.  The output noise column by
+// column: w = L^-1 e_l by forward substitution; ZF nv [A^-1]_ll = nv sum_k
+// |w_k|^2 / d_k; MMSE nv c^H G c with c = A^-1 e_l = L^-H D^-1 w (from G
+// itself, not A^-1 - c A^-2, which cancels at low SNR); 1e12 where it is
+// not positive.  The reciprocals are the SFU's (within 2 ulp): an
+// IEEE-rounded one branches to a slow path that serialises the layers'
+// chains.  The JAX package inverts A by LU with pivoting, so the two round
+// differently: parity is to a tolerance.  Then the demap (its own: one
+// reciprocal of the layer's noise, then multiplies; each bit's two minima
+// as trees; every modulation from BPSK to 256QAM, pi/2-BPSK's parity from
+// the launch's first codeword symbol as in K3) into shared memory, and x
+// beside it.  A CTA's REs are contiguous in codeword order, so its LLRs and
+// symbols are two contiguous spans: the CTA writes them as 16-byte vectors
+// (the staging offset matches the span's alignment), each LLR's Gold sign
+// flipped on the way from the plan's Gold bits packed 32 a word, the CTA's
+// words loaded into shared memory at its start.
 //
 // A slot axis (the slot-batch mode): blockIdx.y picks the slot, whose grid,
-// coefficients, noise variance, LLRs and symbols lie at fixed strides, as
-// in K3; the RE plan, the level table and the Gold bits are shared.  A
-// slot is only an offset: each slot's arithmetic is its unbatched launch's.
-//
-// Bounds on this card: memory -- per RE it reads P complex samples and
-// P*L complex coefficients and writes L*Qm f32 LLRs and L complex symbols;
-// at the 4-layer QAM64 UE of the two-UE slot (27,060 REs, 4 ports) about
-// 4.6 MB, some 1.4 us at 3.35 TB/s; the solve is ~600 flops per RE.
+// coefficients, noise variance, LLRs and symbols lie at fixed strides; the
+// RE plan, the level table and the Gold bits are shared.  A slot is only an
+// offset: each slot's arithmetic is its unbatched launch's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "pusch_demap.cuh"
-
 namespace {
 
-using namespace srsran_demap;
+constexpr int kLxnThreads = 64;      // REs a CTA
+constexpr int kLxnMaxLevels = 16;    // PAM levels (256QAM)
 
-struct DemapArgs {
-  const float2* grid;
-  const float2* coeffs;
-  const int* sym;
-  const int* sc;
-  int nre, P, S, K, T, Ka, sc_off;
-  const float* nv_ptr;
-  const float* levels;
-  int kind, rot0;
+// The launch, by value (srsran_tpu_torch/kernels/_build.py LxnParams).
+struct LxnParams {
+  int nre, P, S, K, L, T, Ka, sc_off;
+  int kind;       // 0 BPSK, 1 pi/2-BPSK, 2 QAM (QPSK .. 256QAM)
+  int half;       // PAM bits an axis (1 for BPSK)
+  int rot0;       // pi/2-BPSK: the parity of the launch's first symbol
+  int mmse, nslots;
   float two_scale;
-  const uint8_t* seq;
-  float* llr;
-  float2* x;
+  float levels[kLxnMaxLevels];
 };
+
+__device__ __forceinline__ float2 csub(float2 a, float2 b) {
+  return make_float2(a.x - b.x, a.y - b.y);
+}
 
 __device__ __forceinline__ float2 cconj(float2 a) {
   return make_float2(a.x, -a.y);
 }
 
 __device__ __forceinline__ float2 cscale(float2 a, float s) {
-  return make_float2(__fmul_rn(a.x, s), __fmul_rn(a.y, s));
+  return make_float2(a.x * s, a.y * s);
+}
+
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(fmaf(a.x, b.x, -a.y * b.y), fmaf(a.x, b.y, a.y * b.x));
+}
+
+// acc + conj(a) b
+__device__ __forceinline__ float2 cjfma(float2 a, float2 b, float2 acc) {
+  return make_float2(fmaf(a.x, b.x, fmaf(a.y, b.y, acc.x)),
+                     fmaf(a.x, b.y, fmaf(-a.y, b.x, acc.y)));
+}
+
+__device__ __forceinline__ float abs2(float2 a) {
+  return fmaf(a.x, a.x, a.y * a.y);
+}
+
+// A reciprocal by the SFU (within 2 ulp; the operands lie in [1e-30,
+// 1e30]): an IEEE-rounded one branches to a slow path, which splits the
+// layers' chains and serialises them.
+__device__ __forceinline__ float rcp(float x) { return __fdividef(1.f, x); }
+
+// Packed upper triangle of an L x L Hermitian matrix (j <= i) and strict
+// lower triangle of the unit factor (i > j).
+template <int L>
+__host__ __device__ constexpr int up(int j, int i) {
+  return j * L - j * (j - 1) / 2 + (i - j);
+}
+__host__ __device__ constexpr int lo(int i, int j) {
+  return i * (i - 1) / 2 + j;
 }
 
 template <int L, bool MMSE>
-__device__ __forceinline__ void solve(const float2 (&g)[L][L],
+__device__ __forceinline__ void solve(const float2 (&g)[L * (L + 1) / 2],
                                       const float2 (&z)[L], float nv,
-                                      float2 (&xs)[L], float (&nvs)[L]) {
+                                      float2 (&x)[L], float (&nvs)[L]) {
   if constexpr (L == 1) {
-    const float energy = g[0][0].x;
+    const float e = g[0].x;
     if constexpr (MMSE) {
-      const float den = fmaxf(__fadd_rn(energy, nv), 1e-12f);
-      xs[0] = make_float2(__fdiv_rn(z[0].x, den), __fdiv_rn(z[0].y, den));
-      nvs[0] = energy < 1e-12f
-                   ? 1e12f
-                   : __fdiv_rn(__fmul_rn(nv, energy), __fmul_rn(den, den));
+      const float inv = rcp(fmaxf(e + nv, 1e-12f));
+      x[0] = cscale(z[0], inv);
+      nvs[0] = e < 1e-12f ? 1e12f : nv * e * inv * inv;
     } else {
-      const float inv = __fdiv_rn(1.f, fmaxf(energy, 1e-12f));
-      xs[0] = cscale(z[0], inv);
-      nvs[0] = energy < 1e-12f ? 1e12f : __fmul_rn(nv, inv);
+      const float inv = rcp(fmaxf(e, 1e-12f));
+      x[0] = cscale(z[0], inv);
+      nvs[0] = e < 1e-12f ? 1e12f : nv * inv;
     }
   } else {
     const float ridge = MMSE ? nv : 1e-9f;
-    // A = L D L^H over the upper triangle g[j][i] (j <= i) of G.
-    float d[L];
-    float2 lo[L][L];
+    // A = L D L^H in place: d, its reciprocals, the factor's lower part.
+    float d[L], rd[L];
+    float2 f[L * (L - 1) / 2];
 #pragma unroll
     for (int j = 0; j < L; ++j) {
-      float dj = __fadd_rn(g[j][j].x, ridge);
+      float dj = g[up<L>(j, j)].x + ridge;
 #pragma unroll
-      for (int k = 0; k < j; ++k)
-        dj = __fsub_rn(dj, __fmul_rn(abs2(lo[j][k]), d[k]));
+      for (int k = 0; k < j; ++k) dj -= abs2(f[lo(j, k)]) * d[k];
       d[j] = fmaxf(dj, 1e-30f);
-      const float inv_d = __fdiv_rn(1.f, d[j]);
+      rd[j] = rcp(d[j]);
 #pragma unroll
       for (int i = j + 1; i < L; ++i) {
-        float2 v = cconj(g[j][i]);                       // A[i][j]
+        float2 v = cconj(g[up<L>(j, i)]);                  // A[i][j]
 #pragma unroll
-        for (int k = 0; k < j; ++k) {
-          const float2 t = cscale(cmul(lo[i][k], cconj(lo[j][k])), d[k]);
-          v = make_float2(__fsub_rn(v.x, t.x), __fsub_rn(v.y, t.y));
+        for (int k = 0; k < j; ++k)
+          v = csub(v, cscale(cmul(f[lo(i, k)], cconj(f[lo(j, k)])), d[k]));
+        f[lo(i, j)] = cscale(v, rd[j]);
+      }
+    }
+    // x: L u = z, v = D^-1 u, L^H x = v.
+    float2 u[L];
+#pragma unroll
+    for (int i = 0; i < L; ++i) {
+      u[i] = z[i];
+#pragma unroll
+      for (int k = 0; k < i; ++k) u[i] = csub(u[i], cmul(f[lo(i, k)], u[k]));
+    }
+#pragma unroll
+    for (int i = L - 1; i >= 0; --i) {
+      float2 v = cscale(u[i], rd[i]);
+#pragma unroll
+      for (int k = i + 1; k < L; ++k)
+        v = csub(v, cmul(cconj(f[lo(k, i)]), x[k]));
+      x[i] = v;
+    }
+    // The noise diagonal, a column at a time: w = L^-1 e_l.
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      float2 w[L];
+#pragma unroll
+      for (int k = 0; k < L; ++k) {
+        w[k] = make_float2(k == l ? 1.f : 0.f, 0.f);
+        if (k > l) {
+#pragma unroll
+          for (int m = l; m < k; ++m)
+            w[k] = csub(w[k], cmul(f[lo(k, m)], w[m]));
         }
-        lo[i][j] = cscale(v, inv_d);
       }
-    }
-    // W = L^-1 (unit lower): W[i][j] = -sum_{k=j}^{i-1} L[i][k] W[k][j].
-    float2 w[L][L];
-#pragma unroll
-    for (int j = 0; j < L; ++j) {
-#pragma unroll
-      for (int i = 0; i < L; ++i)
-        w[i][j] = make_float2(i == j ? 1.f : 0.f, 0.f);
-#pragma unroll
-      for (int i = j + 1; i < L; ++i) {
-        float2 acc = lo[i][j];
-#pragma unroll
-        for (int k = j + 1; k < i; ++k) acc = cadd(acc, cmul(lo[i][k], w[k][j]));
-        w[i][j] = make_float2(-acc.x, -acc.y);
-      }
-    }
-    // A^-1[l][m] = sum_{k >= max(l, m)} conj(W[k][l]) W[k][m] / d[k].
-    float2 ai[L][L];
-#pragma unroll
-    for (int l = 0; l < L; ++l) {
-#pragma unroll
-      for (int m = 0; m < L; ++m) {
-        float2 acc = make_float2(0.f, 0.f);
-#pragma unroll
-        for (int k = (l > m ? l : m); k < L; ++k)
-          acc = cadd(acc, cscale(cjmul(w[k][l], w[k][m]),
-                                 __fdiv_rn(1.f, d[k])));
-        ai[l][m] = acc;
-      }
-    }
-#pragma unroll
-    for (int l = 0; l < L; ++l) {
-      float2 acc = make_float2(0.f, 0.f);
-#pragma unroll
-      for (int m = 0; m < L; ++m) acc = cadd(acc, cmul(ai[l][m], z[m]));
-      xs[l] = acc;
-      float diag;
+      float diag = 0.f;
       if constexpr (MMSE) {
-        // [A^-1 G A^-1]_ll = sum_{m,n} A^-1[l][m] G[m][n] conj(A^-1[l][n])
-        float2 s = make_float2(0.f, 0.f);
+        // c = A^-1 e_l = L^-H D^-1 w, then c^H G c.
+        float2 c[L];
+#pragma unroll
+        for (int i = L - 1; i >= 0; --i) {
+          float2 v = i >= l ? cscale(w[i], rd[i]) : make_float2(0.f, 0.f);
+#pragma unroll
+          for (int k = i + 1; k < L; ++k)
+            v = csub(v, cmul(cconj(f[lo(k, i)]), c[k]));
+          c[i] = v;
+        }
+        float off = 0.f;
 #pragma unroll
         for (int m = 0; m < L; ++m) {
-          float2 row = make_float2(0.f, 0.f);
+          diag = fmaf(g[up<L>(m, m)].x, abs2(c[m]), diag);
 #pragma unroll
-          for (int n = 0; n < L; ++n) {
-            const float2 gmn = m <= n ? g[m][n] : cconj(g[n][m]);
-            row = cadd(row, cmul(gmn, cconj(ai[l][n])));
-          }
-          s = cadd(s, cmul(ai[l][m], row));
+          for (int n = m + 1; n < L; ++n)
+            off += cmul(cconj(c[m]), cmul(g[up<L>(m, n)], c[n])).x;
         }
-        diag = s.x;
+        diag = fmaf(2.f, off, diag);
       } else {
-        diag = ai[l][l].x;
+#pragma unroll
+        for (int k = l; k < L; ++k) diag = fmaf(abs2(w[k]), rd[k], diag);
       }
-      nvs[l] = diag <= 0.f ? 1e12f : __fmul_rn(nv, diag);
+      nvs[l] = diag <= 0.f ? 1e12f : nv * diag;
     }
   }
 }
 
-template <int L, bool MMSE, int HALF>
-__global__ void pusch_demap_lxn_kernel(const DemapArgs a) {
-  const int re = blockIdx.x * blockDim.x + threadIdx.x;
-  if (re >= a.nre) return;
-  const int qm = a.kind < 2 ? 1 : 2 * HALF;
-  const size_t b = blockIdx.y;                       // slot
-  const float2* grid = a.grid + b * a.P * a.S * a.K;
-  const float2* coeffs = a.coeffs + b * a.P * L * a.T * a.Ka;
-  float* llr = a.llr + b * a.nre * L * qm;
-  float2* x = a.x + b * a.nre * L;
-  const int s = a.sym[re];
-  const int k = a.sc[re];
-  const int ka = k - a.sc_off;
-  const int t = (a.T == 1) ? 0 : s;
-  const float nv = a.nv_ptr[b];
-  float2 g[L][L];
-  float2 z[L];
+// The max-log LLRs of one PAM axis (HALF bits) into out[0], out[2], ...,
+// before the Gold sign: (min d^2 over bit 1 - min d^2 over bit 0) / nv.
+template <int HALF>
+__device__ __forceinline__ void demap_axis(float coord, float inv_nv,
+                                           const LxnParams& p, float* out) {
+  constexpr int NL = 1 << HALF;
+  float d2[NL];
 #pragma unroll
-  for (int l = 0; l < L; ++l) {
-    z[l] = make_float2(0.f, 0.f);
-#pragma unroll
-    for (int m = 0; m < L; ++m) g[l][m] = make_float2(0.f, 0.f);
+  for (int v = 0; v < NL; ++v) {
+    const float diff = coord - p.levels[v];
+    d2[v] = diff * diff;
   }
-  for (int p = 0; p < a.P; ++p) {
-    const float2 y = grid[((size_t)p * a.S + s) * a.K + k];
-    float2 h[L];
 #pragma unroll
-    for (int l = 0; l < L; ++l)
-      h[l] = coeffs[(((size_t)p * L + l) * a.T + t) * a.Ka + ka];
+  for (int i = 0; i < HALF; ++i) {
+    // each half's minimum as a tree (min is exact: any order is the same)
+    float m0[NL / 2], m1[NL / 2];
+#pragma unroll
+    for (int v = 0, j0 = 0, j1 = 0; v < NL; ++v) {
+      if ((v >> (HALF - 1 - i)) & 1)
+        m1[j1++] = d2[v];
+      else
+        m0[j0++] = d2[v];
+    }
+#pragma unroll
+    for (int w = NL / 4; w >= 1; w /= 2) {
+#pragma unroll
+      for (int j = 0; j < w; ++j) {
+        m0[j] = fminf(m0[j], m0[j + w]);
+        m1[j] = fminf(m1[j], m1[j + w]);
+      }
+    }
+    const float d0 = fminf(1e30f, m0[0]), d1 = fminf(1e30f, m1[0]);
+    out[2 * i] = (d1 - d0) * inv_nv;
+  }
+}
+
+// n floats of shared memory (src[i] at dst + i's alignment: src + head is
+// 16-byte aligned where dst + head is) to device memory as 16-byte vectors,
+// a scalar head and tail; with gold, element i's sign flipped by bit g0 + i
+// of the packed Gold words (words w0 on in gold, one spare after the last).
+template <bool GOLD>
+__device__ __forceinline__ void store_span(float* __restrict__ dst,
+                                           const float* src, int n,
+                                           const uint32_t* gold, int g0,
+                                           int w0) {
+  const int head = min(n, (int)((4 - (((uintptr_t)dst >> 2) & 3)) & 3));
+  const int nv4 = (n - head) >> 2;
+  const int tid = threadIdx.x;
+  // the Gold bits of elements i .. i + 31, bit 0 first
+  auto bits = [&](int i) -> uint32_t {
+    const int g = g0 + i, w = (g >> 5) - w0;
+    return __funnelshift_r(gold[w], gold[w + 1], g & 31);
+  };
+  auto sign = [&](float v, uint32_t bit) -> float {
+    return __int_as_float(__float_as_int(v) ^ (int)(bit << 31));
+  };
+  for (int i = tid; i < head; i += kLxnThreads)
+    dst[i] = GOLD ? sign(src[i], bits(i) & 1) : src[i];
+#pragma unroll 4
+  for (int v = tid; v < nv4; v += kLxnThreads) {
+    const int i = head + 4 * v;
+    float4 o = *reinterpret_cast<const float4*>(src + i);
+    if (GOLD) {
+      const uint32_t b = bits(i);
+      o = make_float4(sign(o.x, b & 1), sign(o.y, (b >> 1) & 1),
+                      sign(o.z, (b >> 2) & 1), sign(o.w, (b >> 3) & 1));
+    }
+    *reinterpret_cast<float4*>(dst + i) = o;
+  }
+  for (int i = head + 4 * nv4 + tid; i < n; i += kLxnThreads)
+    dst[i] = GOLD ? sign(src[i], bits(i) & 1) : src[i];
+}
+
+
+template <int L, bool MMSE, int HALF>
+__global__ void __launch_bounds__(kLxnThreads, 12)
+    pusch_demap_lxn_kernel(const float2* __restrict__ grid,
+                           const float2* __restrict__ coeffs,
+                           const int* __restrict__ sym,
+                           const int* __restrict__ sc,
+                           const float* __restrict__ nv_ptr,
+                           float* __restrict__ llr, float2* __restrict__ xout,
+                           const __grid_constant__ LxnParams p,
+                           const uint32_t* __restrict__ gold) {
+  constexpr int QMAX = 2 * HALF;
+  constexpr int kGoldWords = kLxnThreads * L * QMAX / 32 + 2;
+  __shared__ __align__(16) float s_llr[kLxnThreads * L * QMAX + 4];
+  __shared__ __align__(16) float s_x[kLxnThreads * L * 2 + 4];
+  __shared__ uint32_t s_gold[kGoldWords];
+  const int qm = p.kind < 2 ? 1 : QMAX;
+  const int re0 = blockIdx.x * kLxnThreads;
+  const int n = min(kLxnThreads, p.nre - re0);
+  const size_t b = blockIdx.y;                       // slot
+  const int tid = threadIdx.x;
+  // the CTA's Gold words, loaded while the solve runs
+  const int g0 = re0 * L * qm, w0 = g0 >> 5;
+  const int nw = ((g0 + n * L * qm - 1) >> 5) - w0 + 2;
+  for (int i = tid; i < nw; i += kLxnThreads) s_gold[i] = gold[w0 + i];
+  float* llr_b = llr + (b * p.nre + re0) * (size_t)(L * qm);
+  float* x_b = reinterpret_cast<float*>(xout + (b * p.nre + re0) * (size_t)L);
+  // staging offsets: shared index o + i lies at dst + i's alignment
+  const int ol = (int)(((uintptr_t)llr_b >> 2) & 3);
+  const int ox = (int)(((uintptr_t)x_b >> 2) & 3);
+  if (tid < n) {
+    const int re = re0 + tid;
+    const int s = sym[re];
+    const int k = sc[re];
+    const int t = p.T == 1 ? 0 : s;
+    const float nv = nv_ptr[b];
+    const float2* y_p = grid + b * (size_t)p.P * p.S * p.K +
+                        (size_t)s * p.K + k;
+    const float2* h_p = coeffs + b * (size_t)p.P * L * p.T * p.Ka +
+                        (size_t)t * p.Ka + (k - p.sc_off);
+    const size_t y_step = (size_t)p.S * p.K, h_step = (size_t)p.T * p.Ka;
+    float2 g[L * (L + 1) / 2], z[L];
+#pragma unroll
+    for (int i = 0; i < L * (L + 1) / 2; ++i) g[i] = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int l = 0; l < L; ++l) z[l] = make_float2(0.f, 0.f);
+#pragma unroll 4
+    for (int pp = 0; pp < p.P; ++pp) {
+      const float2 y = y_p[pp * y_step];
+      float2 h[L];
+#pragma unroll
+      for (int l = 0; l < L; ++l) h[l] = h_p[(pp * L + l) * h_step];
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        z[l] = cjfma(h[l], y, z[l]);
+#pragma unroll
+        for (int m = l; m < L; ++m)
+          g[up<L>(l, m)] = cjfma(h[l], h[m], g[up<L>(l, m)]);
+      }
+    }
+    float2 xs[L];
+    float nvs[L];
+    solve<L, MMSE>(g, z, nv, xs, nvs);
 #pragma unroll
     for (int l = 0; l < L; ++l) {
-      z[l] = cadd(z[l], cjmul(h[l], y));
-#pragma unroll
-      for (int m = l; m < L; ++m) g[l][m] = cadd(g[l][m], cjmul(h[l], h[m]));
+      const int si = tid * L + l;                    // the CTA's symbol
+      s_x[ox + 2 * si] = xs[l].x;
+      s_x[ox + 2 * si + 1] = xs[l].y;
+      const float inv = rcp(fmaxf(nvs[l], 1e-12f));
+      if (p.kind < 2) {
+        float2 v = xs[l];
+        if (p.kind == 1 && ((p.rot0 + re * L + l) & 1))
+          v = make_float2(v.y, -v.x);
+        s_llr[ol + si] = (2.f * ((v.x + v.y) * p.two_scale)) * inv;
+      } else {
+        float* out = s_llr + ol + si * QMAX;
+        demap_axis<HALF>(xs[l].x, inv, p, out);
+        demap_axis<HALF>(xs[l].y, inv, p, out + 1);
+      }
     }
   }
-  float2 xs[L];
-  float nvs[L];
-  solve<L, MMSE>(g, z, nv, xs, nvs);
-#pragma unroll
-  for (int l = 0; l < L; ++l) {
-    const int si = re * L + l;
-    x[si] = xs[l];
-    demap_symbol<HALF>(xs[l], nvs[l], a.kind, (a.rot0 + si) & 1,
-                       a.two_scale, a.levels, a.seq, llr, si);
-  }
+  __syncthreads();
+  store_span<true>(llr_b, s_llr + ol, n * L * qm, s_gold, g0, w0);
+  store_span<false>(x_b, s_x + ox, 2 * n * L, nullptr, 0, 0);
 }
 
 template <int L, bool MMSE>
-int launch(const DemapArgs& a, int half, int nslots, cudaStream_t st) {
-  const int threads = 128;
-  const dim3 blocks((a.nre + threads - 1) / threads, nslots);
-  switch (half) {
-    case 1: pusch_demap_lxn_kernel<L, MMSE, 1><<<blocks, threads, 0, st>>>(a); break;
-    case 2: pusch_demap_lxn_kernel<L, MMSE, 2><<<blocks, threads, 0, st>>>(a); break;
-    case 3: pusch_demap_lxn_kernel<L, MMSE, 3><<<blocks, threads, 0, st>>>(a); break;
-    case 4: pusch_demap_lxn_kernel<L, MMSE, 4><<<blocks, threads, 0, st>>>(a); break;
+int launch(const float2* grid, const float2* coeffs, const int* sym,
+           const int* sc, const float* nv, float* llr, float2* x,
+           const LxnParams& p, const uint32_t* seq, cudaStream_t st) {
+  const dim3 blocks((p.nre + kLxnThreads - 1) / kLxnThreads, p.nslots);
+#define SRSRAN_LXN(H)                                                       \
+  pusch_demap_lxn_kernel<L, MMSE, H><<<blocks, kLxnThreads, 0, st>>>(       \
+      grid, coeffs, sym, sc, nv, llr, x, p, seq)
+  switch (p.half) {
+    case 1: SRSRAN_LXN(1); break;
+    case 2: SRSRAN_LXN(2); break;
+    case 3: SRSRAN_LXN(3); break;
+    case 4: SRSRAN_LXN(4); break;
     default: return (int)cudaErrorInvalidValue;
   }
+#undef SRSRAN_LXN
   return (int)cudaGetLastError();
 }
 
-template <int L>
-int launch_method(const DemapArgs& a, int half, int mmse, int nslots,
-                  cudaStream_t st) {
-  return mmse ? launch<L, true>(a, half, nslots, st)
-              : launch<L, false>(a, half, nslots, st);
+inline bool params_ok(const LxnParams& p) {
+  return p.nre >= 1 && p.P >= 1 && p.S >= 1 && p.K >= 1 && p.L >= 1 &&
+         p.L <= 4 && p.T >= 1 && p.Ka >= 1 && p.kind >= 0 && p.kind <= 2 &&
+         p.half >= 1 && p.half <= 4 && (p.kind == 2 || p.half == 1) &&
+         p.nslots >= 1;
 }
 
 }  // namespace
 
+// grid complex64 [slots, P, S, K]; coeffs complex64 [slots, P, L, T, Ka];
+// sym, sc int32 [nre] (the data REs in codeword order); nv float [slots];
+// llr float [slots, nre L Qm]; x complex64 [slots, nre, L]; params an
+// LxnParams; seq int32 [nre L Qm / 32 + 1] the Gold bits of the launch's
+// LLRs packed 32 a word, bit b of word w for LLR 32 w + b (a spare word
+// last).
 extern "C" int srsran_pusch_demap_lxn(void* grid, void* coeffs, void* sym,
-                                      void* sc, int nre, int P, int S, int K,
-                                      int L, int T, int Ka, int sc_off,
-                                      void* nv_ptr, void* levels, int half,
-                                      int kind, int rot0, float two_scale,
-                                      int mmse, void* seq, void* llr, void* x,
-                                      int nslots, void* stream) {
-  if (nslots < 1) return (int)cudaErrorInvalidValue;
-  if (nre <= 0) return 0;
-  const DemapArgs a{(const float2*)grid, (const float2*)coeffs,
-                    (const int*)sym, (const int*)sc, nre, P, S, K, T, Ka,
-                    sc_off, (const float*)nv_ptr, (const float*)levels,
-                    kind, rot0, two_scale, (const uint8_t*)seq, (float*)llr,
-                    (float2*)x};
+                                      void* sc, void* nv, void* llr, void* x,
+                                      void* stream, const void* params,
+                                      const void* seq) {
+  const LxnParams* p = (const LxnParams*)params;
+  if (!params_ok(*p)) return (int)cudaErrorInvalidValue;
+  const float2* g = (const float2*)grid;
+  const float2* h = (const float2*)coeffs;
+  const int* si = (const int*)sym;
+  const int* ki = (const int*)sc;
+  const float* n = (const float*)nv;
+  float* l = (float*)llr;
+  float2* xo = (float2*)x;
+  const uint32_t* q = (const uint32_t*)seq;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (L) {
-    case 1: return launch_method<1>(a, half, mmse, nslots, st);
-    case 2: return launch_method<2>(a, half, mmse, nslots, st);
-    case 3: return launch_method<3>(a, half, mmse, nslots, st);
-    case 4: return launch_method<4>(a, half, mmse, nslots, st);
+  switch (p->L * 2 + (p->mmse ? 1 : 0)) {
+    case 2: return launch<1, false>(g, h, si, ki, n, l, xo, *p, q, st);
+    case 3: return launch<1, true>(g, h, si, ki, n, l, xo, *p, q, st);
+    case 4: return launch<2, false>(g, h, si, ki, n, l, xo, *p, q, st);
+    case 5: return launch<2, true>(g, h, si, ki, n, l, xo, *p, q, st);
+    case 6: return launch<3, false>(g, h, si, ki, n, l, xo, *p, q, st);
+    case 7: return launch<3, true>(g, h, si, ki, n, l, xo, *p, q, st);
+    case 8: return launch<4, false>(g, h, si, ki, n, l, xo, *p, q, st);
+    case 9: return launch<4, true>(g, h, si, ki, n, l, xo, *p, q, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

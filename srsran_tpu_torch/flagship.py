@@ -2256,6 +2256,80 @@ def chest_polar_profile_cases(gen: torch.Generator, device) -> dict:
     return cases
 
 
+# K9's further configurations: the gNB simulator's PRACH occasion at the
+# flagship numerology (B4, root 1, zcz 0: 64 roots of one preamble each,
+# apps/gnb_sim.py) and a long format 0 occasion (zcz 10, L_RA 839), both on
+# 4 rx ports.
+PRACH_ZCZ0 = prach.PrachConfig(format="B4", root_sequence_index=1,
+                               zero_correlation_zone=0, ra_scs_hz=30_000)
+PRACH_FORMAT0 = prach.PrachConfig(format="0", root_sequence_index=22,
+                                  zero_correlation_zone=10)
+
+
+def _prach_occasion(cfg, preamble: int, symbols: int,
+                    rng: np.random.Generator) -> np.ndarray:
+    """``preamble`` of ``cfg`` through a 2 us delay onto 4 rx ports at gains
+    0.9 to 0.6, ``symbols`` repeated symbols, complex noise of 0.05 per
+    part; complex64 [4, symbols, L]."""
+    tx = prach.generate_np(cfg, preamble)
+    ramp = np.exp(-2j * np.pi * np.arange(cfg.l_ra) * cfg.scs_hz * 2e-6)
+    fd = np.linspace(0.9, 0.6, 4)[:, None, None] * np.tile(
+        (tx * ramp)[None, None], (4, symbols, 1))
+    fd = fd + 0.05 * (rng.standard_normal(fd.shape)
+                      + 1j * rng.standard_normal(fd.shape))
+    return fd.astype(np.complex64)
+
+
+def prach_lxn_profile_cases(gen: torch.Generator, device) -> dict:
+    """K9's and K16's cases for ``launch_profile``: name -> (wrapper, twin,
+    args).  K9: the flagship occasion (``prach_detect``), a batch of 4
+    (``_batch4``: :func:`batch_prach_fd`), the gNB simulator's zcz 0
+    (``_zcz0``, R 64) and format 0 (``_format0``).  K16 on seeded channels
+    (I + 0.25 (N + jN) a subcarrier) and grids of the two-UE slot's shapes:
+    UE A (4 layers MMSE QAM64, 27,060 REs: ``pusch_demap_lxn``), UE A over
+    4 slots (``_batch4``), UE B (1 layer MMSE QAM64: ``_ue_b``), UE A's REs
+    at 3 layers ZF and 2 layers MMSE (``_3l_zf``, ``_2l_mmse``) and at 1
+    layer BPSK MMSE (``_bpsk``)."""
+    rng = np.random.default_rng(23)
+    cases = {}
+    for name, cfg, cap in (
+            ("", PRACH, prach_capture(rng)[None]),
+            ("_zcz0", PRACH_ZCZ0, _prach_occasion(PRACH_ZCZ0, 5, 12, rng)[
+                None]),
+            ("_format0", PRACH_FORMAT0, _prach_occasion(PRACH_FORMAT0, 37, 1,
+                                                        rng)[None])):
+        cases["prach_detect" + name] = (prach.detect, prach.detect_ref,
+                                        (_up(cap[0], device), cfg))
+    cases["prach_detect_batch4"] = (prach.detect, prach.detect_ref,
+                                    (batch_prach_fd(device, 23)[0], PRACH))
+
+    def cn(*shape):
+        return torch.complex(torch.randn(shape, device=device, generator=gen),
+                             torch.randn(shape, device=device, generator=gen)
+                             ) / np.sqrt(2)
+
+    for name, cfg, layers, method, modulation, lead in (
+            ("", MU.pusch_a, 4, "mmse", "qam64", ()),
+            ("_batch4", MU.pusch_a, 4, "mmse", "qam64", (BATCH,)),
+            ("_ue_b", MU.ue_b(1), 1, "mmse", "qam64", ()),
+            ("_3l_zf", MU.pusch_a, 3, "zf", "qam64", ()),
+            ("_2l_mmse", MU.pusch_a, 2, "mmse", "qam64", ()),
+            ("_bpsk", MU.pusch_a, 1, "mmse", "bpsk", ())):
+        nsc = 12 * cfg.rb_count
+        grid = cn(*lead, CELL.nof_ports, 14, CELL.nof_sc)
+        eye = torch.eye(CELL.nof_ports, layers, dtype=torch.complex64,
+                        device=device)[:, :, None, None]
+        coeffs = (eye + 0.25 * cn(*lead, CELL.nof_ports, layers, 1, nsc))
+        nv = torch.full(lead, 0.05, device=device)
+        sym, sc = pusch._plan(cfg, device)
+        cases["pusch_demap_lxn" + name] = (
+            ul_demap.equalize_demap_descramble_lxn,
+            ul_demap.equalize_demap_descramble_ref,
+            (grid, coeffs.contiguous(), sym, sc, cfg.rb_start * 12, nv,
+             (cfg.rnti << 15) + cfg.n_id, modulation, layers, method))
+    return cases
+
+
 # ------------------------------------------------------------- split 8
 
 # apps/ssb_tx.py's cell at the flagship width: 1 port, 273 RB, 4096 FFT.

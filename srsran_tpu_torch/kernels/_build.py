@@ -8,11 +8,11 @@ root, named by a hash of the sources and flags; the library is loaded with
 build on every run, so the sources compile side by side.  Pointers and the stream go over as
 ``ctypes.c_void_p``; every C entry point returns ``cudaGetLastError()``
 after its launches, and :func:`check` raises on anything but 0.
-:class:`Launch` is the lean form of that path (K1, K5, K8, K15, K32,
-K21, K18, K19, K27, K33, K34 and K35 take it): a wrapper keeps one per call
-signature with the bound C function, a parameter struct passed by address
-and its device tables, and a call passes only the tensors' pointers and
-the current stream.
+:class:`Launch` is the lean form of that path (K1, K5, K8, K9, K15,
+K16, K32, K21, K18, K19, K27, K33, K34 and K35 take it): a wrapper keeps
+one per call signature with the bound C function, a parameter struct
+passed by address and its device tables, and a call passes only the
+tensors' pointers and the current stream.
 
 ``--fmad=false`` keeps ``a + b * c`` as a rounded multiply then a rounded
 add, the way PyTorch's separate tensor ops compute it: the LDPC decoder's
@@ -207,6 +207,29 @@ class F3DemapParams(ctypes.Structure):
                 ("occ_conj", _F * (2 * F3_MAX_OCC)),
                 ("levels", _F * DEMAP_MAX_LEVELS)]
 
+LXN_MAX_LEVELS = 16        # csrc/pusch_demap_lxn.cu kLxnMaxLevels
+
+
+class LxnParams(ctypes.Structure):
+    """csrc/pusch_demap_lxn.cu's LxnParams (K16's launch), by address."""
+
+    _fields_ = [(name, _I) for name in (
+        "nre", "P", "S", "K", "L", "T", "Ka", "sc_off", "kind", "half",
+        "rot0", "mmse", "nslots")] + [
+        ("two_scale", _F), ("levels", _F * LXN_MAX_LEVELS)]
+
+
+class PrachDetectParams(ctypes.Structure):
+    """csrc/prach_detect.cu's PrachDetectParams (K9's launch), by
+    address."""
+
+    _fields_ = [(name, _I) for name in (
+        "B", "rows", "L", "half", "N", "V", "roots", "npre", "nz", "live",
+        "C", "win", "margin", "search", "nrx", "smem")] + [
+        ("threshold", _F), ("span", _F), ("inv_n", _F)] + [
+        (name, _I) for name in ("off_tw", "off_wv", "off_w32", "off_geom",
+                                "off_range")]
+
 CHEST_MAX_SYMBOLS = 14     # csrc/channel_estimate.cu kChestMaxSymbols
 CHEST_MAX_CTAS = 8         # csrc/channel_estimate.cu kChestMaxCtas
 
@@ -230,9 +253,7 @@ SIGNATURES = {
                             _I, _I, _F, _P],
     "srsran_pusch_demap": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                            _P, _P, _I, _I, _I, _F, _P, _P, _P, _I, _P],
-    "srsran_pusch_demap_lxn": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                               _P, _P, _I, _I, _I, _F, _I, _P, _P, _P, _I,
-                               _P],
+    "srsran_pusch_demap_lxn": [_P] * 10,
     "srsran_ulsch_demux": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P],
     "srsran_ofdm_window": [_P, _P, _P, _I, _I, _I, _I, _P],
     "srsran_ofdm_bins_to_grid": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -243,9 +264,8 @@ SIGNATURES = {
     "srsran_ofdm_cp_insert": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "srsran_chest_prepare": [_I],
     "srsran_chest_estimate": [_P] * 10,
-    "srsran_prach_corr": [_P, _P, _I, _I, _I, _I, _P, _P],
-    "srsran_prach_detect": [_P, _I, _I, _I, _F, _P, _P, _I, _I, _I, _I, _F,
-                            _F, _P, _I, _P, _P, _P, _P, _I, _P],
+    "srsran_prach_prepare": [_I],
+    "srsran_prach_detect": [_P] * 7,
     "srsran_pucch_f1": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                         _I, _I, _I, _I, _P, _P, _P, _I, _F, _P, _P, _P, _P,
                         _I, _P],

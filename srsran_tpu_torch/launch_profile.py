@@ -98,11 +98,11 @@ import torch
 from . import flagship
 from .device import card_line, const, require_cuda
 from .kernels import _build
-from .ops import dl_control, ldpc_encode, ldpc_rate_match, llr
+from .ops import dl_control, ldpc_encode, ldpc_rate_match, llr, ul_demap
 from .ops.crc import crc
 from .ops.transform_precode import deprecode
 from .phy.lower import prach_demod
-from .phy.upper import pdcch, pucch, ssb, uci
+from .phy.upper import pdcch, prach, pucch, ssb, uci
 from .profile_slot import profiled, top_activities
 from .ran.ldpc_params import segment_tb
 
@@ -471,6 +471,82 @@ def chest_polar_calls(gen: torch.Generator, dev) -> tuple:
     return calls, library
 
 
+def prach_idft_library(args: tuple):
+    """``torch.fft.ifft`` of K9's IDFT stage on K9's arguments: the packed
+    [(B,) P, S, R, N] buffer of the capture times the conjugate roots (the
+    twin's ``_pack``), N = 1024, built once; a stage of the function, not
+    the whole."""
+    rx, cfg = args[:2]
+    roots = torch.from_numpy(prach._root_fd(cfg)).to(rx.device)
+    buf = prach._pack(rx[..., None, :] * roots.conj(), cfg.l_ra,
+                      1024).contiguous()
+    return lambda: torch.fft.ifft(buf, dim=-1)
+
+
+def lxn_solve_library(args: tuple):
+    """``torch.linalg.solve`` (as ``solve_ex``: no error check, so no
+    host sync) of K16's solve stage on K16's arguments: the batched
+    [(B) RE, L, L] systems (H^H H + c I) x = H^H y of the call's data REs
+    (c = nv for MMSE, 1e-9 for ZF), built once and checked within 1e-4 of
+    max|x| against the twin's symbols; a stage of the function, not the
+    whole."""
+    grid, coeffs, sym, sc, sc_off, nv = args[:6]
+    layers, method = args[8], args[9]
+    grids = grid.reshape((-1,) + grid.shape[-3:])
+    hs = coeffs.reshape((-1,) + coeffs.shape[-4:])
+    nvs = nv.reshape(-1)
+    a, z = [], []
+    for b in range(grids.shape[0]):
+        y, h = ul_demap.gather_re(grids[b], hs[b], sym.long(), sc.long(),
+                                  sc_off)
+        ridge = nvs[b] if method == "mmse" else torch.tensor(
+            1e-9, device=grid.device)
+        a.append(h.conj().transpose(-1, -2) @ h + ridge * torch.eye(
+            layers, dtype=h.dtype, device=h.device))
+        z.append(h.conj().transpose(-1, -2) @ y[..., None])
+    a, z = torch.cat(a), torch.cat(z)
+    x_ref = ul_demap.equalize_demap_descramble_ref(*args)[1]
+    x = torch.linalg.solve_ex(a, z)[0].reshape(x_ref.shape)
+    if layers > 1 or method == "mmse":
+        torch.testing.assert_close(x, x_ref, rtol=1e-4, atol=1e-4 * float(
+            x_ref.abs().max()))
+    return lambda: torch.linalg.solve_ex(a, z)
+
+
+def prach_lxn_calls(gen: torch.Generator, dev) -> tuple:
+    """K9's and K16's (calls, library) by name
+    (``flagship.prach_lxn_profile_cases``), each checked against its twin
+    once (K9: decisions and TA equal, metrics and RSSI within 1e-4 of the
+    largest; K16: x within 1e-4, the LLRs within 1e-3 of the largest,
+    equal hard decisions above that), beside the library call of its
+    stage (:func:`prach_idft_library`, :func:`lxn_solve_library`)."""
+    calls, library = {}, {}
+    for name, (fn, twin, a) in flagship.prach_lxn_profile_cases(
+            gen, dev).items():
+        out, ref = fn(*a), twin(*a)
+        if name.startswith("prach"):
+            for key in ("detected", "time_advance_s"):
+                if not torch.equal(getattr(out, key), getattr(ref, key)):
+                    raise AssertionError(f"{name}: K9 {key} differs")
+            pairs = ((out.metrics, ref.metrics), (out.rssi, ref.rssi))
+            library[name] = prach_idft_library(a)
+        else:
+            big = ref[0].abs() > 1e-3 * float(ref[0].abs().max())
+            if not torch.equal(out[0][big] > 0, ref[0][big] > 0):
+                raise AssertionError(f"{name}: K16 hard decisions differ")
+            pairs = ((out[1], ref[1]),)
+            torch.testing.assert_close(out[0], ref[0], rtol=1e-3,
+                                       atol=1e-3 * float(ref[0].abs().max()),
+                                       msg=f"{name} llr")
+            library[name] = lxn_solve_library(a)
+        for o, r in pairs:
+            torch.testing.assert_close(o, r, rtol=1e-4,
+                                       atol=1e-4 * float(r.abs().max()),
+                                       msg=name)
+        calls[name] = lambda fn=fn, a=a: fn(*a)
+    return calls, library
+
+
 def _entry(loader, argtype):
     """K32's C entry point loaded through ``loader`` (ctypes.CDLL releases
     the interpreter lock around the call, ctypes.PyDLL keeps it) with four
@@ -576,7 +652,9 @@ def main(argv=None) -> dict:
                 (("polar_encode", "short_block_encode", "encode_uci"),
                  lambda: ue_encoder_calls(rng, dev)),
                 (("channel_estimate", "polar_decode"),
-                 lambda: chest_polar_calls(gen, dev)))
+                 lambda: chest_polar_calls(gen, dev)),
+                (("prach_detect", "pusch_demap_lxn"),
+                 lambda: prach_lxn_calls(gen, dev)))
     for prefixes, build in builders:
         if _wanted(args.cases, prefixes):
             more_calls, more_library = build()

@@ -13,7 +13,13 @@ both, composed of the port's plain front end (:func:`gather_equalize`,
 which ``pusch._frontend_hop`` also runs), demodulate and descramble_llrs.
 On the card both kernels are memory-bound (per RE they read P samples and
 P*L coefficients and write L*Qm LLRs, 3.5-4.6 MB at the flagship shapes);
-their designs are in the .cu files.
+their designs are in the .cu files.  K16 launches through
+``kernels/_build.py::Launch``: one plan per call signature
+(:func:`_lxn_plan`, holding the parameters -- from :func:`_lxn_params`,
+testable on the CPU, the level table by value -- and the Gold bits of the
+call's LLRs packed 32 a word, :func:`_gold_words`); a call allocates its
+two outputs and makes one ctypes call, the RE plan passed by pointer (the
+caller's cached tensors).  K3 keeps its ``_build.load()`` route.
 
 A transform-precoded (DFT-s-OFDM) PUSCH adds an IDFT per data symbol
 between the equalizer and the demap, and its noise averaged over each
@@ -45,7 +51,7 @@ from .. import kernels
 from ..device import const, is_cuda, stack_slots
 from ..kernels import _build
 from .equalizer import equalize
-from .gold import gold_sequence
+from .gold import gold_sequence, gold_sequence_np
 from .modulation import (BITS_PER_SYMBOL, _SCALE, demodulate,
                          pam_levels_scaled)
 from .scrambling import descramble_llrs
@@ -107,7 +113,8 @@ def equalize_demap_descramble_ref(grid, coeffs, sym_idx, sc_idx, sc_off,
     return descramble_llrs(llr, c_init, advance), x
 
 
-# The demap forms of K3, K16, K18 and K19 (csrc/pusch_demap.cuh).
+# The demap forms of K3, K16, K18 and K19 (csrc/pusch_demap.cuh; K16's own
+# demap in csrc/pusch_demap_lxn.cu takes the same kinds).
 DEMAP_KIND = {"bpsk": 0, "pi2bpsk": 1, "qpsk": 2, "qam16": 2, "qam64": 2,
               "qam256": 2}
 
@@ -145,17 +152,16 @@ def _check_args(grid, coeffs, noise_var, modulation, nof_layers):
                          f"{tuple(grid.shape)}")
 
 
-def _launch(entry, extra: tuple, grid, coeffs, sym_idx, sc_idx, sc_off,
-            noise_var, c_init, modulation, nof_layers, advance: int = 0):
-    """Launch K3 or K16 (same inputs and outputs; K16 takes the method
-    flag in ``extra``), once for all slots of a slot axis.  Returns (llr,
-    x), with the grid's slot axis in front.  The RE plan is int32, as the
-    PUSCH uploads it; the Gold bits start ``advance`` bits into the
-    codeword's sequence (the second hop of a hopping PUSCH descrambles
-    from where the first ended), and the codeword symbols ``advance // Qm``
-    symbols in: pi/2-BPSK derotates the odd ones.  Hop 2's first index is
-    even today, as each hop's data-RE count is (whole PRBs of 12
-    subcarriers, or 6 beside a DM-RS), but it is derived, not assumed."""
+def _launch(grid, coeffs, sym_idx, sc_idx, sc_off, noise_var, c_init,
+            modulation, nof_layers, advance: int = 0):
+    """Launch K3 once for all slots of a slot axis.  Returns (llr, x), with
+    the grid's slot axis in front.  The RE plan is int32, as the PUSCH
+    uploads it; the Gold bits start ``advance`` bits into the codeword's
+    sequence (the second hop of a hopping PUSCH descrambles from where the
+    first ended), and the codeword symbols ``advance // Qm`` symbols in:
+    pi/2-BPSK derotates the odd ones.  Hop 2's first index is even today,
+    as each hop's data-RE count is (whole PRBs of 12 subcarriers, or 6
+    beside a DM-RS), but it is derived, not assumed."""
     qm = BITS_PER_SYMBOL[modulation]
     dev = grid.device
     p, s, k = grid.shape[-3:]
@@ -173,13 +179,14 @@ def _launch(entry, extra: tuple, grid, coeffs, sym_idx, sc_idx, sc_off,
                       device=dev)
     x = torch.empty(lead + (nre, nof_layers), dtype=torch.complex64,
                     device=dev)
+    entry = _build.load().srsran_pusch_demap
     _build.check(entry(
         _build.ptr(g), _build.ptr(h), _build.ptr(sym_idx.contiguous()),
         _build.ptr(sc_idx.contiguous()), nre, p, s, k, nof_layers, t, ka,
         sc_off, _build.ptr(nv), _build.ptr(levels), half, kind,
-        (advance // qm) % 2, two_scale, *extra, _build.ptr(seq),
-        _build.ptr(llr), _build.ptr(x), lead[0] if lead else 1,
-        _build.stream_of(grid)), entry.__name__)
+        (advance // qm) % 2, two_scale, _build.ptr(seq), _build.ptr(llr),
+        _build.ptr(x), lead[0] if lead else 1, _build.stream_of(grid)),
+        "srsran_pusch_demap")
     return llr, x
 
 
@@ -206,10 +213,83 @@ def equalize_demap_descramble(grid: torch.Tensor, coeffs: torch.Tensor,
         return equalize_demap_descramble_ref(*args, method, advance)
     if method == "zf" and nof_layers <= 2:
         _check_args(grid, coeffs, noise_var, modulation, nof_layers)
-        out = _launch(_build.load().srsran_pusch_demap, (), *args, advance)
+        out = _launch(*args, advance)
         (KERNEL_BATCH if grid.ndim == 4 else KERNEL).count()
         return out
     return equalize_demap_descramble_lxn(*args, method, advance)
+
+
+def _lxn_params(shapes: tuple, dtypes: tuple, sc_off: int, modulation: str,
+                nof_layers: int, method: str,
+                advance: int) -> _build.LxnParams:
+    """K16's parameters for one call signature: the shapes and dtypes of
+    (grid, coeffs, sym_idx, sc_idx, noise_var), the subcarrier offset of
+    the coefficients, the modulation, the layers, the equalizer and the
+    Gold offset; raises on what the kernel does not take."""
+    grid_s, coeffs_s, sym_s, sc_s, nv_s = shapes
+    if method not in ("zf", "mmse"):
+        raise ValueError(f"equalizer {method!r}")
+    if modulation not in DEMAP_KIND:
+        raise ValueError(f"modulation {modulation!r}")
+    if dtypes[0] != torch.complex64 or dtypes[1] != torch.complex64:
+        raise ValueError("grid and coeffs must be complex64")
+    if len(grid_s) not in (3, 4) or len(coeffs_s) != len(grid_s) + 1:
+        raise ValueError(f"grid [(B,) P, S, K] and coeffs [(B,) P, L, T, "
+                         f"Ka], got {tuple(grid_s)} and {tuple(coeffs_s)}")
+    lead = tuple(grid_s[:-3])
+    p, s, k = grid_s[-3:]
+    if (not 1 <= nof_layers <= 4 or tuple(coeffs_s[:-3]) != lead + (p,)
+            or coeffs_s[-3] != nof_layers):
+        raise ValueError(f"{nof_layers} layers vs coeffs {tuple(coeffs_s)}")
+    if (tuple(nv_s) not in (((lead[0],),) if lead else ((), (1,)))
+            or dtypes[4] != torch.float32):
+        raise ValueError(f"noise_var must be one float32 value per slot, "
+                         f"got {tuple(nv_s)} for grid {tuple(grid_s)}")
+    nre = sym_s[0] if len(sym_s) == 1 else -1
+    if (dtypes[2] != torch.int32 or dtypes[3] != torch.int32 or nre < 1
+            or tuple(sc_s) != (nre,)):
+        raise ValueError("the RE plan must be int32 [RE] twice")
+    qm = BITS_PER_SYMBOL[modulation]
+    kind, half, levels, two_scale = demap_scalars(modulation)
+    out = _build.LxnParams(
+        nre=nre, P=p, S=s, K=k, L=nof_layers, T=coeffs_s[-2],
+        Ka=coeffs_s[-1], sc_off=sc_off, kind=kind, half=half,
+        rot0=(advance // qm) % 2, mmse=int(method == "mmse"),
+        nslots=lead[0] if lead else 1, two_scale=two_scale)
+    out.levels[:len(levels)] = levels.tolist()
+    return out
+
+
+def _gold_words(c_init: int, length: int, advance: int) -> np.ndarray:
+    """int32 [ceil(length / 32) + 1]: the Gold bits c(advance ..) of
+    ``length`` LLRs packed 32 a word, bit b of word w for LLR 32 w + b, and
+    a spare zero word (K16 reads each LLR's bits through a 64-bit
+    window)."""
+    bits = gold_sequence_np(c_init, length, advance)
+    n = -(-length // 32) + 1
+    padded = np.zeros(32 * n, np.uint8)
+    padded[:length] = bits
+    return np.packbits(padded, bitorder="little").view("<u4").astype(
+        np.uint32).view(np.int32)
+
+
+@functools.lru_cache(maxsize=1024)
+def _lxn_plan(shapes: tuple, dtypes: tuple, sc_off: int, c_init: int,
+              modulation: str, nof_layers: int, method: str, advance: int,
+              index: int) -> tuple:
+    """K16's launch for one call signature on CUDA device ``index`` (its
+    parameters and the packed Gold bits of its LLRs, held), its outputs'
+    shapes (LLRs, symbols) and the launch count it adds to."""
+    p = _lxn_params(shapes, dtypes, sc_off, modulation, nof_layers, method,
+                    advance)
+    qm = BITS_PER_SYMBOL[modulation]
+    words = torch.from_numpy(_gold_words(c_init, p.nre * nof_layers * qm,
+                                         advance)).to(
+        torch.device("cuda", index))
+    lead = tuple(shapes[0][:-3])
+    return (_build.Launch("srsran_pusch_demap_lxn", index, p, (words,)),
+            lead + (p.nre * nof_layers * qm,), lead + (p.nre, nof_layers),
+            KERNEL_LXN_BATCH if lead else KERNEL_LXN)
 
 
 def equalize_demap_descramble_lxn(grid: torch.Tensor, coeffs: torch.Tensor,
@@ -219,18 +299,34 @@ def equalize_demap_descramble_lxn(grid: torch.Tensor, coeffs: torch.Tensor,
                                   nof_layers: int, method: str = "mmse",
                                   advance: int = 0):
     """:func:`equalize_demap_descramble` through K16 for 1-4 layers, ZF or
-    MMSE (the L x N solve of the JAX package's ``equalize``)."""
-    args = (grid, coeffs, sym_idx, sc_idx, sc_off, noise_var, c_init,
-            modulation, nof_layers)
-    if not is_cuda(grid, coeffs, noise_var):
-        return equalize_demap_descramble_ref(*args, method, advance)
-    if method not in ("zf", "mmse"):
-        raise ValueError(f"equalizer {method!r}")
-    _check_args(grid, coeffs, noise_var, modulation, nof_layers)
-    out = _launch(_build.load().srsran_pusch_demap_lxn,
-                  (int(method == "mmse"),), *args, advance)
-    (KERNEL_LXN_BATCH if grid.ndim == 4 else KERNEL_LXN).count()
-    return out
+    MMSE (the L x N solve of the JAX package's ``equalize``): one launch
+    through the cached plan of the call's signature (:func:`_lxn_plan`),
+    the RE plan passed by pointer, as the caller's cached tensors."""
+    if not (grid.is_cuda and coeffs.is_cuda and noise_var.is_cuda):
+        is_cuda(grid, coeffs, noise_var)             # raises on a mix
+        return equalize_demap_descramble_ref(
+            grid, coeffs, sym_idx, sc_idx, sc_off, noise_var, c_init,
+            modulation, nof_layers, method, advance)
+    if not (sym_idx.is_cuda and sc_idx.is_cuda):
+        raise ValueError("the RE plan must lie on the grid's device")
+    launch, llr_shape, x_shape, counter = _lxn_plan(
+        (grid.shape, coeffs.shape, sym_idx.shape, sc_idx.shape,
+         noise_var.shape),
+        (grid.dtype, coeffs.dtype, sym_idx.dtype, sc_idx.dtype,
+         noise_var.dtype), int(sc_off), int(c_init), modulation,
+        int(nof_layers), method, int(advance), grid.get_device())
+    # the kernel's inputs held in locals until it is enqueued
+    g = grid if grid.is_contiguous() else grid.contiguous()
+    h = coeffs if coeffs.is_contiguous() else coeffs.contiguous()
+    sym = sym_idx if sym_idx.is_contiguous() else sym_idx.contiguous()
+    sc = sc_idx if sc_idx.is_contiguous() else sc_idx.contiguous()
+    nv = noise_var if noise_var.is_contiguous() else noise_var.contiguous()
+    llr = nv.new_empty(llr_shape)
+    x = g.new_empty(x_shape)
+    launch(g.data_ptr(), h.data_ptr(), sym.data_ptr(), sc.data_ptr(),
+           nv.data_ptr(), llr.data_ptr(), x.data_ptr())
+    counter.count()
+    return llr, x
 
 
 # ------------------------------------------------- K18: DFT-s-OFDM PUSCH

@@ -111,8 +111,7 @@ HAND_KERNELS = ("ldpc_sweep_kernel", "ldpc_decode_kernel",
                 "ofdm_window_kernel", "ofdm_bins_kernel",
                 "dlsch_encode_kernel", "pdsch_map_kernel",
                 "ofdm_grid_to_bins_kernel", "ofdm_cp_insert_kernel",
-                "chest_kernel", "prach_corr_kernel",
-                "prach_power_kernel", "prach_detect_kernel", "pucch_f1_kernel",
+                "chest_kernel", "prach_detect_kernel", "pucch_f1_kernel",
                 "srs_noise_kernel", "pucch_f0_kernel", "pucch_f2_kernel",
                 "short_block_kernel", "polar_sc_kernel",
                 "pusch_demap_lxn_kernel", "ulsch_demux_kernel",

@@ -296,6 +296,34 @@ def test_prach_detect_batched(cuda, b):
         _close(out.rssi[s], one.rssi, 1e-6)
 
 
+def test_prach_detect_batched_in_a_cuda_graph(cuda):
+    """K9's one launch for 4 captures (noise alone in slot 1) captured in a
+    CUDA graph and replayed on new captures: the twin slot by slot."""
+    rng = np.random.default_rng(64)
+    cfg = flagship.PRACH
+
+    def captures():
+        caps = [flagship.prach_capture(rng) for _ in range(4)]
+        caps[1] = 0.05 * _cgauss(rng, caps[1].shape).numpy()
+        return torch.as_tensor(np.stack(caps)).to(cuda)
+
+    static = captures()
+    prach.detect(static, cfg)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = prach.detect(static, cfg)
+    static.copy_(captures())
+    graph.replay()
+    torch.cuda.synchronize()
+    ref = prach.detect_ref(static, cfg)
+    assert torch.equal(out.detected, ref.detected)
+    assert torch.equal(out.time_advance_s, ref.time_advance_s)
+    _close(out.metrics, ref.metrics, 1e-4)
+    _close(out.rssi, ref.rssi, 1e-4)
+    assert not bool(out.detected[1].any())
+
+
 def _f1_slot(common, users, rng):
     grid = torch.zeros(UL_GRID, dtype=torch.complex64)
     for m0, occ, nbits in users:
@@ -548,6 +576,40 @@ def test_pusch_demap_lxn_batched(cuda, b, ue):
         _same(_slot(out, s), ul_demap.equalize_demap_descramble_lxn(
             grid[s], coeffs[s], sym, sc, cfg.rb_start * 12, nv[s], c_init,
             cfg.modulation, layers, cfg.equalizer))
+
+
+def test_pusch_demap_lxn_batched_in_a_cuda_graph(cuda):
+    """K16 at UE A's shapes over 4 slots, captured in a CUDA graph and
+    replayed on new grids and channels: the twin slot by slot."""
+    cfg = flagship.MU.pusch_a
+    layers, nsc = cfg.nof_layers, 12 * cfg.rb_count
+    rng = np.random.default_rng(140)
+
+    def inputs():
+        grid = torch.stack([_cgauss(rng, FULL_GRID) for _ in range(4)])
+        h = (np.eye(4, layers)[None, :, :, None, None]
+             + 0.25 * _cgauss(rng, (4, 4, layers, 1, nsc)).numpy())
+        return grid.to(cuda), torch.as_tensor(h.astype(np.complex64)).to(
+            cuda)
+
+    grid, coeffs = inputs()
+    nv = torch.as_tensor(rng.uniform(0.02, 0.1, 4).astype(np.float32)).to(
+        cuda)
+    sym, sc = pusch._plan(cfg, cuda)
+    args = (grid, coeffs, sym, sc, cfg.rb_start * 12, nv,
+            (cfg.rnti << 15) + cfg.n_id, cfg.modulation, layers,
+            cfg.equalizer)
+    ul_demap.equalize_demap_descramble(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ul_demap.equalize_demap_descramble(*args)
+    new_grid, new_coeffs = inputs()
+    grid.copy_(new_grid)
+    coeffs.copy_(new_coeffs)
+    graph.replay()
+    torch.cuda.synchronize()
+    _lxn_hold(out, ul_demap.equalize_demap_descramble_ref(*args))
 
 
 @pytest.mark.parametrize("b", [1, 4])

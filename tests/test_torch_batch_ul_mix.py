@@ -404,12 +404,23 @@ def _c_parameter_names(name: str) -> list:
 
 
 def _slot_count_in_struct(name: str) -> None:
-    """K18's and K19's slot count: an int field ``nslots`` of the
+    """K16's, K18's and K19's slot count: an int field ``nslots`` of the
     parameter struct their entry point takes after the stream, which the
     wrapper fills from the slot axis (3) or with 1 without one."""
     from srsran_tpu_torch.ops import ul_demap
     from srsran_tpu_torch.phy.upper import pusch as t_pusch
     c64, f32, i32 = torch.complex64, torch.float32, torch.int32
+    if name == "srsran_pusch_demap_lxn":
+        assert _c_parameter_names(name)[-3:] == ["stream", "params", "seq"]
+        assert ("nslots", _build._I) in _build.LxnParams._fields_
+
+        def build(lead):
+            return ul_demap._lxn_params(
+                (lead + (4, 14, 3276), lead + (4, 4, 1, 2460), (27060,),
+                 (27060,), lead), (c64, c64, i32, i32, f32), 0, "qam64", 4,
+                "mmse", 0)
+        assert build((3,)).nslots == 3 and build(()).nslots == 1
+        return
     assert _c_parameter_names(name)[-4:-1] == ["stream", "params",
                                                "twiddle"]
     if name == "srsran_pusch_tp_demap":
@@ -438,10 +449,11 @@ def _slot_count_in_struct(name: str) -> None:
     "srsran_pusch_tp_demap", "srsran_pucch_f3_demap"])
 def test_batched_entry_points_take_a_slot_count(name):
     """The equalizers and the demultiplexer with a slot axis (K3, K16-K19)
-    take a slot count: K3, K16 and K17 just before the stream, as an int in
-    their ctypes binding; K18 and K19 in the parameter struct of their
+    take a slot count: K3 and K17 just before the stream, as an int in
+    their ctypes binding; K16, K18 and K19 in the parameter struct of their
     lean launch path (``nslots``)."""
-    if name in ("srsran_pusch_tp_demap", "srsran_pucch_f3_demap"):
+    if name in ("srsran_pusch_demap_lxn", "srsran_pusch_tp_demap",
+                "srsran_pucch_f3_demap"):
         _slot_count_in_struct(name)
         return
     names = _c_parameter_names(name)

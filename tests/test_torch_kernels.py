@@ -473,6 +473,98 @@ def test_prach_detect_kernel(cuda, fmt):
     _close(out.rssi, ref.rssi, 1e-4)
 
 
+# K9's other configurations: the gNB simulator's zcz 0 (64 roots of one
+# preamble each), a restricted set, and the IDFT sizes the kernel takes.
+K9_MORE = {
+    "zcz0": (prach.PrachConfig(format="B4", root_sequence_index=1,
+                               zero_correlation_zone=0, ra_scs_hz=30_000),
+             5, 4, 12),
+    "restricted": (prach.PrachConfig(format="0", root_sequence_index=22,
+                                     zero_correlation_zone=5,
+                                     restricted="type_a"), 9, 4, 1),
+    "format0_8ports": (prach.PrachConfig(format="0", root_sequence_index=22,
+                                         zero_correlation_zone=10),
+                       37, 8, 1),
+}
+
+
+def _k9_hold(out, ref, want=None):
+    """K9 against its twin: the decisions and the TA equal, the metrics
+    and the RSSI within 1e-4 of their largest magnitude; the preamble sent
+    detected."""
+    assert torch.equal(out.detected, ref.detected)
+    assert torch.equal(out.time_advance_s, ref.time_advance_s)
+    _close(out.metrics, ref.metrics, 1e-4)
+    _close(out.rssi, ref.rssi, 1e-4)
+    if want is not None:
+        assert bool(out.detected[..., want].all())
+
+
+@pytest.mark.parametrize("name", sorted(K9_MORE))
+def test_prach_detect_kernel_configs(cuda, name):
+    """K9 at zcz 0 (R 64), on a restricted set and at 8 ports: one launch
+    each, the twin's decisions, TA, metrics and RSSI."""
+    cfg, want, ports, symbols = K9_MORE[name]
+    fd = _prach_capture(cfg, want, ports, symbols,
+                        np.random.default_rng(len(name))).to(cuda)
+    before = prach.KERNEL.launches
+    out = prach.detect(fd, cfg)
+    assert prach.KERNEL.launches == before + 1
+    _k9_hold(out, prach.detect_ref(fd, cfg), want)
+
+
+@pytest.mark.parametrize("idft_size", [256, 512, 2048, 4096])
+@pytest.mark.parametrize("fmt", ["B4", "0"])
+def test_prach_detect_kernel_idft_sizes(cuda, fmt, idft_size):
+    """K9 at every IDFT size it takes (format 0 from 1024 on), against the
+    twin at the same size."""
+    if fmt == "B4":
+        cfg, want = flagship.PRACH, flagship.PRACH_PREAMBLE
+        fd = torch.as_tensor(flagship.prach_capture(np.random.default_rng(1)))
+    else:
+        if idft_size < 1024:
+            pytest.skip("format 0's 839 bins need 1024 points or more")
+        cfg = prach.PrachConfig(format="0", root_sequence_index=22,
+                                zero_correlation_zone=10)
+        want = 37
+        fd = _prach_capture(cfg, want, 4, 1, np.random.default_rng(4))
+    fd = fd.to(cuda)
+    _k9_hold(prach.detect(fd, cfg, idft_size=idft_size),
+             prach.detect_ref(fd, cfg, idft_size=idft_size), want)
+
+
+def test_prach_detect_kernel_refuses_an_idft_size(cuda):
+    fd = torch.zeros((4, 12, 139), dtype=torch.complex64, device=cuda)
+    with pytest.raises(ValueError, match="256 to 4096"):
+        prach.detect(fd, flagship.PRACH, idft_size=8192)
+
+
+def test_prach_detect_kernel_repeats(cuda):
+    """K9 is deterministic: the same capture gives the same bits."""
+    fd = torch.as_tensor(flagship.prach_capture(
+        np.random.default_rng(2))).to(cuda)
+    a, b = prach.detect(fd, flagship.PRACH), prach.detect(fd, flagship.PRACH)
+    for key in ("metrics", "time_advance_s", "detected", "rssi"):
+        assert torch.equal(getattr(a, key), getattr(b, key))
+
+
+def test_prach_detect_kernel_in_a_cuda_graph(cuda):
+    """K9's one launch captured in a CUDA graph and replayed on a new
+    capture: the twin's result on that capture."""
+    rng = np.random.default_rng(6)
+    cfg = flagship.PRACH
+    static = torch.as_tensor(flagship.prach_capture(rng)).to(cuda)
+    prach.detect(static, cfg)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = prach.detect(static, cfg)
+    static.copy_(torch.as_tensor(flagship.prach_capture(rng)).to(cuda))
+    graph.replay()
+    torch.cuda.synchronize()
+    _k9_hold(out, prach.detect_ref(static, cfg), flagship.PRACH_PREAMBLE)
+
+
 @pytest.mark.parametrize("n_users,hop", [(1, None), (3, 9)])
 def test_pucch_f1_kernel(cuda, n_users, hop):
     common = pucch.PucchF1Config(prb=0, start_symbol=0, nof_symbols=14,
@@ -676,7 +768,8 @@ def _lxn_hold(out, ref):
     _close(llr, llr_ref, 1e-3)
 
 
-@pytest.mark.parametrize("modulation", ["qpsk", "qam256", "pi2bpsk"])
+@pytest.mark.parametrize("modulation", ["qpsk", "qam256", "pi2bpsk",
+                                        "bpsk", "qam16"])
 @pytest.mark.parametrize("method", ["zf", "mmse"])
 @pytest.mark.parametrize("layers", [1, 2, 3, 4])
 def test_pusch_demap_lxn_kernel(cuda, layers, method, modulation):
@@ -694,6 +787,70 @@ def test_pusch_demap_lxn_kernel(cuda, layers, method, modulation):
     before = ul_demap.KERNEL_LXN.launches
     out = ul_demap.equalize_demap_descramble_lxn(*args)
     assert ul_demap.KERNEL_LXN.launches == before + 1
+    _lxn_hold(out, ul_demap.equalize_demap_descramble_ref(*args))
+
+
+def _lxn_args(cuda, rng, layers, method, modulation, zero_every=0,
+              advance=0):
+    h = np.eye(4, layers)[:, :, None, None] + 0.25 * _cgauss(
+        rng, (4, layers, 1, 288)).numpy()
+    if zero_every:
+        h[..., ::zero_every] = 0
+    coeffs = torch.as_tensor(h.astype(np.complex64)).to(cuda)
+    grid = _cgauss(rng, (4, 14, 288)).to(cuda)
+    sym, sc = pusch._plan(PUSCH, cuda)
+    nv = torch.tensor(0.05, device=cuda)
+    return (grid, coeffs, sym, sc, 0, nv, 12345, modulation, layers, method,
+            advance)
+
+
+@pytest.mark.parametrize("layers,method", [(1, "zf"), (1, "mmse"),
+                                           (3, "mmse"), (4, "mmse")])
+def test_pusch_demap_lxn_kernel_singular(cuda, layers, method):
+    """K16 where every third subcarrier has no channel at all: the 1e12
+    noise there (one layer, MMSE), the twin elsewhere."""
+    args = _lxn_args(cuda, np.random.default_rng(70 + layers), layers,
+                     method, "qam64", zero_every=3)
+    out = ul_demap.equalize_demap_descramble_lxn(*args)
+    ref = ul_demap.equalize_demap_descramble_ref(*args)
+    _lxn_hold(out, ref)
+    assert torch.equal(out[0] == 0, ref[0] == 0)
+
+
+@pytest.mark.parametrize("advance", [0, 6, 7])
+def test_pusch_demap_lxn_kernel_advance(cuda, advance):
+    """K16 from a Gold offset (a hopping PUSCH's second hop; pi/2-BPSK's
+    parity from it) and with odd spans, so the 16-byte stores start and
+    end on scalars."""
+    args = _lxn_args(cuda, np.random.default_rng(80 + advance), 3, "mmse",
+                     "pi2bpsk", advance=advance)
+    _lxn_hold(ul_demap.equalize_demap_descramble_lxn(*args),
+              ul_demap.equalize_demap_descramble_ref(*args))
+
+
+def test_pusch_demap_lxn_kernel_repeats(cuda):
+    args = _lxn_args(cuda, np.random.default_rng(90), 4, "mmse", "qam256")
+    a = ul_demap.equalize_demap_descramble_lxn(*args)
+    b = ul_demap.equalize_demap_descramble_lxn(*args)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_pusch_demap_lxn_kernel_in_a_cuda_graph(cuda):
+    """K16's one launch captured in a CUDA graph and replayed on a new grid
+    and channel: the twin's result on those."""
+    rng = np.random.default_rng(91)
+    args = _lxn_args(cuda, rng, 4, "mmse", "qam64")
+    grid, coeffs = args[0], args[1]
+    ul_demap.equalize_demap_descramble_lxn(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ul_demap.equalize_demap_descramble_lxn(*args)
+    new = _lxn_args(cuda, rng, 4, "mmse", "qam64")
+    grid.copy_(new[0])
+    coeffs.copy_(new[1])
+    graph.replay()
+    torch.cuda.synchronize()
     _lxn_hold(out, ul_demap.equalize_demap_descramble_ref(*args))
 
 
