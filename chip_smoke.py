@@ -373,7 +373,11 @@ MU_PATH = ("ldpc_decode", "rate_dematch", "ofdm_demodulate",
            "srs_estimate", "short_block_detect", "polar_decode") + MU_KERNELS
 # Extra cases of a kernel at another shape: compared and timed, printed,
 # not in the JSON line (which holds the main path's shape).
-CASE_KERNEL = {"pdsch_map_repetition": "pdsch_map",
+CASE_KERNEL = {**{f"ofdm_{k}{case}": f"ofdm_{k}"
+                  for k in ("demodulate", "modulate")
+                  for case in ("_batch4", "_n1024", "_offset_max",
+                               "_extended", "_n1536")},
+               "pdsch_map_repetition": "pdsch_map",
                "ldpc_decode_clean": "ldpc_decode",
                "ldpc_decode_batch4": "ldpc_decode",
                "ldpc_decode_harq": "ldpc_decode",
@@ -491,12 +495,15 @@ MU_BATCH_LAUNCHES = {**{k: v for k, v in _TWO_PUSCH.items()
 EDGE_BATCH_LAUNCHES = {**_TWO_PUSCH, "pusch_tp_demap_batch": 1,
                        "pucch_f3_demap_batch": 2,
                        "channel_estimate_batch": 6}
-# K9's, K16's, K32's, K21's, K18's, K19's, K33's, K34's and K35's cases:
+# K4's, K7's, K9's, K16's, K32's, K21's, K18's, K19's, K33's, K34's and
+# K35's cases:
 # host µs per call over HOST_CALLS calls and device µs from a profiler
 # trace, for the kernel and its library call (K35's quantize, which no one
 # call computes: its plain twin).  K27's (phase 12) go through
 # ``launch_profile.control_calls``.
-HOST_TIMED = ("prach_detect", "pusch_demap_lxn", "pusch_demap_lxn_1l_mmse",
+HOST_TIMED = ("ofdm_demodulate", "ofdm_demodulate_batch4", "ofdm_modulate",
+              "ofdm_modulate_batch4",
+              "prach_detect", "pusch_demap_lxn", "pusch_demap_lxn_1l_mmse",
               "rate_match", "prach_demod", "prach_demod_n6144",
               "prach_demod_format0", "pusch_tp_demap",
               "pusch_tp_demap_m300", "pusch_tp_demap_m2916",
@@ -828,10 +835,11 @@ def work(name: str, args: tuple, out) -> tuple:
         return (nbytes(llr) + nbytes(out) + 4 * code.big_n,
                 3.0 * code.big_n * code.n * llr.shape[0])
     if name == "ofdm_demodulate":                  # K4: FFT + 6 per bin
-        samples, nsc, n = args[0], args[1], args[2]
-        p, s = samples.shape[0], 14
-        return (nbytes(samples) + nbytes(out),
-                fft_ops(n, p * s) + 6.0 * p * s * nsc)
+        # the S windows of N samples a row (not the CP before them) read
+        nsc, n = args[1], args[2]
+        ffts = math.prod(out.shape[:-1])            # rows x S
+        return (ffts * n * c64 + nbytes(out),
+                fft_ops(n, ffts) + 6.0 * ffts * nsc)
     if name == "pusch_demap":                      # K3: ~230 per RE
         grid, coeffs, sym, sc = args[:4]
         n_re = sym.numel()
@@ -916,9 +924,8 @@ def work(name: str, args: tuple, out) -> tuple:
         return nbytes(args) + nbytes(out), 40.0 * grid.numel()
     if name == "ofdm_modulate":                    # K7: IFFT + 6 per sample
         grid, n = args[0], args[1]
-        p, s = grid.shape[0], grid.shape[1]
         return (nbytes(grid) + nbytes(out),
-                fft_ops(n, p * s) + 6.0 * out.numel())
+                fft_ops(n, math.prod(grid.shape[:-1])) + 6.0 * out.numel())
     if name == "channel_estimate":                 # K8
         grid, symbols, _, expected, pilot_scs, nsc = args[:6]
         p, (n_l, n_s, n_k) = grid.shape[0], expected.shape
@@ -1210,6 +1217,44 @@ def f1_loopback(dev) -> None:
           flush=True)
 
 
+def ofdm_cases(prefix: str, dev) -> dict:
+    """K4's (``prefix`` "ofdm_demodulate_") or K7's ("ofdm_modulate_")
+    further cases of ``flagship.ofdm_profile_cases`` -- a batch of 4, N
+    1024, the largest window offset (K4), extended CP, N 1536 -- from a
+    generator of their own (the phases' draws stay as they were)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 24)
+    return {k: v for k, v in flagship.ofdm_profile_cases(gen, dev).items()
+            if k.startswith(prefix)}
+
+
+def ofdm_library(cases: dict) -> dict:
+    """K4's and K7's library calls: ``torch.fft`` of the FFT stage
+    (``launch_profile.ofdm_fft_library``) per case."""
+    return {name: launch_profile.ofdm_fft_library(name, args)
+            for name, (_, _, args) in cases.items()
+            if CASE_KERNEL.get(name, name) in ("ofdm_demodulate",
+                                               "ofdm_modulate")}
+
+
+def one_launch_a_call(cases: dict) -> None:
+    """K4 and K7 launch once a call: each case adds one to its kernel's
+    count (its ``_batch`` row with a slot axis)."""
+    for name, (fn, _, args) in cases.items():
+        kind = CASE_KERNEL.get(name, name)
+        if kind not in ("ofdm_demodulate", "ofdm_modulate"):
+            continue
+        rank = 2 if kind == "ofdm_demodulate" else 3
+        row = kernels.REGISTRY[kind + ("_batch" if args[0].ndim > rank
+                                       else "")]
+        before = row.launches
+        fn(*args)
+        if row.launches != before + 1:
+            raise AssertionError(f"{name}: {row.launches - before} launches "
+                                 "in one call")
+    print("K4/K7: one launch a call on every case", flush=True)
+
+
 def ul_phases(dev, gen, rng, card) -> tuple:
     """The UL kernels against their twins, then the flagship UL slot."""
     ul = flagship.ul_program()
@@ -1224,9 +1269,12 @@ def ul_phases(dev, gen, rng, card) -> tuple:
 
     cases = flagship.kernel_cases(slots[0][1], slots[0][2], gen, prach_in)
     cases.update(flagship.ldpc_decode_cases(cases, gen))
-    results = kernel_phases(cases, {"prach_detect": launch_profile.
-                                    prach_idft_library(
-                                        cases["prach_detect"][2])})
+    cases.update(ofdm_cases("ofdm_demodulate_", dev))
+    one_launch_a_call(cases)
+    results = kernel_phases(cases, {
+        "prach_detect": launch_profile.prach_idft_library(
+            cases["prach_detect"][2]),
+        **ofdm_library(cases)})
 
     # The main path.  Warm up (builds the device constants), then count
     # launches over NOF_SLOTS slots.
@@ -1303,10 +1351,13 @@ def dl_phases(dev, rng, card) -> tuple:
     cases = flagship.dl_kernel_cases(slots[0])
     cases.update(flagship.dlsch_encode_cases(cases["dlsch_encode"][2][0],
                                              torch.Generator(dev)))
+    cases.update(ofdm_cases("ofdm_modulate_", dev))
+    one_launch_a_call(cases)
     results = kernel_phases(cases, {
-        name: launch_profile.dlsch_library(*args)
-        for name, (_, _, args) in cases.items()
-        if name.startswith("dlsch_encode")})
+        **{name: launch_profile.dlsch_library(*args)
+           for name, (_, _, args) in cases.items()
+           if name.startswith("dlsch_encode")},
+        **ofdm_library(cases)})
 
     # The main path: both programs warm, then NOF_SLOTS slots counted.
     for s in warm:

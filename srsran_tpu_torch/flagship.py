@@ -2330,6 +2330,54 @@ def prach_lxn_profile_cases(gen: torch.Generator, device) -> dict:
     return cases
 
 
+# K4's and K7's further cases: extended CP at 60 kHz (100 MHz: 135 RB, N
+# 2048) and a 20 MHz cell at 15 kHz sampled at 23.04 MHz (106 RB, N 1536,
+# the Stockham form), both on the flagship's 4 ports.
+OFDM_EXTENDED_CELL = CellConfig(nof_ports=4, nof_rb=135, dft_size=2048,
+                                numerology=2, cp=ofdm.CyclicPrefix.EXTENDED)
+OFDM_1536_CELL = CellConfig(nof_ports=4, nof_rb=106, dft_size=1536,
+                            numerology=0)
+
+
+def ofdm_profile_cases(gen: torch.Generator, device) -> dict:
+    """K4's and K7's cases for ``launch_profile`` and ``chip_smoke.py``:
+    name -> (wrapper, twin, args) on seeded random samples and grids.  K4
+    (``ofdm_demodulate``): the flagship UL slot (P 4, S 14, N 4096, K
+    3276), a batch of 4 (``_batch4``), the DU-low's small cell (1 port, N
+    1024: ``_n1024``), the flagship at the largest window offset, 144
+    (``_offset_max``), extended CP (:data:`OFDM_EXTENDED_CELL`:
+    ``_extended``) and N = 1536 (:data:`OFDM_1536_CELL`: ``_n1536``, the
+    Stockham form).  K7 (``ofdm_modulate``): the same but the offset, at
+    the cell's TX scale."""
+    def cn(*shape):
+        return torch.complex(torch.randn(shape, device=device, generator=gen),
+                             torch.randn(shape, device=device, generator=gen)
+                             ) / np.sqrt(2)
+
+    cases = {}
+    for name, cell, lead, offset in (
+            ("", CELL, (), 0), ("_batch4", CELL, (BATCH,), 0),
+            ("_n1024", DU_SMALL_CELL, (), 0),
+            ("_offset_max", CELL, (),
+             ofdm.max_window_offset(CELL.dft_size)),
+            ("_extended", OFDM_EXTENDED_CELL, (), 0),
+            ("_n1536", OFDM_1536_CELL, (), 0)):
+        samples = cn(*lead, cell.nof_ports, cell.slot_samples(0))
+        cases["ofdm_demodulate" + name] = (
+            ofdm.demodulate_slot, ofdm.demodulate_slot_ref,
+            (samples, cell.nof_sc, cell.dft_size, cell.numerology, cell.cp,
+             0, cell.center_freq_hz, 1.0, offset))
+        if offset:
+            continue
+        nsym = 14 if cell.cp is ofdm.CyclicPrefix.NORMAL else 12
+        grid = cn(*lead, cell.nof_ports, nsym, cell.nof_sc)
+        cases["ofdm_modulate" + name] = (
+            ofdm.modulate_slot, ofdm.modulate_slot_ref,
+            (grid, cell.dft_size, cell.numerology, cell.cp, 0,
+             cell.center_freq_hz, cell.tx_scale))
+    return cases
+
+
 # ------------------------------------------------------------- split 8
 
 # apps/ssb_tx.py's cell at the flagship width: 1 port, 273 RB, 4096 FFT.

@@ -11,8 +11,8 @@ The rules it keeps:
 
 * **Warm before capture.**  Each branch runs once eagerly first: that fills
   every ``device.const`` entry (a miss during capture would upload from
-  pageable memory) and every cuFFT plan, and sets the kernels' shared-memory
-  attributes.
+  pageable memory) and every hand kernel's launch plan, and sets the
+  kernels' shared-memory attributes.
 * **Static inputs.**  The graph owns one copy of each per-call input tensor
   (payload blob, rx samples, PRACH captures, HARQ soft buffers); a call
   copies its inputs into them and then replays.  What a phase owns (its slot

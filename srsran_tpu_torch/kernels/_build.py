@@ -8,8 +8,8 @@ root, named by a hash of the sources and flags; the library is loaded with
 build on every run, so the sources compile side by side.  Pointers and the stream go over as
 ``ctypes.c_void_p``; every C entry point returns ``cudaGetLastError()``
 after its launches, and :func:`check` raises on anything but 0.
-:class:`Launch` is the lean form of that path (K1, K5, K8, K9, K15,
-K16, K32, K21, K18, K19, K27, K33, K34 and K35 take it): a wrapper keeps
+:class:`Launch` is the lean form of that path (K1, K4, K5, K7, K8, K9,
+K15, K16, K32, K21, K18, K19, K27, K33, K34 and K35 take it): a wrapper keeps
 one per call signature with the bound C function, a parameter struct
 passed by address and its device tables, and a call passes only the
 tensors' pointers and the current stream.
@@ -180,7 +180,8 @@ F3_MAX_OCC = 4             # csrc/dft_s_ofdm.cu kMaxOcc
 
 
 class FftPlan(ctypes.Structure):
-    """csrc/dft_s_ofdm.cuh's FftPlan (K18's and K19's IDFT stages)."""
+    """csrc/dft_s_ofdm.cuh's FftPlan (K18's and K19's IDFT stages, and
+    the Stockham form of K4 and K7)."""
 
     _fields_ = [("M", _I), ("stages", _I), ("radix", _I * FFT_MAX_STAGES),
                 ("span", _I * FFT_MAX_STAGES), ("step", _I * FFT_MAX_STAGES),
@@ -230,6 +231,20 @@ class PrachDetectParams(ctypes.Structure):
         (name, _I) for name in ("off_tw", "off_wv", "off_w32", "off_geom",
                                 "off_range")]
 
+OFDM_MAX_SYMBOLS = 14      # csrc/ofdm.cuh kOfdmMaxSymbols
+OFDM_MAX_STAGES = 3        # csrc/ofdm.cuh kOfdmMaxStages
+
+
+class OfdmParams(ctypes.Structure):
+    """csrc/ofdm.cuh's OfdmParams (K4's and K7's launch), by address."""
+
+    _fields_ = [(name, _I) for name in (
+        "rows", "S", "N", "K", "half", "T", "off", "form")] + [
+        ("tw_off", _I * (OFDM_MAX_STAGES - 1)),
+        ("smem", _I), ("ramp", _I), ("start", _I * OFDM_MAX_SYMBOLS),
+        ("cp", _I * OFDM_MAX_SYMBOLS), ("comp", _F * (2 * OFDM_MAX_SYMBOLS)),
+        ("fft", FftPlan)]
+
 CHEST_MAX_SYMBOLS = 14     # csrc/channel_estimate.cu kChestMaxSymbols
 CHEST_MAX_CTAS = 8         # csrc/channel_estimate.cu kChestMaxCtas
 
@@ -255,13 +270,13 @@ SIGNATURES = {
                            _P, _P, _I, _I, _I, _F, _P, _P, _P, _I, _P],
     "srsran_pusch_demap_lxn": [_P] * 10,
     "srsran_ulsch_demux": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P],
-    "srsran_ofdm_window": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "srsran_ofdm_bins_to_grid": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "srsran_ofdm_demod_prepare": [_I],
+    "srsran_ofdm_demodulate": [_P] * 5,
     "srsran_dlsch_encode": [_P] * 7,
     "srsran_pdsch_map": [_P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P,
                          _I, _I, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P],
-    "srsran_ofdm_grid_to_bins": [_P, _P, _I, _I, _I, _I, _P],
-    "srsran_ofdm_cp_insert": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "srsran_ofdm_mod_prepare": [_I],
+    "srsran_ofdm_modulate": [_P] * 5,
     "srsran_chest_prepare": [_I],
     "srsran_chest_estimate": [_P] * 10,
     "srsran_prach_prepare": [_I],

@@ -1,7 +1,7 @@
-"""The host side of a kernel launch on one CUDA GPU: K1's, K5's, K8's,
-K15's, K32's, K21's, K18's, K19's, K27's, K33's, K34's and K35's wrappers
-against one PyTorch call each (K1, K8, K15: none computes it; their device
-µs alone).
+"""The host side of a kernel launch on one CUDA GPU: K1's, K4's, K5's,
+K7's, K8's, K15's, K32's, K21's, K18's, K19's, K27's, K33's, K34's and
+K35's wrappers against one PyTorch call each (K1, K8, K15: none computes
+it; their device µs alone).
 
     python3 -m srsran_tpu_torch.launch_profile [--calls 1000] [--out DIR]
         [--cases PREFIX ...]
@@ -52,7 +52,15 @@ arguments are made anew each call (``_caller``, ``_srs_caller``: the host
 (``polar_decode``), the PBCH (``_pbch``), an AL16 DCI at B = 4 with its
 syndrome (``_al16``), N = 1024 (``_n1024``) and the F2's codeword over 4
 slots (``_batch4``), from ``flagship.chest_polar_profile_cases``
-(:func:`chest_polar_calls`); ``--cases channel_estimate polar_decode``.
+(:func:`chest_polar_calls`); ``--cases channel_estimate polar_decode``;
+K4 (``ofdm.demodulate_slot``) on the flagship UL slot (``ofdm_demodulate``),
+a batch of 4 (``_batch4``), the DU-low's small cell at N = 1024
+(``_n1024``), the largest window offset (``_offset_max``), extended CP
+(``_extended``) and N = 1536 (``_n1536``), and K7 (``ofdm.modulate_slot``)
+on the same but the offset, from ``flagship.ofdm_profile_cases``
+(:func:`ofdm_calls`), each beside ``torch.fft.fft`` / ``ifft`` of its FFT
+stage on the [(B,) P, S, N] buffer the former kernels built around cuFFT
+(:func:`ofdm_fft_library`); ``--cases ofdm``, ~1 min.
 ``--cases`` keeps the cases whose names start with one of the prefixes
 (and skips the pieces below, and building the cases it leaves out).  Per
 case and call it reports:
@@ -98,7 +106,8 @@ import torch
 from . import flagship
 from .device import card_line, const, require_cuda
 from .kernels import _build
-from .ops import dl_control, ldpc_encode, ldpc_rate_match, llr, ul_demap
+from .ops import (dl_control, ldpc_encode, ldpc_rate_match, llr, ofdm,
+                  ul_demap)
 from .ops.crc import crc
 from .ops.transform_precode import deprecode
 from .phy.lower import prach_demod
@@ -547,6 +556,39 @@ def prach_lxn_calls(gen: torch.Generator, dev) -> tuple:
     return calls, library
 
 
+def ofdm_fft_library(name: str, args: tuple):
+    """``torch.fft.fft`` (K4) or ``torch.fft.ifft`` (K7), norm "ortho", of
+    the FFT stage on the [(B,) P, S, N] buffer the former K4 and K7 built
+    around cuFFT: K4's windows (``ofdm._window_plan_rx``), K7's bins with
+    zeros between the halves (``ofdm._grid_to_bins``), built once; a stage
+    of the function, not the whole."""
+    if name.startswith("ofdm_demodulate"):
+        samples, _, n, mu, cp, sis = args[:6]
+        offset = args[8] if len(args) > 8 else 0
+        plan = torch.from_numpy(ofdm._window_plan_rx(
+            cp, mu, n, sis, offset)).long().to(samples.device)
+        buf = samples[..., plan].contiguous()
+        return lambda: torch.fft.fft(buf, dim=-1, norm="ortho")
+    buf = ofdm._grid_to_bins(args[0], args[1]).contiguous()
+    return lambda: torch.fft.ifft(buf, dim=-1, norm="ortho")
+
+
+def ofdm_calls(gen: torch.Generator, dev) -> tuple:
+    """K4's and K7's (calls, library) by name
+    (``flagship.ofdm_profile_cases``), each checked against its twin once
+    (within 1e-4 of the largest magnitude), beside the library call of its
+    FFT stage (:func:`ofdm_fft_library`)."""
+    calls, library = {}, {}
+    for name, (fn, twin, a) in flagship.ofdm_profile_cases(gen, dev).items():
+        ref = twin(*a)
+        torch.testing.assert_close(fn(*a), ref, rtol=1e-4,
+                                   atol=1e-4 * float(ref.abs().max()),
+                                   msg=name)
+        calls[name] = lambda fn=fn, a=a: fn(*a)
+        library[name] = ofdm_fft_library(name, a)
+    return calls, library
+
+
 def _entry(loader, argtype):
     """K32's C entry point loaded through ``loader`` (ctypes.CDLL releases
     the interpreter lock around the call, ctypes.PyDLL keeps it) with four
@@ -654,7 +696,9 @@ def main(argv=None) -> dict:
                 (("channel_estimate", "polar_decode"),
                  lambda: chest_polar_calls(gen, dev)),
                 (("prach_detect", "pusch_demap_lxn"),
-                 lambda: prach_lxn_calls(gen, dev)))
+                 lambda: prach_lxn_calls(gen, dev)),
+                (("ofdm_demodulate", "ofdm_modulate"),
+                 lambda: ofdm_calls(gen, dev)))
     for prefixes, build in builders:
         if _wanted(args.cases, prefixes):
             more_calls, more_library = build()

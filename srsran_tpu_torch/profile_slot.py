@@ -108,9 +108,9 @@ from .utils import config as app_config
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HAND_KERNELS = ("ldpc_sweep_kernel", "ldpc_decode_kernel",
                 "rate_dematch_kernel", "pusch_demap_kernel",
-                "ofdm_window_kernel", "ofdm_bins_kernel",
+                "ofdm_demod_kernel", "ofdm_demod_mixed_kernel",
                 "dlsch_encode_kernel", "pdsch_map_kernel",
-                "ofdm_grid_to_bins_kernel", "ofdm_cp_insert_kernel",
+                "ofdm_mod_kernel", "ofdm_mod_mixed_kernel",
                 "chest_kernel", "prach_detect_kernel", "pucch_f1_kernel",
                 "srs_noise_kernel", "pucch_f0_kernel", "pucch_f2_kernel",
                 "short_block_kernel", "polar_sc_kernel",

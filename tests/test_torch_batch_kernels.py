@@ -73,17 +73,30 @@ def _grid(rng, b, cuda, ports=4):
     return _cgauss(rng, (b, ports, 14, 288)).to(cuda)
 
 
+@pytest.mark.parametrize("n,k,cp,offset", [
+    (512, 288, "normal", 0), (4096, 3276, "normal", 0),
+    (4096, 3276, "normal", 144), (1024, 600, "extended", 0),
+    (1536, 1200, "normal", 54)])
 @pytest.mark.parametrize("b", [1, 4])
-def test_ofdm_batched(cuda, b):
-    """K4 and K7 over B x P rows."""
+def test_ofdm_batched(cuda, b, n, k, cp, offset):
+    """K4 and K7 over B x P rows in one launch each: the flagship size,
+    the largest window offset, extended CP and the Stockham form too."""
     rng = np.random.default_rng(b)
-    samples = _cgauss(rng, (b, 4, 7680)).to(cuda)
-    rx = (288, 512, 1, ofdm.CyclicPrefix.NORMAL, 0, 3.5e9)
+    cpv = (ofdm.CyclicPrefix.NORMAL if cp == "normal"
+           else ofdm.CyclicPrefix.EXTENDED)
+    mu = 1 if cp == "normal" else 2
+    total = ofdm._symbol_layout(cpv, mu, n, 0)[2]
+    samples = _cgauss(rng, (b, 4, total)).to(cuda)
+    rx = (k, n, mu, cpv, 0, 3.5e9, 1.0, offset)
+    before = kernels.REGISTRY["ofdm_demodulate_batch"].launches
     grid = ofdm.demodulate_slot(samples, *rx)
+    assert kernels.REGISTRY["ofdm_demodulate_batch"].launches == before + 1
     _close(grid, ofdm.demodulate_slot_ref(samples, *rx), 1e-4)
     _close(grid[0], ofdm.demodulate_slot(samples[0], *rx), 1e-6)
-    tx = (512, 1, ofdm.CyclicPrefix.NORMAL, 0, 3.5e9, 1.0)
+    tx = (n, mu, cpv, 0, 3.5e9, 1.0)
+    before = kernels.REGISTRY["ofdm_modulate_batch"].launches
     out = ofdm.modulate_slot(grid, *tx)
+    assert kernels.REGISTRY["ofdm_modulate_batch"].launches == before + 1
     _close(out, ofdm.modulate_slot_ref(grid, *tx), 1e-4)
     _close(out[0], ofdm.modulate_slot(grid[0], *tx), 1e-6)
 

@@ -243,8 +243,12 @@ def test_busy_is_union_of_intervals(intervals, busy):
     ("dlsch_encode_kernel(signed char const*, ...)", "kernel",
      "dlsch_encode_kernel"),
     ("void pdsch_map_kernel<8>(...)", "kernel", "pdsch_map_kernel"),
-    ("ofdm_cp_insert_kernel(float2 const*, ...)", "kernel",
-     "ofdm_cp_insert_kernel"),
+    ("void (anonymous namespace)::ofdm_mod_kernel<12>(float2 const*, ...)",
+     "kernel", "ofdm_mod_kernel"),
+    ("void (anonymous namespace)::ofdm_demod_kernel<10>(float2 const*, ...)",
+     "kernel", "ofdm_demod_kernel"),
+    ("(anonymous namespace)::ofdm_demod_mixed_kernel(float2 const*, ...)",
+     "kernel", "ofdm_demod_mixed_kernel"),
     ("chest_kernel(float2 const*, ...)", "kernel", "chest_kernel"),
     ("prach_detect_kernel(float const*, ...)", "kernel",
      "prach_detect_kernel"),

@@ -26,7 +26,7 @@ import torch
 from srsran_tpu.ran.ldpc_params import segment_tb, select_base_graph
 from srsran_tpu.ran.mcs_tbs import tbs as tbs_calc
 
-from srsran_tpu_torch import flagship
+from srsran_tpu_torch import flagship, kernels
 from srsran_tpu_torch.ops import channel_estimate as chest
 from srsran_tpu_torch.ops import (crc, dl_map, ldpc_decode, ldpc_encode,
                                   ldpc_rate_match, ofdm, polar, short_block,
@@ -64,12 +64,45 @@ def _close(a, b, rtol):
                                atol=rtol * float(b.abs().max()))
 
 
-@pytest.mark.parametrize("offset", [0, 8])
-def test_ofdm_demodulate_kernel(cuda, offset):
-    samples = _cgauss(np.random.default_rng(1), (4, 7680)).to(cuda)
-    args = (288, 512, 1, ofdm.CyclicPrefix.NORMAL, 0, 3.5e9, 1.0, offset)
-    _close(ofdm.demodulate_slot(samples, *args),
-           ofdm.demodulate_slot_ref(samples, *args), 1e-4)
+NORMAL, EXTENDED = ofdm.CyclicPrefix.NORMAL, ofdm.CyclicPrefix.EXTENDED
+# K4's and K7's cases: (N, K, numerology, CP, slot_in_subframe, window
+# offset (K4), slot axis): the radix-16 form at every size (the flagship's
+# 4096 among them, alone, at the largest offset and over 4 slots), extended
+# CP, and the Stockham form at 1536 (with an offset and a slot axis) and
+# 3000.
+OFDM_CASES = {
+    "n512": (512, 288, 1, NORMAL, 0, 0, ()),
+    "n512_offset8": (512, 288, 1, NORMAL, 0, 8, ()),
+    "flagship": (4096, 3276, 1, NORMAL, 0, 0, ()),
+    "flagship_offset_max": (4096, 3276, 1, NORMAL, 0, 144, ()),
+    "flagship_batch4": (4096, 3276, 1, NORMAL, 0, 0, (4,)),
+    "n2048_sis1": (2048, 1638, 1, NORMAL, 1, 20, ()),
+    "n1024_extended": (1024, 600, 2, EXTENDED, 0, 36, ()),
+    "n256_extended_mu0": (256, 180, 0, EXTENDED, 1, 0, ()),
+    "n128_odd": (128, 71, 0, NORMAL, 1, 4, ()),
+    "stockham_1536": (1536, 1200, 1, NORMAL, 0, 0, ()),
+    "stockham_1536_offset_batch2": (1536, 1200, 1, NORMAL, 1, 54, (2,)),
+    "stockham_3000": (3000, 2400, 0, NORMAL, 0, 10, ()),
+}
+
+
+def _ofdm_counter(kernel, lead):
+    return (kernels.REGISTRY[f"{kernel.name}_batch"] if lead else kernel)
+
+
+@pytest.mark.parametrize("case", list(OFDM_CASES))
+def test_ofdm_demodulate_kernel(cuda, case):
+    """K4 against its twin at rtol 1e-4, one launch a call."""
+    n, k, mu, cp, sis, offset, lead = OFDM_CASES[case]
+    total = ofdm._symbol_layout(cp, mu, n, sis)[2]
+    samples = _cgauss(np.random.default_rng(n + k), lead + (4, total)).to(
+        cuda)
+    args = (k, n, mu, cp, sis, 3.5e9, 0.8, offset)
+    counter = _ofdm_counter(ofdm.KERNEL, lead)
+    before = counter.launches
+    out = ofdm.demodulate_slot(samples, *args)
+    assert counter.launches == before + 1
+    _close(out, ofdm.demodulate_slot_ref(samples, *args), 1e-4)
 
 
 @pytest.mark.parametrize("modulation", ["qam64", "bpsk", "pi2bpsk"])
@@ -336,16 +369,48 @@ def test_pdsch_map_kernel(cuda, case):
     _close(out, ref, 1e-6)
 
 
-@pytest.mark.parametrize("cp,mu,n,sis,scale", [
-    (ofdm.CyclicPrefix.NORMAL, 1, 512, 0, 1.0),
-    (ofdm.CyclicPrefix.NORMAL, 0, 512, 1, 0.5),
-    (ofdm.CyclicPrefix.EXTENDED, 2, 1024, 0, 1.0)])
-def test_ofdm_modulate_kernel(cuda, cp, mu, n, sis, scale):
-    nsym = 14 if cp is ofdm.CyclicPrefix.NORMAL else 12
-    grid = _cgauss(np.random.default_rng(n), (4, nsym, 288)).to(cuda)
+@pytest.mark.parametrize("case", ["scale_half"] + list(OFDM_CASES))
+def test_ofdm_modulate_kernel(cuda, case):
+    """K7 against its twin at rtol 1e-4, one launch a call."""
+    if case == "scale_half":
+        n, k, mu, cp, sis, scale, lead = 512, 288, 0, NORMAL, 1, 0.5, ()
+    else:
+        n, k, mu, cp, sis, _, lead = OFDM_CASES[case]
+        scale = 1.0
+    nsym = 14 if cp is NORMAL else 12
+    grid = _cgauss(np.random.default_rng(n), lead + (4, nsym, k)).to(cuda)
     args = (n, mu, cp, sis, 3.5e9, scale)
-    _close(ofdm.modulate_slot(grid, *args), ofdm.modulate_slot_ref(grid, *args),
-           1e-4)
+    counter = _ofdm_counter(ofdm.KERNEL_TX, lead)
+    before = counter.launches
+    out = ofdm.modulate_slot(grid, *args)
+    assert counter.launches == before + 1
+    _close(out, ofdm.modulate_slot_ref(grid, *args), 1e-4)
+
+
+@pytest.mark.parametrize("case", ["flagship", "stockham_1536"])
+def test_ofdm_kernels_in_cuda_graph(cuda, case):
+    """K4 and K7 captured in one CUDA graph and replayed on new inputs
+    (no synchronisation, no allocation inside either launch)."""
+    n, k, mu, cp, sis, offset, _ = OFDM_CASES[case]
+    rng = np.random.default_rng(7)
+    total = ofdm._symbol_layout(cp, mu, n, sis)[2]
+    samples = _cgauss(rng, (4, total)).to(cuda)
+    grid = _cgauss(rng, (4, 14, k)).to(cuda)
+    rx = (k, n, mu, cp, sis, 3.5e9, 1.0, offset)
+    tx = (n, mu, cp, sis, 3.5e9, 1.0)
+    ofdm.demodulate_slot(samples, *rx)
+    ofdm.modulate_slot(grid, *tx)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out_rx = ofdm.demodulate_slot(samples, *rx)
+        out_tx = ofdm.modulate_slot(grid, *tx)
+    samples.copy_(_cgauss(rng, (4, total)).to(cuda))
+    grid.copy_(_cgauss(rng, (4, 14, k)).to(cuda))
+    graph.replay()
+    torch.cuda.synchronize()
+    _close(out_rx, ofdm.demodulate_slot_ref(samples, *rx), 1e-4)
+    _close(out_tx, ofdm.modulate_slot_ref(grid, *tx), 1e-4)
 
 
 # UL mix kernels: K8 channel estimator, K9 PRACH, K10 PUCCH F1, K11 SRS, at
