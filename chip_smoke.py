@@ -378,6 +378,9 @@ CASE_KERNEL = {**{f"ofdm_{k}{case}": f"ofdm_{k}"
                   for case in ("_batch4", "_n1024", "_offset_max",
                                "_extended", "_n1536")},
                "pdsch_map_repetition": "pdsch_map",
+               "pdsch_map_batch4": "pdsch_map",
+               **{f"pusch_demap{case}": "pusch_demap"
+                  for case in ("_batch4", "_1l", "_hop1", "_hop2")},
                "ldpc_decode_clean": "ldpc_decode",
                "ldpc_decode_batch4": "ldpc_decode",
                "ldpc_decode_harq": "ldpc_decode",
@@ -843,8 +846,9 @@ def work(name: str, args: tuple, out) -> tuple:
     if name == "pusch_demap":                      # K3: ~230 per RE
         grid, coeffs, sym, sc = args[:4]
         n_re = sym.numel()
-        return (n_re * grid.shape[0] * c64 + nbytes((coeffs, sym, sc))
-                + nbytes(out), 230.0 * n_re)
+        nb = grid.numel() // math.prod(grid.shape[-3:])     # slots
+        return (nb * n_re * grid.shape[-3] * c64 + nbytes((coeffs, sym, sc))
+                + nbytes(out), 230.0 * n_re * nb)
     if name == "pusch_demap_lxn":                  # K16
         # per RE: 8 per complex MAC of G and z over the ports, ~30 L^3 for
         # the LDL^H solve, A^-1 and (MMSE) A^-1 G A^-1, and per layer and
@@ -919,9 +923,21 @@ def work(name: str, args: tuple, out) -> tuple:
         return (ports * reps * n_u * c64 + nbytes(out),
                 fft_ops(n_u, ports * reps))
     if name in ("pdsch_map", "pdsch_map_repetition",
-                "pdsch_map_prg"):                  # K6, K22: ~40 per RE/port
-        grid = args[0]
-        return nbytes(args) + nbytes(out), 40.0 * grid.numel()
+                "pdsch_map_prg"):                  # K6, K22
+        # per slot: the window's distinct codeblock bytes (min(E_r, N_nf) a
+        # codeblock), each data RE's grid value on every port read and
+        # written; the RE plan and the precoder once (the Gold sequence is
+        # a function of c_init, not an input); per RE 8 L P for the
+        # precode, 2 P for the grid add, a XOR per bit
+        grid, cbs, e_sizes, rv, _, bg, z, k_prime, k, _, n_l, sym = args[:12]
+        n_ref = args[16] if len(args) > 16 else 0
+        nb = grid.numel() // math.prod(grid.shape[-3:])
+        p, n_re, g = grid.shape[-3], sym.numel(), sum(e_sizes)
+        n_nf = ldpc_rate_match._window_plan(rv, bg, z, k_prime, k,
+                                            cbs.shape[-1], n_ref)[2]
+        window = sum(min(e, n_nf) for e in e_sizes)
+        return (nb * (window + 2 * c64 * p * n_re) + 8 * n_re
+                + nbytes(args[13]), nb * (n_re * (8.0 * n_l + 2) * p + g))
     if name == "ofdm_modulate":                    # K7: IFFT + 6 per sample
         grid, n = args[0], args[1]
         return (nbytes(grid) + nbytes(out),
@@ -1086,9 +1102,6 @@ def kernel_phases(cases: dict, library: dict | None = None) -> dict:
     for name, (fn, ref_fn, args) in cases.items():
         out = fn(*args)
         err = compare(name, out, ref_fn(*args), args)
-        if name == "pdsch_map_repetition":
-            print(f"K6 repetition, rv 2: max_abs_err {err:.3g}", flush=True)
-            continue
         lib = (library or {}).get(name)
         results[name] = dict(max_abs_err=err,
                              ms=median_ms(lambda: fn(*args)),
@@ -1237,22 +1250,60 @@ def ofdm_library(cases: dict) -> dict:
                                                "ofdm_modulate")}
 
 
-def one_launch_a_call(cases: dict) -> None:
-    """K4 and K7 launch once a call: each case adds one to its kernel's
-    count (its ``_batch`` row with a slot axis)."""
-    for name, (fn, _, args) in cases.items():
-        kind = CASE_KERNEL.get(name, name)
-        if kind not in ("ofdm_demodulate", "ofdm_modulate"):
-            continue
+def launch_row(name: str, args: tuple) -> str | None:
+    """The launch count one call of a K3, K4, K6 (K22) or K7 case adds to:
+    its kernel's row, its ``_batch`` row with a slot axis, K22's row with a
+    PRG table; None for the other kernels."""
+    kind = CASE_KERNEL.get(name, name)
+    if kind in ("ofdm_demodulate", "ofdm_modulate"):
         rank = 2 if kind == "ofdm_demodulate" else 3
-        row = kernels.REGISTRY[kind + ("_batch" if args[0].ndim > rank
-                                       else "")]
-        before = row.launches
+        return kind + ("_batch" if args[0].ndim > rank else "")
+    if kind in ("pdsch_map", "pdsch_map_prg"):
+        return ("pdsch_map_batch" if args[0].ndim == 4 else "pdsch_map_prg"
+                if len(args) > 14 and args[14] else "pdsch_map")
+    if kind == "pusch_demap":
+        return kind + ("_batch" if args[0].ndim == 4 else "")
+    return None
+
+
+def one_launch_a_call(cases: dict) -> None:
+    """K3, K4, K6 (K22) and K7 launch once a call: each of their cases
+    adds one to its kernel's count (:func:`launch_row`) and to no other."""
+    rows = set()
+    for name, (fn, _, args) in cases.items():
+        row = launch_row(name, args)
+        if row is None:
+            continue
+        before = {k.name: k.launches for k in kernels.REGISTRY.values()}
         fn(*args)
-        if row.launches != before + 1:
-            raise AssertionError(f"{name}: {row.launches - before} launches "
-                                 "in one call")
-    print("K4/K7: one launch a call on every case", flush=True)
+        added = {k.name: k.launches - before[k.name]
+                 for k in kernels.REGISTRY.values()
+                 if k.launches != before[k.name]}
+        if added != {row: 1}:
+            raise AssertionError(f"{name}: launches {added} in one call")
+        rows.add(row)
+    print(f"{', '.join(sorted(rows))}: one launch a call on every case",
+          flush=True)
+
+
+def map_demap_cases(prefix: str, dev) -> dict:
+    """K6's and K22's (``prefix`` "pdsch_map_") or K3's ("pusch_demap_")
+    cases of ``flagship.map_demap_profile_cases`` at other shapes than the
+    flagship slot's (which the phase takes from its slot) -- a batch of 4;
+    K6 on slot F's interleaved plan, with n_ref and on the repetition
+    shape; K22 on slot E's plan; K3 at 1 layer and on both hops of a
+    hopping pi/2-BPSK PUSCH -- from a generator of their own (K6 on a copy
+    of its grid)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 25)
+    out = {}
+    for k, (fn, ref, args) in flagship.map_demap_profile_cases(
+            gen, dev).items():
+        if k.startswith(prefix) and k in CASE_KERNEL:
+            if k.startswith("pdsch_map"):
+                fn, ref = flagship._map_on_copy(fn), flagship._map_on_copy(ref)
+            out[k] = (fn, ref, args)
+    return out
 
 
 def ul_phases(dev, gen, rng, card) -> tuple:
@@ -1270,6 +1321,7 @@ def ul_phases(dev, gen, rng, card) -> tuple:
     cases = flagship.kernel_cases(slots[0][1], slots[0][2], gen, prach_in)
     cases.update(flagship.ldpc_decode_cases(cases, gen))
     cases.update(ofdm_cases("ofdm_demodulate_", dev))
+    cases.update(map_demap_cases("pusch_demap_", dev))
     one_launch_a_call(cases)
     results = kernel_phases(cases, {
         "prach_detect": launch_profile.prach_idft_library(
@@ -1352,6 +1404,7 @@ def dl_phases(dev, rng, card) -> tuple:
     cases.update(flagship.dlsch_encode_cases(cases["dlsch_encode"][2][0],
                                              torch.Generator(dev)))
     cases.update(ofdm_cases("ofdm_modulate_", dev))
+    cases.update(map_demap_cases("pdsch_map_", dev))
     one_launch_a_call(cases)
     results = kernel_phases(cases, {
         **{name: launch_profile.dlsch_library(*args)
@@ -2001,11 +2054,17 @@ def _slot_of(obj, b: int):
     return obj
 
 
+# The kernels whose work count reads the slot axis of its arguments: what
+# the slots share (the RE plan, a shared precoder) is counted once.
+SLOT_AXIS_WORK = ("pusch_demap", "pdsch_map", "pdsch_map_prg")
+
+
 def batched_kernel_phase(names: tuple, per_slot: list, where: str,
                          library: dict | None = None) -> dict:
     """The batched form of each kernel of ``names`` at B = len(per_slot)
-    against its twin (timed, with its bound, the work summed over the
-    slots), and its slot 0 at B = 1 against the unbatched kernel; K16-K19
+    against its twin (timed, with its bound: the work of the batched
+    arguments for the kernels of :data:`SLOT_AXIS_WORK`, else summed over
+    the slots), and its slot 0 at B = 1 against the unbatched kernel; K16-K19
     (BATCHED_UL) also every slot bit-equal to that slot's unbatched launch.
     ``per_slot[b]``: slot b's cases (name -> (wrapper, twin, args)), the
     tensors that differ across the slots stacked on a slot axis;
@@ -2019,13 +2078,17 @@ def batched_kernel_phase(names: tuple, per_slot: list, where: str,
         ref = ref_fn(*args)
         err = max(compare(name, _slot_of(out, b), _slot_of(ref, b),
                           per_slot[b][name][2]) for b in range(nb))
-        b_bytes = b_ops = 0.0
-        for b in range(nb):
-            sl = tuple(_slice_tree(a, m, b) for a, m in zip(args, mask))
-            w = work(name, sl, _slot_of(out, b))
-            b_bytes += w[0]
-            b_ops += w[1]
-            if name in BATCHED_UL:
+        if name in SLOT_AXIS_WORK:      # what the slots share counted once
+            b_bytes, b_ops = work(name, args, out)
+        else:
+            b_bytes = b_ops = 0.0
+            for b in range(nb):
+                sl = tuple(_slice_tree(a, m, b) for a, m in zip(args, mask))
+                w = work(name, sl, _slot_of(out, b))
+                b_bytes += w[0]
+                b_ops += w[1]
+        if name in BATCHED_UL:
+            for b in range(nb):
                 _bit_equal(_slot_of(out, b), fn(*per_slot[b][name][2]),
                            f"{name} batch slot {b} vs its own launch")
         t_bytes, t_ops = b_bytes / MEM_BYTES_PER_S, b_ops / F32_OPS_PER_S
@@ -3010,19 +3073,17 @@ def _ue_decode(samples: np.ndarray, dl, pay: dict, dev, where) -> str:
 
 
 def du_alloc_phase(dev, rng, card, du: dict) -> tuple:
-    """Phase 13: K28 and the extended K2, K6/K22, K15, K26 against their
-    twins, then the DU-low's allocation slots: the port's du_low in its own
+    """Phase 13: K28 and the extended K2, K15, K26 against their twins,
+    then the DU-low's allocation slots: the port's du_low in its own
     process over TCP (slots E, F, G and phase 12's slot A), the UE side of
     E and F (K4, K28, K15), then the same through ``serve_phy`` in a thread
     with the launch counts reset before and read after."""
     cases = flagship.alloc_kernel_cases(rng, dev)
     results = kernel_phases(cases)
     print("K28, and K26 (type 0 with 61 PRG matrices, interleaved, type 2 "
-          "on ports 0, 1, 4, 5), K22/K6 (type 0, interleaved, n_ref 3N/4), "
-          "K2 (type 0, n_ref 3N/4) and K15 (an AL16 DCI with its syndrome, "
-          "a PBCH codeword; one per launch, as the UE side) "
-          "held to their twins (bit-exact; K6 within 1e-6 of max|ref|); "
-          "library: null (no single PyTorch call computes them)",
+          "on ports 0, 1, 4, 5), K2 (type 0, n_ref 3N/4) and K15 (an AL16 "
+          "DCI with its syndrome, a PBCH codeword; one per launch, as the "
+          "UE side) held to their twins (bit-exact); library: null (no single PyTorch call computes them)",
           flush=True)
 
     deadline = time.monotonic() + DU_PHASE_S
@@ -3718,6 +3779,7 @@ def bpsk_phase(dev, card) -> dict:
                         est.noise_var.mean(dim=-1), pusch._c_init(cfg),
                         cfg.modulation, cfg.nof_layers, cfg.equalizer,
                         advance))
+    one_launch_a_call(cases)
     return kernel_phases(cases)
 
 

@@ -36,15 +36,16 @@
 // not positive.  The reciprocals are the SFU's (within 2 ulp): an
 // IEEE-rounded one branches to a slow path that serialises the layers'
 // chains.  The JAX package inverts A by LU with pivoting, so the two round
-// differently: parity is to a tolerance.  Then the demap (its own: one
-// reciprocal of the layer's noise, then multiplies; each bit's two minima
-// as trees; every modulation from BPSK to 256QAM, pi/2-BPSK's parity from
-// the launch's first codeword symbol as in K3) into shared memory, and x
-// beside it.  A CTA's REs are contiguous in codeword order, so its LLRs and
-// symbols are two contiguous spans: the CTA writes them as 16-byte vectors
-// (the staging offset matches the span's alignment), each LLR's Gold sign
-// flipped on the way from the plan's Gold bits packed 32 a word, the CTA's
-// words loaded into shared memory at its start.
+// differently: parity is to a tolerance.  Then the demap (pusch_demap.cuh's,
+// shared with K3: one reciprocal of the layer's noise, then multiplies;
+// each bit's two minima as trees; every modulation from BPSK to 256QAM,
+// pi/2-BPSK's parity from the launch's first codeword symbol) into shared
+// memory, and x beside it.  A CTA's REs are contiguous in codeword order,
+// so its LLRs and symbols are two contiguous spans: the CTA writes them as
+// 16-byte vectors (pusch_demap.cuh's store_span; the staging offset matches
+// the span's alignment), each LLR's Gold sign flipped on the way from the
+// plan's Gold bits packed 32 a word, the CTA's words loaded into shared
+// memory at its start.
 //
 // A slot axis (the slot-batch mode): blockIdx.y picks the slot, whose grid,
 // coefficients, noise variance, LLRs and symbols lie at fixed strides; the
@@ -54,22 +55,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "pusch_demap.cuh"
+
 namespace {
 
+using srsran_demap::LxnParams;
+using srsran_demap::rcp;
+
 constexpr int kLxnThreads = 64;      // REs a CTA
-constexpr int kLxnMaxLevels = 16;    // PAM levels (256QAM)
-
-// The launch, by value (srsran_tpu_torch/kernels/_build.py LxnParams).
-struct LxnParams {
-  int nre, P, S, K, L, T, Ka, sc_off;
-  int kind;       // 0 BPSK, 1 pi/2-BPSK, 2 QAM (QPSK .. 256QAM)
-  int half;       // PAM bits an axis (1 for BPSK)
-  int rot0;       // pi/2-BPSK: the parity of the launch's first symbol
-  int mmse, nslots;
-  float two_scale;
-  float levels[kLxnMaxLevels];
-};
-
 __device__ __forceinline__ float2 csub(float2 a, float2 b) {
   return make_float2(a.x - b.x, a.y - b.y);
 }
@@ -95,11 +88,6 @@ __device__ __forceinline__ float2 cjfma(float2 a, float2 b, float2 acc) {
 __device__ __forceinline__ float abs2(float2 a) {
   return fmaf(a.x, a.x, a.y * a.y);
 }
-
-// A reciprocal by the SFU (within 2 ulp; the operands lie in [1e-30,
-// 1e30]): an IEEE-rounded one branches to a slow path, which splits the
-// layers' chains and serialises them.
-__device__ __forceinline__ float rcp(float x) { return __fdividef(1.f, x); }
 
 // Packed upper triangle of an L x L Hermitian matrix (j <= i) and strict
 // lower triangle of the unit factor (i > j).
@@ -206,80 +194,6 @@ __device__ __forceinline__ void solve(const float2 (&g)[L * (L + 1) / 2],
   }
 }
 
-// The max-log LLRs of one PAM axis (HALF bits) into out[0], out[2], ...,
-// before the Gold sign: (min d^2 over bit 1 - min d^2 over bit 0) / nv.
-template <int HALF>
-__device__ __forceinline__ void demap_axis(float coord, float inv_nv,
-                                           const LxnParams& p, float* out) {
-  constexpr int NL = 1 << HALF;
-  float d2[NL];
-#pragma unroll
-  for (int v = 0; v < NL; ++v) {
-    const float diff = coord - p.levels[v];
-    d2[v] = diff * diff;
-  }
-#pragma unroll
-  for (int i = 0; i < HALF; ++i) {
-    // each half's minimum as a tree (min is exact: any order is the same)
-    float m0[NL / 2], m1[NL / 2];
-#pragma unroll
-    for (int v = 0, j0 = 0, j1 = 0; v < NL; ++v) {
-      if ((v >> (HALF - 1 - i)) & 1)
-        m1[j1++] = d2[v];
-      else
-        m0[j0++] = d2[v];
-    }
-#pragma unroll
-    for (int w = NL / 4; w >= 1; w /= 2) {
-#pragma unroll
-      for (int j = 0; j < w; ++j) {
-        m0[j] = fminf(m0[j], m0[j + w]);
-        m1[j] = fminf(m1[j], m1[j + w]);
-      }
-    }
-    const float d0 = fminf(1e30f, m0[0]), d1 = fminf(1e30f, m1[0]);
-    out[2 * i] = (d1 - d0) * inv_nv;
-  }
-}
-
-// n floats of shared memory (src[i] at dst + i's alignment: src + head is
-// 16-byte aligned where dst + head is) to device memory as 16-byte vectors,
-// a scalar head and tail; with gold, element i's sign flipped by bit g0 + i
-// of the packed Gold words (words w0 on in gold, one spare after the last).
-template <bool GOLD>
-__device__ __forceinline__ void store_span(float* __restrict__ dst,
-                                           const float* src, int n,
-                                           const uint32_t* gold, int g0,
-                                           int w0) {
-  const int head = min(n, (int)((4 - (((uintptr_t)dst >> 2) & 3)) & 3));
-  const int nv4 = (n - head) >> 2;
-  const int tid = threadIdx.x;
-  // the Gold bits of elements i .. i + 31, bit 0 first
-  auto bits = [&](int i) -> uint32_t {
-    const int g = g0 + i, w = (g >> 5) - w0;
-    return __funnelshift_r(gold[w], gold[w + 1], g & 31);
-  };
-  auto sign = [&](float v, uint32_t bit) -> float {
-    return __int_as_float(__float_as_int(v) ^ (int)(bit << 31));
-  };
-  for (int i = tid; i < head; i += kLxnThreads)
-    dst[i] = GOLD ? sign(src[i], bits(i) & 1) : src[i];
-#pragma unroll 4
-  for (int v = tid; v < nv4; v += kLxnThreads) {
-    const int i = head + 4 * v;
-    float4 o = *reinterpret_cast<const float4*>(src + i);
-    if (GOLD) {
-      const uint32_t b = bits(i);
-      o = make_float4(sign(o.x, b & 1), sign(o.y, (b >> 1) & 1),
-                      sign(o.z, (b >> 2) & 1), sign(o.w, (b >> 3) & 1));
-    }
-    *reinterpret_cast<float4*>(dst + i) = o;
-  }
-  for (int i = head + 4 * nv4 + tid; i < n; i += kLxnThreads)
-    dst[i] = GOLD ? sign(src[i], bits(i) & 1) : src[i];
-}
-
-
 template <int L, bool MMSE, int HALF>
 __global__ void __launch_bounds__(kLxnThreads, 12)
     pusch_demap_lxn_kernel(const float2* __restrict__ grid,
@@ -355,14 +269,17 @@ __global__ void __launch_bounds__(kLxnThreads, 12)
         s_llr[ol + si] = (2.f * ((v.x + v.y) * p.two_scale)) * inv;
       } else {
         float* out = s_llr + ol + si * QMAX;
-        demap_axis<HALF>(xs[l].x, inv, p, out);
-        demap_axis<HALF>(xs[l].y, inv, p, out + 1);
+        srsran_demap::demap_axis_scaled<HALF>(xs[l].x, inv, p.levels, out);
+        srsran_demap::demap_axis_scaled<HALF>(xs[l].y, inv, p.levels,
+                                        out + 1);
       }
     }
   }
   __syncthreads();
-  store_span<true>(llr_b, s_llr + ol, n * L * qm, s_gold, g0, w0);
-  store_span<false>(x_b, s_x + ox, 2 * n * L, nullptr, 0, 0);
+  srsran_demap::store_span<kLxnThreads, true>(llr_b, s_llr + ol, n * L * qm,
+                                             s_gold, g0, w0);
+  srsran_demap::store_span<kLxnThreads, false>(x_b, s_x + ox, 2 * n * L,
+                                              nullptr, 0, 0);
 }
 
 template <int L, bool MMSE>

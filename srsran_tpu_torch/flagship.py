@@ -469,8 +469,7 @@ def dl_kernel_cases(slot: dict) -> dict:
     """name -> (wrapper, plain twin, args) for K5-K7 at the flagship DL
     shapes, from one SSB slot: K5 encodes its TB; K6 maps the encoded
     codeblocks onto the grid that holds its SSB and PDCCH; K7 modulates the
-    twins' full grid.  Plus "pdsch_map_repetition": K6 on
-    :data:`REPETITION` (compared only)."""
+    twins' full grid."""
     mib, dci, tbs, ctx = slot["args"]
     tb = tbs[0]
     dev = tb.device
@@ -487,11 +486,6 @@ def dl_kernel_cases(slot: dict) -> dict:
     dmrs.map_to_grid(full, pdsch.dmrs_config(PDSCH), k6[-1], ctx["pdsch"][0])
     k7 = (full, cell.dft_size, cell.numerology, cell.cp, 0,
           cell.center_freq_hz, cell.tx_scale)
-    rep_seg = pdsch.segmentation(REPETITION)
-    rep_tb = _up(np.random.default_rng(REPETITION.rv).integers(
-        0, 2, REPETITION.tbs).astype(np.int8), dev)
-    rep = pdsch.map_args(base, REPETITION, ldpc_encode.dlsch_encode_ref(
-        rep_tb, rep_seg.base_graph).contiguous(), k6[-1])
     return {
         "dlsch_encode": (ldpc_encode.dlsch_encode,
                          ldpc_encode.dlsch_encode_ref,
@@ -499,8 +493,6 @@ def dl_kernel_cases(slot: dict) -> dict:
         "pdsch_map": (_map_on_copy(dl_map.pdsch_map),
                       _map_on_copy(dl_map.pdsch_map_ref), k6),
         "ofdm_modulate": (ofdm.modulate_slot, ofdm.modulate_slot_ref, k7),
-        "pdsch_map_repetition": (_map_on_copy(dl_map.pdsch_map),
-                                 _map_on_copy(dl_map.pdsch_map_ref), rep),
     }
 
 
@@ -2061,10 +2053,9 @@ def alloc_kernel_cases(rng: np.random.Generator, device) -> dict:
     DCIs and PBCH, "control_llrs_many" on 17 DCIs and the PBCH;
     "dmrs_map_type0" K26 on slot E's type 0 PRBs with 61 PRG matrices,
     "dmrs_map_interleaved" on slot F's PRBs, "dmrs_map_type2" type 2 with
-    4 layers on ports 0, 1, 4, 5 and a [4, 4] matrix; "pdsch_map_prg_type0"
-    K22 on slot E's plan, "pdsch_map_interleaved" K6 on slot F's,
-    "pdsch_map_nref" K6 on the flagship PDSCH with a limited buffer
-    (n_ref = 3N/4); "rate_dematch_type0" K2 at slot E's G and
+    4 layers on ports 0, 1, 4, 5 and a [4, 4] matrix (K6's and K22's cases
+    at these slots' plans are :func:`map_demap_profile_cases`'s);
+    "rate_dematch_type0" K2 at slot E's G and
     "rate_dematch_nref" at the flagship PDSCH's with n_ref = 3N/4;
     "polar_decode_al16" K15 on one AL16 DCI with its RNTI's syndrome and
     "polar_decode_pbch" on one PBCH codeword, one codeword per launch as
@@ -2101,20 +2092,6 @@ def alloc_kernel_cases(rng: np.random.Generator, device) -> dict:
                        (cgrid(0.1), pil, w, cfg.ports, cfg.symbols,
                         cfg.prb_list, prg_size, cfg.config_type))
     n_ref = 3 * (pdsch.segmentation(PDSCH).codeword_bits // 4)
-    for name, cfg, w, nr in (
-            ("pdsch_map_prg_type0", DU_E_PDSCH,
-             pdsch.pm_matrices_for(CELL.nof_ports, DU_E_PDSCH, device), 0),
-            ("pdsch_map_interleaved", DU_F_PDSCH,
-             pdsch.identity(4, 4, device), 0),
-            ("pdsch_map_nref", PDSCH, pdsch.identity(4, 4, device), n_ref)):
-        tb = _up(rng.integers(0, 2, cfg.tbs).astype(np.int8), device)
-        cbs = ldpc_encode.dlsch_encode_ref(
-            tb, pdsch.segmentation(cfg).base_graph).contiguous()
-        prg = cfg.precoding.prg_size if cfg.precoding else 0
-        args = pdsch.map_args(cgrid(0.1), cfg, cbs, w) + (
-            prg, pdsch.prg_span(cfg)[0], nr)
-        cases[name] = (_map_on_copy(dl_map.pdsch_map),
-                       _map_on_copy(dl_map.pdsch_map_ref), args)
     for name, cfg, nr in (("rate_dematch_type0", DU_E_PDSCH, 0),
                           ("rate_dematch_nref", PDSCH, n_ref)):
         seg = pdsch.segmentation(cfg)
@@ -2375,6 +2352,73 @@ def ofdm_profile_cases(gen: torch.Generator, device) -> dict:
             ofdm.modulate_slot, ofdm.modulate_slot_ref,
             (grid, cell.dft_size, cell.numerology, cell.cp, 0,
              cell.center_freq_hz, cell.tx_scale))
+    return cases
+
+
+def map_demap_profile_cases(gen: torch.Generator, device) -> dict:
+    """K6's, K22's and K3's cases for ``launch_profile``, ``profile_slot``
+    and ``chip_smoke.py`` (their one builder): name -> (wrapper, twin,
+    args) on seeded random
+    codeblocks, grids and channels.  K6 (``pdsch_map``; the wrappers add
+    into the grid they are given: compare them on copies) on the flagship
+    PDSCH (P 4, L 4, 256QAM, 32,760 REs, 100 codeblocks), over 4 slots
+    (``_batch4``), on slot F's interleaved plan (``_interleaved``), with
+    n_ref = 3N/4 (``_nref``) and on :data:`REPETITION` (``_repetition``:
+    E beyond N_nf, the window wrapping); K22 on slot E's type 0 plan with
+    its 61 PRG matrices (``pdsch_map_prg_type0``).  K3 (``pusch_demap``)
+    on the flagship PUSCH (P 4, 2 layers ZF, QAM64, 35,508 REs), over 4
+    slots (``_batch4``), at 1 layer (``_1l``), and on both hops of
+    :data:`BPSK_PUSCH` (pi/2-BPSK, 2 layers): hop 1 (``_hop1``) and hop
+    2 from hop 1's Gold offset (``_hop2``); channels I + 0.25 (N + jN) a
+    subcarrier, noise variance 0.05."""
+    rng = np.random.default_rng(25)
+
+    def cn(*shape):
+        return torch.complex(torch.randn(shape, device=device, generator=gen),
+                             torch.randn(shape, device=device, generator=gen)
+                             ) / np.sqrt(2)
+
+    cases = {}
+    n_ref = 3 * (pdsch.segmentation(PDSCH).codeword_bits // 4)
+    for name, cfg, lead, nr in (
+            ("pdsch_map", PDSCH, (), 0),
+            ("pdsch_map_batch4", PDSCH, (BATCH,), 0),
+            ("pdsch_map_interleaved", DU_F_PDSCH, (), 0),
+            ("pdsch_map_nref", PDSCH, (), n_ref),
+            ("pdsch_map_repetition", REPETITION, (), 0),
+            ("pdsch_map_prg_type0", DU_E_PDSCH, (), 0)):
+        tb = _up(rng.integers(0, 2, lead + (cfg.tbs,)).astype(np.int8), device)
+        cbs = ldpc_encode.dlsch_encode_ref(
+            tb, pdsch.segmentation(cfg).base_graph).contiguous()
+        w = (pdsch.pm_matrices_for(CELL.nof_ports, cfg, device)
+             if cfg.precoding else
+             pdsch.identity(CELL.nof_ports, cfg.nof_layers, device))
+        prg = cfg.precoding.prg_size if cfg.precoding else 0
+        grid = 0.1 * cn(*lead, CELL.nof_ports, 14, CELL.nof_sc)
+        cases[name] = (dl_map.pdsch_map, dl_map.pdsch_map_ref,
+                       pdsch.map_args(grid, cfg, cbs, w)
+                       + (prg, pdsch.prg_span(cfg)[0], nr))
+    hop1, hop2 = pusch.hop_configs(BPSK_PUSCH)
+    hop1_llrs = pusch._plan(hop1, device)[0].numel() * hop1.nof_layers
+    for name, cfg, layers, lead, advance in (
+            ("pusch_demap", PUSCH, 2, (), 0),
+            ("pusch_demap_batch4", PUSCH, 2, (BATCH,), 0),
+            ("pusch_demap_1l", PUSCH, 1, (), 0),
+            ("pusch_demap_hop1", hop1, 2, (), 0),
+            ("pusch_demap_hop2", hop2, 2, (), hop1_llrs)):
+        nsc = 12 * cfg.rb_count
+        grid = cn(*lead, CELL.nof_ports, 14, CELL.nof_sc)
+        eye = torch.eye(CELL.nof_ports, layers, dtype=torch.complex64,
+                        device=device)[:, :, None, None]
+        coeffs = eye + 0.25 * cn(*lead, CELL.nof_ports, layers, 1, nsc)
+        nv = torch.full(lead, 0.05, device=device)
+        sym, sc = pusch._plan(cfg, device)
+        cases[name] = (
+            ul_demap.equalize_demap_descramble,
+            ul_demap.equalize_demap_descramble_ref,
+            (grid, coeffs.contiguous(), sym, sc, cfg.rb_start * 12, nv,
+             (cfg.rnti << 15) + cfg.n_id, cfg.modulation, layers, "zf",
+             advance))
     return cases
 
 

@@ -8,11 +8,11 @@ root, named by a hash of the sources and flags; the library is loaded with
 build on every run, so the sources compile side by side.  Pointers and the stream go over as
 ``ctypes.c_void_p``; every C entry point returns ``cudaGetLastError()``
 after its launches, and :func:`check` raises on anything but 0.
-:class:`Launch` is the lean form of that path (K1, K4, K5, K7, K8, K9,
-K15, K16, K32, K21, K18, K19, K27, K33, K34 and K35 take it): a wrapper keeps
-one per call signature with the bound C function, a parameter struct
-passed by address and its device tables, and a call passes only the
-tensors' pointers and the current stream.
+:class:`Launch` is the lean form of that path (K1, K3, K4, K5, K6, K7, K8,
+K9, K15, K16, K22, K32, K21, K18, K19, K27, K33, K34 and K35 take it): a
+wrapper keeps one per call signature with the bound C function, a
+parameter struct passed by address and its device tables, and a call
+passes only the tensors' pointers and the current stream.
 
 ``--fmad=false`` keeps ``a + b * c`` as a rounded multiply then a rounded
 add, the way PyTorch's separate tensor ops compute it: the LDPC decoder's
@@ -208,11 +208,25 @@ class F3DemapParams(ctypes.Structure):
                 ("occ_conj", _F * (2 * F3_MAX_OCC)),
                 ("levels", _F * DEMAP_MAX_LEVELS)]
 
-LXN_MAX_LEVELS = 16        # csrc/pusch_demap_lxn.cu kLxnMaxLevels
+MAP_MAX_LEVELS = 16        # csrc/pdsch_map.cu kMapMaxLevels
+
+
+class MapParams(ctypes.Structure):
+    """csrc/pdsch_map.cu's MapParams (K6's and K22's launch), by
+    address."""
+
+    _fields_ = [(name, _I) for name in (
+        "C", "C0", "n0", "n1", "tiles", "T", "N", "fs", "gap", "n_nf", "k0p",
+        "qm", "L", "P", "S", "K", "nre", "prg_size", "prg_base", "w_stride",
+        "nslots")] + [("levels", _F * MAP_MAX_LEVELS)]
+
+
+LXN_MAX_LEVELS = 16        # csrc/pusch_demap.cuh kLxnMaxLevels
 
 
 class LxnParams(ctypes.Structure):
-    """csrc/pusch_demap_lxn.cu's LxnParams (K16's launch), by address."""
+    """csrc/pusch_demap.cuh's LxnParams (K3's and K16's launch), by
+    address."""
 
     _fields_ = [(name, _I) for name in (
         "nre", "P", "S", "K", "L", "T", "Ka", "sc_off", "kind", "half",
@@ -266,15 +280,13 @@ SIGNATURES = {
     "srsran_ldpc_decode": [_P] * 7,
     "srsran_rate_dematch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _I, _F, _P],
-    "srsran_pusch_demap": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                           _P, _P, _I, _I, _I, _F, _P, _P, _P, _I, _P],
+    "srsran_pusch_demap": [_P] * 10,
     "srsran_pusch_demap_lxn": [_P] * 10,
     "srsran_ulsch_demux": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P],
     "srsran_ofdm_demod_prepare": [_I],
     "srsran_ofdm_demodulate": [_P] * 5,
     "srsran_dlsch_encode": [_P] * 7,
-    "srsran_pdsch_map": [_P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P,
-                         _I, _I, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P],
+    "srsran_pdsch_map": [_P] * 8,
     "srsran_ofdm_mod_prepare": [_I],
     "srsran_ofdm_modulate": [_P] * 5,
     "srsran_chest_prepare": [_I],

@@ -1,7 +1,7 @@
-"""The host side of a kernel launch on one CUDA GPU: K1's, K4's, K5's,
-K7's, K8's, K15's, K32's, K21's, K18's, K19's, K27's, K33's, K34's and
-K35's wrappers against one PyTorch call each (K1, K8, K15: none computes
-it; their device µs alone).
+"""The host side of a kernel launch on one CUDA GPU: K1's, K3's, K4's,
+K5's, K6's, K7's, K8's, K15's, K32's, K21's, K18's, K19's, K22's, K27's,
+K33's, K34's and K35's wrappers against one PyTorch call each (K1, K3, K6,
+K8, K15, K22: none computes it; their device µs alone).
 
     python3 -m srsran_tpu_torch.launch_profile [--calls 1000] [--out DIR]
         [--cases PREFIX ...]
@@ -60,7 +60,18 @@ a batch of 4 (``_batch4``), the DU-low's small cell at N = 1024
 on the same but the offset, from ``flagship.ofdm_profile_cases``
 (:func:`ofdm_calls`), each beside ``torch.fft.fft`` / ``ifft`` of its FFT
 stage on the [(B,) P, S, N] buffer the former kernels built around cuFFT
-(:func:`ofdm_fft_library`); ``--cases ofdm``, ~1 min.
+(:func:`ofdm_fft_library`); ``--cases ofdm``, ~1 min; K6
+(``dl_map.pdsch_map``) on the flagship PDSCH (``pdsch_map``), a batch of
+4 (``_batch4``), slot F's interleaved plan (``_interleaved``), n_ref
+(``_nref``) and the repetition shape (``_repetition``), K22 on slot E's
+type 0 plan (``pdsch_map_prg_type0``), and K3
+(``ul_demap.equalize_demap_descramble``) on the flagship PUSCH
+(``pusch_demap``), a batch of 4 (``_batch4``), 1 layer (``_1l``) and both
+hops of the pi/2-BPSK PUSCH (``_hop1``, ``_hop2``), from
+``flagship.map_demap_profile_cases`` (:func:`map_demap_calls`), device µs
+alone (no single PyTorch call computes either function); ``--cases
+pdsch_map pusch_demap`` (which also keeps K16's ``pusch_demap_lxn``
+cases), ~2 min.
 ``--cases`` keeps the cases whose names start with one of the prefixes
 (and skips the pieces below, and building the cases it leaves out).  Per
 case and call it reports:
@@ -589,6 +600,30 @@ def ofdm_calls(gen: torch.Generator, dev) -> tuple:
     return calls, library
 
 
+def map_demap_calls(gen: torch.Generator, dev) -> tuple:
+    """K6's, K22's and K3's (calls, library) by name
+    (``flagship.map_demap_profile_cases``), each checked against its twin
+    once (K6 and K22 on copies of the grid, within 1e-6 of its largest
+    magnitude; K3's symbols and LLRs at rtol 1e-4 and within 1e-4 of their
+    largest); no single PyTorch call computes either function, so no
+    library call.  The timed K6 calls add into the case's grid again and
+    again (no copy in the time)."""
+    calls, library = {}, {}
+    for name, (fn, twin, a) in flagship.map_demap_profile_cases(
+            gen, dev).items():
+        if name.startswith("pdsch_map"):
+            out, ref = fn(a[0].clone(), *a[1:]), twin(a[0].clone(), *a[1:])
+            torch.testing.assert_close(out, ref, rtol=0, atol=1e-6 * float(
+                ref.abs().max()), msg=name)
+        else:
+            for o, r in zip(fn(*a), twin(*a)):
+                torch.testing.assert_close(o, r, rtol=1e-4, atol=1e-4 * float(
+                    r.abs().max()), msg=name)
+        calls[name] = lambda fn=fn, a=a: fn(*a)
+        library[name] = None
+    return calls, library
+
+
 def _entry(loader, argtype):
     """K32's C entry point loaded through ``loader`` (ctypes.CDLL releases
     the interpreter lock around the call, ctypes.PyDLL keeps it) with four
@@ -698,7 +733,9 @@ def main(argv=None) -> dict:
                 (("prach_detect", "pusch_demap_lxn"),
                  lambda: prach_lxn_calls(gen, dev)),
                 (("ofdm_demodulate", "ofdm_modulate"),
-                 lambda: ofdm_calls(gen, dev)))
+                 lambda: ofdm_calls(gen, dev)),
+                (("pdsch_map", "pusch_demap"),
+                 lambda: map_demap_calls(gen, dev)))
     for prefixes, build in builders:
         if _wanted(args.cases, prefixes):
             more_calls, more_library = build()

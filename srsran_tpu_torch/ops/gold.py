@@ -45,6 +45,19 @@ def gold_sequence(c_init: int, length: int, advance: int = 0, *,
                  device=device)
 
 
+def gold_words(c_init: int, length: int, advance: int = 0) -> np.ndarray:
+    """int32 [ceil(length / 32) + 1]: the Gold bits c(advance ..) of
+    ``length`` bits packed 32 a word, bit b of word w for bit 32 w + b, and
+    a spare zero word (K3, K6 and K16 read a bit run through a 64-bit
+    window of two words)."""
+    bits = gold_sequence_np(c_init, length, advance)
+    n = -(-length // 32) + 1
+    padded = np.zeros(32 * n, np.uint8)
+    padded[:length] = bits
+    return np.packbits(padded, bitorder="little").view("<u4").astype(
+        np.uint32).view(np.int32)
+
+
 def c_init_state(c_init) -> torch.Tensor:
     """x2 initial state bits int8 [..., 31]: x2(i) = bit i of c_init (LSB
     first), on the device of ``c_init`` when it is a tensor."""

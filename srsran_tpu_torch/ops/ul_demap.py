@@ -13,13 +13,16 @@ both, composed of the port's plain front end (:func:`gather_equalize`,
 which ``pusch._frontend_hop`` also runs), demodulate and descramble_llrs.
 On the card both kernels are memory-bound (per RE they read P samples and
 P*L coefficients and write L*Qm LLRs, 3.5-4.6 MB at the flagship shapes);
-their designs are in the .cu files.  K16 launches through
-``kernels/_build.py::Launch``: one plan per call signature
-(:func:`_lxn_plan`, holding the parameters -- from :func:`_lxn_params`,
-testable on the CPU, the level table by value -- and the Gold bits of the
-call's LLRs packed 32 a word, :func:`_gold_words`); a call allocates its
-two outputs and makes one ctypes call, the RE plan passed by pointer (the
-caller's cached tensors).  K3 keeps its ``_build.load()`` route.
+both stage a CTA's LLRs and symbols in shared memory and store them as
+16-byte vectors, each LLR's Gold sign from the call's Gold bits packed 32
+a word (``gold.gold_words``, the Gold offset folded in); their designs are
+in the .cu files.  Both launch through ``kernels/_build.py::Launch``: one
+plan per call signature (:func:`_demap_plan` for K3, :func:`_lxn_plan` for
+K16, holding the parameters -- from :func:`_lxn_params`, testable on
+the CPU, the level table by value -- and the packed Gold bits; both
+kernels take K16's struct, ``LxnParams``, K3 its ZF form); a
+call allocates its two outputs and makes one ctypes call, the RE plan
+passed by pointer (the caller's cached tensors).
 
 A transform-precoded (DFT-s-OFDM) PUSCH adds an IDFT per data symbol
 between the equalizer and the demap, and its noise averaged over each
@@ -48,10 +51,10 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..device import const, is_cuda, stack_slots
+from ..device import is_cuda, stack_slots
 from ..kernels import _build
 from .equalizer import equalize
-from .gold import gold_sequence, gold_sequence_np
+from .gold import gold_sequence, gold_words
 from .modulation import (BITS_PER_SYMBOL, _SCALE, demodulate,
                          pam_levels_scaled)
 from .scrambling import descramble_llrs
@@ -128,68 +131,6 @@ def demap_scalars(modulation: str) -> tuple:
             float(np.float32(2.0 * _SCALE[modulation])))
 
 
-def demap_tables(modulation: str, device) -> tuple:
-    """(kind, PAM half-order, level table on ``device``, 2 * scale) of a
-    demap on the card."""
-    kind, half, _, two_scale = demap_scalars(modulation)
-    levels = const(pam_levels_scaled, "qpsk" if kind < 2 else modulation,
-                   device=device)
-    return kind, half, levels, two_scale
-
-
-def _check_args(grid, coeffs, noise_var, modulation, nof_layers):
-    if modulation not in DEMAP_KIND:
-        raise ValueError(f"modulation {modulation!r}")
-    if not 1 <= nof_layers <= 4 or coeffs.shape[-3] != nof_layers:
-        raise ValueError(f"{nof_layers} layers vs coeffs {tuple(coeffs.shape)}")
-    if grid.dtype != torch.complex64 or coeffs.dtype != torch.complex64:
-        raise ValueError("grid and coeffs must be complex64")
-    lead = grid.shape[:-3]
-    if (noise_var.shape not in (((lead[0],),) if lead else ((), (1,)))
-            or noise_var.dtype != torch.float32 or coeffs.shape[:-4] != lead):
-        raise ValueError(f"noise_var must be one float32 value per slot, "
-                         f"got {tuple(noise_var.shape)} for grid "
-                         f"{tuple(grid.shape)}")
-
-
-def _launch(grid, coeffs, sym_idx, sc_idx, sc_off, noise_var, c_init,
-            modulation, nof_layers, advance: int = 0):
-    """Launch K3 once for all slots of a slot axis.  Returns (llr, x), with
-    the grid's slot axis in front.  The RE plan is int32, as the PUSCH
-    uploads it; the Gold bits start ``advance`` bits into the codeword's
-    sequence (the second hop of a hopping PUSCH descrambles from where the
-    first ended), and the codeword symbols ``advance // Qm`` symbols in:
-    pi/2-BPSK derotates the odd ones.  Hop 2's first index is even today,
-    as each hop's data-RE count is (whole PRBs of 12 subcarriers, or 6
-    beside a DM-RS), but it is derived, not assumed."""
-    qm = BITS_PER_SYMBOL[modulation]
-    dev = grid.device
-    p, s, k = grid.shape[-3:]
-    t, ka = coeffs.shape[-2:]
-    nre = sym_idx.shape[0]
-    if sym_idx.dtype != torch.int32 or sc_idx.dtype != torch.int32:
-        raise ValueError("the RE plan must be int32")
-    lead = tuple(grid.shape[:-3])
-    kind, half, levels, two_scale = demap_tables(modulation, dev)
-    seq = gold_sequence(c_init, nre * nof_layers * qm, advance, device=dev)
-    g = torch.view_as_real(grid.contiguous())
-    h = torch.view_as_real(coeffs.contiguous())
-    nv = noise_var.reshape(-1).contiguous()
-    llr = torch.empty(lead + (nre * nof_layers * qm,), dtype=torch.float32,
-                      device=dev)
-    x = torch.empty(lead + (nre, nof_layers), dtype=torch.complex64,
-                    device=dev)
-    entry = _build.load().srsran_pusch_demap
-    _build.check(entry(
-        _build.ptr(g), _build.ptr(h), _build.ptr(sym_idx.contiguous()),
-        _build.ptr(sc_idx.contiguous()), nre, p, s, k, nof_layers, t, ka,
-        sc_off, _build.ptr(nv), _build.ptr(levels), half, kind,
-        (advance // qm) % 2, two_scale, _build.ptr(seq), _build.ptr(llr),
-        _build.ptr(x), lead[0] if lead else 1, _build.stream_of(grid)),
-        "srsran_pusch_demap")
-    return llr, x
-
-
 def equalize_demap_descramble(grid: torch.Tensor, coeffs: torch.Tensor,
                               sym_idx: torch.Tensor, sc_idx: torch.Tensor,
                               sc_off: int, noise_var: torch.Tensor,
@@ -207,25 +148,84 @@ def equalize_demap_descramble(grid: torch.Tensor, coeffs: torch.Tensor,
     are [B, RE*L*Qm] and [B, RE, L].  On the card: K3 for ZF with 1-2
     layers, K16 otherwise, either one launch for all slots.
     """
-    args = (grid, coeffs, sym_idx, sc_idx, sc_off, noise_var, c_init,
-            modulation, nof_layers)
     if not is_cuda(grid, coeffs, noise_var):
-        return equalize_demap_descramble_ref(*args, method, advance)
-    if method == "zf" and nof_layers <= 2:
-        _check_args(grid, coeffs, noise_var, modulation, nof_layers)
-        out = _launch(*args, advance)
-        (KERNEL_BATCH if grid.ndim == 4 else KERNEL).count()
-        return out
-    return equalize_demap_descramble_lxn(*args, method, advance)
+        return equalize_demap_descramble_ref(
+            grid, coeffs, sym_idx, sc_idx, sc_off, noise_var, c_init,
+            modulation, nof_layers, method, advance)
+    if method != "zf" or nof_layers > 2:
+        return equalize_demap_descramble_lxn(
+            grid, coeffs, sym_idx, sc_idx, sc_off, noise_var, c_init,
+            modulation, nof_layers, method, advance)
+    return _run(_demap_plan(*_plan_key(grid, coeffs, sym_idx, sc_idx,
+                                       noise_var, sc_off, c_init, modulation,
+                                       nof_layers, advance)),
+                grid, coeffs, sym_idx, sc_idx, noise_var)
+
+
+def _plan_key(grid, coeffs, sym_idx, sc_idx, noise_var, sc_off, c_init,
+              modulation, nof_layers, advance) -> tuple:
+    """The arguments of :func:`_demap_plan` for one call (without the
+    equalizer; :func:`_lxn_plan` takes it before ``advance``)."""
+    return ((grid.shape, coeffs.shape, sym_idx.shape, sc_idx.shape,
+             noise_var.shape),
+            (grid.dtype, coeffs.dtype, sym_idx.dtype, sc_idx.dtype,
+             noise_var.dtype), int(sc_off), int(c_init), modulation,
+            int(nof_layers), int(advance), grid.get_device())
+
+
+def _with_gold(entry: str, p, shapes: tuple, c_init: int, advance: int,
+               counters: tuple, index: int) -> tuple:
+    """A K3 or K16 launch of parameters ``p`` with the packed Gold bits of
+    its LLRs on CUDA device ``index`` (held), its outputs' shapes (LLRs,
+    symbols) and the count it adds to (``counters``: one slot, a slot
+    axis)."""
+    qm = 1 if p.kind < 2 else 2 * p.half
+    length = p.nre * p.L * qm
+    words = torch.from_numpy(gold_words(c_init, length, advance)).to(
+        torch.device("cuda", index))
+    lead = tuple(shapes[0][:-3])
+    return (_build.Launch(entry, index, p, (words,)), lead + (length,),
+            lead + (p.nre, p.L), counters[1] if lead else counters[0])
+
+
+@functools.lru_cache(maxsize=1024)
+def _demap_plan(shapes: tuple, dtypes: tuple, sc_off: int, c_init: int,
+                modulation: str, nof_layers: int, advance: int,
+                index: int) -> tuple:
+    """K3's launch for one call signature on CUDA device ``index``, its
+    outputs' shapes and the launch count it adds to."""
+    p = _lxn_params(shapes, dtypes, sc_off, modulation, nof_layers, "zf",
+                    advance)
+    return _with_gold("srsran_pusch_demap", p, shapes, c_init, advance,
+                      (KERNEL, KERNEL_BATCH), index)
+
+
+def _run(plan: tuple, grid, coeffs, sym_idx, sc_idx, noise_var) -> tuple:
+    """One K3 or K16 launch through ``plan``: (LLRs, symbols)."""
+    launch, llr_shape, x_shape, counter = plan
+    if not (sym_idx.is_cuda and sc_idx.is_cuda):
+        raise ValueError("the RE plan must lie on the grid's device")
+    # the kernel's inputs held in locals until it is enqueued
+    g = grid if grid.is_contiguous() else grid.contiguous()
+    h = coeffs if coeffs.is_contiguous() else coeffs.contiguous()
+    sym = sym_idx if sym_idx.is_contiguous() else sym_idx.contiguous()
+    sc = sc_idx if sc_idx.is_contiguous() else sc_idx.contiguous()
+    nv = noise_var if noise_var.is_contiguous() else noise_var.contiguous()
+    llr = nv.new_empty(llr_shape)
+    x = g.new_empty(x_shape)
+    launch(g.data_ptr(), h.data_ptr(), sym.data_ptr(), sc.data_ptr(),
+           nv.data_ptr(), llr.data_ptr(), x.data_ptr())
+    counter.count()
+    return llr, x
 
 
 def _lxn_params(shapes: tuple, dtypes: tuple, sc_off: int, modulation: str,
                 nof_layers: int, method: str,
                 advance: int) -> _build.LxnParams:
-    """K16's parameters for one call signature: the shapes and dtypes of
-    (grid, coeffs, sym_idx, sc_idx, noise_var), the subcarrier offset of
-    the coefficients, the modulation, the layers, the equalizer and the
-    Gold offset; raises on what the kernel does not take."""
+    """K16's (and K3's) parameters for one call signature: the shapes and
+    dtypes of (grid, coeffs, sym_idx, sc_idx, noise_var), the subcarrier
+    offset of the coefficients, the modulation, the layers, the equalizer
+    and the Gold offset; raises on what the kernel does not take."""
     grid_s, coeffs_s, sym_s, sc_s, nv_s = shapes
     if method not in ("zf", "mmse"):
         raise ValueError(f"equalizer {method!r}")
@@ -260,36 +260,16 @@ def _lxn_params(shapes: tuple, dtypes: tuple, sc_off: int, modulation: str,
     return out
 
 
-def _gold_words(c_init: int, length: int, advance: int) -> np.ndarray:
-    """int32 [ceil(length / 32) + 1]: the Gold bits c(advance ..) of
-    ``length`` LLRs packed 32 a word, bit b of word w for LLR 32 w + b, and
-    a spare zero word (K16 reads each LLR's bits through a 64-bit
-    window)."""
-    bits = gold_sequence_np(c_init, length, advance)
-    n = -(-length // 32) + 1
-    padded = np.zeros(32 * n, np.uint8)
-    padded[:length] = bits
-    return np.packbits(padded, bitorder="little").view("<u4").astype(
-        np.uint32).view(np.int32)
-
-
 @functools.lru_cache(maxsize=1024)
 def _lxn_plan(shapes: tuple, dtypes: tuple, sc_off: int, c_init: int,
               modulation: str, nof_layers: int, method: str, advance: int,
               index: int) -> tuple:
-    """K16's launch for one call signature on CUDA device ``index`` (its
-    parameters and the packed Gold bits of its LLRs, held), its outputs'
-    shapes (LLRs, symbols) and the launch count it adds to."""
+    """K16's launch for one call signature on CUDA device ``index``, its
+    outputs' shapes and the launch count it adds to."""
     p = _lxn_params(shapes, dtypes, sc_off, modulation, nof_layers, method,
                     advance)
-    qm = BITS_PER_SYMBOL[modulation]
-    words = torch.from_numpy(_gold_words(c_init, p.nre * nof_layers * qm,
-                                         advance)).to(
-        torch.device("cuda", index))
-    lead = tuple(shapes[0][:-3])
-    return (_build.Launch("srsran_pusch_demap_lxn", index, p, (words,)),
-            lead + (p.nre * nof_layers * qm,), lead + (p.nre, nof_layers),
-            KERNEL_LXN_BATCH if lead else KERNEL_LXN)
+    return _with_gold("srsran_pusch_demap_lxn", p, shapes, c_init, advance,
+                      (KERNEL_LXN, KERNEL_LXN_BATCH), index)
 
 
 def equalize_demap_descramble_lxn(grid: torch.Tensor, coeffs: torch.Tensor,
@@ -307,26 +287,10 @@ def equalize_demap_descramble_lxn(grid: torch.Tensor, coeffs: torch.Tensor,
         return equalize_demap_descramble_ref(
             grid, coeffs, sym_idx, sc_idx, sc_off, noise_var, c_init,
             modulation, nof_layers, method, advance)
-    if not (sym_idx.is_cuda and sc_idx.is_cuda):
-        raise ValueError("the RE plan must lie on the grid's device")
-    launch, llr_shape, x_shape, counter = _lxn_plan(
-        (grid.shape, coeffs.shape, sym_idx.shape, sc_idx.shape,
-         noise_var.shape),
-        (grid.dtype, coeffs.dtype, sym_idx.dtype, sc_idx.dtype,
-         noise_var.dtype), int(sc_off), int(c_init), modulation,
-        int(nof_layers), method, int(advance), grid.get_device())
-    # the kernel's inputs held in locals until it is enqueued
-    g = grid if grid.is_contiguous() else grid.contiguous()
-    h = coeffs if coeffs.is_contiguous() else coeffs.contiguous()
-    sym = sym_idx if sym_idx.is_contiguous() else sym_idx.contiguous()
-    sc = sc_idx if sc_idx.is_contiguous() else sc_idx.contiguous()
-    nv = noise_var if noise_var.is_contiguous() else noise_var.contiguous()
-    llr = nv.new_empty(llr_shape)
-    x = g.new_empty(x_shape)
-    launch(g.data_ptr(), h.data_ptr(), sym.data_ptr(), sc.data_ptr(),
-           nv.data_ptr(), llr.data_ptr(), x.data_ptr())
-    counter.count()
-    return llr, x
+    key = _plan_key(grid, coeffs, sym_idx, sc_idx, noise_var, sc_off, c_init,
+                    modulation, nof_layers, advance)
+    return _run(_lxn_plan(*key[:6], method, *key[6:]), grid, coeffs,
+                sym_idx, sc_idx, noise_var)
 
 
 # ------------------------------------------------- K18: DFT-s-OFDM PUSCH

@@ -269,7 +269,8 @@ def process(grid: torch.Tensor, payload_bits: torch.Tensor, cfg: PdschConfig,
     elif precoding is None:
         w = identity(nof_ports, cfg.nof_layers, grid.device)
     else:
-        w = torch.as_tensor(np.asarray(precoding)).to(grid.device)
+        w = torch.as_tensor(np.asarray(precoding)).to(grid.device,
+                                                      torch.complex64)
     cbs = ldpc_encode.dlsch_encode(payload_bits,                   # K5
                                    segmentation(cfg).base_graph)
     dl_map.pdsch_map(*map_args(grid, cfg, cbs, w),                 # K6 / K22

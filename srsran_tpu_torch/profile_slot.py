@@ -289,9 +289,7 @@ def dl_scenario(n: int, seed: int, dev) -> tuple:
     slots = flagship.make_dl_slots(n, np.random.default_rng(seed), dev)
     calls = [lambda s=s: flagship.dl_program(s["with_ssb"])(*s["args"])
              for s in slots]
-    cases = flagship.dl_kernel_cases(slots[0])
-    cases.pop("pdsch_map_repetition")
-    return calls, cases
+    return calls, flagship.dl_kernel_cases(slots[0])
 
 
 def conductor_scenario(n: int, seed: int, dev, gen) -> tuple:
@@ -520,9 +518,12 @@ def du_alloc_scenario(n: int, seed: int, dev) -> tuple:
 
     calls = [lambda r=r: call(*r) for r in reqs]
     cases = flagship.alloc_kernel_cases(np.random.default_rng(seed), dev)
-    return calls, {k: cases[k] for k in ("control_llrs", "dmrs_map_type0",
-                                         "pdsch_map_prg_type0",
-                                         "polar_decode_al16")}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    k22 = flagship.map_demap_profile_cases(gen, dev)["pdsch_map_prg_type0"]
+    return calls, {**{k: cases[k] for k in ("control_llrs", "dmrs_map_type0",
+                                            "polar_decode_al16")},
+                   "pdsch_map_prg_type0": k22}
 
 
 SPLIT8_CFO_HZ = 1500.0

@@ -251,6 +251,50 @@ def test_dlsch_encode_and_map_batched(cuda, b):
     assert torch.equal(out[0], one)
 
 
+def test_map_demap_batched_at_the_flagship(cuda):
+    """K6 and K3 over 4 flagship slots (the PDSCH's 100 codeblocks a slot,
+    the PUSCH's 35,508 REs a slot): one launch of each batch row, within
+    the twins' tolerances, each slot bit-equal to its own launch, and the
+    pair captured in one CUDA graph, replayed on new inputs."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(25)
+    cases = flagship.map_demap_profile_cases(gen, cuda)
+    k6 = cases["pdsch_map_batch4"][2]
+    k3 = cases["pusch_demap_batch4"][2]
+    base = k6[0].clone()
+    out6 = _counted(lambda: dl_map.pdsch_map(base.clone(), *k6[1:]),
+                    "pdsch_map")
+    _close(out6, dl_map.pdsch_map_ref(base.clone(), *k6[1:]), 1e-6)
+    llr, x = _counted(lambda: ul_demap.equalize_demap_descramble(*k3),
+                      "pusch_demap")
+    llr_ref, x_ref = ul_demap.equalize_demap_descramble_ref(*k3)
+    _close(x, x_ref, 1e-4)
+    _close(llr, llr_ref, 1e-4)
+    for s in range(4):
+        one = dl_map.pdsch_map(base[s].clone(), k6[1][s], *k6[2:])
+        assert torch.equal(out6[s], one)
+        llr1, x1 = ul_demap.equalize_demap_descramble(
+            k3[0][s], k3[1][s], *k3[2:5], k3[5][s], *k3[6:])
+        assert torch.equal(llr[s], llr1) and torch.equal(x[s], x1)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        dl_map.pdsch_map(k6[0], *k6[1:])
+        llr, x = ul_demap.equalize_demap_descramble(*k3)
+    rng = np.random.default_rng(6)
+    start = _cgauss(rng, tuple(k6[0].shape)).to(cuda)
+    k6[0].copy_(start)
+    k6[1].copy_(torch.as_tensor(rng.integers(
+        0, 2, tuple(k6[1].shape)).astype(np.int8)).to(cuda))
+    k3[0].copy_(_cgauss(rng, tuple(k3[0].shape)).to(cuda))
+    graph.replay()
+    torch.cuda.synchronize()
+    _close(k6[0], dl_map.pdsch_map_ref(start.clone(), *k6[1:]), 1e-6)
+    llr_ref, x_ref = ul_demap.equalize_demap_descramble_ref(*k3)
+    _close(x, x_ref, 1e-4)
+    _close(llr, llr_ref, 1e-4)
+
+
 # ------------------------------------------------ K9-K15 with a slot axis
 
 def _counted(fn, name):

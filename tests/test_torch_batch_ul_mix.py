@@ -421,6 +421,17 @@ def _slot_count_in_struct(name: str) -> None:
                 "mmse", 0)
         assert build((3,)).nslots == 3 and build(()).nslots == 1
         return
+    if name == "srsran_pusch_demap":
+        assert _c_parameter_names(name)[-3:] == ["stream", "params", "seq"]
+        assert ("nslots", _build._I) in _build.LxnParams._fields_
+
+        def build(lead):
+            return ul_demap._lxn_params(
+                (lead + (4, 14, 3276), lead + (4, 2, 1, 3228), (35508,),
+                 (35508,), lead), (c64, c64, i32, i32, f32), 0, "qam64", 2,
+                "zf", 0)
+        assert build((3,)).nslots == 3 and build(()).nslots == 1
+        return
     assert _c_parameter_names(name)[-4:-1] == ["stream", "params",
                                                "twiddle"]
     if name == "srsran_pusch_tp_demap":
@@ -449,11 +460,11 @@ def _slot_count_in_struct(name: str) -> None:
     "srsran_pusch_tp_demap", "srsran_pucch_f3_demap"])
 def test_batched_entry_points_take_a_slot_count(name):
     """The equalizers and the demultiplexer with a slot axis (K3, K16-K19)
-    take a slot count: K3 and K17 just before the stream, as an int in
-    their ctypes binding; K16, K18 and K19 in the parameter struct of their
-    lean launch path (``nslots``)."""
-    if name in ("srsran_pusch_demap_lxn", "srsran_pusch_tp_demap",
-                "srsran_pucch_f3_demap"):
+    take a slot count: K17 just before the stream, as an int in its ctypes
+    binding; K3, K16, K18 and K19 in the parameter struct of their lean
+    launch path (``nslots``)."""
+    if name in ("srsran_pusch_demap", "srsran_pusch_demap_lxn",
+                "srsran_pusch_tp_demap", "srsran_pucch_f3_demap"):
         _slot_count_in_struct(name)
         return
     names = _c_parameter_names(name)

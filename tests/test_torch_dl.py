@@ -38,6 +38,7 @@ from srsran_tpu.ran.slot_point import SlotPoint
 from srsran_tpu_torch import convert, flagship
 from srsran_tpu_torch.ops import dl_map, ldpc_encode
 from srsran_tpu_torch.ops import ofdm as t_ofdm
+from srsran_tpu_torch.ops import gold
 from srsran_tpu_torch.ops.gold import gold_sequence_np
 from srsran_tpu_torch.phy import slot_programs as t_slots
 from srsran_tpu_torch.phy.upper import pdcch as t_pdcch
@@ -231,7 +232,7 @@ def test_dlsch_encode_matches_jax(tbs, rate):
 def test_gold_words_pack_the_sequence():
     """K6's packed Gold words: bit g of the sequence is bit g % 32 of word
     g // 32."""
-    words = dl_map._gold_words(0x4601 << 15 | 1, 1000).view(np.uint32)
+    words = gold.gold_words(0x4601 << 15 | 1, 1000).view(np.uint32)
     bits = (words[np.arange(1000) // 32] >> (np.arange(1000) % 32)) & 1
     np.testing.assert_array_equal(bits, gold_sequence_np(0x4601 << 15 | 1,
                                                          1000))

@@ -369,6 +369,77 @@ def test_pdsch_map_kernel(cuda, case):
     _close(out, ref, 1e-6)
 
 
+K6_CASES = ("pdsch_map", "pdsch_map_interleaved", "pdsch_map_nref",
+            "pdsch_map_repetition", "pdsch_map_prg_type0")
+K3_CASES = ("pusch_demap", "pusch_demap_1l", "pusch_demap_hop1",
+            "pusch_demap_hop2")
+
+
+def _map_demap_case(name: str, device):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(25)
+    return flagship.map_demap_profile_cases(gen, device)[name]
+
+
+@pytest.mark.parametrize("case", K6_CASES)
+def test_pdsch_map_kernel_at_the_flagship(cuda, case):
+    """K6 / K22 at the flagship's shapes (100 codeblocks, 4 layers 256QAM;
+    slot F's interleaved plan, n_ref, the repetition shape with E beyond
+    N_nf, slot E's PRG table) within 1e-6 of max|ref| of its twin, one
+    launch a call."""
+    fn, twin, args = _map_demap_case(case, cuda)
+    counter = (dl_map.KERNEL_PRG if case.endswith("type0")
+               else dl_map.KERNEL)
+    before = counter.launches
+    out = fn(args[0].clone(), *args[1:])
+    assert counter.launches == before + 1
+    ref = twin(args[0].clone(), *args[1:])
+    _close(out, ref, 1e-6)
+
+
+@pytest.mark.parametrize("case", K3_CASES)
+def test_pusch_demap_kernel_at_the_flagship(cuda, case):
+    """K3 at the flagship PUSCH (2 layers ZF QAM64, 35,508 REs), at 1
+    layer, and on both hops of the pi/2-BPSK PUSCH (hop 2 from hop 1's
+    Gold offset) within rtol 1e-4 of its twin, one launch a call."""
+    fn, twin, args = _map_demap_case(case, cuda)
+    before = ul_demap.KERNEL.launches
+    llr, x = fn(*args)
+    assert ul_demap.KERNEL.launches == before + 1
+    llr_ref, x_ref = twin(*args)
+    _close(x, x_ref, 1e-4)
+    _close(llr, llr_ref, 1e-4)
+
+
+def test_map_demap_kernels_in_a_cuda_graph(cuda):
+    """K6 and K3 at the flagship shapes captured in one CUDA graph and
+    replayed on new codeblocks, grids and channels (no synchronisation,
+    no allocation inside either launch)."""
+    k6 = _map_demap_case("pdsch_map", cuda)[2]
+    k3 = _map_demap_case("pusch_demap", cuda)[2]
+    dl_grid = k6[0].clone()
+    dl_map.pdsch_map(dl_grid, *k6[1:])
+    ul_demap.equalize_demap_descramble(*k3)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        dl_map.pdsch_map(dl_grid, *k6[1:])
+        llr, x = ul_demap.equalize_demap_descramble(*k3)
+    rng = np.random.default_rng(5)
+    start = _cgauss(rng, tuple(dl_grid.shape)).to(cuda)
+    dl_grid.copy_(start)
+    k6[1].copy_(torch.as_tensor(rng.integers(
+        0, 2, tuple(k6[1].shape)).astype(np.int8)).to(cuda))
+    k3[0].copy_(_cgauss(rng, tuple(k3[0].shape)).to(cuda))
+    k3[1].copy_(_cgauss(rng, tuple(k3[1].shape)).to(cuda))
+    graph.replay()
+    torch.cuda.synchronize()
+    _close(dl_grid, dl_map.pdsch_map_ref(start.clone(), *k6[1:]), 1e-6)
+    llr_ref, x_ref = ul_demap.equalize_demap_descramble_ref(*k3)
+    _close(x, x_ref, 1e-4)
+    _close(llr, llr_ref, 1e-4)
+
+
 @pytest.mark.parametrize("case", ["scale_half"] + list(OFDM_CASES))
 def test_ofdm_modulate_kernel(cuda, case):
     """K7 against its twin at rtol 1e-4, one launch a call."""
@@ -1290,7 +1361,9 @@ def test_prach_demod_kernel(cuda, fmt, fs, start, f_off, ra_scs, ports):
 @pytest.mark.parametrize("ports,layers,prg", [(4, 2, 4), (2, 1, 2),
                                               (4, 4, 2)])
 def test_pdsch_map_prg_kernel(cuda, ports, layers, prg):
-    """K22 bit-exact to its twin; with one PRG and the identity, to K6."""
+    """K22 bit-exact to its twin, also with its table padded to 701 PRGs
+    (any size: the kernel reads its rows through L1); with one PRG and the
+    identity, to K6."""
     from srsran_tpu_torch.ran.precoding_codebooks import (PrecodingConfig,
                                                           nof_prgs)
     base = {(4, 2): 34, (2, 1): 2, (4, 4): 82}[(ports, layers)]
@@ -1312,6 +1385,9 @@ def test_pdsch_map_prg_kernel(cuda, ports, layers, prg):
     out = dl_map.pdsch_map(grid.clone(), *args[1:])
     ref = dl_map.pdsch_map_ref(grid.clone(), *args[1:])
     assert torch.equal(out, ref)
+    big = torch.cat([table, table.new_zeros((701 - n,) + table.shape[1:])])
+    assert torch.equal(dl_map.pdsch_map(grid.clone(), *args[1:13], big,
+                                        *args[14:]), out)
     w = pdsch.identity(ports, layers, cuda)
     k6 = pdsch.map_args(grid, dataclasses.replace(cfg, precoding=None), cbs,
                         w)
@@ -1556,21 +1632,18 @@ def alloc_cases():
 
 @pytest.mark.parametrize("name", [
     "control_llrs", "control_llrs_many", "dmrs_map_type0",
-    "dmrs_map_interleaved", "dmrs_map_type2", "pdsch_map_prg_type0",
-    "pdsch_map_interleaved", "pdsch_map_nref", "rate_dematch_type0",
+    "dmrs_map_interleaved", "dmrs_map_type2", "rate_dematch_type0",
     "rate_dematch_nref", "polar_decode_al16", "polar_decode_pbch"])
 def test_alloc_kernels_against_twins(alloc_cases, name):
     """K28 (slot E's DCIs and PBCH; 17 DCIs and the PBCH), K26 (type 0
-    with 61 PRG matrices, interleaved, type 2 on ports 0, 1, 4, 5), K22 and
-    K6 (slot E's and F's plans, a limited buffer), K2 (slot E's G, a
-    limited buffer) and K15 (an AL16 DCI with its syndrome, the PBCH) at
-    the flagship shapes: bit-exact to their twins (K6 within 1e-6 of
-    max|ref|, the precoder's sum order)."""
+    with 61 PRG matrices, interleaved, type 2 on ports 0, 1, 4, 5), K2
+    (slot E's G, a limited buffer) and K15 (an AL16 DCI with its syndrome,
+    the PBCH) at the flagship shapes: bit-exact to their twins (K22 and
+    K6 at slot E's and F's plans and with a limited buffer are
+    ``K6_CASES``)."""
     kernel, ref, args = alloc_cases[name]
     got, want = kernel(*args), ref(*args)
-    if name in ("pdsch_map_interleaved", "pdsch_map_nref"):
-        _close(got, want, 1e-6)
-    elif isinstance(got, tuple):
+    if isinstance(got, tuple):
         for a, b in zip(got, want):
             assert torch.equal(a, b)
     else:

@@ -32,7 +32,7 @@ from srsran_tpu.phy.upper import prach as j_prach
 
 from srsran_tpu_torch import convert, flagship
 from srsran_tpu_torch.kernels import _build
-from srsran_tpu_torch.ops import ul_demap
+from srsran_tpu_torch.ops import gold, ul_demap
 from srsran_tpu_torch.ops.modulation import BITS_PER_SYMBOL
 from srsran_tpu_torch.phy.upper import prach, pusch
 
@@ -538,7 +538,7 @@ def test_lxn_gold_words(length, advance):
     """K16's Gold bits packed 32 a word, LLR 32 w + b at bit b of word w,
     a spare zero word last; what the kernel reads through its 64-bit
     window is the twin's sequence."""
-    words = ul_demap._gold_words(77, length, advance).view(np.uint32)
+    words = gold.gold_words(77, length, advance).view(np.uint32)
     assert len(words) == -(-length // 32) + 1 and words[-1] == 0
     got = (words[np.arange(length) >> 5] >> (np.arange(length) & 31)) & 1
     want = np.asarray(j_gold.gold_sequence(77, length, advance))
@@ -589,7 +589,7 @@ def test_lxn_struct_at_the_two_ue_slot():
         (c64, c64, i32, i32, f32), cfg.rb_start * 12, cfg.modulation, 4,
         "mmse", 0)
     assert (p.L, p.mmse, p.half, p.nslots) == (4, 1, 3, 1)
-    assert _c_struct_fields("pusch_demap_lxn.cu", "LxnParams") == [
+    assert _c_struct_fields("pusch_demap.cuh", "LxnParams") == [
         f for f, _ in _build.LxnParams._fields_]
 
 
