@@ -12,11 +12,14 @@ the JAX package.  It builds the hand kernels from ``srsran_tpu_torch/csrc``
    input at the flagship shapes, and times both with CUDA events: the UL
    kernels K1 LDPC decoder, K2 rate dematch, K3 fused equalize/demap/
    descramble, K4 OFDM demodulation passes, K8 channel estimator, K9 PRACH
-   detector, K10 PUCCH F1 detector, K11 SRS noise; the DL kernels K5 DL-SCH
+   detector, K10 PUCCH F1 detector (also with 3 and 12 users and a hop and
+   over a batch of 4 with per-slot weights,
+   ``flagship.pucch_profile_cases``), K11 SRS noise; the DL kernels K5 DL-SCH
    encode, K6 PDSCH map (also on a small allocation with repetition at rv
    2), K7 OFDM modulation passes; the UCI kernels (phase 4's first step)
    K12 PUCCH F0 detect (decisions on the 30 dB slot; the metric too with
-   noise added to 10 dB), K13 PUCCH F2 demap (2 RB, and 1 RB), K14
+   noise added to 10 dB), K13 PUCCH F2 demap (2 RB, 1 RB, 16 RB and over a
+   batch of 4; K3, K4, K6, K7, K10 and K13 one launch a call), K14
    short-block ML (K = 6, E = 32, and K = 11, E = 512), K15 polar decode
    (K' = 33, E = 64, and N = 1024), plus K8 at the F2's comb-3 shape.
    Beside each it computes the kernel's
@@ -390,6 +393,10 @@ CASE_KERNEL = {**{f"ofdm_{k}{case}": f"ofdm_{k}"
                "pucch_f0_detect_10db": "pucch_f0_detect",
                "channel_estimate_f2": "channel_estimate",
                "pucch_f2_demap_1rb": "pucch_f2_demap",
+               **{f"pucch_f1_detect{case}": "pucch_f1_detect"
+                  for case in ("_3u_hop", "_12u_hop", "_batch4")},
+               **{f"pucch_f2_demap{case}": "pucch_f2_demap"
+                  for case in ("_16rb", "_batch4")},
                "short_block_detect_k11": "short_block_detect",
                "polar_decode_n1024": "polar_decode",
                "pusch_demap_lxn_3l_zf": "pusch_demap_lxn",
@@ -825,11 +832,16 @@ def work(name: str, args: tuple, out) -> tuple:
         return (res * c64 + nbytes(refs) + nbytes(out),
                 8.0 * refs.shape[0] * res + 4.0 * res)
     if name == "pucch_f2_demap":                   # K13: ~11 per port, RE
+        # per slot the data REs on every port, the coefficients of the
+        # data subcarriers (8 of each PRB's 12) and the noise read and the
+        # LLRs written once (the Gold sequence is a function of c_init,
+        # not an input)
         grid, coeffs, noise, cfg = args
         n_re = 8 * cfg.nof_rb * cfg.nof_symbols
-        p = grid.shape[0]
-        return (n_re * p * c64 + nbytes((coeffs, noise)) + 2 * n_re
-                + nbytes(out), n_re * (11.0 * p + 20))
+        nb = grid.numel() // math.prod(grid.shape[-3:])
+        p = grid.shape[-3]
+        return (nb * p * (n_re + 8 * cfg.nof_rb) * c64 + nbytes(noise)
+                + nbytes(out), nb * n_re * (11.0 * p + 20))
     if name == "short_block_detect":               # K14: 2 * 2^K * E
         llr, k = args[0], args[1]
         return nbytes(llr) + nbytes(out), 2.0 * (1 << k) * llr.numel()
@@ -963,11 +975,23 @@ def work(name: str, args: tuple, out) -> tuple:
                 + 4.0 * ps * n_r * 1024
                 + 3.0 * cfg.nof_preambles * (win + 2 * margin))
     if name == "pucch_f1_detect":                  # K10
+        # per slot the occasion's REs on every port read once; of each
+        # hop's weights a_dm on its DM-RS symbols, ph and w_da on its data
+        # symbols (a weight the slots share once); the results written
+        # once; 8 per complex MAC of the despread, 14 per term of the
+        # matched filter
         grid, common, weights = args[:3]
-        u = weights[0][0].shape[0]
-        res = grid.shape[0] * common.nof_symbols * 12
-        return (res * c64 + nbytes(weights) + nbytes(out),
-                u * res * (8.0 + 14.0))
+        nb = grid.numel() // math.prod(grid.shape[-3:])
+        p, u = grid.shape[-3], weights[0][0].shape[-3]
+        w_bytes = ops = 0.0
+        for (prb, s0, nsym), (a_dm, ph, w_da) in zip(
+                pucch._f1_hops(common), weights):
+            n_dm, n_da = map(len, pucch._split(s0, nsym))
+            w_bytes += (nbytes(a_dm) * n_dm + nbytes((ph, w_da)) * n_da
+                        ) / nsym
+            ops += nb * u * p * 12 * (8.0 * n_dm + 14.0 * n_da)
+        res = p * common.nof_symbols * 12
+        return nb * res * c64 + w_bytes + nbytes(out), ops
     if name == "srs_estimate":                     # K11
         grid, cfg = args[:2]
         p, k = grid.shape[0], cfg.seq_len
@@ -1251,9 +1275,9 @@ def ofdm_library(cases: dict) -> dict:
 
 
 def launch_row(name: str, args: tuple) -> str | None:
-    """The launch count one call of a K3, K4, K6 (K22) or K7 case adds to:
-    its kernel's row, its ``_batch`` row with a slot axis, K22's row with a
-    PRG table; None for the other kernels."""
+    """The launch count one call of a K3, K4, K6 (K22), K7, K10 or K13
+    case adds to: its kernel's row, its ``_batch`` row with a slot axis,
+    K22's row with a PRG table; None for the other kernels."""
     kind = CASE_KERNEL.get(name, name)
     if kind in ("ofdm_demodulate", "ofdm_modulate"):
         rank = 2 if kind == "ofdm_demodulate" else 3
@@ -1261,14 +1285,15 @@ def launch_row(name: str, args: tuple) -> str | None:
     if kind in ("pdsch_map", "pdsch_map_prg"):
         return ("pdsch_map_batch" if args[0].ndim == 4 else "pdsch_map_prg"
                 if len(args) > 14 and args[14] else "pdsch_map")
-    if kind == "pusch_demap":
+    if kind in ("pusch_demap", "pucch_f1_detect", "pucch_f2_demap"):
         return kind + ("_batch" if args[0].ndim == 4 else "")
     return None
 
 
 def one_launch_a_call(cases: dict) -> None:
-    """K3, K4, K6 (K22) and K7 launch once a call: each of their cases
-    adds one to its kernel's count (:func:`launch_row`) and to no other."""
+    """K3, K4, K6 (K22), K7, K10 and K13 launch once a call: each of their
+    cases adds one to its kernel's count (:func:`launch_row`) and to no
+    other."""
     rows = set()
     for name, (fn, _, args) in cases.items():
         row = launch_row(name, args)
@@ -1306,6 +1331,18 @@ def map_demap_cases(prefix: str, dev) -> dict:
     return out
 
 
+def pucch_cases(prefix: str, dev) -> dict:
+    """K10's (``prefix`` "pucch_f1_detect_") or K13's ("pucch_f2_demap_")
+    cases of ``flagship.pucch_profile_cases`` -- K10 with 3 and 12 users
+    and a hop and over a batch of 4 with per-slot weights; K13 at 16 RB
+    and over a batch of 4 -- from a generator of their own (the flagship
+    entries are the phase's own)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 26)
+    return {k: v for k, v in flagship.pucch_profile_cases(gen, dev).items()
+            if k.startswith(prefix)}
+
+
 def ul_phases(dev, gen, rng, card) -> tuple:
     """The UL kernels against their twins, then the flagship UL slot."""
     ul = flagship.ul_program()
@@ -1322,6 +1359,7 @@ def ul_phases(dev, gen, rng, card) -> tuple:
     cases.update(flagship.ldpc_decode_cases(cases, gen))
     cases.update(ofdm_cases("ofdm_demodulate_", dev))
     cases.update(map_demap_cases("pusch_demap_", dev))
+    cases.update(pucch_cases("pucch_f1_detect_", dev))
     one_launch_a_call(cases)
     results = kernel_phases(cases, {
         "prach_detect": launch_profile.prach_idft_library(
@@ -1531,8 +1569,10 @@ def conductor_phases(dev, gen, rng, card) -> tuple:
     torch.cuda.synchronize()
     print(f"conductor inputs: {flagship.N_PHASES} slot phases in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    results = kernel_phases(flagship.conductor_kernel_cases(
-        phases[0]["rx"], 0, gen))
+    cases = flagship.conductor_kernel_cases(phases[0]["rx"], 0, gen)
+    cases.update(pucch_cases("pucch_f2_demap_", dev))
+    one_launch_a_call(cases)
+    results = kernel_phases(cases)
 
     cond = SlotConductor(flagship.CELL)
     if cond.device.type != "cuda":
@@ -2055,8 +2095,10 @@ def _slot_of(obj, b: int):
 
 
 # The kernels whose work count reads the slot axis of its arguments: what
-# the slots share (the RE plan, a shared precoder) is counted once.
-SLOT_AXIS_WORK = ("pusch_demap", "pdsch_map", "pdsch_map_prg")
+# the slots share (the RE plan, a shared precoder, K10's shared weights) is
+# counted once.
+SLOT_AXIS_WORK = ("pusch_demap", "pdsch_map", "pdsch_map_prg",
+                  "pucch_f1_detect", "pucch_f2_demap")
 
 
 def batched_kernel_phase(names: tuple, per_slot: list, where: str,

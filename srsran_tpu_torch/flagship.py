@@ -80,7 +80,7 @@ from .ops.ldpc_graph import get_graph
 from .ops.modulation import BITS_PER_SYMBOL, demodulate
 from .ops.scrambling import descramble_llrs
 from .phy.slot_programs import (CellConfig, dl_slot_fn, dl_slot_fn_samples,
-                                ul_slot_fn)
+                                stack_ctx, ul_slot_fn)
 from .phy.upper import (csi_rs, dmrs, pdcch, pdsch, prach, ptrs_prs, pucch,
                         pusch, sch_decoder, srs, ssb, ue_tx)
 from .phy.upper import uci as uci_codec
@@ -2419,6 +2419,88 @@ def map_demap_profile_cases(gen: torch.Generator, device) -> dict:
             (grid, coeffs.contiguous(), sym, sc, cfg.rb_start * 12, nv,
              (cfg.rnti << 15) + cfg.n_id, cfg.modulation, layers, "zf",
              advance))
+    return cases
+
+
+# K10's and K13's further cases: an F1 occasion hopping to PRB 9 (the GPU
+# tests' shape) and the largest F2 PDU (16 RB x 2 symbols: 512 LLRs).
+F1_HOP_PRB = 9
+F2_WIDEST = dataclasses.replace(F2_POLAR, rb_start=200, nof_rb=16)
+
+
+def _f1_case_users(n: int) -> tuple:
+    """n users of one occasion on distinct cyclic shifts: (4u mod 12 +
+    u // 3, u mod 2, 1 + u mod 2), the GPU tests' three users first."""
+    return tuple(((4 * u) % 12 + u // 3, u % 2, 1 + u % 2) for u in range(n))
+
+
+def _f1_case_grid(common, users, rng: np.random.Generator,
+                  gen: torch.Generator, device) -> torch.Tensor:
+    """One slot's grid [P, 14, K] with each user's F1 (random bits) on
+    every port through a random complex gain, plus noise of variance
+    0.0025."""
+    p = CELL.nof_ports
+    grid = torch.zeros((p, 14, CELL.nof_sc), dtype=torch.complex64,
+                       device=device)
+    for m0, occ, nbits in users:
+        cfg = dataclasses.replace(common, initial_cyclic_shift=m0,
+                                  time_domain_occ=occ, nof_harq_bits=nbits)
+        one = pucch.transmit_format1(torch.zeros_like(grid), cfg,
+                                     rng.integers(0, 2, nbits))[0]
+        gain = rng.standard_normal((p, 2)).astype(np.float32) / np.sqrt(2)
+        grid += _up(gain[:, 0] + 1j * gain[:, 1], device)[:, None, None] * one
+    noise = torch.randn(grid.shape, dtype=torch.complex64, device=device,
+                        generator=gen)
+    return grid + 0.05 * noise
+
+
+def pucch_profile_cases(gen: torch.Generator, device) -> dict:
+    """K10's and K13's cases beyond the flagship's, for ``launch_profile``
+    and ``chip_smoke.py``: name -> (wrapper, twin, args).  The flagship
+    entries stay with their builders, :func:`kernel_cases`
+    (``pucch_f1_detect``) and :func:`conductor_kernel_cases`
+    (``pucch_f2_demap``, ``_1rb``).  Here: K10 with 3 users and a hop to
+    :data:`F1_HOP_PRB` (``_3u_hop``), with 12 (``_12u_hop``), and over a
+    batch of 4 (the flagship occasion in slots 1-4, each slot's weights
+    stacked by ``stack_ctx`` as the conductor stacks its slot contexts:
+    ``_batch4``), on grids of seeded F1 users (:func:`_f1_case_grid`); K13
+    on :data:`F2_WIDEST` (``_16rb``) and over a batch of 4 of ``F2_POLAR``
+    (``_batch4``), on seeded grids and channels I + 0.25 (N + jN) a
+    subcarrier, noise variance 0.05."""
+    rng = np.random.default_rng(26)
+    cases = {}
+    common = dataclasses.replace(PUCCH, slot=4, second_hop_prb=F1_HOP_PRB)
+    for name, n in (("_3u_hop", 3), ("_12u_hop", 12)):
+        users = _f1_case_users(n)
+        weights = tuple(tuple(_up(w, device) for w in hop)
+                        for hop in pucch.f1_batch_weights(common, users))
+        cases["pucch_f1_detect" + name] = (
+            pucch.f1_detect, pucch.f1_detect_ref,
+            (_f1_case_grid(common, users, rng, gen, device), common,
+             weights, 1.5))
+    grids = torch.stack([_f1_case_grid(
+        dataclasses.replace(PUCCH, slot=(2 * g) % 20), F1_USERS, rng, gen,
+        device) for g in BATCH_PHASES])
+    weights = stack_ctx([ul_slot_context(g, device)
+                         for g in BATCH_PHASES])[0]["f1"][0]
+    cases["pucch_f1_detect_batch4"] = (pucch.f1_detect, pucch.f1_detect_ref,
+                                       (grids, PUCCH, weights, 1.5))
+
+    def cn(*shape):
+        return torch.complex(torch.randn(shape, device=device, generator=gen),
+                             torch.randn(shape, device=device, generator=gen)
+                             ) / np.sqrt(2)
+
+    p = CELL.nof_ports
+    for name, cfg, lead in (("_16rb", F2_WIDEST, ()),
+                            ("_batch4", F2_POLAR, (BATCH,))):
+        one = torch.ones((p, 1, 1, 12 * cfg.nof_rb), dtype=torch.complex64,
+                         device=device)
+        coeffs = one + 0.25 * cn(*lead, p, 1, 1, 12 * cfg.nof_rb)
+        cases["pucch_f2_demap" + name] = (
+            pucch.f2_demap, pucch.f2_demap_ref,
+            (cn(*lead, p, 14, CELL.nof_sc), coeffs,
+             torch.full(lead + (p,), 0.05, device=device), cfg))
     return cases
 
 

@@ -9,7 +9,8 @@ build on every run, so the sources compile side by side.  Pointers and the strea
 ``ctypes.c_void_p``; every C entry point returns ``cudaGetLastError()``
 after its launches, and :func:`check` raises on anything but 0.
 :class:`Launch` is the lean form of that path (K1, K3, K4, K5, K6, K7, K8,
-K9, K15, K16, K22, K32, K21, K18, K19, K27, K33, K34 and K35 take it): a
+K9, K10, K13, K15, K16, K22, K32, K21, K18, K19, K27, K33, K34 and K35
+take it): a
 wrapper keeps one per call signature with the bound C function, a
 parameter struct passed by address and its device tables, and a call
 passes only the tensors' pointers and the current stream.
@@ -275,6 +276,38 @@ class ChestParams(ctypes.Structure):
         ("syms", _I * CHEST_MAX_SYMBOLS), ("times", _F * CHEST_MAX_SYMBOLS),
         ("td_i0", _I * CHEST_MAX_SYMBOLS), ("td_w", _F * CHEST_MAX_SYMBOLS)]
 
+F1_MAX_PORTS = 8          # csrc/pucch_f1.cu kF1MaxPorts
+F1_MAX_SYMBOLS = 14       # csrc/pucch_f1.cu kF1MaxSymbols
+F1_MAX_USERS = 64         # csrc/pucch_f1.cu kF1MaxUsers
+
+
+class F1Hop(ctypes.Structure):
+    """csrc/pucch_f1.cu's F1Hop (one hop of K10's occasion)."""
+
+    _fields_ = [(name, _I) for name in ("prb", "l_lo", "ns", "s0", "n_dm",
+                                        "first")]
+
+
+class F1Params(ctypes.Structure):
+    """csrc/pucch_f1.cu's F1Params (K10's launch), by address."""
+
+    _fields_ = [(name, _I) for name in (
+        "slots", "U", "P", "nhops", "nsym", "S", "K", "stacked", "n_data",
+        "threads")] + [("threshold", _F), ("hop", F1Hop * 2)]
+
+
+F2_MAX_PORTS = 8          # csrc/pucch_f2.cu kF2MaxPorts
+F2_GOLD_WORDS = 17        # csrc/pucch_f2.cu kF2GoldWords
+
+
+class F2DemapParams(ctypes.Structure):
+    """csrc/pucch_f2.cu's F2DemapParams (K13's launch), by address."""
+
+    _fields_ = [(name, _I) for name in (
+        "slots", "P", "S", "K", "nd", "nsym", "l0", "sc0", "nsc",
+        "threads")] + [("level", _F),
+                       ("gold", ctypes.c_uint * F2_GOLD_WORDS)]
+
 # C entry points and their argument types (see the matching .cu file).
 SIGNATURES = {
     "srsran_ldpc_decode": [_P] * 7,
@@ -293,15 +326,12 @@ SIGNATURES = {
     "srsran_chest_estimate": [_P] * 10,
     "srsran_prach_prepare": [_I],
     "srsran_prach_detect": [_P] * 7,
-    "srsran_pucch_f1": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
-                        _I, _I, _I, _I, _P, _P, _P, _I, _F, _P, _P, _P, _P,
-                        _I, _P],
+    "srsran_pucch_f1": [_P] * 13,
     "srsran_srs_noise": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _F, _P, _P,
                          _I, _P, _I, _P],
     "srsran_pucch_f0": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _L, _I, _P, _I,
                         _F, _P, _P, _P, _P, _I, _P],
-    "srsran_pucch_f2_demap": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _F,
-                              _P, _P, _I, _P],
+    "srsran_pucch_f2_demap": [_P] * 6,
     "srsran_short_block_detect": [_P, _I, _I, _I, _I, _P, _P, _P, _P],
     "srsran_short_block_encode": [_P] * 5,
     "srsran_polar_encode": [_P] * 7,

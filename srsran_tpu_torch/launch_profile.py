@@ -1,7 +1,8 @@
 """The host side of a kernel launch on one CUDA GPU: K1's, K3's, K4's,
-K5's, K6's, K7's, K8's, K15's, K32's, K21's, K18's, K19's, K22's, K27's,
-K33's, K34's and K35's wrappers against one PyTorch call each (K1, K3, K6,
-K8, K15, K22: none computes it; their device µs alone).
+K5's, K6's, K7's, K8's, K10's, K13's, K15's, K32's, K21's, K18's, K19's,
+K22's, K27's, K33's, K34's and K35's wrappers against one PyTorch call each
+(K1, K3, K6, K8, K10, K13, K15, K22: none computes it; their device µs
+alone).
 
     python3 -m srsran_tpu_torch.launch_profile [--calls 1000] [--out DIR]
         [--cases PREFIX ...]
@@ -71,7 +72,15 @@ hops of the pi/2-BPSK PUSCH (``_hop1``, ``_hop2``), from
 ``flagship.map_demap_profile_cases`` (:func:`map_demap_calls`), device µs
 alone (no single PyTorch call computes either function); ``--cases
 pdsch_map pusch_demap`` (which also keeps K16's ``pusch_demap_lxn``
-cases), ~2 min.
+cases), ~2 min; K10 (``pucch.f1_detect``) on the flagship occasion
+(``pucch_f1_detect``), 3 and 12 users with a hop (``_3u_hop``,
+``_12u_hop``) and a batch of 4 (``_batch4``), and K13
+(``pucch.f2_demap``) on the conductor's F2s (``pucch_f2_demap``,
+``_1rb``), 16 RB (``_16rb``) and a batch of 4 (``_batch4``), from
+``flagship.kernel_cases``, ``conductor_kernel_cases`` and
+``pucch_profile_cases`` (:func:`pucch_calls`), device µs alone;
+``--cases pucch`` (which also keeps K19's two ``pucch_f3_demap`` cases),
+~1 min.
 ``--cases`` keeps the cases whose names start with one of the prefixes
 (and skips the pieces below, and building the cases it leaves out).  Per
 case and call it reports:
@@ -624,6 +633,50 @@ def map_demap_calls(gen: torch.Generator, dev) -> tuple:
     return calls, library
 
 
+def pucch_cases(gen: torch.Generator, rng: np.random.Generator,
+                dev) -> dict:
+    """K10's and K13's cases: name -> (wrapper, twin, args).  The flagship
+    occasion (``flagship.kernel_cases``' ``pucch_f1_detect``), the
+    conductor slot's two F2 PDUs (``flagship.conductor_kernel_cases``'
+    ``pucch_f2_demap``, ``_1rb``) and ``flagship.pucch_profile_cases``."""
+    _, rx, ctx = flagship.make_slots(1, rng, gen, dev)[0]
+    cases = {"pucch_f1_detect": flagship.kernel_cases(
+        rx, ctx, gen, flagship.prach_fd(dev))["pucch_f1_detect"]}
+    tb = torch.as_tensor(rng.integers(0, 2, flagship.PUSCH.tbs).astype(
+        np.int8)).to(dev)
+    rx = flagship.channel(flagship.ue_samples(0, tb, flagship.ue_uci(rng)),
+                          gen)
+    cases.update((k, v) for k, v in flagship.conductor_kernel_cases(
+        rx, 0, gen).items() if k.startswith("pucch_f2_demap"))
+    cases.update(flagship.pucch_profile_cases(gen, dev))
+    return cases
+
+
+def pucch_calls(gen: torch.Generator, rng: np.random.Generator,
+                dev) -> tuple:
+    """K10's and K13's (calls, library) by name (:func:`pucch_cases`),
+    each checked against its twin once (K10: decisions and bits equal,
+    metric and symbol within 1e-4 of their largest; K13: the LLRs at rtol
+    1e-4 and within 1e-4 of their largest); no single PyTorch call
+    computes either, so no library call."""
+    calls, library = {}, {}
+    for name, (fn, twin, a) in pucch_cases(gen, rng, dev).items():
+        out, ref = fn(*a), twin(*a)
+        if name.startswith("pucch_f1"):
+            if not (torch.equal(out[0], ref[0])
+                    and torch.equal(out[2], ref[2])):
+                raise AssertionError(f"{name}: K10 decisions differ")
+            pairs = ((out[1], ref[1]), (out[3], ref[3]))
+        else:
+            pairs = ((out, ref),)
+        for o, r in pairs:
+            torch.testing.assert_close(o, r, rtol=1e-4, atol=1e-4 * float(
+                r.abs().max()), msg=name)
+        calls[name] = lambda fn=fn, a=a: fn(*a)
+        library[name] = None
+    return calls, library
+
+
 def _entry(loader, argtype):
     """K32's C entry point loaded through ``loader`` (ctypes.CDLL releases
     the interpreter lock around the call, ctypes.PyDLL keeps it) with four
@@ -735,7 +788,9 @@ def main(argv=None) -> dict:
                 (("ofdm_demodulate", "ofdm_modulate"),
                  lambda: ofdm_calls(gen, dev)),
                 (("pdsch_map", "pusch_demap"),
-                 lambda: map_demap_calls(gen, dev)))
+                 lambda: map_demap_calls(gen, dev)),
+                (("pucch_f1_detect", "pucch_f2_demap"),
+                 lambda: pucch_calls(gen, rng, dev)))
     for prefixes, build in builders:
         if _wanted(args.cases, prefixes):
             more_calls, more_library = build()

@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 
 import numpy as np
 import torch
@@ -49,7 +50,7 @@ from ...ops import channel_estimate as chest
 from ...ops import polar as polar_ops
 from ...ops import short_block
 from ...ops.crc import crc
-from ...ops.gold import gold_sequence, gold_sequence_np
+from ...ops.gold import gold_sequence_np, gold_words
 from ...ops.low_papr import base_sequence
 from ...ops.modulation import (demodulate, modulate, pam_levels_scaled,
                                qpsk_np)
@@ -225,57 +226,128 @@ def f1_detect_ref(grid: torch.Tensor, common: PucchF1Config, weights: tuple,
     return detected, metric, bits, d_hat
 
 
+@functools.lru_cache(maxsize=256)
+def _f1_hop_fields(prb: int, start_symbol: int, nof_symbols: int,
+                   second_hop_prb) -> tuple:
+    """K10's by-value geometry of an occasion (what the kernel reads of
+    its :class:`PucchF1Config`, not the slot): per hop (prb, first grid
+    symbol, symbols, first symbol relative to the allocation, DM-RS
+    symbols (at least 1), index of its first symbol among both hops')."""
+    cfg = PucchF1Config(prb=prb, start_symbol=start_symbol,
+                        nof_symbols=nof_symbols, initial_cyclic_shift=0,
+                        time_domain_occ=0, n_id=0,
+                        second_hop_prb=second_hop_prb)
+    out, first = [], 0
+    for hop_prb, s0, nsym in _f1_hops(cfg):
+        out.append((hop_prb, start_symbol + s0, nsym, s0,
+                    max(len(_split(s0, nsym)[0]), 1), first))
+        first += nsym
+    return tuple(out)
+
+
+def _f1_params(shapes: tuple, dtypes: tuple, hops: tuple,
+               threshold: float) -> _build.F1Params:
+    """K10's parameters for one call signature: the shapes and dtypes of
+    the grid and of the weights (a_dm, ph, w_da of each hop) and the hops
+    of :func:`_f1_hop_fields`; raises on what the kernel does not take."""
+    grid_s, weights_s = shapes[0], shapes[1:]
+    if dtypes[0] != torch.complex64 or len(grid_s) not in (3, 4):
+        raise ValueError(f"grid must be complex64 [(B,) P, S, K], got "
+                         f"{dtypes[0]} {tuple(grid_s)}")
+    if len(weights_s) != 3 * len(hops) or any(
+            d != torch.complex64 for d in dtypes[1:]):
+        raise ValueError("F1 weights must be complex64 (a_dm, ph, w_da) "
+                         f"for each of the {len(hops)} hops")
+    lead = tuple(grid_s[:-3])
+    p, s_grid, k_grid = grid_s[-3:]
+    u = weights_s[0][-3] if len(weights_s[0]) >= 3 else 0
+    nsym = sum(h[2] for h in hops)
+    if not 0 < p <= _build.F1_MAX_PORTS:
+        raise ValueError(f"{p} rx ports: K10 takes 1 to "
+                         f"{_build.F1_MAX_PORTS} ports")
+    if not 0 < u <= _build.F1_MAX_USERS:
+        raise ValueError(f"{u} users: K10 takes 1 to "
+                         f"{_build.F1_MAX_USERS} users an occasion")
+    if nsym > _build.F1_MAX_SYMBOLS:
+        raise ValueError(f"{nsym} symbols: K10 takes at most "
+                         f"{_build.F1_MAX_SYMBOLS} symbols an occasion")
+    slots = lead[0] if lead else 1
+    if max(slots * p * s_grid * k_grid, slots * u * nsym * 12) >= 1 << 31:
+        raise ValueError("K10 takes at most 2^31 elements a grid or a "
+                         "weight array (32-bit offsets)")
+    stacked = 0
+    for i, (prb, l_lo, ns, _, _, _) in enumerate(hops):
+        if l_lo + ns > s_grid or 12 * (prb + 1) > k_grid:
+            raise ValueError(f"hop {i} (PRB {prb}, symbols {l_lo}-"
+                             f"{l_lo + ns - 1}) lies outside the grid "
+                             f"{tuple(grid_s)}")
+        want = ((u, ns, 12), (u, ns, 12), (u, ns))
+        for j, shape in enumerate(want):
+            w = tuple(weights_s[3 * i + j])
+            if (w[len(w) - len(shape):] != shape
+                    or w[:len(w) - len(shape)] not in ((), lead)):
+                raise ValueError(f"hop {i}: weight {j} {w} does not fit "
+                                 f"{u} users, {ns} symbols")
+            stacked |= int(len(w) > len(shape)) << (3 * i + j)
+    out = _build.F1Params(
+        slots=slots, U=u, P=p, nhops=len(hops), nsym=nsym, S=s_grid,
+        K=k_grid, stacked=stacked,
+        n_data=sum(h[2] - len(_split(h[3], h[2])[0]) for h in hops),
+        threads=-(-8 * nsym // 32) * 32, threshold=threshold)
+    for i, h in enumerate(hops):
+        out.hop[i] = _build.F1Hop(*h)
+    return out
+
+
+@functools.lru_cache(maxsize=1024)
+def _f1_plan(shapes: tuple, dtypes: tuple, hops: tuple, threshold: float,
+             index: int) -> tuple:
+    """K10's launch for one call signature on CUDA device ``index`` and
+    the shape of its outputs: [(B,) U]."""
+    p = _f1_params(shapes, dtypes, hops, threshold)
+    return (_build.Launch("srsran_pucch_f1", index, p),
+            tuple(shapes[0][:-3]) + (p.U,))
+
+
 def f1_detect(grid: torch.Tensor, common: PucchF1Config, weights: tuple,
               threshold: float) -> tuple:
     """(detected bool [U], metric f32 [U], bits int8 [U, 2], symbol
     complex64 [U]) of the users of one F1 occasion, from the grid
     (complex64 [P, nsym, nsc]) and the per-hop weights of
-    :func:`f1_batch_weights` as tensors on the grid's device.
+    :func:`f1_batch_weights` as tensors on the grid's device.  K10 reads
+    a_dm on the DM-RS symbols only and ph on the data symbols only; the
+    twin sums a_dm over every symbol of the hop, so the two agree for
+    weights whose a_dm is zero on the data symbols, as
+    :func:`f1_batch_weights` makes them.
 
     B slots at once: grid [B, P, nsym, nsc] and each weight array shared or
     with a leading slot axis give every result a leading slot axis, in one
-    launch."""
+    launch.  On the card: K10 through the cached plan of the call's
+    signature (keyed on the occasion's geometry, not its slot)."""
     flat = [w for hop in weights for w in hop]
-    if not is_cuda(grid, *flat):
+    if not (grid.is_cuda and all([w.is_cuda for w in flat])):
+        is_cuda(grid, *flat)                                 # raises on a mix
         return f1_detect_ref(grid, common, weights, threshold)
-    if grid.dtype != torch.complex64 or grid.ndim not in (3, 4):
-        raise ValueError(f"grid must be complex64 [(B,) P, S, K], got "
-                         f"{grid.dtype} {tuple(grid.shape)}")
-    hops = _f1_hops(common)
-    if len(weights) != len(hops) or any(
-            w.dtype != torch.complex64 for w in flat):
-        raise ValueError("F1 weights must be complex64 (a_dm, ph, w_da) "
-                         f"for each of the {len(hops)} hops")
-    dev = grid.device
-    lead = tuple(grid.shape[:-3])
-    u_count = weights[0][0].shape[-3]
-    grid = grid.contiguous()
-    args, keep, stacked = [], [], 0
-    for i in range(2):                  # hop 1 repeats hop 0 without hopping
-        prb, s0, nsym = hops[min(i, len(hops) - 1)]
-        hop = [w.contiguous() for w in weights[min(i, len(hops) - 1)]]
-        keep += hop
-        want = ((u_count, nsym, 12), (u_count, nsym, 12), (u_count, nsym))
-        for j, (w, shape) in enumerate(zip(hop, want)):
-            if (w.shape[w.ndim - len(shape):] != shape
-                    or w.shape[:w.ndim - len(shape)] not in ((), lead)):
-                raise ValueError(f"hop {i}: weight {j} {tuple(w.shape)} does "
-                                 f"not fit {u_count} users, {nsym} symbols")
-            stacked |= int(w.ndim > len(shape)) << (3 * i + j)
-        args += [prb, common.start_symbol + s0, nsym, s0,
-                 *(_build.ptr(w) for w in hop)]
-    detected = torch.empty(lead + (u_count,), dtype=torch.bool, device=dev)
-    metric = torch.empty(lead + (u_count,), dtype=torch.float32, device=dev)
-    bits = torch.empty(lead + (u_count, 2), dtype=torch.int8, device=dev)
-    d_hat = torch.empty(lead + (u_count,), dtype=torch.complex64, device=dev)
-    lib = _build.load()
-    _build.check(lib.srsran_pucch_f1(
-        _build.ptr(grid), grid.shape[-3], grid.shape[-2], grid.shape[-1],
-        u_count, len(hops), *args, stacked, float(threshold),
-        _build.ptr(detected), _build.ptr(metric), _build.ptr(bits),
-        _build.ptr(d_hat), lead[0] if lead else 1, _build.stream_of(grid)),
-        "pucch_f1")
-    (KERNEL_BATCH if lead else KERNEL).count()
+    launch, shape = _f1_plan(
+        (grid.shape, *[w.shape for w in flat]),
+        (grid.dtype, *[w.dtype for w in flat]),
+        _f1_hop_fields(common.prb, common.start_symbol, common.nof_symbols,
+                       common.second_hop_prb),
+        float(threshold), grid.get_device())
+    # the kernel's inputs held in locals until it is enqueued; hop 1's
+    # pointers repeat hop 0's without hopping
+    g = grid if grid.is_contiguous() else grid.contiguous()
+    ws = [w if w.is_contiguous() else w.contiguous() for w in flat]
+    ptrs = [w.data_ptr() for w in ws]
+    if len(ptrs) == 3:
+        ptrs += ptrs
+    detected = g.new_empty(shape, dtype=torch.bool)
+    metric = g.new_empty(shape, dtype=torch.float32)
+    bits = g.new_empty(shape + (2,), dtype=torch.int8)
+    d_hat = g.new_empty(shape)
+    launch(g.data_ptr(), *ptrs, detected.data_ptr(), metric.data_ptr(),
+           bits.data_ptr(), d_hat.data_ptr())
+    (KERNEL_BATCH if len(shape) == 2 else KERNEL).count()
     return detected, metric, bits, d_hat
 
 
@@ -696,6 +768,60 @@ def f2_demap_ref(grid: torch.Tensor, coeffs: torch.Tensor,
     return descramble_llrs(llr[None], _f2_c_init(cfg))[0]
 
 
+def _f2_params(shapes: tuple, dtypes: tuple,
+               pdu: tuple) -> _build.F2DemapParams:
+    """K13's parameters for one call signature: the shapes and dtypes of
+    (grid, coeffs, noise_var) and what the kernel reads of the PDU, ``pdu``
+    = (c_init, rb_start, nof_rb, start_symbol, nof_symbols) (not its slot:
+    the data scrambling does not depend on it); raises on what the kernel
+    does not take."""
+    c_init, rb_start, nof_rb, start_symbol, nof_symbols = pdu
+    grid_s, coeffs_s, noise_s = shapes
+    p, nsc = grid_s[-3], 12 * nof_rb
+    if dtypes[0] != torch.complex64 or len(grid_s) not in (3, 4):
+        raise ValueError(f"grid must be complex64 [(B,) P, S, K], got "
+                         f"{dtypes[0]} {tuple(grid_s)}")
+    lead = tuple(grid_s[:-3])
+    if dtypes[1] != torch.complex64 or tuple(coeffs_s) != lead + (p, 1, 1,
+                                                                  nsc):
+        raise ValueError(f"coeffs must be complex64 {lead + (p, 1, 1, nsc)}, "
+                         f"got {dtypes[1]} {tuple(coeffs_s)}")
+    if dtypes[2] != torch.float32 or tuple(noise_s) != lead + (p,):
+        raise ValueError(f"noise_var must be float32 {lead + (p,)}")
+    if not 0 < p <= _build.F2_MAX_PORTS:
+        raise ValueError(f"{p} rx ports: K13 takes 1 to "
+                         f"{_build.F2_MAX_PORTS} ports")
+    n_bits = 16 * nof_rb * nof_symbols
+    max_bits = 32 * (_build.F2_GOLD_WORDS - 1)
+    if not 0 < n_bits <= max_bits or nof_symbols not in (1, 2):
+        raise ValueError(f"an F2 PDU of {nof_rb} RB x {nof_symbols} "
+                         f"symbols has {n_bits} bits: K13 takes 1 or 2 "
+                         f"symbols and at most {max_bits} bits")
+    if (start_symbol + nof_symbols > grid_s[-2]
+            or 12 * (rb_start + nof_rb) > grid_s[-1]):
+        raise ValueError(f"the PDU lies outside the grid {tuple(grid_s)}")
+    if math.prod(grid_s) >= 1 << 31:
+        raise ValueError("K13 takes at most 2^31 elements a grid (32-bit "
+                         "offsets)")
+    out = _build.F2DemapParams(
+        slots=lead[0] if lead else 1, P=p, S=grid_s[-2], K=grid_s[-1],
+        nd=8 * nof_rb, nsym=nof_symbols, l0=start_symbol, sc0=12 * rb_start,
+        nsc=nsc, threads=-(-n_bits // 2 // 32) * 32,
+        level=float(pam_levels_scaled("qpsk")[0]))
+    words = gold_words(c_init, n_bits)
+    out.gold[:len(words)] = words.view(np.uint32).tolist()
+    return out
+
+
+@functools.lru_cache(maxsize=1024)
+def _f2_plan(shapes: tuple, dtypes: tuple, pdu: tuple, index: int) -> tuple:
+    """K13's launch for one call signature on CUDA device ``index`` and
+    its output's shape."""
+    p = _f2_params(shapes, dtypes, pdu)
+    return (_build.Launch("srsran_pucch_f2_demap", index, p),
+            tuple(shapes[0][:-3]) + (2 * p.nsym * p.nd,))
+
+
 def f2_demap(grid: torch.Tensor, coeffs: torch.Tensor,
              noise_var: torch.Tensor, cfg: PucchF2Config) -> torch.Tensor:
     """Descrambled QPSK LLRs f32 [16 * nof_rb * nof_symbols] of one F2
@@ -704,38 +830,24 @@ def f2_demap(grid: torch.Tensor, coeffs: torch.Tensor,
     the post-combining noise (mean of ``noise_var`` [P] over the combined
     energy), max-log QPSK and the Gold descramble.  B slots at once: grid
     [B, P, nsym, nsc], coeffs [B, P, 1, 1, 12 * nof_rb] and noise_var
-    [B, P] give LLRs [B, ...], in one launch."""
-    if not is_cuda(grid, coeffs, noise_var):
+    [B, P] give LLRs [B, ...], in one launch.  On the card: K13 through the
+    cached plan of the call's signature (keyed on the PDU's c_init and
+    allocation, not its slot)."""
+    if not (grid.is_cuda and coeffs.is_cuda and noise_var.is_cuda):
+        is_cuda(grid, coeffs, noise_var)                     # raises on a mix
         return f2_demap_ref(grid, coeffs, noise_var, cfg)
-    p, nsc = grid.shape[-3], 12 * cfg.nof_rb
-    if grid.dtype != torch.complex64 or grid.ndim not in (3, 4):
-        raise ValueError(f"grid must be complex64 [(B,) P, S, K], got "
-                         f"{grid.dtype} {tuple(grid.shape)}")
-    lead = tuple(grid.shape[:-3])
-    if (coeffs.dtype != torch.complex64
-            or coeffs.shape != lead + (p, 1, 1, nsc)):
-        raise ValueError(f"coeffs must be complex64 {lead + (p, 1, 1, nsc)}, "
-                         f"got {coeffs.dtype} {tuple(coeffs.shape)}")
-    if noise_var.dtype != torch.float32 or noise_var.shape != lead + (p,):
-        raise ValueError(f"noise_var must be float32 {lead + (p,)}")
-    dev = grid.device
-    n = 16 * cfg.nof_rb * cfg.nof_symbols
-    data_sc = const(_f2_data_sc, cfg.rb_start, cfg.nof_rb, 0, device=dev,
-                    dtype=torch.int32)
-    gold = gold_sequence(_f2_c_init(cfg), n, device=dev)
-    grid = grid.contiguous()
-    coeffs = coeffs.contiguous()
-    noise_var = noise_var.contiguous()
-    llr = torch.empty(lead + (n,), dtype=torch.float32, device=dev)
-    lib = _build.load()
-    _build.check(lib.srsran_pucch_f2_demap(
-        _build.ptr(grid), p, grid.shape[-2], grid.shape[-1],
-        _build.ptr(coeffs), _build.ptr(noise_var), _build.ptr(data_sc),
-        8 * cfg.nof_rb, cfg.rb_start * 12, cfg.start_symbol, cfg.nof_symbols,
-        float(pam_levels_scaled("qpsk")[0]), _build.ptr(gold),
-        _build.ptr(llr), lead[0] if lead else 1, _build.stream_of(grid)),
-        "pucch_f2_demap")
-    (KERNEL_F2_BATCH if lead else KERNEL_F2).count()
+    launch, shape = _f2_plan(
+        (grid.shape, coeffs.shape, noise_var.shape),
+        (grid.dtype, coeffs.dtype, noise_var.dtype),
+        (_f2_c_init(cfg), cfg.rb_start, cfg.nof_rb, cfg.start_symbol,
+         cfg.nof_symbols), grid.get_device())
+    # the kernel's inputs held in locals until it is enqueued
+    g = grid if grid.is_contiguous() else grid.contiguous()
+    h = coeffs if coeffs.is_contiguous() else coeffs.contiguous()
+    nv = noise_var if noise_var.is_contiguous() else noise_var.contiguous()
+    llr = nv.new_empty(shape)
+    launch(g.data_ptr(), h.data_ptr(), nv.data_ptr(), llr.data_ptr())
+    (KERNEL_F2_BATCH if len(shape) == 2 else KERNEL_F2).count()
     return llr
 
 

@@ -58,6 +58,9 @@ comb -- with K33-K36's and the type 0 K8's cases) and reports:
   span, and the busy time by category (hand kernels, FFT, GEMM, copies by
   direction, elementwise and reductions);
 * the device activities with the most device time, by name;
+* the plain glue: the device activities that are no hand kernel (PyTorch's
+  own kernels, copies, memsets), grouped by name: device µs and count per
+  slot and share of the glue's device time, the most first;
 * for the same trace, the sum of ``self_device_time_total`` over the rows
   of ``key_averages()``: a second reading that counts some device time more
   than once, kept to show how far it lies from the trace;
@@ -198,6 +201,29 @@ def top_activities(events: list, n: int, k: int = 12) -> dict:
     return dict(total.most_common(k))
 
 
+def glue_by_name(events: list, n: int, rows: int = 40) -> dict:
+    """The device activities of ``n`` slots that are no hand kernel,
+    grouped by name (cut to 90 characters): their device µs and count per
+    slot, and each group's µs per slot, count per slot and share of the
+    glue's device time, the most first, past ``rows`` groups summed as
+    one."""
+    glue = [e for e in events if category(e[0], e[1]) not in HAND_KERNELS]
+    total = sum(e[3] for e in glue)
+    groups = collections.defaultdict(lambda: [0.0, 0])
+    for name, _, _, dur in glue:
+        groups[name[:90]][0] += dur
+        groups[name[:90]][1] += 1
+    ranked = sorted(groups.items(), key=lambda kv: -kv[1][0])
+    if len(ranked) > rows:
+        rest = ranked[rows:]
+        ranked = ranked[:rows] + [(f"({len(rest)} other names)", [
+            sum(v[0] for _, v in rest), sum(v[1] for _, v in rest)])]
+    return {"us_per_slot": total / n, "activities_per_slot": len(glue) / n,
+            "by_name": {name: {"us_per_slot": us / n, "count_per_slot": c / n,
+                               "share": us / total if total else 0.0}
+                        for name, (us, c) in ranked}}
+
+
 def slot_profile(calls: list, path: Path) -> dict:
     """Trace one run of each of ``calls`` (one slot each)."""
     n = len(calls)
@@ -224,6 +250,7 @@ def slot_profile(calls: list, path: Path) -> dict:
         "device_idle_share_of_span": 1.0 - busy / span,
         "key_averages_self_device_us_per_slot": self_device_us(prof) / n,
         "breakdown": breakdown,
+        "glue": glue_by_name(events, n),
     }
 
 

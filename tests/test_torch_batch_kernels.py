@@ -381,34 +381,53 @@ def test_prach_detect_batched_in_a_cuda_graph(cuda):
     assert not bool(out.detected[1].any())
 
 
-def _f1_slot(common, users, rng):
-    grid = torch.zeros(UL_GRID, dtype=torch.complex64)
+def _f1_slot(common, users, rng, ports=4):
+    grid = torch.zeros((ports,) + UL_GRID[1:], dtype=torch.complex64)
     for m0, occ, nbits in users:
         cfg = dataclasses.replace(common, initial_cyclic_shift=m0,
                                   time_domain_occ=occ, nof_harq_bits=nbits)
         one = pucch.transmit_format1(torch.zeros_like(grid), cfg,
                                      rng.integers(0, 2, nbits))[0]
-        grid += _cgauss(rng, (4,))[:, None, None] * one
+        grid += _cgauss(rng, (ports,))[:, None, None] * one
     return grid + 0.05 * _cgauss(rng, grid.shape)
 
 
-@pytest.mark.parametrize("b", [1, 4])
-@pytest.mark.parametrize("hop", [None, 9])
-def test_pucch_f1_batched(cuda, b, hop):
-    """K10 over B slots of three users, each slot its own slot number (the
-    cyclic shifts and so a_dm and ph per slot; w_da shared)."""
-    users = tuple((4 * u, u % 2, 1 + u % 2) for u in range(3))
-    rng = np.random.default_rng(70 + b)
-    commons = [pucch.PucchF1Config(prb=0, start_symbol=0, nof_symbols=14,
-                                   initial_cyclic_shift=0, time_domain_occ=0,
-                                   n_id=1, slot=2 * s, second_hop_prb=hop)
+def _f1_batch(b, hop, n_users, ports, nsym, cuda, seed):
+    """(grid [b, P, 14, K], commons, per-slot host weights, weights with
+    a_dm and ph stacked per slot and w_da shared) of B slots of one
+    occasion ending at symbol 13, each slot its own slot number."""
+    users = (tuple((4 * u, u % 2, 1 + u % 2) for u in range(n_users))
+             if n_users <= 3 else
+             tuple((u % 12, u // 12 % (3 if hop else 7), 1 + u % 2)
+                   for u in range(n_users)))
+    rng = np.random.default_rng(seed)
+    commons = [pucch.PucchF1Config(prb=0, start_symbol=14 - nsym,
+                                   nof_symbols=nsym, initial_cyclic_shift=0,
+                                   time_domain_occ=0, n_id=1, slot=2 * s,
+                                   second_hop_prb=hop)
                for s in range(b)]
-    grid = torch.stack([_f1_slot(c, users, rng) for c in commons]).to(cuda)
+    grid = torch.stack([_f1_slot(c, users, rng, ports)
+                        for c in commons]).to(cuda)
     per = [pucch.f1_batch_weights(c, users) for c in commons]
     weights = tuple(
         tuple(torch.as_tensor(np.stack([p[h][j] for p in per])).to(cuda)
               if j < 2 else torch.as_tensor(per[0][h][j]).to(cuda)
               for j in range(3)) for h in range(len(per[0])))
+    return grid, commons, per, weights
+
+
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("hop,n_users,ports,nsym", [
+    (None, 3, 4, 14), (9, 3, 4, 14), (9, 12, 4, 14), (None, 64, 4, 14),
+    (9, 5, 8, 13)])
+def test_pucch_f1_batched(cuda, b, hop, n_users, ports, nsym):
+    """K10 over B slots (3, 12 or 64 users, 4 or 8 ports, one hop or two
+    of 6 and 7 symbols), each slot its own slot number (the cyclic shifts
+    and so a_dm and ph per slot; w_da shared).  The three-user points
+    keep their seed 70 + b; the others add their user count."""
+    grid, commons, per, weights = _f1_batch(
+        b, hop, n_users, ports, nsym, cuda,
+        70 + b + (n_users if n_users != 3 else 0))
     out = _counted(lambda: pucch.f1_detect(grid, commons[0], weights, 1.5),
                    "pucch_f1_detect")
     ref = pucch.f1_detect_ref(grid, commons[0], weights, 1.5)
@@ -420,6 +439,44 @@ def test_pucch_f1_batched(cuda, b, hop):
             tuple(torch.as_tensor(w).to(cuda) for w in h) for h in per[s]),
             1.5)
         _same(_slot(out, s), one)
+
+
+def test_pucch_batched_in_a_cuda_graph(cuda):
+    """K10 (3 users, a hop) and K13 (2 RB) over 4 slots, both captured in
+    one CUDA graph and replayed on new grids, channels and noise: the
+    twins' results on them."""
+    grid, commons, _, weights = _f1_batch(4, 9, 3, 4, 14, cuda, 75)
+    rng = np.random.default_rng(76)
+    cfg = pucch.PucchF2Config(rb_start=270, nof_rb=2, start_symbol=11,
+                              nof_symbols=2, rnti=0x19, n_id=1, n_id0=1,
+                              nof_uci_bits=22)
+
+    def f2_inputs():
+        return (_cgauss(rng, (4,) + UL_GRID).to(cuda),
+                (1 + 0.25 * _cgauss(rng, (4, 4, 1, 1, 24))).to(cuda),
+                torch.full((4, 4), 0.05, device=cuda))
+
+    f2 = f2_inputs()
+
+    def run():
+        return (pucch.f1_detect(grid, commons[0], weights, 1.5),
+                pucch.f2_demap(*f2, cfg))
+
+    run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        f1_out, llr = run()
+    grid.copy_(_f1_batch(4, 9, 3, 4, 14, cuda, 77)[0])
+    for static, new in zip(f2, f2_inputs()):
+        static.copy_(new)
+    graph.replay()
+    torch.cuda.synchronize()
+    ref = pucch.f1_detect_ref(grid, commons[0], weights, 1.5)
+    assert torch.equal(f1_out[0], ref[0]) and torch.equal(f1_out[2], ref[2])
+    _close(f1_out[1], ref[1], 1e-4)
+    _close(f1_out[3], ref[3], 1e-4)
+    _close(llr, pucch.f2_demap_ref(*f2, cfg), 1e-4)
 
 
 @pytest.mark.parametrize("b", [1, 4])
@@ -478,20 +535,25 @@ def test_pucch_f0_batched(cuda, b):
 
 
 @pytest.mark.parametrize("b", [1, 4])
-@pytest.mark.parametrize("nof_rb,k", [(1, 6), (2, 22)])
-def test_pucch_f2_batched(cuda, b, nof_rb, k):
-    """K8 (comb 3), K13, then K14 or K15 on B slots, each its own pilots:
-    process_format2 with the slot axis launches each once."""
-    rng = np.random.default_rng(100 + b + nof_rb)
+@pytest.mark.parametrize("nof_rb,k,ports", [(1, 6, 4), (2, 22, 4),
+                                           (16, 22, 4), (2, 22, 8)])
+def test_pucch_f2_batched(cuda, b, nof_rb, k, ports):
+    """K8 (comb 3), K13, then K14 or K15 on B slots (1 to 16 RB, 4 or 8
+    ports), each its own pilots: process_format2 with the slot axis
+    launches each once.  The 4-port points keep their seed 100 + b +
+    nof_rb; the 8-port point adds its port count."""
+    rng = np.random.default_rng(100 + b + nof_rb + (ports if ports != 4
+                                                     else 0))
     cfgs = [pucch.PucchF2Config(rb_start=272 - nof_rb, nof_rb=nof_rb,
                                 start_symbol=11, nof_symbols=2, rnti=0x19,
                                 n_id=1, n_id0=1, nof_uci_bits=k, slot=2 * s)
             for s in range(b)]
     sent = [rng.integers(0, 2, k) for _ in range(b)]
     grid = torch.stack([
-        _cgauss(rng, (4,))[:, None, None] * pucch.transmit_format2(
+        _cgauss(rng, (ports,))[:, None, None] * pucch.transmit_format2(
             torch.zeros((1,) + UL_GRID[1:], dtype=torch.complex64), c, m)[0]
-        + 0.05 * _cgauss(rng, UL_GRID) for c, m in zip(cfgs, sent)]).to(cuda)
+        + 0.05 * _cgauss(rng, (ports,) + UL_GRID[1:])
+        for c, m in zip(cfgs, sent)]).to(cuda)
     pil = torch.as_tensor(np.stack([pucch.f2_pilot_values_for(c)
                                     for c in cfgs])).to(cuda)
     args, kw = pucch.f2_estimate_args(grid, cfgs[0], pil)

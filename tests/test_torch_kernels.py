@@ -701,28 +701,105 @@ def test_prach_detect_kernel_in_a_cuda_graph(cuda):
     _k9_hold(out, prach.detect_ref(static, cfg), flagship.PRACH_PREAMBLE)
 
 
-@pytest.mark.parametrize("n_users,hop", [(1, None), (3, 9)])
-def test_pucch_f1_kernel(cuda, n_users, hop):
-    common = pucch.PucchF1Config(prb=0, start_symbol=0, nof_symbols=14,
-                                 initial_cyclic_shift=0, time_domain_occ=0,
-                                 n_id=1, slot=4, second_hop_prb=hop)
-    users = tuple((4 * u, u % 2, 1 + u % 2) for u in range(n_users))
-    grid = torch.zeros((4, 14, 3276), dtype=torch.complex64)
-    rng = np.random.default_rng(n_users)
+def _f1_users(n_users):
+    """The occasion's users: up to 12 on distinct cyclic shifts (the first
+    three (0, 0, 1), (4, 1, 2), (8, 0, 1)), more over 7 OCCs."""
+    if n_users <= 12:
+        return flagship._f1_case_users(n_users)
+    return tuple((u % 12, u // 12, 1 + u % 2) for u in range(n_users))
+
+
+def _f1_case(n_users, hop, ports=4, nsym=14, seed=None):
+    """(grid on the CPU, common, weights on the CPU) of one F1 occasion at
+    PRB 0 ending at symbol 13: every user's random bits through a random
+    gain a port, noise of variance 0.0025."""
+    common = pucch.PucchF1Config(prb=0, start_symbol=14 - nsym,
+                                 nof_symbols=nsym, initial_cyclic_shift=0,
+                                 time_domain_occ=0, n_id=1, slot=4,
+                                 second_hop_prb=hop)
+    users = _f1_users(n_users)
+    grid = torch.zeros((ports, 14, 3276), dtype=torch.complex64)
+    rng = np.random.default_rng(n_users if seed is None else seed)
     for m0, occ, nbits in users:
         cfg = dataclasses.replace(common, initial_cyclic_shift=m0,
                                   time_domain_occ=occ, nof_harq_bits=nbits)
         one = pucch.transmit_format1(torch.zeros_like(grid), cfg,
                                      rng.integers(0, 2, nbits))[0]
-        grid += _cgauss(rng, (4,))[:, None, None] * one
-    grid = (grid + 0.05 * _cgauss(rng, grid.shape)).to(cuda)
-    weights = tuple(tuple(torch.as_tensor(w).to(cuda) for w in h)
+        grid += _cgauss(rng, (ports,))[:, None, None] * one
+    grid = grid + 0.05 * _cgauss(rng, grid.shape)
+    weights = tuple(tuple(torch.as_tensor(w) for w in h)
                     for h in pucch.f1_batch_weights(common, users))
-    out = pucch.f1_detect(grid, common, weights, 1.5)
-    ref = pucch.f1_detect_ref(grid, common, weights, 1.5)
+    return grid, common, weights
+
+
+def _f1_hold(out, ref):
     assert torch.equal(out[0], ref[0]) and torch.equal(out[2], ref[2])
     _close(out[1], ref[1], 1e-4)
     _close(out[3], ref[3], 1e-4)
+
+
+@pytest.mark.parametrize("n_users,hop,ports,nsym", [
+    (1, None, 4, 14), (3, 9, 4, 14), (12, 9, 4, 14), (64, None, 4, 14),
+    (2, None, 8, 14), (5, 9, 8, 13), (4, 20, 4, 11)])
+def test_pucch_f1_kernel(cuda, n_users, hop, ports, nsym):
+    """K10 at 1 to 64 users, 4 and 8 ports, one hop or two (of 6 and 7
+    symbols at 13, 5 and 6 at 11): decisions and bits equal to its
+    twin's, metric and symbol within 1e-4; one launch a call."""
+    grid, common, weights = _f1_case(n_users, hop, ports, nsym)
+    grid = grid.to(cuda)
+    weights = tuple(tuple(w.to(cuda) for w in h) for h in weights)
+    kernels.reset_counts()
+    out = pucch.f1_detect(grid, common, weights, 1.5)
+    assert kernels.REGISTRY["pucch_f1_detect"].launches == 1
+    ref = pucch.f1_detect_ref(grid, common, weights, 1.5)
+    _f1_hold(out, ref)
+    assert bool(out[0].all())
+    _same_bits(out, pucch.f1_detect(grid, common, weights, 1.5))
+
+
+def _same_bits(a, b):
+    """Two calls' outputs bit-equal (the kernel sums in a fixed order)."""
+    for x, y in zip(a, b):
+        x = torch.view_as_real(x) if x.is_complex() else x
+        y = torch.view_as_real(y) if y.is_complex() else y
+        assert torch.equal(x, y)
+
+
+def test_pucch_f1_kernel_in_a_cuda_graph(cuda):
+    """K10's one launch captured in a CUDA graph (3 users, a hop) and
+    replayed on a new grid: the twin's result on that grid."""
+    grid, common, weights = _f1_case(3, 9)
+    static = grid.to(cuda)
+    weights = tuple(tuple(w.to(cuda) for w in h) for h in weights)
+    pucch.f1_detect(static, common, weights, 1.5)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pucch.f1_detect(static, common, weights, 1.5)
+    static.copy_(_f1_case(3, 9, seed=77)[0].to(cuda))
+    graph.replay()
+    torch.cuda.synchronize()
+    _f1_hold(out, pucch.f1_detect_ref(static, common, weights, 1.5))
+
+
+def test_pucch_kernels_refuse_past_their_limits(cuda):
+    """On the card a shape past K10's or K13's limits raises a ValueError
+    naming the limit (no fallback to the twin): 9 ports, 65 users, an F2
+    PDU of 17 RB x 2 symbols (544 bits)."""
+    grid, common, weights = _f1_case(1, None)
+    weights = tuple(tuple(w.to(cuda) for w in h) for h in weights)
+    with pytest.raises(ValueError, match="1 to 8 ports"):
+        pucch.f1_detect(torch.zeros((9, 14, 3276), dtype=torch.complex64,
+                                    device=cuda), common, weights, 1.5)
+    many = tuple(tuple(w.expand((65,) + w.shape[1:]).contiguous()
+                       for w in h) for h in weights)
+    with pytest.raises(ValueError, match="1 to 64 users"):
+        pucch.f1_detect(grid.to(cuda), common, many, 1.5)
+    cfg = _f2_cfg(17, 2)
+    with pytest.raises(ValueError, match="at most 512 bits"):
+        pucch.f2_demap(grid.to(cuda), torch.zeros(
+            (4, 1, 1, 204), dtype=torch.complex64, device=cuda),
+            torch.ones(4, device=cuda), cfg)
 
 
 @pytest.mark.parametrize("ports,comb", [(1, 2), (4, 4)])
@@ -785,12 +862,12 @@ def _f2_cfg(nof_rb, nsym):
                                n_id=1, n_id0=1, nof_uci_bits=k, slot=2)
 
 
-def _f2_grid(cfg, rng):
+def _f2_grid(cfg, rng, ports=4):
     sent = pucch.transmit_format2(
         torch.zeros((1, 14, 3276), dtype=torch.complex64), cfg,
         rng.integers(0, 2, cfg.nof_uci_bits))[0]
-    return (_cgauss(rng, (4,))[:, None, None] * sent
-            + 0.05 * _cgauss(rng, (4, 14, 3276)))
+    return (_cgauss(rng, (ports,))[:, None, None] * sent
+            + 0.05 * _cgauss(rng, (ports, 14, 3276)))
 
 
 @pytest.mark.parametrize("nof_rb,nsym", [(1, 2), (2, 2), (2, 1), (16, 2)])
@@ -808,16 +885,44 @@ def test_channel_estimate_kernel_f2_comb3(cuda, nof_rb, nsym):
         _close(getattr(out, key), getattr(ref, key), 1e-4)
 
 
-@pytest.mark.parametrize("nof_rb,nsym", [(1, 2), (2, 2), (4, 1), (16, 2)])
-def test_pucch_f2_demap_kernel(cuda, nof_rb, nsym):
+def _f2_case(nof_rb, nsym, ports, rng, cuda):
     cfg = _f2_cfg(nof_rb, nsym)
-    rng = np.random.default_rng(10 + nof_rb)
-    grid = _f2_grid(cfg, rng).to(cuda)
+    grid = _f2_grid(cfg, rng, ports).to(cuda)
     pil = torch.as_tensor(pucch.f2_pilot_values_for(cfg)).to(cuda)
     args, kw = pucch.f2_estimate_args(grid, cfg, pil)
     est = chest.estimate_from_grid_ref(*args, **kw)
-    _close(pucch.f2_demap(grid, est.coeffs, est.noise_var, cfg),
-           pucch.f2_demap_ref(grid, est.coeffs, est.noise_var, cfg), 1e-4)
+    return grid, est.coeffs.contiguous(), est.noise_var, cfg
+
+
+@pytest.mark.parametrize("nof_rb,nsym,ports", [
+    (1, 2, 4), (2, 2, 4), (4, 1, 4), (16, 2, 4), (2, 2, 8), (16, 1, 8)])
+def test_pucch_f2_demap_kernel(cuda, nof_rb, nsym, ports):
+    """K13 at 1 to 16 RB, 1 and 2 symbols, 4 and 8 ports: the LLRs within
+    1e-4 of its twin's; one launch a call."""
+    case = _f2_case(nof_rb, nsym, ports, np.random.default_rng(10 + nof_rb),
+                    cuda)
+    kernels.reset_counts()
+    out = pucch.f2_demap(*case)
+    assert kernels.REGISTRY["pucch_f2_demap"].launches == 1
+    _close(out, pucch.f2_demap_ref(*case), 1e-4)
+
+
+def test_pucch_f2_demap_kernel_in_a_cuda_graph(cuda):
+    """K13's one launch captured in a CUDA graph (16 RB) and replayed on a
+    new grid, channel and noise: the twin's LLRs on them."""
+    rng = np.random.default_rng(12)
+    grid, coeffs, noise, cfg = _f2_case(16, 2, 4, rng, cuda)
+    pucch.f2_demap(grid, coeffs, noise, cfg)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pucch.f2_demap(grid, coeffs, noise, cfg)
+    for static, new in zip((grid, coeffs, noise),
+                           _f2_case(16, 2, 4, rng, cuda)):
+        static.copy_(new)
+    graph.replay()
+    torch.cuda.synchronize()
+    _close(out, pucch.f2_demap_ref(grid, coeffs, noise, cfg), 1e-4)
 
 
 @pytest.mark.parametrize("k,qm,e", [(1, 2, 32), (2, 2, 32), (2, 1, 20),
