@@ -18,10 +18,14 @@ the JAX package.  It builds the hand kernels from ``srsran_tpu_torch/csrc``
    encode, K6 PDSCH map (also on a small allocation with repetition at rv
    2), K7 OFDM modulation passes; the UCI kernels (phase 4's first step)
    K12 PUCCH F0 detect (decisions on the 30 dB slot; the metric too with
-   noise added to 10 dB), K13 PUCCH F2 demap (2 RB, 1 RB, 16 RB and over a
-   batch of 4; K3, K4, K6, K7, K10 and K13 one launch a call), K14
-   short-block ML (K = 6, E = 32, and K = 11, E = 512), K15 polar decode
-   (K' = 33, E = 64, and N = 1024), plus K8 at the F2's comb-3 shape.
+   noise added to 10 dB, and over a batch of 4 with per-slot references at
+   10 dB), K13 PUCCH F2 demap (2 RB, 1 RB, 16 RB and over a batch of 4;
+   K3, K4, K6, K7, K10, K12, K13 and K14 one launch a call), K14
+   short-block ML (K = 6, E = 32, K = 11, E = 512, and over a slot axis
+   of 4), each of K12 and K14 beside its correlation stage as one PyTorch
+   call (``torch.einsum`` / ``torch.matmul``, the library time), K15 polar
+   decode (K' = 33, E = 64, and N = 1024), plus K8 at the F2's comb-3
+   shape.
    Beside each it computes the kernel's
    bound: the larger of its bytes (inputs read once, outputs written once)
    over 3.35 TB/s and its operations over 67 TFLOP/s (H100 SXM, float32
@@ -391,6 +395,9 @@ CASE_KERNEL = {**{f"ofdm_{k}{case}": f"ofdm_{k}"
                "dlsch_encode_batch4": "dlsch_encode",
                "dlsch_encode_bg2": "dlsch_encode",
                "pucch_f0_detect_10db": "pucch_f0_detect",
+               "pucch_f0_detect_batch4": "pucch_f0_detect",
+               "pucch_f0_detect_p1": "pucch_f0_detect",
+               "short_block_detect_batch4": "short_block_detect",
                "channel_estimate_f2": "channel_estimate",
                "pucch_f2_demap_1rb": "pucch_f2_demap",
                **{f"pucch_f1_detect{case}": "pucch_f1_detect"
@@ -828,7 +835,7 @@ def work(name: str, args: tuple, out) -> tuple:
     name = CASE_KERNEL.get(name, name)
     if name == "pucch_f0_detect":                  # K12: 8 per complex MAC
         grid, cfg, refs = args[:3]
-        res = grid.shape[0] * cfg.nof_symbols * 12
+        res = math.prod(grid.shape[:-2]) * cfg.nof_symbols * 12
         return (res * c64 + nbytes(refs) + nbytes(out),
                 8.0 * refs.shape[0] * res + 4.0 * res)
     if name == "pucch_f2_demap":                   # K13: ~11 per port, RE
@@ -842,9 +849,17 @@ def work(name: str, args: tuple, out) -> tuple:
         p = grid.shape[-3]
         return (nb * p * (n_re + 8 * cfg.nof_rb) * c64 + nbytes(noise)
                 + nbytes(out), nb * n_re * (11.0 * p + 20))
-    if name == "short_block_detect":               # K14: 2 * 2^K * E
-        llr, k = args[0], args[1]
-        return nbytes(llr) + nbytes(out), 2.0 * (1 << k) * llr.numel()
+    if name == "short_block_detect":               # K14: see below
+        # per codeword: E adds to fold the LLRs over the code's period Q
+        # (the code is periodic), 2 E for the norm, the 2^K correlations of
+        # the Q folded sums at the cheaper of Q adds each and a K-stage
+        # Walsh-Hadamard transform (K adds each), 2^K compares for the argmax
+        llr, k, qm = args
+        e = llr.shape[-1]
+        q = short_block._fold_period(short_block._period(k, qm))
+        words = llr.numel() // e
+        return (nbytes(llr) + nbytes(out),
+                words * (3.0 * e + (min(q, k) + 1) * (1 << k)))
     if name == "polar_decode":                     # K15: ~3 N log2 N
         llr, code = args[0], args[1]
         return (nbytes(llr) + nbytes(out) + 4 * code.big_n,
@@ -1275,9 +1290,9 @@ def ofdm_library(cases: dict) -> dict:
 
 
 def launch_row(name: str, args: tuple) -> str | None:
-    """The launch count one call of a K3, K4, K6 (K22), K7, K10 or K13
-    case adds to: its kernel's row, its ``_batch`` row with a slot axis,
-    K22's row with a PRG table; None for the other kernels."""
+    """The launch count one call of a K3, K4, K6 (K22), K7, K10, K12, K13
+    or K14 case adds to: its kernel's row, its ``_batch`` row with a slot
+    axis, K22's row with a PRG table; None for the other kernels."""
     kind = CASE_KERNEL.get(name, name)
     if kind in ("ofdm_demodulate", "ofdm_modulate"):
         rank = 2 if kind == "ofdm_demodulate" else 3
@@ -1285,15 +1300,18 @@ def launch_row(name: str, args: tuple) -> str | None:
     if kind in ("pdsch_map", "pdsch_map_prg"):
         return ("pdsch_map_batch" if args[0].ndim == 4 else "pdsch_map_prg"
                 if len(args) > 14 and args[14] else "pdsch_map")
-    if kind in ("pusch_demap", "pucch_f1_detect", "pucch_f2_demap"):
+    if kind in ("pusch_demap", "pucch_f1_detect", "pucch_f2_demap",
+                "pucch_f0_detect"):
         return kind + ("_batch" if args[0].ndim == 4 else "")
+    if kind == "short_block_detect":
+        return kind + ("_batch" if args[0].ndim == 3 else "")
     return None
 
 
 def one_launch_a_call(cases: dict) -> None:
-    """K3, K4, K6 (K22), K7, K10 and K13 launch once a call: each of their
-    cases adds one to its kernel's count (:func:`launch_row`) and to no
-    other."""
+    """K3, K4, K6 (K22), K7, K10, K12, K13 and K14 launch once a call: each
+    of their cases adds one to its kernel's count (:func:`launch_row`) and
+    to no other."""
     rows = set()
     for name, (fn, _, args) in cases.items():
         row = launch_row(name, args)
@@ -1341,6 +1359,16 @@ def pucch_cases(prefix: str, dev) -> dict:
     gen.manual_seed(SEED + 26)
     return {k: v for k, v in flagship.pucch_profile_cases(gen, dev).items()
             if k.startswith(prefix)}
+
+
+def uci_cases(dev) -> dict:
+    """K12's and K14's cases of ``flagship.uci_profile_cases`` -- K12 over
+    a batch of 4 with per-slot references at 10 dB and on 1 port and 1
+    symbol, K14 over a slot axis of 4 -- from a generator of their own (the flagship entries are phase
+    4's own)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 27)
+    return flagship.uci_profile_cases(gen, dev)
 
 
 def ul_phases(dev, gen, rng, card) -> tuple:
@@ -1571,8 +1599,15 @@ def conductor_phases(dev, gen, rng, card) -> tuple:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     cases = flagship.conductor_kernel_cases(phases[0]["rx"], 0, gen)
     cases.update(pucch_cases("pucch_f2_demap_", dev))
+    cases.update(uci_cases(dev))
     one_launch_a_call(cases)
-    results = kernel_phases(cases)
+    # K12's and K14's library time: their correlation stage as one
+    # PyTorch call (launch_profile.uci_stage)
+    results = kernel_phases(cases, {
+        name: launch_profile.uci_stage(name, args)
+        for name, (_, _, args) in cases.items()
+        if CASE_KERNEL.get(name, name) in ("pucch_f0_detect",
+                                           "short_block_detect")})
 
     cond = SlotConductor(flagship.CELL)
     if cond.device.type != "cuda":

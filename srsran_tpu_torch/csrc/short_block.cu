@@ -6,17 +6,40 @@
 // Twin: srsran_tpu_torch/ops/short_block.py::detect_ref (the JAX package's
 // [B, E] x [E, 2^K] product against the host candidate bank).
 //
-// Design.  Every short-block code is affine over GF(2) and periodic in the
-// codeword index with a period P <= 64 (32 for Reed-Muller): candidate c's
-// bit at position j is parity(c & mask[j % P]) ^ ones[j % P].  So one block
-// per codeword first folds the LLRs into P per-position sums (each a
-// sequential sum in index order), then its threads span the candidates and
-// build each codeword's signs from the P masks: 2^K * P additions, no
-// [2^K, E] table in memory.  A block-wide argmax keeps the first maximum
-// (ties to the lower candidate index, as argmax does).  Bounds on this card:
-// operations, 2 * 2^K * E for the plain correlation (4 M at K = 11, E = 512);
-// the fold cuts them by E / P, so the kernel is launch-bound.
+// Bounds on this card: bytes (the E LLRs in; the fold, the norm and the
+// correlations of the folded sums as a Walsh-Hadamard transform take 3 E +
+// (K + 1) 2^K operations, 26 k at K = 11, E = 512), nanoseconds; at the
+// flagship's K = 6, E = 32 a launch and one warp's latency chain.  So the
+// design cuts the chain.
 //
+// Design.  Every short-block code is affine over GF(2) and periodic in the
+// codeword index: candidate c's bit at position j is parity(c & mask[j %
+// Q]) ^ ones[j % Q] for a fold period Q <= 32 that is a multiple of the
+// code's period (ops/short_block.py::_fold_period: 32 for Reed-Muller, 30,
+// 24 or 32 for K <= 2).  A warp a codeword, ShortBlockDetectParams::warps
+// codewords a CTA, no __syncthreads.  Lane r loads its word of a 128-byte
+// table (ops/short_block.py::_detect_table) beside its LLRs, folds the
+// LLRs at position r of the period (coalesced, in index order) and their
+// squares, signs the sum by position r's placeholder bit, and takes by
+// one shuffle the sum of its source position: for K >= 3 the position
+// whose Reed-Muller rows 1..5 spell the lane index (they are a permutation
+// of the 32 positions), so the part of every correlation that the
+// candidate bits of rows 1..5 decide is a Walsh-Hadamard transform over
+// the lanes; for K <= 2 its own.  A loop over the other candidate bits
+// (row 0 and rows 6..K-1; all K bits for K <= 2), nk = 2^(K - 5) times for
+// K >= 6 (2 at the flagship's K = 6), signs the lanes' sums by the loop
+// index's mask bits and runs one 5-step __shfl_xor_sync butterfly: lane u
+// then holds the correlation of candidate (loop index's bits, u's bits),
+// which it keeps if it is the lane's first maximum.  That is 5 nk
+// additions a lane where the plain sum takes Q 2^K / 32, and the code is a
+// short loop: a lone warp's time goes to fetching its instructions and
+// waiting on its loads, so every step is kept short.  A (value, index)
+// butterfly keeps the first maximum (ties to the lower candidate index, as
+// argmax does); lanes < K store the bits, lane 0 the metric, corr / (||llr||
+// sqrt(E) + 1e-9) with the norm's 5-step butterfly and the quotient by
+// __fdividef (within 2 ulp).  Sums run in butterfly order, not the twin's
+// product order: a few ulp.
+
 // K34, the encoder beside it: replaces srsran_tpu/ops/short_block.py::encode
 // (:32-66): RM(32, K) for K 3-11, the K = 1 and K = 2 patterns with their
 // Qm placeholders, and the cyclic repetition to E.  Twin: ops/short_block.py
@@ -44,78 +67,103 @@ struct ShortBlockEncodeParams {
   int warps;   // codewords (warps) a CTA
 };
 
+constexpr int kSbMaxPeriod = 32;     // K14: a code period the fold takes
+
+// K14's launch, by value (srsran_tpu_torch/kernels/_build.py
+// ShortBlockDetectParams): B codewords of E LLRs; the fold period Q <= 32;
+// the codewords (warps) a CTA; the loop's nk indices and the split (ks, kt)
+// that places loop index j in the candidate index, ((j >> ks) << kt) | (j
+// & (2^ks - 1)); sqrt(E) in float32.
+struct ShortBlockDetectParams {
+  int B, K, E, Q, warps, nk, ks, kt;
+  float sqrt_e;
+};
+
 namespace {
-
-constexpr int NT = 256;
-constexpr int MAX_P = 64;
-
-__global__ void short_block_kernel(const float* __restrict__ llr, int E, int K,
-                                   int P, const int* __restrict__ tables,
-                                   int8_t* __restrict__ bits,
-                                   float* __restrict__ metric) {
-  __shared__ float fold[MAX_P];
-  __shared__ int mask[MAX_P];
-  __shared__ int ones[MAX_P];
-  __shared__ float red[NT];
-  __shared__ int redi[NT];
-  const int t = threadIdx.x;
-  const float* x = llr + (size_t)blockIdx.x * E;
-  if (t < P) {
-    float acc = 0.f;
-    for (int j = t; j < E; j += P) acc += x[j];
-    fold[t] = acc;
-    mask[t] = tables[t];
-    ones[t] = tables[P + t];
-  }
-  // ||llr||^2 as a fixed-order tree sum
-  float sq = 0.f;
-  for (int j = t; j < E; j += NT) sq += x[j] * x[j];
-  red[t] = sq;
-  __syncthreads();
-  for (int s = NT / 2; s > 0; s >>= 1) {
-    if (t < s) red[t] += red[t + s];
-    __syncthreads();
-  }
-  const float norm2 = red[0];
-  __syncthreads();
-
-  float best = __int_as_float(0xff800000);  // -inf
-  int bi = 0x7fffffff;
-  const int nc = 1 << K;
-  for (int c = t; c < nc; c += NT) {
-    float corr = 0.f;
-    for (int r = 0; r < P; ++r) {
-      const int bit = (__popc(c & mask[r]) & 1) ^ ones[r];
-      corr += bit ? -fold[r] : fold[r];
-    }
-    if (corr > best) {  // c rises within a thread: the first maximum stays
-      best = corr;
-      bi = c;
-    }
-  }
-  red[t] = best;
-  redi[t] = bi;
-  __syncthreads();
-  for (int s = NT / 2; s > 0; s >>= 1) {
-    if (t < s) {
-      const float ov = red[t + s];
-      const int oi = redi[t + s];
-      if (ov > red[t] || (ov == red[t] && oi < redi[t])) {
-        red[t] = ov;
-        redi[t] = oi;
-      }
-    }
-    __syncthreads();
-  }
-  if (t < K) bits[(size_t)blockIdx.x * K + t] = (redi[0] >> (K - 1 - t)) & 1;
-  if (t == 0) {
-    const float norm = sqrtf(norm2) * sqrtf((float)E) + 1e-9f;
-    metric[blockIdx.x] = red[0] / norm;
-  }
-}
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxWarps = 8;
+constexpr int MAX_P = 64;             // K34's code period
+
+// Loop index j: its candidates' correlations over the lanes, by one
+// Walsh-Hadamard butterfly of the lanes' sums g signed by j's mask bits;
+// lane u then holds candidate ((j >> ks) << kt) | (j & (2^ks - 1)) | its
+// part, kept if it is the lane's first maximum (j rises within a lane).
+__device__ __forceinline__ void correlate(int j, float g, int kmask,
+                                          int part, bool cand, int lane,
+                                          const ShortBlockDetectParams& p,
+                                          float& best, int& bi) {
+  float v = __int_as_float(__float_as_int(g) ^
+                           ((__popc(j & kmask) & 1) << 31));
+#pragma unroll
+  for (int m = 1; m <= 16; m <<= 1) {
+    const float y = __shfl_xor_sync(kFull, v, m);
+    v = (lane & m) ? y - v : v + y;
+  }
+  if (cand && v > best) {
+    best = v;
+    bi = ((j >> p.ks) << p.kt) | (j & ((1 << p.ks) - 1)) | part;
+  }
+}
+
+__global__ void __launch_bounds__(32 * kMaxWarps)
+short_block_kernel(const float* __restrict__ llr, int8_t* __restrict__ bits,
+                   float* __restrict__ metric,
+                   const ShortBlockDetectParams p,
+                   const uint32_t* __restrict__ table) {
+  const int lane = threadIdx.x & 31;
+  const int cw = blockIdx.x * p.warps + (threadIdx.x >> 5);
+  if (cw >= p.B) return;                     // the whole warp
+  const float* x = llr + cw * p.E;
+
+  // Every global load first: the lane's word and its LLRs.  Lane r folds
+  // the LLRs at position r of the period (index order) and their squares.
+  const uint32_t w = __ldg(table + lane);
+  float f = 0.f, sq = 0.f;
+  if (lane < p.Q) {
+#pragma unroll 4
+    for (int j = lane; j < p.E; j += p.Q) {
+      const float v = __ldg(x + j);
+      f += v;
+      sq = fmaf(v, v, sq);
+    }
+  }
+  // The placeholder bit of position r, then each lane takes its source
+  // position's signed sum.
+  f = __int_as_float(__float_as_int(f) ^ ((w & 64u) << 25));
+  float g = __shfl_sync(kFull, f, w & 31);
+  if (!(w & 32u)) g = 0.f;
+#pragma unroll
+  for (int m = 16; m >= 1; m >>= 1) sq += __shfl_xor_sync(kFull, sq, m);
+
+  // The loop over the other candidate bits: two indices (K 3..6) in one
+  // unrolled pair, more (K = 1, 2 and K >= 7) four at a time in flight.
+  const int kmask = (w >> 8) & 0xff, part = w >> 16;
+  const bool cand = w & 128u;
+  float best = __int_as_float(0xff800000);   // -inf
+  int bi = 0;
+  if (p.nk <= 2) {
+#pragma unroll 2
+    for (int j = 0; j < p.nk; ++j)
+      correlate(j, g, kmask, part, cand, lane, p, best, bi);
+  } else {
+#pragma unroll 4
+    for (int j = 0; j < p.nk; ++j)
+      correlate(j, g, kmask, part, cand, lane, p, best, bi);
+  }
+#pragma unroll
+  for (int m = 16; m >= 1; m >>= 1) {
+    const float ov = __shfl_xor_sync(kFull, best, m);
+    const int oi = __shfl_xor_sync(kFull, bi, m);
+    if (ov > best || (ov == best && oi < bi)) {
+      best = ov;
+      bi = oi;
+    }
+  }
+  if (lane < p.K) bits[cw * p.K + lane] = (bi >> (p.K - 1 - lane)) & 1;
+  if (lane == 0)
+    metric[cw] = __fdividef(best, sqrtf(sq) * p.sqrt_e + 1e-9f);
+}
 
 __global__ void __launch_bounds__(32 * kMaxWarps)
 short_block_encode_kernel(const int8_t* __restrict__ bits,
@@ -148,16 +196,22 @@ short_block_encode_kernel(const int8_t* __restrict__ bits,
 
 }  // namespace
 
-// llr f32 [B, E]; tables int32 [2, P] (masks, ones); bits int8 [B, K];
-// metric f32 [B].
-extern "C" int srsran_short_block_detect(void* llr, int B, int E, int K, int P,
-                                         void* tables, void* bits, void* metric,
-                                         void* stream) {
-  if (K < 1 || K > 11 || P < 1 || P > MAX_P || B < 1 || E < 1)
+// K14: llr f32 [B, E]; bits int8 [B, K]; metric f32 [B]; params by
+// address; table uint32 [32], the lane words of ops/short_block.py::
+// _detect_table.
+extern "C" int srsran_short_block_detect(const void* llr, void* bits,
+                                         void* metric, void* stream,
+                                         const void* params,
+                                         const void* table) {
+  const ShortBlockDetectParams* p = (const ShortBlockDetectParams*)params;
+  if (p->K < 1 || p->K > 11 || p->Q < 1 || p->Q > kSbMaxPeriod ||
+      p->B < 1 || p->E < 1 || p->warps < 1 || p->warps > kMaxWarps ||
+      p->nk < 1 || p->nk > (1 << p->K) || p->ks < 0 || p->kt < p->ks)
     return (int)cudaErrorInvalidValue;
-  short_block_kernel<<<B, NT, 0, (cudaStream_t)stream>>>(
-      (const float*)llr, E, K, P, (const int*)tables, (int8_t*)bits,
-      (float*)metric);
+  short_block_kernel<<<(p->B + p->warps - 1) / p->warps, 32 * p->warps, 0,
+                       (cudaStream_t)stream>>>(
+      (const float*)llr, (int8_t*)bits, (float*)metric, *p,
+      (const uint32_t*)table);
   return (int)cudaGetLastError();
 }
 

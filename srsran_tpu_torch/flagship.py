@@ -2504,6 +2504,56 @@ def pucch_profile_cases(gen: torch.Generator, device) -> dict:
     return cases
 
 
+def uci_profile_cases(gen: torch.Generator, device) -> dict:
+    """K12's and K14's cases beyond the flagship's, for ``launch_profile``
+    and ``chip_smoke.py``: name -> (wrapper, twin, args).  The flagship
+    entries stay with their builder, :func:`conductor_kernel_cases`
+    (``pucch_f0_detect``, ``_10db``, ``short_block_detect``, ``_k11``).
+    Here: K12 over a batch of 4 (the flagship F0 in slots 1-4, each slot's
+    references and its own dictionary entry sent through a random gain a
+    port, noise to 10 dB over the occasion: ``pucch_f0_detect_batch4``)
+    and on one such slot with 1 port and 1 symbol (its candidate rows one
+    lane each, one pass: ``pucch_f0_detect_p1``), and K14 over a slot axis
+    of 4 slots of the 1-RB F2's codeword (K = 6, E = 32, Qm 2: [4, 1, 32],
+    as a batch decodes it; ``short_block_detect_batch4``) on noisy LLRs of
+    seeded messages."""
+    rng = np.random.default_rng(27)
+    table = pucch._F0_TABLES[(F0.nof_harq_bits, F0.sr_opportunity)]
+
+    def occasion(cfg, p):
+        _, sr, harq = table[rng.integers(len(table))]
+        one = pucch.transmit_format0(
+            torch.zeros((p, 14, CELL.nof_sc), dtype=torch.complex64,
+                        device=device), cfg, harq, sr or 0)[0]
+        gain = rng.standard_normal((p, 2)).astype(np.float32) / np.sqrt(2)
+        sent = _up((gain[:, 0] + 1j * gain[:, 1]).astype(np.complex64),
+                   device)[:, None, None] * one
+        occ = sent[:, cfg.start_symbol:cfg.start_symbol + cfg.nof_symbols,
+                   12 * cfg.prb:12 * cfg.prb + 12]
+        sigma2 = occ.abs().pow(2).mean() / 10.0
+        return (sent + sigma2.sqrt() * torch.randn(
+            sent.shape, dtype=torch.complex64, device=device, generator=gen),
+            _up(pucch.f0_refs_for(cfg), device))
+
+    grids, refs = zip(*(occasion(dataclasses.replace(F0, slot=(2 * g) % 20),
+                                 CELL.nof_ports) for g in BATCH_PHASES))
+    cases = {"pucch_f0_detect_batch4": (
+        pucch.f0_detect, pucch.f0_detect_ref,
+        (torch.stack(grids), F0, torch.stack(refs), 4.0))}
+    e, k = 16 * F2_SB.nof_rb * F2_SB.nof_symbols, F2_SB.nof_uci_bits
+    bits = short_block.encode(torch.as_tensor(
+        rng.integers(0, 2, (BATCH, k)).astype(np.int8)).to(device), e, 2)
+    llr = (1.0 - 2.0 * bits.to(torch.float32)) + 0.8 * torch.randn(
+        bits.shape, device=device, generator=gen)
+    cases["short_block_detect_batch4"] = (
+        short_block.detect, short_block.detect_ref, (llr[:, None], k, 2))
+    f0_p1 = dataclasses.replace(F0, slot=2, nof_symbols=1)
+    grid, refs = occasion(f0_p1, 1)
+    cases["pucch_f0_detect_p1"] = (pucch.f0_detect, pucch.f0_detect_ref,
+                                   (grid, f0_p1, refs, 4.0))
+    return cases
+
+
 # ------------------------------------------------------------- split 8
 
 # apps/ssb_tx.py's cell at the flagship width: 1 port, 273 RB, 4096 FFT.

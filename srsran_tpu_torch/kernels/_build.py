@@ -9,8 +9,8 @@ build on every run, so the sources compile side by side.  Pointers and the strea
 ``ctypes.c_void_p``; every C entry point returns ``cudaGetLastError()``
 after its launches, and :func:`check` raises on anything but 0.
 :class:`Launch` is the lean form of that path (K1, K3, K4, K5, K6, K7, K8,
-K9, K10, K13, K15, K16, K22, K32, K21, K18, K19, K27, K33, K34 and K35
-take it): a
+K9, K10, K12, K13, K14, K15, K16, K22, K32, K21, K18, K19, K27, K33, K34
+and K35 take it): a
 wrapper keeps one per call signature with the bound C function, a
 parameter struct passed by address and its device tables, and a call
 passes only the tensors' pointers and the current stream.
@@ -112,6 +112,17 @@ class ShortBlockEncodeParams(ctypes.Structure):
     address."""
 
     _fields_ = [("B", _I), ("K", _I), ("E", _I), ("P", _I), ("warps", _I)]
+
+
+SB_MAX_PERIOD = 32         # csrc/short_block.cu kSbMaxPeriod
+
+
+class ShortBlockDetectParams(ctypes.Structure):
+    """csrc/short_block.cu's ShortBlockDetectParams (K14's launch), by
+    address."""
+
+    _fields_ = [(name, _I) for name in ("B", "K", "E", "Q", "warps", "nk",
+                                        "ks", "kt")] + [("sqrt_e", _F)]
 
 LDPC_MAX_ROWS = 46         # csrc/ldpc_decode.cu kLdpcMaxRows
 LDPC_MAX_EDGES = 316       # csrc/ldpc_decode.cu kLdpcMaxEdges
@@ -296,6 +307,19 @@ class F1Params(ctypes.Structure):
         "threads")] + [("threshold", _F), ("hop", F1Hop * 2)]
 
 
+F0_MAX_PORTS = 8          # csrc/pucch_f0.cu kF0MaxPorts
+F0_MAX_CANDIDATES = 8     # csrc/pucch_f0.cu kF0MaxCandidates
+
+
+class F0Params(ctypes.Structure):
+    """csrc/pucch_f0.cu's F0Params (K12's launch), by address."""
+
+    _fields_ = [(name, _I) for name in (
+        "slots", "P", "S", "C", "nb", "lg", "passes", "nsym", "nsc", "l0",
+        "sc0", "sc1", "refs_stride")] + [("maps", ctypes.c_uint),
+                                         ("threshold", _F)]
+
+
 F2_MAX_PORTS = 8          # csrc/pucch_f2.cu kF2MaxPorts
 F2_GOLD_WORDS = 17        # csrc/pucch_f2.cu kF2GoldWords
 
@@ -329,10 +353,9 @@ SIGNATURES = {
     "srsran_pucch_f1": [_P] * 13,
     "srsran_srs_noise": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _F, _P, _P,
                          _I, _P, _I, _P],
-    "srsran_pucch_f0": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _L, _I, _P, _I,
-                        _F, _P, _P, _P, _P, _I, _P],
+    "srsran_pucch_f0": [_P] * 8,
     "srsran_pucch_f2_demap": [_P] * 6,
-    "srsran_short_block_detect": [_P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "srsran_short_block_detect": [_P] * 6,
     "srsran_short_block_encode": [_P] * 5,
     "srsran_polar_encode": [_P] * 7,
     "srsran_llr_quantize": [_P] * 4,

@@ -1,8 +1,8 @@
 """The host side of a kernel launch on one CUDA GPU: K1's, K3's, K4's,
-K5's, K6's, K7's, K8's, K10's, K13's, K15's, K32's, K21's, K18's, K19's,
-K22's, K27's, K33's, K34's and K35's wrappers against one PyTorch call each
-(K1, K3, K6, K8, K10, K13, K15, K22: none computes it; their device µs
-alone).
+K5's, K6's, K7's, K8's, K10's, K12's, K13's, K14's, K15's, K32's, K21's,
+K18's, K19's, K22's, K27's, K33's, K34's and K35's wrappers against one
+PyTorch call each (K1, K3, K6, K8, K10, K13, K15, K22: none computes it;
+their device µs alone).
 
     python3 -m srsran_tpu_torch.launch_profile [--calls 1000] [--out DIR]
         [--cases PREFIX ...]
@@ -80,7 +80,17 @@ cases), ~2 min; K10 (``pucch.f1_detect``) on the flagship occasion
 ``flagship.kernel_cases``, ``conductor_kernel_cases`` and
 ``pucch_profile_cases`` (:func:`pucch_calls`), device µs alone;
 ``--cases pucch`` (which also keeps K19's two ``pucch_f3_demap`` cases),
-~1 min.
+~1 min; K12 (``pucch.f0_detect``) on the conductor slot's F0
+(``pucch_f0_detect``: 8 candidates, 4 ports, 2 symbols), at 10 dB
+(``_10db``), over a batch of 4 with per-slot references (``_batch4``)
+and on 1 port and 1 symbol (``_p1``, its 1-pass build), and K14 (``short_block.detect``) on the 1-RB F2's codeword
+(``short_block_detect``: K = 6, E = 32), at K = 11, E = 512 (``_k11``)
+and over a slot axis of 4 (``_batch4``), from
+``flagship.conductor_kernel_cases`` and ``uci_profile_cases``
+(:func:`uci_calls`), each beside its correlation stage as one PyTorch call
+(:func:`uci_stage`: ``torch.einsum`` / ``torch.matmul``); ``--cases
+pucch_f0 short_block`` (which also keeps K34's ``short_block_encode``
+cases), ~1 min.
 ``--cases`` keeps the cases whose names start with one of the prefixes
 (and skips the pieces below, and building the cases it leaves out).  Per
 case and call it reports:
@@ -127,7 +137,7 @@ from . import flagship
 from .device import card_line, const, require_cuda
 from .kernels import _build
 from .ops import (dl_control, ldpc_encode, ldpc_rate_match, llr, ofdm,
-                  ul_demap)
+                  short_block, ul_demap)
 from .ops.crc import crc
 from .ops.transform_precode import deprecode
 from .phy.lower import prach_demod
@@ -633,6 +643,17 @@ def map_demap_calls(gen: torch.Generator, dev) -> tuple:
     return calls, library
 
 
+def conductor_cases(gen: torch.Generator, rng: np.random.Generator,
+                    dev) -> dict:
+    """``flagship.conductor_kernel_cases`` on one conductor slot's samples
+    (a seeded payload and UCI through the flagship channel)."""
+    tb = torch.as_tensor(rng.integers(0, 2, flagship.PUSCH.tbs).astype(
+        np.int8)).to(dev)
+    rx = flagship.channel(flagship.ue_samples(0, tb, flagship.ue_uci(rng)),
+                          gen)
+    return flagship.conductor_kernel_cases(rx, 0, gen)
+
+
 def pucch_cases(gen: torch.Generator, rng: np.random.Generator,
                 dev) -> dict:
     """K10's and K13's cases: name -> (wrapper, twin, args).  The flagship
@@ -642,12 +663,8 @@ def pucch_cases(gen: torch.Generator, rng: np.random.Generator,
     _, rx, ctx = flagship.make_slots(1, rng, gen, dev)[0]
     cases = {"pucch_f1_detect": flagship.kernel_cases(
         rx, ctx, gen, flagship.prach_fd(dev))["pucch_f1_detect"]}
-    tb = torch.as_tensor(rng.integers(0, 2, flagship.PUSCH.tbs).astype(
-        np.int8)).to(dev)
-    rx = flagship.channel(flagship.ue_samples(0, tb, flagship.ue_uci(rng)),
-                          gen)
-    cases.update((k, v) for k, v in flagship.conductor_kernel_cases(
-        rx, 0, gen).items() if k.startswith("pucch_f2_demap"))
+    cases.update((k, v) for k, v in conductor_cases(gen, rng, dev).items()
+                 if k.startswith("pucch_f2_demap"))
     cases.update(flagship.pucch_profile_cases(gen, dev))
     return cases
 
@@ -674,6 +691,59 @@ def pucch_calls(gen: torch.Generator, rng: np.random.Generator,
                 r.abs().max()), msg=name)
         calls[name] = lambda fn=fn, a=a: fn(*a)
         library[name] = None
+    return calls, library
+
+
+def uci_stage(name: str, args: tuple):
+    """The one PyTorch call of K12's or K14's correlation stage on the
+    case's inputs, as its twin computes it, made ready once: K12's
+    ``torch.einsum("psn,csn->cps", rx, refs.conj())`` on the occasion's
+    REs gathered [(B,) P, S, 12] (a slot axis as "bpsn,(b)csn->bcps"),
+    K14's ``torch.matmul(llrs, cands_t)`` of the [B, E] LLRs by the
+    [E, 2^K] candidate bank; a stage of the function, not the whole."""
+    if name.startswith("pucch_f0"):
+        grid, cfg, refs = args[:3]
+        rx = torch.stack([grid[..., l, 12 * prb:12 * prb + 12]
+                          for l, prb in pucch._f0_res(cfg)], dim=-2)
+        eq = ("psn,csn->cps" if rx.ndim == 3 else "bpsn,csn->bcps"
+              if refs.ndim == 3 else "bpsn,bcsn->bcps")
+        return lambda: torch.einsum(eq, rx, refs.conj())
+    llrs, k, qm = args
+    x = llrs.reshape(-1, llrs.shape[-1])
+    cands_t = const(short_block._candidates_t, k, x.shape[-1], qm,
+                    device=x.device)
+    return lambda: torch.matmul(x, cands_t)
+
+
+def uci_calls(gen: torch.Generator, rng: np.random.Generator,
+              dev) -> tuple:
+    """K12's and K14's (calls, library) by name: the conductor slot's F0
+    (``pucch_f0_detect``, and at 10 dB ``_10db``) and 1-RB F2 codeword
+    (``short_block_detect``, and K = 11, E = 512 ``_k11``) of
+    ``flagship.conductor_kernel_cases``, and ``flagship.uci_profile_cases``
+    (``_batch4`` each, K12's ``_p1``); each checked against its twin once (decisions and
+    bits equal; K12's metric within 1e-4 where the noise term keeps its
+    digits (10 dB), K14's within 1e-5), beside its correlation stage's
+    library call (:func:`uci_stage`)."""
+    cases = {k: v for k, v in conductor_cases(gen, rng, dev).items()
+             if k.startswith(("pucch_f0_detect", "short_block_detect"))}
+    cases.update(flagship.uci_profile_cases(gen, dev))
+    calls, library = {}, {}
+    for name, (fn, twin, a) in cases.items():
+        out, ref = fn(*a), twin(*a)
+        if name.startswith("pucch_f0"):
+            if not all(torch.equal(out[i], ref[i]) for i in (0, 2, 3, 4)):
+                raise AssertionError(f"{name}: K12 decisions differ")
+            if name != "pucch_f0_detect":
+                torch.testing.assert_close(out[1], ref[1], rtol=1e-4,
+                                           atol=0.0, msg=name)
+        else:
+            if not torch.equal(out[0], ref[0]):
+                raise AssertionError(f"{name}: K14 bits differ")
+            torch.testing.assert_close(out[1], ref[1], rtol=1e-5, atol=1e-6,
+                                       msg=name)
+        calls[name] = lambda fn=fn, a=a: fn(*a)
+        library[name] = uci_stage(name, a)
     return calls, library
 
 
@@ -790,7 +860,9 @@ def main(argv=None) -> dict:
                 (("pdsch_map", "pusch_demap"),
                  lambda: map_demap_calls(gen, dev)),
                 (("pucch_f1_detect", "pucch_f2_demap"),
-                 lambda: pucch_calls(gen, rng, dev)))
+                 lambda: pucch_calls(gen, rng, dev)),
+                (("pucch_f0_detect", "short_block_detect"),
+                 lambda: uci_calls(gen, rng, dev)))
     for prefixes, build in builders:
         if _wanted(args.cases, prefixes):
             more_calls, more_library = build()

@@ -6,11 +6,13 @@ GF(2) and periodic in the codeword index (period 32 for RM, Qm for K=1,
 3 or 3*Qm for K=2), so a codeword is ``ones ^ XOR_i m_i G[i]`` tiled to E.
 
 :func:`detect` is the K14 wrapper: on CUDA tensors the hand kernel of
-csrc/short_block.cu (one block per codeword, threads over the 2^K
-candidates, each built from the generator bits: no [2^K, E] table); on CPU
-tensors its twin :func:`detect_ref`, the JAX package's correlation against
-the host candidate bank.  A slot batch's codewords [B, N, E] fold into one
-launch of B * N blocks.
+csrc/short_block.cu (a warp per codeword: the LLRs folded over the code's
+period, the 2^K candidates' correlations as Walsh-Hadamard butterflies
+over the lanes, no [2^K, E] table), launched through a plan cached per
+(K, Qm, E, B, device) with its struct (:func:`_detect_params`) and a
+word a lane (:func:`_detect_table`); on CPU tensors its twin
+:func:`detect_ref`, the JAX package's correlation against the host
+candidate bank.  A slot batch's codewords [B, N, E] fold into one launch.
 
 :func:`encode` (UE side) is the K34 wrapper: on CUDA tensors the encode
 kernel of the same source (a warp per codeword: the message packed by a
@@ -26,13 +28,14 @@ from __future__ import annotations
 
 import functools
 import itertools
+import math
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from .. import kernels
-from ..device import const, is_cuda
+from ..device import const
 from ..kernels import _build
 
 KERNEL = kernels.register(kernels.Kernel(
@@ -49,6 +52,7 @@ _DATA = Path(__file__).resolve().parent.parent / "data" / "short_block_tables.np
 MAX_K = 11
 MAX_PERIOD = 64
 ENCODE_WARPS = 4            # codewords (warps) a CTA of K34
+DETECT_WARPS = 4            # codewords (warps) a CTA of K14
 
 
 @functools.lru_cache(maxsize=None)
@@ -210,31 +214,111 @@ def detect_ref(llrs: torch.Tensor, k: int, qm: int = 1) -> tuple:
     return bits, metric
 
 
+def _fold_period(p: int) -> int:
+    """K14's fold period for a code of period ``p`` <= 32: as many whole
+    periods as fit in a warp's 32 lanes."""
+    return p * (32 // p)
+
+
+def _lane_bits(k: int) -> int:
+    """The candidate bits K14 spreads over the lanes: those of the RM
+    basis rows 1..5 (at most K - 1 of them) for K >= 3, none for K <= 2."""
+    return min(5, k - 1) if k >= 3 else 0
+
+
+def _k_split(k: int) -> tuple:
+    """(s, t) of K14's loop index: candidate c = ((j >> s) << t) | (j & (2^s
+    - 1)) | the lane's part, for loop index j < 2^(K - lane bits) -- the
+    bits of row 0 (the all-ones row) and of rows 6..K-1 for K >= 6, of row
+    0 for K 3..5, all K bits for K <= 2."""
+    if k >= 6:
+        return k - 6, k - 1
+    if k >= 3:
+        return 0, k - 1
+    return k, k
+
+
+def _detect_table(k: int, qm: int) -> np.ndarray:
+    """K14's word a lane, int32 [32]: the lane's source lane (bits 0-4) and
+    whether it has one (5), the placeholder bit of the lane's own fold
+    position (6), whether the lane holds candidates (7), the source
+    position's mask bits read by the loop index (8-15, ``_k_split``'s
+    order) and the lane's part of the candidate index (16-26).  For K >= 3
+    lane l takes the position whose RM rows 1..5 spell l (a permutation of
+    the 32: so the lane part of every correlation is one Walsh-Hadamard
+    transform over the lanes); for K <= 2 its own position."""
+    masks, ones = _kernel_tables(k, qm).astype(np.int64)
+    period = masks.shape[0]
+    q = _fold_period(period)
+    nl = _lane_bits(k)
+    s, t = _k_split(k)
+    if k >= 3:
+        rows = rm_basis()[1:6].astype(np.int64)                 # [5, 32]
+        spell = (rows << np.arange(5)[:, None]).sum(axis=0)
+        src = np.argsort(spell)                      # lane l <- position
+    else:
+        src = np.arange(32)
+    lane = np.arange(32)
+    valid = src < q
+    mask = np.where(valid, masks[src % period], 0)
+    kmask = ((mask >> t) << s) | (mask & ((1 << s) - 1))
+    part = sum(((lane >> j) & 1) << (k - 2 - j) for j in range(nl))
+    own = np.where(lane < q, ones[lane % period], 0)
+    word = ((src & 31) | valid << 5 | own << 6 | (lane < (1 << nl)) << 7
+            | kmask << 8 | np.asarray(part) << 16)
+    return word.astype(np.int32)
+
+
+def _detect_params(k: int, qm: int, e: int,
+                   b: int) -> _build.ShortBlockDetectParams:
+    """K14's launch for B codewords of E LLRs of a K-bit code at Qm (its
+    lane words: :func:`_detect_table`); raises on what the kernel does not
+    take."""
+    if not (1 <= k <= MAX_K and b >= 1 and e >= 1):
+        raise ValueError(f"K14 takes K 1..{MAX_K}, B and E >= 1; got K {k}, "
+                         f"B {b}, E {e}")
+    if b * e >= 1 << 31:
+        raise ValueError("K14 takes at most 2^31 LLRs a call (32-bit "
+                         "offsets)")
+    period = _period(k, qm)
+    if period > _build.SB_MAX_PERIOD:
+        raise ValueError(f"short-block period {period}: K14 takes at most "
+                         f"{_build.SB_MAX_PERIOD}")
+    s, t = _k_split(k)
+    return _build.ShortBlockDetectParams(
+        B=b, K=k, E=e, Q=_fold_period(period), warps=min(b, DETECT_WARPS),
+        nk=1 << (k - _lane_bits(k)), ks=s, kt=t,
+        sqrt_e=float(np.sqrt(np.float32(e))))
+
+
+@functools.lru_cache(maxsize=256)
+def _detect_plan(k: int, qm: int, e: int, b: int,
+                 index: int) -> _build.Launch:
+    """K14's launch for B codewords of E LLRs of a K-bit code at Qm on CUDA
+    device ``index``."""
+    table = torch.from_numpy(_detect_table(k, qm)).to(
+        torch.device("cuda", index))
+    return _build.Launch("srsran_short_block_detect", index,
+                         _detect_params(k, qm, e, b), (table,))
+
+
 def detect(llrs: torch.Tensor, k: int, qm: int = 1) -> tuple:
     """ML detection.  llrs f32 [B, E] -> (bits int8 [B, K], metric f32 [B]):
     the first candidate of largest correlation (ties to the lower index)
     and its correlation over ||llr|| sqrt(E).  A slot batch's llrs
     [S, B, E] give [S, B, K] and [S, B] from one launch."""
-    if not is_cuda(llrs):
+    if not llrs.is_cuda:
         return detect_ref(llrs, k, qm)
     if llrs.dtype != torch.float32 or llrs.ndim not in (2, 3):
         raise ValueError(f"llrs must be float32 [(S,) B, E], got "
                          f"{llrs.dtype} {tuple(llrs.shape)}")
-    dev = llrs.device
     lead = tuple(llrs.shape[:-1])
-    e = llrs.shape[-1]
-    b = llrs.numel() // e
-    tables = const(_kernel_tables, k, qm, device=dev)
-    period = tables.shape[1]
-    if period > MAX_PERIOD:
-        raise ValueError(f"short-block period {period} > {MAX_PERIOD}")
-    llrs = llrs.contiguous()
-    bits = torch.empty(lead + (k,), dtype=torch.int8, device=dev)
-    metric = torch.empty(lead, dtype=torch.float32, device=dev)
-    lib = _build.load()
-    _build.check(lib.srsran_short_block_detect(
-        _build.ptr(llrs), b, e, k, period, _build.ptr(tables),
-        _build.ptr(bits), _build.ptr(metric), _build.stream_of(llrs)),
-        "short_block_detect")
+    launch = _detect_plan(k, qm, llrs.shape[-1], math.prod(lead),
+                          llrs.get_device())
+    # the kernel's input held in a local until it is enqueued
+    x = llrs if llrs.is_contiguous() else llrs.contiguous()
+    bits = x.new_empty(lead + (k,), dtype=torch.int8)
+    metric = x.new_empty(lead)
+    launch(x.data_ptr(), bits.data_ptr(), metric.data_ptr())
     (KERNEL_BATCH if len(lead) > 1 else KERNEL).count()
     return bits, metric

@@ -530,8 +530,14 @@ def _f0_res(cfg: PucchF0Config) -> tuple:
 
 def _f0_maps(nof_harq_bits: int, sr_opportunity: bool) -> np.ndarray:
     """int8 [C, 1 + nof_harq_bits]: each candidate's SR bit (0 where the
-    dictionary has none), then its HARQ bits."""
-    table = _F0_TABLES[(nof_harq_bits, sr_opportunity)]
+    dictionary has none), then its HARQ bits; raises where no dictionary
+    has that key."""
+    key = (nof_harq_bits, sr_opportunity)
+    if key not in _F0_TABLES:
+        raise ValueError(
+            "pucch_f0: nof_harq_bits=0 requires sr_opportunity=True "
+            "(an F0 occasion must carry HARQ bits, SR, or both)")
+    table = _F0_TABLES[key]
     return np.array([[s if s is not None else 0, *h] for _, s, h in table],
                     dtype=np.int8).reshape(len(table), 1 + nof_harq_bits)
 
@@ -557,6 +563,68 @@ def f0_detect_ref(grid: torch.Tensor, cfg: PucchF0Config,
             maps[best, 0], best)
 
 
+def _f0_fields(cfg: PucchF0Config) -> tuple:
+    """What K12 reads of an F0 occasion (not its slot or hopping id: the
+    references carry them): (prb, start_symbol, nof_symbols,
+    second_hop_prb, nof_harq_bits, sr_opportunity)."""
+    return (cfg.prb, cfg.start_symbol, cfg.nof_symbols, cfg.second_hop_prb,
+            cfg.nof_harq_bits, cfg.sr_opportunity)
+
+
+def _f0_params(shapes: tuple, dtypes: tuple, fields: tuple,
+               threshold: float) -> _build.F0Params:
+    """K12's parameters for one call signature: the shapes and dtypes of
+    the grid and the references and the occasion's :func:`_f0_fields`;
+    raises on what the kernel does not take."""
+    prb, start, nsym, hop, nb, sr_opp = fields
+    maps = _f0_maps(nb, sr_opp)
+    grid_s, refs_s = shapes
+    if dtypes[0] != torch.complex64 or len(grid_s) not in (3, 4):
+        raise ValueError(f"grid must be complex64 [(B,) P, S, K], got "
+                         f"{dtypes[0]} {tuple(grid_s)}")
+    lead = tuple(grid_s[:-3])
+    p, s_grid, k_grid = grid_s[-3:]
+    c = maps.shape[0]
+    if (dtypes[1] != torch.complex64 or tuple(refs_s[-3:]) != (c, nsym, 12)
+            or tuple(refs_s[:-3]) not in ((), lead)):
+        raise ValueError(f"refs must be complex64 [(B,) {c}, {nsym}, 12], "
+                         f"got {dtypes[1]} {tuple(refs_s)}")
+    if not 0 < p <= _build.F0_MAX_PORTS:
+        raise ValueError(f"{p} rx ports: K12 takes 1 to "
+                         f"{_build.F0_MAX_PORTS} ports")
+    if nsym not in (1, 2):
+        raise ValueError(f"{nsym} symbols: K12 takes 1 or 2 symbols")
+    prb1 = hop if nsym > 1 and hop is not None else prb
+    if start + nsym > s_grid or 12 * (max(prb, prb1) + 1) > k_grid:
+        raise ValueError(f"the F0 occasion (PRB {prb}, {prb1}, symbols "
+                         f"{start}-{start + nsym - 1}) lies outside the grid "
+                         f"{tuple(grid_s)}")
+    slots = lead[0] if lead else 1
+    if slots * p * s_grid * k_grid >= 1 << 31:
+        raise ValueError("K12 takes at most 2^31 elements a grid (32-bit "
+                         "offsets)")
+    lg = (p * nsym - 1).bit_length()
+    word = 0
+    for i, v in enumerate(maps.ravel().tolist()):
+        word |= int(v) << i
+    return _build.F0Params(
+        slots=slots, P=p, S=nsym, C=c, nb=nb, lg=lg,
+        passes=-(-(c << lg) // 32), nsym=s_grid, nsc=k_grid, l0=start,
+        sc0=12 * prb, sc1=12 * prb1,
+        refs_stride=c * nsym * 12 if len(refs_s) == 4 else 0, maps=word,
+        threshold=threshold)
+
+
+@functools.lru_cache(maxsize=1024)
+def _f0_plan(shapes: tuple, dtypes: tuple, fields: tuple, threshold: float,
+             index: int) -> tuple:
+    """K12's launch for one call signature on CUDA device ``index``, the
+    slot axis of its outputs and the SR/HARQ row's length."""
+    p = _f0_params(shapes, dtypes, fields, threshold)
+    return (_build.Launch("srsran_pucch_f0", index, p),
+            tuple(shapes[0][:-3]), 1 + p.nb)
+
+
 def f0_detect(grid: torch.Tensor, cfg: PucchF0Config, refs: torch.Tensor,
               threshold: float) -> tuple:
     """(detected bool, metric f32, HARQ bits int8 [nof_harq_bits], SR bit
@@ -565,40 +633,27 @@ def f0_detect(grid: torch.Tensor, cfg: PucchF0Config, refs: torch.Tensor,
     [C, S, 12], :func:`f0_refs_for`) on the grid's device.
 
     B slots at once: grid [B, P, nsym, nsc] and the references shared or
-    [B, C, S, 12] give every result a leading slot axis, in one launch."""
-    if not is_cuda(grid, refs):
+    [B, C, S, 12] give every result a leading slot axis, in one launch.
+    On the card: K12 through the cached plan of the call's signature
+    (keyed on the occasion's geometry and dictionary, not its slot)."""
+    if not (grid.is_cuda and refs.is_cuda):
+        is_cuda(grid, refs)                                  # raises on a mix
         return f0_detect_ref(grid, cfg, refs, threshold)
-    table = _f0_table(cfg)
-    s = cfg.nof_symbols
-    if grid.dtype != torch.complex64 or grid.ndim not in (3, 4):
-        raise ValueError(f"grid must be complex64 [(B,) P, S, K], got "
-                         f"{grid.dtype} {tuple(grid.shape)}")
-    lead = tuple(grid.shape[:-3])
-    c_shape = (len(table), s, 12)
-    if (refs.dtype != torch.complex64 or refs.shape[-3:] != c_shape
-            or refs.shape[:-3] not in ((), lead)):
-        raise ValueError(f"refs must be complex64 [(B,) {len(table)}, {s}, "
-                         f"12], got {refs.dtype} {tuple(refs.shape)}")
-    dev = grid.device
-    nb = cfg.nof_harq_bits
-    maps = const(_f0_maps, nb, cfg.sr_opportunity, device=dev)
-    (l0, prb0), (_, prb1) = _f0_res(cfg)[0], _f0_res(cfg)[-1]
-    grid = grid.contiguous()
-    refs = refs.contiguous()
-    detected = torch.empty(lead, dtype=torch.bool, device=dev)
-    metric = torch.empty(lead, dtype=torch.float32, device=dev)
-    out = torch.empty(lead + (1 + nb,), dtype=torch.int8, device=dev)
-    best = torch.empty(lead, dtype=torch.int64, device=dev)
-    lib = _build.load()
-    _build.check(lib.srsran_pucch_f0(
-        _build.ptr(grid), grid.shape[-3], grid.shape[-2], grid.shape[-1], s,
-        l0, prb0, prb1, _build.ptr(refs),
-        len(table) * s * 12 if refs.ndim == 4 else 0, len(table),
-        _build.ptr(maps), nb, float(threshold), _build.ptr(detected),
-        _build.ptr(metric), _build.ptr(out), _build.ptr(best),
-        lead[0] if lead else 1, _build.stream_of(grid)), "pucch_f0")
+    launch, lead, row = _f0_plan((grid.shape, refs.shape),
+                                 (grid.dtype, refs.dtype), _f0_fields(cfg),
+                                 float(threshold), grid.get_device())
+    # the kernel's inputs held in locals until it is enqueued
+    g = grid if grid.is_contiguous() else grid.contiguous()
+    r = refs if refs.is_contiguous() else refs.contiguous()
+    detected = g.new_empty(lead, dtype=torch.bool)
+    metric = g.new_empty(lead, dtype=torch.float32)
+    out = g.new_empty(lead + (row,), dtype=torch.int8)
+    best = g.new_empty(lead, dtype=torch.int64)
+    launch(g.data_ptr(), r.data_ptr(), detected.data_ptr(),
+           metric.data_ptr(), out.data_ptr(), best.data_ptr())
     (KERNEL_F0_BATCH if lead else KERNEL_F0).count()
-    return detected, metric, out[..., 1:], out[..., 0], best
+    return (detected, metric, out.narrow(-1, 1, row - 1), out.select(-1, 0),
+            best)
 
 
 def detect_format0(grid: torch.Tensor, cfg: PucchF0Config,

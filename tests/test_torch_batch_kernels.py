@@ -534,6 +534,36 @@ def test_pucch_f0_batched(cuda, b):
         assert bool(one[0]) and one[2].tolist() == list(harq)
 
 
+@pytest.mark.parametrize("b", [2, 4])
+def test_pucch_f0_batched_shared_refs(cuda, b):
+    """K12 over B slots with one set of references for all (the same slot
+    number), each slot its own candidate sent; 8 ports, one symbol."""
+    rng = np.random.default_rng(95 + b)
+    cfg = pucch.PucchF0Config(prb=100, start_symbol=13, nof_symbols=1,
+                              initial_cyclic_shift=5, n_id=1, slot=4,
+                              nof_harq_bits=1, sr_opportunity=True)
+    table = pucch._F0_TABLES[(1, True)]
+    grid = []
+    for s in range(b):
+        _, sr, harq = table[s % len(table)]
+        one = pucch.transmit_format0(torch.zeros((1,) + UL_GRID[1:],
+                                                 dtype=torch.complex64),
+                                     cfg, harq, sr or 0)[0]
+        grid.append(_cgauss(rng, (8,))[:, None, None] * one
+                    + 0.3 * _cgauss(rng, (8,) + UL_GRID[1:]))
+    grid = torch.stack(grid).to(cuda)
+    refs = torch.as_tensor(pucch.f0_refs_for(cfg)).to(cuda)
+    out = _counted(lambda: pucch.f0_detect(grid, cfg, refs, 4.0),
+                   "pucch_f0_detect")
+    ref = pucch.f0_detect_ref(grid, cfg, refs, 4.0)
+    for i in (0, 2, 3, 4):
+        assert torch.equal(out[i], ref[i]), i
+    _close(out[1], ref[1], 1e-4)
+    assert out[4].tolist() == [s % len(table) for s in range(b)]
+    for s in range(b):
+        _same(_slot(out, s), pucch.f0_detect(grid[s], cfg, refs, 4.0))
+
+
 @pytest.mark.parametrize("b", [1, 4])
 @pytest.mark.parametrize("nof_rb,k,ports", [(1, 6, 4), (2, 22, 4),
                                            (16, 22, 4), (2, 22, 8)])
@@ -595,6 +625,24 @@ def test_short_block_batched(cuda, b, k, qm, e):
     assert bits.shape == (b, 3, k) and torch.equal(bits, bits_ref)
     _close(metric, metric_ref, 1e-5)
     for s in range(b):
+        _same((bits[s], metric[s]), short_block.detect(llr[s], k, qm))
+
+
+@pytest.mark.parametrize("k,qm,e", [(6, 2, 32), (11, 2, 512), (1, 1, 40)])
+def test_short_block_batched_partial_cta(cuda, k, qm, e):
+    """K14 over 3 slots of 3 codewords: 9 warps, the last CTA holding one
+    codeword; each slot equal to its own launch."""
+    rng = np.random.default_rng(120 + k + e)
+    msg = torch.as_tensor(rng.integers(0, 2, (9, k)).astype(np.int8))
+    cw = short_block.encode(msg, e, qm).numpy()
+    llr = torch.as_tensor(((1.0 - 2.0 * cw) + rng.standard_normal(cw.shape)
+                           ).astype(np.float32)).reshape(3, 3, e).to(cuda)
+    bits, metric = _counted(lambda: short_block.detect(llr, k, qm),
+                            "short_block_detect")
+    bits_ref, metric_ref = short_block.detect_ref(llr, k, qm)
+    assert bits.shape == (3, 3, k) and torch.equal(bits, bits_ref)
+    _close(metric, metric_ref, 1e-5)
+    for s in range(3):
         _same((bits[s], metric[s]), short_block.detect(llr[s], k, qm))
 
 

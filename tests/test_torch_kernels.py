@@ -853,6 +853,66 @@ def test_pucch_f0_kernel(cuda, key, hop):
         assert bool(out[0]) and out[2].tolist() == list(harq)
 
 
+def _f0_slot_grid(cfg, rng, ports, entry):
+    """The dictionary entry ``entry`` of ``cfg`` sent on every port through
+    a random gain, noise at -10 dB of it."""
+    _, sr, harq = pucch._F0_TABLES[(cfg.nof_harq_bits,
+                                    cfg.sr_opportunity)][entry]
+    sent = pucch.transmit_format0(torch.zeros((1, 14, 3276),
+                                              dtype=torch.complex64),
+                                  cfg, harq, sr or 0)[0]
+    return (_cgauss(rng, (ports,))[:, None, None] * sent
+            + 0.3 * _cgauss(rng, (ports, 14, 3276)))
+
+
+@pytest.mark.parametrize("ports,nsym,hop", [
+    (1, 1, None), (1, 2, 272), (2, 2, 3), (8, 1, None), (8, 2, None),
+    (8, 2, 0)])
+def test_pucch_f0_kernel_shapes(cuda, ports, nsym, hop):
+    """K12 at 1, 2 and 8 ports (lane groups of 1 to 16 rows), 1 and 2
+    symbols, with and without a second hop: decisions equal to its twin's,
+    the metric within 1e-4, one launch a call."""
+    cfg = pucch.PucchF0Config(prb=269, start_symbol=14 - nsym,
+                              nof_symbols=nsym, initial_cyclic_shift=3,
+                              n_id=1, slot=6, nof_harq_bits=2,
+                              sr_opportunity=True, second_hop_prb=hop)
+    rng = np.random.default_rng(ports * nsym + (hop or 0))
+    refs = torch.as_tensor(pucch.f0_refs_for(cfg)).to(cuda)
+    for entry in (0, 3, 7):
+        grid = _f0_slot_grid(cfg, rng, ports, entry).to(cuda)
+        kernels.reset_counts()
+        out = pucch.f0_detect(grid, cfg, refs, 4.0)
+        assert kernels.REGISTRY["pucch_f0_detect"].launches == 1
+        ref = pucch.f0_detect_ref(grid, cfg, refs, 4.0)
+        for i in (0, 2, 3, 4):
+            assert torch.equal(out[i], ref[i]), i
+        _close(out[1], ref[1], 1e-4)
+        assert int(out[4]) == entry
+
+
+def test_pucch_f0_kernel_in_a_cuda_graph(cuda):
+    """K12's one launch captured in a CUDA graph and replayed on a new
+    grid with another entry sent: the twin's decisions on it."""
+    cfg = pucch.PucchF0Config(prb=269, start_symbol=12, nof_symbols=2,
+                              initial_cyclic_shift=3, n_id=1, slot=6,
+                              nof_harq_bits=2, sr_opportunity=True)
+    rng = np.random.default_rng(14)
+    refs = torch.as_tensor(pucch.f0_refs_for(cfg)).to(cuda)
+    grid = _f0_slot_grid(cfg, rng, 4, 1).to(cuda)
+    pucch.f0_detect(grid, cfg, refs, 4.0)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pucch.f0_detect(grid, cfg, refs, 4.0)
+    grid.copy_(_f0_slot_grid(cfg, rng, 4, 6).to(cuda))
+    graph.replay()
+    torch.cuda.synchronize()
+    ref = pucch.f0_detect_ref(grid, cfg, refs, 4.0)
+    for i in (0, 2, 3, 4):
+        assert torch.equal(out[i], ref[i]), i
+    assert int(out[4]) == 6
+
+
 def _f2_cfg(nof_rb, nsym):
     """An F2 PDU ending at PRB 271 with 22 CSI bits (polar) where it has room
     for them (E >= 64), else 6 (short block)."""
@@ -938,6 +998,53 @@ def test_short_block_kernel(cuda, k, qm, e):
     llr = llr.to(cuda)
     bits, metric = short_block.detect(llr, k, qm)
     bits_ref, metric_ref = short_block.detect_ref(llr, k, qm)
+    assert torch.equal(bits, bits_ref)
+    _close(metric, metric_ref, 1e-5)
+
+
+@pytest.mark.parametrize("k", range(1, 12))
+@pytest.mark.parametrize("qm,e", [(1, 37), (2, 512)])
+def test_short_block_kernel_every_k(cuda, k, qm, e):
+    """K14 at K = 1..11 (1 to 64 candidates a lane), E not a multiple of
+    the period and E = 512: bits equal to its twin's, metric within 1e-5,
+    a row of exact zeros to candidate 0, one launch a call."""
+    rng = np.random.default_rng(1000 * qm + 10 * k + e)
+    msg = torch.as_tensor(rng.integers(0, 2, (6, k)).astype(np.int8))
+    cw = short_block.encode(msg, e, qm).numpy()
+    llr = torch.as_tensor(((1.0 - 2.0 * cw) + rng.standard_normal(cw.shape)
+                           ).astype(np.float32))
+    llr[5] = 0.0
+    llr = llr.to(cuda)
+    kernels.reset_counts()
+    bits, metric = short_block.detect(llr, k, qm)
+    assert kernels.REGISTRY["short_block_detect"].launches == 1
+    bits_ref, metric_ref = short_block.detect_ref(llr, k, qm)
+    assert torch.equal(bits, bits_ref)
+    _close(metric, metric_ref, 1e-5)
+    assert not bits[5].any()
+
+
+def test_short_block_kernel_in_a_cuda_graph(cuda):
+    """K14's one launch captured in a CUDA graph (K = 6, E = 32, 5
+    codewords: two CTAs) and replayed on new LLRs: the twin's bits."""
+    rng = np.random.default_rng(15)
+
+    def llrs():
+        cw = short_block.encode(torch.as_tensor(
+            rng.integers(0, 2, (5, 6)).astype(np.int8)), 32, 2).numpy()
+        return torch.as_tensor(((1.0 - 2.0 * cw) + rng.standard_normal(
+            cw.shape)).astype(np.float32)).to(cuda)
+
+    llr = llrs()
+    short_block.detect(llr, 6, 2)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        bits, metric = short_block.detect(llr, 6, 2)
+    llr.copy_(llrs())
+    graph.replay()
+    torch.cuda.synchronize()
+    bits_ref, metric_ref = short_block.detect_ref(llr, 6, 2)
     assert torch.equal(bits, bits_ref)
     _close(metric, metric_ref, 1e-5)
 
