@@ -14,7 +14,10 @@ the JAX package.  It builds the hand kernels from ``srsran_tpu_torch/csrc``
    descramble, K4 OFDM demodulation passes, K8 channel estimator, K9 PRACH
    detector, K10 PUCCH F1 detector (also with 3 and 12 users and a hop and
    over a batch of 4 with per-slot weights,
-   ``flagship.pucch_profile_cases``), K11 SRS noise; the DL kernels K5 DL-SCH
+   ``flagship.pucch_profile_cases``), K11 SRS noise (also over a batch of
+   4, on 48 RB at comb 4 with 4 SRS ports and at K = 1632,
+   ``flagship.rs_profile_cases``, beside its wideband stage as one
+   ``torch.einsum``, the library time); the DL kernels K5 DL-SCH
    encode, K6 PDSCH map (also on a small allocation with repetition at rv
    2), K7 OFDM modulation passes; the UCI kernels (phase 4's first step)
    K12 PUCCH F0 detect (decisions on the 30 dB slot; the metric too with
@@ -398,6 +401,8 @@ CASE_KERNEL = {**{f"ofdm_{k}{case}": f"ofdm_{k}"
                "pucch_f0_detect_batch4": "pucch_f0_detect",
                "pucch_f0_detect_p1": "pucch_f0_detect",
                "short_block_detect_batch4": "short_block_detect",
+               **{f"srs_noise{case}": "srs_estimate"
+                  for case in ("_batch4", "_48rb", "_k1632")},
                "channel_estimate_f2": "channel_estimate",
                "pucch_f2_demap_1rb": "pucch_f2_demap",
                **{f"pucch_f1_detect{case}": "pucch_f1_detect"
@@ -519,7 +524,7 @@ EDGE_BATCH_LAUNCHES = {**_TWO_PUSCH, "pusch_tp_demap_batch": 1,
 # call computes: its plain twin).  K27's (phase 12) go through
 # ``launch_profile.control_calls``.
 HOST_TIMED = ("ofdm_demodulate", "ofdm_demodulate_batch4", "ofdm_modulate",
-              "ofdm_modulate_batch4",
+              "ofdm_modulate_batch4", "srs_estimate", "srs_noise_batch4",
               "prach_detect", "pusch_demap_lxn", "pusch_demap_lxn_1l_mmse",
               "rate_match", "prach_demod", "prach_demod_n6144",
               "prach_demod_format0", "pusch_tp_demap",
@@ -1008,13 +1013,18 @@ def work(name: str, args: tuple, out) -> tuple:
         res = p * common.nof_symbols * 12
         return nb * res * c64 + w_bytes + nbytes(out), ops
     if name == "srs_estimate":                     # K11
+        # per slot the comb's REs on every rx port read once, the TA and
+        # RSRP once; the sequences [L, K] once; the outputs written once.
+        # Per (rx port, subcarrier): the symbol sum, the ramp (~20), 8 per
+        # complex MAC of the L correlations and of the reconstruction, 4
+        # for the residual's energy
         grid, cfg = args[:2]
-        p, k = grid.shape[0], cfg.seq_len
+        nb = grid.numel() // math.prod(grid.shape[-3:])
+        p, k = grid.shape[-3], cfg.seq_len
         n_l, n_s = cfg.nof_ports, cfg.nof_symbols
-        return (p * n_s * k * c64 + n_l * n_s * k * c64 + 4 * (p + 1)
+        return (nb * (p * n_s * k * c64 + 4 * (p + 1)) + n_l * k * c64
                 + nbytes(out),
-                p * n_l * k * (8.0 * n_s + 14) + p * k * (14.0 * n_l + 4 * n_s
-                                                          + 6))
+                nb * p * k * (2.0 * (n_s - 1) + 20 + 24.0 * n_l + 6))
     if name == "rs_map":                           # K25: 8 per term
         # each target read and written once, its plan entries (offset,
         # term start; per term source, index, weight) and the values once
@@ -1290,9 +1300,9 @@ def ofdm_library(cases: dict) -> dict:
 
 
 def launch_row(name: str, args: tuple) -> str | None:
-    """The launch count one call of a K3, K4, K6 (K22), K7, K10, K12, K13
-    or K14 case adds to: its kernel's row, its ``_batch`` row with a slot
-    axis, K22's row with a PRG table; None for the other kernels."""
+    """The launch count one call of a K3, K4, K6 (K22), K7, K10, K11, K12,
+    K13, K14 or K26 case adds to: its kernel's row, its ``_batch`` row with
+    a slot axis, K22's row with a PRG table; None for the other kernels."""
     kind = CASE_KERNEL.get(name, name)
     if kind in ("ofdm_demodulate", "ofdm_modulate"):
         rank = 2 if kind == "ofdm_demodulate" else 3
@@ -1301,17 +1311,19 @@ def launch_row(name: str, args: tuple) -> str | None:
         return ("pdsch_map_batch" if args[0].ndim == 4 else "pdsch_map_prg"
                 if len(args) > 14 and args[14] else "pdsch_map")
     if kind in ("pusch_demap", "pucch_f1_detect", "pucch_f2_demap",
-                "pucch_f0_detect"):
+                "pucch_f0_detect", "srs_estimate"):
         return kind + ("_batch" if args[0].ndim == 4 else "")
+    if kind == "dmrs_map":
+        return kind
     if kind == "short_block_detect":
         return kind + ("_batch" if args[0].ndim == 3 else "")
     return None
 
 
 def one_launch_a_call(cases: dict) -> None:
-    """K3, K4, K6 (K22), K7, K10, K12, K13 and K14 launch once a call: each
-    of their cases adds one to its kernel's count (:func:`launch_row`) and
-    to no other."""
+    """K3, K4, K6 (K22), K7, K10, K11, K12, K13, K14 and K26 launch once a
+    call: each of their cases adds one to its kernel's count
+    (:func:`launch_row`) and to no other."""
     rows = set()
     for name, (fn, _, args) in cases.items():
         row = launch_row(name, args)
@@ -1371,6 +1383,24 @@ def uci_cases(dev) -> dict:
     return flagship.uci_profile_cases(gen, dev)
 
 
+def srs_cases(dev) -> dict:
+    """K11's cases of ``flagship.rs_profile_cases`` beyond the flagship's
+    (which phase 1 takes from its slot): a batch of 4, 48 RB at comb 4
+    with 4 SRS ports, and K = 1632 (272 RB, comb 2, 4 symbols, 4 ports),
+    their TA and RSRP from K8 (K26's cases are phase 12's and 13's)."""
+    return {k: v for k, v in flagship.rs_profile_cases(dev).items()
+            if k in CASE_KERNEL and k.startswith("srs_noise")}
+
+
+def rs_library(cases: dict) -> dict:
+    """K11's and K26's library time: each case's named stage as one
+    PyTorch call (``launch_profile.rs_stage``: K11's wideband
+    ``torch.einsum``, K26's ``index_put_`` of its precoded pilots)."""
+    return {name: launch_profile.rs_stage(name, args)
+            for name, (_, _, args) in cases.items()
+            if CASE_KERNEL.get(name, name) in ("srs_estimate", "dmrs_map")}
+
+
 def ul_phases(dev, gen, rng, card) -> tuple:
     """The UL kernels against their twins, then the flagship UL slot."""
     ul = flagship.ul_program()
@@ -1388,11 +1418,12 @@ def ul_phases(dev, gen, rng, card) -> tuple:
     cases.update(ofdm_cases("ofdm_demodulate_", dev))
     cases.update(map_demap_cases("pusch_demap_", dev))
     cases.update(pucch_cases("pucch_f1_detect_", dev))
+    cases.update(srs_cases(dev))
     one_launch_a_call(cases)
     results = kernel_phases(cases, {
         "prach_detect": launch_profile.prach_idft_library(
             cases["prach_detect"][2]),
-        **ofdm_library(cases)})
+        **ofdm_library(cases), **rs_library(cases)})
 
     # The main path.  Warm up (builds the device constants), then count
     # launches over NOF_SLOTS slots.
@@ -2836,7 +2867,8 @@ def du_low_phase(dev, gen, rng, card) -> tuple:
     process of its own, driven over TCP by the port's FapiClient; then the
     same slots through ``serve_phy`` in a thread, for the launch counts."""
     cases = flagship.du_kernel_cases(rng, dev)
-    results = kernel_phases(cases, du_library(cases))
+    one_launch_a_call(cases)
+    results = kernel_phases(cases, {**du_library(cases), **rs_library(cases)})
     for name in [n for n in cases if n.endswith("_b4")]:
         kernel, _, args = cases[name]
         got = kernel(*args)
@@ -2846,8 +2878,9 @@ def du_low_phase(dev, gen, rng, card) -> tuple:
                                                                     args, b))):
                 raise AssertionError(f"{name}: slot {b} differs from B = 1")
     print("K25-K27 bit-exact to their twins at the DU-low shapes and at "
-          "B = 4 slot by slot against B = 1; K25/K26: no single PyTorch "
-          "call computes them (library: null)", flush=True)
+          "B = 4 slot by slot against B = 1; K25: no single PyTorch call "
+          "computes it (library: null); K26 beside its scatter stage "
+          "(index_put_)", flush=True)
     # K27's wrapper on prebuilt PDUs beside the torch.matmul of its GF(2)
     # stage (one product per PDU), and building the slot's PDUs
     calls, library = launch_profile.control_calls(
@@ -3156,12 +3189,13 @@ def du_alloc_phase(dev, rng, card, du: dict) -> tuple:
     E and F (K4, K28, K15), then the same through ``serve_phy`` in a thread
     with the launch counts reset before and read after."""
     cases = flagship.alloc_kernel_cases(rng, dev)
-    results = kernel_phases(cases)
+    results = kernel_phases(cases, rs_library(cases))
     print("K28, and K26 (type 0 with 61 PRG matrices, interleaved, type 2 "
           "on ports 0, 1, 4, 5), K2 (type 0, n_ref 3N/4) and K15 (an AL16 "
           "DCI with its syndrome, a PBCH codeword; one per launch, as the "
-          "UE side) held to their twins (bit-exact); library: null (no single PyTorch call computes them)",
-          flush=True)
+          "UE side) held to their twins (bit-exact); library: K26's scatter "
+          "stage (index_put_), null for the others (no single PyTorch call "
+          "computes them)", flush=True)
 
     deadline = time.monotonic() + DU_PHASE_S
     pay = flagship.du_alloc_payloads(rng)

@@ -36,27 +36,45 @@
 // the CDM group's subcarriers.  Twin:
 // srsran_tpu_torch/ops/dl_rs.py::dmrs_map_ref.
 //
-// Design.  One thread per (DM-RS symbol, allocated PRB, subcarrier of the
-// PRB, port).  The PRB comes from a table of the allocation's PRBs
-// (uploaded once per allocation; a contiguous one reads it too), and the
-// pilot index from the PRB's rank in the table: the pilots are the
-// allocated PRBs' columns of the Gold sequence, selected on the host (JAX
-// dmrs.py::_prb_pilot_select).  The thread reads the grid value once and,
-// for each layer whose CDM group (port >> 1 in both types) occupies the
-// subcarrier, in layer order, adds W[g][p, l] x pilot_l (W the one [P, L]
-// matrix, g = 0, or the PRG table's matrix of the subcarrier's PRG,
-// counted from the PRG of the first allocated PRB); without a matrix,
-// layer l goes to port l alone.  Layers of one CDM group share REs, so an
-// RE holds ((g + w0 p0) + w1 p1) as in the JAX package, which adds layer
-// after layer.
+// Design.  One thread per (slot, DM-RS symbol, allocated PRB, subcarrier
+// pair (kk, kk + 1), kk even), over every port: both REs of a pair share
+// what the thread needs.  In type 1 the pair holds one RE of CDM group 0
+// and one of group 1, both at pilot m = 6 j + kk / 2 of the allocation's
+// pilots (j the PRB's rank); in type 2 both REs belong to group (kk mod 6)
+// / 2, at pilots m = 4 j + 2 (kk >= 6) and m + 1 (a thread whose group no
+// layer uses returns at once).  The pilots are the allocated PRBs'
+// columns of the Gold sequence, selected on the host (JAX
+// dmrs.py::_prb_pilot_select).  Symbol and slot are blockIdx.y and
+// blockIdx.z, the PRB rank the pair index over the compile-time 6; a
+// contiguous allocation's PRB is prb0 + j in closed form, a scattered one
+// (RA type 0, interleaved VRBs) reads its PRB table once.  Everything else
+// comes by value in DmrsMapParams: the DM-RS symbols, the layers' ports
+// byte-packed, the type, the PRG size and base.  The thread loads its one
+// or two pilots and the precoder entries it needs (the one [P, L] matrix,
+// or its PRB's row of the PRG table counted from the PRG of the first
+// allocated PRB, through L1; the matrix is a device tensor of the slot
+// context, so it cannot ride in the struct without a host sync), then each
+// port's pair as one 16-byte load, adds for each RE, in layer order, the
+// layers of its CDM group (W[p, l] x pilot_l with w_f = -1 on odd pilots
+// for odd ports, w_t = +1; without a matrix layer l on port l alone), and
+// stores the pair as one 16-byte store.  Layers of one CDM group share REs,
+// so an RE holds ((g + w0 p0) + w1 p1) as in the JAX package, which adds
+// layer after layer; products and sums are rounded one by one (__fmul_rn /
+// __fadd_rn), as the twin rounds them.  32-bit offsets (the wrapper
+// refuses more than 2^31 elements), no runtime division but a PRG size
+// that is no power of two.  One build per precoder form and port count (up
+// to 4 or 8): on an H100 a build holding every form's code ran 0.15-0.25
+// us slower a launch (its code fetched cold), and a thread per (pair,
+// port, symbol) ran no faster, and 0.4 us slower over a batch of 4.
 //
 // Bounds on this card: bytes -- the DM-RS REs of every port read and
 // written once (4 ports x 2 symbols x 3,276 subcarriers at the flagship),
 // the base pilots, the PRB table and the matrices read once.
 //
-// A slot axis (the slot-batch mode): blockIdx.y picks the slot; the grid
-// lies at a fixed per-slot stride, each value source at its own (0: one
-// set shared by every slot); the plans are shared.
+// A slot axis (the slot-batch mode): K25's blockIdx.y, K26's blockIdx.z
+// picks the slot; the grid lies at a fixed per-slot stride, each value
+// source (K25) or pilot set and matrix (K26) at its own (0: one set shared
+// by every slot); the plans are shared.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -70,10 +88,29 @@ struct RsSources {
   long long stride[kMaxSources];        // complex values per slot (0: shared)
 };
 
-namespace {
-
 constexpr int kMaxLayers = 4;
 constexpr int kMaxDmrsSymbols = 4;
+
+// K26's launch, by value (srsran_tpu_torch/kernels/_build.py
+// DmrsMapParams): the grid [nslots, P, S, K]; the allocation's nprb PRBs
+// (prb0 + j when contiguous, else the PRB table) and their npairs = 6 nprb
+// subcarrier pairs; L layers on the DM-RS ports byte-packed in ports
+// (layer 0 lowest); type2 0 for configuration type 1, 1 for type 2; wkind
+// 0 (no matrix: layer l on port l), 1 (one [P, L] matrix) or 2 (a PRG
+// table [G, P, L], PRG (prb >> prg_shift, or prb / prg_size when
+// prg_shift < 0) - prg_base); npil pilots a DM-RS symbol; the pilots' and
+// the matrices' complex elements a slot (0: shared); the DM-RS symbols
+// (-1 past the last).
+struct DmrsMapParams {
+  int nslots, P, S, K, nprb, npairs, L, ports, type2, prb0, contiguous,
+      wkind, prg_shift, prg_size, prg_base, npil, pilot_stride, w_stride;
+  int symbols[kMaxDmrsSymbols];
+};
+
+namespace {
+
+constexpr int kDmrsMaxPorts = 8;
+constexpr int kDmrsThreads = 64;
 
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(__fsub_rn(__fmul_rn(a.x, b.x), __fmul_rn(a.y, b.y)),
@@ -104,48 +141,92 @@ __global__ void rs_map_kernel(RsSources src, const long long* __restrict__ tgt,
   *g = acc;
 }
 
-// ports: the DM-RS port of each layer (0..5), 8 bits each, layer 0 lowest.
-// type2: 0 for configuration type 1 (6 pilots a PRB), 1 for type 2 (4).
-__global__ void dmrs_map_kernel(const float2* __restrict__ pilots,
-                                long long pilot_stride,
-                                const int* __restrict__ symbols, int nsym,
-                                int ports, int L, const float2* __restrict__ w,
-                                long long w_stride, int prg_size, int prg_base,
-                                const int* __restrict__ prbs, int nprb,
-                                int type2, float2* __restrict__ grid, int P,
-                                int S, int K) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= nsym * nprb * 12 * P) return;
-  const int p = i % P;
-  const int kk = (i / P) % 12;                      // subcarrier in the PRB
-  const int j = (i / (P * 12)) % nprb;              // rank of the PRB
-  const int si = i / (P * 12 * nprb);
-  const long long slot = blockIdx.y;
-  const int k = prbs[j] * 12 + kk;                  // subcarrier
-  const int per_rb = type2 ? 4 : 6;
-  const int group = type2 ? (kk % 6) >> 1 : kk & 1; // CDM group at kk
-  // the pilot index on the group's subcarriers of the allocation
-  const int m = j * per_rb + (type2 ? ((kk >= 6) << 1) + (kk & 1) : kk >> 1);
-  const int npil = per_rb * nprb;
-  const float2* pv_row = pilots + slot * pilot_stride + (long long)si * npil;
-  const float2* wp = nullptr;
-  if (w != nullptr) {
-    wp = w + slot * w_stride;
-    if (prg_size > 0) wp += (long long)(k / 12 / prg_size - prg_base) * P * L;
+__device__ __forceinline__ float2 neg(float2 a) {
+  return make_float2(-a.x, -a.y);
+}
+
+// NP: the ports the build holds in registers (4, or kDmrsMaxPorts); WK:
+// the precoder's form (DmrsMapParams::wkind)
+template <int NP, int WK>
+__global__ void __launch_bounds__(kDmrsThreads)
+dmrs_map_kernel(float2* __restrict__ grid, const float2* __restrict__ pilots,
+                const float2* __restrict__ w, const int* __restrict__ prbs,
+                const DmrsMapParams p) {
+  const int t = blockIdx.x * kDmrsThreads + threadIdx.x;
+  if (t >= p.npairs) return;
+  const int si = blockIdx.y, b = blockIdx.z;
+  const int j = (unsigned)t / 6u, q = t - 6 * j;   // PRB rank, pair
+  // the pair's CDM groups and pilot indices
+  const int g0 = p.type2 ? (q >= 3 ? q - 3 : q) : 0;
+  const int g1 = p.type2 ? g0 : 1;
+  const int m0 = p.type2 ? 4 * j + ((q >= 3) << 1) : 6 * j + q;
+  bool any = false;
+#pragma unroll
+  for (int l = 0; l < kMaxLayers; ++l)
+    if (l < p.L) {
+      const int g = (p.ports >> (8 * l + 1)) & 0x7f;
+      any |= g == g0 || g == g1;
+    }
+  if (!any) return;                               // type 2: no layer here
+
+  // Every load of the thread before the grid's: its pilots, its precoder
+  // entries, its PRB.
+  const float2* pv = pilots + b * p.pilot_stride + si * p.npil + m0;
+  const float2 pv0 = __ldg(pv);
+  const float2 pv1 = p.type2 ? __ldg(pv + 1) : pv0;
+  const int prb = p.contiguous ? p.prb0 + j : __ldg(prbs + j);
+  const float2* wr = w + b * p.w_stride;
+  if (WK == 2)
+    wr += ((p.prg_shift >= 0 ? prb >> p.prg_shift : prb / p.prg_size) -
+           p.prg_base) * p.P * p.L;
+  float2 wv[NP][kMaxLayers];
+  if (WK)
+#pragma unroll
+    for (int o = 0; o < NP; ++o)
+#pragma unroll
+      for (int l = 0; l < kMaxLayers; ++l)
+        if (o < p.P && l < p.L) wv[o][l] = __ldg(wr + o * p.L + l);
+  const int sym = si == 0 ? p.symbols[0] : si == 1 ? p.symbols[1]
+                : si == 2 ? p.symbols[2] : p.symbols[3];
+  float2* gp = grid + ((b * p.P) * p.S + sym) * p.K + 12 * prb + 2 * q;
+  const int pstride = p.S * p.K;
+  float4 v[NP];
+#pragma unroll
+  for (int o = 0; o < NP; ++o)
+    if (o < p.P && (WK || o < p.L))
+      v[o] = *reinterpret_cast<const float4*>(gp + o * pstride);
+
+  // Each layer's covered pilot on each RE of the pair (w_f = -1 on odd
+  // pilots for odd ports; m0 is odd only in type 1, m0 + 1 always).
+  float2 x0[kMaxLayers], x1[kMaxLayers];
+  bool a0[kMaxLayers], a1[kMaxLayers];
+#pragma unroll
+  for (int l = 0; l < kMaxLayers; ++l) {
+    const int port = (p.ports >> (8 * l)) & 0xff;
+    a0[l] = l < p.L && (port >> 1) == g0;
+    a1[l] = l < p.L && (port >> 1) == g1;
+    const bool odd = port & 1;
+    x0[l] = odd && (m0 & 1) ? neg(pv0) : pv0;
+    x1[l] = odd && (p.type2 || (m0 & 1)) ? neg(pv1) : pv1;
   }
-  float2* gp = grid + slot * (long long)P * S * K
-               + ((long long)p * S + symbols[si]) * K + k;
-  float2 acc = *gp;
-  for (int l = 0; l < L; ++l) {
-    const int port = (ports >> (8 * l)) & 0xff;
-    if ((port >> 1) != group) continue;             // the CDM group's REs
-    if (wp == nullptr && l != p) continue;          // layer l -> port l
-    float2 pv = pv_row[m];
-    // w_f = (+1, -1) on odd pilots for odd ports; w_t = +1 for every port
-    if ((port & 1) && (m & 1)) pv = make_float2(-pv.x, -pv.y);
-    acc = cadd(acc, wp == nullptr ? pv : cmul(wp[p * L + l], pv));
+#pragma unroll
+  for (int o = 0; o < NP; ++o) {
+    if (o >= p.P || (!WK && o >= p.L)) continue;
+    float2 acc0 = make_float2(v[o].x, v[o].y);
+    float2 acc1 = make_float2(v[o].z, v[o].w);
+#pragma unroll
+    for (int l = 0; l < kMaxLayers; ++l) {
+      if (WK) {
+        if (a0[l]) acc0 = cadd(acc0, cmul(wv[o][l], x0[l]));
+        if (a1[l]) acc1 = cadd(acc1, cmul(wv[o][l], x1[l]));
+      } else if (l == o) {
+        if (a0[l]) acc0 = cadd(acc0, x0[l]);
+        if (a1[l]) acc1 = cadd(acc1, x1[l]);
+      }
+    }
+    *reinterpret_cast<float4*>(gp + o * pstride) =
+        make_float4(acc0.x, acc0.y, acc1.x, acc1.y);
   }
-  *gp = acc;
 }
 
 }  // namespace
@@ -165,22 +246,38 @@ extern "C" int srsran_rs_map(RsSources src, void* tgt, void* start,
   return (int)cudaGetLastError();
 }
 
-extern "C" int srsran_dmrs_map(void* pilots, long long pilot_stride,
-                               void* symbols, int nsym, int ports, int L,
-                               void* w, long long w_stride, int prg_size,
-                               int prg_base, void* prbs, int nprb,
-                               int config_type, void* grid, int P, int S,
-                               int K, int nslots, void* stream) {
-  if (L < 1 || L > kMaxLayers || nsym < 1 || nsym > kMaxDmrsSymbols
-      || nslots < 1 || prg_size < 0 || nprb < 1
-      || (config_type != 1 && config_type != 2))
+// For `nslots` slots of grid c64 [nslots, P, S, K] (DmrsMapParams; 16-byte
+// aligned, K even), in place: pilots c64 [(nslots,) S_dmrs, npil], w null,
+// one [(nslots,) P, L] matrix or a PRG table [(nslots,) G, P, L], the PRB
+// table int32 [nprb] (read only when not contiguous).
+extern "C" int srsran_dmrs_map(void* grid, const void* pilots, const void* w,
+                               void* stream, const void* params,
+                               const void* prbs) {
+  const DmrsMapParams* p = (const DmrsMapParams*)params;
+  if (p->L < 1 || p->L > kMaxLayers || p->S < 1 || p->nprb < 1 ||
+      p->npairs != 6 * p->nprb || p->P < 1 || p->P > kDmrsMaxPorts ||
+      p->nslots < 1 || p->wkind < 0 || p->wkind > 2 || (p->K & 1) ||
+      (p->wkind == 0 && p->L > p->P) || (p->wkind && w == nullptr) ||
+      (p->wkind == 2 && p->prg_shift < 0 && p->prg_size < 1))
     return (int)cudaErrorInvalidValue;
-  const long long n = (long long)nsym * nprb * 12 * P;
-  const int threads = 128;
-  const dim3 blocks((unsigned)((n + threads - 1) / threads), nslots);
-  dmrs_map_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float2*)pilots, pilot_stride, (const int*)symbols, nsym, ports,
-      L, (const float2*)w, w_stride, prg_size, prg_base, (const int*)prbs,
-      nprb, config_type == 2, (float2*)grid, P, S, K);
+  int nsym = 0;
+  while (nsym < kMaxDmrsSymbols && p->symbols[nsym] >= 0) ++nsym;
+  if (nsym < 1) return (int)cudaErrorInvalidValue;
+  const dim3 blocks((p->npairs + kDmrsThreads - 1) / kDmrsThreads, nsym,
+                    p->nslots);
+  // a build for up to 4 ports (the flagship's) and one for up to 8 (twice
+  // the registers for the matrix and the pairs), each for one precoder
+  // form: the build that held every form's code ran 0.15-0.25 us slower a
+  // launch on an H100 (launch_profile --cases dmrs_map)
+  using Kernel = void (*)(float2*, const float2*, const float2*, const int*,
+                          const DmrsMapParams);
+  const Kernel forms[2][3] = {
+      {dmrs_map_kernel<4, 0>, dmrs_map_kernel<4, 1>, dmrs_map_kernel<4, 2>},
+      {dmrs_map_kernel<kDmrsMaxPorts, 0>, dmrs_map_kernel<kDmrsMaxPorts, 1>,
+       dmrs_map_kernel<kDmrsMaxPorts, 2>}};
+  forms[p->P > 4][p->wkind]<<<blocks, kDmrsThreads, 0,
+                              (cudaStream_t)stream>>>(
+      (float2*)grid, (const float2*)pilots, (const float2*)w,
+      (const int*)prbs, *p);
   return (int)cudaGetLastError();
 }

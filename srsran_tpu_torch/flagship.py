@@ -2554,6 +2554,91 @@ def uci_profile_cases(gen: torch.Generator, device) -> dict:
     return cases
 
 
+# K11's further SRS occasions: 4 SRS ports on 48 RB at comb 4 (K = 144),
+# and the widest, 4 ports on 272 RB at comb 2 over 4 symbols (K = 1632).
+SRS_48RB = srs.SrsConfig(rb_start=200, rb_count=48, start_symbol=13,
+                         nof_symbols=1, comb=4, comb_offset=0, cyclic_shift=0,
+                         nof_ports=4, sequence_id=1, numerology=1)
+SRS_WIDEST = srs.SrsConfig(rb_start=0, rb_count=272, start_symbol=10,
+                           nof_symbols=4, comb=2, comb_offset=1,
+                           cyclic_shift=3, nof_ports=4, sequence_id=7,
+                           numerology=1)
+
+
+def _srs_case(cfg, grids: torch.Tensor, k8: bool) -> tuple:
+    """K11's arguments on ``grids`` ([(B,) P, 14, K]): the TA and RSRP of
+    K8's estimate (its strided views over a slot axis), as ``estimate``
+    hands them on, or with ``k8`` False of K8's twin (K8 holds at most
+    ~2,000 averages a TA row in shared memory: not a comb of 1632)."""
+    args, kw = srs.estimate_args(grids, cfg)
+    est = (chest.estimate_from_grid if k8 else chest.estimate_from_grid_ref)(
+        *args, **kw)
+    return (grids, cfg, est.time_alignment_s, est.rsrp)
+
+
+def rs_profile_cases(device) -> dict:
+    """K11's and K26's cases for ``launch_profile`` and ``chip_smoke.py``:
+    name -> (wrapper, twin, args), each wrapper in place (K26 adds into the
+    case's grid; check it on copies).  K11 (``srs.srs_noise``) on the
+    flagship SRS (``srs_noise``: 4 rx ports, K = 24, 1 SRS port, 1 symbol),
+    over a batch of 4 (``_batch4``), on :data:`SRS_48RB` (``_48rb``: K =
+    144, 4 SRS ports) and :data:`SRS_WIDEST` (``_k1632``: K = 1632, 4
+    ports, 4 symbols), each sent through a seeded 4 x L channel with noise
+    at 26 dB a RE, TA and RSRP from K8 as ``srs.estimate`` takes them (from
+    its twin at K = 1632, :func:`_srs_case`); K26 (``dl_rs.dmrs_map``) on
+    the flagship PDSCH (``dmrs_map``: 4 layers, 2 symbols, 273 RB, type 1,
+    identity [4, 4]), over a batch of 4 with
+    per-slot pilots (``_b4``), with 69 PRG matrices (``_prg``), slot E's
+    type 0 PRBs with their PRG matrices (``_type0``), slot F's interleaved
+    PRBs (``_interleaved``) and type 2 on ports 0, 1, 4, 5 with a [4, 4]
+    matrix (``_type2``), on seeded grids."""
+    rng = np.random.default_rng(28)
+
+    def cn(*shape):
+        return _up(((rng.standard_normal(shape) + 1j * rng.standard_normal(
+            shape)) / np.sqrt(2)).astype(np.complex64), device)
+
+    def srs_grid(cfg):
+        p = CELL.nof_ports
+        tx = srs.map_to_grid(torch.zeros((p, 14, CELL.nof_sc),
+                                         dtype=torch.complex64,
+                                         device=device), cfg)
+        return (torch.einsum("rp,psk->rsk", cn(p, p), tx)
+                + 0.05 * cn(p, 14, CELL.nof_sc))
+
+    cases = {}
+    for name, cfg, b in (("srs_noise", SRS, None),
+                         ("srs_noise_batch4", SRS, BATCH),
+                         ("srs_noise_48rb", SRS_48RB, None),
+                         ("srs_noise_k1632", SRS_WIDEST, None)):
+        grids = (srs_grid(cfg) if b is None
+                 else torch.stack([srs_grid(cfg) for _ in range(b)]))
+        cases[name] = (srs.srs_noise, srs.srs_noise_ref,
+                       _srs_case(cfg, grids, cfg is not SRS_WIDEST))
+    dcfg = pdsch.dmrs_config(PDSCH)
+    type2 = dmrs.DmrsConfig(rb_start=0, rb_count=CELL.nof_rb, symbols=(2, 11),
+                            ports=(0, 1, 4, 5), scrambling_id=1,
+                            config_type=2, slot_in_frame=3)
+    e_cfg = pdsch.dmrs_config(DU_E_PDSCH)
+    for name, cfg, w, prg_size, b in (
+            ("dmrs_map", dcfg, pdsch.identity(4, 4, device), 0, None),
+            ("dmrs_map_b4", dcfg, pdsch.identity(4, 4, device), 0, BATCH),
+            ("dmrs_map_prg", dcfg, cn(69, 4, 4), PRG_SIZE, None),
+            ("dmrs_map_type0", e_cfg,
+             cn(len(DU_E_PDSCH.precoding.pm_indices), 4, 4), PRG_SIZE, None),
+            ("dmrs_map_interleaved", pdsch.dmrs_config(DU_F_PDSCH),
+             pdsch.identity(4, 4, device), 0, None),
+            ("dmrs_map_type2", type2, cn(4, 4), 0, None)):
+        lead = (b,) if b else ()
+        pil = _up(np.stack([dmrs.pilot_values_for(dataclasses.replace(
+            cfg, slot_in_frame=2 * k + 1)) for k in range(b or 1)]), device)
+        cases[name] = (dl_rs.dmrs_map, dl_rs.dmrs_map_ref, (
+            cn(*lead, CELL.nof_ports, 14, CELL.nof_sc), pil if b else pil[0],
+            w, cfg.ports, cfg.symbols, cfg.prb_list, prg_size,
+            cfg.config_type))
+    return cases
+
+
 # ------------------------------------------------------------- split 8
 
 # apps/ssb_tx.py's cell at the flagship width: 1 port, 273 RB, 4096 FFT.

@@ -9,8 +9,8 @@ build on every run, so the sources compile side by side.  Pointers and the strea
 ``ctypes.c_void_p``; every C entry point returns ``cudaGetLastError()``
 after its launches, and :func:`check` raises on anything but 0.
 :class:`Launch` is the lean form of that path (K1, K3, K4, K5, K6, K7, K8,
-K9, K10, K12, K13, K14, K15, K16, K22, K32, K21, K18, K19, K27, K33, K34
-and K35 take it): a
+K9, K10, K11, K12, K13, K14, K15, K16, K22, K26, K32, K21, K18, K19, K27,
+K33, K34 and K35 take it): a
 wrapper keeps one per call signature with the bound C function, a
 parameter struct passed by address and its device tables, and a call
 passes only the tensors' pointers and the current stream.
@@ -332,6 +332,35 @@ class F2DemapParams(ctypes.Structure):
         "threads")] + [("level", _F),
                        ("gold", ctypes.c_uint * F2_GOLD_WORDS)]
 
+SRS_MAX_RX_PORTS = 16     # csrc/srs_estimate.cu kSrsMaxRxPorts
+SRS_MAX_LAYERS = 8        # csrc/srs_estimate.cu kSrsMaxLayers
+SRS_MAX_SYMBOLS = 4       # csrc/srs_estimate.cu kSrsMaxSymbols
+SRS_MAX_WARPS = 8         # csrc/srs_estimate.cu kSrsMaxWarps
+
+
+class SrsNoiseParams(ctypes.Structure):
+    """csrc/srs_estimate.cu's SrsNoiseParams (K11's launch), by address."""
+
+    _fields_ = [(name, _I) for name in (
+        "slots", "P", "nsym", "nsc", "sc0", "comb", "s0", "S", "K", "L",
+        "lw", "ppc", "J", "ta_stride", "rsrp_stride")] + [
+        ("c", _F), ("inv_sk", _F), ("sdof", _F)]
+
+
+DMRS_MAX_LAYERS = 4       # csrc/dl_rs_map.cu kMaxLayers
+DMRS_MAX_SYMBOLS = 4      # csrc/dl_rs_map.cu kMaxDmrsSymbols
+DMRS_MAX_PORTS = 8        # csrc/dl_rs_map.cu kDmrsMaxPorts
+
+
+class DmrsMapParams(ctypes.Structure):
+    """csrc/dl_rs_map.cu's DmrsMapParams (K26's launch), by address."""
+
+    _fields_ = [(name, _I) for name in (
+        "nslots", "P", "S", "K", "nprb", "npairs", "L", "ports", "type2",
+        "prb0", "contiguous", "wkind", "prg_shift", "prg_size", "prg_base",
+        "npil", "pilot_stride", "w_stride")] + [
+        ("symbols", _I * DMRS_MAX_SYMBOLS)]
+
 # C entry points and their argument types (see the matching .cu file).
 SIGNATURES = {
     "srsran_ldpc_decode": [_P] * 7,
@@ -351,8 +380,7 @@ SIGNATURES = {
     "srsran_prach_prepare": [_I],
     "srsran_prach_detect": [_P] * 7,
     "srsran_pucch_f1": [_P] * 13,
-    "srsran_srs_noise": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _F, _P, _P,
-                         _I, _P, _I, _P],
+    "srsran_srs_noise": [_P] * 7,
     "srsran_pucch_f0": [_P] * 8,
     "srsran_pucch_f2_demap": [_P] * 6,
     "srsran_short_block_detect": [_P] * 6,
@@ -372,8 +400,7 @@ SIGNATURES = {
                                        _P],
     "srsran_bfp_decompress": [_P, _P, _I, _P, _P],
     "srsran_rs_map": [RsSources, _P, _P, _P, _P, _P, _I, _P, _L, _I, _P],
-    "srsran_dmrs_map": [_P, _L, _P, _I, _I, _I, _P, _L, _I, _I, _P, _I, _I,
-                        _P, _I, _I, _I, _I, _P],
+    "srsran_dmrs_map": [_P] * 6,
     "srsran_control_map": [_P] * 8,
     "srsran_control_llrs": [_P, _P, _P, _I, _P, _P, _I, _F, _P, _P],
     "srsran_polar_scl": [_P, _I, _I, _I, _P, _I, _P, _P, _I, _I, _I, _P, _P,

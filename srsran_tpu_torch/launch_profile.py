@@ -1,8 +1,8 @@
 """The host side of a kernel launch on one CUDA GPU: K1's, K3's, K4's,
-K5's, K6's, K7's, K8's, K10's, K12's, K13's, K14's, K15's, K32's, K21's,
-K18's, K19's, K22's, K27's, K33's, K34's and K35's wrappers against one
-PyTorch call each (K1, K3, K6, K8, K10, K13, K15, K22: none computes it;
-their device µs alone).
+K5's, K6's, K7's, K8's, K10's, K11's, K12's, K13's, K14's, K15's, K26's,
+K32's, K21's, K18's, K19's, K22's, K27's, K33's, K34's and K35's wrappers
+against one PyTorch call each (K1, K3, K6, K8, K10, K13, K15, K22: none
+computes it; their device µs alone).
 
     python3 -m srsran_tpu_torch.launch_profile [--calls 1000] [--out DIR]
         [--cases PREFIX ...]
@@ -90,7 +90,16 @@ and over a slot axis of 4 (``_batch4``), from
 (:func:`uci_calls`), each beside its correlation stage as one PyTorch call
 (:func:`uci_stage`: ``torch.einsum`` / ``torch.matmul``); ``--cases
 pucch_f0 short_block`` (which also keeps K34's ``short_block_encode``
-cases), ~1 min.
+cases), ~1 min; K11 (``srs.srs_noise``) on the flagship SRS
+(``srs_noise``), a batch of 4 (``_batch4``), 48 RB at comb 4 with 4 SRS
+ports (``_48rb``) and K = 1632 (``_k1632``), and K26
+(``dl_rs.dmrs_map``, in place) on the flagship PDSCH (``dmrs_map``), a
+batch of 4 (``_b4``), 69 PRGs (``_prg``), slot E's type 0 PRBs
+(``_type0``), slot F's interleaved PRBs (``_interleaved``) and type 2
+(``_type2``), from ``flagship.rs_profile_cases`` (:func:`rs_calls`), each
+beside its named stage as one PyTorch call (:func:`rs_stage`: K11's
+wideband ``torch.einsum``, K26's scatter ``index_put_``); ``--cases
+srs_noise dmrs_map``, ~1 min.
 ``--cases`` keeps the cases whose names start with one of the prefixes
 (and skips the pieces below, and building the cases it leaves out).  Per
 case and call it reports:
@@ -136,12 +145,12 @@ import torch
 from . import flagship
 from .device import card_line, const, require_cuda
 from .kernels import _build
-from .ops import (dl_control, ldpc_encode, ldpc_rate_match, llr, ofdm,
-                  short_block, ul_demap)
+from .ops import (dl_control, dl_rs, ldpc_encode, ldpc_rate_match, llr,
+                  ofdm, short_block, ul_demap)
 from .ops.crc import crc
 from .ops.transform_precode import deprecode
 from .phy.lower import prach_demod
-from .phy.upper import pdcch, prach, pucch, ssb, uci
+from .phy.upper import pdcch, prach, pucch, srs, ssb, uci
 from .profile_slot import profiled, top_activities
 from .ran.ldpc_params import segment_tb
 
@@ -747,6 +756,66 @@ def uci_calls(gen: torch.Generator, rng: np.random.Generator,
     return calls, library
 
 
+def rs_stage(name: str, args: tuple):
+    """The one PyTorch call of K11's or K26's named stage on the case's
+    inputs, made ready once: K11's wideband stage
+    ``torch.einsum("psk,lk->pl", rx, seq.conj() * ramp)`` on the gathered
+    comb [(B,) P, S, K] (a slot axis as "bpsk,blk->bpl", a ramp a slot),
+    K26's scatter stage, ``index_put_`` with ``accumulate=True`` of the
+    precomputed precoded pilots at their REs (the grid's float32 view: every
+    DM-RS RE of the layers' CDM groups on every port they reach); a stage of
+    the function, not the whole."""
+    if isinstance(args[1], srs.SrsConfig):
+        grid, cfg, ta, _ = args
+        dev = grid.device
+        rx = grid[..., list(srs._symbols(cfg)), :][
+            ..., torch.as_tensor(srs.sc_indices(cfg), device=dev).long()]
+        seq = torch.from_numpy(srs._expected(cfg)[:, 0]).to(dev)
+        k = torch.arange(cfg.seq_len, dtype=torch.float32, device=dev)
+        ramp = torch.exp(1j * (srs._ramp_scale(cfg) * ta.float())[..., None]
+                         * k).to(torch.complex64)
+        cs = seq.conj() * ramp[..., None, :]
+        eq = "psk,lk->pl" if rx.ndim == 3 else "bpsk,blk->bpl"
+        return lambda: torch.einsum(eq, rx, cs)
+    grid, pilots, w, ports, symbols, prbs, prg_size, config_type = args
+    delta = dl_rs.dmrs_map_ref(torch.zeros_like(grid), *args[1:])
+    p, s, k = grid.shape[-3:]
+    groups = {q >> 1 for q in ports}
+    sc = np.concatenate([dl_rs._comb(prbs, g, config_type) for g in groups])
+    rows = [(o, l) for o in range(p) for l in symbols
+            if w is not None or o < len(ports)]
+    flat = np.concatenate([(o * s + l) * k + sc for o, l in rows])
+    nb = grid.numel() // (p * s * k)
+    flat = (np.arange(nb)[:, None] * (p * s * k) + flat[None]).ravel()
+    idx = torch.as_tensor(np.stack([2 * flat, 2 * flat + 1], -1).ravel(),
+                          device=grid.device)
+    vals = torch.view_as_real(delta).reshape(-1)[idx]
+    target = torch.view_as_real(grid.clone()).reshape(-1)
+    return lambda: target.index_put_((idx,), vals, accumulate=True)
+
+
+def rs_calls(dev) -> tuple:
+    """K11's and K26's (calls, library) by name
+    (``flagship.rs_profile_cases``), each checked against its twin once
+    (K11 at rtol 1e-4 and within 1e-4 of the largest value, K26 bit-equal
+    on copies of the grid), beside its named stage's library call
+    (:func:`rs_stage`).  The timed K26 calls add into the case's grid again
+    and again (no copy in the time)."""
+    calls, library = {}, {}
+    for name, (fn, twin, a) in flagship.rs_profile_cases(dev).items():
+        if name.startswith("dmrs_map"):
+            if not torch.equal(fn(a[0].clone(), *a[1:]),
+                               twin(a[0].clone(), *a[1:])):
+                raise AssertionError(f"{name}: K26 differs from its twin")
+        else:
+            for o, r in zip(fn(*a), twin(*a)):
+                torch.testing.assert_close(o, r, rtol=1e-4, atol=1e-4 * float(
+                    r.abs().max()), msg=name)
+        library[name] = rs_stage(name, a)
+        calls[name] = lambda fn=fn, a=a: fn(*a)
+    return calls, library
+
+
 def _entry(loader, argtype):
     """K32's C entry point loaded through ``loader`` (ctypes.CDLL releases
     the interpreter lock around the call, ctypes.PyDLL keeps it) with four
@@ -862,7 +931,8 @@ def main(argv=None) -> dict:
                 (("pucch_f1_detect", "pucch_f2_demap"),
                  lambda: pucch_calls(gen, rng, dev)),
                 (("pucch_f0_detect", "short_block_detect"),
-                 lambda: uci_calls(gen, rng, dev)))
+                 lambda: uci_calls(gen, rng, dev)),
+                (("srs_noise", "dmrs_map"), lambda: rs_calls(dev)))
     for prefixes, build in builders:
         if _wanted(args.cases, prefixes):
             more_calls, more_library = build()

@@ -15,8 +15,10 @@ products and sums rounded one by one, as the kernel rounds them.
 K26, :func:`dmrs_map`.  srsran_tpu/phy/upper/dmrs.py::map_to_grid (:198)
 adds the DM-RS of each layer (configuration type 1 or 2, on a contiguous
 or scattered PRB set), precoded by the port's matrix or by the RE's PRG
-matrix; the kernel does it for every layer, symbol and port in one launch,
-and :func:`dmrs_map_ref` is its twin.
+matrix; the kernel does it for every layer, symbol and port in one launch
+(a thread a subcarrier pair over every port), through a plan per call
+signature on ``kernels/_build.py::Launch`` (:func:`_dmrs_plan`, its
+struct :func:`_dmrs_params`), and :func:`dmrs_map_ref` is its twin.
 
 On CPU tensors both run their twins; on CUDA tensors they launch their
 kernel or raise.  Both take a leading slot axis on the grid (the
@@ -28,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import numpy as np
 import torch
@@ -270,6 +273,81 @@ def dmrs_map_ref(grid: torch.Tensor, pilots: torch.Tensor, w, ports: tuple,
     return grid
 
 
+def _dmrs_params(shapes: tuple, ports: tuple, symbols: tuple, prbs,
+                 prg_size: int, config_type: int) -> _build.DmrsMapParams:
+    """K26's parameters for one call signature: the shapes of the grid, the
+    pilots and the matrix (None: none), the layers' ports, the DM-RS
+    symbols, the allocation's sorted PRBs, the PRG size and the type;
+    raises on what the kernel does not take."""
+    _check_dmrs(ports, symbols, config_type)
+    grid_s, pil_s, w_s = shapes
+    lead = tuple(grid_s[:-3])
+    p, s, k = grid_s[-3:]
+    nprb = len(prbs)
+    npil = PILOTS_PER_PRB[config_type] * nprb
+    n_l = len(ports)
+    if (len(lead) > 1 or tuple(pil_s[-2:]) != (len(symbols), npil)
+            or tuple(pil_s[:-2]) not in ((), lead)
+            or nprb == 0 or min(prbs) < 0 or 12 * (max(prbs) + 1) > k
+            or max(symbols) >= s or min(symbols) < 0):
+        raise ValueError(f"DM-RS map: grid {tuple(grid_s)}, pilots "
+                         f"{tuple(pil_s)} vs {len(symbols)} symbols "
+                         f"x {npil}, {nprb} PRBs")
+    if not 0 < p <= _build.DMRS_MAX_PORTS:
+        raise ValueError(f"{p} grid ports: K26 takes 1 to "
+                         f"{_build.DMRS_MAX_PORTS}")
+    if k % 2:
+        raise ValueError(f"{k} subcarriers: K26 stores subcarrier pairs "
+                         f"and takes an even count")
+    slots = lead[0] if lead else 1
+    if slots * p * s * k >= 1 << 31:
+        raise ValueError("K26 takes at most 2^31 elements a grid (32-bit "
+                         "offsets)")
+    wkind, w_stride = 0, 0
+    if w_s is None:
+        if n_l > p:
+            raise ValueError(f"{n_l} layers without a matrix on {p} ports")
+    else:
+        table = 1 if prg_size else 0
+        w_lead = tuple(w_s[:len(w_s) - 2 - table])
+        if (tuple(w_s[-2:]) != (p, n_l) or w_lead not in ((), lead)
+                or len(w_s) < 2 + table):
+            raise ValueError(f"DM-RS precoder {tuple(w_s)} vs {p} ports "
+                             f"x {n_l} layers (PRG size {prg_size})")
+        wkind = 2 if prg_size else 1
+        if table and w_s[-3] <= max(prbs) // prg_size - prbs[0] // prg_size:
+            raise ValueError(f"DM-RS PRG table of {w_s[-3]} matrices vs "
+                             f"the PRBs {prbs[0]}..{max(prbs)} at PRG size "
+                             f"{prg_size}")
+        w_stride = math.prod(w_s[len(w_lead):]) if w_lead else 0
+    contiguous = list(prbs) == list(range(prbs[0], prbs[0] + nprb))
+    pow2 = prg_size > 0 and prg_size & (prg_size - 1) == 0
+    return _build.DmrsMapParams(
+        nslots=slots, P=p, S=s, K=k, nprb=nprb, npairs=6 * nprb, L=n_l,
+        ports=sum(pt << (8 * i) for i, pt in enumerate(ports)),
+        type2=int(config_type == 2), prb0=prbs[0], contiguous=int(contiguous),
+        wkind=wkind, prg_shift=prg_size.bit_length() - 1 if pow2 else -1,
+        prg_size=prg_size, prg_base=prbs[0] // prg_size if prg_size else 0,
+        npil=npil, pilot_stride=len(symbols) * npil if len(pil_s) == 3 else 0,
+        w_stride=w_stride,
+        symbols=(ctypes.c_int * _build.DMRS_MAX_SYMBOLS)(
+            *(tuple(symbols) + (-1,) * (_build.DMRS_MAX_SYMBOLS
+                                        - len(symbols)))))
+
+
+@functools.lru_cache(maxsize=256)
+def _dmrs_plan(shapes: tuple, dtypes: tuple, ports: tuple, symbols: tuple,
+               prbs, prg_size: int, config_type: int, index: int):
+    """K26's launch for one call signature on CUDA device ``index``; the
+    plan holds the PRB table."""
+    if any(d != torch.complex64 for d in dtypes):
+        raise ValueError(f"DM-RS map: grid, pilots and matrix must be "
+                         f"complex64, got {dtypes}")
+    p = _dmrs_params(shapes, ports, symbols, prbs, prg_size, config_type)
+    table = torch.from_numpy(_prb_table(prbs)).to(f"cuda:{index}")
+    return _build.Launch("srsran_dmrs_map", index, p, (table,))
+
+
 def dmrs_map(grid: torch.Tensor, pilots: torch.Tensor, w, ports: tuple,
              symbols: tuple, prbs, prg_size: int = 0,
              config_type: int = 1) -> torch.Tensor:
@@ -282,54 +360,28 @@ def dmrs_map(grid: torch.Tensor, pilots: torch.Tensor, w, ports: tuple,
     allocation's PRGs from the one holding its first PRB (each shared or
     [B, ...]); ports the layers' DM-RS ports (type 1: 0..3, type 2: 0..5);
     symbols the DM-RS symbols; prbs the allocation's sorted PRBs (a
-    ``range`` for a contiguous one), uploaded once per allocation as the
-    kernel's PRB table.  Returns the grid.
+    ``range`` for a contiguous one).  On the card: K26 through the cached
+    plan of the call's signature (which holds the PRB table); a call
+    allocates nothing.  Returns the grid.
     """
-    tensors = (grid, pilots) + ((w,) if w is not None else ())
-    if not is_cuda(*tensors):
+    if not (grid.is_cuda and pilots.is_cuda
+            and (w is None or w.is_cuda)):
+        is_cuda(*((grid, pilots) + ((w,) if w is not None else ())))
         return dmrs_map_ref(grid, pilots, w, ports, symbols, prbs, prg_size,
                             config_type)
-    _check_dmrs(ports, symbols, config_type)
-    lead = tuple(grid.shape[:-3])
-    p, s, k = grid.shape[-3:]
-    nprb = len(prbs)
-    npil = PILOTS_PER_PRB[config_type] * nprb
-    n_l = len(ports)
-    if (grid.dtype != torch.complex64 or not grid.is_contiguous()
-            or len(lead) > 1 or pilots.dtype != torch.complex64
-            or pilots.shape[-2:] != (len(symbols), npil)
-            or tuple(pilots.shape[:-2]) not in ((), lead)
-            or nprb == 0 or min(prbs) < 0 or 12 * (max(prbs) + 1) > k):
-        raise ValueError(f"DM-RS map: grid {tuple(grid.shape)}, pilots "
-                         f"{tuple(pilots.shape)} vs {len(symbols)} symbols "
-                         f"x {npil}, {nprb} PRBs")
-    w_ptr, w_stride = None, 0
-    if w is not None:
-        table = 1 if prg_size else 0
-        w_lead = tuple(w.shape[:w.ndim - 2 - table])
-        if (w.shape[-2:] != (p, n_l) or w_lead not in ((), lead)
-                or w.ndim < 2 + table):
-            raise ValueError(f"DM-RS precoder {tuple(w.shape)} vs {p} ports "
-                             f"x {n_l} layers (PRG size {prg_size})")
-        w = torch.view_as_real(w.to(torch.complex64).contiguous())
-        w_ptr = _build.ptr(w)
-        w_stride = w[0].numel() // 2 if w_lead else 0
-    pilots = pilots.contiguous()
-    sym = const(_symbols_array, tuple(symbols), device=grid.device)
-    prb_t = const(_prb_table, prbs, device=grid.device)
-    lib = _build.load()
-    _build.check(lib.srsran_dmrs_map(
-        _build.ptr(torch.view_as_real(pilots)),
-        ctypes.c_longlong(len(symbols) * npil if pilots.ndim == 3 else 0),
-        _build.ptr(sym), len(symbols),
-        sum(pt << (8 * i) for i, pt in enumerate(ports)), n_l, w_ptr,
-        ctypes.c_longlong(w_stride), prg_size,
-        prbs[0] // prg_size if prg_size else 0, _build.ptr(prb_t), nprb,
-        config_type, _build.ptr(torch.view_as_real(grid)), p, s, k,
-        lead[0] if lead else 1, _build.stream_of(grid)), "dmrs_map")
+    launch = _dmrs_plan(
+        (grid.shape, pilots.shape, None if w is None else w.shape),
+        (grid.dtype, pilots.dtype) + (() if w is None else (w.dtype,)),
+        tuple(ports), tuple(symbols), prbs, int(prg_size), int(config_type),
+        grid.get_device())
+    if not grid.is_contiguous() or grid.data_ptr() & 15:
+        raise ValueError("DM-RS map: K26 maps in place into a contiguous, "
+                         "16-byte aligned grid")
+    pil = pilots if pilots.is_contiguous() else pilots.contiguous()
+    if w is None:
+        launch(grid.data_ptr(), pil.data_ptr(), 0)
+    else:
+        wc = w if w.is_contiguous() else w.contiguous()
+        launch(grid.data_ptr(), pil.data_ptr(), wc.data_ptr())
     KERNEL_DMRS.count()
     return grid
-
-
-def _symbols_array(symbols: tuple) -> np.ndarray:
-    return np.asarray(symbols, np.int32)

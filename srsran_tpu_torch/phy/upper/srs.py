@@ -7,14 +7,17 @@ wideband coefficient per (rx port, SRS port).  :func:`estimate` runs the
 generic estimator K8 (``channel_estimate.estimate_from_grid``, CFO off,
 pilot stride = comb) and then :func:`srs_noise`, the K11 wrapper: on CUDA
 tensors the hand kernel of csrc/srs_estimate.cu, which takes K8's TA and
-RSRP on the device; on CPU tensors its twin :func:`srs_noise_ref`.  A grid
-with a slot axis runs both once for all its slots.
+RSRP on the device, through a plan per call signature on
+``kernels/_build.py::Launch`` (:func:`_noise_plan`, its struct
+:func:`_noise_params`); on CPU tensors its twin :func:`srs_noise_ref`.  A
+grid with a slot axis runs both once for all its slots.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 
 import numpy as np
 import torch
@@ -144,43 +147,105 @@ def srs_noise_ref(grid: torch.Tensor, cfg: SrsConfig, ta: torch.Tensor,
     return noise_var, snr
 
 
+def _noise_params(shapes: tuple, strides: tuple,
+                  cfg: SrsConfig) -> _build.SrsNoiseParams:
+    """K11's parameters for one call signature: the shapes of the grid, the
+    TA and the RSRP, their strides and the occasion; raises on what the
+    kernel does not take.  A port's warps W: 1 up to K = 256
+    subcarriers, else the power of two with at most 256 a warp (8 at
+    K = 1632); J the power of two >= the subcarriers a lane."""
+    grid_s, ta_s, rsrp_s = shapes
+    if len(grid_s) not in (3, 4):
+        raise ValueError(f"grid must be complex64 [(B,) P, S, K], got "
+                         f"{tuple(grid_s)}")
+    lead = tuple(grid_s[:-3])
+    n_p, nsym, nsc = grid_s[-3:]
+    slots = lead[0] if lead else 1
+    if tuple(rsrp_s) != lead + (n_p,) or math.prod(ta_s) != slots:
+        raise ValueError(f"rsrp {tuple(rsrp_s)} / ta {tuple(ta_s)} do not "
+                         f"fit {n_p} rx ports of {slots} slots")
+    if not 0 < n_p <= _build.SRS_MAX_RX_PORTS:
+        raise ValueError(f"{n_p} rx ports: K11 takes 1 to "
+                         f"{_build.SRS_MAX_RX_PORTS}")
+    n_l, n_s, k = cfg.nof_ports, cfg.nof_symbols, cfg.seq_len
+    if not 0 < n_l <= _build.SRS_MAX_LAYERS:
+        raise ValueError(f"{n_l} SRS ports: K11 takes at most "
+                         f"{_build.SRS_MAX_LAYERS}")
+    if not 0 < n_s <= _build.SRS_MAX_SYMBOLS:
+        raise ValueError(f"{n_s} SRS symbols: K11 takes 1 to "
+                         f"{_build.SRS_MAX_SYMBOLS}")
+    warps = 1
+    while k > 256 * warps:
+        warps *= 2
+    if warps > _build.SRS_MAX_WARPS:
+        raise ValueError(f"K = {k} comb subcarriers: K11 takes at most "
+                         f"{256 * _build.SRS_MAX_WARPS}")
+    sc0 = cfg.rb_start * 12 + cfg.comb_offset
+    if (cfg.start_symbol + n_s > nsym or k < 1
+            or sc0 + cfg.comb * (k - 1) >= nsc):
+        raise ValueError(f"the SRS occasion (subcarriers {sc0} + "
+                         f"{cfg.comb} k, k < {k}, symbols "
+                         f"{cfg.start_symbol}-{cfg.start_symbol + n_s - 1}) "
+                         f"lies outside the grid {tuple(grid_s)}")
+    if slots * n_p * nsym * nsc >= 1 << 31:
+        raise ValueError("K11 takes at most 2^31 elements a grid (32-bit "
+                         "offsets)")
+    j = 1
+    while 32 * warps * j < k:
+        j *= 2
+    ta_st, rsrp_st = strides[1], strides[2]
+    return _build.SrsNoiseParams(
+        slots=slots, P=n_p, nsym=nsym, nsc=nsc, sc0=sc0, comb=cfg.comb,
+        s0=cfg.start_symbol, S=n_s, K=k, L=n_l,
+        lw=warps.bit_length() - 1,
+        ppc=min(n_p, _build.SRS_MAX_WARPS) if warps == 1 else 1, J=j,
+        ta_stride=ta_st[0] if ta_st else 0,
+        rsrp_stride=rsrp_st[0] if lead else 0, c=_ramp_scale(cfg),
+        inv_sk=1.0 / (n_s * k), sdof=float(n_s) * max(k - n_l, 1))
+
+
+@functools.lru_cache(maxsize=256)
+def _noise_plan(shapes: tuple, strides: tuple, cfg: SrsConfig,
+                index: int) -> tuple:
+    """K11's launch for one call signature on CUDA device ``index`` and
+    its output's shape, [(B,) 2, P]: the noise variances, then the SNRs.
+    The plan holds the sequence table [L, K], each SRS port's sequence once
+    (``_expected`` repeats it on every symbol)."""
+    p = _noise_params(shapes, strides, cfg)
+    seq = torch.from_numpy(np.ascontiguousarray(_expected(cfg)[:, 0])).to(
+        f"cuda:{index}")
+    lead = tuple(shapes[0][:-3])
+    return (_build.Launch("srsran_srs_noise", index, p, (seq,)),
+            lead + (2, p.P))
+
+
 def srs_noise(grid: torch.Tensor, cfg: SrsConfig, ta: torch.Tensor,
               rsrp: torch.Tensor) -> tuple:
     """SRS noise variance and SNR per rx port, (f32 [P], f32 [P]), from the
     received grid, the TA (f32 scalar) and RSRP (f32 [P]) of the generic
     estimate (srs.py:98-118 of the JAX package).  B slots at once: grid
     [B, P, nsym, nsc], ta [B] and rsrp [B, P] give ([B, P], [B, P]), in
-    one launch."""
-    if not is_cuda(grid, ta, rsrp):
+    one launch.  On the card: K11 through the cached plan of the call's
+    signature (the TA and RSRP read where they lie, K8's strided views
+    included); one output allocation."""
+    if not (grid.is_cuda and ta.is_cuda and rsrp.is_cuda):
+        is_cuda(grid, ta, rsrp)                              # raises on a mix
         return srs_noise_ref(grid, cfg, ta, rsrp)
-    if grid.dtype != torch.complex64 or grid.ndim not in (3, 4):
+    if grid.dtype != torch.complex64:
         raise ValueError(f"grid must be complex64 [(B,) P, S, K], got "
                          f"{grid.dtype} {tuple(grid.shape)}")
-    dev = grid.device
-    lead = tuple(grid.shape[:-3])
-    n_p = grid.shape[-3]
-    slots = lead[0] if lead else 1
-    if rsrp.shape != lead + (n_p,) or ta.numel() != slots:
-        raise ValueError(f"rsrp {tuple(rsrp.shape)} / ta {tuple(ta.shape)} "
-                         f"do not fit {n_p} rx ports of {slots} slots")
-    syms = const(chest._i32, _symbols(cfg), device=dev)
-    cols = const(chest._i32, tuple(int(s) for s in sc_indices(cfg)),
-                 device=dev)
-    expected = _expected_tensor(cfg, dev)
-    grid = grid.contiguous()
-    out = torch.empty(lead + (2 * n_p,), dtype=torch.float32, device=dev)
-    ta = ta.to(torch.float32).reshape(slots).contiguous()
-    rsrp = rsrp.contiguous()
-    lib = _build.load()
-    _build.check(lib.srsran_srs_noise(
-        _build.ptr(grid), n_p, grid.shape[-2], grid.shape[-1],
-        _build.ptr(syms), _build.ptr(cols), _build.ptr(expected),
-        cfg.nof_ports, cfg.nof_symbols, cfg.seq_len, _ramp_scale(cfg),
-        _build.ptr(ta), _build.ptr(rsrp),
-        max(cfg.seq_len - cfg.nof_ports, 1), _build.ptr(out), slots,
-        _build.stream_of(grid)), "srs_noise")
-    (KERNEL_BATCH if lead else KERNEL).count()
-    return out[..., :n_p], out[..., n_p:]
+    g = grid if grid.is_contiguous() else grid.contiguous()
+    t = ta if ta.dtype == torch.float32 else ta.float()
+    r = rsrp if rsrp.dtype == torch.float32 else rsrp.float()
+    if r.ndim and r.stride(-1) != 1:
+        r = r.contiguous()
+    launch, shape = _noise_plan((g.shape, t.shape, r.shape),
+                                (None, t.stride(), r.stride()), cfg,
+                                g.get_device())
+    out = g.new_empty(shape, dtype=torch.float32)
+    launch(g.data_ptr(), t.data_ptr(), r.data_ptr(), out.data_ptr())
+    (KERNEL_BATCH if len(shape) > 2 else KERNEL).count()
+    return out.unbind(-2)
 
 
 def estimate_args(grid: torch.Tensor, cfg: SrsConfig) -> tuple:

@@ -501,6 +501,63 @@ def test_srs_estimate_batched(cuda, b):
         _same(_slot(out, s), srs.srs_noise(grid[s], cfg, ta[s], rsrp[s]))
 
 
+def test_srs_noise_batched_widest(cuda):
+    """K11 over 4 slots of the widest SRS (K = 1632, 4 ports, 4 symbols:
+    8 warps a rx port), TA and RSRP (from K8's twin: K8 takes no comb of
+    1632) read through strided views of one [4, P + 1] tensor, as K8 hands
+    them on: within 1e-4 of its twin, every slot equal to its own launch,
+    one launch."""
+    cfg = flagship.SRS_WIDEST
+    rng = np.random.default_rng(28)
+    tx = srs.map_to_grid(torch.zeros(UL_GRID, dtype=torch.complex64), cfg)
+    grid = torch.stack([
+        torch.einsum("rp,psk->rsk", _cgauss(rng, (4, 4)), tx)
+        + 0.05 * _cgauss(rng, tx.shape) for _ in range(4)]).to(cuda)
+    args, kw = srs.estimate_args(grid, cfg)
+    est = chest.estimate_from_grid_ref(*args, **kw)
+    stats = torch.cat([est.rsrp, est.time_alignment_s[:, None]], -1)
+    ta, rsrp = stats[:, -1], stats[:, :-1]
+    assert ta.stride(0) == rsrp.stride(0) == 5
+    out = _counted(lambda: srs.srs_noise(grid, cfg, ta, rsrp),
+                   "srs_estimate")
+    for a, r in zip(out, srs.srs_noise_ref(grid, cfg, ta, rsrp)):
+        _close(a, r, 1e-4)
+    for s in range(4):
+        _same(_slot(out, s), srs.srs_noise(grid[s], cfg, ta[s], rsrp[s]))
+
+
+@pytest.mark.parametrize("precoder", ["none", "matrix", "prg"])
+@pytest.mark.parametrize("per_slot", [False, True])
+def test_dmrs_map_batched(cuda, precoder, per_slot):
+    """K26 over 4 slots of the flagship PDSCH's DM-RS (4 layers, 273 RB),
+    the pilots and the matrix or PRG table shared or one a slot: bit-exact
+    to its twin and every slot to its own launch, one launch."""
+    from srsran_tpu_torch.ops import dl_rs
+    cfg = pdsch.dmrs_config(flagship.PDSCH)
+    rng = np.random.default_rng(26 + per_slot)
+    lead = (4,) if per_slot else ()
+    pil = torch.stack([torch.as_tensor(dmrs.pilot_values_for(
+        dataclasses.replace(cfg, slot_in_frame=k))) for k in range(4)])
+    pil = (pil if per_slot else pil[0]).to(cuda)
+    w, prg = None, 0
+    if precoder == "matrix":
+        w = _cgauss(rng, lead + (4, 4)).to(cuda)
+    elif precoder == "prg":
+        w, prg = _cgauss(rng, lead + (69, 4, 4)).to(cuda), 4
+    grid = _cgauss(rng, (4, 4, 14, 3276)).to(cuda)
+    args = (pil, w, cfg.ports, cfg.symbols, cfg.prb_list, prg,
+            cfg.config_type)
+    g = grid.clone()
+    kernels.reset_counts()
+    got = dl_rs.dmrs_map(g, *args)
+    assert kernels.REGISTRY["dmrs_map"].launches == 1
+    assert torch.equal(got, dl_rs.dmrs_map_ref(grid.clone(), *args))
+    for s in range(4):
+        one = (pil[s] if per_slot else pil,
+               w[s] if per_slot and w is not None else w) + args[2:]
+        assert torch.equal(got[s], dl_rs.dmrs_map(grid[s].clone(), *one))
+
+
 @pytest.mark.parametrize("b", [1, 4])
 def test_pucch_f0_batched(cuda, b):
     """K12 over B slots, each its own slot number (references per slot)

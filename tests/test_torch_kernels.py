@@ -28,9 +28,9 @@ from srsran_tpu.ran.mcs_tbs import tbs as tbs_calc
 
 from srsran_tpu_torch import flagship, kernels
 from srsran_tpu_torch.ops import channel_estimate as chest
-from srsran_tpu_torch.ops import (crc, dl_map, ldpc_decode, ldpc_encode,
-                                  ldpc_rate_match, ofdm, polar, short_block,
-                                  ul_demap)
+from srsran_tpu_torch.ops import (crc, dl_map, dl_rs, ldpc_decode,
+                                  ldpc_encode, ldpc_rate_match, ofdm, polar,
+                                  short_block, ul_demap)
 from srsran_tpu_torch.phy.upper import pdsch, prach, pucch, pusch, srs
 from srsran_tpu_torch.ran import polar_params
 
@@ -820,6 +820,110 @@ def test_srs_estimate_kernel(cuda, ports, comb):
     ref = srs.srs_noise_ref(grid, cfg, est.time_alignment_s, est.rsrp)
     for a, b in zip(out, ref):
         _close(a, b, 1e-4)
+
+
+def _srs_grid(cfg, rng, nof_sc=3276):
+    """A 4-port slot grid with the SRS of every port through a random
+    4 x 4 channel and noise (26 dB a RE)."""
+    tx = srs.map_to_grid(torch.zeros((4, 14, nof_sc), dtype=torch.complex64),
+                         cfg)
+    return (torch.einsum("rp,psk->rsk", _cgauss(rng, (4, 4)), tx)
+            + 0.05 * _cgauss(rng, tx.shape))
+
+
+@pytest.mark.parametrize("comb,ports,nsym,rb,cs", [
+    (2, 1, 1, 4, 0), (4, 2, 2, 16, 5), (2, 2, 1, 48, 1), (2, 4, 2, 96, 7),
+    (4, 4, 4, 272, 11), (2, 4, 4, 272, 3)])
+def test_srs_noise_kernel_shapes(cuda, comb, ports, nsym, rb, cs):
+    """K11 over combs 2 and 4, 1, 2 and 4 SRS ports and symbols, cyclic
+    shifts, K = 24 to 1632 (1, 2, 4 and 8 warps a rx port), TA and RSRP
+    from K8's twin (K8 takes no comb of 1632): within 1e-4 of its twin,
+    one launch a call."""
+    cfg = srs.SrsConfig(rb_start=272 - rb, rb_count=rb,
+                        start_symbol=14 - nsym, nof_symbols=nsym, comb=comb,
+                        comb_offset=comb - 1, cyclic_shift=cs,
+                        nof_ports=ports, sequence_id=9, numerology=1)
+    grid = _srs_grid(cfg, np.random.default_rng(rb + cs)).to(cuda)
+    args, kw = srs.estimate_args(grid, cfg)
+    est = chest.estimate_from_grid_ref(*args, **kw)
+    kernels.reset_counts()
+    out = srs.srs_noise(grid, cfg, est.time_alignment_s, est.rsrp)
+    assert kernels.REGISTRY["srs_estimate"].launches == 1
+    ref = srs.srs_noise_ref(grid, cfg, est.time_alignment_s, est.rsrp)
+    for a, b in zip(out, ref):
+        _close(a, b, 1e-4)
+
+
+@pytest.fixture(scope="module")
+def rs_cases():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the hand kernels have no CPU mode)")
+    return flagship.rs_profile_cases(torch.device("cuda"))
+
+
+@pytest.mark.parametrize("name", [
+    "srs_noise", "srs_noise_48rb", "srs_noise_k1632", "dmrs_map",
+    "dmrs_map_prg", "dmrs_map_type0", "dmrs_map_interleaved",
+    "dmrs_map_type2"])
+def test_rs_profile_cases(rs_cases, name):
+    """``flagship.rs_profile_cases``: K11 (the flagship SRS, 48 RB at comb
+    4 with 4 SRS ports, K = 1632) within 1e-4 of its twin, K26 (the
+    flagship PDSCH, 69 PRGs, slot E's type 0 PRBs, slot F's interleaved
+    PRBs, type 2) bit-exact on copies of the grid; one launch a call."""
+    fn, twin, args = rs_cases[name]
+    kernels.reset_counts()
+    if name.startswith("dmrs_map"):
+        got = fn(args[0].clone(), *args[1:])
+        assert torch.equal(got, twin(args[0].clone(), *args[1:]))
+        assert kernels.REGISTRY["dmrs_map"].launches == 1
+        return
+    out = fn(*args)
+    assert kernels.REGISTRY["srs_estimate"].launches == 1
+    for a, b in zip(out, twin(*args)):
+        _close(a, b, 1e-4)
+
+
+def test_rs_kernels_in_a_cuda_graph(rs_cases):
+    """K11 and K26 captured in one CUDA graph and replayed on new grids:
+    the twins' results on them."""
+    _, _, k11 = rs_cases["srs_noise"]
+    _, _, k26 = rs_cases["dmrs_map_prg"]
+    g11, g26 = k11[0].clone(), k26[0].clone()
+    srs.srs_noise(g11, *k11[1:])
+    dl_rs.dmrs_map(g26.clone(), *k26[1:])
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = srs.srs_noise(g11, *k11[1:])
+        dl_rs.dmrs_map(g26, *k26[1:])
+    rng = np.random.default_rng(28)
+    new11 = _srs_grid(flagship.SRS, rng).to(g11.device)
+    new26 = _cgauss(rng, tuple(g26.shape)).to(g26.device)
+    g11.copy_(new11)
+    g26.copy_(new26)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(out, srs.srs_noise_ref(new11, *k11[1:])):
+        _close(a, b, 1e-4)
+    assert torch.equal(g26, dl_rs.dmrs_map_ref(new26, *k26[1:]))
+
+
+def test_rs_kernels_refuse_on_the_card(cuda):
+    """On CUDA tensors K11 and K26 raise a ValueError naming their limit:
+    17 rx ports, a grid view that is not 16-byte aligned."""
+    cfg = flagship.SRS
+    grid = torch.zeros((17, 14, 3276), dtype=torch.complex64, device=cuda)
+    with pytest.raises(ValueError, match="1 to 16"):
+        srs.srs_noise(grid, cfg, torch.zeros((), device=cuda),
+                      torch.ones(17, device=cuda))
+    from srsran_tpu_torch.phy.upper import dmrs
+    dcfg = dmrs.DmrsConfig(rb_start=0, rb_count=4, symbols=(2,), ports=(0,),
+                           scrambling_id=1)
+    buf = torch.zeros(4 * 14 * 48 + 1, dtype=torch.complex64, device=cuda)
+    pil = torch.as_tensor(dmrs.pilot_values_for(dcfg)).to(cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        dl_rs.dmrs_map(buf[1:].view(4, 14, 48), pil, None, (0,), (2,),
+                       range(4))
 
 
 # UCI kernels: K12 PUCCH F0 detect, K13 PUCCH F2 demap, K14 short-block ML,
