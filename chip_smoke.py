@@ -147,7 +147,10 @@ the JAX package.  It builds the hand kernels from ``srsran_tpu_torch/csrc``
    and K24 (unpack and BFP decompress into the grid, by section) against
    their twins, bit-exact, at the flagship's 4 x 14 x 3276 on a seeded
    grid with components past full scale, at widths 9, 8 and 14 (K23 also
-   with (exp, mant), K24 also from them); no single PyTorch call computes
+   with (exp, mant), K24 also from them), and the cases of
+   ``flagship.ofh_profile_cases``: K24 on 336 sections of 1, 7 and 18 PRBs
+   at odd byte offsets, K23 and K24 on two slots' grids in one call, K24's
+   (exp, mant) mode at width 14; no single PyTorch call computes
    BFP.  Then 8 flagship DL slots (``flagship.dl_grid_program``, the
    first with the SSB), each grid scaled by 0.5 before ``send_dl_grid``:
    a 6 dB back-off chosen here, by the caller (the unscaled grid peaks
@@ -163,7 +166,8 @@ the JAX package.  It builds the hand kernels from ``srsran_tpu_torch/csrc``
    the unscaled grid once over an in-memory cable (clipped share and
    one-hop SQNR printed, not asserted); us per slot on the host clock for
    ``send_dl_grid``, ``receive_ul_grid`` and the round trip, K23/K24
-   device us by the profiler over 2 more slots, and the emulator's
+   device us by the profiler over 2 more slots (beside the received grids'
+   ``torch.zeros``, which K24 writes into), and the emulator's
    reception-window counts (printed, not asserted: the DU does not pace
    itself to the OTA clock).  The phase has its own time limit: a hang
    raises instead of eating the smoke's budget.
@@ -338,6 +342,7 @@ from srsran_tpu_torch.fapi.transport import FapiClient, serve_phy
 from srsran_tpu_torch.graphs import SlotGraph
 from srsran_tpu_torch.kernels import _build
 from srsran_tpu_torch.io.sampio import SampleFileReader
+from srsran_tpu_torch.ofh import compression as bfp
 from srsran_tpu_torch.ops import dl_control, dl_map, dl_rs
 from srsran_tpu_torch.ops import ldpc_rate_match, ofdm, polar
 from srsran_tpu_torch.ops import llr as llr_ops
@@ -431,6 +436,10 @@ CASE_KERNEL = {**{f"ofdm_{k}{case}": f"ofdm_{k}"
                "bfp_decompress_w8": "bfp_decompress",
                "bfp_decompress_w14": "bfp_decompress",
                "bfp_decompress_mant": "bfp_decompress",
+               "bfp_decompress_small": "bfp_decompress",
+               "bfp_compress_batch2": "bfp_compress",
+               "bfp_decompress_batch2": "bfp_decompress",
+               "bfp_decompress_mant_w14": "bfp_decompress",
                **{f"{case}{tag}": case.split("_")[0] + "_map"
                   for case in ("rs_map_trs", "rs_map_prs", "rs_map_many",
                                "dmrs_map_matrix", "dmrs_map_prg",
@@ -575,6 +584,7 @@ OFH_BACKOFF = 0.5
 OFH_MIN_SQNR_DB = 40.0
 OFH_PROFILED_SLOTS = 2
 OFH_PHASE_S = 300.0
+OFH_PROFILE_SEED = 29
 DU_KERNELS = ("rs_map", "dmrs_map", "control_map")
 # Phase 13: the DU-low's allocation slots (flagship.du_alloc_request) at
 # these slot points, then phase 12's slot 4 (kind A at (1, 8)) again; the
@@ -946,6 +956,9 @@ def work(name: str, args: tuple, out) -> tuple:
     if name == "bfp_decompress":                   # K24: ~8 per real value
         # the sections' records and table (or exp and mant) read once, the
         # REs they cover written once
+        if args[1].shape[-1] == len(bfp.TABLE_COLUMNS):
+            covered = 12 * int(args[1][:, 4].sum())
+            return nbytes(args) + covered * c64, 8.0 * 2 * covered
         return nbytes(args) + nbytes(out), 8.0 * 2 * out.numel()
     if name == "prach_demod":                      # K21
         # an N_u-point FFT per port and repetition gives the L_ra bins (the
@@ -2609,7 +2622,9 @@ def fronthaul_phase(dev, rng, card) -> tuple:
     """Phase 11: K23 and K24 against their twins, then the split-7.2
     fronthaul round trip of the flagship DL slots through the port's O-RU
     emulator over a socket."""
-    cases = flagship.ofh_kernel_cases(rng, dev)
+    cases = {**flagship.ofh_kernel_cases(rng, dev),
+             **flagship.ofh_profile_cases(
+                 np.random.default_rng(OFH_PROFILE_SEED), dev)}
     results = kernel_phases(cases)
     print("K23/K24 (BFP compress+pack, unpack+decompress): no single "
           "PyTorch call computes BFP (library: null)", flush=True)
@@ -2720,6 +2735,8 @@ def fronthaul_phase(dev, rng, card) -> tuple:
     send_us, recv_us, trip_us = (statistics.median(x) for x in zip(*times))
     dev_us = {k: _device_us(prof, f"{k}_kernel") for k in (
         "bfp_compress", "bfp_decompress_sections")}
+    # the received grids' torch.zeros before K24, one a side a slot
+    dev_us["the grids' torch.zeros"] = _device_us(prof, "FillFunctor")
     print(f"fronthaul times, median over {NOF_SLOTS} slots on the host "
           f"clock: send_dl_grid {send_us:.1f} us, the receive_ul_grid call "
           f"that returned the grid {recv_us:.1f} us, round trip {trip_us:.1f} "

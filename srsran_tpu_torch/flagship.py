@@ -1569,6 +1569,71 @@ def ofh_kernel_cases(rng: np.random.Generator, device) -> dict:
     return cases
 
 
+#: Sections of K24's small-section case on every port and symbol: (start
+#: PRB, nof PRB) runs of 1, 7 and 18 PRBs, twice each.
+OFH_SMALL_RUNS = ((0, 1), (5, 7), (40, 18), (100, 1), (130, 7), (200, 18))
+
+
+def _ofh_grid(rng: np.random.Generator, shape: tuple) -> np.ndarray:
+    """A seeded Gaussian grid at 0.45 RMS per component."""
+    return ((rng.normal(size=shape) + 1j * rng.normal(size=shape)) * 0.45
+            ).astype(np.complex64)
+
+
+def _scattered_sections(payload: np.ndarray, runs, width: int,
+                        rng: np.random.Generator) -> tuple:
+    """(buf uint8, table rows): the records of ``runs`` on every port and
+    symbol of a packed grid [P, S, nof_prb, R], in a seeded order, each
+    after a gap of 1-3 bytes (so most sections start at odd offsets)."""
+    items = [(p, s, a, n) for p in range(payload.shape[0])
+             for s in range(payload.shape[1]) for a, n in runs]
+    chunks, rows, off = [], [], 0
+    for i in rng.permutation(len(items)):
+        p, s, a, n = items[i]
+        gap = int(rng.integers(1, 4))
+        chunks += [np.zeros(gap, np.uint8), payload[p, s, a:a + n].ravel()]
+        rows.append((off + gap, p, s, a, n, width))
+        off += gap + n * bfp.record_bytes(width)
+    return np.concatenate(chunks), rows
+
+
+def ofh_profile_cases(rng: np.random.Generator, device) -> dict:
+    """K23's and K24's cases beyond :func:`ofh_kernel_cases`, for
+    ``launch_profile`` and ``chip_smoke.py``: name -> (wrapper, twin, args).
+    ``bfp_decompress_small``: the flagship grid's :data:`OFH_SMALL_RUNS`
+    (1-, 7- and 18-PRB sections, 336 of them) in a seeded order at odd
+    byte offsets, the rest of the grid left at zero; ``_batch2``: two
+    slots' grids [2, 4, 14, 3276] compressed in one call, and their
+    payload decoded as one [8, 14, 3276] grid cut as RuOfh cuts it (224
+    sections, 1,008 tiles: one launch); ``bfp_decompress_mant_w14``: the
+    (exp, mant) mode at width 14, its mantissas past the kernel's
+    quotient table."""
+    shape = (CELL.nof_ports, 14, CELL.nof_sc)
+    iq = _up(_ofh_grid(rng, shape), device)
+    payload = bfp.compress_ref(iq, OFH_WIDTH)[2]
+    buf, rows = _scattered_sections(payload.cpu().numpy(), OFH_SMALL_RUNS,
+                                    OFH_WIDTH, rng)
+    cases = {"bfp_decompress_small": (
+        _decompress_into(torch.zeros_like(iq), bfp.decompress_sections),
+        _decompress_into(torch.zeros_like(iq), bfp.decompress_sections_ref),
+        (_up(buf, device), bfp.section_table(rows)))}
+    two = _up(_ofh_grid(rng, (2,) + shape), device)
+    grid2 = torch.zeros((2 * shape[0],) + shape[1:], dtype=torch.complex64,
+                        device=device)
+    table2 = bfp.section_table(ofh_sections(2 * shape[0], 14, CELL.nof_rb,
+                                            OFH_WIDTH))
+    cases["bfp_compress_batch2"] = (bfp.compress, bfp.compress_ref,
+                                    (two, OFH_WIDTH))
+    cases["bfp_decompress_batch2"] = (
+        _decompress_into(grid2, bfp.decompress_sections),
+        _decompress_into(grid2.clone(), bfp.decompress_sections_ref),
+        (bfp.compress_ref(two, OFH_WIDTH)[2].reshape(-1), table2))
+    exp, mant, _ = bfp.compress_ref(iq, 14, mantissas=True)
+    cases["bfp_decompress_mant_w14"] = (bfp.bfp_decompress,
+                                        bfp.bfp_decompress_ref, (exp, mant))
+    return cases
+
+
 # ---------------------------------------------------------------- DU-low
 # The split-6 DU-low's DL slots (apps/du_low.py behind the FAPI transport):
 # the flagship PDSCH with PT-RS (port 0, K = 2, L = 1: 1,370 REs, so G =

@@ -9,8 +9,8 @@ build on every run, so the sources compile side by side.  Pointers and the strea
 ``ctypes.c_void_p``; every C entry point returns ``cudaGetLastError()``
 after its launches, and :func:`check` raises on anything but 0.
 :class:`Launch` is the lean form of that path (K1, K3, K4, K5, K6, K7, K8,
-K9, K10, K11, K12, K13, K14, K15, K16, K22, K26, K32, K21, K18, K19, K27,
-K33, K34 and K35 take it): a
+K9, K10, K11, K12, K13, K14, K15, K16, K22, K23, K24, K26, K32, K21, K18,
+K19, K27, K33, K34 and K35 take it): a
 wrapper keeps one per call signature with the bound C function, a
 parameter struct passed by address and its device tables, and a call
 passes only the tensors' pointers and the current stream.
@@ -361,6 +361,38 @@ class DmrsMapParams(ctypes.Structure):
         "npil", "pilot_stride", "w_stride")] + [
         ("symbols", _I * DMRS_MAX_SYMBOLS)]
 
+BFP_MAX_TILES = 1024      # csrc/bfp.cu kBfpMaxTiles
+BFP_TILE_PRBS = 32        # csrc/bfp.cu kBfpTilePrbs
+BFP_PRB_BITS = 22         # csrc/bfp.cu kBfpPrbBits
+
+
+class BfpCompressParams(ctypes.Structure):
+    """csrc/bfp.cu's BfpCompressParams (K23's launch), by address."""
+
+    _fields_ = [("nblocks", _I), ("width", _I)]
+
+
+class BfpTile(ctypes.Structure):
+    """csrc/bfp.cu's BfpTile: a run of at most BFP_TILE_PRBS PRBs of one
+    section (its first record's byte offset; its first flat PRB | (n - 1)
+    << 22 | (width - 1) << 27)."""
+
+    _fields_ = [("start", _I), ("word", _I)]
+
+
+class BfpSectionsParams(ctypes.Structure):
+    """csrc/bfp.cu's BfpSectionsParams (K24's launch), by address."""
+
+    _fields_ = [("ntiles", _I), ("buf_len", _I),
+                ("tiles", BfpTile * BFP_MAX_TILES)]
+
+
+class BfpExpandParams(ctypes.Structure):
+    """csrc/bfp.cu's BfpExpandParams (K24's (exp, mant) launch)."""
+
+    _fields_ = [("nblocks", _I)]
+
+
 # C entry points and their argument types (see the matching .cu file).
 SIGNATURES = {
     "srsran_ldpc_decode": [_P] * 7,
@@ -395,10 +427,9 @@ SIGNATURES = {
     "srsran_tdl_channel": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                            _D, _P, _P],
     "srsran_prach_demod": [_P, _P, _P, _P, _P, _P],
-    "srsran_bfp_compress": [_P, _I, _I, _P, _P, _P, _P],
-    "srsran_bfp_decompress_sections": [_P, _I, _P, _I, _I, _I, _I, _P,
-                                       _P],
-    "srsran_bfp_decompress": [_P, _P, _I, _P, _P],
+    "srsran_bfp_compress": [_P] * 6,
+    "srsran_bfp_decompress_sections": [_P] * 4,
+    "srsran_bfp_decompress": [_P] * 5,
     "srsran_rs_map": [RsSources, _P, _P, _P, _P, _P, _I, _P, _L, _I, _P],
     "srsran_dmrs_map": [_P] * 6,
     "srsran_control_map": [_P] * 8,

@@ -99,7 +99,17 @@ batch of 4 (``_b4``), 69 PRGs (``_prg``), slot E's type 0 PRBs
 (``_type2``), from ``flagship.rs_profile_cases`` (:func:`rs_calls`), each
 beside its named stage as one PyTorch call (:func:`rs_stage`: K11's
 wideband ``torch.einsum``, K26's scatter ``index_put_``); ``--cases
-srs_noise dmrs_map``, ~1 min.
+srs_noise dmrs_map``, ~1 min; K23 (``compression.compress``) and K24
+(``compression.decompress_sections`` into the case's grid, and
+``bfp_decompress``) on the flagship fronthaul grid at widths 9, 8 and 14
+and in their (exp, mant) modes (``bfp_compress``, ``_w8``, ``_w14``,
+``_mant``; ``bfp_decompress``, ...), on 336 sections of 1, 7 and 18 PRBs at
+odd offsets (``bfp_decompress_small``), two slots' grids
+(``bfp_compress_batch2``, ``bfp_decompress_batch2``) and the (exp, mant)
+mode at width 14 (``bfp_decompress_mant_w14``), from
+``flagship.ofh_kernel_cases`` and ``ofh_profile_cases`` (:func:`bfp_calls`),
+device µs alone (no PyTorch call computes BFP); ``--cases bfp_compress
+bfp_decompress``, ~1 min.
 ``--cases`` keeps the cases whose names start with one of the prefixes
 (and skips the pieces below, and building the cases it leaves out).  Per
 case and call it reports:
@@ -816,6 +826,24 @@ def rs_calls(dev) -> tuple:
     return calls, library
 
 
+def bfp_calls(rng, dev) -> tuple:
+    """K23's and K24's (calls, library) by name (``flagship.ofh_kernel_cases``
+    and ``ofh_profile_cases``), each checked bit for bit against its twin
+    once; no library call (None)."""
+    calls = {}
+    cases = {**flagship.ofh_kernel_cases(rng, dev),
+             **flagship.ofh_profile_cases(rng, dev)}
+    for name, (fn, twin, a) in cases.items():
+        out, ref = fn(*a), twin(*a)
+        for o, r in zip(out if isinstance(out, tuple) else (out,),
+                        ref if isinstance(ref, tuple) else (ref,)):
+            if (o is None) != (r is None) or (o is not None and not
+                                              torch.equal(o, r)):
+                raise AssertionError(f"{name}: differs from its twin")
+        calls[name] = lambda fn=fn, a=a: fn(*a)
+    return calls, dict.fromkeys(calls)
+
+
 def _entry(loader, argtype):
     """K32's C entry point loaded through ``loader`` (ctypes.CDLL releases
     the interpreter lock around the call, ctypes.PyDLL keeps it) with four
@@ -932,7 +960,9 @@ def main(argv=None) -> dict:
                  lambda: pucch_calls(gen, rng, dev)),
                 (("pucch_f0_detect", "short_block_detect"),
                  lambda: uci_calls(gen, rng, dev)),
-                (("srs_noise", "dmrs_map"), lambda: rs_calls(dev)))
+                (("srs_noise", "dmrs_map"), lambda: rs_calls(dev)),
+                (("bfp_compress", "bfp_decompress"),
+                 lambda: bfp_calls(rng, dev)))
     for prefixes, build in builders:
         if _wanted(args.cases, prefixes):
             more_calls, more_library = build()

@@ -22,12 +22,19 @@ the device does the bytes too:
   start PRB, nof PRB, width) rows) decoded and scattered into a complex64
   grid; :func:`bfp_decompress` is its (exp, mant) mode.
 
-On CUDA tensors they launch the kernels; on CPU tensors they run the plain
-twins ``*_ref``.  :func:`pack_section`/:func:`unpack_section` stay host
-numpy functions with the JAX package's bytes, vectorised over bits.
+On CUDA tensors they launch the kernels, each through a plan per call
+signature on ``kernels/_build.py::Launch`` (:func:`_compress_plan`,
+:func:`_sections_plan` over the tiles of :func:`_tiles` in the structs of
+:func:`_sections_params`, :func:`_expand_plan`); on CPU tensors they run
+the plain twins ``*_ref``.  :func:`pack_section`/:func:`unpack_section`
+stay host numpy functions with the JAX package's bytes, vectorised over
+bits.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -99,6 +106,22 @@ def compress_ref(iq: torch.Tensor, width: int = 9, mantissas: bool = False):
     return None, None, payload
 
 
+@functools.lru_cache(maxsize=64)
+def _compress_plan(nblocks: int, width: int, index: int) -> _build.Launch:
+    """K23's launch for ``nblocks`` PRBs at ``width`` on CUDA device
+    ``index``."""
+    return _build.Launch("srsran_bfp_compress", index,
+                         _build.BfpCompressParams(nblocks=nblocks,
+                                                  width=width))
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address (the kernels load and
+    store 16-byte vectors): a copy only for a view that starts between."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() & 15 else t
+
+
 def compress(iq: torch.Tensor, width: int = 9, mantissas: bool = False):
     """BFP-compress a grid.
 
@@ -112,9 +135,10 @@ def compress(iq: torch.Tensor, width: int = 9, mantissas: bool = False):
     _check_grid(iq)
     _check_width(width)
     lead, nof_prb = iq.shape[:-1], iq.shape[-1] // 12
-    iq = iq.contiguous()
-    dev = iq.device
     nblocks = iq.numel() // 12
+    if nblocks >= 1 << 31:
+        raise ValueError(f"K23 takes fewer than 2^31 PRBs, got {nblocks}")
+    dev = iq.device
     payload = torch.empty((*lead, nof_prb, record_bytes(width)),
                           dtype=torch.uint8, device=dev)
     exp = mant = None
@@ -123,12 +147,10 @@ def compress(iq: torch.Tensor, width: int = 9, mantissas: bool = False):
         mant = torch.empty((*lead, nof_prb, 24), dtype=torch.int32,
                            device=dev)
     if nblocks:
-        lib = _build.load()
-        _build.check(lib.srsran_bfp_compress(
-            _build.ptr(iq), nblocks, width,
-            _build.ptr(exp) if mantissas else None,
-            _build.ptr(mant) if mantissas else None,
-            _build.ptr(payload), _build.stream_of(iq)), "bfp_compress")
+        iq = _aligned(iq)
+        _compress_plan(nblocks, width, iq.get_device())(
+            iq.data_ptr(), exp.data_ptr() if mantissas else 0,
+            mant.data_ptr() if mantissas else 0, payload.data_ptr())
         KERNEL_COMPRESS.count()
     return exp, mant, payload
 
@@ -171,6 +193,14 @@ def _check_exp_mant(exp: torch.Tensor, mant: torch.Tensor) -> None:
                          "[..., P] and [..., P, 24] expected")
 
 
+@functools.lru_cache(maxsize=64)
+def _expand_plan(nblocks: int, index: int) -> _build.Launch:
+    """K24's (exp, mant) launch for ``nblocks`` PRBs on CUDA device
+    ``index``."""
+    return _build.Launch("srsran_bfp_decompress", index,
+                         _build.BfpExpandParams(nblocks=nblocks))
+
+
 def bfp_decompress(exp: torch.Tensor, mant: torch.Tensor) -> torch.Tensor:
     """The JAX package's contract: (exp [..., P], mant [..., P, 24]) ->
     complex64 [..., 12 P].  K24 in its (exp, mant) mode on CUDA tensors,
@@ -178,18 +208,17 @@ def bfp_decompress(exp: torch.Tensor, mant: torch.Tensor) -> torch.Tensor:
     _check_exp_mant(exp, mant)
     if not is_cuda(exp, mant):
         return bfp_decompress_ref(exp, mant)
-    exp = exp.to(torch.uint8).contiguous()
-    mant = mant.to(torch.int32).contiguous()
+    if exp.numel() >= 1 << 31:
+        raise ValueError(f"K24 takes fewer than 2^31 PRBs, got {exp.numel()}")
     out = torch.empty((*exp.shape[:-1], exp.shape[-1] * 12),
                       dtype=torch.complex64, device=exp.device)
     if exp.numel():
-        lib = _build.load()
-        _build.check(lib.srsran_bfp_decompress(
-            _build.ptr(exp), _build.ptr(mant), exp.numel(), _build.ptr(out),
-            _build.stream_of(exp)), "bfp_decompress")
+        exp = exp.to(torch.uint8).contiguous()
+        mant = _aligned(mant.to(torch.int32))
+        _expand_plan(exp.numel(), exp.get_device())(
+            exp.data_ptr(), mant.data_ptr(), out.data_ptr())
         KERNEL_DECOMPRESS.count()
     return out
-
 
 
 def _check_sections(buf: torch.Tensor, table: torch.Tensor,
@@ -279,6 +308,63 @@ def _unpack_records(rec: torch.Tensor, width: int):
     return exp, mant
 
 
+def _tiles(rows: np.ndarray, grid_shape) -> np.ndarray:
+    """K24's tiles of the sections ``rows`` (of :data:`TABLE_COLUMNS`), in
+    table order: every section's PRBs in runs of at most
+    ``BFP_TILE_PRBS``, int32 [tiles, 2] of csrc/bfp.cu's ``BfpTile`` --
+    the run's first record's byte offset in the buffer, and its first PRB
+    in the flat grid [ports x symbols x nof_prb] | (n - 1) << 22 | (width -
+    1) << 27.  An empty section has no tile."""
+    _, nsym, nsc = grid_shape
+    off, port, sym, p0, n, width = np.asarray(rows, np.int64).reshape(
+        -1, len(TABLE_COLUMNS)).T
+    size = _build.BFP_TILE_PRBS
+    count = -(-n // size)
+    sec = np.repeat(np.arange(len(n)), count)
+    first = size * (np.arange(len(sec))
+                    - np.repeat(np.cumsum(count) - count, count))
+    w = width[sec]
+    start = off[sec] + first * (1 + 3 * w)
+    prb = (port[sec] * nsym + sym[sec]) * (nsc // 12) + p0[sec] + first
+    word = (prb | (np.minimum(size, n[sec] - first) - 1) << _build.BFP_PRB_BITS
+            | (w - 1) << (_build.BFP_PRB_BITS + 5))
+    return np.stack([start, word], axis=-1).astype(np.int32)
+
+
+def _sections_params(rows: np.ndarray, buf_len: int, grid_shape) -> tuple:
+    """K24's launch structs for a valid table: its tiles
+    (:func:`_tiles`), ``BFP_MAX_TILES`` a launch.  Raises past the struct's
+    fields: a grid of more than 2^22 PRBs, a buffer of 2^31 bytes or
+    more."""
+    ports, nsym, nsc = grid_shape
+    if ports * nsym * (nsc // 12) > 1 << _build.BFP_PRB_BITS:
+        raise ValueError(f"K24 takes grids of at most 2^{_build.BFP_PRB_BITS}"
+                         f" PRBs, got {tuple(grid_shape)}")
+    if buf_len >= 1 << 31:
+        raise ValueError(f"K24 takes buffers under 2^31 bytes, got {buf_len}")
+    tiles = _tiles(rows, grid_shape)
+    params = []
+    for a in range(0, len(tiles), _build.BFP_MAX_TILES):
+        chunk = np.ascontiguousarray(tiles[a:a + _build.BFP_MAX_TILES])
+        p = _build.BfpSectionsParams(ntiles=len(chunk), buf_len=buf_len)
+        ctypes.memmove(ctypes.addressof(p.tiles), chunk.ctypes.data,
+                       chunk.nbytes)
+        params.append(p)
+    return tuple(params)
+
+
+@functools.lru_cache(maxsize=64)
+def _sections_plan(rows: bytes, buf_len: int, grid_shape: tuple,
+                   index: int) -> tuple:
+    """K24's launches for one section table (its int32 bytes), buffer
+    length and grid shape on CUDA device ``index``: the table is checked
+    (:func:`validate_table`) once, when the plan is made."""
+    table = np.frombuffer(rows, np.int32).reshape(-1, len(TABLE_COLUMNS))
+    validate_table(table, buf_len, grid_shape)
+    return tuple(_build.Launch("srsran_bfp_decompress_sections", index, p)
+                 for p in _sections_params(table, buf_len, grid_shape))
+
+
 def decompress_sections(buf: torch.Tensor, table: torch.Tensor,
                         grid: torch.Tensor) -> torch.Tensor:
     """Decode packed U-plane sections into ``grid``.
@@ -288,24 +374,22 @@ def decompress_sections(buf: torch.Tensor, table: torch.Tensor,
     section's first record in ``buf``, port, symbol, start PRB, nof PRB,
     width); grid: complex64 [ports, symbols, 12 nof_prb], written in place
     at the sections' REs (others untouched) and returned.  Sections must
-    not overlap.  K24 on CUDA tensors (the table may stay on the host; it
-    is checked there), :func:`decompress_sections_ref` on CPU tensors.
+    not overlap.  K24 on CUDA tensors -- the table stays on the host (it
+    is checked there, and its tiles ride in the launch's struct: one
+    launch for every ``BFP_MAX_TILES`` tiles); the grid must be 16-byte
+    aligned -- :func:`decompress_sections_ref` on CPU tensors.
     """
     if not is_cuda(buf, grid):
         return decompress_sections_ref(buf, table, grid)
     _check_sections(buf, table, grid)
-    host = table.cpu()
-    validate_table(host.numpy(), buf.numel(), tuple(grid.shape))
-    if not len(host):
-        return grid
-    dev_table = host.to(grid.device, non_blocking=True)
-    lib = _build.load()
-    _build.check(lib.srsran_bfp_decompress_sections(
-        _build.ptr(buf), buf.numel(), _build.ptr(dev_table), len(host),
-        grid.shape[0],
-        grid.shape[1], grid.shape[2] // 12, _build.ptr(grid),
-        _build.stream_of(grid)), "bfp_decompress_sections")
-    KERNEL_DECOMPRESS.count()
+    if grid.data_ptr() & 15:
+        raise ValueError("K24 stores 16-byte vectors: the grid must be "
+                         "16-byte aligned")
+    rows = table.cpu().numpy().tobytes()
+    for launch in _sections_plan(rows, buf.numel(), tuple(grid.shape),
+                                 grid.get_device()):
+        launch(buf.data_ptr(), grid.data_ptr())
+        KERNEL_DECOMPRESS.count()
     return grid
 
 

@@ -1721,7 +1721,7 @@ def _bfp_grid(rng, shape):
     return torch.from_numpy(iq)
 
 
-@pytest.mark.parametrize("width", [1, 8, 9, 12, 14, 16])
+@pytest.mark.parametrize("width", range(1, 17))
 def test_bfp_compress_kernel(cuda, width):
     """K23 bit-exact to its twin: exp, mant and the packed payload."""
     from srsran_tpu_torch.ofh import compression
@@ -1734,7 +1734,7 @@ def test_bfp_compress_kernel(cuda, width):
     assert payload[0] is None and torch.equal(payload[2].cpu(), want[2])
 
 
-@pytest.mark.parametrize("width", [8, 9, 14, 16])
+@pytest.mark.parametrize("width", range(1, 17))
 def test_bfp_decompress_kernel(cuda, width):
     """K24 bit-exact to its twin, from (exp, mant) and from packed sections
     (255 + 18 PRB cuts, out of order, one row left untouched)."""
@@ -1761,6 +1761,114 @@ def test_bfp_decompress_kernel(cuda, width):
     twin = compression.decompress_sections_ref(buf.to(cuda), table,
                                                grid.to(cuda))
     assert torch.equal(twin.cpu(), want)
+
+
+def _bfp_sections_case(width, rng, shape, runs):
+    """(buf, table, grid of 2 + 2j): ``runs`` of every port and symbol of
+    a packed grid at odd byte offsets, in a seeded order."""
+    from srsran_tpu_torch import flagship
+    from srsran_tpu_torch.ofh import compression
+    iq = _bfp_grid(rng, shape)
+    payload = compression.compress_ref(iq, width)[2].numpy()
+    buf, rows = flagship._scattered_sections(payload, runs, width, rng)
+    grid = torch.full(shape, 2 + 2j, dtype=torch.complex64)
+    return torch.from_numpy(buf), compression.section_table(rows), grid
+
+
+@pytest.mark.parametrize("width", range(1, 17))
+@pytest.mark.parametrize("runs", [
+    ((0, 1), (5, 7), (40, 18), (100, 1), (130, 7), (200, 18)),
+    ((0, 255), (255, 18)), ((3, 33), (36, 32), (68, 31), (99, 64))])
+def test_bfp_decompress_sections_shapes(cuda, width, runs):
+    """K24 bit-exact to its twin on 1-, 7- and 18-PRB sections, RuOfh's
+    255 + 18 cut and runs about a tile's 32 PRBs, at odd byte offsets,
+    from a buffer that starts at an odd address; one launch each; REs of
+    no section keep their values."""
+    from srsran_tpu_torch.ofh import compression
+    buf, table, grid = _bfp_sections_case(
+        width, np.random.default_rng(width), (2, 3, 12 * 273), runs)
+    want = compression.decompress_sections_ref(buf, table, grid.clone())
+    odd = torch.cat([torch.zeros(1, dtype=torch.uint8), buf]).to(cuda)[1:]
+    assert odd.data_ptr() & 15
+    before = compression.KERNEL_DECOMPRESS.launches
+    got = compression.decompress_sections(odd, table, grid.to(cuda))
+    assert compression.KERNEL_DECOMPRESS.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+def test_bfp_decompress_sections_past_one_launch(cuda):
+    """1,344 one-PRB sections of widths 9 and 14 in one table: two launches
+    (1,024 tiles, then 320), bit-exact to the twin."""
+    from srsran_tpu_torch.ofh import compression
+    rng = np.random.default_rng(7)
+    parts = [_bfp_sections_case(w, rng, (2, 14, 12 * 24),
+                                tuple((p, 1) for p in range(24)))
+             for w in (9, 14)]
+    rows, off = [], 0
+    for port, (buf, table, _) in enumerate(parts):
+        t = table.numpy().copy()
+        t[:, 0] += off
+        t[:, 1] += 2 * port
+        rows.append(t)
+        off += buf.numel()
+    table = torch.from_numpy(np.concatenate(rows))
+    buf = torch.cat([b for b, _, _ in parts])
+    grid = torch.zeros((4, 14, 12 * 24), dtype=torch.complex64)
+    want = compression.decompress_sections_ref(buf, table, grid.clone())
+    before = compression.KERNEL_DECOMPRESS.launches
+    got = compression.decompress_sections(buf.to(cuda), table, grid.to(cuda))
+    assert compression.KERNEL_DECOMPRESS.launches == before + 2
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("width", [1, 9, 14, 16])
+def test_bfp_kernels_on_views_and_batches(cuda, width):
+    """K23 on a view that starts 8 bytes past an alignment and on a batch
+    of two slots' grids; K24's (exp, mant) mode on the batch; all
+    bit-exact to the twins."""
+    from srsran_tpu_torch.ofh import compression
+    iq = _bfp_grid(np.random.default_rng(width), (4, 14, 12 * 273)).reshape(
+        2, 2, 14, -1)
+    flat = iq.reshape(-1).to(cuda)
+    view = flat[1:1 + 12 * 273 * 5].reshape(5, -1)
+    assert view.data_ptr() & 15
+    want = compression.compress_ref(view.cpu(), width, mantissas=True)
+    for g, w in zip(compression.compress(view, width, mantissas=True), want):
+        assert torch.equal(g.cpu(), w)
+    exp, mant, payload = compression.compress(iq.to(cuda), width,
+                                              mantissas=True)
+    want = compression.compress_ref(iq, width, mantissas=True)
+    for g, w in zip((exp, mant, payload), want):
+        assert torch.equal(g.cpu(), w)
+    got = compression.bfp_decompress(exp, mant)
+    assert torch.equal(got.cpu(), compression.bfp_decompress_ref(*want[:2]))
+
+
+def test_bfp_kernels_in_a_cuda_graph(cuda):
+    """K23 and K24 captured in one CUDA graph and replayed on new grids."""
+    from srsran_tpu_torch import flagship
+    from srsran_tpu_torch.ofh import compression
+    rng = np.random.default_rng(29)
+    shape = (4, 14, 12 * 273)
+    iq = _bfp_grid(rng, shape).to(cuda)
+    table = compression.section_table(flagship.ofh_sections(4, 14, 273, 9))
+    grid = torch.zeros(shape, dtype=torch.complex64, device=cuda)
+    compression.decompress_sections(
+        compression.compress(iq, 9)[2].reshape(-1), table, grid)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        payload = compression.compress(iq, 9)[2]
+        compression.decompress_sections(payload.reshape(-1), table, grid)
+    for seed in (1, 2):
+        iq.copy_(_bfp_grid(np.random.default_rng(seed), shape).to(cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = compression.compress_ref(iq.cpu(), 9)[2]
+        assert torch.equal(payload.cpu(), want)
+        assert torch.equal(grid.cpu(), compression.decompress_sections_ref(
+            want.reshape(-1), table, torch.zeros(shape,
+                                                 dtype=torch.complex64)))
 
 
 def test_ru_ofh_on_the_card(cuda):
