@@ -135,7 +135,9 @@ the JAX package.  It builds the hand kernels from ``srsran_tpu_torch/csrc``
    precoders: a 2-layer 256QAM PDSCH on 273 RB in 69 PRGs of 4 PRBs,
    bit-exact, and with one PRG and the identity bit-exact to K6) against
    their twins, with the einsum mix stage of the channel and
-   ``torch.matmul`` of the PRACH bin matrix as library times; then the
+   ``torch.matmul`` of the PRACH bin matrix as library times, K20's host
+   path (host, events and device us a launch by the profiler, beside the
+   mix stage); then the
    port's gNB simulator (``srsran_tpu_torch.apps.gnb_sim.run``) at the
    flagship width: test mode, no channel, 20 slots, every UL TB decoded;
    scheduler mode over TDLA at 28 dB with PRACH and CSI periods of 10, 40
@@ -173,7 +175,8 @@ the JAX package.  It builds the hand kernels from ``srsran_tpu_torch/csrc``
    raises instead of eating the smoke's budget.
 
 12. du_low: K25 (the DL RS map: slot A's 4-port NZP-CSI-RS and PT-RS,
-   slot B's TRS and PT-RS, slot C's comb-4 PRS), K26 (the DL DM-RS map of
+   slot B's TRS and PT-RS, slot C's comb-4 PRS, 33 CSI-RS in two launches,
+   targets of 1-3 terms at odd offsets), K26 (the DL DM-RS map of
    the flagship PDSCH's 4 layers: identity, a [4, 4] matrix, 69 PRG
    matrices) and K27 (PDCCH and SSB: the GF(2) map, QPSK and patch; slot
    A's SSB with its slot context and AL8 PDCCH, each other aggregation
@@ -181,8 +184,11 @@ the JAX package.  It builds the hand kernels from ``srsran_tpu_torch/csrc``
    an AL4 DCI on the AL8 PDCCH's CCEs; K27 bit for bit, also on a grid of
    -0.0, which the twins turn to +0.0 under every hole of a patch) bit-exact
    to their twins at the flagship shapes, each also at B = 4 slot by slot
-   against B = 1, timed with their bounds and K27's GF(2) stage as
-   ``torch.matmul`` (its library time); K27's host path (``launch_profile.
+   against B = 1, timed with their bounds, K25's scatter stage as one
+   ``index_put_`` and K27's GF(2) stage as ``torch.matmul`` (their library
+   times); K25's host path on slot A, the PRS and the 33 CSI-RS (host,
+   events and device us a launch by the profiler, in place, beside its
+   stage); K27's host path (``launch_profile.
    control_calls``: slot A, the AL8 PDCCH, the SSB, AL1, AL16 and the
    many-UE slot on prebuilt PDUs, each beside the matmul of its GF(2)
    stage, and building slot A's PDUs).  Then the split-6 DU-low as a
@@ -442,7 +448,8 @@ CASE_KERNEL = {**{f"ofdm_{k}{case}": f"ofdm_{k}"
                "bfp_decompress_mant_w14": "bfp_decompress",
                **{f"{case}{tag}": case.split("_")[0] + "_map"
                   for case in ("rs_map_trs", "rs_map_prs", "rs_map_many",
-                               "dmrs_map_matrix", "dmrs_map_prg",
+                               "rs_map_terms", "dmrs_map_matrix",
+                               "dmrs_map_prg",
                                "control_map_al1", "control_map_al2",
                                "control_map_al4", "control_map_al16",
                                "control_map_ssb_static", "control_map_many",
@@ -544,7 +551,7 @@ HOST_TIMED = ("ofdm_demodulate", "ofdm_demodulate_batch4", "ofdm_modulate",
               "short_block_encode_k11", "llr_quantize", "llr_dequantize",
               "ldpc_decode", "ldpc_decode_clean", "ldpc_decode_batch4",
               "ldpc_decode_harq", "ldpc_decode_bg2", "dlsch_encode",
-              "dlsch_encode_batch4", "dlsch_encode_bg2")
+              "dlsch_encode_batch4", "dlsch_encode_bg2", "tdl_channel")
 HOST_CALLS = 1000
 # K1's cases: host µs of the kernel alone (no PyTorch call computes it, and
 # its twin takes 15-460 ms a call).
@@ -1039,14 +1046,16 @@ def work(name: str, args: tuple, out) -> tuple:
                 + nbytes(out),
                 nb * p * k * (2.0 * (n_s - 1) + 20 + 24.0 * n_l + 6))
     if name == "rs_map":                           # K25: 8 per term
-        # each target read and written once, its plan entries (offset,
-        # term start; per term source, index, weight) and the values once
+        # each target read and written once a slot, its 16-byte records
+        # and the values once (one plan per 32 PDUs)
         grid, items, values = args
-        plan = dl_rs.rs_plan(items, tuple(grid.shape[-3:]))
         nb = grid.numel() // math.prod(grid.shape[-3:])
-        t, n = plan["tgt"].size, plan["src"].size
-        return (16 * t * nb + nbytes(values) + 12 * t + 4 + 16 * n,
-                8.0 * n * nb)
+        t = n = 0
+        for c in range(0, len(items), _build.RS_MAX_SOURCES):
+            plan = dl_rs.rs_plan(items[c:c + _build.RS_MAX_SOURCES],
+                                 tuple(grid.shape[-3:]))
+            t, n = t + plan["tgt"].size, n + plan["src"].size
+        return 16 * t * nb + nbytes(values) + 16 * n, 8.0 * n * nb
     if name == "dmrs_map":                         # K26: 8 per layer term
         # the DM-RS REs of the layers' CDM groups on every port read and
         # written once, the pilots, matrices and PRB table once; 8 per
@@ -1406,12 +1415,17 @@ def srs_cases(dev) -> dict:
 
 
 def rs_library(cases: dict) -> dict:
-    """K11's and K26's library time: each case's named stage as one
+    """K11's, K25's and K26's library time: each case's named stage as one
     PyTorch call (``launch_profile.rs_stage``: K11's wideband
-    ``torch.einsum``, K26's ``index_put_`` of its precoded pilots)."""
-    return {name: launch_profile.rs_stage(name, args)
+    ``torch.einsum``, K26's ``index_put_`` of its precoded pilots;
+    ``launch_profile.rs_map_stage``: K25's ``index_put_`` of its weighted
+    terms)."""
+    return {name: (launch_profile.rs_map_stage(args)
+                   if CASE_KERNEL.get(name, name) == "rs_map" else
+                   launch_profile.rs_stage(name, args))
             for name, (_, _, args) in cases.items()
-            if CASE_KERNEL.get(name, name) in ("srs_estimate", "dmrs_map")}
+            if CASE_KERNEL.get(name, name) in ("srs_estimate", "dmrs_map",
+                                               "rs_map")}
 
 
 def ul_phases(dev, gen, rng, card) -> tuple:
@@ -2895,9 +2909,15 @@ def du_low_phase(dev, gen, rng, card) -> tuple:
                                                                     args, b))):
                 raise AssertionError(f"{name}: slot {b} differs from B = 1")
     print("K25-K27 bit-exact to their twins at the DU-low shapes and at "
-          "B = 4 slot by slot against B = 1; K25: no single PyTorch call "
-          "computes it (library: null); K26 beside its scatter stage "
-          "(index_put_)", flush=True)
+          "B = 4 slot by slot against B = 1; K25 and K26 beside their "
+          "scatter stage (index_put_)", flush=True)
+    # K25's wrapper in place on its case's grid (no copy in the time)
+    # beside its scatter stage
+    for name in ("rs_map", "rs_map_prs", "rs_map_many"):
+        args = cases[name][2]
+        print(host_path(name, {
+            "kernel": lambda a=args: dl_rs.rs_map(*a),
+            "library": launch_profile.rs_map_stage(args)}), flush=True)
     # K27's wrapper on prebuilt PDUs beside the torch.matmul of its GF(2)
     # stage (one product per PDU), and building the slot's PDUs
     calls, library = launch_profile.control_calls(

@@ -7,23 +7,35 @@
 // to the grid at planned (port, symbol, subcarrier) targets.  Twin:
 // srsran_tpu_torch/ops/dl_rs.py::rs_map_ref.
 //
-// Design.  The host builds, once per plan key, a list grouped by target
-// RE: each target's flat grid offset, then its terms (value source, value
-// index, complex weight = CDM cover x precoder entry) in the JAX package's
-// summation order (ops/dl_rs.py::rs_plan).  One thread per target reads
-// the grid value, adds its terms one by one and writes it back: every
-// target has one writer, so there are no atomics, and a target that
-// several CSI-RS ports reach through a precoder (or that several PDUs
-// share) sums in the reference's order.  The values of up to kMaxSources
-// PDUs ride in the slot context; their pointers and per-slot strides are
-// passed by value.  A slot with more RS PDUs takes one launch for every
-// kMaxSources of them, in PDU order (ops/dl_rs.py::rs_map): a target's
-// terms follow the PDUs' order, so the sums round as in one launch.
-// Products and sums are rounded one by one (__fmul_rn / __fadd_rn), as
-// the twin rounds them.
+// Design.  The host builds, once per plan key, a plan grouped by target
+// RE (ops/dl_rs.py::rs_plan: each target's terms -- value source, value
+// index, complex weight = CDM cover x precoder entry -- in the JAX
+// package's summation order), then sorts the targets by descending term
+// count (stable) and writes one 16-byte record per term
+// (ops/dl_rs.py::rs_records): {the target's offset within a slot's grid,
+// source << kRsIndexBits | value index, the weight as float2}, term-major
+// -- all rank-0 records, then all rank-1 records, ... -- so that rank r
+// covers a prefix [0, n_r) of the targets; the n_r and each rank's first
+// record ride by value (RsMapParams).  One thread per target issues its
+// record loads at entry, then its grid load and its value loads together,
+// then one store: two dependent round trips, where a target list with a
+// start[] indirection and 64-bit offsets took four.  A target has one
+// writer, so there are no atomics, and a target that several CSI-RS
+// ports reach through a precoder (or that several PDUs share) sums grid +
+// term 0 + term 1 + ... in the reference's order; products and sums are
+// rounded one by one (__fmul_rn / __fadd_rn), as the twin rounds them.
+// Missing terms are not padded with zero weights (-0.0 + 0 v is +0.0).
+// The values of up to kMaxSources PDUs ride in the launch's arguments:
+// their pointers, from the call's host array, and their per-slot strides.
+// A slot with more RS PDUs takes one launch for every kMaxSources of them,
+// in PDU order (ops/dl_rs.py::rs_map): a target's terms follow the PDUs'
+// order, so the sums round as in one launch.  One build per rank bound (1,
+// 2, 4 or kRsMaxRanks), so that a slot whose targets have one term runs
+// no code for a second.  32-bit offsets: the wrapper refuses a grid of
+// 2^31 elements or more.
 //
 // Bounds on this card: bytes -- each target's grid value read and
-// written once, its terms' plan entries and values read once.  A flagship
+// written once, its terms' records and values read once.  A flagship
 // DL slot has a few thousand targets (2,184 for a 4-port CSI-RS on 273
 // RB, 1,370 for PT-RS, 9,792 for a comb-4 PRS over 12 symbols): the
 // launch, not the bytes, sets its time.
@@ -74,18 +86,25 @@
 // A slot axis (the slot-batch mode): K25's blockIdx.y, K26's blockIdx.z
 // picks the slot; the grid lies at a fixed per-slot stride, each value
 // source (K25) or pilot set and matrix (K26) at its own (0: one set shared
-// by every slot); the plans are shared.
+// by every slot); the plans and records are shared.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// The value sources, passed by value (outside the unnamed namespace: the
-// C entry point takes it, and must keep external linkage).
 constexpr int kMaxSources = 32;
+constexpr int kRsMaxRanks = 16;
+constexpr int kRsIndexBits = 27;
 
-struct RsSources {
-  const float2* ptr[kMaxSources];
-  long long stride[kMaxSources];        // complex values per slot (0: shared)
+// K25's launch, by address (srsran_tpu_torch/kernels/_build.py
+// RsMapParams): ntgt targets, sorted by descending term count; nslots
+// slots of grid_stride complex values; nranks term ranks, rank r covering
+// targets [0, rank_n[r]) with its records from rank_base[r]; nsrc value
+// sources, each stride complex values a slot (0: shared by every slot).
+struct RsMapParams {
+  int ntgt, nslots, grid_stride, nranks, nsrc;
+  int rank_n[kRsMaxRanks];
+  int rank_base[kRsMaxRanks];
+  int stride[kMaxSources];
 };
 
 constexpr int kMaxLayers = 4;
@@ -121,23 +140,46 @@ __device__ __forceinline__ float2 cadd(float2 a, float2 b) {
   return make_float2(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y));
 }
 
-__global__ void rs_map_kernel(RsSources src, const long long* __restrict__ tgt,
-                              const int* __restrict__ start,
-                              const int* __restrict__ term_src,
-                              const int* __restrict__ term_idx,
-                              const float2* __restrict__ w, int ntgt,
-                              float2* __restrict__ grid,
-                              long long grid_stride) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= ntgt) return;
-  const long long slot = blockIdx.y;
-  float2* g = grid + slot * grid_stride + tgt[t];
+// The kernel's arguments, by value: the sources' pointers and the launch.
+struct RsArgs {
+  const float2* ptr[kMaxSources];
+  RsMapParams p;
+};
+
+constexpr int kRsThreads = 128;
+
+// NR: the build's bound on the term ranks (RsMapParams::nranks <= NR).
+// The arguments are a __grid_constant__: a source's pointer and stride,
+// indexed by the record, load from the parameter bank, with no copy of
+// the struct into local memory.
+template <int NR>
+__global__ void __launch_bounds__(kRsThreads)
+rs_map_kernel(const __grid_constant__ RsArgs a, const int4* __restrict__ rec,
+              float2* __restrict__ grid) {
+  const int t = blockIdx.x * kRsThreads + threadIdx.x;
+  if (t >= a.p.ntgt) return;              // rank 0 covers every target
+  const int slot = blockIdx.y;
+  int4 q[NR];
+#pragma unroll
+  for (int r = 0; r < NR; ++r)
+    if (r == 0 || (r < a.p.nranks && t < a.p.rank_n[r]))
+      q[r] = __ldg(rec + a.p.rank_base[r] + t);
+  float2* g = grid + slot * a.p.grid_stride + q[0].x;
   float2 acc = *g;
-  for (int j = start[t]; j < start[t + 1]; ++j) {
-    const int s = term_src[j];
-    const float2 v = src.ptr[s][slot * src.stride[s] + term_idx[j]];
-    acc = cadd(acc, cmul(v, w[j]));
-  }
+  float2 v[NR];
+#pragma unroll
+  for (int r = 0; r < NR; ++r)
+    if (r == 0 || (r < a.p.nranks && t < a.p.rank_n[r])) {
+      const unsigned word = (unsigned)q[r].y;
+      const int s = word >> kRsIndexBits;
+      v[r] = __ldg(a.ptr[s] + slot * a.p.stride[s] +
+                   (int)(word & ((1u << kRsIndexBits) - 1u)));
+    }
+#pragma unroll
+  for (int r = 0; r < NR; ++r)
+    if (r == 0 || (r < a.p.nranks && t < a.p.rank_n[r]))
+      acc = cadd(acc, cmul(v[r], make_float2(__int_as_float(q[r].z),
+                                             __int_as_float(q[r].w))));
   *g = acc;
 }
 
@@ -231,18 +273,30 @@ dmrs_map_kernel(float2* __restrict__ grid, const float2* __restrict__ pilots,
 
 }  // namespace
 
-extern "C" int srsran_rs_map(RsSources src, void* tgt, void* start,
-                             void* term_src, void* term_idx, void* w,
-                             int ntgt, void* grid, long long grid_stride,
-                             int nslots, void* stream) {
-  if (nslots < 1) return (int)cudaErrorInvalidValue;
-  if (ntgt == 0) return 0;
-  const int threads = 128;
-  const dim3 blocks((ntgt + threads - 1) / threads, nslots);
-  rs_map_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      src, (const long long*)tgt, (const int*)start, (const int*)term_src,
-      (const int*)term_idx, (const float2*)w, ntgt, (float2*)grid,
-      grid_stride);
+// For `nslots` slots of grid c64 [nslots, P, S, K] (RsMapParams), in
+// place: `pointers` a host array of the nsrc value sources' device
+// pointers; the plan's records int4 [sum of rank_n] (16-byte aligned).
+extern "C" int srsran_rs_map(void* grid, const void* pointers, void* stream,
+                             const void* params, const void* records) {
+  const RsMapParams* p = (const RsMapParams*)params;
+  const uint64_t* ptrs = (const uint64_t*)pointers;
+  if (p == nullptr || ptrs == nullptr || p->ntgt < 1 || p->nslots < 1 ||
+      p->nranks < 1 || p->nranks > kRsMaxRanks || p->nsrc < 1 ||
+      p->nsrc > kMaxSources || p->rank_n[0] != p->ntgt ||
+      ((uintptr_t)records & 15))
+    return (int)cudaErrorInvalidValue;
+  RsArgs a;
+  a.p = *p;
+  for (int i = 0; i < kMaxSources; ++i)
+    a.ptr[i] = i < p->nsrc ? (const float2*)ptrs[i] : nullptr;
+  const dim3 blocks((p->ntgt + kRsThreads - 1) / kRsThreads, p->nslots);
+  using Kernel = void (*)(const RsArgs, const int4*, float2*);
+  const Kernel k = p->nranks <= 1   ? rs_map_kernel<1>
+                   : p->nranks <= 2 ? rs_map_kernel<2>
+                   : p->nranks <= 4 ? rs_map_kernel<4>
+                                    : rs_map_kernel<kRsMaxRanks>;
+  k<<<blocks, kRsThreads, 0, (cudaStream_t)stream>>>(
+      a, (const int4*)records, (float2*)grid);
   return (int)cudaGetLastError();
 }
 

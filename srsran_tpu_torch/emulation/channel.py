@@ -10,11 +10,15 @@ pxsch_bler_test_channel_emulator.h:41-67): TDLA/TDLB/TDLC delay profiles
 steer[d,k]; rx[r,s,k] = sum_t H[r,t,k] tx[t,s,k], times a CFO rotation per
 symbol; n0 = mean |rx|^2 over all R*S*K REs (empty ones included) over
 10^(SINR/10); rx + sqrt(n0/2) noise.  On CUDA tensors it runs kernel K20
-(csrc/tdl_channel.cu: one launch forms H, rx and one partial power sum per
-block, a second reduces the partials in a fixed order and adds the noise,
-so a replay gives the same bits); on CPU tensors the plain twin
+(csrc/tdl_channel.cu) through a plan per call signature on
+``kernels/_build.py::Launch`` (:func:`_tdl_plan`: the steering table, the
+rotation and the launch's :class:`_build.TdlParams`, split by
+:func:`_tdl_split`): a CTA per (rx port, 32 lanes of 2 subcarriers, group
+of symbols), every load staged at entry, rx and the CTAs' partial power
+sums stored; then a second launch adds the noise at the level of their
+sum, taken in one fixed order, so a replay gives the same bits.  On CPU tensors the plain twin
 :func:`apply_ref` runs.  On the card K20 is bound by its bytes (tx, noise
-and steering in; rx and H out): some 5 MB at the flagship 4x4, 273 RB.
+and steering in; rx and H out): 5.1 MB at the flagship 4x4, 273 RB.
 
 :func:`run` draws the gains [R, T, D] and the noise [R, S, K] from an
 explicit ``torch.Generator`` on the grid's device, in the JAX function's
@@ -42,8 +46,6 @@ KERNEL = kernels.register(kernels.Kernel(
     name="tdl_channel", route="cuda",
     source="srsran_tpu_torch/csrc/tdl_channel.cu",
     replaces="srsran_tpu/emulation/channel.py:67"))
-
-_MAX_TX, _MAX_TAPS = 8, 16        # the kernel's register and shared arrays
 
 # (delay ns, average power dB) — TR 38.901 TDL profiles as used by the
 # reference emulator.
@@ -100,15 +102,18 @@ def _rotation(cfo_hz: float, nof_symbols: int, scs_hz: int) -> np.ndarray:
 
 
 def _check(tx_grid: torch.Tensor, cfg: ChannelConfig, gains, noise) -> None:
+    _check_shapes(tuple(tx_grid.shape), tuple(gains.shape),
+                  tuple(noise.shape), cfg)
+
+
+def _check_shapes(tx_s: tuple, g_s: tuple, n_s: tuple,
+                  cfg: ChannelConfig) -> None:
     d = len(PROFILES[cfg.profile])
     r, t = cfg.nof_rx_ports, cfg.nof_tx_ports
     s, k = cfg.nof_symbols, cfg.nof_subc
-    if (tuple(tx_grid.shape) != (t, s, k) or tuple(gains.shape) != (r, t, d)
-            or tuple(noise.shape) != (r, s, k)):
-        raise ValueError(f"tx {tuple(tx_grid.shape)}, gains "
-                         f"{tuple(gains.shape)}, noise {tuple(noise.shape)} "
-                         f"vs ({t}, {s}, {k}), ({r}, {t}, {d}), ({r}, {s}, "
-                         f"{k})")
+    if tx_s != (t, s, k) or g_s != (r, t, d) or n_s != (r, s, k):
+        raise ValueError(f"tx {tx_s}, gains {g_s}, noise {n_s} vs ({t}, "
+                         f"{s}, {k}), ({r}, {t}, {d}), ({r}, {s}, {k})")
 
 
 def apply_ref(tx_grid: torch.Tensor, cfg: ChannelConfig, gains: torch.Tensor,
@@ -130,39 +135,101 @@ def apply_ref(tx_grid: torch.Tensor, cfg: ChannelConfig, gains: torch.Tensor,
     return rx, h
 
 
+def _tdl_smem(t: int, d: int, warps: int, vec: int) -> int:
+    """Bytes of a K20 launch-1 CTA's dynamic shared memory
+    (csrc/tdl_channel.cu smem_bytes): steering [D][32 V], gains [T D]
+    padded to even, H [T][32 V] and tx [warps][T][32 V] complex values."""
+    row = 32 * vec
+    return 8 * (d * row + ((t * d + 1) & ~1) + t * row + warps * t * row)
+
+
+def _tdl_split(r: int, t: int, s: int, k: int, d: int, vec: int,
+               sms: int) -> tuple:
+    """(splits, warps): K20's symbol groups (gridDim.y) and warps a CTA,
+    one symbol a warp.  The fewest groups that give the grid two CTAs an
+    SM (every symbol its own CTA when even that gives fewer), within
+    TDL_MAX_WARPS warps and TDL_MAX_SMEM bytes a CTA."""
+    runs = -(-(-(-k // vec)) // 32)         # ceil(ceil(K / V) / 32)
+    for asked in range(1, s + 1):
+        warps = -(-s // asked)
+        splits = -(-s // warps)             # no group left empty
+        if (warps > _build.TDL_MAX_WARPS
+                or _tdl_smem(t, d, warps, vec) > _build.TDL_MAX_SMEM):
+            continue
+        if runs * r * splits >= 2 * sms or warps == 1:
+            return splits, warps
+    raise AssertionError("one symbol a CTA always fits")
+
+
+def _tdl_params(r: int, t: int, s: int, k: int, d: int, vec: int,
+                splits: int, warps: int, use_rot: bool,
+                sinr_db: float) -> _build.TdlParams:
+    """K20's launch parameters (csrc/tdl_channel.cu TdlParams)."""
+    lanes = -(-k // vec)
+    runs = -(-lanes // 32)
+    return _build.TdlParams(
+        R=r, T=t, S=s, K=k, D=d, V=vec, lanes=lanes, runs=runs,
+        splits=splits, warps=warps, use_rot=int(use_rot),
+        nblocks=runs * splits * r, smem=_tdl_smem(t, d, warps, vec),
+        scale=1.0 / (r * s * k * 10 ** (sinr_db / 10) * 2))
+
+
+@functools.lru_cache(maxsize=64)
+def _tdl_plan(shapes: tuple, dtypes: tuple, devices: tuple,
+              cfg: ChannelConfig, vec: int):
+    """K20's launch for one call signature: the inputs' shapes, dtypes and
+    CUDA devices, the configuration and V (2: 16-byte accesses).  The plan
+    holds the steering table and the rotation; a call brings its own
+    scratch for the partial sums, so calls on two streams share nothing
+    that they write."""
+    _check_shapes(*shapes, cfg)
+    if any(dt != torch.complex64 for dt in dtypes):
+        raise ValueError("the channel's inputs must be complex64")
+    if len(set(devices)) != 1:
+        raise ValueError(f"the channel's inputs on CUDA devices {devices}")
+    r, t, d = shapes[1]
+    s, k = cfg.nof_symbols, cfg.nof_subc
+    if t > _build.TDL_MAX_TX or d > _build.TDL_MAX_TAPS:
+        raise ValueError(f"{t} TX ports / {d} taps (K20 takes "
+                         f"{_build.TDL_MAX_TX} / {_build.TDL_MAX_TAPS})")
+    if max(r * s, t * s, r * t, d) * k >= 1 << 31:
+        raise ValueError("K20 takes at most 2^31 elements an input or "
+                         "output (32-bit offsets)")
+    index = devices[0]
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    split = _tdl_split(r, t, s, k, d, vec, sms)
+    params = _tdl_params(r, t, s, k, d, vec, *split, bool(cfg.cfo_hz),
+                         cfg.sinr_db)
+    dev = torch.device("cuda", index)
+    steer = torch.from_numpy(_steering(cfg.profile, k, cfg.scs_hz)).to(dev)
+    rot = torch.from_numpy(_rotation(float(cfg.cfo_hz), s, cfg.scs_hz)).to(
+        dev)
+    return _build.Launch("srsran_tdl_channel", index, params, (steer, rot))
+
+
 def apply(tx_grid: torch.Tensor, cfg: ChannelConfig, gains: torch.Tensor,
           noise: torch.Tensor) -> tuple:
     """The channel on given draws.  tx_grid complex64 [T, S, K], gains
     complex64 [R, T, D] (the tap coefficients, amplitudes included), noise
     complex64 [R, S, K] (unit-variance parts) -> (rx [R, S, K], H [R, T,
-    K]).  K20 on CUDA tensors, the plain twin on CPU tensors."""
+    K]).  K20 on CUDA tensors (allocating rx, H and the partial sums), the
+    plain twin on CPU tensors."""
     if not is_cuda(tx_grid, gains, noise):
         return apply_ref(tx_grid, cfg, gains, noise)
-    _check(tx_grid, cfg, gains, noise)
-    r, t, d = gains.shape
-    s, k = cfg.nof_symbols, cfg.nof_subc
-    if t > _MAX_TX or d > _MAX_TAPS:
-        raise ValueError(f"{t} TX ports / {d} taps (the kernel takes "
-                         f"{_MAX_TX} / {_MAX_TAPS})")
-    for x in (tx_grid, gains, noise):
-        if x.dtype != torch.complex64:
-            raise ValueError("the channel's inputs must be complex64")
-    dev = tx_grid.device
-    lib = _build.load()
-    steer = const(_steering, cfg.profile, cfg.nof_subc, cfg.scs_hz,
-                  device=dev)
-    rot = const(_rotation, float(cfg.cfo_hz), s, cfg.scs_hz, device=dev)
-    tx_grid, gains, noise = (x.contiguous() for x in (tx_grid, gains, noise))
-    h = torch.empty((r, t, k), dtype=torch.complex64, device=dev)
-    rx = torch.empty((r, s, k), dtype=torch.complex64, device=dev)
-    nblk = -(-k // 256)
-    partial = torch.empty(r * nblk, dtype=torch.float64, device=dev)
-    scale = 1.0 / (r * s * k * 10 ** (cfg.sinr_db / 10) * 2)
-    _build.check(lib.srsran_tdl_channel(
-        _build.ptr(tx_grid), _build.ptr(gains), _build.ptr(steer),
-        _build.ptr(rot), 1 if cfg.cfo_hz else 0, t, r, s, k, d,
-        _build.ptr(h), _build.ptr(rx), _build.ptr(partial), scale,
-        _build.ptr(noise), _build.stream_of(tx_grid)), "tdl_channel")
+    tx, g, z = (x if x.is_contiguous() else x.contiguous()
+                for x in (tx_grid, gains, noise))
+    # V = 2 where K is even and tx and noise are 16-byte aligned
+    vec = 1 if (tx.data_ptr() | z.data_ptr()) & 15 or cfg.nof_subc & 1 else 2
+    launch = _tdl_plan(
+        (tuple(tx.shape), tuple(g.shape), tuple(z.shape)),
+        (tx.dtype, g.dtype, z.dtype),
+        (tx.get_device(), g.get_device(), z.get_device()), cfg, vec)
+    r, t = g.shape[0], g.shape[1]
+    h = tx.new_empty((r, t, cfg.nof_subc))
+    rx = tx.new_empty((r, cfg.nof_symbols, cfg.nof_subc))
+    partial = tx.new_empty(launch.params.nblocks, dtype=torch.float64)
+    launch(tx.data_ptr(), g.data_ptr(), z.data_ptr(), rx.data_ptr(),
+           h.data_ptr(), partial.data_ptr())
     KERNEL.count()
     return rx, h
 

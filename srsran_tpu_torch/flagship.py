@@ -1493,6 +1493,34 @@ def gnb_kernel_cases(gen: torch.Generator, rng: np.random.Generator,
     }
 
 
+# K20's cases (launch_profile --cases tdl_channel): the gNB simulator's
+# 4x4 TDLA at 28 dB, TDLC with a CFO (the rotation), uniform-phase fading,
+# one rx port, and K = 288 (no multiple of the kernel's 64-subcarrier run).
+CHANNEL_PROFILE_CASES = {
+    "tdl_channel": GNB_CHANNEL,
+    "tdl_channel_tdlc_cfo": dataclasses.replace(GNB_CHANNEL, profile="TDLC",
+                                                cfo_hz=750.0),
+    "tdl_channel_uniform": dataclasses.replace(GNB_CHANNEL,
+                                               fading="uniform-phase"),
+    "tdl_channel_r1": dataclasses.replace(GNB_CHANNEL, nof_rx_ports=1),
+    "tdl_channel_k288": dataclasses.replace(GNB_CHANNEL, nof_subc=288),
+}
+
+
+def channel_profile_cases(gen: torch.Generator, device) -> dict:
+    """name -> (``channel.apply``, its twin, args) of every
+    CHANNEL_PROFILE_CASES entry on a random UE grid and draws from
+    ``gen``."""
+    cases = {}
+    for name, cfg in CHANNEL_PROFILE_CASES.items():
+        shape = (cfg.nof_tx_ports, cfg.nof_symbols, cfg.nof_subc)
+        tx = torch.complex(torch.randn(shape, generator=gen, device=device),
+                           torch.randn(shape, generator=gen, device=device))
+        gains, noise = chan.draw(cfg, gen)
+        cases[name] = (chan.apply, chan.apply_ref, (tx, cfg, gains, noise))
+    return cases
+
+
 def prg_single_table_case(device) -> tuple:
     """K22 with one PRG (G = 1: PRG size 273, the identity for both
     layers) and K6 on the same codeblocks and grid: (args with the table,
@@ -1805,7 +1833,9 @@ def _on_copy(fn):
 def du_kernel_cases(rng: np.random.Generator, device) -> dict:
     """name -> (wrapper, plain twin, args) for K25-K27 at the DU-low
     shapes, each adding into a seeded grid (on a copy): "rs_map" slot A's
-    CSI-RS and PT-RS, "rs_map_trs" slot B's, "rs_map_prs" slot C's PRS;
+    CSI-RS and PT-RS, "rs_map_trs" slot B's, "rs_map_prs" slot C's PRS,
+    "rs_map_many" 33 CSI-RS (two launches), "rs_map_terms" targets of 1,
+    2 and 3 terms at odd offsets (:func:`rs_terms_args`);
     "dmrs_map" the flagship PDSCH's 4 layers with the identity port map,
     "dmrs_map_matrix" with a [4, 4] matrix, "dmrs_map_prg" with 69 PRG
     matrices (PRG size 4); "control_map" slot A's SSB (with its slot
@@ -1862,7 +1892,41 @@ def du_kernel_cases(rng: np.random.Generator, device) -> dict:
             rng, device, 8, True, True, b, overlap=True)
     cases["control_map_negzero"] = _control_case(rng, device, 8, True, True,
                                                   None, negzero=True)
+    for b in (None, 4):
+        items, values, grid = rs_terms_args(rng, device, b)
+        cases["rs_map_terms" + ("_b4" if b else "")] = (
+            _on_copy(dl_rs.rs_map), _on_copy(dl_rs.rs_map_ref),
+            (grid, items, values))
     return cases
+
+
+# K25 targets of several terms at odd offsets: per item (values, first
+# subcarrier, step, weight, port, symbol); items 0-2 overlap on odd
+# subcarriers of port 1, symbol 5 (1, 2 and 3 terms a target), item 3 adds
+# single terms on port 3, symbol 11.
+RS_TERMS = ((300, 1, 2, 0.5 - 0.25j, 1, 5), (200, 101, 2, -1j, 1, 5),
+            (50, 201, 2, 0.75 + 0.5j, 1, 5), (64, 7, 6, 1 + 1j, 3, 11))
+
+
+def rs_term_blocks(n: int, start: int, step: int, weight: complex,
+                   port: int, symbol: int) -> tuple:
+    """K25 blocks (ops/dl_rs.py::rs_plan) of value i at subcarrier start
+    + step i, weighted."""
+    return (n,), ((port, symbol, start + step * np.arange(n), np.arange(n),
+                   weight),)
+
+
+def rs_terms_args(rng: np.random.Generator, device, batch=None):
+    """(items, values, grid) of the RS_TERMS K25 case on a seeded grid
+    ([batch, ...] with per-slot values)."""
+    shape = (CELL.nof_ports, 14, CELL.nof_sc)
+    lead = (batch,) if batch else ()
+    items = tuple((rs_term_blocks, t) for t in RS_TERMS)
+    values = tuple(_up(((rng.normal(size=lead + (t[0],)) + 1j * rng.normal(
+        size=lead + (t[0],))) / 2).astype(np.complex64), device)
+        for t in RS_TERMS)
+    g = (rng.normal(size=lead + shape) + 1j * rng.normal(size=lead + shape))
+    return items, values, _up(g.astype(np.complex64), device)
 
 
 def _many_rs_args(rng: np.random.Generator, device, batch=None):

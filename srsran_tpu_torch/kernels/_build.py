@@ -9,8 +9,8 @@ build on every run, so the sources compile side by side.  Pointers and the strea
 ``ctypes.c_void_p``; every C entry point returns ``cudaGetLastError()``
 after its launches, and :func:`check` raises on anything but 0.
 :class:`Launch` is the lean form of that path (K1, K3, K4, K5, K6, K7, K8,
-K9, K10, K11, K12, K13, K14, K15, K16, K22, K23, K24, K26, K32, K21, K18,
-K19, K27, K33, K34 and K35 take it): a
+K9, K10, K11, K12, K13, K14, K15, K16, K20, K22, K23, K24, K25, K26, K32,
+K21, K18, K19, K27, K33, K34 and K35 take it): a
 wrapper keeps one per call signature with the bound C function, a
 parameter struct passed by address and its device tables, and a call
 passes only the tensors' pointers and the current stream.
@@ -42,16 +42,8 @@ _F = ctypes.c_float
 _D = ctypes.c_double
 _L = ctypes.c_longlong
 
-RS_MAX_SOURCES = 32        # csrc/dl_rs_map.cu kMaxSources
 CONTROL_MAX_PDUS = 16      # csrc/dl_control_map.cu kMaxPdus
 CONTROL_PTRS_PER_PDU = 4   # csrc/dl_control_map.cu kPtrsPerPdu
-
-
-class RsSources(ctypes.Structure):
-    """csrc/dl_rs_map.cu's RsSources (K25's value sources), by value."""
-
-    _fields_ = [("ptr", _P * RS_MAX_SOURCES),
-                ("stride", _L * RS_MAX_SOURCES)]
 
 
 class ControlPdu(ctypes.Structure):
@@ -361,6 +353,32 @@ class DmrsMapParams(ctypes.Structure):
         "npil", "pilot_stride", "w_stride")] + [
         ("symbols", _I * DMRS_MAX_SYMBOLS)]
 
+RS_MAX_SOURCES = 32       # csrc/dl_rs_map.cu kMaxSources
+RS_MAX_RANKS = 16         # csrc/dl_rs_map.cu kRsMaxRanks
+RS_INDEX_BITS = 27        # csrc/dl_rs_map.cu kRsIndexBits
+
+
+class RsMapParams(ctypes.Structure):
+    """csrc/dl_rs_map.cu's RsMapParams (K25's launch), by address."""
+
+    _fields_ = [(name, _I) for name in (
+        "ntgt", "nslots", "grid_stride", "nranks", "nsrc")] + [
+        ("rank_n", _I * RS_MAX_RANKS), ("rank_base", _I * RS_MAX_RANKS),
+        ("stride", _I * RS_MAX_SOURCES)]
+
+TDL_MAX_TX = 8            # csrc/tdl_channel.cu kMaxTx
+TDL_MAX_TAPS = 16         # csrc/tdl_channel.cu kMaxTaps
+TDL_MAX_WARPS = 16        # csrc/tdl_channel.cu kTdlMaxWarps
+TDL_MAX_SMEM = 49152      # csrc/tdl_channel.cu kTdlMaxSmem
+
+
+class TdlParams(ctypes.Structure):
+    """csrc/tdl_channel.cu's TdlParams (K20's launch), by address."""
+
+    _fields_ = [(name, _I) for name in (
+        "R", "T", "S", "K", "D", "V", "lanes", "runs", "splits", "warps",
+        "use_rot", "nblocks", "smem")] + [("scale", _D)]
+
 BFP_MAX_TILES = 1024      # csrc/bfp.cu kBfpMaxTiles
 BFP_TILE_PRBS = 32        # csrc/bfp.cu kBfpTilePrbs
 BFP_PRB_BITS = 22         # csrc/bfp.cu kBfpPrbBits
@@ -424,13 +442,12 @@ SIGNATURES = {
     "srsran_polar_decode": [_P] * 6,
     "srsran_pusch_tp_demap": [_P] * 11,
     "srsran_pucch_f3_demap": [_P] * 8,
-    "srsran_tdl_channel": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
-                           _D, _P, _P],
+    "srsran_tdl_channel": [_P] * 10,
     "srsran_prach_demod": [_P, _P, _P, _P, _P, _P],
     "srsran_bfp_compress": [_P] * 6,
     "srsran_bfp_decompress_sections": [_P] * 4,
     "srsran_bfp_decompress": [_P] * 5,
-    "srsran_rs_map": [RsSources, _P, _P, _P, _P, _P, _I, _P, _L, _I, _P],
+    "srsran_rs_map": [_P] * 5,
     "srsran_dmrs_map": [_P] * 6,
     "srsran_control_map": [_P] * 8,
     "srsran_control_llrs": [_P, _P, _P, _I, _P, _P, _I, _F, _P, _P],

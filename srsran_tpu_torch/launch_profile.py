@@ -1,8 +1,8 @@
 """The host side of a kernel launch on one CUDA GPU: K1's, K3's, K4's,
-K5's, K6's, K7's, K8's, K10's, K11's, K12's, K13's, K14's, K15's, K26's,
-K32's, K21's, K18's, K19's, K22's, K27's, K33's, K34's and K35's wrappers
-against one PyTorch call each (K1, K3, K6, K8, K10, K13, K15, K22: none
-computes it; their device µs alone).
+K5's, K6's, K7's, K8's, K10's, K11's, K12's, K13's, K14's, K15's, K20's,
+K23's-K26's, K32's, K21's, K18's, K19's, K22's, K27's, K33's, K34's and
+K35's wrappers against one PyTorch call each (K1, K3, K6, K8, K10, K13,
+K15, K22, K23, K24: none computes it; their device µs alone).
 
     python3 -m srsran_tpu_torch.launch_profile [--calls 1000] [--out DIR]
         [--cases PREFIX ...]
@@ -109,7 +109,15 @@ odd offsets (``bfp_decompress_small``), two slots' grids
 mode at width 14 (``bfp_decompress_mant_w14``), from
 ``flagship.ofh_kernel_cases`` and ``ofh_profile_cases`` (:func:`bfp_calls`),
 device µs alone (no PyTorch call computes BFP); ``--cases bfp_compress
-bfp_decompress``, ~1 min.
+bfp_decompress``, ~1 min; K20 (``channel.apply``) on
+``flagship.channel_profile_cases`` (``tdl_channel``: the gNB simulator's
+4x4 TDLA; ``_tdlc_cfo``, ``_uniform``, ``_r1``, ``_k288``), each also
+timed in a CUDA graph of 20 calls (:func:`graph_us`), and ``channel.run``
+whole (``_run``, its activities by name), beside its mix
+``torch.einsum``, and K25 (``dl_rs.rs_map``, in place)
+on ``du_kernel_cases``' ``rs_map*`` beside one ``index_put_`` of their
+weighted terms (:func:`channel_calls`, :func:`rs_map_calls`); ``--cases
+tdl_channel rs_map``, ~2 min.
 ``--cases`` keeps the cases whose names start with one of the prefixes
 (and skips the pieces below, and building the cases it leaves out).  Per
 case and call it reports:
@@ -119,8 +127,9 @@ case and call it reports:
 * event ms: CUDA events around one call, median of 20, as
   ``chip_smoke.py`` times a kernel (the host's enqueue shows in it);
 * device µs: the device activities' time per call in a ``torch.profiler``
-  trace of 50 calls, the activities per call and the four longest by
-  name;
+  trace of 50 calls, their span per call (the union of their intervals:
+  where a call's launches overlap, less than their sum), the activities
+  per call and the four longest by name;
 * a ``cProfile`` of ``--calls`` calls: the functions with the most own
   time, to ``DIR/<case>_cprofile.txt``;
 * the card's SM and memory clocks and power draw (``nvidia-smi``) just
@@ -157,16 +166,19 @@ from .device import card_line, const, require_cuda
 from .kernels import _build
 from .ops import (dl_control, dl_rs, ldpc_encode, ldpc_rate_match, llr,
                   ofdm, short_block, ul_demap)
+from .emulation import channel as chan
 from .ops.crc import crc
 from .ops.transform_precode import deprecode
 from .phy.lower import prach_demod
 from .phy.upper import pdcch, prach, pucch, srs, ssb, uci
-from .profile_slot import profiled, top_activities
+from .profile_slot import busy_us, profiled, top_activities
 from .ran.ldpc_params import segment_tb
 
 EVENT_RUNS = 20
 PROFILED_CALLS = 50
 UCI_E, UCI_QM = 120, 2     # one UCI codeword as the UE emulation sends it
+# the cases also timed in a CUDA graph of 20 calls (K20's)
+GRAPHED = tuple(flagship.CHANNEL_PROFILE_CASES)
 
 
 def host_us(fn, calls: int) -> dict:
@@ -209,16 +221,36 @@ def clocks() -> str:
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else ""
 
 
-def device_profile(fn, path: Path, calls: int = PROFILED_CALLS) -> dict:
+def device_profile(fn, path: Path, calls: int = PROFILED_CALLS,
+                   top: int = 4) -> dict:
     """Device time per call: the sum of the device activities' durations
     in a torch.profiler trace of ``calls`` calls (its chrome trace goes
-    to ``path`` and is deleted), the activities per call, and the four
+    to ``path`` and is deleted), the activities per call, and the ``top``
     with the most time (µs per call, by name)."""
     fn()
     events, _ = profiled(fn, calls, path)
     return {"us": sum(e[3] for e in events) / calls,
+            "span_us": busy_us(events) / calls,
             "activities": len(events) / calls,
-            "top": top_activities(events, calls, 4)}
+            "top": top_activities(events, calls, top)}
+
+
+def graph_us(fn, calls: int = 20, runs: int = 10) -> float | None:
+    """Device µs a call of ``calls`` calls captured in one CUDA graph:
+    CUDA events around a replay, median of ``runs`` (None where the calls
+    cannot be captured)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                fn()
+    except RuntimeError:
+        return None
+    graph.replay()
+    torch.cuda.synchronize()
+    return 1e3 * event_ms(graph.replay, runs) / calls
 
 
 def device_us(fn, path: Path, calls: int = PROFILED_CALLS) -> float:
@@ -844,6 +876,86 @@ def bfp_calls(rng, dev) -> tuple:
     return calls, dict.fromkeys(calls)
 
 
+def channel_calls(gen: torch.Generator, dev) -> tuple:
+    """K20's (calls, library) by name (``flagship.channel_profile_cases``),
+    each checked against its twin once (within 1e-5 of max|rx| and
+    max|H|), beside its mix stage ``torch.einsum("rtk,tsk->rsk", H, tx)``,
+    and "tdl_channel_run" ``channel.run`` whole, the draws and K20, as the
+    app calls it once a slot (no library)."""
+    calls, library = {}, {}
+    cases = flagship.channel_profile_cases(gen, dev)
+    for name, (fn, twin, a) in cases.items():
+        (rx, h), (rx_ref, h_ref) = fn(*a), twin(*a)
+        for got, ref in ((rx, rx_ref), (h, h_ref)):
+            torch.testing.assert_close(got, ref, rtol=0, atol=1e-5 * float(
+                ref.abs().max()), msg=name)
+        calls[name] = lambda fn=fn, a=a: fn(*a)
+        library[name] = (lambda h=h_ref, tx=a[0]:
+                         torch.einsum("rtk,tsk->rsk", h, tx))
+    tx = cases["tdl_channel"][2][0]
+    run_gen = torch.Generator(device=dev)
+    run_gen.manual_seed(30)
+    calls["tdl_channel_run"] = lambda: chan.run(tx, flagship.GNB_CHANNEL,
+                                                run_gen)
+    library["tdl_channel_run"] = None
+    return calls, library
+
+
+def rs_map_stage(args: tuple):
+    """K25's scatter stage as one PyTorch call: ``index_put_`` with
+    ``accumulate=True`` of every term's precomputed weighted value (value
+    x weight, complex64) at its target RE, in the grid's float32 view,
+    on a copy of the case's grid; a stage of the function, not the
+    whole."""
+    grid, items, values = args
+    lead = tuple(grid.shape[:-3])
+    nb = lead[0] if lead else 1
+    shape = tuple(grid.shape[-3:])
+    stride = int(np.prod(shape))
+    flats, vals = [], []
+    n = _build.RS_MAX_SOURCES
+    for c in range(0, len(items), n):
+        plan = dl_rs.rs_plan(items[c:c + n], shape)
+        srcs = dl_rs._sources(values[c:c + n], plan["shapes"], lead)
+        tgt = np.repeat(plan["tgt"], np.diff(plan["start"]))
+        w = torch.as_tensor(plan["w"], device=grid.device)
+        for b in range(nb):
+            v = torch.cat([(t.reshape(nb, -1)[b] if st else t.reshape(-1))
+                           for t, st in srcs])
+            base = np.concatenate([[0], np.cumsum(
+                [int(np.prod(sh)) for sh in plan["shapes"]])])
+            gidx = torch.as_tensor(base[plan["src"]] + plan["idx"],
+                                   device=grid.device)
+            flats.append(b * stride + tgt)
+            vals.append(v[gidx] * w)
+    flat = np.concatenate(flats)
+    idx = torch.as_tensor(np.stack([2 * flat, 2 * flat + 1], -1).ravel(),
+                          device=grid.device)
+    terms = torch.view_as_real(torch.cat(vals)).reshape(-1)
+    target = torch.view_as_real(grid.clone()).reshape(-1)
+    return lambda: target.index_put_((idx,), terms, accumulate=True)
+
+
+def rs_map_calls(rng: np.random.Generator, dev) -> tuple:
+    """K25's (calls, library) by name: ``flagship.du_kernel_cases``'
+    ``rs_map``, ``_trs``, ``_prs``, ``_many`` (33 CSI-RS, two launches),
+    ``_terms`` (1-3 terms a target at odd offsets), each also with a slot
+    axis of 4 (``_b4``), each checked bit for bit against its twin once on
+    copies of its grid, then timed adding into the case's grid again and
+    again (no copy in the time), beside its scatter stage
+    (:func:`rs_map_stage`)."""
+    calls, library = {}, {}
+    for name, (fn, twin, a) in flagship.du_kernel_cases(rng, dev).items():
+        if not name.startswith("rs_map"):
+            continue
+        if not torch.equal(torch.view_as_real(fn(*a)),
+                           torch.view_as_real(twin(*a))):
+            raise AssertionError(f"{name}: K25 differs from its twin")
+        calls[name] = lambda a=a: dl_rs.rs_map(*a)
+        library[name] = rs_map_stage(a)
+    return calls, library
+
+
 def _entry(loader, argtype):
     """K32's C entry point loaded through ``loader`` (ctypes.CDLL releases
     the interpreter lock around the call, ctypes.PyDLL keeps it) with four
@@ -962,7 +1074,9 @@ def main(argv=None) -> dict:
                  lambda: uci_calls(gen, rng, dev)),
                 (("srs_noise", "dmrs_map"), lambda: rs_calls(dev)),
                 (("bfp_compress", "bfp_decompress"),
-                 lambda: bfp_calls(rng, dev)))
+                 lambda: bfp_calls(rng, dev)),
+                (("tdl_channel",), lambda: channel_calls(gen, dev)),
+                (("rs_map",), lambda: rs_map_calls(rng, dev)))
     for prefixes, build in builders:
         if _wanted(args.cases, prefixes):
             more_calls, more_library = build()
@@ -984,23 +1098,31 @@ def main(argv=None) -> dict:
         for which, f in (("kernel", fn), ("library", library[name])):
             if f is None:
                 continue
-            dev_prof = device_profile(f, out / f"{name}_{which}.json")
+            dev_prof = device_profile(f, out / f"{name}_{which}.json",
+                                      top=12 if name.endswith("_run") else 4)
             row[which] = {
                 "host_us": host_us(f, args.calls),
                 "clocks": clocks(),
                 "event_ms": event_ms(f),
                 "device_us": dev_prof["us"],
+                "span_us": dev_prof["span_us"],
                 "activities": dev_prof["activities"],
                 "top_activities": dev_prof["top"],
                 "cprofile_top_us": cprofile_top(
                     f, args.calls, out / f"{name}_{which}_cprofile.txt")[:8],
             }
+            if which == "kernel" and name in GRAPHED:
+                row[which]["graph_us"] = graph_us(f)
         summary["cases"][name] = row
         print(f"{name}: " + "; ".join(
             f"{w} host {r['host_us']['median']:.2f} us, events "
             f"{r['event_ms']:.4f} ms, device {r['device_us']:.2f} us over "
-            f"{r['activities']:g} activities ({r['clocks']})"
-            for w, r in row.items()), flush=True)
+            f"{r['activities']:g} activities, span {r['span_us']:.2f} us"
+            + (f", graphed {r['graph_us']:.2f} us a call"
+               if r.get("graph_us") is not None else "")
+            + f" ({r['clocks']})"
+            for w, r in row.items()),
+            flush=True)
     if args.cases is None:
         summary["pieces_host_us"] = pieces(rm_args, args.calls)
     (out / "summary.json").write_text(json.dumps(summary, indent=1))

@@ -8,9 +8,13 @@ PDU of a slot as *blocks* -- (port, symbol, subcarriers, value indices,
 weight) in the JAX package's emit order -- and builds from them, once per
 plan key, one list grouped by target RE (:func:`rs_plan`): each target's
 flat grid offset and its terms (value source, value index, complex
-weight).  One launch adds every PDU's values (one for every 32 PDUs);
-the plain twin :func:`rs_map_ref` adds the same terms rank by rank with
-products and sums rounded one by one, as the kernel rounds them.
+weight); :func:`rs_records` turns it into the kernel's 16-byte records,
+the targets sorted by term count and the records term-major.  One launch
+adds every PDU's values (one for every 32 PDUs), through a plan per call
+signature on ``kernels/_build.py::Launch`` (:func:`_rs_plan`, its struct
+:func:`_rs_params`); the plain twin :func:`rs_map_ref` adds the same terms
+rank by rank with products and sums rounded one by one, as the kernel
+rounds them.
 
 K26, :func:`dmrs_map`.  srsran_tpu/phy/upper/dmrs.py::map_to_grid (:198)
 adds the DM-RS of each layer (configuration type 1 or 2, on a contiguous
@@ -95,28 +99,32 @@ def rs_plan(items: tuple, shape: tuple) -> dict:
                 shapes=tuple(shapes), ranks=tuple(ranks))
 
 
-def _plan_array(items: tuple, shape: tuple, name: str) -> np.ndarray:
-    a = rs_plan(items, shape)[name]
-    return a.view(np.float32).reshape(-1, 2) if name == "w" else a
+def _source_strides(value_shapes: tuple, shapes: tuple,
+                    lead: tuple) -> tuple:
+    """Each value source's per-slot stride in complex values (0: shared
+    by every slot), from the values' shapes and the plan's."""
+    if len(value_shapes) != len(shapes):
+        raise ValueError(f"{len(value_shapes)} value sources for "
+                         f"{len(shapes)} RS PDUs")
+    out = []
+    for got, shape in zip(value_shapes, shapes):
+        if tuple(got) == shape:
+            out.append(0)
+        elif lead and tuple(got) == lead + shape:
+            out.append(int(np.prod(shape)))
+        else:
+            raise ValueError(f"RS values {tuple(got)} vs {shape} (slot "
+                             f"axis {lead})")
+    return tuple(out)
 
 
 def _sources(values, shapes: tuple, lead: tuple) -> list:
     """Each value source as (tensor, per-slot stride in complex values)."""
-    if len(values) != len(shapes):
-        raise ValueError(f"{len(values)} value sources for {len(shapes)} "
-                         f"RS PDUs")
-    out = []
-    for v, shape in zip(values, shapes):
+    for v in values:
         if v.dtype != torch.complex64:
             raise ValueError(f"RS values must be complex64, got {v.dtype}")
-        if tuple(v.shape) == shape:
-            out.append((v.contiguous(), 0))
-        elif lead and tuple(v.shape) == lead + shape:
-            out.append((v.contiguous(), int(np.prod(shape))))
-        else:
-            raise ValueError(f"RS values {tuple(v.shape)} vs {shape} (slot "
-                             f"axis {lead})")
-    return out
+    strides = _source_strides(tuple(v.shape for v in values), shapes, lead)
+    return [(v.contiguous(), st) for v, st in zip(values, strides)]
 
 
 def rs_map_ref(grid: torch.Tensor, items: tuple, values) -> torch.Tensor:
@@ -152,6 +160,122 @@ def rs_map_ref(grid: torch.Tensor, items: tuple, values) -> torch.Tensor:
     return grid
 
 
+@functools.lru_cache(maxsize=256)
+def rs_records(items: tuple, shape: tuple) -> dict:
+    """K25's records of :func:`rs_plan`'s plan (csrc/dl_rs_map.cu).
+
+    The targets sorted by descending term count (stable: ``order``, into
+    the plan's targets), so that term rank r covers the first ``rank_n[r]``
+    of them; one 16-byte record a term, term-major (rank 0's, then rank
+    1's, ...): int32 [N, 4] {the target's flat offset in a [P, S, K] grid,
+    source << RS_INDEX_BITS | value index, the weight's real and imaginary
+    float32 bits}.  Raises a ValueError past RS_MAX_RANKS terms a target,
+    2^RS_INDEX_BITS values a source or 2^31 elements a grid.
+    """
+    plan = rs_plan(items, shape)
+    if math.prod(shape) >= 1 << 31:
+        raise ValueError(f"K25 takes at most 2^31 elements a grid (32-bit "
+                         f"offsets), got {shape}")
+    counts = np.diff(plan["start"])
+    order = np.argsort(-counts, kind="stable")
+    nranks = int(counts.max()) if counts.size else 0
+    if nranks > _build.RS_MAX_RANKS:
+        raise ValueError(f"an RS target with {nranks} terms (K25 takes "
+                         f"{_build.RS_MAX_RANKS}, RS_MAX_RANKS)")
+    if plan["idx"].size and int(plan["idx"].max()) >> _build.RS_INDEX_BITS:
+        raise ValueError(f"an RS value index of {int(plan['idx'].max())} "
+                         f"(K25 takes < 2^{_build.RS_INDEX_BITS}, "
+                         f"RS_INDEX_BITS)")
+    rank_n = tuple(int((counts > r).sum()) for r in range(nranks))
+    w = plan["w"].view(np.float32).reshape(-1, 2).view(np.int32)
+    records = []
+    for r, n in enumerate(rank_n):
+        sel = order[:n]
+        j = plan["start"][sel] + r
+        rec = np.empty((n, 4), np.int32)
+        rec[:, 0] = plan["tgt"][sel]
+        rec[:, 1] = ((plan["src"][j].astype(np.uint32) << _build.RS_INDEX_BITS)
+                     | plan["idx"][j].astype(np.uint32)).view(np.int32)
+        rec[:, 2:] = w[j]
+        records.append(rec)
+    return dict(records=(np.concatenate(records) if records
+                         else np.zeros((0, 4), np.int32)),
+                rank_n=rank_n, order=order)
+
+
+def _rs_params(records: dict, strides: tuple, grid_shape: tuple
+               ) -> _build.RsMapParams:
+    """K25's launch parameters for one call signature: the records of
+    :func:`rs_records`, the sources' per-slot strides and the grid's shape
+    [(B,) P, S, K]."""
+    rank_n = records["rank_n"]
+    base = np.concatenate([[0], np.cumsum(rank_n)])[:-1]
+    lead = tuple(grid_shape[:-3])
+    if math.prod(grid_shape) >= 1 << 31:
+        raise ValueError(f"K25 takes at most 2^31 elements a grid (32-bit "
+                         f"offsets), got {tuple(grid_shape)}")
+    pad = _build.RS_MAX_RANKS - len(rank_n)
+    return _build.RsMapParams(
+        ntgt=rank_n[0], nslots=lead[0] if lead else 1,
+        grid_stride=math.prod(grid_shape[-3:]), nranks=len(rank_n),
+        nsrc=len(strides),
+        rank_n=(ctypes.c_int * _build.RS_MAX_RANKS)(*rank_n, *[0] * pad),
+        rank_base=(ctypes.c_int * _build.RS_MAX_RANKS)(
+            *[int(b) for b in base], *[0] * pad),
+        stride=(ctypes.c_int * _build.RS_MAX_SOURCES)(
+            *strides, *[0] * (_build.RS_MAX_SOURCES - len(strides))))
+
+
+class _RsLaunch:
+    """One K25 launch of a plan: its :class:`_build.Launch` over the
+    uploaded records, and the slice of the call's value pointers it
+    takes."""
+
+    __slots__ = ("launch", "lo", "hi", "array")
+
+    def __init__(self, launch: _build.Launch, lo: int, hi: int):
+        self.launch, self.lo, self.hi = launch, lo, hi
+        self.array = ctypes.c_uint64 * (hi - lo)
+
+    def __call__(self, grid_ptr: int, ptrs: list) -> None:
+        arr = self.array(*ptrs[self.lo:self.hi])
+        self.launch(grid_ptr, ctypes.addressof(arr))
+
+
+@functools.lru_cache(maxsize=256)
+def _rs_plan(items: tuple, grid_shape: tuple, values: tuple,
+             index: int) -> tuple:
+    """K25's launches for one call signature: the RS PDUs' items, the
+    grid's shape, each value source's (shape, dtype, CUDA device) and the
+    grid's CUDA device ``index``.  One :class:`_RsLaunch` for every
+    RS_MAX_SOURCES PDUs that reach a target, each holding its records."""
+    lead = tuple(grid_shape[:-3])
+    shape = tuple(grid_shape[-3:])
+    if any(dt != torch.complex64 for _, dt, _ in values):
+        raise ValueError(f"RS values must be complex64, got "
+                         f"{[dt for _, dt, _ in values]}")
+    devices = {d for _, _, d in values} | {index}
+    if len(devices) != 1:
+        raise ValueError(f"the grid and the RS values on CUDA devices "
+                         f"{sorted(devices)}")
+    n = _build.RS_MAX_SOURCES
+    launches = []
+    for c in range(0, len(items), n):
+        chunk = items[c:c + n]
+        plan = rs_plan(chunk, shape)
+        strides = _source_strides(tuple(v[0] for v in values[c:c + n]),
+                                  plan["shapes"], lead)
+        if not plan["tgt"].size:
+            continue
+        rec = rs_records(chunk, shape)
+        table = torch.from_numpy(rec["records"]).to(
+            torch.device("cuda", index))
+        launches.append(_RsLaunch(_build.Launch(
+            "srsran_rs_map", index, _rs_params(rec, strides, grid_shape),
+            (table,)), c, c + len(chunk)))
+    return tuple(launches)
+
+
 def rs_map(grid: torch.Tensor, items: tuple, values) -> torch.Tensor:
     """Add a slot's RS PDUs to the grid (in place); returns the grid.
 
@@ -161,44 +285,28 @@ def rs_map(grid: torch.Tensor, items: tuple, values) -> torch.Tensor:
     slot axis in front.  One launch for every RS_MAX_SOURCES PDUs (the
     launch's table of value sources; a slot of up to 32 RS PDUs takes
     one): a target's terms follow the PDUs' order, so launches in that
-    order add them as one launch would.
+    order add them as one launch would.  On the card: through the cached
+    plan of the call's signature (:func:`_rs_plan`); a call allocates
+    nothing on the device.
     """
     if not is_cuda(grid, *values):
         return rs_map_ref(grid, items, values)
-    lead = tuple(grid.shape[:-3])
-    if grid.dtype != torch.complex64 or not grid.is_contiguous() or len(lead) > 1:
+    if (grid.dtype != torch.complex64 or not grid.is_contiguous()
+            or grid.dim() not in (3, 4)):
         raise ValueError("the grid must be contiguous complex64 [(B,) P, S, K]")
     if len(items) != len(values):
         raise ValueError(f"{len(values)} value sources for {len(items)} "
                          f"RS PDUs")
-    n = _build.RS_MAX_SOURCES
-    for c in range(0, len(items), n):
-        _rs_launch(grid, tuple(items[c:c + n]), tuple(values[c:c + n]), lead)
+    plan = _rs_plan(tuple(items), grid.shape, tuple(
+        (v.shape, v.dtype, v.get_device()) for v in values),
+        grid.get_device())
+    vs = [v if v.is_contiguous() else v.contiguous() for v in values]
+    ptrs = [v.data_ptr() for v in vs]
+    g = grid.data_ptr()
+    for launch in plan:
+        launch(g, ptrs)
+        KERNEL_RS.count()
     return grid
-
-
-def _rs_launch(grid: torch.Tensor, items: tuple, values: tuple,
-               lead: tuple) -> None:
-    """One K25 launch for at most RS_MAX_SOURCES PDUs."""
-    shape = tuple(grid.shape[-3:])
-    plan = rs_plan(items, shape)
-    srcs = _sources(values, plan["shapes"], lead)
-    if not plan["tgt"].size:
-        return
-    dev = grid.device
-    arrays = [const(_plan_array, items, shape, name, device=dev)
-              for name in ("tgt", "start", "src", "idx", "w")]
-    s = _build.RsSources()
-    for i, (v, stride) in enumerate(srcs):
-        s.ptr[i] = v.data_ptr()
-        s.stride[i] = stride
-    lib = _build.load()
-    _build.check(lib.srsran_rs_map(
-        s, *[_build.ptr(a) for a in arrays], int(plan["tgt"].size),
-        _build.ptr(torch.view_as_real(grid)),
-        ctypes.c_longlong(int(np.prod(shape))), lead[0] if lead else 1,
-        _build.stream_of(grid)), "rs_map")
-    KERNEL_RS.count()
 
 
 # ------------------------------------------------------------------ K26

@@ -370,7 +370,7 @@ def test_receivers_take_shared_context(slot_inputs):
 
 _CTYPES = {"void*": _build._P, "const void*": _build._P, "int": _build._I,
            "float": _build._F, "double": _build._D, "long long": _build._L,
-           "RsSources": _build.RsSources, "ControlArgs": _build.ControlArgs}
+           "ControlArgs": _build.ControlArgs}
 
 
 def _c_entry_points() -> dict:

@@ -1635,21 +1635,107 @@ def test_pusch_demap_gold_offset(cuda, modulation):
 
 # ------------------------------------------ K20-K22 (the gNB simulator)
 
-@pytest.mark.parametrize("profile,cfo", [("TDLA", 0.0), ("TDLC", 600.0),
-                                         ("single-tap", 0.0)])
-def test_tdl_channel_kernel(cuda, profile, cfo):
+@pytest.mark.parametrize("profile,cfo,fading,r,k", [
+    ("TDLA", 0.0, "rayleigh", 2, 288), ("TDLC", 600.0, "rayleigh", 2, 288),
+    ("single-tap", 0.0, "rayleigh", 2, 288),
+    ("TDLA", 0.0, "rayleigh", 4, 3276),           # the gNB simulator's
+    ("TDLA", 0.0, "uniform-phase", 4, 3276),
+    ("TDLB", 0.0, "rayleigh", 1, 3276),
+    ("TDLC", 750.0, "uniform-phase", 1, 625)])    # odd K: 8-byte accesses
+def test_tdl_channel_kernel(cuda, profile, cfo, fading, r, k):
+    """K20 within 1e-5 of max|rx| and max|H| of its twin, and equal to
+    itself run to run (the partial sums reduce in a fixed order)."""
     from srsran_tpu_torch.emulation import channel as chan
-    cfg = chan.ChannelConfig(profile=profile, sinr_db=20.0, cfo_hz=cfo,
-                             nof_tx_ports=4, nof_rx_ports=2, nof_subc=288)
+    cfg = chan.ChannelConfig(profile=profile, fading=fading, sinr_db=20.0,
+                             cfo_hz=cfo, nof_tx_ports=4, nof_rx_ports=r,
+                             nof_subc=k)
     gen = torch.Generator(device=cuda)
     gen.manual_seed(7)
     gains, noise = chan.draw(cfg, gen)
-    tx = _cgauss(np.random.default_rng(2), (4, 14, 288)).to(cuda)
+    tx = _cgauss(np.random.default_rng(2), (4, 14, k)).to(cuda)
     rx, h = chan.apply(tx, cfg, gains, noise)
     rx_ref, h_ref = chan.apply_ref(tx, cfg, gains, noise)
     _close(h, h_ref, 1e-5)
     _close(rx, rx_ref, 1e-5)
     assert torch.equal(chan.apply(tx, cfg, gains, noise)[0], rx)
+
+
+def test_tdl_channel_kernel_on_views(cuda):
+    """K20 on inputs that are not 16-byte aligned (8-byte accesses) and on
+    non-contiguous ones, against its twin."""
+    from srsran_tpu_torch.emulation import channel as chan
+    cfg = chan.ChannelConfig(profile="TDLA", sinr_db=15.0, nof_tx_ports=2,
+                             nof_rx_ports=2, nof_subc=624)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3)
+    gains, noise = chan.draw(cfg, gen)
+    buf = _cgauss(np.random.default_rng(4), (2 * 14 * 624 + 1,)).to(cuda)
+    tx = buf[1:].view(2, 14, 624)                   # 8 bytes off
+    wide = _cgauss(np.random.default_rng(5), (2, 14, 1248)).to(cuda)
+    for x in (tx, wide[..., ::2]):
+        rx, h = chan.apply(x, cfg, gains, noise)
+        rx_ref, h_ref = chan.apply_ref(x, cfg, gains, noise)
+        _close(h, h_ref, 1e-5)
+        _close(rx, rx_ref, 1e-5)
+
+
+def test_tdl_channel_kernel_on_two_streams(cuda):
+    """One call signature on two streams at once, on grids of different
+    power: every call brings its own partial sums, so every call gives
+    the bits of the same call on the default stream."""
+    from srsran_tpu_torch.emulation import channel as chan
+    cfg = chan.ChannelConfig(profile="TDLA", sinr_db=28.0, nof_tx_ports=4,
+                             nof_rx_ports=4, nof_subc=3276)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(11)
+    gains, noise = chan.draw(cfg, gen)
+    txs = [_cgauss(np.random.default_rng(12 + i), (4, 14, 3276)).to(cuda)
+           * (1 + 3 * i) for i in range(2)]
+    want = [chan.apply(tx, cfg, gains, noise)[0] for tx in txs]
+    streams = [torch.cuda.Stream(cuda) for _ in txs]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(16):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(chan.apply(txs[i], cfg, gains, noise)[0])
+    torch.cuda.synchronize()
+    for i in range(2):
+        for out in outs[i]:
+            assert torch.equal(out, want[i])
+
+
+def test_tdl_channel_kernel_in_a_cuda_graph(cuda):
+    """K20 (its two launches, the second a programmatic dependent launch)
+    captured in a CUDA graph after one call on the current stream: each
+    replay gives the bits of the eager call on the same inputs."""
+    from srsran_tpu_torch.emulation import channel as chan
+    cfg = chan.ChannelConfig(profile="TDLA", sinr_db=28.0, nof_tx_ports=4,
+                             nof_rx_ports=4, nof_subc=3276)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(13)
+    gains, noise = chan.draw(cfg, gen)
+    tx = _cgauss(np.random.default_rng(14), (4, 14, 3276)).to(cuda)
+    want = chan.apply(tx, cfg, gains, noise)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = chan.apply(tx, cfg, gains, noise)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_tdl_channel_refuses_on_the_card(cuda):
+    from srsran_tpu_torch.emulation import channel as chan
+    cfg = chan.ChannelConfig(nof_tx_ports=9, nof_rx_ports=1, nof_subc=48)
+    tx = torch.zeros((9, 14, 48), dtype=torch.complex64, device=cuda)
+    gains = torch.zeros((1, 9, 12), dtype=torch.complex64, device=cuda)
+    noise = torch.zeros((1, 14, 48), dtype=torch.complex64, device=cuda)
+    with pytest.raises(ValueError, match="K20 takes 8 / 16"):
+        chan.apply(tx, cfg, gains, noise)
+    with pytest.raises(ValueError, match="complex64"):
+        chan.apply(tx.to(torch.complex128), cfg, gains, noise)
 
 
 @pytest.mark.parametrize("ports", [1, 4])
@@ -1900,13 +1986,15 @@ def _du_case(name, cuda):
 
 
 @pytest.mark.parametrize("name", [
-    "rs_map", "rs_map_trs", "rs_map_prs", "rs_map_many", "dmrs_map",
+    "rs_map", "rs_map_trs", "rs_map_prs", "rs_map_many", "rs_map_terms",
+    "dmrs_map",
     "dmrs_map_matrix", "dmrs_map_prg", "control_map", "control_map_al1",
     "control_map_al2", "control_map_al4", "control_map_al16",
     "control_map_ssb_static", "control_map_many", "control_map_overlap"])
 @pytest.mark.parametrize("batch", ["", "_b4"])
 def test_dl_map_kernels_bit_exact(cuda, name, batch):
-    """K25 (CSI-RS + PT-RS, TRS + PT-RS, PRS, 33 CSI-RS in two launches),
+    """K25 (CSI-RS + PT-RS, TRS + PT-RS, PRS, 33 CSI-RS in two launches,
+    targets of 1-3 terms at odd offsets),
     K26 (identity, a [4, 4] matrix, 69 PRG matrices) and K27 (SSB + PDCCH,
     each aggregation level, the SSB without its slot context, the SSB and
     17 DCIs in two launches) at the flagship shapes, bit-exact to their
@@ -1917,8 +2005,8 @@ def test_dl_map_kernels_bit_exact(cuda, name, batch):
 
 
 @pytest.mark.parametrize("name", ["rs_map", "dmrs_map_prg", "control_map",
-                                  "rs_map_many", "control_map_many",
-                                  "control_map_overlap"])
+                                  "rs_map_many", "rs_map_terms",
+                                  "control_map_many", "control_map_overlap"])
 def test_dl_map_kernels_slot_axis(cuda, name):
     """B = 4 in one launch equals four B = 1 launches on each slot's
     inputs (the slot axis reads the per-slot strides)."""

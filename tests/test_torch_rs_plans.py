@@ -30,8 +30,20 @@ random matrices bit-equal to the plain twin ``dmrs_map_ref`` and within
 1e-6 of max|ref| of JAX (XLA's complex products round in another order,
 as tests/test_torch_dl_rs.py holds the twin).  The pair layout reaches
 every DM-RS RE of the layers' CDM groups exactly once.
-Both launch structs' fields and limits against the C sources, and the
-refusals.
+K25 (csrc/dl_rs_map.cu, ``rs_map_kernel``): its 16-byte records
+(``dl_rs.rs_records``) decode to ``rs_plan``'s (target, source, index,
+weight) in the same per-target order, the targets sorted by descending
+term count so that rank r covers a prefix of rank_n[r] targets, every
+target reached once; and a numpy model of the kernel on the records and
+its struct (``dl_rs._rs_params``) -- per slot and target the grid value
+plus, rank by rank, value x weight, products and sums rounded one by one
+in float32, one launch per 32 PDUs -- bit-equal to the plain twin
+``rs_map_ref`` (which tests/test_torch_dl_rs.py holds to the JAX
+``csi_rs.process``, ``map_ptrs`` and ``map_prs``) on DU-low slots A-D,
+the 33-PDU case and targets of 1-3 terms at odd offsets, each with and
+without a slot axis of 4.
+The launch structs' fields and limits (K11, K20, K25, K26) against the C
+sources, and the refusals.
 """
 
 import dataclasses
@@ -79,7 +91,9 @@ def _c_constant(src: str, name: str) -> int:
 
 @pytest.mark.parametrize("src,struct,cls", [
     ("srs_estimate.cu", "SrsNoiseParams", _build.SrsNoiseParams),
-    ("dl_rs_map.cu", "DmrsMapParams", _build.DmrsMapParams)])
+    ("dl_rs_map.cu", "DmrsMapParams", _build.DmrsMapParams),
+    ("dl_rs_map.cu", "RsMapParams", _build.RsMapParams),
+    ("tdl_channel.cu", "TdlParams", _build.TdlParams)])
 def test_structs_match_the_sources(src, struct, cls):
     assert _c_struct_fields(src, struct) == [f for f, _ in cls._fields_]
 
@@ -91,7 +105,14 @@ def test_structs_match_the_sources(src, struct, cls):
     ("srs_estimate.cu", "kSrsMaxWarps", _build.SRS_MAX_WARPS),
     ("dl_rs_map.cu", "kMaxLayers", _build.DMRS_MAX_LAYERS),
     ("dl_rs_map.cu", "kMaxDmrsSymbols", _build.DMRS_MAX_SYMBOLS),
-    ("dl_rs_map.cu", "kDmrsMaxPorts", _build.DMRS_MAX_PORTS)])
+    ("dl_rs_map.cu", "kDmrsMaxPorts", _build.DMRS_MAX_PORTS),
+    ("dl_rs_map.cu", "kMaxSources", _build.RS_MAX_SOURCES),
+    ("dl_rs_map.cu", "kRsMaxRanks", _build.RS_MAX_RANKS),
+    ("dl_rs_map.cu", "kRsIndexBits", _build.RS_INDEX_BITS),
+    ("tdl_channel.cu", "kMaxTx", _build.TDL_MAX_TX),
+    ("tdl_channel.cu", "kMaxTaps", _build.TDL_MAX_TAPS),
+    ("tdl_channel.cu", "kTdlMaxWarps", _build.TDL_MAX_WARPS),
+    ("tdl_channel.cu", "kTdlMaxSmem", _build.TDL_MAX_SMEM)])
 def test_limits_match_the_sources(src, name, value):
     assert _c_constant(src, name) == value
 
@@ -558,3 +579,162 @@ def test_dmrs_plan_refuses_other_dtypes():
         dl_rs._dmrs_plan(((4, 14, 288), (2, 144), None),
                          (torch.complex128, C64), (0,), (2, 11),
                          range(0, 24), 0, 1, 0)
+
+
+# ------------------------------------------------------------------ K25
+
+RS_SHAPE = (4, 14, NSC)
+
+
+def _rs_case(name: str, batch=None):
+    """(items, values, grid) of a K25 case on the CPU: DU-low slot "A"-"D",
+    "many" (33 CSI-RS) or "terms" (1-3 terms a target at odd offsets)."""
+    from srsran_tpu_torch import flagship
+    rng = np.random.default_rng(25)
+    if name == "many":
+        return flagship._many_rs_args(rng, "cpu", batch)
+    if name == "terms":
+        return flagship.rs_terms_args(rng, "cpu", batch)
+    return flagship._du_slot_args("ABCD".index(name), rng, "cpu", batch)
+
+
+RS_CASES = ["A", "B", "C", "D", "many", "terms"]
+
+
+def _chunks(items):
+    n = _build.RS_MAX_SOURCES
+    return [items[c:c + n] for c in range(0, len(items), n)]
+
+
+@pytest.mark.parametrize("name", RS_CASES)
+def test_rs_records_decode_to_the_plan(name):
+    """Each target's records, rank by rank, are rs_plan's terms of that
+    target in order; the ranks cover prefixes of the targets sorted by
+    descending term count; every target is reached once."""
+    items, _, _ = _rs_case(name)
+    for chunk in _chunks(items):
+        plan = dl_rs.rs_plan(chunk, RS_SHAPE)
+        rec = dl_rs.rs_records(chunk, RS_SHAPE)
+        counts = np.diff(plan["start"])
+        order, rank_n, r = rec["order"], rec["rank_n"], rec["records"]
+        assert len(rank_n) == (counts.max() if counts.size else 0)
+        assert r.shape == (plan["src"].size, 4)
+        assert np.all(np.diff(counts[order]) <= 0)
+        for q, n in enumerate(rank_n):
+            assert n == int((counts > q).sum())
+            assert np.all(counts[order[:n]] > q)
+        base = np.concatenate([[0], np.cumsum(rank_n)])
+        for q, n in enumerate(rank_n):
+            rq = r[base[q]:base[q + 1]]
+            j = plan["start"][order[:n]] + q
+            np.testing.assert_array_equal(rq[:, 0], plan["tgt"][order[:n]])
+            word = rq[:, 1].view(np.uint32)
+            np.testing.assert_array_equal(word >> _build.RS_INDEX_BITS,
+                                          plan["src"][j])
+            np.testing.assert_array_equal(
+                word & ((1 << _build.RS_INDEX_BITS) - 1), plan["idx"][j])
+            np.testing.assert_array_equal(
+                rq[:, 2:].copy().view(np.complex64)[:, 0], plan["w"][j])
+        if rank_n:
+            tgt0 = r[:rank_n[0], 0]
+            assert np.unique(tgt0).size == tgt0.size == plan["tgt"].size
+            assert set(tgt0.tolist()) == set(plan["tgt"].tolist())
+
+
+def test_rs_records_of_the_du_slots():
+    """The DU-low slots' targets have one term each (slot A 3,554, TRS +
+    PT-RS 2,189, the PRS 9,792), the 33 CSI-RS case's first launch 6,552
+    of one and 9,828 of two, its second 819 of one."""
+    got = [dl_rs.rs_records(chunk, RS_SHAPE)["rank_n"]
+           for name in ("A", "B", "C", "many")
+           for chunk in _chunks(_rs_case(name)[0])]
+    assert got == [(3554,), (2189,), (9792,), (16380, 9828), (819,)]
+
+
+def _rs_model(grid: np.ndarray, items: tuple, values: list) -> np.ndarray:
+    """K25 on numpy inputs from its records and struct: one launch per 32
+    PDUs, per slot and target the grid value plus, rank by rank, the
+    record's value x weight (products and sums rounded in float32)."""
+    lead = tuple(grid.shape[:-3])
+    nb = lead[0] if lead else 1
+    g = grid.reshape(nb, -1).copy()
+    n = _build.RS_MAX_SOURCES
+    for c in range(0, len(items), n):
+        chunk, vals = items[c:c + n], values[c:c + n]
+        plan = dl_rs.rs_plan(chunk, RS_SHAPE)
+        if not plan["tgt"].size:
+            continue
+        rec = dl_rs.rs_records(chunk, RS_SHAPE)
+        strides = dl_rs._source_strides(tuple(v.shape for v in vals),
+                                         plan["shapes"], lead)
+        p = dl_rs._rs_params(rec, strides, grid.shape)
+        assert (p.ntgt, p.nslots, p.grid_stride) == (
+            rec["rank_n"][0], nb, int(np.prod(RS_SHAPE)))
+        flat = np.concatenate([v.reshape(-1) for v in vals])
+        vbase = np.concatenate([[0], np.cumsum([v.size for v in vals])])
+        r = rec["records"]
+        for b in range(nb):
+            off = r[:p.ntgt, 0]
+            acc_r = g[b, off].real.astype(F32)
+            acc_i = g[b, off].imag.astype(F32)
+            for q in range(p.nranks):
+                rq = r[p.rank_base[q]:p.rank_base[q] + p.rank_n[q]]
+                word = rq[:, 1].view(np.uint32)
+                src = (word >> _build.RS_INDEX_BITS).astype(np.int64)
+                idx = word & ((1 << _build.RS_INDEX_BITS) - 1)
+                stride = np.array(list(p.stride))[src]
+                v = flat[vbase[src] + b * stride + idx]
+                wr, wi = rq[:, 2].view(F32), rq[:, 3].view(F32)
+                vr, vi = v.real.astype(F32), v.imag.astype(F32)
+                m = p.rank_n[q]
+                acc_r[:m] = acc_r[:m] + (vr * wr - vi * wi)
+                acc_i[:m] = acc_i[:m] + (vr * wi + vi * wr)
+            out = np.empty(off.size, np.complex64)
+            out.real, out.imag = acc_r, acc_i
+            g[b, off] = out
+    return g.reshape(grid.shape)
+
+
+@pytest.mark.parametrize("name", RS_CASES)
+@pytest.mark.parametrize("batch", [None, 4])
+def test_rs_kernel_model_bit_equal_to_the_twin(name, batch):
+    items, values, grid = _rs_case(name, batch)
+    want = dl_rs.rs_map_ref(grid.clone(), items, values)
+    got = _rs_model(grid.numpy(), items, [v.numpy() for v in values])
+    assert np.array_equal(
+        torch.view_as_real(want).numpy().view(np.int32).reshape(-1),
+        got.view(np.float32).view(np.int32).reshape(-1))
+
+
+def _one_term(k: int, idx: int) -> tuple:
+    """K25 blocks: value ``idx`` at subcarrier ``k`` of port 0, symbol 0."""
+    return (idx + 1,), ((0, 0, np.array([k]), np.array([idx]), 1.0),)
+
+
+@pytest.mark.parametrize("items,shape,match", [
+    (tuple((_one_term, (3, 0)) for _ in range(17)), RS_SHAPE,
+     "17 terms \\(K25 takes 16, RS_MAX_RANKS\\)"),
+    (((_one_term, (3, 1 << 27)),), RS_SHAPE,
+     "index of 134217728 \\(K25 takes < 2\\^27, RS_INDEX_BITS\\)"),
+    (((_one_term, (3, 0)),), (8, 14, 1 << 25), "2\\^31 elements")])
+def test_rs_refusals_name_their_limit(items, shape, match):
+    with pytest.raises(ValueError, match=match):
+        dl_rs.rs_records(items, shape)
+
+
+def test_rs_params_refuse_a_grid_of_2_31():
+    items = ((_one_term, (3, 0)),)
+    rec = dl_rs.rs_records(items, RS_SHAPE)
+    dl_rs._rs_params(rec, (0,), (4,) + RS_SHAPE)
+    with pytest.raises(ValueError, match="2\\^31 elements"):
+        dl_rs._rs_params(rec, (0,), (12000,) + RS_SHAPE)
+
+
+def test_rs_plan_refuses_other_dtypes_and_devices():
+    items = ((_one_term, (3, 0)),)
+    with pytest.raises(ValueError, match="complex64"):
+        dl_rs._rs_plan(items, RS_SHAPE, (((1,), torch.complex128, 0),), 0)
+    with pytest.raises(ValueError, match="CUDA devices"):
+        dl_rs._rs_plan(items, RS_SHAPE, (((1,), C64, 1),), 0)
+    with pytest.raises(ValueError, match="RS values"):
+        dl_rs._rs_plan(items, RS_SHAPE, (((2,), C64, 0),), 0)
